@@ -1,0 +1,395 @@
+"""Llama-3/3.1 in PyTorch, LUT-quantized; counterpart of
+``flute_tpu/models/llama.py``.
+
+Params are a plain dict in the JAX package's layout (``embed``, ``layers``
+[a list of per-block dicts], ``final_norm``, ``lm_head``), so weights carry
+over leaf for leaf. Linear leaves are dense ``[in, out]`` tensors or
+:class:`flute_tpu_torch.nn.QuantizedLinear` modules.
+
+Numerics follow the JAX model: RMSNorm statistics in f32; RoPE cos/sin
+cast to the compute dtype before the rotation; attention scores in f32
+with a finite -1e30 mask and probabilities cast back to the compute dtype;
+dense projections accumulate in f32 and round to the compute dtype; the
+dense lm_head returns f32 logits from an f32-accumulated product.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from flute_tpu_torch.device import resolve_device
+from flute_tpu_torch.nn import QuantizedLinear, quantize_linear
+
+
+@dataclasses.dataclass(frozen=True)
+class LlamaConfig:
+    vocab_size: int = 128256
+    hidden_size: int = 4096
+    intermediate_size: int = 14336
+    num_layers: int = 32
+    num_heads: int = 32
+    num_kv_heads: int = 8
+    head_dim: int = 128
+    rms_norm_eps: float = 1e-5
+    rope_theta: float = 500000.0
+    # Llama-3.1 rope scaling ("llama3" type); None disables.
+    rope_scaling_factor: Optional[float] = 8.0
+    rope_low_freq_factor: float = 1.0
+    rope_high_freq_factor: float = 4.0
+    rope_original_max_position: int = 8192
+    tie_word_embeddings: bool = False
+    dtype: torch.dtype = torch.bfloat16
+
+    @staticmethod
+    def llama31_8b() -> "LlamaConfig":
+        return LlamaConfig()
+
+    @staticmethod
+    def tiny(vocab_size: int = 512) -> "LlamaConfig":
+        """A miniature config for tests: real architecture (GQA, RoPE
+        scaling, SwiGLU), toy sizes aligned to pack chunks."""
+        return LlamaConfig(
+            vocab_size=vocab_size,
+            hidden_size=256,
+            intermediate_size=512,
+            num_layers=2,
+            num_heads=4,
+            num_kv_heads=2,
+            head_dim=128,
+        )
+
+
+# ---------------------------------------------------------------------------
+# Building blocks
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * weight.float()).to(x.dtype)
+
+
+def apply_linear(layer, x: torch.Tensor) -> torch.Tensor:
+    """A quantized module, or a dense ``[in, out]`` tensor cast to x's dtype,
+    multiplied with f32 accumulation and rounded to x's dtype."""
+    if isinstance(layer, torch.nn.Module):
+        return layer(x)
+    return torch.matmul(x.float(), layer.to(x.dtype).float()).to(x.dtype)
+
+
+def split_fused_qkv(
+    qkv: torch.Tensor, num_heads: int, num_kv_heads: int, head_dim: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Split a fused qkv projection output [B, T, W] into (q, k, v) heads."""
+    b, t, w = qkv.shape
+    d = head_dim
+    total = (num_heads + 2 * num_kv_heads) * d
+    f, rem = divmod(total, w)
+    if rem or num_heads % f or num_kv_heads % f:
+        raise ValueError(
+            f"fused qkv width {w} is not a 1/tp slice of {total} "
+            f"(heads {num_heads}/{num_kv_heads} must divide by tp)"
+        )
+    qd = num_heads * d // f
+    kvd = num_kv_heads * d // f
+    q = qkv[..., :qd].reshape(b, t, -1, d)
+    k = qkv[..., qd:qd + kvd].reshape(b, t, -1, d)
+    v = qkv[..., qd + kvd:].reshape(b, t, -1, d)
+    return q, k, v
+
+
+def _rope_inv_freq(config: LlamaConfig) -> np.ndarray:
+    d = config.head_dim
+    inv = 1.0 / (config.rope_theta ** (np.arange(0, d, 2, dtype=np.float64) / d))
+    if config.rope_scaling_factor is not None:
+        # Llama-3.1 NTK-by-parts scaling (HF "llama3" rope type)
+        factor = config.rope_scaling_factor
+        low = config.rope_original_max_position / config.rope_low_freq_factor
+        high = config.rope_original_max_position / config.rope_high_freq_factor
+        wavelen = 2 * np.pi / inv
+        smooth = (config.rope_original_max_position / wavelen - config.rope_low_freq_factor) / (
+            config.rope_high_freq_factor - config.rope_low_freq_factor
+        )
+        smooth = np.clip(smooth, 0.0, 1.0)
+        scaled = (1 - smooth) * inv / factor + smooth * inv
+        inv = np.where(wavelen > low, inv / factor, np.where(wavelen < high, inv, scaled))
+    return inv.astype(np.float32)
+
+
+def rope_tables(
+    config: LlamaConfig, positions: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin tables ``[B, T, head_dim//2]`` for integer positions [B, T]."""
+    inv = torch.from_numpy(_rope_inv_freq(config)).to(positions.device)
+    ang = positions.float()[..., None] * inv
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Rotate ``[B, T, H, D]`` (half-split convention, as HF Llama)."""
+    d2 = x.shape[-1] // 2
+    x1, x2 = x[..., :d2], x[..., d2:]
+    cos = cos[:, :, None, :].to(x.dtype)
+    sin = sin[:, :, None, :].to(x.dtype)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+def gqa_attention(
+    q: torch.Tensor,  # [B, T, H, D]
+    k: torch.Tensor,  # [B, Hkv, S, D] (head-major cache layout)
+    v: torch.Tensor,  # [B, Hkv, S, D]
+    mask: torch.Tensor,  # [B, T, S] bool (True = attend)
+    *,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """GQA attention over a head-major KV cache, in plain matmul/softmax:
+    f32 scores, a finite -1e30 mask, probabilities in the compute dtype."""
+    b, t, h, d = q.shape
+    hkv = k.shape[1]
+    rep = h // hkv
+    scale = scale if scale is not None else d**-0.5
+    qm = q.reshape(b, t, hkv, rep, d).permute(0, 2, 3, 1, 4).reshape(b, hkv, rep * t, d)
+    scores = torch.matmul(qm.float(), k.float().transpose(-1, -2)) * scale
+    scores = scores.reshape(b, hkv, rep, t, -1)
+    scores = scores.masked_fill(~mask[:, None, None, :, :], -1e30)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.matmul(probs.reshape(b, hkv, rep * t, -1).float(), v.float())
+    out = out.reshape(b, hkv, rep, t, d).permute(0, 3, 1, 2, 4)
+    return out.reshape(b, t, h, d).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# KV cache
+# ---------------------------------------------------------------------------
+
+
+def init_cache(
+    config: LlamaConfig, batch: int, max_len: int, dtype=None, device=None
+) -> dict:
+    """Preallocated KV cache: per-layer head-major [B, Hkv, S, D] tensors."""
+    dev = resolve_device(device)
+    dtype = dtype or config.dtype
+    shape = (batch, config.num_kv_heads, max_len, config.head_dim)
+    return {
+        "k": [torch.zeros(shape, dtype=dtype, device=dev) for _ in range(config.num_layers)],
+        "v": [torch.zeros(shape, dtype=dtype, device=dev) for _ in range(config.num_layers)],
+    }
+
+
+def _cache_update(cache_layer: torch.Tensor, new: torch.Tensor, pos) -> None:
+    """Write ``new`` [B, T, Hkv, D] into the [B, Hkv, S, D] cache at slot
+    ``pos`` (an int, or a [B] tensor of one slot per sequence).
+
+    Unlike the JAX model, which returns an updated copy, this writes in place
+    into the preallocated cache: a slice assignment for a scalar slot,
+    an indexed write for per-sequence slots."""
+    new = new.to(cache_layer.dtype)
+    t = new.shape[1]
+    if isinstance(pos, int):
+        cache_layer[:, :, pos:pos + t] = new.transpose(1, 2)
+        return
+    b = new.shape[0]
+    slots = pos[:, None] + torch.arange(t, device=pos.device)[None, :]  # [B, T]
+    rows = torch.arange(b, device=pos.device)[:, None]
+    cache_layer[rows, :, slots] = new  # advanced dims first: [B, T, Hkv, D]
+
+
+# ---------------------------------------------------------------------------
+# Forward pass
+# ---------------------------------------------------------------------------
+
+
+def _block(
+    params: dict,
+    config: LlamaConfig,
+    x: torch.Tensor,  # [B, T, hidden]
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    pos,  # int, or [B] tensor of per-sequence slots
+    mask: torch.Tensor,  # [B, T, S]
+) -> torch.Tensor:
+    b, t, _ = x.shape
+    d = config.head_dim
+    h = rms_norm(x, params["attn_norm"], config.rms_norm_eps)
+    if "qkv" in params:
+        qkv = apply_linear(params["qkv"], h)
+        q, k, v = split_fused_qkv(qkv, config.num_heads, config.num_kv_heads, d)
+    else:
+        q = apply_linear(params["q"], h).reshape(b, t, -1, d)
+        k = apply_linear(params["k"], h).reshape(b, t, -1, d)
+        v = apply_linear(params["v"], h).reshape(b, t, -1, d)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    _cache_update(k_cache, k, pos)
+    _cache_update(v_cache, v, pos)
+    attn = gqa_attention(q, k_cache, v_cache, mask)
+    x = x + apply_linear(params["o"], attn.reshape(b, t, -1))
+
+    h = rms_norm(x, params["mlp_norm"], config.rms_norm_eps)
+    if "gate_up" in params:
+        gu = apply_linear(params["gate_up"], h)
+        inter = gu.shape[-1] // 2
+        gate, up = gu[..., :inter], gu[..., inter:]
+    else:
+        gate = apply_linear(params["gate"], h)
+        up = apply_linear(params["up"], h)
+    down = apply_linear(params["down"], torch.nn.functional.silu(gate) * up)
+    return x + down
+
+
+def forward(
+    params: dict,
+    config: LlamaConfig,
+    tokens: torch.Tensor,  # [B, T] integer
+    cache: dict,
+    pos,  # int or scalar/[B] tensor: cache slot of tokens[:, 0]
+    position_offsets: Optional[torch.Tensor] = None,  # [B] left-pad widths
+) -> tuple[torch.Tensor, dict]:
+    """Run the model over a token chunk, returning f32 logits [B, T, vocab]
+    and the cache (updated in place). Prefill (T = chunk) and decode (T = 1).
+
+    Ragged batches are left-padded: sequence i's real tokens start at slot
+    ``position_offsets[i]``; its RoPE position at slot j is
+    ``j - position_offsets[i]`` and earlier slots are masked out.
+    """
+    b, t = tokens.shape
+    dev = tokens.device
+    s = cache["k"][0].shape[2]
+    x = params["embed"][tokens.long()].to(config.dtype)
+
+    # pos: one slot for the whole batch (kept a host int, so cache writes
+    # are plain slices) or a [B] tensor of per-sequence slots
+    if isinstance(pos, torch.Tensor) and pos.ndim == 1:
+        pos = pos.to(device=dev, dtype=torch.int64)
+        pos_col = pos[:, None]
+    else:
+        pos = int(pos)
+        pos_col = pos
+    slots = pos_col + torch.arange(t, device=dev)[None, :]  # [1|B, T]
+    if position_offsets is None:
+        positions = slots.expand(b, t)
+    else:
+        offs = position_offsets.to(device=dev, dtype=torch.int64)
+        positions = torch.clamp(slots - offs[:, None], min=0)
+    cos, sin = rope_tables(config, positions)
+
+    # mask[b, i, j]: query in slot pos+i attends cache slot j iff j <= pos+i
+    # and j is not a left-pad slot
+    js = torch.arange(s, device=dev)[None, None, :]
+    mask = (js <= slots[:, :, None]).expand(b, t, s)
+    if position_offsets is not None:
+        mask = mask & (js >= offs[:, None, None])
+
+    for li, layer in enumerate(params["layers"]):
+        x = _block(layer, config, x, cos, sin, cache["k"][li], cache["v"][li], pos, mask)
+
+    x = rms_norm(x, params["final_norm"], config.rms_norm_eps)
+    head = params["lm_head"] if params.get("lm_head") is not None else params["embed"].T
+    if isinstance(head, QuantizedLinear):
+        logits = head(x)[..., :config.vocab_size]
+    else:
+        # f32 logits from an f32-accumulated product, never rounded to bf16
+        logits = torch.matmul(x.float(), head.float())
+    return logits.float(), cache
+
+
+# ---------------------------------------------------------------------------
+# Random init and quantization
+# ---------------------------------------------------------------------------
+
+
+def init_params(
+    config: LlamaConfig, seed: int = 0, scale: float = 0.02, device=None
+) -> dict:
+    """Dense random params (linear leaves ``[in, out]``), drawn from a
+    ``torch.Generator`` seeded with ``seed`` on the target device."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    c = config
+    qdim = c.num_heads * c.head_dim
+    kvdim = c.num_kv_heads * c.head_dim
+
+    def randn(*shape):
+        w = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
+        return (w * scale).to(c.dtype)
+
+    def ones(n):
+        return torch.ones((n,), dtype=c.dtype, device=dev)
+
+    layers = []
+    for _ in range(c.num_layers):
+        layers.append(
+            {
+                "attn_norm": ones(c.hidden_size),
+                "q": randn(c.hidden_size, qdim),
+                "k": randn(c.hidden_size, kvdim),
+                "v": randn(c.hidden_size, kvdim),
+                "o": randn(qdim, c.hidden_size),
+                "mlp_norm": ones(c.hidden_size),
+                "gate": randn(c.hidden_size, c.intermediate_size),
+                "up": randn(c.hidden_size, c.intermediate_size),
+                "down": randn(c.intermediate_size, c.hidden_size),
+            }
+        )
+    return {
+        "embed": randn(c.vocab_size, c.hidden_size),
+        "layers": layers,
+        "final_norm": ones(c.hidden_size),
+        "lm_head": None if c.tie_word_embeddings else randn(c.hidden_size, c.vocab_size),
+    }
+
+
+_PROJ_KEYS = ("q", "k", "v", "o", "gate", "up", "down")
+
+
+def quantize_model(
+    params: dict,
+    num_bits: int = 4,
+    group_size: int = 64,
+    *,
+    chunk: Optional[int] = None,
+    fuse: bool = False,
+    symmetric: Optional[bool] = None,
+    device=None,
+) -> dict:
+    """Quantize the seven projections of every block (embeddings, norms and
+    lm_head stay dense) on ``device`` (``cuda`` unless named).
+
+    ``fuse=True`` merges q/k/v into one ``qkv`` and gate/up into one
+    ``gate_up`` projection: one kernel launch each.
+    """
+    dev = resolve_device(device)
+    kw = {"device": dev}
+    if chunk is not None:
+        kw["chunk"] = chunk
+    if symmetric is not None:
+        kw["symmetric"] = symmetric
+
+    def quant(w):
+        return quantize_linear(w.to(dev).T, num_bits, group_size, **kw)  # [out, in]
+
+    out = dict(params)
+    out["layers"] = []
+    for layer in params["layers"]:
+        new_layer = dict(layer)
+        keys = _PROJ_KEYS
+        if fuse:
+            new_layer["qkv"] = quant(torch.cat([layer[k2] for k2 in ("q", "k", "v")], dim=1))
+            new_layer["gate_up"] = quant(torch.cat([layer[k2] for k2 in ("gate", "up")], dim=1))
+            for k2 in ("q", "k", "v", "gate", "up"):
+                del new_layer[k2]
+            keys = ("o", "down")
+        for key in keys:
+            w = layer[key]
+            new_layer[key] = w if isinstance(w, QuantizedLinear) else quant(w)
+        out["layers"].append(new_layer)
+    return out

@@ -1,0 +1,242 @@
+"""Quantized module layer, counterpart of ``flute_tpu/nn.py``.
+
+``QuantizedLinear`` is an ``nn.Module`` whose packed planes, scales, table
+and bias are buffers, and whose quantization metadata (``num_bits``,
+``group_size``, ``layout``, ``config_key`` and the ``chunk`` it carries)
+are attributes. ``layout`` must travel with the module: the w4sym layout has
+the plane shape of classic W4 and cannot be told from it.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from flute_tpu_torch import packing
+from flute_tpu_torch.device import resolve_device
+from flute_tpu_torch.ops import lut_gemm
+from flute_tpu_torch.ops.kernel_config import KernelConfig
+from flute_tpu_torch.quantize import nf
+
+
+class QuantizedLinear(nn.Module):
+    """A LUT-quantized linear layer: ``y = x @ dequant(W) + bias``.
+
+    Tensor contract (that of :func:`flute_tpu_torch.ops.lut_gemm.lut_qgemm`):
+    planes packed int32 for logical codes ``[K, N]`` (K = in_features,
+    N = out_features); scales ``[K // group_size, N]`` in the compute dtype;
+    table float32 ``[2^num_bits]``; optional bias ``[N]``.
+    """
+
+    def __init__(
+        self,
+        planes,
+        scales: torch.Tensor,
+        table: torch.Tensor,
+        bias: Optional[torch.Tensor] = None,
+        *,
+        num_bits: int = 4,
+        group_size: int = 64,
+        config_key: Optional[str] = None,
+        layout: str = "auto",
+    ):
+        super().__init__()
+        self.num_planes = len(planes)
+        for i, p in enumerate(planes):
+            self.register_buffer(f"plane{i}", p)
+        self.register_buffer("scales", scales)
+        self.register_buffer("table", table)
+        self.register_buffer("bias", bias)
+        self.num_bits = num_bits
+        self.group_size = group_size
+        self.config_key = config_key
+        self.layout = layout
+
+    @property
+    def planes(self) -> tuple[torch.Tensor, ...]:
+        return tuple(getattr(self, f"plane{i}") for i in range(self.num_planes))
+
+    @property
+    def in_features(self) -> int:
+        return self.scales.shape[0] * self.group_size
+
+    @property
+    def out_features(self) -> int:
+        return self.scales.shape[1]
+
+    @property
+    def config(self) -> Optional[KernelConfig]:
+        if self.config_key is None:
+            return None
+        return KernelConfig.from_key(self.config_key)
+
+    @property
+    def chunk(self) -> int:
+        """Pack chunk of the planes (part of the layout, kept in the key)."""
+        return (self.config or KernelConfig()).chunk
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = lut_gemm.lut_qgemm(
+            x,
+            list(self.planes),
+            self.scales,
+            self.table,
+            num_bits=self.num_bits,
+            config=self.config,
+            layout=self.layout,
+        )
+        if self.bias is not None:
+            y = y + self.bias.to(y.dtype)
+        return y
+
+    def dequantize(self, dtype=torch.bfloat16) -> torch.Tensor:
+        """Materialize the dense ``[in, out]`` weight (for tests/debug)."""
+        codes = packing.unpack(
+            list(self.planes), self.num_bits, chunk=self.chunk, layout=self.layout
+        )
+        return lut_gemm.dequantize_codes(codes, self.scales, self.table, dtype)
+
+    def extra_repr(self) -> str:
+        return (
+            f"in={self.in_features}, out={self.out_features}, bits={self.num_bits}, "
+            f"group={self.group_size}, layout={self.layout}, chunk={self.chunk}"
+        )
+
+
+def _pack(codes_kn: torch.Tensor, num_bits: int, chunk: int, wide: bool, layout: str):
+    """Pack on the codes' device: w4sym with the torch packer, the other
+    layouts through the numpy reference packers."""
+    if layout == "w4sym":
+        return [packing.pack_w4_sym(codes_kn, chunk=chunk)]
+    return packing.pack(codes_kn, num_bits, chunk=chunk, wide=wide)
+
+
+def quantize_linear(
+    weight,
+    num_bits: int = 4,
+    group_size: int = 64,
+    *,
+    bias: Optional[torch.Tensor] = None,
+    dtype: torch.dtype = torch.bfloat16,
+    custom_scales: Optional[torch.Tensor] = None,
+    table=None,
+    chunk: int = packing.DEFAULT_CHUNK,
+    wide: Optional[bool] = None,
+    symmetric: Optional[bool] = None,
+    device=None,
+) -> QuantizedLinear:
+    """NF-quantize a dense ``[out, in]`` weight into a :class:`QuantizedLinear`.
+
+    Runs on ``device``: by default the weight's own device for a tensor,
+    else ``cuda`` (with no GPU, pass ``device="cpu"``).
+
+    ``symmetric``: quantize against the sign-symmetric NF grid and pack the
+    w4sym layout (4-bit only). Default: True for 4-bit when no table was
+    supplied. A supplied ``table`` is used as-is; if it meets the
+    sign-symmetric contract, in sign-magnitude or ascending order, the
+    w4sym layout is chosen.
+    """
+    if isinstance(weight, torch.Tensor) and device is None:
+        dev = weight.device
+    else:
+        dev = resolve_device(device)
+    w = torch.as_tensor(weight).to(dev)
+    if custom_scales is not None:
+        custom_scales = custom_scales.to(dev)
+    if symmetric is None:
+        symmetric = num_bits == 4 and table is None and chunk % 8 == 0
+    layout = "auto"
+    if table is None:
+        if symmetric:
+            if num_bits != 4:
+                raise ValueError("symmetric NF quantization requires num_bits=4")
+            _, codes, scales, table = nf.nf_quantize_symmetric(
+                w, num_bits, group_size, custom_scales=custom_scales
+            )
+            layout = "w4sym"
+        else:
+            _, codes, scales, table = nf.nf_quantize(
+                w, num_bits, group_size, custom_scales=custom_scales
+            )
+    else:
+        table = torch.as_tensor(table, dtype=torch.float32).to(dev)
+        t_np = table.cpu().numpy()
+        if num_bits == 4 and packing.is_symmetric_table(t_np, num_bits):
+            # sign-magnitude-ordered symmetric table: quantize via the
+            # ascending view, map codes back, pack the w4sym layout
+            order = torch.from_numpy(np.argsort(t_np)).to(dev)
+            _, codes_sorted, scales = nf.quantize_with_table(
+                w, table[order], group_size, custom_scales
+            )
+            codes = order.to(torch.int32)[codes_sorted.long()]
+            layout = "w4sym"
+        elif num_bits == 4 and packing.is_ascending_symmetric_table(t_np, num_bits):
+            # ascending symmetric table (e.g. learnable grids): reorder to
+            # sign-magnitude codes and take the w4sym layout
+            table_sym, perm = packing.sym_code_order(t_np)
+            _, codes_asc, scales = nf.quantize_with_table(
+                w, table, group_size, custom_scales
+            )
+            codes = torch.from_numpy(perm).to(dev, torch.int32)[codes_asc.long()]
+            table = torch.from_numpy(table_sym).to(dev)
+            layout = "w4sym"
+        else:
+            _, codes, scales = nf.quantize_with_table(
+                w, table, group_size, custom_scales
+            )
+    codes_kn = codes.T.contiguous()  # [K, N]
+    if wide is None:
+        wide = num_bits == 3 and chunk % 256 == 0
+    elif wide and (num_bits != 3 or chunk % 256 != 0):
+        raise ValueError("wide layout requires num_bits=3 and chunk % 256 == 0")
+    planes = _pack(codes_kn, num_bits, chunk, wide, layout)
+    scales_kn = scales.T.to(dtype).contiguous()  # [K/g, N]
+    return QuantizedLinear(
+        planes,
+        scales_kn,
+        table.to(device=dev, dtype=torch.float32),
+        None if bias is None else torch.as_tensor(bias).to(dev),
+        num_bits=num_bits,
+        group_size=group_size,
+        config_key=KernelConfig(chunk=chunk).key(),
+        layout=layout,
+    )
+
+
+def quantize_params(
+    params: Any,
+    num_bits: int = 4,
+    group_size: int = 64,
+    *,
+    dtype: torch.dtype = torch.bfloat16,
+    predicate: Optional[Callable[[tuple, torch.Tensor], bool]] = None,
+) -> Any:
+    """Walk a nested dict/list of tensors, replacing 2-D ``[out, in]``
+    weights with :class:`QuantizedLinear` modules on the weight's device.
+
+    ``predicate(path, leaf)`` selects the leaves (``path`` is the tuple of
+    keys and indices); default: every 2-D tensor whose in-dim divides by
+    ``group_size`` and by the pack chunk. 1-D leaves are untouched.
+    """
+
+    def default_predicate(path, leaf):
+        if not (isinstance(leaf, torch.Tensor) and leaf.ndim == 2):
+            return False
+        k = leaf.shape[1]
+        return k % group_size == 0 and k % packing.DEFAULT_CHUNK == 0
+
+    pred = predicate or default_predicate
+
+    def visit(path, node):
+        if isinstance(node, dict):
+            return {k: visit(path + (k,), v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(visit(path + (i,), v) for i, v in enumerate(node))
+        if isinstance(node, torch.Tensor) and pred(path, node):
+            return quantize_linear(node, num_bits, group_size, dtype=dtype)
+        return node
+
+    return visit((), params)

@@ -1,0 +1,84 @@
+"""Kernel configuration: the persisted config key and the Hopper launch shape.
+
+``KernelConfig`` keeps the key format of ``flute_tpu/ops/kernel_config.py``
+so that ``config_key`` strings stored with quantized weights still parse.
+Its block sizes describe TPU tiles and the CUDA launch ignores them; its
+``chunk`` is part of the packed layout and is honoured. The TPU device
+profiles and tuned registry are TPU-calibrated and have no counterpart here.
+
+``LaunchConfig`` is what the Hopper w4sym kernel
+(``csrc/lut_gemm_w4sym.cu``) actually takes.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import re
+from typing import ClassVar
+
+DEFAULT_CHUNK = 256
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelConfig:
+    """A persisted kernel config (TPU block shapes + layout chunk)."""
+
+    block_m: int = 16
+    block_n: int = 2048
+    block_k: int = 1024
+    lut_mode: str = "gather8"
+    # pack chunk the weight layout was built with
+    chunk: int = DEFAULT_CHUNK
+    accum: str = "high"
+
+    def key(self) -> str:
+        # `_s1` is still emitted so keys match the persisted ones
+        base = (
+            f"m{self.block_m}n{self.block_n}k{self.block_k}"
+            f"_{self.lut_mode}_c{self.chunk}_s1"
+        )
+        if self.accum != "high":
+            base += f"_a{self.accum}"
+        return base
+
+    @staticmethod
+    def from_key(key: str) -> "KernelConfig":
+        m = re.fullmatch(
+            r"m(\d+)n(\d+)k(\d+)_([a-z0-9_]+?)_c(\d+)(?:_s\d+)?(?:_a([a-z0-9]+))?",
+            key,
+        )
+        if m is None:
+            raise ValueError(f"Bad KernelConfig key: {key}")
+        return KernelConfig(
+            block_m=int(m.group(1)),
+            block_n=int(m.group(2)),
+            block_k=int(m.group(3)),
+            lut_mode=m.group(4),
+            chunk=int(m.group(5)),
+            accum=m.group(6) or "high",
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchConfig:
+    """Launch shape of the w4sym kernel. ``threads`` (eight warps that split
+    each pack chunk's words) and ``block_n`` (one output column per lane)
+    are fixed in ``csrc/lut_gemm_w4sym.cu`` (``kThreads``, ``kBlockN``);
+    ``block_m``, the rows of M per block, is chosen per call."""
+
+    block_m: int = 8
+    threads: ClassVar[int] = 256
+    block_n: ClassVar[int] = 32
+
+
+# block_m values the kernel is instantiated for
+BLOCK_M_CHOICES = (1, 2, 4, 8)
+
+
+def launch_config(m: int) -> LaunchConfig:
+    """The smallest instantiated ``block_m`` that covers ``m`` rows (8 for
+    larger M, tiled over the grid): at decode no FMA is spent on padding."""
+    for bm in BLOCK_M_CHOICES:
+        if m <= bm:
+            return LaunchConfig(block_m=bm)
+    return LaunchConfig(block_m=BLOCK_M_CHOICES[-1])

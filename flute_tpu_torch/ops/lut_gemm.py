@@ -1,0 +1,304 @@
+"""Fused LUT-dequantize + GEMM, counterpart of ``flute_tpu/ops/lut_gemm.py``.
+
+    y[M, N] = x[M, K] @ (table[codes[K, N]] * scales[K // g, N] expanded)
+
+Dispatch is by the tensors' device:
+
+* CPU: the plain PyTorch version (unpack -> :func:`dequantize_codes` ->
+  f32-accumulated matmul) for every layout.
+* CUDA, ``layout="w4sym"``: the Hopper kernel ``csrc/lut_gemm_w4sym.cu``
+  (see the note at its top). A build or launch failure raises.
+* CUDA, any other layout (``plane``, ``w3wide``, ``pair_values``): raises
+  ``NotImplementedError``; those kernels are not ported yet.
+
+:func:`dequantize_codes`, :func:`dequantize_codes_pair` and
+:func:`lut_qgemm_reference` are the oracle and define the semantics.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Sequence
+
+import torch
+
+from flute_tpu_torch import bitutils
+from flute_tpu_torch import packing as _packing
+from flute_tpu_torch.ops.kernel_config import KernelConfig, launch_config
+
+# Launches of the w4sym kernel; the wrapper adds one per launch and nowhere
+# else, so a run can show that its path went through the kernel.
+LAUNCHES = 0
+
+_DTYPE_TAG = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+
+# ---------------------------------------------------------------------------
+# Oracle
+# ---------------------------------------------------------------------------
+
+
+def _expand_groups(scales: torch.Tensor, group_size: int) -> torch.Tensor:
+    """``[K/g, N]`` -> ``[K, N]``, each row repeated ``g`` times (a view and
+    one copy: unlike ``repeat_interleave`` it never syncs with the device,
+    so it can be captured in a CUDA graph)."""
+    g, n = scales.shape
+    return scales[:, None, :].expand(g, group_size, n).reshape(g * group_size, n)
+
+
+def dequantize_codes(
+    codes: torch.Tensor, scales: torch.Tensor, table: torch.Tensor, dtype
+) -> torch.Tensor:
+    """``table[codes] * scales`` with group expansion; lookup and scale
+    multiply are rounded in ``dtype`` as the kernel rounds them."""
+    k = codes.shape[0]
+    group_size = k // scales.shape[0]
+    t = table.to(device=codes.device, dtype=dtype)
+    return t[codes.long()] * _expand_groups(scales.to(dtype), group_size)
+
+
+def dequantize_codes_pair(
+    codes: torch.Tensor, scales: torch.Tensor, pair_values: torch.Tensor, dtype
+) -> torch.Tensor:
+    """Oracle for joint pair (vector) dequantization: rows (2j, 2j+1) take
+    their values from ``pair_values[c_2j, c_2j+1]`` (shape [E, E, 2])."""
+    k = codes.shape[0]
+    group_size = k // scales.shape[0]
+    pv = pair_values.to(device=codes.device, dtype=dtype)
+    ce, co = codes[0::2].long(), codes[1::2].long()
+    v = pv[ce, co]  # [K/2, N, 2]
+    deq = torch.stack([v[..., 0], v[..., 1]], dim=1).reshape(codes.shape)
+    return deq * _expand_groups(scales.to(dtype), group_size)
+
+
+def lut_qgemm_reference(
+    x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor, table: torch.Tensor
+) -> torch.Tensor:
+    """Ground truth: dequantize in x's dtype, exact products accumulated in
+    f32 (never TF32), one rounding to x's dtype."""
+    deq = dequantize_codes(codes, scales, table, x.dtype)
+    y = torch.matmul(x.float(), deq.float())
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Plain version and kernel
+# ---------------------------------------------------------------------------
+
+
+def lut_qgemm_plain(
+    x2: torch.Tensor,
+    planes: Sequence[torch.Tensor],
+    scales: torch.Tensor,
+    table: torch.Tensor,
+    *,
+    num_bits: int,
+    chunk: int,
+    layout: str,
+    pair_values: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The plain PyTorch version of every layout for a 2-D ``x2``: unpack
+    the codes, dequantize them, f32-accumulated matmul."""
+    codes = _packing.unpack(list(planes), num_bits, chunk=chunk, layout=layout)
+    if pair_values is not None:
+        deq = dequantize_codes_pair(codes, scales, pair_values, x2.dtype)
+        return torch.matmul(x2.float(), deq.float()).to(x2.dtype)
+    return lut_qgemm_reference(x2, codes, scales, table)
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_lib() -> ctypes.CDLL:
+    from flute_tpu_torch.ops import _build
+
+    lib = _build.load("lut_gemm_w4sym.cu")
+    fn = lib.flute_lut_qgemm_w4sym
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    lib.flute_cuda_error_string.restype = ctypes.c_char_p
+    lib.flute_cuda_error_string.argtypes = [ctypes.c_int]
+    return lib
+
+
+def build_kernel() -> None:
+    """Build (or load the already built) w4sym kernel library."""
+    _kernel_lib()
+
+
+def lut_qgemm_w4sym_cuda(
+    x2: torch.Tensor,
+    plane: torch.Tensor,
+    scales: torch.Tensor,
+    table: torch.Tensor,
+    *,
+    group_size: int,
+    chunk: int,
+) -> torch.Tensor:
+    """Launch the Hopper w4sym kernel on PyTorch's current stream for a
+    2-D ``x2`` ``[M, K]``; returns ``[M, N]`` in x's dtype."""
+    global LAUNCHES
+    m, k = x2.shape
+    n = scales.shape[1]
+    dev = x2.device
+    for name, t in (("x", x2), ("plane", plane), ("scales", scales), ("table", table)):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, x on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if x2.dtype not in _DTYPE_TAG:
+        raise ValueError(f"unsupported compute dtype {x2.dtype}")
+    if scales.dtype != x2.dtype:
+        raise ValueError(f"scales dtype {scales.dtype} != x dtype {x2.dtype}")
+    if plane.dtype != torch.int32 or tuple(plane.shape) != (k // 8, n):
+        raise ValueError(f"plane must be int32 [{k // 8}, {n}]")
+    if table.dtype != torch.float32 or table.numel() != 16:
+        raise ValueError("table must be float32 [16]")
+    if chunk % 8 or k % chunk or group_size % 2 or k % group_size:
+        raise ValueError(f"K={k} chunk={chunk} group_size={group_size} not supported")
+    cfg = launch_config(m)
+    if -(-m // cfg.block_m) > 65535:
+        raise ValueError(f"M={m} exceeds the kernel's grid")
+    y = torch.empty((m, n), dtype=x2.dtype, device=dev)
+    if m == 0:
+        return y
+    lib = _kernel_lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.flute_lut_qgemm_w4sym(
+            x2.data_ptr(), plane.data_ptr(), scales.data_ptr(), table.data_ptr(),
+            y.data_ptr(), m, n, k, group_size, chunk, _DTYPE_TAG[x2.dtype],
+            cfg.block_m, stream,
+        )
+    if err != 0:
+        msg = lib.flute_cuda_error_string(err).decode()
+        raise RuntimeError(f"w4sym kernel launch failed: {msg} ({err})")
+    LAUNCHES += 1
+    return y
+
+
+# ---------------------------------------------------------------------------
+# Public API
+# ---------------------------------------------------------------------------
+
+
+def lut_qgemm(
+    x: torch.Tensor,
+    qweight: Sequence[torch.Tensor] | torch.Tensor,
+    scales: torch.Tensor,
+    table: torch.Tensor,
+    *,
+    num_bits: int,
+    config: KernelConfig | None = None,
+    pair_values: Optional[torch.Tensor] = None,
+    layout: str = "auto",
+) -> torch.Tensor:
+    """Fused LUT-dequant GEMM: ``x @ (table[codes] * scales_expanded)``.
+
+    Args:
+      x: ``[..., K]`` activations (bf16/f16/f32); any number of rows.
+      qweight: packed int32 planes (:func:`flute_tpu_torch.packing.pack`).
+      scales: ``[K // group_size, N]`` in x's dtype.
+      table: ``[2^num_bits]`` float32 lookup table.
+      num_bits: 2, 3 or 4.
+      config: persisted kernel config; only its ``chunk`` (the pack chunk
+        of the layout) is used. Default chunk 256.
+      pair_values: optional joint pair table ``[2^b, 2^b, 2]``.
+      layout: "auto" (wide 3-bit detected by plane shape, else the plane
+        layout) or "w4sym", which cannot be shape-detected and must be
+        passed by callers carrying w4sym weights.
+    """
+    if isinstance(qweight, torch.Tensor):
+        qweight = [qweight]
+    planes = tuple(qweight)
+    n = scales.shape[1]
+    *batch, k = x.shape
+    if k % scales.shape[0] != 0:
+        raise ValueError(f"K={k} not divisible by scale groups {scales.shape[0]}")
+    group_size = k // scales.shape[0]
+    if layout == "auto":
+        layout = "w3wide" if _packing.is_w3_wide(planes, num_bits, k) else "plane"
+    if layout not in ("plane", "w3wide", "w4sym"):
+        raise ValueError(f"Unknown layout: {layout}")
+    if layout == "w3wide":
+        if num_bits != 3 or not _packing.is_w3_wide(planes, num_bits, k):
+            raise ValueError("layout='w3wide' requires a wide 3-bit plane")
+    elif layout == "w4sym":
+        if num_bits != 4:
+            raise ValueError("layout='w4sym' requires num_bits=4")
+        want = (k // 8, n)
+        if len(planes) != 1 or tuple(planes[0].shape) != want:
+            raise ValueError(
+                f"w4sym plane shape {[tuple(p.shape) for p in planes]} != "
+                f"expected [{want}] for K={k}, N={n}"
+            )
+        if pair_values is not None:
+            raise ValueError("pair_values incompatible with layout='w4sym'")
+    else:
+        plane_bits_chk = bitutils.planes_for_bits(num_bits)
+        if len(planes) != len(plane_bits_chk):
+            raise ValueError(
+                f"{num_bits}-bit weights need {len(plane_bits_chk)} plane(s), "
+                f"got {len(planes)}"
+            )
+        for p, pb in zip(planes, plane_bits_chk):
+            want = (k * pb // bitutils.WORD_BITS, n)
+            if tuple(p.shape) != want:
+                raise ValueError(
+                    f"packed plane shape {tuple(p.shape)} != expected {want} "
+                    f"for K={k}, N={n}, plane bits={pb}"
+                )
+    if table is not None and table.shape[-1] not in (2**num_bits,):
+        raise ValueError(
+            f"table has {table.shape[-1]} entries, expected {2**num_bits}"
+        )
+    if table is None:
+        table = torch.zeros((2**num_bits,), dtype=torch.float32, device=x.device)
+    chunk = (config or KernelConfig()).chunk
+
+    x2 = x.reshape(-1, k)
+    if x.device.type == "cpu":
+        y = lut_qgemm_plain(
+            x2, planes, scales, table, num_bits=num_bits, chunk=chunk,
+            layout=layout, pair_values=pair_values,
+        )
+    elif x.device.type == "cuda":
+        if layout != "w4sym" or pair_values is not None:
+            raise NotImplementedError(
+                f"layout={layout!r}"
+                + (" with pair_values" if pair_values is not None else "")
+                + " has no CUDA kernel yet (K2 plane, K3 w3wide and K4 pair_lut "
+                "are still to be ported); only layout='w4sym' runs on CUDA"
+            )
+        y = lut_qgemm_w4sym_cuda(
+            x2.contiguous(), planes[0], scales.to(x2.dtype).contiguous(),
+            table.float().contiguous(),
+            group_size=group_size, chunk=chunk,
+        )
+    else:
+        raise ValueError(f"unsupported device {x.device}")
+    return y.reshape(*batch, n)
+
+
+def qgemm(
+    x: torch.Tensor,
+    qweight,
+    scales: torch.Tensor,
+    table: torch.Tensor,
+    num_bits: int,
+    group_size: int,
+    config: KernelConfig | None = None,
+    pair_values: Optional[torch.Tensor] = None,
+    layout: str = "auto",
+) -> torch.Tensor:
+    """Reference-API-shaped alias with explicit num_bits/group_size. Runs
+    where its tensors are: the kernel for CUDA tensors, the plain version
+    for CPU tensors."""
+    k = x.shape[-1]
+    if scales.shape[0] != k // group_size:
+        raise ValueError(
+            f"scales shape {tuple(scales.shape)} inconsistent with K={k}, "
+            f"group_size={group_size}"
+        )
+    return lut_qgemm(
+        x, qweight, scales, table, num_bits=num_bits, config=config,
+        pair_values=pair_values, layout=layout,
+    )

@@ -1,0 +1,10 @@
+from flute_tpu_torch.quantize.nf import (  # noqa: F401
+    QLORA_NF4,
+    nf_pivots,
+    nf_quantize,
+    nf_quantize_fake,
+    nf_quantize_symmetric,
+    nf_values,
+    nf_values_symmetric_exact,
+    quantize_with_table,
+)
