@@ -4,20 +4,27 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
-  1. print the card's name and power limit; build the w4sym kernel from
-     flute_tpu_torch/csrc into build/flute_tpu_torch/;
-  2. hold the kernel against its plain PyTorch version on the card at the
+  1. print the card's name and power limit; build the three LUT-GEMM
+     kernels from flute_tpu_torch/csrc into build/flute_tpu_torch/, one nvcc
+     process each, all at once: K1 (w4sym), K2 (plane, 2/3/4 bits), K3
+     (w3wide);
+  2. hold each kernel against its plain PyTorch version on the card at the
      Llama-3.1-8B decoder-layer shapes, M in {1, 8, 128, 512}, bf16 and f16
-     (relative Frobenius error under 1.1e-2 / 2e-3), identity input bit-exact
-     in bf16/f16/f32 and unpack_via_kernel round-tripping the codes; time the
-     kernel, the plain version and a bf16/f16 torch.matmul on the
+     (relative Frobenius error under 1.1e-2 / 2e-3): K1, K2 at 4, 3 and 2
+     bits with a general table, K3; identity input bit-exact against
+     dequantize_codes in bf16/f16/f32 (K1 and K2 at chunk 128 and 256, K3 at
+     256 and 512) and unpack_via_kernel round-tripping the codes; time each
+     kernel, its plain version and a bf16/f16 torch.matmul on the
      pre-dequantized weight (a yardstick only), L2-cold, in CUDA graphs;
-  3. logits of a 2-layer model at Llama-3.1-8B widths (fused, w4sym): one
-     prefill and one decode step on the card against the same params on the
-     CPU plain path (max error relative to the largest logit < 1.1e-2);
+  3. logits of a 2-layer model at Llama-3.1-8B widths (fused) quantized at
+     w4sym, W3 (w3wide) and general-table W4 (plane): one prefill and one
+     decode step on the card against the same params on the CPU plain path
+     (max error relative to the largest logit < 1.1e-2); the W3 model saved
+     with save_quantized and loaded back gives the same logits bit for bit;
   4. serve 8 ragged prompts for 16 new tokens through Engine.generate on
-     the full 32-layer Llama-3.1-8B-width model (random weights from a
-     seed, quantized on the card), checking the kernel's launch count.
+     the full 32-layer Llama-3.1-8B-width model (random weights from a seed,
+     quantized on the card) at w4sym, W3 and general W4, each run through
+     exactly its kernel: steps x 32 layers x 4 launches, none of the others.
 
 Prints a {"kernels": [...]} line, then as its last line
 {"ok": true, "device": {...}}. Writes the full results to
@@ -27,8 +34,11 @@ chiprun_out/chip_smoke.json. Needs a CUDA device; exits non-zero without one.
 import dataclasses
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -50,6 +60,28 @@ GROUP = 64
 # decode rows (1 sequence, the served batch of 8), a mid size, and the served
 # prefill block (8 prompts x 64-token bucket)
 M_CASES = (1, 8, 128, 512)
+REPLACES = "flute_tpu/ops/lut_gemm.py:454 (_lut_qgemm_kernel[{}], pallas_call :828)"
+# kernel id -> (wrapper name, source, layout, what it replaces)
+KERNELS = {
+    "K1": ("lut_qgemm_w4sym", "lut_gemm_w4sym.cu", "w4sym", REPLACES.format("w4sym")),
+    "K2": ("lut_qgemm_plane", "lut_gemm_plane.cu", "plane",
+           REPLACES.format("plane, gather8/select")),
+    "K3": ("lut_qgemm_w3wide", "lut_gemm_w3wide.cu", "w3wide", REPLACES.format("w3wide")),
+}
+# phase-2 cases: (kernel id, bits, M values that are timed; every M is checked)
+KERNEL_CASES = [
+    ("K1", 4, M_CASES),
+    ("K2", 4, M_CASES),
+    ("K2", 3, (1, 8, 512)),
+    ("K2", 2, (1, 8, 512)),
+    ("K3", 3, M_CASES),
+]
+# served models: name -> (quantize_model arguments, kernel id)
+SERVED = {
+    "w4sym": (dict(num_bits=4), "K1"),
+    "w3wide": (dict(num_bits=3), "K3"),
+    "w4_general": (dict(num_bits=4, symmetric=False), "K2"),
+}
 
 
 def log(*a):
@@ -61,171 +93,223 @@ def rel_err(y, ref) -> float:
     return float(torch.linalg.norm(y - ref) / torch.linalg.norm(ref))
 
 
-def sym_table(rng, mixed_signs=False) -> np.ndarray:
+def make_table(rng, layout, bits, mixed_signs=False) -> np.ndarray:
+    """A sign-symmetric table for w4sym; any 2^b values for the others."""
+    if layout != "w4sym":
+        return rng.standard_normal(2**bits).astype(np.float32)
     mags = rng.standard_normal(8).astype(np.float32)
     if not mixed_signs:
         mags = np.sort(np.abs(mags))
     return np.concatenate([mags, -mags])
 
 
-def make_weight(rng, gen, n, k, dtype, dev, chunk=256):
+def make_weight(rng, gen, layout, bits, n, k, dtype, dev, chunk=256, mixed_signs=False):
+    """Random codes, their planes packed on the card, scales and a table."""
     from flute_tpu_torch import packing
 
-    codes = torch.randint(0, 16, (k, n), generator=gen, device=dev, dtype=torch.int32)
-    plane = packing.pack_w4_sym(codes, chunk=chunk)
+    codes = torch.randint(0, 2**bits, (k, n), generator=gen, device=dev, dtype=torch.int32)
+    if layout == "w4sym":
+        planes = [packing.pack_w4_sym(codes, chunk=chunk)]
+    elif layout == "w3wide":
+        planes = [packing.pack_w3_wide(codes, chunk=chunk)]
+    else:
+        planes = packing.pack_plane(codes, bits, chunk=chunk)
     scales = (torch.rand((k // GROUP, n), generator=gen, device=dev) + 0.5).to(dtype)
-    table = torch.from_numpy(sym_table(rng)).to(dev)
-    return codes, plane, scales, table
+    table = torch.from_numpy(make_table(rng, layout, bits, mixed_signs)).to(dev)
+    return codes, planes, scales, table
 
 
 def phase_kernel(dev, results):
     from flute_tpu_torch import packing
     from flute_tpu_torch.ops import lut_gemm
+    from flute_tpu_torch.ops.kernel_config import KernelConfig
     from flute_tpu_torch.utils.benchmark import bench_op, cold_copies
 
     rng = np.random.default_rng(0)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     cases = []
-    for name, n, k in LAYER_SHAPES:
-        for dtype in (torch.bfloat16, torch.float16):
-            codes, plane, scales, table = make_weight(rng, gen, n, k, dtype, dev)
-            deq = lut_gemm.dequantize_codes(codes, scales, table, dtype)
-            wbytes = plane.numel() * 4 + scales.numel() * scales.element_size()
-            copies = cold_copies(wbytes)
-            planes_c = [plane.clone() for _ in range(copies)]
-            scales_c = [scales.clone() for _ in range(copies)]
-            deq_c = [deq.clone() for _ in range(cold_copies(deq.numel() * deq.element_size()))]
-            for m in M_CASES:
-                x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
-                y = lut_gemm.lut_qgemm_w4sym_cuda(
-                    x, plane, scales, table, group_size=GROUP, chunk=256
-                )
-                y_plain = lut_gemm.lut_qgemm_plain(
-                    x, [plane], scales, table, num_bits=4, chunk=256, layout="w4sym"
-                )
-                torch.cuda.synchronize()
-                err = rel_err(y, y_plain)
-                max_abs = float((y.float() - y_plain.float()).abs().max())
-                if not err < THRESHOLDS[dtype]:
-                    raise AssertionError(f"{name} M={m} {dtype}: rel err {err}")
+    for kid, bits, timed in KERNEL_CASES:
+        layout = KERNELS[kid][2]
+        log(f"  {kid} ({layout}, {bits}-bit)")
+        for name, n, k in LAYER_SHAPES:
+            for dtype in (torch.bfloat16, torch.float16):
+                codes, planes, scales, table = make_weight(rng, gen, layout, bits, n, k,
+                                                           dtype, dev)
+                deq = lut_gemm.dequantize_codes(codes, scales, table, dtype)
+                del codes
+                wbytes = sum(p.numel() * 4 for p in planes) + scales.numel() * scales.element_size()
+                copies = cold_copies(wbytes)
+                args = [([p.clone() for p in planes], scales.clone()) for _ in range(copies)]
+                deq_c = [deq.clone() for _ in range(cold_copies(deq.numel() * deq.element_size()))]
+                kw = dict(num_bits=bits, layout=layout, config=KernelConfig(chunk=256))
+                for m in M_CASES:
+                    x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
+                    y = lut_gemm.lut_qgemm(x, planes, scales, table, **kw)
+                    y_plain = lut_gemm.lut_qgemm_plain(x, planes, scales, table, num_bits=bits,
+                                                       chunk=256, layout=layout)
+                    torch.cuda.synchronize()
+                    err = rel_err(y, y_plain)
+                    max_abs = float((y.float() - y_plain.float()).abs().max())
+                    if not err < THRESHOLDS[dtype]:
+                        raise AssertionError(f"{kid} {bits}-bit {name} M={m} {dtype}: rel err {err}")
+                    case = dict(kernel=kid, bits=bits, name=name, n=n, k=k, m=m,
+                                dtype=str(dtype).split(".")[-1], rel_err=err,
+                                max_abs_err=max_abs)
+                    cases.append(case)
+                    if m not in timed:
+                        continue
 
-                def kern(p, s, x=x, table=table):
-                    return lut_gemm.lut_qgemm_w4sym_cuda(
-                        x, p, s, table, group_size=GROUP, chunk=256
+                    def kern(p, s, x=x, table=table):
+                        return lut_gemm.lut_qgemm(x, p, s, table, **kw)
+
+                    def plain(p, s, x=x, table=table):
+                        return lut_gemm.lut_qgemm_plain(x, p, s, table, num_bits=bits,
+                                                        chunk=256, layout=layout)
+
+                    def library(w, x=x):
+                        return torch.matmul(x, w)
+
+                    t_k = bench_op(kern, args)
+                    t_p = bench_op(plain, args[:2], min_launches=2)
+                    t_l = bench_op(library, [(w,) for w in deq_c])
+                    esz = torch.tensor([], dtype=dtype).element_size()
+                    nbytes = wbytes + table.numel() * 4 + m * k * esz + m * n * esz
+                    t_bytes = nbytes / HBM_BYTES_PER_S
+                    t_ops = 2 * m * n * k / BF16_OPS_PER_S
+                    case.update(
+                        bytes=nbytes, us=t_k * 1e6, plain_us=t_p * 1e6, library_us=t_l * 1e6,
+                        bound_us=max(t_bytes, t_ops) * 1e6,
+                        bound_by="bytes" if t_bytes >= t_ops else "operations",
                     )
-
-                def plain(p, s, x=x, table=table):
-                    return lut_gemm.lut_qgemm_plain(
-                        x, [p], s, table, num_bits=4, chunk=256, layout="w4sym"
+                    case["share_of_bound"] = case["bound_us"] / case["us"]
+                    log(
+                        f"    {name:8s} M={m:<4d} {case['dtype']:9s} err={err:.2e} "
+                        f"kernel {case['us']:9.1f} us  bound {case['bound_us']:7.1f} us "
+                        f"({case['bound_by']}, {100 * case['share_of_bound']:5.1f}%)  "
+                        f"plain {case['plain_us']:9.1f} us  matmul {case['library_us']:7.1f} us"
                     )
-
-                def library(w, x=x):
-                    return torch.matmul(x, w)
-
-                args = list(zip(planes_c, scales_c))
-                t_k = bench_op(kern, args)
-                t_p = bench_op(plain, args[:2], min_launches=2)
-                t_l = bench_op(library, [(w,) for w in deq_c])
-                esz = torch.tensor([], dtype=dtype).element_size()
-                nbytes = wbytes + table.numel() * 4 + m * k * esz + m * n * esz
-                t_bytes = nbytes / HBM_BYTES_PER_S
-                t_ops = 2 * m * n * k / BF16_OPS_PER_S
-                case = dict(
-                    name=name, n=n, k=k, m=m, dtype=str(dtype).split(".")[-1],
-                    rel_err=err, max_abs_err=max_abs, bytes=nbytes,
-                    us=t_k * 1e6, plain_us=t_p * 1e6, library_us=t_l * 1e6,
-                    bound_us=max(t_bytes, t_ops) * 1e6,
-                    bound_by="bytes" if t_bytes >= t_ops else "operations",
-                )
-                case["share_of_bound"] = case["bound_us"] / case["us"]
-                cases.append(case)
-                log(
-                    f"  {name:8s} M={m:<4d} {case['dtype']:9s} err={err:.2e} "
-                    f"kernel {case['us']:9.1f} us  bound {case['bound_us']:7.1f} us "
-                    f"({case['bound_by']}, {100 * case['share_of_bound']:5.1f}%)  "
-                    f"plain {case['plain_us']:9.1f} us  matmul {case['library_us']:7.1f} us"
-                )
-            del planes_c, scales_c, deq_c, deq
+                del args, deq_c, deq, planes
     results["kernel_cases"] = cases
 
-    # identity input: bit-exact against the oracle, at two pack chunks
+    # identity input: bit-exact against the oracle at two pack chunks per
+    # layout; unpack_via_kernel returns the codes
     n, k = 256, 512
-    for chunk in (128, 256):
-        for dtype in (torch.bfloat16, torch.float16, torch.float32):
-            for mixed in (False, True):
-                codes = torch.randint(0, 16, (k, n), generator=gen, device=dev, dtype=torch.int32)
-                plane = packing.pack_w4_sym(codes, chunk=chunk)
-                scales = (torch.rand((k // GROUP, n), generator=gen, device=dev) + 0.5).to(dtype)
-                table = torch.from_numpy(sym_table(rng, mixed_signs=mixed)).to(dev)
-                eye = torch.eye(k, dtype=dtype, device=dev)
-                got = lut_gemm.lut_qgemm_w4sym_cuda(
-                    eye, plane, scales, table, group_size=GROUP, chunk=chunk
-                )
-                want = lut_gemm.dequantize_codes(codes, scales, table, dtype)
-                if not torch.equal(got.float(), want.float()):
-                    raise AssertionError(f"identity not bit-exact: {dtype} chunk={chunk}")
-        back = packing.unpack_via_kernel([plane], 4, n, k, chunk=chunk, layout="w4sym")
-        if not torch.equal(back, codes):
-            raise AssertionError(f"unpack_via_kernel does not round-trip (chunk={chunk})")
-    log("  identity bit-exact (bf16/f16/f32, chunk 128/256, mixed-sign table); "
-        "unpack_via_kernel round-trips")
+    identity = [("K1", 4, (128, 256)), ("K2", 4, (128, 256)), ("K2", 3, (128, 256)),
+                ("K2", 2, (128, 256)), ("K3", 3, (256, 512))]
+    for kid, bits, chunks in identity:
+        layout = KERNELS[kid][2]
+        for chunk in chunks:
+            cfg = KernelConfig(chunk=chunk)
+            for dtype in (torch.bfloat16, torch.float16, torch.float32):
+                for mixed in ((False, True) if layout == "w4sym" else (False,)):
+                    codes, planes, scales, table = make_weight(
+                        rng, gen, layout, bits, n, k, dtype, dev, chunk=chunk, mixed_signs=mixed)
+                    eye = torch.eye(k, dtype=dtype, device=dev)
+                    got = lut_gemm.lut_qgemm(eye, planes, scales, table, num_bits=bits,
+                                             layout=layout, config=cfg)
+                    want = lut_gemm.dequantize_codes(codes, scales, table, dtype)
+                    if not torch.equal(got.float(), want.float()):
+                        raise AssertionError(
+                            f"identity not bit-exact: {kid} {bits}-bit {dtype} chunk={chunk}")
+            back = packing.unpack_via_kernel(planes, bits, n, k, chunk=chunk, layout=layout)
+            if not torch.equal(back, codes):
+                raise AssertionError(
+                    f"unpack_via_kernel does not round-trip: {kid} {bits}-bit chunk={chunk}")
+    log("  identity bit-exact (bf16/f16/f32; K1 and K2 at chunk 128/256, K1 with a "
+        "mixed-sign table, K3 at 256/512); unpack_via_kernel round-trips")
     results["identity_bit_exact"] = True
     return cases
 
 
+def model_logits(params, config, dev, tokens, offsets, nxt):
+    from flute_tpu_torch.models import llama
+
+    b, t = tokens.shape
+    with torch.inference_mode():
+        cache = llama.init_cache(config, b, 32, device=dev)
+        pre, cache = llama.forward(params, config, tokens.to(dev), cache, 0, offsets.to(dev))
+        dec, _ = llama.forward(params, config, nxt.to(dev), cache, t, offsets.to(dev))
+    return pre.cpu(), dec.cpu()
+
+
 def phase_logits(dev, results):
+    from flute_tpu_torch.integrations import checkpoint
     from flute_tpu_torch.interop import move_params
     from flute_tpu_torch.models import llama
 
     config = dataclasses.replace(llama.LlamaConfig.llama31_8b(), num_layers=2)
     params = llama.init_params(config, seed=1, device=dev)
-    qparams = llama.quantize_model(params, num_bits=4, group_size=GROUP, fuse=True, device=dev)
-    del params
     cpu = torch.device("cpu")
-    qcpu = move_params(qparams, cpu)
     rng = np.random.default_rng(1)
-    b, t, s = 2, 16, 32
+    b, t = 2, 16
     tokens = torch.from_numpy(rng.integers(0, config.vocab_size, (b, t)))
     offsets = torch.tensor([0, 5])
     nxt = torch.from_numpy(rng.integers(0, config.vocab_size, (b, 1)))
-    out = {}
-    for name, p, d in (("cuda", qparams, dev), ("cpu", qcpu, cpu)):
-        with torch.inference_mode():
-            cache = llama.init_cache(config, b, s, device=d)
-            pre, cache = llama.forward(p, config, tokens.to(d), cache, 0, offsets.to(d))
-            dec, _ = llama.forward(p, config, nxt.to(d), cache, t, offsets.to(d))
-        out[name] = (pre.cpu(), dec.cpu())
-    errs = {}
-    for i, step in enumerate(("prefill", "decode")):
-        a, ref = out["cuda"][i], out["cpu"][i]
-        if not torch.isfinite(a).all():
-            raise AssertionError(f"non-finite {step} logits")
-        errs[step] = float((a - ref).abs().max() / ref.abs().max())
-        if not errs[step] < THRESHOLDS[torch.bfloat16]:
-            raise AssertionError(f"{step} logits differ from the CPU plain path: {errs[step]}")
-    log(f"  2-layer 8B-width logits vs CPU plain path: prefill {errs['prefill']:.2e}, "
-        f"decode {errs['decode']:.2e}")
-    results["logits_rel_err"] = errs
+    results["logits_rel_err"] = {}
+    for name, (kw, _) in SERVED.items():
+        qparams = llama.quantize_model(params, group_size=GROUP, fuse=True, device=dev, **kw)
+        out = model_logits(qparams, config, dev, tokens, offsets, nxt)
+        ref = model_logits(move_params(qparams, cpu), config, cpu, tokens, offsets, nxt)
+        errs = {}
+        for step, a, want in zip(("prefill", "decode"), out, ref):
+            if not torch.isfinite(a).all():
+                raise AssertionError(f"{name}: non-finite {step} logits")
+            errs[step] = float((a - want).abs().max() / want.abs().max())
+            if not errs[step] < THRESHOLDS[torch.bfloat16]:
+                raise AssertionError(
+                    f"{name} {step} logits differ from the CPU plain path: {errs[step]}")
+        log(f"  2-layer 8B-width {name} logits vs CPU plain path: prefill "
+            f"{errs['prefill']:.2e}, decode {errs['decode']:.2e}")
+        results["logits_rel_err"][name] = errs
+        if name == "w3wide":
+            # a save/load round trip through the checkpoint format changes nothing
+            os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+            tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=os.path.join(HERE, "build"))
+            try:
+                t0 = time.perf_counter()
+                checkpoint.save_quantized(tmp, qparams, num_bits=3, group_size=GROUP)
+                size = sum(os.path.getsize(os.path.join(tmp, f)) for f in os.listdir(tmp))
+                t1 = time.perf_counter()
+                loaded, _ = checkpoint.load_quantized(tmp, device=dev)
+                t2 = time.perf_counter()
+            finally:
+                shutil.rmtree(tmp)
+            again = model_logits(loaded, config, dev, tokens, offsets, nxt)
+            if not all(torch.equal(a, c) for a, c in zip(out, again)):
+                raise AssertionError("W3 logits changed across save_quantized/load_quantized")
+            log(f"  W3 checkpoint ({size / 1e9:.2f} GB): saved in {t1 - t0:.1f} s, loaded in "
+                f"{t2 - t1:.1f} s; logits bit-exact after the round trip")
+            results["checkpoint_round_trip"] = dict(bytes=size, save_s=t1 - t0, load_s=t2 - t1,
+                                                    bit_exact=True)
+            del loaded
+        del qparams
+    del params
+    torch.cuda.empty_cache()
 
 
-def phase_serving(dev, results):
+def serve(dev, name, quant_kw, kernel_layout):
+    """Quantize the 32-layer model on the card and serve the prompts once;
+    returns the run's numbers and the engine, which keeps the model."""
     from flute_tpu_torch.models import llama
     from flute_tpu_torch.ops import lut_gemm
     from flute_tpu_torch.serving import Engine
 
     config = llama.LlamaConfig.llama31_8b()
+    held = torch.cuda.memory_allocated(dev)  # models served earlier
+    torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     params = llama.init_params(config, seed=0, device=dev)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    qparams = llama.quantize_model(params, num_bits=4, group_size=GROUP, fuse=True, device=dev)
+    qparams = llama.quantize_model(params, group_size=GROUP, fuse=True, device=dev, **quant_kw)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     del params
     torch.cuda.empty_cache()
-    log(f"  init {t1 - t0:.1f} s, quantize {t2 - t1:.1f} s, "
-        f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB allocated after quantization")
+    log(f"  [{name}] init {t1 - t0:.1f} s, quantize {t2 - t1:.1f} s, "
+        f"{(torch.cuda.memory_allocated(dev) - held) / 2**30:.2f} GiB allocated after "
+        "quantization")
 
     rng = np.random.default_rng(2)
     lengths = [3, 40, 17, 8, 29, 5, 36, 12]
@@ -242,19 +326,22 @@ def phase_serving(dev, results):
         return logits, cache
 
     eng.forward = checked_forward
-    lut_gemm.LAUNCHES = 0
+    for k in lut_gemm.LAUNCHES:
+        lut_gemm.LAUNCHES[k] = 0
     out = eng.generate(prompts, max_new_tokens=new_tokens)
-    launches = lut_gemm.LAUNCHES
+    launches = dict(lut_gemm.LAUNCHES)
     eng.forward = forward
 
     steps = len(logits_seen)  # one prefill + the decode steps
-    expected = steps * config.num_layers * 4
+    expected = {k: 0 for k in launches}
+    expected[kernel_layout] = steps * config.num_layers * 4
     if steps != new_tokens or launches != expected:
-        raise AssertionError(f"{launches} kernel launches over {steps} steps, expected {expected}")
+        raise AssertionError(f"[{name}] launches {launches} over {steps} steps, "
+                             f"expected {expected}")
     if not all(logits_seen):
-        raise AssertionError("non-finite logits while serving")
+        raise AssertionError(f"[{name}] non-finite logits while serving")
     if any(len(o) != new_tokens for o in out):
-        raise AssertionError(f"a prompt got {[len(o) for o in out]} tokens")
+        raise AssertionError(f"[{name}] a prompt got {[len(o) for o in out]} tokens")
     tm = eng.last_timings
     decode_s = [float(d) for d in tm["decode_s"]]
     dec = float(np.median(decode_s))
@@ -264,14 +351,24 @@ def phase_serving(dev, results):
         steps=steps, launches=launches, prefill_ms=tm["prefill_s"] * 1e3,
         decode_ms_per_step=dec * 1e3, decode_ms_steps=[d * 1e3 for d in decode_s],
         decode_tok_s=len(prompts) / dec, end_to_end_tok_s=len(prompts) * new_tokens / total,
-        peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
+        peak_gib=(torch.cuda.max_memory_allocated(dev) - held) / 2**30,
     )
-    log(f"  served {len(prompts)} prompts x {new_tokens} tokens: prefill "
+    log(f"  [{name}] served {len(prompts)} prompts x {new_tokens} tokens: prefill "
         f"{serving['prefill_ms']:.1f} ms, decode {serving['decode_ms_per_step']:.2f} ms/step "
-        f"(median), {serving['decode_tok_s']:.1f} decode tok/s, "
-        f"{serving['end_to_end_tok_s']:.1f} tok/s end to end, {launches} kernel launches")
+        f"(median; {min(decode_s) * 1e3:.2f}-{max(decode_s) * 1e3:.2f}), "
+        f"{serving['decode_tok_s']:.1f} decode tok/s, "
+        f"{serving['end_to_end_tok_s']:.1f} tok/s end to end, "
+        f"{launches[kernel_layout]} {kernel_layout} kernel launches, "
+        f"peak {serving['peak_gib']:.1f} GiB")
+    return serving, eng
 
-    # where a decode step's device time goes (outside the counted run)
+
+def profile_decode(dev, name, eng):
+    """Where a decode step's device time goes: three steps under
+    torch.profiler, outside the counted runs (the profiler runs only after
+    every timed run, so it cannot slow one down)."""
+    config = eng.config
+    rng = np.random.default_rng(3)
     with torch.inference_mode():
         toks = torch.from_numpy(rng.integers(1, config.vocab_size, (8, 64))).to(dev)
         offs = torch.zeros(8, dtype=torch.int64, device=dev)
@@ -295,21 +392,44 @@ def phase_serving(dev, results):
             by_kernel[ev.key] = dt / 3 / 1e3  # ms per step
     dev_ms = sum(by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
-    serving["profile"] = dict(
+    profile = dict(
         wall_ms_per_step=wall / 3 * 1e3,
         device_ms_per_step=dev_ms if by_kernel else None,
         idle_share=(1 - dev_ms / (wall / 3 * 1e3)) if by_kernel else None,
         top_kernels_ms_per_step=top,
     )
     if by_kernel:
-        log(f"  decode step profile: wall {wall / 3 * 1e3:.2f} ms, device busy {dev_ms:.2f} ms "
-            f"(idle share {serving['profile']['idle_share']:.2f})")
-        for k_name, ms in top:
+        log(f"  [{name}] decode step profile: wall {wall / 3 * 1e3:.2f} ms, device busy "
+            f"{dev_ms:.2f} ms (idle share {profile['idle_share']:.2f})")
+        for k_name, ms in top[:6]:
             log(f"    {ms:8.3f} ms  {k_name[:100]}")
     else:
-        log("  decode step profile: the profiler recorded no device time (not measured)")
-    results["serving"] = serving
-    return launches
+        log(f"  [{name}] decode step profile: the profiler recorded no device time "
+            "(not measured)")
+    return profile
+
+
+def kernel_line(kid, cases, launches):
+    """The {"kernels": [...]} entry of one kernel: its decode stack, one
+    layer's four projections at M=8 in bf16 (K2 at general W4)."""
+    wrapper, source, layout, replaces = KERNELS[kid]
+    bits = 4 if kid != "K3" else 3
+    mine = [c for c in cases if c["kernel"] == kid]
+    stack = [c for c in mine if c["bits"] == bits and c["m"] == 8 and c["dtype"] == "bfloat16"]
+    return dict(
+        name=wrapper,
+        route="cuda",
+        source=f"flute_tpu_torch/csrc/{source}",
+        replaces=replaces,
+        launches=launches,
+        max_abs_err=max(c["max_abs_err"] for c in mine),
+        ms=sum(c["us"] for c in stack) / 1e3,
+        plain_ms=sum(c["plain_us"] for c in stack) / 1e3,
+        bound_ms=sum(c["bound_us"] for c in stack) / 1e3,
+        bound_by="bytes" if all(c["bound_by"] == "bytes" for c in stack) else "operations",
+        library_ms=sum(c["library_us"] for c in stack) / 1e3,
+        checked=True,
+    )
 
 
 def main() -> int:
@@ -323,6 +443,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     results = {"torch": torch.__version__, "cuda": torch.version.cuda}
+    t_start = time.perf_counter()
 
     log("== 1. card and build")
     smi = subprocess.run(
@@ -332,46 +453,45 @@ def main() -> int:
     log(smi)
     results["nvidia_smi"] = smi
     t0 = time.perf_counter()
-    lut_gemm.build_kernel()
+    lut_gemm.build_kernels()
     build_s = time.perf_counter() - t0
-    lib = _build.library_path("lut_gemm_w4sym.cu")
-    log(f"  built {os.path.relpath(lib, HERE)} in {build_s:.1f} s")
-    ptxas = lib.with_suffix(".log")
-    if ptxas.exists():
-        for line in ptxas.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log("  ptxas: " + line.strip())
+    log(f"  built the three kernel libraries in {build_s:.1f} s (in parallel)")
+    for _, source, _, _ in KERNELS.values():
+        lib = _build.library_path(source)
+        log(f"  {os.path.relpath(lib, HERE)}")
+        ptxas = lib.with_suffix(".log").read_text()
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", ptxas)]
+        spill = max(int(b) for b in re.findall(r"(\d+) bytes spill stores", ptxas))
+        log(f"    ptxas: {len(regs)} kernels, {min(regs)}-{max(regs)} registers, "
+            f"at most {spill} bytes of spill stores")
     results["build_s"] = build_s
 
-    log("== 2. kernel against plain on the card")
+    log("== 2. kernels against plain on the card")
     cases = phase_kernel(dev, results)
-    log("== 3. model logits against the CPU plain path")
+    log("== 3. model logits against the CPU plain path; checkpoint round trip")
     phase_logits(dev, results)
     log("== 4. serving Llama-3.1-8B widths, 32 layers")
-    launches = phase_serving(dev, results)
+    results["serving"] = {}
+    launches = {}
+    engines = {}
+    for name, (kw, kid) in SERVED.items():
+        layout = KERNELS[kid][2]
+        results["serving"][name], engines[name] = serve(dev, name, kw, layout)
+        launches[kid] = results["serving"][name]["launches"][layout]
+    for name, eng in engines.items():
+        results["serving"][name]["profile"] = profile_decode(dev, name, eng)
+    del engines
+    torch.cuda.empty_cache()
 
-    stack = [c for c in cases if c["m"] == 8 and c["dtype"] == "bfloat16"]
-    kernel = dict(
-        name="lut_qgemm_w4sym",
-        route="cuda",
-        source="flute_tpu_torch/csrc/lut_gemm_w4sym.cu",
-        replaces="flute_tpu/ops/lut_gemm.py:454 (_lut_qgemm_kernel[w4sym], pallas_call :828)",
-        launches=launches,
-        max_abs_err=max(c["max_abs_err"] for c in cases),
-        # one decoder layer's four projections at decode (M=8, bf16)
-        ms=sum(c["us"] for c in stack) / 1e3,
-        plain_ms=sum(c["plain_us"] for c in stack) / 1e3,
-        bound_ms=sum(c["bound_us"] for c in stack) / 1e3,
-        bound_by="bytes" if all(c["bound_by"] == "bytes" for c in stack) else "operations",
-        library_ms=sum(c["library_us"] for c in stack) / 1e3,
-        checked=True,
-    )
-    results["kernels"] = [kernel]
+    kernels = [kernel_line(kid, cases, launches[kid]) for kid in KERNELS]
+    results["kernels"] = kernels
+    results["total_s"] = time.perf_counter() - t_start
+    log(f"  chip_smoke took {results['total_s']:.0f} s")
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(results, f, indent=1)
     log(smi)
-    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,
         "device": {

@@ -1,0 +1,166 @@
+// Fused LUT-dequantize + GEMM for the general-table pair-plane ("plane")
+// layout at 2, 3 and 4 bits, for Hopper (sm_90a).
+//
+//   y[M, N] = x[M, K] @ (table[c[K, N]] * scales[K / g, N])
+//
+// Replaces: flute_tpu/ops/lut_gemm.py::_lut_qgemm_kernel with layout="plane"
+// and lut_mode "gather8" or "select" (reached through _lut_qgemm_2d's
+// pl.pallas_call), together with its helpers _unpack_pair_fields,
+// _lookup_bits_sublane, _select_values and _table_tile_scalar. The table may
+// be any 2^b float32 values; nothing about its order or signs is assumed.
+//
+// Layout decoded (flute_tpu_torch/packing.py::pack_np): a plane of pb bits is
+// int32 [K * pb / 32, N], row-major. It holds pair fields ce | co << pb (the
+// pb-bit sub-codes of K rows 2p and 2p+1), r = 32 / (2 pb) fields per word,
+// LSB first. With kc = chunk * pb / 32 words per chunk, field i of word row
+// c * kc + j is pair-row p = c * chunk / 2 + i * kc + j. 2-bit and 4-bit codes
+// are one plane (pb = 2: 8 fields of 4 bits; pb = 4: 4 fields of 8 bits).
+// A 3-bit code is low2 | high1 << 2 over two planes: the 2-bit plane (kc0 =
+// chunk / 16) and the 1-bit plane (kc1 = chunk / 32 = kc0 / 2, 16 fields of
+// 2 bits). Pair-row p = i * kc0 + j of the 2-bit plane lies in the 1-bit
+// plane at word p % kc1 = j % kc1, field p / kc1 = 2 i + j / kc1.
+//
+// Numerics: as lut_gemm_w4sym.cu. Each weight is table[c] rounded to the
+// compute type, times its scale, rounded once to the compute type (the
+// oracle lut_gemm.dequantize_codes); products with x are accumulated in f32
+// with IEEE FMAs, no tensor cores and no TF32, and the warps' partial sums
+// are added in a fixed order. An identity x is bit-exact in bf16, f16 and f32.
+//
+// What bounds it: bytes. At decode (M <= 8) every weight costs b / 8 byte of
+// plane plus 2 / g byte of scale, so the least time is those bytes over HBM
+// bandwidth (3.35 TB/s on an H100 SXM). Design: K1's skeleton
+// (lut_gemm_common.cuh): one lane per output column, so a warp reads 128
+// contiguous bytes of a plane word row; eight warps split each chunk's word
+// rows of the first plane; x staged in shared memory as f32; the 2^b-entry
+// table in shared memory, where any pattern of indices is free of bank
+// conflicts (at most 16 words). At 3 bits a lane also loads the 1-bit
+// plane's word for its 2-bit word (each such word is read by two warps; the
+// second read hits L1). This is the simple, correct kernel: no pipelining
+// across chunks, no wgmma or TMA.
+
+#include "lut_gemm_common.cuh"
+
+namespace {
+
+using namespace flute;
+
+// NB: bits per code (2, 3 or 4). plane1 is read only at 3 bits.
+template <typename T, int BM, int NB>
+__global__ void __launch_bounds__(kThreads)
+lut_qgemm_plane_kernel(const T* __restrict__ x, const uint32_t* __restrict__ plane0,
+                       const uint32_t* __restrict__ plane1, const T* __restrict__ scales,
+                       const float* __restrict__ table, T* __restrict__ y, int M, int N,
+                       int K, int group_size, int chunk) {
+  constexpr int kPB0 = NB == 4 ? 4 : 2;          // bits of the first plane
+  constexpr int kFB0 = 2 * kPB0;                 // bits of its pair field
+  constexpr int kR0 = 32 / kFB0;                 // pair fields per word
+  constexpr uint32_t kFieldMask = (1u << kFB0) - 1;
+  constexpr uint32_t kSubMask = (1u << kPB0) - 1;
+
+  // x tile [BM][chunk] while walking K; afterwards the per-warp partial sums
+  extern __shared__ float smem[];
+  __shared__ float tab[1 << NB];
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int n = blockIdx.x * kBlockN + lane;
+  const int m0 = blockIdx.y * BM;
+  if (threadIdx.x < (1 << NB)) tab[threadIdx.x] = Cvt<T>::round(table[threadIdx.x]);
+
+  float acc[BM];
+#pragma unroll
+  for (int r = 0; r < BM; ++r) acc[r] = 0.f;
+
+  const int kc0 = chunk * kPB0 / 32;  // first-plane word rows per chunk
+  const int kc1 = chunk / 32;         // 1-bit plane word rows per chunk (3-bit)
+  const int nchunks = K / chunk;
+  const bool col_ok = n < N;
+  for (int c = 0; c < nchunks; ++c) {
+    __syncthreads();  // previous chunk's x tile is no longer read
+    const size_t kbase = static_cast<size_t>(c) * chunk;
+    stage_x<T, BM>(smem, x, M, K, m0, kbase, chunk);
+    __syncthreads();
+    if (col_ok) {
+      for (int j = warp; j < kc0; j += kWarps) {
+        const uint32_t w0 = __ldg(plane0 + (static_cast<size_t>(c) * kc0 + j) * N + n);
+        uint32_t w1 = 0;
+        int hi = 0;  // which half of the 1-bit word's fields this word pairs with
+        if constexpr (NB == 3) {
+          w1 = __ldg(plane1 + (static_cast<size_t>(c) * kc1 + j % kc1) * N + n);
+          hi = j / kc1;
+        }
+#pragma unroll
+        for (int i = 0; i < kR0; ++i) {
+          // fields are read from unsigned words: bit 31 drags nothing in
+          const uint32_t f = (w0 >> (kFB0 * i)) & kFieldMask;
+          uint32_t ce = f & kSubMask;
+          uint32_t co = f >> kPB0;
+          if constexpr (NB == 3) {
+            const uint32_t h = (w1 >> (2 * (2 * i + hi))) & 3u;
+            ce |= (h & 1u) << 2;
+            co |= (h >> 1) << 2;
+          }
+          const int k0 = 2 * (i * kc0 + j);  // even K row in the chunk
+          const float s = Cvt<T>::to_f(
+              scales[static_cast<size_t>((kbase + k0) / group_size) * N + n]);
+          const float we = Cvt<T>::round(tab[ce] * s);
+          const float wo = Cvt<T>::round(tab[co] * s);
+          const float* xr = smem + k0;
+#pragma unroll
+          for (int r = 0; r < BM; ++r) {
+            acc[r] = fmaf(xr[r * chunk], we, acc[r]);
+            acc[r] = fmaf(xr[r * chunk + 1], wo, acc[r]);
+          }
+        }
+      }
+    }
+  }
+
+  reduce_store<T, BM>(smem, acc, y, M, N, m0);
+}
+
+struct Launcher {
+  const void* x;
+  const void* plane0;
+  const void* plane1;
+  const void* scales;
+  const void* table;
+  void* y;
+  int M, N, K, group_size, chunk, num_bits;
+  cudaStream_t stream;
+
+  template <typename T, int BM, int NB>
+  cudaError_t run_bits() const {
+    return launch_grid<BM>(lut_qgemm_plane_kernel<T, BM, NB>, M, N, chunk, stream,
+                           static_cast<const T*>(x), static_cast<const uint32_t*>(plane0),
+                           static_cast<const uint32_t*>(plane1),
+                           static_cast<const T*>(scales), static_cast<const float*>(table),
+                           static_cast<T*>(y), M, N, K, group_size, chunk);
+  }
+
+  template <typename T, int BM>
+  cudaError_t run() const {
+    switch (num_bits) {
+      case 2: return run_bits<T, BM, 2>();
+      case 3: return run_bits<T, BM, 3>();
+      case 4: return run_bits<T, BM, 4>();
+      default: return cudaErrorInvalidValue;
+    }
+  }
+};
+
+}  // namespace
+
+// num_bits: 2, 3 or 4; plane1 is the 1-bit plane at 3 bits and is ignored
+// otherwise. dtype: 0 = float32, 1 = float16, 2 = bfloat16 (x, scales and y
+// share it; table is float32 [2^num_bits]). All pointers are device pointers;
+// the kernel runs on `stream` and is not synchronised. Returns the
+// cudaError_t of the launch.
+extern "C" int flute_lut_qgemm_plane(const void* x, const void* plane0, const void* plane1,
+                                     const void* scales, const void* table, void* y, int M,
+                                     int N, int K, int group_size, int chunk, int num_bits,
+                                     int dtype, int block_m, void* stream) {
+  const Launcher l{x,     plane0, plane1, scales, table, y, M, N, K, group_size,
+                   chunk, num_bits, static_cast<cudaStream_t>(stream)};
+  return dispatch(dtype, block_m, l);
+}

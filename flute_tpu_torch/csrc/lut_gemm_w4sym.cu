@@ -35,48 +35,11 @@
 // This is the simple, correct kernel; it does not pipeline loads across
 // chunks, use wgmma or TMA.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-
-#include <cstddef>
-#include <cstdint>
+#include "lut_gemm_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kBlockN = 32;  // one output column per lane
-
-template <typename T>
-struct Cvt;
-
-template <>
-struct Cvt<float> {
-  static __device__ __forceinline__ float to_f(float v) { return v; }
-  static __device__ __forceinline__ float from_f(float v) { return v; }
-  static __device__ __forceinline__ float round(float v) { return v; }
-};
-
-template <>
-struct Cvt<__half> {
-  static __device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
-  static __device__ __forceinline__ __half from_f(float v) { return __float2half_rn(v); }
-  static __device__ __forceinline__ float round(float v) {
-    return __half2float(__float2half_rn(v));
-  }
-};
-
-template <>
-struct Cvt<__nv_bfloat16> {
-  static __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-  static __device__ __forceinline__ __nv_bfloat16 from_f(float v) {
-    return __float2bfloat16_rn(v);
-  }
-  static __device__ __forceinline__ float round(float v) {
-    return __bfloat162float(__float2bfloat16_rn(v));
-  }
-};
+using namespace flute;
 
 template <typename T, int BM>
 __global__ void __launch_bounds__(kThreads)
@@ -105,12 +68,7 @@ lut_qgemm_w4sym_kernel(const T* __restrict__ x, const uint32_t* __restrict__ pla
   for (int c = 0; c < nchunks; ++c) {
     __syncthreads();  // previous chunk's x tile is no longer read
     const size_t kbase = static_cast<size_t>(c) * chunk;
-    for (int idx = threadIdx.x; idx < BM * chunk; idx += kThreads) {
-      const int r = idx / chunk;
-      const int k = idx - r * chunk;
-      const int m = m0 + r;
-      smem[idx] = m < M ? Cvt<T>::to_f(x[static_cast<size_t>(m) * K + kbase + k]) : 0.f;
-    }
+    stage_x<T, BM>(smem, x, M, K, m0, kbase, chunk);
     __syncthreads();
     if (col_ok) {
       for (int j = warp; j < kc; j += kWarps) {
@@ -138,54 +96,26 @@ lut_qgemm_w4sym_kernel(const T* __restrict__ x, const uint32_t* __restrict__ pla
     }
   }
 
-  __syncthreads();
-#pragma unroll
-  for (int r = 0; r < BM; ++r) smem[(warp * BM + r) * kBlockN + lane] = acc[r];
-  __syncthreads();
-  for (int t = threadIdx.x; t < BM * kBlockN; t += kThreads) {
-    const int r = t / kBlockN;
-    const int l = t - r * kBlockN;
-    float sum = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) sum += smem[(w * BM + r) * kBlockN + l];
-    const int m = m0 + r;
-    const int nn = blockIdx.x * kBlockN + l;
-    if (m < M && nn < N) y[static_cast<size_t>(m) * N + nn] = Cvt<T>::from_f(sum);
-  }
+  reduce_store<T, BM>(smem, acc, y, M, N, m0);
 }
 
-template <typename T, int BM>
-cudaError_t launch(const void* x, const void* plane, const void* scales,
-                   const void* table, void* y, int M, int N, int K, int group_size,
-                   int chunk, cudaStream_t stream) {
-  const int tile = BM * chunk > kWarps * BM * kBlockN ? BM * chunk : kWarps * BM * kBlockN;
-  const size_t smem = static_cast<size_t>(tile) * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        lut_qgemm_w4sym_kernel<T, BM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-  }
-  const dim3 grid((N + kBlockN - 1) / kBlockN, (M + BM - 1) / BM);
-  lut_qgemm_w4sym_kernel<T, BM><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const uint32_t*>(plane),
-      static_cast<const T*>(scales), static_cast<const float*>(table), static_cast<T*>(y),
-      M, N, K, group_size, chunk);
-  return cudaGetLastError();
-}
+struct Launcher {
+  const void* x;
+  const void* plane;
+  const void* scales;
+  const void* table;
+  void* y;
+  int M, N, K, group_size, chunk;
+  cudaStream_t stream;
 
-template <typename T>
-cudaError_t dispatch_bm(int block_m, const void* x, const void* plane, const void* scales,
-                        const void* table, void* y, int M, int N, int K, int group_size,
-                        int chunk, cudaStream_t stream) {
-  switch (block_m) {
-    case 1: return launch<T, 1>(x, plane, scales, table, y, M, N, K, group_size, chunk, stream);
-    case 2: return launch<T, 2>(x, plane, scales, table, y, M, N, K, group_size, chunk, stream);
-    case 4: return launch<T, 4>(x, plane, scales, table, y, M, N, K, group_size, chunk, stream);
-    case 8: return launch<T, 8>(x, plane, scales, table, y, M, N, K, group_size, chunk, stream);
-    default: return cudaErrorInvalidValue;
+  template <typename T, int BM>
+  cudaError_t run() const {
+    return launch_grid<BM>(lut_qgemm_w4sym_kernel<T, BM>, M, N, chunk, stream,
+                           static_cast<const T*>(x), static_cast<const uint32_t*>(plane),
+                           static_cast<const T*>(scales), static_cast<const float*>(table),
+                           static_cast<T*>(y), M, N, K, group_size, chunk);
   }
-}
+};
 
 }  // namespace
 
@@ -196,22 +126,7 @@ extern "C" int flute_lut_qgemm_w4sym(const void* x, const void* plane, const voi
                                      const void* table, void* y, int M, int N, int K,
                                      int group_size, int chunk, int dtype, int block_m,
                                      void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return dispatch_bm<float>(block_m, x, plane, scales, table, y, M, N, K, group_size,
-                                chunk, s);
-    case 1:
-      return dispatch_bm<__half>(block_m, x, plane, scales, table, y, M, N, K, group_size,
-                                 chunk, s);
-    case 2:
-      return dispatch_bm<__nv_bfloat16>(block_m, x, plane, scales, table, y, M, N, K,
-                                        group_size, chunk, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
-extern "C" const char* flute_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
+  const Launcher l{x, plane, scales, table, y, M, N, K, group_size, chunk,
+                   static_cast<cudaStream_t>(stream)};
+  return dispatch(dtype, block_m, l);
 }

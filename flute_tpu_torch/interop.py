@@ -3,9 +3,12 @@
 The tree is what a caller gets by turning every leaf of a ``flute_tpu``
 params pytree into numpy: dense arrays stay arrays, and each quantized
 linear is a dict with ``planes`` (list of int32 arrays), ``scales``,
-``table``, ``bias`` (or None), ``num_bits``, ``group_size``, ``layout`` and
-``config_key``. Planes are carried bit for bit and the chunk rides in the
-config key; bfloat16 arrays (numpy dtype named ``bfloat16``) stay bfloat16.
+``table``, ``pair_values`` and ``bias`` (each may be None), ``num_bits``,
+``group_size``, ``layout``, ``config_key`` and ``hadamard_size``. Planes are
+carried bit for bit and the chunk rides in the config key; bfloat16 arrays
+(numpy dtype named ``bfloat16``) stay bfloat16. A layer whose
+``hadamard_size`` is set raises ``NotImplementedError`` (its rotation is not
+ported), so no field is dropped on the way.
 """
 
 from __future__ import annotations
@@ -32,15 +35,20 @@ def tensor_from_numpy(a, device) -> torch.Tensor:
 
 
 def _quantized_from_numpy(d: dict, device) -> QuantizedLinear:
+    def optional(key):
+        return None if d.get(key) is None else tensor_from_numpy(d[key], device)
+
     return QuantizedLinear(
         [tensor_from_numpy(p, device) for p in d["planes"]],
         tensor_from_numpy(d["scales"], device),
         tensor_from_numpy(d["table"], device).float(),
-        None if d.get("bias") is None else tensor_from_numpy(d["bias"], device),
+        optional("bias"),
+        pair_values=optional("pair_values"),
         num_bits=int(d["num_bits"]),
         group_size=int(d["group_size"]),
         config_key=d.get("config_key"),
         layout=d.get("layout", "auto"),
+        hadamard_size=d.get("hadamard_size"),
     )
 
 
@@ -76,6 +84,7 @@ def move_params(tree: Any, device) -> Any:
             tree.scales.to(device),
             tree.table.to(device),
             None if tree.bias is None else tree.bias.to(device),
+            pair_values=None if tree.pair_values is None else tree.pair_values.to(device),
             num_bits=tree.num_bits,
             group_size=tree.group_size,
             config_key=tree.config_key,

@@ -1,10 +1,12 @@
 """Quantized module layer, counterpart of ``flute_tpu/nn.py``.
 
-``QuantizedLinear`` is an ``nn.Module`` whose packed planes, scales, table
-and bias are buffers, and whose quantization metadata (``num_bits``,
-``group_size``, ``layout``, ``config_key`` and the ``chunk`` it carries)
-are attributes. ``layout`` must travel with the module: the w4sym layout has
-the plane shape of classic W4 and cannot be told from it.
+``QuantizedLinear`` is an ``nn.Module`` whose packed planes, scales, table,
+optional pair table and bias are buffers, and whose quantization metadata
+(``num_bits``, ``group_size``, ``layout``, ``config_key`` and the ``chunk``
+it carries) are attributes. ``layout`` must travel with the module: the
+w4sym layout has the plane shape of classic W4 and cannot be told from it.
+``from_codes`` builds one from codes computed elsewhere (importers,
+checkpoints).
 """
 
 from __future__ import annotations
@@ -28,7 +30,12 @@ class QuantizedLinear(nn.Module):
     Tensor contract (that of :func:`flute_tpu_torch.ops.lut_gemm.lut_qgemm`):
     planes packed int32 for logical codes ``[K, N]`` (K = in_features,
     N = out_features); scales ``[K // group_size, N]`` in the compute dtype;
-    table float32 ``[2^num_bits]``; optional bias ``[N]``.
+    table float32 ``[2^num_bits]``; optional ``pair_values`` float32
+    ``[2^b, 2^b, 2]``, a joint table for K-row pairs (HIGGS vector
+    dequantization) that replaces ``table``; optional bias ``[N]``.
+
+    ``hadamard_size`` (the HIGGS rotation of x before the GEMM) is not
+    ported: a layer that needs it raises rather than computing without it.
     """
 
     def __init__(
@@ -38,17 +45,25 @@ class QuantizedLinear(nn.Module):
         table: torch.Tensor,
         bias: Optional[torch.Tensor] = None,
         *,
+        pair_values: Optional[torch.Tensor] = None,
         num_bits: int = 4,
         group_size: int = 64,
         config_key: Optional[str] = None,
         layout: str = "auto",
+        hadamard_size: Optional[int] = None,
     ):
         super().__init__()
+        if hadamard_size is not None:
+            raise NotImplementedError(
+                f"hadamard_size={hadamard_size}: the Hadamard rotation of HIGGS "
+                "layers is not ported yet (ROADMAP.md, queue 1 item 11)"
+            )
         self.num_planes = len(planes)
         for i, p in enumerate(planes):
             self.register_buffer(f"plane{i}", p)
         self.register_buffer("scales", scales)
         self.register_buffer("table", table)
+        self.register_buffer("pair_values", pair_values)
         self.register_buffer("bias", bias)
         self.num_bits = num_bits
         self.group_size = group_size
@@ -86,6 +101,7 @@ class QuantizedLinear(nn.Module):
             self.table,
             num_bits=self.num_bits,
             config=self.config,
+            pair_values=self.pair_values,
             layout=self.layout,
         )
         if self.bias is not None:
@@ -97,6 +113,8 @@ class QuantizedLinear(nn.Module):
         codes = packing.unpack(
             list(self.planes), self.num_bits, chunk=self.chunk, layout=self.layout
         )
+        if self.pair_values is not None:
+            return lut_gemm.dequantize_codes_pair(codes, self.scales, self.pair_values, dtype)
         return lut_gemm.dequantize_codes(codes, self.scales, self.table, dtype)
 
     def extra_repr(self) -> str:
@@ -107,11 +125,12 @@ class QuantizedLinear(nn.Module):
 
 
 def _pack(codes_kn: torch.Tensor, num_bits: int, chunk: int, wide: bool, layout: str):
-    """Pack on the codes' device: w4sym with the torch packer, the other
-    layouts through the numpy reference packers."""
+    """Pack on the codes' device with the torch packers."""
     if layout == "w4sym":
         return [packing.pack_w4_sym(codes_kn, chunk=chunk)]
-    return packing.pack(codes_kn, num_bits, chunk=chunk, wide=wide)
+    if wide:
+        return [packing.pack_w3_wide(codes_kn, chunk=chunk)]
+    return packing.pack_plane(codes_kn, num_bits, chunk=chunk)
 
 
 def quantize_linear(
@@ -203,6 +222,44 @@ def quantize_linear(
         group_size=group_size,
         config_key=KernelConfig(chunk=chunk).key(),
         layout=layout,
+    )
+
+
+def from_codes(
+    codes_kn,
+    scales_kn: torch.Tensor,
+    table,
+    num_bits: int,
+    group_size: int,
+    *,
+    pair_values: Optional[torch.Tensor] = None,
+    bias: Optional[torch.Tensor] = None,
+    chunk: int = packing.DEFAULT_CHUNK,
+    device=None,
+) -> QuantizedLinear:
+    """A :class:`QuantizedLinear` from pre-computed ``[K, N]`` codes (the
+    entry point of importers and checkpoints), packed in the pair-plane
+    layout on ``device``: the codes' device for a tensor, else ``cuda``
+    unless named. ``table`` None means zeros (for a layer that looks its
+    values up in ``pair_values``)."""
+    if isinstance(codes_kn, torch.Tensor) and device is None:
+        dev = codes_kn.device
+    else:
+        dev = resolve_device(device)
+    codes_kn = torch.as_tensor(codes_kn).to(dev)
+    if table is None:
+        table = torch.zeros((2**num_bits,), dtype=torch.float32)
+    return QuantizedLinear(
+        packing.pack_plane(codes_kn, num_bits, chunk=chunk),
+        torch.as_tensor(scales_kn).to(dev),
+        torch.as_tensor(table, dtype=torch.float32).to(dev),
+        None if bias is None else torch.as_tensor(bias).to(dev),
+        pair_values=None if pair_values is None else torch.as_tensor(
+            pair_values, dtype=torch.float32
+        ).to(dev),
+        num_bits=num_bits,
+        group_size=group_size,
+        config_key=KernelConfig(chunk=chunk).key(),
     )
 
 

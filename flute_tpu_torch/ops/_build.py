@@ -1,10 +1,10 @@
 """Build and load the package's CUDA kernels.
 
-Each ``csrc/*.cu`` file has a plain C interface. It is compiled with
-``nvcc`` into a shared library at first use, under
-``build/flute_tpu_torch/`` at the repository root, keyed by a hash of the
-source and the command, and loaded with ``ctypes``. A missing ``nvcc`` or a
-failed build raises: nothing falls back.
+Each ``csrc/*.cu`` file has a plain C interface (shared device code is in
+``csrc/*.cuh`` headers). It is compiled with ``nvcc`` into a shared library
+at first use, under ``build/flute_tpu_torch/`` at the repository root, keyed
+by a hash of the source, the headers and the command, and loaded with
+``ctypes``. A missing ``nvcc`` or a failed build raises: nothing falls back.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "flute_tpu_torch"
@@ -24,6 +25,7 @@ NVCC_FLAGS = (
     # registers, shared memory and spills per kernel, kept in the build log
     "-Xptxas=-v",
 )
+
 
 def find_nvcc() -> str:
     nvcc = shutil.which("nvcc")
@@ -37,30 +39,51 @@ def find_nvcc() -> str:
 
 
 def library_path(source: str) -> Path:
+    """Where the library of ``csrc/<source>`` is built: keyed by the source,
+    the shared headers it may include and the command."""
     src = CSRC / source
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{src.stem}-{h[:16]}.so"
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
+
+
+def build_all(sources: Sequence[str]) -> list[Path]:
+    """Compile every ``csrc/<source>`` whose library is not built yet, one
+    ``nvcc`` process per source, all started together; return the libraries'
+    paths. Each nvcc's output goes to ``<library>.log``. Waits for every
+    process, then raises with the output of those that failed."""
+    outs = [library_path(s) for s in sources]
+    todo = [(s, out) for s, out in zip(sources, outs) if not out.exists()]
+    if todo:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = find_nvcc()
+    running = []
+    for source, out in todo:
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
+        proc = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )
+        running.append((source, out, tmp, cmd, proc))
+    failed = []
+    for source, out, tmp, cmd, proc in running:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}) for {source}:\n{' '.join(cmd)}\n{log}")
+            continue
+        out.with_suffix(".log").write_text(log)
+        os.replace(tmp, out)  # atomic: a concurrent build never loads a partial file
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return outs
 
 
 def build(source: str) -> Path:
-    """Compile ``csrc/<source>`` unless its library is already built;
-    return the library's path. nvcc's output goes to ``<library>.log``.
-    Raises with that output on failure."""
-    out = library_path(source)
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) for {source}:\n"
-            f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
-        )
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)  # atomic: concurrent builders never load a partial file
-    return out
+    """Compile ``csrc/<source>`` unless its library is already built; return
+    the library's path. Raises with nvcc's output on failure."""
+    return build_all([source])[0]
 
 
 def load(source: str) -> ctypes.CDLL:

@@ -6,8 +6,10 @@ Its block sizes describe TPU tiles and the CUDA launch ignores them; its
 ``chunk`` is part of the packed layout and is honoured. The TPU device
 profiles and tuned registry are TPU-calibrated and have no counterpart here.
 
-``LaunchConfig`` is what the Hopper w4sym kernel
-(``csrc/lut_gemm_w4sym.cu``) actually takes.
+``LaunchConfig`` is what the Hopper LUT-GEMM kernels actually take: K1
+(``csrc/lut_gemm_w4sym.cu``), K2 (``csrc/lut_gemm_plane.cu``) and K3
+(``csrc/lut_gemm_w3wide.cu``) share one skeleton
+(``csrc/lut_gemm_common.cuh``) and so one launch shape.
 """
 
 from __future__ import annotations
@@ -61,10 +63,15 @@ class KernelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class LaunchConfig:
-    """Launch shape of the w4sym kernel. ``threads`` (eight warps that split
-    each pack chunk's words) and ``block_n`` (one output column per lane)
-    are fixed in ``csrc/lut_gemm_w4sym.cu`` (``kThreads``, ``kBlockN``);
-    ``block_m``, the rows of M per block, is chosen per call."""
+    """Launch shape of the LUT-GEMM kernels K1, K2 and K3.
+
+    ``threads`` (eight warps that split each pack chunk's words: plane word
+    rows in K1 and K2, word triples in K3) and ``block_n`` (one output column
+    per lane) are fixed for all three in ``csrc/lut_gemm_common.cuh``
+    (``kThreads``, ``kBlockN``). ``block_m``, the rows of M per block, is
+    chosen per call; each kernel is instantiated for every value of
+    ``BLOCK_M_CHOICES``. The pack chunk is not a launch field: it is part of
+    the layout and reaches the kernels as an argument."""
 
     block_m: int = 8
     threads: ClassVar[int] = 256

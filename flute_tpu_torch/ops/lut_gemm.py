@@ -4,12 +4,14 @@
 
 Dispatch is by the tensors' device:
 
-* CPU: the plain PyTorch version (unpack -> :func:`dequantize_codes` ->
-  f32-accumulated matmul) for every layout.
-* CUDA, ``layout="w4sym"``: the Hopper kernel ``csrc/lut_gemm_w4sym.cu``
-  (see the note at its top). A build or launch failure raises.
-* CUDA, any other layout (``plane``, ``w3wide``, ``pair_values``): raises
-  ``NotImplementedError``; those kernels are not ported yet.
+* CPU: the plain PyTorch version (unpack -> :func:`dequantize_codes` or
+  :func:`dequantize_codes_pair` -> f32-accumulated matmul) for every layout.
+* CUDA: one Hopper kernel per layout (see the note at the top of each
+  source): ``layout="w4sym"`` -> K1 ``csrc/lut_gemm_w4sym.cu``;
+  ``layout="plane"`` at 2, 3 and 4 bits -> K2 ``csrc/lut_gemm_plane.cu``;
+  ``layout="w3wide"`` -> K3 ``csrc/lut_gemm_w3wide.cu``. A build or launch
+  failure raises. ``pair_values`` (joint pair lookup, K4) raises
+  ``NotImplementedError``: that kernel is not ported yet.
 
 :func:`dequantize_codes`, :func:`dequantize_codes_pair` and
 :func:`lut_qgemm_reference` are the oracle and define the semantics.
@@ -27,9 +29,10 @@ from flute_tpu_torch import bitutils
 from flute_tpu_torch import packing as _packing
 from flute_tpu_torch.ops.kernel_config import KernelConfig, launch_config
 
-# Launches of the w4sym kernel; the wrapper adds one per launch and nowhere
-# else, so a run can show that its path went through the kernel.
-LAUNCHES = 0
+# Launches of each kernel, by layout; a wrapper adds one where it launches
+# its kernel and nowhere else, so a run can show which kernels its path
+# went through.
+LAUNCHES = {"w4sym": 0, "plane": 0, "w3wide": 0}
 
 _DTYPE_TAG = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
@@ -106,22 +109,113 @@ def lut_qgemm_plain(
     return lut_qgemm_reference(x2, codes, scales, table)
 
 
+# layout -> (source, C entry, its pointer and int arguments before the
+# stream: x, planes, scales, table, y, then M, N, K, group_size, chunk
+# [, num_bits], dtype, block_m)
+_KERNELS = {
+    "w4sym": ("lut_gemm_w4sym.cu", "flute_lut_qgemm_w4sym", 5, 7),
+    "plane": ("lut_gemm_plane.cu", "flute_lut_qgemm_plane", 6, 8),
+    "w3wide": ("lut_gemm_w3wide.cu", "flute_lut_qgemm_w3wide", 5, 7),
+}
+
+
 @functools.lru_cache(maxsize=None)
-def _kernel_lib() -> ctypes.CDLL:
+def _kernel_fn(layout: str):
+    """The C entry of ``layout``'s kernel library (built at first use)."""
     from flute_tpu_torch.ops import _build
 
-    lib = _build.load("lut_gemm_w4sym.cu")
-    fn = lib.flute_lut_qgemm_w4sym
+    source, entry, n_ptr, n_int = _KERNELS[layout]
+    lib = _build.load(source)
+    fn = getattr(lib, entry)
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
     lib.flute_cuda_error_string.restype = ctypes.c_char_p
     lib.flute_cuda_error_string.argtypes = [ctypes.c_int]
-    return lib
+    return fn, lib.flute_cuda_error_string
 
 
-def build_kernel() -> None:
-    """Build (or load the already built) w4sym kernel library."""
-    _kernel_lib()
+def build_kernels() -> None:
+    """Build (or load the already built) kernel libraries, one ``nvcc``
+    process per source, all at once."""
+    from flute_tpu_torch.ops import _build
+
+    _build.build_all([source for source, *_ in _KERNELS.values()])
+    for layout in _KERNELS:
+        _kernel_fn(layout)
+
+
+def _check_operands(
+    x2: torch.Tensor,
+    planes: Sequence[torch.Tensor],
+    plane_rows: Sequence[int],
+    scales: torch.Tensor,
+    table: torch.Tensor,
+    table_entries: int,
+    group_size: int,
+    chunk: int,
+) -> None:
+    """Raise ``ValueError`` on operands a kernel does not take: another
+    device, a non-contiguous tensor, a dtype or shape it was not built for."""
+    m, k = x2.shape
+    n = scales.shape[1]
+    dev = x2.device
+    named = [("x", x2), *((f"plane{i}", p) for i, p in enumerate(planes)),
+             ("scales", scales), ("table", table)]
+    for name, t in named:
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, x on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if x2.dtype not in _DTYPE_TAG:
+        raise ValueError(f"unsupported compute dtype {x2.dtype}")
+    if scales.dtype != x2.dtype:
+        raise ValueError(f"scales dtype {scales.dtype} != x dtype {x2.dtype}")
+    if len(planes) != len(plane_rows):
+        raise ValueError(f"expected {len(plane_rows)} plane(s), got {len(planes)}")
+    for i, (p, rows) in enumerate(zip(planes, plane_rows)):
+        if p.dtype != torch.int32 or tuple(p.shape) != (rows, n):
+            raise ValueError(f"plane{i} must be int32 [{rows}, {n}]")
+    if table.dtype != torch.float32 or table.numel() != table_entries:
+        raise ValueError(f"table must be float32 [{table_entries}]")
+    if k % chunk or group_size % 2 or k % group_size:
+        raise ValueError(f"K={k} chunk={chunk} group_size={group_size} not supported")
+    if -(-m // launch_config(m).block_m) > 65535:
+        raise ValueError(f"M={m} exceeds the kernel's grid")
+
+
+def _launch(
+    layout: str,
+    x2: torch.Tensor,
+    plane_ptrs: Sequence[Optional[int]],
+    scales: torch.Tensor,
+    table: torch.Tensor,
+    *,
+    group_size: int,
+    chunk: int,
+    extra: tuple[int, ...] = (),
+) -> torch.Tensor:
+    """Launch ``layout``'s kernel on PyTorch's current stream (operands
+    already checked) and count the launch; returns ``[M, N]`` in x's dtype."""
+    m, k = x2.shape
+    n = scales.shape[1]
+    dev = x2.device
+    y = torch.empty((m, n), dtype=x2.dtype, device=dev)
+    if m == 0:
+        return y
+    fn, error_string = _kernel_fn(layout)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = fn(
+            x2.data_ptr(), *plane_ptrs, scales.data_ptr(), table.data_ptr(), y.data_ptr(),
+            m, n, k, group_size, chunk, *extra, _DTYPE_TAG[x2.dtype],
+            launch_config(m).block_m, stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"{layout} kernel launch failed: {error_string(err).decode()} ({err})"
+        )
+    LAUNCHES[layout] += 1
+    return y
 
 
 def lut_qgemm_w4sym_cuda(
@@ -133,46 +227,57 @@ def lut_qgemm_w4sym_cuda(
     group_size: int,
     chunk: int,
 ) -> torch.Tensor:
-    """Launch the Hopper w4sym kernel on PyTorch's current stream for a
-    2-D ``x2`` ``[M, K]``; returns ``[M, N]`` in x's dtype."""
-    global LAUNCHES
-    m, k = x2.shape
-    n = scales.shape[1]
-    dev = x2.device
-    for name, t in (("x", x2), ("plane", plane), ("scales", scales), ("table", table)):
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, x on {dev}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if x2.dtype not in _DTYPE_TAG:
-        raise ValueError(f"unsupported compute dtype {x2.dtype}")
-    if scales.dtype != x2.dtype:
-        raise ValueError(f"scales dtype {scales.dtype} != x dtype {x2.dtype}")
-    if plane.dtype != torch.int32 or tuple(plane.shape) != (k // 8, n):
-        raise ValueError(f"plane must be int32 [{k // 8}, {n}]")
-    if table.dtype != torch.float32 or table.numel() != 16:
-        raise ValueError("table must be float32 [16]")
-    if chunk % 8 or k % chunk or group_size % 2 or k % group_size:
-        raise ValueError(f"K={k} chunk={chunk} group_size={group_size} not supported")
-    cfg = launch_config(m)
-    if -(-m // cfg.block_m) > 65535:
-        raise ValueError(f"M={m} exceeds the kernel's grid")
-    y = torch.empty((m, n), dtype=x2.dtype, device=dev)
-    if m == 0:
-        return y
-    lib = _kernel_lib()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = lib.flute_lut_qgemm_w4sym(
-            x2.data_ptr(), plane.data_ptr(), scales.data_ptr(), table.data_ptr(),
-            y.data_ptr(), m, n, k, group_size, chunk, _DTYPE_TAG[x2.dtype],
-            cfg.block_m, stream,
-        )
-    if err != 0:
-        msg = lib.flute_cuda_error_string(err).decode()
-        raise RuntimeError(f"w4sym kernel launch failed: {msg} ({err})")
-    LAUNCHES += 1
-    return y
+    """Launch K1, the Hopper w4sym kernel, for a 2-D ``x2`` ``[M, K]``;
+    returns ``[M, N]`` in x's dtype."""
+    k = x2.shape[1]
+    if chunk % 8:
+        raise ValueError(f"chunk={chunk} not supported by the w4sym layout")
+    _check_operands(x2, [plane], [k // 8], scales, table, 16, group_size, chunk)
+    return _launch("w4sym", x2, [plane.data_ptr()], scales, table,
+                   group_size=group_size, chunk=chunk)
+
+
+def lut_qgemm_plane_cuda(
+    x2: torch.Tensor,
+    planes: Sequence[torch.Tensor],
+    scales: torch.Tensor,
+    table: torch.Tensor,
+    *,
+    num_bits: int,
+    group_size: int,
+    chunk: int,
+) -> torch.Tensor:
+    """Launch K2, the Hopper general-table pair-plane kernel, for a 2-D
+    ``x2`` ``[M, K]`` and 2-, 3- (2+1 planes) or 4-bit codes; returns
+    ``[M, N]`` in x's dtype."""
+    if num_bits not in (2, 3, 4):
+        raise ValueError(f"the plane kernel takes 2, 3 or 4 bits, not {num_bits}")
+    fmt = _packing.PackFormat(num_bits=num_bits, chunk=chunk)  # validates chunk
+    k = x2.shape[1]
+    rows = [fmt.plane_rows(k, i) for i in range(len(fmt.plane_bits))]
+    _check_operands(x2, planes, rows, scales, table, 2**num_bits, group_size, chunk)
+    ptrs = [planes[0].data_ptr(), planes[1].data_ptr() if num_bits == 3 else None]
+    return _launch("plane", x2, ptrs, scales, table,
+                   group_size=group_size, chunk=chunk, extra=(num_bits,))
+
+
+def lut_qgemm_w3wide_cuda(
+    x2: torch.Tensor,
+    plane: torch.Tensor,
+    scales: torch.Tensor,
+    table: torch.Tensor,
+    *,
+    group_size: int,
+    chunk: int,
+) -> torch.Tensor:
+    """Launch K3, the Hopper wide 3-bit kernel, for a 2-D ``x2`` ``[M, K]``;
+    returns ``[M, N]`` in x's dtype."""
+    k = x2.shape[1]
+    if chunk % 256:
+        raise ValueError(f"chunk={chunk} not supported by the wide 3-bit layout")
+    _check_operands(x2, [plane], [3 * k // 32], scales, table, 8, group_size, chunk)
+    return _launch("w3wide", x2, [plane.data_ptr()], scales, table,
+                   group_size=group_size, chunk=chunk)
 
 
 # ---------------------------------------------------------------------------
@@ -261,18 +366,21 @@ def lut_qgemm(
             layout=layout, pair_values=pair_values,
         )
     elif x.device.type == "cuda":
-        if layout != "w4sym" or pair_values is not None:
+        if pair_values is not None:
             raise NotImplementedError(
-                f"layout={layout!r}"
-                + (" with pair_values" if pair_values is not None else "")
-                + " has no CUDA kernel yet (K2 plane, K3 w3wide and K4 pair_lut "
-                "are still to be ported); only layout='w4sym' runs on CUDA"
+                "pair_values (joint pair lookup) has no CUDA kernel yet: K4 "
+                "(pair_lut) is still to be ported"
             )
-        y = lut_qgemm_w4sym_cuda(
-            x2.contiguous(), planes[0], scales.to(x2.dtype).contiguous(),
-            table.float().contiguous(),
-            group_size=group_size, chunk=chunk,
-        )
+        x2 = x2.contiguous()
+        scales = scales.to(x2.dtype).contiguous()
+        table = table.float().contiguous()
+        kw = dict(group_size=group_size, chunk=chunk)
+        if layout == "w4sym":
+            y = lut_qgemm_w4sym_cuda(x2, planes[0], scales, table, **kw)
+        elif layout == "w3wide":
+            y = lut_qgemm_w3wide_cuda(x2, planes[0], scales, table, **kw)
+        else:
+            y = lut_qgemm_plane_cuda(x2, planes, scales, table, num_bits=num_bits, **kw)
     else:
         raise ValueError(f"unsupported device {x.device}")
     return y.reshape(*batch, n)

@@ -2,8 +2,9 @@
 
 The packed int32 planes are the checkpoint contract shared with the JAX
 package, so every packer here writes exactly the words the JAX packers
-write (numpy is the reference path; ``pack_w4_sym`` is a torch twin for
-packing on the device).
+write. The numpy packers (``*_np``) are the reference; ``pack_plane``,
+``pack_w3_wide`` and ``pack_w4_sym`` and their unpackers are torch twins
+that run on the codes' own device, and ``pack``/``unpack`` use them.
 
 Logical format: ``codes`` int ``[K, N]`` indexing a 2^b-entry table, and
 ``scales`` ``[K // group_size, N]``, so that
@@ -239,6 +240,28 @@ def _to_int32_words(words: torch.Tensor) -> torch.Tensor:
     return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
 
 
+def _pack_fields(fields: torch.Tensor, field_bits: int, chunk: int) -> torch.Tensor:
+    """Torch twin of :func:`_pack_pair_plane_np`: ``[K/2, N]`` pair fields
+    into ``[K * field_bits / 64, N]`` int32 words (field ``i`` of chunk word
+    ``j`` is pair-row ``i * kc + j``)."""
+    p, n = fields.shape
+    r = bitutils.WORD_BITS // field_bits
+    x = fields.to(torch.int64).reshape(2 * p // chunk, r, chunk // 2 // r, n)
+    shifts = field_bits * torch.arange(r, device=fields.device).reshape(1, r, 1, 1)
+    words = (x << shifts).sum(dim=1)  # the fields' bits are disjoint: sum == OR
+    return _to_int32_words(words.reshape(p // r, n))
+
+
+def _unpack_fields(words: torch.Tensor, field_bits: int, chunk: int) -> torch.Tensor:
+    """Inverse of :func:`_pack_fields` -> ``[K/2, N]`` int64 pair fields."""
+    rows, n = words.shape
+    r = bitutils.WORD_BITS // field_bits
+    kc = chunk // 2 // r
+    w = (words.to(torch.int64) & 0xFFFFFFFF).reshape(rows // kc, 1, kc, n)
+    shifts = field_bits * torch.arange(r, device=words.device).reshape(1, r, 1, 1)
+    return ((w >> shifts) & ((1 << field_bits) - 1)).reshape(rows * r, n)
+
+
 def pack_w4_sym(codes: torch.Tensor, *, chunk: int = DEFAULT_CHUNK) -> torch.Tensor:
     """Torch twin of :func:`pack_w4_sym_np`: packs ``[K, N]`` sign-magnitude
     codes into the ``[K/8, N]`` int32 plane on the codes' device."""
@@ -248,22 +271,91 @@ def pack_w4_sym(codes: torch.Tensor, *, chunk: int = DEFAULT_CHUNK) -> torch.Ten
     c = codes.to(torch.int64)
     ce, co = c[0::2], c[1::2]
     f = (ce & 7) | ((co & 7) << 3) | ((ce >> 3) << 6) | ((co >> 3) << 7)
-    kc = chunk // 8  # words per chunk column
-    x = f.reshape(k // chunk, 4, kc, n)
-    words = x[:, 0] | (x[:, 1] << 8) | (x[:, 2] << 16) | (x[:, 3] << 24)
-    return _to_int32_words(words.reshape(k // 8, n))
+    return _pack_fields(f, 8, chunk)
 
 
 def unpack_w4_sym(plane: torch.Tensor, *, chunk: int = DEFAULT_CHUNK) -> torch.Tensor:
     """Torch twin of :func:`unpack_w4_sym_np` -> ``[K, N]`` int32 codes."""
-    rows, n = plane.shape
-    kc = chunk // 8
-    w = (plane.to(torch.int64) & 0xFFFFFFFF).reshape(rows // kc, 1, kc, n)
-    shifts = 8 * torch.arange(4, device=plane.device).reshape(1, 4, 1, 1)
-    f = ((w >> shifts) & 0xFF).reshape(rows * 4, n)  # [K/2, N] pair fields
+    f = _unpack_fields(plane, 8, chunk)  # [K/2, N] pair fields
     ce = (f & 7) | (((f >> 6) & 1) << 3)
     co = ((f >> 3) & 7) | (((f >> 7) & 1) << 3)
-    return torch.stack([ce, co], dim=1).reshape(rows * 8, n).to(torch.int32)
+    return torch.stack([ce, co], dim=1).reshape(2 * f.shape[0], -1).to(torch.int32)
+
+
+def pack_plane(
+    codes: torch.Tensor, num_bits: int, *, chunk: int = DEFAULT_CHUNK
+) -> list[torch.Tensor]:
+    """Torch twin of :func:`pack_np`: packs ``[K, N]`` b-bit codes into the
+    pair-plane layout (int32 ``[K * pb / 32, N]`` per plane) on the codes'
+    device."""
+    fmt = PackFormat(num_bits=num_bits, chunk=chunk)
+    fmt.validate_k(codes.shape[0])
+    c = codes.to(torch.int64)
+    out = []
+    shift = 0
+    for pb in fmt.plane_bits:
+        sub = (c >> shift) & ((1 << pb) - 1)
+        shift += pb
+        out.append(_pack_fields(sub[0::2] | (sub[1::2] << pb), 2 * pb, chunk))
+    return out
+
+
+def unpack_plane(
+    planes: Sequence[torch.Tensor], num_bits: int, *, chunk: int = DEFAULT_CHUNK
+) -> torch.Tensor:
+    """Torch twin of :func:`unpack_np` for the pair-plane layout -> ``[K, N]``
+    int32 codes on the planes' device."""
+    fmt = PackFormat(num_bits=num_bits, chunk=chunk)
+    codes = None
+    shift = 0
+    for plane, pb in zip(planes, fmt.plane_bits):
+        f = _unpack_fields(plane, 2 * pb, chunk)  # [K/2, N] pair fields
+        sub = torch.stack([f & ((1 << pb) - 1), f >> pb], dim=1).reshape(2 * f.shape[0], -1)
+        codes = sub if codes is None else codes | (sub << shift)
+        shift += pb
+    return codes.to(torch.int32)
+
+
+# (j, word, offset) of the 16 six-bit pair fields of a wide 3-bit word
+# triple: field j lies at bit 6 j of the 96 bits, from `offset` of `word`
+# (fields 5 and 10 run on into the next word)
+_W3_FIELDS = [(j, 6 * j // 32, 6 * j % 32) for j in range(16)]
+
+
+def pack_w3_wide(codes: torch.Tensor, *, chunk: int = DEFAULT_CHUNK) -> torch.Tensor:
+    """Torch twin of :func:`pack_w3_wide_np`: packs ``[K, N]`` 3-bit codes
+    into the wide single plane (int32 ``[3K/32, N]``) on the codes' device."""
+    k, n = codes.shape
+    if k % chunk != 0:
+        raise ValueError(f"K={k} must be a multiple of pack chunk {chunk}")
+    if chunk % 256 != 0:
+        raise ValueError(f"chunk={chunk} incompatible with wide 3-bit layout")
+    c = codes.to(torch.int64)
+    pairs = c[0::2] | (c[1::2] << 3)  # [K/2, N]
+    ntrip = chunk // 32
+    pr = pairs.reshape(k // chunk, 16, ntrip, n)
+    grp = torch.zeros((k // chunk, 3, ntrip, n), dtype=torch.int64, device=codes.device)
+    for j, w, off in _W3_FIELDS:
+        grp[:, w] |= (pr[:, j] << off) & 0xFFFFFFFF
+        if off + 6 > 32:
+            grp[:, w + 1] |= pr[:, j] >> (32 - off)
+    return _to_int32_words(grp.reshape(k * 3 // bitutils.WORD_BITS, n))
+
+
+def unpack_w3_wide(plane: torch.Tensor, *, chunk: int = DEFAULT_CHUNK) -> torch.Tensor:
+    """Torch twin of :func:`unpack_w3_wide_np` -> ``[K, N]`` int32 codes."""
+    rows, n = plane.shape
+    k = rows * bitutils.WORD_BITS // 3
+    ntrip = chunk // 32
+    w = (plane.to(torch.int64) & 0xFFFFFFFF).reshape(k // chunk, 3, ntrip, n)
+    pf = []
+    for _, a, off in _W3_FIELDS:
+        v = w[:, a] >> off
+        if off + 6 > 32:
+            v = v | (w[:, a + 1] << (32 - off))
+        pf.append(v & 0x3F)
+    pairs = torch.stack(pf, dim=1).reshape(k // 2, n)
+    return torch.stack([pairs & 7, pairs >> 3], dim=1).reshape(k, n).to(torch.int32)
 
 
 def pack(
@@ -275,18 +367,17 @@ def pack(
     device=None,
 ) -> list[torch.Tensor]:
     """Pack ``[K, N]`` codes (numpy or tensor) into the pair-plane layout
-    (or the wide 3-bit one) and return int32 tensors on ``device`` (the
-    codes' device for a tensor; otherwise ``cuda`` unless named)."""
+    (or the wide 3-bit one) with the torch packers, on ``device``: the
+    codes' device for a tensor; otherwise ``cuda`` unless named."""
     if isinstance(codes, torch.Tensor):
-        if device is None:
-            device = codes.device
-        codes = codes.cpu().numpy()
-    dev = resolve_device(device)
-    codes = np.asarray(codes)
-    planes = pack_w3_wide_np(codes, chunk=chunk) if wide else pack_np(
-        codes, num_bits, chunk=chunk
-    )
-    return [torch.from_numpy(p).to(dev) for p in planes]
+        dev = codes.device if device is None else torch.device(device)
+    else:
+        dev = resolve_device(device)
+        codes = torch.from_numpy(np.ascontiguousarray(codes))
+    codes = codes.to(dev)
+    if wide:
+        return [pack_w3_wide(codes, chunk=chunk)]
+    return pack_plane(codes, num_bits, chunk=chunk)
 
 
 def unpack(
@@ -299,8 +390,9 @@ def unpack(
     """``[K, N]`` int32 codes of packed planes, on the planes' device."""
     if layout == "w4sym":
         return unpack_w4_sym(planes[0], chunk=chunk)
-    codes = unpack_np([p.cpu().numpy() for p in planes], num_bits, chunk=chunk)
-    return torch.from_numpy(codes).to(planes[0].device)
+    if layout == "w3wide" or (num_bits == 3 and len(planes) == 1):
+        return unpack_w3_wide(planes[0], chunk=chunk)
+    return unpack_plane(planes, num_bits, chunk=chunk)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
-"""Card-only checks of the port: the w4sym kernel against its plain version
-on the same CUDA tensors, and the model and engine through the kernel.
+"""Card-only checks of the port: each LUT-GEMM kernel (K1 w4sym, K2 plane at
+2/3/4 bits, K3 w3wide) against its plain version on the same CUDA tensors,
+and the model and engine through the kernels.
 
 Every test is marked ``cuda`` and skips without a GPU (the kernel has no CPU
 mode). The file imports no JAX, so it also runs on a machine that has none:
@@ -32,7 +33,7 @@ N, K, G = 384, 512, 64
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the w4sym kernel has no CPU mode")
+        pytest.skip("needs a CUDA device: the LUT-GEMM kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
@@ -61,19 +62,77 @@ def w4sym_case(dev, m, dtype, seed, chunk=256, mixed_signs=False):
     )
 
 
-@pytest.mark.parametrize("chunk", [128, 256])
+# (layout, bits, chunk): every kernel at each pack chunk its layout takes
+KERNEL_CASES = [("w4sym", 4, 128), ("w4sym", 4, 256)] + [
+    ("plane", b, c) for b in (2, 3, 4) for c in (128, 256)
+] + [("w3wide", 3, 256), ("w3wide", 3, 512)]
+
+
+def layout_case(dev, layout, bits, m, dtype, seed, chunk):
+    """codes, x, planes, scales, table on ``dev`` for one layout: a random
+    general table (any order and signs) for plane and w3wide."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 2**bits, size=(K, N), dtype=np.int32)
+    if layout == "w4sym":
+        planes = packing.pack_w4_sym_np(codes, chunk=chunk)
+        mags = np.sort(np.abs(rng.standard_normal(8))).astype(np.float32)
+        table = np.concatenate([mags, -mags])
+    elif layout == "w3wide":
+        planes = packing.pack_w3_wide_np(codes, chunk=chunk)
+        table = rng.standard_normal(8).astype(np.float32)
+    else:
+        planes = packing.pack_np(codes, bits, chunk=chunk)
+        table = rng.standard_normal(2**bits).astype(np.float32)
+    scales = rng.uniform(0.5, 1.5, (K // G, N)).astype(np.float32)
+    x = rng.standard_normal((m, K)).astype(np.float32)
+    return (
+        torch.from_numpy(codes).to(dev),
+        torch.from_numpy(x).to(dev, dtype),
+        [torch.from_numpy(p).to(dev) for p in planes],
+        torch.from_numpy(scales).to(dev, dtype),
+        torch.from_numpy(table).to(dev),
+    )
+
+
+@pytest.mark.parametrize("layout,bits,chunk", KERNEL_CASES)
 @pytest.mark.parametrize("m", [1, 3, 8, 9, 40])
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_kernel_vs_plain(dev, dtype, m, chunk):
-    _, x, plane, s, t = w4sym_case(dev, m, dtype, seed=m, chunk=chunk)
+def test_kernel_vs_plain(dev, dtype, m, layout, bits, chunk):
+    _, x, planes, s, t = layout_case(dev, layout, bits, m, dtype, seed=m, chunk=chunk)
     cfg = KernelConfig(chunk=chunk)
-    before = lut_gemm.LAUNCHES
-    y = lut_gemm.lut_qgemm(x, plane, s, t, num_bits=4, layout="w4sym", config=cfg)
-    assert lut_gemm.LAUNCHES == before + 1
-    y_plain = lut_gemm.lut_qgemm_plain(x, [plane], s, t, num_bits=4, chunk=chunk, layout="w4sym")
+    before = dict(lut_gemm.LAUNCHES)
+    y = lut_gemm.lut_qgemm(x, planes, s, t, num_bits=bits, layout=layout, config=cfg)
+    assert lut_gemm.LAUNCHES == {**before, layout: before[layout] + 1}
+    y_plain = lut_gemm.lut_qgemm_plain(x, planes, s, t, num_bits=bits, chunk=chunk,
+                                       layout=layout)
     torch.cuda.synchronize()
     assert y.dtype == dtype and tuple(y.shape) == (m, N)
     assert rel_err(y, y_plain) < TOL[dtype]
+
+
+@pytest.mark.parametrize("layout,bits,chunk", KERNEL_CASES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_identity_bit_exact_every_layout(dev, dtype, layout, bits, chunk):
+    codes, _, planes, s, t = layout_case(dev, layout, bits, 1, dtype, seed=21, chunk=chunk)
+    eye = torch.eye(K, dtype=dtype, device=dev)
+    got = lut_gemm.qgemm(eye, planes, s, t, bits, G, layout=layout,
+                         config=KernelConfig(chunk=chunk))
+    want = lut_gemm.dequantize_codes(codes, s, t, dtype)
+    assert torch.equal(got.float(), want.float())
+
+
+@pytest.mark.parametrize("layout,bits,chunk", KERNEL_CASES)
+def test_unpack_via_kernel_and_reconstruct_every_layout(dev, layout, bits, chunk):
+    codes, _, planes, s, t = layout_case(dev, layout, bits, 1, torch.bfloat16, seed=22,
+                                         chunk=chunk)
+    before = dict(lut_gemm.LAUNCHES)
+    back = packing.unpack_via_kernel(planes, bits, N, K, chunk=chunk, layout=layout)
+    assert torch.equal(back, codes)
+    with_kernel = packing.reconstruct(planes, s, t, bits, chunk=chunk, layout=layout)
+    without = packing.reconstruct(planes, s, t, bits, chunk=chunk, use_kernel=False,
+                                  layout=layout)
+    assert torch.equal(with_kernel.float(), without.float())
+    assert lut_gemm.LAUNCHES[layout] == before[layout] + 2
 
 
 @pytest.mark.parametrize("mixed_signs", [False, True])
@@ -86,29 +145,15 @@ def test_identity_bit_exact(dev, dtype, mixed_signs):
     assert torch.equal(got.float(), want.float())
 
 
-@pytest.mark.parametrize("chunk", [128, 256])
-def test_unpack_via_kernel_and_reconstruct(dev, chunk):
-    codes, _, plane, s, t = w4sym_case(dev, 1, torch.bfloat16, seed=12, chunk=chunk)
-    back = packing.unpack_via_kernel([plane], 4, N, K, chunk=chunk, layout="w4sym")
-    assert torch.equal(back, codes)
-    with_kernel = packing.reconstruct([plane], s, t, 4, chunk=chunk, layout="w4sym")
-    without = packing.reconstruct([plane], s, t, 4, chunk=chunk, use_kernel=False,
-                                  layout="w4sym")
-    assert torch.equal(with_kernel.float(), without.float())
-
-
-def test_other_layouts_raise_on_cuda(dev):
-    codes, x, _, s, t = w4sym_case(dev, 2, torch.bfloat16, seed=13)
-    c = codes.cpu().numpy()
-    plane4 = [torch.from_numpy(p).to(dev) for p in packing.pack_np(c, 4)]
-    wide = [torch.from_numpy(p).to(dev) for p in packing.pack_w3_wide_np(c % 8)]
-    with pytest.raises(NotImplementedError, match="K2"):
-        lut_gemm.lut_qgemm(x, plane4, s, t, num_bits=4)
-    with pytest.raises(NotImplementedError):
-        lut_gemm.lut_qgemm(x, wide, s, t[:8], num_bits=3)
-    with pytest.raises(NotImplementedError):
-        lut_gemm.lut_qgemm(x, plane4, s, t, num_bits=4, pair_values=torch.ones(16, 16, 2,
-                                                                            device=dev))
+def test_only_pair_values_raises_on_cuda(dev):
+    _, x, planes, s, t = layout_case(dev, "plane", 4, 2, torch.bfloat16, seed=13, chunk=256)
+    before = dict(lut_gemm.LAUNCHES)
+    with pytest.raises(NotImplementedError, match="K4"):
+        lut_gemm.lut_qgemm(x, planes, s, t, num_bits=4,
+                           pair_values=torch.ones(16, 16, 2, device=dev))
+    assert lut_gemm.LAUNCHES == before
+    lut_gemm.lut_qgemm(x, planes, s, t, num_bits=4)
+    assert lut_gemm.LAUNCHES["plane"] == before["plane"] + 1
 
 
 def test_wrapper_checks(dev):
@@ -124,10 +169,50 @@ def test_wrapper_checks(dev):
         lut_gemm.lut_qgemm_w4sym_cuda(x, plane[:-1], s, t, **kw)
 
 
-def test_model_and_engine_through_the_kernel(dev):
+def test_plane_and_w3wide_wrapper_checks(dev):
+    _, x, p3, s, t = layout_case(dev, "plane", 3, 2, torch.bfloat16, seed=15, chunk=256)
+    kw = dict(group_size=G, chunk=256)
+    with pytest.raises(ValueError, match="plane"):
+        lut_gemm.lut_qgemm_plane_cuda(x, p3[:1], s, t, num_bits=3, **kw)
+    with pytest.raises(ValueError, match="int32"):
+        lut_gemm.lut_qgemm_plane_cuda(x, [p3[0], p3[1][:-1]], s, t, num_bits=3, **kw)
+    with pytest.raises(ValueError, match="table"):
+        lut_gemm.lut_qgemm_plane_cuda(x, p3, s, t[:4], num_bits=3, **kw)
+    with pytest.raises(ValueError, match="bits"):
+        lut_gemm.lut_qgemm_plane_cuda(x, p3, s, t, num_bits=8, **kw)
+    with pytest.raises(ValueError, match="chunk"):
+        lut_gemm.lut_qgemm_plane_cuda(x, p3, s, t, num_bits=3, group_size=G, chunk=48)
+    with pytest.raises(ValueError, match="on cpu"):
+        lut_gemm.lut_qgemm_plane_cuda(x, p3, s.cpu(), t, num_bits=3, **kw)
+    _, x, wide, s, t = layout_case(dev, "w3wide", 3, 2, torch.float16, seed=16, chunk=256)
+    with pytest.raises(ValueError, match="chunk"):
+        lut_gemm.lut_qgemm_w3wide_cuda(x, wide[0], s, t, group_size=G, chunk=128)
+    with pytest.raises(ValueError, match="dtype"):
+        lut_gemm.lut_qgemm_w3wide_cuda(x, wide[0], s.float(), t, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        lut_gemm.lut_qgemm_w3wide_cuda(x, wide[0].t().contiguous().t(), s, t, **kw)
+    with pytest.raises(ValueError, match="int32"):
+        lut_gemm.lut_qgemm_w3wide_cuda(x, wide[0][:-1], s, t, **kw)
+
+
+# (quantize_model arguments, the kernel they run on)
+MODEL_CASES = {
+    "w4sym": (dict(num_bits=4), "w4sym"),
+    "w3wide": (dict(num_bits=3), "w3wide"),
+    "w4_general": (dict(num_bits=4, symmetric=False), "plane"),
+    "w3_planes": (dict(num_bits=3, chunk=128), "plane"),
+}
+
+
+@pytest.mark.parametrize("case", list(MODEL_CASES))
+def test_model_and_engine_through_the_kernel(dev, case):
+    kw, kernel = MODEL_CASES[case]
     config = llama.LlamaConfig.tiny()
     params = llama.init_params(config, seed=0, device=dev)
-    qparams = llama.quantize_model(params, num_bits=4, group_size=G, fuse=True, device=dev)
+    qparams = llama.quantize_model(params, group_size=G, fuse=True, device=dev, **kw)
+    # only w4sym must travel as metadata; plane and w3wide are told by shape
+    assert {layer["down"].layout for layer in qparams["layers"]} == {
+        "w4sym" if kernel == "w4sym" else "auto"}
     qcpu = move_params(qparams, torch.device("cpu"))
     rng = np.random.default_rng(3)
     tokens = torch.from_numpy(rng.integers(0, config.vocab_size, (2, 16)))
@@ -142,8 +227,12 @@ def test_model_and_engine_through_the_kernel(dev):
 
     prompts = [rng.integers(1, config.vocab_size, n).tolist() for n in (3, 11, 7)]
     eng = Engine(params=qparams, config=config, batch_size=4, max_len=64, device=dev)
-    before = lut_gemm.LAUNCHES
+    for k in lut_gemm.LAUNCHES:
+        lut_gemm.LAUNCHES[k] = 0
     out = eng.generate(prompts, max_new_tokens=5)
-    # one prefill and four decode steps, four projections in each of 2 layers
-    assert lut_gemm.LAUNCHES - before == 5 * config.num_layers * 4
+    # one prefill and four decode steps, four projections in each of 2 layers,
+    # all through the layout's kernel
+    want_launches = {k: 0 for k in lut_gemm.LAUNCHES}
+    want_launches[kernel] = 5 * config.num_layers * 4
+    assert lut_gemm.LAUNCHES == want_launches
     assert [len(o) for o in out] == [5, 5, 5]

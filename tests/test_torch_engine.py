@@ -6,7 +6,8 @@ then teacher-forced with JAX's tokens and its step logits are held against
 JAX's within the bf16 threshold. Token identity is asserted at every step
 where JAX's top-1/top-2 margin exceeds twice that threshold, so a near-tie
 cannot make the test a coin flip; the port's own greedy run must match JAX
-up to the first such near-tie of each sequence.
+up to the first such near-tie of each sequence. This holds at w4sym and at
+W3 (the wide layout).
 """
 
 import jax.numpy as jnp
@@ -27,14 +28,18 @@ NEW_TOKENS = 8
 BATCH, MAX_LEN = 4, 64
 
 
-@pytest.fixture(scope="module")
-def models():
+def build_models(num_bits):
     jconfig = jllama.LlamaConfig.tiny()
-    jq = jllama.quantize_model(jllama.init_params(jconfig, rng=0), 4, 64, fuse=True)
+    jq = jllama.quantize_model(jllama.init_params(jconfig, rng=0), num_bits, 64, fuse=True)
     tq = interop.params_from_numpy(to_numpy_tree(jq), device="cpu")
     rng = np.random.default_rng(7)
     prompts = [rng.integers(1, jconfig.vocab_size, n).tolist() for n in PROMPT_LENGTHS]
     return jconfig, jq, llama.LlamaConfig.tiny(), tq, prompts
+
+
+@pytest.fixture(scope="module")
+def models():
+    return build_models(4)
 
 
 def left_pad(prompts, plen=16):
@@ -79,7 +84,7 @@ def port_teacher_forced(config, tq, prompts, tokens):
     return np.stack(steps)
 
 
-def test_greedy_matches_jax_engine(models):
+def check_greedy_matches_jax_engine(models):
     jconfig, jq, config, tq, prompts = models
     jtokens, jlogits = jax_trajectory(jconfig, jq, prompts)
     tlogits = port_teacher_forced(config, tq, prompts, jtokens)
@@ -101,6 +106,16 @@ def test_greedy_matches_jax_engine(models):
         first_tie = int(np.argmin(decided[:, i])) if not decided[:, i].all() else NEW_TOKENS
         assert o[:first_tie] == jtokens[i, :first_tie].tolist()
     assert len(eng.last_timings["decode_s"]) == NEW_TOKENS - 1
+
+
+def test_greedy_matches_jax_engine(models):
+    check_greedy_matches_jax_engine(models)
+
+
+def test_greedy_matches_jax_engine_w3():
+    jconfig, jq, config, tq, prompts = build_models(3)
+    assert all(len(layer["down"].planes) == 1 for layer in tq["layers"])  # w3wide
+    check_greedy_matches_jax_engine((jconfig, jq, config, tq, prompts))
 
 
 def test_fused_loop_matches_engine(models):

@@ -85,7 +85,7 @@ def no_gpu(monkeypatch):
 def test_entry_points_raise_without_a_gpu(no_gpu):
     from flute_tpu_torch import interop, packing
     from flute_tpu_torch.models import llama
-    from flute_tpu_torch.nn import quantize_linear
+    from flute_tpu_torch.nn import from_codes, quantize_linear
     from flute_tpu_torch.serving import Engine
 
     config = llama.LlamaConfig.tiny()
@@ -97,6 +97,7 @@ def test_entry_points_raise_without_a_gpu(no_gpu):
         "quantize_linear": lambda: quantize_linear(np.ones((128, 256), np.float32)),
         "Engine": lambda: Engine(params={}, config=config),
         "pack": lambda: packing.pack(codes, 4),
+        "from_codes": lambda: from_codes(codes, np.ones((4, 128), np.float32), None, 4, 64),
         "params_from_numpy": lambda: interop.params_from_numpy({"embed": codes}),
     }
     for name, call in calls.items():

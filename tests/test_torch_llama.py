@@ -6,7 +6,8 @@ versions on the CPU, the JAX package its Pallas kernels in interpret mode.
 Quantized leaves must carry over bit for bit, the port's own quantizer must
 give the same leaves, and logits must agree within the bf16 threshold
 (1.1e-2 of the largest logit) for prefill and decode, fused and unfused,
-with ragged left-pad offsets.
+with ragged left-pad offsets: at w4sym, and at W3 (wide and 2+1 planes), W2
+and general-table W4.
 """
 
 import jax.numpy as jnp
@@ -33,11 +34,13 @@ def to_numpy_tree(node):
             planes=[np.asarray(p) for p in node.planes],
             scales=np.asarray(node.scales),
             table=np.asarray(node.table),
+            pair_values=None if node.pair_values is None else np.asarray(node.pair_values),
             bias=None if node.bias is None else np.asarray(node.bias),
             num_bits=node.num_bits,
             group_size=node.group_size,
             layout=node.layout,
             config_key=node.config_key,
+            hadamard_size=node.hadamard_size,
         )
     if isinstance(node, dict):
         return {k: to_numpy_tree(v) for k, v in node.items()}
@@ -166,6 +169,42 @@ def test_logits_match_jax(quantized, per_sequence_pos):
     assert tuple(tdec.shape) == jdec.shape == (b, 1, config.vocab_size)
     assert np.isfinite(f32(tpre)).all() and np.isfinite(f32(tdec)).all()
     # left-pad slots of sequence 1 are masked: its real-token logits only
+    assert max_rel(tpre[:, offsets[1]:], jpre[:, offsets[1]:]) < BF16_RTOL
+    assert max_rel(tdec, jdec) < BF16_RTOL
+
+
+# quantize_model arguments of the layouts other than w4sym, and the planes
+# each must give: W3 wide at chunk 256, W3 as 2+1 planes at chunk 128
+SCHEMES = {
+    "w3_wide": (dict(num_bits=3), 1),
+    "w3_planes": (dict(num_bits=3, chunk=128), 2),
+    "w2": (dict(num_bits=2), 1),
+    "w4_general": (dict(num_bits=4, symmetric=False), 1),
+}
+
+
+@pytest.mark.parametrize("fuse", [False, True], ids=["unfused", "fused"])
+@pytest.mark.parametrize("scheme", list(SCHEMES))
+def test_other_layouts_quantize_and_run_as_jax(tiny, scheme, fuse):
+    """The port quantizes the dense weights into the JAX package's layouts
+    and planes, and its logits follow JAX's."""
+    jconfig, config, jparams = tiny
+    kw, num_planes = SCHEMES[scheme]
+    jq = jllama.quantize_model(jparams, group_size=64, fuse=fuse, **kw)
+    dense = interop.params_from_numpy(to_numpy_tree(jparams), device="cpu")
+    tq = llama.quantize_model(dense, group_size=64, fuse=fuse, device="cpu", **kw)
+    for jl, tl in zip(jq["layers"], tq["layers"]):
+        assert set(jl) == set(tl)
+        for key, leaf in jl.items():
+            if isinstance(leaf, JQuantizedLinear):
+                assert_same_quantized(tl[key], leaf)
+                assert tl[key].layout == "auto" and len(tl[key].planes) == num_planes
+    rng = np.random.default_rng(2)
+    tokens = rng.integers(0, config.vocab_size, (2, 16)).astype(np.int64)
+    offsets = np.array([0, 5], np.int64)
+    nxt = rng.integers(0, config.vocab_size, (2, 1)).astype(np.int64)
+    jpre, jdec = _jax_logits(jq, jconfig, tokens, offsets, nxt, None)
+    tpre, tdec = _port_logits(tq, config, tokens, offsets, nxt, None)
     assert max_rel(tpre[:, offsets[1]:], jpre[:, offsets[1]:]) < BF16_RTOL
     assert max_rel(tdec, jdec) < BF16_RTOL
 

@@ -1,10 +1,12 @@
 """The PyTorch port's packers write the JAX package's planes bit for bit.
 
 Codes come from numpy seeds and go to both packages; the port's numpy
-packers, its torch w4sym packer and the unpackers are held against
-flute_tpu.packing (numpy reference path, native packer off).
+packers, its torch packers (``pack_plane``, ``pack_w3_wide``,
+``pack_w4_sym``) and the unpackers are held against flute_tpu.packing
+(numpy reference path, native packer off, and its on-device jnp packers).
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -40,6 +42,40 @@ def test_w3_wide_equal_jax():
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(packing.unpack_w3_wide_np(got), codes)
     np.testing.assert_array_equal(packing.unpack_np([got], 3), codes)
+
+
+@pytest.mark.parametrize("chunk", [128, 256])
+@pytest.mark.parametrize("bits", [2, 3, 4])
+def test_device_pack_plane_equal_jax(bits, chunk):
+    codes = codes_for(bits, seed=20 + bits)
+    want = jpacking.pack_np(codes, bits, chunk=chunk, use_native=False)
+    want_jnp = jpacking.pack_jnp(jnp.asarray(codes), bits, chunk=chunk)
+    got = packing.pack_plane(torch.from_numpy(codes), bits, chunk=chunk)
+    assert len(got) == len(want) == len(want_jnp)
+    for g, w, wj in zip(got, want, want_jnp):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(), w)
+        np.testing.assert_array_equal(g.numpy(), np.asarray(wj))
+    np.testing.assert_array_equal(packing.unpack_plane(got, bits, chunk=chunk).numpy(), codes)
+    np.testing.assert_array_equal(packing.unpack(got, bits, chunk=chunk).numpy(), codes)
+
+
+@pytest.mark.parametrize("chunk", [256, 512])
+def test_device_pack_w3_wide_equal_jax(chunk):
+    codes = codes_for(3, seed=30)
+    want = jpacking.pack_w3_wide_np(codes, chunk=chunk, use_native=False)[0]
+    want_jnp = jpacking.pack_w3_wide_jnp(jnp.asarray(codes), chunk=chunk)[0]
+    got = packing.pack_w3_wide(torch.from_numpy(codes), chunk=chunk)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want_jnp))
+    np.testing.assert_array_equal(packing.unpack_w3_wide(got, chunk=chunk).numpy(), codes)
+    np.testing.assert_array_equal(packing.unpack([got], 3, chunk=chunk).numpy(), codes)
+    np.testing.assert_array_equal(
+        packing.unpack([got], 3, chunk=chunk, layout="w3wide").numpy(), codes
+    )
+    with pytest.raises(ValueError):
+        packing.pack_w3_wide(torch.from_numpy(codes), chunk=128)
 
 
 @pytest.mark.parametrize("chunk", [128, 256])
