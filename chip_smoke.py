@@ -4,33 +4,51 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
-  1. print the card's name and power limit; build the three LUT-GEMM
-     kernels from flute_tpu_torch/csrc into build/flute_tpu_torch/, one nvcc
-     process each, all at once: K1 (w4sym), K2 (plane, 2/3/4 bits), K3
-     (w3wide);
-  2. hold each kernel against its plain PyTorch version on the card at the
-     Llama-3.1-8B decoder-layer shapes, M in {1, 8, 128, 512}, bf16 and f16
-     (relative Frobenius error under 1.1e-2 / 2e-3): K1, K2 at 4, 3 and 2
-     bits with a general table, K3; identity input bit-exact against
-     dequantize_codes in bf16/f16/f32 (K1 and K2 at chunk 128 and 256, K3 at
-     256 and 512) and unpack_via_kernel round-tripping the codes; time each
-     kernel, its plain version and a bf16/f16 torch.matmul on the
-     pre-dequantized weight (a yardstick only), L2-cold, in CUDA graphs;
+  1. print the card's name and power limit; build the five kernel sources
+     from flute_tpu_torch/csrc into build/flute_tpu_torch/, one nvcc process
+     each, all at once: K1 (w4sym), K2 (plane, 2/3/4 bits), K3 (w3wide), K4
+     (joint pair lookup, lut_gemm_pair.cu) and K5/K6 (paged decode and
+     verify attention, paged_attention.cu); print ptxas registers and spill;
+  2. hold each kernel against its plain PyTorch version on the card:
+     the LUT-GEMMs at the Llama-3.1-8B decoder-layer shapes, M in
+     {1, 8, 128, 512}, bf16 and f16 (relative Frobenius error under 1.1e-2 /
+     2e-3): K1, K2 at 4, 3 and 2 bits with a general table, K3, K4 at 4, 3
+     and 2 bits with a general joint table; identity input bit-exact against
+     the oracle (K1 and K2 in bf16/f16/f32 at chunk 128 and 256, K3 at 256
+     and 512, K4 in bf16/f16 at 128 and 256) and unpack_via_kernel
+     round-tripping the codes; qgemm_hadamard (rotation 512) against its
+     plain version; K5 at B=8, 32/8 heads, D=128, blocks of 16, ragged
+     lengths 0..4096, and K6 at T in {5, 64, 256} over 0 and 1024 cached
+     positions, each with softcap, window and both, bf16 and f16 (max error
+     relative to the largest output < 1.1e-2). Time each kernel, its plain
+     version and a yardstick that the port never calls (LUT-GEMMs: a
+     torch.matmul on the pre-dequantized weight; K5/K6: one
+     scaled_dot_product_attention on K/V gathered beforehand), L2-cold, in
+     CUDA graphs;
   3. logits of a 2-layer model at Llama-3.1-8B widths (fused) quantized at
-     w4sym, W3 (w3wide) and general-table W4 (plane): one prefill and one
+     w4sym, W3 (w3wide) and general-table W4 (plane), and with every
+     projection a HIGGS W4 layer (rotation 512, then K4): one prefill and one
      decode step on the card against the same params on the CPU plain path
-     (max error relative to the largest logit < 1.1e-2); the W3 model saved
-     with save_quantized and loaded back gives the same logits bit for bit;
+     (max error relative to the largest logit < 1.1e-2); the W3 and the
+     HIGGS models saved with save_quantized and loaded back give the same
+     logits bit for bit;
   4. serve 8 ragged prompts for 16 new tokens through Engine.generate on
      the full 32-layer Llama-3.1-8B-width model (random weights from a seed,
      quantized on the card) at w4sym, W3 and general W4, each run through
-     exactly its kernel: steps x 32 layers x 4 launches, none of the others.
+     exactly its kernel: steps x 32 layers x 4 launches, none of the others;
+     then through PagedEngine: the w4sym model with dense prefill, held to
+     Engine's tokens and first-token logits, and the HIGGS-W4 model with
+     pool prefill, 12 requests (4 sharing a 32-token prefix, 2 sampled) on a
+     pool small enough that admission waits, with exact launch counts: K4
+     forward calls x 32 x 4, K5 decode steps x 32, K6 prefill chunks x 32,
+     K1-K3 none.
 
 Prints a {"kernels": [...]} line, then as its last line
 {"ok": true, "device": {...}}. Writes the full results to
 chiprun_out/chip_smoke.json. Needs a CUDA device; exits non-zero without one.
 """
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -61,21 +79,38 @@ GROUP = 64
 # prefill block (8 prompts x 64-token bucket)
 M_CASES = (1, 8, 128, 512)
 REPLACES = "flute_tpu/ops/lut_gemm.py:454 (_lut_qgemm_kernel[{}], pallas_call :828)"
-# kernel id -> (wrapper name, source, layout, what it replaces)
+# kernel id -> (wrapper name, source, launch counter key, what it replaces)
 KERNELS = {
     "K1": ("lut_qgemm_w4sym", "lut_gemm_w4sym.cu", "w4sym", REPLACES.format("w4sym")),
     "K2": ("lut_qgemm_plane", "lut_gemm_plane.cu", "plane",
            REPLACES.format("plane, gather8/select")),
     "K3": ("lut_qgemm_w3wide", "lut_gemm_w3wide.cu", "w3wide", REPLACES.format("w3wide")),
+    "K4": ("lut_qgemm_pair", "lut_gemm_pair.cu", "pair",
+           "flute_tpu/ops/lut_gemm.py:454 (_lut_qgemm_kernel[plane, pair_lut: "
+           "_lookup_payload_lane :279, :533-538, _table_tile_pair :680], pallas_call :828)"),
+    "K5": ("paged_decode_attention", "paged_attention.cu", "paged_decode",
+           "flute_tpu/ops/paged_attention.py:354 (paged_decode_attention -> _kernel :74, "
+           "pallas_call :402)"),
+    "K6": ("paged_verify_attention", "paged_attention.cu", "paged_verify",
+           "flute_tpu/ops/paged_attention.py:262 (paged_verify_attention -> _verify_kernel "
+           ":171, pallas_call :311)"),
 }
-# phase-2 cases: (kernel id, bits, M values that are timed; every M is checked)
+LUT_KERNELS = ("K1", "K2", "K3", "K4")
+# phase-2 cases: (kernel id, bits, M values that are timed, dtypes timed;
+# every M and both dtypes are checked). K2 and K4 read the plane layout;
+# K4 looks its weights up in a joint pair table.
 KERNEL_CASES = [
-    ("K1", 4, M_CASES),
-    ("K2", 4, M_CASES),
-    ("K2", 3, (1, 8, 512)),
-    ("K2", 2, (1, 8, 512)),
-    ("K3", 3, M_CASES),
+    ("K1", 4, M_CASES, ("bfloat16", "float16")),
+    ("K2", 4, M_CASES, ("bfloat16", "float16")),
+    ("K2", 3, (1, 8, 512), ("bfloat16", "float16")),
+    ("K2", 2, (1, 8, 512), ("bfloat16", "float16")),
+    ("K3", 3, M_CASES, ("bfloat16", "float16")),
+    ("K4", 4, (1, 8, 512), ("bfloat16",)),
+    ("K4", 3, (1, 8, 512), ("bfloat16",)),
+    ("K4", 2, (1, 8, 512), ("bfloat16",)),
 ]
+LAYOUT = {"K1": "w4sym", "K2": "plane", "K3": "w3wide", "K4": "plane"}
+HIGGS_HADAMARD = 512  # the rotation of the HIGGS layers (phases 2-4)
 # served models: name -> (quantize_model arguments, kernel id)
 SERVED = {
     "w4sym": (dict(num_bits=4), "K1"),
@@ -129,25 +164,28 @@ def phase_kernel(dev, results):
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     cases = []
-    for kid, bits, timed in KERNEL_CASES:
-        layout = KERNELS[kid][2]
-        log(f"  {kid} ({layout}, {bits}-bit)")
+    for kid, bits, timed, timed_dtypes in KERNEL_CASES:
+        layout = LAYOUT[kid]
+        log(f"  {kid} ({layout}{', joint pair table' if kid == 'K4' else ''}, {bits}-bit)")
         for name, n, k in LAYER_SHAPES:
             for dtype in (torch.bfloat16, torch.float16):
                 codes, planes, scales, table = make_weight(rng, gen, layout, bits, n, k,
                                                            dtype, dev)
-                deq = lut_gemm.dequantize_codes(codes, scales, table, dtype)
+                pv = make_pair_table(rng, bits, dev) if kid == "K4" else None
+                deq = (lut_gemm.dequantize_codes(codes, scales, table, dtype) if pv is None
+                       else lut_gemm.dequantize_codes_pair(codes, scales, pv, dtype))
                 del codes
                 wbytes = sum(p.numel() * 4 for p in planes) + scales.numel() * scales.element_size()
                 copies = cold_copies(wbytes)
                 args = [([p.clone() for p in planes], scales.clone()) for _ in range(copies)]
                 deq_c = [deq.clone() for _ in range(cold_copies(deq.numel() * deq.element_size()))]
-                kw = dict(num_bits=bits, layout=layout, config=KernelConfig(chunk=256))
+                kw = dict(num_bits=bits, layout=layout, config=KernelConfig(chunk=256),
+                          pair_values=pv)
                 for m in M_CASES:
                     x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
                     y = lut_gemm.lut_qgemm(x, planes, scales, table, **kw)
                     y_plain = lut_gemm.lut_qgemm_plain(x, planes, scales, table, num_bits=bits,
-                                                       chunk=256, layout=layout)
+                                                       chunk=256, layout=layout, pair_values=pv)
                     torch.cuda.synchronize()
                     err = rel_err(y, y_plain)
                     max_abs = float((y.float() - y_plain.float()).abs().max())
@@ -157,15 +195,15 @@ def phase_kernel(dev, results):
                                 dtype=str(dtype).split(".")[-1], rel_err=err,
                                 max_abs_err=max_abs)
                     cases.append(case)
-                    if m not in timed:
+                    if m not in timed or case["dtype"] not in timed_dtypes:
                         continue
 
                     def kern(p, s, x=x, table=table):
                         return lut_gemm.lut_qgemm(x, p, s, table, **kw)
 
-                    def plain(p, s, x=x, table=table):
+                    def plain(p, s, x=x, table=table, pv=pv):
                         return lut_gemm.lut_qgemm_plain(x, p, s, table, num_bits=bits,
-                                                        chunk=256, layout=layout)
+                                                        chunk=256, layout=layout, pair_values=pv)
 
                     def library(w, x=x):
                         return torch.matmul(x, w)
@@ -174,7 +212,8 @@ def phase_kernel(dev, results):
                     t_p = bench_op(plain, args[:2], min_launches=2)
                     t_l = bench_op(library, [(w,) for w in deq_c])
                     esz = torch.tensor([], dtype=dtype).element_size()
-                    nbytes = wbytes + table.numel() * 4 + m * k * esz + m * n * esz
+                    lut = table if pv is None else pv
+                    nbytes = wbytes + lut.numel() * 4 + m * k * esz + m * n * esz
                     t_bytes = nbytes / HBM_BYTES_PER_S
                     t_ops = 2 * m * n * k / BF16_OPS_PER_S
                     case.update(
@@ -191,6 +230,21 @@ def phase_kernel(dev, results):
                     )
                 del args, deq_c, deq, planes
     results["kernel_cases"] = cases
+    check_identity(dev, rng, gen, results)
+    check_qgemm_hadamard(dev, rng, gen, results)
+    return cases
+
+
+def make_pair_table(rng, bits, dev) -> torch.Tensor:
+    """A general joint pair table [2^b, 2^b, 2] (a HIGGS grid's values)."""
+    e = 2**bits
+    return torch.from_numpy(rng.standard_normal((e, e, 2)).astype(np.float32)).to(dev)
+
+
+def check_identity(dev, rng, gen, results):
+    from flute_tpu_torch import packing
+    from flute_tpu_torch.ops import lut_gemm
+    from flute_tpu_torch.ops.kernel_config import KernelConfig
 
     # identity input: bit-exact against the oracle at two pack chunks per
     # layout; unpack_via_kernel returns the codes
@@ -198,7 +252,7 @@ def phase_kernel(dev, results):
     identity = [("K1", 4, (128, 256)), ("K2", 4, (128, 256)), ("K2", 3, (128, 256)),
                 ("K2", 2, (128, 256)), ("K3", 3, (256, 512))]
     for kid, bits, chunks in identity:
-        layout = KERNELS[kid][2]
+        layout = LAYOUT[kid]
         for chunk in chunks:
             cfg = KernelConfig(chunk=chunk)
             for dtype in (torch.bfloat16, torch.float16, torch.float32):
@@ -216,10 +270,183 @@ def phase_kernel(dev, results):
             if not torch.equal(back, codes):
                 raise AssertionError(
                     f"unpack_via_kernel does not round-trip: {kid} {bits}-bit chunk={chunk}")
+    for bits in (4, 3, 2):  # K4: 16-bit compute only
+        for chunk in (128, 256):
+            for dtype in (torch.bfloat16, torch.float16):
+                codes, planes, scales, _ = make_weight(rng, gen, "plane", bits, n, k, dtype, dev,
+                                                       chunk=chunk)
+                pv = make_pair_table(rng, bits, dev)
+                eye = torch.eye(k, dtype=dtype, device=dev)
+                got = lut_gemm.lut_qgemm(eye, planes, scales, None, num_bits=bits,
+                                         config=KernelConfig(chunk=chunk), pair_values=pv)
+                want = lut_gemm.dequantize_codes_pair(codes, scales, pv, dtype)
+                if not torch.equal(got.float(), want.float()):
+                    raise AssertionError(
+                        f"identity not bit-exact: K4 {bits}-bit {dtype} chunk={chunk}")
     log("  identity bit-exact (bf16/f16/f32; K1 and K2 at chunk 128/256, K1 with a "
-        "mixed-sign table, K3 at 256/512); unpack_via_kernel round-trips")
+        "mixed-sign table, K3 at 256/512; K4 in bf16/f16 at 2/3/4 bits, chunk 128/256); "
+        "unpack_via_kernel round-trips")
     results["identity_bit_exact"] = True
-    return cases
+
+
+def check_qgemm_hadamard(dev, rng, gen, results):
+    """The rotation and K4 through qgemm_hadamard against the plain version
+    of both, at the qkv projection's shape."""
+    from flute_tpu_torch.ops import hadamard, lut_gemm
+
+    _, n, k = LAYER_SHAPES[0]
+    codes, planes, scales, table = make_weight(rng, gen, "plane", 4, n, k, torch.bfloat16, dev)
+    pv = make_pair_table(rng, 4, dev)
+    x = torch.randn((8, k), generator=gen, device=dev).bfloat16()
+    got = hadamard.qgemm_hadamard(x, planes, scales, table, 4, GROUP, HIGGS_HADAMARD,
+                                  pair_values=pv)
+    xr = hadamard.grouped_hadamard_transform(x, HIGGS_HADAMARD)
+    want = lut_gemm.lut_qgemm_plain(xr, planes, scales, table, num_bits=4, chunk=256,
+                                    layout="plane", pair_values=pv)
+    rot_err = rel_err(xr.cpu(), hadamard.grouped_hadamard_transform(x.cpu(), HIGGS_HADAMARD))
+    err = rel_err(got, want)
+    if not (err < THRESHOLDS[torch.bfloat16] and rot_err < THRESHOLDS[torch.bfloat16]):
+        raise AssertionError(f"qgemm_hadamard: rel err {err}, rotation vs CPU {rot_err}")
+    log(f"  qgemm_hadamard (rotation {HIGGS_HADAMARD}, K4) vs plain: rel err {err:.2e}; "
+        f"rotation on the card vs the CPU: {rot_err:.2e}")
+    results["qgemm_hadamard_rel_err"] = err
+
+
+# K5/K6: one decode batch at Llama-3.1-8B's attention widths
+ATTN = dict(h=32, hkv=8, d=128, bs=16)
+ATTN_OPTIONS = [(None, None), (50.0, None), (None, 1000), (30.0, 333)]
+
+
+def paged_inputs(rng, gen, dev, dtype, lengths, t=0):
+    """q, pools and tables for sequences of ``lengths`` cached positions (and
+    ``t`` more queries each): every live block its own pool row, a random
+    permutation of them; dead table entries point at row 0. Returns also
+    the number of live blocks."""
+    h, hkv, d, bs = ATTN["h"], ATTN["hkv"], ATTN["d"], ATTN["bs"]
+    need = [-(-(n + t) // bs) for n in lengths]
+    mb = max(max(need), 1)
+    nb = sum(need) + 1
+    rows = rng.permutation(np.arange(1, nb))
+    tables = np.zeros((len(lengths), mb), np.int32)
+    start = 0
+    for i, k in enumerate(need):
+        tables[i, :k] = rows[start:start + k]
+        start += k
+    shape = (len(lengths), h, d) if t == 0 else (len(lengths), t, h, d)
+    q = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    kp, vp = (torch.randn((nb, hkv, bs, d), generator=gen, device=dev).to(dtype)
+              for _ in range(2))
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    return q, kp, vp, torch.from_numpy(tables).to(dev), lens, sum(need)
+
+
+def phase_attention(dev, results):
+    """K5 and K6 against their plain versions with every option; timed at
+    the decode batch (every length 1024, every length 4096) and at a pool
+    prefill chunk (T = 256 over 1024 cached positions)."""
+    import torch.nn.functional as F
+
+    from flute_tpu_torch.ops import paged_attention as pa
+    from flute_tpu_torch.utils.benchmark import bench_op, cold_copies
+
+    rng = np.random.default_rng(4)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    h, hkv, d, bs = ATTN["h"], ATTN["hkv"], ATTN["d"], ATTN["bs"]
+    cases = []
+
+    def check(kid, fn, ref, q, kp, vp, tables, lens, label):
+        for softcap, window in ATTN_OPTIONS:
+            kw = dict(softcap=softcap, window=window)
+            got = fn(q, kp, vp, tables, lens, **kw)
+            want = ref(q, kp, vp, tables, lens, **kw)
+            torch.cuda.synchronize()
+            if not torch.isfinite(got.float()).all():
+                raise AssertionError(f"{kid} {label} {kw}: non-finite output")
+            err = float((got.float() - want.float()).abs().max() / want.float().abs().max())
+            max_abs = float((got.float() - want.float()).abs().max())
+            if not err < THRESHOLDS[torch.bfloat16]:
+                raise AssertionError(f"{kid} {label} {kw}: max rel err {err}")
+            cases.append(dict(kernel=kid, case=label, dtype=str(q.dtype).split(".")[-1],
+                              softcap=softcap, window=window, rel_err=err,
+                              max_abs_err=max_abs))
+        return got
+
+    for dtype in (torch.bfloat16, torch.float16):
+        lengths = [0, 1, 37, 100, 515, 1000, 2049, 4096]
+        q, kp, vp, tables, lens, _ = paged_inputs(rng, gen, dev, dtype, lengths)
+        got = check("K5", pa.paged_decode_attention, pa.paged_gqa_reference, q, kp, vp,
+                    tables, lens, f"decode B=8 lengths {lengths}")
+        if got[0].float().any():
+            raise AssertionError("K5: a slot of length 0 must give zeros")
+        for t in (5, 64, 256):
+            q, kp, vp, tables, lens, _ = paged_inputs(rng, gen, dev, dtype, [0, 1024], t=t)
+            check("K6", pa.paged_verify_attention, pa.paged_verify_reference, q, kp, vp,
+                  tables, lens, f"verify T={t} over [0, 1024]")
+        del q, kp, vp
+    log(f"  K5 (ragged lengths 0..4096) and K6 (T 5/64/256 over 0 and 1024) agree with "
+        f"their plain versions with softcap, window and both, bf16/f16: max rel err "
+        f"{max(c['rel_err'] for c in cases):.2e}")
+
+    timed = []
+    dtype = torch.bfloat16
+    esz = 2
+    for kid, lengths, t in (("K5", [1024] * 8, 0), ("K5", [4096] * 8, 0), ("K6", [1024], 256)):
+        q, kp, vp, tables, lens, live = paged_inputs(rng, gen, dev, dtype, lengths, t=t)
+        kv_bytes = 2 * kp.numel() * esz
+        pools = [(kp.clone(), vp.clone()) for _ in range(cold_copies(kv_bytes))]
+        b = len(lengths)
+        s_len = lengths[0] + t
+        # the yardstick: K/V gathered into [B, Hkv, S, D] beforehand
+        kg = kp[tables.long()].permute(0, 2, 1, 3, 4).reshape(b, hkv, -1, d)[:, :, :s_len]
+        vg = vp[tables.long()].permute(0, 2, 1, 3, 4).reshape(b, hkv, -1, d)[:, :, :s_len]
+        dense = [(kg.contiguous(), vg.contiguous())
+                 for _ in range(cold_copies(2 * kg.numel() * esz))]
+        if kid == "K5":
+            def kern(k, v):
+                return pa.paged_decode_attention(q, k, v, tables, lens)
+
+            def plain(k, v):
+                return pa.paged_gqa_reference(q, k, v, tables, lens)
+
+            q4, mask = q[:, :, None], None
+            att = [n for n in lengths]
+        else:
+            def kern(k, v):
+                return pa.paged_verify_attention(q, k, v, tables, lens)
+
+            def plain(k, v):
+                return pa.paged_verify_reference(q, k, v, tables, lens)
+
+            q4 = q.permute(0, 2, 1, 3)
+            mask = (torch.arange(s_len, device=dev)[None, :]
+                    <= lengths[0] + torch.arange(t, device=dev)[:, None])
+            att = [lengths[0] + j + 1 for j in range(t)]
+
+        def library(k, v):
+            return F.scaled_dot_product_attention(q4, k, v, attn_mask=mask, enable_gqa=True)
+
+        t_k = bench_op(kern, pools)
+        t_p = bench_op(plain, pools[:2], min_launches=2)
+        t_l = bench_op(library, dense)
+        nbytes = live * hkv * bs * d * esz * 2 + 2 * q.numel() * esz
+        flops = 4 * h * d * sum(att)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_OPS_PER_S
+        case = dict(kernel=kid, case=f"B={b} T={max(t, 1)} cached {lengths[0]}", dtype="bfloat16",
+                    bytes=nbytes, flops=flops, us=t_k * 1e6, plain_us=t_p * 1e6,
+                    library_us=t_l * 1e6, bound_us=max(t_bytes, t_ops) * 1e6,
+                    bound_by="bytes" if t_bytes >= t_ops else "operations")
+        case["share_of_bound"] = case["bound_us"] / case["us"]
+        timed.append(case)
+        log(f"    {kid} {case['case']:28s} kernel {case['us']:9.1f} us  bound "
+            f"{case['bound_us']:7.1f} us ({case['bound_by']}, "
+            f"{100 * case['share_of_bound']:5.1f}%)  plain {case['plain_us']:9.1f} us  "
+            f"sdpa {case['library_us']:7.1f} us")
+        del pools, dense, kg, vg, q, kp, vp
+    torch.cuda.empty_cache()
+    results["attention_cases"] = cases
+    results["attention_timed"] = timed
+    return cases, timed
 
 
 def model_logits(params, config, dev, tokens, offsets, nxt):
@@ -233,8 +460,87 @@ def model_logits(params, config, dev, tokens, offsets, nxt):
     return pre.cpu(), dec.cpu()
 
 
-def phase_logits(dev, results):
+def higgs_params(config, dev, seed):
+    """Random params (a seeded generator on the card) whose every projection
+    is a HIGGS-W4 layer: codes, a standard-normal 256-point grid and scales
+    of about 0.02 (so the weights have init_params' spread and the logits
+    stay finite over 32 layers), group 64, rotation HIGGS_HADAMARD, fused
+    qkv and gate_up."""
+    from flute_tpu_torch.models import llama
+    from flute_tpu_torch.quantize import higgs
+
+    params = llama.init_params(dataclasses.replace(config, num_layers=0), seed=seed, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    grid = np.random.default_rng(seed).standard_normal((256, 2)).astype(np.float32)
+    c = config
+    shapes = {  # name -> (K, N)
+        "qkv": (c.hidden_size, (c.num_heads + 2 * c.num_kv_heads) * c.head_dim),
+        "o": (c.num_heads * c.head_dim, c.hidden_size),
+        "gate_up": (c.hidden_size, 2 * c.intermediate_size),
+        "down": (c.intermediate_size, c.hidden_size),
+    }
+    ones = torch.ones((c.hidden_size,), dtype=c.dtype, device=dev)
+    for _ in range(c.num_layers):
+        layer = {"attn_norm": ones.clone(), "mlp_norm": ones.clone()}
+        for name, (k, n) in shapes.items():
+            codes = torch.randint(0, 256, (k // 2, n), generator=gen, device=dev)
+            scales = (0.015 + 0.01 * torch.rand((k // GROUP, n), generator=gen, device=dev))
+            layer[name] = higgs.from_higgs(codes, grid, scales.to(c.dtype), num_bits=4,
+                                           group_size=GROUP, hadamard_size=HIGGS_HADAMARD)
+        params["layers"].append(layer)
+    return params
+
+
+def check_round_trip(name, qparams, config, dev, tokens, offsets, nxt, out, results, bits):
+    """Save, load and run again: the logits must not change."""
     from flute_tpu_torch.integrations import checkpoint
+
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=os.path.join(HERE, "build"))
+    try:
+        t0 = time.perf_counter()
+        checkpoint.save_quantized(tmp, qparams, num_bits=bits, group_size=GROUP)
+        size = sum(os.path.getsize(os.path.join(tmp, f)) for f in os.listdir(tmp))
+        t1 = time.perf_counter()
+        loaded, _ = checkpoint.load_quantized(tmp, device=dev)
+        t2 = time.perf_counter()
+    finally:
+        shutil.rmtree(tmp)
+    again = model_logits(loaded, config, dev, tokens, offsets, nxt)
+    if not all(torch.equal(a, c) for a, c in zip(out, again)):
+        raise AssertionError(f"{name} logits changed across save_quantized/load_quantized")
+    log(f"  {name} checkpoint ({size / 1e9:.2f} GB): saved in {t1 - t0:.1f} s, loaded in "
+        f"{t2 - t1:.1f} s; logits bit-exact after the round trip")
+    results.setdefault("checkpoint_round_trip", {})[name] = dict(
+        bytes=size, save_s=t1 - t0, load_s=t2 - t1, bit_exact=True)
+
+
+@contextlib.contextmanager
+def other_sum_order():
+    """lut_qgemm_plain with its K sum split in two halves: the same product
+    with another f32 summation order. The logits it gives show how far the
+    bf16 roundings alone move a model's logits."""
+    from flute_tpu_torch.ops import lut_gemm
+
+    plain = lut_gemm.lut_qgemm_plain
+
+    def halves(x2, planes, scales, table, *, num_bits, chunk, layout, pair_values=None):
+        codes = lut_gemm._packing.unpack(list(planes), num_bits, chunk=chunk, layout=layout)
+        deq = (lut_gemm.dequantize_codes(codes, scales, table, x2.dtype) if pair_values is None
+               else lut_gemm.dequantize_codes_pair(codes, scales, pair_values, x2.dtype)).float()
+        h = x2.shape[1] // 2
+        y = x2[:, :h].float() @ deq[:h] + x2[:, h:].float() @ deq[h:]
+        return y.to(x2.dtype)
+
+    lut_gemm.lut_qgemm_plain = halves
+    try:
+        yield
+    finally:
+        lut_gemm.lut_qgemm_plain = plain
+
+
+def phase_logits(dev, results):
     from flute_tpu_torch.interop import move_params
     from flute_tpu_torch.models import llama
 
@@ -247,42 +553,47 @@ def phase_logits(dev, results):
     offsets = torch.tensor([0, 5])
     nxt = torch.from_numpy(rng.integers(0, config.vocab_size, (b, 1)))
     results["logits_rel_err"] = {}
-    for name, (kw, _) in SERVED.items():
-        qparams = llama.quantize_model(params, group_size=GROUP, fuse=True, device=dev, **kw)
+    for name in (*SERVED, "higgs_w4"):
+        if name == "higgs_w4":
+            qparams = higgs_params(config, dev, seed=1)
+        else:
+            qparams = llama.quantize_model(params, group_size=GROUP, fuse=True, device=dev,
+                                           **SERVED[name][0])
         out = model_logits(qparams, config, dev, tokens, offsets, nxt)
-        ref = model_logits(move_params(qparams, cpu), config, cpu, tokens, offsets, nxt)
+        qcpu = move_params(qparams, cpu)
+        ref = model_logits(qcpu, config, cpu, tokens, offsets, nxt)
+        limit = {step: THRESHOLDS[torch.bfloat16] for step in ("prefill", "decode")}
+        floor = None
+        if name == "higgs_w4":
+            # the rotation adds a bf16 rounding before every projection, and
+            # a change of f32 summation order alone moves this model's logits
+            # by about the bf16 threshold: the card may differ from the CPU by
+            # twice what two CPU orders differ by, if that is more
+            with other_sum_order():
+                ref2 = model_logits(qcpu, config, cpu, tokens, offsets, nxt)
+            floor = {step: float((a - b).abs().max() / b.abs().max())
+                     for step, a, b in zip(("prefill", "decode"), ref2, ref)}
+            limit = {step: max(limit[step], 2 * floor[step]) for step in limit}
+        del qcpu
         errs = {}
         for step, a, want in zip(("prefill", "decode"), out, ref):
             if not torch.isfinite(a).all():
                 raise AssertionError(f"{name}: non-finite {step} logits")
             errs[step] = float((a - want).abs().max() / want.abs().max())
-            if not errs[step] < THRESHOLDS[torch.bfloat16]:
+            if not errs[step] < limit[step]:
                 raise AssertionError(
-                    f"{name} {step} logits differ from the CPU plain path: {errs[step]}")
+                    f"{name} {step} logits differ from the CPU plain path: {errs[step]} "
+                    f"(limit {limit[step]})")
         log(f"  2-layer 8B-width {name} logits vs CPU plain path: prefill "
-            f"{errs['prefill']:.2e}, decode {errs['decode']:.2e}")
-        results["logits_rel_err"][name] = errs
-        if name == "w3wide":
+            f"{errs['prefill']:.2e}, decode {errs['decode']:.2e}"
+            + ("" if floor is None else
+               f" (another CPU summation order alone: prefill {floor['prefill']:.2e}, "
+               f"decode {floor['decode']:.2e})"))
+        results["logits_rel_err"][name] = dict(errs, sum_order_floor=floor)
+        if name in ("w3wide", "higgs_w4"):
             # a save/load round trip through the checkpoint format changes nothing
-            os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
-            tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=os.path.join(HERE, "build"))
-            try:
-                t0 = time.perf_counter()
-                checkpoint.save_quantized(tmp, qparams, num_bits=3, group_size=GROUP)
-                size = sum(os.path.getsize(os.path.join(tmp, f)) for f in os.listdir(tmp))
-                t1 = time.perf_counter()
-                loaded, _ = checkpoint.load_quantized(tmp, device=dev)
-                t2 = time.perf_counter()
-            finally:
-                shutil.rmtree(tmp)
-            again = model_logits(loaded, config, dev, tokens, offsets, nxt)
-            if not all(torch.equal(a, c) for a, c in zip(out, again)):
-                raise AssertionError("W3 logits changed across save_quantized/load_quantized")
-            log(f"  W3 checkpoint ({size / 1e9:.2f} GB): saved in {t1 - t0:.1f} s, loaded in "
-                f"{t2 - t1:.1f} s; logits bit-exact after the round trip")
-            results["checkpoint_round_trip"] = dict(bytes=size, save_s=t1 - t0, load_s=t2 - t1,
-                                                    bit_exact=True)
-            del loaded
+            check_round_trip(name, qparams, config, dev, tokens, offsets, nxt, out, results,
+                             bits=3 if name == "w3wide" else 4)
         del qparams
     del params
     torch.cuda.empty_cache()
@@ -290,7 +601,8 @@ def phase_logits(dev, results):
 
 def serve(dev, name, quant_kw, kernel_layout):
     """Quantize the 32-layer model on the card and serve the prompts once;
-    returns the run's numbers and the engine, which keeps the model."""
+    returns the run's numbers, the engine (which keeps the model) and the
+    tokens with the logits that chose them (one [B, V] row block per step)."""
     from flute_tpu_torch.models import llama
     from flute_tpu_torch.ops import lut_gemm
     from flute_tpu_torch.serving import Engine
@@ -311,18 +623,19 @@ def serve(dev, name, quant_kw, kernel_layout):
         f"{(torch.cuda.memory_allocated(dev) - held) / 2**30:.2f} GiB allocated after "
         "quantization")
 
-    rng = np.random.default_rng(2)
-    lengths = [3, 40, 17, 8, 29, 5, 36, 12]
-    prompts = [rng.integers(1, config.vocab_size, n).tolist() for n in lengths]
-    new_tokens = 16
+    prompts = serving_prompts(config)
+    lengths = [len(p) for p in prompts]
+    new_tokens = NEW_TOKENS
     eng = Engine(params=qparams, config=config, batch_size=8, max_len=256, device=dev)
 
     logits_seen = []
+    step_logits = []
     forward = eng.forward
 
     def checked_forward(*a, **kw):
         logits, cache = forward(*a, **kw)
         logits_seen.append(bool(torch.isfinite(logits).all()))
+        step_logits.append(logits[:, -1].float())
         return logits, cache
 
     eng.forward = checked_forward
@@ -360,29 +673,151 @@ def serve(dev, name, quant_kw, kernel_layout):
         f"{serving['end_to_end_tok_s']:.1f} tok/s end to end, "
         f"{launches[kernel_layout]} {kernel_layout} kernel launches, "
         f"peak {serving['peak_gib']:.1f} GiB")
-    return serving, eng
+    return serving, eng, (out, torch.stack(step_logits).cpu())
 
 
-def profile_decode(dev, name, eng):
-    """Where a decode step's device time goes: three steps under
-    torch.profiler, outside the counted runs (the profiler runs only after
-    every timed run, so it cannot slow one down)."""
-    config = eng.config
-    rng = np.random.default_rng(3)
-    with torch.inference_mode():
-        toks = torch.from_numpy(rng.integers(1, config.vocab_size, (8, 64))).to(dev)
-        offs = torch.zeros(8, dtype=torch.int64, device=dev)
-        _, cache = eng.prefill(toks, offs)
-        nxt = toks[:, -1:]
-        eng.decode(nxt, cache, 64, offs)
-        torch.cuda.synchronize()
-        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
+NEW_TOKENS = 16
+
+
+def serving_prompts(config):
+    """The 8 ragged prompts every served run starts from."""
+    rng = np.random.default_rng(2)
+    return [rng.integers(1, config.vocab_size, n).tolist() for n in (3, 40, 17, 8, 29, 5, 36, 12)]
+
+
+def serve_paged(dev, name, params, config, requests, engine_kw, gemm, keep_logits=False):
+    """Serve ``requests`` [(prompt, submit keywords)] through PagedEngine;
+    require the exact launches of its path: the LUT-GEMM ``gemm`` 4 x 32
+    per forward call, K5 32 per decode step, K6 32 per pool-prefill chunk,
+    no other LUT-GEMM. Returns the run's numbers, the engine, the tokens by
+    request, the first-token logits rows by request and, with
+    ``keep_logits``, each decode step's logits [slots, V] on the host."""
+    from flute_tpu_torch.ops import lut_gemm
+    from flute_tpu_torch.ops import paged_attention as pa
+    from flute_tpu_torch.serving import PagedEngine
+
+    held = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    eng = PagedEngine(params=params, config=config, device=dev, **engine_kw)
+    calls = dict(decode=0, pool_chunks=0, dense_prefill=0, waits=0)
+    decode_s, prefill_s, finite, peak_blocks, decode_rows = [], [], [], [0], []
+    first_rows = {}
+
+    def wrap(obj, attr, after):
+        fn = getattr(obj, attr)
+
+        def wrapped(*a, **kw):
             t0 = time.perf_counter()
-            for i in range(3):
-                eng.decode(nxt, cache, 65 + i, offs)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+            r = fn(*a, **kw)
+            after(r, t0, *a)
+            return r
+
+        setattr(obj, attr, wrapped)
+
+    def on_decode_logits(r, t0, *a):
+        calls["decode"] += 1
+        finite.append(bool(torch.isfinite(r).all()))
+        if keep_logits:
+            decode_rows.append(r.float().cpu())
+
+    def on_decode(r, t0, *a):  # ends in a copy to the host: a synchronised step
+        decode_s.append(time.perf_counter() - t0)
+
+    def on_pool(r, t0, *a):
+        calls["pool_chunks"] += 1
+        finite.append(bool(torch.isfinite(r[0]).all()))
+
+    def on_dense(r, t0, *a):
+        calls["dense_prefill"] += 1
+
+    def on_prefill(r, t0, *a):
+        torch.cuda.synchronize()
+        prefill_s.append(time.perf_counter() - t0)
+
+    def on_admit(r, t0, *a):
+        # pool pressure: a request waits while a slot is free
+        if eng._queue and any(req is None for req in eng._slot_req):
+            calls["waits"] += 1
+
+    wrap(eng, "_decode_logits", on_decode_logits)
+    wrap(eng, "_decode", on_decode)
+    if eng._pool_fwd is not None:
+        wrap(eng, "_pool_fwd", on_pool)
+    wrap(eng, "forward", on_dense)
+    wrap(eng, "_prefill_pool", on_prefill)
+    wrap(eng, "_prefill_dense", on_prefill)
+    eng._start = _record_first(eng, first_rows)
+    wrap(eng, "_admit", on_admit)
+
+    for d in (lut_gemm.LAUNCHES, pa.LAUNCHES):
+        for k in d:
+            d[k] = 0
+    rids = [eng.submit(p, **kw) for p, kw in requests]
+    t0 = time.perf_counter()
+    while eng.step():
+        peak_blocks[0] = max(peak_blocks[0], eng.blocks_in_use)
+    out = eng.run()
+    total = time.perf_counter() - t0
+    launches = {**lut_gemm.LAUNCHES, **pa.LAUNCHES}
+
+    forwards = calls["decode"] + calls["pool_chunks"] + calls["dense_prefill"]
+    layers = config.num_layers
+    expected = {k: 0 for k in launches}
+    expected[gemm] = forwards * layers * 4
+    expected["paged_decode"] = calls["decode"] * layers
+    expected["paged_verify"] = calls["pool_chunks"] * layers
+    if launches != expected:
+        raise AssertionError(f"[{name}] launches {launches}, expected {expected} ({calls})")
+    if not all(finite):
+        raise AssertionError(f"[{name}] non-finite logits while serving")
+    budgets = [kw["max_new_tokens"] for _, kw in requests]
+    if [len(out[r]) for r in rids] != budgets:
+        raise AssertionError(f"[{name}] tokens {[len(out[r]) for r in rids]} != {budgets}")
+    tokens = sum(budgets)
+    serving = dict(
+        requests=len(requests), prompt_lengths=[len(p) for p, _ in requests],
+        new_tokens=budgets, calls=dict(calls), launches=launches,
+        prefix_hits=eng.prefix_hits, prefix_block_hits=eng.prefix_block_hits,
+        prefill_ms_per_admission=float(np.median(prefill_s)) * 1e3,
+        prefill_ms=[x * 1e3 for x in prefill_s],
+        decode_ms_per_step=float(np.median(decode_s)) * 1e3,
+        decode_ms_quickest=min(decode_s) * 1e3,
+        decode_ms_steps=[x * 1e3 for x in decode_s],
+        tok_s=tokens / total, peak_blocks_in_use=peak_blocks[0],
+        peak_gib=(torch.cuda.max_memory_allocated(dev) - held) / 2**30,
+    )
+    log(f"  [{name}] {len(requests)} requests, {tokens} tokens: prefill "
+        f"{serving['prefill_ms_per_admission']:.1f} ms per admission (median), decode "
+        f"{serving['decode_ms_per_step']:.2f} ms/step (median; quickest "
+        f"{serving['decode_ms_quickest']:.2f}) over {calls['decode']} steps, "
+        f"{serving['tok_s']:.1f} tok/s, {calls['waits']} admission waits for blocks, "
+        f"prefix hits {eng.prefix_hits}, peak {peak_blocks[0]} blocks in use, "
+        f"peak {serving['peak_gib']:.1f} GiB; launches {launches}")
+    return serving, eng, [out[r] for r in rids], [first_rows[r] for r in rids], decode_rows
+
+
+def _record_first(eng, first_rows):
+    """Wrap the engine's first-token step to keep each request's raw row."""
+    start = eng._start
+
+    def wrapped(slot, prompt, sampling, last_row):
+        first_rows[eng._slot_req[slot]] = last_row.cpu()
+        return start(slot, prompt, sampling, last_row)
+
+    return wrapped
+
+
+def profile_steps(name, step):
+    """Where a decode step's device time goes: three calls of ``step``
+    under torch.profiler, outside the counted runs (the profiler runs only
+    after every timed run, so it cannot slow one down)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for i in range(3):
+            step(i)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     by_kernel = {}
     for ev in prof.key_averages():
         dt = getattr(ev, "device_time_total", None)
@@ -409,10 +844,35 @@ def profile_decode(dev, name, eng):
     return profile
 
 
+def profile_decode(dev, name, eng):
+    """An Engine's decode step at batch 8 after a 64-token prefill."""
+    config = eng.config
+    rng = np.random.default_rng(3)
+    with torch.inference_mode():
+        toks = torch.from_numpy(rng.integers(1, config.vocab_size, (8, 64))).to(dev)
+        offs = torch.zeros(8, dtype=torch.int64, device=dev)
+        _, cache = eng.prefill(toks, offs)
+        nxt = toks[:, -1:]
+        eng.decode(nxt, cache, 64, offs)
+        torch.cuda.synchronize()
+        return profile_steps(name, lambda i: eng.decode(nxt, cache, 65 + i, offs))
+
+
+def profile_paged(name, eng, prompts):
+    """A PagedEngine decode step with 8 live requests."""
+    for p in prompts:
+        eng.submit(p, max_new_tokens=8)
+    eng.step()  # admission and a first decode step
+    torch.cuda.synchronize()
+    profile = profile_steps(name, lambda i: eng.step())
+    eng.run()
+    return profile
+
+
 def kernel_line(kid, cases, launches):
-    """The {"kernels": [...]} entry of one kernel: its decode stack, one
-    layer's four projections at M=8 in bf16 (K2 at general W4)."""
-    wrapper, source, layout, replaces = KERNELS[kid]
+    """The {"kernels": [...]} entry of a LUT-GEMM: its decode stack, one
+    layer's four projections at M=8 in bf16 (K2 and K4 at 4 bits)."""
+    wrapper, source, _, replaces = KERNELS[kid]
     bits = 4 if kid != "K3" else 3
     mine = [c for c in cases if c["kernel"] == kid]
     stack = [c for c in mine if c["bits"] == bits and c["m"] == 8 and c["dtype"] == "bfloat16"]
@@ -432,12 +892,122 @@ def kernel_line(kid, cases, launches):
     )
 
 
+def attention_line(kid, checks, timed, launches):
+    """The {"kernels": [...]} entry of K5 (one call at B=8, every length
+    1024) or K6 (one call, T=256 over 1024 cached positions)."""
+    wrapper, source, _, replaces = KERNELS[kid]
+    row = [c for c in timed if c["kernel"] == kid][0]
+    return dict(
+        name=wrapper,
+        route="cuda",
+        source=f"flute_tpu_torch/csrc/{source}",
+        replaces=replaces,
+        launches=launches,
+        max_abs_err=max(c["max_abs_err"] for c in checks if c["kernel"] == kid),
+        ms=row["us"] / 1e3,
+        plain_ms=row["plain_us"] / 1e3,
+        bound_ms=row["bound_us"] / 1e3,
+        bound_by=row["bound_by"],
+        library_ms=row["library_us"] / 1e3,
+        checked=True,
+    )
+
+
+def first_tie_steps(logits, tol=THRESHOLDS[torch.bfloat16]):
+    """Per sequence, the first step whose top-1/top-2 margin is within
+    twice ``tol`` of the largest logit (``logits`` [steps, B, V]); and the
+    share of (step, sequence) pairs decided."""
+    top2 = torch.topk(logits, 2, dim=-1).values
+    scale = logits.abs().amax(dim=-1)
+    decided = (top2[..., 0] - top2[..., 1]) > 2 * tol * scale  # [steps, B]
+    return [int(torch.argmin(col.int())) if not bool(col.all()) else col.numel()
+            for col in decided.T], float(decided.float().mean())
+
+
+def phase_paged(dev, results, w4sym_engine, w4sym_trajectory):
+    """PagedEngine at w4sym (dense prefill) against Engine, then the HIGGS-W4
+    model with pool prefill, prefix sharing, pool pressure and sampling."""
+    from flute_tpu_torch.models import llama
+
+    config = llama.LlamaConfig.llama31_8b()
+    prompts = serving_prompts(config)
+    budget = dict(max_new_tokens=NEW_TOKENS)
+
+    # w4sym: the Engine's model and prompts
+    out, logits = w4sym_trajectory
+    ties, decided = first_tie_steps(logits[:, : len(prompts)])
+    serving, eng, tokens, first, rows = serve_paged(
+        dev, "paged w4sym", w4sym_engine.params, config, [(p, budget) for p in prompts],
+        dict(num_slots=8, block_size=16, num_blocks=8 * 4 + 1, max_len=256), "w4sym",
+        keep_logits=True)
+    for i, tie in enumerate(ties):
+        if tokens[i][:tie] != out[i][:tie]:
+            raise AssertionError(f"paged w4sym: request {i} differs from Engine before step {tie}")
+    # every request was admitted at once, request i into slot i: while its
+    # tokens equal Engine's, decode step k's row i is Engine's step k + 1.
+    # Engine rounds attention probabilities to bf16 and K5 keeps them in
+    # f32, which alone moves 32-layer logits by a few percent (PERF.md, PR
+    # 3); a wrong position or block would move them by their whole size.
+    if serving["calls"]["waits"]:
+        raise AssertionError("paged w4sym: a request waited for blocks")
+    step_err, compared = 0.0, 0
+    for k, row in enumerate(rows[: NEW_TOKENS - 1]):
+        for i in range(len(prompts)):
+            if tokens[i][: k + 1] == out[i][: k + 1]:
+                want_k = logits[k + 1, i]
+                step_err = max(step_err, float((row[i] - want_k).abs().max() / want_k.abs().max()))
+                compared += 1
+    if not step_err < 0.25:
+        raise AssertionError(f"paged w4sym: decode logits differ from Engine's: {step_err}")
+    first = torch.stack(first)
+    want = logits[0, : len(prompts)]
+    first_err = float(((first - want).abs().amax(dim=-1) / want.abs().amax(dim=-1)).max())
+    if not first_err < THRESHOLDS[torch.bfloat16]:
+        raise AssertionError(f"paged w4sym: first-token logits differ from Engine: {first_err}")
+    same = sum(a == b for a, b in zip(tokens, out))
+    log(f"  [paged w4sym] tokens equal Engine's before every low-margin step (decided share "
+        f"{decided:.2f}; {same}/{len(out)} sequences identical in full); first-token logits "
+        f"within {first_err:.2e}; decode logits within {step_err:.2e} of Engine's over "
+        f"{compared} (step, request) pairs with the same history")
+    serving.update(first_token_rel_err=first_err, decided_share=decided,
+                   identical_sequences=same, decode_logits_rel_err=step_err,
+                   decode_rows_compared=compared)
+    results["serving"]["paged_w4sym"] = serving
+    del eng
+    torch.cuda.empty_cache()
+
+    # HIGGS-W4 with pool prefill: 12 requests, the last 4 sharing the first
+    # 32 tokens (2 blocks) of prompt 1, two sampled
+    t0 = time.perf_counter()
+    params = higgs_params(config, dev, seed=0)
+    torch.cuda.synchronize()
+    log(f"  [paged HIGGS-W4] built the 32-layer HIGGS model in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(5)
+    extra = [rng.integers(1, config.vocab_size, n).tolist() for n in (5, 9, 14, 3)]
+    all_prompts = prompts + [prompts[1][:32] + e for e in extra]
+    sampled = dict(temperature=0.8, top_k=50, top_p=0.9)
+    kws = [dict(budget) for _ in all_prompts]
+    kws[2].update(sampled, seed=11)
+    kws[9].update(sampled, seed=12)
+    # the first 8 requests need 22 blocks: 19 usable make admission wait
+    engine_kw = dict(num_slots=8, block_size=16, num_blocks=20, max_len=256,
+                     prefix_cache_blocks=16, pool_prefill=True)
+    serving, eng, _, _, _ = serve_paged(dev, "paged HIGGS-W4", params, config,
+                                        list(zip(all_prompts, kws)), engine_kw, "pair")
+    if serving["prefix_hits"] < 1 or serving["calls"]["waits"] < 1:
+        raise AssertionError(f"paged HIGGS-W4: prefix hits {serving['prefix_hits']}, "
+                             f"admission waits {serving['calls']['waits']}")
+    results["serving"]["paged_higgs_w4"] = serving
+    return eng, prompts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, HERE)
     from flute_tpu_torch.ops import _build, lut_gemm
+    from flute_tpu_torch.ops import paged_attention as pa
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -453,10 +1023,14 @@ def main() -> int:
     log(smi)
     results["nvidia_smi"] = smi
     t0 = time.perf_counter()
+    sources = sorted({source for _, source, _, _ in KERNELS.values()})
+    _build.build_all(sources)
     lut_gemm.build_kernels()
+    for kernel in pa.LAUNCHES:
+        pa._kernel_fn(kernel)
     build_s = time.perf_counter() - t0
-    log(f"  built the three kernel libraries in {build_s:.1f} s (in parallel)")
-    for _, source, _, _ in KERNELS.values():
+    log(f"  built the {len(sources)} kernel libraries in {build_s:.1f} s (in parallel)")
+    for source in sources:
         lib = _build.library_path(source)
         log(f"  {os.path.relpath(lib, HERE)}")
         ptxas = lib.with_suffix(".log").read_text()
@@ -468,22 +1042,33 @@ def main() -> int:
 
     log("== 2. kernels against plain on the card")
     cases = phase_kernel(dev, results)
+    attn_checks, attn_timed = phase_attention(dev, results)
     log("== 3. model logits against the CPU plain path; checkpoint round trip")
     phase_logits(dev, results)
     log("== 4. serving Llama-3.1-8B widths, 32 layers")
     results["serving"] = {}
     launches = {}
     engines = {}
+    trajectories = {}
     for name, (kw, kid) in SERVED.items():
         layout = KERNELS[kid][2]
-        results["serving"][name], engines[name] = serve(dev, name, kw, layout)
+        results["serving"][name], engines[name], trajectories[name] = serve(dev, name, kw,
+                                                                            layout)
         launches[kid] = results["serving"][name]["launches"][layout]
+    paged_eng, prompts = phase_paged(dev, results, engines["w4sym"], trajectories["w4sym"])
+    higgs_launches = results["serving"]["paged_higgs_w4"]["launches"]
+    for kid in ("K4", "K5", "K6"):
+        launches[kid] = higgs_launches[KERNELS[kid][2]]
     for name, eng in engines.items():
         results["serving"][name]["profile"] = profile_decode(dev, name, eng)
-    del engines
+    results["serving"]["paged_higgs_w4"]["profile"] = profile_paged("paged HIGGS-W4", paged_eng,
+                                                                    prompts)
+    del engines, paged_eng
     torch.cuda.empty_cache()
 
-    kernels = [kernel_line(kid, cases, launches[kid]) for kid in KERNELS]
+    kernels = [kernel_line(kid, cases, launches[kid]) for kid in LUT_KERNELS]
+    kernels += [attention_line(kid, attn_checks, attn_timed, launches[kid])
+                for kid in ("K5", "K6")]
     results["kernels"] = kernels
     results["total_s"] = time.perf_counter() - t_start
     log(f"  chip_smoke took {results['total_s']:.0f} s")

@@ -1,0 +1,337 @@
+// Paged GQA attention over a block-pool KV cache, for Hopper (sm_90a): the
+// T = 1 decode kernel (K5) and the T-query verify / pool-prefill kernel (K6),
+// one template, two C entries.
+//
+//   out[b, t, h] = softmax_j(q[b, t, h] . k[b, j] * scale) @ v[b, j]
+//
+// over the positions j a row may attend; position j of sequence b lives in
+// pool row tables[b, j / BS] at offset j % BS of k_pool / v_pool
+// [NB, Hkv, BS, D]. Decode: row (b, h) attends j < lengths[b]. Verify: query
+// t attends j < lengths[b] + t + 1 (its own K/V already written). Options:
+// Gemma-2's logit softcap, s = tanh(s / cap) * cap, applied before the mask,
+// and a sliding window, j >= attendable - window.
+//
+// Replaces: flute_tpu/ops/paged_attention.py::paged_decode_attention (its
+// pl.pallas_call of _kernel) and ::paged_verify_attention (its
+// pl.pallas_call of _verify_kernel).
+//
+// Design. One block of 8 warps per (sequence, KV head, tile of ROWS query
+// rows); a row is a (query t, head of the KV head's group) pair, so the
+// rep = H / Hkv heads that share a KV head read each pool block once, and in
+// the verify kernel all T queries of a tile do too. The q tile is staged in
+// shared memory as f32. Each warp walks its own share of the sequence's
+// logical blocks (j = warp, warp + 8, ...), reading the block table itself
+// and skipping blocks that no row of the tile may attend (past the longest
+// row's end, or wholly before the window), and keeps its own flash state per
+// row in registers: running max, sum of exponentials and the numerator of
+// its lane's columns. For the scores each lane takes one position of the
+// block and a 32/BS-th of the head dimension (16-byte loads of K, four in
+// flight), the lanes of a position add their parts with shuffles; the row
+// max and sum are shuffle reductions over positions; for the numerator each
+// lane owns D/32 columns of V (eight positions' loads in flight) and
+// receives each position's probability by shuffle. No barrier inside the
+// walk. At the end the 8 warps' states are merged in
+// shared memory (max of the maxima, sums and numerators rescaled to it),
+// and the output is the numerator over max(sum, 1e-30), in q's dtype.
+//
+// Masks, as the TPU kernels have them. Decode uses -inf: every block it
+// visits holds a position each row may attend, and a slot of length 0
+// (parked on the trash block) visits none and returns 0 / 1e-30 = 0.
+// Verify uses the finite -1e30: its rows have different ranges, so a
+// visited block may hold nothing a row may attend, and -inf there would
+// give exp(-inf - -inf) = NaN. With -1e30 such a row gathers exp(0) junk,
+// which the first block it may attend erases (alpha = exp(-1e30 - m) = 0;
+// across warps the merge's factor exp(-1e30 - M) = 0 does the same); every
+// row may attend at least its own position.
+//
+// What bounds it: bytes (the live K/V blocks, read once per KV head and
+// tile) at decode, far below the operations bound; at prefill (T = 256) the
+// operations, which it runs as f32 FMAs, not on tensor cores. Still simple:
+// no split of a sequence across blocks (a decode launch has B * Hkv
+// blocks), no cp.async/TMA staging, no tensor cores.
+
+#include "lut_gemm_common.cuh"  // Cvt<T>, flute_cuda_error_string
+
+#include <math.h>
+
+namespace {
+
+using flute::Cvt;
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+
+struct Params {
+  const void* q;       // [B, T, H, D]
+  const void* k_pool;  // [NB, Hkv, BS, D]
+  const void* v_pool;
+  const int* tables;   // [B, MB], in [0, NB)
+  const int* lengths;  // [B]
+  void* out;           // [B, T, H, D]
+  int B, T, H, Hkv, D, NB, BS, MB;
+  float scale;
+  int has_softcap;
+  float softcap;
+  int has_window;
+  int window;
+};
+
+// out[i] = p[i] as f32 for N consecutive elements, in 16-byte (or 8- or
+// 4-byte) loads for the 16-bit types; p is aligned to the load.
+template <typename T, int N>
+__device__ __forceinline__ void load_f32(const T* __restrict__ p, float (&out)[N]) {
+  if constexpr (sizeof(T) == 2 && N % 8 == 0) {
+#pragma unroll
+    for (int c = 0; c < N / 8; ++c) {
+      const uint4 u = __ldg(reinterpret_cast<const uint4*>(p) + c);
+      const T* e = reinterpret_cast<const T*>(&u);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) out[8 * c + i] = Cvt<T>::to_f(e[i]);
+    }
+  } else if constexpr (sizeof(T) == 2 && N == 4) {
+    const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+    const T* e = reinterpret_cast<const T*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) out[i] = Cvt<T>::to_f(e[i]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) out[i] = Cvt<T>::to_f(p[i]);
+  }
+}
+
+// DPL = D / 32 columns of the head dimension per lane.
+template <typename T, int ROWS, int DPL, bool VERIFY>
+__global__ void __launch_bounds__(kThreads) paged_attention_kernel(const Params p) {
+  const float kMask = VERIFY ? -1e30f : -INFINITY;
+  constexpr int D = 32 * DPL;
+  const int b = blockIdx.x;
+  const int kvh = blockIdx.y;
+  const int rep = p.H / p.Hkv;
+  const int R = p.T * rep;  // query rows of this (sequence, KV head)
+  const int r0 = blockIdx.z * ROWS;
+  const int BS = p.BS;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int P = 32 / BS;      // lanes per position
+  const int s = lane / P;     // this lane's position within a block
+  const int dpp = D / P;      // its part of the head dimension (a multiple of 32)
+  const int d_part = (lane - s * P) * dpp;
+
+  extern __shared__ float sm[];
+  float* qs = sm;                        // [ROWS][D]
+  float* m_s = qs + ROWS * D;            // [kWarps][ROWS]
+  float* l_s = m_s + kWarps * ROWS;      // [kWarps][ROWS]
+  float* acc_s = l_s + kWarps * ROWS;    // [kWarps][ROWS][D]
+
+  const T* q = static_cast<const T*>(p.q);
+  const T* kpool = static_cast<const T*>(p.k_pool);
+  const T* vpool = static_cast<const T*>(p.v_pool);
+  const int length = p.lengths[b];
+
+  // rows past R repeat the tile's last real row and are never stored
+  for (int idx = threadIdx.x; idx < ROWS * D; idx += kThreads) {
+    const int r = idx / D;
+    const int d = idx - r * D;
+    const int rr = min(r0 + r, R - 1);
+    const int t = rr / rep;
+    const int h = kvh * rep + rr % rep;
+    qs[idx] = Cvt<T>::to_f(q[(static_cast<size_t>(b) * p.T + t) * p.H * D +
+                             static_cast<size_t>(h) * D + d]);
+  }
+  int att[ROWS];  // positions each row may attend: [att - window, att)
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) att[r] = length + (VERIFY ? min(r0 + r, R - 1) / rep + 1 : 0);
+  const int att_lo = att[0];
+  const int att_hi = length + (VERIFY ? (min(r0 + ROWS, R) - 1) / rep + 1 : 0);
+  __syncthreads();
+
+  float m[ROWS], l[ROWS], acc[ROWS][DPL];
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    m[r] = kMask;
+    l[r] = 0.f;
+#pragma unroll
+    for (int i = 0; i < DPL; ++i) acc[r][i] = 0.f;
+  }
+
+  for (int j = warp; j < p.MB; j += kWarps) {
+    const int base = j * BS;
+    bool live = base < att_hi;
+    if (p.has_window) live = live && base + BS > att_lo - p.window;
+    if (!live) continue;  // the same for every lane of the warp
+    const size_t blk = (static_cast<size_t>(p.tables[b * p.MB + j]) * p.Hkv + kvh) * BS * D;
+
+    // scores: this lane's part of q . k for its position, then the parts added
+    float sc[ROWS];
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) sc[r] = 0.f;
+    const T* krow = kpool + blk + static_cast<size_t>(s) * D + d_part;
+    for (int d0 = 0; d0 < dpp; d0 += 32) {
+      float kv[4][8];  // four loads in flight before the first use
+#pragma unroll
+      for (int c = 0; c < 4; ++c) load_f32<T, 8>(krow + d0 + 8 * c, kv[c]);
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) {
+        const float* qr = qs + r * D + d_part + d0;
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+#pragma unroll
+          for (int i = 0; i < 8; ++i) sc[r] = fmaf(qr[8 * c + i], kv[c][i], sc[r]);
+      }
+    }
+    const int pos = base + s;
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      for (int off = P / 2; off > 0; off >>= 1) sc[r] += __shfl_xor_sync(0xffffffffu, sc[r], off);
+      float v = sc[r] * p.scale;
+      if (p.has_softcap) v = tanhf(v / p.softcap) * p.softcap;
+      bool valid = pos < att[r];
+      if (p.has_window) valid = valid && pos >= att[r] - p.window;
+      v = valid ? v : kMask;
+      // max and sum over the block's positions (lanes of one part)
+      float bmax = v;
+      for (int off = P; off < 32; off <<= 1)
+        bmax = fmaxf(bmax, __shfl_xor_sync(0xffffffffu, bmax, off));
+      const float m_new = fmaxf(m[r], bmax);
+      const float alpha = m[r] == m_new ? 1.f : expf(m[r] - m_new);
+      float pr = expf(v - m_new);
+      if (!VERIFY && m_new == -INFINITY) pr = 0.f;  // nothing to attend yet
+      float sum = pr;
+      for (int off = P; off < 32; off <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      l[r] = alpha * l[r] + sum;
+      m[r] = m_new;
+      sc[r] = pr;
+#pragma unroll
+      for (int i = 0; i < DPL; ++i) acc[r][i] *= alpha;
+    }
+
+    // numerator: this lane's DPL columns of every position's V row
+    const T* vcol = vpool + blk + lane * DPL;
+    for (int p0 = 0; p0 < BS; p0 += 8) {
+      float vv[8][DPL];  // eight positions' loads in flight before the first use
+#pragma unroll
+      for (int c = 0; c < 8; ++c) load_f32<T, DPL>(vcol + static_cast<size_t>(p0 + c) * D, vv[c]);
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r) {
+          const float pr = __shfl_sync(0xffffffffu, sc[r], (p0 + c) * P);
+#pragma unroll
+          for (int i = 0; i < DPL; ++i) acc[r][i] = fmaf(pr, vv[c][i], acc[r][i]);
+        }
+      }
+    }
+  }
+
+  // merge the warps' states
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    if (lane == 0) {
+      m_s[warp * ROWS + r] = m[r];
+      l_s[warp * ROWS + r] = l[r];
+    }
+#pragma unroll
+    for (int i = 0; i < DPL; ++i) acc_s[(warp * ROWS + r) * D + lane * DPL + i] = acc[r][i];
+  }
+  __syncthreads();
+  T* out = static_cast<T*>(p.out);
+  for (int idx = threadIdx.x; idx < ROWS * D; idx += kThreads) {
+    const int r = idx / D;
+    const int d = idx - r * D;
+    const int rr = r0 + r;
+    if (rr >= R) continue;
+    float mx = kMask;
+    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, m_s[w * ROWS + r]);
+    float num = 0.f, den = 0.f;
+    for (int w = 0; w < kWarps; ++w) {
+      const float mw = m_s[w * ROWS + r];
+      const float f = mw == -INFINITY ? 0.f : expf(mw - mx);
+      num = fmaf(f, acc_s[(w * ROWS + r) * D + d], num);
+      den = fmaf(f, l_s[w * ROWS + r], den);
+    }
+    const int t = rr / rep;
+    const int h = kvh * rep + rr % rep;
+    out[(static_cast<size_t>(b) * p.T + t) * p.H * D + static_cast<size_t>(h) * D + d] =
+        Cvt<T>::from_f(num / fmaxf(den, 1e-30f));
+  }
+}
+
+template <typename T, int ROWS, int DPL, bool VERIFY>
+cudaError_t launch(const Params& p, cudaStream_t stream) {
+  const size_t smem =
+      (static_cast<size_t>(ROWS) * p.D * (1 + kWarps) + 2 * kWarps * ROWS) * sizeof(float);
+  auto kernel = paged_attention_kernel<T, ROWS, DPL, VERIFY>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  const int rows = p.T * (p.H / p.Hkv);
+  const dim3 grid(p.B, p.Hkv, (rows + ROWS - 1) / ROWS);
+  kernel<<<grid, kThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// The tile is 4 rows when a (sequence, KV head) has at most 4 (decode at
+// GQA ratios up to 4), else 8. D = 32 * DPL with DPL 2, 4 or 8; BS is 8,
+// 16 or 32 and D * BS a multiple of 1024 (the wrapper checks both).
+template <typename T, int DPL, bool VERIFY>
+cudaError_t dispatch_rows(const Params& p, cudaStream_t stream) {
+  return p.T * (p.H / p.Hkv) <= 4 ? launch<T, 4, DPL, VERIFY>(p, stream)
+                                  : launch<T, 8, DPL, VERIFY>(p, stream);
+}
+
+template <typename T, bool VERIFY>
+cudaError_t dispatch_shape(const Params& p, cudaStream_t stream) {
+  if (p.BS % 8 != 0 || 32 % p.BS != 0 || (p.D * p.BS) % 1024 != 0) return cudaErrorInvalidValue;
+  switch (p.D) {
+    case 64: return dispatch_rows<T, 2, VERIFY>(p, stream);
+    case 128: return dispatch_rows<T, 4, VERIFY>(p, stream);
+    case 256: return dispatch_rows<T, 8, VERIFY>(p, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <bool VERIFY>
+int run(const Params& p, int dtype, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0: return dispatch_shape<float, VERIFY>(p, s);
+    case 1: return dispatch_shape<__half, VERIFY>(p, s);
+    case 2: return dispatch_shape<__nv_bfloat16, VERIFY>(p, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// Shared arguments: q, k_pool, v_pool and out in one dtype (0 = float32,
+// 1 = float16, 2 = bfloat16); tables int32 [B, MB] with entries in [0, NB);
+// lengths int32 [B]; D is 64, 128 or 256, BS is 8, 16 or 32 and D * BS a
+// multiple of 1024; has_softcap / has_window switch the options.
+// All pointers are device pointers; the kernel runs on `stream` and is not
+// synchronised. Each entry returns the cudaError_t of its launch.
+
+// K5: q and out [B, H, D]; row (b, h) attends positions < lengths[b].
+extern "C" int flute_paged_decode_attention(const void* q, const void* k_pool, const void* v_pool,
+                                            const int* tables, const int* lengths, void* out,
+                                            int B, int H, int Hkv, int D, int NB, int BS, int MB,
+                                            float scale, int has_softcap, float softcap,
+                                            int has_window, int window, int dtype, void* stream) {
+  const Params p{q,  k_pool, v_pool, tables, lengths, out,        B,           1,
+                 H,  Hkv,    D,      NB,     BS,      MB,         scale,       has_softcap,
+                 softcap, has_window, window};
+  return run<false>(p, dtype, stream);
+}
+
+// K6: q and out [B, T, H, D]; query t attends positions < lengths[b] + t + 1.
+extern "C" int flute_paged_verify_attention(const void* q, const void* k_pool, const void* v_pool,
+                                            const int* tables, const int* lengths, void* out,
+                                            int B, int T, int H, int Hkv, int D, int NB, int BS,
+                                            int MB, float scale, int has_softcap, float softcap,
+                                            int has_window, int window, int dtype, void* stream) {
+  const Params p{q,  k_pool, v_pool, tables, lengths, out,        B,           T,
+                 H,  Hkv,    D,      NB,     BS,      MB,         scale,       has_softcap,
+                 softcap, has_window, window};
+  return run<true>(p, dtype, stream);
+}

@@ -126,7 +126,7 @@ def save_quantized(
                 path, ps, leaf.planes, leaf.scales, leaf.table,
                 pair_values=leaf.pair_values, bias=leaf.bias, num_bits=leaf.num_bits,
                 group_size=leaf.group_size, config_key=leaf.config_key,
-                hadamard_size=None, layout=leaf.layout,
+                hadamard_size=leaf.hadamard_size, layout=leaf.layout,
             ))
         else:
             entries.append({"path": ps, "type": "array",

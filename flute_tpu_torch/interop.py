@@ -7,8 +7,7 @@ linear is a dict with ``planes`` (list of int32 arrays), ``scales``,
 ``group_size``, ``layout``, ``config_key`` and ``hadamard_size``. Planes are
 carried bit for bit and the chunk rides in the config key; bfloat16 arrays
 (numpy dtype named ``bfloat16``) stay bfloat16. A layer whose
-``hadamard_size`` is set raises ``NotImplementedError`` (its rotation is not
-ported), so no field is dropped on the way.
+``hadamard_size`` is set keeps its rotation: no field is dropped on the way.
 """
 
 from __future__ import annotations
@@ -89,6 +88,7 @@ def move_params(tree: Any, device) -> Any:
             group_size=tree.group_size,
             config_key=tree.config_key,
             layout=tree.layout,
+            hadamard_size=tree.hadamard_size,
         )
     if isinstance(tree, torch.Tensor):
         return tree.to(device)

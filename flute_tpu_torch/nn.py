@@ -6,11 +6,13 @@ optional pair table and bias are buffers, and whose quantization metadata
 it carries) are attributes. ``layout`` must travel with the module: the
 w4sym layout has the plane shape of classic W4 and cannot be told from it.
 ``from_codes`` builds one from codes computed elsewhere (importers,
-checkpoints).
+checkpoints). A layer with ``hadamard_size`` rotates x (a grouped Hadamard
+transform) before the GEMM, as HIGGS checkpoints need.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, Optional
 
 import numpy as np
@@ -34,8 +36,8 @@ class QuantizedLinear(nn.Module):
     ``[2^b, 2^b, 2]``, a joint table for K-row pairs (HIGGS vector
     dequantization) that replaces ``table``; optional bias ``[N]``.
 
-    ``hadamard_size`` (the HIGGS rotation of x before the GEMM) is not
-    ported: a layer that needs it raises rather than computing without it.
+    ``hadamard_size``: when set, x is rotated by the grouped Hadamard
+    transform of that size before the GEMM (HIGGS layers); None = none.
     """
 
     def __init__(
@@ -53,11 +55,6 @@ class QuantizedLinear(nn.Module):
         hadamard_size: Optional[int] = None,
     ):
         super().__init__()
-        if hadamard_size is not None:
-            raise NotImplementedError(
-                f"hadamard_size={hadamard_size}: the Hadamard rotation of HIGGS "
-                "layers is not ported yet (ROADMAP.md, queue 1 item 11)"
-            )
         self.num_planes = len(planes)
         for i, p in enumerate(planes):
             self.register_buffer(f"plane{i}", p)
@@ -69,6 +66,7 @@ class QuantizedLinear(nn.Module):
         self.group_size = group_size
         self.config_key = config_key
         self.layout = layout
+        self.hadamard_size = hadamard_size
 
     @property
     def planes(self) -> tuple[torch.Tensor, ...]:
@@ -93,7 +91,21 @@ class QuantizedLinear(nn.Module):
         """Pack chunk of the planes (part of the layout, kept in the key)."""
         return (self.config or KernelConfig()).chunk
 
+    def with_config(self, config: Optional[KernelConfig]) -> "QuantizedLinear":
+        """The same layer (sharing its tensors) with another config key."""
+        return QuantizedLinear(
+            self.planes, self.scales, self.table, self.bias,
+            pair_values=self.pair_values, num_bits=self.num_bits,
+            group_size=self.group_size,
+            config_key=None if config is None else config.key(),
+            layout=self.layout, hadamard_size=self.hadamard_size,
+        )
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.hadamard_size is not None:
+            from flute_tpu_torch.ops.hadamard import grouped_hadamard_transform
+
+            x = grouped_hadamard_transform(x, self.hadamard_size)
         y = lut_gemm.lut_qgemm(
             x,
             list(self.planes),
@@ -121,6 +133,7 @@ class QuantizedLinear(nn.Module):
         return (
             f"in={self.in_features}, out={self.out_features}, bits={self.num_bits}, "
             f"group={self.group_size}, layout={self.layout}, chunk={self.chunk}"
+            + ("" if self.hadamard_size is None else f", hadamard={self.hadamard_size}")
         )
 
 
@@ -234,6 +247,7 @@ def from_codes(
     *,
     pair_values: Optional[torch.Tensor] = None,
     bias: Optional[torch.Tensor] = None,
+    config: Optional[KernelConfig] = None,
     chunk: int = packing.DEFAULT_CHUNK,
     device=None,
 ) -> QuantizedLinear:
@@ -241,7 +255,8 @@ def from_codes(
     entry point of importers and checkpoints), packed in the pair-plane
     layout on ``device``: the codes' device for a tensor, else ``cuda``
     unless named. ``table`` None means zeros (for a layer that looks its
-    values up in ``pair_values``)."""
+    values up in ``pair_values``). ``config`` is kept as the layer's key
+    with its chunk set to ``chunk`` (default: ``KernelConfig()``)."""
     if isinstance(codes_kn, torch.Tensor) and device is None:
         dev = codes_kn.device
     else:
@@ -259,7 +274,7 @@ def from_codes(
         ).to(dev),
         num_bits=num_bits,
         group_size=group_size,
-        config_key=KernelConfig(chunk=chunk).key(),
+        config_key=dataclasses.replace(config or KernelConfig(), chunk=chunk).key(),
     )
 
 

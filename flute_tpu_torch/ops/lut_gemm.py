@@ -9,9 +9,12 @@ Dispatch is by the tensors' device:
 * CUDA: one Hopper kernel per layout (see the note at the top of each
   source): ``layout="w4sym"`` -> K1 ``csrc/lut_gemm_w4sym.cu``;
   ``layout="plane"`` at 2, 3 and 4 bits -> K2 ``csrc/lut_gemm_plane.cu``;
-  ``layout="w3wide"`` -> K3 ``csrc/lut_gemm_w3wide.cu``. A build or launch
-  failure raises. ``pair_values`` (joint pair lookup, K4) raises
-  ``NotImplementedError``: that kernel is not ported yet.
+  ``layout="w3wide"`` -> K3 ``csrc/lut_gemm_w3wide.cu``; ``pair_values``
+  (joint pair lookup of HIGGS layers) on the plane layout at 2, 3 and 4
+  bits -> K4 ``csrc/lut_gemm_pair.cu``, in bf16 or f16 only (an f32 call
+  raises ``NotImplementedError``, as the JAX package's ``pair_lut`` mode
+  does, and a wide 3-bit plane with ``pair_values`` raises ``ValueError``).
+  A build or launch failure raises.
 
 :func:`dequantize_codes`, :func:`dequantize_codes_pair` and
 :func:`lut_qgemm_reference` are the oracle and define the semantics.
@@ -32,7 +35,7 @@ from flute_tpu_torch.ops.kernel_config import KernelConfig, launch_config
 # Launches of each kernel, by layout; a wrapper adds one where it launches
 # its kernel and nowhere else, so a run can show which kernels its path
 # went through.
-LAUNCHES = {"w4sym": 0, "plane": 0, "w3wide": 0}
+LAUNCHES = {"w4sym": 0, "plane": 0, "w3wide": 0, "pair": 0}
 
 _DTYPE_TAG = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
@@ -109,22 +112,23 @@ def lut_qgemm_plain(
     return lut_qgemm_reference(x2, codes, scales, table)
 
 
-# layout -> (source, C entry, its pointer and int arguments before the
-# stream: x, planes, scales, table, y, then M, N, K, group_size, chunk
-# [, num_bits], dtype, block_m)
+# kernel -> (source, C entry, its pointer and int arguments before the
+# stream: x, planes, scales, table (the pair table for "pair"), y, then M,
+# N, K, group_size, chunk [, num_bits], dtype, block_m)
 _KERNELS = {
     "w4sym": ("lut_gemm_w4sym.cu", "flute_lut_qgemm_w4sym", 5, 7),
     "plane": ("lut_gemm_plane.cu", "flute_lut_qgemm_plane", 6, 8),
     "w3wide": ("lut_gemm_w3wide.cu", "flute_lut_qgemm_w3wide", 5, 7),
+    "pair": ("lut_gemm_pair.cu", "flute_lut_qgemm_pair", 6, 8),
 }
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel_fn(layout: str):
-    """The C entry of ``layout``'s kernel library (built at first use)."""
+def _kernel_fn(kernel: str):
+    """The C entry of ``kernel``'s library (built at first use)."""
     from flute_tpu_torch.ops import _build
 
-    source, entry, n_ptr, n_int = _KERNELS[layout]
+    source, entry, n_ptr, n_int = _KERNELS[kernel]
     lib = _build.load(source)
     fn = getattr(lib, entry)
     fn.restype = ctypes.c_int
@@ -140,8 +144,8 @@ def build_kernels() -> None:
     from flute_tpu_torch.ops import _build
 
     _build.build_all([source for source, *_ in _KERNELS.values()])
-    for layout in _KERNELS:
-        _kernel_fn(layout)
+    for kernel in _KERNELS:
+        _kernel_fn(kernel)
 
 
 def _check_operands(
@@ -150,9 +154,10 @@ def _check_operands(
     plane_rows: Sequence[int],
     scales: torch.Tensor,
     table: torch.Tensor,
-    table_entries: int,
+    table_shape: tuple[int, ...],
     group_size: int,
     chunk: int,
+    table_name: str = "table",
 ) -> None:
     """Raise ``ValueError`` on operands a kernel does not take: another
     device, a non-contiguous tensor, a dtype or shape it was not built for."""
@@ -160,7 +165,7 @@ def _check_operands(
     n = scales.shape[1]
     dev = x2.device
     named = [("x", x2), *((f"plane{i}", p) for i, p in enumerate(planes)),
-             ("scales", scales), ("table", table)]
+             ("scales", scales), (table_name, table)]
     for name, t in named:
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, x on {dev}")
@@ -175,8 +180,8 @@ def _check_operands(
     for i, (p, rows) in enumerate(zip(planes, plane_rows)):
         if p.dtype != torch.int32 or tuple(p.shape) != (rows, n):
             raise ValueError(f"plane{i} must be int32 [{rows}, {n}]")
-    if table.dtype != torch.float32 or table.numel() != table_entries:
-        raise ValueError(f"table must be float32 [{table_entries}]")
+    if table.dtype != torch.float32 or tuple(table.shape) != table_shape:
+        raise ValueError(f"{table_name} must be float32 {list(table_shape)}")
     if k % chunk or group_size % 2 or k % group_size:
         raise ValueError(f"K={k} chunk={chunk} group_size={group_size} not supported")
     if -(-m // launch_config(m).block_m) > 65535:
@@ -184,7 +189,7 @@ def _check_operands(
 
 
 def _launch(
-    layout: str,
+    kernel: str,
     x2: torch.Tensor,
     plane_ptrs: Sequence[Optional[int]],
     scales: torch.Tensor,
@@ -194,15 +199,15 @@ def _launch(
     chunk: int,
     extra: tuple[int, ...] = (),
 ) -> torch.Tensor:
-    """Launch ``layout``'s kernel on PyTorch's current stream (operands
-    already checked) and count the launch; returns ``[M, N]`` in x's dtype."""
+    """Launch ``kernel`` on PyTorch's current stream (operands already
+    checked) and count the launch; returns ``[M, N]`` in x's dtype."""
     m, k = x2.shape
     n = scales.shape[1]
     dev = x2.device
     y = torch.empty((m, n), dtype=x2.dtype, device=dev)
     if m == 0:
         return y
-    fn, error_string = _kernel_fn(layout)
+    fn, error_string = _kernel_fn(kernel)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = fn(
@@ -212,9 +217,9 @@ def _launch(
         )
     if err != 0:
         raise RuntimeError(
-            f"{layout} kernel launch failed: {error_string(err).decode()} ({err})"
+            f"{kernel} kernel launch failed: {error_string(err).decode()} ({err})"
         )
-    LAUNCHES[layout] += 1
+    LAUNCHES[kernel] += 1
     return y
 
 
@@ -232,7 +237,7 @@ def lut_qgemm_w4sym_cuda(
     k = x2.shape[1]
     if chunk % 8:
         raise ValueError(f"chunk={chunk} not supported by the w4sym layout")
-    _check_operands(x2, [plane], [k // 8], scales, table, 16, group_size, chunk)
+    _check_operands(x2, [plane], [k // 8], scales, table, (16,), group_size, chunk)
     return _launch("w4sym", x2, [plane.data_ptr()], scales, table,
                    group_size=group_size, chunk=chunk)
 
@@ -255,9 +260,37 @@ def lut_qgemm_plane_cuda(
     fmt = _packing.PackFormat(num_bits=num_bits, chunk=chunk)  # validates chunk
     k = x2.shape[1]
     rows = [fmt.plane_rows(k, i) for i in range(len(fmt.plane_bits))]
-    _check_operands(x2, planes, rows, scales, table, 2**num_bits, group_size, chunk)
+    _check_operands(x2, planes, rows, scales, table, (2**num_bits,), group_size, chunk)
     ptrs = [planes[0].data_ptr(), planes[1].data_ptr() if num_bits == 3 else None]
     return _launch("plane", x2, ptrs, scales, table,
+                   group_size=group_size, chunk=chunk, extra=(num_bits,))
+
+
+def lut_qgemm_pair_cuda(
+    x2: torch.Tensor,
+    planes: Sequence[torch.Tensor],
+    scales: torch.Tensor,
+    pair_values: torch.Tensor,
+    *,
+    num_bits: int,
+    group_size: int,
+    chunk: int,
+) -> torch.Tensor:
+    """Launch K4, the Hopper joint pair-lookup kernel, for a 2-D ``x2``
+    ``[M, K]`` in bf16 or f16, 2-, 3- (2+1 planes) or 4-bit pair planes and
+    a float32 pair table ``[2^b, 2^b, 2]``; returns ``[M, N]`` in x's dtype."""
+    if num_bits not in (2, 3, 4):
+        raise ValueError(f"the pair kernel takes 2, 3 or 4 bits, not {num_bits}")
+    if x2.dtype not in (torch.bfloat16, torch.float16):
+        raise NotImplementedError("pair_lut requires a 16-bit compute dtype")
+    fmt = _packing.PackFormat(num_bits=num_bits, chunk=chunk)  # validates chunk
+    k = x2.shape[1]
+    rows = [fmt.plane_rows(k, i) for i in range(len(fmt.plane_bits))]
+    e = 2**num_bits
+    _check_operands(x2, planes, rows, scales, pair_values, (e, e, 2), group_size, chunk,
+                    table_name="pair_values")
+    ptrs = [planes[0].data_ptr(), planes[1].data_ptr() if num_bits == 3 else None]
+    return _launch("pair", x2, ptrs, scales, pair_values,
                    group_size=group_size, chunk=chunk, extra=(num_bits,))
 
 
@@ -275,7 +308,7 @@ def lut_qgemm_w3wide_cuda(
     k = x2.shape[1]
     if chunk % 256:
         raise ValueError(f"chunk={chunk} not supported by the wide 3-bit layout")
-    _check_operands(x2, [plane], [3 * k // 32], scales, table, 8, group_size, chunk)
+    _check_operands(x2, [plane], [3 * k // 32], scales, table, (8,), group_size, chunk)
     return _launch("w3wide", x2, [plane.data_ptr()], scales, table,
                    group_size=group_size, chunk=chunk)
 
@@ -306,7 +339,9 @@ def lut_qgemm(
       num_bits: 2, 3 or 4.
       config: persisted kernel config; only its ``chunk`` (the pack chunk
         of the layout) is used. Default chunk 256.
-      pair_values: optional joint pair table ``[2^b, 2^b, 2]``.
+      pair_values: optional float32 joint pair table ``[2^b, 2^b, 2]``
+        (HIGGS vector dequantization); replaces ``table``. On CUDA it needs
+        the plane layout and a 16-bit x.
       layout: "auto" (wide 3-bit detected by plane shape, else the plane
         layout) or "w4sym", which cannot be shape-detected and must be
         passed by callers carrying w4sym weights.
@@ -366,16 +401,18 @@ def lut_qgemm(
             layout=layout, pair_values=pair_values,
         )
     elif x.device.type == "cuda":
-        if pair_values is not None:
-            raise NotImplementedError(
-                "pair_values (joint pair lookup) has no CUDA kernel yet: K4 "
-                "(pair_lut) is still to be ported"
-            )
         x2 = x2.contiguous()
         scales = scales.to(x2.dtype).contiguous()
         table = table.float().contiguous()
         kw = dict(group_size=group_size, chunk=chunk)
-        if layout == "w4sym":
+        if pair_values is not None:
+            if layout == "w3wide":
+                # the reference computes no pair lookup on this layout
+                # (ROADMAP.md queue 3 item 6); refuse rather than guess
+                raise ValueError("pair_values needs the plane layout, not a wide 3-bit plane")
+            y = lut_qgemm_pair_cuda(x2, planes, scales, pair_values.float().contiguous(),
+                                    num_bits=num_bits, **kw)
+        elif layout == "w4sym":
             y = lut_qgemm_w4sym_cuda(x2, planes[0], scales, table, **kw)
         elif layout == "w3wide":
             y = lut_qgemm_w3wide_cuda(x2, planes[0], scales, table, **kw)

@@ -1,0 +1,518 @@
+"""Paged KV-cache serving, counterpart of ``flute_tpu/serving/paged.py``.
+
+K/V live in per-layer block pools ``[num_blocks, Hkv, block, D]``; a
+per-slot block table, shared by every layer, maps logical blocks to pool
+rows, so the cache holds sum(ceil(len_i / block)) blocks rather than
+num_slots x max_len positions. Allocation is a host-side free list:
+admission takes blocks, completion returns them. Block 0 is the trash
+block: parked slots point at it with length 0, and the writes of padding
+positions land there.
+
+* Decode: one T = 1 forward for every slot whose attention is the paged
+  decode kernel (K5, ``ops.paged_attention.paged_decode_attention``).
+* Prefill, two routes. ``pool_prefill=True``: prompt chunks (``prefill_chunk``,
+  default 256) are written straight into the slot's pool blocks and attend
+  through the multi-query kernel (K6, ``serving.paged_fwd``). Otherwise the
+  dense model runs the prompt (in ``prefill_chunk`` pieces when set) into a
+  bucketed scratch cache, into which shared prefix blocks are spliced
+  first, and the new whole blocks are then scattered into the pool.
+* Prefix cache (``prefix_cache_blocks`` > 0): full prompt blocks stay in the
+  pool after their request finishes, keyed by their exact token prefix,
+  and later requests share them by reference (refcounts keep live blocks;
+  unreferenced ones are evicted least recently used first under pressure).
+* Per-request sampling, penalties, stop tokens, logprobs of the raw
+  distribution and a per-token callback, as the JAX engine has them.
+
+Unlike the JAX engine, the pools are written in place (it returns updated
+copies); each layer's K/V write still comes before that layer's attention.
+Sampled tokens cannot reproduce ``jax.random``'s bits; the randomness of a
+draw is keyed on (``ENGINE_KEY``, request seed, generation index) through
+an explicit ``torch.Generator``, so a request's tokens do not depend on the
+batch around it. The Llama family is served with ``mesh=None``; tensor
+parallelism and Gemma-2 are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from collections import OrderedDict
+from typing import Any, Optional, Sequence
+
+import numpy as np
+import torch
+
+from flute_tpu_torch.device import resolve_device
+from flute_tpu_torch.models import llama
+from flute_tpu_torch.models.llama import rope_tables
+from flute_tpu_torch.ops.paged_attention import paged_decode_attention
+from flute_tpu_torch.serving.continuous import (
+    SamplingParams,
+    _apply_penalties,
+    _bucket,
+    _sample_row,
+    _sample_slots,
+    fold_in,
+)
+from flute_tpu_torch.serving.paged_fwd import (
+    _head_logits,
+    check_family,
+    llama_layers,
+    make_paged_multitoken_forward,
+)
+
+
+# the engine's key of the sampling randomness (the JAX engine's PRNGKey(0))
+ENGINE_KEY = 0
+
+
+def _first_token_row(row: np.ndarray, prompt, sampling, vocab: int):
+    """Host-side prep of the first draw after prefill: the prompt's bincount
+    and the repetition penalty over prompt tokens (presence and frequency
+    act on output tokens, of which there are none yet). Returns (row for
+    sampling, raw row for the logprob, pbins or None when unpenalized)."""
+    if not sampling.has_penalties:
+        return row, row, None
+    pbins = np.zeros((vocab,), np.int32)
+    np.add.at(pbins, np.asarray(prompt, np.int64), 1)
+    r = sampling.repetition_penalty or 1.0
+    raw = row
+    row = row.copy()
+    seen = pbins > 0
+    row[seen] = np.where(row[seen] > 0, row[seen] / r, row[seen] * r)
+    return row, raw, pbins
+
+
+@dataclasses.dataclass
+class PagedEngine:
+    """Slot-based engine over a paged KV pool (greedy or per-request
+    sampled decode), on ``device`` (``cuda`` unless named; params must live
+    there). ``num_blocks`` bounds the cached tokens (num_blocks * block_size),
+    apart from ``num_slots * max_len``."""
+
+    params: Any
+    config: Any
+    num_slots: int = 8
+    block_size: int = 16
+    num_blocks: int = 64
+    max_len: int = 512  # per-sequence logical cap (table width)
+    pad_id: int = 0
+    eos_id: Optional[int] = None
+    # dense-prefill hooks (the model's forward and init_cache)
+    forward: Any = None
+    init_cache: Any = None
+    # token_callback(rid, token) after every generated token
+    token_callback: Any = None
+    # pool-level prefix caching: cached blocks kept at most (0 = off)
+    prefix_cache_blocks: int = 0
+    # tensor parallelism: not ported (must be None)
+    mesh: Any = None
+    params_specs: Any = None
+    # prompts longer than this prefill in chunks of it (None = one call on
+    # the dense route, 256 on the pool route)
+    prefill_chunk: Optional[int] = None
+    # prefill through the pool and K6 instead of a dense scratch cache
+    pool_prefill: bool = False
+    device: Any = None
+
+    def __post_init__(self):
+        if self.mesh is not None or self.params_specs is not None:
+            raise NotImplementedError(
+                "tensor-parallel paged serving (mesh, params_specs) is not ported yet "
+                "(ROADMAP.md, queue 1 item 19)"
+            )
+        cfg = self.config
+        check_family(cfg)
+        self.device = resolve_device(self.device)
+        # positions past a request's budget that decode may write: 1
+        self._tail = 1
+        self.forward = self.forward or llama.forward
+        self.init_cache = self.init_cache or llama.init_cache
+        bs = self.block_size
+        if self.max_len % bs:
+            raise ValueError(f"max_len {self.max_len} % block {bs} != 0")
+        self.max_blocks = self.max_len // bs
+        shape = (self.num_blocks, cfg.num_kv_heads, bs, cfg.head_dim)
+        dev = self.device
+        self._kp = [torch.zeros(shape, dtype=cfg.dtype, device=dev) for _ in range(cfg.num_layers)]
+        self._vp = [torch.zeros(shape, dtype=cfg.dtype, device=dev) for _ in range(cfg.num_layers)]
+        self._tables = np.zeros((self.num_slots, self.max_blocks), np.int32)
+        self._lengths = np.zeros((self.num_slots,), np.int32)
+        self._free = list(range(self.num_blocks - 1, 0, -1))  # block 0 is the trash block
+        self._slot_blocks: list[list[int]] = [[] for _ in range(self.num_slots)]
+        self._slot_req: list[Optional[int]] = [None] * self.num_slots
+        self._budget: dict[int, int] = {}
+        self._out: dict[int, list] = {}
+        self._out_lp: dict[int, list] = {}
+        self.finished_logprobs: dict[int, list] = {}
+        self._last = np.zeros((self.num_slots,), np.int64)
+        self._temp = np.zeros((self.num_slots,), np.float32)
+        self._top_k = np.zeros((self.num_slots,), np.int32)
+        self._top_p = np.ones((self.num_slots,), np.float32)
+        self._seeds = np.zeros((self.num_slots,), np.int64)
+        self._stop: list[frozenset] = [frozenset()] * self.num_slots
+        self._pres = np.zeros((self.num_slots,), np.float32)
+        self._freq = np.zeros((self.num_slots,), np.float32)
+        self._rep = np.ones((self.num_slots,), np.float32)
+        v = cfg.vocab_size
+        self._pcounts = torch.zeros((self.num_slots, v), dtype=torch.int32, device=dev)
+        self._ocounts = torch.zeros((self.num_slots, v), dtype=torch.int32, device=dev)
+        self._gen_count = np.zeros((self.num_slots,), np.int64)
+        self._queue: list = []
+        self._next_rid = 0
+        self._finished: dict[int, list] = {}
+        # prefix cache: tuple(prompt[:i*bs]) -> pool row (LRU order), and
+        # the number of live readers of each pool row
+        self._prefix_map: "OrderedDict[tuple, int]" = OrderedDict()
+        self._refs = np.zeros((self.num_blocks,), np.int64)
+        self._slot_shared: list[list[int]] = [[] for _ in range(self.num_slots)]
+        self._slot_prompt: list[Optional[list]] = [None] * self.num_slots
+        self.prefix_hits = 0  # requests that reused >= 1 cached block
+        self.prefix_block_hits = 0  # blocks shared by reference in all
+        self._pool_fwd = make_paged_multitoken_forward(cfg, bs) if self.pool_prefill else None
+
+    # -- steps ---------------------------------------------------------------
+
+    def _decode_logits(self, tables: torch.Tensor, lengths: torch.Tensor,
+                       tokens: torch.Tensor) -> torch.Tensor:
+        """One paged T = 1 forward for every slot (inactive slots compute on
+        junk at length 0 on the trash block); returns f32 logits ``[B, V]``."""
+        cfg = self.config
+        bs = self.block_size
+        b = tokens.shape[0]
+        x = self.params["embed"][tokens.long()].to(cfg.dtype)  # [B, 1, hidden]
+        lengths = lengths.long()
+        cos, sin = rope_tables(cfg, lengths[:, None])
+        ar = torch.arange(b, device=tokens.device)
+        rows = tables[ar, torch.clamp(lengths // bs, max=self.max_blocks - 1)].long()
+        offs = lengths % bs
+        att_len = lengths + 1
+
+        def attend(li, q, k, v):
+            # this token's K/V at (pool row, offset) of each slot, then attend
+            self._kp[li][rows, :, offs, :] = k[:, 0].to(self._kp[li].dtype)
+            self._vp[li][rows, :, offs, :] = v[:, 0].to(self._vp[li].dtype)
+            return paged_decode_attention(q[:, 0], self._kp[li], self._vp[li], tables,
+                                          att_len)[:, None]
+
+        x = llama_layers(self.params, cfg, x, cos, sin, attend)
+        return _head_logits(self.params, cfg, x, None)[:, -1]
+
+    def _generator(self, seed: int, count: int) -> torch.Generator:
+        """The generator of a request's ``count``-th draw."""
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(fold_in(fold_in(ENGINE_KEY, seed), count))
+        return gen
+
+    @torch.inference_mode()
+    def _decode(self, greedy: bool):
+        """A decode step for every slot: tokens [B] and the logprobs of the
+        raw distribution, on the host."""
+        dev = self.device
+        tables = torch.from_numpy(self._tables).to(dev)
+        lengths = torch.from_numpy(self._lengths).to(dev)
+        tokens = torch.from_numpy(self._last[:, None]).to(dev)
+        row = self._decode_logits(tables, lengths, tokens).float()
+        pen = _apply_penalties(row, self._pcounts, self._ocounts, torch.from_numpy(self._pres),
+                               torch.from_numpy(self._freq), torch.from_numpy(self._rep))
+        if greedy:
+            nxt = torch.argmax(pen, dim=-1)
+        else:
+            gens = [self._generator(int(s), int(c)) if t > 0 else None
+                    for s, c, t in zip(self._seeds, self._gen_count, self._temp)]
+            nxt = _sample_slots(pen, self._temp, self._top_k, self._top_p, gens)
+        ar = torch.arange(row.shape[0], device=dev)
+        lp = torch.log_softmax(row, dim=-1)[ar, nxt]
+        self._ocounts[ar, nxt] += 1
+        return nxt.cpu().numpy(), lp.cpu().numpy()
+
+    @torch.inference_mode()
+    def _sample_first(self, logits_row: torch.Tensor, sampling: SamplingParams,
+                      raw_row: Optional[torch.Tensor] = None):
+        """The first token after prefill from ``logits_row`` (penalized or
+        not) and its logprob under ``raw_row`` (the model's row; default
+        ``logits_row``). It is the request's generation 0."""
+        gen = self._generator(sampling.seed, 0) if sampling.temperature > 0 else None
+        tok = _sample_row(logits_row, sampling.temperature, sampling.top_k, sampling.top_p, gen)
+        raw = logits_row if raw_row is None else raw_row
+        lp = torch.log_softmax(raw.float(), dim=-1)[tok]
+        return int(tok), float(lp)
+
+    # -- admission / bookkeeping -------------------------------------------
+
+    def submit(
+        self,
+        prompt: Sequence[int],
+        max_new_tokens: int = 32,
+        sampling: Optional[SamplingParams] = None,
+        **sampling_kw,
+    ) -> int:
+        """Queue a request. Per-request sampling: a SamplingParams, or
+        temperature=/top_k=/top_p=/seed=/... keywords (default greedy)."""
+        if len(prompt) + max_new_tokens + self._tail > self.max_len:
+            raise ValueError(
+                f"prompt {len(prompt)} + budget {max_new_tokens} exceeds max_len {self.max_len}"
+            )
+        need = self._blocks_needed(len(prompt) + max_new_tokens + self._tail)
+        if need > self.num_blocks - 1:
+            raise ValueError(f"request needs {need} blocks; pool has {self.num_blocks - 1}")
+        if sampling is None:
+            sampling = SamplingParams(**sampling_kw)
+        elif sampling_kw:
+            raise ValueError("pass either sampling= or keyword params, not both")
+        rid = self._next_rid
+        self._next_rid += 1
+        self._queue.append((rid, list(prompt), max_new_tokens, sampling))
+        return rid
+
+    def _blocks_needed(self, total_len: int) -> int:
+        return -(-total_len // self.block_size)
+
+    def _evictable(self) -> int:
+        return sum(1 for r in self._prefix_map.values() if self._refs[r] == 0)
+
+    def _evict_one(self) -> bool:
+        """Free the least recently used unreferenced cached block."""
+        for key, row in self._prefix_map.items():
+            if self._refs[row] == 0:
+                del self._prefix_map[key]
+                self._free.append(row)
+                return True
+        return False
+
+    def _take_blocks(self, n: int) -> Optional[list[int]]:
+        """Pop ``n`` pool blocks, evicting cached blocks as needed; None when
+        the pool cannot supply them (pool pressure)."""
+        if len(self._free) + self._evictable() < n:
+            return None
+        while len(self._free) < n:
+            self._evict_one()
+        return [self._free.pop() for _ in range(n)]
+
+    def _trim_cache(self):
+        while len(self._prefix_map) > self.prefix_cache_blocks and self._evict_one():
+            pass
+
+    def _find_shared(self, prompt: list) -> list[int]:
+        """Pool rows of the longest cached run over a proper prefix of
+        ``prompt`` (at least one token must remain to prefill)."""
+        bs = self.block_size
+        shared = []
+        for i in range(1, (len(prompt) - 1) // bs + 1):
+            row = self._prefix_map.get(tuple(prompt[: i * bs]))
+            if row is None:
+                break
+            shared.append(row)
+        return shared
+
+    def _admit(self):
+        bs = self.block_size
+        for slot in range(self.num_slots):
+            if self._slot_req[slot] is not None or not self._queue:
+                continue
+            rid, prompt, budget, sampling = self._queue[0]
+            plen = len(prompt)
+            nb_total = self._blocks_needed(plen + budget + self._tail)
+            shared = self._find_shared(prompt) if self.prefix_cache_blocks else []
+            # pin shared rows before taking blocks: eviction takes unpinned ones
+            for row in shared:
+                self._refs[row] += 1
+            own = self._take_blocks(nb_total - len(shared))
+            if own is None:
+                for row in shared:
+                    self._refs[row] -= 1
+                return  # pool pressure: wait for a slot to free
+            self._queue.pop(0)
+            for i in range(len(shared)):
+                self._prefix_map.move_to_end(tuple(prompt[: (i + 1) * bs]))
+            if shared:
+                self.prefix_hits += 1
+                self.prefix_block_hits += len(shared)
+            blocks = shared + own
+            self._slot_shared[slot] = list(shared)
+            self._slot_blocks[slot] = own
+            self._slot_prompt[slot] = list(prompt)
+            self._tables[slot, :] = 0
+            self._tables[slot, : len(blocks)] = blocks
+            self._slot_req[slot] = rid
+            self._budget[rid] = budget
+            self._out[rid] = []
+            self._out_lp[rid] = []
+            self._temp[slot] = sampling.temperature
+            self._top_k[slot] = sampling.top_k
+            self._top_p[slot] = sampling.top_p
+            self._seeds[slot] = sampling.seed
+            self._stop[slot] = frozenset(sampling.stop_token_ids)
+            self._pres[slot] = sampling.presence_penalty
+            self._freq[slot] = sampling.frequency_penalty
+            self._rep[slot] = sampling.repetition_penalty
+
+            if self.pool_prefill:
+                last_row = self._prefill_pool(slot, prompt, len(shared) * bs)
+            else:
+                last_row = self._prefill_dense(prompt, shared, blocks)
+            self._start(slot, prompt, sampling, last_row)
+
+    @torch.inference_mode()
+    def _prefill_pool(self, slot: int, prompt: list, p0: int) -> torch.Tensor:
+        """Prefill ``prompt[p0:]`` through the pool in chunks (K6); returns
+        the last prompt token's f32 logits ``[V]``."""
+        bs = self.block_size
+        dev = self.device
+        chunk = self.prefill_chunk or 256
+        suffix = np.asarray(prompt[p0:], np.int64)
+        rem = len(suffix)
+        table_row = torch.from_numpy(self._tables[slot][None]).to(dev)
+        real_end = torch.tensor([len(prompt)], device=dev)
+        c0 = 0
+        while c0 < rem:
+            m = min(chunk, rem - c0)
+            tb = bs
+            while tb < m:
+                tb *= 2
+            toks = np.full((1, tb), self.pad_id, np.int64)
+            toks[0, :m] = suffix[c0:c0 + m]
+            logits, _, _ = self._pool_fwd(
+                self.params, self._kp, self._vp, table_row,
+                torch.tensor([p0 + c0], device=dev), torch.from_numpy(toks).to(dev),
+                real_end=real_end, last_idx=m - 1,
+            )
+            c0 += m
+        return logits[0, 0].float()
+
+    @torch.inference_mode()
+    def _prefill_dense(self, prompt: list, shared: list[int], blocks: list[int]) -> torch.Tensor:
+        """Prefill the non-shared suffix with the dense model into a bucketed
+        scratch cache (shared pool blocks spliced in first so the suffix
+        attends to them), then scatter the new whole blocks into the pool.
+        RoPE'd K is position-absolute, so reusing a block at the same
+        positions is exact. Returns the last prompt token's f32 logits."""
+        bs = self.block_size
+        dev = self.device
+        plen = len(prompt)
+        nsh = len(shared)
+        p0 = nsh * bs
+        rem = plen - p0
+        chunk = self.prefill_chunk
+        # the calls: (start, tokens, real tokens); right padding is causally
+        # masked and lies past the length, so paged attention never reads it
+        if chunk is None or rem <= chunk:
+            calls = [(p0, prompt[p0:], _bucket(rem, bs))]
+        else:
+            full = (rem // chunk) * chunk
+            calls = [(p0 + c0, prompt[p0 + c0:p0 + c0 + chunk], chunk)
+                     for c0 in range(0, full, chunk)]
+            if rem > full:
+                calls.append((p0 + full, prompt[p0 + full:], _bucket(rem - full, bs)))
+        # the scratch holds every written slot (at least the prompt's bucket)
+        csize = _bucket(max(plen, max(s + w for s, _, w in calls)), bs)
+        scratch = self.init_cache(self.config, 1, csize, device=dev)
+        if shared:
+            rows = torch.tensor(shared, device=dev)
+            for li in range(self.config.num_layers):
+                for name, pool in (("k", self._kp), ("v", self._vp)):
+                    blk = pool[li][rows]  # [nsh, Hkv, bs, D]
+                    flat = blk.transpose(0, 1).reshape(1, blk.shape[1], nsh * bs, blk.shape[3])
+                    scratch[name][li][:, :, :nsh * bs] = flat.to(scratch[name][li].dtype)
+        for start, toks, width in calls:
+            t = np.full((1, width), self.pad_id, np.int64)
+            t[0, :len(toks)] = toks
+            logits, scratch = self.forward(self.params, self.config,
+                                           torch.from_numpy(t).to(dev), scratch, start)
+            last_row = logits[0, len(toks) - 1].float()
+        new_rows = blocks[nsh:self._blocks_needed(plen)]
+        m = len(new_rows)
+        rows = torch.tensor(new_rows, device=dev)
+        for li in range(self.config.num_layers):
+            for src, pool in ((scratch["k"][li], self._kp[li]), (scratch["v"][li], self._vp[li])):
+                seg = src[0, :, nsh * bs:(nsh + m) * bs, :]
+                hkv, _, d = seg.shape
+                pool[rows] = seg.reshape(hkv, m, bs, d).transpose(0, 1).to(pool.dtype)
+        return last_row
+
+    @torch.inference_mode()
+    def _start(self, slot: int, prompt: list, sampling: SamplingParams, last_row: torch.Tensor):
+        """Draw the first token, reset the slot's counts, record it."""
+        if sampling.has_penalties:
+            srow, _, pbins = _first_token_row(
+                last_row.cpu().numpy(), prompt, sampling, self.config.vocab_size)
+            srow = torch.from_numpy(srow).to(self.device)
+        else:
+            pbins, srow = None, last_row
+        first, first_lp = self._sample_first(srow, sampling, last_row)
+        if pbins is None:
+            self._pcounts[slot] = 0
+        else:
+            self._pcounts[slot] = torch.from_numpy(pbins).to(self.device)
+        self._ocounts[slot] = 0
+        self._ocounts[slot, first] = 1
+        self._lengths[slot] = len(prompt)
+        self._gen_count[slot] = 1  # the next decode draw is generation 1
+        self._record(slot, first, first_lp)
+
+    def _record(self, slot: int, tok: int, lp: Optional[float] = None):
+        rid = self._slot_req[slot]
+        if (self.eos_id is not None and tok == self.eos_id) or tok in self._stop[slot]:
+            self._finish(slot)
+            return
+        self._out[rid].append(tok)
+        if lp is not None:
+            self._out_lp[rid].append(lp)
+        self._last[slot] = tok
+        if self.token_callback is not None:
+            self.token_callback(rid, tok)
+        if len(self._out[rid]) >= self._budget[rid]:
+            self._finish(slot)
+
+    def _finish(self, slot: int):
+        rid = self._slot_req[slot]
+        self._finished[rid] = self._out.pop(rid)
+        self.finished_logprobs[rid] = self._out_lp.pop(rid, [])
+        bs = self.block_size
+        for row in self._slot_shared[slot]:
+            self._refs[row] -= 1
+        # prompt-only owned blocks go to the prefix cache (unreferenced,
+        # shareable, first to be evicted); the rest are freed
+        prompt = self._slot_prompt[slot] or []
+        plen = len(prompt)
+        nshare = len(self._slot_shared[slot])
+        for gi0, row in enumerate(self._slot_blocks[slot]):
+            end = (nshare + gi0 + 1) * bs
+            key = tuple(prompt[:end]) if end <= plen else None
+            if self.prefix_cache_blocks and key is not None and key not in self._prefix_map:
+                self._prefix_map[key] = row
+            else:
+                self._free.append(row)
+        if self.prefix_cache_blocks:
+            self._trim_cache()
+        self._slot_blocks[slot] = []
+        self._slot_shared[slot] = []
+        self._slot_prompt[slot] = None
+        self._slot_req[slot] = None
+        self._stop[slot] = frozenset()
+        # park the slot on the trash block at length 0
+        self._tables[slot, :] = 0
+        self._lengths[slot] = 0
+
+    @property
+    def blocks_in_use(self) -> int:
+        """Blocks held by live requests (not the trash block, not idle
+        cached prefix blocks)."""
+        return self.num_blocks - 1 - len(self._free) - self._evictable()
+
+    def step(self) -> bool:
+        self._admit()
+        active = [s for s in range(self.num_slots) if self._slot_req[s] is not None]
+        if not active:
+            return bool(self._queue)
+        nxt, lp = self._decode(greedy=all(self._temp[s] <= 0 for s in active))
+        for s in active:
+            self._lengths[s] += 1
+            self._gen_count[s] += 1
+            self._record(s, int(nxt[s]), float(lp[s]))
+        return True
+
+    def run(self) -> dict[int, list]:
+        while self.step():
+            pass
+        out, self._finished = self._finished, {}
+        return out

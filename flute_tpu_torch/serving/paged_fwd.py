@@ -1,0 +1,125 @@
+"""Multi-token transformer forward through the paged block pool,
+counterpart of ``flute_tpu/serving/paged_fwd.py``.
+
+Used by the paged engine's pool-backed prefill (``PagedEngine`` with
+``pool_prefill=True``): a prompt chunk of T tokens is written straight into
+the slot's pool blocks and attends through the multi-query paged kernel
+(``ops.paged_attention.paged_verify_attention``, K6), with no dense scratch
+cache. Speculative verify (T = k+1) will use the same path.
+
+Per layer the chunk's K/V are written into the pools in place (the JAX
+package returns updated copies) before that layer's attention reads them.
+``real_end`` sends the writes of right-padding positions to the trash block
+(pool row 0); duplicate writes there are junk by design, never read.
+``last_idx`` keeps one row of hidden states for the LM head.
+
+Families: Llama. Gemma-2 is not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+
+from flute_tpu_torch.models.llama import (
+    apply_linear,
+    apply_rope,
+    rms_norm,
+    rope_tables,
+    split_fused_qkv,
+)
+from flute_tpu_torch.nn import QuantizedLinear
+from flute_tpu_torch.ops.paged_attention import paged_verify_attention
+
+
+def check_family(config) -> None:
+    """Raise for a config family the paged path does not serve yet."""
+    if hasattr(config, "attn_logit_softcap"):
+        raise NotImplementedError(
+            "Gemma-2 paged serving is not ported yet (ROADMAP.md, queue 1 item 12)"
+        )
+
+
+def make_paged_multitoken_forward(config, block_size: int) -> Callable:
+    """``fwd(params, kp, vp, tables, lengths, toks, real_end=None,
+    last_idx=None) -> (logits, kp, vp)``. ``toks`` is ``[B, T]``; token
+    ``(b, j)`` sits at position ``lengths[b] + j``. Returns f32 logits
+    ``[B, T, V]`` (``[B, 1, V]`` with ``last_idx``) and the pools, written in
+    place."""
+    check_family(config)
+    return _make_llama(config, block_size)
+
+
+def _scatter_rows(tables, positions, real_end, bs: int, mb: int):
+    """Pool (row, offset) of each (slot, token); padding positions
+    (``>= real_end``) go to the trash block (row 0)."""
+    b = tables.shape[0]
+    prow = torch.clamp(positions // bs, 0, mb - 1)
+    rows = tables[torch.arange(b, device=tables.device)[:, None], prow]
+    if real_end is not None:
+        rows = torch.where(positions < real_end[:, None], rows, torch.zeros_like(rows))
+    return rows.long(), (positions % bs).long()
+
+
+def _head_logits(params, cfg, x, last_idx: Optional[int]):
+    """f32 logits of ``x`` (one row of it with ``last_idx``)."""
+    if last_idx is not None:
+        x = x[:, last_idx:last_idx + 1]
+    head = params["lm_head"] if params.get("lm_head") is not None else params["embed"].T
+    if isinstance(head, QuantizedLinear):
+        return head(x)[..., :cfg.vocab_size].float()
+    return torch.matmul(x.float(), head.to(x.dtype).float())
+
+
+def llama_layers(params, cfg, x, cos, sin, attend) -> torch.Tensor:
+    """The Llama decoder stack over ``x`` ``[B, T, hidden]``;
+    ``attend(li, q, k, v)`` writes layer ``li``'s K/V and returns its
+    attention output ``[B, T, H, D]``."""
+    b, t, _ = x.shape
+    d = cfg.head_dim
+    for li, layer in enumerate(params["layers"]):
+        h = rms_norm(x, layer["attn_norm"], cfg.rms_norm_eps)
+        if "qkv" in layer:
+            q, k, v = split_fused_qkv(apply_linear(layer["qkv"], h), cfg.num_heads,
+                                      cfg.num_kv_heads, d)
+        else:
+            q = apply_linear(layer["q"], h).reshape(b, t, -1, d)
+            k = apply_linear(layer["k"], h).reshape(b, t, -1, d)
+            v = apply_linear(layer["v"], h).reshape(b, t, -1, d)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+        attn = attend(li, q, k, v)
+        x = x + apply_linear(layer["o"], attn.reshape(b, t, -1))
+        h2 = rms_norm(x, layer["mlp_norm"], cfg.rms_norm_eps)
+        if "gate_up" in layer:
+            gu = apply_linear(layer["gate_up"], h2)
+            inter = gu.shape[-1] // 2
+            gate, up = gu[..., :inter], gu[..., inter:]
+        else:
+            gate = apply_linear(layer["gate"], h2)
+            up = apply_linear(layer["up"], h2)
+        x = x + apply_linear(layer["down"], torch.nn.functional.silu(gate) * up)
+    return rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+
+
+def _make_llama(cfg, bs: int):
+    def fwd(params, kp, vp, tables, lengths, toks, real_end=None, last_idx=None):
+        b, t = toks.shape
+        mb = tables.shape[1]
+        x = params["embed"][toks.long()].to(cfg.dtype)
+        positions = lengths.long()[:, None] + torch.arange(t, device=toks.device)[None, :]
+        cos, sin = rope_tables(cfg, positions)
+        rows, offs = _scatter_rows(tables, positions, real_end, bs, mb)
+
+        def attend(li, q, k, v):
+            # T entries per slot: (row, offset) pairs are distinct within a
+            # slot; across slots they meet only on the trash block
+            kp[li][rows, :, offs, :] = k.to(kp[li].dtype)
+            vp[li][rows, :, offs, :] = v.to(vp[li].dtype)
+            return paged_verify_attention(q, kp[li], vp[li], tables, lengths)
+
+        x = llama_layers(params, cfg, x, cos, sin, attend)
+        return _head_logits(params, cfg, x, last_idx), kp, vp
+
+    return fwd

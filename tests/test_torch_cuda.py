@@ -1,6 +1,7 @@
 """Card-only checks of the port: each LUT-GEMM kernel (K1 w4sym, K2 plane at
-2/3/4 bits, K3 w3wide) against its plain version on the same CUDA tensors,
-and the model and engine through the kernels.
+2/3/4 bits, K3 w3wide, K4 joint pair lookup) and each paged-attention kernel
+(K5 decode, K6 verify) against its plain version on the same CUDA tensors,
+and the model, Engine and PagedEngine through the kernels.
 
 Every test is marked ``cuda`` and skips without a GPU (the kernel has no CPU
 mode). The file imports no JAX, so it also runs on a machine that has none:
@@ -20,8 +21,10 @@ from flute_tpu_torch import packing
 from flute_tpu_torch.interop import move_params
 from flute_tpu_torch.models import llama
 from flute_tpu_torch.ops import lut_gemm
+from flute_tpu_torch.ops import paged_attention as pa
 from flute_tpu_torch.ops.kernel_config import KernelConfig
-from flute_tpu_torch.serving import Engine
+from flute_tpu_torch.quantize import higgs
+from flute_tpu_torch.serving import Engine, PagedEngine
 
 pytestmark = pytest.mark.cuda
 
@@ -146,14 +149,202 @@ def test_identity_bit_exact(dev, dtype, mixed_signs):
 
 
 def test_only_pair_values_raises_on_cuda(dev):
+    """pair_values runs K4 in bf16/f16 on the plane layout; f32 and a wide
+    3-bit plane with pair_values raise, as does w4sym."""
     _, x, planes, s, t = layout_case(dev, "plane", 4, 2, torch.bfloat16, seed=13, chunk=256)
+    pv = torch.ones(16, 16, 2, device=dev)
     before = dict(lut_gemm.LAUNCHES)
-    with pytest.raises(NotImplementedError, match="K4"):
-        lut_gemm.lut_qgemm(x, planes, s, t, num_bits=4,
-                           pair_values=torch.ones(16, 16, 2, device=dev))
+    with pytest.raises(NotImplementedError, match="16-bit"):
+        lut_gemm.lut_qgemm(x.float(), planes, s.float(), t, num_bits=4, pair_values=pv)
+    _, x3, wide, s3, t3 = layout_case(dev, "w3wide", 3, 2, torch.bfloat16, seed=13, chunk=256)
+    with pytest.raises(ValueError, match="wide"):
+        lut_gemm.lut_qgemm(x3, wide, s3, t3, num_bits=3, pair_values=torch.ones(8, 8, 2, device=dev))
+    with pytest.raises(ValueError, match="w4sym"):
+        lut_gemm.lut_qgemm(x, planes, s, t, num_bits=4, layout="w4sym", pair_values=pv)
     assert lut_gemm.LAUNCHES == before
-    lut_gemm.lut_qgemm(x, planes, s, t, num_bits=4)
-    assert lut_gemm.LAUNCHES["plane"] == before["plane"] + 1
+    lut_gemm.lut_qgemm(x, planes, s, t, num_bits=4, pair_values=pv)
+    assert lut_gemm.LAUNCHES == {**before, "pair": before["pair"] + 1}
+
+
+def pair_case(dev, bits, m, dtype, seed, chunk):
+    """codes, x, planes, scales and a random pair table on ``dev``."""
+    codes, x, planes, s, _ = layout_case(dev, "plane", bits, m, dtype, seed, chunk)
+    rng = np.random.default_rng(seed + 100)
+    pv = torch.from_numpy(rng.standard_normal((2**bits, 2**bits, 2)).astype(np.float32)).to(dev)
+    return codes, x, planes, s, pv
+
+
+@pytest.mark.parametrize("chunk", [128, 256])
+@pytest.mark.parametrize("bits", [2, 3, 4])
+@pytest.mark.parametrize("m", [1, 3, 8, 9, 40])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_pair_kernel_vs_plain(dev, dtype, m, bits, chunk):
+    _, x, planes, s, pv = pair_case(dev, bits, m, dtype, seed=m + bits, chunk=chunk)
+    cfg = KernelConfig(chunk=chunk)
+    zeros = torch.zeros(2**bits, device=dev)
+    y = lut_gemm.lut_qgemm(x, planes, s, zeros, num_bits=bits, config=cfg, pair_values=pv)
+    y_plain = lut_gemm.lut_qgemm_plain(x, planes, s, zeros, num_bits=bits, chunk=chunk,
+                                       layout="plane", pair_values=pv)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and tuple(y.shape) == (m, N)
+    assert rel_err(y, y_plain) < TOL[dtype]
+
+
+@pytest.mark.parametrize("chunk", [128, 256])
+@pytest.mark.parametrize("bits", [2, 3, 4])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_pair_identity_bit_exact(dev, dtype, bits, chunk):
+    codes, _, planes, s, pv = pair_case(dev, bits, 1, dtype, seed=31, chunk=chunk)
+    eye = torch.eye(K, dtype=dtype, device=dev)
+    got = lut_gemm.qgemm(eye, planes, s, torch.zeros(2**bits, device=dev), bits, G,
+                         config=KernelConfig(chunk=chunk), pair_values=pv)
+    want = lut_gemm.dequantize_codes_pair(codes, s, pv, dtype)
+    assert torch.equal(got.float(), want.float())
+
+
+def test_pair_wrapper_checks(dev):
+    _, x, planes, s, pv = pair_case(dev, 3, 2, torch.bfloat16, seed=32, chunk=256)
+    kw = dict(num_bits=3, group_size=G, chunk=256)
+    with pytest.raises(ValueError, match="pair_values"):
+        lut_gemm.lut_qgemm_pair_cuda(x, planes, s, pv[:4], **kw)
+    with pytest.raises(ValueError, match="pair_values"):
+        lut_gemm.lut_qgemm_pair_cuda(x, planes, s, pv.half(), **kw)
+    with pytest.raises(ValueError, match="plane"):
+        lut_gemm.lut_qgemm_pair_cuda(x, planes[:1], s, pv, **kw)
+    with pytest.raises(NotImplementedError, match="16-bit"):
+        lut_gemm.lut_qgemm_pair_cuda(x.float(), planes, s.float(), pv, **kw)
+    with pytest.raises(ValueError, match="on cpu"):
+        lut_gemm.lut_qgemm_pair_cuda(x, planes, s, pv.cpu(), **kw)
+
+
+def test_higgs_layer_through_the_kernel(dev):
+    rng = np.random.default_rng(33)
+    codes = rng.integers(0, 256, (K // 2, N))
+    grid = rng.standard_normal((256, 2)).astype(np.float32)
+    scales = torch.from_numpy(rng.uniform(0.5, 1.5, (K // G, N)).astype(np.float32))
+    layer = higgs.from_higgs(codes, grid, scales.bfloat16().to(dev), num_bits=4, group_size=G,
+                             hadamard_size=128, device=dev)
+    x = torch.from_numpy(rng.standard_normal((5, K)).astype(np.float32)).to(dev, torch.bfloat16)
+    before = lut_gemm.LAUNCHES["pair"]
+    y = layer(x)
+    assert lut_gemm.LAUNCHES["pair"] == before + 1
+    cpu = move_params(layer, torch.device("cpu"))
+    assert rel_err(y.cpu(), cpu(x.cpu())) < TOL[torch.bfloat16]
+
+
+PAGED_OPTIONS = [(None, None), (50.0, None), (None, 10), (30.0, 24), (50.0, 3)]
+
+
+def paged_case(dev, dtype, b, h, hkv, d, bs, mb, nb, seed, t=None):
+    rng = np.random.default_rng(seed)
+    shape = (b, h, d) if t is None else (b, t, h, d)
+    q = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, dtype)
+    kp, vp = (torch.from_numpy(rng.standard_normal((nb, hkv, bs, d)).astype(np.float32))
+              .to(dev, dtype) for _ in range(2))
+    tables = torch.from_numpy(rng.permutation(nb)[: b * mb].reshape(b, mb).astype(np.int32))
+    return q, kp, vp, tables.to(dev)
+
+
+def max_rel(got, want):
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+
+@pytest.mark.parametrize("softcap,window", PAGED_OPTIONS)
+@pytest.mark.parametrize("hkv,h,d,bs", [(2, 8, 128, 16), (4, 4, 128, 16), (8, 32, 128, 16),
+                                         (2, 4, 256, 16), (2, 8, 64, 32), (2, 8, 128, 8)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_paged_decode_kernel_vs_plain(dev, dtype, hkv, h, d, bs, softcap, window):
+    q, kp, vp, tables = paged_case(dev, dtype, 4, h, hkv, d, bs, 96 // bs, 32 * 16 // bs,
+                                   seed=h + d)
+    lengths = torch.tensor([37, 16, 96, 0], dtype=torch.int32, device=dev)
+    kw = dict(softcap=softcap, window=window)
+    before = pa.LAUNCHES["paged_decode"]
+    got = pa.paged_decode_attention(q, kp, vp, tables, lengths, **kw)
+    assert pa.LAUNCHES["paged_decode"] == before + 1
+    want = pa.paged_gqa_reference(q, kp, vp, tables, lengths, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.isfinite(got.float()).all()
+    assert not got[3].float().any()  # a parked slot of length 0 gives zeros
+    assert max_rel(got[:3], want[:3]) < TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("softcap,window", PAGED_OPTIONS)
+@pytest.mark.parametrize("t", [1, 3, 16, 70])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_paged_verify_kernel_vs_plain(dev, dtype, t, softcap, window):
+    q, kp, vp, tables = paged_case(dev, dtype, 3, 8, 2, 128, 16, 12, 40, seed=t, t=t)
+    lengths = torch.tensor([15, 37, 0], dtype=torch.int32, device=dev)
+    kw = dict(softcap=softcap, window=window)
+    before = pa.LAUNCHES["paged_verify"]
+    got = pa.paged_verify_attention(q, kp, vp, tables, lengths, **kw)
+    assert pa.LAUNCHES["paged_verify"] == before + 1
+    want = pa.paged_verify_reference(q, kp, vp, tables, lengths, **kw)
+    torch.cuda.synchronize()
+    assert tuple(got.shape) == tuple(q.shape) and torch.isfinite(got.float()).all()
+    assert max_rel(got, want) < TOL[torch.bfloat16]
+
+
+def test_paged_wrappers_on_the_card(dev):
+    q, kp, vp, tables = paged_case(dev, torch.bfloat16, 2, 8, 2, 128, 16, 3, 8, seed=5)
+    lengths = torch.tensor([20, 9], dtype=torch.int32, device=dev)
+    want = pa.paged_decode_attention(q, kp, vp, tables, lengths)
+    junk = tables.clone()
+    junk[0, 2], junk[1, 1:] = 99, -4
+    assert torch.equal(pa.paged_decode_attention(q, kp, vp, junk, lengths), want)
+    with pytest.raises(ValueError, match="share"):
+        pa.paged_decode_attention(q.half(), kp, vp, tables, lengths)
+    with pytest.raises(ValueError, match="on cpu"):
+        pa.paged_decode_attention(q, kp, vp, tables.cpu(), lengths)
+    for d, bs in ((512, 16), (96, 16), (128, 64), (64, 2), (64, 8), (256, 4)):
+        z = torch.zeros(8, 2, bs, d, device=dev, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="head_dim"):
+            pa.paged_decode_attention(torch.zeros(2, 8, d, device=dev, dtype=torch.bfloat16),
+                                      z, z, tables, lengths)
+
+
+@pytest.mark.parametrize("pool_prefill", [False, True])
+@pytest.mark.parametrize("case", ["w4sym", "higgs"])
+def test_paged_engine_through_the_kernels(dev, case, pool_prefill):
+    config = llama.LlamaConfig.tiny()
+    params = llama.init_params(config, seed=0, device=dev)
+    qparams = llama.quantize_model(params, group_size=G, fuse=True, device=dev)
+    if case == "higgs":
+        rng = np.random.default_rng(9)
+        for layer in qparams["layers"]:
+            for name in ("qkv", "o", "gate_up", "down"):
+                k, n = layer[name].in_features, layer[name].out_features
+                scales = torch.from_numpy(rng.uniform(0.015, 0.025, (k // G, n)).astype(np.float32))
+                layer[name] = higgs.from_higgs(
+                    rng.integers(0, 256, (k // 2, n)), rng.standard_normal((256, 2)),
+                    scales.bfloat16().to(dev), num_bits=4, group_size=G, hadamard_size=128,
+                    device=dev)
+    gemm = "pair" if case == "higgs" else "w4sym"
+    prompts = [[5, 9, 2, 14, 3, 8, 1, 6, 20, 21, 22], [11, 5, 3], [5, 9, 2, 14, 3, 8, 1, 6, 30]]
+    kw = dict(num_slots=3, block_size=8, num_blocks=6, max_len=32, prefix_cache_blocks=2,
+              pool_prefill=pool_prefill)
+    eng = PagedEngine(params=qparams, config=config, device=dev, **kw)
+    for d in (lut_gemm.LAUNCHES, pa.LAUNCHES):
+        for k in d:
+            d[k] = 0
+    rids = [eng.submit(p, max_new_tokens=5) for p in prompts]
+    decode_steps = 0
+    while eng.step():
+        decode_steps += 1
+    out = eng.run()
+    prefills = 3  # one forward (or pool chunk) per admission
+    assert eng.prefix_hits == 1 and eng.blocks_in_use == 0
+    assert [len(out[r]) for r in rids] == [5, 5, 5]
+    want = {k: 0 for k in lut_gemm.LAUNCHES}
+    want[gemm] = (decode_steps + prefills) * config.num_layers * 4
+    assert lut_gemm.LAUNCHES == want
+    assert pa.LAUNCHES == {"paged_decode": decode_steps * config.num_layers,
+                           "paged_verify": (prefills if pool_prefill else 0) * config.num_layers}
+    # the same requests on the CPU plain path give the same tokens
+    cpu = PagedEngine(params=move_params(qparams, torch.device("cpu")), config=config,
+                      device="cpu", **kw)
+    crids = [cpu.submit(p, max_new_tokens=5) for p in prompts]
+    cout = cpu.run()
+    assert sum(out[r] == cout[c] for r, c in zip(rids, crids)) >= 2
 
 
 def test_wrapper_checks(dev):

@@ -7,7 +7,7 @@ wide and classic); the leaves must be equal bit for bit and the layer's
 output within the bf16 threshold of the JAX layer's. ``from_codes`` is held
 against ``flute_tpu.nn.from_codes`` the same way, with and without a joint
 pair table, and ``interop.params_from_numpy`` must carry every field of a
-JAX layer or refuse it.
+JAX layer, the Hadamard rotation included.
 """
 
 import jax.numpy as jnp
@@ -176,14 +176,23 @@ def test_interop_keeps_pair_values():
 
 
 def test_interop_refuses_a_hadamard_layer():
+    """A layer with ``hadamard_size`` is no longer refused: interop and the
+    module keep the rotation, and the output is the JAX layer's."""
     _, codes, scales = codes_scales(4, seed=9)
     jl = jnn.from_codes(jnp.asarray(codes), jnp.asarray(scales, jnp.bfloat16),
                         jnp.asarray(np.sort(np.random.default_rng(1).standard_normal(16)),
                                     jnp.float32), 4, G)
     d = to_numpy_tree(jl)
     d["hadamard_size"] = 128
-    with pytest.raises(NotImplementedError, match="Hadamard"):
-        interop.params_from_numpy({"layers": [{"o": d}]}, device="cpu")
-    with pytest.raises(NotImplementedError, match="Hadamard"):
-        nn.QuantizedLinear([torch.zeros((64, OUT), dtype=torch.int32)], torch.ones((8, OUT)),
-                           torch.zeros(16), hadamard_size=64)
+    tl = interop.params_from_numpy({"layers": [{"o": d}]}, device="cpu")["layers"][0]["o"]
+    assert tl.hadamard_size == 128 and "hadamard=128" in repr(tl)
+    x = np.random.default_rng(10).standard_normal((3, IN)).astype(np.float32)
+    import dataclasses
+
+    want = np.asarray(dataclasses.replace(jl, hadamard_size=128)(jnp.asarray(x, jnp.bfloat16)),
+                      np.float32)
+    got = tl(torch.from_numpy(x).bfloat16()).float().numpy()
+    assert np.linalg.norm(got - want) / np.linalg.norm(want) < 1.1e-2
+    plain = nn.QuantizedLinear(tl.planes, tl.scales, tl.table, config_key=tl.config_key)
+    assert not torch.equal(plain(torch.from_numpy(x).bfloat16()).float(), torch.from_numpy(got))
+    assert tl.with_config(tl.config).hadamard_size == 128
