@@ -4,11 +4,12 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
-  1. print the card's name and power limit; build the five kernel sources
+  1. print the card's name and power limit; build the six kernel sources
      from flute_tpu_torch/csrc into build/flute_tpu_torch/, one nvcc process
      each, all at once: K1 (w4sym), K2 (plane, 2/3/4 bits), K3 (w3wide), K4
-     (joint pair lookup, lut_gemm_pair.cu) and K5/K6 (paged decode and
-     verify attention, paged_attention.cu); print ptxas registers and spill;
+     (joint pair lookup, lut_gemm_pair.cu), K5/K6 (paged decode and verify
+     attention, paged_attention.cu) and L1-L6 (the Hopper lab,
+     kernel_lab.cu); print ptxas registers and spill;
   2. hold each kernel against its plain PyTorch version on the card:
      the LUT-GEMMs at the Llama-3.1-8B decoder-layer shapes, M in
      {1, 8, 128, 512}, bf16 and f16 (relative Frobenius error under 1.1e-2 /
@@ -16,7 +17,8 @@ Phases (any failure exits non-zero):
      and 2 bits with a general joint table; identity input bit-exact against
      the oracle (K1 and K2 in bf16/f16/f32 at chunk 128 and 256, K3 at 256
      and 512, K4 in bf16/f16 at 128 and 256) and unpack_via_kernel
-     round-tripping the codes; qgemm_hadamard (rotation 512) against its
+     round-tripping the codes; lut_mode="pair_lut" without pair_values
+     launching K4 once and K2 not at all; qgemm_hadamard (rotation 512) against its
      plain version; K5 at B=8, 32/8 heads, D=128, blocks of 16, ragged
      lengths 0..4096, and K6 at T in {5, 64, 256} over 0 and 1024 cached
      positions, each with softcap, window and both, bf16 and f16 (max error
@@ -32,6 +34,18 @@ Phases (any failure exits non-zero):
      (max error relative to the largest logit < 1.1e-2); the W3 and the
      HIGGS models saved with save_quantized and loaded back give the same
      logits bit for bit;
+  2b. the Hopper lab (L1-L6 of csrc/kernel_lab.cu): its entry point,
+     flute_tpu_torch.lab.kernel_lab.main, runs every variant at the JAX lab's
+     reference shape (M16 N28672 K8192, bk 1024, g64, bf16) with the launch
+     counts set to 0 just before and read just after (every lab kernel must
+     have launched, and gather8/pairlut exactly K2/K4); then each of its 12
+     cases is held against its plain version on the card at that shape and
+     at bk 256 on a narrow N (relative Frobenius error under 1.1e-2; floor on
+     planes masked to finite bf16 halves; unpack_only, whose operand is
+     subnormal, to 1.1e-2 of the largest output) and with an identity x bit
+     for bit; the plain versions and a yardstick (one bf16 torch.matmul of x
+     on the pre-dequantized [8192, 28672] weight) are timed beside the
+     kernels, L2-cold, in CUDA graphs;
   4. serve 8 ragged prompts for 16 new tokens through Engine.generate on
      the full 32-layer Llama-3.1-8B-width model (random weights from a seed,
      quantized on the card) at w4sym, W3 and general W4, each run through
@@ -95,6 +109,19 @@ KERNELS = {
            "flute_tpu/ops/paged_attention.py:262 (paged_verify_attention -> _verify_kernel "
            ":171, pallas_call :311)"),
 }
+LAB_REPLACES = "scripts/kernel_lab.py:{} (pallas_call of {})"
+# the Hopper lab: kernel id -> (lab function, the variant its line reports,
+# what it replaces); L4-L6 take flags, their other variants are in the JSON
+LAB = {
+    "L1": ("floor", "floor", LAB_REPLACES.format(79, "run_floor :75")),
+    "L2": ("unpack_only", "unpack", LAB_REPLACES.format(124, "run_unpack :120")),
+    "L3": ("gather16", "gather16", LAB_REPLACES.format(212, "run_gather16 :202")),
+    "L4": ("g8_ablate", "g8_full", LAB_REPLACES.format(413, "run_g8_ablate :406")),
+    "L5": ("g8_rs", "g8_groupacc", LAB_REPLACES.format(501, "run_g8_rs :494")),
+    "L6": ("g8_hoist", "g8_hoist_ga", LAB_REPLACES.format(590, "run_g8_hoist :583")),
+}
+for _kid, (_fn, _, _replaces) in LAB.items():
+    KERNELS[_kid] = (f"lab.{_fn}", "kernel_lab.cu", _fn, _replaces)
 LUT_KERNELS = ("K1", "K2", "K3", "K4")
 # phase-2 cases: (kernel id, bits, M values that are timed, dtypes timed;
 # every M and both dtypes are checked). K2 and K4 read the plane layout;
@@ -231,8 +258,32 @@ def phase_kernel(dev, results):
                 del args, deq_c, deq, planes
     results["kernel_cases"] = cases
     check_identity(dev, rng, gen, results)
+    check_pair_lut_routing(dev, rng, gen, results)
     check_qgemm_hadamard(dev, rng, gen, results)
     return cases
+
+
+def check_pair_lut_routing(dev, rng, gen, results):
+    """lut_mode="pair_lut" with a scalar table and no pair_values: one K4
+    launch, no K2 launch, and the scalar lookup's product."""
+    from flute_tpu_torch.ops import lut_gemm
+    from flute_tpu_torch.ops.kernel_config import KernelConfig
+
+    _, n, k = LAYER_SHAPES[0]
+    _, planes, scales, table = make_weight(rng, gen, "plane", 4, n, k, torch.bfloat16, dev)
+    x = torch.randn((8, k), generator=gen, device=dev).bfloat16()
+    before = dict(lut_gemm.LAUNCHES)
+    got = lut_gemm.lut_qgemm(x, planes, scales, table, num_bits=4,
+                             config=KernelConfig(lut_mode="pair_lut"))
+    added = {kk: v - before[kk] for kk, v in lut_gemm.LAUNCHES.items() if v != before[kk]}
+    want = lut_gemm.lut_qgemm_plain(x, planes, scales, table, num_bits=4, chunk=256,
+                                    layout="plane")
+    err = rel_err(got, want)
+    if added != {"pair": 1} or not err < THRESHOLDS[torch.bfloat16]:
+        raise AssertionError(f"pair_lut without pair_values: launches {added}, rel err {err}")
+    log(f"  lut_mode='pair_lut' without pair_values: launches {added} (K4), "
+        f"rel err {err:.2e} against the scalar plain version")
+    results["pair_lut_routing"] = dict(launches=added, rel_err=err)
 
 
 def make_pair_table(rng, bits, dev) -> torch.Tensor:
@@ -447,6 +498,161 @@ def phase_attention(dev, results):
     results["attention_cases"] = cases
     results["attention_timed"] = timed
     return cases, timed
+
+
+# the JAX lab's reference shape (scripts/kernel_lab.py:233-243)
+LAB_SHAPE = dict(m=16, n=28672, k=8192, bk=1024, g=64)
+LAB_NARROW_N = 2048  # the bk 256 checks
+
+
+def lab_check(fn, flags, x, planes, scales, table, bn, bk, name, label):
+    """One lab case against its plain version on the card: relative
+    Frobenius error (unpack_only: largest error over the largest output)."""
+    from flute_tpu_torch.lab import ops as lab
+
+    g = LAB_SHAPE["g"]
+    m = x.shape[0]
+    got = lab.run(fn, x, planes, scales, table, m, bn, bk, g, **flags)
+    want = lab.plain(fn, x, planes, scales, table, m, bn, bk, g, **flags)
+    torch.cuda.synchronize()
+    if not torch.isfinite(got.float()).all():
+        raise AssertionError(f"lab {name} {label}: non-finite output")
+    max_abs = float((got.float() - want.float()).abs().max())
+    if fn == "unpack_only":
+        err = max_abs / float(want.float().abs().max())
+    else:
+        err = rel_err(got, want)
+    if not err < THRESHOLDS[torch.bfloat16]:
+        raise AssertionError(f"lab {name} {label}: error {err}")
+    return dict(variant=name, function=fn, case=label, rel_err=err, max_abs_err=max_abs)
+
+
+def phase_lab(dev, results):
+    """The Hopper lab: its entry point over every variant (counted), then
+    each case against its plain version, an identity x bit for bit, and the
+    plain versions and a bf16 matmul timed beside the kernels."""
+    from flute_tpu_torch.lab import kernel_lab
+    from flute_tpu_torch.lab import ops as lab
+    from flute_tpu_torch.ops import lut_gemm
+    from flute_tpu_torch.utils.benchmark import bench_op, cold_copies
+
+    sh = LAB_SHAPE
+    m, n, k, bk, g = sh["m"], sh["n"], sh["k"], sh["bk"], sh["g"]
+    for d in (lab.LAUNCHES, lut_gemm.LAUNCHES):
+        for kk in d:
+            d[kk] = 0
+    t0 = time.perf_counter()
+    rows = kernel_lab.main(["--m", str(m), "--n", str(n), "--k", str(k), "--bk", str(bk),
+                            "--iters", "24", "--variants", ",".join(kernel_lab.ORDER)])
+    launches = dict(lab.LAUNCHES)
+    gemm = dict(lut_gemm.LAUNCHES)
+    main_s = time.perf_counter() - t0
+    if min(launches.values()) < 1 or set(kk for kk, v in gemm.items() if v) != {"plane", "pair"}:
+        raise AssertionError(f"the lab's run launched {launches} and {gemm}")
+    log(f"  the lab's entry point ran {len(rows)} variants in {main_s:.1f} s; launches {launches}, "
+        f"package kernels {gemm}")
+    by_name = {r["name"]: r for r in rows}
+
+    codes, planes, scales, table, x = kernel_lab.make_inputs(m, n, k, 4, g, device=dev)
+    finite = [lab.finite_halves(planes[0])]
+    checks = []
+    for name, (fn, flags) in kernel_lab.VARIANTS.items():
+        p = finite if fn == "floor" else planes
+        checks.append(lab_check(fn, flags, x, p, scales, table, n, bk, name,
+                                f"M{m} N{n} K{k} bk {bk}"))
+        narrow = [q[:, :LAB_NARROW_N].contiguous() for q in p]
+        checks.append(lab_check(fn, flags, x, narrow, scales[:, :LAB_NARROW_N].contiguous(),
+                                table, LAB_NARROW_N, 256, name,
+                                f"M{m} N{LAB_NARROW_N} K{k} bk 256"))
+        # identity x: every output one product, bit for bit
+        eye = torch.eye(512, dtype=torch.bfloat16, device=dev)
+        small = [q[:64, :256].contiguous() for q in p]
+        s_small = scales[:512 // g, :256].contiguous()
+        got = lab.run(fn, eye, small, s_small, table, 16, 256, 256, g, **flags)
+        want = lab.plain(fn, eye, small, s_small, table, 16, 256, 256, g, **flags)
+        if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
+            raise AssertionError(f"lab {name}: identity x not bit-exact")
+        if fn == "unpack_only" and not torch.equal(
+                got.view(torch.int16), lab.unpack_weight(small[0]).view(torch.int16)):
+            raise AssertionError("lab unpack: identity x does not give its operand")
+    log(f"  L1-L6: 12 cases agree with their plain versions at M{m} N{n} K{k} bk {bk} and at "
+        f"N{LAB_NARROW_N} bk 256 (largest error {max(c['rel_err'] for c in checks):.2e}), "
+        "identity x bit-exact (unpack_only: its subnormal operand)")
+
+    # plain versions and the yardstick, timed beside the kernels
+    args = [([q.clone() for q in planes], scales.clone()) for _ in range(2)]
+    w_ref = lut_gemm.dequantize_codes(torch.from_numpy(codes).to(dev), scales, table,
+                                      torch.bfloat16)
+    del codes
+    dense = [(w_ref.clone(),) for _ in range(cold_copies(w_ref.numel() * 2))]
+    t_lib = bench_op(lambda w: torch.matmul(x, w), dense)
+    del dense, w_ref
+    cases = []
+    xy_bytes = x.numel() * 2 + m * n * 2
+    t_ops = 2 * m * n * k / BF16_OPS_PER_S
+    for name, (fn, flags) in kernel_lab.VARIANTS.items():
+        def plain(q, s, fn=fn, flags=flags):
+            return lab.plain(fn, x, q, s, table, m, n, bk, g, **flags)
+
+        t_p = bench_op(plain, args, min_launches=2)
+        # what the function reads: floor and unpack_only read no scales or table
+        nbytes = sum(q.numel() * 4 for q in planes) + xy_bytes
+        if fn not in ("floor", "unpack_only"):
+            nbytes += scales.numel() * 2 + table.numel() * 4
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        row = by_name[name]
+        case = dict(variant=name, function=fn, us=row["us"], gbps=row["gbps"],
+                    lab_share_of_hbm=row["share_of_hbm"], plain_us=t_p * 1e6,
+                    library_us=t_lib * 1e6, bytes=nbytes, bound_us=max(t_bytes, t_ops) * 1e6,
+                    bound_by="bytes" if t_bytes >= t_ops else "operations")
+        case["share_of_bound"] = case["bound_us"] / case["us"]
+        cases.append(case)
+        log(f"    {name:12s} kernel {case['us']:8.1f} us {case['gbps']:7.1f} GB/s  bound "
+            f"{case['bound_us']:6.1f} us ({case['bound_by']}, {100 * case['share_of_bound']:5.1f}%)"
+            f"  plain {case['plain_us']:8.1f} us  matmul {case['library_us']:6.1f} us")
+    # floor as the lab times it reads real planes (65% of its outputs are
+    # not finite); the same kernel on planes masked to finite halves
+    fin = [([lab.finite_halves(q[0])], s) for q, s in args]
+    t_fin = bench_op(lambda q, s: lab.floor(x, q, s, m, n, bk, g), fin, min_launches=24)
+    next(c for c in cases if c["variant"] == "floor")["finite_planes_us"] = t_fin * 1e6
+    log(f"    floor on finite planes: kernel {t_fin * 1e6:8.1f} us")
+    del fin
+    for name in kernel_lab.PACKAGE_VARIANTS:
+        row = by_name[name]
+        log(f"    {name:12s} kernel {row['us']:8.1f} us {row['gbps']:7.1f} GB/s "
+            f"({100 * row['share_of_hbm']:5.1f}% of 3.35 TB/s, the lab's byte count)"
+            + (f", rel {row['rel']:.2e}" if "rel" in row else ""))
+    del args, planes, finite, x
+    torch.cuda.empty_cache()
+    results["lab"] = dict(shape=sh, main_s=main_s, rows=rows, launches=launches,
+                          package_launches=gemm, checks=checks, cases=cases)
+    return cases, checks, launches
+
+
+def lab_line(kid, cases, checks, launches):
+    """The {"kernels": [...]} entry of lab kernel ``kid``: its reporting
+    variant's numbers, the others' times beside them. ``launches`` counts the
+    lab's run; no served path runs a lab kernel."""
+    wrapper, source, fn, replaces = KERNELS[kid]
+    row = [c for c in cases if c["variant"] == LAB[kid][1]][0]
+    return dict(
+        name=wrapper,
+        route="cuda",
+        source=f"flute_tpu_torch/csrc/{source}",
+        replaces=replaces,
+        launches=launches[fn],
+        max_abs_err=max(c["max_abs_err"] for c in checks if c["function"] == fn),
+        ms=row["us"] / 1e3,
+        plain_ms=row["plain_us"] / 1e3,
+        bound_ms=row["bound_us"] / 1e3,
+        bound_by=row["bound_by"],
+        library_ms=row["library_us"] / 1e3,
+        checked=True,
+        served_launches=0,
+        variants={c["variant"]: c["us"] / 1e3 for c in cases if c["function"] == fn},
+        **({"finite_planes_ms": row["finite_planes_us"] / 1e3} if "finite_planes_us" in row
+           else {}),
+    )
 
 
 def model_logits(params, config, dev, tokens, offsets, nxt):
@@ -1006,6 +1212,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, HERE)
+    from flute_tpu_torch.lab import ops as lab_ops
     from flute_tpu_torch.ops import _build, lut_gemm
     from flute_tpu_torch.ops import paged_attention as pa
 
@@ -1028,6 +1235,7 @@ def main() -> int:
     lut_gemm.build_kernels()
     for kernel in pa.LAUNCHES:
         pa._kernel_fn(kernel)
+    lab_ops.build_kernels()
     build_s = time.perf_counter() - t0
     log(f"  built the {len(sources)} kernel libraries in {build_s:.1f} s (in parallel)")
     for source in sources:
@@ -1043,6 +1251,8 @@ def main() -> int:
     log("== 2. kernels against plain on the card")
     cases = phase_kernel(dev, results)
     attn_checks, attn_timed = phase_attention(dev, results)
+    log("== 2b. the Hopper lab (L1-L6)")
+    lab_cases, lab_checks, lab_launches = phase_lab(dev, results)
     log("== 3. model logits against the CPU plain path; checkpoint round trip")
     phase_logits(dev, results)
     log("== 4. serving Llama-3.1-8B widths, 32 layers")
@@ -1069,6 +1279,7 @@ def main() -> int:
     kernels = [kernel_line(kid, cases, launches[kid]) for kid in LUT_KERNELS]
     kernels += [attention_line(kid, attn_checks, attn_timed, launches[kid])
                 for kid in ("K5", "K6")]
+    kernels += [lab_line(kid, lab_cases, lab_checks, lab_launches) for kid in LAB]
     results["kernels"] = kernels
     results["total_s"] = time.perf_counter() - t_start
     log(f"  chip_smoke took {results['total_s']:.0f} s")

@@ -1,0 +1,243 @@
+// The Hopper kernel lab (sm_90a): L1-L6, the six design experiments of
+// scripts/kernel_lab.py, as one kernel body templated on the dequantization
+// step, with one C entry per TPU function:
+//
+//   flute_lab_floor        <- run_floor        (pallas_call scripts/kernel_lab.py:79)
+//   flute_lab_unpack_only  <- run_unpack       (:124)
+//   flute_lab_gather16     <- run_gather16     (:212)
+//   flute_lab_g8_ablate    <- run_g8_ablate    (:413; flags chain, scale)
+//   flute_lab_g8_rs        <- run_g8_rs        (:501; scale mode)
+//   flute_lab_g8_hoist     <- run_g8_hoist     (:590; scale mode)
+//
+//   y[M, N] = x[M, K] @ W[K, N]   (bf16 x, scales and y; f32 sums; one rounding)
+//
+// Every function reads one 4-bit pair plane [K/8, N] int32 packed at chunk
+// 256 (flute_tpu_torch/packing.py::pack_np): word row c*32 + j of a chunk,
+// byte i is pair row p = c*128 + i*32 + j, low nibble ce (K row 2p), high
+// nibble co (K row 2p + 1). W is what each TPU kernel computes, derived by
+// running it in the Pallas interpreter (the plain versions in
+// flute_tpu_torch/lab/ops.py define it):
+//
+//   floor:       pltpu.repeat tiles the K block's bk/8 word rows four times
+//                and pltpu.bitcast makes int32 row i bf16 rows 2i (low half)
+//                and 2i+1 (high half): K row r of the block is half r % 2 of
+//                word row (r/2) mod (bk/8), as a bf16 bit pattern. So each
+//                word feeds K rows 2(wr + t*bk/8) + {0, 1}, t = 0..3.
+//   unpack_only: the codes as bf16 bit patterns, W = bits(ce), bits(co): the
+//                subnormals c * 2^-133.
+//   gather16:    round(round(T[c]) * s[k/g]), the reference dequantization.
+//   g8_ablate:   round(T[c]) with chain, else round(T[c & 7]); times s[k/g]
+//                (rounded) with scale. The TPU's wrap flag passes the
+//                unmasked index to a gather that the v5e reads mod 8: the
+//                same entries as the mask, so the wrapper maps it onto this.
+//   g8_rs:       "repeat": round(round(T[c]) * s[kb*bk/g + (r mod bk/g)]) for
+//                K row r of K block kb (pltpu.repeat tiles the block's scale
+//                rows); "group_acc": per pair (x_2p*W_2p + x_2p+1*W_2p+1),
+//                W = round(T[c]), times s[k/g] in f32, which sums to the
+//                TPU's (x_g @ W_g) * s_g in another f32 order.
+//   g8_hoist:    g8_rs's function; the TPU kernel moved its select out of
+//                the gather loop, so here every code reads both 8-entry
+//                halves of the table and selects on c >= 8, where g8_ablate
+//                and g8_rs read T[c] once.
+//
+// Numerics: IEEE f32 FMAs with no flush to zero: unpack_only's operand is
+// subnormal, so the build must never add --use_fast_math or -ftz=true. With
+// x the identity every output is one product, so the kernel gives W bit for
+// bit.
+//
+// What bounds it: bytes. At the lab's shape (M 16, N 28672, K 8192) the
+// planes are 117 MB and the rest 8.5 MB, about 37.6 us at 3.35 TB/s; the
+// FMAs (2*M*N*K) are 0.11 ms at the f32 rate, far above the bytes, so this
+// simple design is bound by how many loads it keeps in flight, as K1-K4 are.
+// Design: K1's skeleton (csrc/lut_gemm_common.cuh): one lane per output
+// column (32 columns per block), eight warps splitting each K block's word
+// rows, the block's 16 rows of x for one K block staged in shared memory as
+// f32 (read as float2 broadcasts), the 16-entry table rounded to bf16 in
+// shared memory, fixed-order warp sums, no atomics. A K block (not a pack
+// chunk) is staged because floor's words reach across the whole block.
+
+#include "lut_gemm_common.cuh"
+
+namespace {
+
+using namespace flute;
+using bf16 = __nv_bfloat16;
+
+constexpr int kBM = 16;                   // rows of M per block
+constexpr int kChunk = 256;               // the lab's pack chunk
+constexpr int kChunkWords = kChunk / 8;   // word rows per chunk
+constexpr int kChunkPairs = kChunk / 2;   // pair rows per chunk
+
+enum Mode { kFloor, kUnpack, kGather16, kAblate, kRs, kHoist };
+
+__device__ __forceinline__ float rnd(float v) { return Cvt<bf16>::round(v); }
+
+__device__ __forceinline__ float scale_at(const bf16* __restrict__ s, int row, int N, int n) {
+  return __bfloat162float(s[static_cast<size_t>(row) * N + n]);
+}
+
+// acc[r] += x[r, k0] * we + x[r, k0 + 1] * wo (k0 even: an aligned float2)
+__device__ __forceinline__ void fma_pair(float (&acc)[kBM], const float* xs, int bk, int k0,
+                                         float we, float wo) {
+#pragma unroll
+  for (int r = 0; r < kBM; ++r) {
+    const float2 xv = *reinterpret_cast<const float2*>(xs + r * bk + k0);
+    acc[r] = fmaf(xv.x, we, acc[r]);
+    acc[r] = fmaf(xv.y, wo, acc[r]);
+  }
+}
+
+// group_acc: acc[r] += (x[r, k0] * we + x[r, k0 + 1] * wo) * s, all in f32
+__device__ __forceinline__ void fma_pair_scaled(float (&acc)[kBM], const float* xs, int bk,
+                                                int k0, float we, float wo, float s) {
+#pragma unroll
+  for (int r = 0; r < kBM; ++r) {
+    const float2 xv = *reinterpret_cast<const float2*>(xs + r * bk + k0);
+    acc[r] = fmaf(fmaf(xv.y, wo, xv.x * we), s, acc[r]);
+  }
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(kThreads)
+lab_kernel(const bf16* __restrict__ x, const uint32_t* __restrict__ plane,
+           const bf16* __restrict__ scales, const float* __restrict__ table,
+           bf16* __restrict__ y, int M, int N, int K, int bk, int g, int chain, int scale,
+           int group_acc) {
+  // x tile [kBM][bk] while walking K; afterwards the per-warp partial sums
+  // [kWarps][kBM][kBlockN]
+  extern __shared__ float smem[];
+  __shared__ float tab[16];
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int n = blockIdx.x * kBlockN + lane;
+  const int m0 = blockIdx.y * kBM;
+  if (MODE >= kGather16 && threadIdx.x < 16) tab[threadIdx.x] = rnd(table[threadIdx.x]);
+
+  float acc[kBM];
+#pragma unroll
+  for (int r = 0; r < kBM; ++r) acc[r] = 0.f;
+
+  const int nwr = bk / 8;  // word rows per K block
+  const bool col_ok = n < N;
+  for (int kb = 0; kb < K / bk; ++kb) {
+    __syncthreads();  // previous block's x tile is no longer read
+    const size_t kbase = static_cast<size_t>(kb) * bk;
+    stage_x<bf16, kBM>(smem, x, M, K, m0, kbase, bk);
+    __syncthreads();
+    if (!col_ok) continue;
+    for (int wr = warp; wr < nwr; wr += kWarps) {
+      const uint32_t w = __ldg(plane + (static_cast<size_t>(kb) * nwr + wr) * N + n);
+      if (MODE == kFloor) {
+        const float lo = __uint_as_float(w << 16);
+        const float hi = __uint_as_float(w & 0xFFFF0000u);
+#pragma unroll
+        for (int t = 0; t < 4; ++t) fma_pair(acc, smem, bk, 2 * (wr + t * nwr), lo, hi);
+        continue;
+      }
+      const int c = wr / kChunkWords;
+      const int j = wr - c * kChunkWords;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const uint32_t f = (w >> (8 * i)) & 0xFFu;
+        const uint32_t ce = f & 15u;
+        const uint32_t co = f >> 4;
+        const int k0 = 2 * (c * kChunkPairs + i * kChunkWords + j);  // even K row in the block
+        const int group = static_cast<int>((kbase + k0) / g);       // its scale row
+        float we, wo;
+        if (MODE == kUnpack) {
+          we = __uint_as_float(ce << 16);
+          wo = __uint_as_float(co << 16);
+        } else if (MODE == kGather16) {
+          const float s = scale_at(scales, group, N, n);
+          we = rnd(tab[ce] * s);
+          wo = rnd(tab[co] * s);
+        } else if (MODE == kAblate) {
+          we = tab[chain ? ce : (ce & 7u)];
+          wo = tab[chain ? co : (co & 7u)];
+          if (scale) {
+            const float s = scale_at(scales, group, N, n);
+            we = rnd(we * s);
+            wo = rnd(wo * s);
+          }
+        } else {
+          if (MODE == kRs) {
+            we = tab[ce];
+            wo = tab[co];
+          } else {  // kHoist: both halves for every code, then the select
+            const float e0 = tab[ce & 7u], e1 = tab[8u + (ce & 7u)];
+            const float o0 = tab[co & 7u], o1 = tab[8u + (co & 7u)];
+            we = ce >= 8u ? e1 : e0;
+            wo = co >= 8u ? o1 : o0;
+          }
+          if (group_acc) {
+            fma_pair_scaled(acc, smem, bk, k0, we, wo, scale_at(scales, group, N, n));
+            continue;
+          }
+          // "repeat": the block's scale rows tiled, row r takes r mod (bk/g)
+          const int per_block = bk / g;
+          const int base = kb * per_block;
+          we = rnd(we * scale_at(scales, base + k0 % per_block, N, n));
+          wo = rnd(wo * scale_at(scales, base + (k0 + 1) % per_block, N, n));
+        }
+        fma_pair(acc, smem, bk, k0, we, wo);
+      }
+    }
+  }
+
+  reduce_store<bf16, kBM>(smem, acc, y, M, N, m0);
+}
+
+template <int MODE>
+int launch(const void* x, const void* plane, const void* scales, const void* table, void* y,
+           int M, int N, int K, int bk, int g, int chain, int scale, int group_acc,
+           void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || bk <= 0 || K % bk || bk % kChunk || g <= 0 || g % 2 ||
+      bk % g)
+    return cudaErrorInvalidValue;
+  return launch_grid<kBM>(lab_kernel<MODE>, M, N, bk, static_cast<cudaStream_t>(stream),
+                          static_cast<const bf16*>(x), static_cast<const uint32_t*>(plane),
+                          static_cast<const bf16*>(scales), static_cast<const float*>(table),
+                          static_cast<bf16*>(y), M, N, K, bk, g, chain, scale, group_acc);
+}
+
+}  // namespace
+
+// All pointers are device pointers: x [M, K], scales [K/g, N] and y [M, N]
+// bf16, plane [K/8, N] int32, table [16] float32. Each kernel runs on
+// `stream` and is not synchronised. Returns the cudaError_t of the launch.
+// floor and unpack_only read neither scales nor table.
+extern "C" int flute_lab_floor(const void* x, const void* plane, void* y, int M, int N, int K,
+                               int bk, void* stream) {
+  return launch<kFloor>(x, plane, nullptr, nullptr, y, M, N, K, bk, bk, 0, 0, 0, stream);
+}
+
+extern "C" int flute_lab_unpack_only(const void* x, const void* plane, void* y, int M, int N,
+                                     int K, int bk, void* stream) {
+  return launch<kUnpack>(x, plane, nullptr, nullptr, y, M, N, K, bk, bk, 0, 0, 0, stream);
+}
+
+extern "C" int flute_lab_gather16(const void* x, const void* plane, const void* scales,
+                                  const void* table, void* y, int M, int N, int K, int bk,
+                                  int g, void* stream) {
+  return launch<kGather16>(x, plane, scales, table, y, M, N, K, bk, g, 0, 0, 0, stream);
+}
+
+extern "C" int flute_lab_g8_ablate(const void* x, const void* plane, const void* scales,
+                                   const void* table, void* y, int M, int N, int K, int bk,
+                                   int g, int chain, int scale, void* stream) {
+  return launch<kAblate>(x, plane, scales, table, y, M, N, K, bk, g, chain, scale, 0, stream);
+}
+
+// group_acc: 0 = "repeat", 1 = "group_acc"
+extern "C" int flute_lab_g8_rs(const void* x, const void* plane, const void* scales,
+                               const void* table, void* y, int M, int N, int K, int bk, int g,
+                               int group_acc, void* stream) {
+  return launch<kRs>(x, plane, scales, table, y, M, N, K, bk, g, 0, 0, group_acc, stream);
+}
+
+extern "C" int flute_lab_g8_hoist(const void* x, const void* plane, const void* scales,
+                                  const void* table, void* y, int M, int N, int K, int bk,
+                                  int g, int group_acc, void* stream) {
+  return launch<kHoist>(x, plane, scales, table, y, M, N, K, bk, g, 0, 0, group_acc, stream);
+}

@@ -14,7 +14,9 @@ Dispatch is by the tensors' device:
   bits -> K4 ``csrc/lut_gemm_pair.cu``, in bf16 or f16 only (an f32 call
   raises ``NotImplementedError``, as the JAX package's ``pair_lut`` mode
   does, and a wide 3-bit plane with ``pair_values`` raises ``ValueError``).
-  A build or launch failure raises.
+  A config with ``lut_mode="pair_lut"`` and no ``pair_values`` takes the
+  same route on the plane layout, with the separable joint table that JAX
+  builds from the scalar one. A build or launch failure raises.
 
 :func:`dequantize_codes`, :func:`dequantize_codes_pair` and
 :func:`lut_qgemm_reference` are the oracle and define the semantics.
@@ -75,6 +77,15 @@ def dequantize_codes_pair(
     v = pv[ce, co]  # [K/2, N, 2]
     deq = torch.stack([v[..., 0], v[..., 1]], dim=1).reshape(codes.shape)
     return deq * _expand_groups(scales.to(dtype), group_size)
+
+
+def separable_pair_values(table: torch.Tensor, num_bits: int) -> torch.Tensor:
+    """The joint pair table ``[2^b, 2^b, 2]`` of a scalar table,
+    ``pv[ce, co] = (table[ce], table[co])``: what JAX's ``pair_lut`` mode
+    looks up when it is given no ``pair_values``."""
+    e = 2**num_bits
+    t = table.float()
+    return torch.stack([t[:, None].expand(e, e), t[None, :].expand(e, e)], dim=-1)
 
 
 def lut_qgemm_reference(
@@ -337,8 +348,11 @@ def lut_qgemm(
       scales: ``[K // group_size, N]`` in x's dtype.
       table: ``[2^num_bits]`` float32 lookup table.
       num_bits: 2, 3 or 4.
-      config: persisted kernel config; only its ``chunk`` (the pack chunk
-        of the layout) is used. Default chunk 256.
+      config: persisted kernel config; its ``chunk`` (the pack chunk of the
+        layout) is used, and ``lut_mode="pair_lut"`` on the plane layout
+        looks the weights up in pairs (K4 on CUDA) through the separable
+        joint table of ``table`` when no ``pair_values`` is given; its block
+        fields are TPU tiles and change nothing. Default chunk 256.
       pair_values: optional float32 joint pair table ``[2^b, 2^b, 2]``
         (HIGGS vector dequantization); replaces ``table``. On CUDA it needs
         the plane layout and a 16-bit x.
@@ -392,7 +406,10 @@ def lut_qgemm(
         )
     if table is None:
         table = torch.zeros((2**num_bits,), dtype=torch.float32, device=x.device)
-    chunk = (config or KernelConfig()).chunk
+    config = config or KernelConfig()
+    chunk = config.chunk
+    if config.lut_mode == "pair_lut" and pair_values is None and layout == "plane":
+        pair_values = separable_pair_values(table, num_bits)
 
     x2 = x.reshape(-1, k)
     if x.device.type == "cpu":

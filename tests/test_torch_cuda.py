@@ -1,7 +1,8 @@
 """Card-only checks of the port: each LUT-GEMM kernel (K1 w4sym, K2 plane at
-2/3/4 bits, K3 w3wide, K4 joint pair lookup) and each paged-attention kernel
-(K5 decode, K6 verify) against its plain version on the same CUDA tensors,
-and the model, Engine and PagedEngine through the kernels.
+2/3/4 bits, K3 w3wide, K4 joint pair lookup), each paged-attention kernel
+(K5 decode, K6 verify) and each kernel of the Hopper lab (L1-L6) against its
+plain version on the same CUDA tensors, and the model, Engine and
+PagedEngine through the kernels.
 
 Every test is marked ``cuda`` and skips without a GPU (the kernel has no CPU
 mode). The file imports no JAX, so it also runs on a machine that has none:
@@ -19,6 +20,8 @@ import torch
 
 from flute_tpu_torch import packing
 from flute_tpu_torch.interop import move_params
+from flute_tpu_torch.lab import kernel_lab
+from flute_tpu_torch.lab import ops as lab
 from flute_tpu_torch.models import llama
 from flute_tpu_torch.ops import lut_gemm
 from flute_tpu_torch.ops import paged_attention as pa
@@ -164,6 +167,24 @@ def test_only_pair_values_raises_on_cuda(dev):
     assert lut_gemm.LAUNCHES == before
     lut_gemm.lut_qgemm(x, planes, s, t, num_bits=4, pair_values=pv)
     assert lut_gemm.LAUNCHES == {**before, "pair": before["pair"] + 1}
+
+
+@pytest.mark.parametrize("bits", [2, 3, 4])
+def test_pair_lut_without_pair_values_launches_k4(dev, bits):
+    """lut_mode="pair_lut" with a scalar table runs K4 on its separable joint
+    table (K2 not at all), with the scalar lookup's values; f32 raises."""
+    _, x, planes, s, t = layout_case(dev, "plane", bits, 5, torch.bfloat16, seed=40 + bits,
+                                     chunk=256)
+    cfg = KernelConfig(lut_mode="pair_lut")
+    before = dict(lut_gemm.LAUNCHES)
+    y = lut_gemm.lut_qgemm(x, planes, s, t, num_bits=bits, config=cfg)
+    assert lut_gemm.LAUNCHES == {**before, "pair": before["pair"] + 1}
+    y_plain = lut_gemm.lut_qgemm_plain(x, planes, s, t, num_bits=bits, chunk=256,
+                                       layout="plane")
+    torch.cuda.synchronize()
+    assert rel_err(y, y_plain) < TOL[torch.bfloat16]
+    with pytest.raises(NotImplementedError, match="16-bit"):
+        lut_gemm.lut_qgemm(x.float(), planes, s.float(), t, num_bits=bits, config=cfg)
 
 
 def pair_case(dev, bits, m, dtype, seed, chunk):
@@ -427,3 +448,61 @@ def test_model_and_engine_through_the_kernel(dev, case):
     want_launches[kernel] = 5 * config.num_layers * 4
     assert lut_gemm.LAUNCHES == want_launches
     assert [len(o) for o in out] == [5, 5, 5]
+
+
+# the lab's variants at a width that is not a multiple of 32 (the column mask)
+LAB_N, LAB_K = 200, 1024
+
+
+def lab_case(dev, m, name, k=LAB_K):
+    """The lab's inputs on ``dev`` (floor's planes masked to finite bf16
+    halves) and variant ``name``'s function and flags."""
+    _, planes, scales, table, x = kernel_lab.make_inputs(m, LAB_N, k, 4, G, device=dev)
+    if name == "floor":
+        planes = [lab.finite_halves(planes[0])]
+    fn, flags = kernel_lab.VARIANTS[name]
+    return x, planes, scales, table, fn, flags
+
+
+@pytest.mark.parametrize("bk", [256, 512, 1024])
+@pytest.mark.parametrize("name", list(kernel_lab.VARIANTS))
+@pytest.mark.parametrize("m", [1, 16, 40])
+def test_lab_kernel_vs_plain(dev, m, name, bk):
+    x, planes, scales, table, fn, flags = lab_case(dev, m, name)
+    before = dict(lab.LAUNCHES)
+    y = lab.run(fn, x, planes, scales, table, m, LAB_N, bk, G, **flags)
+    assert lab.LAUNCHES == {**before, fn: before[fn] + 1}
+    want = lab.plain(fn, x, planes, scales, table, m, LAB_N, bk, G, **flags)
+    torch.cuda.synchronize()
+    assert y.dtype == torch.bfloat16 and tuple(y.shape) == (m, LAB_N)
+    assert torch.isfinite(y.float()).all()
+    if name == "unpack":  # subnormal operand: an absolute tolerance
+        err = float((y.float() - want.float()).abs().max())
+        assert float(want.float().abs().max()) > 0
+        assert err <= TOL[torch.bfloat16] * float(want.float().abs().max())
+    else:
+        assert rel_err(y, want) < TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("name", list(kernel_lab.VARIANTS))
+def test_lab_identity_bit_exact(dev, name):
+    """With x the identity every output is one product: the kernel gives the
+    plain version bit for bit (unpack_only: its subnormal operand)."""
+    x, planes, scales, table, fn, flags = lab_case(dev, 512, name, k=512)
+    eye = torch.eye(512, dtype=torch.bfloat16, device=dev)
+    y = lab.run(fn, eye, planes, scales, table, 16, LAB_N, 256, G, **flags)
+    want = lab.plain(fn, eye, planes, scales, table, 16, LAB_N, 256, G, **flags)
+    assert torch.equal(y.view(torch.int16), want.view(torch.int16))
+    if name == "unpack":
+        assert torch.equal(y.view(torch.int16), lab.unpack_weight(planes[0]).view(torch.int16))
+
+
+def test_lab_main_on_the_card(capsys):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the lab times its kernels on the card")
+    before = dict(lab.LAUNCHES)
+    rows = kernel_lab.main(["--n", "2048", "--k", "1024", "--bn", "256", "--bk", "512",
+                            "--iters", "4", "--variants", ",".join(kernel_lab.ORDER)])
+    assert [r["name"] for r in rows] == list(kernel_lab.ORDER)
+    assert all(r["us"] > 0 for r in rows) and "GB/s" in capsys.readouterr().out
+    assert all(lab.LAUNCHES[f] > before[f] for f in lab.LAUNCHES)

@@ -84,6 +84,7 @@ def no_gpu(monkeypatch):
 
 def test_entry_points_raise_without_a_gpu(no_gpu):
     from flute_tpu_torch import interop, packing
+    from flute_tpu_torch.lab import kernel_lab
     from flute_tpu_torch.models import llama
     from flute_tpu_torch.nn import from_codes, quantize_linear
     from flute_tpu_torch.serving import Engine
@@ -99,6 +100,9 @@ def test_entry_points_raise_without_a_gpu(no_gpu):
         "pack": lambda: packing.pack(codes, 4),
         "from_codes": lambda: from_codes(codes, np.ones((4, 128), np.float32), None, 4, 64),
         "params_from_numpy": lambda: interop.params_from_numpy({"embed": codes}),
+        "lab main": lambda: kernel_lab.main(["--n", "256", "--k", "512", "--bn", "128",
+                                             "--bk", "256", "--variants", "floor"]),
+        "lab make_inputs": lambda: kernel_lab.make_inputs(16, 256, 512, 4, 64),
     }
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -118,3 +122,18 @@ def test_qgemm_runs_where_its_tensors_are():
     table = torch.zeros(16, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         lut_gemm.qgemm(x, plane, scales, table, 4, 64, layout="w4sym")
+
+
+@pytest.mark.parametrize("variant", ["floor", "unpack", "gather16", "g8_wrap", "g8_groupacc",
+                                     "g8_hoist"])
+def test_lab_runs_where_its_tensors_are(variant):
+    """The lab's functions take their device from x: an error for a device
+    they have no path for, never the plain version."""
+    from flute_tpu_torch.lab import kernel_lab
+
+    x = torch.ones((16, 256), dtype=torch.bfloat16, device="meta")
+    plane = torch.zeros((32, 128), dtype=torch.int32, device="meta")
+    scales = torch.ones((4, 128), dtype=torch.bfloat16, device="meta")
+    table = torch.zeros(16, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        kernel_lab.run_variant(variant, x, [plane], scales, table, 16, 128, 256, 64)

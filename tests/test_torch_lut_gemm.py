@@ -144,6 +144,41 @@ def test_pair_values_plain_vs_jax_oracle():
     np.testing.assert_array_equal(f32(got), f32(want))
 
 
+@pytest.mark.parametrize("bits", [2, 3, 4])
+def test_pair_lut_without_pair_values_vs_jax(bits, monkeypatch):
+    """``lut_mode="pair_lut"`` and no ``pair_values``: both packages look the
+    weights up in pairs from the separable joint table of the scalar one
+    (JAX's kernel in interpret mode); on the CPU the port takes the pair
+    path of its plain version."""
+    from flute_tpu.ops.kernel_config import KernelConfig as JKernelConfig
+
+    rng = np.random.default_rng(40 + bits)
+    codes = rng.integers(0, 2**bits, size=(K, N), dtype=np.int32)
+    planes = packing.pack_np(codes, bits)
+    table = rng.standard_normal(2**bits).astype(np.float32)
+    scales = rng.uniform(0.5, 1.5, (K // G, N)).astype(np.float32)
+    x = rng.standard_normal((5, K)).astype(np.float32)
+    want = jlut.lut_qgemm(
+        jnp.asarray(x, jnp.bfloat16), [jnp.asarray(p) for p in planes],
+        jnp.asarray(scales, jnp.bfloat16), jnp.asarray(table), num_bits=bits,
+        config=JKernelConfig(block_m=8, block_n=128, block_k=256, lut_mode="pair_lut"),
+    )
+    pair_calls = []
+    pair = lut_gemm.dequantize_codes_pair
+    monkeypatch.setattr(lut_gemm, "dequantize_codes_pair",
+                        lambda *a: pair_calls.append(a[2]) or pair(*a))
+    tplanes = [torch.from_numpy(p) for p in planes]
+    args = (torch.from_numpy(x).bfloat16(), tplanes, torch.from_numpy(scales).bfloat16(),
+            torch.from_numpy(table))
+    got = lut_gemm.lut_qgemm(*args, num_bits=bits, config=KernelConfig(lut_mode="pair_lut"))
+    assert len(pair_calls) == 1 and tuple(pair_calls[0].shape) == (2**bits, 2**bits, 2)
+    assert rel_err(f32(got), f32(want)) < 1.1e-2
+    # the same values as the scalar lookup: both round table[c] to bf16
+    scalar = lut_gemm.lut_qgemm(*args, num_bits=bits)
+    np.testing.assert_array_equal(f32(got), f32(scalar))
+    assert len(pair_calls) == 1
+
+
 def _bad_cases():
     rng = np.random.default_rng(9)
     codes = rng.integers(0, 16, size=(256, 128), dtype=np.int32)
