@@ -27,18 +27,13 @@ Phases (any failure exits non-zero):
      torch.matmul on the pre-dequantized weight; K5/K6: one
      scaled_dot_product_attention on K/V gathered beforehand), L2-cold, in
      CUDA graphs;
-  3. logits of a 2-layer model at Llama-3.1-8B widths (fused) quantized at
-     w4sym, W3 (w3wide) and general-table W4 (plane), and with every
-     projection a HIGGS W4 layer (rotation 512, then K4): one prefill and one
-     decode step on the card against the same params on the CPU plain path
-     (max error relative to the largest logit < 1.1e-2); the W3 and the
-     HIGGS models saved with save_quantized and loaded back give the same
-     logits bit for bit;
   2b. the Hopper lab (L1-L6 of csrc/kernel_lab.cu): its entry point,
      flute_tpu_torch.lab.kernel_lab.main, runs every variant at the JAX lab's
      reference shape (M16 N28672 K8192, bk 1024, g64, bf16) with the launch
-     counts set to 0 just before and read just after (every lab kernel must
-     have launched, and gather8/pairlut exactly K2/K4); then each of its 12
+     counts set to 0 just before and read just after (each function exactly
+     its variants' calls: a check call, bench_op's first calls and its graph's
+     launches; gather8 and pairlut as many of K2 and K4, no other package
+     kernel), and no lab kernel launched in phases 3 and 4; then each of its 12
      cases is held against its plain version on the card at that shape and
      at bk 256 on a narrow N (relative Frobenius error under 1.1e-2; floor on
      planes masked to finite bf16 halves; unpack_only, whose operand is
@@ -46,6 +41,13 @@ Phases (any failure exits non-zero):
      for bit; the plain versions and a yardstick (one bf16 torch.matmul of x
      on the pre-dequantized [8192, 28672] weight) are timed beside the
      kernels, L2-cold, in CUDA graphs;
+  3. logits of a 2-layer model at Llama-3.1-8B widths (fused) quantized at
+     w4sym, W3 (w3wide) and general-table W4 (plane), and with every
+     projection a HIGGS W4 layer (rotation 512, then K4): one prefill and one
+     decode step on the card against the same params on the CPU plain path
+     (max error relative to the largest logit < 1.1e-2); the W3 and the
+     HIGGS models saved with save_quantized and loaded back give the same
+     logits bit for bit;
   4. serve 8 ragged prompts for 16 new tokens through Engine.generate on
      the full 32-layer Llama-3.1-8B-width model (random weights from a seed,
      quantized on the card) at w4sym, W3 and general W4, each run through
@@ -503,6 +505,7 @@ def phase_attention(dev, results):
 # the JAX lab's reference shape (scripts/kernel_lab.py:233-243)
 LAB_SHAPE = dict(m=16, n=28672, k=8192, bk=1024, g=64)
 LAB_NARROW_N = 2048  # the bk 256 checks
+LAB_ITERS = 24  # the lab's --iters: launches per timed CUDA graph (at least)
 
 
 def lab_check(fn, flags, x, planes, scales, table, bn, bk, name, label):
@@ -543,12 +546,20 @@ def phase_lab(dev, results):
             d[kk] = 0
     t0 = time.perf_counter()
     rows = kernel_lab.main(["--m", str(m), "--n", str(n), "--k", str(k), "--bk", str(bk),
-                            "--iters", "24", "--variants", ",".join(kernel_lab.ORDER)])
+                            "--iters", str(LAB_ITERS), "--variants", ",".join(kernel_lab.ORDER)])
     launches = dict(lab.LAUNCHES)
     gemm = dict(lut_gemm.LAUNCHES)
     main_s = time.perf_counter() - t0
-    if min(launches.values()) < 1 or set(kk for kk, v in gemm.items() if v) != {"plane", "pair"}:
-        raise AssertionError(f"the lab's run launched {launches} and {gemm}")
+    # calls per variant: one check call, then bench_op's first call on each
+    # input copy and its whole passes over the copies in the graph
+    copies = cold_copies(n * k // 2 + (k // g) * n * 2)
+    per_variant = 1 + copies + -(-LAB_ITERS // copies) * copies
+    fns = [kernel_lab.VARIANTS[v][0] for v in kernel_lab.ORDER if v in kernel_lab.VARIANTS]
+    want = {fn: fns.count(fn) * per_variant for fn in lab.LAUNCHES}
+    want_gemm = {kk: per_variant if kk in ("plane", "pair") else 0 for kk in lut_gemm.LAUNCHES}
+    if launches != want or gemm != want_gemm:
+        raise AssertionError(f"the lab's run launched {launches} and {gemm}, "
+                             f"expected {want} and {want_gemm}")
     log(f"  the lab's entry point ran {len(rows)} variants in {main_s:.1f} s; launches {launches}, "
         f"package kernels {gemm}")
     by_name = {r["name"]: r for r in rows}
@@ -629,10 +640,11 @@ def phase_lab(dev, results):
     return cases, checks, launches
 
 
-def lab_line(kid, cases, checks, launches):
+def lab_line(kid, cases, checks, launches, served):
     """The {"kernels": [...]} entry of lab kernel ``kid``: its reporting
     variant's numbers, the others' times beside them. ``launches`` counts the
-    lab's run; no served path runs a lab kernel."""
+    lab's run, ``served`` the launches in phases 3 and 4 (none: no served
+    path runs a lab kernel)."""
     wrapper, source, fn, replaces = KERNELS[kid]
     row = [c for c in cases if c["variant"] == LAB[kid][1]][0]
     return dict(
@@ -648,7 +660,7 @@ def lab_line(kid, cases, checks, launches):
         bound_by=row["bound_by"],
         library_ms=row["library_us"] / 1e3,
         checked=True,
-        served_launches=0,
+        served_launches=served[fn],
         variants={c["variant"]: c["us"] / 1e3 for c in cases if c["function"] == fn},
         **({"finite_planes_ms": row["finite_planes_us"] / 1e3} if "finite_planes_us" in row
            else {}),
@@ -1253,6 +1265,7 @@ def main() -> int:
     attn_checks, attn_timed = phase_attention(dev, results)
     log("== 2b. the Hopper lab (L1-L6)")
     lab_cases, lab_checks, lab_launches = phase_lab(dev, results)
+    lab_before = dict(lab_ops.LAUNCHES)
     log("== 3. model logits against the CPU plain path; checkpoint round trip")
     phase_logits(dev, results)
     log("== 4. serving Llama-3.1-8B widths, 32 layers")
@@ -1275,11 +1288,15 @@ def main() -> int:
                                                                     prompts)
     del engines, paged_eng
     torch.cuda.empty_cache()
+    lab_served = {fn: lab_ops.LAUNCHES[fn] - lab_before[fn] for fn in lab_before}
+    if any(lab_served.values()):
+        raise AssertionError(f"phases 3 and 4 launched lab kernels: {lab_served}")
+    log(f"  lab kernels launched in phases 3 and 4: {lab_served}")
 
     kernels = [kernel_line(kid, cases, launches[kid]) for kid in LUT_KERNELS]
     kernels += [attention_line(kid, attn_checks, attn_timed, launches[kid])
                 for kid in ("K5", "K6")]
-    kernels += [lab_line(kid, lab_cases, lab_checks, lab_launches) for kid in LAB]
+    kernels += [lab_line(kid, lab_cases, lab_checks, lab_launches, lab_served) for kid in LAB]
     results["kernels"] = kernels
     results["total_s"] = time.perf_counter() - t_start
     log(f"  chip_smoke took {results['total_s']:.0f} s")

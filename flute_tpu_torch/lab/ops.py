@@ -239,7 +239,7 @@ def _launch(name: str, x, plane, scales, table, bk: int, g: int, flags: tuple[in
     n = plane.shape[1]
     dev = x.device
     for t_name, t in (("plane", plane), ("scales", scales), ("table", table)):
-        if t.device != dev:
+        if t is not None and t.device != dev:
             raise ValueError(f"{t_name} is on {t.device}, x on {dev}")
     y = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
     if m == 0:
@@ -268,13 +268,13 @@ def _run(name: str, x, planes, scales, table, bm, bn, bk, g, flags: tuple[int, .
         return PLAIN[name](x, plane, scales, table, bk, g, **kw)
     if x.device.type == "cuda":
         return _launch(name, x.contiguous(), plane.contiguous(), scales.contiguous(),
-                       table.contiguous(), bk, g, flags)
+                       None if table is None else table.contiguous(), bk, g, flags)
     raise ValueError(f"unsupported device {x.device}")
 
 
 def _check(x, planes: Sequence[torch.Tensor], scales, table, bm, bn, bk, g):
     """Raise ``ValueError`` on operands the lab does not take; returns the
-    plane, the scales and the f32 table (zeros where the function reads
+    plane, the scales and the f32 table (None where the function reads
     none)."""
     if x.dim() != 2 or x.dtype != torch.bfloat16:
         raise ValueError(f"x must be 2-D bfloat16, got {x.dtype} {tuple(x.shape)}")
@@ -292,8 +292,8 @@ def _check(x, planes: Sequence[torch.Tensor], scales, table, bm, bn, bk, g):
         raise ValueError(
             f"M={m}, N={n}, K={k} do not tile by bm={bm}, bn={bn}, bk={bk} "
             f"(bk a multiple of {CHUNK} and of g={g}, at most {MAX_BLOCK_K})")
-    if table is None:  # made on the device: nothing to copy in a CUDA graph
-        table = torch.zeros(16, device=x.device)
+    if table is None:  # floor and unpack_only read no table
+        return plane, scales, None
     table = torch.as_tensor(table, dtype=torch.float32).to(x.device)
     if tuple(table.shape) != (16,):
         raise ValueError(f"table must have 16 entries, got {tuple(table.shape)}")
