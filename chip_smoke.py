@@ -4,12 +4,13 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
-  1. print the card's name and power limit; build the six kernel sources
+  1. print the card's name and power limit; build the seven kernel sources
      from flute_tpu_torch/csrc into build/flute_tpu_torch/, one nvcc process
      each, all at once: K1 (w4sym), K2 (plane, 2/3/4 bits), K3 (w3wide), K4
      (joint pair lookup, lut_gemm_pair.cu), K5/K6 (paged decode and verify
-     attention, paged_attention.cu) and L1-L6 (the Hopper lab,
-     kernel_lab.cu); print ptxas registers and spill;
+     attention, paged_attention.cu), L1-L6 (the Hopper lab, kernel_lab.cu)
+     and L7-L12 (its second half, kernel_lab2.cu); print ptxas registers
+     and spill;
   2. hold each kernel against its plain PyTorch version on the card:
      the LUT-GEMMs at the Llama-3.1-8B decoder-layer shapes, M in
      {1, 8, 128, 512}, bf16 and f16 (relative Frobenius error under 1.1e-2 /
@@ -41,6 +42,21 @@ Phases (any failure exits non-zero):
      for bit; the plain versions and a yardstick (one bf16 torch.matmul of x
      on the pre-dequantized [8192, 28672] weight) are timed beside the
      kernels, L2-cold, in CUDA graphs;
+  2c. the lab's second half (L7-L12 of csrc/kernel_lab2.cu): its entry
+     point, flute_tpu_torch.lab.kernel_lab2.main, runs every variant at the
+     JAX lab2's default shape (M16 N28672 K8192, bn 2048, bk 2048, g64,
+     bf16) with the launch counts set to 0 just before and read just after
+     (each function exactly its variants' calls, sep for sep and sep1, L7
+     2 x 4002; prod as many of K2, no other package kernel, no L1-L6), and
+     no L7-L12 kernel launched in phases 3 and 4; then the six GEMM
+     functions (seven cases with sep1) are held against their plain
+     versions on the card at that shape and at bk 256 on a narrow N
+     (relative Frobenius error under 1.1e-2) and with an identity x bit for
+     bit (the sign of a zero aside), L7 bit for bit at nops 2 and 8; the
+     plain versions and a yardstick (one bf16 torch.matmul on the
+     pre-dequantized weight: phase 2b's for the 4-bit cases, its own for
+     L12's 3-bit weight) are timed beside the kernels, L2-cold, in CUDA
+     graphs;
   3. logits of a 2-layer model at Llama-3.1-8B widths (fused) quantized at
      w4sym, W3 (w3wide) and general-table W4 (plane), and with every
      projection a HIGGS W4 layer (rotation 512, then K4): one prefill and one
@@ -81,6 +97,10 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16/f16 tensor rate
+# the data sheet's f32 rate outside the tensor cores, taken for L7's int32
+# shifts and xors: no int32 rate is published, and a higher rate only
+# lowers the bound
+ALU_OPS_PER_S = 67e12
 THRESHOLDS = {torch.bfloat16: 1.1e-2, torch.float16: 2.0e-3, torch.float32: 1e-5}
 # (name, N = out features, K = in features): one Llama-3.1-8B decoder layer,
 # fused qkv and gate_up
@@ -124,6 +144,19 @@ LAB = {
 }
 for _kid, (_fn, _, _replaces) in LAB.items():
     KERNELS[_kid] = (f"lab.{_fn}", "kernel_lab.cu", _fn, _replaces)
+LAB2_REPLACES = "scripts/kernel_lab2.py:{} (pallas_call of {})"
+# the lab's second half: kernel id -> (lab function, the variant its line
+# reports, what it replaces); sep1 is in L9's variants
+LAB2 = {
+    "L7": ("vmembw", "vmembw", LAB2_REPLACES.format(72, "run_vmembw :69")),
+    "L8": ("pfdirect", "pfdirect", LAB2_REPLACES.format(135, "run_pfdirect :130")),
+    "L9": ("sep", "sep", LAB2_REPLACES.format(234, "run_sep :228")),
+    "L10": ("int4", "int4", LAB2_REPLACES.format(290, "run_int4 :286")),
+    "L11": ("slabstream", "slabstream", LAB2_REPLACES.format(483, "run_slabstream :478")),
+    "L12": ("w3wide", "w3wide", LAB2_REPLACES.format(585, "run_w3wide :575")),
+}
+for _kid, (_fn, _, _replaces) in LAB2.items():
+    KERNELS[_kid] = (f"lab2.{_fn}", "kernel_lab2.cu", _fn, _replaces)
 LUT_KERNELS = ("K1", "K2", "K3", "K4")
 # phase-2 cases: (kernel id, bits, M values that are timed, dtypes timed;
 # every M and both dtypes are checked). K2 and K4 read the plane layout;
@@ -640,13 +673,14 @@ def phase_lab(dev, results):
     return cases, checks, launches
 
 
-def lab_line(kid, cases, checks, launches, served):
-    """The {"kernels": [...]} entry of lab kernel ``kid``: its reporting
-    variant's numbers, the others' times beside them. ``launches`` counts the
-    lab's run, ``served`` the launches in phases 3 and 4 (none: no served
-    path runs a lab kernel)."""
+def lab_line(kid, lab, cases, checks, launches, served):
+    """The {"kernels": [...]} entry of lab kernel ``kid`` (of ``LAB`` or
+    ``LAB2``, given as ``lab``): its reporting variant's numbers, the other
+    variants' times beside them. ``launches`` counts the lab's run,
+    ``served`` the launches in phases 3 and 4 (none: no served path runs a
+    lab kernel)."""
     wrapper, source, fn, replaces = KERNELS[kid]
-    row = [c for c in cases if c["variant"] == LAB[kid][1]][0]
+    row = [c for c in cases if c["variant"] == lab[kid][1]][0]
     return dict(
         name=wrapper,
         route="cuda",
@@ -658,13 +692,187 @@ def lab_line(kid, cases, checks, launches, served):
         plain_ms=row["plain_us"] / 1e3,
         bound_ms=row["bound_us"] / 1e3,
         bound_by=row["bound_by"],
-        library_ms=row["library_us"] / 1e3,
+        library_ms=None if row["library_us"] is None else row["library_us"] / 1e3,
         checked=True,
         served_launches=served[fn],
         variants={c["variant"]: c["us"] / 1e3 for c in cases if c["function"] == fn},
         **({"finite_planes_ms": row["finite_planes_us"] / 1e3} if "finite_planes_us" in row
            else {}),
     )
+
+
+# the JAX lab2's default shape and tiles (scripts/kernel_lab2.py:313-321)
+LAB2_SHAPE = dict(m=16, n=28672, k=8192, bn=2048, bk=2048, g=64)
+
+
+def _cut(weights, k, k_rows, cols):
+    """The weight operands (planes and scales, whose rows are proportional
+    to K) cut to their first ``k_rows`` K rows and ``cols`` columns."""
+    def cut(t):
+        return t[: t.shape[0] * k_rows // k, :cols].contiguous()
+
+    return tuple([cut(p) for p in w] if isinstance(w, list) else cut(w) for w in weights)
+
+
+def _same_bits(got, want) -> bool:
+    """Bit for bit, the sign of a zero aside."""
+    same = (got.view(torch.int16) == want.view(torch.int16)) | ((got == 0) & (want == 0))
+    return bool(same.all())
+
+
+def lab2_check(name, inp, weights, bn, bk, label):
+    """One lab2 GEMM case against its plain version on the card (relative
+    Frobenius error)."""
+    from flute_tpu_torch.lab import kernel_lab2, ops2
+
+    fn, args = kernel_lab2.lab_call(name, inp, weights, inp.x.shape[0], bn, bk)
+    got = ops2.FUNCTIONS[fn](*args)
+    want = ops2.plain(fn, *args)
+    torch.cuda.synchronize()
+    if not torch.isfinite(got.float()).all():
+        raise AssertionError(f"lab2 {name} {label}: non-finite output")
+    err = rel_err(got, want)
+    if not err < THRESHOLDS[torch.bfloat16]:
+        raise AssertionError(f"lab2 {name} {label}: error {err}")
+    return dict(variant=name, function=fn, case=label, rel_err=err,
+                max_abs_err=float((got.float() - want.float()).abs().max()))
+
+
+def phase_lab2(dev, results, library_us_w4):
+    """The lab's second half (L7-L12): its entry point over every variant
+    (counted), then each case against its plain version, an identity x bit
+    for bit, L7 bit for bit, and the plain versions and a bf16 matmul timed
+    beside the kernels. ``library_us_w4`` is phase 2b's yardstick, a bf16
+    matmul at this shape."""
+    from types import SimpleNamespace
+
+    from flute_tpu_torch.lab import kernel_lab2, ops2
+    from flute_tpu_torch.lab import ops as lab
+    from flute_tpu_torch.ops import lut_gemm
+    from flute_tpu_torch.utils.benchmark import bench_op, cold_copies
+
+    sh = LAB2_SHAPE
+    m, n, k, bn, bk, g = sh["m"], sh["n"], sh["k"], sh["bn"], sh["bk"], sh["g"]
+    for d in (ops2.LAUNCHES, lab.LAUNCHES, lut_gemm.LAUNCHES):
+        for kk in d:
+            d[kk] = 0
+    t0 = time.perf_counter()
+    rows = kernel_lab2.main(["--iters", str(LAB_ITERS), "--variants", ",".join(kernel_lab2.ORDER)])
+    launches, gemm, lab1 = dict(ops2.LAUNCHES), dict(lut_gemm.LAUNCHES), dict(lab.LAUNCHES)
+    main_s = time.perf_counter() - t0
+
+    # calls per GEMM variant: one check call, then bench_op's first call on
+    # each input copy and its whole passes over the copies in the graph
+    def calls(weight_bytes):
+        copies = cold_copies(weight_bytes)
+        return 1 + copies + -(-LAB_ITERS // copies) * copies
+
+    scale_bytes = (k // g) * n * 2
+    w4_bytes = n * k // 2 + scale_bytes  # one 4-bit plane, or two 2-bit ones
+    want = {fn: 0 for fn in ops2.LAUNCHES}
+    for v in kernel_lab2.LAB_GEMMS:
+        fn = "sep" if v == "sep1" else v
+        want[fn] += calls(n * k * 3 // 8 + scale_bytes if v == "w3wide" else w4_bytes)
+    # vmembw: per chain length a check call, bench_op's first call, the graph
+    want["vmembw"] = len(kernel_lab2.VMEMBW_NOPS) * (2 + kernel_lab2.VMEMBW_ITERS)
+    want_gemm = {kk: calls(w4_bytes) if kk == "plane" else 0 for kk in lut_gemm.LAUNCHES}
+    if launches != want or gemm != want_gemm or any(lab1.values()):
+        raise AssertionError(f"the lab2 run launched {launches}, {gemm} and {lab1}, "
+                             f"expected {want}, {want_gemm} and no L1-L6")
+    log(f"  the lab2 entry point ran {len(rows)} variants in {main_s:.1f} s; launches {launches}, "
+        f"package kernels {gemm}")
+    by_name = {r["name"]: r for r in rows}
+
+    inp = kernel_lab2.make_inputs(m, n, k, g, device=dev)
+    eye = SimpleNamespace(**{**vars(inp), "x": torch.eye(512, dtype=torch.bfloat16, device=dev)})
+    checks = []
+    for name in kernel_lab2.LAB_GEMMS:
+        weights = kernel_lab2.operands(name, inp)
+        checks.append(lab2_check(name, inp, weights, bn, bk, f"M{m} N{n} K{k} bk {bk}"))
+        checks.append(lab2_check(name, inp, _cut(weights, k, k, LAB_NARROW_N), LAB_NARROW_N, 256,
+                                 f"M{m} N{LAB_NARROW_N} K{k} bk 256"))
+        # identity x: every output one product, bit for bit
+        fn, args = kernel_lab2.lab_call(name, eye, _cut(weights, k, 512, 256), 16, 256, 256)
+        if not _same_bits(ops2.FUNCTIONS[fn](*args), ops2.plain(fn, *args)):
+            raise AssertionError(f"lab2 {name}: identity x not bit-exact")
+    block = kernel_lab2.vmembw_block(dev)
+    for nops in kernel_lab2.VMEMBW_NOPS:
+        got = ops2.vmembw(block, nops)
+        if not torch.equal(got, ops2.plain("vmembw", block, nops)):
+            raise AssertionError(f"lab2 vmembw: nops {nops} not bit-exact")
+        checks.append(dict(variant="vmembw", function="vmembw", case=f"nops {nops}", rel_err=0.0,
+                           max_abs_err=0.0))
+    log(f"  L7-L12: 6 GEMM cases and sep1 agree with their plain versions at M{m} N{n} K{k} "
+        f"bk {bk} and at N{LAB_NARROW_N} bk 256 (largest error "
+        f"{max(c['rel_err'] for c in checks):.2e}), identity x bit-exact (the sign of a zero "
+        "aside); vmembw bit-exact at nops 2 and 8")
+
+    # plain versions and the yardsticks, timed beside the kernels: phase 2b's
+    # bf16 matmul for the 4-bit cases, its own for L12's 3-bit weight
+    w3 = lut_gemm.dequantize_codes(torch.from_numpy(inp.codes3).to(dev), inp.scales, inp.table3,
+                                   torch.bfloat16)
+    dense = [(w3.clone(),) for _ in range(cold_copies(w3.numel() * 2))]
+    library_us_w3 = bench_op(lambda w: torch.matmul(inp.x, w), dense) * 1e6
+    del dense, w3
+    cases = []
+    xy_bytes = m * k * 2 + m * n * 2
+    t_ops = 2 * m * n * k / BF16_OPS_PER_S
+    table_bytes = {"pfdirect": 16 * 4, "slabstream": 16 * 4, "sep": 8 * 4, "sep1": 8 * 4,
+                   "int4": 0, "w3wide": 8 * 4}
+    for name in kernel_lab2.LAB_GEMMS:
+        weights = kernel_lab2.operands(name, inp)
+        sets = [kernel_lab2.clone_weights(weights) for _ in range(2)]
+
+        def plain(*ws, name=name):
+            fn, args = kernel_lab2.lab_call(name, inp, ws, m, bn, bk)
+            return ops2.plain(fn, *args)
+
+        t_p = bench_op(plain, sets, min_launches=2)
+        del sets
+        nbytes = kernel_lab2.weight_bytes(weights) + table_bytes[name] + xy_bytes
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        row = by_name[name]
+        case = dict(variant=name, function="sep" if name == "sep1" else name, us=row["us"],
+                    gbps=row["gbps"], lab_share_of_hbm=row["share_of_hbm"], rel=row["rel"],
+                    plain_us=t_p * 1e6,
+                    library_us=library_us_w3 if name == "w3wide" else library_us_w4,
+                    bytes=nbytes, bound_us=max(t_bytes, t_ops) * 1e6,
+                    bound_by="bytes" if t_bytes >= t_ops else "operations")
+        case["share_of_bound"] = case["bound_us"] / case["us"]
+        cases.append(case)
+        log(f"    {name:12s} kernel {case['us']:8.1f} us {case['gbps']:7.1f} GB/s  bound "
+            f"{case['bound_us']:6.1f} us ({case['bound_by']}, {100 * case['share_of_bound']:5.1f}%)"
+            f"  plain {case['plain_us']:8.1f} us  matmul {case['library_us']:6.1f} us  "
+            f"rel {case['rel']:.2e}")
+    # L7 at its longer chain: the block read once and written once, two
+    # int32 operations per element and step
+    row = by_name["vmembw"]
+    nops = max(kernel_lab2.VMEMBW_NOPS)
+    t_p = bench_op(lambda w: ops2.plain("vmembw", w, nops), [(block,)], min_launches=LAB_ITERS)
+    t_bytes = 2 * block.numel() * 4 / HBM_BYTES_PER_S
+    t_alu = 2 * nops * block.numel() / ALU_OPS_PER_S
+    cases += [dict(variant=f"vmembw nops {kk}", function="vmembw", us=v)
+              for kk, v in row["t_us"].items() if kk != nops]
+    case = dict(variant="vmembw", function="vmembw", us=row["t_us"][nops], nops=nops,
+                ns_per_op_per_1024=row["ns_per_op_per_1024"], plain_us=t_p * 1e6,
+                library_us=None, bytes=2 * block.numel() * 4,
+                bound_us=max(t_bytes, t_alu) * 1e6,
+                bound_by="bytes" if t_bytes >= t_alu else "operations")
+    case["share_of_bound"] = case["bound_us"] / case["us"]
+    cases.append(case)
+    log(f"    vmembw       kernel {case['us']:8.2f} us at nops {nops} "
+        f"({', '.join(f'nops {kk}: {v:.2f} us' for kk, v in row['t_us'].items())}; slope "
+        f"{case['ns_per_op_per_1024']:.4f} ns per 1024 elements per op)  bound "
+        f"{case['bound_us']:6.2f} us ({case['bound_by']})  plain {case['plain_us']:8.2f} us")
+    row = by_name["prod"]
+    log(f"    prod (K2)    kernel {row['us']:8.1f} us {row['gbps']:7.1f} GB/s "
+        f"({100 * row['share_of_hbm']:5.1f}% of 3.35 TB/s, the lab's byte count), "
+        f"rel {row['rel']:.2e}")
+    del inp, eye, block
+    torch.cuda.empty_cache()
+    results["lab2"] = dict(shape=sh, main_s=main_s, rows=rows, launches=launches,
+                           package_launches=gemm, checks=checks, cases=cases)
+    return cases, checks, launches
 
 
 def model_logits(params, config, dev, tokens, offsets, nxt):
@@ -1225,6 +1433,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, HERE)
     from flute_tpu_torch.lab import ops as lab_ops
+    from flute_tpu_torch.lab import ops2 as lab2_ops
     from flute_tpu_torch.ops import _build, lut_gemm
     from flute_tpu_torch.ops import paged_attention as pa
 
@@ -1248,6 +1457,7 @@ def main() -> int:
     for kernel in pa.LAUNCHES:
         pa._kernel_fn(kernel)
     lab_ops.build_kernels()
+    lab2_ops.build_kernels()
     build_s = time.perf_counter() - t0
     log(f"  built the {len(sources)} kernel libraries in {build_s:.1f} s (in parallel)")
     for source in sources:
@@ -1265,7 +1475,11 @@ def main() -> int:
     attn_checks, attn_timed = phase_attention(dev, results)
     log("== 2b. the Hopper lab (L1-L6)")
     lab_cases, lab_checks, lab_launches = phase_lab(dev, results)
+    log("== 2c. the Hopper lab, second half (L7-L12)")
+    lab2_cases, lab2_checks, lab2_launches = phase_lab2(dev, results,
+                                                        lab_cases[0]["library_us"])
     lab_before = dict(lab_ops.LAUNCHES)
+    lab2_before = dict(lab2_ops.LAUNCHES)
     log("== 3. model logits against the CPU plain path; checkpoint round trip")
     phase_logits(dev, results)
     log("== 4. serving Llama-3.1-8B widths, 32 layers")
@@ -1289,14 +1503,18 @@ def main() -> int:
     del engines, paged_eng
     torch.cuda.empty_cache()
     lab_served = {fn: lab_ops.LAUNCHES[fn] - lab_before[fn] for fn in lab_before}
-    if any(lab_served.values()):
-        raise AssertionError(f"phases 3 and 4 launched lab kernels: {lab_served}")
-    log(f"  lab kernels launched in phases 3 and 4: {lab_served}")
+    lab2_served = {fn: lab2_ops.LAUNCHES[fn] - lab2_before[fn] for fn in lab2_before}
+    if any(lab_served.values()) or any(lab2_served.values()):
+        raise AssertionError(f"phases 3 and 4 launched lab kernels: {lab_served}, {lab2_served}")
+    log(f"  lab kernels launched in phases 3 and 4: {lab_served}, {lab2_served}")
 
     kernels = [kernel_line(kid, cases, launches[kid]) for kid in LUT_KERNELS]
     kernels += [attention_line(kid, attn_checks, attn_timed, launches[kid])
                 for kid in ("K5", "K6")]
-    kernels += [lab_line(kid, lab_cases, lab_checks, lab_launches, lab_served) for kid in LAB]
+    kernels += [lab_line(kid, LAB, lab_cases, lab_checks, lab_launches, lab_served)
+                for kid in LAB]
+    kernels += [lab_line(kid, LAB2, lab2_cases, lab2_checks, lab2_launches, lab2_served)
+                for kid in LAB2]
     results["kernels"] = kernels
     results["total_s"] = time.perf_counter() - t_start
     log(f"  chip_smoke took {results['total_s']:.0f} s")

@@ -171,14 +171,25 @@ def g8_ablate_plain(x, plane, scales, table, bk, g, *, chain, scale, wrap):
     return _product(x, w)
 
 
+def group_parts(x: torch.Tensor, w: torch.Tensor, g: int) -> torch.Tensor:
+    """``x_g @ w_g`` in f32 for every group of ``g`` K rows: ``[K/g, M, N]``."""
+    m, k = x.shape
+    return torch.einsum("mgk,gkn->gmn", x.float().reshape(m, k // g, g),
+                        w.float().reshape(k // g, g, -1))
+
+
+def group_acc_product(x: torch.Tensor, w: torch.Tensor, scales: torch.Tensor, g: int
+                      ) -> torch.Tensor:
+    """The TPU's ``group_acc``: ``bf16(Σ_g (x_g @ w_g)·s_g)``, every sum and
+    product in f32."""
+    return (group_parts(x, w, g) * scales.float()[:, None, :]).sum(dim=0).to(torch.bfloat16)
+
+
 def g8_rs_plain(x, plane, scales, table, bk, g, *, scale_mode):
     w = table_weight(plane, table)
     if scale_mode == "repeat":
         return _product(x, w * _tiled_scales(scales, bk, g))
-    m, k = x.shape
-    parts = torch.einsum("mgk,gkn->gmn", x.float().reshape(m, k // g, g),
-                         w.float().reshape(k // g, g, -1))
-    return (parts * scales.float()[:, None, :]).sum(dim=0).to(torch.bfloat16)
+    return group_acc_product(x, w, scales, g)
 
 
 # g8_hoist moves the TPU's select out of the gather loop: the same function

@@ -1,6 +1,6 @@
 """Card-only checks of the port: each LUT-GEMM kernel (K1 w4sym, K2 plane at
 2/3/4 bits, K3 w3wide, K4 joint pair lookup), each paged-attention kernel
-(K5 decode, K6 verify) and each kernel of the Hopper lab (L1-L6) against its
+(K5 decode, K6 verify) and each kernel of the Hopper lab (L1-L12) against its
 plain version on the same CUDA tensors, and the model, Engine and
 PagedEngine through the kernels.
 
@@ -20,7 +20,7 @@ import torch
 
 from flute_tpu_torch import packing
 from flute_tpu_torch.interop import move_params
-from flute_tpu_torch.lab import kernel_lab
+from flute_tpu_torch.lab import kernel_lab, kernel_lab2, ops2
 from flute_tpu_torch.lab import ops as lab
 from flute_tpu_torch.models import llama
 from flute_tpu_torch.ops import lut_gemm
@@ -506,3 +506,84 @@ def test_lab_main_on_the_card(capsys):
     assert [r["name"] for r in rows] == list(kernel_lab.ORDER)
     assert all(r["us"] > 0 for r in rows) and "GB/s" in capsys.readouterr().out
     assert all(lab.LAUNCHES[f] > before[f] for f in lab.LAUNCHES)
+
+
+# the second lab at a width that is not a multiple of 32 (the column mask)
+LAB2_N, LAB2_K = 200, 1024
+
+
+def same_bits(y, want):
+    """Bit for bit, the sign of a zero aside."""
+    return bool(((y.view(torch.int16) == want.view(torch.int16)) | ((y == 0) & (want == 0))).all())
+
+
+@pytest.mark.parametrize("name", kernel_lab2.LAB_GEMMS)
+@pytest.mark.parametrize("m", [1, 16, 40])
+def test_lab2_kernel_vs_plain(dev, m, name):
+    inp = kernel_lab2.make_inputs(m, LAB2_N, LAB2_K, device=dev)
+    fn, args = kernel_lab2.lab_call(name, inp, kernel_lab2.operands(name, inp), m, LAB2_N, 512)
+    before = dict(ops2.LAUNCHES)
+    y = ops2.FUNCTIONS[fn](*args)
+    assert ops2.LAUNCHES == {**before, fn: before[fn] + 1}
+    want = ops2.plain(fn, *args)
+    torch.cuda.synchronize()
+    assert y.dtype == torch.bfloat16 and tuple(y.shape) == (m, LAB2_N)
+    assert torch.isfinite(y.float()).all()
+    assert rel_err(y, want) < TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("name", ["pfdirect", "sep", "int4", "w3wide"])
+@pytest.mark.parametrize("g", [2, 32, 512])
+def test_lab2_other_group_sizes(dev, g, name):
+    """Groups smaller than a pair row's word (g 2), within a chunk (32) and
+    across chunks (512): the kernels' per-group scaling and int4's x sums."""
+    inp = kernel_lab2.make_inputs(16, LAB2_N, LAB2_K, g=g, device=dev)
+    fn, args = kernel_lab2.lab_call(name, inp, kernel_lab2.operands(name, inp), 16, LAB2_N,
+                                    1024, g=g)
+    y = ops2.FUNCTIONS[fn](*args)
+    assert rel_err(y, ops2.plain(fn, *args)) < TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("name", kernel_lab2.LAB_GEMMS)
+def test_lab2_identity_bit_exact(dev, name):
+    """With x the identity every output is one product: the kernel gives the
+    plain version bit for bit (the sign of a zero aside)."""
+    inp = kernel_lab2.make_inputs(512, LAB2_N, 512, device=dev)
+    inp.x = torch.eye(512, dtype=torch.bfloat16, device=dev)
+    fn, args = kernel_lab2.lab_call(name, inp, kernel_lab2.operands(name, inp), 16, LAB2_N, 256)
+    assert same_bits(ops2.FUNCTIONS[fn](*args), ops2.plain(fn, *args))
+
+
+@pytest.mark.parametrize("nops", [0, 2, 8, 33])
+def test_lab2_vmembw_bit_exact(dev, nops):
+    w = kernel_lab2.vmembw_block(dev)
+    for block in (w, w[:, 3:1000]):  # the lab's block, and a strided one
+        before = dict(ops2.LAUNCHES)
+        y = ops2.vmembw(block, nops)
+        assert ops2.LAUNCHES == {**before, "vmembw": before["vmembw"] + 1}
+        assert torch.equal(y, ops2.plain("vmembw", block, nops))
+
+
+def test_lab2_launch_error_raises(dev):
+    """A launch the kernel refuses (an odd group size) raises and is not
+    counted."""
+    inp = kernel_lab2.make_inputs(16, LAB2_N, LAB2_K, device=dev)
+    out = torch.empty((16, LAB2_N), dtype=torch.bfloat16, device=dev)
+    before = dict(ops2.LAUNCHES)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ops2._launch("pfdirect", out, [inp.x, inp.planes[0], inp.scales, inp.table],
+                     [16, LAB2_N, LAB2_K, 3])
+    assert ops2.LAUNCHES == before
+
+
+def test_lab2_main_on_the_card(capsys):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the lab times its kernels on the card")
+    before = dict(ops2.LAUNCHES)
+    rows = kernel_lab2.main(["--n", "2048", "--k", "1024", "--bn", "256", "--bk", "512",
+                             "--iters", "4", "--variants", ",".join(kernel_lab2.ORDER)])
+    assert [r["name"] for r in rows] == list(kernel_lab2.ORDER)
+    gemm = [r for r in rows if r["name"] != "vmembw"]
+    assert all(r["us"] > 0 and r["rel"] < 1.1e-2 for r in gemm)
+    assert rows[-1]["ns_per_op_per_1024"] is not None and "GB/s" in capsys.readouterr().out
+    assert all(ops2.LAUNCHES[f] > before[f] for f in ops2.LAUNCHES)

@@ -84,7 +84,7 @@ def no_gpu(monkeypatch):
 
 def test_entry_points_raise_without_a_gpu(no_gpu):
     from flute_tpu_torch import interop, packing
-    from flute_tpu_torch.lab import kernel_lab
+    from flute_tpu_torch.lab import kernel_lab, kernel_lab2
     from flute_tpu_torch.models import llama
     from flute_tpu_torch.nn import from_codes, quantize_linear
     from flute_tpu_torch.serving import Engine
@@ -103,6 +103,9 @@ def test_entry_points_raise_without_a_gpu(no_gpu):
         "lab main": lambda: kernel_lab.main(["--n", "256", "--k", "512", "--bn", "128",
                                              "--bk", "256", "--variants", "floor"]),
         "lab make_inputs": lambda: kernel_lab.make_inputs(16, 256, 512, 4, 64),
+        "lab2 main": lambda: kernel_lab2.main(["--n", "256", "--k", "512", "--bn", "128",
+                                               "--bk", "256", "--variants", "pfdirect"]),
+        "lab2 make_inputs": lambda: kernel_lab2.make_inputs(16, 256, 512),
     }
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -137,3 +140,30 @@ def test_lab_runs_where_its_tensors_are(variant):
     table = torch.zeros(16, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         kernel_lab.run_variant(variant, x, [plane], scales, table, 16, 128, 256, 64)
+
+
+@pytest.mark.parametrize("variant", ["pfdirect", "sep", "sep1", "int4", "slabstream", "w3wide",
+                                     "vmembw"])
+def test_lab2_runs_where_its_tensors_are(variant):
+    """The second lab's functions take their device from their first
+    tensor: an error for a device they have no path for, never the plain
+    version."""
+    from types import SimpleNamespace
+
+    from flute_tpu_torch.lab import kernel_lab2, ops2
+
+    if variant == "vmembw":
+        with pytest.raises(ValueError, match="unsupported device"):
+            ops2.vmembw(torch.zeros((8, 128), dtype=torch.int32, device="meta"), 2)
+        return
+    plane = torch.zeros((32, 128), dtype=torch.int32, device="meta")
+    inp = SimpleNamespace(
+        x=torch.ones((16, 256), dtype=torch.bfloat16, device="meta"),
+        planes=[plane], planes_a=[plane[:16]], planes_b=[plane[:16]],
+        planes3=[torch.zeros((24, 128), dtype=torch.int32, device="meta")],
+        scales=torch.ones((4, 128), dtype=torch.bfloat16, device="meta"),
+        table=torch.zeros(16, device="meta"), table3=torch.zeros(8, device="meta"),
+        sep_a=torch.zeros(4, device="meta"), sep_b=torch.zeros(4, device="meta"))
+    weights = kernel_lab2.operands(variant, inp)
+    with pytest.raises(ValueError, match="unsupported device"):
+        kernel_lab2.run_variant(variant, inp, weights, 16, 128, 256, 64)
