@@ -23,7 +23,10 @@ Phases (any failure exits non-zero):
      plain version; K5 at B=8, 32/8 heads, D=128, blocks of 16, ragged
      lengths 0..4096, and K6 at T in {5, 64, 256} over 0 and 1024 cached
      positions, each with softcap, window and both, bf16 and f16 (max error
-     relative to the largest output < 1.1e-2). Time each kernel, its plain
+     relative to the largest output < 1.1e-2); K4 and K6 called twice give
+     the same bits (K4's split-K and K6 add in a fixed order). K6 is timed at
+     T=256 over 1024 and at the served pool-prefill chunk (T=32 over 32
+     cached). Time each kernel, its plain
      version and a yardstick that the port never calls (LUT-GEMMs: a
      torch.matmul on the pre-dequantized weight; K5/K6: one
      scaled_dot_product_attention on K/V gathered beforehand), L2-cold, in
@@ -73,7 +76,11 @@ Phases (any failure exits non-zero):
      pool prefill, 12 requests (4 sharing a 32-token prefix, 2 sampled) on a
      pool small enough that admission waits, with exact launch counts: K4
      forward calls x 32 x 4, K5 decode steps x 32, K6 prefill chunks x 32,
-     K1-K3 none.
+     K1-K3 none. The decode-step profiles (torch.profiler) report K4's ms
+     per HIGGS decode step and K6's in a step that admits 8 requests, and
+     fail if a decode step converts the dtype of a tensor of 2^20 elements or
+     more (the lm_head and the KV cache are multiplied in 16 bits with f32
+     results, never copied to f32).
 
 Prints a {"kernels": [...]} line, then as its last line
 {"ok": true, "device": {...}}. Writes the full results to
@@ -248,6 +255,11 @@ def phase_kernel(dev, results):
                     y = lut_gemm.lut_qgemm(x, planes, scales, table, **kw)
                     y_plain = lut_gemm.lut_qgemm_plain(x, planes, scales, table, num_bits=bits,
                                                        chunk=256, layout=layout, pair_values=pv)
+                    if kid == "K4":  # split-K adds its partial sums in a fixed order
+                        again = lut_gemm.lut_qgemm(x, planes, scales, table, **kw)
+                        if not torch.equal(again.view(torch.int16), y.view(torch.int16)):
+                            raise AssertionError(f"K4 {bits}-bit {name} M={m} {dtype}: a repeat "
+                                                 "call gave other bits")
                     torch.cuda.synchronize()
                     err = rel_err(y, y_plain)
                     max_abs = float((y.float() - y_plain.float()).abs().max())
@@ -292,6 +304,7 @@ def phase_kernel(dev, results):
                     )
                 del args, deq_c, deq, planes
     results["kernel_cases"] = cases
+    log("  K4: every repeat call gave the same bits (fixed-order split-K)")
     check_identity(dev, rng, gen, results)
     check_pair_lut_routing(dev, rng, gen, results)
     check_qgemm_hadamard(dev, rng, gen, results)
@@ -446,6 +459,9 @@ def phase_attention(dev, results):
             kw = dict(softcap=softcap, window=window)
             got = fn(q, kp, vp, tables, lens, **kw)
             want = ref(q, kp, vp, tables, lens, **kw)
+            if kid == "K6" and not torch.equal(fn(q, kp, vp, tables, lens, **kw).view(torch.int16),
+                                               got.view(torch.int16)):
+                raise AssertionError(f"K6 {label} {kw}: a repeat call gave other bits")
             torch.cuda.synchronize()
             if not torch.isfinite(got.float()).all():
                 raise AssertionError(f"{kid} {label} {kw}: non-finite output")
@@ -472,12 +488,16 @@ def phase_attention(dev, results):
         del q, kp, vp
     log(f"  K5 (ragged lengths 0..4096) and K6 (T 5/64/256 over 0 and 1024) agree with "
         f"their plain versions with softcap, window and both, bf16/f16: max rel err "
-        f"{max(c['rel_err'] for c in cases):.2e}")
+        f"{max(c['rel_err'] for c in cases):.2e}; K6 repeat calls bit-identical")
 
     timed = []
     dtype = torch.bfloat16
     esz = 2
-    for kid, lengths, t in (("K5", [1024] * 8, 0), ("K5", [4096] * 8, 0), ("K6", [1024], 256)):
+    # K6 at T=256 over 1024 (its kernels-line entry) and at the served
+    # pool-prefill chunk of phase 4 (one request, 32 tokens over a cached
+    # 32-token prefix)
+    for kid, lengths, t in (("K5", [1024] * 8, 0), ("K5", [4096] * 8, 0), ("K6", [1024], 256),
+                            ("K6", [32], 32)):
         q, kp, vp, tables, lens, live = paged_inputs(rng, gen, dev, dtype, lengths, t=t)
         kv_bytes = 2 * kp.numel() * esz
         pools = [(kp.clone(), vp.clone()) for _ in range(cold_copies(kv_bytes))]
@@ -1233,35 +1253,58 @@ def _record_first(eng, first_rows):
     return wrapped
 
 
-def profile_steps(name, step):
-    """Where a decode step's device time goes: three calls of ``step``
-    under torch.profiler, outside the counted runs (the profiler runs only
-    after every timed run, so it cannot slow one down)."""
+# device kernels by name: K4 (the tensor-core loop and its split-K
+# reduction), K6, and PyTorch's dtype copies (an f32 copy of the lm_head or
+# of a KV cache would show there)
+PROFILE_GROUPS = {
+    "K4": ("lut_mma_kernel", "split_reduce_kernel"),
+    "K6": ("verify_mma_kernel",),
+    "dtype copies": ("direct_copy",),
+}
+# an f32 copy of the lm_head ([4096, 128256]) or of a layer's KV cache
+# (Engine's [8, 8, 256, 128]) converts at least this many elements; a decode
+# step's activations convert at most [8, 28672] (the logits are f32 already)
+LARGE_COPY_ELEMENTS = 1 << 20
+
+
+def profile_steps(name, step, steps=3):
+    """Where a step's device time goes: ``steps`` calls of ``step`` under
+    torch.profiler, outside the counted runs (the profiler runs only after
+    every timed run, so it cannot slow one down)."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(activities=acts, record_shapes=True) as prof:
         t0 = time.perf_counter()
-        for i in range(3):
+        for i in range(steps):
             step(i)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    # dtype conversions of large tensors, by input shape
+    large = sorted({tuple(ev.input_shapes[0]) for ev in prof.events()
+                    if ev.name == "aten::_to_copy" and ev.input_shapes and ev.input_shapes[0]
+                    and int(np.prod(ev.input_shapes[0])) >= LARGE_COPY_ELEMENTS})
     by_kernel = {}
     for ev in prof.key_averages():
         dt = getattr(ev, "device_time_total", None)
         if dt is None:
             dt = getattr(ev, "cuda_time_total", 0)
         if ev.device_type == torch.autograd.DeviceType.CUDA and dt > 0:
-            by_kernel[ev.key] = dt / 3 / 1e3  # ms per step
+            by_kernel[ev.key] = dt / steps / 1e3  # ms per step
     dev_ms = sum(by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
+    groups = {g: sum(ms for k_name, ms in by_kernel.items() if any(p in k_name for p in pats))
+              for g, pats in PROFILE_GROUPS.items()}
     profile = dict(
-        wall_ms_per_step=wall / 3 * 1e3,
+        wall_ms_per_step=wall / steps * 1e3,
         device_ms_per_step=dev_ms if by_kernel else None,
-        idle_share=(1 - dev_ms / (wall / 3 * 1e3)) if by_kernel else None,
+        idle_share=(1 - dev_ms / (wall / steps * 1e3)) if by_kernel else None,
         top_kernels_ms_per_step=top,
+        groups_ms_per_step=groups if by_kernel else None,
+        large_dtype_copies=[list(shape) for shape in large],
     )
     if by_kernel:
-        log(f"  [{name}] decode step profile: wall {wall / 3 * 1e3:.2f} ms, device busy "
-            f"{dev_ms:.2f} ms (idle share {profile['idle_share']:.2f})")
+        log(f"  [{name}] profile of {steps} step(s): wall {wall / steps * 1e3:.2f} ms, device "
+            f"busy {dev_ms:.2f} ms (idle share {profile['idle_share']:.2f}) per step; "
+            + ", ".join(f"{g} {ms:.3f} ms" for g, ms in groups.items()))
         for k_name, ms in top[:6]:
             log(f"    {ms:8.3f} ms  {k_name[:100]}")
     else:
@@ -1285,14 +1328,24 @@ def profile_decode(dev, name, eng):
 
 
 def profile_paged(name, eng, prompts):
-    """A PagedEngine decode step with 8 live requests."""
+    """A PagedEngine step that admits 8 requests (pool prefill: K6) and
+    decodes once, then three decode steps with 8 live requests."""
     for p in prompts:
         eng.submit(p, max_new_tokens=8)
-    eng.step()  # admission and a first decode step
     torch.cuda.synchronize()
+    admission = profile_steps(f"{name} admission", lambda i: eng.step(), steps=1)
     profile = profile_steps(name, lambda i: eng.step())
     eng.run()
+    profile["admission_step"] = admission
     return profile
+
+
+def check_copies(name, profile):
+    """No f32 copy of the lm_head or of a KV cache: no dtype conversion in a
+    decode step takes a tensor of LARGE_COPY_ELEMENTS or more."""
+    if profile["large_dtype_copies"]:
+        raise AssertionError(f"[{name}] a decode step converts tensors of shapes "
+                             f"{profile['large_dtype_copies']}")
 
 
 def kernel_line(kid, cases, launches):
@@ -1336,6 +1389,8 @@ def attention_line(kid, checks, timed, launches):
         bound_by=row["bound_by"],
         library_ms=row["library_us"] / 1e3,
         checked=True,
+        **({"served_chunk_ms": [c for c in timed if c["kernel"] == kid][-1]["us"] / 1e3}
+           if kid == "K6" else {}),
     )
 
 
@@ -1498,8 +1553,15 @@ def main() -> int:
         launches[kid] = higgs_launches[KERNELS[kid][2]]
     for name, eng in engines.items():
         results["serving"][name]["profile"] = profile_decode(dev, name, eng)
-    results["serving"]["paged_higgs_w4"]["profile"] = profile_paged("paged HIGGS-W4", paged_eng,
-                                                                    prompts)
+        check_copies(name, results["serving"][name]["profile"])
+    higgs_profile = profile_paged("paged HIGGS-W4", paged_eng, prompts)
+    results["serving"]["paged_higgs_w4"]["profile"] = higgs_profile
+    check_copies("paged HIGGS-W4", higgs_profile)
+    admission = higgs_profile["admission_step"]["groups_ms_per_step"]
+    if higgs_profile["groups_ms_per_step"] is not None and admission is not None:
+        log(f"  [paged HIGGS-W4] K4 {higgs_profile['groups_ms_per_step']['K4']:.3f} ms per decode "
+            f"step; K6 {admission['K6']:.3f} ms in the step that admits 8 requests; no decode "
+            f"step converts a tensor of {LARGE_COPY_ELEMENTS} elements or more")
     del engines, paged_eng
     torch.cuda.empty_cache()
     lab_served = {fn: lab_ops.LAUNCHES[fn] - lab_before[fn] for fn in lab_before}

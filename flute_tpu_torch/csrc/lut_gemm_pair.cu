@@ -12,160 +12,147 @@
 // Layout decoded: the pair planes of lut_gemm_plane.cu (see there): pair
 // field ce | co << pb, fields LSB first, field i of word row c * kc + j is
 // pair-row c * chunk / 2 + i * kc + j; 3 bits are a 2-bit plane plus a 1-bit
-// plane paired 2 + 1 as in lut_gemm_plane.cu.
+// plane paired 2 + 1 (pair-row i * kc0 + j takes bits 2(2i + j / kc1) of
+// 1-bit word row j % kc1).
 //
 // The joint table: entry pc = ce | co << b holds (pv[ce, co, 0],
-// pv[ce, co, 1]), each rounded to the compute type, in shared memory as two
-// floats (at 4 bits 256 entries, 2 KB). Its index is derived from the oracle
+// pv[ce, co, 1]), each rounded to the compute type, packed in one 32-bit
+// word in shared memory (8 copies, 8 KB at 4 bits, against bank conflicts):
+// one lookup is one mma.sync B register. Its index is derived from the oracle
 // (lut_gemm.dequantize_codes_pair indexes pv[ce, co]), not from the TPU tile
 // (which stores the transposed payload, lut_gemm.py:690).
 //
 // Numerics: each weight is pv[ce, co, i] rounded to the compute type, times
-// its scale, rounded once to the compute type (the oracle's order); products
-// with x are accumulated in f32 with IEEE FMAs and the warps' partial sums are
-// added in a fixed order, so an identity x is bit-exact. Like the JAX
-// package's pair_lut mode it runs in 16-bit compute only (bf16, f16): the C
-// entry refuses dtype 0 (f32).
+// its scale with one packed 16-bit multiply (a single rounding of the exact
+// product: the oracle's round(v * s)); products with x are accumulated in
+// f32 on the tensor cores and a split-K's partial sums are added in split
+// order, so an identity x is bit-exact and a repeat call gives the same
+// bits. Like the JAX package's pair_lut mode it runs in 16-bit compute only
+// (bf16, f16): the C entry refuses dtype 0 (f32).
 //
-// What bounds it: bytes, as K2 (b / 8 byte of plane and 2 / g byte of scale
-// per weight at decode). Design: K2's skeleton (lut_gemm_common.cuh) with the
-// 2^b scalar table replaced by the joint table; one shared-memory read of a
-// float2 per weight pair instead of two scalar reads. A warp's 32 lanes read
-// 32 arbitrary entries, so the table reads may conflict on banks; simple and
-// correct first, no pipelining across chunks, no wgmma or TMA.
+// What bounds it: bytes at decode (b / 8 byte of plane and 2 / g byte of
+// scale per weight), operations at prefill. Design: the tensor-core loop of
+// lut_gemm_mma.cuh (16-byte plane loads, a register ring of prefetched
+// words, scales once per group, K permuted on the x side, split-K with a
+// second pass that adds the splits in order). With more than one split this
+// entry launches two kernels: the loop and lut_gemm_mma.cuh's
+// split_reduce_kernel.
 
-#include "lut_gemm_common.cuh"
+#include "lut_gemm_mma.cuh"
 
 namespace {
 
 using namespace flute;
+using namespace flute::mma;
 
-template <typename T, int BM, int NB>
-__global__ void __launch_bounds__(kThreads)
-lut_qgemm_pair_kernel(const T* __restrict__ x, const uint32_t* __restrict__ plane0,
-                      const uint32_t* __restrict__ plane1, const T* __restrict__ scales,
-                      const float* __restrict__ pv, T* __restrict__ y, int M, int N, int K,
-                      int group_size, int chunk) {
-  constexpr int kE = 1 << NB;                    // sub-code values
-  constexpr int kPB0 = NB == 4 ? 4 : 2;          // bits of the first plane
-  constexpr int kFB0 = 2 * kPB0;                 // bits of its pair field
-  constexpr int kR0 = 32 / kFB0;                 // pair fields per word
-  constexpr uint32_t kFieldMask = (1u << kFB0) - 1;
-  constexpr uint32_t kSubMask = (1u << kPB0) - 1;
+template <typename T, int NB>
+struct PairDecoder {
+  static constexpr int kPlaneBits0 = NB == 4 ? 4 : 2;
+  static constexpr int kFields = 32 / (2 * kPlaneBits0);
+  static constexpr int kE = 1 << NB;
+  static constexpr uint32_t kFieldMask = (1u << (2 * kPlaneBits0)) - 1;
+  // copies of the table, entry pc of copy c at word pc * kCopies + c: lane l
+  // reads copy l % kCopies, so the 4 lanes that share a copy meet in 4 of
+  // its banks and 32 random lookups conflict about 2-way, not 3.5-way
+  static constexpr int kCopies = 8;
 
-  // x tile [BM][chunk] while walking K; afterwards the per-warp partial sums
-  extern __shared__ float smem[];
-  __shared__ float2 tab[kE * kE];
+  struct Table {
+    uint32_t v[kE * kE * kCopies];
+  };
+  struct Words {
+    uint4 w0;  // first plane: 4 columns of one word row
+    uint4 w1;  // the 1-bit plane's word row at 3 bits
+  };
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int n = blockIdx.x * kBlockN + lane;
-  const int m0 = blockIdx.y * BM;
-  for (int pc = threadIdx.x; pc < kE * kE; pc += kThreads) {
-    const int ce = pc & (kE - 1);
-    const int co = pc >> NB;
-    const float* v = pv + 2 * (ce * kE + co);  // pv[ce, co, :]
-    tab[pc] = make_float2(Cvt<T>::round(v[0]), Cvt<T>::round(v[1]));
-  }
+  const uint32_t* tab;
 
-  float acc[BM];
-#pragma unroll
-  for (int r = 0; r < BM; ++r) acc[r] = 0.f;
-
-  const int kc0 = chunk * kPB0 / 32;  // first-plane word rows per chunk
-  const int kc1 = chunk / 32;         // 1-bit plane word rows per chunk (3-bit)
-  const int nchunks = K / chunk;
-  const bool col_ok = n < N;
-  for (int c = 0; c < nchunks; ++c) {
-    __syncthreads();  // previous chunk's x tile is no longer read (and tab is written)
-    const size_t kbase = static_cast<size_t>(c) * chunk;
-    stage_x<T, BM>(smem, x, M, K, m0, kbase, chunk);
-    __syncthreads();
-    if (col_ok) {
-      for (int j = warp; j < kc0; j += kWarps) {
-        const uint32_t w0 = __ldg(plane0 + (static_cast<size_t>(c) * kc0 + j) * N + n);
-        uint32_t w1 = 0;
-        int hi = 0;  // which half of the 1-bit word's fields this word pairs with
-        if constexpr (NB == 3) {
-          w1 = __ldg(plane1 + (static_cast<size_t>(c) * kc1 + j % kc1) * N + n);
-          hi = j / kc1;
-        }
-#pragma unroll
-        for (int i = 0; i < kR0; ++i) {
-          const uint32_t f = (w0 >> (kFB0 * i)) & kFieldMask;
-          uint32_t ce = f & kSubMask;
-          uint32_t co = f >> kPB0;
-          if constexpr (NB == 3) {
-            const uint32_t h = (w1 >> (2 * (2 * i + hi))) & 3u;
-            ce |= (h & 1u) << 2;
-            co |= (h >> 1) << 2;
-          }
-          const float2 v = tab[ce | (co << NB)];
-          const int k0 = 2 * (i * kc0 + j);  // even K row in the chunk
-          const float s = Cvt<T>::to_f(
-              scales[static_cast<size_t>((kbase + k0) / group_size) * N + n]);
-          const float we = Cvt<T>::round(v.x * s);
-          const float wo = Cvt<T>::round(v.y * s);
-          const float* xr = smem + k0;
-#pragma unroll
-          for (int r = 0; r < BM; ++r) {
-            acc[r] = fmaf(xr[r * chunk], we, acc[r]);
-            acc[r] = fmaf(xr[r * chunk + 1], wo, acc[r]);
-          }
-        }
-      }
+  __device__ PairDecoder(Table& t, const float* pv) : tab(t.v + (threadIdx.x & (kCopies - 1))) {
+    for (int idx = threadIdx.x; idx < kE * kE * kCopies; idx += blockDim.x) {
+      const int pc = idx / kCopies;
+      const int ce = pc & (kE - 1);
+      const int co = pc >> NB;
+      const float* v = pv + 2 * (ce * kE + co);  // pv[ce, co, :]
+      t.v[idx] = Pack2<T>::from_f(v[0], v[1]);
     }
   }
 
-  reduce_store<T, BM>(smem, acc, y, M, N, m0);
-}
-
-struct Launcher {
-  const void* x;
-  const void* plane0;
-  const void* plane1;
-  const void* scales;
-  const void* pv;
-  void* y;
-  int M, N, K, group_size, chunk, num_bits;
-  cudaStream_t stream;
-
-  template <typename T, int BM, int NB>
-  cudaError_t run_bits() const {
-    return launch_grid<BM>(lut_qgemm_pair_kernel<T, BM, NB>, M, N, chunk, stream,
-                           static_cast<const T*>(x), static_cast<const uint32_t*>(plane0),
-                           static_cast<const uint32_t*>(plane1),
-                           static_cast<const T*>(scales), static_cast<const float*>(pv),
-                           static_cast<T*>(y), M, N, K, group_size, chunk);
+  __device__ __forceinline__ Words load(const uint32_t* __restrict__ p0,
+                                        const uint32_t* __restrict__ p1, int c, int j, int kc0,
+                                        int kc1, int n0, int N, bool vec) const {
+    Words w;
+    w.w0 = load_cols(p0, static_cast<size_t>(c) * kc0 + j, n0, N, vec);
+    if constexpr (NB == 3)
+      w.w1 = load_cols(p1, static_cast<size_t>(c) * kc1 + j % kc1, n0, N, vec);
+    else
+      w.w1 = make_uint4(0, 0, 0, 0);
+    return w;
   }
 
-  template <typename T, int BM>
-  cudaError_t run() const {
-    switch (num_bits) {
-      case 2: return run_bits<T, BM, 2>();
-      case 3: return run_bits<T, BM, 3>();
-      case 4: return run_bits<T, BM, 4>();
-      default: return cudaErrorInvalidValue;
+  __device__ __forceinline__ uint32_t pair(const Words& w, int e, int i, int j, int kc1) const {
+    const uint32_t f = (word_of(w.w0, e) >> (2 * kPlaneBits0 * i)) & kFieldMask;
+    if constexpr (NB == 3) {
+      const uint32_t h = (word_of(w.w1, e) >> (2 * (2 * i + j / kc1))) & 3u;
+      const uint32_t ce = (f & 3u) | ((h & 1u) << 2);
+      const uint32_t co = (f >> 2) | ((h >> 1) << 2);
+      return tab[(ce | (co << 3)) * kCopies];
+    } else {
+      return tab[f * kCopies];  // f = ce | co << NB
     }
   }
 };
+
+// Items of words prefetched per lane: four (a deeper ring ran slower on the
+// H100, and sixteen spilled); four blocks of 128 threads per SM then keep
+// 32 KB of plane words in flight.
+template <typename T, int NB>
+cudaError_t run_bits(const Args& a, int m_tiles, int splits, cudaStream_t s) {
+  constexpr int kDepth = 4;
+  switch (m_tiles) {
+    case 1: return launch_mma<T, 1, kDepth, PairDecoder<T, NB>>(a, splits, s);
+    case 2: return launch_mma<T, 2, kDepth, PairDecoder<T, NB>>(a, splits, s);
+    case 4: return launch_mma<T, 4, kDepth, PairDecoder<T, NB>>(a, splits, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+cudaError_t run(const Args& a, int num_bits, int m_tiles, int splits, cudaStream_t s) {
+  switch (num_bits) {
+    case 2: return run_bits<T, 2>(a, m_tiles, splits, s);
+    case 3: return run_bits<T, 3>(a, m_tiles, splits, s);
+    case 4: return run_bits<T, 4>(a, m_tiles, splits, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
 
 }  // namespace
 
 // num_bits: 2, 3 or 4; plane1 is the 1-bit plane at 3 bits and is ignored
 // otherwise. pv: float32 [2^num_bits, 2^num_bits, 2]. dtype: 1 = float16,
-// 2 = bfloat16 (x, scales and y share it); 0 (float32) is refused. All
-// pointers are device pointers; the kernel runs on `stream` and is not
-// synchronised. Returns the cudaError_t of the launch.
+// 2 = bfloat16 (x, scales and y share it); 0 (float32) is refused. m_tiles
+// (1, 2 or 4) m16 tiles per warp; splits divides K / chunk, and with more
+// than one split `work` is a float32 [splits, M, N] workspace (else null).
+// vec: N % 4 == 0 with planes 16-byte and scales 8-byte aligned. The first
+// plane's word rows per chunk must be a multiple of 4, and x 16-byte
+// aligned. All pointers are device pointers; the kernels run on `stream`
+// and are not synchronised. Returns the cudaError_t of the launches.
 extern "C" int flute_lut_qgemm_pair(const void* x, const void* plane0, const void* plane1,
-                                    const void* scales, const void* pv, void* y, int M, int N,
-                                    int K, int group_size, int chunk, int num_bits, int dtype,
-                                    int block_m, void* stream) {
-  const Launcher l{x,     plane0, plane1, scales, pv, y, M, N, K, group_size,
-                   chunk, num_bits, static_cast<cudaStream_t>(stream)};
+                                    const void* scales, const void* pv, void* y, void* work,
+                                    int M, int N, int K, int group_size, int chunk, int num_bits,
+                                    int dtype, int m_tiles, int splits, int vec, void* stream) {
+  const int pb0 = num_bits == 4 ? 4 : 2;
+  const int nchunks = chunk > 0 ? K / chunk : 0;
+  if (chunk <= 0 || K % chunk || (chunk * pb0 / 32) % 4 || splits < 1 || nchunks % splits ||
+      (splits > 1 && work == nullptr))
+    return cudaErrorInvalidValue;
+  const Args a{x,  static_cast<const uint32_t*>(plane0), static_cast<const uint32_t*>(plane1),
+               scales, static_cast<const float*>(pv), y, splits > 1 ? static_cast<float*>(work)
+                                                                   : nullptr,
+               M, N, K, group_size, chunk, nchunks / splits, vec};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 1: return dispatch_bm<__half>(block_m, l);
-    case 2: return dispatch_bm<__nv_bfloat16>(block_m, l);
+    case 1: return run<__half>(a, num_bits, m_tiles, splits, s);
+    case 2: return run<__nv_bfloat16>(a, num_bits, m_tiles, splits, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -15,10 +15,10 @@
 // pl.pallas_call of _kernel) and ::paged_verify_attention (its
 // pl.pallas_call of _verify_kernel).
 //
-// Design. One block of 8 warps per (sequence, KV head, tile of ROWS query
-// rows); a row is a (query t, head of the KV head's group) pair, so the
-// rep = H / Hkv heads that share a KV head read each pool block once, and in
-// the verify kernel all T queries of a tile do too. The q tile is staged in
+// Design of paged_attention_kernel. One block of 8 warps per (sequence, KV
+// head, tile of ROWS query rows); a row is a (query t, head of the KV head's
+// group) pair, so the rep = H / Hkv heads that share a KV head read each pool
+// block once, and in the f32 verify kernel the T queries of a tile do too. The q tile is staged in
 // shared memory as f32. Each warp walks its own share of the sequence's
 // logical blocks (j = warp, warp + 8, ...), reading the block table itself
 // and skipping blocks that no row of the tile may attend (past the longest
@@ -34,8 +34,8 @@
 // shared memory (max of the maxima, sums and numerators rescaled to it),
 // and the output is the numerator over max(sum, 1e-30), in q's dtype.
 //
-// Masks, as the TPU kernels have them. Decode uses -inf: every block it
-// visits holds a position each row may attend, and a slot of length 0
+// Masks, as the TPU kernels have them (both kernels). Decode uses -inf:
+// every block it visits holds a position each row may attend, and a slot of length 0
 // (parked on the trash block) visits none and returns 0 / 1e-30 = 0.
 // Verify uses the finite -1e30: its rows have different ranges, so a
 // visited block may hold nothing a row may attend, and -inf there would
@@ -45,12 +45,31 @@
 // row may attend at least its own position.
 //
 // What bounds it: bytes (the live K/V blocks, read once per KV head and
-// tile) at decode, far below the operations bound; at prefill (T = 256) the
-// operations, which it runs as f32 FMAs, not on tensor cores. Still simple:
-// no split of a sequence across blocks (a decode launch has B * Hkv
-// blocks), no cp.async/TMA staging, no tensor cores.
+// tile) at decode, far below the operations bound. Still simple: no split of
+// a sequence across blocks (a decode launch has B * Hkv blocks), no
+// cp.async/TMA staging. K5 (bf16, f16, f32) and K6 in f32 run this kernel.
+//
+// K6 in bf16 and f16 runs verify_mma_kernel (below): at prefill the
+// operations bound it, so it runs both products on tensor cores.
+// A block owns 64 query rows of one (sequence, KV head): 16 queries x rep 4
+// heads at Llama's 32/8, so every K/V position the tile may attend is read
+// from the pool once per block, and each of its 4 warps owns 16 rows. The
+// block reads its block-table row itself and gathers the positions
+// [window start of its first row, end of its last row) into a shared-memory
+// ring of 64 positions, double-buffered, with 16-byte cp.async (positions
+// outside that range are zero-filled). Each warp keeps its Q rows in
+// registers as mma A fragments; per 16 positions it computes S = Q K^T with
+// mma.sync.m16n8k16 (K fragments through ldmatrix), applies scale, softcap,
+// the window and the -1e30 mask to the f32 accumulators, updates an online
+// softmax per row (max and sum reduced over the 4 lanes of a quad), rounds P
+// to the input type as the A operand of the second mma.sync and takes V
+// through ldmatrix.trans. A warp skips 16 positions that none of its rows
+// may attend (exact: they would add exp(-1e30 - m) = 0). The end divides by
+// max(l, 1e-30) and stores in q's type. No atomics, no split of the
+// sequence: a repeat call gives the same bits. Rounding P to 16 bits before
+// PV is its one rounding that the f32 kernel does not make.
 
-#include "lut_gemm_common.cuh"  // Cvt<T>, flute_cuda_error_string
+#include "lut_gemm_mma.cuh"  // Cvt<T>, mma.sync / ldmatrix / cp.async helpers
 
 #include <math.h>
 
@@ -292,13 +311,233 @@ cudaError_t dispatch_shape(const Params& p, cudaStream_t stream) {
   }
 }
 
+constexpr int kTileRows = 64;  // query rows per block of the verify kernel: 4 warps x 16
+constexpr int kStagePos = 64;  // K/V positions per shared-memory stage
+constexpr int kVerifyThreads = 128;
+
+// K6 on tensor cores (bf16 / f16); see the note at the top.
+template <typename T, int D>
+__global__ void __launch_bounds__(kVerifyThreads) verify_mma_kernel(const Params p) {
+  using flute::mma::ldmatrix_x4;
+  using flute::mma::ldmatrix_x4_trans;
+  using flute::mma::mma16816;
+  using flute::mma::Pack2;
+  constexpr int kStride = D + 8;  // halves per staged K/V row: 16 bytes of padding
+  constexpr int kKS = D / 16;     // k16 steps of Q K^T
+  constexpr int kNT = D / 8;      // n8 tiles of the output
+  constexpr float kMask = -1e30f;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ks = reinterpret_cast<T*>(smem_raw);  // [2][kStagePos][kStride]
+  T* vs = ks + 2 * kStagePos * kStride;
+
+  const int b = blockIdx.x;
+  const int kvh = blockIdx.y;
+  const int rep = p.H / p.Hkv;
+  const int R = p.T * rep;
+  const int r0 = blockIdx.z * kTileRows;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int length = p.lengths[b];
+  const T* q = static_cast<const T*>(p.q);
+  const T* kpool = static_cast<const T*>(p.k_pool);
+  const T* vpool = static_cast<const T*>(p.v_pool);
+  const int* table = p.tables + static_cast<size_t>(b) * p.MB;
+
+  // attendable end of row r of this block (rows past R repeat the last)
+  auto att_of = [&](int r) { return length + min(r0 + r, R - 1) / rep + 1; };
+  // this lane's rows g and g + 8 of the warp's 16
+  int att[2];
+  size_t qoff[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int rr = min(r0 + warp * 16 + g + 8 * i, R - 1);
+    const int h = kvh * rep + rr % rep;
+    att[i] = length + rr / rep + 1;
+    qoff[i] = ((static_cast<size_t>(b) * p.T + rr / rep) * p.H + h) * D;
+  }
+  uint32_t qf[kKS][4];
+#pragma unroll
+  for (int k = 0; k < kKS; ++k) {
+    const int d = 16 * k + 2 * t;
+    qf[k][0] = *reinterpret_cast<const uint32_t*>(q + qoff[0] + d);
+    qf[k][1] = *reinterpret_cast<const uint32_t*>(q + qoff[1] + d);
+    qf[k][2] = *reinterpret_cast<const uint32_t*>(q + qoff[0] + d + 8);
+    qf[k][3] = *reinterpret_cast<const uint32_t*>(q + qoff[1] + d + 8);
+  }
+
+  // positions the block may need, and those its warp may need
+  const int hi = att_of(kTileRows - 1);
+  const int lo = p.has_window ? max(0, att_of(0) - p.window) : 0;
+  const int w_hi = att_of(warp * 16 + 15);
+  const int w_lo = p.has_window ? att_of(warp * 16) - p.window : 0;
+  const int s0 = lo / kStagePos * kStagePos;
+  const int n_stages = (hi - s0 + kStagePos - 1) / kStagePos;
+
+  auto stage = [&](int st) {
+    constexpr int kVecs = D / 8;  // 16-byte pieces per position
+    const int base = s0 + st * kStagePos;
+    T* kd = ks + (st & 1) * kStagePos * kStride;
+    T* vd = vs + (st & 1) * kStagePos * kStride;
+    for (int idx = threadIdx.x; idx < kStagePos * kVecs; idx += kVerifyThreads) {
+      const int i = idx / kVecs;
+      const int v = idx - i * kVecs;
+      const int pos = base + i;
+      const int j = pos / p.BS;
+      const bool ok = pos >= lo && pos < hi && j < p.MB;
+      size_t off = 0;
+      if (ok)
+        off = ((static_cast<size_t>(table[j]) * p.Hkv + kvh) * p.BS + pos % p.BS) * D + 8 * v;
+      flute::mma::cp_async16(kd + i * kStride + 8 * v, kpool + off, ok);
+      flute::mma::cp_async16(vd + i * kStride + 8 * v, vpool + off, ok);
+    }
+    flute::mma::cp_async_commit();
+  };
+
+  float o[kNT][4];
+#pragma unroll
+  for (int n = 0; n < kNT; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[n][i] = 0.f;
+  float m[2] = {kMask, kMask};
+  float l[2] = {0.f, 0.f};  // this lane's part of each row's sum
+
+  if (n_stages > 0) stage(0);
+  for (int st = 0; st < n_stages; ++st) {
+    if (st + 1 < n_stages) {
+      stage(st + 1);
+      flute::mma::cp_async_wait<1>();
+    } else {
+      flute::mma::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const T* kb = ks + (st & 1) * kStagePos * kStride;
+    const T* vb = vs + (st & 1) * kStagePos * kStride;
+#pragma unroll 1
+    for (int pc = 0; pc < kStagePos / 16; ++pc) {
+      const int pp = s0 + st * kStagePos + 16 * pc;
+      if (pp >= w_hi || (p.has_window && pp + 16 <= w_lo)) continue;  // the same for the warp
+      float sc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+      const T* krow = kb + (16 * pc + (lane & 7) + ((lane >> 4) << 3)) * kStride +
+                      ((lane >> 3) & 1) * 8;
+#pragma unroll
+      for (int k = 0; k < kKS; ++k) {
+        uint32_t kf[4];
+        ldmatrix_x4(kf, krow + 16 * k);
+        mma16816<T>(sc[0], qf[k], kf[0], kf[1]);
+        mma16816<T>(sc[1], qf[k], kf[2], kf[3]);
+      }
+      // c0, c1: row g, positions 2t, 2t + 1 of the n8 tile; c2, c3: row g + 8
+      float mx[2] = {kMask, kMask};
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = i >> 1;
+          const int pos = pp + 8 * n + 2 * t + (i & 1);
+          float v = sc[n][i] * p.scale;
+          if (p.has_softcap) v = tanhf(v / p.softcap) * p.softcap;
+          bool valid = pos < att[r];
+          if (p.has_window) valid = valid && pos >= att[r] - p.window;
+          v = valid ? v : kMask;
+          sc[n][i] = v;
+          mx[r] = fmaxf(mx[r], v);
+        }
+      }
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r]);
+        alpha[r] = __expf(m[r] - m_new);
+        m[r] = m_new;
+        l[r] *= alpha[r];
+      }
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float pr = __expf(sc[n][i] - m[i >> 1]);
+          l[i >> 1] += pr;
+          sc[n][i] = pr;
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < kNT; ++n) {
+        o[n][0] *= alpha[0];
+        o[n][1] *= alpha[0];
+        o[n][2] *= alpha[1];
+        o[n][3] *= alpha[1];
+      }
+      // P as the A operand: k = the 16 positions
+      const uint32_t pa[4] = {Pack2<T>::from_f(sc[0][0], sc[0][1]),
+                              Pack2<T>::from_f(sc[0][2], sc[0][3]),
+                              Pack2<T>::from_f(sc[1][0], sc[1][1]),
+                              Pack2<T>::from_f(sc[1][2], sc[1][3])};
+      const T* vrow = vb + (16 * pc + (lane & 7) + ((lane >> 3) & 1) * 8) * kStride +
+                      (lane >> 4) * 8;
+#pragma unroll
+      for (int dn = 0; dn < kNT / 2; ++dn) {
+        uint32_t vf[4];
+        ldmatrix_x4_trans(vf, vrow + 16 * dn);
+        mma16816<T>(o[2 * dn], pa, vf[0], vf[1]);
+        mma16816<T>(o[2 * dn + 1], pa, vf[2], vf[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with this stage's buffer
+  }
+
+  T* out = static_cast<T*>(p.out);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const float inv = 1.f / fmaxf(l[r], 1e-30f);
+    if (r0 + warp * 16 + g + 8 * r >= R) continue;
+    T* dst = out + qoff[r] + 2 * t;
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+      *reinterpret_cast<uint32_t*>(dst + 8 * n) =
+          Pack2<T>::from_f(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
+  }
+}
+
+template <typename T, int D>
+cudaError_t launch_verify_mma(const Params& p, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(2) * 2 * kStagePos * (D + 8) * sizeof(T);
+  auto kernel = verify_mma_kernel<T, D>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  const dim3 grid(p.B, p.Hkv, (p.T * (p.H / p.Hkv) + kTileRows - 1) / kTileRows);
+  kernel<<<grid, kVerifyThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_verify_mma(const Params& p, cudaStream_t stream) {
+  if (p.BS % 8 != 0 || 32 % p.BS != 0 || (p.D * p.BS) % 1024 != 0) return cudaErrorInvalidValue;
+  switch (p.D) {
+    case 64: return launch_verify_mma<T, 64>(p, stream);
+    case 128: return launch_verify_mma<T, 128>(p, stream);
+    case 256: return launch_verify_mma<T, 256>(p, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 template <bool VERIFY>
 int run(const Params& p, int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0: return dispatch_shape<float, VERIFY>(p, s);
-    case 1: return dispatch_shape<__half, VERIFY>(p, s);
-    case 2: return dispatch_shape<__nv_bfloat16, VERIFY>(p, s);
+    case 1: return VERIFY ? dispatch_verify_mma<__half>(p, s) : dispatch_shape<__half, false>(p, s);
+    case 2:
+      return VERIFY ? dispatch_verify_mma<__nv_bfloat16>(p, s)
+                    : dispatch_shape<__nv_bfloat16, false>(p, s);
     default: return cudaErrorInvalidValue;
   }
 }

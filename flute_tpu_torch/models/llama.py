@@ -75,6 +75,31 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     return (y * weight.float()).to(x.dtype)
 
 
+def _matmul_upcast(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.matmul(a.float(), b.float())
+
+
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with an f32 result, the JAX model's
+    ``preferred_element_type=float32`` product. On CUDA, for 16-bit operands
+    of one dtype, one cuBLAS product of the operands as they are (``mm`` /
+    ``bmm`` with ``out_dtype``; a transposed view is passed without a copy):
+    a product of two bf16 or f16 values is exact in f32, so only the order of
+    the f32 sums differs from the upcast product. Otherwise (the CPU, f32)
+    the product of the f32 upcasts. ``a`` is ``[..., m, k]`` and ``b``
+    ``[k, n]`` or ``[..., k, n]`` with the same leading dims."""
+    if a.device.type != "cuda" or a.dtype not in (torch.bfloat16, torch.float16) \
+            or b.dtype != a.dtype:
+        return _matmul_upcast(a, b)
+    if b.ndim == 2:
+        out = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
+        return out.reshape(*a.shape[:-1], b.shape[-1])
+    lead = a.shape[:-2]
+    out = torch.bmm(a.reshape(-1, *a.shape[-2:]), b.reshape(-1, *b.shape[-2:]),
+                    out_dtype=torch.float32)
+    return out.reshape(*lead, *out.shape[-2:])
+
+
 def apply_linear(layer, x: torch.Tensor) -> torch.Tensor:
     """A quantized module, or a dense ``[in, out]`` tensor cast to x's dtype,
     multiplied with f32 accumulation and rounded to x's dtype."""
@@ -149,17 +174,28 @@ def gqa_attention(
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """GQA attention over a head-major KV cache, in plain matmul/softmax:
-    f32 scores, a finite -1e30 mask, probabilities in the compute dtype."""
+    f32 scores and f32 sums of the products, a finite -1e30 mask,
+    probabilities in the compute dtype.
+
+    A decode step (T = 1) multiplies the 16-bit operands with f32 results
+    (:func:`matmul_f32`), never copying the cache. A prefill block takes the
+    product of the f32 upcasts: that adds each row's terms in K order, so the
+    zeros of left padding leave its sums as they are, and a prompt's
+    first-token logits do not depend on where a batch's padding puts it in
+    the cache; tensor-core sums group the products by 16 from the start of
+    the cache, and over 32 layers that grouping alone moves the logits by a
+    few percent."""
     b, t, h, d = q.shape
     hkv = k.shape[1]
     rep = h // hkv
     scale = scale if scale is not None else d**-0.5
+    mm = matmul_f32 if t == 1 else _matmul_upcast
     qm = q.reshape(b, t, hkv, rep, d).permute(0, 2, 3, 1, 4).reshape(b, hkv, rep * t, d)
-    scores = torch.matmul(qm.float(), k.float().transpose(-1, -2)) * scale
+    scores = mm(qm, k.transpose(-1, -2)) * scale
     scores = scores.reshape(b, hkv, rep, t, -1)
     scores = scores.masked_fill(~mask[:, None, None, :, :], -1e30)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    out = torch.matmul(probs.reshape(b, hkv, rep * t, -1).float(), v.float())
+    out = mm(probs.reshape(b, hkv, rep * t, -1), v)
     out = out.reshape(b, hkv, rep, t, d).permute(0, 3, 1, 2, 4)
     return out.reshape(b, t, h, d).to(q.dtype)
 
@@ -296,8 +332,9 @@ def forward(
     if isinstance(head, QuantizedLinear):
         logits = head(x)[..., :config.vocab_size]
     else:
-        # f32 logits from an f32-accumulated product, never rounded to bf16
-        logits = torch.matmul(x.float(), head.float())
+        # f32 logits from an f32-accumulated product, never rounded to bf16;
+        # the head (a transposed view when tied) is never copied
+        logits = matmul_f32(x, head)
     return logits.float(), cache
 
 

@@ -6,10 +6,12 @@ Its block sizes describe TPU tiles and the CUDA launch ignores them; its
 ``chunk`` is part of the packed layout and is honoured. The TPU device
 profiles and tuned registry are TPU-calibrated and have no counterpart here.
 
-``LaunchConfig`` is what the Hopper LUT-GEMM kernels actually take: K1
+``LaunchConfig`` is what the Hopper LUT-GEMM kernels K1
 (``csrc/lut_gemm_w4sym.cu``), K2 (``csrc/lut_gemm_plane.cu``) and K3
-(``csrc/lut_gemm_w3wide.cu``) share one skeleton
-(``csrc/lut_gemm_common.cuh``) and so one launch shape.
+(``csrc/lut_gemm_w3wide.cu``) take: they share one skeleton
+(``csrc/lut_gemm_common.cuh``) and so one launch shape. ``mma_plan`` plans
+the tensor-core loop (``csrc/lut_gemm_mma.cuh``) that K4
+(``csrc/lut_gemm_pair.cu``) runs on: m16 tiles per warp and the split of K.
 """
 
 from __future__ import annotations
@@ -89,3 +91,46 @@ def launch_config(m: int) -> LaunchConfig:
         if m <= bm:
             return LaunchConfig(block_m=bm)
     return LaunchConfig(block_m=BLOCK_M_CHOICES[-1])
+
+
+# The tensor-core loop (csrc/lut_gemm_mma.cuh, K4): 128 columns per block,
+# m16 tiles per warp instantiated for these counts.
+MMA_BLOCK_N = 128
+MMA_M_TILES = (1, 2, 4)
+# Blocks a launch should have: two per SM of the H100's 132. At decode four
+# blocks fit an SM, so up to 528 run in one wave.
+MMA_TARGET_BLOCKS = 2 * 132
+
+
+@dataclasses.dataclass(frozen=True)
+class MmaPlan:
+    """Launch of the tensor-core LUT-GEMM for one (M, N, K, chunk).
+
+    ``m_tiles`` m16 tiles per warp (``16 * m_tiles`` rows per block);
+    ``splits`` divides the K chunks among blocks (blockIdx.y) and, above 1,
+    needs an f32 workspace ``[splits, M, N]`` that a second kernel adds in
+    split order."""
+
+    m_tiles: int
+    splits: int
+    grid: tuple[int, int, int]
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1] * self.grid[2]
+
+    def workspace_shape(self, m: int, n: int) -> tuple[int, int, int] | None:
+        return (self.splits, m, n) if self.splits > 1 else None
+
+
+def mma_plan(m: int, n: int, k: int, chunk: int) -> MmaPlan:
+    """The m16 tiles per warp (the fewest that cover M, at most 4) and the
+    smallest split of K's chunks that gives :data:`MMA_TARGET_BLOCKS`
+    blocks; every chunk its own split if none does."""
+    m_tiles = next((mt for mt in MMA_M_TILES if m <= 16 * mt), MMA_M_TILES[-1])
+    cols = -(-n // MMA_BLOCK_N)
+    rows = max(1, -(-m // (16 * m_tiles)))
+    nchunks = k // chunk
+    divisors = [s for s in range(1, nchunks + 1) if nchunks % s == 0]
+    splits = next((s for s in divisors if cols * rows * s >= MMA_TARGET_BLOCKS), nchunks)
+    return MmaPlan(m_tiles=m_tiles, splits=splits, grid=(cols, splits, rows))

@@ -32,7 +32,13 @@ import torch
 
 from flute_tpu_torch import bitutils
 from flute_tpu_torch import packing as _packing
-from flute_tpu_torch.ops.kernel_config import KernelConfig, launch_config
+from flute_tpu_torch.ops.kernel_config import (
+    MMA_BLOCK_N,
+    KernelConfig,
+    MmaPlan,
+    launch_config,
+    mma_plan,
+)
 
 # Launches of each kernel, by layout; a wrapper adds one where it launches
 # its kernel and nowhere else, so a run can show which kernels its path
@@ -124,13 +130,14 @@ def lut_qgemm_plain(
 
 
 # kernel -> (source, C entry, its pointer and int arguments before the
-# stream: x, planes, scales, table (the pair table for "pair"), y, then M,
-# N, K, group_size, chunk [, num_bits], dtype, block_m)
+# stream: x, planes, scales, table (the pair table for "pair"), y [, the
+# split-K workspace], then M, N, K, group_size, chunk [, num_bits], dtype,
+# then block_m, or for "pair" m_tiles, splits and vec)
 _KERNELS = {
     "w4sym": ("lut_gemm_w4sym.cu", "flute_lut_qgemm_w4sym", 5, 7),
     "plane": ("lut_gemm_plane.cu", "flute_lut_qgemm_plane", 6, 8),
     "w3wide": ("lut_gemm_w3wide.cu", "flute_lut_qgemm_w3wide", 5, 7),
-    "pair": ("lut_gemm_pair.cu", "flute_lut_qgemm_pair", 6, 8),
+    "pair": ("lut_gemm_pair.cu", "flute_lut_qgemm_pair", 7, 10),
 }
 
 
@@ -209,9 +216,13 @@ def _launch(
     group_size: int,
     chunk: int,
     extra: tuple[int, ...] = (),
+    plan: Optional[MmaPlan] = None,
+    vec: bool = True,
 ) -> torch.Tensor:
     """Launch ``kernel`` on PyTorch's current stream (operands already
-    checked) and count the launch; returns ``[M, N]`` in x's dtype."""
+    checked) and count the launch; returns ``[M, N]`` in x's dtype. With a
+    ``plan`` (the tensor-core loop of K4) it passes the split-K workspace,
+    allocated here, and the plan's fields."""
     m, k = x2.shape
     n = scales.shape[1]
     dev = x2.device
@@ -220,11 +231,16 @@ def _launch(
         return y
     fn, error_string = _kernel_fn(kernel)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    if plan is None:
+        work, tail = (), (launch_config(m).block_m,)
+    else:
+        shape = plan.workspace_shape(m, n)
+        ws = None if shape is None else torch.empty(shape, dtype=torch.float32, device=dev)
+        work, tail = (None if ws is None else ws.data_ptr(),), (plan.m_tiles, plan.splits, int(vec))
     with torch.cuda.device(dev):
         err = fn(
-            x2.data_ptr(), *plane_ptrs, scales.data_ptr(), table.data_ptr(), y.data_ptr(),
-            m, n, k, group_size, chunk, *extra, _DTYPE_TAG[x2.dtype],
-            launch_config(m).block_m, stream,
+            x2.data_ptr(), *plane_ptrs, scales.data_ptr(), table.data_ptr(), y.data_ptr(), *work,
+            m, n, k, group_size, chunk, *extra, _DTYPE_TAG[x2.dtype], *tail, stream,
         )
     if err != 0:
         raise RuntimeError(
@@ -287,9 +303,12 @@ def lut_qgemm_pair_cuda(
     group_size: int,
     chunk: int,
 ) -> torch.Tensor:
-    """Launch K4, the Hopper joint pair-lookup kernel, for a 2-D ``x2``
-    ``[M, K]`` in bf16 or f16, 2-, 3- (2+1 planes) or 4-bit pair planes and
-    a float32 pair table ``[2^b, 2^b, 2]``; returns ``[M, N]`` in x's dtype."""
+    """Launch K4, the Hopper joint pair-lookup kernel (the tensor-core loop
+    of ``csrc/lut_gemm_mma.cuh``, split-K as :func:`mma_plan` says, with an
+    f32 workspace and a second kernel that adds the splits in order), for a
+    2-D ``x2`` ``[M, K]`` in bf16 or f16, 2-, 3- (2+1 planes) or 4-bit pair
+    planes and a float32 pair table ``[2^b, 2^b, 2]``; returns ``[M, N]`` in
+    x's dtype. Counts one launch per call."""
     if num_bits not in (2, 3, 4):
         raise ValueError(f"the pair kernel takes 2, 3 or 4 bits, not {num_bits}")
     if x2.dtype not in (torch.bfloat16, torch.float16):
@@ -300,9 +319,48 @@ def lut_qgemm_pair_cuda(
     e = 2**num_bits
     _check_operands(x2, planes, rows, scales, pair_values, (e, e, 2), group_size, chunk,
                     table_name="pair_values")
+    if (chunk * fmt.plane_bits[0] // 32) % 4:
+        raise ValueError(f"chunk={chunk} too small for the pair kernel at {num_bits} bits "
+                         "(its first plane needs a multiple of 4 word rows per chunk)")
+    if x2.data_ptr() % 16:  # the loop copies x in 16-byte pieces
+        x2 = x2.clone()
+    n = scales.shape[1]
+    vec = (n % 4 == 0 and scales.data_ptr() % 8 == 0
+           and all(p.data_ptr() % 16 == 0 for p in planes))
     ptrs = [planes[0].data_ptr(), planes[1].data_ptr() if num_bits == 3 else None]
-    return _launch("pair", x2, ptrs, scales, pair_values,
-                   group_size=group_size, chunk=chunk, extra=(num_bits,))
+    return _launch("pair", x2, ptrs, scales, pair_values, group_size=group_size, chunk=chunk,
+                   extra=(num_bits,), plan=mma_plan(x2.shape[0], n, k, chunk), vec=vec)
+
+
+def mma_k_order(num_bits: int, chunk: int) -> torch.Tensor:
+    """K4's order of one pack chunk's K rows on the tensor cores, mirrored
+    from ``csrc/lut_gemm_mma.cuh``: entry ``[q, s, slot]`` is the K row
+    (within the chunk) that mma step ``(q, s)`` multiplies at k-slot
+    ``slot`` (0..15). Item ``q`` is first-plane word rows ``4q..4q+3``, lane
+    ``l`` taking row ``4q + l % 4``; step ``s`` takes field ``2s`` of those
+    rows as slots 0..7 and field ``2s + 1`` as slots 8..15, slot ``2t + h``
+    (``+ 8``) being row ``h`` of the pair of word row ``4q + t``. Field ``i``
+    of word row ``j`` is pair-row ``i * kc + j`` (the packed format)."""
+    pb0 = 4 if num_bits == 4 else 2
+    kc = chunk * pb0 // bitutils.WORD_BITS
+    fields = bitutils.WORD_BITS // (2 * pb0)
+    q = torch.arange(kc // 4)[:, None, None]
+    s = torch.arange(fields // 2)[None, :, None]
+    slot = torch.arange(16)[None, None, :]
+    field = 2 * s + slot // 8
+    word_row = 4 * q + (slot % 8) // 2
+    return 2 * (field * kc + word_row) + slot % 2
+
+
+def mma_columns() -> torch.Tensor:
+    """K4's columns within a 128-column block, mirrored from
+    ``csrc/lut_gemm_mma.cuh``: entry ``[warp, e, ns]`` is the column that
+    n8 tile ``e`` of ``warp`` holds at n-slot ``ns`` (lane ``l`` loads the 4
+    columns ``4 (l // 4) + e`` of its warp's 32)."""
+    warp = torch.arange(MMA_BLOCK_N // 32)[:, None, None]
+    e = torch.arange(4)[None, :, None]
+    ns = torch.arange(8)[None, None, :]
+    return 32 * warp + 4 * ns + e
 
 
 def lut_qgemm_w3wide_cuda(

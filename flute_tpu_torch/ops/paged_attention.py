@@ -14,8 +14,9 @@ per-sequence block table maps logical block ``j`` (positions
 Both take Gemma-2's logit ``softcap`` and a sliding ``window``. Dispatch is
 by the tensors' device: on the CPU the plain versions
 (:func:`paged_gqa_reference`, :func:`paged_verify_reference`); on CUDA the
-Hopper kernels of ``csrc/paged_attention.cu`` (K5 decode, K6 verify), which
-read the block table themselves and skip dead blocks. A build or launch
+Hopper kernels of ``csrc/paged_attention.cu`` (K5 decode, K6 verify; K6
+runs both products on tensor cores in bf16 and f16), which read the block
+table themselves and skip dead blocks. A build or launch
 failure raises. Table entries are clamped to ``[0, NB-1]`` first, so those
 of blocks at or past a sequence's end may be anything.
 """
@@ -237,8 +238,12 @@ def paged_verify_attention(
 ) -> torch.Tensor:
     """Multi-query paged attention, K6 on CUDA: query ``t`` of sequence
     ``b`` sits at position ``lengths[b] + t`` with its K/V already in the
-    pool and attends ``lengths[b] + t + 1`` positions. Each pool block is
-    read once for all T queries. Returns ``[B, T, H, D]``."""
+    pool and attends ``lengths[b] + t + 1`` positions. In bf16 and f16 the
+    kernel (tensor cores) reads each pool position once per tile of 64
+    query rows of a (sequence, KV head), that is ``ceil(T * rep / 64)``
+    times (16 queries per tile at 32/8 heads), and rounds the probabilities
+    to q's dtype before the second product; in f32 once per tile of 8
+    rows. Returns ``[B, T, H, D]``."""
     if q.ndim != 4:
         raise ValueError(f"q must be [B, T, H, D], got {tuple(q.shape)}")
     return _dispatch(

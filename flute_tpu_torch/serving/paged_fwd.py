@@ -25,6 +25,7 @@ import torch
 from flute_tpu_torch.models.llama import (
     apply_linear,
     apply_rope,
+    matmul_f32,
     rms_norm,
     rope_tables,
     split_fused_qkv,
@@ -69,7 +70,7 @@ def _head_logits(params, cfg, x, last_idx: Optional[int]):
     head = params["lm_head"] if params.get("lm_head") is not None else params["embed"].T
     if isinstance(head, QuantizedLinear):
         return head(x)[..., :cfg.vocab_size].float()
-    return torch.matmul(x.float(), head.to(x.dtype).float())
+    return matmul_f32(x, head.to(x.dtype))
 
 
 def llama_layers(params, cfg, x, cos, sin, attend) -> torch.Tensor:

@@ -253,6 +253,134 @@ def test_higgs_layer_through_the_kernel(dev):
     assert rel_err(y.cpu(), cpu(x.cpu())) < TOL[torch.bfloat16]
 
 
+def mma_pair_case(dev, bits, m, n, k, dtype, seed, chunk, g=G):
+    """codes, x, planes, scales and a pair table for K4 at any N, K, g."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 2**bits, size=(k, n), dtype=np.int32)
+    planes = packing.pack_np(codes, bits, chunk=chunk)
+    scales = rng.uniform(0.5, 1.5, (k // g, n)).astype(np.float32)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    pv = rng.standard_normal((2**bits, 2**bits, 2)).astype(np.float32)
+    return (torch.from_numpy(codes).to(dev), torch.from_numpy(x).to(dev, dtype),
+            [torch.from_numpy(p).to(dev) for p in planes],
+            torch.from_numpy(scales).to(dev, dtype), torch.from_numpy(pv).to(dev))
+
+
+# N: whole 128-column blocks, a ragged block (N % 4 == 0: 16-byte loads) and
+# N % 4 != 0 (the kernel's element loads)
+@pytest.mark.parametrize("n", [384, 200, 198])
+@pytest.mark.parametrize("chunk", [128, 256])
+@pytest.mark.parametrize("bits", [2, 3, 4])
+@pytest.mark.parametrize("m", [1, 5, 8, 16, 64, 512])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_pair_mma_kernel_vs_plain(dev, dtype, m, bits, chunk, n):
+    """The tensor-core K4 at one, two and four m16 tiles per warp, split-K
+    (K = 1024: up to 8 splits) and ragged N, against the plain version."""
+    _, x, planes, s, pv = mma_pair_case(dev, bits, m, n, 1024, dtype, seed=m + bits + n,
+                                        chunk=chunk)
+    cfg = KernelConfig(chunk=chunk)
+    zeros = torch.zeros(2**bits, device=dev)
+    before = lut_gemm.LAUNCHES["pair"]
+    y = lut_gemm.lut_qgemm(x, planes, s, zeros, num_bits=bits, config=cfg, pair_values=pv)
+    assert lut_gemm.LAUNCHES["pair"] == before + 1
+    y_plain = lut_gemm.lut_qgemm_plain(x, planes, s, zeros, num_bits=bits, chunk=chunk,
+                                       layout="plane", pair_values=pv)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and tuple(y.shape) == (m, n)
+    assert rel_err(y, y_plain) < TOL[dtype]
+
+
+@pytest.mark.parametrize("n", [256, 198])
+@pytest.mark.parametrize("chunk", [128, 256])
+@pytest.mark.parametrize("bits", [2, 3, 4])
+def test_pair_mma_identity_bit_exact(dev, bits, chunk, n):
+    codes, _, planes, s, pv = mma_pair_case(dev, bits, 1, n, 512, torch.bfloat16, seed=41,
+                                            chunk=chunk)
+    eye = torch.eye(512, dtype=torch.bfloat16, device=dev)
+    got = lut_gemm.qgemm(eye, planes, s, torch.zeros(2**bits, device=dev), bits, G,
+                         config=KernelConfig(chunk=chunk), pair_values=pv)
+    want = lut_gemm.dequantize_codes_pair(codes, s, pv, torch.bfloat16)
+    assert torch.equal(got.float(), want.float())
+
+
+@pytest.mark.parametrize("m", [1, 8, 512])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_pair_mma_repeat_calls_bit_identical(dev, dtype, m):
+    """Split-K adds its partial sums in split order: a repeat call gives the
+    same bits (K = 2048 at chunk 128: 16 chunks, several splits)."""
+    _, x, planes, s, pv = mma_pair_case(dev, 4, m, 384, 2048, dtype, seed=42, chunk=128)
+    kw = dict(num_bits=4, config=KernelConfig(chunk=128), pair_values=pv)
+    assert lut_gemm.mma_plan(m, 384, 2048, 128).splits > 1 or m == 512
+    first = lut_gemm.lut_qgemm(x, planes, s, None, **kw)
+    for _ in range(3):
+        again = lut_gemm.lut_qgemm(x, planes, s, None, **kw)
+        assert torch.equal(again.view(torch.int16), first.view(torch.int16))
+
+
+@pytest.mark.parametrize("g", [2, 32, 128, 512])
+@pytest.mark.parametrize("bits", [3, 4])
+def test_pair_mma_other_group_sizes(dev, bits, g):
+    """Groups smaller than a field's rows (g 2), within a chunk (32), across
+    fields (128) and across chunks (512)."""
+    codes, x, planes, s, pv = mma_pair_case(dev, bits, 8, 256, 1024, torch.bfloat16, seed=43,
+                                            chunk=256, g=g)
+    zeros = torch.zeros(2**bits, device=dev)
+    y = lut_gemm.lut_qgemm(x, planes, s, zeros, num_bits=bits, pair_values=pv)
+    y_plain = lut_gemm.lut_qgemm_plain(x, planes, s, zeros, num_bits=bits, chunk=256,
+                                       layout="plane", pair_values=pv)
+    assert rel_err(y, y_plain) < TOL[torch.bfloat16]
+    eye = torch.eye(1024, dtype=torch.bfloat16, device=dev)
+    got = lut_gemm.lut_qgemm(eye, planes, s, zeros, num_bits=bits, pair_values=pv)
+    assert torch.equal(got.float(), lut_gemm.dequantize_codes_pair(codes, s, pv,
+                                                                   torch.bfloat16).float())
+
+
+def test_pair_mma_unaligned_x_and_small_chunk(dev):
+    """x at an odd offset is copied before the 16-byte loads; a chunk whose
+    first plane has fewer than 4 word rows is refused."""
+    _, x, planes, s, pv = mma_pair_case(dev, 4, 9, 256, 512, torch.bfloat16, seed=44, chunk=256)
+    zeros = torch.zeros(16, device=dev)
+    buf = torch.empty(9 * 512 + 1, dtype=torch.bfloat16, device=dev)
+    xo = buf[1:].view(9, 512)
+    xo.copy_(x)
+    assert xo.data_ptr() % 16
+    kw = dict(num_bits=4, pair_values=pv)
+    assert torch.equal(lut_gemm.lut_qgemm(xo, planes, s, zeros, **kw),
+                       lut_gemm.lut_qgemm(x, planes, s, zeros, **kw))
+    _, x2, planes2, s2, pv2 = mma_pair_case(dev, 2, 2, 256, 512, torch.bfloat16, seed=45,
+                                            chunk=32)
+    with pytest.raises(ValueError, match="word rows"):
+        lut_gemm.lut_qgemm_pair_cuda(x2, planes2, s2, pv2, num_bits=2, group_size=G, chunk=32)
+
+
+@pytest.mark.parametrize("case", ["head", "head_tied", "attention"])
+def test_matmul_f32_on_the_card(dev, case):
+    """llama.matmul_f32: 16-bit operands, f32 result, within 1e-5 of the
+    upcast product, and no f32 copy of the large operand (the peak rises by
+    less than an f32 head would take)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(46)
+    if case == "attention":  # [B * Hkv, rep * T, D] @ [B * Hkv, D, S], K as a transposed view
+        a = torch.randn((8, 2, 4, 128), generator=gen, device=dev).bfloat16()
+        big = torch.randn((8, 2, 4096, 128), generator=gen, device=dev).bfloat16()
+        b = big.transpose(-1, -2)
+    else:  # [8, 1, 4096] @ a 4096 x 128256 head, stored [in, out] or tied [out, in]
+        a = torch.randn((8, 1, 4096), generator=gen, device=dev).bfloat16()
+        big = torch.randn((128256, 4096) if case == "head_tied" else (4096, 128256),
+                          generator=gen, device=dev).bfloat16()
+        b = big.T if case == "head_tied" else big
+    want = torch.matmul(a.float(), b.float())
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    got = llama.matmul_f32(a, b)
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated(dev) - base
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert rel_err(got, want) < 1e-5
+    assert rise < big.numel() * 4
+
+
 PAGED_OPTIONS = [(None, None), (50.0, None), (None, 10), (30.0, 24), (50.0, 3)]
 
 
@@ -303,6 +431,61 @@ def test_paged_verify_kernel_vs_plain(dev, dtype, t, softcap, window):
     torch.cuda.synchronize()
     assert tuple(got.shape) == tuple(q.shape) and torch.isfinite(got.float()).all()
     assert max_rel(got, want) < TOL[torch.bfloat16]
+
+
+def verify_case(dev, dtype, lengths, t, d, bs, seed):
+    """q [B, T, 32, d], pools of blocks of ``bs`` holding every live block of
+    the sequences (a random permutation of pool rows) and their tables."""
+    rng = np.random.default_rng(seed)
+    need = [-(-(n + t) // bs) for n in lengths]
+    mb, nb = max(need), sum(need) + 1
+    rows = rng.permutation(np.arange(1, nb))
+    tables = np.zeros((len(lengths), mb), np.int32)
+    start = 0
+    for i, k in enumerate(need):
+        tables[i, :k] = rows[start:start + k]
+        start += k
+    q = torch.from_numpy(rng.standard_normal((len(lengths), t, 32, d)).astype(np.float32))
+    kp, vp = (torch.from_numpy(rng.standard_normal((nb, 8, bs, d)).astype(np.float32))
+              for _ in range(2))
+    return (q.to(dev, dtype), kp.to(dev, dtype), vp.to(dev, dtype),
+            torch.from_numpy(tables).to(dev),
+            torch.tensor(lengths, dtype=torch.int32, device=dev))
+
+
+def check_verify(q, kp, vp, tables, lengths, softcap, window):
+    kw = dict(softcap=softcap, window=window)
+    before = pa.LAUNCHES["paged_verify"]
+    got = pa.paged_verify_attention(q, kp, vp, tables, lengths, **kw)
+    again = pa.paged_verify_attention(q, kp, vp, tables, lengths, **kw)
+    assert pa.LAUNCHES["paged_verify"] == before + 2
+    want = pa.paged_verify_reference(q, kp, vp, tables, lengths, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == q.dtype and torch.isfinite(got.float()).all()
+    assert torch.equal(got.view(torch.uint8), again.view(torch.uint8))
+    # f32: the kernel and the plain version differ in the order of f32 sums
+    limit = TOL[torch.bfloat16] if q.dtype != torch.float32 else 1e-4
+    assert max_rel(got, want) < limit
+
+
+@pytest.mark.parametrize("softcap,window", PAGED_OPTIONS)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("lengths", [[1024], [0, 37, 1024]])
+@pytest.mark.parametrize("t", [1, 5, 16, 64, 256])
+def test_paged_verify_tensor_cores_vs_plain(dev, t, lengths, dtype, softcap, window):
+    """K6 at Llama's 32/8 heads, D 128, blocks of 16: bf16/f16 on the
+    tensor-core kernel (64-row tiles, several per (sequence, KV head) from T
+    = 17 on), f32 on the f32 kernel; a repeat call gives the same bits."""
+    case = verify_case(dev, dtype, lengths, t, 128, 16, seed=t + len(lengths))
+    check_verify(*case, softcap, window)
+
+
+@pytest.mark.parametrize("softcap,window", PAGED_OPTIONS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d,bs", [(64, 16), (64, 32), (128, 8), (128, 32), (256, 8), (256, 16)])
+def test_paged_verify_head_dims_and_blocks(dev, d, bs, dtype, softcap, window):
+    case = verify_case(dev, dtype, [0, 37, 300], 70, d, bs, seed=d + bs)
+    check_verify(*case, softcap, window)
 
 
 def test_paged_wrappers_on_the_card(dev):

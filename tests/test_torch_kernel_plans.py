@@ -1,0 +1,265 @@
+"""The plans of the tensor-core kernels, held on the CPU.
+
+* K4 (``csrc/lut_gemm_mma.cuh``, ``csrc/lut_gemm_pair.cu``): the index map
+  mirrored in ``lut_gemm.mma_k_order`` / ``mma_columns`` is a permutation of
+  each pack chunk's K rows and of a block's columns; the product computed
+  step by step through it, each B fragment decoded from the port's packed
+  words as the kernel decodes them, equals the JAX package's ``lut_qgemm``
+  with ``pair_values`` (interpret mode) within the bf16 threshold, and every
+  decoded B value equals ``dequantize_codes_pair`` bit for bit.
+* The split-K planner (``kernel_config.mma_plan``) at the four
+  Llama-3.1-8B projections and M 1, 8, 512: splits divide the chunk count,
+  the grid has at least 132 blocks where one pass would not, and the wrapper
+  allocates exactly the planned workspace and passes the plan.
+* K6 (``verify_mma_kernel`` in ``csrc/paged_attention.cu``): a torch
+  emulation of its numerics (64-row tiles of 16-row warps, online softmax
+  over 16-position pieces with the warp's skips, P rounded to the input
+  dtype before PV) against JAX ``paged_verify_attention`` (interpret mode)
+  for every softcap/window option, bf16 and f16, within 1.1e-2 of the
+  largest output.
+"""
+
+import contextlib
+import types
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from flute_tpu.ops import lut_gemm as jlut
+from flute_tpu.ops import paged_attention as jpa
+from flute_tpu.ops.kernel_config import KernelConfig as JKernelConfig
+from flute_tpu_torch import bitutils, packing
+from flute_tpu_torch.ops import kernel_config, lut_gemm
+
+K, N, G = 512, 256, 64
+BF16_TOL = 1.1e-2
+
+
+def rel_err(y, ref):
+    y, ref = np.asarray(y, np.float64), np.asarray(ref, np.float64)
+    return float(np.linalg.norm(y - ref) / np.linalg.norm(ref))
+
+
+@pytest.mark.parametrize("bits", [2, 3, 4])
+@pytest.mark.parametrize("chunk", [128, 256, 512])
+def test_k4_index_map_is_a_permutation(bits, chunk):
+    order = lut_gemm.mma_k_order(bits, chunk)
+    pb0 = 4 if bits == 4 else 2
+    kc = chunk * pb0 // bitutils.WORD_BITS
+    assert tuple(order.shape) == (kc // 4, 32 // (2 * pb0) // 2, 16)
+    assert sorted(order.flatten().tolist()) == list(range(chunk))
+    # an mma step's two halves are 8 consecutive K rows each (one ldmatrix row)
+    for half in (order[..., :8], order[..., 8:]):
+        assert torch.equal(half - half[..., :1], torch.arange(8).expand_as(half))
+    cols = lut_gemm.mma_columns()
+    assert sorted(cols.flatten().tolist()) == list(range(kernel_config.MMA_BLOCK_N))
+
+
+def decode_step_b(planes, pv, scales, bits, chunk, c, q, s, dtype):
+    """The B fragment of mma step (q, s) of chunk c as the kernel forms it:
+    ``[16, N]``, slot ``2t + r`` (+ 8 for field 2s + 1) is row r of the pair
+    of field i of word row 4q + t; pair table and scale rounded to ``dtype``,
+    their product rounded once."""
+    pb0 = 4 if bits == 4 else 2
+    kc0 = chunk * pb0 // bitutils.WORD_BITS
+    kc1 = chunk // bitutils.WORD_BITS
+    e = 2**bits
+    w0 = planes[0].to(torch.int64) & 0xFFFFFFFF
+    pvr = pv.to(dtype)
+    out = torch.empty((16, planes[0].shape[1]), dtype=dtype)
+    order = lut_gemm.mma_k_order(bits, chunk)
+    for slot in range(16):
+        t, r, i = (slot % 8) // 2, slot % 2, 2 * s + slot // 8
+        j = 4 * q + t
+        f = (w0[c * kc0 + j] >> (2 * pb0 * i)) & ((1 << 2 * pb0) - 1)
+        ce, co = f & ((1 << pb0) - 1), f >> pb0
+        if bits == 3:
+            w1 = planes[1].to(torch.int64) & 0xFFFFFFFF
+            h = (w1[c * kc1 + j % kc1] >> (2 * (2 * i + j // kc1))) & 3
+            ce, co = ce | ((h & 1) << 2), co | ((h >> 1) << 2)
+        assert int(ce.max()) < e and int(co.max()) < e
+        k_row = c * chunk + int(order[q, s, slot])
+        out[slot] = pvr[ce, co, r] * scales[k_row // G].to(dtype)
+    return out
+
+
+@pytest.mark.parametrize("bits", [2, 3, 4])
+@pytest.mark.parametrize("chunk", [128, 256])
+def test_k4_product_through_the_index_map_matches_jax(bits, chunk):
+    rng = np.random.default_rng(40 + bits + chunk)
+    e = 2**bits
+    codes = rng.integers(0, e, (K, N), dtype=np.int32)
+    planes_np = packing.pack_np(codes, bits, chunk=chunk)
+    pv_np = rng.standard_normal((e, e, 2)).astype(np.float32)
+    scales_np = rng.uniform(0.5, 1.5, (K // G, N)).astype(np.float32)
+    x_np = rng.standard_normal((5, K)).astype(np.float32)
+    dtype = torch.bfloat16
+    planes = [torch.from_numpy(p) for p in planes_np]
+    pv = torch.from_numpy(pv_np)
+    scales = torch.from_numpy(scales_np).to(dtype)
+    x = torch.from_numpy(x_np).to(dtype)
+    deq = lut_gemm.dequantize_codes_pair(torch.from_numpy(codes), scales, pv, dtype)
+
+    order = lut_gemm.mma_k_order(bits, chunk)
+    y = torch.zeros((5, N), dtype=torch.float32)
+    for c in range(K // chunk):
+        for q in range(order.shape[0]):
+            for s in range(order.shape[1]):
+                rows = c * chunk + order[q, s]
+                b = decode_step_b(planes, pv, scales, bits, chunk, c, q, s, dtype)
+                assert torch.equal(b.view(torch.int16), deq[rows].view(torch.int16))
+                y += x[:, rows].float() @ b.float()
+
+    want = jlut.lut_qgemm(
+        jnp.asarray(x_np, jnp.bfloat16), [jnp.asarray(p) for p in planes_np],
+        jnp.asarray(scales_np, jnp.bfloat16), jnp.zeros((e,), jnp.float32), num_bits=bits,
+        config=JKernelConfig(block_m=8, block_n=128, block_k=256, lut_mode="pair_lut",
+                             chunk=chunk),
+        pair_values=jnp.asarray(pv_np), interpret=True)
+    assert rel_err(y.to(dtype).float(), np.asarray(want, np.float32)) < BF16_TOL
+
+
+LLAMA_8B = [("qkv", 6144, 4096), ("o", 4096, 4096), ("gate_up", 28672, 4096),
+            ("down", 4096, 14336)]
+
+
+@pytest.mark.parametrize("m", [1, 8, 512])
+@pytest.mark.parametrize("name,n,k", LLAMA_8B)
+def test_split_k_planner(monkeypatch, name, n, k, m):
+    chunk = 256
+    plan = kernel_config.mma_plan(m, n, k, chunk)
+    nchunks = k // chunk
+    assert nchunks % plan.splits == 0
+    assert m <= 16 * plan.m_tiles or plan.m_tiles == max(kernel_config.MMA_M_TILES)
+    cols = -(-n // kernel_config.MMA_BLOCK_N)
+    rows = -(-m // (16 * plan.m_tiles))
+    assert plan.grid == (cols, plan.splits, rows)
+    one_pass = cols * rows
+    if one_pass < 132:
+        assert plan.blocks >= 132
+    if one_pass >= kernel_config.MMA_TARGET_BLOCKS:
+        assert plan.splits == 1  # no workspace where one pass fills the card
+
+    # the wrapper allocates exactly the planned workspace and passes the plan
+    allocated, calls = [], []
+    empty = torch.empty
+
+    def recording_empty(*shape, **kw):
+        t = empty(*shape, **kw)
+        if kw.get("dtype") == torch.float32:
+            allocated.append(tuple(t.shape))
+        return t
+
+    def fake_entry(*args):
+        calls.append(args)
+        return 0
+
+    monkeypatch.setattr(lut_gemm, "_kernel_fn", lambda kernel: (fake_entry, None))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch, "empty", recording_empty)
+    x = torch.zeros((m, k), dtype=torch.bfloat16)
+    scales = torch.zeros((k // G, n), dtype=torch.bfloat16)
+    pv = torch.zeros((16, 16, 2))
+    lut_gemm._launch("pair", x, [0, None], scales, pv, group_size=G, chunk=chunk,
+                     extra=(4,), plan=plan)
+    want = plan.workspace_shape(m, n)
+    assert allocated == ([] if want is None else [want])
+    assert want is None or want == (plan.splits, m, n)
+    (args,) = calls
+    assert (args[6] is None) == (plan.splits == 1)  # the workspace pointer
+    assert args[-4:-1] == (plan.m_tiles, plan.splits, 1)
+
+
+# K6: B sequences, 8 query heads on 2 KV heads (rep 4), blocks of 16
+B, H, HKV, D, BS = 2, 8, 2, 64, 16
+ROWS, WARP_ROWS, PIECE = 64, 16, 16
+K6_OPTIONS = [(None, None), (30.0, None), (None, 24), (30.0, 24)]
+
+
+def k6_emulation(q, kp, vp, tables, lengths, scale, softcap, window):
+    """K6's arithmetic in torch: per (sequence, KV head, 64-row tile) and
+    per 16-row warp, 16-position pieces from the tile's first stage on,
+    skipping pieces no row of the warp may attend; f32 scores of the
+    16-bit products, softcap, window, the -1e30 mask; online softmax; P
+    rounded to the input dtype before PV; out = o / max(l, 1e-30)."""
+    b_, t_, h_, d_ = q.shape
+    rep = h_ // HKV
+    r_all = t_ * rep
+    out = torch.zeros_like(q)
+    for b in range(b_):
+        length = int(lengths[b])
+        pos_all = torch.arange(tables.shape[1] * BS)
+        blk = tables[b].long()[pos_all // BS]
+        for kvh in range(HKV):
+            kk = kp[blk, kvh, pos_all % BS].float()  # [S, D]
+            vv = vp[blk, kvh, pos_all % BS]
+            for r0 in range(0, r_all, ROWS):
+                def att(r, r0=r0):
+                    return length + min(r0 + r, r_all - 1) // rep + 1
+
+                hi = att(ROWS - 1)
+                lo = max(0, att(0) - window) if window is not None else 0
+                s0 = lo // 64 * 64
+                for w in range(ROWS // WARP_ROWS):
+                    rr = [min(r0 + w * WARP_ROWS + i, r_all - 1) for i in range(WARP_ROWS)]
+                    qrows = torch.stack([q[b, r // rep, kvh * rep + r % rep] for r in rr]).float()
+                    atts = torch.tensor([length + r // rep + 1 for r in rr])
+                    w_hi = att(w * WARP_ROWS + WARP_ROWS - 1)
+                    w_lo = att(w * WARP_ROWS) - window if window is not None else 0
+                    m = torch.full((WARP_ROWS,), -1e30)
+                    l_ = torch.zeros(WARP_ROWS)
+                    o = torch.zeros((WARP_ROWS, d_))
+                    for pp in range(s0, hi, PIECE):
+                        if pp >= w_hi or (window is not None and pp + PIECE <= w_lo):
+                            continue
+                        pos = torch.arange(pp, pp + PIECE)
+                        live = (pos >= lo) & (pos < hi)  # staged, else zero-filled
+                        at = pos.clamp(max=len(pos_all) - 1)
+                        kpc = torch.where(live[:, None], kk[at], 0.0)
+                        vpc = torch.where(live[:, None], vv[at], torch.zeros_like(vv[at]))
+                        s = (qrows @ kpc.T) * scale
+                        if softcap is not None:
+                            s = torch.tanh(s / softcap) * softcap
+                        valid = pos[None, :] < atts[:, None]
+                        if window is not None:
+                            valid &= pos[None, :] >= atts[:, None] - window
+                        s = torch.where(valid, s, torch.tensor(-1e30))
+                        m_new = torch.maximum(m, s.amax(dim=1))
+                        alpha = torch.exp(m - m_new)
+                        p = torch.exp(s - m_new[:, None])
+                        l_ = l_ * alpha + p.sum(dim=1)
+                        o = o * alpha[:, None] + p.to(q.dtype).float() @ vpc.float()
+                        m = m_new
+                    res = (o / l_.clamp_min(1e-30)[:, None]).to(q.dtype)
+                    for i in range(WARP_ROWS):
+                        r = r0 + w * WARP_ROWS + i
+                        if r < r_all:
+                            out[b, r // rep, kvh * rep + r % rep] = res[i]
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("softcap,window", K6_OPTIONS)
+def test_k6_numerics_match_jax(softcap, window, dtype):
+    rng = np.random.default_rng(7)
+    t, mb, nb = 20, 5, 12  # 80 rows: a full tile and a ragged one per KV head
+    q = rng.standard_normal((B, t, H, D)).astype(np.float32)
+    kp, vp = (rng.standard_normal((nb, HKV, BS, D)).astype(np.float32) for _ in range(2))
+    tables = rng.permutation(nb)[: B * mb].reshape(B, mb).astype(np.int32)
+    lengths = np.array([3, 50], np.int32)  # T over 3 and over 50 cached positions
+    jdt = getattr(jnp, dtype)
+    want = jpa.paged_verify_attention(
+        jnp.asarray(q, jdt), jnp.asarray(kp, jdt), jnp.asarray(vp, jdt), jnp.asarray(tables),
+        jnp.asarray(lengths), softcap=softcap, window=window, interpret=True)
+    tdt = getattr(torch, dtype)
+    got = k6_emulation(torch.from_numpy(q).to(tdt), torch.from_numpy(kp).to(tdt),
+                       torch.from_numpy(vp).to(tdt), torch.from_numpy(tables),
+                       torch.from_numpy(lengths), D**-0.5, softcap, window)
+    want = np.asarray(want, np.float32)
+    err = float(np.abs(got.float().numpy() - want).max() / np.abs(want).max())
+    assert np.isfinite(got.float().numpy()).all()
+    assert err < BF16_TOL
