@@ -23,8 +23,14 @@ Phases (any failure exits non-zero):
      plain version; K5 at B=8, 32/8 heads, D=128, blocks of 16, ragged
      lengths 0..4096, and K6 at T in {5, 64, 256} over 0 and 1024 cached
      positions, each with softcap, window and both, bf16 and f16 (max error
-     relative to the largest output < 1.1e-2); K4 and K6 called twice give
-     the same bits (K4's split-K and K6 add in a fixed order). K6 is timed at
+     relative to the largest output < 1.1e-2); K1, K2, K4 and K6 called
+     twice give the same bits (split-K and K6 add in a fixed order), and
+     rows 0 and M-1 of each K1, K2 and K4 call at M > 1 have the bits of the
+     one-row call on that row (the split does not follow M). K1 and K2 run
+     the tensor-core loop in bf16/f16 and their SIMT kernel in f32; each
+     case, and each kernel line, names the path it ran. K1 at M=512 is also
+     timed, in turns, with the split a planner that follows M would take:
+     what a row's independence of M costs at prefill. K6 is timed at
      T=256 over 1024 and at the served pool-prefill chunk (T=32 over 32
      cached). Time each kernel, its plain
      version and a yardstick that the port never calls (LUT-GEMMs: a
@@ -76,11 +82,12 @@ Phases (any failure exits non-zero):
      pool prefill, 12 requests (4 sharing a 32-token prefix, 2 sampled) on a
      pool small enough that admission waits, with exact launch counts: K4
      forward calls x 32 x 4, K5 decode steps x 32, K6 prefill chunks x 32,
-     K1-K3 none. The decode-step profiles (torch.profiler) report K4's ms
-     per HIGGS decode step and K6's in a step that admits 8 requests, and
-     fail if a decode step converts the dtype of a tensor of 2^20 elements or
-     more (the lm_head and the KV cache are multiplied in 16 bits with f32
-     results, never copied to f32).
+     K1-K3 none. The decode-step profiles (torch.profiler) report each
+     served model's LUT-GEMM (K1, K2, K3 or K4, and the loop's split-K
+     reduction) in ms per decode step, K6's in a step that admits 8
+     requests, and fail if a decode step converts the dtype of a tensor of
+     2^20 elements or more (the lm_head and the KV cache are multiplied in
+     16 bits with f32 results, never copied to f32).
 
 Prints a {"kernels": [...]} line, then as its last line
 {"ok": true, "device": {...}}. Writes the full results to
@@ -223,6 +230,26 @@ def make_weight(rng, gen, layout, bits, n, k, dtype, dev, chunk=256, mixed_signs
     return codes, planes, scales, table
 
 
+def kernel_path(kid, dtype, bits, chunk=256):
+    """The kernel a LUT-GEMM case runs: "mma" (the tensor-core loop) or
+    "simt" (the skeleton of lut_gemm_common.cuh), as the wrapper picks it."""
+    from flute_tpu_torch.ops import lut_gemm
+
+    if kid in ("K1", "K2"):
+        return lut_gemm.lut_path(dtype, bits, chunk)
+    return "mma" if kid == "K4" else "simt"
+
+
+def check_rows(kid, label, x, y, call):
+    """Rows 0 and M-1 of ``y`` (the call on all of ``x``) have the bits of
+    the one-row call on that row: a row's result does not depend on M."""
+    for i in sorted({0, x.shape[0] - 1}):
+        row = call(x[i:i + 1])
+        if not torch.equal(row.view(torch.int16), y[i:i + 1].view(torch.int16)):
+            raise AssertionError(f"{kid} {label}: row {i} of the M={x.shape[0]} call differs "
+                                 "from the one-row call")
+
+
 def phase_kernel(dev, results):
     from flute_tpu_torch import packing
     from flute_tpu_torch.ops import lut_gemm
@@ -255,11 +282,14 @@ def phase_kernel(dev, results):
                     y = lut_gemm.lut_qgemm(x, planes, scales, table, **kw)
                     y_plain = lut_gemm.lut_qgemm_plain(x, planes, scales, table, num_bits=bits,
                                                        chunk=256, layout=layout, pair_values=pv)
-                    if kid == "K4":  # split-K adds its partial sums in a fixed order
+                    label = f"{bits}-bit {name} M={m} {dtype}"
+                    if kid != "K3":  # split-K adds its partial sums in a fixed order
                         again = lut_gemm.lut_qgemm(x, planes, scales, table, **kw)
                         if not torch.equal(again.view(torch.int16), y.view(torch.int16)):
-                            raise AssertionError(f"K4 {bits}-bit {name} M={m} {dtype}: a repeat "
-                                                 "call gave other bits")
+                            raise AssertionError(f"{kid} {label}: a repeat call gave other bits")
+                        if m > 1:
+                            check_rows(kid, label, x, y, lambda xr: lut_gemm.lut_qgemm(
+                                xr, planes, scales, table, **kw))
                     torch.cuda.synchronize()
                     err = rel_err(y, y_plain)
                     max_abs = float((y.float() - y_plain.float()).abs().max())
@@ -267,7 +297,7 @@ def phase_kernel(dev, results):
                         raise AssertionError(f"{kid} {bits}-bit {name} M={m} {dtype}: rel err {err}")
                     case = dict(kernel=kid, bits=bits, name=name, n=n, k=k, m=m,
                                 dtype=str(dtype).split(".")[-1], rel_err=err,
-                                max_abs_err=max_abs)
+                                max_abs_err=max_abs, path=kernel_path(kid, dtype, bits))
                     cases.append(case)
                     if m not in timed or case["dtype"] not in timed_dtypes:
                         continue
@@ -297,18 +327,75 @@ def phase_kernel(dev, results):
                     )
                     case["share_of_bound"] = case["bound_us"] / case["us"]
                     log(
-                        f"    {name:8s} M={m:<4d} {case['dtype']:9s} err={err:.2e} "
+                        f"    {name:8s} M={m:<4d} {case['dtype']:9s} {case['path']:4s} "
+                        f"err={err:.2e} "
                         f"kernel {case['us']:9.1f} us  bound {case['bound_us']:7.1f} us "
                         f"({case['bound_by']}, {100 * case['share_of_bound']:5.1f}%)  "
                         f"plain {case['plain_us']:9.1f} us  matmul {case['library_us']:7.1f} us"
                     )
                 del args, deq_c, deq, planes
     results["kernel_cases"] = cases
-    log("  K4: every repeat call gave the same bits (fixed-order split-K)")
+    log("  K1, K2, K4: every repeat call gave the same bits (fixed-order split-K), and rows 0 "
+        "and M-1 of every call at M > 1 the bits of the one-row call")
+    time_split_cost(dev, rng, gen, results)
     check_identity(dev, rng, gen, results)
     check_pair_lut_routing(dev, rng, gen, results)
     check_qgemm_hadamard(dev, rng, gen, results)
     return cases
+
+
+def time_split_cost(dev, rng, gen, results, m=512, chunk=256):
+    """What a split that does not follow M costs at the served prefill block
+    (K1, bf16, M=512): each projection timed with mma_plan's split and with
+    the split a planner that follows M would take (the smallest that fills
+    the card counting M's row blocks too: one pass where they fill it), in
+    turns, both held to the plain version."""
+    from flute_tpu_torch.ops import kernel_config, lut_gemm
+    from flute_tpu_torch.utils.benchmark import bench_op, cold_copies
+
+    rows_out = []
+    for name, n, k in LAYER_SHAPES:
+        _, planes, scales, table = make_weight(rng, gen, "w4sym", 4, n, k, torch.bfloat16, dev)
+        x = torch.randn((m, k), generator=gen, device=dev).bfloat16()
+        fixed = kernel_config.mma_plan(m, n, k, chunk)
+        cols, _, rows = fixed.grid
+        nchunks = k // chunk
+        splits = next(s for s in range(1, nchunks + 1) if nchunks % s == 0 and (
+            cols * rows * s >= kernel_config.MMA_TARGET_BLOCKS or s == nchunks))
+        follow = kernel_config.MmaPlan(m_tiles=fixed.m_tiles, splits=splits,
+                                       grid=(cols, splits, rows))
+        wbytes = planes[0].numel() * 4 + scales.numel() * 2
+        args = [(planes[0].clone(), scales.clone()) for _ in range(cold_copies(wbytes))]
+        want = lut_gemm.lut_qgemm_plain(x, planes, scales, table, num_bits=4, chunk=chunk,
+                                        layout="w4sym")
+
+        def call(p, s, plan):
+            return lut_gemm._launch("w4sym", x, [p.data_ptr()], s, table, group_size=GROUP,
+                                    chunk=chunk, plan=plan)
+
+        for plan in (fixed, follow):
+            err = rel_err(call(planes[0], scales, plan), want)
+            if not err < THRESHOLDS[torch.bfloat16]:
+                raise AssertionError(f"K1 {name} M={m} with {plan.splits} splits: rel err {err}")
+        times = {"fixed": [], "follow": []}
+        for which in ("follow", "fixed", "fixed", "follow"):
+            plan = fixed if which == "fixed" else follow
+            times[which].append(bench_op(lambda p, s, plan=plan: call(p, s, plan), args) * 1e6)
+        def workspace(s):  # f32 partial sums written once and read once
+            return 2 * 4 * m * n * s if s > 1 else 0
+
+        row = dict(name=name, n=n, k=k, m=m, splits=fixed.splits, splits_following_m=splits,
+                   workspace_bytes=workspace(fixed.splits) - workspace(splits),
+                   us=min(times["fixed"]), us_following_m=min(times["follow"]))
+        rows_out.append(row)
+        log(f"    split cost {name:8s} M={m}: {fixed.splits:2d} splits {row['us']:8.1f} us, "
+            f"{splits:2d} splits (following M) {row['us_following_m']:8.1f} us")
+    total = sum(r["us"] for r in rows_out) - sum(r["us_following_m"] for r in rows_out)
+    extra = sum(r["workspace_bytes"] for r in rows_out)
+    log(f"  K1 at M={m}: the M-independent split costs {total:.1f} us per layer "
+        f"({extra / 1e9:.3f} GB more workspace written and read, "
+        f"{extra / HBM_BYTES_PER_S * 1e6:.1f} us of it at 3.35 TB/s)")
+    results["split_cost"] = dict(rows=rows_out, us_per_layer=total, extra_bytes=extra)
 
 
 def check_pair_lut_routing(dev, rng, gen, results):
@@ -350,6 +437,7 @@ def check_identity(dev, rng, gen, results):
     n, k = 256, 512
     identity = [("K1", 4, (128, 256)), ("K2", 4, (128, 256)), ("K2", 3, (128, 256)),
                 ("K2", 2, (128, 256)), ("K3", 3, (256, 512))]
+    paths = {}
     for kid, bits, chunks in identity:
         layout = LAYOUT[kid]
         for chunk in chunks:
@@ -362,9 +450,11 @@ def check_identity(dev, rng, gen, results):
                     got = lut_gemm.lut_qgemm(eye, planes, scales, table, num_bits=bits,
                                              layout=layout, config=cfg)
                     want = lut_gemm.dequantize_codes(codes, scales, table, dtype)
+                    path = kernel_path(kid, dtype, bits, chunk)
+                    paths.setdefault(kid, set()).add(f"{path} {str(dtype).split('.')[-1]}")
                     if not torch.equal(got.float(), want.float()):
-                        raise AssertionError(
-                            f"identity not bit-exact: {kid} {bits}-bit {dtype} chunk={chunk}")
+                        raise AssertionError(f"identity not bit-exact: {kid} {bits}-bit {dtype} "
+                                             f"chunk={chunk} ({path})")
             back = packing.unpack_via_kernel(planes, bits, n, k, chunk=chunk, layout=layout)
             if not torch.equal(back, codes):
                 raise AssertionError(
@@ -382,10 +472,12 @@ def check_identity(dev, rng, gen, results):
                 if not torch.equal(got.float(), want.float()):
                     raise AssertionError(
                         f"identity not bit-exact: K4 {bits}-bit {dtype} chunk={chunk}")
+    paths = {kid: sorted(p) for kid, p in paths.items()}
     log("  identity bit-exact (bf16/f16/f32; K1 and K2 at chunk 128/256, K1 with a "
         "mixed-sign table, K3 at 256/512; K4 in bf16/f16 at 2/3/4 bits, chunk 128/256); "
-        "unpack_via_kernel round-trips")
+        f"unpack_via_kernel round-trips; paths {paths}")
     results["identity_bit_exact"] = True
+    results["identity_paths"] = paths
 
 
 def check_qgemm_hadamard(dev, rng, gen, results):
@@ -1253,11 +1345,17 @@ def _record_first(eng, first_rows):
     return wrapped
 
 
-# device kernels by name: K4 (the tensor-core loop and its split-K
-# reduction), K6, and PyTorch's dtype copies (an f32 copy of the lm_head or
-# of a KV cache would show there)
+# device kernels by name: the LUT-GEMMs (K1, K2 and K4 on the tensor-core
+# loop, told apart by their table fill; K1 and K2 off it and K3 by their
+# SIMT kernels), the loop's split-K reduction (of whichever of K1, K2 and
+# K4 a model runs), K6, and PyTorch's dtype copies (an f32 copy of the
+# lm_head or of a KV cache would show there)
 PROFILE_GROUPS = {
-    "K4": ("lut_mma_kernel", "split_reduce_kernel"),
+    "K1": ("W4SymFill", "lut_qgemm_w4sym_kernel"),
+    "K2": ("ScalarFill", "lut_qgemm_plane_kernel"),
+    "K3": ("lut_qgemm_w3wide_kernel",),
+    "K4": ("JointFill",),
+    "split-K reduction": ("split_reduce_kernel",),
     "K6": ("verify_mma_kernel",),
     "dtype copies": ("direct_copy",),
 }
@@ -1348,16 +1446,22 @@ def check_copies(name, profile):
                              f"{profile['large_dtype_copies']}")
 
 
-def kernel_line(kid, cases, launches):
+def kernel_line(kid, cases, launches, identity_paths):
     """The {"kernels": [...]} entry of a LUT-GEMM: its decode stack, one
-    layer's four projections at M=8 in bf16 (K2 and K4 at 4 bits)."""
+    layer's four projections at M=8 in bf16 (K2 and K4 at 4 bits). ``path``
+    is the kernel that stack ran; ``paths`` every kernel its checked cases
+    ran (phase 2's and the identity checks')."""
     wrapper, source, _, replaces = KERNELS[kid]
     bits = 4 if kid != "K3" else 3
     mine = [c for c in cases if c["kernel"] == kid]
     stack = [c for c in mine if c["bits"] == bits and c["m"] == 8 and c["dtype"] == "bfloat16"]
+    (path,) = {c["path"] for c in stack}
+    paths = sorted({f"{c['path']} {c['dtype']}" for c in mine} | set(identity_paths.get(kid, ())))
     return dict(
         name=wrapper,
         route="cuda",
+        path=path,
+        paths=paths,
         source=f"flute_tpu_torch/csrc/{source}",
         replaces=replaces,
         launches=launches,
@@ -1559,7 +1663,9 @@ def main() -> int:
     check_copies("paged HIGGS-W4", higgs_profile)
     admission = higgs_profile["admission_step"]["groups_ms_per_step"]
     if higgs_profile["groups_ms_per_step"] is not None and admission is not None:
-        log(f"  [paged HIGGS-W4] K4 {higgs_profile['groups_ms_per_step']['K4']:.3f} ms per decode "
+        groups = higgs_profile["groups_ms_per_step"]
+        log(f"  [paged HIGGS-W4] K4 {groups['K4']:.3f} ms (+ split-K reduction "
+            f"{groups['split-K reduction']:.3f} ms) per decode "
             f"step; K6 {admission['K6']:.3f} ms in the step that admits 8 requests; no decode "
             f"step converts a tensor of {LARGE_COPY_ELEMENTS} elements or more")
     del engines, paged_eng
@@ -1570,7 +1676,8 @@ def main() -> int:
         raise AssertionError(f"phases 3 and 4 launched lab kernels: {lab_served}, {lab2_served}")
     log(f"  lab kernels launched in phases 3 and 4: {lab_served}, {lab2_served}")
 
-    kernels = [kernel_line(kid, cases, launches[kid]) for kid in LUT_KERNELS]
+    kernels = [kernel_line(kid, cases, launches[kid], results["identity_paths"])
+               for kid in LUT_KERNELS]
     kernels += [attention_line(kid, attn_checks, attn_timed, launches[kid])
                 for kid in ("K5", "K6")]
     kernels += [lab_line(kid, LAB, lab_cases, lab_checks, lab_launches, lab_served)

@@ -1,13 +1,19 @@
-// Pieces shared by the LUT-GEMM kernels (lut_gemm_w4sym.cu, lut_gemm_plane.cu,
-// lut_gemm_w3wide.cu): the block shape, compute-type conversions, staging of
-// x in shared memory, the fixed-order reduction of the warps' partial sums,
-// and the dispatch from the C entry's run-time dtype and block_m to a
-// template instance.
+// The SIMT skeleton of the LUT-GEMM kernels, and the compute-type
+// conversions every LUT-GEMM shares: the block shape, staging of x in
+// shared memory, the fixed-order reduction of the warps' partial sums, and
+// the dispatch from the C entry's run-time dtype and block_m to a template
+// instance.
 //
-// Every kernel has the same skeleton: one lane per output column (kBlockN =
-// 32 columns per block), eight warps splitting each pack chunk's words, the
-// block's BM rows of x for one chunk staged in shared memory as f32, and one
-// f32 accumulator per row in each lane, summed across the warps at the end.
+// K3 (lut_gemm_w3wide.cu) runs on it always; K1 (lut_gemm_w4sym.cu) and K2
+// (lut_gemm_plane.cu) run on it in f32 and at a pack chunk the tensor-core
+// loop does not take, and on that loop (lut_gemm_mma.cuh, with
+// lut_gemm_pair_decoder.cuh) in bf16 and f16, as K4 does.
+//
+// The skeleton: one lane per output column (kBlockN = 32 columns per
+// block), eight warps splitting each pack chunk's words, the block's BM rows
+// of x for one chunk staged in shared memory as f32, and one f32
+// accumulator per row in each lane (IEEE FMAs, no tensor cores), summed
+// across the warps at the end in a fixed order.
 
 #pragma once
 

@@ -1,8 +1,10 @@
 // The LUT-GEMM loop on tensor cores, for Hopper (sm_90a): a weight decoded
 // from packed pair planes straight into mma.sync B fragments, x staged in
 // shared memory as 16-bit A fragments, split-K with a fixed-order reduction.
-// K4 (lut_gemm_pair.cu) runs on it; a kernel adopts it by writing a Decoder
-// (below) for its layout.
+// K1 (lut_gemm_w4sym.cu) and K2 (lut_gemm_plane.cu) in bf16 and f16, and K4
+// (lut_gemm_pair.cu), run on it with the pair decoder of
+// lut_gemm_pair_decoder.cuh, each with its own table fill; a kernel adopts
+// it by writing a Decoder (below) for its layout.
 //
 //   y[M, N] = x[M, K] @ W,  W decoded per K-row pair and column
 //
@@ -36,7 +38,8 @@
 //   kernel adds in split order (no atomics, so a repeat call gives the same
 //   bits); with one split the block writes y itself. A Python planner
 //   (ops/kernel_config.py::mma_plan) picks the split and the m16 tiles per
-//   warp.
+//   warp, the split from N, K and chunk alone: a row's sums then run in one
+//   order in a batch of any size, so its result does not depend on M.
 // * M > 16: each warp runs MT m16 tiles on the same decoded B fragments.
 //
 // x is staged per pack chunk in a two-stage cp.async ring (16-byte copies,

@@ -20,31 +20,40 @@
 // 2 bits). Pair-row p = i * kc0 + j of the 2-bit plane lies in the 1-bit
 // plane at word p % kc1 = j % kc1, field p / kc1 = 2 i + j / kc1.
 //
-// Numerics: as lut_gemm_w4sym.cu. Each weight is table[c] rounded to the
-// compute type, times its scale, rounded once to the compute type (the
-// oracle lut_gemm.dequantize_codes); products with x are accumulated in f32
-// with IEEE FMAs, no tensor cores and no TF32, and the warps' partial sums
-// are added in a fixed order. An identity x is bit-exact in bf16, f16 and f32.
+// Two paths, chosen by the caller (ops/lut_gemm.py) before the launch, as
+// in lut_gemm_w4sym.cu:
 //
-// What bounds it: bytes. At decode (M <= 8) every weight costs b / 8 byte of
-// plane plus 2 / g byte of scale, so the least time is those bytes over HBM
-// bandwidth (3.35 TB/s on an H100 SXM). Design: K1's skeleton
-// (lut_gemm_common.cuh): one lane per output column, so a warp reads 128
-// contiguous bytes of a plane word row; eight warps split each chunk's word
-// rows of the first plane; x staged in shared memory as f32; the 2^b-entry
-// table in shared memory, where any pattern of indices is free of bank
-// conflicts (at most 16 words). At 3 bits a lane also loads the 1-bit
-// plane's word for its 2-bit word (each such word is read by two warps; the
-// second read hits L1). This is the simple, correct kernel: no pipelining
-// across chunks, no wgmma or TMA.
+// * bf16 and f16 at a chunk the loop takes (a multiple of 32 at 4 bits, of
+//   64 at 2 and 3, whose x ring fits shared memory:
+//   ops/kernel_config.py::mma_takes_chunk): the tensor-core loop of
+//   lut_gemm_mma.cuh with the pair decoder of lut_gemm_pair_decoder.cuh. The planes have K4's geometry, 2+1 planes
+//   included, so a field (with its 1-bit bits at 3 bits) is the index
+//   ce | co << b of a table of 16-bit pairs (table[ce], table[co]) built by
+//   each block from the 2^b values (ScalarFill below): 16, 64 or 256
+//   entries. Numerics are K1's: value times scale in one packed 16-bit
+//   multiply (the oracle lut_gemm.dequantize_codes), f32 sums on mma.sync,
+//   splits added in order, the split independent of M.
+// * f32, or a chunk the loop cannot take: the SIMT kernel below, on the
+//   skeleton of lut_gemm_common.cuh (IEEE FMAs, no TF32; the 2^b-entry
+//   table in shared memory; at 3 bits a lane also loads the 1-bit plane's
+//   word for its 2-bit word).
+//
+// Both are bit-exact with an identity x and give the same bits on a repeat
+// call; the plain PyTorch version differs only in the order of the f32 sums.
+//
+// What bounds it: bytes at decode (b / 8 byte of plane plus 2 / g byte of
+// scale per weight; 3.35 TB/s on an H100 SXM), operations at prefill; on
+// the loop at decode, its per-pair instructions take the time.
 
 #include "lut_gemm_common.cuh"
+#include "lut_gemm_pair_decoder.cuh"
 
 namespace {
 
 using namespace flute;
 
-// NB: bits per code (2, 3 or 4). plane1 is read only at 3 bits.
+// The SIMT kernel (f32, and chunks the loop cannot take); NB: bits per code
+// (2, 3 or 4). plane1 is read only at 3 bits.
 template <typename T, int BM, int NB>
 __global__ void __launch_bounds__(kThreads)
 lut_qgemm_plane_kernel(const T* __restrict__ x, const uint32_t* __restrict__ plane0,
@@ -149,18 +158,48 @@ struct Launcher {
   }
 };
 
+// The tensor-core loop's table: index pc = ce | co << NB names
+// (table[ce], table[co]), each rounded to T.
+template <int NB>
+struct ScalarFill {
+  template <typename T>
+  static __device__ uint32_t entry(int pc, const float* table) {
+    return mma::Pack2<T>::from_f(table[pc & ((1 << NB) - 1)], table[pc >> NB]);
+  }
+};
+
 }  // namespace
 
 // num_bits: 2, 3 or 4; plane1 is the 1-bit plane at 3 bits and is ignored
 // otherwise. dtype: 0 = float32, 1 = float16, 2 = bfloat16 (x, scales and y
-// share it; table is float32 [2^num_bits]). All pointers are device pointers;
-// the kernel runs on `stream` and is not synchronised. Returns the
-// cudaError_t of the launch.
+// share it; table is float32 [2^num_bits]). m_tiles 0 runs the SIMT kernel
+// with block_m (1, 2, 4 or 8) rows per block, in any dtype; m_tiles 1, 2 or
+// 4 runs the tensor-core loop (bf16/f16, the first plane's word rows per
+// chunk a multiple of 4, x 16-byte aligned) with that many m16 tiles per
+// warp and `splits` splits of K / chunk; with more than one split `work` is
+// a float32 [splits, M, N] workspace (else null), and the entry launches
+// the loop and its split reduction. vec: N % 4 == 0 with planes 16-byte and
+// scales 8-byte aligned. All pointers are device pointers; the kernels run
+// on `stream` and are not synchronised. Returns the cudaError_t of the
+// launches.
 extern "C" int flute_lut_qgemm_plane(const void* x, const void* plane0, const void* plane1,
-                                     const void* scales, const void* table, void* y, int M,
-                                     int N, int K, int group_size, int chunk, int num_bits,
-                                     int dtype, int block_m, void* stream) {
-  const Launcher l{x,     plane0, plane1, scales, table, y, M, N, K, group_size,
-                   chunk, num_bits, static_cast<cudaStream_t>(stream)};
-  return dispatch(dtype, block_m, l);
+                                     const void* scales, const void* table, void* y, void* work,
+                                     int M, int N, int K, int group_size, int chunk, int num_bits,
+                                     int dtype, int block_m, int m_tiles, int splits, int vec,
+                                     void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (m_tiles == 0) {
+    const Launcher l{x, plane0, plane1, scales, table, y, M, N, K, group_size, chunk, num_bits, s};
+    return dispatch(dtype, block_m, l);
+  }
+  mma::Args a;
+  if (!mma::pair_args(a, x, plane0, plane1, scales, table, y, work, M, N, K, group_size, chunk,
+                      num_bits == 4 ? 4 : 2, splits, vec))
+    return cudaErrorInvalidValue;
+  switch (num_bits) {
+    case 2: return mma::run_pair<2, ScalarFill<2>>(a, dtype, m_tiles, splits, s);
+    case 3: return mma::run_pair<3, ScalarFill<3>>(a, dtype, m_tiles, splits, s);
+    case 4: return mma::run_pair<4, ScalarFill<4>>(a, dtype, m_tiles, splits, s);
+    default: return cudaErrorInvalidValue;
+  }
 }

@@ -15,32 +15,44 @@
 // the value is table[m] rounded to the compute type with its sign bit XOR-ed
 // by s (table[c + 8] == -table[c], magnitudes of either sign).
 //
-// Numerics: each weight is dequantized exactly as the oracle
-// (lut_gemm.dequantize_codes) does it: value * scale, rounded once to the
-// compute type. For bf16/f16 the product of two 16-bit values is exact in
-// f32, so the single rounding matches. Products with x are accumulated in f32
-// with IEEE FMAs (no tensor cores, no TF32), so an identity x is bit-exact in
-// bf16, f16 and f32, and the plain PyTorch version differs only in the order
-// of the f32 sums. The K split across the block's warps is reduced in shared
-// memory in a fixed order: deterministic, no atomics, no split-K across blocks.
+// Two paths, chosen by the caller (ops/lut_gemm.py) before the launch:
 //
-// What bounds it: bytes. At decode (M <= 8) every weight costs 0.5 byte of
-// plane plus 2/g byte of scale, and x and y are small, so the least time is
-// those bytes over HBM bandwidth (3.35 TB/s on an H100 SXM). Design: one lane
-// per output column (a warp reads 128 contiguous plane bytes per word row),
-// eight warps per block splitting each chunk's word rows, the block's x rows
-// for one chunk staged in shared memory as f32 (warp-uniform reads are
-// broadcasts), the 8-entry magnitude table in shared memory. block_m rows of
-// M per block (1, 2, 4 or 8) so that decode spends no FMA on padding rows.
-// This is the simple, correct kernel; it does not pipeline loads across
-// chunks, use wgmma or TMA.
+// * bf16 and f16 at a chunk the loop takes (a multiple of 32 whose x ring
+//   fits shared memory: ops/kernel_config.py::mma_takes_chunk): the
+//   tensor-core loop of lut_gemm_mma.cuh with the pair decoder of
+//   lut_gemm_pair_decoder.cuh.
+//   The plane has K4's 4-bit geometry, so the byte is the index of a
+//   256-entry table of 16-bit pairs (W4SymFill below, built by each block
+//   from the 8 magnitudes): one lookup is one mma.sync B register. Each
+//   weight is the pair value times its scale in one packed 16-bit multiply
+//   (the oracle lut_gemm.dequantize_codes: value * scale rounded once),
+//   products accumulate in f32 on mma.sync, and a split-K's partial sums
+//   are added in split order. The split is a function of N, K and chunk
+//   alone (ops/kernel_config.py::mma_plan), so a row's result does not
+//   depend on M: the same bits in a batch of 1 or 512.
+// * f32, or a chunk the loop cannot take: the SIMT kernel below, on the
+//   skeleton of lut_gemm_common.cuh (IEEE FMAs, no TF32).
+//
+// Both are bit-exact with an identity x (a product of two 16-bit values is
+// exact in f32) and give the same bits on a repeat call; the plain PyTorch
+// version differs only in the order of the f32 sums.
+//
+// What bounds it: bytes at decode (0.5 byte of plane plus 2/g byte of scale
+// per weight; 3.35 TB/s on an H100 SXM), operations at prefill. The loop's
+// design answers the bytes (16-byte plane loads four items ahead, scales
+// once per group, x in shared memory as 16-bit A fragments); at decode its
+// per-pair instructions (field, lookup, scale multiply) take the time.
 
 #include "lut_gemm_common.cuh"
+#include "lut_gemm_pair_decoder.cuh"
 
 namespace {
 
 using namespace flute;
 
+// The SIMT kernel (f32, and chunks the loop cannot take): one lane per
+// output column, eight warps splitting each chunk's word rows, the block's
+// x rows staged in shared memory as f32, the 8 magnitudes in shared memory.
 template <typename T, int BM>
 __global__ void __launch_bounds__(kThreads)
 lut_qgemm_w4sym_kernel(const T* __restrict__ x, const uint32_t* __restrict__ plane,
@@ -117,16 +129,43 @@ struct Launcher {
   }
 };
 
+// The tensor-core loop's table: index f, the w4sym byte, names
+// (table[m_e] ^ s_e, table[m_o] ^ s_o), each magnitude rounded to T and the
+// sign applied to the 16-bit value's sign bit (bit 15 of the low half, bit
+// 31 of the high half) as the JAX kernel's payload XOR applies it.
+struct W4SymFill {
+  template <typename T>
+  static __device__ uint32_t entry(int f, const float* table) {
+    const uint32_t u = static_cast<uint32_t>(f);
+    const uint32_t p = mma::Pack2<T>::from_f(table[u & 7u], table[(u >> 3) & 7u]);
+    return p ^ (((u >> 6) & 1u) << 15) ^ ((u >> 7) << 31);
+  }
+};
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = float16, 2 = bfloat16 (x, scales and y share it;
-// table is float32 [16]). All pointers are device pointers; the kernel runs
-// on `stream` and is not synchronised. Returns the cudaError_t of the launch.
+// table is float32 [16], of which the 8 magnitudes are read). m_tiles 0 runs
+// the SIMT kernel with block_m (1, 2, 4 or 8) rows per block, in any dtype;
+// m_tiles 1, 2 or 4 runs the tensor-core loop (bf16/f16, chunk a multiple of
+// 32, x 16-byte aligned) with that many m16 tiles per warp and `splits`
+// splits of K / chunk; with more than one split `work` is a float32
+// [splits, M, N] workspace (else null), and the entry launches the loop and
+// its split reduction. vec: N % 4 == 0 with the plane 16-byte and scales
+// 8-byte aligned. All pointers are device pointers; the kernels run on
+// `stream` and are not synchronised. Returns the cudaError_t of the launches.
 extern "C" int flute_lut_qgemm_w4sym(const void* x, const void* plane, const void* scales,
-                                     const void* table, void* y, int M, int N, int K,
+                                     const void* table, void* y, void* work, int M, int N, int K,
                                      int group_size, int chunk, int dtype, int block_m,
-                                     void* stream) {
-  const Launcher l{x, plane, scales, table, y, M, N, K, group_size, chunk,
-                   static_cast<cudaStream_t>(stream)};
-  return dispatch(dtype, block_m, l);
+                                     int m_tiles, int splits, int vec, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (m_tiles == 0) {
+    const Launcher l{x, plane, scales, table, y, M, N, K, group_size, chunk, s};
+    return dispatch(dtype, block_m, l);
+  }
+  mma::Args a;
+  if (!mma::pair_args(a, x, plane, nullptr, scales, table, y, work, M, N, K, group_size, chunk,
+                      4, splits, vec))
+    return cudaErrorInvalidValue;
+  return mma::run_pair<4, W4SymFill>(a, dtype, m_tiles, splits, s);
 }

@@ -6,12 +6,17 @@ Its block sizes describe TPU tiles and the CUDA launch ignores them; its
 ``chunk`` is part of the packed layout and is honoured. The TPU device
 profiles and tuned registry are TPU-calibrated and have no counterpart here.
 
-``LaunchConfig`` is what the Hopper LUT-GEMM kernels K1
-(``csrc/lut_gemm_w4sym.cu``), K2 (``csrc/lut_gemm_plane.cu``) and K3
-(``csrc/lut_gemm_w3wide.cu``) take: they share one skeleton
-(``csrc/lut_gemm_common.cuh``) and so one launch shape. ``mma_plan`` plans
-the tensor-core loop (``csrc/lut_gemm_mma.cuh``) that K4
-(``csrc/lut_gemm_pair.cu``) runs on: m16 tiles per warp and the split of K.
+Two launch shapes serve the Hopper LUT-GEMM kernels:
+
+* ``mma_plan`` plans the tensor-core loop (``csrc/lut_gemm_mma.cuh``) with
+  its pair decoder (``csrc/lut_gemm_pair_decoder.cuh``), which K1
+  (``csrc/lut_gemm_w4sym.cu``) and K2 (``csrc/lut_gemm_plane.cu``) run in
+  bf16 and f16 where ``mma_takes_chunk`` holds, and K4
+  (``csrc/lut_gemm_pair.cu``) always: m16 tiles per warp and the split of
+  K, the split a function of N, K and chunk alone.
+* ``LaunchConfig`` is the SIMT skeleton's (``csrc/lut_gemm_common.cuh``):
+  K3 (``csrc/lut_gemm_w3wide.cu``) always, K1 and K2 in f32 or at a chunk
+  the loop does not take.
 """
 
 from __future__ import annotations
@@ -65,7 +70,8 @@ class KernelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class LaunchConfig:
-    """Launch shape of the LUT-GEMM kernels K1, K2 and K3.
+    """Launch shape of the SIMT LUT-GEMM kernels: K3, and K1 and K2 off the
+    tensor-core loop (f32, or a chunk the loop does not take).
 
     ``threads`` (eight warps that split each pack chunk's words: plane word
     rows in K1 and K2, word triples in K3) and ``block_n`` (one output column
@@ -93,13 +99,37 @@ def launch_config(m: int) -> LaunchConfig:
     return LaunchConfig(block_m=BLOCK_M_CHOICES[-1])
 
 
-# The tensor-core loop (csrc/lut_gemm_mma.cuh, K4): 128 columns per block,
-# m16 tiles per warp instantiated for these counts.
+# The tensor-core loop (csrc/lut_gemm_mma.cuh; K1 and K2 in bf16/f16, K4):
+# 128 columns per block, m16 tiles per warp instantiated for these counts.
 MMA_BLOCK_N = 128
 MMA_M_TILES = (1, 2, 4)
-# Blocks a launch should have: two per SM of the H100's 132. At decode four
-# blocks fit an SM, so up to 528 run in one wave.
+# Blocks a decode launch (one m16 row of blocks) should have: two per SM of
+# the H100's 132. At decode four blocks fit an SM, so up to 528 run in one
+# wave.
 MMA_TARGET_BLOCKS = 2 * 132
+# Shared memory a block may use on the H100 (227 KB), and the largest pair
+# table a block keeps beside its x ring (256 entries x 8 copies x 4 bytes)
+MAX_SMEM_BYTES = 232448
+MMA_TABLE_BYTES = 8192
+
+
+def mma_smem_bytes(m_tiles: int, chunk: int) -> int:
+    """The loop's dynamic shared memory: a two-stage ring of ``16 * m_tiles``
+    16-bit x rows of one chunk, each padded by 8 halves
+    (``csrc/lut_gemm_mma.cuh::mma_smem_bytes``)."""
+    return 2 * 16 * m_tiles * (chunk + 8) * 2
+
+
+def mma_takes_chunk(num_bits: int, chunk: int) -> bool:
+    """Whether the tensor-core loop takes a pack chunk: the first plane (4-bit
+    sub-codes at 4 bits, 2-bit at 2 and 3) needs a multiple of 4 word rows
+    per chunk (a multiple of 32 K rows at 4 bits, of 64 at 2 and 3), and a
+    chunk's x ring at the most m16 tiles, with the pair table, must fit a
+    block's shared memory (up to 864 K rows). Depends on neither M nor the
+    dtype, so a layer takes one path at every batch size."""
+    pb0 = 4 if num_bits == 4 else 2
+    fits = mma_smem_bytes(max(MMA_M_TILES), chunk) + MMA_TABLE_BYTES <= MAX_SMEM_BYTES
+    return (chunk * pb0 // 32) % 4 == 0 and fits
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,12 +155,20 @@ class MmaPlan:
 
 def mma_plan(m: int, n: int, k: int, chunk: int) -> MmaPlan:
     """The m16 tiles per warp (the fewest that cover M, at most 4) and the
-    smallest split of K's chunks that gives :data:`MMA_TARGET_BLOCKS`
-    blocks; every chunk its own split if none does."""
+    split of K's chunks: the smallest that gives one m16 row of blocks (a
+    decode launch) :data:`MMA_TARGET_BLOCKS` blocks, every chunk its own
+    split if none does.
+
+    The split is a function of N, K and chunk alone, never of M: a row's f32
+    partial sums then run in the same order, and are added in the same
+    split order, in a batch of any size, so its result has the same bits at
+    M = 1 and M = 512 (``PagedEngine``'s prefill of one prompt equals
+    ``Engine``'s of eight). At large M this costs an f32 workspace of
+    ``splits * M * N`` written and read once more than one pass would."""
     m_tiles = next((mt for mt in MMA_M_TILES if m <= 16 * mt), MMA_M_TILES[-1])
     cols = -(-n // MMA_BLOCK_N)
     rows = max(1, -(-m // (16 * m_tiles)))
     nchunks = k // chunk
     divisors = [s for s in range(1, nchunks + 1) if nchunks % s == 0]
-    splits = next((s for s in divisors if cols * rows * s >= MMA_TARGET_BLOCKS), nchunks)
+    splits = next((s for s in divisors if cols * s >= MMA_TARGET_BLOCKS), nchunks)
     return MmaPlan(m_tiles=m_tiles, splits=splits, grid=(cols, splits, rows))

@@ -8,7 +8,9 @@ Dispatch is by the tensors' device:
   :func:`dequantize_codes_pair` -> f32-accumulated matmul) for every layout.
 * CUDA: one Hopper kernel per layout (see the note at the top of each
   source): ``layout="w4sym"`` -> K1 ``csrc/lut_gemm_w4sym.cu``;
-  ``layout="plane"`` at 2, 3 and 4 bits -> K2 ``csrc/lut_gemm_plane.cu``;
+  ``layout="plane"`` at 2, 3 and 4 bits -> K2 ``csrc/lut_gemm_plane.cu``
+  (K1 and K2 run the tensor-core loop in bf16 and f16 and their SIMT
+  kernel in f32 or at a chunk the loop does not take: :func:`lut_path`);
   ``layout="w3wide"`` -> K3 ``csrc/lut_gemm_w3wide.cu``; ``pair_values``
   (joint pair lookup of HIGGS layers) on the plane layout at 2, 3 and 4
   bits -> K4 ``csrc/lut_gemm_pair.cu``, in bf16 or f16 only (an f32 call
@@ -38,6 +40,7 @@ from flute_tpu_torch.ops.kernel_config import (
     MmaPlan,
     launch_config,
     mma_plan,
+    mma_takes_chunk,
 )
 
 # Launches of each kernel, by layout; a wrapper adds one where it launches
@@ -130,14 +133,16 @@ def lut_qgemm_plain(
 
 
 # kernel -> (source, C entry, its pointer and int arguments before the
-# stream: x, planes, scales, table (the pair table for "pair"), y [, the
-# split-K workspace], then M, N, K, group_size, chunk [, num_bits], dtype,
-# then block_m, or for "pair" m_tiles, splits and vec)
+# stream, its tail): x, planes, scales, table (the pair table for "pair"),
+# y [, the split-K workspace], then M, N, K, group_size, chunk [, num_bits],
+# dtype, then the tail: "simt" block_m; "mma" m_tiles, splits and vec;
+# "both" block_m, m_tiles, splits and vec, m_tiles 0 selecting the SIMT
+# kernel
 _KERNELS = {
-    "w4sym": ("lut_gemm_w4sym.cu", "flute_lut_qgemm_w4sym", 5, 7),
-    "plane": ("lut_gemm_plane.cu", "flute_lut_qgemm_plane", 6, 8),
-    "w3wide": ("lut_gemm_w3wide.cu", "flute_lut_qgemm_w3wide", 5, 7),
-    "pair": ("lut_gemm_pair.cu", "flute_lut_qgemm_pair", 7, 10),
+    "w4sym": ("lut_gemm_w4sym.cu", "flute_lut_qgemm_w4sym", 6, 10, "both"),
+    "plane": ("lut_gemm_plane.cu", "flute_lut_qgemm_plane", 7, 11, "both"),
+    "w3wide": ("lut_gemm_w3wide.cu", "flute_lut_qgemm_w3wide", 5, 7, "simt"),
+    "pair": ("lut_gemm_pair.cu", "flute_lut_qgemm_pair", 7, 10, "mma"),
 }
 
 
@@ -146,7 +151,7 @@ def _kernel_fn(kernel: str):
     """The C entry of ``kernel``'s library (built at first use)."""
     from flute_tpu_torch.ops import _build
 
-    source, entry, n_ptr, n_int = _KERNELS[kernel]
+    source, entry, n_ptr, n_int, _ = _KERNELS[kernel]
     lib = _build.load(source)
     fn = getattr(lib, entry)
     fn.restype = ctypes.c_int
@@ -221,8 +226,9 @@ def _launch(
 ) -> torch.Tensor:
     """Launch ``kernel`` on PyTorch's current stream (operands already
     checked) and count the launch; returns ``[M, N]`` in x's dtype. With a
-    ``plan`` (the tensor-core loop of K4) it passes the split-K workspace,
-    allocated here, and the plan's fields."""
+    ``plan`` (the tensor-core loop) it passes the split-K workspace,
+    allocated here, and the plan's fields; without one, K1 and K2 run their
+    SIMT kernel."""
     m, k = x2.shape
     n = scales.shape[1]
     dev = x2.device
@@ -231,12 +237,15 @@ def _launch(
         return y
     fn, error_string = _kernel_fn(kernel)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if plan is None:
-        work, tail = (), (launch_config(m).block_m,)
-    else:
+    tail_kind = _KERNELS[kernel][4]
+    ws = None
+    if plan is not None:
         shape = plan.workspace_shape(m, n)
         ws = None if shape is None else torch.empty(shape, dtype=torch.float32, device=dev)
-        work, tail = (None if ws is None else ws.data_ptr(),), (plan.m_tiles, plan.splits, int(vec))
+    simt = (launch_config(m).block_m,)
+    loop = (0, 1, 0) if plan is None else (plan.m_tiles, plan.splits, int(vec))
+    work = () if tail_kind == "simt" else (None if ws is None else ws.data_ptr(),)
+    tail = {"simt": simt, "mma": loop, "both": simt + loop}[tail_kind]
     with torch.cuda.device(dev):
         err = fn(
             x2.data_ptr(), *plane_ptrs, scales.data_ptr(), table.data_ptr(), y.data_ptr(), *work,
@@ -250,6 +259,50 @@ def _launch(
     return y
 
 
+def lut_path(dtype: torch.dtype, num_bits: int, chunk: int) -> str:
+    """The kernel that K1 (w4sym) and K2 (plane) run for a call, chosen
+    before the launch from the compute dtype and the pack chunk alone:
+    ``"mma"``, the tensor-core loop, for bf16 and f16 at a chunk the loop
+    takes (:func:`~flute_tpu_torch.ops.kernel_config.mma_takes_chunk`);
+    ``"simt"``, the SIMT kernel, otherwise."""
+    if dtype in (torch.bfloat16, torch.float16) and mma_takes_chunk(num_bits, chunk):
+        return "mma"
+    return "simt"
+
+
+def _launch_planes(
+    kernel: str,
+    x2: torch.Tensor,
+    planes: Sequence[torch.Tensor],
+    scales: torch.Tensor,
+    table: torch.Tensor,
+    *,
+    group_size: int,
+    chunk: int,
+    extra: tuple[int, ...] = (),
+    loop: bool = True,
+) -> torch.Tensor:
+    """Launch a pair-plane kernel (K1, K2 or K4; operands checked). On the
+    tensor-core loop (``loop``) x is copied to a 16-byte boundary if it is
+    not on one, the plan is :func:`mma_plan`'s and ``vec`` says whether
+    the loop may read planes and scales in 16- and 8-byte pieces; else the
+    SIMT kernel runs."""
+    # the C entry's plane pointers (x, scales, table, y and the workspace
+    # aside), null for a plane the layout does not have
+    n_planes = _KERNELS[kernel][2] - 5
+    ptrs = [p.data_ptr() for p in planes] + [None] * (n_planes - len(planes))
+    kw = dict(group_size=group_size, chunk=chunk, extra=extra)
+    if not loop:
+        return _launch(kernel, x2, ptrs, scales, table, **kw)
+    if x2.data_ptr() % 16:  # the loop copies x in 16-byte pieces
+        x2 = x2.clone()
+    m, k = x2.shape
+    n = scales.shape[1]
+    vec = (n % 4 == 0 and scales.data_ptr() % 8 == 0
+           and all(p.data_ptr() % 16 == 0 for p in planes))
+    return _launch(kernel, x2, ptrs, scales, table, plan=mma_plan(m, n, k, chunk), vec=vec, **kw)
+
+
 def lut_qgemm_w4sym_cuda(
     x2: torch.Tensor,
     plane: torch.Tensor,
@@ -259,14 +312,15 @@ def lut_qgemm_w4sym_cuda(
     group_size: int,
     chunk: int,
 ) -> torch.Tensor:
-    """Launch K1, the Hopper w4sym kernel, for a 2-D ``x2`` ``[M, K]``;
-    returns ``[M, N]`` in x's dtype."""
+    """Launch K1, the Hopper w4sym kernel (the tensor-core loop or the SIMT
+    kernel, as :func:`lut_path` says), for a 2-D ``x2`` ``[M, K]``; returns
+    ``[M, N]`` in x's dtype. Counts one launch per call."""
     k = x2.shape[1]
     if chunk % 8:
         raise ValueError(f"chunk={chunk} not supported by the w4sym layout")
     _check_operands(x2, [plane], [k // 8], scales, table, (16,), group_size, chunk)
-    return _launch("w4sym", x2, [plane.data_ptr()], scales, table,
-                   group_size=group_size, chunk=chunk)
+    return _launch_planes("w4sym", x2, [plane], scales, table, group_size=group_size,
+                          chunk=chunk, loop=lut_path(x2.dtype, 4, chunk) == "mma")
 
 
 def lut_qgemm_plane_cuda(
@@ -279,18 +333,19 @@ def lut_qgemm_plane_cuda(
     group_size: int,
     chunk: int,
 ) -> torch.Tensor:
-    """Launch K2, the Hopper general-table pair-plane kernel, for a 2-D
-    ``x2`` ``[M, K]`` and 2-, 3- (2+1 planes) or 4-bit codes; returns
-    ``[M, N]`` in x's dtype."""
+    """Launch K2, the Hopper general-table pair-plane kernel (the tensor-core
+    loop or the SIMT kernel, as :func:`lut_path` says), for a 2-D ``x2``
+    ``[M, K]`` and 2-, 3- (2+1 planes) or 4-bit codes; returns ``[M, N]`` in
+    x's dtype. Counts one launch per call."""
     if num_bits not in (2, 3, 4):
         raise ValueError(f"the plane kernel takes 2, 3 or 4 bits, not {num_bits}")
     fmt = _packing.PackFormat(num_bits=num_bits, chunk=chunk)  # validates chunk
     k = x2.shape[1]
     rows = [fmt.plane_rows(k, i) for i in range(len(fmt.plane_bits))]
     _check_operands(x2, planes, rows, scales, table, (2**num_bits,), group_size, chunk)
-    ptrs = [planes[0].data_ptr(), planes[1].data_ptr() if num_bits == 3 else None]
-    return _launch("plane", x2, ptrs, scales, table,
-                   group_size=group_size, chunk=chunk, extra=(num_bits,))
+    return _launch_planes("plane", x2, planes, scales, table, group_size=group_size,
+                          chunk=chunk, extra=(num_bits,),
+                          loop=lut_path(x2.dtype, num_bits, chunk) == "mma")
 
 
 def lut_qgemm_pair_cuda(
@@ -319,21 +374,17 @@ def lut_qgemm_pair_cuda(
     e = 2**num_bits
     _check_operands(x2, planes, rows, scales, pair_values, (e, e, 2), group_size, chunk,
                     table_name="pair_values")
-    if (chunk * fmt.plane_bits[0] // 32) % 4:
-        raise ValueError(f"chunk={chunk} too small for the pair kernel at {num_bits} bits "
-                         "(its first plane needs a multiple of 4 word rows per chunk)")
-    if x2.data_ptr() % 16:  # the loop copies x in 16-byte pieces
-        x2 = x2.clone()
-    n = scales.shape[1]
-    vec = (n % 4 == 0 and scales.data_ptr() % 8 == 0
-           and all(p.data_ptr() % 16 == 0 for p in planes))
-    ptrs = [planes[0].data_ptr(), planes[1].data_ptr() if num_bits == 3 else None]
-    return _launch("pair", x2, ptrs, scales, pair_values, group_size=group_size, chunk=chunk,
-                   extra=(num_bits,), plan=mma_plan(x2.shape[0], n, k, chunk), vec=vec)
+    if not mma_takes_chunk(num_bits, chunk):
+        raise ValueError(f"chunk={chunk} not taken by the pair kernel at {num_bits} bits "
+                         "(its first plane needs a multiple of 4 word rows per chunk, and "
+                         "a chunk's x ring must fit shared memory)")
+    return _launch_planes("pair", x2, planes, scales, pair_values, group_size=group_size,
+                          chunk=chunk, extra=(num_bits,))
 
 
 def mma_k_order(num_bits: int, chunk: int) -> torch.Tensor:
-    """K4's order of one pack chunk's K rows on the tensor cores, mirrored
+    """The loop's order of one pack chunk's K rows on the tensor cores (K4,
+    and K1 and K2 at 4 bits and at 2 and 3 in the same geometry), mirrored
     from ``csrc/lut_gemm_mma.cuh``: entry ``[q, s, slot]`` is the K row
     (within the chunk) that mma step ``(q, s)`` multiplies at k-slot
     ``slot`` (0..15). Item ``q`` is first-plane word rows ``4q..4q+3``, lane
@@ -352,8 +403,40 @@ def mma_k_order(num_bits: int, chunk: int) -> torch.Tensor:
     return 2 * (field * kc + word_row) + slot % 2
 
 
+def pair_table(layout: str, table: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The tensor-core loop's table of 16-bit pairs, mirrored from each
+    kernel's fill (``csrc/lut_gemm_pair_decoder.cuh``): ``[entries, 2]`` in
+    ``dtype``, row ``index`` the (even, odd) K rows' values that a field
+    names, before the scale.
+
+    * ``"pair"`` (K4): ``table`` is the joint ``[E, E, 2]``; index
+      ``ce | co << b`` names ``table[ce, co]``.
+    * ``"plane"`` (K2): ``table`` is ``[E]``; index ``ce | co << b`` names
+      ``(table[ce], table[co])``.
+    * ``"w4sym"`` (K1): ``table`` is ``[16]``; index the w4sym byte
+      ``m_e | m_o << 3 | s_e << 6 | s_o << 7`` names ``(table[m_e],
+      table[m_o])``, each rounded to ``dtype`` and its sign flipped where
+      its sign bit is set (``table[c + 8] == -table[c]``).
+    """
+    dev = table.device
+    if layout == "w4sym":
+        f = torch.arange(256, device=dev)
+        mags = table[:8].to(dtype)
+        v = torch.stack([mags[f & 7], mags[(f >> 3) & 7]], dim=-1)
+        sign = torch.stack([(f >> 6) & 1, f >> 7], dim=-1).bool()
+        return torch.where(sign, -v, v)
+    e = table.shape[0]
+    if layout == "plane":
+        pc = torch.arange(e * e, device=dev)
+        t = table.to(dtype)
+        return torch.stack([t[pc % e], t[pc // e]], dim=-1)
+    if layout == "pair":
+        return table.to(dtype).transpose(0, 1).reshape(e * e, 2)
+    raise ValueError(f"no pair table for layout {layout!r}")
+
+
 def mma_columns() -> torch.Tensor:
-    """K4's columns within a 128-column block, mirrored from
+    """The loop's columns within a 128-column block, mirrored from
     ``csrc/lut_gemm_mma.cuh``: entry ``[warp, e, ns]`` is the column that
     n8 tile ``e`` of ``warp`` holds at n-slot ``ns`` (lane ``l`` loads the 4
     columns ``4 (l // 4) + e`` of its warp's 32)."""

@@ -353,6 +353,144 @@ def test_pair_mma_unaligned_x_and_small_chunk(dev):
         lut_gemm.lut_qgemm_pair_cuda(x2, planes2, s2, pv2, num_bits=2, group_size=G, chunk=32)
 
 
+def loop_case(dev, layout, bits, m, n, k, dtype, seed, chunk, g=G, mixed_signs=False):
+    """codes, x, planes, scales and table for K1 (w4sym) or K2 (plane) at any
+    N, K and g: a w4sym table of 8 magnitudes and their negations, or any
+    2^b values."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 2**bits, size=(k, n), dtype=np.int32)
+    if layout == "w4sym":
+        planes = packing.pack_w4_sym_np(codes, chunk=chunk)
+        mags = rng.standard_normal(8).astype(np.float32)
+        if not mixed_signs:
+            mags = np.sort(np.abs(mags))
+        table = np.concatenate([mags, -mags])
+    else:
+        planes = packing.pack_np(codes, bits, chunk=chunk)
+        table = rng.standard_normal(2**bits).astype(np.float32)
+    scales = rng.uniform(0.5, 1.5, (k // g, n)).astype(np.float32)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    return (torch.from_numpy(codes).to(dev), torch.from_numpy(x).to(dev, dtype),
+            [torch.from_numpy(p).to(dev) for p in planes],
+            torch.from_numpy(scales).to(dev, dtype), torch.from_numpy(table).to(dev))
+
+
+LOOP_LAYOUTS = [("w4sym", 4), ("plane", 2), ("plane", 3), ("plane", 4)]
+# a chunk each layout takes that the tensor-core loop does not: its SIMT kernel
+SIMT_CHUNK = {("w4sym", 4): 16, ("plane", 2): 32, ("plane", 3): 32, ("plane", 4): 16}
+
+
+@pytest.mark.parametrize("g", [32, 64, 128])
+@pytest.mark.parametrize("chunk", [128, 256])
+@pytest.mark.parametrize("layout,bits", LOOP_LAYOUTS)
+@pytest.mark.parametrize("m", [1, 8, 17, 64, 512])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_k1_k2_loop_vs_plain(dev, dtype, m, layout, bits, chunk, g):
+    """K1 and K2 on the tensor-core loop at one, two and four m16 tiles per
+    warp, split-K (K = 1024) and groups within a chunk, across its fields
+    and across chunks, against the plain version."""
+    _, x, planes, s, t = loop_case(dev, layout, bits, m, 256, 1024, dtype, seed=m + bits + g,
+                                   chunk=chunk, g=g)
+    assert lut_gemm.lut_path(dtype, bits, chunk) == "mma"
+    before = lut_gemm.LAUNCHES[layout]
+    y = lut_gemm.lut_qgemm(x, planes, s, t, num_bits=bits, layout=layout,
+                           config=KernelConfig(chunk=chunk))
+    assert lut_gemm.LAUNCHES[layout] == before + 1
+    y_plain = lut_gemm.lut_qgemm_plain(x, planes, s, t, num_bits=bits, chunk=chunk,
+                                       layout=layout)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and tuple(y.shape) == (m, 256)
+    assert rel_err(y, y_plain) < TOL[dtype]
+
+
+@pytest.mark.parametrize("layout,bits", LOOP_LAYOUTS)
+def test_k1_k2_loop_ragged_n_and_unaligned_x(dev, layout, bits):
+    """N % 4 != 0 takes the loop's element loads; x at an odd offset is
+    copied before its 16-byte loads and gives the aligned call's bits."""
+    _, x, planes, s, t = loop_case(dev, layout, bits, 9, 198, 512, torch.bfloat16, seed=46,
+                                   chunk=256)
+    kw = dict(num_bits=bits, layout=layout)
+    y = lut_gemm.lut_qgemm(x, planes, s, t, **kw)
+    y_plain = lut_gemm.lut_qgemm_plain(x, planes, s, t, num_bits=bits, chunk=256, layout=layout)
+    assert rel_err(y, y_plain) < TOL[torch.bfloat16]
+    buf = torch.empty(9 * 512 + 1, dtype=torch.bfloat16, device=dev)
+    xo = buf[1:].view(9, 512)
+    xo.copy_(x)
+    assert xo.data_ptr() % 16
+    assert torch.equal(lut_gemm.lut_qgemm(xo, planes, s, t, **kw), y)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("layout,bits", LOOP_LAYOUTS)
+def test_k1_k2_simt_chunk_vs_plain(dev, layout, bits, dtype):
+    """A chunk whose first plane has no multiple of 4 word rows runs the
+    SIMT kernel in every dtype."""
+    chunk = SIMT_CHUNK[(layout, bits)]
+    _, x, planes, s, t = loop_case(dev, layout, bits, 5, 256, 512, dtype, seed=47, chunk=chunk)
+    assert lut_gemm.lut_path(dtype, bits, chunk) == "simt"
+    cfg = KernelConfig(chunk=chunk)
+    y = lut_gemm.lut_qgemm(x, planes, s, t, num_bits=bits, layout=layout, config=cfg)
+    y_plain = lut_gemm.lut_qgemm_plain(x, planes, s, t, num_bits=bits, chunk=chunk,
+                                       layout=layout)
+    torch.cuda.synchronize()
+    assert rel_err(y, y_plain) < TOL[dtype]
+
+
+@pytest.mark.parametrize("chunk_kind", ["loop", "simt"])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("layout,bits", LOOP_LAYOUTS)
+def test_k1_k2_identity_bit_exact_on_each_path(dev, layout, bits, dtype, chunk_kind):
+    """Identity x gives the oracle's bits (K1 with a mixed-sign table): bf16
+    and f16 at chunk 256 on the loop, at a small chunk on the SIMT kernel;
+    f32 on the SIMT kernel at both (no TF32 loop)."""
+    chunk = 256 if chunk_kind == "loop" else SIMT_CHUNK[(layout, bits)]
+    on_loop = chunk_kind == "loop" and dtype != torch.float32
+    assert lut_gemm.lut_path(dtype, bits, chunk) == ("mma" if on_loop else "simt")
+    codes, _, planes, s, t = loop_case(dev, layout, bits, 1, 256, 512, dtype, seed=48,
+                                       chunk=chunk, mixed_signs=True)
+    eye = torch.eye(512, dtype=dtype, device=dev)
+    got = lut_gemm.qgemm(eye, planes, s, t, bits, G, layout=layout,
+                         config=KernelConfig(chunk=chunk))
+    assert torch.equal(got.float(), lut_gemm.dequantize_codes(codes, s, t, dtype).float())
+
+
+@pytest.mark.parametrize("m", [1, 8, 512])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("layout,bits", LOOP_LAYOUTS)
+def test_k1_k2_repeat_calls_bit_identical(dev, layout, bits, dtype, m):
+    """Split-K adds its partial sums in split order: a repeat call gives the
+    same bits (K = 2048 at chunk 128: 16 chunks, several splits)."""
+    _, x, planes, s, t = loop_case(dev, layout, bits, m, 384, 2048, dtype, seed=49, chunk=128)
+    kw = dict(num_bits=bits, layout=layout, config=KernelConfig(chunk=128))
+    assert lut_gemm.mma_plan(m, 384, 2048, 128).splits > 1
+    first = lut_gemm.lut_qgemm(x, planes, s, t, **kw)
+    for _ in range(3):
+        again = lut_gemm.lut_qgemm(x, planes, s, t, **kw)
+        assert torch.equal(again.view(torch.int16), first.view(torch.int16))
+
+
+@pytest.mark.parametrize("m", [17, 64, 512])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("kernel", ["w4sym", "plane2", "plane3", "plane4", "pair"])
+def test_row_result_does_not_depend_on_m(dev, kernel, dtype, m):
+    """Row i of an M-row call has the bits of the one-row call on row i:
+    the split is the same at every M (K1, K2 and K4 on the loop)."""
+    bits = 4 if kernel in ("w4sym", "pair") else int(kernel[-1])
+    if kernel == "pair":
+        _, x, planes, s, pv = mma_pair_case(dev, bits, m, 384, 2048, dtype, seed=50, chunk=128)
+        t, kw = None, dict(pair_values=pv)
+    else:
+        layout = "w4sym" if kernel == "w4sym" else "plane"
+        _, x, planes, s, t = loop_case(dev, layout, bits, m, 384, 2048, dtype, seed=50,
+                                       chunk=128)
+        kw = dict(layout=layout)
+    kw.update(num_bits=bits, config=KernelConfig(chunk=128))
+    y = lut_gemm.lut_qgemm(x, planes, s, t, **kw)
+    for i in sorted({0, 1, m // 2, m - 1}):
+        row = lut_gemm.lut_qgemm(x[i:i + 1], planes, s, t, **kw)
+        assert torch.equal(row.view(torch.int16), y[i:i + 1].view(torch.int16)), i
+
+
 @pytest.mark.parametrize("case", ["head", "head_tied", "attention"])
 def test_matmul_f32_on_the_card(dev, case):
     """llama.matmul_f32: 16-bit operands, f32 result, within 1e-5 of the

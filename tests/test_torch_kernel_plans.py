@@ -1,16 +1,25 @@
 """The plans of the tensor-core kernels, held on the CPU.
 
-* K4 (``csrc/lut_gemm_mma.cuh``, ``csrc/lut_gemm_pair.cu``): the index map
-  mirrored in ``lut_gemm.mma_k_order`` / ``mma_columns`` is a permutation of
-  each pack chunk's K rows and of a block's columns; the product computed
-  step by step through it, each B fragment decoded from the port's packed
-  words as the kernel decodes them, equals the JAX package's ``lut_qgemm``
-  with ``pair_values`` (interpret mode) within the bf16 threshold, and every
-  decoded B value equals ``dequantize_codes_pair`` bit for bit.
+* The loop (``csrc/lut_gemm_mma.cuh``) with its pair decoder
+  (``csrc/lut_gemm_pair_decoder.cuh``) for K4 (``csrc/lut_gemm_pair.cu``),
+  K1 (``csrc/lut_gemm_w4sym.cu``) and K2 (``csrc/lut_gemm_plane.cu``): the
+  index map mirrored in ``lut_gemm.mma_k_order`` / ``mma_columns`` is a
+  permutation of each pack chunk's K rows and of a block's columns; each
+  kernel's table fill, mirrored in ``lut_gemm.pair_table``, gives K1 every
+  w4sym byte's pair as ``dequantize_codes`` does, bit for bit; the product
+  computed step by step through the index map, each B fragment decoded from
+  the port's packed words and that table as the kernel decodes them, equals
+  the JAX package's ``lut_qgemm`` (interpret mode: ``pair_values`` for K4,
+  ``layout="w4sym"`` for K1, the plane layout in gather8 mode for K2) within
+  the bf16 threshold, and every decoded B value equals the oracle
+  (``dequantize_codes_pair`` or ``dequantize_codes``) bit for bit.
 * The split-K planner (``kernel_config.mma_plan``) at the four
-  Llama-3.1-8B projections and M 1, 8, 512: splits divide the chunk count,
-  the grid has at least 132 blocks where one pass would not, and the wrapper
-  allocates exactly the planned workspace and passes the plan.
+  Llama-3.1-8B projections: splits divide the chunk count, the grid has at
+  least 132 blocks where one pass would not, the split is the same at every
+  M (so a row's result does not depend on M), and the wrapper allocates
+  exactly the planned workspace and passes the plan; the K1 and K2 wrappers
+  pass a plan in bf16 and f16 and none (their SIMT kernel) in f32 or at a
+  chunk the loop does not take.
 * K6 (``verify_mma_kernel`` in ``csrc/paged_attention.cu``): a torch
   emulation of its numerics (64-row tiles of 16-row warps, online softmax
   over 16-position pieces with the warp's skips, P rounded to the input
@@ -57,32 +66,53 @@ def test_k4_index_map_is_a_permutation(bits, chunk):
     assert sorted(cols.flatten().tolist()) == list(range(kernel_config.MMA_BLOCK_N))
 
 
-def decode_step_b(planes, pv, scales, bits, chunk, c, q, s, dtype):
+def decode_step_b(planes, ptab, scales, bits, chunk, c, q, s, dtype, layout="pair"):
     """The B fragment of mma step (q, s) of chunk c as the kernel forms it:
     ``[16, N]``, slot ``2t + r`` (+ 8 for field 2s + 1) is row r of the pair
-    of field i of word row 4q + t; pair table and scale rounded to ``dtype``,
-    their product rounded once."""
+    that field i of word row 4q + t names in the pair table ``ptab``
+    (``lut_gemm.pair_table``, already in ``dtype``) times its scale, the
+    product rounded once. The index is the w4sym byte itself for K1, else
+    ``ce | co << bits`` (at 3 bits with the 1-bit plane's bits)."""
     pb0 = 4 if bits == 4 else 2
     kc0 = chunk * pb0 // bitutils.WORD_BITS
     kc1 = chunk // bitutils.WORD_BITS
     e = 2**bits
     w0 = planes[0].to(torch.int64) & 0xFFFFFFFF
-    pvr = pv.to(dtype)
     out = torch.empty((16, planes[0].shape[1]), dtype=dtype)
     order = lut_gemm.mma_k_order(bits, chunk)
     for slot in range(16):
         t, r, i = (slot % 8) // 2, slot % 2, 2 * s + slot // 8
         j = 4 * q + t
         f = (w0[c * kc0 + j] >> (2 * pb0 * i)) & ((1 << 2 * pb0) - 1)
-        ce, co = f & ((1 << pb0) - 1), f >> pb0
-        if bits == 3:
-            w1 = planes[1].to(torch.int64) & 0xFFFFFFFF
-            h = (w1[c * kc1 + j % kc1] >> (2 * (2 * i + j // kc1))) & 3
-            ce, co = ce | ((h & 1) << 2), co | ((h >> 1) << 2)
-        assert int(ce.max()) < e and int(co.max()) < e
+        if layout == "w4sym":
+            index = f
+        else:
+            ce, co = f & ((1 << pb0) - 1), f >> pb0
+            if bits == 3:
+                w1 = planes[1].to(torch.int64) & 0xFFFFFFFF
+                h = (w1[c * kc1 + j % kc1] >> (2 * (2 * i + j // kc1))) & 3
+                ce, co = ce | ((h & 1) << 2), co | ((h >> 1) << 2)
+            assert int(ce.max()) < e and int(co.max()) < e
+            index = ce | (co << bits)
         k_row = c * chunk + int(order[q, s, slot])
-        out[slot] = pvr[ce, co, r] * scales[k_row // G].to(dtype)
+        out[slot] = ptab[index, r] * scales[k_row // G].to(dtype)
     return out
+
+
+def product_through_the_index_map(x, planes, ptab, scales, deq, bits, chunk, dtype, layout):
+    """``x @ W`` summed mma step by mma step through ``mma_k_order``, each B
+    fragment decoded as the kernel decodes it and held to the oracle's
+    ``deq`` bit for bit; f32 sums."""
+    order = lut_gemm.mma_k_order(bits, chunk)
+    y = torch.zeros((x.shape[0], deq.shape[1]), dtype=torch.float32)
+    for c in range(K // chunk):
+        for q in range(order.shape[0]):
+            for s in range(order.shape[1]):
+                rows = c * chunk + order[q, s]
+                b = decode_step_b(planes, ptab, scales, bits, chunk, c, q, s, dtype, layout)
+                assert torch.equal(b.view(torch.int16), deq[rows].view(torch.int16))
+                y += x[:, rows].float() @ b.float()
+    return y
 
 
 @pytest.mark.parametrize("bits", [2, 3, 4])
@@ -101,16 +131,8 @@ def test_k4_product_through_the_index_map_matches_jax(bits, chunk):
     scales = torch.from_numpy(scales_np).to(dtype)
     x = torch.from_numpy(x_np).to(dtype)
     deq = lut_gemm.dequantize_codes_pair(torch.from_numpy(codes), scales, pv, dtype)
-
-    order = lut_gemm.mma_k_order(bits, chunk)
-    y = torch.zeros((5, N), dtype=torch.float32)
-    for c in range(K // chunk):
-        for q in range(order.shape[0]):
-            for s in range(order.shape[1]):
-                rows = c * chunk + order[q, s]
-                b = decode_step_b(planes, pv, scales, bits, chunk, c, q, s, dtype)
-                assert torch.equal(b.view(torch.int16), deq[rows].view(torch.int16))
-                y += x[:, rows].float() @ b.float()
+    y = product_through_the_index_map(x, planes, lut_gemm.pair_table("pair", pv, dtype), scales,
+                                      deq, bits, chunk, dtype, "pair")
 
     want = jlut.lut_qgemm(
         jnp.asarray(x_np, jnp.bfloat16), [jnp.asarray(p) for p in planes_np],
@@ -118,6 +140,61 @@ def test_k4_product_through_the_index_map_matches_jax(bits, chunk):
         config=JKernelConfig(block_m=8, block_n=128, block_k=256, lut_mode="pair_lut",
                              chunk=chunk),
         pair_values=jnp.asarray(pv_np), interpret=True)
+    assert rel_err(y.to(dtype).float(), np.asarray(want, np.float32)) < BF16_TOL
+
+
+def w4sym_table(rng, mixed_signs):
+    """8 magnitudes (sorted and positive, or of either sign) and their
+    negations: the w4sym table contract ``table[c + 8] == -table[c]``."""
+    mags = rng.standard_normal(8).astype(np.float32)
+    if not mixed_signs:
+        mags = np.sort(np.abs(mags))
+    return np.concatenate([mags, -mags])
+
+
+@pytest.mark.parametrize("mixed_signs", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_k1_every_byte_decodes_to_the_oracles_pair(dtype, mixed_signs):
+    table = torch.from_numpy(w4sym_table(np.random.default_rng(50 + mixed_signs), mixed_signs))
+    f = torch.arange(256)
+    even = (f & 7) + 8 * ((f >> 6) & 1)  # code 8 s + m of each K row of the pair
+    odd = ((f >> 3) & 7) + 8 * (f >> 7)
+    want = lut_gemm.dequantize_codes(torch.stack([even, odd]), torch.ones((1, 256), dtype=dtype),
+                                     table, dtype)  # [2, 256]: rows (even, odd)
+    got = lut_gemm.pair_table("w4sym", table, dtype)
+    assert tuple(got.shape) == (256, 2)
+    assert torch.equal(got.T.contiguous().view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.parametrize("layout,bits", [("w4sym", 4), ("plane", 2), ("plane", 3), ("plane", 4)])
+@pytest.mark.parametrize("chunk", [128, 256])
+def test_k1_k2_product_through_the_index_map_matches_jax(layout, bits, chunk):
+    rng = np.random.default_rng(60 + bits + chunk + (layout == "w4sym"))
+    e = 2**bits
+    codes = rng.integers(0, e, (K, N), dtype=np.int32)
+    if layout == "w4sym":
+        planes_np = packing.pack_w4_sym_np(codes, chunk=chunk)
+        table_np = w4sym_table(rng, mixed_signs=True)
+    else:
+        planes_np = packing.pack_np(codes, bits, chunk=chunk)
+        table_np = rng.standard_normal(e).astype(np.float32)
+    scales_np = rng.uniform(0.5, 1.5, (K // G, N)).astype(np.float32)
+    x_np = rng.standard_normal((5, K)).astype(np.float32)
+    dtype = torch.bfloat16
+    planes = [torch.from_numpy(p) for p in planes_np]
+    table = torch.from_numpy(table_np)
+    scales = torch.from_numpy(scales_np).to(dtype)
+    x = torch.from_numpy(x_np).to(dtype)
+    deq = lut_gemm.dequantize_codes(torch.from_numpy(codes), scales, table, dtype)
+    y = product_through_the_index_map(x, planes, lut_gemm.pair_table(layout, table, dtype),
+                                      scales, deq, bits, chunk, dtype, layout)
+
+    want = jlut.lut_qgemm(
+        jnp.asarray(x_np, jnp.bfloat16), [jnp.asarray(p) for p in planes_np],
+        jnp.asarray(scales_np, jnp.bfloat16), jnp.asarray(table_np), num_bits=bits,
+        config=JKernelConfig(block_m=8, block_n=128, block_k=256, lut_mode="gather8",
+                             chunk=chunk),
+        layout=layout, interpret=True)
     assert rel_err(y.to(dtype).float(), np.asarray(want, np.float32)) < BF16_TOL
 
 
@@ -139,8 +216,9 @@ def test_split_k_planner(monkeypatch, name, n, k, m):
     one_pass = cols * rows
     if one_pass < 132:
         assert plan.blocks >= 132
-    if one_pass >= kernel_config.MMA_TARGET_BLOCKS:
-        assert plan.splits == 1  # no workspace where one pass fills the card
+    # the same split at every M: a row's sums run in one order in any batch
+    for other in (1, 8, 64, 512):
+        assert kernel_config.mma_plan(other, n, k, chunk).splits == plan.splits
 
     # the wrapper allocates exactly the planned workspace and passes the plan
     allocated, calls = [], []
@@ -172,6 +250,58 @@ def test_split_k_planner(monkeypatch, name, n, k, m):
     (args,) = calls
     assert (args[6] is None) == (plan.splits == 1)  # the workspace pointer
     assert args[-4:-1] == (plan.m_tiles, plan.splits, 1)
+
+
+@pytest.mark.parametrize("chunk", ["loop", "simt"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("layout,bits", [("w4sym", 4), ("plane", 2), ("plane", 3), ("plane", 4)])
+def test_k1_k2_wrappers_pick_the_path_before_the_launch(monkeypatch, layout, bits, dtype, chunk):
+    """bf16 and f16 at a chunk the loop takes pass mma_plan's plan (and its
+    workspace); f32, or a chunk whose first plane has no multiple of 4 word
+    rows, pass m_tiles 0 (the SIMT kernel) and no workspace. One launch is
+    counted either way."""
+    m, n, k = 8, 256, 512
+    chunk = 256 if chunk == "loop" else (16 if bits == 4 else 32)
+    rng = np.random.default_rng(70 + bits)
+    codes = rng.integers(0, 2**bits, (k, n), dtype=np.int32)
+    if layout == "w4sym":
+        planes = packing.pack_w4_sym_np(codes, chunk=chunk)
+    else:
+        planes = packing.pack_np(codes, bits, chunk=chunk)
+    planes = [torch.from_numpy(p) for p in planes]
+    table = torch.zeros(16 if layout == "w4sym" else 2**bits)
+    x = torch.zeros((m, k), dtype=dtype)
+    scales = torch.zeros((k // G, n), dtype=dtype)
+    calls = []
+
+    def fake_entry(*args):
+        calls.append(args)
+        return 0
+
+    monkeypatch.setattr(lut_gemm, "_kernel_fn", lambda kernel: (fake_entry, None))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    before = lut_gemm.LAUNCHES[layout]
+    kw = dict(group_size=G, chunk=chunk)
+    if layout == "w4sym":
+        lut_gemm.lut_qgemm_w4sym_cuda(x, planes[0], scales, table, **kw)
+    else:
+        lut_gemm.lut_qgemm_plane_cuda(x, planes, scales, table, num_bits=bits, **kw)
+    assert lut_gemm.LAUNCHES[layout] == before + 1
+
+    loop = dtype != torch.float32 and chunk == 256
+    assert lut_gemm.lut_path(dtype, bits, chunk) == ("mma" if loop else "simt")
+    (args,) = calls
+    block_m, m_tiles, splits, vec = args[-5:-1]
+    work = args[5 if layout == "w4sym" else 6]
+    assert block_m == kernel_config.launch_config(m).block_m
+    if loop:
+        plan = kernel_config.mma_plan(m, n, k, chunk)
+        assert (m_tiles, splits, vec) == (plan.m_tiles, plan.splits, 1)
+        assert (work is None) == (plan.splits == 1)
+    else:
+        assert (m_tiles, splits, vec, work) == (0, 1, 0, None)
 
 
 # K6: B sequences, 8 query heads on 2 KV heads (rep 4), blocks of 16
