@@ -21,18 +21,21 @@ Phases (any failure exits non-zero):
      round-tripping the codes; lut_mode="pair_lut" without pair_values
      launching K4 once and K2 not at all; qgemm_hadamard (rotation 512) against its
      plain version; K5 at B=8, 32/8 heads, D=128, blocks of 16, ragged
-     lengths 0..4096, and K6 at T in {5, 64, 256} over 0 and 1024 cached
-     positions, each with softcap, window and both, bf16 and f16 (max error
-     relative to the largest output < 1.1e-2); K1, K2, K4 and K6 called
-     twice give the same bits (split-K and K6 add in a fixed order), and
-     rows 0 and M-1 of each K1, K2 and K4 call at M > 1 have the bits of the
-     one-row call on that row (the split does not follow M). K1 and K2 run
+     lengths 0..4096 in a table 3 blocks wider than the longest, and K6 at
+     T in {5, 64, 256} over 0 and 1024 cached positions, each with softcap,
+     window and both, bf16 and f16 (max error relative to the largest
+     output < 1.1e-2); K1-K6 called twice give the same bits (split-K, K5's
+     spans and K6 add in a fixed order), rows 0 and M-1 of each K1-K4 call
+     at M > 1 have the bits of the one-row call on that row (the split does
+     not follow M), and each K5 sequence called alone, with a table just
+     wide enough for it, has the bits it has in the batch. K1, K2 and K3 run
      the tensor-core loop in bf16/f16 and their SIMT kernel in f32; each
      case, and each kernel line, names the path it ran. K1 at M=512 is also
      timed, in turns, with the split a planner that follows M would take:
-     what a row's independence of M costs at prefill. K6 is timed at
-     T=256 over 1024 and at the served pool-prefill chunk (T=32 over 32
-     cached). Time each kernel, its plain
+     what a row's independence of M costs at prefill. K5 is timed at
+     lengths 1024 and 4096 with its span and at spans of 128, 256 and 512;
+     K6 at T=256 over 1024 and at the served pool-prefill chunk (T=32 over
+     32 cached). Time each kernel, its plain
      version and a yardstick that the port never calls (LUT-GEMMs: a
      torch.matmul on the pre-dequantized weight; K5/K6: one
      scaled_dot_product_attention on K/V gathered beforehand), L2-cold, in
@@ -84,7 +87,8 @@ Phases (any failure exits non-zero):
      forward calls x 32 x 4, K5 decode steps x 32, K6 prefill chunks x 32,
      K1-K3 none. The decode-step profiles (torch.profiler) report each
      served model's LUT-GEMM (K1, K2, K3 or K4, and the loop's split-K
-     reduction) in ms per decode step, K6's in a step that admits 8
+     reduction) in ms per decode step, K5's (span and merge kernels) per
+     decode step and per call, K6's in a step that admits 8
      requests, and fail if a decode step converts the dtype of a tensor of
      2^20 elements or more (the lm_head and the KV cache are multiplied in
      16 bits with f32 results, never copied to f32).
@@ -235,9 +239,9 @@ def kernel_path(kid, dtype, bits, chunk=256):
     "simt" (the skeleton of lut_gemm_common.cuh), as the wrapper picks it."""
     from flute_tpu_torch.ops import lut_gemm
 
-    if kid in ("K1", "K2"):
-        return lut_gemm.lut_path(dtype, bits, chunk)
-    return "mma" if kid == "K4" else "simt"
+    if kid == "K4":
+        return "mma"
+    return lut_gemm.lut_path(dtype, bits, chunk, LAYOUT[kid])
 
 
 def check_rows(kid, label, x, y, call):
@@ -283,13 +287,13 @@ def phase_kernel(dev, results):
                     y_plain = lut_gemm.lut_qgemm_plain(x, planes, scales, table, num_bits=bits,
                                                        chunk=256, layout=layout, pair_values=pv)
                     label = f"{bits}-bit {name} M={m} {dtype}"
-                    if kid != "K3":  # split-K adds its partial sums in a fixed order
-                        again = lut_gemm.lut_qgemm(x, planes, scales, table, **kw)
-                        if not torch.equal(again.view(torch.int16), y.view(torch.int16)):
-                            raise AssertionError(f"{kid} {label}: a repeat call gave other bits")
-                        if m > 1:
-                            check_rows(kid, label, x, y, lambda xr: lut_gemm.lut_qgemm(
-                                xr, planes, scales, table, **kw))
+                    # split-K adds its partial sums in a fixed order
+                    again = lut_gemm.lut_qgemm(x, planes, scales, table, **kw)
+                    if not torch.equal(again.view(torch.int16), y.view(torch.int16)):
+                        raise AssertionError(f"{kid} {label}: a repeat call gave other bits")
+                    if m > 1:
+                        check_rows(kid, label, x, y, lambda xr: lut_gemm.lut_qgemm(
+                            xr, planes, scales, table, **kw))
                     torch.cuda.synchronize()
                     err = rel_err(y, y_plain)
                     max_abs = float((y.float() - y_plain.float()).abs().max())
@@ -335,7 +339,7 @@ def phase_kernel(dev, results):
                     )
                 del args, deq_c, deq, planes
     results["kernel_cases"] = cases
-    log("  K1, K2, K4: every repeat call gave the same bits (fixed-order split-K), and rows 0 "
+    log("  K1-K4: every repeat call gave the same bits (fixed-order split-K), and rows 0 "
         "and M-1 of every call at M > 1 the bits of the one-row call")
     time_split_cost(dev, rng, gen, results)
     check_identity(dev, rng, gen, results)
@@ -508,14 +512,15 @@ ATTN = dict(h=32, hkv=8, d=128, bs=16)
 ATTN_OPTIONS = [(None, None), (50.0, None), (None, 1000), (30.0, 333)]
 
 
-def paged_inputs(rng, gen, dev, dtype, lengths, t=0):
+def paged_inputs(rng, gen, dev, dtype, lengths, t=0, extra_blocks=0):
     """q, pools and tables for sequences of ``lengths`` cached positions (and
     ``t`` more queries each): every live block its own pool row, a random
-    permutation of them; dead table entries point at row 0. Returns also
-    the number of live blocks."""
+    permutation of them; dead table entries (``extra_blocks`` past the
+    longest sequence's too) point at row 0. Returns also the number of live
+    blocks."""
     h, hkv, d, bs = ATTN["h"], ATTN["hkv"], ATTN["d"], ATTN["bs"]
     need = [-(-(n + t) // bs) for n in lengths]
-    mb = max(max(need), 1)
+    mb = max(max(need), 1) + extra_blocks
     nb = sum(need) + 1
     rows = rng.permutation(np.arange(1, nb))
     tables = np.zeros((len(lengths), mb), np.int32)
@@ -551,9 +556,16 @@ def phase_attention(dev, results):
             kw = dict(softcap=softcap, window=window)
             got = fn(q, kp, vp, tables, lens, **kw)
             want = ref(q, kp, vp, tables, lens, **kw)
-            if kid == "K6" and not torch.equal(fn(q, kp, vp, tables, lens, **kw).view(torch.int16),
-                                               got.view(torch.int16)):
-                raise AssertionError(f"K6 {label} {kw}: a repeat call gave other bits")
+            if not torch.equal(fn(q, kp, vp, tables, lens, **kw).view(torch.int16),
+                               got.view(torch.int16)):
+                raise AssertionError(f"{kid} {label} {kw}: a repeat call gave other bits")
+            if kid == "K5":  # a sequence alone, with a table just wide enough for it
+                for i, n in enumerate(lens.tolist()):
+                    mb = max(1, -(-n // bs))
+                    alone = fn(q[i:i + 1], kp, vp, tables[i:i + 1, :mb], lens[i:i + 1], **kw)
+                    if not torch.equal(alone.view(torch.int16), got[i:i + 1].view(torch.int16)):
+                        raise AssertionError(f"K5 {label} {kw}: sequence {i} (length {n}) "
+                                             "alone differs from it in the batch")
             torch.cuda.synchronize()
             if not torch.isfinite(got.float()).all():
                 raise AssertionError(f"{kid} {label} {kw}: non-finite output")
@@ -568,7 +580,7 @@ def phase_attention(dev, results):
 
     for dtype in (torch.bfloat16, torch.float16):
         lengths = [0, 1, 37, 100, 515, 1000, 2049, 4096]
-        q, kp, vp, tables, lens, _ = paged_inputs(rng, gen, dev, dtype, lengths)
+        q, kp, vp, tables, lens, _ = paged_inputs(rng, gen, dev, dtype, lengths, extra_blocks=3)
         got = check("K5", pa.paged_decode_attention, pa.paged_gqa_reference, q, kp, vp,
                     tables, lens, f"decode B=8 lengths {lengths}")
         if got[0].float().any():
@@ -578,9 +590,10 @@ def phase_attention(dev, results):
             check("K6", pa.paged_verify_attention, pa.paged_verify_reference, q, kp, vp,
                   tables, lens, f"verify T={t} over [0, 1024]")
         del q, kp, vp
-    log(f"  K5 (ragged lengths 0..4096) and K6 (T 5/64/256 over 0 and 1024) agree with "
-        f"their plain versions with softcap, window and both, bf16/f16: max rel err "
-        f"{max(c['rel_err'] for c in cases):.2e}; K6 repeat calls bit-identical")
+    log(f"  K5 (ragged lengths 0..4096, spans of {pa.DECODE_SPAN}) and K6 (T 5/64/256 over 0 "
+        f"and 1024) agree with their plain versions with softcap, window and both, bf16/f16: "
+        f"max rel err {max(c['rel_err'] for c in cases):.2e}; repeat calls bit-identical; each "
+        "K5 sequence alone bit-identical to it in the batch")
 
     timed = []
     dtype = torch.bfloat16
@@ -625,6 +638,19 @@ def phase_attention(dev, results):
             return F.scaled_dot_product_attention(q4, k, v, attn_mask=mask, enable_gqa=True)
 
         t_k = bench_op(kern, pools)
+        span_us = {}
+        if kid == "K5":  # the span, timed at 128, 256 and 512 positions
+            for span in (128, 256, 512):
+                def kern_span(k, v, span=span):
+                    return pa._launch("paged_decode", q[:, None], k, v, tables, lens, d**-0.5,
+                                      None, None, span=span)
+
+                got = kern_span(kp, vp)[:, 0].float()
+                want = plain(kp, vp).float()
+                err = float((got - want).abs().max() / want.abs().max())
+                if not err < THRESHOLDS[torch.bfloat16]:
+                    raise AssertionError(f"K5 {lengths[0]} with spans of {span}: max rel err {err}")
+                span_us[span] = bench_op(kern_span, pools) * 1e6
         t_p = bench_op(plain, pools[:2], min_launches=2)
         t_l = bench_op(library, dense)
         nbytes = live * hkv * bs * d * esz * 2 + 2 * q.numel() * esz
@@ -634,12 +660,18 @@ def phase_attention(dev, results):
                     bytes=nbytes, flops=flops, us=t_k * 1e6, plain_us=t_p * 1e6,
                     library_us=t_l * 1e6, bound_us=max(t_bytes, t_ops) * 1e6,
                     bound_by="bytes" if t_bytes >= t_ops else "operations")
+        if kid == "K5":
+            case.update(span=pa.DECODE_SPAN,
+                        spans=pa.decode_spans(tables.shape[1], bs, pa.DECODE_SPAN),
+                        us_by_span=span_us)
         case["share_of_bound"] = case["bound_us"] / case["us"]
         timed.append(case)
         log(f"    {kid} {case['case']:28s} kernel {case['us']:9.1f} us  bound "
             f"{case['bound_us']:7.1f} us ({case['bound_by']}, "
             f"{100 * case['share_of_bound']:5.1f}%)  plain {case['plain_us']:9.1f} us  "
-            f"sdpa {case['library_us']:7.1f} us")
+            f"sdpa {case['library_us']:7.1f} us"
+            + (f"  by span {', '.join(f'{k}: {v:.1f}' for k, v in span_us.items())} us"
+               if span_us else ""))
         del pools, dense, kg, vg, q, kp, vp
     torch.cuda.empty_cache()
     results["attention_cases"] = cases
@@ -1346,16 +1378,18 @@ def _record_first(eng, first_rows):
 
 
 # device kernels by name: the LUT-GEMMs (K1, K2 and K4 on the tensor-core
-# loop, told apart by their table fill; K1 and K2 off it and K3 by their
-# SIMT kernels), the loop's split-K reduction (of whichever of K1, K2 and
-# K4 a model runs), K6, and PyTorch's dtype copies (an f32 copy of the
-# lm_head or of a KV cache would show there)
+# loop, told apart by their table fill, K3 by its decoder; off it by their
+# SIMT kernels), the loop's split-K reduction (of whichever of K1-K4 a model
+# runs), K5's span kernel and its merge, K6, and PyTorch's dtype copies (an
+# f32 copy of the lm_head or of a KV cache would show there)
 PROFILE_GROUPS = {
     "K1": ("W4SymFill", "lut_qgemm_w4sym_kernel"),
     "K2": ("ScalarFill", "lut_qgemm_plane_kernel"),
-    "K3": ("lut_qgemm_w3wide_kernel",),
+    "K3": ("W3WideDecoder", "lut_qgemm_w3wide_kernel"),
     "K4": ("JointFill",),
     "split-K reduction": ("split_reduce_kernel",),
+    "K5": ("decode_span_kernel",),
+    "K5 merge": ("decode_merge_kernel",),
     "K6": ("verify_mma_kernel",),
     "dtype copies": ("direct_copy",),
 }
@@ -1477,7 +1511,8 @@ def kernel_line(kid, cases, launches, identity_paths):
 
 def attention_line(kid, checks, timed, launches):
     """The {"kernels": [...]} entry of K5 (one call at B=8, every length
-    1024) or K6 (one call, T=256 over 1024 cached positions)."""
+    1024; with its span and the spans of a sequence at 1024 [4096]) or K6
+    (one call, T=256 over 1024 cached positions)."""
     wrapper, source, _, replaces = KERNELS[kid]
     row = [c for c in timed if c["kernel"] == kid][0]
     return dict(
@@ -1495,6 +1530,8 @@ def attention_line(kid, checks, timed, launches):
         checked=True,
         **({"served_chunk_ms": [c for c in timed if c["kernel"] == kid][-1]["us"] / 1e3}
            if kid == "K6" else {}),
+        **({"span": row["span"], "spans": [c["spans"] for c in timed if c["kernel"] == kid]}
+           if kid == "K5" else {}),
     )
 
 
@@ -1530,9 +1567,10 @@ def phase_paged(dev, results, w4sym_engine, w4sym_trajectory):
             raise AssertionError(f"paged w4sym: request {i} differs from Engine before step {tie}")
     # every request was admitted at once, request i into slot i: while its
     # tokens equal Engine's, decode step k's row i is Engine's step k + 1.
-    # Engine rounds attention probabilities to bf16 and K5 keeps them in
-    # f32, which alone moves 32-layer logits by a few percent (PERF.md, PR
-    # 3); a wrong position or block would move them by their whole size.
+    # Engine and K5 both round attention probabilities to bf16, but sum
+    # them in other orders (K5 over its spans and warps), which alone moves
+    # 32-layer logits by a few percent (PERF.md §6); a wrong position or
+    # block would move them by their whole size.
     if serving["calls"]["waits"]:
         raise AssertionError("paged w4sym: a request waited for blocks")
     step_err, compared = 0.0, 0
@@ -1593,6 +1631,7 @@ def main() -> int:
     sys.path.insert(0, HERE)
     from flute_tpu_torch.lab import ops as lab_ops
     from flute_tpu_torch.lab import ops2 as lab2_ops
+    from flute_tpu_torch.models import llama
     from flute_tpu_torch.ops import _build, lut_gemm
     from flute_tpu_torch.ops import paged_attention as pa
 
@@ -1664,10 +1703,16 @@ def main() -> int:
     admission = higgs_profile["admission_step"]["groups_ms_per_step"]
     if higgs_profile["groups_ms_per_step"] is not None and admission is not None:
         groups = higgs_profile["groups_ms_per_step"]
+        # one K5 call per layer and decode step
+        k5_call_us = (groups["K5"] + groups["K5 merge"]) * 1e3 / llama.LlamaConfig.llama31_8b(
+        ).num_layers
+        higgs_profile["k5_us_per_call"] = k5_call_us
         log(f"  [paged HIGGS-W4] K4 {groups['K4']:.3f} ms (+ split-K reduction "
             f"{groups['split-K reduction']:.3f} ms) per decode "
-            f"step; K6 {admission['K6']:.3f} ms in the step that admits 8 requests; no decode "
-            f"step converts a tensor of {LARGE_COPY_ELEMENTS} elements or more")
+            f"step; K5 {groups['K5']:.3f} ms (+ merge {groups['K5 merge']:.3f} ms), "
+            f"{k5_call_us:.2f} us per call; K6 {admission['K6']:.3f} ms in the step that admits "
+            f"8 requests; no decode step converts a tensor of {LARGE_COPY_ELEMENTS} elements "
+            "or more")
     del engines, paged_eng
     torch.cuda.empty_cache()
     lab_served = {fn: lab_ops.LAUNCHES[fn] - lab_before[fn] for fn in lab_before}

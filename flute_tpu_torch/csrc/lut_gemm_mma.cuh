@@ -3,8 +3,10 @@
 // shared memory as 16-bit A fragments, split-K with a fixed-order reduction.
 // K1 (lut_gemm_w4sym.cu) and K2 (lut_gemm_plane.cu) in bf16 and f16, and K4
 // (lut_gemm_pair.cu), run on it with the pair decoder of
-// lut_gemm_pair_decoder.cuh, each with its own table fill; a kernel adopts
-// it by writing a Decoder (below) for its layout.
+// lut_gemm_pair_decoder.cuh, each with its own table fill; K3
+// (lut_gemm_w3wide.cu) in bf16 and f16 with its own decoder of the wide
+// 3-bit triples. A kernel adopts it by writing a Decoder (below) for its
+// layout.
 //
 //   y[M, N] = x[M, K] @ W,  W decoded per K-row pair and column
 //
@@ -47,13 +49,21 @@
 // products. Block: 4 warps, 32 columns each (128 columns), 16 * MT rows.
 //
 // A Decoder for 16-bit type T provides
-//   kPlaneBits0            bits of the first plane (its pair field is twice that)
-//   kFields                pair fields per first-plane word (32 / (2 kPlaneBits0))
+//   kFields                pair fields per word row: field i of word row j of
+//                          a chunk is pair-row i * kc + j
+//   word_rows(chunk)       kc, the word rows of a chunk (a multiple of 4)
+//   kChunkScales           false: each field keeps its own scales, reloaded
+//                          when its group changes (any group size); true: the
+//                          group size is a multiple of 2 kc, so a field's
+//                          group is fixed for the chunk and its scales are
+//                          loaded once per chunk (fewer registers at 16 fields)
+//   kDepth                 items of words prefetched per lane
 //   struct Table           its shared-memory table
 //   Decoder(Table&, const float* table_src)   fills the table (all threads; the
 //                          loop's first barrier orders it before use)
 //   Words load(plane0, plane1, c, j, kc0, kc1, n0, N, vec)
-//                          a lane's words of word row j of chunk c (via load_cols)
+//                          a lane's words of word row j of chunk c (via load_cols;
+//                          kc0 = word_rows(chunk), kc1 = chunk / 32)
 //   uint32_t pair(const Words&, int e, int i, int j, int kc1)
 //                          the 16-bit pair (low half the even K row) of field i
 //                          of column e, before the scale.
@@ -75,7 +85,7 @@ constexpr int kXPad = 8;                     // halves of padding per staged x r
 
 struct Args {
   const void* x;           // [M, K] 16-bit
-  const uint32_t* plane0;  // [K * pb0 / 32, N]
+  const uint32_t* plane0;  // [K * pb0 / 32, N] (the wide 3-bit plane: [3K / 32, N])
   const uint32_t* plane1;  // [K / 32, N] (the 1-bit plane at 3 bits) or null
   const void* scales;      // [K / group_size, N] in x's type
   const float* table;      // the decoder's table
@@ -210,10 +220,11 @@ __device__ __forceinline__ uint32_t scale2(const uint2& s, int e) {
 
 // At one m16 tile per warp (decode) four blocks share an SM (at most 128
 // registers a thread), so a launch of up to 528 blocks runs in one wave.
-template <typename T, int MT, int DEPTH, typename Decoder>
+template <typename T, int MT, typename Decoder>
 __global__ void __launch_bounds__(kMmaThreads, MT == 1 ? 4 : 1) lut_mma_kernel(const Args a) {
   constexpr int kRows = 16 * MT;
   constexpr int kF = Decoder::kFields;
+  constexpr int DEPTH = Decoder::kDepth;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ typename Decoder::Table table;
   const Decoder dec(table, a.table);
@@ -224,7 +235,7 @@ __global__ void __launch_bounds__(kMmaThreads, MT == 1 ? 4 : 1) lut_mma_kernel(c
   const int g = lane >> 2;
   const int n0 = blockIdx.x * kMmaBlockN + warp * kWarpN + 4 * g;  // this lane's 4 columns
   const int m0 = blockIdx.z * kRows;
-  const int kc0 = a.chunk * Decoder::kPlaneBits0 / 32;  // first-plane word rows per chunk
+  const int kc0 = Decoder::word_rows(a.chunk);          // (first-plane) word rows per chunk
   const int kc1 = a.chunk / 32;                         // 1-bit plane word rows per chunk
   const int groups = kc0 / 4;                           // items per chunk
   const int c0 = blockIdx.y * a.chunks_per_split;
@@ -268,10 +279,16 @@ __global__ void __launch_bounds__(kMmaThreads, MT == 1 ? 4 : 1) lut_mma_kernel(c
     for (int e = 0; e < 4; ++e)
 #pragma unroll
       for (int i = 0; i < 4; ++i) acc[mt][e][i] = 0.f;
-  int sk[kF];            // first K row of the group of each field's cached scales
-  uint32_t sv[kF][4];    // those scales of the lane's 4 columns, each in both halves
+  // !kChunkScales: per field, the first K row of the group of its cached
+  // scales and those scales of the lane's 4 columns, each in both halves
+  int sk[kF];
+  uint32_t sv[kF][4];
 #pragma unroll
   for (int i = 0; i < kF; ++i) sk[i] = -2 * a.group_size;  // nothing cached
+  // kChunkScales: per field, the 4 columns' scales for the whole chunk; field
+  // u = c * kF + i of the K dimension (2 kc rows) lies in group u / fpg
+  uint2 cs[kF];
+  const int fpg = Decoder::kChunkScales ? a.group_size / (2 * kc0) : 1;
 
   typename Decoder::Words ring[DEPTH];
   stage(c0, 0);
@@ -293,28 +310,52 @@ __global__ void __launch_bounds__(kMmaThreads, MT == 1 ? 4 : 1) lut_mma_kernel(c
           if (ci + 1 < a.chunks_per_split) {
             stage(c + 1, (ci + 1) & 1);
             if (n0 < a.N) {  // the next chunk's first scales into L2
+              if constexpr (Decoder::kChunkScales) {  // each of its groups once
+                for (int gi = (c + 1) * kF / fpg; gi <= ((c + 2) * kF - 1) / fpg; ++gi)
+                  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(
+                      scales + static_cast<size_t>(gi) * a.N + n0));
+              } else {
 #pragma unroll
-              for (int i = 0; i < kF; ++i) {
-                const int gi = ((c + 1) * a.chunk + 2 * (i * kc0 + t)) / a.group_size;
-                asm volatile("prefetch.global.L2 [%0];\n" ::"l"(
-                    scales + static_cast<size_t>(gi) * a.N + n0));
+                for (int i = 0; i < kF; ++i) {
+                  const int gi = ((c + 1) * a.chunk + 2 * (i * kc0 + t)) / a.group_size;
+                  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(
+                      scales + static_cast<size_t>(gi) * a.N + n0));
+                }
               }
             }
           }
         }
         const typename Decoder::Words w = ring[d];
         if (it + DEPTH < n_items) ring[d] = load_next();
-        // every field's scales before the first product, so that the loads
-        // of a new group are in flight together; a division only on a reload
+        if constexpr (Decoder::kChunkScales) {
+          if (q == 0) {  // the chunk's scales, one load per group
+            int gi = c * kF / fpg;
+            int r = c * kF - gi * fpg;
 #pragma unroll
-        for (int i = 0; i < kF; ++i) {
-          const int krow = c * a.chunk + 2 * (i * kc0 + j);
-          if (static_cast<unsigned>(krow - sk[i]) >= static_cast<unsigned>(a.group_size)) {
-            const int gi = krow / a.group_size;
-            sk[i] = gi * a.group_size;
-            const uint2 s4 = load_scales(scales, gi, n0, a.N, vec);
+            for (int i = 0; i < kF; ++i) {
+              if (i == 0 || r == 0)
+                cs[i] = load_scales(scales, gi, n0, a.N, vec);
+              else
+                cs[i] = cs[i - 1];
+              if (++r == fpg) {
+                r = 0;
+                ++gi;
+              }
+            }
+          }
+        } else {
+          // every field's scales before the first product, so that the loads
+          // of a new group are in flight together; a division only on a reload
 #pragma unroll
-            for (int e = 0; e < 4; ++e) sv[i][e] = scale2(s4, e);
+          for (int i = 0; i < kF; ++i) {
+            const int krow = c * a.chunk + 2 * (i * kc0 + j);
+            if (static_cast<unsigned>(krow - sk[i]) >= static_cast<unsigned>(a.group_size)) {
+              const int gi = krow / a.group_size;
+              sk[i] = gi * a.group_size;
+              const uint2 s4 = load_scales(scales, gi, n0, a.N, vec);
+#pragma unroll
+              for (int e = 0; e < 4; ++e) sv[i][e] = scale2(s4, e);
+            }
           }
         }
         const T* xb = xs + (ci & 1) * kRows * xstride;
@@ -326,7 +367,8 @@ __global__ void __launch_bounds__(kMmaThreads, MT == 1 ? 4 : 1) lut_mma_kernel(c
             const int i = 2 * s + h;
 #pragma unroll
             for (int e = 0; e < 4; ++e)
-              b[e][h] = Pack2<T>::mul(dec.pair(w, e, i, j, kc1), sv[i][e]);
+              b[e][h] = Pack2<T>::mul(dec.pair(w, e, i, j, kc1),
+                                      Decoder::kChunkScales ? scale2(cs[i], e) : sv[i][e]);
           }
           // k-slots 0..7: K rows 2 (2s kc0 + 4q) + 0..7; 8..15: field 2s + 1
           const int kcol = 2 * ((2 * s + (lane >> 4)) * kc0 + 4 * q);
@@ -387,9 +429,9 @@ inline size_t mma_smem_bytes(int mt, int chunk) {
 
 // Launches the loop on a grid (N / 128, splits, M / (16 MT)) and, with more
 // than one split, the reduction. Returns the first launch error.
-template <typename T, int MT, int DEPTH, typename Decoder>
+template <typename T, int MT, typename Decoder>
 cudaError_t launch_mma(const Args& a, int splits, cudaStream_t stream) {
-  auto kernel = lut_mma_kernel<T, MT, DEPTH, Decoder>;
+  auto kernel = lut_mma_kernel<T, MT, Decoder>;
   const size_t smem = mma_smem_bytes(MT, a.chunk);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -404,6 +446,35 @@ cudaError_t launch_mma(const Args& a, int splits, cudaStream_t stream) {
   split_reduce_kernel<T><<<static_cast<unsigned>((mn + 255) / 256), 256, 0, stream>>>(
       a.work, static_cast<T*>(a.y), mn, splits);
   return cudaGetLastError();
+}
+
+// The loop for m_tiles (1, 2 or 4) m16 tiles per warp.
+template <typename T, typename Decoder>
+cudaError_t run_tiles(const Args& a, int m_tiles, int splits, cudaStream_t s) {
+  switch (m_tiles) {
+    case 1: return launch_mma<T, 1, Decoder>(a, splits, s);
+    case 2: return launch_mma<T, 2, Decoder>(a, splits, s);
+    case 4: return launch_mma<T, 4, Decoder>(a, splits, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// A C entry's operands as the loop's Args. False where the loop cannot take
+// them: K not a multiple of chunk, word_rows (the decoder's word rows per
+// chunk) not a multiple of 4, splits not dividing the chunks, or more than
+// one split without a workspace.
+inline bool loop_args(Args& a, const void* x, const void* plane0, const void* plane1,
+                      const void* scales, const void* table, void* y, void* work, int M, int N,
+                      int K, int group_size, int chunk, int word_rows, int splits, int vec) {
+  const int nchunks = chunk > 0 ? K / chunk : 0;
+  if (chunk <= 0 || K % chunk || word_rows % 4 || splits < 1 || nchunks % splits ||
+      (splits > 1 && work == nullptr))
+    return false;
+  a = Args{x,      static_cast<const uint32_t*>(plane0), static_cast<const uint32_t*>(plane1),
+           scales, static_cast<const float*>(table),     y,
+           splits > 1 ? static_cast<float*>(work) : nullptr,
+           M,      N, K, group_size, chunk, nchunks / splits, vec};
+  return true;
 }
 
 }  // namespace mma

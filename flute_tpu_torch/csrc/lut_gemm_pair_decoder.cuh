@@ -32,8 +32,14 @@ namespace mma {
 
 template <typename T, int NB, typename Fill>
 struct PairDecoder {
-  static constexpr int kPlaneBits0 = NB == 4 ? 4 : 2;
+  static constexpr int kPlaneBits0 = NB == 4 ? 4 : 2;  // bits of the first plane's sub-codes
   static constexpr int kFields = 32 / (2 * kPlaneBits0);
+  static constexpr bool kChunkScales = false;
+  // Items of words prefetched per lane: four (a deeper ring ran slower on
+  // the H100, and sixteen spilled); four blocks of 128 threads per SM then
+  // keep 32 KB of plane words in flight.
+  static constexpr int kDepth = 4;
+  static __host__ __device__ int word_rows(int chunk) { return chunk * kPlaneBits0 / 32; }
   static constexpr int kE = 1 << NB;
   static constexpr uint32_t kFieldMask = (1u << (2 * kPlaneBits0)) - 1;
   // copies of the table, entry pc of copy c at word pc * kCopies + c: lane l
@@ -81,48 +87,25 @@ struct PairDecoder {
   }
 };
 
-// Items of words prefetched per lane: four (a deeper ring ran slower on the
-// H100, and sixteen spilled); four blocks of 128 threads per SM then keep
-// 32 KB of plane words in flight.
-template <typename T, int NB, typename Fill>
-cudaError_t run_pair_tiles(const Args& a, int m_tiles, int splits, cudaStream_t s) {
-  constexpr int kDepth = 4;
-  using D = PairDecoder<T, NB, Fill>;
-  switch (m_tiles) {
-    case 1: return launch_mma<T, 1, kDepth, D>(a, splits, s);
-    case 2: return launch_mma<T, 2, kDepth, D>(a, splits, s);
-    case 4: return launch_mma<T, 4, kDepth, D>(a, splits, s);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
 // The loop for a C entry's dtype code (1 = float16, 2 = bfloat16; float32 has
 // no tensor-core path here: refused).
 template <int NB, typename Fill>
 cudaError_t run_pair(const Args& a, int dtype, int m_tiles, int splits, cudaStream_t s) {
   switch (dtype) {
-    case 1: return run_pair_tiles<__half, NB, Fill>(a, m_tiles, splits, s);
-    case 2: return run_pair_tiles<__nv_bfloat16, NB, Fill>(a, m_tiles, splits, s);
+    case 1: return run_tiles<__half, PairDecoder<__half, NB, Fill>>(a, m_tiles, splits, s);
+    case 2:
+      return run_tiles<__nv_bfloat16, PairDecoder<__nv_bfloat16, NB, Fill>>(a, m_tiles, splits, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// A C entry's operands as the loop's Args. False where the loop cannot take
-// them: K not a multiple of chunk, a first plane of pb0-bit sub-codes without
-// a multiple of 4 word rows per chunk, splits not dividing the chunks, or
-// more than one split without a workspace.
+// A C entry's operands as the loop's Args (lut_gemm_mma.cuh::loop_args)
+// for a first plane of pb0-bit sub-codes.
 inline bool pair_args(Args& a, const void* x, const void* plane0, const void* plane1,
                       const void* scales, const void* table, void* y, void* work, int M, int N,
                       int K, int group_size, int chunk, int pb0, int splits, int vec) {
-  const int nchunks = chunk > 0 ? K / chunk : 0;
-  if (chunk <= 0 || K % chunk || (chunk * pb0 / 32) % 4 || splits < 1 || nchunks % splits ||
-      (splits > 1 && work == nullptr))
-    return false;
-  a = Args{x,      static_cast<const uint32_t*>(plane0), static_cast<const uint32_t*>(plane1),
-           scales, static_cast<const float*>(table),     y,
-           splits > 1 ? static_cast<float*>(work) : nullptr,
-           M,      N, K, group_size, chunk, nchunks / splits, vec};
-  return true;
+  return loop_args(a, x, plane0, plane1, scales, table, y, work, M, N, K, group_size, chunk,
+                   chunk * pb0 / 32, splits, vec);
 }
 
 }  // namespace mma

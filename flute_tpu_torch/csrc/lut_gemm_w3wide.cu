@@ -16,29 +16,51 @@
 // pair-row p = c * chunk / 2 + j * ntrip + t (K rows 2p and 2p + 1). Fields 5
 // (bits 30-35) and 10 (bits 60-65) straddle a word boundary.
 //
-// Numerics: as lut_gemm_w4sym.cu. Each weight is table[c] rounded to the
-// compute type, times its scale, rounded once to the compute type; products
-// with x are accumulated in f32 with IEEE FMAs (no tensor cores, no TF32) and
-// the warps' partial sums are added in a fixed order, so an identity x is
-// bit-exact in bf16, f16 and f32.
+// Two paths, chosen by the caller (ops/lut_gemm.py::lut_path) before the
+// launch from the dtype and the chunk, as in lut_gemm_w4sym.cu:
 //
-// What bounds it: bytes. At decode (M <= 8) every weight costs 3/8 byte of
-// plane plus 2 / g byte of scale, so the least time is those bytes over HBM
-// bandwidth (3.35 TB/s on an H100 SXM). Design: K1's skeleton
-// (lut_gemm_common.cuh): one lane per output column, so a warp reads 128
-// contiguous bytes of each word row; eight warps split each chunk's triples
-// (one triple each at chunk 256); a lane joins its triple's words into two
-// unsigned 64-bit halves, so every field, the straddling two included, is a
-// shift and a mask with no sign drag; x staged in shared memory as f32; the
-// 8-entry table in shared memory. This is the simple, correct kernel: no
-// pipelining across chunks, no wgmma or TMA.
+// * bf16 and f16 at a chunk the loop takes (a multiple of 256 whose x ring
+//   fits shared memory: ops/kernel_config.py::mma_takes_chunk): the
+//   tensor-core loop of lut_gemm_mma.cuh with W3WideDecoder below. The
+//   layout already has the loop's geometry: a triple row is a word row of
+//   kc = ntrip rows per chunk with 16 fields, field j of triple row t being
+//   pair-row j * kc + t, and the 6-bit field is itself the index of a
+//   64-entry table of 16-bit pairs (table[ce], table[co]) that each block
+//   fills from the 8 values (K2's 3-bit fill, without the second plane's
+//   bits). A lane loads the 3 words of its triple row (3 x 16 bytes, 4
+//   columns) two items ahead; the straddling fields take their bits from
+//   two words with logical shifts. With 16 fields a per-field scale cache
+//   (K1's and K2's) costs 80 registers, so where the group size is a
+//   multiple of 2 kc (a field's K rows then lie in one group for the whole
+//   chunk: g 32, 64 and 128 at chunk 256 and 512) the lane loads its 16
+//   fields' scales once per chunk (32 registers); other group sizes keep
+//   the per-field cache. Numerics are K1's: value times scale in one packed
+//   16-bit multiply (lut_gemm.dequantize_codes), f32 sums on mma.sync,
+//   splits added in order, the split from N, K and chunk alone, so a row's
+//   result does not depend on M.
+// * f32, or a chunk the loop cannot take: the SIMT kernel below, on the
+//   skeleton of lut_gemm_common.cuh: one lane per output column, eight warps
+//   splitting each chunk's triples, a lane joining its triple's words into
+//   two unsigned 64-bit halves (every field a shift and a mask), x staged in
+//   shared memory as f32, the 8-entry table in shared memory; IEEE FMAs, no
+//   TF32.
+//
+// Both are bit-exact with an identity x and give the same bits on a repeat
+// call; the plain PyTorch version differs only in the order of the f32 sums.
+//
+// What bounds it: bytes at decode (3/8 byte of plane plus 2 / g byte of
+// scale per weight; 3.35 TB/s on an H100 SXM), operations at prefill; on
+// the loop at decode its per-pair instructions (field, lookup, scale
+// multiply) take the time, as in K1, K2 and K4.
 
 #include "lut_gemm_common.cuh"
+#include "lut_gemm_mma.cuh"
 
 namespace {
 
 using namespace flute;
 
+// The SIMT kernel (f32, and chunks the loop cannot take).
 template <typename T, int BM>
 __global__ void __launch_bounds__(kThreads)
 lut_qgemm_w3wide_kernel(const T* __restrict__ x, const uint32_t* __restrict__ plane,
@@ -121,16 +143,104 @@ struct Launcher {
   }
 };
 
+// The tensor-core loop's decoder of the w3wide plane (see the note at the
+// top). CHUNK_GROUPS: the group size is a multiple of 2 kc, so the loop loads
+// a chunk's scales once per field (lut_gemm_mma.cuh, kChunkScales).
+template <typename T, bool CHUNK_GROUPS>
+struct W3WideDecoder {
+  static constexpr int kFields = 16;  // six-bit fields per triple row
+  static constexpr bool kChunkScales = CHUNK_GROUPS;
+  // Items prefetched per lane: two. An item is 12 registers of words, 4x
+  // the pairs of a 4-bit item, so two keep more bytes in flight than K1's
+  // four.
+  static constexpr int kDepth = 2;
+  static constexpr int kCopies = 8;  // bank-interleaved copies, as PairDecoder's
+  static __host__ __device__ int word_rows(int chunk) { return chunk / 32; }
+
+  struct Table {
+    uint32_t v[64 * kCopies];
+  };
+  struct Words {
+    uint4 w0, w1, w2;  // the triple's three words, 4 columns each
+  };
+
+  const uint32_t* tab;
+
+  // entry ce | co << 3 names (table[ce], table[co]), each rounded to T
+  __device__ W3WideDecoder(Table& t, const float* src) : tab(t.v + (threadIdx.x & (kCopies - 1))) {
+    for (int idx = threadIdx.x; idx < 64 * kCopies; idx += blockDim.x) {
+      const int pc = idx / kCopies;
+      t.v[idx] = mma::Pack2<T>::from_f(src[pc & 7], src[pc >> 3]);
+    }
+  }
+
+  // triple row j of chunk c: word rows c * 3 kc + j, + kc and + 2 kc
+  __device__ __forceinline__ Words load(const uint32_t* __restrict__ p0, const uint32_t*, int c,
+                                        int j, int kc, int, int n0, int N, bool vec) const {
+    const size_t row = static_cast<size_t>(c) * 3 * kc + j;
+    Words w;
+    w.w0 = mma::load_cols(p0, row, n0, N, vec);
+    w.w1 = mma::load_cols(p0, row + kc, n0, N, vec);
+    w.w2 = mma::load_cols(p0, row + 2 * kc, n0, N, vec);
+    return w;
+  }
+
+  // field i (bits 6i..6i+5 of the 96-bit triple) of column e; i is a
+  // constant once the loop is unrolled, so every shift is too
+  __device__ __forceinline__ uint32_t pair(const Words& w, int e, int i, int, int) const {
+    const uint32_t a = mma::word_of(w.w0, e);
+    const uint32_t b = mma::word_of(w.w1, e);
+    const uint32_t c = mma::word_of(w.w2, e);
+    uint32_t f;
+    if (i < 5)
+      f = a >> (6 * i);
+    else if (i == 5)
+      f = (a >> 30) | (b << 2);  // bits 30-31 of the first word, 0-3 of the second
+    else if (i < 10)
+      f = b >> (6 * i - 32);
+    else if (i == 10)
+      f = (b >> 28) | (c << 4);  // bits 28-31 of the second word, 0-1 of the third
+    else
+      f = c >> (6 * i - 64);
+    return tab[(f & 63u) * kCopies];
+  }
+};
+
+template <typename T>
+cudaError_t run_loop(const mma::Args& a, int m_tiles, int splits, cudaStream_t s) {
+  if (a.group_size % (2 * W3WideDecoder<T, true>::word_rows(a.chunk)) == 0)
+    return mma::run_tiles<T, W3WideDecoder<T, true>>(a, m_tiles, splits, s);
+  return mma::run_tiles<T, W3WideDecoder<T, false>>(a, m_tiles, splits, s);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = float16, 2 = bfloat16 (x, scales and y share it;
-// table is float32 [8]). All pointers are device pointers; the kernel runs on
-// `stream` and is not synchronised. Returns the cudaError_t of the launch.
+// table is float32 [8]). m_tiles 0 runs the SIMT kernel with block_m (1, 2,
+// 4 or 8) rows per block, in any dtype; m_tiles 1, 2 or 4 runs the
+// tensor-core loop (bf16/f16, chunk a multiple of 256, x 16-byte aligned)
+// with that many m16 tiles per warp and `splits` splits of K / chunk; with
+// more than one split `work` is a float32 [splits, M, N] workspace (else
+// null), and the entry launches the loop and its split reduction. vec: N %
+// 4 == 0 with the plane 16-byte and scales 8-byte aligned. All pointers are
+// device pointers; the kernels run on `stream` and are not synchronised.
+// Returns the cudaError_t of the launches.
 extern "C" int flute_lut_qgemm_w3wide(const void* x, const void* plane, const void* scales,
-                                      const void* table, void* y, int M, int N, int K,
-                                      int group_size, int chunk, int dtype, int block_m,
-                                      void* stream) {
-  const Launcher l{x, plane, scales, table, y, M, N, K, group_size, chunk,
-                   static_cast<cudaStream_t>(stream)};
-  return dispatch(dtype, block_m, l);
+                                      const void* table, void* y, void* work, int M, int N,
+                                      int K, int group_size, int chunk, int dtype, int block_m,
+                                      int m_tiles, int splits, int vec, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (m_tiles == 0) {
+    const Launcher l{x, plane, scales, table, y, M, N, K, group_size, chunk, s};
+    return dispatch(dtype, block_m, l);
+  }
+  mma::Args a;
+  if (chunk % 256 || !mma::loop_args(a, x, plane, nullptr, scales, table, y, work, M, N, K,
+                                     group_size, chunk, chunk / 32, splits, vec))
+    return cudaErrorInvalidValue;
+  switch (dtype) {
+    case 1: return run_loop<__half>(a, m_tiles, splits, s);
+    case 2: return run_loop<__nv_bfloat16>(a, m_tiles, splits, s);
+    default: return cudaErrorInvalidValue;
+  }
 }

@@ -12,11 +12,11 @@ Two launch shapes serve the Hopper LUT-GEMM kernels:
   its pair decoder (``csrc/lut_gemm_pair_decoder.cuh``), which K1
   (``csrc/lut_gemm_w4sym.cu``) and K2 (``csrc/lut_gemm_plane.cu``) run in
   bf16 and f16 where ``mma_takes_chunk`` holds, and K4
-  (``csrc/lut_gemm_pair.cu``) always: m16 tiles per warp and the split of
-  K, the split a function of N, K and chunk alone.
+  (``csrc/lut_gemm_pair.cu``) always, or with K3's decoder of the wide
+  3-bit triples (``csrc/lut_gemm_w3wide.cu``, bf16 and f16): m16 tiles per
+  warp and the split of K, the split a function of N, K and chunk alone.
 * ``LaunchConfig`` is the SIMT skeleton's (``csrc/lut_gemm_common.cuh``):
-  K3 (``csrc/lut_gemm_w3wide.cu``) always, K1 and K2 in f32 or at a chunk
-  the loop does not take.
+  K1, K2 and K3 in f32 or at a chunk the loop does not take.
 """
 
 from __future__ import annotations
@@ -70,7 +70,7 @@ class KernelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class LaunchConfig:
-    """Launch shape of the SIMT LUT-GEMM kernels: K3, and K1 and K2 off the
+    """Launch shape of the SIMT LUT-GEMM kernels: K1, K2 and K3 off the
     tensor-core loop (f32, or a chunk the loop does not take).
 
     ``threads`` (eight warps that split each pack chunk's words: plane word
@@ -99,7 +99,7 @@ def launch_config(m: int) -> LaunchConfig:
     return LaunchConfig(block_m=BLOCK_M_CHOICES[-1])
 
 
-# The tensor-core loop (csrc/lut_gemm_mma.cuh; K1 and K2 in bf16/f16, K4):
+# The tensor-core loop (csrc/lut_gemm_mma.cuh; K1, K2 and K3 in bf16/f16, K4):
 # 128 columns per block, m16 tiles per warp instantiated for these counts.
 MMA_BLOCK_N = 128
 MMA_M_TILES = (1, 2, 4)
@@ -120,16 +120,37 @@ def mma_smem_bytes(m_tiles: int, chunk: int) -> int:
     return 2 * 16 * m_tiles * (chunk + 8) * 2
 
 
-def mma_takes_chunk(num_bits: int, chunk: int) -> bool:
-    """Whether the tensor-core loop takes a pack chunk: the first plane (4-bit
-    sub-codes at 4 bits, 2-bit at 2 and 3) needs a multiple of 4 word rows
-    per chunk (a multiple of 32 K rows at 4 bits, of 64 at 2 and 3), and a
-    chunk's x ring at the most m16 tiles, with the pair table, must fit a
-    block's shared memory (up to 864 K rows). Depends on neither M nor the
-    dtype, so a layer takes one path at every batch size."""
+def mma_word_rows(num_bits: int, chunk: int, layout: str = "plane") -> int:
+    """The loop's word rows per pack chunk (``kc``, each decoder's
+    ``word_rows``): first-plane word rows for the pair-plane layouts (4-bit
+    sub-codes at 4 bits, 2-bit at 2 and 3; K1's w4sym plane is a 4-bit
+    one), word triples (``chunk / 32``) for ``"w3wide"``."""
+    if layout == "w3wide":
+        return chunk // 32
     pb0 = 4 if num_bits == 4 else 2
+    return chunk * pb0 // 32
+
+
+def mma_fields(num_bits: int, layout: str = "plane") -> int:
+    """Pair fields per word row of the loop's decoder (``kFields``): 16
+    six-bit fields per triple for ``"w3wide"``, else ``32 / (2 pb0)``."""
+    if layout == "w3wide":
+        return 16
+    return 32 // (2 * (4 if num_bits == 4 else 2))
+
+
+def mma_takes_chunk(num_bits: int, chunk: int, layout: str = "plane") -> bool:
+    """Whether the tensor-core loop takes a pack chunk: the decoder needs a
+    multiple of 4 word rows per chunk (a multiple of 32 K rows at 4 bits, of
+    64 at 2 and 3; the wide 3-bit layout's chunks, multiples of 256, always
+    have one), and a chunk's x ring at the most m16 tiles, with the pair
+    table, must fit a block's shared memory (up to 864 K rows). Depends on
+    neither M nor the dtype, so a layer takes one path at every batch
+    size."""
     fits = mma_smem_bytes(max(MMA_M_TILES), chunk) + MMA_TABLE_BYTES <= MAX_SMEM_BYTES
-    return (chunk * pb0 // 32) % 4 == 0 and fits
+    if layout == "w3wide" and chunk % 256:
+        return False
+    return mma_word_rows(num_bits, chunk, layout) % 4 == 0 and fits
 
 
 @dataclasses.dataclass(frozen=True)

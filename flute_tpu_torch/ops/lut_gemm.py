@@ -8,10 +8,10 @@ Dispatch is by the tensors' device:
   :func:`dequantize_codes_pair` -> f32-accumulated matmul) for every layout.
 * CUDA: one Hopper kernel per layout (see the note at the top of each
   source): ``layout="w4sym"`` -> K1 ``csrc/lut_gemm_w4sym.cu``;
-  ``layout="plane"`` at 2, 3 and 4 bits -> K2 ``csrc/lut_gemm_plane.cu``
-  (K1 and K2 run the tensor-core loop in bf16 and f16 and their SIMT
-  kernel in f32 or at a chunk the loop does not take: :func:`lut_path`);
-  ``layout="w3wide"`` -> K3 ``csrc/lut_gemm_w3wide.cu``; ``pair_values``
+  ``layout="plane"`` at 2, 3 and 4 bits -> K2 ``csrc/lut_gemm_plane.cu``;
+  ``layout="w3wide"`` -> K3 ``csrc/lut_gemm_w3wide.cu`` (K1, K2 and K3 run
+  the tensor-core loop in bf16 and f16 and their SIMT kernel in f32 or at a
+  chunk the loop does not take: :func:`lut_path`); ``pair_values``
   (joint pair lookup of HIGGS layers) on the plane layout at 2, 3 and 4
   bits -> K4 ``csrc/lut_gemm_pair.cu``, in bf16 or f16 only (an f32 call
   raises ``NotImplementedError``, as the JAX package's ``pair_lut`` mode
@@ -39,8 +39,10 @@ from flute_tpu_torch.ops.kernel_config import (
     KernelConfig,
     MmaPlan,
     launch_config,
+    mma_fields,
     mma_plan,
     mma_takes_chunk,
+    mma_word_rows,
 )
 
 # Launches of each kernel, by layout; a wrapper adds one where it launches
@@ -141,7 +143,7 @@ def lut_qgemm_plain(
 _KERNELS = {
     "w4sym": ("lut_gemm_w4sym.cu", "flute_lut_qgemm_w4sym", 6, 10, "both"),
     "plane": ("lut_gemm_plane.cu", "flute_lut_qgemm_plane", 7, 11, "both"),
-    "w3wide": ("lut_gemm_w3wide.cu", "flute_lut_qgemm_w3wide", 5, 7, "simt"),
+    "w3wide": ("lut_gemm_w3wide.cu", "flute_lut_qgemm_w3wide", 6, 10, "both"),
     "pair": ("lut_gemm_pair.cu", "flute_lut_qgemm_pair", 7, 10, "mma"),
 }
 
@@ -227,8 +229,8 @@ def _launch(
     """Launch ``kernel`` on PyTorch's current stream (operands already
     checked) and count the launch; returns ``[M, N]`` in x's dtype. With a
     ``plan`` (the tensor-core loop) it passes the split-K workspace,
-    allocated here, and the plan's fields; without one, K1 and K2 run their
-    SIMT kernel."""
+    allocated here, and the plan's fields; without one, K1, K2 and K3 run
+    their SIMT kernel."""
     m, k = x2.shape
     n = scales.shape[1]
     dev = x2.device
@@ -259,13 +261,14 @@ def _launch(
     return y
 
 
-def lut_path(dtype: torch.dtype, num_bits: int, chunk: int) -> str:
-    """The kernel that K1 (w4sym) and K2 (plane) run for a call, chosen
-    before the launch from the compute dtype and the pack chunk alone:
+def lut_path(dtype: torch.dtype, num_bits: int, chunk: int, layout: str = "plane") -> str:
+    """The kernel that K1 (``layout="w4sym"``), K2 (``"plane"``) or K3
+    (``"w3wide"``) runs for a call, chosen before the launch from the
+    compute dtype, the layout and the pack chunk alone, never from M:
     ``"mma"``, the tensor-core loop, for bf16 and f16 at a chunk the loop
     takes (:func:`~flute_tpu_torch.ops.kernel_config.mma_takes_chunk`);
-    ``"simt"``, the SIMT kernel, otherwise."""
-    if dtype in (torch.bfloat16, torch.float16) and mma_takes_chunk(num_bits, chunk):
+    ``"simt"``, the SIMT kernel, otherwise. (K4 always runs the loop.)"""
+    if dtype in (torch.bfloat16, torch.float16) and mma_takes_chunk(num_bits, chunk, layout):
         return "mma"
     return "simt"
 
@@ -282,7 +285,7 @@ def _launch_planes(
     extra: tuple[int, ...] = (),
     loop: bool = True,
 ) -> torch.Tensor:
-    """Launch a pair-plane kernel (K1, K2 or K4; operands checked). On the
+    """Launch a LUT-GEMM with a loop path (K1–K4; operands checked). On the
     tensor-core loop (``loop``) x is copied to a 16-byte boundary if it is
     not on one, the plan is :func:`mma_plan`'s and ``vec`` says whether
     the loop may read planes and scales in 16- and 8-byte pieces; else the
@@ -320,7 +323,7 @@ def lut_qgemm_w4sym_cuda(
         raise ValueError(f"chunk={chunk} not supported by the w4sym layout")
     _check_operands(x2, [plane], [k // 8], scales, table, (16,), group_size, chunk)
     return _launch_planes("w4sym", x2, [plane], scales, table, group_size=group_size,
-                          chunk=chunk, loop=lut_path(x2.dtype, 4, chunk) == "mma")
+                          chunk=chunk, loop=lut_path(x2.dtype, 4, chunk, "w4sym") == "mma")
 
 
 def lut_qgemm_plane_cuda(
@@ -382,19 +385,19 @@ def lut_qgemm_pair_cuda(
                           chunk=chunk, extra=(num_bits,))
 
 
-def mma_k_order(num_bits: int, chunk: int) -> torch.Tensor:
+def mma_k_order(num_bits: int, chunk: int, layout: str = "plane") -> torch.Tensor:
     """The loop's order of one pack chunk's K rows on the tensor cores (K4,
-    and K1 and K2 at 4 bits and at 2 and 3 in the same geometry), mirrored
-    from ``csrc/lut_gemm_mma.cuh``: entry ``[q, s, slot]`` is the K row
-    (within the chunk) that mma step ``(q, s)`` multiplies at k-slot
-    ``slot`` (0..15). Item ``q`` is first-plane word rows ``4q..4q+3``, lane
-    ``l`` taking row ``4q + l % 4``; step ``s`` takes field ``2s`` of those
-    rows as slots 0..7 and field ``2s + 1`` as slots 8..15, slot ``2t + h``
-    (``+ 8``) being row ``h`` of the pair of word row ``4q + t``. Field ``i``
-    of word row ``j`` is pair-row ``i * kc + j`` (the packed format)."""
-    pb0 = 4 if num_bits == 4 else 2
-    kc = chunk * pb0 // bitutils.WORD_BITS
-    fields = bitutils.WORD_BITS // (2 * pb0)
+    K1 and K2 at 4 bits and at 2 and 3 in the same geometry, K3's word
+    triples), mirrored from ``csrc/lut_gemm_mma.cuh``: entry ``[q, s, slot]``
+    is the K row (within the chunk) that mma step ``(q, s)`` multiplies at
+    k-slot ``slot`` (0..15). Item ``q`` is word rows ``4q..4q+3`` (first-plane
+    rows, or triple rows for ``layout="w3wide"``), lane ``l`` taking row
+    ``4q + l % 4``; step ``s`` takes field ``2s`` of those rows as slots 0..7
+    and field ``2s + 1`` as slots 8..15, slot ``2t + h`` (``+ 8``) being row
+    ``h`` of the pair of word row ``4q + t``. Field ``i`` of word row ``j``
+    is pair-row ``i * kc + j`` (the packed format)."""
+    kc = mma_word_rows(num_bits, chunk, layout)
+    fields = mma_fields(num_bits, layout)
     q = torch.arange(kc // 4)[:, None, None]
     s = torch.arange(fields // 2)[None, :, None]
     slot = torch.arange(16)[None, None, :]
@@ -413,6 +416,8 @@ def pair_table(layout: str, table: torch.Tensor, dtype: torch.dtype) -> torch.Te
       ``ce | co << b`` names ``table[ce, co]``.
     * ``"plane"`` (K2): ``table`` is ``[E]``; index ``ce | co << b`` names
       ``(table[ce], table[co])``.
+    * ``"w3wide"`` (K3): ``table`` is ``[8]``; the six-bit field
+      ``ce | co << 3`` is the index and names ``(table[ce], table[co])``.
     * ``"w4sym"`` (K1): ``table`` is ``[16]``; index the w4sym byte
       ``m_e | m_o << 3 | s_e << 6 | s_o << 7`` names ``(table[m_e],
       table[m_o])``, each rounded to ``dtype`` and its sign flipped where
@@ -426,7 +431,7 @@ def pair_table(layout: str, table: torch.Tensor, dtype: torch.dtype) -> torch.Te
         sign = torch.stack([(f >> 6) & 1, f >> 7], dim=-1).bool()
         return torch.where(sign, -v, v)
     e = table.shape[0]
-    if layout == "plane":
+    if layout in ("plane", "w3wide"):
         pc = torch.arange(e * e, device=dev)
         t = table.to(dtype)
         return torch.stack([t[pc % e], t[pc // e]], dim=-1)
@@ -455,14 +460,15 @@ def lut_qgemm_w3wide_cuda(
     group_size: int,
     chunk: int,
 ) -> torch.Tensor:
-    """Launch K3, the Hopper wide 3-bit kernel, for a 2-D ``x2`` ``[M, K]``;
-    returns ``[M, N]`` in x's dtype."""
+    """Launch K3, the Hopper wide 3-bit kernel (the tensor-core loop or the
+    SIMT kernel, as :func:`lut_path` says), for a 2-D ``x2`` ``[M, K]``;
+    returns ``[M, N]`` in x's dtype. Counts one launch per call."""
     k = x2.shape[1]
     if chunk % 256:
         raise ValueError(f"chunk={chunk} not supported by the wide 3-bit layout")
     _check_operands(x2, [plane], [3 * k // 32], scales, table, (8,), group_size, chunk)
-    return _launch("w3wide", x2, [plane.data_ptr()], scales, table,
-                   group_size=group_size, chunk=chunk)
+    return _launch_planes("w3wide", x2, [plane], scales, table, group_size=group_size,
+                          chunk=chunk, loop=lut_path(x2.dtype, 3, chunk, "w3wide") == "mma")
 
 
 # ---------------------------------------------------------------------------

@@ -14,9 +14,10 @@ per-sequence block table maps logical block ``j`` (positions
 Both take Gemma-2's logit ``softcap`` and a sliding ``window``. Dispatch is
 by the tensors' device: on the CPU the plain versions
 (:func:`paged_gqa_reference`, :func:`paged_verify_reference`); on CUDA the
-Hopper kernels of ``csrc/paged_attention.cu`` (K5 decode, K6 verify; K6
-runs both products on tensor cores in bf16 and f16), which read the block
-table themselves and skip dead blocks. A build or launch
+Hopper kernels of ``csrc/paged_attention.cu`` (K5 decode, K6 verify; both
+run their products on tensor cores in bf16 and f16, K5 split along each
+sequence in spans of :data:`DECODE_SPAN` positions and merged in span
+order), which read the block table themselves and skip dead blocks. A build or launch
 failure raises. Table entries are clamped to ``[0, NB-1]`` first, so those
 of blocks at or past a sequence's end may be anything.
 """
@@ -35,6 +36,10 @@ LAUNCHES = {"paged_decode": 0, "paged_verify": 0}
 
 _DTYPE_TAG = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 HEAD_DIMS = (64, 128, 256)  # the kernels' column split (csrc/paged_attention.cu)
+# K5's positions per block in bf16/f16 (a multiple of the kernel's 64-position
+# stage). A constant: a sequence's spans, and so its output's bits, never
+# depend on the batch or on other sequences' lengths.
+DECODE_SPAN = 256
 
 
 def _paged_reference(q4, k_pool, v_pool, tables, att, scale, softcap, window):
@@ -105,10 +110,11 @@ def paged_verify_reference(
     return _paged_reference(q, k_pool, v_pool, tables, att, scale, softcap, window)
 
 
-# kernel -> C entry, and its int arguments between the pointers and the scale
+# kernel -> C entry, its pointers (q, pools, tables, lengths, out [, the
+# decode workspace]) and its int arguments between the pointers and the scale
 _ENTRIES = {
-    "paged_decode": ("flute_paged_decode_attention", 7),  # B, H, Hkv, D, NB, BS, MB
-    "paged_verify": ("flute_paged_verify_attention", 8),  # B, T, H, Hkv, D, NB, BS, MB
+    "paged_decode": ("flute_paged_decode_attention", 7, 8),  # B, H, Hkv, D, NB, BS, MB, span
+    "paged_verify": ("flute_paged_verify_attention", 6, 8),  # B, T, H, Hkv, D, NB, BS, MB
 }
 SOURCE = "paged_attention.cu"
 
@@ -118,12 +124,12 @@ def _kernel_fn(kernel: str):
     """The C entry of ``kernel`` (the library is built at first use)."""
     from flute_tpu_torch.ops import _build
 
-    entry, n_int = _ENTRIES[kernel]
+    entry, n_ptr, n_int = _ENTRIES[kernel]
     lib = _build.load(SOURCE)
     fn = getattr(lib, entry)
     fn.restype = ctypes.c_int
     fn.argtypes = (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * n_int
+        [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
         + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
            ctypes.c_int, ctypes.c_void_p]
     )
@@ -160,7 +166,15 @@ def _check(q4, k_pool, v_pool, tables, lengths) -> None:
                              "head_dim * block size a multiple of 1024)")
 
 
-def _launch(kernel, q4, k_pool, v_pool, tables, lengths, scale, softcap, window):
+def decode_spans(max_blocks: int, block_size: int, span: int = DECODE_SPAN) -> int:
+    """K5's spans per sequence for a table of ``max_blocks`` pool blocks:
+    its grid's first dimension, and the workspace's third where it is above
+    1 (``csrc/paged_attention.cu::decode_spans``)."""
+    return -(-max_blocks * block_size // span)
+
+
+def _launch(kernel, q4, k_pool, v_pool, tables, lengths, scale, softcap, window,
+            span=DECODE_SPAN):
     b, t, h, d = q4.shape
     nb, hkv, bs, _ = k_pool.shape
     mb = tables.shape[1]
@@ -170,12 +184,21 @@ def _launch(kernel, q4, k_pool, v_pool, tables, lengths, scale, softcap, window)
     lengths = lengths.to(torch.int32).contiguous()
     out = torch.empty_like(q4)
     fn, error_string = _kernel_fn(kernel)
-    dims = (b, h, hkv, d, nb, bs, mb) if kernel == "paged_decode" else (b, t, h, hkv, d, nb, bs, mb)
+    if kernel == "paged_decode":
+        # bf16/f16 with more than one span in the table: each live span's
+        # numerator, max and sum (f32), merged by a second kernel
+        spans = decode_spans(mb, bs, span)
+        ws = (torch.empty((b, h, spans, d + 2), dtype=torch.float32, device=q4.device)
+              if q4.dtype != torch.float32 and spans > 1 else None)
+        ptrs = (None if ws is None else ws.data_ptr(),)
+        dims = (b, h, hkv, d, nb, bs, mb, span)
+    else:
+        ptrs, dims = (), (b, t, h, hkv, d, nb, bs, mb)
     stream = torch.cuda.current_stream(q4.device).cuda_stream
     with torch.cuda.device(q4.device):
         err = fn(
             q4.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), tables.data_ptr(),
-            lengths.data_ptr(), out.data_ptr(), *dims, scale,
+            lengths.data_ptr(), out.data_ptr(), *ptrs, *dims, scale,
             int(softcap is not None), 0.0 if softcap is None else float(softcap),
             int(window is not None), 0 if window is None else int(window),
             _DTYPE_TAG[q4.dtype], stream,
@@ -212,7 +235,11 @@ def paged_decode_attention(
 ) -> torch.Tensor:
     """Paged GQA decode attention (T = 1), K5 on CUDA. ``softcap`` applies
     Gemma-2's tanh logit cap; ``window`` keeps the last ``window`` positions.
-    Returns ``[B, H, D]`` in q's dtype."""
+    In bf16 and f16 the kernel splits each sequence into spans of
+    :data:`DECODE_SPAN` positions, rounds the probabilities to q's dtype
+    before the second product and adds the spans in order; in f32 one block
+    per (sequence, KV head) walks the sequence. Returns ``[B, H, D]`` in q's
+    dtype."""
     if q.ndim != 3:
         raise ValueError(f"q must be [B, H, D], got {tuple(q.shape)}")
     q4 = q[:, None]

@@ -1,5 +1,6 @@
 """Card-only checks of the port: each LUT-GEMM kernel (K1 w4sym, K2 plane at
-2/3/4 bits, K3 w3wide, K4 joint pair lookup), each paged-attention kernel
+2/3/4 bits, K3 w3wide, K4 joint pair lookup; K1-K3 on the tensor-core loop
+and on their SIMT kernel), each paged-attention kernel
 (K5 decode, K6 verify) and each kernel of the Hopper lab (L1-L12) against its
 plain version on the same CUDA tensors, and the model, Engine and
 PagedEngine through the kernels.
@@ -354,9 +355,9 @@ def test_pair_mma_unaligned_x_and_small_chunk(dev):
 
 
 def loop_case(dev, layout, bits, m, n, k, dtype, seed, chunk, g=G, mixed_signs=False):
-    """codes, x, planes, scales and table for K1 (w4sym) or K2 (plane) at any
-    N, K and g: a w4sym table of 8 magnitudes and their negations, or any
-    2^b values."""
+    """codes, x, planes, scales and table for K1 (w4sym), K2 (plane) or K3
+    (w3wide) at any N, K and g: a w4sym table of 8 magnitudes and their
+    negations, or any 2^b values."""
     rng = np.random.default_rng(seed)
     codes = rng.integers(0, 2**bits, size=(k, n), dtype=np.int32)
     if layout == "w4sym":
@@ -365,6 +366,9 @@ def loop_case(dev, layout, bits, m, n, k, dtype, seed, chunk, g=G, mixed_signs=F
         if not mixed_signs:
             mags = np.sort(np.abs(mags))
         table = np.concatenate([mags, -mags])
+    elif layout == "w3wide":
+        planes = packing.pack_w3_wide_np(codes, chunk=chunk)
+        table = rng.standard_normal(8).astype(np.float32)
     else:
         planes = packing.pack_np(codes, bits, chunk=chunk)
         table = rng.standard_normal(2**bits).astype(np.float32)
@@ -471,24 +475,112 @@ def test_k1_k2_repeat_calls_bit_identical(dev, layout, bits, dtype, m):
 
 @pytest.mark.parametrize("m", [17, 64, 512])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("kernel", ["w4sym", "plane2", "plane3", "plane4", "pair"])
+@pytest.mark.parametrize("kernel", ["w4sym", "plane2", "plane3", "plane4", "pair", "w3wide"])
 def test_row_result_does_not_depend_on_m(dev, kernel, dtype, m):
     """Row i of an M-row call has the bits of the one-row call on row i:
-    the split is the same at every M (K1, K2 and K4 on the loop)."""
-    bits = 4 if kernel in ("w4sym", "pair") else int(kernel[-1])
+    the split is the same at every M (K1, K2, K3 and K4 on the loop)."""
+    bits = {"w4sym": 4, "pair": 4, "w3wide": 3}.get(kernel) or int(kernel[-1])
+    chunk = 256 if kernel == "w3wide" else 128
     if kernel == "pair":
-        _, x, planes, s, pv = mma_pair_case(dev, bits, m, 384, 2048, dtype, seed=50, chunk=128)
+        _, x, planes, s, pv = mma_pair_case(dev, bits, m, 384, 2048, dtype, seed=50, chunk=chunk)
         t, kw = None, dict(pair_values=pv)
     else:
-        layout = "w4sym" if kernel == "w4sym" else "plane"
+        layout = kernel if kernel in ("w4sym", "w3wide") else "plane"
         _, x, planes, s, t = loop_case(dev, layout, bits, m, 384, 2048, dtype, seed=50,
-                                       chunk=128)
+                                       chunk=chunk)
         kw = dict(layout=layout)
-    kw.update(num_bits=bits, config=KernelConfig(chunk=128))
+    kw.update(num_bits=bits, config=KernelConfig(chunk=chunk))
     y = lut_gemm.lut_qgemm(x, planes, s, t, **kw)
     for i in sorted({0, 1, m // 2, m - 1}):
         row = lut_gemm.lut_qgemm(x[i:i + 1], planes, s, t, **kw)
         assert torch.equal(row.view(torch.int16), y[i:i + 1].view(torch.int16)), i
+
+
+@pytest.mark.parametrize("g", [32, 64, 128])
+@pytest.mark.parametrize("chunk", [256, 512])
+@pytest.mark.parametrize("m", [1, 8, 17, 64, 512])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_k3_loop_vs_plain(dev, dtype, m, chunk, g):
+    """K3 on the tensor-core loop at one, two and four m16 tiles per warp,
+    split-K (K = 1024) and 2-8 groups per chunk (the chunk-scale path),
+    against the plain version."""
+    _, x, planes, s, t = loop_case(dev, "w3wide", 3, m, 256, 1024, dtype, seed=m + g + chunk,
+                                   chunk=chunk, g=g)
+    assert lut_gemm.lut_path(dtype, 3, chunk, "w3wide") == "mma"
+    before = lut_gemm.LAUNCHES["w3wide"]
+    y = lut_gemm.lut_qgemm(x, planes, s, t, num_bits=3, layout="w3wide",
+                           config=KernelConfig(chunk=chunk))
+    assert lut_gemm.LAUNCHES["w3wide"] == before + 1
+    y_plain = lut_gemm.lut_qgemm_plain(x, planes, s, t, num_bits=3, chunk=chunk, layout="w3wide")
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and tuple(y.shape) == (m, 256)
+    assert rel_err(y, y_plain) < TOL[dtype]
+
+
+@pytest.mark.parametrize("g", [2, 16, 48, 512])
+@pytest.mark.parametrize("chunk", [256, 512])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_k3_loop_other_group_sizes(dev, dtype, chunk, g):
+    """Group sizes that are not a multiple of a field's 2 kc rows (the
+    per-field scale cache: g 2, and 16 and 48 at chunk 512), a non-power of
+    two that is one (48 at chunk 256), and groups longer than a chunk."""
+    _, x, planes, s, t = loop_case(dev, "w3wide", 3, 9, 256, 1536, dtype, seed=g + chunk,
+                                   chunk=chunk, g=g)
+    y = lut_gemm.lut_qgemm(x, planes, s, t, num_bits=3, layout="w3wide",
+                           config=KernelConfig(chunk=chunk))
+    y_plain = lut_gemm.lut_qgemm_plain(x, planes, s, t, num_bits=3, chunk=chunk, layout="w3wide")
+    torch.cuda.synchronize()
+    assert rel_err(y, y_plain) < TOL[dtype]
+
+
+def test_k3_loop_ragged_n_and_unaligned_x(dev):
+    """N % 4 != 0 takes the loop's element loads; x at an odd offset is
+    copied before its 16-byte loads and gives the aligned call's bits."""
+    _, x, planes, s, t = loop_case(dev, "w3wide", 3, 9, 198, 512, torch.bfloat16, seed=51,
+                                   chunk=256)
+    kw = dict(num_bits=3, layout="w3wide")
+    y = lut_gemm.lut_qgemm(x, planes, s, t, **kw)
+    y_plain = lut_gemm.lut_qgemm_plain(x, planes, s, t, num_bits=3, chunk=256, layout="w3wide")
+    assert rel_err(y, y_plain) < TOL[torch.bfloat16]
+    buf = torch.empty(9 * 512 + 1, dtype=torch.bfloat16, device=dev)
+    xo = buf[1:].view(9, 512)
+    xo.copy_(x)
+    assert xo.data_ptr() % 16
+    assert torch.equal(lut_gemm.lut_qgemm(xo, planes, s, t, **kw), y)
+
+
+@pytest.mark.parametrize("chunk", [256, 1024])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_k3_paths_vs_plain_and_identity(dev, dtype, chunk):
+    """The SIMT kernel in f32 and at chunk 1024 (its x ring would not fit
+    the loop's shared memory), the loop in bf16 and f16 at chunk 256: each
+    against the plain version, and an identity x bit-exact on each path."""
+    on_loop = dtype != torch.float32 and chunk == 256
+    assert lut_gemm.lut_path(dtype, 3, chunk, "w3wide") == ("mma" if on_loop else "simt")
+    cfg = KernelConfig(chunk=chunk)
+    codes, x, planes, s, t = loop_case(dev, "w3wide", 3, 5, 256, 2048, dtype, seed=52,
+                                       chunk=chunk)
+    y = lut_gemm.lut_qgemm(x, planes, s, t, num_bits=3, layout="w3wide", config=cfg)
+    y_plain = lut_gemm.lut_qgemm_plain(x, planes, s, t, num_bits=3, chunk=chunk, layout="w3wide")
+    torch.cuda.synchronize()
+    assert rel_err(y, y_plain) < TOL[dtype]
+    eye = torch.eye(2048, dtype=dtype, device=dev)
+    got = lut_gemm.qgemm(eye, planes, s, t, 3, G, layout="w3wide", config=cfg)
+    assert torch.equal(got.float(), lut_gemm.dequantize_codes(codes, s, t, dtype).float())
+
+
+@pytest.mark.parametrize("m", [1, 8, 512])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_k3_repeat_calls_bit_identical(dev, dtype, m):
+    """Split-K adds its partial sums in split order: a repeat call gives the
+    same bits (K = 2048 at chunk 256: 8 chunks, several splits)."""
+    _, x, planes, s, t = loop_case(dev, "w3wide", 3, m, 384, 2048, dtype, seed=53, chunk=256)
+    kw = dict(num_bits=3, layout="w3wide", config=KernelConfig(chunk=256))
+    assert lut_gemm.mma_plan(m, 384, 2048, 256).splits > 1
+    first = lut_gemm.lut_qgemm(x, planes, s, t, **kw)
+    for _ in range(3):
+        again = lut_gemm.lut_qgemm(x, planes, s, t, **kw)
+        assert torch.equal(again.view(torch.int16), first.view(torch.int16))
 
 
 @pytest.mark.parametrize("case", ["head", "head_tied", "attention"])
@@ -553,6 +645,60 @@ def test_paged_decode_kernel_vs_plain(dev, dtype, hkv, h, d, bs, softcap, window
     assert got.dtype == dtype and torch.isfinite(got.float()).all()
     assert not got[3].float().any()  # a parked slot of length 0 gives zeros
     assert max_rel(got[:3], want[:3]) < TOL[torch.bfloat16]
+
+
+SPAN = pa.DECODE_SPAN
+K5_LENGTHS = [0, 1, SPAN - 1, SPAN, SPAN + 1, 4096]
+
+
+def k5_case(dev, dtype, lengths, hkv, h, d, bs, extra_blocks, seed):
+    """q, pools and a table ``extra_blocks`` wider than the longest sequence
+    needs, every block its own pool row."""
+    mb = -(-max(lengths) // bs) + extra_blocks
+    q, kp, vp, tables = paged_case(dev, dtype, len(lengths), h, hkv, d, bs, mb,
+                                   len(lengths) * mb + 1, seed=seed)
+    return q, kp, vp, tables, torch.tensor(lengths, dtype=torch.int32, device=dev)
+
+
+@pytest.mark.parametrize("softcap,window", PAGED_OPTIONS + [(None, 300)])
+@pytest.mark.parametrize("hkv,h,d,bs", [(8, 32, 128, 16), (2, 8, 64, 32), (2, 4, 256, 8),
+                                         (1, 32, 128, 16)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_k5_spans_vs_plain(dev, dtype, hkv, h, d, bs, softcap, window):
+    """K5 at lengths 0, 1, P - 1, P, P + 1 and 4096 (spans of P positions,
+    merged in order; f32 on the unsplit kernel), rep 4, 4 and 2 and 32 (two
+    tiles of 16 heads), against the plain version; length 0 gives zeros."""
+    q, kp, vp, tables, lengths = k5_case(dev, dtype, K5_LENGTHS, hkv, h, d, bs, 3, seed=h + d)
+    kw = dict(softcap=softcap, window=window)
+    before = pa.LAUNCHES["paged_decode"]
+    got = pa.paged_decode_attention(q, kp, vp, tables, lengths, **kw)
+    assert pa.LAUNCHES["paged_decode"] == before + 1
+    want = pa.paged_gqa_reference(q, kp, vp, tables, lengths, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.isfinite(got.float()).all()
+    assert not got[0].float().any()
+    assert max_rel(got[1:], want[1:]) < TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("softcap,window", [(None, None), (30.0, 300)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_k5_repeat_calls_and_batch_independence(dev, dtype, softcap, window):
+    """A repeat call gives the same bits, and each sequence of a batch of 8
+    (table wider than its longest) has the bits it has alone with a table
+    just wide enough for it (one span, written directly, where it fits)."""
+    lengths = [1, SPAN - 1, SPAN + 1, 4096, 0, 37, 1000, SPAN]
+    q, kp, vp, tables, lens = k5_case(dev, dtype, lengths, 8, 32, 128, 16, 3, seed=61)
+    kw = dict(softcap=softcap, window=window)
+    got = pa.paged_decode_attention(q, kp, vp, tables, lens, **kw)
+    again = pa.paged_decode_attention(q, kp, vp, tables, lens, **kw)
+    bits = (lambda y: y.view(torch.int32)) if dtype == torch.float32 else (
+        lambda y: y.view(torch.int16))
+    assert torch.equal(bits(again), bits(got))
+    for i, n in enumerate(lengths):
+        mb = max(1, -(-n // 16))
+        alone = pa.paged_decode_attention(q[i:i + 1], kp, vp, tables[i:i + 1, :mb],
+                                          lens[i:i + 1], **kw)
+        assert torch.equal(bits(alone), bits(got[i:i + 1])), n
 
 
 @pytest.mark.parametrize("softcap,window", PAGED_OPTIONS)

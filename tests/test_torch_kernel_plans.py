@@ -40,7 +40,7 @@ from flute_tpu.ops import lut_gemm as jlut
 from flute_tpu.ops import paged_attention as jpa
 from flute_tpu.ops.kernel_config import KernelConfig as JKernelConfig
 from flute_tpu_torch import bitutils, packing
-from flute_tpu_torch.ops import kernel_config, lut_gemm
+from flute_tpu_torch.ops import kernel_config, lut_gemm, paged_attention
 
 K, N, G = 512, 256, 64
 BF16_TOL = 1.1e-2
@@ -66,23 +66,48 @@ def test_k4_index_map_is_a_permutation(bits, chunk):
     assert sorted(cols.flatten().tolist()) == list(range(kernel_config.MMA_BLOCK_N))
 
 
-def decode_step_b(planes, ptab, scales, bits, chunk, c, q, s, dtype, layout="pair"):
+def w3wide_field(plane, c, j, i, kc):
+    """Field i of triple row j of chunk c (``[N]``), as ``W3WideDecoder::pair``
+    takes it from the three words at rows ``c * 3 kc + j``, ``+ kc``, ``+ 2 kc``:
+    fields 5 and 10 join the top bits of one word to the low bits of the
+    next with logical shifts."""
+    a, b, c_ = ((plane[c * 3 * kc + j + r * kc].to(torch.int64) & 0xFFFFFFFF) for r in range(3))
+    if i < 5:
+        f = a >> (6 * i)
+    elif i == 5:
+        f = (a >> 30) | (b << 2)
+    elif i < 10:
+        f = b >> (6 * i - 32)
+    elif i == 10:
+        f = (b >> 28) | (c_ << 4)
+    else:
+        f = c_ >> (6 * i - 64)
+    return f & 63
+
+
+def decode_step_b(planes, ptab, scales, bits, chunk, c, q, s, dtype, layout="pair", g=G):
     """The B fragment of mma step (q, s) of chunk c as the kernel forms it:
     ``[16, N]``, slot ``2t + r`` (+ 8 for field 2s + 1) is row r of the pair
     that field i of word row 4q + t names in the pair table ``ptab``
     (``lut_gemm.pair_table``, already in ``dtype``) times its scale, the
-    product rounded once. The index is the w4sym byte itself for K1, else
-    ``ce | co << bits`` (at 3 bits with the 1-bit plane's bits)."""
+    product rounded once. The index is the w4sym byte itself for K1, the
+    six-bit field of a word triple for K3, else ``ce | co << bits`` (at 3
+    bits with the 1-bit plane's bits)."""
     pb0 = 4 if bits == 4 else 2
-    kc0 = chunk * pb0 // bitutils.WORD_BITS
+    kc0 = kernel_config.mma_word_rows(bits, chunk, layout)
     kc1 = chunk // bitutils.WORD_BITS
     e = 2**bits
     w0 = planes[0].to(torch.int64) & 0xFFFFFFFF
     out = torch.empty((16, planes[0].shape[1]), dtype=dtype)
-    order = lut_gemm.mma_k_order(bits, chunk)
+    order = lut_gemm.mma_k_order(bits, chunk, layout)
     for slot in range(16):
         t, r, i = (slot % 8) // 2, slot % 2, 2 * s + slot // 8
         j = 4 * q + t
+        if layout == "w3wide":
+            index = w3wide_field(planes[0], c, j, i, kc0)
+            k_row = c * chunk + int(order[q, s, slot])
+            out[slot] = ptab[index, r] * scales[k_row // g].to(dtype)
+            continue
         f = (w0[c * kc0 + j] >> (2 * pb0 * i)) & ((1 << 2 * pb0) - 1)
         if layout == "w4sym":
             index = f
@@ -95,21 +120,22 @@ def decode_step_b(planes, ptab, scales, bits, chunk, c, q, s, dtype, layout="pai
             assert int(ce.max()) < e and int(co.max()) < e
             index = ce | (co << bits)
         k_row = c * chunk + int(order[q, s, slot])
-        out[slot] = ptab[index, r] * scales[k_row // G].to(dtype)
+        out[slot] = ptab[index, r] * scales[k_row // g].to(dtype)
     return out
 
 
-def product_through_the_index_map(x, planes, ptab, scales, deq, bits, chunk, dtype, layout):
+def product_through_the_index_map(x, planes, ptab, scales, deq, bits, chunk, dtype, layout,
+                                  g=G):
     """``x @ W`` summed mma step by mma step through ``mma_k_order``, each B
     fragment decoded as the kernel decodes it and held to the oracle's
     ``deq`` bit for bit; f32 sums."""
-    order = lut_gemm.mma_k_order(bits, chunk)
+    order = lut_gemm.mma_k_order(bits, chunk, layout)
     y = torch.zeros((x.shape[0], deq.shape[1]), dtype=torch.float32)
-    for c in range(K // chunk):
+    for c in range(x.shape[1] // chunk):
         for q in range(order.shape[0]):
             for s in range(order.shape[1]):
                 rows = c * chunk + order[q, s]
-                b = decode_step_b(planes, ptab, scales, bits, chunk, c, q, s, dtype, layout)
+                b = decode_step_b(planes, ptab, scales, bits, chunk, c, q, s, dtype, layout, g)
                 assert torch.equal(b.view(torch.int16), deq[rows].view(torch.int16))
                 y += x[:, rows].float() @ b.float()
     return y
@@ -195,6 +221,74 @@ def test_k1_k2_product_through_the_index_map_matches_jax(layout, bits, chunk):
         config=JKernelConfig(block_m=8, block_n=128, block_k=256, lut_mode="gather8",
                              chunk=chunk),
         layout=layout, interpret=True)
+    assert rel_err(y.to(dtype).float(), np.asarray(want, np.float32)) < BF16_TOL
+
+
+@pytest.mark.parametrize("chunk", [256, 512, 768])
+def test_k3_index_map_is_a_permutation(chunk):
+    """K3's loop geometry: chunk / 32 triple rows of 16 fields, items of 4
+    rows, each mma half 8 consecutive K rows."""
+    order = lut_gemm.mma_k_order(3, chunk, "w3wide")
+    kc = chunk // 32
+    assert kernel_config.mma_word_rows(3, chunk, "w3wide") == kc
+    assert tuple(order.shape) == (kc // 4, 8, 16)
+    assert sorted(order.flatten().tolist()) == list(range(chunk))
+    for half in (order[..., :8], order[..., 8:]):
+        assert torch.equal(half - half[..., :1], torch.arange(8).expand_as(half))
+
+
+@pytest.mark.parametrize("chunk", [256, 512])
+def test_k3_every_field_is_its_pair_of_codes(chunk):
+    """Field i of triple row j of chunk c, the straddling fields 5 and 10
+    included, is ``ce | co << 3`` of pair-row ``c * chunk / 2 + i * kc + j``;
+    the pair table names ``(table[ce], table[co])`` as ``dequantize_codes``
+    rounds them."""
+    rng = np.random.default_rng(80 + chunk)
+    codes = rng.integers(0, 8, (2 * chunk, N), dtype=np.int32)
+    plane = torch.from_numpy(packing.pack_w3_wide_np(codes, chunk=chunk)[0])
+    kc = chunk // 32
+    pairs = torch.from_numpy(codes[0::2] | (codes[1::2] << 3)).long()
+    for c in range(2):
+        for j in range(kc):
+            for i in range(16):
+                want = pairs[c * chunk // 2 + i * kc + j]
+                assert torch.equal(w3wide_field(plane, c, j, i, kc), want), (c, j, i)
+    table = torch.from_numpy(rng.standard_normal(8).astype(np.float32))
+    for dtype in (torch.bfloat16, torch.float16):
+        f = torch.arange(64)
+        want = lut_gemm.dequantize_codes(torch.stack([f & 7, f >> 3]),
+                                         torch.ones((1, 64), dtype=dtype), table, dtype)
+        got = lut_gemm.pair_table("w3wide", table, dtype)
+        assert torch.equal(got.T.contiguous().view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.parametrize("g", [32, 64, 128])
+@pytest.mark.parametrize("chunk", [256, 512])
+def test_k3_product_through_the_index_map_matches_jax(chunk, g):
+    """K3 on the loop: every decoded B value equals ``dequantize_codes`` bit
+    for bit, and the product through the index map equals JAX's w3wide
+    kernel (interpret mode) within the bf16 threshold."""
+    rng = np.random.default_rng(90 + chunk + g)
+    codes = rng.integers(0, 8, (K, N), dtype=np.int32)
+    planes_np = packing.pack_w3_wide_np(codes, chunk=chunk)
+    table_np = rng.standard_normal(8).astype(np.float32)
+    scales_np = rng.uniform(0.5, 1.5, (K // g, N)).astype(np.float32)
+    x_np = rng.standard_normal((5, K)).astype(np.float32)
+    dtype = torch.bfloat16
+    planes = [torch.from_numpy(p) for p in planes_np]
+    table = torch.from_numpy(table_np)
+    scales = torch.from_numpy(scales_np).to(dtype)
+    x = torch.from_numpy(x_np).to(dtype)
+    deq = lut_gemm.dequantize_codes(torch.from_numpy(codes), scales, table, dtype)
+    y = product_through_the_index_map(x, planes, lut_gemm.pair_table("w3wide", table, dtype),
+                                      scales, deq, 3, chunk, dtype, "w3wide", g)
+
+    want = jlut.lut_qgemm(
+        jnp.asarray(x_np, jnp.bfloat16), [jnp.asarray(p) for p in planes_np],
+        jnp.asarray(scales_np, jnp.bfloat16), jnp.asarray(table_np), num_bits=3,
+        config=JKernelConfig(block_m=8, block_n=128, block_k=chunk, lut_mode="gather8",
+                             chunk=chunk),
+        layout="w3wide", interpret=True)
     assert rel_err(y.to(dtype).float(), np.asarray(want, np.float32)) < BF16_TOL
 
 
@@ -304,6 +398,50 @@ def test_k1_k2_wrappers_pick_the_path_before_the_launch(monkeypatch, layout, bit
         assert (m_tiles, splits, vec, work) == (0, 1, 0, None)
 
 
+@pytest.mark.parametrize("chunk", [256, 512, 1024])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+def test_k3_wrapper_picks_the_path_before_the_launch(monkeypatch, dtype, chunk):
+    """K3 takes the loop in bf16 and f16 at chunk 256 and 512 (mma_plan's
+    split, the same at every M, and its workspace) and the SIMT kernel in
+    f32 and at chunk 1024, whose x ring would not fit shared memory. One
+    launch is counted either way."""
+    n, k = 256, 2048
+    loop = dtype != torch.float32 and chunk != 1024
+    assert kernel_config.mma_takes_chunk(3, chunk, "w3wide") == (chunk != 1024)
+    assert lut_gemm.lut_path(dtype, 3, chunk, "w3wide") == ("mma" if loop else "simt")
+    rng = np.random.default_rng(75)
+    codes = rng.integers(0, 8, (k, n), dtype=np.int32)
+    plane = torch.from_numpy(packing.pack_w3_wide_np(codes, chunk=chunk)[0])
+    calls = []
+
+    def fake_entry(*args):
+        calls.append(args)
+        return 0
+
+    monkeypatch.setattr(lut_gemm, "_kernel_fn", lambda kernel: (fake_entry, None))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    splits = set()
+    for m in (1, 8, 512):
+        before = lut_gemm.LAUNCHES["w3wide"]
+        lut_gemm.lut_qgemm_w3wide_cuda(torch.zeros((m, k), dtype=dtype), plane,
+                                       torch.zeros((k // G, n), dtype=dtype), torch.zeros(8),
+                                       group_size=G, chunk=chunk)
+        assert lut_gemm.LAUNCHES["w3wide"] == before + 1
+        block_m, m_tiles, n_splits, vec = calls[-1][-5:-1]
+        work = calls[-1][5]
+        assert block_m == kernel_config.launch_config(m).block_m
+        if loop:
+            plan = kernel_config.mma_plan(m, n, k, chunk)
+            assert (m_tiles, n_splits, vec) == (plan.m_tiles, plan.splits, 1)
+            assert (work is None) == (plan.splits == 1)
+            splits.add(n_splits)
+        else:
+            assert (m_tiles, n_splits, vec, work) == (0, 1, 0, None)
+    assert len(splits) <= 1  # a row's sums run in one order at every M
+
+
 # K6: B sequences, 8 query heads on 2 KV heads (rep 4), blocks of 16
 B, H, HKV, D, BS = 2, 8, 2, 64, 16
 ROWS, WARP_ROWS, PIECE = 64, 16, 16
@@ -393,3 +531,136 @@ def test_k6_numerics_match_jax(softcap, window, dtype):
     err = float(np.abs(got.float().numpy() - want).max() / np.abs(want).max())
     assert np.isfinite(got.float().numpy()).all()
     assert err < BF16_TOL
+
+
+# K5: 8 query heads on 2 KV heads (rep 4), head dim 64, blocks of 32
+SPAN = paged_attention.DECODE_SPAN
+K5_STAGE, K5_PIECE, K5_WARPS = 64, 16, 4
+K5_OPTIONS = [(None, None), (30.0, None), (None, 300), (30.0, 300)]
+
+
+def k5_emulation(q, kp, vp, tables, lengths, scale, softcap, window, span=SPAN):
+    """K5's arithmetic in bf16/f16 (``decode_span_kernel`` and
+    ``decode_merge_kernel``) in torch: per (sequence, KV head), the spans of
+    ``span`` positions that hold a position it attends; in a span, 16-position
+    pieces from the span's first 64-position stage on, piece p to warp p % 4,
+    skipping pieces with nothing to attend; per warp f32 scores of the
+    16-bit products, softcap, the -inf mask, online softmax, P rounded to
+    the input dtype before PV; the warps merged in warp order, the spans in
+    span order (the first span's weight a product, the rest fused adds); one
+    span in the table is divided directly. Returns ``[B, H, D]``."""
+    b_, h_, d_ = q.shape
+    _, hkv, bs, _ = kp.shape
+    mb = tables.shape[1]
+    rep = h_ // hkv
+    n_spans = -(-mb * bs // span)
+    out = torch.empty_like(q)
+    inf = float("inf")
+    for b in range(b_):
+        end = min(int(lengths[b]), mb * bs)
+        first = max(0, end - window) if window is not None else 0
+        pos_all = torch.arange(mb * bs)
+        blk = tables[b].long()[pos_all // bs]
+        for kvh in range(hkv):
+            kk = kp[blk, kvh, pos_all % bs].float()
+            vv = vp[blk, kvh, pos_all % bs]
+            qr = q[b, kvh * rep:(kvh + 1) * rep].float()
+            spans = []
+            for sp in range(n_spans):
+                start = sp * span
+                lo, hi = max(start, first), min(start + span, end)
+                if lo >= hi:
+                    continue
+                m = [torch.full((rep,), -inf) for _ in range(K5_WARPS)]
+                l_ = [torch.zeros(rep) for _ in range(K5_WARPS)]
+                o = [torch.zeros((rep, d_)) for _ in range(K5_WARPS)]
+                s0 = start + (lo - start) // K5_STAGE * K5_STAGE
+                for pp in range(s0, hi, K5_PIECE):
+                    if pp + K5_PIECE <= lo:
+                        continue
+                    w = (pp - start) // K5_PIECE % K5_WARPS
+                    pos = torch.arange(pp, pp + K5_PIECE)
+                    live = (pos >= lo) & (pos < hi)
+                    at = pos.clamp(max=mb * bs - 1)
+                    kpc = torch.where(live[:, None], kk[at], 0.0)
+                    vpc = torch.where(live[:, None], vv[at], torch.zeros_like(vv[at]))
+                    sc = (qr @ kpc.T) * scale
+                    if softcap is not None:
+                        sc = torch.tanh(sc / softcap) * softcap
+                    sc = torch.where(live[None, :], sc, torch.tensor(-inf))
+                    m_new = torch.maximum(m[w], sc.amax(dim=1))
+                    alpha = torch.exp(m[w] - m_new)
+                    p = torch.exp(sc - m_new[:, None])
+                    l_[w] = l_[w] * alpha + p.sum(dim=1)
+                    o[w] = o[w] * alpha[:, None] + p.to(q.dtype).float() @ vpc.float()
+                    m[w] = m_new
+                mx = torch.stack(m).amax(dim=0)
+                num, den = torch.zeros((rep, d_)), torch.zeros(rep)
+                for w in range(K5_WARPS):
+                    f = torch.where(m[w] == -inf, 0.0, torch.exp(m[w] - mx))
+                    num = num + f[:, None] * o[w]
+                    den = den + f * l_[w]
+                spans.append((mx, num, den))
+            if n_spans == 1 and spans:
+                _, num, den = spans[0]
+            elif spans:
+                mx = torch.stack([sp_[0] for sp_ in spans]).amax(dim=0)
+                num, den = None, None
+                for m_s, num_s, den_s in spans:
+                    f = torch.where(m_s == -inf, 0.0, torch.exp(m_s - mx))
+                    num = f[:, None] * num_s if num is None else num + f[:, None] * num_s
+                    den = f * den_s if den is None else den + f * den_s
+            else:
+                num, den = torch.zeros((rep, d_)), torch.zeros(rep)
+            out[b, kvh * rep:(kvh + 1) * rep] = (num / den.clamp_min(1e-30)[:, None]).to(q.dtype)
+    return out
+
+
+def k5_case(rng, lengths, mb, dtype, bs=32, hkv=2, h=8, d=64):
+    nb = len(lengths) * mb + 1
+    q = rng.standard_normal((len(lengths), h, d)).astype(np.float32)
+    kp, vp = (rng.standard_normal((nb, hkv, bs, d)).astype(np.float32) for _ in range(2))
+    tables = rng.permutation(nb)[: len(lengths) * mb].reshape(len(lengths), mb).astype(np.int32)
+    tdt = getattr(torch, dtype)
+    return (q, kp, vp, tables, np.array(lengths, np.int32),
+            [torch.from_numpy(a).to(tdt) for a in (q, kp, vp)])
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("softcap,window", K5_OPTIONS)
+def test_k5_span_and_merge_numerics_match_jax(softcap, window, dtype):
+    """Lengths 0, 1, P - 1, P, P + 1 and 4096 (16 spans) in a table wider
+    than the longest sequence, against JAX ``paged_decode_attention``
+    (interpret mode) within 1.1e-2 of the largest output; a slot of length 0
+    gives 0 (JAX's softmax gives NaN there: ROADMAP queue 3 item 13)."""
+    rng = np.random.default_rng(8)
+    lengths = [0, 1, SPAN - 1, SPAN, SPAN + 1, 4096]
+    q, kp, vp, tables, lens, (tq, tk, tv) = k5_case(rng, lengths, 4096 // 32 + 2, dtype)
+    jdt = getattr(jnp, dtype)
+    want = jpa.paged_decode_attention(
+        jnp.asarray(q, jdt), jnp.asarray(kp, jdt), jnp.asarray(vp, jdt), jnp.asarray(tables),
+        jnp.asarray(lens), softcap=softcap, window=window, interpret=True)
+    got = k5_emulation(tq, tk, tv, torch.from_numpy(tables), torch.from_numpy(lens), 64**-0.5,
+                       softcap, window)
+    want = np.asarray(want, np.float32)[1:]
+    assert not got[0].float().any()
+    got = got[1:].float().numpy()
+    assert np.isfinite(got).all()
+    assert float(np.abs(got - want).max() / np.abs(want).max()) < BF16_TOL
+
+
+@pytest.mark.parametrize("softcap,window", K5_OPTIONS)
+@pytest.mark.parametrize("length", [1, SPAN - 1, SPAN + 1, 4096])
+def test_k5_sequence_alone_equals_it_in_a_batch(length, softcap, window):
+    """K5's spans depend on positions alone: a sequence in a batch of 8 with
+    a table wider than its own has the bits it has alone with a table just
+    wide enough (one span, divided directly, where it fits in one)."""
+    rng = np.random.default_rng(9 + length)
+    lengths = [length, 7, 4096, 0, SPAN, 300, 1, 1000]
+    q, kp, vp, tables, lens, (tq, tk, tv) = k5_case(rng, lengths, 4096 // 32 + 3, "bfloat16")
+    batch = k5_emulation(tq, tk, tv, torch.from_numpy(tables), torch.from_numpy(lens), 0.125,
+                         softcap, window)
+    mb = -(-length // 32)
+    alone = k5_emulation(tq[:1], tk, tv, torch.from_numpy(tables[:1, :mb]),
+                         torch.from_numpy(lens[:1]), 0.125, softcap, window)
+    assert torch.equal(alone.view(torch.int16), batch[:1].view(torch.int16))
