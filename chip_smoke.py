@@ -12,41 +12,43 @@ Phases (any failure exits non-zero):
      and L7-L12 (its second half, kernel_lab2.cu); print ptxas registers
      and spill;
   2. hold each kernel against its plain PyTorch version on the card:
-     the LUT-GEMMs at the Llama-3.1-8B decoder-layer shapes, M in
-     {1, 8, 128, 512}, bf16 and f16 (relative Frobenius error under 1.1e-2 /
-     2e-3): K1, K2 at 4, 3 and 2 bits with a general table, K3, K4 at 4, 3
-     and 2 bits with a general joint table; identity input bit-exact against
-     the oracle (K1 and K2 in bf16/f16/f32 at chunk 128 and 256, K3 at 256
-     and 512, K4 in bf16/f16 at 128 and 256) and unpack_via_kernel
-     round-tripping the codes; lut_mode="pair_lut" without pair_values
-     launching K4 once and K2 not at all; qgemm_hadamard (rotation 512) against its
-     plain version; K5 at B=8, 32/8 heads, D=128, blocks of 16, ragged
-     lengths 0..4096 in a table 3 blocks wider than the longest, and K6 at
-     T in {5, 64, 256} over 0 and 1024 cached positions, each with softcap,
-     window and both, bf16 and f16 (max error relative to the largest
-     output < 1.1e-2); K1-K6 called twice give the same bits (split-K, K5's
-     spans and K6 add in a fixed order), rows 0 and M-1 of each K1-K4 call
-     at M > 1 have the bits of the one-row call on that row (the split does
-     not follow M), and each K5 sequence called alone, with a table just
-     wide enough for it, has the bits it has in the batch. K1, K2 and K3 run
-     the tensor-core loop in bf16/f16 and their SIMT kernel in f32; each
-     case, and each kernel line, names the path it ran. K1 at M=512 is also
-     timed, in turns, with the split a planner that follows M would take:
-     what a row's independence of M costs at prefill. K5 is timed at
-     lengths 1024 and 4096 with its span and at spans of 128, 256 and 512;
-     K6 at T=256 over 1024 and at the served pool-prefill chunk (T=32 over
-     32 cached). Time each kernel, its plain
-     version and a yardstick that the port never calls (LUT-GEMMs: a
-     torch.matmul on the pre-dequantized weight; K5/K6: one
-     scaled_dot_product_attention on K/V gathered beforehand), L2-cold, in
-     CUDA graphs;
+     the LUT-GEMMs at the Llama-3.1-8B decoder-layer shapes (K1 also at
+     Gemma-2-9B's), M in {1, 8, 128, 512}, bf16 and f16 (relative Frobenius
+     error under 1.1e-2 / 2e-3): K1, K2 at 4, 3 and 2 bits with a general
+     table, K3, K4 at 4, 3 and 2 bits with a general joint table; identity
+     input bit-exact against the oracle (K1 and K2 in bf16/f16/f32 at chunk
+     128 and 256, K3 at 256 and 512, K4 in bf16/f16 at 128 and 256) and
+     unpack_via_kernel round-tripping the codes; lut_mode="pair_lut" without
+     pair_values launching K4 once and K2 not at all; qgemm_hadamard
+     (rotation 512) against its plain version; K5 at B=8, blocks of 16,
+     ragged lengths 0..4096 in a table 3 blocks wider than the longest, and
+     K6 at T in {5, 64, 256} over 0 and 1024 cached positions, each with
+     softcap, window and both, bf16 and f16, at Llama-3.1-8B's heads (32/8,
+     D=128) and at Gemma-2-9B's (16/8, D=256, also with its softcap 50 and
+     window 4096) (max error relative to the largest output < 1.1e-2); K1-K6
+     called twice give the same bits (split-K, K5's spans and K6 add in a
+     fixed order), rows 0 and M-1 of each K1-K4 call at M > 1 have the bits
+     of the one-row call on that row (the split does not follow M), and each
+     K5 sequence called alone, with a table just wide enough for it, has
+     the bits it has in the batch. K1, K2 and K3 run the tensor-core loop in
+     bf16/f16 and their SIMT kernel in f32; each case, and each kernel line,
+     names the path it ran. K1 at M=512 is also timed, in turns, with the
+     split a planner that follows M would take: what a row's independence
+     of M costs at prefill. K5 is timed at lengths 1024 and 4096 (Llama's
+     heads with its span and at spans of 128, 256 and 512; Gemma-2's with
+     softcap 50 and window 4096); K6 at T=256 over 1024 (both head shapes)
+     and at the served pool-prefill chunk (T=32 over 32 cached). Time each
+     kernel, its plain version and a yardstick that the port never calls
+     (LUT-GEMMs: a torch.matmul on the pre-dequantized weight; K5/K6: one
+     scaled_dot_product_attention on K/V gathered beforehand, without a
+     softcap, which it does not take), L2-cold, in CUDA graphs;
   2b. the Hopper lab (L1-L6 of csrc/kernel_lab.cu): its entry point,
      flute_tpu_torch.lab.kernel_lab.main, runs every variant at the JAX lab's
      reference shape (M16 N28672 K8192, bk 1024, g64, bf16) with the launch
      counts set to 0 just before and read just after (each function exactly
      its variants' calls: a check call, bench_op's first calls and its graph's
      launches; gather8 and pairlut as many of K2 and K4, no other package
-     kernel), and no lab kernel launched in phases 3 and 4; then each of its 12
+     kernel), and no lab kernel launched in phases 3-5; then each of its 12
      cases is held against its plain version on the card at that shape and
      at bk 256 on a narrow N (relative Frobenius error under 1.1e-2; floor on
      planes masked to finite bf16 halves; unpack_only, whose operand is
@@ -60,7 +62,7 @@ Phases (any failure exits non-zero):
      bf16) with the launch counts set to 0 just before and read just after
      (each function exactly its variants' calls, sep for sep and sep1, L7
      2 x 4002; prod as many of K2, no other package kernel, no L1-L6), and
-     no L7-L12 kernel launched in phases 3 and 4; then the six GEMM
+     no L7-L12 kernel launched in phases 3-5; then the six GEMM
      functions (seven cases with sep1) are held against their plain
      versions on the card at that shape and at bk 256 on a narrow N
      (relative Frobenius error under 1.1e-2) and with an identity x bit for
@@ -70,12 +72,13 @@ Phases (any failure exits non-zero):
      L12's 3-bit weight) are timed beside the kernels, L2-cold, in CUDA
      graphs;
   3. logits of a 2-layer model at Llama-3.1-8B widths (fused) quantized at
-     w4sym, W3 (w3wide) and general-table W4 (plane), and with every
-     projection a HIGGS W4 layer (rotation 512, then K4): one prefill and one
-     decode step on the card against the same params on the CPU plain path
-     (max error relative to the largest logit < 1.1e-2); the W3 and the
-     HIGGS models saved with save_quantized and loaded back give the same
-     logits bit for bit;
+     w4sym, W3 (w3wide) and general-table W4 (plane), with every projection
+     a HIGGS W4 layer (rotation 512, then K4), and of a 2-layer Gemma-2 at
+     Gemma-2-9B widths (w4sym, fused): one prefill and one decode step on
+     the card against the same params on the CPU plain path (max error
+     relative to the largest logit < 1.1e-2); the W3 and the HIGGS models
+     saved with save_quantized and loaded back give the same logits bit for
+     bit;
   4. serve 8 ragged prompts for 16 new tokens through Engine.generate on
      the full 32-layer Llama-3.1-8B-width model (random weights from a seed,
      quantized on the card) at w4sym, W3 and general W4, each run through
@@ -85,13 +88,36 @@ Phases (any failure exits non-zero):
      pool prefill, 12 requests (4 sharing a 32-token prefix, 2 sampled) on a
      pool small enough that admission waits, with exact launch counts: K4
      forward calls x 32 x 4, K5 decode steps x 32, K6 prefill chunks x 32,
-     K1-K3 none. The decode-step profiles (torch.profiler) report each
-     served model's LUT-GEMM (K1, K2, K3 or K4, and the loop's split-K
-     reduction) in ms per decode step, K5's (span and merge kernels) per
-     decode step and per call, K6's in a step that admits 8
-     requests, and fail if a decode step converts the dtype of a tensor of
-     2^20 elements or more (the lm_head and the KV cache are multiplied in
-     16 bits with f32 results, never copied to f32).
+     K1-K3 none. Every engine runs its decode step as a CUDA graph captured
+     at its first decode step and replayed after it; the wrappers' launch
+     counts add each replay's launches (serving/graph.py), so the counts
+     above count launches that ran. One replayed step of each engine is
+     held bit for bit against the eager step on the same state (launches
+     of that eager step are not counted). The decode-step profiles
+     (torch.profiler over graphed steps that end on the host as a served
+     step does, CUDA events over back-to-back replays for the device time
+     per step, one profiled eager step for the dtype conversions and, where
+     the profiler does not show replayed kernels one by one, for the split
+     by kernel) report each served model's LUT-GEMM (K1, K2, K3 or K4, and
+     the loop's split-K reduction) in ms per decode step, K5's (span and
+     merge kernels) per decode step and per call, K6's in a step that
+     admits 8 requests, the median and quickest host-clock step and the
+     idle share (1 - device ms per replay / median step), and fail if a
+     decode step converts the dtype of a tensor of 2^20 elements or more
+     (the lm_head and the KV cache are multiplied in 16 bits with f32
+     results, never copied to f32);
+  5. Gemma-2-9B at full width and depth (42 layers, w4sym, g64, fused, random
+     weights from a seed, quantized on the card): the 8 prompts through
+     Engine (batch 8, max_len 256), a 4160-token prompt through a batch-1
+     Engine (max_len 4352), then all nine through PagedEngine with pool
+     prefill (blocks of 16, 8 slots, 400 blocks, max_len 4352): the long
+     request runs the sliding layers' window of 4096 in K6 and in K5, whose
+     17 spans the merge kernel adds; exact launches in each run (K1 forward
+     calls x 42 x 4, K5 decode steps x 42, K6 prefill chunks x 42); paged
+     tokens held to the Engines' before their first near tie, first-token
+     logits within 0.25 of theirs (the paged-against-dense limit of phase
+     4); each engine's replayed step bit-identical to its eager step; the
+     Engine's decode profile as in phase 4.
 
 Prints a {"kernels": [...]} line, then as its last line
 {"ok": true, "device": {...}}. Writes the full results to
@@ -100,6 +126,7 @@ chiprun_out/chip_smoke.json. Needs a CUDA device; exits non-zero without one.
 
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -128,6 +155,15 @@ LAYER_SHAPES = [
     ("gate_up", 28672, 4096),
     ("down", 4096, 14336),
 ]
+# one Gemma-2-9B decoder layer, fused qkv and gate_up (K = 3584 is 14 chunks
+# of 256)
+GEMMA2_SHAPES = [
+    ("qkv", 8192, 3584),
+    ("o", 3584, 4096),
+    ("gate_up", 28672, 3584),
+    ("down", 3584, 14336),
+]
+MODEL_SHAPES = {"llama31_8b": LAYER_SHAPES, "gemma2_9b": GEMMA2_SHAPES}
 GROUP = 64
 # decode rows (1 sequence, the served batch of 8), a mid size, and the served
 # prefill block (8 prompts x 64-token bucket)
@@ -176,18 +212,20 @@ LAB2 = {
 for _kid, (_fn, _, _replaces) in LAB2.items():
     KERNELS[_kid] = (f"lab2.{_fn}", "kernel_lab2.cu", _fn, _replaces)
 LUT_KERNELS = ("K1", "K2", "K3", "K4")
-# phase-2 cases: (kernel id, bits, M values that are timed, dtypes timed;
-# every M and both dtypes are checked). K2 and K4 read the plane layout;
-# K4 looks its weights up in a joint pair table.
+# phase-2 cases: (kernel id, bits, M values that are timed, dtypes timed,
+# the model whose layer shapes it runs; every M and both dtypes are
+# checked). K2 and K4 read the plane layout; K4 looks its weights up in a
+# joint pair table.
 KERNEL_CASES = [
-    ("K1", 4, M_CASES, ("bfloat16", "float16")),
-    ("K2", 4, M_CASES, ("bfloat16", "float16")),
-    ("K2", 3, (1, 8, 512), ("bfloat16", "float16")),
-    ("K2", 2, (1, 8, 512), ("bfloat16", "float16")),
-    ("K3", 3, M_CASES, ("bfloat16", "float16")),
-    ("K4", 4, (1, 8, 512), ("bfloat16",)),
-    ("K4", 3, (1, 8, 512), ("bfloat16",)),
-    ("K4", 2, (1, 8, 512), ("bfloat16",)),
+    ("K1", 4, M_CASES, ("bfloat16", "float16"), "llama31_8b"),
+    ("K2", 4, M_CASES, ("bfloat16", "float16"), "llama31_8b"),
+    ("K2", 3, (1, 8, 512), ("bfloat16", "float16"), "llama31_8b"),
+    ("K2", 2, (1, 8, 512), ("bfloat16", "float16"), "llama31_8b"),
+    ("K3", 3, M_CASES, ("bfloat16", "float16"), "llama31_8b"),
+    ("K4", 4, (1, 8, 512), ("bfloat16",), "llama31_8b"),
+    ("K4", 3, (1, 8, 512), ("bfloat16",), "llama31_8b"),
+    ("K4", 2, (1, 8, 512), ("bfloat16",), "llama31_8b"),
+    ("K1", 4, (1, 8, 512), ("bfloat16",), "gemma2_9b"),
 ]
 LAYOUT = {"K1": "w4sym", "K2": "plane", "K3": "w3wide", "K4": "plane"}
 HIGGS_HADAMARD = 512  # the rotation of the HIGGS layers (phases 2-4)
@@ -264,10 +302,11 @@ def phase_kernel(dev, results):
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     cases = []
-    for kid, bits, timed, timed_dtypes in KERNEL_CASES:
+    for kid, bits, timed, timed_dtypes, model in KERNEL_CASES:
         layout = LAYOUT[kid]
-        log(f"  {kid} ({layout}{', joint pair table' if kid == 'K4' else ''}, {bits}-bit)")
-        for name, n, k in LAYER_SHAPES:
+        log(f"  {kid} ({layout}{', joint pair table' if kid == 'K4' else ''}, {bits}-bit, "
+            f"{model} layer)")
+        for name, n, k in MODEL_SHAPES[model]:
             for dtype in (torch.bfloat16, torch.float16):
                 codes, planes, scales, table = make_weight(rng, gen, layout, bits, n, k,
                                                            dtype, dev)
@@ -299,7 +338,7 @@ def phase_kernel(dev, results):
                     max_abs = float((y.float() - y_plain.float()).abs().max())
                     if not err < THRESHOLDS[dtype]:
                         raise AssertionError(f"{kid} {bits}-bit {name} M={m} {dtype}: rel err {err}")
-                    case = dict(kernel=kid, bits=bits, name=name, n=n, k=k, m=m,
+                    case = dict(kernel=kid, model=model, bits=bits, name=name, n=n, k=k, m=m,
                                 dtype=str(dtype).split(".")[-1], rel_err=err,
                                 max_abs_err=max_abs, path=kernel_path(kid, dtype, bits))
                     cases.append(case)
@@ -340,7 +379,8 @@ def phase_kernel(dev, results):
                 del args, deq_c, deq, planes
     results["kernel_cases"] = cases
     log("  K1-K4: every repeat call gave the same bits (fixed-order split-K), and rows 0 "
-        "and M-1 of every call at M > 1 the bits of the one-row call")
+        "and M-1 of every call at M > 1 the bits of the one-row call (K1 at the Llama-3.1-8B "
+        "and the Gemma-2-9B layer shapes)")
     time_split_cost(dev, rng, gen, results)
     check_identity(dev, rng, gen, results)
     check_pair_lut_routing(dev, rng, gen, results)
@@ -507,18 +547,22 @@ def check_qgemm_hadamard(dev, rng, gen, results):
     results["qgemm_hadamard_rel_err"] = err
 
 
-# K5/K6: one decode batch at Llama-3.1-8B's attention widths
+# K5/K6: one decode batch at Llama-3.1-8B's attention widths, and at
+# Gemma-2-9B's (D=256, 16/8 heads) with the options its layers pass: the
+# softcap 50 everywhere and the window of 4096 on even layers
 ATTN = dict(h=32, hkv=8, d=128, bs=16)
+ATTN_GEMMA2 = dict(h=16, hkv=8, d=256, bs=16)
 ATTN_OPTIONS = [(None, None), (50.0, None), (None, 1000), (30.0, 333)]
+GEMMA2_OPTIONS = [(50.0, None), (50.0, 4096)]
 
 
-def paged_inputs(rng, gen, dev, dtype, lengths, t=0, extra_blocks=0):
+def paged_inputs(rng, gen, dev, dtype, lengths, t=0, extra_blocks=0, attn=ATTN):
     """q, pools and tables for sequences of ``lengths`` cached positions (and
-    ``t`` more queries each): every live block its own pool row, a random
-    permutation of them; dead table entries (``extra_blocks`` past the
-    longest sequence's too) point at row 0. Returns also the number of live
-    blocks."""
-    h, hkv, d, bs = ATTN["h"], ATTN["hkv"], ATTN["d"], ATTN["bs"]
+    ``t`` more queries each) at ``attn``'s heads and blocks: every live block
+    its own pool row, a random permutation of them; dead table entries
+    (``extra_blocks`` past the longest sequence's too) point at row 0.
+    Returns also the number of live blocks."""
+    h, hkv, d, bs = attn["h"], attn["hkv"], attn["d"], attn["bs"]
     need = [-(-(n + t) // bs) for n in lengths]
     mb = max(max(need), 1) + extra_blocks
     nb = sum(need) + 1
@@ -537,9 +581,11 @@ def paged_inputs(rng, gen, dev, dtype, lengths, t=0, extra_blocks=0):
 
 
 def phase_attention(dev, results):
-    """K5 and K6 against their plain versions with every option; timed at
-    the decode batch (every length 1024, every length 4096) and at a pool
-    prefill chunk (T = 256 over 1024 cached positions)."""
+    """K5 and K6 against their plain versions with every option, at
+    Llama-3.1-8B's heads and at Gemma-2-9B's; timed at the decode batch
+    (every length 1024, every length 4096) and at a pool prefill chunk
+    (T = 256 over 1024 cached positions), Gemma-2's with its softcap and
+    window (SDPA, the yardstick, takes no softcap: it runs without)."""
     import torch.nn.functional as F
 
     from flute_tpu_torch.ops import paged_attention as pa
@@ -548,12 +594,14 @@ def phase_attention(dev, results):
     rng = np.random.default_rng(4)
     gen = torch.Generator(device=dev)
     gen.manual_seed(4)
-    h, hkv, d, bs = ATTN["h"], ATTN["hkv"], ATTN["d"], ATTN["bs"]
     cases = []
 
-    def check(kid, fn, ref, q, kp, vp, tables, lens, label):
-        for softcap, window in ATTN_OPTIONS:
+    def check(kid, fn, ref, q, kp, vp, tables, lens, label, attn, options, model):
+        bs = attn["bs"]
+        for softcap, window in options:
             kw = dict(softcap=softcap, window=window)
+            if model == "gemma2_9b":
+                kw["scale"] = 256.0**-0.5  # query_pre_attn_scalar
             got = fn(q, kp, vp, tables, lens, **kw)
             want = ref(q, kp, vp, tables, lens, **kw)
             if not torch.equal(fn(q, kp, vp, tables, lens, **kw).view(torch.int16),
@@ -573,37 +621,52 @@ def phase_attention(dev, results):
             max_abs = float((got.float() - want.float()).abs().max())
             if not err < THRESHOLDS[torch.bfloat16]:
                 raise AssertionError(f"{kid} {label} {kw}: max rel err {err}")
-            cases.append(dict(kernel=kid, case=label, dtype=str(q.dtype).split(".")[-1],
-                              softcap=softcap, window=window, rel_err=err,
-                              max_abs_err=max_abs))
+            cases.append(dict(kernel=kid, model=model, case=label,
+                              dtype=str(q.dtype).split(".")[-1], softcap=softcap, window=window,
+                              rel_err=err, max_abs_err=max_abs))
         return got
 
-    for dtype in (torch.bfloat16, torch.float16):
-        lengths = [0, 1, 37, 100, 515, 1000, 2049, 4096]
-        q, kp, vp, tables, lens, _ = paged_inputs(rng, gen, dev, dtype, lengths, extra_blocks=3)
-        got = check("K5", pa.paged_decode_attention, pa.paged_gqa_reference, q, kp, vp,
-                    tables, lens, f"decode B=8 lengths {lengths}")
-        if got[0].float().any():
-            raise AssertionError("K5: a slot of length 0 must give zeros")
-        for t in (5, 64, 256):
-            q, kp, vp, tables, lens, _ = paged_inputs(rng, gen, dev, dtype, [0, 1024], t=t)
-            check("K6", pa.paged_verify_attention, pa.paged_verify_reference, q, kp, vp,
-                  tables, lens, f"verify T={t} over [0, 1024]")
-        del q, kp, vp
-    log(f"  K5 (ragged lengths 0..4096, spans of {pa.DECODE_SPAN}) and K6 (T 5/64/256 over 0 "
-        f"and 1024) agree with their plain versions with softcap, window and both, bf16/f16: "
-        f"max rel err {max(c['rel_err'] for c in cases):.2e}; repeat calls bit-identical; each "
-        "K5 sequence alone bit-identical to it in the batch")
+    for model, attn, options in (("llama31_8b", ATTN, ATTN_OPTIONS),
+                                 ("gemma2_9b", ATTN_GEMMA2, ATTN_OPTIONS + GEMMA2_OPTIONS)):
+        for dtype in (torch.bfloat16, torch.float16):
+            lengths = [0, 1, 37, 100, 515, 1000, 2049, 4096]
+            q, kp, vp, tables, lens, _ = paged_inputs(rng, gen, dev, dtype, lengths,
+                                                      extra_blocks=3, attn=attn)
+            got = check("K5", pa.paged_decode_attention, pa.paged_gqa_reference, q, kp, vp,
+                        tables, lens, f"decode B=8 lengths {lengths}", attn, options, model)
+            if got[0].float().any():
+                raise AssertionError("K5: a slot of length 0 must give zeros")
+            for t in (5, 64, 256):
+                q, kp, vp, tables, lens, _ = paged_inputs(rng, gen, dev, dtype, [0, 1024], t=t,
+                                                          attn=attn)
+                check("K6", pa.paged_verify_attention, pa.paged_verify_reference, q, kp, vp,
+                      tables, lens, f"verify T={t} over [0, 1024]", attn, options, model)
+            del q, kp, vp
+        log(f"  [{model}: {attn['h']}/{attn['hkv']} heads, D={attn['d']}] K5 (ragged lengths "
+            f"0..4096, spans of {pa.DECODE_SPAN}) and K6 (T 5/64/256 over 0 and 1024) agree "
+            f"with their plain versions with options {options}, bf16/f16: max rel err "
+            f"{max(c['rel_err'] for c in cases if c['model'] == model):.2e}; repeat calls "
+            "bit-identical; each K5 sequence alone bit-identical to it in the batch")
 
     timed = []
     dtype = torch.bfloat16
     esz = 2
     # K6 at T=256 over 1024 (its kernels-line entry) and at the served
     # pool-prefill chunk of phase 4 (one request, 32 tokens over a cached
-    # 32-token prefix)
-    for kid, lengths, t in (("K5", [1024] * 8, 0), ("K5", [4096] * 8, 0), ("K6", [1024], 256),
-                            ("K6", [32], 32)):
-        q, kp, vp, tables, lens, live = paged_inputs(rng, gen, dev, dtype, lengths, t=t)
+    # 32-token prefix); Gemma-2's K5 with its softcap and window, K6 with
+    # its softcap (the window of 4096 masks nothing at 1280 positions)
+    gemma_kw = dict(scale=256.0**-0.5, softcap=50.0, window=4096)
+    for model, attn, kid, lengths, t, kw in (
+            ("llama31_8b", ATTN, "K5", [1024] * 8, 0, {}),
+            ("llama31_8b", ATTN, "K5", [4096] * 8, 0, {}),
+            ("llama31_8b", ATTN, "K6", [1024], 256, {}),
+            ("llama31_8b", ATTN, "K6", [32], 32, {}),
+            ("gemma2_9b", ATTN_GEMMA2, "K5", [1024] * 8, 0, gemma_kw),
+            ("gemma2_9b", ATTN_GEMMA2, "K5", [4096] * 8, 0, gemma_kw),
+            ("gemma2_9b", ATTN_GEMMA2, "K6", [1024], 256, gemma_kw)):
+        h, hkv, d, bs = attn["h"], attn["hkv"], attn["d"], attn["bs"]
+        q, kp, vp, tables, lens, live = paged_inputs(rng, gen, dev, dtype, lengths, t=t,
+                                                     attn=attn)
         kv_bytes = 2 * kp.numel() * esz
         pools = [(kp.clone(), vp.clone()) for _ in range(cold_copies(kv_bytes))]
         b = len(lengths)
@@ -615,38 +678,43 @@ def phase_attention(dev, results):
                  for _ in range(cold_copies(2 * kg.numel() * esz))]
         if kid == "K5":
             def kern(k, v):
-                return pa.paged_decode_attention(q, k, v, tables, lens)
+                return pa.paged_decode_attention(q, k, v, tables, lens, **kw)
 
             def plain(k, v):
-                return pa.paged_gqa_reference(q, k, v, tables, lens)
+                return pa.paged_gqa_reference(q, k, v, tables, lens, **kw)
 
             q4, mask = q[:, :, None], None
             att = [n for n in lengths]
         else:
             def kern(k, v):
-                return pa.paged_verify_attention(q, k, v, tables, lens)
+                return pa.paged_verify_attention(q, k, v, tables, lens, **kw)
 
             def plain(k, v):
-                return pa.paged_verify_reference(q, k, v, tables, lens)
+                return pa.paged_verify_reference(q, k, v, tables, lens, **kw)
 
             q4 = q.permute(0, 2, 1, 3)
             mask = (torch.arange(s_len, device=dev)[None, :]
                     <= lengths[0] + torch.arange(t, device=dev)[:, None])
             att = [lengths[0] + j + 1 for j in range(t)]
+        scale = kw.get("scale")
 
         def library(k, v):
-            return F.scaled_dot_product_attention(q4, k, v, attn_mask=mask, enable_gqa=True)
+            return F.scaled_dot_product_attention(q4, k, v, attn_mask=mask, enable_gqa=True,
+                                                  scale=scale)
 
+        got, want = kern(kp, vp).float(), plain(kp, vp).float()
+        err = float((got - want).abs().max() / want.abs().max())
+        if not err < THRESHOLDS[torch.bfloat16]:
+            raise AssertionError(f"{kid} {model} {lengths[0]} {kw}: max rel err {err}")
         t_k = bench_op(kern, pools)
         span_us = {}
-        if kid == "K5":  # the span, timed at 128, 256 and 512 positions
+        if kid == "K5" and model == "llama31_8b":  # the span, timed at 128, 256 and 512
             for span in (128, 256, 512):
                 def kern_span(k, v, span=span):
                     return pa._launch("paged_decode", q[:, None], k, v, tables, lens, d**-0.5,
                                       None, None, span=span)
 
                 got = kern_span(kp, vp)[:, 0].float()
-                want = plain(kp, vp).float()
                 err = float((got - want).abs().max() / want.abs().max())
                 if not err < THRESHOLDS[torch.bfloat16]:
                     raise AssertionError(f"K5 {lengths[0]} with spans of {span}: max rel err {err}")
@@ -656,7 +724,9 @@ def phase_attention(dev, results):
         nbytes = live * hkv * bs * d * esz * 2 + 2 * q.numel() * esz
         flops = 4 * h * d * sum(att)
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_OPS_PER_S
-        case = dict(kernel=kid, case=f"B={b} T={max(t, 1)} cached {lengths[0]}", dtype="bfloat16",
+        case = dict(kernel=kid, model=model, case=f"B={b} T={max(t, 1)} cached {lengths[0]}",
+                    heads=f"{h}/{hkv}", d=d, dtype="bfloat16",
+                    options={k: v for k, v in kw.items() if k != "scale"},
                     bytes=nbytes, flops=flops, us=t_k * 1e6, plain_us=t_p * 1e6,
                     library_us=t_l * 1e6, bound_us=max(t_bytes, t_ops) * 1e6,
                     bound_by="bytes" if t_bytes >= t_ops else "operations")
@@ -666,10 +736,11 @@ def phase_attention(dev, results):
                         us_by_span=span_us)
         case["share_of_bound"] = case["bound_us"] / case["us"]
         timed.append(case)
-        log(f"    {kid} {case['case']:28s} kernel {case['us']:9.1f} us  bound "
-            f"{case['bound_us']:7.1f} us ({case['bound_by']}, "
+        log(f"    {kid} {model:10s} {case['heads']:5s} D={d:3d} {case['case']:26s} kernel "
+            f"{case['us']:9.1f} us  bound {case['bound_us']:7.1f} us ({case['bound_by']}, "
             f"{100 * case['share_of_bound']:5.1f}%)  plain {case['plain_us']:9.1f} us  "
             f"sdpa {case['library_us']:7.1f} us"
+            + (f"  options {case['options']}" if kw else "")
             + (f"  by span {', '.join(f'{k}: {v:.1f}' for k, v in span_us.items())} us"
                if span_us else ""))
         del pools, dense, kg, vg, q, kp, vp
@@ -1019,14 +1090,17 @@ def phase_lab2(dev, results, library_us_w4):
     return cases, checks, launches
 
 
-def model_logits(params, config, dev, tokens, offsets, nxt):
+def model_logits(params, config, dev, tokens, offsets, nxt, family=None):
+    """Prefill and one decode step of ``family`` (a model module; Llama by
+    default) on ``dev``: the f32 logits of both, on the host."""
     from flute_tpu_torch.models import llama
 
+    family = family or llama
     b, t = tokens.shape
     with torch.inference_mode():
-        cache = llama.init_cache(config, b, 32, device=dev)
-        pre, cache = llama.forward(params, config, tokens.to(dev), cache, 0, offsets.to(dev))
-        dec, _ = llama.forward(params, config, nxt.to(dev), cache, t, offsets.to(dev))
+        cache = family.init_cache(config, b, 32, device=dev)
+        pre, cache = family.forward(params, config, tokens.to(dev), cache, 0, offsets.to(dev))
+        dec, _ = family.forward(params, config, nxt.to(dev), cache, t, offsets.to(dev))
     return pre.cpu(), dec.cpu()
 
 
@@ -1166,6 +1240,27 @@ def phase_logits(dev, results):
                              bits=3 if name == "w3wide" else 4)
         del qparams
     del params
+    # Gemma-2: two layers at Gemma-2-9B widths, w4sym, fused
+    from flute_tpu_torch.models import gemma2
+
+    gconfig = dataclasses.replace(gemma2.Gemma2Config.gemma2_9b(), num_layers=2)
+    gparams = gemma2.init_params(gconfig, seed=1, device=dev)
+    gq = gemma2.quantize_model(gparams, group_size=GROUP, fuse=True, device=dev)
+    del gparams
+    out = model_logits(gq, gconfig, dev, tokens, offsets, nxt, family=gemma2)
+    ref = model_logits(move_params(gq, cpu), gconfig, cpu, tokens, offsets, nxt, family=gemma2)
+    errs = {}
+    for step, a, want in zip(("prefill", "decode"), out, ref):
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"gemma2 w4sym: non-finite {step} logits")
+        errs[step] = float((a - want).abs().max() / want.abs().max())
+        if not errs[step] < THRESHOLDS[torch.bfloat16]:
+            raise AssertionError(f"gemma2 w4sym {step} logits differ from the CPU plain path: "
+                                 f"{errs[step]}")
+    log(f"  2-layer Gemma-2-9B-width w4sym logits vs CPU plain path: prefill "
+        f"{errs['prefill']:.2e}, decode {errs['decode']:.2e}")
+    results["logits_rel_err"]["gemma2_w4sym"] = errs
+    del gq
     torch.cuda.empty_cache()
 
 
@@ -1174,7 +1269,6 @@ def serve(dev, name, quant_kw, kernel_layout):
     returns the run's numbers, the engine (which keeps the model) and the
     tokens with the logits that chose them (one [B, V] row block per step)."""
     from flute_tpu_torch.models import llama
-    from flute_tpu_torch.ops import lut_gemm
     from flute_tpu_torch.serving import Engine
 
     config = llama.LlamaConfig.llama31_8b()
@@ -1192,32 +1286,93 @@ def serve(dev, name, quant_kw, kernel_layout):
     log(f"  [{name}] init {t1 - t0:.1f} s, quantize {t2 - t1:.1f} s, "
         f"{(torch.cuda.memory_allocated(dev) - held) / 2**30:.2f} GiB allocated after "
         "quantization")
-
-    prompts = serving_prompts(config)
-    lengths = [len(p) for p in prompts]
-    new_tokens = NEW_TOKENS
     eng = Engine(params=qparams, config=config, batch_size=8, max_len=256, device=dev)
+    serving, trajectory = serve_engine(name, eng, serving_prompts(config), kernel_layout)
+    serving["peak_gib"] = (torch.cuda.max_memory_allocated(dev) - held) / 2**30
+    log(f"  [{name}] peak {serving['peak_gib']:.1f} GiB")
+    return serving, eng, trajectory
 
-    logits_seen = []
-    step_logits = []
-    forward = eng.forward
 
-    def checked_forward(*a, **kw):
-        logits, cache = forward(*a, **kw)
+def release():
+    """Free the card's memory of engines just dropped: an engine and its
+    decode graph refer to each other, so only the garbage collector frees
+    them."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def counters():
+    from flute_tpu_torch.ops import lut_gemm
+    from flute_tpu_torch.ops import paged_attention as pa
+
+    return (lut_gemm.LAUNCHES, pa.LAUNCHES)
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches made only to hold a graphed step against the eager step:
+    the counts are put back after them."""
+    saved = [dict(c) for c in counters()]
+    try:
+        yield
+    finally:
+        for c, b in zip(counters(), saved):
+            c.update(b)
+
+
+def hold_graph_step(name, graphed, eager):
+    """A replayed step's logits (``graphed``, copied before anything else
+    runs) against ``eager()``, the eager step on the same state (it writes
+    the same K/V at the same slots): bit for bit."""
+    with uncounted():
+        want = eager()
+    same = torch.equal(graphed.view(torch.int32), want.float().view(torch.int32))
+    err = float((graphed - want.float()).abs().max() / want.float().abs().max())
+    if not same:
+        raise AssertionError(f"[{name}] the graphed decode step differs from the eager step: "
+                             f"max rel err {err:.3e}")
+    log(f"  [{name}] a replayed decode step is bit-identical to the eager step on the same "
+        "state")
+    return dict(bit_identical=same, max_rel_err=err)
+
+
+def serve_engine(name, eng, prompts, kernel_layout, new_tokens=None):
+    """Serve ``prompts`` once through ``eng.generate`` (its decode step
+    graphed on the card), each step through exactly ``kernel_layout``'s
+    kernel (steps x layers x 4 launches, none of the others), then hold one
+    more replayed step bit for bit against the eager step. Returns the run's
+    numbers and (tokens, the [steps, B, V] logits that chose them)."""
+    from flute_tpu_torch.ops import lut_gemm
+
+    new_tokens = new_tokens or NEW_TOKENS
+    layers = eng.config.num_layers
+    logits_seen, step_logits, last = [], [], {}
+    prefill, decode_step = eng.prefill, eng.decode_step
+
+    def counted_prefill(tokens, offsets):
+        logits, cache = prefill(tokens, offsets)
         logits_seen.append(bool(torch.isfinite(logits).all()))
-        step_logits.append(logits[:, -1].float())
+        step_logits.append(logits.float().clone())
         return logits, cache
 
-    eng.forward = checked_forward
-    for k in lut_gemm.LAUNCHES:
-        lut_gemm.LAUNCHES[k] = 0
+    def counted_step(tokens, pos, offsets):
+        logits = decode_step(tokens, pos, offsets)  # overwritten by the next replay
+        logits_seen.append(bool(torch.isfinite(logits).all()))
+        step_logits.append(logits.clone())
+        last.update(pos=pos, offsets=offsets)
+        return logits
+
+    eng.prefill, eng.decode_step = counted_prefill, counted_step
+    for c in counters():
+        for k in c:
+            c[k] = 0
     out = eng.generate(prompts, max_new_tokens=new_tokens)
     launches = dict(lut_gemm.LAUNCHES)
-    eng.forward = forward
+    eng.prefill, eng.decode_step = prefill, decode_step
 
     steps = len(logits_seen)  # one prefill + the decode steps
     expected = {k: 0 for k in launches}
-    expected[kernel_layout] = steps * config.num_layers * 4
+    expected[kernel_layout] = steps * layers * 4
     if steps != new_tokens or launches != expected:
         raise AssertionError(f"[{name}] launches {launches} over {steps} steps, "
                              f"expected {expected}")
@@ -1225,25 +1380,31 @@ def serve(dev, name, quant_kw, kernel_layout):
         raise AssertionError(f"[{name}] non-finite logits while serving")
     if any(len(o) != new_tokens for o in out):
         raise AssertionError(f"[{name}] a prompt got {[len(o) for o in out]} tokens")
+    # one more step at the next slot: the graph's replay, then the eager step
+    nxt = step_logits[-1].argmax(-1)[:, None]
+    pos, offsets = last["pos"] + 1, last["offsets"]
+    with uncounted():
+        graphed = eng.decode_step(nxt, pos, offsets).clone()
+    graph = hold_graph_step(name, graphed, lambda: eng.decode(nxt, eng._cache, pos, offsets)[0])
     tm = eng.last_timings
     decode_s = [float(d) for d in tm["decode_s"]]
     dec = float(np.median(decode_s))
     total = tm["prefill_s"] + sum(decode_s)
     serving = dict(
-        prompts=len(prompts), prompt_lengths=lengths, new_tokens=new_tokens,
+        prompts=len(prompts), prompt_lengths=[len(p) for p in prompts], new_tokens=new_tokens,
         steps=steps, launches=launches, prefill_ms=tm["prefill_s"] * 1e3,
-        decode_ms_per_step=dec * 1e3, decode_ms_steps=[d * 1e3 for d in decode_s],
+        decode_ms_per_step=dec * 1e3, decode_ms_quickest=min(decode_s) * 1e3,
+        decode_ms_steps=[d * 1e3 for d in decode_s],
         decode_tok_s=len(prompts) / dec, end_to_end_tok_s=len(prompts) * new_tokens / total,
-        peak_gib=(torch.cuda.max_memory_allocated(dev) - held) / 2**30,
+        graph_step=graph,
     )
     log(f"  [{name}] served {len(prompts)} prompts x {new_tokens} tokens: prefill "
-        f"{serving['prefill_ms']:.1f} ms, decode {serving['decode_ms_per_step']:.2f} ms/step "
-        f"(median; {min(decode_s) * 1e3:.2f}-{max(decode_s) * 1e3:.2f}), "
-        f"{serving['decode_tok_s']:.1f} decode tok/s, "
+        f"{serving['prefill_ms']:.1f} ms, graphed decode {serving['decode_ms_per_step']:.2f} "
+        f"ms/step (median; quickest {min(decode_s) * 1e3:.2f}, slowest "
+        f"{max(decode_s) * 1e3:.2f}), {serving['decode_tok_s']:.1f} decode tok/s, "
         f"{serving['end_to_end_tok_s']:.1f} tok/s end to end, "
-        f"{launches[kernel_layout]} {kernel_layout} kernel launches, "
-        f"peak {serving['peak_gib']:.1f} GiB")
-    return serving, eng, (out, torch.stack(step_logits).cpu())
+        f"{launches[kernel_layout]} {kernel_layout} kernel launches")
+    return serving, (out, torch.stack(step_logits).cpu())
 
 
 NEW_TOKENS = 16
@@ -1256,10 +1417,13 @@ def serving_prompts(config):
 
 
 def serve_paged(dev, name, params, config, requests, engine_kw, gemm, keep_logits=False):
-    """Serve ``requests`` [(prompt, submit keywords)] through PagedEngine;
-    require the exact launches of its path: the LUT-GEMM ``gemm`` 4 x 32
-    per forward call, K5 32 per decode step, K6 32 per pool-prefill chunk,
-    no other LUT-GEMM. Returns the run's numbers, the engine, the tokens by
+    """Serve ``requests`` [(prompt, submit keywords)] through PagedEngine
+    (its decode step graphed on the card); require the exact launches of
+    its path: the LUT-GEMM ``gemm`` 4 x layers per forward call, K5 one per
+    layer and decode step, K6 one per layer and pool-prefill chunk, no other
+    LUT-GEMM; hold the third decode step (a replay) bit for bit against the
+    eager step on the same state (that step's time is left out of the
+    decode times). Returns the run's numbers, the engine, the tokens by
     request, the first-token logits rows by request and, with
     ``keep_logits``, each decode step's logits [slots, V] on the host."""
     from flute_tpu_torch.ops import lut_gemm
@@ -1271,7 +1435,7 @@ def serve_paged(dev, name, params, config, requests, engine_kw, gemm, keep_logit
     eng = PagedEngine(params=params, config=config, device=dev, **engine_kw)
     calls = dict(decode=0, pool_chunks=0, dense_prefill=0, waits=0)
     decode_s, prefill_s, finite, peak_blocks, decode_rows = [], [], [], [0], []
-    first_rows = {}
+    first_rows, graph = {}, {}
 
     def wrap(obj, attr, after):
         fn = getattr(obj, attr)
@@ -1284,14 +1448,18 @@ def serve_paged(dev, name, params, config, requests, engine_kw, gemm, keep_logit
 
         setattr(obj, attr, wrapped)
 
-    def on_decode_logits(r, t0, *a):
+    def on_step_logits(r, t0, *a):
         calls["decode"] += 1
         finite.append(bool(torch.isfinite(r).all()))
         if keep_logits:
-            decode_rows.append(r.float().cpu())
+            decode_rows.append(r.cpu())
+        if calls["decode"] == 3:
+            graph.update(hold_graph_step(name, r.clone(), lambda: eng._decode_logits(
+                eng._step_tables, eng._step_lengths, eng._step_tokens)))
 
     def on_decode(r, t0, *a):  # ends in a copy to the host: a synchronised step
-        decode_s.append(time.perf_counter() - t0)
+        if calls["decode"] != 3:
+            decode_s.append(time.perf_counter() - t0)
 
     def on_pool(r, t0, *a):
         calls["pool_chunks"] += 1
@@ -1309,7 +1477,7 @@ def serve_paged(dev, name, params, config, requests, engine_kw, gemm, keep_logit
         if eng._queue and any(req is None for req in eng._slot_req):
             calls["waits"] += 1
 
-    wrap(eng, "_decode_logits", on_decode_logits)
+    wrap(eng, "_step_logits", on_step_logits)
     wrap(eng, "_decode", on_decode)
     if eng._pool_fwd is not None:
         wrap(eng, "_pool_fwd", on_pool)
@@ -1354,11 +1522,11 @@ def serve_paged(dev, name, params, config, requests, engine_kw, gemm, keep_logit
         decode_ms_quickest=min(decode_s) * 1e3,
         decode_ms_steps=[x * 1e3 for x in decode_s],
         tok_s=tokens / total, peak_blocks_in_use=peak_blocks[0],
-        peak_gib=(torch.cuda.max_memory_allocated(dev) - held) / 2**30,
+        peak_gib=(torch.cuda.max_memory_allocated(dev) - held) / 2**30, graph_step=graph,
     )
     log(f"  [{name}] {len(requests)} requests, {tokens} tokens: prefill "
         f"{serving['prefill_ms_per_admission']:.1f} ms per admission (median), decode "
-        f"{serving['decode_ms_per_step']:.2f} ms/step (median; quickest "
+        f"{serving['decode_ms_per_step']:.2f} ms/step graphed (median; quickest "
         f"{serving['decode_ms_quickest']:.2f}) over {calls['decode']} steps, "
         f"{serving['tok_s']:.1f} tok/s, {calls['waits']} admission waits for blocks, "
         f"prefix hits {eng.prefix_hits}, peak {peak_blocks[0]} blocks in use, "
@@ -1445,28 +1613,77 @@ def profile_steps(name, step, steps=3):
     return profile
 
 
+def replay_ms(step, steps=10) -> float:
+    """Device ms per call of ``step`` (a graphed decode step), from CUDA
+    events around ``steps`` calls issued back to back: the host issues a
+    replay in far less time than the device runs it, so this is the
+    device's time per step."""
+    step(0)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(steps):
+        step(i)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / steps
+
+
+def profile_graphed(name, eager_step, served_step, replay_step):
+    """Where a graphed decode step's time goes: ``served_step`` (a replay
+    with what a served step does around it, ending on the host) profiled
+    for wall and device time; ``replay_step`` timed with CUDA events
+    (:func:`replay_ms`); one profiled ``eager_step`` on the same state for
+    the dtype conversions (a replay records no PyTorch op) and for the
+    split by kernel where the profiler does not show the replayed kernels
+    one by one."""
+    with uncounted():
+        eager = profile_steps(f"{name} eager step", eager_step, steps=1)
+        profile = profile_steps(name, served_step)
+        profile["replay_device_ms_per_step"] = replay_ms(replay_step)
+    profile["eager_step"] = eager
+    profile["large_dtype_copies"] = sorted(
+        {tuple(c) for c in profile["large_dtype_copies"] + eager["large_dtype_copies"]})
+    groups = profile["groups_ms_per_step"]
+    profile["split_from"] = "graphed steps"
+    if not groups or not any(groups.values()):
+        profile["groups_ms_per_step"] = eager["groups_ms_per_step"]
+        profile["split_from"] = "the eager step"
+    log(f"  [{name}] graphed step: {profile['replay_device_ms_per_step']:.2f} ms of device time "
+        f"per replay (CUDA events); split by kernel from {profile['split_from']}")
+    return profile
+
+
 def profile_decode(dev, name, eng):
-    """An Engine's decode step at batch 8 after a 64-token prefill."""
+    """An Engine's graphed decode step at batch 8 after a 64-token prefill
+    (the graph captured in the served run), each ending with its argmax on
+    the host as a served step does."""
     config = eng.config
     rng = np.random.default_rng(3)
     with torch.inference_mode():
         toks = torch.from_numpy(rng.integers(1, config.vocab_size, (8, 64))).to(dev)
         offs = torch.zeros(8, dtype=torch.int64, device=dev)
-        _, cache = eng.prefill(toks, offs)
+        eng.prefill(toks, offs)
         nxt = toks[:, -1:]
-        eng.decode(nxt, cache, 64, offs)
-        torch.cuda.synchronize()
-        return profile_steps(name, lambda i: eng.decode(nxt, cache, 65 + i, offs))
+    return profile_graphed(
+        name, lambda i: eng.decode(nxt, eng._cache, 64, offs),
+        lambda i: eng.decode_step(nxt, 64 + i, offs).argmax(-1).cpu(),
+        lambda i: eng.decode_step(nxt, 80 + i, offs))
 
 
 def profile_paged(name, eng, prompts):
     """A PagedEngine step that admits 8 requests (pool prefill: K6) and
-    decodes once, then three decode steps with 8 live requests."""
+    decodes once, then three graphed decode steps with 8 live requests."""
     for p in prompts:
         eng.submit(p, max_new_tokens=8)
     torch.cuda.synchronize()
-    admission = profile_steps(f"{name} admission", lambda i: eng.step(), steps=1)
-    profile = profile_steps(name, lambda i: eng.step())
+    with uncounted():
+        admission = profile_steps(f"{name} admission", lambda i: eng.step(), steps=1)
+    profile = profile_graphed(
+        name, lambda i: eng._decode_logits(eng._step_tables, eng._step_lengths,
+                                           eng._step_tokens),
+        lambda i: eng.step(), lambda i: eng._graph())
     eng.run()
     profile["admission_step"] = admission
     return profile
@@ -1480,59 +1697,77 @@ def check_copies(name, profile):
                              f"{profile['large_dtype_copies']}")
 
 
-def kernel_line(kid, cases, launches, identity_paths):
-    """The {"kernels": [...]} entry of a LUT-GEMM: its decode stack, one
-    layer's four projections at M=8 in bf16 (K2 and K4 at 4 bits). ``path``
-    is the kernel that stack ran; ``paths`` every kernel its checked cases
-    ran (phase 2's and the identity checks')."""
-    wrapper, source, _, replaces = KERNELS[kid]
-    bits = 4 if kid != "K3" else 3
-    mine = [c for c in cases if c["kernel"] == kid]
-    stack = [c for c in mine if c["bits"] == bits and c["m"] == 8 and c["dtype"] == "bfloat16"]
-    (path,) = {c["path"] for c in stack}
-    paths = sorted({f"{c['path']} {c['dtype']}" for c in mine} | set(identity_paths.get(kid, ())))
+def _stack_numbers(stack) -> dict:
+    """ms, plain_ms, bound_ms, bound_by and library_ms of a stack of timed
+    cases (one layer's projections, or one attention call)."""
     return dict(
-        name=wrapper,
-        route="cuda",
-        path=path,
-        paths=paths,
-        source=f"flute_tpu_torch/csrc/{source}",
-        replaces=replaces,
-        launches=launches,
-        max_abs_err=max(c["max_abs_err"] for c in mine),
         ms=sum(c["us"] for c in stack) / 1e3,
         plain_ms=sum(c["plain_us"] for c in stack) / 1e3,
         bound_ms=sum(c["bound_us"] for c in stack) / 1e3,
         bound_by="bytes" if all(c["bound_by"] == "bytes" for c in stack) else "operations",
         library_ms=sum(c["library_us"] for c in stack) / 1e3,
-        checked=True,
     )
 
 
-def attention_line(kid, checks, timed, launches):
+def kernel_line(kid, cases, launches, identity_paths, gemma2_launches=None):
+    """The {"kernels": [...]} entry of a LUT-GEMM: its decode stack, one
+    Llama-3.1-8B layer's four projections at M=8 in bf16 (K2 and K4 at 4
+    bits); K1's also one Gemma-2-9B layer's (``gemma2_9b``, beside its
+    launches in the Gemma-2 phase). ``path`` is the kernel that stack ran;
+    ``paths`` every kernel its checked cases ran (phase 2's and the identity
+    checks')."""
+    wrapper, source, _, replaces = KERNELS[kid]
+    bits = 4 if kid != "K3" else 3
+    mine = [c for c in cases if c["kernel"] == kid]
+
+    def stack(model):
+        return [c for c in mine if c["model"] == model and c["bits"] == bits and c["m"] == 8
+                and c["dtype"] == "bfloat16"]
+
+    (path,) = {c["path"] for c in stack("llama31_8b")}
+    paths = sorted({f"{c['path']} {c['dtype']}" for c in mine} | set(identity_paths.get(kid, ())))
+    line = dict(name=wrapper, route="cuda", path=path, paths=paths,
+                source=f"flute_tpu_torch/csrc/{source}", replaces=replaces, launches=launches,
+                max_abs_err=max(c["max_abs_err"] for c in mine),
+                **_stack_numbers(stack("llama31_8b")), checked=True)
+    if stack("gemma2_9b"):
+        line["gemma2_9b"] = dict(_stack_numbers(stack("gemma2_9b")), launches=gemma2_launches)
+    return line
+
+
+def attention_line(kid, checks, timed, launches, gemma2_launches=None):
     """The {"kernels": [...]} entry of K5 (one call at B=8, every length
     1024; with its span and the spans of a sequence at 1024 [4096]) or K6
-    (one call, T=256 over 1024 cached positions)."""
+    (one call, T=256 over 1024 cached positions), at Llama-3.1-8B's heads;
+    ``gemma2_9b`` the same calls at Gemma-2-9B's (with its options, beside
+    its launches in the Gemma-2 phase)."""
     wrapper, source, _, replaces = KERNELS[kid]
-    row = [c for c in timed if c["kernel"] == kid][0]
-    return dict(
+    rows = [c for c in timed if c["kernel"] == kid and c["model"] == "llama31_8b"]
+    gemma = [c for c in timed if c["kernel"] == kid and c["model"] == "gemma2_9b"]
+    row = rows[0]
+    line = dict(
         name=wrapper,
         route="cuda",
         source=f"flute_tpu_torch/csrc/{source}",
         replaces=replaces,
         launches=launches,
         max_abs_err=max(c["max_abs_err"] for c in checks if c["kernel"] == kid),
-        ms=row["us"] / 1e3,
-        plain_ms=row["plain_us"] / 1e3,
-        bound_ms=row["bound_us"] / 1e3,
-        bound_by=row["bound_by"],
-        library_ms=row["library_us"] / 1e3,
+        **_stack_numbers([row]),
         checked=True,
-        **({"served_chunk_ms": [c for c in timed if c["kernel"] == kid][-1]["us"] / 1e3}
-           if kid == "K6" else {}),
-        **({"span": row["span"], "spans": [c["spans"] for c in timed if c["kernel"] == kid]}
-           if kid == "K5" else {}),
     )
+    if kid == "K6":
+        line["served_chunk_ms"] = rows[-1]["us"] / 1e3
+    else:
+        line.update(span=row["span"], spans=[c["spans"] for c in rows],
+                    ms_at_4096=rows[1]["us"] / 1e3)
+    line["gemma2_9b"] = dict(_stack_numbers(gemma[:1]), launches=gemma2_launches,
+                             heads=gemma[0]["heads"], d=gemma[0]["d"],
+                             options=gemma[0]["options"])
+    if kid == "K5":
+        line["gemma2_9b"].update(ms_at_4096=gemma[1]["us"] / 1e3,
+                                 bound_ms_at_4096=gemma[1]["bound_us"] / 1e3,
+                                 library_ms_at_4096=gemma[1]["library_us"] / 1e3)
+    return line
 
 
 def first_tie_steps(logits, tol=THRESHOLDS[torch.bfloat16]):
@@ -1557,14 +1792,11 @@ def phase_paged(dev, results, w4sym_engine, w4sym_trajectory):
 
     # w4sym: the Engine's model and prompts
     out, logits = w4sym_trajectory
-    ties, decided = first_tie_steps(logits[:, : len(prompts)])
     serving, eng, tokens, first, rows = serve_paged(
         dev, "paged w4sym", w4sym_engine.params, config, [(p, budget) for p in prompts],
         dict(num_slots=8, block_size=16, num_blocks=8 * 4 + 1, max_len=256), "w4sym",
         keep_logits=True)
-    for i, tie in enumerate(ties):
-        if tokens[i][:tie] != out[i][:tie]:
-            raise AssertionError(f"paged w4sym: request {i} differs from Engine before step {tie}")
+    _, decided = hold_tokens("paged w4sym", tokens, out, logits[:, : len(prompts)])
     # every request was admitted at once, request i into slot i: while its
     # tokens equal Engine's, decode step k's row i is Engine's step k + 1.
     # Engine and K5 both round attention probabilities to bf16, but sum
@@ -1597,7 +1829,7 @@ def phase_paged(dev, results, w4sym_engine, w4sym_trajectory):
                    decode_rows_compared=compared)
     results["serving"]["paged_w4sym"] = serving
     del eng
-    torch.cuda.empty_cache()
+    release()
 
     # HIGGS-W4 with pool prefill: 12 requests, the last 4 sharing the first
     # 32 tokens (2 blocks) of prompt 1, two sampled
@@ -1622,6 +1854,117 @@ def phase_paged(dev, results, w4sym_engine, w4sym_trajectory):
                              f"admission waits {serving['calls']['waits']}")
     results["serving"]["paged_higgs_w4"] = serving
     return eng, prompts
+
+
+GEMMA2_LONG = 4160  # past the window of 4096: sliding layers mask its first positions
+GEMMA2_MAX_LEN = 4352  # 17 spans of 256: K5 merges them
+
+
+def hold_tokens(name, got, want, logits):
+    """Each sequence's tokens equal ``want``'s (the dense Engine's) before
+    its first near tie in ``logits`` [steps, B, V]; returns the ties and the
+    decided share."""
+    ties, decided = first_tie_steps(logits)
+    for i, tie in enumerate(ties):
+        if got[i][:tie] != want[i][:tie]:
+            raise AssertionError(f"{name}: request {i} differs from Engine before step {tie}")
+    return ties, decided
+
+
+def phase_gemma2(dev, results):
+    """Gemma-2-9B at full width and depth (42 layers, 16/8 heads of 256,
+    vocab 256128; w4sym, g64, fused qkv/gate_up; random weights from a
+    seed, quantized on the card): the 8 prompts through Engine (batch 8,
+    max_len 256), a prompt of 4160 tokens through a batch-1 Engine (max_len
+    4352), then all nine through PagedEngine with pool prefill (blocks of
+    16, 8 slots, 400 blocks, max_len 4352: the long prompt first, so it
+    decodes beside seven others while the last waits for a slot), each
+    graphed and with exact launches. The long request runs the sliding
+    layers' window in K6 (its last chunk) and in K5, whose 17 spans its
+    merge kernel adds. Paged tokens are held to the Engines' before their
+    first near tie, and first-token logits (K6 against dense attention)
+    within the paged-against-dense limit of phase 4 (0.25)."""
+    from flute_tpu_torch.models import gemma2
+    from flute_tpu_torch.ops import paged_attention as pa
+    from flute_tpu_torch.serving import Engine
+
+    config = gemma2.Gemma2Config.gemma2_9b()
+    held = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = gemma2.init_params(config, seed=0, device=dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    qparams = gemma2.quantize_model(params, group_size=GROUP, fuse=True, device=dev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    del params
+    torch.cuda.empty_cache()
+    log(f"  [gemma2] init {t1 - t0:.1f} s, quantize {t2 - t1:.1f} s, "
+        f"{(torch.cuda.memory_allocated(dev) - held) / 2**30:.2f} GiB allocated after "
+        "quantization")
+    prompts = serving_prompts(config)
+    long_prompt = np.random.default_rng(6).integers(1, config.vocab_size, GEMMA2_LONG).tolist()
+    family = dict(forward=gemma2.forward, init_cache=gemma2.init_cache)
+    out = {}
+
+    eng = Engine(params=qparams, config=config, batch_size=8, max_len=256, device=dev, **family)
+    serving, (tokens8, logits8) = serve_engine("gemma2 w4sym", eng, prompts, "w4sym")
+    serving["profile"] = profile_decode(dev, "gemma2 w4sym", eng)
+    check_copies("gemma2 w4sym", serving["profile"])
+    out["engine"] = serving
+    del eng
+    release()
+    eng = Engine(params=qparams, config=config, batch_size=1, max_len=GEMMA2_MAX_LEN, device=dev,
+                 **family)
+    out["engine_long"], (tokens1, logits1) = serve_engine("gemma2 w4sym long", eng,
+                                                          [long_prompt], "w4sym")
+    del eng
+    release()
+
+    budget = dict(max_new_tokens=NEW_TOKENS)
+    engine_kw = dict(num_slots=8, block_size=16, num_blocks=400, max_len=GEMMA2_MAX_LEN,
+                     pool_prefill=True)
+    spans = pa.decode_spans(GEMMA2_MAX_LEN // 16, 16)
+    if spans != 17:
+        raise AssertionError(f"gemma2 paged: {spans} spans per sequence, expected 17")
+    paged, peng, tokens, first, _ = serve_paged(
+        dev, "paged gemma2 w4sym", qparams, config,
+        [(long_prompt, budget)] + [(p, budget) for p in prompts], engine_kw, "w4sym")
+    ties1, decided1 = hold_tokens("paged gemma2 (long)", tokens[:1], tokens1, logits1)
+    ties8, decided8 = hold_tokens("paged gemma2", tokens[1:], tokens8, logits8[:, :8])
+    first = torch.stack(first)
+    want = torch.cat([logits1[0, :1], logits8[0, :8]])
+    first_err = float(((first - want).abs().amax(dim=-1) / want.abs().amax(dim=-1)).max())
+    if not first_err < 0.25:
+        raise AssertionError(f"paged gemma2: first-token logits differ from Engine's: "
+                             f"{first_err}")
+    same = sum(a == b for a, b in zip(tokens, tokens1 + tokens8))
+    log(f"  [paged gemma2 w4sym] a {GEMMA2_LONG}-token request (sliding window 4096, {spans} "
+        f"spans merged) and 8 others: tokens equal the Engines' before every low-margin step "
+        f"(first ties {ties1} and {ties8}; decided shares {decided1:.2f}, {decided8:.2f}; "
+        f"{same}/9 sequences identical in full); first-token logits within {first_err:.2e} "
+        "of the dense Engines' (pool prefill through K6)")
+    paged.update(first_token_rel_err=first_err, identical_sequences=same,
+                 first_ties=ties1 + ties8, decided_share=[decided1, decided8], spans=spans)
+    out["paged"] = paged
+    out["peak_gib"] = (torch.cuda.max_memory_allocated(dev) - held) / 2**30
+    log(f"  [gemma2] peak {out['peak_gib']:.1f} GiB")
+    del peng, qparams
+    release()
+    results["serving"]["gemma2_w4sym"] = out
+    return out
+
+
+def report_served_idle(name, serving):
+    """The served decode step's idle share: one minus the replay's device
+    time (CUDA events) over the median host-clock step."""
+    profile = serving["profile"]
+    share = 1 - profile["replay_device_ms_per_step"] / serving["decode_ms_per_step"]
+    serving["served_idle_share"] = share
+    log(f"  [{name}] decode step: median {serving['decode_ms_per_step']:.2f} ms, quickest "
+        f"{serving['decode_ms_quickest']:.2f} ms (host clock); device "
+        f"{profile['replay_device_ms_per_step']:.2f} ms per replay; idle share {share:.2f}")
 
 
 def main() -> int:
@@ -1700,6 +2043,8 @@ def main() -> int:
     higgs_profile = profile_paged("paged HIGGS-W4", paged_eng, prompts)
     results["serving"]["paged_higgs_w4"]["profile"] = higgs_profile
     check_copies("paged HIGGS-W4", higgs_profile)
+    for name in (*SERVED, "paged_higgs_w4"):
+        report_served_idle(name, results["serving"][name])
     admission = higgs_profile["admission_step"]["groups_ms_per_step"]
     if higgs_profile["groups_ms_per_step"] is not None and admission is not None:
         groups = higgs_profile["groups_ms_per_step"]
@@ -1714,16 +2059,23 @@ def main() -> int:
             f"8 requests; no decode step converts a tensor of {LARGE_COPY_ELEMENTS} elements "
             "or more")
     del engines, paged_eng
-    torch.cuda.empty_cache()
+    release()
+    log("== 5. serving Gemma-2-9B widths, 42 layers")
+    gemma = phase_gemma2(dev, results)
+    report_served_idle("gemma2 w4sym", gemma["engine"])
+    gemma_launches = {"K1": {run: gemma[run]["launches"]["w4sym"]
+                             for run in ("engine", "engine_long", "paged")},
+                      "K5": gemma["paged"]["launches"]["paged_decode"],
+                      "K6": gemma["paged"]["launches"]["paged_verify"]}
     lab_served = {fn: lab_ops.LAUNCHES[fn] - lab_before[fn] for fn in lab_before}
     lab2_served = {fn: lab2_ops.LAUNCHES[fn] - lab2_before[fn] for fn in lab2_before}
     if any(lab_served.values()) or any(lab2_served.values()):
-        raise AssertionError(f"phases 3 and 4 launched lab kernels: {lab_served}, {lab2_served}")
-    log(f"  lab kernels launched in phases 3 and 4: {lab_served}, {lab2_served}")
+        raise AssertionError(f"phases 3-5 launched lab kernels: {lab_served}, {lab2_served}")
+    log(f"  lab kernels launched in phases 3-5: {lab_served}, {lab2_served}")
 
-    kernels = [kernel_line(kid, cases, launches[kid], results["identity_paths"])
-               for kid in LUT_KERNELS]
-    kernels += [attention_line(kid, attn_checks, attn_timed, launches[kid])
+    kernels = [kernel_line(kid, cases, launches[kid], results["identity_paths"],
+                           gemma_launches.get(kid)) for kid in LUT_KERNELS]
+    kernels += [attention_line(kid, attn_checks, attn_timed, launches[kid], gemma_launches[kid])
                 for kid in ("K5", "K6")]
     kernels += [lab_line(kid, LAB, lab_cases, lab_checks, lab_launches, lab_served)
                 for kid in LAB]

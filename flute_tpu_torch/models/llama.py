@@ -16,6 +16,7 @@ dense lm_head returns f32 logits from an f32-accumulated product.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
@@ -147,12 +148,19 @@ def _rope_inv_freq(config: LlamaConfig) -> np.ndarray:
     return inv.astype(np.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def _inv_freq(config, device: torch.device) -> torch.Tensor:
+    """The inverse frequencies on ``device``, made once per (config,
+    device): a step must not copy them from the host (a CUDA graph cannot
+    capture that copy)."""
+    return torch.from_numpy(_rope_inv_freq(config)).to(device)
+
+
 def rope_tables(
     config: LlamaConfig, positions: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """cos/sin tables ``[B, T, head_dim//2]`` for integer positions [B, T]."""
-    inv = torch.from_numpy(_rope_inv_freq(config)).to(positions.device)
-    ang = positions.float()[..., None] * inv
+    ang = positions.float()[..., None] * _inv_freq(config, positions.device)
     return torch.cos(ang), torch.sin(ang)
 
 
@@ -172,10 +180,12 @@ def gqa_attention(
     mask: torch.Tensor,  # [B, T, S] bool (True = attend)
     *,
     scale: Optional[float] = None,
+    logit_softcap: Optional[float] = None,
 ) -> torch.Tensor:
     """GQA attention over a head-major KV cache, in plain matmul/softmax:
     f32 scores and f32 sums of the products, a finite -1e30 mask,
-    probabilities in the compute dtype.
+    probabilities in the compute dtype. ``logit_softcap`` (Gemma-2) caps the
+    scaled scores at ``tanh(s / cap) * cap`` in f32, before the mask.
 
     A decode step (T = 1) multiplies the 16-bit operands with f32 results
     (:func:`matmul_f32`), never copying the cache. A prefill block takes the
@@ -193,6 +203,8 @@ def gqa_attention(
     qm = q.reshape(b, t, hkv, rep, d).permute(0, 2, 3, 1, 4).reshape(b, hkv, rep * t, d)
     scores = mm(qm, k.transpose(-1, -2)) * scale
     scores = scores.reshape(b, hkv, rep, t, -1)
+    if logit_softcap is not None:
+        scores = torch.tanh(scores / logit_softcap) * logit_softcap
     scores = scores.masked_fill(~mask[:, None, None, :, :], -1e30)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = mm(probs.reshape(b, hkv, rep * t, -1), v)
@@ -220,15 +232,21 @@ def init_cache(
 
 def _cache_update(cache_layer: torch.Tensor, new: torch.Tensor, pos) -> None:
     """Write ``new`` [B, T, Hkv, D] into the [B, Hkv, S, D] cache at slot
-    ``pos`` (an int, or a [B] tensor of one slot per sequence).
+    ``pos`` (an int, a 0-dim tensor, or a [B] tensor of one slot per
+    sequence).
 
     Unlike the JAX model, which returns an updated copy, this writes in place
-    into the preallocated cache: a slice assignment for a scalar slot,
-    an indexed write for per-sequence slots."""
+    into the preallocated cache: a slice assignment for an int slot, an
+    ``index_copy_`` for a 0-dim tensor (the slot stays on the device), an
+    indexed write for per-sequence slots."""
     new = new.to(cache_layer.dtype)
     t = new.shape[1]
     if isinstance(pos, int):
         cache_layer[:, :, pos:pos + t] = new.transpose(1, 2)
+        return
+    if pos.ndim == 0:
+        cache_layer.index_copy_(2, pos + torch.arange(t, device=pos.device),
+                                new.transpose(1, 2))
         return
     b = new.shape[0]
     slots = pos[:, None] + torch.arange(t, device=pos.device)[None, :]  # [B, T]
@@ -249,7 +267,7 @@ def _block(
     sin: torch.Tensor,
     k_cache: torch.Tensor,
     v_cache: torch.Tensor,
-    pos,  # int, or [B] tensor of per-sequence slots
+    pos,  # int, 0-dim tensor, or [B] tensor of per-sequence slots
     mask: torch.Tensor,  # [B, T, S]
 ) -> torch.Tensor:
     b, t, _ = x.shape
@@ -281,31 +299,17 @@ def _block(
     return x + down
 
 
-def forward(
-    params: dict,
-    config: LlamaConfig,
-    tokens: torch.Tensor,  # [B, T] integer
-    cache: dict,
-    pos,  # int or scalar/[B] tensor: cache slot of tokens[:, 0]
-    position_offsets: Optional[torch.Tensor] = None,  # [B] left-pad widths
-) -> tuple[torch.Tensor, dict]:
-    """Run the model over a token chunk, returning f32 logits [B, T, vocab]
-    and the cache (updated in place). Prefill (T = chunk) and decode (T = 1).
-
-    Ragged batches are left-padded: sequence i's real tokens start at slot
-    ``position_offsets[i]``; its RoPE position at slot j is
-    ``j - position_offsets[i]`` and earlier slots are masked out.
-    """
+def step_positions(config, tokens: torch.Tensor, cache: dict, pos, position_offsets):
+    """What a step's blocks share: ``pos`` (an int, or a tensor on the
+    tokens' device), the cache slots ``[1|B, T]``, the causal mask
+    ``[B, T, S]`` (query in slot ``pos + i`` attends cache slot ``j`` iff
+    ``j <= pos + i`` and ``j`` is not a left-pad slot) and the RoPE tables."""
     b, t = tokens.shape
     dev = tokens.device
     s = cache["k"][0].shape[2]
-    x = params["embed"][tokens.long()].to(config.dtype)
-
-    # pos: one slot for the whole batch (kept a host int, so cache writes
-    # are plain slices) or a [B] tensor of per-sequence slots
-    if isinstance(pos, torch.Tensor) and pos.ndim == 1:
+    if isinstance(pos, torch.Tensor):
         pos = pos.to(device=dev, dtype=torch.int64)
-        pos_col = pos[:, None]
+        pos_col = pos[:, None] if pos.ndim == 1 else pos
     else:
         pos = int(pos)
         pos_col = pos
@@ -316,14 +320,35 @@ def forward(
         offs = position_offsets.to(device=dev, dtype=torch.int64)
         positions = torch.clamp(slots - offs[:, None], min=0)
     cos, sin = rope_tables(config, positions)
-
-    # mask[b, i, j]: query in slot pos+i attends cache slot j iff j <= pos+i
-    # and j is not a left-pad slot
     js = torch.arange(s, device=dev)[None, None, :]
     mask = (js <= slots[:, :, None]).expand(b, t, s)
     if position_offsets is not None:
         mask = mask & (js >= offs[:, None, None])
+    return pos, slots, mask, cos, sin
 
+
+def forward(
+    params: dict,
+    config: LlamaConfig,
+    tokens: torch.Tensor,  # [B, T] integer
+    cache: dict,
+    pos,  # int or 0-dim/[B] tensor: cache slot of tokens[:, 0]
+    position_offsets: Optional[torch.Tensor] = None,  # [B] left-pad widths
+) -> tuple[torch.Tensor, dict]:
+    """Run the model over a token chunk, returning f32 logits [B, T, vocab]
+    and the cache (updated in place). Prefill (T = chunk) and decode (T = 1).
+
+    Ragged batches are left-padded: sequence i's real tokens start at slot
+    ``position_offsets[i]``; its RoPE position at slot j is
+    ``j - position_offsets[i]`` and earlier slots are masked out.
+
+    ``pos`` as a tensor stays on the device: slots, mask and cache writes
+    come from it with no host read, so the step can be captured in a CUDA
+    graph and replayed with a new ``pos`` written into the same tensor. An
+    int gives the same bits.
+    """
+    x = params["embed"][tokens.long()].to(config.dtype)
+    pos, _, mask, cos, sin = step_positions(config, tokens, cache, pos, position_offsets)
     for li, layer in enumerate(params["layers"]):
         x = _block(layer, config, x, cos, sin, cache["k"][li], cache["v"][li], pos, mask)
 

@@ -3,9 +3,12 @@ counterpart of ``flute_tpu/serving/engine.py``.
 
 Prompts are left-padded into one ``[B, P]`` block whose length is bucketed
 to a power of two (at least 16), so one prefill serves every prompt length;
-decode runs T=1 steps against the preallocated KV cache, written in place.
-Finished sequences stay in the batch (masked on the host), so shapes never
-change.
+decode runs T=1 steps against the engine's KV cache, allocated once and
+written in place. Finished sequences stay in the batch (masked on the
+host), so shapes never change. On CUDA the decode step of ``generate`` is
+captured once in a CUDA graph (``serving.graph.StepGraph``) and replayed,
+as the reference compiles it with ``jax.jit``; prefill, whose length
+varies, runs eagerly.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import torch
 
 from flute_tpu_torch.device import resolve_device
 from flute_tpu_torch.models import llama
+from flute_tpu_torch.serving.graph import StepGraph
 
 
 def sample_logits(
@@ -55,6 +59,8 @@ class Engine:
     ``forward(params, config, tokens, cache, pos, offsets)`` is the model
     contract (that of :func:`flute_tpu_torch.models.llama.forward`). Runs
     on ``device`` (``cuda`` unless named); params must already live there.
+    The KV cache is the engine's: each :meth:`prefill` zeroes and refills
+    it, so the decode graph captured against it stays valid.
     """
 
     params: Any
@@ -71,24 +77,54 @@ class Engine:
         # host-clock seconds of the last generate(): the prefill (up to the
         # first token on the host) and each decode step after it
         self.last_timings: dict = {}
+        self._cache: Optional[dict] = None
+        self._graph: Optional[StepGraph] = None
 
-    def _new_cache(self):
-        return self.init_cache(
-            self.config, self.batch_size, self.max_len, device=self.device
-        )
+    def _zeroed_cache(self) -> dict:
+        """The engine's cache, allocated at the first prefill and zeroed in
+        place at every later one."""
+        if self._cache is None:
+            self._cache = self.init_cache(
+                self.config, self.batch_size, self.max_len, device=self.device
+            )
+        else:
+            for layer in self._cache["k"] + self._cache["v"]:
+                layer.zero_()
+        return self._cache
 
     @torch.inference_mode()
     def prefill(self, tokens: torch.Tensor, offsets: torch.Tensor):
         """Logits of the last prompt slot [B, V] and the filled cache."""
-        cache = self._new_cache()
+        cache = self._zeroed_cache()
         logits, cache = self.forward(self.params, self.config, tokens, cache, 0, offsets)
         return logits[:, -1], cache
 
     @torch.inference_mode()
-    def decode(self, tokens: torch.Tensor, cache: dict, pos: int, offsets: torch.Tensor):
-        """One T=1 step at cache slot ``pos``: logits [B, V] and the cache."""
+    def decode(self, tokens: torch.Tensor, cache: dict, pos, offsets: torch.Tensor):
+        """One eager T=1 step at cache slot ``pos`` (an int or a 0-dim
+        device tensor): logits [B, V] and the cache."""
         logits, cache = self.forward(self.params, self.config, tokens, cache, pos, offsets)
         return logits[:, -1], cache
+
+    def decode_step(self, tokens: torch.Tensor, pos: int, offsets: torch.Tensor) -> torch.Tensor:
+        """The decode step of :meth:`generate` on the engine's cache: logits
+        [B, V] of a T=1 step at slot ``pos``. On CUDA the step captured in a
+        CUDA graph at its first call (which runs eagerly) and replayed: the
+        returned logits are overwritten by the next step. Elsewhere
+        :meth:`decode`."""
+        if self.device.type != "cuda":
+            return self.decode(tokens, self._cache, pos, offsets)[0]
+        if self._graph is None:
+            b, dev = self.batch_size, self.device
+            self._tokens = torch.zeros((b, 1), dtype=torch.int64, device=dev)
+            self._pos = torch.zeros((), dtype=torch.int64, device=dev)
+            self._offsets = torch.zeros((b,), dtype=torch.int64, device=dev)
+            self._graph = StepGraph(lambda: self.decode(
+                self._tokens, self._cache, self._pos, self._offsets)[0], dev)
+        self._tokens.copy_(tokens)
+        self._pos.fill_(pos)
+        self._offsets.copy_(offsets)
+        return self._graph()
 
     def generate(
         self,
@@ -125,7 +161,7 @@ class Engine:
             generator.manual_seed(0)
 
         t0 = time.perf_counter()
-        next_logits, cache = self.prefill(torch.from_numpy(toks).to(self.device), offsets_t)
+        next_logits, _ = self.prefill(torch.from_numpy(toks).to(self.device), offsets_t)
         out = [list() for _ in range(b)]
         done = np.zeros((b,), bool)
         done[len(prompts):] = True
@@ -147,7 +183,8 @@ class Engine:
             # no decode step after the last token: its logits would go unused
             if done.all() or pos >= self.max_len or step == max_new_tokens - 1:
                 break
-            next_logits, cache = self.decode(nxt[:, None], cache, pos, offsets_t)
+            # sampled above: the next replay may overwrite next_logits
+            next_logits = self.decode_step(nxt[:, None], pos, offsets_t)
             pos += 1
         self.last_timings = {
             "prefill_s": stamps[0] - t0,

@@ -9,7 +9,12 @@ block: parked slots point at it with length 0, and the writes of padding
 positions land there.
 
 * Decode: one T = 1 forward for every slot whose attention is the paged
-  decode kernel (K5, ``ops.paged_attention.paged_decode_attention``).
+  decode kernel (K5, ``ops.paged_attention.paged_decode_attention``). The
+  host writes the block tables, lengths and last tokens into fixed device
+  buffers before each step; on CUDA the step is captured once in a CUDA
+  graph (``serving.graph.StepGraph``) and replayed for the engine's whole
+  life, across admissions and finishes. Penalties, sampling and logprobs
+  run after it, outside the graph.
 * Prefill, two routes. ``pool_prefill=True``: prompt chunks (``prefill_chunk``,
   default 256) are written straight into the slot's pool blocks and attend
   through the multi-query kernel (K6, ``serving.paged_fwd``). Otherwise the
@@ -28,8 +33,9 @@ copies); each layer's K/V write still comes before that layer's attention.
 Sampled tokens cannot reproduce ``jax.random``'s bits; the randomness of a
 draw is keyed on (``ENGINE_KEY``, request seed, generation index) through
 an explicit ``torch.Generator``, so a request's tokens do not depend on the
-batch around it. The Llama family is served with ``mesh=None``; tensor
-parallelism and Gemma-2 are not ported yet.
+batch around it. Llama and Gemma-2 are served, told apart by the config
+as the JAX engine tells them (``serving.paged_fwd.check_family``), with
+``mesh=None``; tensor parallelism is not ported yet.
 """
 
 from __future__ import annotations
@@ -42,7 +48,7 @@ import numpy as np
 import torch
 
 from flute_tpu_torch.device import resolve_device
-from flute_tpu_torch.models import llama
+from flute_tpu_torch.models import gemma2, llama
 from flute_tpu_torch.models.llama import rope_tables
 from flute_tpu_torch.ops.paged_attention import paged_decode_attention
 from flute_tpu_torch.serving.continuous import (
@@ -53,10 +59,13 @@ from flute_tpu_torch.serving.continuous import (
     _sample_slots,
     fold_in,
 )
+from flute_tpu_torch.serving.graph import StepGraph
 from flute_tpu_torch.serving.paged_fwd import (
     _head_logits,
+    attention_options,
     check_family,
-    llama_layers,
+    decoder_layers,
+    embed,
     make_paged_multitoken_forward,
 )
 
@@ -121,12 +130,12 @@ class PagedEngine:
                 "(ROADMAP.md, queue 1 item 19)"
             )
         cfg = self.config
-        check_family(cfg)
+        family = gemma2 if check_family(cfg) == "gemma2" else llama
         self.device = resolve_device(self.device)
         # positions past a request's budget that decode may write: 1
         self._tail = 1
-        self.forward = self.forward or llama.forward
-        self.init_cache = self.init_cache or llama.init_cache
+        self.forward = self.forward or family.forward
+        self.init_cache = self.init_cache or family.init_cache
         bs = self.block_size
         if self.max_len % bs:
             raise ValueError(f"max_len {self.max_len} % block {bs} != 0")
@@ -169,17 +178,26 @@ class PagedEngine:
         self.prefix_hits = 0  # requests that reused >= 1 cached block
         self.prefix_block_hits = 0  # blocks shared by reference in all
         self._pool_fwd = make_paged_multitoken_forward(cfg, bs) if self.pool_prefill else None
+        # the decode step's inputs, at fixed addresses for its graph
+        self._step_tables = torch.zeros((self.num_slots, self.max_blocks), dtype=torch.int32,
+                                        device=dev)
+        self._step_lengths = torch.zeros((self.num_slots,), dtype=torch.int32, device=dev)
+        self._step_tokens = torch.zeros((self.num_slots, 1), dtype=torch.int64, device=dev)
+        self._graph = None if dev.type != "cuda" else StepGraph(lambda: self._decode_logits(
+            self._step_tables, self._step_lengths, self._step_tokens), dev)
 
     # -- steps ---------------------------------------------------------------
 
+    @torch.inference_mode()
     def _decode_logits(self, tables: torch.Tensor, lengths: torch.Tensor,
                        tokens: torch.Tensor) -> torch.Tensor:
-        """One paged T = 1 forward for every slot (inactive slots compute on
-        junk at length 0 on the trash block); returns f32 logits ``[B, V]``."""
+        """One eager paged T = 1 forward for every slot (inactive slots
+        compute on junk at length 0 on the trash block); returns f32 logits
+        ``[B, V]``."""
         cfg = self.config
         bs = self.block_size
         b = tokens.shape[0]
-        x = self.params["embed"][tokens.long()].to(cfg.dtype)  # [B, 1, hidden]
+        x = embed(self.params, cfg, tokens)  # [B, 1, hidden]
         lengths = lengths.long()
         cos, sin = rope_tables(cfg, lengths[:, None])
         ar = torch.arange(b, device=tokens.device)
@@ -192,10 +210,23 @@ class PagedEngine:
             self._kp[li][rows, :, offs, :] = k[:, 0].to(self._kp[li].dtype)
             self._vp[li][rows, :, offs, :] = v[:, 0].to(self._vp[li].dtype)
             return paged_decode_attention(q[:, 0], self._kp[li], self._vp[li], tables,
-                                          att_len)[:, None]
+                                          att_len, **attention_options(cfg, li))[:, None]
 
-        x = llama_layers(self.params, cfg, x, cos, sin, attend)
+        x = decoder_layers(self.params, cfg, x, cos, sin, attend)
         return _head_logits(self.params, cfg, x, None)[:, -1]
+
+    def _step_logits(self) -> torch.Tensor:
+        """The decode step's f32 logits ``[B, V]`` from the host's tables,
+        lengths and last tokens, copied into the step's buffers: on CUDA the
+        step's graph (captured at its first call, which runs eagerly;
+        the returned logits are overwritten by the next step), elsewhere
+        :meth:`_decode_logits`."""
+        self._step_tables.copy_(torch.from_numpy(self._tables))
+        self._step_lengths.copy_(torch.from_numpy(self._lengths))
+        self._step_tokens.copy_(torch.from_numpy(self._last[:, None]))
+        if self._graph is None:
+            return self._decode_logits(self._step_tables, self._step_lengths, self._step_tokens)
+        return self._graph()
 
     def _generator(self, seed: int, count: int) -> torch.Generator:
         """The generator of a request's ``count``-th draw."""
@@ -208,10 +239,7 @@ class PagedEngine:
         """A decode step for every slot: tokens [B] and the logprobs of the
         raw distribution, on the host."""
         dev = self.device
-        tables = torch.from_numpy(self._tables).to(dev)
-        lengths = torch.from_numpy(self._lengths).to(dev)
-        tokens = torch.from_numpy(self._last[:, None]).to(dev)
-        row = self._decode_logits(tables, lengths, tokens).float()
+        row = self._step_logits()
         pen = _apply_penalties(row, self._pcounts, self._ocounts, torch.from_numpy(self._pres),
                                torch.from_numpy(self._freq), torch.from_numpy(self._rep))
         if greedy:

@@ -13,7 +13,10 @@ package returns updated copies) before that layer's attention reads them.
 (pool row 0); duplicate writes there are junk by design, never read.
 ``last_idx`` keeps one row of hidden states for the LM head.
 
-Families: Llama. Gemma-2 is not ported yet.
+Families: Llama and Gemma-2 (sandwich norms, GeGLU, embedding scale,
+the attention softcap and the sliding window of even layers passed to the
+kernels, the final logit softcap), told apart by the config as the JAX
+package tells them.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from typing import Callable, Optional
 
 import torch
 
+from flute_tpu_torch.models import gemma2
 from flute_tpu_torch.models.llama import (
     apply_linear,
     apply_rope,
@@ -33,13 +37,25 @@ from flute_tpu_torch.models.llama import (
 from flute_tpu_torch.nn import QuantizedLinear
 from flute_tpu_torch.ops.paged_attention import paged_verify_attention
 
+# what the Gemma-2 stack reads beyond Llama's fields
+GEMMA2_FIELDS = ("attn_logit_softcap", "final_logit_softcap", "query_pre_attn_scalar",
+                 "sliding_window")
 
-def check_family(config) -> None:
-    """Raise for a config family the paged path does not serve yet."""
-    if hasattr(config, "attn_logit_softcap"):
+
+def check_family(config) -> str:
+    """The family the paged path serves ``config`` as: ``"gemma2"`` for a
+    config with an attention logit softcap (the JAX package's test),
+    ``"llama"`` otherwise. Raises for a softcapped config without the rest
+    of Gemma-2's fields: no family the port serves."""
+    if not hasattr(config, "attn_logit_softcap"):
+        return "llama"
+    missing = [f for f in GEMMA2_FIELDS if not hasattr(config, f)]
+    if missing:
         raise NotImplementedError(
-            "Gemma-2 paged serving is not ported yet (ROADMAP.md, queue 1 item 12)"
+            f"a config with attn_logit_softcap but without {missing} is not Gemma-2; "
+            "the paged path serves Llama and Gemma-2 only"
         )
+    return "gemma2"
 
 
 def make_paged_multitoken_forward(config, block_size: int) -> Callable:
@@ -49,7 +65,7 @@ def make_paged_multitoken_forward(config, block_size: int) -> Callable:
     ``[B, T, V]`` (``[B, 1, V]`` with ``last_idx``) and the pools, written in
     place."""
     check_family(config)
-    return _make_llama(config, block_size)
+    return _make_pool_forward(config, block_size)
 
 
 def _scatter_rows(tables, positions, real_end, bs: int, mb: int):
@@ -63,24 +79,45 @@ def _scatter_rows(tables, positions, real_end, bs: int, mb: int):
     return rows.long(), (positions % bs).long()
 
 
+def embed(params, cfg, toks: torch.Tensor) -> torch.Tensor:
+    """The tokens' embeddings in the compute dtype (Gemma-2's scaled)."""
+    x = params["embed"][toks.long()].to(cfg.dtype)
+    if check_family(cfg) == "gemma2":
+        x = x * gemma2.embed_scale(cfg)
+    return x
+
+
+def attention_options(cfg, li: int) -> dict:
+    """Layer ``li``'s keywords of the paged kernels (none for Llama)."""
+    return gemma2.attention_options(cfg, li) if check_family(cfg) == "gemma2" else {}
+
+
 def _head_logits(params, cfg, x, last_idx: Optional[int]):
-    """f32 logits of ``x`` (one row of it with ``last_idx``)."""
+    """f32 logits of ``x`` (one row of it with ``last_idx``), Gemma-2's
+    capped."""
     if last_idx is not None:
         x = x[:, last_idx:last_idx + 1]
     head = params["lm_head"] if params.get("lm_head") is not None else params["embed"].T
     if isinstance(head, QuantizedLinear):
-        return head(x)[..., :cfg.vocab_size].float()
-    return matmul_f32(x, head.to(x.dtype))
+        logits = head(x)[..., :cfg.vocab_size].float()
+    else:
+        logits = matmul_f32(x, head.to(x.dtype))
+    return gemma2.capped_logits(cfg, logits) if check_family(cfg) == "gemma2" else logits
 
 
-def llama_layers(params, cfg, x, cos, sin, attend) -> torch.Tensor:
-    """The Llama decoder stack over ``x`` ``[B, T, hidden]``;
-    ``attend(li, q, k, v)`` writes layer ``li``'s K/V and returns its
-    attention output ``[B, T, H, D]``."""
+def decoder_layers(params, cfg, x, cos, sin, attend) -> torch.Tensor:
+    """The decoder stack of ``cfg``'s family over ``x`` ``[B, T, hidden]``,
+    through the final norm; ``attend(li, q, k, v)`` writes layer ``li``'s
+    K/V and returns its attention output ``[B, T, H, D]``. Gemma-2 adds the
+    sandwich norms, its ``(1 + w)`` RMSNorm and GeGLU."""
     b, t, _ = x.shape
     d = cfg.head_dim
+    eps = cfg.rms_norm_eps
+    gemma = check_family(cfg) == "gemma2"
+    norm = gemma2.rms_norm_gemma if gemma else rms_norm
+    act = gemma2.gelu_tanh if gemma else torch.nn.functional.silu
     for li, layer in enumerate(params["layers"]):
-        h = rms_norm(x, layer["attn_norm"], cfg.rms_norm_eps)
+        h = norm(x, layer["attn_norm"], eps)
         if "qkv" in layer:
             q, k, v = split_fused_qkv(apply_linear(layer["qkv"], h), cfg.num_heads,
                                       cfg.num_kv_heads, d)
@@ -91,8 +128,9 @@ def llama_layers(params, cfg, x, cos, sin, attend) -> torch.Tensor:
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         attn = attend(li, q, k, v)
-        x = x + apply_linear(layer["o"], attn.reshape(b, t, -1))
-        h2 = rms_norm(x, layer["mlp_norm"], cfg.rms_norm_eps)
+        o = apply_linear(layer["o"], attn.reshape(b, t, -1))
+        x = x + (norm(o, layer["post_attn_norm"], eps) if gemma else o)
+        h2 = norm(x, layer["mlp_norm"], eps)
         if "gate_up" in layer:
             gu = apply_linear(layer["gate_up"], h2)
             inter = gu.shape[-1] // 2
@@ -100,15 +138,16 @@ def llama_layers(params, cfg, x, cos, sin, attend) -> torch.Tensor:
         else:
             gate = apply_linear(layer["gate"], h2)
             up = apply_linear(layer["up"], h2)
-        x = x + apply_linear(layer["down"], torch.nn.functional.silu(gate) * up)
-    return rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+        down = apply_linear(layer["down"], act(gate) * up)
+        x = x + (norm(down, layer["post_mlp_norm"], eps) if gemma else down)
+    return norm(x, params["final_norm"], eps)
 
 
-def _make_llama(cfg, bs: int):
+def _make_pool_forward(cfg, bs: int):
     def fwd(params, kp, vp, tables, lengths, toks, real_end=None, last_idx=None):
         b, t = toks.shape
         mb = tables.shape[1]
-        x = params["embed"][toks.long()].to(cfg.dtype)
+        x = embed(params, cfg, toks)
         positions = lengths.long()[:, None] + torch.arange(t, device=toks.device)[None, :]
         cos, sin = rope_tables(cfg, positions)
         rows, offs = _scatter_rows(tables, positions, real_end, bs, mb)
@@ -118,9 +157,10 @@ def _make_llama(cfg, bs: int):
             # slot; across slots they meet only on the trash block
             kp[li][rows, :, offs, :] = k.to(kp[li].dtype)
             vp[li][rows, :, offs, :] = v.to(vp[li].dtype)
-            return paged_verify_attention(q, kp[li], vp[li], tables, lengths)
+            return paged_verify_attention(q, kp[li], vp[li], tables, lengths,
+                                          **attention_options(cfg, li))
 
-        x = llama_layers(params, cfg, x, cos, sin, attend)
+        x = decoder_layers(params, cfg, x, cos, sin, attend)
         return _head_logits(params, cfg, x, last_idx), kp, vp
 
     return fwd

@@ -2,8 +2,9 @@
 2/3/4 bits, K3 w3wide, K4 joint pair lookup; K1-K3 on the tensor-core loop
 and on their SIMT kernel), each paged-attention kernel
 (K5 decode, K6 verify) and each kernel of the Hopper lab (L1-L12) against its
-plain version on the same CUDA tensors, and the model, Engine and
-PagedEngine through the kernels.
+plain version on the same CUDA tensors, and the models (Llama, Gemma-2),
+Engine and PagedEngine through the kernels, with their decode step replayed
+from a CUDA graph and held bit for bit against the eager step.
 
 Every test is marked ``cuda`` and skips without a GPU (the kernel has no CPU
 mode). The file imports no JAX, so it also runs on a machine that has none:
@@ -23,7 +24,7 @@ from flute_tpu_torch import packing
 from flute_tpu_torch.interop import move_params
 from flute_tpu_torch.lab import kernel_lab, kernel_lab2, ops2
 from flute_tpu_torch.lab import ops as lab
-from flute_tpu_torch.models import llama
+from flute_tpu_torch.models import gemma2, llama
 from flute_tpu_torch.ops import lut_gemm
 from flute_tpu_torch.ops import paged_attention as pa
 from flute_tpu_torch.ops.kernel_config import KernelConfig
@@ -1054,3 +1055,230 @@ def test_lab2_main_on_the_card(capsys):
     assert all(r["us"] > 0 and r["rel"] < 1.1e-2 for r in gemm)
     assert rows[-1]["ns_per_op_per_1024"] is not None and "GB/s" in capsys.readouterr().out
     assert all(ops2.LAUNCHES[f] > before[f] for f in ops2.LAUNCHES)
+
+
+# ---------------------------------------------------------------------------
+# The decode step in a CUDA graph; Gemma-2 on the card
+# ---------------------------------------------------------------------------
+
+FAMILIES = {
+    "llama": (llama, llama.LlamaConfig.tiny()),
+    "gemma2": (gemma2, gemma2.Gemma2Config.tiny()),
+}
+
+
+def tiny_model(dev, family):
+    module, config = FAMILIES[family]
+    params = module.init_params(config, seed=0, device=dev)
+    return module, config, module.quantize_model(params, group_size=G, fuse=True, device=dev)
+
+
+def reset_launches():
+    for d in (lut_gemm.LAUNCHES, pa.LAUNCHES):
+        for k in d:
+            d[k] = 0
+
+
+def bits32(y):
+    return y.float().contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("family", list(FAMILIES))
+def test_engine_graphed_step_is_the_eager_step(dev, family):
+    """Engine's decode step: the first call runs eagerly and captures, later
+    calls replay; a replay's logits have the eager step's bits on the same
+    state, and LAUNCHES counts each replay's launches, not the capture."""
+    module, config, qparams = tiny_model(dev, family)
+    eng = Engine(params=qparams, config=config, forward=module.forward,
+                 init_cache=module.init_cache, batch_size=4, max_len=64, device=dev)
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(1, config.vocab_size, (4, 16))).to(dev)
+    offs = torch.tensor([0, 3, 9, 15], device=dev)
+    reset_launches()
+    eng.prefill(toks, offs)
+    nxt = toks[:, -1:]
+    eng.decode_step(nxt, 16, offs)  # eager, then captured
+    assert eng._graph.captured
+    per_step = config.num_layers * 4  # a prefill, the eager first step
+    assert {k: v for k, v in lut_gemm.LAUNCHES.items() if v} == {"w4sym": 2 * per_step}
+    for pos in (17, 18):
+        before = lut_gemm.LAUNCHES["w4sym"]
+        graphed = eng.decode_step(nxt, pos, offs).clone()
+        assert lut_gemm.LAUNCHES["w4sym"] == before + per_step
+        eager = eng.decode(nxt, eng._cache, pos, offs)[0]
+        assert torch.equal(bits32(graphed), bits32(eager)), pos
+        assert lut_gemm.LAUNCHES["w4sym"] == before + 2 * per_step
+
+
+def test_capture_survives_a_dropped_engine(dev):
+    """A dropped engine's graph (freed by the garbage collector: engine and
+    graph refer to each other) is collected before the next capture, and
+    the collector stays off while a capture runs."""
+    import gc
+    import weakref
+
+    from flute_tpu_torch.serving.graph import StepGraph
+
+    x = torch.ones(4, device=dev)
+    dropped = {"x": x}
+    dropped["graph"] = StepGraph(lambda: dropped["x"] * 2, dev)  # a cycle
+    dropped["graph"]()
+    assert dropped["graph"].captured
+    gone = weakref.ref(dropped["graph"])
+    del dropped
+    seen = []
+
+    def step():
+        seen.append(gc.isenabled())
+        return x + 1
+
+    graph = StepGraph(step, dev)
+    graph()
+    assert gone() is None
+    assert seen == [gc.isenabled(), False]
+    assert torch.equal(graph(), x + 1)
+
+
+def paged_graph_pair(dev, family, pool_prefill, **kw):
+    module, config, qparams = tiny_model(dev, family)
+    engines = [PagedEngine(params=qparams, config=config, device=dev, pool_prefill=pool_prefill,
+                           **kw) for _ in range(2)]
+    engines[1]._graph = None  # the eager step on the card
+    return config, engines
+
+
+@pytest.mark.parametrize("family", list(FAMILIES))
+def test_paged_graphed_step_is_the_eager_step(dev, family):
+    config, (eng, _) = paged_graph_pair(dev, family, True, num_slots=3, block_size=8,
+                                        num_blocks=16, max_len=32)
+    for p in ([5, 9, 2, 14, 3, 8, 1, 6, 20, 21, 22], [11, 5, 3]):
+        eng.submit(p, max_new_tokens=6)
+    eng.step()  # admits both; its decode step runs eagerly and captures
+    assert eng._graph.captured
+    for _ in range(2):
+        graphed = eng._step_logits().clone()  # a replay; K/V written at the same slots
+        eager = eng._decode_logits(eng._step_tables, eng._step_lengths, eng._step_tokens)
+        assert torch.equal(bits32(graphed), bits32(eager))
+        eng.step()
+
+
+@pytest.mark.parametrize("pool_prefill", [False, True])
+@pytest.mark.parametrize("family", list(FAMILIES))
+def test_paged_graph_through_admissions_finishes_and_a_queue(dev, family, pool_prefill):
+    """Seven requests of other lengths and budgets on three slots and a pool
+    that makes some wait: the graphed engine gives the eager engine's
+    tokens, and its launches are exact under replay."""
+    config, (graphed, eager) = paged_graph_pair(dev, family, pool_prefill, num_slots=3,
+                                                block_size=8, num_blocks=9, max_len=40)
+    rng = np.random.default_rng(2)
+    requests = [(rng.integers(1, config.vocab_size, n).tolist(), b)
+                for n, b in ((5, 6), (13, 3), (2, 9), (17, 4), (7, 7), (3, 2), (9, 5))]
+    outs = []
+    for eng in (graphed, eager):
+        reset_launches()
+        rids = [eng.submit(p, max_new_tokens=b) for p, b in requests]
+        steps = 0
+        waited = False
+        while eng.step():
+            steps += 1
+            waited |= bool(eng._queue)
+        out = eng.run()
+        outs.append([out[r] for r in rids])
+        assert waited and eng.blocks_in_use == 0
+        prefills = len(requests)  # one chunk (or dense call) per admission
+        want = {k: 0 for k in lut_gemm.LAUNCHES}
+        want["w4sym"] = (steps + prefills) * config.num_layers * 4
+        assert lut_gemm.LAUNCHES == want
+        assert pa.LAUNCHES == {"paged_decode": steps * config.num_layers,
+                               "paged_verify": (prefills if pool_prefill else 0)
+                               * config.num_layers}
+    assert outs[0] == outs[1]
+    assert [len(o) for o in outs[0]] == [b for _, b in requests]
+
+
+def test_gemma2_on_the_card_matches_the_cpu(dev):
+    """Gemma-2 tiny (w4sym, fused) on the card against the CPU plain path:
+    prefill and decode logits within the bf16 threshold; greedy Engine and
+    PagedEngine (pool prefill, decode past the window of 8) tokens."""
+    _, config, qparams = tiny_model(dev, "gemma2")
+    qcpu = move_params(qparams, torch.device("cpu"))
+    rng = np.random.default_rng(3)
+    tokens = torch.from_numpy(rng.integers(0, config.vocab_size, (2, 16)))
+    offsets = torch.tensor([0, 5])
+    nxt = torch.from_numpy(rng.integers(0, config.vocab_size, (2, 1)))
+    logits = {}
+    for name, p, d in (("cuda", qparams, dev), ("cpu", qcpu, torch.device("cpu"))):
+        cache = gemma2.init_cache(config, 2, 32, device=d)
+        with torch.inference_mode():
+            pre, cache = gemma2.forward(p, config, tokens.to(d), cache, 0, offsets.to(d))
+            dec, _ = gemma2.forward(p, config, nxt.to(d), cache, torch.tensor(16, device=d),
+                                    offsets.to(d))
+        logits[name] = (pre.cpu(), dec.cpu())
+    for got, want in zip(logits["cuda"], logits["cpu"]):
+        assert float((got - want).abs().max() / want.abs().max()) < TOL[torch.bfloat16]
+    prompts = [rng.integers(1, config.vocab_size, n).tolist() for n in (3, 11, 7)]
+    outs = []
+    for p, d in ((qparams, dev), (qcpu, "cpu")):
+        eng = PagedEngine(params=p, config=config, num_slots=3, block_size=8, num_blocks=12,
+                          max_len=32, pool_prefill=True, device=d)
+        rids = [eng.submit(pr, max_new_tokens=10) for pr in prompts]
+        out = eng.run()
+        outs.append([out[r] for r in rids])
+    assert sum(a == b for a, b in zip(*outs)) >= 2
+
+
+# One Gemma-2-9B decoder layer's projections (N, K), fused qkv and gate_up
+GEMMA2_SHAPES = [(8192, 3584), (3584, 4096), (28672, 3584), (3584, 14336)]
+
+
+@pytest.mark.parametrize("m", [1, 8, 64])
+@pytest.mark.parametrize("n,k", GEMMA2_SHAPES)
+def test_k1_at_gemma2_shapes(dev, n, k, m):
+    """K1 (w4sym, bf16, on the loop) at Gemma-2-9B's layer shapes (K = 3584
+    is 14 chunks of 256) against the plain version; rows 0 and M-1 have the
+    bits of the one-row call, and a repeat call the same bits."""
+    rng = np.random.default_rng(n + k + m)
+    codes = rng.integers(0, 16, size=(k, n), dtype=np.int32)
+    mags = np.sort(np.abs(rng.standard_normal(8))).astype(np.float32)
+    table = torch.from_numpy(np.concatenate([mags, -mags])).to(dev)
+    plane = torch.from_numpy(packing.pack_w4_sym_np(codes, chunk=256)[0]).to(dev)
+    scales = torch.from_numpy(rng.uniform(0.5, 1.5, (k // G, n)).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(dev, torch.bfloat16)
+    kw = dict(num_bits=4, layout="w4sym", config=KernelConfig(chunk=256))
+    assert lut_gemm.lut_path(torch.bfloat16, 4, 256, "w4sym") == "mma"
+    y = lut_gemm.lut_qgemm(x, [plane], scales, table, **kw)
+    want = lut_gemm.lut_qgemm_plain(x, [plane], scales, table, num_bits=4, chunk=256,
+                                    layout="w4sym")
+    assert rel_err(y, want) < TOL[torch.bfloat16]
+    assert torch.equal(lut_gemm.lut_qgemm(x, [plane], scales, table, **kw).view(torch.int16),
+                       y.view(torch.int16))
+    for i in {0, m - 1}:
+        row = lut_gemm.lut_qgemm(x[i:i + 1], [plane], scales, table, **kw)
+        assert torch.equal(row.view(torch.int16), y[i:i + 1].view(torch.int16))
+
+
+@pytest.mark.parametrize("softcap,window", [(50.0, None), (50.0, 4096), (50.0, 300),
+                                            (None, None)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_k5_k6_at_gemma2_heads(dev, dtype, softcap, window):
+    """K5 and K6 at Gemma-2-9B's heads (16/8, D = 256, rep 2, scale
+    256 ** -0.5) with its softcap and windows: K5 at lengths up to 4160
+    (17 spans: the merge kernel) and K6 at T = 64 over 4096 cached, against
+    their plain versions; K5's repeat call gives the same bits."""
+    kw = dict(scale=256.0**-0.5, softcap=softcap, window=window)
+    lengths = [0, 1, 255, 257, 1000, 4096, 4160, 37]
+    q, kp, vp, tables, lens = k5_case(dev, dtype, lengths, 8, 16, 256, 16, 12, seed=71)
+    assert pa.decode_spans(tables.shape[1], 16) == 17
+    got = pa.paged_decode_attention(q, kp, vp, tables, lens, **kw)
+    want = pa.paged_gqa_reference(q, kp, vp, tables, lens, **kw)
+    assert torch.equal(pa.paged_decode_attention(q, kp, vp, tables, lens, **kw).view(torch.int16),
+                       got.view(torch.int16))
+    assert not got[0].float().any()
+    assert max_rel(got[1:], want[1:]) < TOL[torch.bfloat16]
+    mb = 4160 // 16 + 2
+    q, kp, vp, tables = paged_case(dev, dtype, 2, 16, 8, 256, 16, mb, 2 * mb, seed=72, t=64)
+    lens = torch.tensor([4096, 0], dtype=torch.int32, device=dev)
+    got = pa.paged_verify_attention(q, kp, vp, tables, lens, **kw)
+    want = pa.paged_verify_reference(q, kp, vp, tables, lens, **kw)
+    assert max_rel(got, want) < TOL[torch.bfloat16]

@@ -261,3 +261,42 @@ def test_init_params_from_generator():
         assert tuple(a["layers"][0][key].shape) == leaf.shape
         assert a["layers"][0][key].dtype == torch.bfloat16
     assert tuple(a["lm_head"].shape) == jshapes["lm_head"].shape
+
+
+@pytest.mark.parametrize("fuse", [False, True], ids=["unfused", "fused"])
+def test_device_pos_gives_the_bits_of_an_int_pos(tiny, fuse):
+    """``forward`` with ``pos`` a 0-dim tensor (what a CUDA graph of the
+    decode step replays) writes the same cache and gives the same logits,
+    bit for bit, as with an int ``pos``, at prefill and at decode."""
+    _, config, jparams = tiny
+    dense = interop.params_from_numpy(to_numpy_tree(jparams), device="cpu")
+    tq = llama.quantize_model(dense, num_bits=4, group_size=64, fuse=fuse, device="cpu")
+    rng = np.random.default_rng(6)
+    tokens = torch.from_numpy(rng.integers(0, config.vocab_size, (2, 16)))
+    offsets = torch.tensor([0, 5])
+    nxt = torch.from_numpy(rng.integers(0, config.vocab_size, (2, 1)))
+    runs = []
+    for wrap in (int, torch.tensor):
+        cache = llama.init_cache(config, 2, 32, device="cpu")
+        with torch.inference_mode():
+            pre, cache = llama.forward(tq, config, tokens, cache, wrap(0), offsets)
+            dec, cache = llama.forward(tq, config, nxt, cache, wrap(16), offsets)
+        runs.append((pre, dec, cache))
+    (pre_a, dec_a, cache_a), (pre_b, dec_b, cache_b) = runs
+    assert torch.equal(pre_a, pre_b) and torch.equal(dec_a, dec_b)
+    for name in ("k", "v"):
+        assert all(torch.equal(a, b) for a, b in zip(cache_a[name], cache_b[name]))
+    assert cache_b["k"][0][:, :, 16].any() and not cache_b["k"][0][:, :, 17:].any()
+
+
+def test_rope_tables_come_from_one_table_per_config_and_device():
+    config = llama.LlamaConfig.tiny()
+    positions = torch.arange(6).reshape(2, 3)
+    first = llama._inv_freq(config, positions.device)
+    cos, sin = llama.rope_tables(config, positions)
+    assert llama._inv_freq(config, positions.device) is first
+    np.testing.assert_array_equal(first.numpy(), llama._rope_inv_freq(config))
+    ang = positions.float()[..., None] * torch.from_numpy(llama._rope_inv_freq(config))
+    assert torch.equal(cos, torch.cos(ang)) and torch.equal(sin, torch.sin(ang))
+    other = llama.LlamaConfig(rope_theta=10000.0, rope_scaling_factor=None)
+    assert llama._inv_freq(other, positions.device) is not first

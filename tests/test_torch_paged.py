@@ -29,6 +29,7 @@ from test_torch_engine import BF16_RTOL, build_models, jax_trajectory, left_pad
 from flute_tpu.ops import paged_attention as jpa
 from flute_tpu.serving import continuous as jcont
 from flute_tpu.serving.paged import PagedEngine as JPagedEngine
+from flute_tpu_torch.models import gemma2
 from flute_tpu_torch.ops import paged_attention as pa
 from flute_tpu_torch.serving import Engine, PagedEngine, SamplingParams
 from flute_tpu_torch.serving import continuous
@@ -349,9 +350,13 @@ def test_paged_engine_options_and_guards(models):
         base.submit([1, 2], max_new_tokens=4, sampling=SamplingParams(), temperature=1.0)
     with pytest.raises(NotImplementedError, match="item 19"):
         PagedEngine(params=tq, config=config, mesh=object(), **kw)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    # Gemma-2 is served; a softcapped config without Gemma-2's other fields
+    # is no family the paged path serves
+    with pytest.raises(NotImplementedError, match="Gemma-2"):
         PagedEngine(params=tq, config=type("Gemma2Like", (), {"attn_logit_softcap": 50.0})(),
                     **kw)
+    gemma = PagedEngine(params=tq, config=gemma2.Gemma2Config.tiny(), **kw)
+    assert gemma.forward is gemma2.forward and gemma.init_cache is gemma2.init_cache
 
 
 def test_paged_sampling_is_keyed_per_request(models):
