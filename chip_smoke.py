@@ -117,7 +117,34 @@ Phases (any failure exits non-zero):
      tokens held to the Engines' before their first near tie, first-token
      logits within 0.25 of theirs (the paged-against-dense limit of phase
      4); each engine's replayed step bit-identical to its eager step; the
-     Engine's decode profile as in phase 4.
+     Engine's decode profile as in phase 4;
+  6. continuous batching and speculative decoding on Llama-3.1-8B at full
+     width and depth (phase 4's random weights, seed 0): the w4sym target
+     (K1) and a W2 draft of the same weights (general 2-bit table, K2),
+     quantized on the card. A verify's M = 40 rows of every layer-0
+     projection have the bits of the M = 8 call (K1 and K2; both timed per
+     layer at M = 8 and 40). ContinuousBatchingEngine: 12 requests into 8
+     slots, max_len 512, chunked prefill (64; one prompt of 100 tokens), a
+     prefix store of blocks of 16 that three requests hit on the first 32
+     tokens of a fourth, 2 sampled; greedy tokens held to Engine's (phase
+     4's trajectory, and a batch-2 Engine for the other two) before near
+     ties, exact K1 launches, one replayed step bit for bit against the
+     eager step; its dense cache's attention timed alone. SpeculativeEngine
+     (dense caches), batch 8, k = 4, the 8 prompts, with the self-draft and
+     the W2 draft: tokens held to Engine's before near ties, exact K1/K2
+     launches, the graphed draft (third call) and verify (second call) bit
+     for bit against the eager steps. PagedSpeculativeEngine as
+     scripts/bench_serving.py:97-125 runs it (batch 8, k = 4, blocks of 32,
+     max_len 512, 16-token prompts, 248 tokens a request for the
+     self-draft, about 48 rounds; 56 for the W2 draft), then the self-draft
+     with pool prefill: tokens held to PagedEngine's greedy tokens (T = 1,
+     K5) before near ties, exact K6 (verify rounds plus pool-prefill chunks,
+     x 32) and K1/K2 launches, each graphed draft and verify replay bit for
+     bit against its eager step, no block in use at the end. Each engine
+     reports tok/s and ms per round (per step), the graphs' device ms per
+     replay, the idle share (1 - device busy / wall of profiled rounds, or
+     of the continuous engine's replay over its median step), acceptance
+     and bonus tokens, and K6's µs per served verify call with its bound.
 
 Prints a {"kernels": [...]} line, then as its last line
 {"ok": true, "device": {...}}. Writes the full results to
@@ -235,6 +262,16 @@ SERVED = {
     "w3wide": (dict(num_bits=3), "K3"),
     "w4_general": (dict(num_bits=4, symmetric=False), "K2"),
 }
+
+# phase 6, as scripts/bench_serving.py:97-200 runs it: k proposals per
+# round, blocks of 32, max_len 512
+SPEC_K = 4
+SPEC_ROUNDS = 48  # scripts/bench_serving.py's --steps
+SPEC_BLOCK = 32
+SPEC_MAX_LEN = 512
+# the self-draft's budget: bench_serving.py's (k + 1) x steps + 8; the W2
+# draft (acceptance near 0 on random weights) steps + 8
+SPEC_BUDGETS = {"self-draft": (SPEC_K + 1) * SPEC_ROUNDS + 8, "W2 draft": SPEC_ROUNDS + 8}
 
 
 def log(*a):
@@ -661,6 +698,7 @@ def phase_attention(dev, results):
             ("llama31_8b", ATTN, "K5", [4096] * 8, 0, {}),
             ("llama31_8b", ATTN, "K6", [1024], 256, {}),
             ("llama31_8b", ATTN, "K6", [32], 32, {}),
+            ("llama31_8b", dict(ATTN, bs=SPEC_BLOCK), "K6", [128] * 8, SPEC_K + 1, {}),
             ("gemma2_9b", ATTN_GEMMA2, "K5", [1024] * 8, 0, gemma_kw),
             ("gemma2_9b", ATTN_GEMMA2, "K5", [4096] * 8, 0, gemma_kw),
             ("gemma2_9b", ATTN_GEMMA2, "K6", [1024], 256, gemma_kw)):
@@ -735,6 +773,8 @@ def phase_attention(dev, results):
                         spans=pa.decode_spans(tables.shape[1], bs, pa.DECODE_SPAN),
                         us_by_span=span_us)
         case["share_of_bound"] = case["bound_us"] / case["us"]
+        # K6's served shapes: phase 4's pool-prefill chunk, phase 6's verify
+        case["role"] = {32: "chunk", SPEC_K + 1: "verify"}.get(t, "")
         timed.append(case)
         log(f"    {kid} {model:10s} {case['heads']:5s} D={d:3d} {case['case']:26s} kernel "
             f"{case['us']:9.1f} us  bound {case['bound_us']:7.1f} us ({case['bound_by']}, "
@@ -1308,6 +1348,19 @@ def counters():
     return (lut_gemm.LAUNCHES, pa.LAUNCHES)
 
 
+def launches_now() -> dict:
+    from flute_tpu_torch.ops import lut_gemm
+    from flute_tpu_torch.ops import paged_attention as pa
+
+    return {**lut_gemm.LAUNCHES, **pa.LAUNCHES}
+
+
+def reset_counters():
+    for c in counters():
+        for k in c:
+            c[k] = 0
+
+
 @contextlib.contextmanager
 def uncounted():
     """Launches made only to hold a graphed step against the eager step:
@@ -1363,9 +1416,7 @@ def serve_engine(name, eng, prompts, kernel_layout, new_tokens=None):
         return logits
 
     eng.prefill, eng.decode_step = counted_prefill, counted_step
-    for c in counters():
-        for k in c:
-            c[k] = 0
+    reset_counters()
     out = eng.generate(prompts, max_new_tokens=new_tokens)
     launches = dict(lut_gemm.LAUNCHES)
     eng.prefill, eng.decode_step = prefill, decode_step
@@ -1426,8 +1477,6 @@ def serve_paged(dev, name, params, config, requests, engine_kw, gemm, keep_logit
     decode times). Returns the run's numbers, the engine, the tokens by
     request, the first-token logits rows by request and, with
     ``keep_logits``, each decode step's logits [slots, V] on the host."""
-    from flute_tpu_torch.ops import lut_gemm
-    from flute_tpu_torch.ops import paged_attention as pa
     from flute_tpu_torch.serving import PagedEngine
 
     held = torch.cuda.memory_allocated(dev)
@@ -1436,17 +1485,6 @@ def serve_paged(dev, name, params, config, requests, engine_kw, gemm, keep_logit
     calls = dict(decode=0, pool_chunks=0, dense_prefill=0, waits=0)
     decode_s, prefill_s, finite, peak_blocks, decode_rows = [], [], [], [0], []
     first_rows, graph = {}, {}
-
-    def wrap(obj, attr, after):
-        fn = getattr(obj, attr)
-
-        def wrapped(*a, **kw):
-            t0 = time.perf_counter()
-            r = fn(*a, **kw)
-            after(r, t0, *a)
-            return r
-
-        setattr(obj, attr, wrapped)
 
     def on_step_logits(r, t0, *a):
         calls["decode"] += 1
@@ -1484,19 +1522,17 @@ def serve_paged(dev, name, params, config, requests, engine_kw, gemm, keep_logit
     wrap(eng, "forward", on_dense)
     wrap(eng, "_prefill_pool", on_prefill)
     wrap(eng, "_prefill_dense", on_prefill)
-    eng._start = _record_first(eng, first_rows)
+    record_first(eng, first_rows)
     wrap(eng, "_admit", on_admit)
 
-    for d in (lut_gemm.LAUNCHES, pa.LAUNCHES):
-        for k in d:
-            d[k] = 0
+    reset_counters()
     rids = [eng.submit(p, **kw) for p, kw in requests]
     t0 = time.perf_counter()
     while eng.step():
         peak_blocks[0] = max(peak_blocks[0], eng.blocks_in_use)
     out = eng.run()
     total = time.perf_counter() - t0
-    launches = {**lut_gemm.LAUNCHES, **pa.LAUNCHES}
+    launches = launches_now()
 
     forwards = calls["decode"] + calls["pool_chunks"] + calls["dense_prefill"]
     layers = config.num_layers
@@ -1534,15 +1570,29 @@ def serve_paged(dev, name, params, config, requests, engine_kw, gemm, keep_logit
     return serving, eng, [out[r] for r in rids], [first_rows[r] for r in rids], decode_rows
 
 
-def _record_first(eng, first_rows):
-    """Wrap the engine's first-token step to keep each request's raw row."""
-    start = eng._start
+def wrap(obj, attr, after=None, before=None):
+    """Replace the method ``obj.attr`` by a call that runs ``before(*a)``,
+    the method, then ``after(r, t0, *a)`` with ``t0`` the host clock at the
+    method's call; returns the method."""
+    fn = getattr(obj, attr)
 
-    def wrapped(slot, prompt, sampling, last_row):
-        first_rows[eng._slot_req[slot]] = last_row.cpu()
-        return start(slot, prompt, sampling, last_row)
+    def wrapped(*a, **kw):
+        if before is not None:
+            before(*a)
+        t0 = time.perf_counter()
+        r = fn(*a, **kw)
+        if after is not None:
+            after(r, t0, *a)
+        return r
 
-    return wrapped
+    setattr(obj, attr, wrapped)
+    return fn
+
+
+def record_first(eng, first_rows):
+    """Keep each request's raw first-token row, by request id."""
+    wrap(eng, "_start", before=lambda slot, prompt, sampling, last_row: first_rows.__setitem__(
+        eng._slot_req[slot], last_row.cpu()))
 
 
 # device kernels by name: the LUT-GEMMs (K1, K2 and K4 on the tensor-core
@@ -1571,13 +1621,26 @@ def profile_steps(name, step, steps=3):
     """Where a step's device time goes: ``steps`` calls of ``step`` under
     torch.profiler, outside the counted runs (the profiler runs only after
     every timed run, so it cannot slow one down)."""
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts, record_shapes=True) as prof:
+    with profiler() as prof:
         t0 = time.perf_counter()
         for i in range(steps):
             step(i)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    return profile_summary(name, prof, wall, steps)
+
+
+def profiler():
+    return torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                              torch.profiler.ProfilerActivity.CUDA],
+                                  record_shapes=True)
+
+
+def profile_summary(name, prof, wall, steps):
+    """A profile's device time per step by kernel and group, its idle share
+    (1 - device busy / wall), its host waits per step (the host blocking on
+    a stream: a copy to the host or an item, each a cudaStreamSynchronize)
+    and its large dtype conversions."""
     # dtype conversions of large tensors, by input shape
     large = sorted({tuple(ev.input_shapes[0]) for ev in prof.events()
                     if ev.name == "aten::_to_copy" and ev.input_shapes and ev.input_shapes[0]
@@ -1593,8 +1656,10 @@ def profile_steps(name, step, steps=3):
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
     groups = {g: sum(ms for k_name, ms in by_kernel.items() if any(p in k_name for p in pats))
               for g, pats in PROFILE_GROUPS.items()}
+    waits = sum(ev.name == "cudaStreamSynchronize" for ev in prof.events())
     profile = dict(
         wall_ms_per_step=wall / steps * 1e3,
+        host_waits_per_step=waits / steps,
         device_ms_per_step=dev_ms if by_kernel else None,
         idle_share=(1 - dev_ms / (wall / steps * 1e3)) if by_kernel else None,
         top_kernels_ms_per_step=top,
@@ -1603,7 +1668,8 @@ def profile_steps(name, step, steps=3):
     )
     if by_kernel:
         log(f"  [{name}] profile of {steps} step(s): wall {wall / steps * 1e3:.2f} ms, device "
-            f"busy {dev_ms:.2f} ms (idle share {profile['idle_share']:.2f}) per step; "
+            f"busy {dev_ms:.2f} ms (idle share {profile['idle_share']:.2f}), "
+            f"{profile['host_waits_per_step']:.1f} host waits per step; "
             + ", ".join(f"{g} {ms:.3f} ms" for g, ms in groups.items()))
         for k_name, ms in top[:6]:
             log(f"    {ms:8.3f} ms  {k_name[:100]}")
@@ -1709,7 +1775,24 @@ def _stack_numbers(stack) -> dict:
     )
 
 
-def kernel_line(kid, cases, launches, identity_paths, gemma2_launches=None):
+def spec_runs(spec) -> dict:
+    """Phase 6's runs by name: the continuous engine, the dense and the
+    paged speculative runs."""
+    runs = {"continuous": spec["continuous"]}
+    for engine in ("dense_spec", "paged_spec"):
+        runs.update({f"{engine} {name}": run for name, run in spec[engine].items()
+                     if name != "oracle"})
+    return runs
+
+
+def spec_launches(spec, key) -> dict:
+    """A kernel's launches (counter ``key``) in each phase-6 run that
+    launched it."""
+    return {name: run["launches"][key] for name, run in spec_runs(spec).items()
+            if run["launches"].get(key)}
+
+
+def kernel_line(kid, cases, launches, identity_paths, gemma2_launches=None, spec=None):
     """The {"kernels": [...]} entry of a LUT-GEMM: its decode stack, one
     Llama-3.1-8B layer's four projections at M=8 in bf16 (K2 and K4 at 4
     bits); K1's also one Gemma-2-9B layer's (``gemma2_9b``, beside its
@@ -1732,10 +1815,16 @@ def kernel_line(kid, cases, launches, identity_paths, gemma2_launches=None):
                 **_stack_numbers(stack("llama31_8b")), checked=True)
     if stack("gemma2_9b"):
         line["gemma2_9b"] = dict(_stack_numbers(stack("gemma2_9b")), launches=gemma2_launches)
+    if spec is not None and spec_launches(spec, KERNELS[kid][2]):
+        line["spec"] = dict(launches=spec_launches(spec, KERNELS[kid][2]))
+        if kid == "K2":  # the W2 draft: the 2-bit stack at M=8
+            w2 = [c for c in mine if c["model"] == "llama31_8b" and c["bits"] == 2
+                  and c["m"] == 8 and c["dtype"] == "bfloat16"]
+            line["spec"]["w2_m8"] = _stack_numbers(w2)
     return line
 
 
-def attention_line(kid, checks, timed, launches, gemma2_launches=None):
+def attention_line(kid, checks, timed, launches, gemma2_launches=None, spec=None):
     """The {"kernels": [...]} entry of K5 (one call at B=8, every length
     1024; with its span and the spans of a sequence at 1024 [4096]) or K6
     (one call, T=256 over 1024 cached positions), at Llama-3.1-8B's heads;
@@ -1756,7 +1845,15 @@ def attention_line(kid, checks, timed, launches, gemma2_launches=None):
         checked=True,
     )
     if kid == "K6":
-        line["served_chunk_ms"] = rows[-1]["us"] / 1e3
+        line["served_chunk_ms"] = next(c for c in rows if c["role"] == "chunk")["us"] / 1e3
+        served = next(c for c in rows if c["role"] == "verify")
+        line["served_verify"] = dict(_stack_numbers([served]), case=served["case"])
+        if spec is not None:
+            paged = {name: run for name, run in spec["paged_spec"].items() if name != "oracle"}
+            line["served_verify"]["launches"] = spec_launches(spec, KERNELS[kid][2])
+            line["served_verify"].update({
+                f"{name} {key}": run[key] for name, run in paged.items()
+                for key in ("k6_us_per_served_call", "k6_bound_us") if key in run})
     else:
         line.update(span=row["span"], spans=[c["spans"] for c in rows],
                     ms_at_4096=rows[1]["us"] / 1e3)
@@ -1770,15 +1867,12 @@ def attention_line(kid, checks, timed, launches, gemma2_launches=None):
     return line
 
 
-def first_tie_steps(logits, tol=THRESHOLDS[torch.bfloat16]):
-    """Per sequence, the first step whose top-1/top-2 margin is within
-    twice ``tol`` of the largest logit (``logits`` [steps, B, V]); and the
-    share of (step, sequence) pairs decided."""
-    top2 = torch.topk(logits, 2, dim=-1).values
-    scale = logits.abs().amax(dim=-1)
-    decided = (top2[..., 0] - top2[..., 1]) > 2 * tol * scale  # [steps, B]
-    return [int(torch.argmin(col.int())) if not bool(col.all()) else col.numel()
-            for col in decided.T], float(decided.float().mean())
+def decided_steps(logits, tol=THRESHOLDS[torch.bfloat16]):
+    """Which rows of ``logits`` [..., V] have a top-1/top-2 margin above
+    twice ``tol`` of their largest logit ([...] bools)."""
+    top2 = torch.topk(logits.float(), 2, dim=-1).values
+    scale = logits.float().abs().amax(dim=-1)
+    return (top2[..., 0] - top2[..., 1]) > 2 * tol * scale
 
 
 def phase_paged(dev, results, w4sym_engine, w4sym_trajectory):
@@ -1864,11 +1958,9 @@ def hold_tokens(name, got, want, logits):
     """Each sequence's tokens equal ``want``'s (the dense Engine's) before
     its first near tie in ``logits`` [steps, B, V]; returns the ties and the
     decided share."""
-    ties, decided = first_tie_steps(logits)
-    for i, tie in enumerate(ties):
-        if got[i][:tie] != want[i][:tie]:
-            raise AssertionError(f"{name}: request {i} differs from Engine before step {tie}")
-    return ties, decided
+    decided = decided_steps(logits)
+    ties, _ = hold_to_oracle(name, got, want, decided)
+    return ties, float(decided.float().mean())
 
 
 def phase_gemma2(dev, results):
@@ -1953,6 +2045,748 @@ def phase_gemma2(dev, results):
     del peng, qparams
     release()
     results["serving"]["gemma2_w4sym"] = out
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: ContinuousBatchingEngine and speculative decoding, dense and paged
+# ---------------------------------------------------------------------------
+
+def sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+class Calls:
+    """Counts calls of wrapped methods; a call made inside a wrapped step
+    (``step=True``) is not counted, so that a forward is counted only where
+    it runs outside the steps (prefill)."""
+
+    def __init__(self):
+        self.n = {}
+        self.depth = 0
+        self.held = {}  # step -> its replay held against the eager step
+
+    def count(self, obj, attr, key=None, step=False, after=None):
+        key = key or attr
+
+        def enter(*a):
+            if not self.depth:
+                self.n[key] = self.n.get(key, 0) + 1
+            self.depth += step
+
+        def leave(r, t0, *a):
+            if after is not None:  # inside the step: its eager holds count no call
+                after(r)
+            self.depth -= step
+
+        wrap(obj, attr, leave, enter)
+
+    def __getitem__(self, key):
+        return self.n.get(key, 0)
+
+
+def hold_replay(name, calls, key, at, result, eager):
+    """At call ``at`` of step ``key`` (a replay on the card), hold its
+    output bit for bit against ``eager()`` on the same state."""
+    if calls[key] == at and key not in calls.held:
+        calls.held[key] = hold_graph_step(f"{name} {key}", result.clone(), eager)
+
+
+def hold_steps(label, eng, calls, draft_eager, verify_eager):
+    """Count the draft and verify steps of a speculative engine and hold
+    the third draft call and the second verify call (replays) bit for bit
+    against the eager steps."""
+    calls.count(eng, "_draft_step", key="draft", step=True, after=lambda r: hold_replay(
+        label, calls, "draft", 3, r, draft_eager))
+    calls.count(eng, "_verify_step", key="verify", step=True, after=lambda r: hold_replay(
+        label, calls, "verify", 2, r, verify_eager))
+
+
+def hold_to_oracle(name, got, want, decided):
+    """Each sequence's tokens equal the oracle's before its first near tie
+    (``decided`` [steps, B]); returns the first ties and identical count."""
+    ties = [int(torch.argmin(col.int())) if not bool(col.all()) else col.numel()
+            for col in decided.T]
+    for i, tie in enumerate(ties):
+        tie = min(tie, len(got[i]))
+        if got[i][:tie] != want[i][:tie]:
+            raise AssertionError(f"[{name}] request {i} differs from its oracle before step {tie}: "
+                                 f"{got[i][:tie]} != {want[i][:tie]}")
+    same = sum(a == b[:len(a)] for a, b in zip(got, want))
+    return ties, same
+
+
+def check_launches(name, expected):
+    got = launches_now()
+    want = {k: 0 for k in got}
+    want.update(expected)
+    if got != want:
+        raise AssertionError(f"[{name}] launches {got}, expected {want}")
+    return got
+
+
+def serve_continuous(dev, config, params, trajectory):
+    """ContinuousBatchingEngine at w4sym (K1): 12 requests into 8 slots,
+    max_len 512, chunked prefill (64), a prefix store (blocks of 16) that
+    three requests hit on the first 32 tokens of a fourth, 2 sampled; its
+    greedy tokens held to Engine's before near ties, one replayed step bit
+    for bit against the eager step, exact K1 launches."""
+    from flute_tpu_torch.models import llama
+    from flute_tpu_torch.serving import ContinuousBatchingEngine, Engine
+    from flute_tpu_torch.utils.benchmark import bench_op, cold_copies
+
+    prompts = serving_prompts(config)
+    v = config.vocab_size
+    rng = np.random.default_rng(7)
+    extra = [prompts[1][:32] + rng.integers(1, v, n).tolist() for n in (9, 14, 3)]
+    long_prompt = rng.integers(1, v, 100).tolist()
+    sampled = dict(temperature=0.8, top_k=50, top_p=0.9)
+    requests = [(p, {}) for p in prompts] + [(extra[0], {}), (long_prompt, {}),
+                                               (extra[1], dict(sampled, seed=21)),
+                                               (extra[2], dict(sampled, seed=22))]
+    # the oracle of the two greedy requests that are not the 8 prompts
+    oracle = Engine(params=params, config=config, batch_size=2, max_len=256, device=dev)
+    _, (extra_out, extra_logits) = serve_engine("continuous oracle", oracle,
+                                                [extra[0], long_prompt], "w4sym")
+    del oracle
+    release()
+
+    eng = ContinuousBatchingEngine(params=params, config=config, num_slots=8,
+                                   max_len=SPEC_MAX_LEN, prefill_chunk=64,
+                                   prefix_cache_entries=16, prefix_block=16, device=dev)
+    calls = Calls()
+    decode_s, prefill_s = [], []
+    calls.count(eng, "_step_logits", key="decode", step=True, after=lambda r: hold_replay(
+        "continuous", calls, "decode", 3, r,
+        lambda: eng._decode_logits(eng._step_tokens, eng._step_pos)))
+    calls.count(eng, "forward", key="prefill_forward")
+    timed(eng, "_decode", decode_s)
+    timed(eng, "_prefill", prefill_s, dev)
+    reset_counters()
+    rids = [eng.submit(p, max_new_tokens=NEW_TOKENS, **kw) for p, kw in requests]
+    t0 = time.perf_counter()
+    out = eng.run()
+    total = time.perf_counter() - t0
+    layers = config.num_layers
+    launches = check_launches("continuous", {
+        "w4sym": (calls["decode"] + calls["prefill_forward"]) * layers * 4})
+    if eng.prefix_hits < 3:
+        raise AssertionError(f"[continuous] prefix hits {eng.prefix_hits}, expected 3")
+    tokens = [out[r] for r in rids]
+    if [len(t) for t in tokens] != [NEW_TOKENS] * len(requests):
+        raise AssertionError(f"[continuous] tokens {[len(t) for t in tokens]}")
+    lps = [eng.finished_logprobs[r] for r in rids]
+    if not all(len(lp) == NEW_TOKENS and all(np.isfinite(x) and x <= 0 for x in lp)
+               for lp in lps):
+        raise AssertionError("[continuous] logprobs missing, not finite or positive")
+    want, logits = trajectory
+    ties, decided = hold_tokens("continuous", tokens[:8], want, logits[:, :len(prompts)])
+    hold_tokens("continuous (prefix hit, long prompt)", tokens[8:10], extra_out,
+                extra_logits[:, :2])
+    same = sum(a == b for a, b in zip(tokens[:10], list(want) + list(extra_out)))
+    steps = calls["decode"]
+    serving = dict(
+        requests=len(requests), prompt_lengths=[len(p) for p, _ in requests],
+        new_tokens=NEW_TOKENS, decode_steps=steps, prefill_forward_calls=calls["prefill_forward"],
+        launches=launches, prefix_hits=eng.prefix_hits, prefix_block_hits=eng.prefix_block_hits,
+        prefill_ms_per_admission=float(np.median(prefill_s)) * 1e3,
+        decode_ms_per_step=float(np.median(decode_s)) * 1e3,
+        decode_ms_quickest=min(decode_s) * 1e3, decode_ms_steps=[x * 1e3 for x in decode_s],
+        end_to_end_tok_s=len(requests) * NEW_TOKENS / total, first_ties=ties,
+        decided_share=decided,
+        identical_sequences=same, graph_step=calls.held.get("decode"))
+    if dev.type == "cuda":
+        with uncounted():
+            serving["replay_device_ms"] = replay_ms(lambda i: eng._graph())
+        serving["idle_share"] = 1 - serving["replay_device_ms"] / serving["decode_ms_per_step"]
+        # the dense cache's attention: one layer's gqa_attention over the
+        # 8 x 512 cache, L2-cold, times the layers
+        cache = eng._cache
+        hkv, d = config.num_kv_heads, config.head_dim
+        q = torch.randn((8, 1, config.num_heads, d), device=dev).to(config.dtype)
+        mask = torch.ones((8, 1, SPEC_MAX_LEN), dtype=torch.bool, device=dev)
+        sets = [(q, cache["k"][i % layers], cache["v"][i % layers])
+                for i in range(cold_copies(2 * cache["k"][0].numel() * 2))]
+        attn_s = bench_op(lambda q_, k_, v_: llama.gqa_attention(q_, k_, v_, mask), sets)
+        serving["attention_ms_per_step"] = attn_s * layers * 1e3
+        serving["attention_share"] = serving["attention_ms_per_step"] / serving[
+            "replay_device_ms"]
+        serving["cache_bound_ms"] = (2 * layers * cache["k"][0].numel() * 2
+                                     / HBM_BYTES_PER_S * 1e3)
+        log(f"  [continuous] device {serving['replay_device_ms']:.2f} ms per replay, idle "
+            f"share {serving['idle_share']:.2f}; the dense cache's attention "
+            f"{serving['attention_ms_per_step']:.2f} ms per step ({hkv} KV heads x "
+            f"{SPEC_MAX_LEN} positions x 8 slots x {layers} layers; bytes bound "
+            f"{serving['cache_bound_ms']:.3f} ms), {100 * serving['attention_share']:.0f}% of "
+            "the replay")
+    log(f"  [continuous] {len(requests)} requests into 8 slots, {steps} decode steps: prefill "
+        f"{serving['prefill_ms_per_admission']:.1f} ms per admission (median), decode "
+        f"{serving['decode_ms_per_step']:.2f} ms/step graphed (median; quickest "
+        f"{serving['decode_ms_quickest']:.2f}), {serving['end_to_end_tok_s']:.1f} tok/s end to end "
+        f"(admissions and the capture included), prefix hits "
+        f"{eng.prefix_hits} ({eng.prefix_block_hits} blocks); greedy tokens equal Engine's "
+        f"before every near tie ({same}/10 identical in full); launches {launches}")
+    del eng
+    release()
+    return serving
+
+
+def timed(obj, attr, into, dev=None):
+    """Wrap ``obj.attr`` to append its host-clock seconds to ``into`` (after
+    a device sync when ``dev`` is given)."""
+
+    def after(r, t0, *a):
+        if dev is not None:
+            sync(dev)
+        into.append(time.perf_counter() - t0)
+
+    wrap(obj, attr, after)
+
+
+class RoundTimer:
+    """The host-clock seconds of each round of a speculative engine
+    (``eng._round``, which ends on the host), except ``n`` rounds from round
+    ``at`` on (none when ``at`` is None): those run under torch.profiler,
+    and their wall from the first one's start to the last one's end (the
+    engine's work between rounds included) gives ``profile``; ``lengths()``
+    is kept at the first one's start."""
+
+    def __init__(self, name, eng, at=None, n=3, lengths=None):
+        self.s, self.profile, self.rounds, self.lengths = [], None, 0, None
+        window = range(at, at + n) if at is not None else range(0)
+
+        def before(*a):
+            if self.rounds == window.start and window:
+                if lengths is not None:
+                    self.lengths = lengths()
+                self._prof = profiler()
+                self._prof.start()
+                self._t = time.perf_counter()
+
+        def after(r, t0, *a):
+            i = self.rounds
+            self.rounds += 1
+            if i not in window:
+                self.s.append(time.perf_counter() - t0)
+            elif i == window[-1]:
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - self._t
+                self._prof.stop()
+                self.profile = profile_summary(f"{name}: {n} rounds", self._prof, wall, n)
+
+        wrap(eng, "_round", after, before)
+
+
+def spec_numbers(name, stats, round_s, tokens, replay, profile=None):
+    """A timed speculative run's numbers: acceptance, bonus tokens, ms per
+    round (median over the rounds not profiled), tokens per round (all
+    rounds), tok/s (the two together), the graphs' device ms per replay, and
+    the idle share and host waits of the profiled rounds."""
+    out = dict(rounds=stats.rounds, proposed=stats.proposed, accepted=stats.accepted,
+               acceptance_rate=stats.acceptance_rate, bonus_tokens=stats.bonus,
+               ms_per_round=float(np.median(round_s)) * 1e3, ms_per_round_quickest=min(round_s)
+               * 1e3, tokens_per_round=tokens / stats.rounds,
+               tok_s=tokens / stats.rounds / float(np.median(round_s)),
+               rounds_s=[float(x) for x in round_s])
+    out.update(replay)
+    if replay:
+        # k draft replays and a verify: a round's device time, less the
+        # catch-up fills and the small ops around the replays
+        out["replays_ms_per_round"] = SPEC_K * replay["draft_replay_ms"] + replay[
+            "verify_replay_ms"]
+    if profile is not None:
+        out["profile"] = profile
+        out["idle_share"] = profile["idle_share"]
+        out["host_waits_per_round"] = profile["host_waits_per_step"]
+    log(f"  [{name}] {stats.rounds} rounds: acceptance {stats.acceptance_rate:.3f}, "
+        f"{stats.bonus} bonus tokens (slot-rounds fully accepted), {out['ms_per_round']:.2f} ms "
+        f"per round (median of {len(round_s)}; quickest "
+        f"{out['ms_per_round_quickest']:.2f}), {out['tokens_per_round']:.2f} tokens per round, "
+        f"{out['tok_s']:.1f} tok/s"
+        + (f"; device {replay['draft_replay_ms']:.2f} ms per draft replay, "
+           f"{replay['verify_replay_ms']:.2f} ms per verify replay" if replay else "")
+        + (f", idle share {out['idle_share']:.2f}, {out['host_waits_per_round']:.1f} host waits "
+           "per round" if out.get("idle_share") is not None else ""))
+    return out
+
+
+def spec_replays(eng) -> dict:
+    """Device ms per replay of the draft and verify graphs (on the state the
+    engine is in: they rewrite the same K/V)."""
+    with uncounted():
+        return dict(draft_replay_ms=replay_ms(lambda i: eng._draft_graph()),
+                    verify_replay_ms=replay_ms(lambda i: eng._verify_graph()))
+
+
+def serve_dense_spec(dev, config, target, drafts, trajectory):
+    """SpeculativeEngine (dense caches), batch 8, k = 4, max_len 512: the
+    self-draft and the W2 draft. A checked run on the 8 prompts (tokens held
+    to Engine's before near ties, the graphed draft and verify steps bit for
+    bit against the eager steps, exact launches), then a timed run of
+    bench_serving's prompts and length with the graphs captured and no
+    hold, three of its rounds profiled, then the verify rows against
+    Engine's logits."""
+    from flute_tpu_torch.serving import SpecStats, SpeculativeEngine
+
+    prompts = serving_prompts(config)
+    want, logits = trajectory
+    layers = config.num_layers
+    cuda = dev.type == "cuda"
+    out = {}
+    for name, (dparams, layout) in drafts.items():
+        label = f"dense spec {name}"
+        eng = SpeculativeEngine(target, config, dparams, config, k=SPEC_K, max_len=SPEC_MAX_LEN,
+                                batch_size=8, device=dev)
+        calls = Calls()
+        hold_steps(label, eng, calls,
+                   lambda: eng.draft_logits(eng._d_tok, eng._d_pos_buf, eng._offsets),
+                   lambda: eng.verify_logits(eng._v_toks, eng._t_pos, eng._offsets))
+        reset_counters()
+        tokens = eng.generate(prompts, max_new_tokens=NEW_TOKENS)
+        # one target and one draft prefill; each draft step and verify
+        expected = {"w4sym": (calls["verify"] + 1) * layers * 4}
+        expected[layout] = expected.get(layout, 0) + (calls["draft"] + 1) * layers * 4
+        launches = check_launches(label, expected)
+        ties, same = hold_to_oracle(label, tokens, want, decided_steps(logits[:, :8]))
+        if any(len(t) != NEW_TOKENS for t in tokens):
+            raise AssertionError(f"[{label}] tokens {[len(t) for t in tokens]}")
+        checked = dict(draft_calls=calls["draft"],
+                       verify_calls=calls["verify"], first_ties=ties, identical_sequences=same,
+                       graph_steps=dict(calls.held), stats=dataclasses.asdict(eng.stats))
+        log(f"  [{label}] tokens equal Engine's before every near tie ({same}/8 identical in "
+            f"full); launches {launches}")
+        eng.stats = SpecStats()
+        timer = RoundTimer(label, eng, at=10 if cuda else None)
+        n_tokens = SPEC_BUDGETS[name]
+        with uncounted():
+            timed_out = eng.generate(spec_prompts(config), max_new_tokens=n_tokens)
+        if [len(t) for t in timed_out] != [n_tokens] * 8:
+            raise AssertionError(f"[{label}] timed run: tokens {[len(t) for t in timed_out]}")
+        replay = spec_replays(eng) if cuda else {}
+        numbers = spec_numbers(f"{label}, 8 x {n_tokens} tokens", eng.stats, timer.s,
+                               sum(len(t) - 1 for t in timed_out), replay, timer.profile)
+        numbers.update(launches=launches, checked_run=checked, tokens_per_request=n_tokens)
+        # once more, untimed and uncounted: every verify row with Engine's
+        # history against Engine's logits (prompts left-padded to 64)
+        rows = VerifyRows(eng, lambda: eng._t_pos, lambda b: 64, want, logits)
+        with uncounted():
+            eng.generate(prompts, max_new_tokens=NEW_TOKENS)
+        numbers["verify_logits"] = rows.check(label)
+        out[name] = numbers
+        del eng
+        release()
+    return out
+
+
+def spec_prompts(config):
+    """scripts/bench_serving.py's prompts: 16 tokens each, request i from
+    default_rng(i) over [1, 1000) (the vocabulary, if smaller)."""
+    top = min(1000, config.vocab_size)
+    return [np.random.default_rng(i).integers(1, top, 16).tolist() for i in range(8)]
+
+
+def paged_oracle(dev, config, params, prompts, budget):
+    """PagedEngine's greedy tokens (T = 1 steps, K5) for the paged
+    speculative runs, and which of their steps are decided (first token from
+    the prefill row, then each decode step's row)."""
+    from flute_tpu_torch.serving import PagedEngine
+
+    eng = PagedEngine(params=params, config=config, num_slots=8, block_size=SPEC_BLOCK,
+                      num_blocks=8 * (SPEC_MAX_LEN // SPEC_BLOCK) + 8, max_len=SPEC_MAX_LEN,
+                      device=dev)
+    decided, first, decode_s, rows = [], {}, [], []
+
+    def recorded(r, t0):
+        decided.append(decided_steps(r).cpu())
+        if len(rows) < NEW_TOKENS - 1:
+            rows.append(r.cpu())
+
+    wrap(eng, "_step_logits", recorded)
+    timed(eng, "_decode", decode_s)  # ends with a copy to the host
+    record_first(eng, first)
+    rids = [eng.submit(p, max_new_tokens=budget) for p in prompts]
+    t0 = time.perf_counter()
+    out = eng.run()
+    total = time.perf_counter() - t0
+    first_decided = decided_steps(torch.stack([first[r] for r in rids]))
+    # request i sits in slot i throughout: every one is admitted at once
+    table = torch.stack([first_decided] + decided[: budget - 1])
+    # row t: the logits that chose output token t of each request
+    logits = torch.stack([torch.stack([first[r] for r in rids])] + rows)
+    numbers = dict(steps=len(decided), s=total,
+                   decode_ms_per_step=float(np.median(decode_s)) * 1e3,
+                   decode_tok_s=8 / float(np.median(decode_s)))
+    log(f"  [paged oracle] PagedEngine greedy, 8 requests x {budget} tokens in {total:.1f} s: "
+        f"{len(decided)} graphed T=1 steps, {numbers['decode_ms_per_step']:.2f} ms per step "
+        f"(median), {numbers['decode_tok_s']:.1f} decode tok/s")
+    del eng
+    release()
+    return [out[r] for r in rids], table, logits, numbers
+
+
+# a verify row's largest logit error relative to the oracle's largest
+# logit: sound verifies read 4.5e-2 to 5.7e-2 at Llama-3.1-8B widths
+# (K6 and torch attention at T = 5 against K5 and torch attention at T = 1);
+# phase 6 holds each paged run to it and shows that a planted fault reads
+# above it
+VERIFY_LIMIT = 0.25
+
+
+class VerifyRows:
+    """Holds a speculative engine's verify rows to its T = 1 oracle's
+    logits: query j of slot b at cache position ``pos[b] + j`` predicts
+    output token ``t = pos[b] + j - start + 1`` of request b from the tokens
+    written at positions ``start .. pos[b] + j``; where those are the
+    oracle's first t tokens and t is within ``logits`` [T, B, V] (row t:
+    the oracle's logits for token t), the row's largest difference from the
+    oracle's, relative to the oracle's largest logit, is kept. Wraps
+    ``eng._verify_step``; ``positions()`` reads the step's positions and
+    ``start(b)`` where request b's outputs begin.
+
+    With ``probe`` (a paged engine), the first verify with such rows is
+    also run eagerly twice more on the same inputs: with K6 given lengths
+    one short (a planted fault: no query attends its own position), whose
+    rows must read above the limit, and with K6's plain version
+    (``paged_verify_reference``) on the same pools, which the served rows
+    must match within the limit; a third eager run with K6 then writes the
+    step's own K/V back."""
+
+    def __init__(self, eng, positions, start, want, logits, probe=False):
+        self.written = [dict() for _ in want]
+        self.errs, self.probed = [], {}
+
+        def checked(r, t0):
+            toks = eng._v_toks.cpu().numpy()
+            pos = positions().cpu().numpy()
+            rows = []
+            for b, row in enumerate(want):
+                for j, tok in enumerate(toks[b]):
+                    self.written[b][int(pos[b]) + j] = int(tok)
+                for j in range(toks.shape[1]):
+                    s0, p = start(b), int(pos[b]) + j
+                    t = p - s0 + 1
+                    hist = [self.written[b].get(q) for q in range(s0, p + 1)]
+                    if 0 < t < logits.shape[0] and hist == row[:t]:
+                        rows.append((b, j, logits[t, b].to(r.device)))
+            self.errs += [rel(r[b, j], ref) for b, j, ref in rows]
+            if probe and rows and not self.probed:
+                self.probed = self._probe(eng, r.clone(), rows)
+
+        def rel(got, ref):
+            return float((got - ref).abs().max() / ref.abs().max())
+
+        self._rel = rel
+        wrap(eng, "_verify_step", checked)
+
+    def _probe(self, eng, served, rows):
+        from flute_tpu_torch.ops import paged_attention as pa
+        from flute_tpu_torch.serving import paged_fwd
+
+        k6 = paged_fwd.paged_verify_attention
+        args = (eng._step_tables, eng._step_lengths, eng._v_toks)
+
+        def verify_with(attention):
+            paged_fwd.paged_verify_attention = attention
+            try:
+                return eng._verify_logits(*args).clone()
+            finally:
+                paged_fwd.paged_verify_attention = k6
+
+        fault = verify_with(lambda q, kp, vp, tb, ln, **kw: k6(q, kp, vp, tb, ln - 1, **kw))
+        plain = verify_with(lambda q, kp, vp, tb, ln, **kw: pa.paged_verify_reference(
+            q, kp, vp, torch.clamp(tb.long(), 0, kp.shape[0] - 1), ln, **kw))
+        eng._verify_logits(*args)  # K6 again: the step's own K/V
+        live = sorted({b for b, _, _ in rows})
+        return dict(fault_rel_err=max(self._rel(fault[b, j], ref) for b, j, ref in rows),
+                    plain_rel_err=float((served[live] - plain[live]).abs().max()
+                                        / plain[live].abs().max()))
+
+    def check(self, name, limit=VERIFY_LIMIT):
+        """The rows compared and their largest error, within ``limit``; with
+        a probe, the plain version's reading within it and the planted
+        fault's above it."""
+        err = max(self.errs, default=float("nan"))
+        if not self.errs or not err < limit:
+            raise AssertionError(f"[{name}] verify logits against the T=1 oracle's: "
+                                 f"{len(self.errs)} rows, max rel err {err}")
+        out = dict(rows=len(self.errs), max_rel_err=err, limit=limit, **self.probed)
+        probe = ""
+        if self.probed:
+            fault, plain = self.probed["fault_rel_err"], self.probed["plain_rel_err"]
+            if not plain < limit <= fault:
+                raise AssertionError(f"[{name}] the verify check at limit {limit}: K6 against "
+                                     f"its plain version {plain:.3e}, a planted fault (lengths "
+                                     f"one short) {fault:.3e}")
+            probe = (f"; against K6's plain version on the same pools {plain:.2e}; a planted "
+                     f"fault (lengths one short) reads {fault:.2e}")
+        log(f"  [{name}] {len(self.errs)} verify rows with the oracle's history: logits within "
+            f"{err:.2e} of the T=1 oracle's (limit {limit}){probe}")
+        return out
+
+
+def paged_spec_engine(dev, config, target, draft, pool=False):
+    """bench_serving's PagedSpeculativeEngine: 8 slots, k = 4, blocks of
+    32, max_len 512, a block per slot and position plus 8."""
+    from flute_tpu_torch.serving import PagedSpeculativeEngine
+
+    return PagedSpeculativeEngine(
+        params=target, config=config, draft_params=draft, draft_config=config, k=SPEC_K,
+        num_slots=8, block_size=SPEC_BLOCK, num_blocks=8 * (SPEC_MAX_LEN // SPEC_BLOCK) + 8,
+        max_len=SPEC_MAX_LEN, pool_prefill=pool, prefill_chunk=16 if pool else None, device=dev)
+
+
+def count_paged_spec(label, eng, calls):
+    """Count a paged speculative engine's calls and hold its replays."""
+    hold_steps(label, eng, calls, lambda: eng._draft_logits(eng._d_tok, eng._d_pos_buf),
+               lambda: eng._verify_logits(eng._step_tables, eng._step_lengths, eng._v_toks))
+    calls.count(eng, "forward", key="target_prefill")
+    calls.count(eng, "_dfwd", key="draft_prefill")
+    if eng._pool_fwd is not None:
+        calls.count(eng, "_pool_fwd", key="pool_chunks")
+
+
+def check_paged_spec_launches(label, calls, layers, layout):
+    """K1 four times a layer per target forward (verify, dense prefill or
+    pool chunk) and the draft's kernel per draft forward (step or
+    prefill); K6 once a layer per verify and pool chunk; nothing else."""
+    target_calls = calls["verify"] + calls["target_prefill"] + calls["pool_chunks"]
+    draft_calls = calls["draft"] + calls["draft_prefill"]
+    expected = {"w4sym": target_calls * layers * 4,
+                "paged_verify": (calls["verify"] + calls["pool_chunks"]) * layers}
+    expected[layout] = expected.get(layout, 0) + draft_calls * layers * 4
+    return check_launches(label, expected)
+
+
+def serve_paged_spec(dev, config, target, drafts):
+    """PagedSpeculativeEngine, batch 8, k = 4, blocks of 32, max_len 512,
+    16-token prompts (scripts/bench_serving.py:97-125): the self-draft (248
+    tokens per request, about 48 rounds) and the W2 draft (56 tokens) with
+    dense prefill, then the self-draft with pool prefill. A checked run
+    (tokens held to PagedEngine's before near ties, exact K6 and K1/K2
+    launches, each graphed draft and verify replay bit for bit against its
+    eager step, the graphs' device ms per replay at round 10, no block in
+    use at the end), then the same requests again, timed with no hold
+    (three rounds from round 10 profiled: K6's µs per served verify call),
+    which must give the same tokens; then the verify rows against
+    PagedEngine's logits, with a planted fault and K6's plain version."""
+    from flute_tpu_torch.serving import SpecStats
+
+    prompts = spec_prompts(config)
+    layers = config.num_layers
+    cuda = dev.type == "cuda"
+    budget = max(SPEC_BUDGETS.values())
+    want, decided, oracle_logits, oracle = paged_oracle(dev, config, target, prompts, budget)
+    out = {"oracle": oracle}
+    runs = [(name, draft, layout, SPEC_BUDGETS[name], False)
+            for name, (draft, layout) in drafts.items()]
+    runs.append(("self-draft pool prefill", drafts["self-draft"][0], "w4sym", 24, True))
+    for name, dparams, layout, n_tokens, pool in runs:
+        label = f"paged spec {name}"
+        eng = paged_spec_engine(dev, config, target, dparams, pool)
+        calls = Calls()
+        count_paged_spec(label, eng, calls)
+        replay, peak = {}, 0
+        reset_counters()
+        rids = [eng.submit(p, max_new_tokens=n_tokens) for p in prompts]
+        while eng.step():
+            peak = max(peak, eng.blocks_in_use)
+            if eng.stats.rounds == 10 and cuda and not replay:
+                replay = spec_replays(eng)
+        res = eng.run()
+        tokens = [res[r] for r in rids]
+        if eng.blocks_in_use != 0:
+            raise AssertionError(f"[{label}] {eng.blocks_in_use} blocks in use after the run")
+        if [len(t) for t in tokens] != [n_tokens] * len(prompts):
+            raise AssertionError(f"[{label}] tokens {[len(t) for t in tokens]}")
+        launches = check_paged_spec_launches(label, calls, layers, layout)
+        ties, same = hold_to_oracle(label, tokens, want, decided)
+        checked = dict(calls=dict(calls.n), first_ties=ties,
+                       identical_sequences=same, graph_steps=dict(calls.held),
+                       peak_blocks_in_use=peak, stats=dataclasses.asdict(eng.stats))
+        log(f"  [{label}] tokens equal PagedEngine's before every near tie ({same}/8 identical "
+            f"over their length); no block in use at the end (peak {peak}); launches "
+            f"{launches}")
+        eng.stats = SpecStats()
+        timer = RoundTimer(label, eng, at=10 if cuda and not pool else None,
+                           lengths=lambda: eng._lengths.tolist())
+        with uncounted():
+            rids = [eng.submit(p, max_new_tokens=n_tokens) for p in prompts]
+            res = eng.run()
+        if [res[r] for r in rids] != tokens or eng.blocks_in_use != 0:
+            raise AssertionError(f"[{label}] the timed run of the same requests gave other "
+                                 f"tokens, or left {eng.blocks_in_use} blocks in use")
+        numbers = spec_numbers(f"{label}, 8 x {n_tokens} tokens", eng.stats, timer.s,
+                               sum(len(t) - 1 for t in tokens), replay, timer.profile)
+        numbers.update(launches=launches, checked_run=checked, tokens_per_request=n_tokens)
+        if not pool:
+            # the same requests once more, untimed and uncounted: every
+            # verify row with the oracle's history against its logits
+            rows = VerifyRows(eng, lambda: eng._step_lengths, lambda b: len(prompts[b]), want,
+                              oracle_logits, probe=True)
+            with uncounted():
+                for p in prompts:
+                    eng.submit(p, max_new_tokens=NEW_TOKENS)
+                eng.run()
+            numbers["verify_logits"] = rows.check(label)
+        if timer.profile is not None and timer.profile["groups_ms_per_step"] is not None:
+            k6_us = timer.profile["groups_ms_per_step"]["K6"] * 1e3 / layers
+            numbers["k6_us_per_served_call"] = k6_us
+            numbers["k6_bound_us"] = verify_bound_us(config, timer.lengths)
+            log(f"  [{label}] K6 {k6_us:.2f} us per served verify call (T={SPEC_K + 1}, 8 "
+                f"slots; bound about {numbers['k6_bound_us']:.2f} us at the profiled "
+                "lengths)")
+        numbers["over_paged_engine"] = numbers["tok_s"] / oracle["decode_tok_s"]
+        log(f"  [{label}] {numbers['over_paged_engine']:.2f}x PagedEngine's decode tok/s")
+        out[name] = numbers
+        del eng
+        release()
+    out["sampled"] = serve_paged_sampled(dev, config, target, prompts, want, decided)
+    return out
+
+
+def serve_paged_sampled(dev, config, target, prompts, want, decided):
+    """The sampled round on the card: the self-draft PagedSpeculativeEngine
+    with requests 0 and 1 sampled (temperature 0.8, top-k 50, top-p 0.9),
+    request 3 the prompt of request 2 at top-k 1, and the rest greedy; then
+    the same sampled requests beside other greedy neighbours. A sampled
+    request's tokens depend on its seed alone (the same in both runs); the
+    top-k 1 request is its greedy twin's stream; greedy tokens equal
+    PagedEngine's before near ties; exact launches; no block in use. The
+    second run's rounds are timed, three of them profiled."""
+    from flute_tpu_torch.serving import SamplingParams, SpecStats
+
+    n_tokens, layers, label = 40, config.num_layers, "paged spec sampled"
+    eng = paged_spec_engine(dev, config, target, target)
+    sampled = [SamplingParams(temperature=0.8, top_k=50, top_p=0.9, seed=s) for s in (21, 22)]
+    top1 = SamplingParams(temperature=1.0, top_k=1, seed=23)
+    greedy = SamplingParams()
+    runs = []
+    for order in ((4, 5, 6, 7), (7, 6, 5, 4)):
+        requests = [(prompts[0], sampled[0]), (prompts[1], sampled[1]), (prompts[2], greedy),
+                    (prompts[2], top1)] + [(prompts[i], greedy) for i in order]
+        calls, timer = Calls(), None
+        if runs:
+            eng.stats = SpecStats()
+            timer = RoundTimer(label, eng, at=3 if dev.type == "cuda" else None)
+        else:
+            count_paged_spec(label, eng, calls)
+            reset_counters()
+        rids = [eng.submit(p, max_new_tokens=n_tokens, sampling=sp) for p, sp in requests]
+        res = eng.run()
+        tokens = [res[r] for r in rids]
+        if [len(t) for t in tokens] != [n_tokens] * 8 or eng.blocks_in_use != 0:
+            raise AssertionError(f"[{label}] tokens {[len(t) for t in tokens]}, "
+                                 f"{eng.blocks_in_use} blocks in use at the end")
+        if tokens[3] != tokens[2]:
+            raise AssertionError(f"[{label}] top-k 1 {tokens[3]} != greedy {tokens[2]}")
+        idx = [2] + list(order)
+        hold_to_oracle(label, [tokens[i] for i in [2, 4, 5, 6, 7]], [want[i] for i in idx],
+                       decided[:, idx])
+        if not runs:
+            launches = check_paged_spec_launches(label, calls, layers, "w4sym")
+        runs.append(dict(tokens=tokens, timer=timer))
+    if runs[0]["tokens"][:2] != runs[1]["tokens"][:2]:
+        raise AssertionError(f"[{label}] sampled tokens changed with their neighbours")
+    timer = runs[1]["timer"]
+    numbers = spec_numbers(f"{label}, 8 x {n_tokens} tokens (2 sampled, 1 top-k 1)", eng.stats,
+                           timer.s, sum(len(t) - 1 for t in runs[1]["tokens"]), {},
+                           timer.profile)
+    numbers.update(launches=launches, tokens_per_request=n_tokens,
+                   sampled_tokens=runs[0]["tokens"][:2])
+    log(f"  [{label}] the sampled requests' tokens are the same beside other neighbours; the "
+        f"top-k 1 request is its greedy twin's stream; greedy tokens equal PagedEngine's before "
+        f"every near tie; no block in use at the end; launches {launches}")
+    del eng
+    release()
+    return numbers
+
+
+def check_verify_rows(dev, config, models):
+    """The verify's LUT-GEMM rows: each projection of layer 0 called at
+    M = 8 (k+1) = 40 gives, on every fifth row, the bits of the M = 8 call
+    on those rows (the loop's split does not follow M); and one layer's
+    four projections timed at M = 8 and M = 40, L2-cold over the 32
+    layers."""
+    from flute_tpu_torch.utils.benchmark import bench_op
+
+    m = 8 * (SPEC_K + 1)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    out = {}
+    for kid, params in models.items():
+        layers = params["layers"]
+        same = {}
+        for proj in ("qkv", "o", "gate_up", "down"):
+            lin = layers[0][proj]
+            x = torch.randn((m, lin.in_features), generator=gen, device=dev).to(config.dtype)
+            with torch.inference_mode():
+                y = lin(x)
+                y8 = lin(x[::SPEC_K + 1])
+            same[proj] = torch.equal(y[::SPEC_K + 1].view(torch.int16), y8.view(torch.int16))
+        if not all(same.values()):
+            raise AssertionError(f"[verify rows] {kid}: rows at M={m} differ from M=8: {same}")
+        numbers = dict(bit_identical=same)
+        if dev.type == "cuda":
+            for rows in (8, m):
+                xs = {proj: torch.randn((rows, layers[0][proj].in_features), generator=gen,
+                                        device=dev).to(config.dtype)
+                      for proj in ("qkv", "o", "gate_up", "down")}
+
+                def layer_call(layer):
+                    for proj, x in xs.items():
+                        layer[proj](x)
+
+                with torch.inference_mode():
+                    numbers[f"us_per_layer_m{rows}"] = bench_op(
+                        layer_call, [(layer,) for layer in layers]) * 1e6
+        out[kid] = numbers
+        log(f"  [verify rows] {kid}: every row of each layer-0 projection at M={m} has the bits "
+            f"of the M=8 call" + (f"; one layer's four projections "
+                                  f"{numbers['us_per_layer_m8']:.1f} us at M=8, "
+                                  f"{numbers[f'us_per_layer_m{m}']:.1f} us at M={m}"
+                                  if dev.type == "cuda" else ""))
+    return out
+
+
+def verify_bound_us(config, lengths, t=SPEC_K + 1, bs=SPEC_BLOCK):
+    """The least time of one K6 call at the served verify shape: each slot's
+    live blocks read once and q/out moved (bytes), or 4 H D per attended
+    position (operations), the larger."""
+    h, hkv, d = config.num_heads, config.num_kv_heads, config.head_dim
+    blocks = sum(-(-(n + t) // bs) for n in lengths)
+    nbytes = blocks * hkv * bs * d * 2 * 2 + 2 * len(lengths) * t * h * d * 2
+    flops = 4 * h * d * sum(n + j + 1 for n in lengths for j in range(t))
+    return max(nbytes / HBM_BYTES_PER_S, flops / BF16_OPS_PER_S) * 1e6
+
+
+def phase_spec(dev, results, trajectory, config=None):
+    """Phase 6: Llama-3.1-8B (random weights from seed 0, as phase 4's),
+    quantized on the card at g64, fused: the w4sym target (K1) and a W2
+    draft of the same weights (general 2-bit table, K2); then
+    ContinuousBatchingEngine, SpeculativeEngine and PagedSpeculativeEngine."""
+    from flute_tpu_torch.models import llama
+
+    config = config or llama.LlamaConfig.llama31_8b()
+    held = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+    t0 = time.perf_counter()
+    params = llama.init_params(config, seed=0, device=dev)
+    target = llama.quantize_model(params, group_size=GROUP, fuse=True, device=dev)
+    draft = llama.quantize_model(params, num_bits=2, group_size=GROUP, fuse=True, device=dev)
+    del params
+    release()
+    sync(dev)
+    gib = ((torch.cuda.memory_allocated(dev) - held) / 2**30) if dev.type == "cuda" else 0.0
+    log(f"  [spec] built the w4sym target and the W2 draft in {time.perf_counter() - t0:.1f} s, "
+        f"{gib:.2f} GiB allocated")
+    drafts = {"self-draft": (target, "w4sym"), "W2 draft": (draft, "plane")}
+    out = dict(verify_rows=check_verify_rows(dev, config, {"K1": target, "K2": draft}),
+               continuous=serve_continuous(dev, config, target, trajectory),
+               dense_spec=serve_dense_spec(dev, config, target, drafts, trajectory),
+               paged_spec=serve_paged_spec(dev, config, target, drafts))
+    del target, draft, drafts
+    release()
+    results["serving"]["spec"] = out
     return out
 
 
@@ -2067,15 +2901,18 @@ def main() -> int:
                              for run in ("engine", "engine_long", "paged")},
                       "K5": gemma["paged"]["launches"]["paged_decode"],
                       "K6": gemma["paged"]["launches"]["paged_verify"]}
+    log("== 6. continuous batching and speculative decoding, Llama-3.1-8B widths, 32 layers")
+    spec = phase_spec(dev, results, trajectories["w4sym"])
     lab_served = {fn: lab_ops.LAUNCHES[fn] - lab_before[fn] for fn in lab_before}
     lab2_served = {fn: lab2_ops.LAUNCHES[fn] - lab2_before[fn] for fn in lab2_before}
     if any(lab_served.values()) or any(lab2_served.values()):
-        raise AssertionError(f"phases 3-5 launched lab kernels: {lab_served}, {lab2_served}")
-    log(f"  lab kernels launched in phases 3-5: {lab_served}, {lab2_served}")
+        raise AssertionError(f"phases 3-6 launched lab kernels: {lab_served}, {lab2_served}")
+    log(f"  lab kernels launched in phases 3-6: {lab_served}, {lab2_served}")
 
     kernels = [kernel_line(kid, cases, launches[kid], results["identity_paths"],
-                           gemma_launches.get(kid)) for kid in LUT_KERNELS]
-    kernels += [attention_line(kid, attn_checks, attn_timed, launches[kid], gemma_launches[kid])
+                           gemma_launches.get(kid), spec) for kid in LUT_KERNELS]
+    kernels += [attention_line(kid, attn_checks, attn_timed, launches[kid], gemma_launches[kid],
+                               spec)
                 for kid in ("K5", "K6")]
     kernels += [lab_line(kid, LAB, lab_cases, lab_checks, lab_launches, lab_served)
                 for kid in LAB]

@@ -31,11 +31,12 @@ positions land there.
 Unlike the JAX engine, the pools are written in place (it returns updated
 copies); each layer's K/V write still comes before that layer's attention.
 Sampled tokens cannot reproduce ``jax.random``'s bits; the randomness of a
-draw is keyed on (``ENGINE_KEY``, request seed, generation index) through
-an explicit ``torch.Generator``, so a request's tokens do not depend on the
-batch around it. Llama and Gemma-2 are served, told apart by the config
-as the JAX engine tells them (``serving.paged_fwd.check_family``), with
-``mesh=None``; tensor parallelism is not ported yet.
+draw is keyed on (``continuous.ENGINE_KEY``, request seed, generation
+index) through an explicit ``torch.Generator``, so a request's tokens do
+not depend on the batch around it. Llama and Gemma-2 are served, told
+apart by the config as the JAX engine tells them
+(``serving.paged_fwd.check_family``), with ``mesh=None``; tensor
+parallelism is not ported yet.
 """
 
 from __future__ import annotations
@@ -48,47 +49,24 @@ import numpy as np
 import torch
 
 from flute_tpu_torch.device import resolve_device
-from flute_tpu_torch.models import gemma2, llama
 from flute_tpu_torch.models.llama import rope_tables
 from flute_tpu_torch.ops.paged_attention import paged_decode_attention
 from flute_tpu_torch.serving.continuous import (
     SamplingParams,
-    _apply_penalties,
     _bucket,
-    _sample_row,
-    _sample_slots,
-    fold_in,
+    _first_token_row,
+    family_of,
+    sample_first,
+    sample_step,
 )
 from flute_tpu_torch.serving.graph import StepGraph
 from flute_tpu_torch.serving.paged_fwd import (
     _head_logits,
     attention_options,
-    check_family,
     decoder_layers,
     embed,
     make_paged_multitoken_forward,
 )
-
-
-# the engine's key of the sampling randomness (the JAX engine's PRNGKey(0))
-ENGINE_KEY = 0
-
-
-def _first_token_row(row: np.ndarray, prompt, sampling, vocab: int):
-    """Host-side prep of the first draw after prefill: the prompt's bincount
-    and the repetition penalty over prompt tokens (presence and frequency
-    act on output tokens, of which there are none yet). Returns (row for
-    sampling, raw row for the logprob, pbins or None when unpenalized)."""
-    if not sampling.has_penalties:
-        return row, row, None
-    pbins = np.zeros((vocab,), np.int32)
-    np.add.at(pbins, np.asarray(prompt, np.int64), 1)
-    r = sampling.repetition_penalty or 1.0
-    raw = row
-    row = row.copy()
-    seen = pbins > 0
-    row[seen] = np.where(row[seen] > 0, row[seen] / r, row[seen] * r)
-    return row, raw, pbins
 
 
 @dataclasses.dataclass
@@ -122,6 +100,9 @@ class PagedEngine:
     # prefill through the pool and K6 instead of a dense scratch cache
     pool_prefill: bool = False
     device: Any = None
+    # whether submit takes repetition/presence/frequency penalties (a
+    # subclass whose steps keep no output counts says no)
+    supports_penalties = True
 
     def __post_init__(self):
         if self.mesh is not None or self.params_specs is not None:
@@ -130,7 +111,7 @@ class PagedEngine:
                 "(ROADMAP.md, queue 1 item 19)"
             )
         cfg = self.config
-        family = gemma2 if check_family(cfg) == "gemma2" else llama
+        family = family_of(cfg)
         self.device = resolve_device(self.device)
         # positions past a request's budget that decode may write: 1
         self._tail = 1
@@ -228,42 +209,15 @@ class PagedEngine:
             return self._decode_logits(self._step_tables, self._step_lengths, self._step_tokens)
         return self._graph()
 
-    def _generator(self, seed: int, count: int) -> torch.Generator:
-        """The generator of a request's ``count``-th draw."""
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(fold_in(fold_in(ENGINE_KEY, seed), count))
-        return gen
-
     @torch.inference_mode()
     def _decode(self, greedy: bool):
         """A decode step for every slot: tokens [B] and the logprobs of the
         raw distribution, on the host."""
-        dev = self.device
-        row = self._step_logits()
-        pen = _apply_penalties(row, self._pcounts, self._ocounts, torch.from_numpy(self._pres),
-                               torch.from_numpy(self._freq), torch.from_numpy(self._rep))
-        if greedy:
-            nxt = torch.argmax(pen, dim=-1)
-        else:
-            gens = [self._generator(int(s), int(c)) if t > 0 else None
-                    for s, c, t in zip(self._seeds, self._gen_count, self._temp)]
-            nxt = _sample_slots(pen, self._temp, self._top_k, self._top_p, gens)
-        ar = torch.arange(row.shape[0], device=dev)
-        lp = torch.log_softmax(row, dim=-1)[ar, nxt]
-        self._ocounts[ar, nxt] += 1
+        nxt, lp = sample_step(self._step_logits(), self._pcounts, self._ocounts,
+                              torch.from_numpy(self._pres), torch.from_numpy(self._freq),
+                              torch.from_numpy(self._rep), self._temp, self._top_k,
+                              self._top_p, self._seeds, self._gen_count, greedy)
         return nxt.cpu().numpy(), lp.cpu().numpy()
-
-    @torch.inference_mode()
-    def _sample_first(self, logits_row: torch.Tensor, sampling: SamplingParams,
-                      raw_row: Optional[torch.Tensor] = None):
-        """The first token after prefill from ``logits_row`` (penalized or
-        not) and its logprob under ``raw_row`` (the model's row; default
-        ``logits_row``). It is the request's generation 0."""
-        gen = self._generator(sampling.seed, 0) if sampling.temperature > 0 else None
-        tok = _sample_row(logits_row, sampling.temperature, sampling.top_k, sampling.top_p, gen)
-        raw = logits_row if raw_row is None else raw_row
-        lp = torch.log_softmax(raw.float(), dim=-1)[tok]
-        return int(tok), float(lp)
 
     # -- admission / bookkeeping -------------------------------------------
 
@@ -287,6 +241,12 @@ class PagedEngine:
             sampling = SamplingParams(**sampling_kw)
         elif sampling_kw:
             raise ValueError("pass either sampling= or keyword params, not both")
+        if sampling.has_penalties and not self.supports_penalties:
+            raise ValueError(
+                "repetition/presence/frequency penalties are not supported by this engine "
+                "(speculative verify does not track output counts); use PagedEngine or "
+                "ContinuousBatchingEngine"
+            )
         rid = self._next_rid
         self._next_rid += 1
         self._queue.append((rid, list(prompt), max_new_tokens, sampling))
@@ -466,7 +426,7 @@ class PagedEngine:
             srow = torch.from_numpy(srow).to(self.device)
         else:
             pbins, srow = None, last_row
-        first, first_lp = self._sample_first(srow, sampling, last_row)
+        first, first_lp = sample_first(srow, sampling, last_row)
         if pbins is None:
             self._pcounts[slot] = 0
         else:

@@ -29,7 +29,14 @@ from flute_tpu_torch.ops import lut_gemm
 from flute_tpu_torch.ops import paged_attention as pa
 from flute_tpu_torch.ops.kernel_config import KernelConfig
 from flute_tpu_torch.quantize import higgs
-from flute_tpu_torch.serving import Engine, PagedEngine
+from flute_tpu_torch.serving import (
+    ContinuousBatchingEngine,
+    Engine,
+    PagedEngine,
+    PagedSpeculativeEngine,
+    SamplingParams,
+    SpeculativeEngine,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -1282,3 +1289,222 @@ def test_k5_k6_at_gemma2_heads(dev, dtype, softcap, window):
     got = pa.paged_verify_attention(q, kp, vp, tables, lens, **kw)
     want = pa.paged_verify_reference(q, kp, vp, tables, lens, **kw)
     assert max_rel(got, want) < TOL[torch.bfloat16]
+
+
+# ---------------------------------------------------------------------------
+# Continuous batching and speculative decoding on the card
+# ---------------------------------------------------------------------------
+
+SPEC_PROMPTS = ([5, 9, 2, 14, 3, 8, 1, 6, 20, 21, 22], [11, 5, 3])
+# requests of other lengths and budgets: (prompt length, budget)
+QUEUED = ((5, 6), (13, 3), (2, 9), (17, 4), (7, 7), (3, 2), (9, 5))
+
+
+def queued_requests(config, seed=2):
+    rng = np.random.default_rng(seed)
+    return [(rng.integers(1, config.vocab_size, n).tolist(), b) for n, b in QUEUED]
+
+
+def counting(eng, attr, counts, key):
+    fn = getattr(eng, attr)
+
+    def wrapped(*a, **kw):
+        counts[key] = counts.get(key, 0) + 1
+        return fn(*a, **kw)
+
+    setattr(eng, attr, wrapped)
+
+
+@pytest.mark.parametrize("family", list(FAMILIES))
+def test_continuous_graphed_step_is_the_eager_step(dev, family):
+    _, config, qparams = tiny_model(dev, family)
+    eng = ContinuousBatchingEngine(params=qparams, config=config, num_slots=3, max_len=64,
+                                   device=dev)
+    for p in SPEC_PROMPTS:
+        eng.submit(p, max_new_tokens=6)
+    eng.step()  # admits both; its decode step runs eagerly and captures
+    assert eng._graph.captured
+    for _ in range(2):
+        graphed = eng._step_logits().clone()  # a replay; K/V written at the same slots
+        eager = eng._decode_logits(eng._step_tokens, eng._step_pos)
+        assert torch.equal(bits32(graphed), bits32(eager))
+        eng.step()
+
+
+@pytest.mark.parametrize("family", list(FAMILIES))
+def test_continuous_graph_through_admissions_and_a_queue(dev, family):
+    """Seven requests on three slots, chunked prefill and a sampled one: the
+    graphed engine gives the eager engine's tokens and logprobs, with exact
+    launches under replay."""
+    _, config, qparams = tiny_model(dev, family)
+    requests = queued_requests(config)
+    outs = []
+    for graphed in (True, False):
+        eng = ContinuousBatchingEngine(params=qparams, config=config, num_slots=3, max_len=40,
+                                       prefill_chunk=8, device=dev)
+        if not graphed:
+            eng._graph = None
+        calls = {}
+        counting(eng, "_decode", calls, "steps")
+        counting(eng, "_run_chunk", calls, "chunks")
+        reset_launches()
+        rids = [eng.submit(p, max_new_tokens=b, **({"temperature": 0.8, "seed": 4} if i == 2
+                                                   else {}))
+                for i, (p, b) in enumerate(requests)]
+        out = eng.run()
+        outs.append([(out[r], eng.finished_logprobs[r]) for r in rids])
+        # a bucket prefill for prompts of 8 or fewer tokens, else chunks
+        bucketed = sum(1 for p, _ in requests if len(p) <= 8)
+        forwards = calls["steps"] + calls.get("chunks", 0) + bucketed
+        want = {k: 0 for k in lut_gemm.LAUNCHES}
+        want["w4sym"] = forwards * config.num_layers * 4
+        assert lut_gemm.LAUNCHES == want
+    assert outs[0] == outs[1]
+    assert [len(t) for t, _ in outs[0]] == [b for _, b in requests]
+
+
+@pytest.mark.parametrize("family", list(FAMILIES))
+def test_speculative_graphed_steps_are_the_eager_steps(dev, family):
+    """The dense engine's draft replay (its third call) and verify replay
+    (its second) against the eager steps on the same state, bit for bit;
+    the graphed engine gives the eager engine's tokens."""
+    _, config, qparams = tiny_model(dev, family)
+    outs, held = [], []
+    for graphed in (True, False):
+        eng = SpeculativeEngine(qparams, config, qparams, config, k=3, max_len=64, batch_size=2,
+                                device=dev)
+        if not graphed:
+            eng._draft_graph = eng._verify_graph = None
+        calls = {}
+        for attr, eager, at in (
+                ("_draft_step", lambda e=eng: e.draft_logits(e._d_tok, e._d_pos_buf, e._offsets), 3),
+                ("_verify_step", lambda e=eng: e.verify_logits(e._v_toks, e._t_pos, e._offsets),
+                 2)):
+            fn = getattr(eng, attr)
+
+            def wrapped(fn=fn, attr=attr, eager=eager, at=at):
+                r = fn()
+                calls[attr] = calls.get(attr, 0) + 1
+                if calls[attr] == at and graphed:
+                    held.append(torch.equal(bits32(r.clone()), bits32(eager())))
+                return r
+
+            setattr(eng, attr, wrapped)
+        outs.append(eng.generate(list(SPEC_PROMPTS), max_new_tokens=12))
+        if graphed:
+            assert eng._draft_graph.captured and eng._verify_graph.captured
+    assert held == [True, True]
+    assert outs[0] == outs[1]
+
+
+@pytest.mark.parametrize("pool_prefill", [False, True])
+@pytest.mark.parametrize("family", list(FAMILIES))
+def test_paged_speculative_graphs_launches_and_blocks(dev, family, pool_prefill):
+    """Seven requests on three slots and a pool that makes some wait: the
+    graphed engine's draft and verify replays have the eager steps' bits,
+    it gives the eager engine's tokens, its launches are exact (K6 once a
+    layer per verify and per pool-prefill chunk) and every block comes
+    back."""
+    _, config, qparams = tiny_model(dev, family)
+    requests = queued_requests(config)
+    outs, held = [], []
+    for graphed in (True, False):
+        eng = PagedSpeculativeEngine(params=qparams, config=config, draft_params=qparams,
+                                     draft_config=config, k=3, num_slots=3, block_size=8,
+                                     num_blocks=12, max_len=40, pool_prefill=pool_prefill,
+                                     device=dev)
+        if not graphed:
+            eng._draft_graph = eng._verify_graph = None
+        calls = {}
+        for attr, eager, at in (
+                ("_draft_step", lambda e=eng: e._draft_logits(e._d_tok, e._d_pos_buf), 3),
+                ("_verify_step", lambda e=eng: e._verify_logits(e._step_tables, e._step_lengths,
+                                                                e._v_toks), 2)):
+            fn = getattr(eng, attr)
+
+            def wrapped(fn=fn, attr=attr, eager=eager, at=at):
+                r = fn()
+                calls[attr] = calls.get(attr, 0) + 1
+                if calls[attr] == at and graphed:
+                    with torch.inference_mode():
+                        saved = [dict(c) for c in (lut_gemm.LAUNCHES, pa.LAUNCHES)]
+                        held.append(torch.equal(bits32(r.clone()), bits32(eager())))
+                        for c, b in zip((lut_gemm.LAUNCHES, pa.LAUNCHES), saved):
+                            c.update(b)
+                return r
+
+            setattr(eng, attr, wrapped)
+        reset_launches()
+        rids = [eng.submit(p, max_new_tokens=b) for p, b in requests]
+        waited = False
+        while eng.step():
+            waited |= bool(eng._queue)
+        out = eng.run()
+        outs.append([out[r] for r in rids])
+        assert waited and eng.blocks_in_use == 0
+        prefills = len(requests)  # one chunk (or dense call) per admission, one draft prefill
+        per_forward = config.num_layers * 4
+        want = {k: 0 for k in lut_gemm.LAUNCHES}
+        want["w4sym"] = (calls["_verify_step"] + calls["_draft_step"] + 2 * prefills) * per_forward
+        assert lut_gemm.LAUNCHES == want
+        assert pa.LAUNCHES == {"paged_decode": 0, "paged_verify": (
+            calls["_verify_step"] + (prefills if pool_prefill else 0)) * config.num_layers}
+    assert held == [True, True]
+    assert outs[0] == outs[1]
+    assert [len(o) for o in outs[0]] == [b for _, b in requests]
+
+
+@pytest.mark.parametrize("family", list(FAMILIES))
+def test_paged_speculative_sampling_on_the_card(dev, family):
+    """Sampled slots on the card, graphed: a request's tokens depend on its
+    seed alone (the same with other neighbours), a top-k 1 request is the
+    greedy stream of the same prompt beside it, and every block comes
+    back; the dense engine's top-k 1 stream is its greedy stream."""
+    _, config, qparams = tiny_model(dev, family)
+    sampled = dict(temperature=0.9, top_k=40, top_p=0.95, seed=123)
+    prompt = list(SPEC_PROMPTS[0])
+    outs = []
+    for others in queued_requests(config, seed=3)[:2], queued_requests(config, seed=4)[:2]:
+        eng = PagedSpeculativeEngine(params=qparams, config=config, draft_params=qparams,
+                                     draft_config=config, k=3, num_slots=4, block_size=8,
+                                     num_blocks=24, max_len=48, device=dev)
+        rids = [eng.submit(prompt, max_new_tokens=12, **sampled),
+                eng.submit(prompt, max_new_tokens=12),
+                eng.submit(prompt, max_new_tokens=12, temperature=1.0, top_k=1, seed=5)]
+        rids += [eng.submit(p, max_new_tokens=b) for p, b in others]
+        out = eng.run()
+        outs.append([out[r] for r in rids])
+        assert eng._draft_graph.captured and eng._verify_graph.captured
+        assert eng.blocks_in_use == 0
+    assert outs[0][0] == outs[1][0] and len(outs[0][0]) == 12
+    assert outs[0][2] == outs[0][1] and outs[1][2] == outs[1][1]
+    greedy, top1 = (SpeculativeEngine(qparams, config, qparams, config, k=3, max_len=64,
+                                      batch_size=2, device=dev).generate(
+        list(SPEC_PROMPTS), max_new_tokens=10, sampling=s)
+        for s in (None, SamplingParams(temperature=1.0, top_k=1, seed=3)))
+    assert top1 == greedy
+
+
+@pytest.mark.parametrize("n,k", [(6144, 4096), (4096, 4096), (28672, 4096), (4096, 14336)])
+@pytest.mark.parametrize("layout,bits", [("w4sym", 4), ("plane", 2)])
+def test_verify_rows_at_m40_have_the_bits_of_m8(dev, layout, bits, n, k):
+    """A verify of k+1 = 5 tokens for 8 slots multiplies M = 40 rows: at the
+    Llama-3.1-8B projection shapes, on K1 (the w4sym target) and K2 at 2
+    bits (the W2 draft), every fifth row has the bits of the M = 8 call on
+    those rows (the loop's split does not follow M). Random planes: any
+    bits are valid codes."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(n + k)
+    planes = [torch.randint(-2**31, 2**31 - 1, (k * bits // 32, n), generator=gen, device=dev,
+                            dtype=torch.int32)]
+    scales = (torch.rand((k // G, n), generator=gen, device=dev) + 0.5).bfloat16()
+    table = torch.randn(2**bits, generator=gen, device=dev)
+    if layout == "w4sym":
+        mags = table[:8].abs().sort().values
+        table = torch.cat([mags, -mags])
+    x = torch.randn((40, k), generator=gen, device=dev).bfloat16()
+    kw = dict(num_bits=bits, layout=layout, config=KernelConfig(chunk=256))
+    y = lut_gemm.lut_qgemm(x, planes, scales, table, **kw)
+    y8 = lut_gemm.lut_qgemm(x[::5], planes, scales, table, **kw)
+    assert torch.equal(y[::5].view(torch.int16), y8.view(torch.int16))
+    assert lut_gemm.lut_path(torch.bfloat16, bits, 256, layout) == "mma"

@@ -87,7 +87,12 @@ def test_entry_points_raise_without_a_gpu(no_gpu):
     from flute_tpu_torch.lab import kernel_lab, kernel_lab2
     from flute_tpu_torch.models import llama
     from flute_tpu_torch.nn import from_codes, quantize_linear
-    from flute_tpu_torch.serving import Engine
+    from flute_tpu_torch.serving import (
+        ContinuousBatchingEngine,
+        Engine,
+        PagedSpeculativeEngine,
+        SpeculativeEngine,
+    )
 
     config = llama.LlamaConfig.tiny()
     codes = np.zeros((256, 128), np.int32)
@@ -97,6 +102,10 @@ def test_entry_points_raise_without_a_gpu(no_gpu):
         "quantize_model": lambda: llama.quantize_model({"layers": []}),
         "quantize_linear": lambda: quantize_linear(np.ones((128, 256), np.float32)),
         "Engine": lambda: Engine(params={}, config=config),
+        "ContinuousBatchingEngine": lambda: ContinuousBatchingEngine(params={}, config=config),
+        "SpeculativeEngine": lambda: SpeculativeEngine({}, config, {}, config),
+        "PagedSpeculativeEngine": lambda: PagedSpeculativeEngine(
+            params={}, config=config, draft_params={}, draft_config=config),
         "pack": lambda: packing.pack(codes, 4),
         "from_codes": lambda: from_codes(codes, np.ones((4, 128), np.float32), None, 4, 64),
         "params_from_numpy": lambda: interop.params_from_numpy({"embed": codes}),

@@ -32,7 +32,7 @@ from flute_tpu.serving.paged import PagedEngine as JPagedEngine
 from flute_tpu_torch.models import gemma2
 from flute_tpu_torch.ops import paged_attention as pa
 from flute_tpu_torch.serving import Engine, PagedEngine, SamplingParams
-from flute_tpu_torch.serving import continuous
+from flute_tpu_torch.serving import continuous, paged
 
 @pytest.fixture(autouse=True, scope="module")
 def few_torch_threads():
@@ -285,14 +285,17 @@ def check_paged_against_jax(ref, config, tq, prompts, pool_prefill):
     dense_first, _ = eng.prefill(torch.from_numpy(toks), torch.from_numpy(offsets))
     peng = PagedEngine(params=tq, config=config, device="cpu", **engine_kw(pool_prefill))
     rows = []
-    sample_first = peng._sample_first
+    sample_first = paged.sample_first
 
     def record(row, sampling, raw=None):
         rows.append(row.clone())
         return sample_first(row, sampling, raw)
 
-    peng._sample_first = record
-    out, trace = drive(peng, prompts)
+    paged.sample_first = record  # the engine's first draw after each prefill
+    try:
+        out, trace = drive(peng, prompts)
+    finally:
+        paged.sample_first = sample_first
     assert trace == ref["trace"]
     assert trace[0][1] == 1, "the third request should wait for blocks"
     assert peng.prefix_hits == 1 and peng.prefix_block_hits == 1
