@@ -144,7 +144,34 @@ Phases (any failure exits non-zero):
      reports tok/s and ms per round (per step), the graphs' device ms per
      replay, the idle share (1 - device busy / wall of profiled rounds, or
      of the continuous engine's replay over its median step), acceptance
-     and bonus tokens, and K6's µs per served verify call with its bound.
+     and bonus tokens, and K6's µs per served verify call with its bound;
+  7. the quantized lm_head, the HTTP server and perplexity on Llama-3.1-8B
+     at full width and depth (phase 4's random weights, seed 0; w4sym, g64,
+     fused, quantized on the card with the head): K1 at the two quantized
+     heads (Llama's [129024, 4096], Gemma-2-9B's tied [256000, 3584]) at
+     M = 1 and 8 and at the perplexity prefill (M = 2047, one layer), held
+     against its plain version (relative Frobenius error under 1.1e-2),
+     rows 0 and M-1 to the one-row call's bits, timed beside its plain
+     version and a yardstick (matmul_f32 on the dense bf16 head, the call a
+     step makes with a dense head; a bf16 matmul on the dequantized layer);
+     the quantized-head Engine (8 prompts, 24 tokens, exact launches: 32 x 4
+     + 1 per forward; its decode profile and dtype-copy check) with first
+     logits within 0.15 of the largest dense-head logit (phase 4's); then
+     ContinuousBatchingEngine (8 slots, max_len 512) run directly and behind
+     the port's serve(): /health, /v1/models, the 8 prompts as 8 concurrent
+     greedy requests held to Engine's before near ties, one request plain,
+     as NDJSON and as SSE (bit for bit the same), n = 2 sampled choices
+     equal to direct submissions with seeds s and s + 1, chat equal to the
+     templated completion, malformed requests 400, /metrics counting the
+     requests and tokens, exact K1 launches, time to first token and ms per
+     token streamed against the engine's median step, the idle share from
+     profiling.device_trace over one streamed request (the trace file must
+     name K1); PagedEngine (K1, K5) behind the server for 12 tokens a
+     request (cut from 24 to keep the phase short), held to Engine before
+     near ties, exact launches, no block in use at the end; perplexity of
+     4096 tokens from a numpy seed in two windows of 2048, quantized at
+     batch 1 and 2 (within 1e-3), with the quantized head, and dense bf16
+     (the quantized ones within 5%), exact K1 launches, seconds per window.
 
 Prints a {"kernels": [...]} line, then as its last line
 {"ok": true, "device": {...}}. Writes the full results to
@@ -161,7 +188,10 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
 
 import numpy as np
 import torch
@@ -1389,12 +1419,13 @@ def hold_graph_step(name, graphed, eager):
     return dict(bit_identical=same, max_rel_err=err)
 
 
-def serve_engine(name, eng, prompts, kernel_layout, new_tokens=None):
+def serve_engine(name, eng, prompts, kernel_layout, new_tokens=None, head=0):
     """Serve ``prompts`` once through ``eng.generate`` (its decode step
     graphed on the card), each step through exactly ``kernel_layout``'s
-    kernel (steps x layers x 4 launches, none of the others), then hold one
-    more replayed step bit for bit against the eager step. Returns the run's
-    numbers and (tokens, the [steps, B, V] logits that chose them)."""
+    kernel (steps x (layers x 4 + ``head``) launches, ``head`` 1 for a
+    quantized lm_head; none of the others), then hold one more replayed step
+    bit for bit against the eager step. Returns the run's numbers and
+    (tokens, the [steps, B, V] logits that chose them)."""
     from flute_tpu_torch.ops import lut_gemm
 
     new_tokens = new_tokens or NEW_TOKENS
@@ -1423,7 +1454,7 @@ def serve_engine(name, eng, prompts, kernel_layout, new_tokens=None):
 
     steps = len(logits_seen)  # one prefill + the decode steps
     expected = {k: 0 for k in launches}
-    expected[kernel_layout] = steps * layers * 4
+    expected[kernel_layout] = steps * (layers * 4 + head)
     if steps != new_tokens or launches != expected:
         raise AssertionError(f"[{name}] launches {launches} over {steps} steps, "
                              f"expected {expected}")
@@ -2790,6 +2821,548 @@ def phase_spec(dev, results, trajectory, config=None):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the quantized lm_head, the HTTP server and perplexity
+# ---------------------------------------------------------------------------
+
+# the quantized heads, [N = vocab padded to a multiple of 2048, K = hidden]:
+# Llama-3.1-8B's (128256 -> 129024) and Gemma-2-9B's tied head (its 256000
+# tokens, already a multiple)
+HEAD_SHAPES = {"llama31_8b": (129024, 4096, 128256), "gemma2_9b": (256000, 3584, 256000)}
+HEAD_M = (1, 8)
+HEAD_CONTRACT = 0.15  # tests/test_quantized_head.py:30
+SERVER_TOKENS = 24
+PAGED_SERVER_TOKENS = 12
+PPL_SEQ = 2048
+PPL_WINDOWS = 2
+
+
+def k1_case(dev, gen, name, n, k, m, dense_n=None, dense_t=False):
+    """K1 (w4sym, bf16) at one shape: held against its plain version
+    (relative Frobenius error), rows 0 and M-1 to the one-row call's bits
+    and a repeat call to the same bits; then K1, its plain version and the
+    yardstick timed, L2-cold: ``matmul_f32`` on a dense bf16 weight of
+    ``dense_n`` columns (the head the step multiplies today: ``[K, N]``, or
+    ``[N, K]`` read through its transpose with ``dense_t``, as Gemma-2's
+    tied head is), else a bf16 ``torch.matmul`` on the dequantized weight.
+    Random planes: any bits are valid w4sym codes."""
+    from flute_tpu_torch.models.llama import matmul_f32
+    from flute_tpu_torch.ops import lut_gemm
+    from flute_tpu_torch.ops.kernel_config import KernelConfig
+    from flute_tpu_torch.utils.benchmark import bench_op, cold_copies
+
+    planes = [torch.randint(-2**31, 2**31 - 1, (k // 8, n), generator=gen, device=dev,
+                            dtype=torch.int32)]
+    scales = (torch.rand((k // GROUP, n), generator=gen, device=dev) + 0.5).bfloat16()
+    mags = torch.randn(8, generator=gen, device=dev).abs().sort().values
+    table = torch.cat([mags, -mags])
+    x = torch.randn((m, k), generator=gen, device=dev).bfloat16()
+    kw = dict(num_bits=4, layout="w4sym", config=KernelConfig(chunk=256))
+    label = f"{name} M={m}"
+    y = lut_gemm.lut_qgemm(x, planes, scales, table, **kw)
+    y_plain = lut_gemm.lut_qgemm_plain(x, planes, scales, table, num_bits=4, chunk=256,
+                                       layout="w4sym")
+    again = lut_gemm.lut_qgemm(x, planes, scales, table, **kw)
+    if not torch.equal(again.view(torch.int16), y.view(torch.int16)):
+        raise AssertionError(f"K1 {label}: a repeat call gave other bits")
+    if m > 1:
+        check_rows("K1", label, x, y, lambda xr: lut_gemm.lut_qgemm(xr, planes, scales, table,
+                                                                    **kw))
+    err = rel_err(y, y_plain)
+    max_abs = float((y.float() - y_plain.float()).abs().max())
+    if not err < THRESHOLDS[torch.bfloat16]:
+        raise AssertionError(f"K1 {label}: rel err {err}")
+    del y, y_plain, again
+    wbytes = planes[0].numel() * 4 + scales.numel() * 2
+    args = [([p.clone() for p in planes], scales.clone()) for _ in range(cold_copies(wbytes))]
+    t_k = bench_op(lambda p, s: lut_gemm.lut_qgemm(x, p, s, table, **kw), args)
+    t_p = bench_op(lambda p, s: lut_gemm.lut_qgemm_plain(x, p, s, table, num_bits=4, chunk=256,
+                                                         layout="w4sym"),
+                   args[:2], min_launches=2)
+    del args
+    if dense_n is not None:
+        shape = (dense_n, k) if dense_t else (k, dense_n)
+        dense = [torch.randn(shape, generator=gen, device=dev).bfloat16()
+                 for _ in range(cold_copies(k * dense_n * 2))]
+        t_l = bench_op(lambda w: matmul_f32(x, w.T if dense_t else w), [(w,) for w in dense])
+        library_bytes = k * dense_n * 2 + m * k * 2 + m * dense_n * 4
+        yardstick = "matmul_f32 on the dense bf16 head"
+    else:
+        deq = lut_gemm.dequantize_codes(
+            lut_gemm._packing.unpack(planes, 4, chunk=256, layout="w4sym"), scales, table,
+            torch.bfloat16)
+        deq_c = [deq.clone() for _ in range(cold_copies(deq.numel() * 2))]
+        del deq
+        t_l = bench_op(lambda w: torch.matmul(x, w), [(w,) for w in deq_c])
+        del deq_c
+        library_bytes = k * n * 2 + m * k * 2 + m * n * 2
+        yardstick = "torch.matmul on the dequantized bf16 weight"
+    nbytes = wbytes + table.numel() * 4 + m * k * 2 + m * n * 2
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2 * m * n * k / BF16_OPS_PER_S
+    case = dict(kernel="K1", name=name, n=n, k=k, m=m, dtype="bfloat16", rel_err=err,
+                max_abs_err=max_abs, path=kernel_path("K1", torch.bfloat16, 4), bytes=nbytes,
+                us=t_k * 1e6, plain_us=t_p * 1e6, library_us=t_l * 1e6,
+                bound_us=max(t_bytes, t_ops) * 1e6,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                library_bound_us=library_bytes / HBM_BYTES_PER_S * 1e6, yardstick=yardstick)
+    case["share_of_bound"] = case["bound_us"] / case["us"]
+    log(f"    {label:22s} err={err:.2e} kernel {case['us']:9.1f} us  bound "
+        f"{case['bound_us']:7.1f} us ({case['bound_by']}, {100 * case['share_of_bound']:5.1f}%)  "
+        f"plain {case['plain_us']:9.1f} us  yardstick {case['library_us']:8.1f} us (its bound "
+        f"{case['library_bound_us']:.1f} us)")
+    return case
+
+
+def measured(value, unit="") -> str:
+    return "not measured" if value is None else f"{value:.2f}{unit}"
+
+
+def check_heads(dev):
+    """Phase 7a: K1 at the two quantized heads (M = 1 and 8) and at the
+    perplexity prefill (M = 2047, one Llama-3.1-8B layer's projections)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    cases = []
+    for model, (n, k, vocab) in HEAD_SHAPES.items():
+        log(f"  K1 at {model}'s quantized head [{n}, {k}] (vocab {vocab})")
+        for m in HEAD_M:
+            cases.append(dict(k1_case(dev, gen, f"{model} head", n, k, m, dense_n=vocab,
+                                      dense_t=model == "gemma2_9b"), model=model))
+    log(f"  K1 at the perplexity prefill, M = {PPL_SEQ - 1} (one window of {PPL_SEQ})")
+    for name, n, k in LAYER_SHAPES:
+        cases.append(dict(k1_case(dev, gen, name, n, k, PPL_SEQ - 1), model="llama31_8b"))
+    release()
+    return cases
+
+
+def head_stack(cases, model, m):
+    return [c for c in cases if c["model"] == model and c["m"] == m and c["name"].endswith("head")]
+
+
+class StubTokenizer:
+    """The duck-typed tokenizer of tests/test_server.py:291-310: the chat
+    template flattens the messages' ids with a 7 after each; a token
+    decodes to a space and its number."""
+
+    eos_token_id = None
+
+    def apply_chat_template(self, messages, add_generation_prompt=True):
+        ids = []
+        for m in messages:
+            ids.extend(int(t) for t in m["content"].split())
+            ids.append(7)
+        return ids
+
+    def __call__(self, text):
+        return {"input_ids": [int(t) for t in text.split()]}
+
+    def decode(self, toks):
+        return "".join(f" {t}" for t in toks)
+
+
+class Client:
+    """HTTP calls to a served engine, each with a timeout; counts the
+    requests the engine was given and the tokens that came back."""
+
+    def __init__(self, srv):
+        self.base = f"http://127.0.0.1:{srv.server_address[1]}"
+        self.requests = 0
+        self.tokens = 0
+        self._lock = threading.Lock()  # concurrent() posts from several threads
+
+    def _count(self, requests, tokens):
+        with self._lock:
+            self.requests += requests
+            self.tokens += tokens
+
+    def _request(self, path, payload):
+        return urllib.request.Request(self.base + path, data=json.dumps(payload).encode(),
+                                      headers={"Content-Type": "application/json"})
+
+    def post(self, payload, path="/v1/completions", engine_requests=1):
+        try:
+            with urllib.request.urlopen(self._request(path, payload), timeout=300) as r:
+                out = r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read())
+        body = out[1]
+        tokens = len(body.get("tokens", ()))
+        for c in body.get("choices", ()):
+            tokens += len(c["token_ids"] if "token_ids" in c else c["message"]["content"].split())
+        self._count(engine_requests, tokens)
+        return out
+
+    def stream(self, payload):
+        """A streamed completion: its tokens, the seconds to its first token
+        and from its first token to its last, from the client's clock."""
+        t0 = time.perf_counter()
+        toks, first, last = [], None, None
+        with urllib.request.urlopen(self._request("/v1/completions", payload), timeout=300) as r:
+            for ln in r:
+                ln = ln.decode().strip()
+                if not ln:
+                    continue
+                if ln.startswith("data: "):
+                    if ln == "data: [DONE]":
+                        continue
+                    ids = json.loads(ln[6:])["choices"][0]["token_ids"]
+                else:
+                    rec = json.loads(ln)
+                    ids = [rec["token"]] if "token" in rec else []
+                for t in ids:
+                    now = time.perf_counter()
+                    first = first if first is not None else now
+                    last = now
+                    toks.append(t)
+        self._count(1, len(toks))
+        return toks, first - t0, last - first
+
+    def get(self, path):
+        with urllib.request.urlopen(self.base + path, timeout=60) as r:
+            return r.read().decode()
+
+    def metrics(self) -> dict:
+        vals = {}
+        for ln in self.get("/metrics").splitlines():
+            if ln and not ln.startswith("#"):
+                k, v = ln.split()
+                vals[k] = float(v)
+        return vals
+
+
+def concurrent(client, payloads):
+    """Post ``payloads`` from one thread each, all at once."""
+    got = [None] * len(payloads)
+
+    def run(i):
+        got[i] = client.post(payloads[i])
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(payloads))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    if any(g is None or g[0] != 200 for g in got):
+        raise AssertionError(f"[server] concurrent requests failed: {[g and g[0] for g in got]}")
+    return [g[1]["tokens"] for g in got]
+
+
+def count_forwards(eng, decode_attr):
+    """Count an engine's decode steps (``decode_attr``, graphed) and its
+    prefill forwards (``eng.forward`` outside a decode step)."""
+    calls = Calls()
+    calls.count(eng, decode_attr, key="decode", step=True)
+    calls.count(eng, "forward", key="prefill_forward")
+    return calls
+
+
+def trace_served(client, payload, log_dir):
+    """torch.profiler over one streamed request, through the port's
+    profiling.device_trace, while the server's device thread serves it: the
+    trace file, its size, whether it names K1, and the device's idle share
+    (1 - device busy / the trace's wall)."""
+    from flute_tpu_torch.utils import profiling
+
+    shutil.rmtree(log_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    with profiling.device_trace(log_dir) as prof:
+        toks, _, _ = client.stream(payload)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    summary = profile_summary("server, one streamed request", prof, wall, len(toks))
+    path = os.path.join(log_dir, profiling.TRACE_FILE)
+    text = open(path).read() if os.path.isfile(path) else ""
+    names_k1 = any(p in text for p in PROFILE_GROUPS["K1"])
+    out = dict(trace_bytes=len(text), names_k1=names_k1, tokens=len(toks),
+               wall_ms_per_token=wall / len(toks) * 1e3,
+               device_ms_per_token=summary["device_ms_per_step"],
+               idle_share=summary["idle_share"], k1_ms_per_token=(
+                   summary["groups_ms_per_step"] or {}).get("K1"))
+    shutil.rmtree(log_dir, ignore_errors=True)
+    if not text or not names_k1:
+        raise AssertionError(f"[server] the trace in {log_dir} is missing or names no K1 "
+                             f"kernel ({len(text)} bytes)")
+    return out
+
+
+def serve_http(dev, config, qparams, oracle):
+    """Phase 7b: ContinuousBatchingEngine (8 slots, max_len 512, the
+    quantized head) run directly, then behind the port's server; then
+    PagedEngine behind the server for a shorter run."""
+    from flute_tpu_torch.serving import ContinuousBatchingEngine, PagedEngine, SamplingParams
+    from flute_tpu_torch.serving.server import serve as http_serve
+
+    prompts = serving_prompts(config)
+    want, logits = oracle
+    per_forward = config.num_layers * 4 + 1  # the quantized head: one more K1 launch
+    eng = ContinuousBatchingEngine(params=qparams, config=config, num_slots=8,
+                                   max_len=SPEC_MAX_LEN, device=dev)
+    decode_s = []
+    timed(eng, "_decode", decode_s)
+    calls = count_forwards(eng, "_step_logits")
+    reset_counters()
+    rids = [eng.submit(p, max_new_tokens=SERVER_TOKENS) for p in prompts]
+    direct = eng.run()
+    direct = [direct[r] for r in rids]
+    check_launches("server: direct run", {"w4sym": (calls["decode"] + calls["prefill_forward"])
+                                          * per_forward})
+    ties, decided = hold_tokens("server: direct run", direct, want, logits[:, :8])
+    step_ms = float(np.median(decode_s)) * 1e3
+    log(f"  [server] the engine run directly: tokens equal Engine's before every near tie "
+        f"(first ties {ties}), median step {step_ms:.2f} ms (host clock)")
+
+    sampled = dict(temperature=0.8, top_k=50, seed=123)
+    chat = [{"role": "user", "content": " ".join(map(str, prompts[3]))}]
+    srv = http_serve(eng, port=0, tokenizer=StubTokenizer(), model_id="llama31-8b-w4sym")
+    client = Client(srv)
+    out = dict(direct_median_step_ms=step_ms, first_ties=ties, decided_share=decided)
+    try:
+        if json.loads(client.get("/health"))["status"] != "ok":
+            raise AssertionError("[server] /health")
+        if json.loads(client.get("/v1/models"))["data"][0]["id"] != "llama31-8b-w4sym":
+            raise AssertionError("[server] /v1/models")
+        reset_counters()
+        calls.n.clear()
+        # everything below runs in the server's device thread; the main
+        # thread only speaks HTTP until the server is shut down
+        t0 = time.perf_counter()
+        http = concurrent(client, [{"prompt": p, "max_tokens": SERVER_TOKENS} for p in prompts])
+        out["concurrent_s"] = time.perf_counter() - t0
+        hold_tokens("server: 8 concurrent requests", http, want, logits[:, :8])
+        same = sum(a == b for a, b in zip(http, direct))
+        plain = client.post({"prompt": prompts[0], "max_tokens": SERVER_TOKENS})[1]["tokens"]
+        ndjson, ttft, rest = client.stream({"prompt": prompts[0], "max_tokens": SERVER_TOKENS,
+                                            "stream": True})
+        sse, ttft_sse, rest_sse = client.stream({"prompt": prompts[0],
+                                                 "max_tokens": SERVER_TOKENS, "stream": True,
+                                                 "model": "m"})
+        if not plain == ndjson == sse:
+            raise AssertionError(f"[server] plain {plain}, NDJSON {ndjson}, SSE {sse} differ")
+        _, n2 = client.post({"prompt": prompts[1], "max_tokens": SERVER_TOKENS, "model": "m",
+                             "n": 2, **sampled}, engine_requests=2)
+        choices = [c["token_ids"] for c in n2["choices"]]
+        code, chat_out = client.post({"messages": chat, "max_tokens": SERVER_TOKENS},
+                                     path="/v1/chat/completions")
+        templated = client.post({"prompt": StubTokenizer().apply_chat_template(chat),
+                                 "max_tokens": SERVER_TOKENS})[1]["tokens"]
+        if code != 200 or chat_out["choices"][0]["message"]["content"].split() != [
+                str(t) for t in templated]:
+            raise AssertionError(f"[server] chat {chat_out} != completion {templated}")
+        bad = [client.post(p)[0] for p in ({"prompt": "text", "n": 0}, {"prompt": []},
+                                            {"prompt": [1, 2], "n": 2, "stream": True})]
+        if bad != [400, 400, 400]:
+            raise AssertionError(f"[server] malformed requests answered {bad}")
+        launches = check_launches("server", {"w4sym": (calls["decode"] + calls["prefill_forward"])
+                                             * per_forward})
+        served_calls = dict(calls.n)
+        vals = client.metrics()
+        sent = (client.requests, client.tokens)
+        if (vals["flute_requests_total"], vals["flute_tokens_generated_total"]) != sent:
+            raise AssertionError(f"[server] metrics {vals} count other than the {sent[0]} "
+                                 f"requests and {sent[1]} tokens")
+        trace = trace_served(client, {"prompt": prompts[2], "max_tokens": SERVER_TOKENS,
+                                      "stream": True},
+                             os.path.join(HERE, "build", "server_trace"))
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        srv.loop.shutdown()
+    # the n = 2 choices against direct submissions with seeds s and s + 1
+    seeds = [eng.submit(prompts[1], max_new_tokens=SERVER_TOKENS,
+                        sampling=SamplingParams(**dict(sampled, seed=sampled["seed"] + i)))
+             for i in range(2)]
+    alone = eng.run()
+    if choices != [alone[r] for r in seeds]:
+        raise AssertionError(f"[server] n = 2 choices {choices} differ from direct submissions "
+                             f"with seeds s, s + 1: {[alone[r] for r in seeds]}")
+    if dev.type == "cuda" and not eng._graph.captured:
+        raise AssertionError("[server] the decode step was not graphed")
+    out.update(
+        identical_to_direct=same, launches=launches, calls=served_calls, metrics=vals,
+        requests_sent=sent[0], tokens_received=sent[1],
+        ttft_ms=ttft * 1e3, ms_per_token=rest / (len(ndjson) - 1) * 1e3,
+        ttft_sse_ms=ttft_sse * 1e3, ms_per_token_sse=rest_sse / (len(sse) - 1) * 1e3,
+        trace=trace)
+    log(f"  [server] 8 concurrent requests x {SERVER_TOKENS} tokens in "
+        f"{out['concurrent_s']:.2f} s: tokens equal the direct run's before every near tie "
+        f"({same}/8 identical in full); plain, NDJSON and SSE answers identical; n = 2 choices "
+        f"equal direct submissions with seeds s, s + 1; chat equals the templated completion; "
+        f"malformed requests 400; metrics count {sent[0]} requests and {sent[1]} "
+        f"tokens; launches {launches} ({served_calls})")
+    log(f"  [server] streamed: time to first token {out['ttft_ms']:.1f} ms (SSE "
+        f"{out['ttft_sse_ms']:.1f}), {out['ms_per_token']:.2f} ms per token (SSE "
+        f"{out['ms_per_token_sse']:.2f}) against the engine's median step {step_ms:.2f} ms; "
+        f"traced request: {trace['wall_ms_per_token']:.2f} ms per token, device "
+        f"{measured(trace['device_ms_per_token'], ' ms')} (K1 "
+        f"{measured(trace['k1_ms_per_token'], ' ms')}), idle share "
+        f"{measured(trace['idle_share'])}; the trace ({trace['trace_bytes']} bytes) names K1")
+    del eng
+    release()
+
+    # PagedEngine (K1 and K5) behind the server: the same prompts, fewer tokens
+    peng = PagedEngine(params=qparams, config=config, num_slots=8, block_size=16, num_blocks=48,
+                       max_len=256, device=dev)
+    pcalls = count_forwards(peng, "_step_logits")
+    srv = http_serve(peng, port=0)
+    client = Client(srv)
+    try:
+        reset_counters()
+        paged = concurrent(client, [{"prompt": p, "max_tokens": PAGED_SERVER_TOKENS}
+                                    for p in prompts])
+        launches = check_launches("paged server", {
+            "w4sym": (pcalls["decode"] + pcalls["prefill_forward"]) * per_forward,
+            "paged_decode": pcalls["decode"] * config.num_layers})
+        vals = client.metrics()
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        srv.loop.shutdown()
+    pties, _ = hold_tokens("paged server", paged, want, logits[:, :8])
+    if peng.blocks_in_use != 0 or vals["flute_paged_blocks_in_use"] != 0:
+        raise AssertionError(f"[paged server] {peng.blocks_in_use} blocks still in use")
+    out["paged"] = dict(new_tokens=PAGED_SERVER_TOKENS, launches=launches, calls=dict(pcalls.n),
+                        first_ties=pties, blocks_in_use=peng.blocks_in_use,
+                        identical_to_engine=sum(a == b[:PAGED_SERVER_TOKENS]
+                                                for a, b in zip(paged, want)))
+    log(f"  [paged server] PagedEngine behind the server, 8 requests x {PAGED_SERVER_TOKENS} "
+        f"tokens (cut from {SERVER_TOKENS} to keep the phase short): tokens equal Engine's "
+        f"before every near tie, no block in use at the end; launches {launches}")
+    del peng
+    release()
+    return out
+
+
+def perplexity_runs(dev, config, params, qhead) -> dict:
+    """Phase 7c: perplexity of 4096 tokens from a numpy seed, as two windows
+    of 2048, through the quantized model at batch 1 and 2 (the two within
+    1e-3), with the quantized head, and through the dense bf16 params (the
+    quantized ones within 5% of it); exact K1 launches per run (forward
+    calls x (layers x 4, plus 1 with the quantized head)), seconds per
+    window."""
+    from flute_tpu_torch import eval as teval
+    from flute_tpu_torch.models import llama
+
+    toks = np.random.default_rng(11).integers(0, config.vocab_size, PPL_SEQ * PPL_WINDOWS)
+    qdense = dict(qhead, lm_head=params["lm_head"])
+    ppl = {}
+    for name, p, batch, head in (("quantized", qdense, 1, 0), ("quantized", qdense, 2, 0),
+                                 ("quantized head", qhead, 1, 1), ("dense", params, 1, None)):
+        forwards = [0]
+
+        def forward(*a, **kw):
+            forwards[0] += 1
+            return llama.forward(*a, **kw)
+
+        reset_counters()
+        sync(dev)
+        t0 = time.perf_counter()
+        value = teval.perplexity(p, config, toks, forward=forward, seq_len=PPL_SEQ,
+                                 batch_size=batch, device=dev)
+        sync(dev)
+        seconds = time.perf_counter() - t0
+        k1 = 0 if head is None else forwards[0] * (config.num_layers * 4 + head)
+        launches = check_launches(f"perplexity {name} batch {batch}", {"w4sym": k1})
+        ppl[f"{name} batch {batch}"] = dict(ppl=value, forwards=forwards[0], launches=launches,
+                                            s_per_window=seconds / PPL_WINDOWS)
+        log(f"  [perplexity] {name}, batch {batch}: {value:.2f} over {PPL_WINDOWS} windows of "
+            f"{PPL_SEQ}, {seconds / PPL_WINDOWS:.3f} s per window, {forwards[0]} forwards, "
+            f"{launches['w4sym']} K1 launches")
+    q1, q2 = ppl["quantized batch 1"]["ppl"], ppl["quantized batch 2"]["ppl"]
+    if not abs(q2 - q1) / q1 < 1e-3:
+        raise AssertionError(f"[perplexity] batch 2 {q2} against batch 1 {q1}")
+    dense = ppl["dense batch 1"]["ppl"]
+    for name in ("quantized batch 1", "quantized head batch 1"):
+        if not abs(ppl[name]["ppl"] - dense) / dense < 0.05:
+            raise AssertionError(f"[perplexity] {name} {ppl[name]['ppl']} against dense {dense}")
+    if not all(np.isfinite(v["ppl"]) and v["ppl"] > 1 for v in ppl.values()):
+        raise AssertionError(f"[perplexity] {ppl}")
+    head = ppl["quantized head batch 1"]["ppl"]
+    log(f"  [perplexity] batch 2 within {abs(q2 - q1) / q1:.1e} of batch 1; quantized within "
+        f"{abs(q1 - dense) / dense:.2%} and with the head within {abs(head - dense) / dense:.2%} "
+        "of dense")
+    return ppl
+
+
+def phase_head_server_ppl(dev, results, trajectory):
+    """Phase 7: the quantized lm_head (K1 at both heads, the first logits
+    against the dense head), the HTTP server over ContinuousBatchingEngine
+    and PagedEngine, and perplexity at 2048-token windows, on Llama-3.1-8B
+    (phase 4's random weights, seed 0, full width and depth, w4sym, g64,
+    fused, quantized on the card with the head)."""
+    from flute_tpu_torch.models import llama
+    from flute_tpu_torch.serving import Engine
+
+    out = dict(head_cases=check_heads(dev))
+    config = llama.LlamaConfig.llama31_8b()
+    t0 = time.perf_counter()
+    params = llama.init_params(config, seed=0, device=dev)
+    qhead = llama.quantize_model(params, group_size=GROUP, fuse=True, quantize_lm_head=True,
+                                 device=dev)
+    sync(dev)
+    log(f"  [head] quantized the model with its head [{qhead['lm_head'].scales.shape[1]}, "
+        f"{config.hidden_size}] in {time.perf_counter() - t0:.1f} s")
+
+    # the quantized head's Engine: the oracle of the served runs
+    eng = Engine(params=qhead, config=config, batch_size=8, max_len=256, device=dev)
+    engine, oracle = serve_engine("w4sym, quantized head", eng, serving_prompts(config), "w4sym",
+                                  new_tokens=SERVER_TOKENS, head=1)
+    engine["profile"] = profile_decode(dev, "w4sym, quantized head", eng)
+    check_copies("w4sym, quantized head", engine["profile"])
+    del eng
+    release()
+    dense_first = trajectory[1][0, :8].float()
+    head_err = float((oracle[1][0, :8] - dense_first).abs().max() / dense_first.abs().max())
+    if not head_err < HEAD_CONTRACT:
+        raise AssertionError(f"[head] first logits {head_err:.3f} of the largest dense-head logit "
+                             f"away from the dense head's (limit {HEAD_CONTRACT})")
+    out.update(engine=engine, first_logits_err=head_err)
+    log(f"  [head] first decode logits within {head_err:.4f} of the largest dense-head logit "
+        f"(limit {HEAD_CONTRACT}); median step {engine['decode_ms_per_step']:.2f} ms against "
+        f"phase 4's {results['serving']['w4sym']['decode_ms_per_step']:.2f} ms with the dense "
+        "head")
+
+    out["server"] = serve_http(dev, config, qhead, oracle)
+
+    out["perplexity"] = perplexity_runs(dev, config, params, qhead)
+    del params, qhead
+    release()
+    results["serving"]["phase7"] = out
+    return out
+
+
+def phase7_numbers(phase7) -> dict:
+    """What phase 7 adds to K1's kernel line: K1 at each quantized head
+    (M = 8; ``m1`` at M = 1) beside its yardstick, the dense head's
+    ``matmul_f32``, with the launches of the head in phase 7's runs (one per
+    forward), and one Llama-3.1-8B layer at the perplexity prefill (M =
+    2047) beside the perplexity runs' launches."""
+    cases = phase7["head_cases"]
+    server = phase7["server"]
+    forwards = {"engine": phase7["engine"]["steps"],
+                "server": sum(server["calls"].values()),
+                "paged server": sum(server["paged"]["calls"].values()),
+                **{f"perplexity {name}": run["forwards"]
+                   for name, run in phase7["perplexity"].items() if "head" in name}}
+    heads = {}
+    for model in HEAD_SHAPES:
+        m8, m1 = head_stack(cases, model, 8), head_stack(cases, model, 1)
+        heads[model] = dict(_stack_numbers(m8), m=8, n=m8[0]["n"], k=m8[0]["k"],
+                            max_abs_err=max(c["max_abs_err"] for c in m1 + m8),
+                            library=m8[0]["yardstick"],
+                            library_bound_ms=m8[0]["library_bound_us"] / 1e3,
+                            m1=_stack_numbers(m1))
+    heads["llama31_8b"]["launches"] = forwards
+    prefill = [c for c in cases if c["m"] == PPL_SEQ - 1]
+    ppl_launches = {name: run["launches"]["w4sym"] for name, run in phase7["perplexity"].items()
+                    if run["launches"]["w4sym"]}
+    launches = {"engine": phase7["engine"]["launches"]["w4sym"],
+                "server": server["launches"]["w4sym"],
+                "paged server": server["paged"]["launches"]["w4sym"], **ppl_launches}
+    return dict(heads=heads, prefill=dict(_stack_numbers(prefill), m=PPL_SEQ - 1,
+                                          launches=ppl_launches),
+                phase7=dict(launches=launches))
+
+
 def report_served_idle(name, serving):
     """The served decode step's idle share: one minus the replay's device
     time (CUDA events) over the median host-clock step."""
@@ -2903,14 +3476,18 @@ def main() -> int:
                       "K6": gemma["paged"]["launches"]["paged_verify"]}
     log("== 6. continuous batching and speculative decoding, Llama-3.1-8B widths, 32 layers")
     spec = phase_spec(dev, results, trajectories["w4sym"])
+    log("== 7. the quantized lm_head, the HTTP server and perplexity, Llama-3.1-8B widths, "
+        "32 layers")
+    phase7 = phase_head_server_ppl(dev, results, trajectories["w4sym"])
     lab_served = {fn: lab_ops.LAUNCHES[fn] - lab_before[fn] for fn in lab_before}
     lab2_served = {fn: lab2_ops.LAUNCHES[fn] - lab2_before[fn] for fn in lab2_before}
     if any(lab_served.values()) or any(lab2_served.values()):
-        raise AssertionError(f"phases 3-6 launched lab kernels: {lab_served}, {lab2_served}")
-    log(f"  lab kernels launched in phases 3-6: {lab_served}, {lab2_served}")
+        raise AssertionError(f"phases 3-7 launched lab kernels: {lab_served}, {lab2_served}")
+    log(f"  lab kernels launched in phases 3-7: {lab_served}, {lab2_served}")
 
     kernels = [kernel_line(kid, cases, launches[kid], results["identity_paths"],
                            gemma_launches.get(kid), spec) for kid in LUT_KERNELS]
+    kernels[0].update(phase7_numbers(phase7))
     kernels += [attention_line(kid, attn_checks, attn_timed, launches[kid], gemma_launches[kid],
                                spec)
                 for kid in ("K5", "K6")]

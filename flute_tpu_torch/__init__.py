@@ -3,13 +3,35 @@
 LUT-quantized LLM inference: NF quantization, the packed weight layouts of
 ``flute_tpu`` (bit for bit), fused LUT-dequantize GEMMs written by hand for
 sm_90a (the sign-symmetric 4-bit "w4sym" layout, the general-table pair
-planes at 2/3/4 bits and the wide 3-bit layout), the quantized-checkpoint
-format, a Llama model and a serving engine. Entry points run on ``cuda`` unless the caller passes
-``device="cpu"``, which runs the plain PyTorch versions.
+planes at 2/3/4 bits and the wide 3-bit layout), the Hadamard rotation, the
+quantized-checkpoint format, Llama and Gemma-2 models, the serving engines
+with their HTTP server, and perplexity. Entry points run on ``cuda`` unless
+the caller passes ``device="cpu"``, which runs the plain PyTorch versions.
+
+The public names are the JAX package's (``flute_tpu/__init__.py``) but for
+the kernel-config tuner's, which the port does not have yet.
 """
 
-from flute_tpu_torch.nn import QuantizedLinear, from_codes, quantize_linear  # noqa: F401
-from flute_tpu_torch.ops.lut_gemm import qgemm  # noqa: F401
-from flute_tpu_torch.packing import pack, reconstruct  # noqa: F401
+from flute_tpu_torch.version import __version__
+from flute_tpu_torch.ops.kernel_config import KernelConfig
+from flute_tpu_torch.ops.lut_gemm import lut_qgemm, lut_qgemm_reference, qgemm
+from flute_tpu_torch.ops.hadamard import hadamard_transform, qgemm_hadamard
+from flute_tpu_torch.packing import PackFormat, pack, reconstruct, unpack
+from flute_tpu_torch.nn import QuantizedLinear, from_codes, quantize_linear
 
-__all__ = ["from_codes", "pack", "qgemm", "quantize_linear", "QuantizedLinear", "reconstruct"]
+__all__ = [
+    "__version__",
+    "KernelConfig",
+    "lut_qgemm",
+    "lut_qgemm_reference",
+    "qgemm",
+    "hadamard_transform",
+    "qgemm_hadamard",
+    "PackFormat",
+    "pack",
+    "unpack",
+    "reconstruct",
+    "QuantizedLinear",
+    "from_codes",
+    "quantize_linear",
+]

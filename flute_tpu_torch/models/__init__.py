@@ -1,0 +1,3 @@
+from flute_tpu_torch.models import gemma2, llama
+
+__all__ = ["gemma2", "llama"]

@@ -39,7 +39,7 @@ from flute_tpu_torch.models.llama import (
     matmul_f32,
     split_fused_qkv,
 )
-from flute_tpu_torch.nn import QuantizedLinear
+from flute_tpu_torch.nn import QuantizedLinear, quantize_linear
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,9 +126,11 @@ def attention_options(config: Gemma2Config, li: int) -> dict:
 
 
 def capped_logits(config: Gemma2Config, logits: torch.Tensor) -> torch.Tensor:
-    """The final logit softcap, in f32."""
+    """The final logit softcap in the logits' dtype (f32 from the dense
+    head, the compute dtype from a quantized one, as the JAX model caps
+    them), returned in f32."""
     cap = config.final_logit_softcap
-    return torch.tanh(logits.float() / cap) * cap
+    return (torch.tanh(logits / cap) * cap).float()
 
 
 def _block(
@@ -202,6 +204,7 @@ def forward(
     x = rms_norm_gemma(x, params["final_norm"], config.rms_norm_eps)
     head = params.get("lm_head")
     if isinstance(head, QuantizedLinear):
+        # the quantized copy of the tied head, its vocabulary padded
         logits = head(x)[..., :config.vocab_size]
     else:
         # the tied head: the embedding's transposed view, never copied
@@ -265,11 +268,19 @@ def quantize_model(
     device=None,
 ) -> dict:
     """Quantize every block's projections with Llama's walker
-    (:func:`flute_tpu_torch.models.llama.quantize_model`); the embedding,
-    norms and the tied head stay dense."""
+    (:func:`flute_tpu_torch.models.llama.quantize_model`); the embedding
+    and norms stay dense.
+
+    ``quantize_lm_head=True`` quantizes a copy of the tied head: the
+    embedding ``[vocab, hidden]``, already ``[out, in]``, with zero rows to
+    a multiple of 2048, into ``lm_head`` (with the blocks' ``chunk``, as the
+    JAX model quantizes it); the dense embedding keeps serving the input
+    lookups, and ``forward`` slices the logits back before the softcap."""
+    out = llama.quantize_model(params, num_bits, group_size, chunk=chunk, fuse=fuse,
+                               symmetric=symmetric, device=device)
     if quantize_lm_head:
-        raise NotImplementedError(
-            "a quantized lm_head is not ported yet (ROADMAP.md, queue 1 item 20)"
-        )
-    return llama.quantize_model(params, num_bits, group_size, chunk=chunk, fuse=fuse,
-                                symmetric=symmetric, device=device)
+        dev = resolve_device(device)
+        kw = {"chunk": chunk} if chunk is not None else {}
+        out["lm_head"] = quantize_linear(llama.pad_rows(params["embed"].to(dev)), num_bits,
+                                         group_size, device=dev, **kw)
+    return out

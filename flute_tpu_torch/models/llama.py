@@ -46,8 +46,32 @@ class LlamaConfig:
     dtype: torch.dtype = torch.bfloat16
 
     @staticmethod
+    def llama3_8b() -> "LlamaConfig":
+        return LlamaConfig(rope_scaling_factor=None)
+
+    @staticmethod
     def llama31_8b() -> "LlamaConfig":
         return LlamaConfig()
+
+    @staticmethod
+    def llama31_70b() -> "LlamaConfig":
+        return LlamaConfig(
+            hidden_size=8192,
+            intermediate_size=28672,
+            num_layers=80,
+            num_heads=64,
+            num_kv_heads=8,
+        )
+
+    @staticmethod
+    def llama31_405b() -> "LlamaConfig":
+        return LlamaConfig(
+            hidden_size=16384,
+            intermediate_size=53248,
+            num_layers=126,
+            num_heads=128,
+            num_kv_heads=8,
+        )
 
     @staticmethod
     def tiny(vocab_size: int = 512) -> "LlamaConfig":
@@ -355,6 +379,7 @@ def forward(
     x = rms_norm(x, params["final_norm"], config.rms_norm_eps)
     head = params["lm_head"] if params.get("lm_head") is not None else params["embed"].T
     if isinstance(head, QuantizedLinear):
+        # a quantized head's vocabulary is padded (quantize_model)
         logits = head(x)[..., :config.vocab_size]
     else:
         # f32 logits from an f32-accumulated product, never rounded to bf16;
@@ -413,6 +438,15 @@ def init_params(
 _PROJ_KEYS = ("q", "k", "v", "o", "gate", "up", "down")
 
 
+HEAD_PAD = 2048  # a quantized head's out-features are padded to a multiple of this
+
+
+def pad_rows(w: torch.Tensor, multiple: int = HEAD_PAD) -> torch.Tensor:
+    """``w`` with zero rows appended up to a multiple of ``multiple``."""
+    pad = (-w.shape[0]) % multiple
+    return torch.nn.functional.pad(w, (0, 0, 0, pad)) if pad else w
+
+
 def quantize_model(
     params: dict,
     num_bits: int = 4,
@@ -420,14 +454,20 @@ def quantize_model(
     *,
     chunk: Optional[int] = None,
     fuse: bool = False,
+    quantize_lm_head: bool = False,
     symmetric: Optional[bool] = None,
     device=None,
 ) -> dict:
-    """Quantize the seven projections of every block (embeddings, norms and
-    lm_head stay dense) on ``device`` (``cuda`` unless named).
+    """Quantize the seven projections of every block (embeddings and norms
+    stay dense) on ``device`` (``cuda`` unless named).
 
     ``fuse=True`` merges q/k/v into one ``qkv`` and gate/up into one
     ``gate_up`` projection: one kernel launch each.
+
+    ``quantize_lm_head=True`` also quantizes a dense ``lm_head`` with the
+    blocks' settings, its out-features (the vocabulary) padded with zero
+    rows to a multiple of 2048 (128256 becomes 129024); ``forward`` slices
+    the logits back to ``vocab_size``. A tied or absent head stays as it is.
     """
     dev = resolve_device(device)
     kw = {"device": dev}
@@ -454,4 +494,8 @@ def quantize_model(
             w = layer[key]
             new_layer[key] = w if isinstance(w, QuantizedLinear) else quant(w)
         out["layers"].append(new_layer)
+    head = params.get("lm_head")
+    if quantize_lm_head and isinstance(head, torch.Tensor):
+        # [hidden, vocab] -> [vocab, hidden], zero rows to the padded vocab
+        out["lm_head"] = quantize_linear(pad_rows(head.to(dev).T), num_bits, group_size, **kw)
     return out

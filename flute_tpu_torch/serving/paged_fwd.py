@@ -99,10 +99,12 @@ def _head_logits(params, cfg, x, last_idx: Optional[int]):
         x = x[:, last_idx:last_idx + 1]
     head = params["lm_head"] if params.get("lm_head") is not None else params["embed"].T
     if isinstance(head, QuantizedLinear):
-        logits = head(x)[..., :cfg.vocab_size].float()
+        logits = head(x)[..., :cfg.vocab_size]
     else:
         logits = matmul_f32(x, head.to(x.dtype))
-    return gemma2.capped_logits(cfg, logits) if check_family(cfg) == "gemma2" else logits
+    if check_family(cfg) == "gemma2":
+        return gemma2.capped_logits(cfg, logits)
+    return logits.float()
 
 
 def decoder_layers(params, cfg, x, cos, sin, attend) -> torch.Tensor:

@@ -1,0 +1,3 @@
+from flute_tpu_torch.utils.benchmark import bench_op
+
+__all__ = ["bench_op"]

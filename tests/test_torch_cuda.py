@@ -1508,3 +1508,126 @@ def test_verify_rows_at_m40_have_the_bits_of_m8(dev, layout, bits, n, k):
     y8 = lut_gemm.lut_qgemm(x[::5], planes, scales, table, **kw)
     assert torch.equal(y[::5].view(torch.int16), y8.view(torch.int16))
     assert lut_gemm.lut_path(torch.bfloat16, bits, 256, layout) == "mma"
+
+
+# the quantized heads: Llama-3.1-8B's [128256 -> 129024, 4096] and
+# Gemma-2-9B's tied [256000, 3584]
+HEAD_SHAPES = [(129024, 4096), (256000, 3584)]
+
+
+@pytest.mark.parametrize("m", [1, 8])
+@pytest.mark.parametrize("n,k", HEAD_SHAPES)
+def test_k1_at_head_shapes(dev, n, k, m):
+    """K1 (w4sym, bf16, on the loop) at the quantized heads' shapes against
+    the plain version; rows 0 and M-1 have the bits of the one-row call.
+    Random planes: any bits are valid w4sym codes."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(n + m)
+    planes = [torch.randint(-2**31, 2**31 - 1, (k // 8, n), generator=gen, device=dev,
+                            dtype=torch.int32)]
+    scales = (torch.rand((k // G, n), generator=gen, device=dev) + 0.5).bfloat16()
+    mags = torch.randn(8, generator=gen, device=dev).abs().sort().values
+    table = torch.cat([mags, -mags])
+    x = torch.randn((m, k), generator=gen, device=dev).bfloat16()
+    kw = dict(num_bits=4, layout="w4sym", config=KernelConfig(chunk=256))
+    y = lut_gemm.lut_qgemm(x, planes, scales, table, **kw)
+    want = lut_gemm.lut_qgemm_plain(x, planes, scales, table, num_bits=4, chunk=256,
+                                    layout="w4sym")
+    assert rel_err(y, want) < TOL[torch.bfloat16]
+    for i in {0, m - 1}:
+        row = lut_gemm.lut_qgemm(x[i:i + 1], planes, scales, table, **kw)
+        assert torch.equal(row.view(torch.int16), y[i:i + 1].view(torch.int16))
+
+
+@pytest.mark.parametrize("family", ["llama", "gemma2"])
+def test_quantized_head_on_the_card(dev, family):
+    """A tiny model with its head quantized, on the card: logits within the
+    bf16 threshold of the same params' on the CPU (relative to the largest),
+    the head one K1 launch per forward, sliced to the vocabulary."""
+    mod, config = FAMILIES[family]
+    params = mod.init_params(config, seed=0, device="cpu")
+    cpu = mod.quantize_model(params, 4, 64, fuse=True, quantize_lm_head=True, device="cpu")
+    card = move_params(cpu, dev)
+    toks = torch.tensor([[1, 2, 3, 4]])
+    outs = []
+    for p, d in ((cpu, "cpu"), (card, dev)):
+        cache = mod.init_cache(config, 1, 8, device=d)
+        before = lut_gemm.LAUNCHES["w4sym"]
+        with torch.inference_mode():
+            outs.append(mod.forward(p, config, toks.to(d), cache, 0)[0].cpu())
+        if d == dev:
+            assert lut_gemm.LAUNCHES["w4sym"] - before == config.num_layers * 4 + 1
+    assert outs[1].shape == (1, 4, config.vocab_size)
+    assert float((outs[1] - outs[0]).abs().max() / outs[0].abs().max()) < TOL[torch.bfloat16]
+
+
+def test_server_on_the_card(dev):
+    """The HTTP server over a ContinuousBatchingEngine on the card, whose
+    decode graph is captured in the server's device thread: concurrent
+    greedy answers, a streamed one and an n = 2 sampled one equal the same
+    engine's direct submissions, and the metrics count them."""
+    import json
+    import threading
+    import urllib.request
+
+    from flute_tpu_torch.serving.server import serve
+
+    config = llama.LlamaConfig.tiny()
+    qparams = llama.quantize_model(llama.init_params(config, seed=0, device=dev), 4, 64,
+                                   fuse=True, quantize_lm_head=True, device=dev)
+    eng = ContinuousBatchingEngine(params=qparams, config=config, num_slots=4, max_len=64,
+                                   device=dev)
+    prompts = [[1, 5, 9], [2, 6, 10, 14], [3], [7, 8, 9, 10, 11]]
+    sampled = dict(temperature=0.8, top_k=50, seed=9)
+    srv = serve(eng, port=0)
+    try:
+        port = srv.server_address[1]
+
+        def post(payload):
+            req = urllib.request.Request(f"http://127.0.0.1:{port}/v1/completions",
+                                         data=json.dumps(payload).encode(),
+                                         headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=120) as r:
+                return [json.loads(ln) for ln in r if ln.strip()]
+
+        got = {}
+        threads = [threading.Thread(target=lambda i=i: got.__setitem__(i, post(
+            {"prompt": prompts[i], "max_tokens": 8})[0]["tokens"])) for i in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        streamed = [r["token"] for r in post({"prompt": prompts[0], "max_tokens": 8,
+                                              "stream": True}) if "token" in r]
+        choices = post({"prompt": prompts[1], "max_tokens": 8, "model": "m", "n": 2,
+                        **sampled})[0]["choices"]
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=30) as r:
+            text = r.read().decode()
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        srv.loop.shutdown()
+    assert eng._graph.captured
+    rids = [eng.submit(p, max_new_tokens=8) for p in prompts]
+    rids += [eng.submit(prompts[1], max_new_tokens=8, seed=9 + i,
+                        **{k: v for k, v in sampled.items() if k != "seed"}) for i in range(2)]
+    out = eng.run()
+    assert [got[i] for i in range(4)] == [out[r] for r in rids[:4]]
+    assert streamed == got[0]
+    assert [c["token_ids"] for c in choices] == [out[r] for r in rids[4:]]
+    assert "flute_requests_total 7" in text and "flute_tokens_generated_total 56" in text
+
+
+def test_perplexity_on_the_card(dev):
+    """Perplexity of a tiny quantized model with its head quantized, on the
+    card and on the CPU from the same params: within 1e-3."""
+    from flute_tpu_torch import eval as teval
+
+    config = llama.LlamaConfig.tiny()
+    params = llama.init_params(config, seed=0, device="cpu")
+    q = llama.quantize_model(params, 4, 64, fuse=True, quantize_lm_head=True, device="cpu")
+    toks = np.random.default_rng(0).integers(0, config.vocab_size, 4 * 32)
+    cpu = teval.perplexity(q, config, toks, seq_len=32, device="cpu")
+    card = teval.perplexity(move_params(q, dev), config, toks, seq_len=32, batch_size=2,
+                            device=dev)
+    assert abs(card - cpu) / cpu < 1e-3

@@ -42,6 +42,7 @@ from flute_tpu.serving.paged import PagedEngine as JPagedEngine
 from flute_tpu_torch import interop
 from flute_tpu_torch.integrations import checkpoint
 from flute_tpu_torch.models import gemma2, llama
+from flute_tpu_torch.nn import QuantizedLinear
 from flute_tpu_torch.ops import lut_gemm
 from flute_tpu_torch.serving import Engine, PagedEngine
 
@@ -174,10 +175,15 @@ def test_init_params_from_generator(tiny):
 
 
 def test_quantize_lm_head_raises(tiny):
+    """The quantized tied head no longer raises (ROADMAP queue 1 item 20):
+    it is a padded quantized copy of the embedding, which stays dense; its
+    parity with JAX is in ``tests/test_torch_quantized_head.py``."""
     config = gemma2.Gemma2Config.tiny()
     params = gemma2.init_params(config, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 20"):
-        gemma2.quantize_model(params, quantize_lm_head=True, device="cpu")
+    q = gemma2.quantize_model(params, quantize_lm_head=True, device="cpu")
+    assert isinstance(q["lm_head"], QuantizedLinear)
+    assert q["lm_head"].scales.shape[1] == 2048
+    assert q["embed"] is params["embed"]
 
 
 def _jax_logits(jparams, jconfig, tokens, offsets, nxt, pos_vec):
