@@ -172,6 +172,25 @@ Phases (any failure exits non-zero):
      4096 tokens from a numpy seed in two windows of 2048, quantized at
      batch 1 and 2 (within 1e-3), with the quantized head, and dense bf16
      (the quantized ones within 5%), exact K1 launches, seconds per window.
+  8. the CLI (flute_tpu_torch.integrations.cli) from an HF Llama directory
+     at Llama-3.1-8B widths cut to 4 layers (bf16, 3.85 GB, written from a
+     seed by the port's safetensors writer, under build/phase8/, removed at
+     the end): quantize at 4 bits (w4sym, K1) and 3 bits (wide, K3), in
+     memory and streaming, every .npy file of the two byte-equal; generate
+     from each, tokens equal to an Engine built on the loaded params,
+     exact launches; generate --retune (the tuner at M = 1) with the same
+     tokens; the tuner at the fused projections' shapes (qkv, o, gate_up,
+     down) at M = 8 and 40: each candidate launch's time, its checks and
+     its bits against the planner's, the winner against the planner's;
+     calibrate (NFL, batch 2 x 512, 8 steps over one seeded batch, lr
+     1e-3): the loss falls, the checkpoint is w4sym and serves on K1;
+     bnb NF4 (nested absmax) and FP4 and reference-FLUTE W4, W3 and HIGGS
+     checkpoints of one layer, imported and served (K2, K2 at 3 bits, K4)
+     within 1.1e-2 of the dense model of the same weights, exact launches;
+     serve's three engines (continuous, paged with pool prefill, paged
+     speculative with the 3-bit checkpoint as draft) behind the HTTP
+     server, one streamed request each: tokens and launches those of the
+     engine driven directly, time to first token.
 
 Prints a {"kernels": [...]} line, then as its last line
 {"ok": true, "device": {...}}. Writes the full results to
@@ -180,7 +199,9 @@ chiprun_out/chip_smoke.json. Needs a CUDA device; exits non-zero without one.
 
 import contextlib
 import dataclasses
+import filecmp
 import gc
+import io
 import json
 import os
 import re
@@ -190,6 +211,7 @@ import sys
 import tempfile
 import threading
 import time
+import unittest.mock
 import urllib.error
 import urllib.request
 
@@ -3363,6 +3385,625 @@ def phase7_numbers(phase7) -> dict:
                 phase7=dict(launches=launches))
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the CLI driven from an HF directory (quantize, generate, the
+# tuner, NFL, the importers, serve)
+# ---------------------------------------------------------------------------
+
+CLI_DEVICE = "cuda"
+CLI_LAYERS = 4  # the HF directory's depth, of Llama-3.1-8B's 32
+CLI_IMPORT_LAYERS = 1  # the bnb and reference-FLUTE checkpoints' depth
+CLI_TOKENS = 8
+CLI_MAX_LEN = 256
+CLI_TEMPLATE = 20  # a reference template id whose tileP is 32 at 2, 3 and 4 bits
+TUNE_SHAPES = {"qkv": (6144, 4096), "o": (4096, 4096), "gate_up": (28672, 4096),
+               "down": (4096, 14336)}
+TUNE_M = (8, 40)  # a decode step of 8 requests; the verify of 8 x (k + 1)
+# the JAX CLI's batch and length; 8 steps over one batch at a learning rate
+# of 1e-3: at the CLI's 1e-4 the loss on random weights moves by less than
+# the jumps of the straight-through codes (a CPU check at a narrow width)
+NFL = dict(steps=8, batch=2, seq=512, lr=1e-3)
+HF_PROJ = {"q": "self_attn.q_proj", "k": "self_attn.k_proj", "v": "self_attn.v_proj",
+           "o": "self_attn.o_proj", "gate": "mlp.gate_proj", "up": "mlp.up_proj",
+           "down": "mlp.down_proj"}
+FP4_TABLE = [0.0, 0.0052, 0.6667, 1.0, 0.3333, 0.5, 0.1667, 0.25,
+             -0.0, -0.0052, -0.6667, -1.0, -0.3333, -0.5, -0.1667, -0.25]
+
+
+def cli_config(layers):
+    from flute_tpu_torch.models import llama
+
+    return dataclasses.replace(llama.LlamaConfig.llama31_8b(), num_layers=layers)
+
+
+def hf_config_json(c) -> dict:
+    return {"model_type": "llama", "vocab_size": c.vocab_size, "hidden_size": c.hidden_size,
+            "intermediate_size": c.intermediate_size, "num_hidden_layers": c.num_layers,
+            "num_attention_heads": c.num_heads, "num_key_value_heads": c.num_kv_heads,
+            "head_dim": c.head_dim, "rms_norm_eps": c.rms_norm_eps, "rope_theta": c.rope_theta,
+            "rope_scaling": {"rope_type": "llama3", "factor": c.rope_scaling_factor,
+                             "low_freq_factor": c.rope_low_freq_factor,
+                             "high_freq_factor": c.rope_high_freq_factor,
+                             "original_max_position_embeddings": c.rope_original_max_position},
+            "tie_word_embeddings": False, "torch_dtype": "bfloat16"}
+
+
+def proj_shapes(c) -> dict:
+    """HF ``[out, in]`` of each projection."""
+    qdim, kvdim = c.num_heads * c.head_dim, c.num_kv_heads * c.head_dim
+    return {"q": (qdim, c.hidden_size), "k": (kvdim, c.hidden_size), "v": (kvdim, c.hidden_size),
+            "o": (c.hidden_size, qdim), "gate": (c.intermediate_size, c.hidden_size),
+            "up": (c.intermediate_size, c.hidden_size),
+            "down": (c.hidden_size, c.intermediate_size)}
+
+
+def write_hf_dir(path, config, dev, seed) -> dict:
+    """An HF Llama directory (``config.json``, ``model.safetensors`` in bf16)
+    written with the port's writer, the weights drawn on the card from a
+    seeded generator; returns the host tensors by HF name."""
+    from flute_tpu_torch.integrations import safetensors_io
+
+    os.makedirs(path, exist_ok=True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def randn(shape, scale=0.02):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(torch.bfloat16).cpu()
+
+    def norm(n):
+        return (1 + 0.1 * torch.randn((n,), generator=gen, device=dev)).to(torch.bfloat16).cpu()
+
+    c = config
+    tensors = {"model.embed_tokens.weight": randn((c.vocab_size, c.hidden_size)),
+               "model.norm.weight": norm(c.hidden_size),
+               "lm_head.weight": randn((c.vocab_size, c.hidden_size))}
+    for li in range(c.num_layers):
+        pre = f"model.layers.{li}."
+        tensors[pre + "input_layernorm.weight"] = norm(c.hidden_size)
+        tensors[pre + "post_attention_layernorm.weight"] = norm(c.hidden_size)
+        for key, shape in proj_shapes(c).items():
+            tensors[pre + HF_PROJ[key] + ".weight"] = randn(shape)
+    safetensors_io.save_file(tensors, os.path.join(path, "model.safetensors"))
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(hf_config_json(c), f)
+    return tensors
+
+
+def run_cli(argv) -> list:
+    """``cli.main(argv)``; the lines it printed."""
+    from flute_tpu_torch.integrations import cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli.main(argv)
+    lines = out.getvalue().splitlines()
+    for ln in lines:
+        log(f"    | {ln}")
+    return lines
+
+
+def nonzero(launches) -> dict:
+    return {k: v for k, v in launches.items() if v}
+
+
+def expect_launches(name, got, expected):
+    if nonzero(got) != expected:
+        raise AssertionError(f"[{name}] launches {nonzero(got)}, expected {expected}")
+
+
+def cli_generate(label, ckpt, prompt, kernel, layers, *extra):
+    """``generate`` through the CLI (counts set to 0 just before), held to
+    an Engine built directly on the loaded params; returns its tokens and
+    launches. With ``--retune`` the counts are read and set to 0 again
+    once the tuned load returns, so the served launches are held exactly
+    and the tuner's are reported apart."""
+    from flute_tpu_torch.integrations import huggingface
+    from flute_tpu_torch.integrations.huggingface import load_quantized_model
+    from flute_tpu_torch.serving import Engine
+
+    params, config, _ = load_quantized_model(ckpt, device=CLI_DEVICE)
+    with uncounted():
+        eng = Engine(params=params, config=config, max_len=CLI_MAX_LEN, batch_size=1,
+                     device=CLI_DEVICE)
+        want = eng.generate([prompt], max_new_tokens=CLI_TOKENS)[0]
+    del eng, params
+    release()
+    tuner = {}
+
+    def tuned_load(*a, **kw):
+        out = load_quantized_model(*a, **kw)
+        tuner.update(nonzero(launches_now()))
+        reset_counters()
+        return out
+
+    reset_counters()
+    t0 = time.perf_counter()
+    with (unittest.mock.patch.object(huggingface, "load_quantized_model", tuned_load)
+          if "--retune" in extra else contextlib.nullcontext()):
+        lines = run_cli(["generate", "--checkpoint", ckpt, "--prompt",
+                         " ".join(map(str, prompt)), "--max-new-tokens", str(CLI_TOKENS),
+                         "--max-len", str(CLI_MAX_LEN), "--device", CLI_DEVICE, *extra])
+    seconds = time.perf_counter() - t0
+    got = json.loads(lines[-1])
+    launches = nonzero(launches_now())
+    if got != want:
+        raise AssertionError(f"[{label}] generate gave {got}, the direct Engine {want}")
+    # one launch per projection and forward
+    expect_launches(label, launches, {kernel: CLI_TOKENS * 7 * layers})
+    if "--retune" in extra and set(tuner) != {kernel}:
+        raise AssertionError(f"[{label}] the tuner launched {tuner}, expected {kernel} only")
+    log(f"  [{label}] generate: {got} = the direct Engine's; launches {launches}"
+        + (f", the tuner's {tuner}" if tuner else "") + f" ({seconds:.1f} s with the load)")
+    return dict(tokens=got, launches=launches, tuner_launches=tuner, seconds=seconds)
+
+
+def cli_quantize(root, hf_dir, prompt):
+    """Phase 8 step 1: quantize at 4 bits (w4sym, K1) and 3 bits (wide, K3),
+    in memory and streaming, every .npy file of the two equal; generate
+    from each, and with --retune."""
+    from flute_tpu_torch import tune
+
+    out = {}
+    for bits, kernel in ((4, "w4sym"), (3, "w3wide")):
+        dirs, seconds = {}, {}
+        for mode in ("memory", "streaming"):
+            dirs[mode] = os.path.join(root, f"w{bits}" + ("" if mode == "memory" else "_stream"))
+            t0 = time.perf_counter()
+            run_cli(["quantize", "--model-dir", hf_dir, "--output-dir", dirs[mode],
+                     "--num-bits", str(bits), "--device", CLI_DEVICE]
+                    + (["--streaming"] if mode == "streaming" else []))
+            seconds[mode] = time.perf_counter() - t0
+        files = sorted(f for f in os.listdir(dirs["memory"]) if f.endswith(".npy"))
+        if files != sorted(f for f in os.listdir(dirs["streaming"]) if f.endswith(".npy")):
+            raise AssertionError(f"[quantize {bits}-bit] the two products hold other files")
+        _, mismatch, errors = filecmp.cmpfiles(dirs["memory"], dirs["streaming"], files,
+                                               shallow=False)
+        if mismatch or errors:
+            raise AssertionError(f"[quantize {bits}-bit] files differ: {mismatch} {errors}")
+        size = sum(os.path.getsize(os.path.join(dirs["memory"], f)) for f in files)
+        shutil.rmtree(dirs["streaming"])
+        log(f"  [quantize {bits}-bit] in memory {seconds['memory']:.1f} s, streaming "
+            f"{seconds['streaming']:.1f} s; all {len(files)} .npy files ({size / 1e9:.2f} GB) "
+            "byte-equal")
+        out[f"w{bits}"] = dict(seconds=seconds, npy_files=len(files), bytes=size,
+                               generate=cli_generate(f"{bits}-bit", dirs["memory"], prompt,
+                                                     kernel, CLI_LAYERS))
+    tune._MEMO.clear()
+    retuned = cli_generate("4-bit --retune", os.path.join(root, "w4"), prompt, "w4sym",
+                           CLI_LAYERS, "--retune")
+    if retuned["tokens"] != out["w4"]["generate"]["tokens"]:
+        raise AssertionError("[4-bit --retune] tokens differ from the plain generate's")
+    tuned = {"|".join(map(str, k[1:5])): tune.launch_name(v) for k, v in tune._MEMO.items()}
+    retuned["tuned"] = tuned
+    log(f"  [4-bit --retune] the same tokens; tuned launches {tuned}")
+    out["w4"]["generate_retune"] = retuned
+    return out
+
+
+def cli_tuner(dev):
+    """Phase 8 step 2: the tuner at the fused projections' shapes (w4sym,
+    bf16) at M = 8 and 40: every candidate's time and checks, the winner
+    against the planner's launch, and the winner's bits against the
+    planner's on other random weights."""
+    from flute_tpu_torch import packing, tune
+    from flute_tpu_torch.ops import lut_gemm
+    from flute_tpu_torch.ops.kernel_config import KernelConfig, get_candidate_configs
+
+    rows = []
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    for name, (n, k) in TUNE_SHAPES.items():
+        for m in TUNE_M:
+            report = []
+            reset_counters()
+            best = tune.tune_config(m, n, k, 4, GROUP, torch.bfloat16, layout="w4sym", device=dev,
+                                    use_memo=False, report=report)
+            launches = nonzero(launches_now())
+            want = [tune.launch_name(c) for c in get_candidate_configs(m, n, k, 4, GROUP,
+                                                                     torch.bfloat16, "w4sym")]
+            if [r["launch"] for r in report] != want:
+                raise AssertionError(f"[tuner] {name} M={m}: report {report}, candidates {want}")
+            bad = [r["launch"] for r in report if not (r["passed"] and r["same_bits_as_planner"])]
+            if bad:
+                raise AssertionError(f"[tuner] {name} M={m}: {bad} failed its checks")
+            with uncounted():
+                codes = torch.randint(0, 16, (k, n), generator=gen, device=dev, dtype=torch.int32)
+                plane = packing.pack_w4_sym(codes)
+                mags = torch.sort(torch.rand(8, generator=gen, device=dev)).values
+                table = torch.cat([mags, -mags])
+                scales = (torch.rand((k // GROUP, n), generator=gen, device=dev) + 0.5).to(
+                    torch.bfloat16)
+                x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+                ys = [lut_gemm.lut_qgemm(x, [plane], scales, table, num_bits=4, config=cfg,
+                                         layout="w4sym") for cfg in (KernelConfig(), best)]
+            if not torch.equal(*ys):
+                raise AssertionError(f"[tuner] {name} M={m}: the winner changes the bits")
+            planner = next(r for r in report if r["planner"])
+            winner = next(r for r in report if r["chosen"])
+            for r in report:
+                log(f"  [tuner] {name} ({n}x{k}) M={m} {r['launch']}: {r['us']:.1f} us, "
+                    f"rel err {r['rel_err']:.2e}, {'pass' if r['passed'] else 'FAIL'}")
+            log(f"  [tuner] {name} M={m}: winner {winner['launch']} {winner['us']:.1f} us against "
+                f"the planner's {planner['launch']} {planner['us']:.1f} us "
+                f"({planner['us'] / winner['us']:.2f}x); bit-equal to it; launches {launches}")
+            rows.append(dict(proj=name, n=n, k=k, m=m, candidates=report,
+                             winner=winner["launch"], winner_us=winner["us"],
+                             planner=planner["launch"], planner_us=planner["us"],
+                             launches=launches))
+    return rows
+
+
+def cli_calibrate(root, hf_dir, prompt):
+    """Phase 8 step 3: NFL through ``calibrate`` (batch 2 x 512, 8 steps over
+    one fixed batch of seeded tokens): the loss falls; the checkpoint's
+    projections are w4sym and it serves on K1."""
+    from flute_tpu_torch.integrations.huggingface import load_quantized_model
+    from flute_tpu_torch.nn import QuantizedLinear
+
+    n = NFL["batch"] * NFL["seq"]
+    batch = np.random.default_rng(8).integers(0, cli_config(1).vocab_size, n).astype(np.int32)
+    tok_path = os.path.join(root, "nfl_tokens.npy")
+    np.save(tok_path, np.tile(batch, NFL["steps"]))
+    from flute_tpu_torch.quantize import learnable
+
+    out_dir = os.path.join(root, "nfl")
+    steps = []  # (host clock at the step's start, its loss unrounded)
+    clm_loss = wrap(learnable, "clm_loss", after=lambda r, t0, *a: steps.append((t0, r.item())))
+    t0 = time.perf_counter()
+    try:
+        run_cli(["calibrate", "--model-dir", hf_dir, "--output-dir", out_dir,
+                 "--tokens-npy", tok_path, "--steps", str(NFL["steps"]),
+                 "--batch-size", str(NFL["batch"]), "--seq-len", str(NFL["seq"]),
+                 "--lr", str(NFL["lr"]), "--device", CLI_DEVICE])
+    finally:
+        learnable.clm_loss = clm_loss
+    seconds = time.perf_counter() - t0
+    losses = [loss for _, loss in steps]
+    step_s = np.diff([t for t, _ in steps]).tolist()
+    if len(losses) != NFL["steps"] or not np.isfinite(losses).all() or losses[-1] >= losses[0]:
+        raise AssertionError(f"[NFL] losses {losses} do not fall")
+    params, _, sidecar = load_quantized_model(out_dir, device=CLI_DEVICE)
+    layouts = {v.layout for layer in params["layers"] for v in layer.values()
+               if isinstance(v, QuantizedLinear)}
+    if not sidecar["model_config"]["nfl"] or layouts != {"w4sym"}:
+        raise AssertionError(f"[NFL] sidecar {sidecar}, layouts {layouts}")
+    del params
+    release()
+    log(f"  [NFL] losses {losses}; {np.median(step_s):.3f} s per step (median of steps "
+        f"1-{NFL['steps'] - 1}, start to start), {seconds:.1f} s in all with the load and save")
+    served = cli_generate("NFL", out_dir, prompt, "w4sym", CLI_LAYERS)
+    return dict(losses=losses, step_s=step_s, seconds=seconds, generate=served)
+
+
+def import_model(dense, qlayers, norms) -> tuple:
+    """Params of a one-layer model whose projections are ``qlayers`` (modules
+    or dense [in, out] tensors), its embedding, head and norms dense."""
+    layer = dict(qlayers, attn_norm=norms[0], mlp_norm=norms[1])
+    return {"embed": dense["embed"], "final_norm": dense["final_norm"],
+            "lm_head": dense["lm_head"], "layers": [layer]}
+
+
+def hold_import(label, qparams, dparams, prompt, kernel):
+    """The imported model's logits within the bf16 threshold of the dense
+    model of the same weights; then it serves through an Engine with exact
+    launches."""
+    from flute_tpu_torch.serving import Engine
+
+    config = cli_config(CLI_IMPORT_LAYERS)
+    got, want = import_logits(qparams, prompt), import_logits(dparams, prompt)
+    err = float((got - want).abs().max() / want.abs().max())
+    if not err <= THRESHOLDS[torch.bfloat16]:
+        raise AssertionError(f"[{label}] logits {err:.3e} from the dense model's")
+    reset_counters()
+    eng = Engine(params=qparams, config=config, max_len=CLI_MAX_LEN, batch_size=1,
+                 device=CLI_DEVICE)
+    toks = eng.generate([prompt], max_new_tokens=CLI_TOKENS)[0]
+    launches = nonzero(launches_now())
+    expect_launches(label, launches, {kernel: CLI_TOKENS * 7 * CLI_IMPORT_LAYERS})
+    log(f"  [{label}] logits within {err:.2e} of the dense model's; served {toks}, "
+        f"launches {launches}")
+    return dict(logits_rel_err=err, tokens=toks, launches=launches)
+
+
+def bnb_tensors(gen, dev, prefix, n, k, quant_type):
+    """An HF-serialized bnb Linear4bit: random nibbles, absmax (NF4 double-
+    quantized per 256 blocks, FP4 plain), the quant map and the JSON
+    quant_state tensor."""
+    bs = 64
+    codes = torch.randint(0, 16, (n * k,), generator=gen, device=dev, dtype=torch.int32)
+    packed = ((codes[0::2] << 4) | codes[1::2]).to(torch.uint8)
+    absmax = torch.rand((n * k // bs,), generator=gen, device=dev) * 0.04 + 0.01
+    meta = {"quant_type": quant_type, "blocksize": bs, "shape": [n, k], "dtype": "bfloat16"}
+    from flute_tpu_torch.quantize.nf import QLORA_NF4
+
+    table = QLORA_NF4 if quant_type == "nf4" else np.asarray(FP4_TABLE, np.float32)
+    t = {prefix + ".weight": packed.reshape(-1, 1).cpu(),
+         prefix + ".weight.quant_map": torch.from_numpy(np.array(table))}
+    if quant_type == "nf4":  # nested: uint8 codes of a 256-entry map per 256 blocks
+        offset = float(absmax.mean())
+        centered = absmax - offset
+        pad = (-centered.numel()) % 256
+        blocks = torch.nn.functional.pad(centered, (0, pad)).reshape(-1, 256)
+        nested_absmax = blocks.abs().amax(dim=1)
+        nested_absmax[nested_absmax == 0] = 1.0
+        q = torch.round((blocks / nested_absmax[:, None] + 1) * 127.5).clamp(0, 255)
+        t[prefix + ".weight.absmax"] = q.reshape(-1)[: centered.numel()].to(torch.uint8).cpu()
+        t[prefix + ".weight.nested_absmax"] = nested_absmax.cpu()
+        t[prefix + ".weight.nested_quant_map"] = torch.linspace(-1, 1, 256)
+        meta.update(nested_blocksize=256, nested_offset=offset)
+    else:
+        t[prefix + ".weight.absmax"] = absmax.cpu()
+    t[prefix + f".weight.quant_state.bitsandbytes__{quant_type}"] = torch.from_numpy(
+        np.frombuffer(json.dumps(meta).encode(), np.uint8).copy())
+    return t
+
+
+def import_logits(params, prompt):
+    from flute_tpu_torch.models import llama
+
+    config = cli_config(CLI_IMPORT_LAYERS)
+    tokens = torch.tensor([prompt], device=CLI_DEVICE)
+    with torch.inference_mode(), uncounted():
+        cache = llama.init_cache(config, 1, 32, device=CLI_DEVICE)
+        return llama.forward(params, config, tokens, cache, 0)[0]
+
+
+def cli_bnb(dev, root, hf, dense, prompt):
+    """Phase 8 step 4: an NF4 (nested absmax) and an FP4 bnb checkpoint of
+    one decoder layer at 8B widths, written with the port's writer, loaded
+    with ``load_bnb_checkpoint``: each layer's weight is bnb's decode
+    (``unpack_nibbles``, ``decode_absmax`` and the quant map, as
+    ``dequantize_bnb`` reads them) rounded as the layer keeps it (table and
+    absmax in bf16, their product rounded to bf16), bit for bit; the model
+    serves on K2 within the bf16 threshold of the dense model of those
+    weights. Its distance to the dense model of ``dequantize_bnb``'s f32
+    weights is measured too: bf16 absmax moves each weight by up to 2^-9,
+    and random weights amplify that through the layer."""
+    from flute_tpu_torch.integrations import safetensors_io
+    from flute_tpu_torch.quantize import bitsandbytes as bnb
+
+    config = cli_config(CLI_IMPORT_LAYERS)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    norms = [dense["layers"][0]["attn_norm"], dense["layers"][0]["mlp_norm"]]
+    out = {}
+    for quant_type in ("nf4", "fp4"):
+        d = os.path.join(root, f"bnb_{quant_type}")
+        os.makedirs(d, exist_ok=True)
+        tensors = {}
+        for key, (n, k) in proj_shapes(config).items():
+            tensors.update(bnb_tensors(gen, dev, f"model.layers.0.{HF_PROJ[key]}", n, k,
+                                       quant_type))
+        safetensors_io.save_file(tensors, os.path.join(d, "model.safetensors"))
+        t0 = time.perf_counter()
+        loaded = bnb.load_bnb_checkpoint(d, device=CLI_DEVICE)
+        seconds = time.perf_counter() - t0
+        qlayers, dlayers, f32layers = {}, {}, {}
+        for key, (n, k) in proj_shapes(config).items():
+            prefix = f"model.layers.0.{HF_PROJ[key]}"
+            qlayers[key] = loaded[prefix]
+            state = bnb.quant_state_from_tensors(tensors, prefix)
+            packed = tensors[prefix + ".weight"].numpy()
+            codes = torch.from_numpy(bnb.unpack_nibbles(packed, n * k)).to(CLI_DEVICE).long()
+            absmax = torch.from_numpy(bnb.decode_absmax(state)).to(CLI_DEVICE)
+            table = torch.from_numpy(state.code).to(CLI_DEVICE).to(torch.bfloat16)
+            w = table[codes] * absmax.to(torch.bfloat16).repeat_interleave(state.blocksize)
+            dlayers[key] = w.reshape(n, k).T  # [in, out]
+            with uncounted():
+                if not torch.equal(qlayers[key].dequantize(torch.bfloat16), dlayers[key]):
+                    raise AssertionError(f"[bnb {quant_type}] {key}: the layer's weight is not "
+                                         "bnb's decode")
+            f32layers[key] = torch.from_numpy(bnb.dequantize_bnb(state, packed)).to(CLI_DEVICE).T
+        qparams = import_model(dense, qlayers, norms)
+        err32 = float((import_logits(qparams, prompt) - import_logits(
+            import_model(dense, f32layers, norms), prompt)).abs().max())
+        log(f"  [bnb {quant_type}] loaded {len(qlayers)} layers in {seconds:.1f} s; each weight "
+            "bnb's decode, bit for bit")
+        out[quant_type] = dict(load_s=seconds, **hold_import(
+            f"bnb {quant_type}", qparams, import_model(dense, dlayers, norms), prompt, "plane"))
+        want32 = float(import_logits(import_model(dense, f32layers, norms), prompt).abs().max())
+        out[quant_type]["logits_rel_err_f32_decode"] = err32 / want32
+        log(f"  [bnb {quant_type}] logits within {err32 / want32:.2e} of the dense model of "
+            "dequantize_bnb's f32 weights (measured, not held)")
+        del loaded, qlayers, dlayers, f32layers
+        shutil.rmtree(d)
+        release()
+    return out
+
+
+def reference_layer(gen, dev, bits, n, k, higgs):
+    """One reference FluteLinear: codes [K, N] on the card, and its f16
+    scales [N, K/g], f16 table (and a vector tables2); the int16 weight is
+    packed from the codes afterwards (:func:`pack_reference`)."""
+    e = 2**bits
+    codes = torch.randint(0, e, (k, n), generator=gen, device=dev, dtype=torch.int32)
+    scales = ((torch.rand((n, k // GROUP), generator=gen, device=dev) + 0.5) * 0.02).half()
+    table = torch.sort(torch.randn(e, generator=gen, device=dev)).values.half()
+    t = {"scales": scales.cpu(), "tables": table.cpu()}
+    if higgs:
+        grid = torch.randn((e, e, 2), generator=gen, device=dev).half()
+        halves = grid.view(torch.int16).cpu().numpy().view(np.uint16).astype(np.uint32)
+        t2 = (halves[..., 0] | (halves[..., 1] << 16)).view(np.float32)
+        t["tables2"] = np.ascontiguousarray(t2.reshape(e, e, 1))
+    return codes, t
+
+
+def cli_import_flute(dev, root, hf, dense, prompt):
+    """Phase 8 step 5: reference-FLUTE checkpoints of one decoder layer at
+    8B widths (W4, W3, and HIGGS W4 with a vector tables2), packed with
+    ``pack_reference_weight``, imported with ``import-flute`` and served:
+    W4 and W3 on K2 (the pair planes the JAX package's importer packs), HIGGS
+    on K4; each held to the dense model of its codes, scales and table."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from flute_tpu_torch.integrations import flute_format as ff
+    from flute_tpu_torch.integrations import safetensors_io
+    from flute_tpu_torch.integrations.huggingface import load_quantized_model
+    from flute_tpu_torch.ops import lut_gemm
+
+    config = cli_config(CLI_IMPORT_LAYERS)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    norms = [dense["layers"][0]["attn_norm"], dense["layers"][0]["mlp_norm"]]
+    out = {}
+    for name, bits, higgs, kernel in (("W4", 4, False, "plane"), ("W3", 3, False, "plane"),
+                                      ("HIGGS W4", 4, True, "pair")):
+        src = os.path.join(root, f"ref_{bits}{'h' if higgs else ''}")
+        dst = src + "_imported"
+        os.makedirs(src, exist_ok=True)
+        t0 = time.perf_counter()
+        made = {key: reference_layer(gen, dev, bits, n, k, higgs)
+                for key, (n, k) in proj_shapes(config).items()}
+        with ThreadPoolExecutor(max_workers=7) as ex:  # the host packs the seven at once
+            packed = ex.map(lambda c: ff.pack_reference_weight(c.cpu().numpy(), bits,
+                                                               template_id=CLI_TEMPLATE),
+                            [codes for codes, _ in made.values()])
+            for (_, t), weight in zip(made.values(), packed):
+                t["weight"] = weight
+        tensors = {"model.norm.weight": hf["model.norm.weight"],
+                   "model.layers.0.input_layernorm.weight":
+                       hf["model.layers.0.input_layernorm.weight"],
+                   "model.layers.0.post_attention_layernorm.weight":
+                       hf["model.layers.0.post_attention_layernorm.weight"]}
+        for key, (_, t) in made.items():
+            tensors.update({f"model.layers.0.{HF_PROJ[key]}.{part}": v for part, v in t.items()})
+        safetensors_io.save_file(tensors, os.path.join(src, "model.safetensors"))
+        with open(os.path.join(src, "flute_config.json"), "w") as f:
+            json.dump({"num_bits": bits, "group_size": GROUP, "template_id": CLI_TEMPLATE}, f)
+        with open(os.path.join(src, "config.json"), "w") as f:
+            json.dump(hf_config_json(config), f)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        run_cli(["import-flute", "--model-dir", src, "--output-dir", dst])
+        import_s = time.perf_counter() - t0
+        params, _, sidecar = load_quantized_model(dst, device=CLI_DEVICE)
+        qlayers = {key: params["layers"][0][key] for key in HF_PROJ}
+        dlayers = {}
+        for key, (codes, t) in made.items():
+            layer = qlayers[key]
+            if (layer.pair_values is not None) != higgs or layer.num_bits != bits:
+                raise AssertionError(f"[import {name}] {key} came back as {layer}")
+            s = t["scales"].to(CLI_DEVICE).float().T.contiguous().to(torch.bfloat16)
+            if higgs:
+                w = lut_gemm.dequantize_codes_pair(codes, s, layer.pair_values, torch.bfloat16)
+            else:
+                w = lut_gemm.dequantize_codes(codes, s, t["tables"].to(CLI_DEVICE).float(),
+                                              torch.bfloat16)
+            dlayers[key] = w
+        log(f"  [import {name}] reference checkpoint written in {write_s:.1f} s, imported in "
+            f"{import_s:.1f} s")
+        out[name] = dict(write_s=write_s, import_s=import_s, **hold_import(
+            f"import {name}", import_model(dense, qlayers, norms),
+            import_model(dense, dlayers, norms), prompt, kernel))
+        del params, qlayers, dlayers, made
+        shutil.rmtree(src)
+        shutil.rmtree(dst)
+        release()
+    return out
+
+
+def cli_serve(root, prompt):
+    """Phase 8 step 6: ``serve``'s engines from ``build_serve_engine`` (the
+    4-bit checkpoint; the paged speculative one with the 3-bit checkpoint
+    as its draft): one streamed HTTP request each, its tokens and launches
+    those of the same engine driven directly."""
+    from flute_tpu_torch.integrations import cli
+    from flute_tpu_torch.serving.server import serve as http_serve
+
+    common = ["serve", "--checkpoint", os.path.join(root, "w4"), "--num-slots", "2",
+              "--max-len", str(CLI_MAX_LEN), "--block-size", "16", "--num-blocks", "64",
+              "--device", CLI_DEVICE]
+    modes = {"continuous": [], "paged pool-prefill": ["--paged", "--pool-prefill"],
+             "paged speculative": ["--paged", "--pool-prefill", "--draft-checkpoint",
+                                   os.path.join(root, "w3"), "--speculative-k", "4"]}
+    out = {}
+    for name, extra in modes.items():
+        args = cli.build_parser().parse_args(common + extra)
+        eng, _ = cli.build_serve_engine(args)
+        reset_counters()
+        rid = eng.submit(prompt, max_new_tokens=CLI_TOKENS)
+        want = eng.run()[rid]
+        direct = nonzero(launches_now())
+        kind = type(eng).__name__
+        del eng
+        release()
+        eng, tok = cli.build_serve_engine(args)
+        srv = http_serve(eng, port=0, tokenizer=tok, model_id="phase8")
+        try:
+            reset_counters()
+            toks, ttft, rest = Client(srv).stream({"prompt": prompt, "max_tokens": CLI_TOKENS,
+                                                   "stream": True})
+            launches = nonzero(launches_now())
+        finally:
+            srv.shutdown()
+            srv.loop.shutdown()
+        if toks != want or launches != direct:
+            raise AssertionError(f"[serve {name}] HTTP {toks} {launches}, direct {want} {direct}")
+        log(f"  [serve {name}] {kind}: one streamed request, {toks} = the engine driven "
+            f"directly; TTFT {ttft * 1e3:.1f} ms, then {rest * 1e3:.1f} ms; launches {launches}")
+        out[name] = dict(engine=kind, tokens=toks, ttft_s=ttft, rest_s=rest, launches=launches)
+        del eng, srv
+        release()
+    return out
+
+
+def phase_cli(dev, results):
+    """Phase 8: an HF Llama directory at Llama-3.1-8B widths (4 layers) from a
+    seed, driven through the port's CLI and the functions it calls."""
+    from flute_tpu_torch.integrations.huggingface import load_hf_params
+
+    root = os.path.join(HERE, "build", "phase8")
+    shutil.rmtree(root, ignore_errors=True)
+    hf_dir = os.path.join(root, "hf")
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    hf = write_hf_dir(hf_dir, cli_config(CLI_LAYERS), dev, seed=0)
+    size = os.path.getsize(os.path.join(hf_dir, "model.safetensors"))
+    log(f"  HF directory: {CLI_LAYERS} layers at Llama-3.1-8B widths, {size / 1e9:.2f} GB of "
+        f"bf16 shards, written in {time.perf_counter() - t0:.1f} s")
+    prompt = np.random.default_rng(3).integers(0, cli_config(1).vocab_size, 12).tolist()
+    out = dict(hf_bytes=size)
+    try:
+        out["quantize"] = cli_quantize(root, hf_dir, prompt)
+        out["tuner"] = cli_tuner(dev)
+        out["nfl"] = cli_calibrate(root, hf_dir, prompt)
+        with torch.inference_mode():
+            dense = load_hf_params(hf_dir, device=CLI_DEVICE)
+        dense["layers"] = dense["layers"][:CLI_IMPORT_LAYERS]
+        release()
+        out["bnb"] = cli_bnb(dev, root, hf, dense, prompt)
+        out["import_flute"] = cli_import_flute(dev, root, hf, dense, prompt)
+        del dense
+        release()
+        out["serve"] = cli_serve(root, prompt)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 8 took {out['seconds']:.0f} s")
+    results["cli"] = out
+    return out
+
+
+def phase8_launches(cli_out) -> dict:
+    """Each kernel's launches in each phase-8 run, by kernel counter."""
+    runs = {f"generate {k}": v["generate"]["launches"] for k, v in cli_out["quantize"].items()}
+    runs["generate w4 --retune"] = cli_out["quantize"]["w4"]["generate_retune"]["launches"]
+    runs["nfl generate"] = cli_out["nfl"]["generate"]["launches"]
+    for row in cli_out["tuner"]:
+        runs[f"tuner {row['proj']} M={row['m']}"] = row["launches"]
+    for fmt, r in cli_out["bnb"].items():
+        runs[f"bnb {fmt}"] = r["launches"]
+    for name, r in cli_out["import_flute"].items():
+        runs[f"import {name}"] = r["launches"]
+    for name, r in cli_out["serve"].items():
+        runs[f"serve {name}"] = r["launches"]
+    by_kernel = {}
+    for run, launches in runs.items():
+        for key, n in launches.items():
+            by_kernel.setdefault(key, {})[run] = n
+    return by_kernel
+
+
 def report_served_idle(name, serving):
     """The served decode step's idle share: one minus the replay's device
     time (CUDA events) over the median host-clock step."""
@@ -3479,11 +4120,14 @@ def main() -> int:
     log("== 7. the quantized lm_head, the HTTP server and perplexity, Llama-3.1-8B widths, "
         "32 layers")
     phase7 = phase_head_server_ppl(dev, results, trajectories["w4sym"])
+    release()
+    log(f"== 8. the CLI from an HF directory at Llama-3.1-8B widths, {CLI_LAYERS} layers")
+    phase8 = phase8_launches(phase_cli(dev, results))
     lab_served = {fn: lab_ops.LAUNCHES[fn] - lab_before[fn] for fn in lab_before}
     lab2_served = {fn: lab2_ops.LAUNCHES[fn] - lab2_before[fn] for fn in lab2_before}
     if any(lab_served.values()) or any(lab2_served.values()):
-        raise AssertionError(f"phases 3-7 launched lab kernels: {lab_served}, {lab2_served}")
-    log(f"  lab kernels launched in phases 3-7: {lab_served}, {lab2_served}")
+        raise AssertionError(f"phases 3-8 launched lab kernels: {lab_served}, {lab2_served}")
+    log(f"  lab kernels launched in phases 3-8: {lab_served}, {lab2_served}")
 
     kernels = [kernel_line(kid, cases, launches[kid], results["identity_paths"],
                            gemma_launches.get(kid), spec) for kid in LUT_KERNELS]
@@ -3495,6 +4139,10 @@ def main() -> int:
                 for kid in LAB]
     kernels += [lab_line(kid, LAB2, lab2_cases, lab2_checks, lab2_launches, lab2_served)
                 for kid in LAB2]
+    for line, kid in zip(kernels, (*LUT_KERNELS, "K5", "K6")):
+        if not phase8.get(KERNELS[kid][2]):
+            raise AssertionError(f"phase 8 launched no {kid}")
+        line["phase8"] = dict(launches=phase8[KERNELS[kid][2]])
     results["kernels"] = kernels
     results["total_s"] = time.perf_counter() - t_start
     log(f"  chip_smoke took {results['total_s']:.0f} s")

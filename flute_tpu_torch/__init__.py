@@ -5,15 +5,22 @@ LUT-quantized LLM inference: NF quantization, the packed weight layouts of
 sm_90a (the sign-symmetric 4-bit "w4sym" layout, the general-table pair
 planes at 2/3/4 bits and the wide 3-bit layout), the Hadamard rotation, the
 quantized-checkpoint format, Llama and Gemma-2 models, the serving engines
-with their HTTP server, and perplexity. Entry points run on ``cuda`` unless
-the caller passes ``device="cpu"``, which runs the plain PyTorch versions.
+with their HTTP server, perplexity, the checkpoint importers (HF, bnb,
+reference FLUTE), NFL calibration, the launch tuner and the CLI. Entry
+points run on ``cuda`` unless the caller passes ``device="cpu"``, which runs
+the plain PyTorch versions.
 
-The public names are the JAX package's (``flute_tpu/__init__.py``) but for
-the kernel-config tuner's, which the port does not have yet.
+The public names are the JAX package's (``flute_tpu/__init__.py``).
 """
 
 from flute_tpu_torch.version import __version__
-from flute_tpu_torch.ops.kernel_config import KernelConfig
+from flute_tpu_torch.ops.kernel_config import (
+    KernelConfig,
+    fit_config,
+    get_candidate_configs,
+    get_kernel_config,
+    is_config_supported,
+)
 from flute_tpu_torch.ops.lut_gemm import lut_qgemm, lut_qgemm_reference, qgemm
 from flute_tpu_torch.ops.hadamard import hadamard_transform, qgemm_hadamard
 from flute_tpu_torch.packing import PackFormat, pack, reconstruct, unpack
@@ -22,6 +29,10 @@ from flute_tpu_torch.nn import QuantizedLinear, from_codes, quantize_linear
 __all__ = [
     "__version__",
     "KernelConfig",
+    "fit_config",
+    "get_kernel_config",
+    "get_candidate_configs",
+    "is_config_supported",
     "lut_qgemm",
     "lut_qgemm_reference",
     "qgemm",

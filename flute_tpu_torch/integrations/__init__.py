@@ -1,5 +1,6 @@
-"""Checkpoint I/O of the port: the JAX package's quantized-checkpoint format."""
+"""Checkpoint I/O and interop of the port: the quantized-checkpoint format,
+HF checkpoints, reference-FLUTE checkpoints and the CLI."""
 
-from flute_tpu_torch.integrations import checkpoint  # noqa: F401
+from flute_tpu_torch.integrations import checkpoint, huggingface  # noqa: F401
 
-__all__ = ["checkpoint"]
+__all__ = ["checkpoint", "huggingface"]

@@ -54,13 +54,15 @@ def _store(root: str, key: str, arr) -> str:
     """Save one tensor (or array) as ``<key>.npy``; returns its reference."""
     fname = _safe_name(key) + ".npy"
     if isinstance(arr, torch.Tensor):
-        t = arr.detach().cpu()
+        # C order whatever the strides (a transposed view too), as the JAX
+        # package writes
+        t = arr.detach().cpu().contiguous()
         if t.dtype == torch.bfloat16:
             np.save(os.path.join(root, fname), t.view(torch.int16).numpy().view(np.uint16))
             return fname + "#bf16"
         a = t.numpy()
     else:
-        a = np.asarray(arr)
+        a = np.ascontiguousarray(arr)
     np.save(os.path.join(root, fname), a)
     return fname
 
@@ -163,9 +165,10 @@ class StreamingWriter:
         config_key: Optional[str] = None,
         bias=None,
         layout: str = "auto",
+        pair_values=None,
     ) -> None:
         self.entries.append(_quantized_entry(
-            self.path, tree_path, planes, scales, table, pair_values=None, bias=bias,
+            self.path, tree_path, planes, scales, table, pair_values=pair_values, bias=bias,
             num_bits=num_bits, group_size=group_size, config_key=config_key,
             hadamard_size=None, layout=layout,
         ))

@@ -89,6 +89,7 @@ def move_params(tree: Any, device) -> Any:
             config_key=tree.config_key,
             layout=tree.layout,
             hadamard_size=tree.hadamard_size,
+            config=tree.config,
         )
     if isinstance(tree, torch.Tensor):
         return tree.to(device)

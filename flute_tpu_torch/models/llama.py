@@ -111,10 +111,13 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     ``bmm`` with ``out_dtype``; a transposed view is passed without a copy):
     a product of two bf16 or f16 values is exact in f32, so only the order of
     the f32 sums differs from the upcast product. Otherwise (the CPU, f32)
-    the product of the f32 upcasts. ``a`` is ``[..., m, k]`` and ``b``
-    ``[k, n]`` or ``[..., k, n]`` with the same leading dims."""
+    the product of the f32 upcasts, which is also taken where autograd must
+    pass through the product (NFL's calibration loss): ``out_dtype`` has no
+    derivative. ``a`` is ``[..., m, k]`` and ``b`` ``[k, n]`` or
+    ``[..., k, n]`` with the same leading dims."""
     if a.device.type != "cuda" or a.dtype not in (torch.bfloat16, torch.float16) \
-            or b.dtype != a.dtype:
+            or b.dtype != a.dtype \
+            or (torch.is_grad_enabled() and (a.requires_grad or b.requires_grad)):
         return _matmul_upcast(a, b)
     if b.ndim == 2:
         out = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)

@@ -6,8 +6,10 @@ optional pair table and bias are buffers, and whose quantization metadata
 it carries) are attributes. ``layout`` must travel with the module: the
 w4sym layout has the plane shape of classic W4 and cannot be told from it.
 ``from_codes`` builds one from codes computed elsewhere (importers,
-checkpoints). A layer with ``hadamard_size`` rotates x (a grouped Hadamard
-transform) before the GEMM, as HIGGS checkpoints need.
+checkpoints). A config a tuner chose (``flute_tpu_torch.tune``) rides on the
+module beside its key: the key, which is what a checkpoint keeps, never
+carries the tuned Hopper launch. A layer with ``hadamard_size`` rotates x
+(a grouped Hadamard transform) before the GEMM, as HIGGS checkpoints need.
 """
 
 from __future__ import annotations
@@ -38,6 +40,8 @@ class QuantizedLinear(nn.Module):
 
     ``hadamard_size``: when set, x is rotated by the grouped Hadamard
     transform of that size before the GEMM (HIGGS layers); None = none.
+    ``config``: the config itself, with a tuner's launch, given in place
+    of ``config_key``.
     """
 
     def __init__(
@@ -53,6 +57,7 @@ class QuantizedLinear(nn.Module):
         config_key: Optional[str] = None,
         layout: str = "auto",
         hadamard_size: Optional[int] = None,
+        config: Optional[KernelConfig] = None,
     ):
         super().__init__()
         self.num_planes = len(planes)
@@ -64,7 +69,9 @@ class QuantizedLinear(nn.Module):
         self.register_buffer("bias", bias)
         self.num_bits = num_bits
         self.group_size = group_size
-        self.config_key = config_key
+        # the config with its tuned launch; ``config_key`` is its key
+        self._config = config if config is not None or config_key is None else \
+            KernelConfig.from_key(config_key)
         self.layout = layout
         self.hadamard_size = hadamard_size
 
@@ -82,9 +89,15 @@ class QuantizedLinear(nn.Module):
 
     @property
     def config(self) -> Optional[KernelConfig]:
-        if self.config_key is None:
-            return None
-        return KernelConfig.from_key(self.config_key)
+        """The layer's config: its key parsed, with the launch a tuner chose
+        where one did."""
+        return self._config
+
+    @property
+    def config_key(self) -> Optional[str]:
+        """The persisted form of :attr:`config` (never holds the tuned
+        launch)."""
+        return None if self._config is None else self._config.key()
 
     @property
     def chunk(self) -> int:
@@ -92,14 +105,26 @@ class QuantizedLinear(nn.Module):
         return (self.config or KernelConfig()).chunk
 
     def with_config(self, config: Optional[KernelConfig]) -> "QuantizedLinear":
-        """The same layer (sharing its tensors) with another config key."""
+        """The same layer (sharing its tensors) with another config (its
+        tuned launch kept on the module)."""
         return QuantizedLinear(
             self.planes, self.scales, self.table, self.bias,
             pair_values=self.pair_values, num_bits=self.num_bits,
-            group_size=self.group_size,
-            config_key=None if config is None else config.key(),
+            group_size=self.group_size, config=config,
             layout=self.layout, hadamard_size=self.hadamard_size,
         )
+
+    @property
+    def kernel_layout(self) -> str:
+        """The kernel layout of the layer's calls (the argument of
+        :func:`~flute_tpu_torch.ops.kernel_config.kernel_layout`): ``"pair"``
+        with a pair table, else ``"w4sym"``, ``"w3wide"`` or ``"plane"``."""
+        if self.pair_values is not None:
+            return "pair"
+        if self.layout != "auto":
+            return self.layout
+        wide = packing.is_w3_wide(self.planes, self.num_bits, self.in_features)
+        return "w3wide" if wide else "plane"
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.hadamard_size is not None:

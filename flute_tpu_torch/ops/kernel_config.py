@@ -4,7 +4,19 @@
 so that ``config_key`` strings stored with quantized weights still parse.
 Its block sizes describe TPU tiles and the CUDA launch ignores them; its
 ``chunk`` is part of the packed layout and is honoured. The TPU device
-profiles and tuned registry are TPU-calibrated and have no counterpart here.
+profiles and the JAX package's shipped tuned registry are TPU-calibrated
+and have no counterpart here.
+
+The JAX package's four config functions keep their names and roles
+(:func:`is_config_supported`, :func:`get_candidate_configs`,
+:func:`fit_config`, :func:`get_kernel_config`), retargeted to what a Hopper
+launch may vary per call: the tensor-core loop's m16 tiles per warp
+(``KernelConfig.m_tiles``) and the SIMT kernel's rows per block
+(``KernelConfig.simt_block_m``), 0 meaning the planner's choice. Neither
+moves a bit of any row's result; the split of K, which would, stays
+:func:`mma_plan`'s. These two fields are never written into a key: a
+persisted key means the planner's choice, and the tuner
+(``flute_tpu_torch.tune``) keeps its choices in its own registry.
 
 Two launch shapes serve the Hopper LUT-GEMM kernels:
 
@@ -23,7 +35,7 @@ from __future__ import annotations
 
 import dataclasses
 import re
-from typing import ClassVar
+from typing import ClassVar, Iterator
 
 DEFAULT_CHUNK = 256
 
@@ -39,6 +51,9 @@ class KernelConfig:
     # pack chunk the weight layout was built with
     chunk: int = DEFAULT_CHUNK
     accum: str = "high"
+    # the Hopper launch a tuner chose (0: the planner's); not in the key
+    m_tiles: int = 0
+    simt_block_m: int = 0
 
     def key(self) -> str:
         # `_s1` is still emitted so keys match the persisted ones
@@ -174,11 +189,12 @@ class MmaPlan:
         return (self.splits, m, n) if self.splits > 1 else None
 
 
-def mma_plan(m: int, n: int, k: int, chunk: int) -> MmaPlan:
-    """The m16 tiles per warp (the fewest that cover M, at most 4) and the
-    split of K's chunks: the smallest that gives one m16 row of blocks (a
-    decode launch) :data:`MMA_TARGET_BLOCKS` blocks, every chunk its own
-    split if none does.
+def mma_plan(m: int, n: int, k: int, chunk: int, m_tiles: int = 0) -> MmaPlan:
+    """The m16 tiles per warp (``m_tiles`` where a tuner chose them, else
+    the fewest that cover M, at most 4) and the split of K's chunks: the
+    smallest that gives one m16 row of blocks (a decode launch)
+    :data:`MMA_TARGET_BLOCKS` blocks, every chunk its own split if none
+    does.
 
     The split is a function of N, K and chunk alone, never of M: a row's f32
     partial sums then run in the same order, and are added in the same
@@ -186,10 +202,177 @@ def mma_plan(m: int, n: int, k: int, chunk: int) -> MmaPlan:
     M = 1 and M = 512 (``PagedEngine``'s prefill of one prompt equals
     ``Engine``'s of eight). At large M this costs an f32 workspace of
     ``splits * M * N`` written and read once more than one pass would."""
-    m_tiles = next((mt for mt in MMA_M_TILES if m <= 16 * mt), MMA_M_TILES[-1])
+    m_tiles = m_tiles or next((mt for mt in MMA_M_TILES if m <= 16 * mt), MMA_M_TILES[-1])
     cols = -(-n // MMA_BLOCK_N)
     rows = max(1, -(-m // (16 * m_tiles)))
     nchunks = k // chunk
     divisors = [s for s in range(1, nchunks + 1) if nchunks % s == 0]
     splits = next((s for s in divisors if cols * s >= MMA_TARGET_BLOCKS), nchunks)
     return MmaPlan(m_tiles=m_tiles, splits=splits, grid=(cols, splits, rows))
+
+
+# ---------------------------------------------------------------------------
+# The JAX package's config functions, for the Hopper launch
+# ---------------------------------------------------------------------------
+
+# the kernels' layouts: the pair-plane layout (K2), the wide 3-bit layout
+# (K3), w4sym (K1) and the joint pair lookup on pair planes (K4)
+KERNEL_LAYOUTS = ("plane", "w3wide", "w4sym", "pair")
+GRID_LIMIT = 65535  # blocks along the grid's M dimension
+
+
+def kernel_layout(num_bits: int, layout: str = "auto") -> str:
+    """The kernel layout a call names: ``"auto"`` is what the quantizers
+    pack, the wide layout at 3 bits and the pair-plane layout else."""
+    if layout == "auto":
+        return "w3wide" if num_bits == 3 else "plane"
+    if layout not in KERNEL_LAYOUTS:
+        raise ValueError(f"unknown layout {layout!r}")
+    return layout
+
+
+def dtype_name(dtype) -> str:
+    """``"bfloat16"``, ``"float16"`` or ``"float32"`` for a torch dtype or
+    its name; None is bfloat16."""
+    if dtype is None:
+        return "bfloat16"
+    return str(dtype).rsplit(".", 1)[-1]
+
+
+def launch_path(dtype, num_bits: int, chunk: int, layout: str = "auto") -> str:
+    """``"mma"`` where the call runs the tensor-core loop (K4 always; K1, K2
+    and K3 in bf16 and f16 at a chunk the loop takes), ``"simt"`` where it
+    runs the SIMT kernel."""
+    layout = kernel_layout(num_bits, layout)
+    if layout == "pair":
+        return "mma"
+    if dtype_name(dtype) in ("bfloat16", "float16") and mma_takes_chunk(num_bits, chunk, layout):
+        return "mma"
+    return "simt"
+
+
+def _layout_takes(num_bits: int, chunk: int, layout: str) -> bool:
+    if layout == "w4sym":
+        return num_bits == 4 and chunk % 8 == 0
+    if layout == "w3wide":
+        return num_bits == 3 and chunk % 256 == 0
+    from flute_tpu_torch.packing import PackFormat  # packing imports this module
+
+    try:
+        PackFormat(num_bits=num_bits, chunk=chunk)
+    except ValueError:
+        return False
+    return True
+
+
+def is_config_supported(
+    config: KernelConfig,
+    m: int,
+    n: int,
+    k: int,
+    num_bits: int,
+    group_size: int,
+    dtype=None,
+    layout: str = "auto",
+) -> bool:
+    """Whether the kernel of ``layout`` takes ``config`` for a (M, N, K)
+    call: the chunk divides K and suits the layout, the group size is even
+    and divides K, a tuned ``m_tiles`` is one the loop is built for and the
+    call runs the loop, a tuned ``simt_block_m`` likewise for the SIMT
+    kernel, and the grid's M dimension fits. (The TPU block fields are not
+    read.)"""
+    del n
+    layout = kernel_layout(num_bits, layout)
+    chunk = config.chunk
+    if chunk <= 0 or k % chunk or group_size % 2 or k % group_size:
+        return False
+    if not _layout_takes(num_bits, chunk, layout):
+        return False
+    if layout == "pair" and (dtype_name(dtype) == "float32"
+                             or not mma_takes_chunk(num_bits, chunk)):
+        return False
+    path = launch_path(dtype, num_bits, chunk, layout)
+    if config.m_tiles and (path != "mma" or config.m_tiles not in MMA_M_TILES):
+        return False
+    if config.simt_block_m and (path != "simt" or config.simt_block_m not in BLOCK_M_CHOICES):
+        return False
+    m = max(m, 1)
+    if path == "mma":
+        rows = -(-m // (16 * mma_plan(m, 1, k, chunk, config.m_tiles).m_tiles))
+    else:
+        rows = -(-m // (config.simt_block_m or launch_config(m).block_m))
+    return rows <= GRID_LIMIT
+
+
+def get_candidate_configs(
+    m: int,
+    n: int,
+    k: int,
+    num_bits: int,
+    group_size: int,
+    dtype=None,
+    layout: str = "auto",
+    chunk: int = DEFAULT_CHUNK,
+) -> Iterator[KernelConfig]:
+    """The tuner's search space for a call: each m16 tile count the loop is
+    built for (the call runs the loop) or each SIMT ``block_m`` (it runs
+    the SIMT kernel), the planner's own choice first. No candidate changes
+    the split of K, so every candidate gives each row the same bits."""
+    path = launch_path(dtype, num_bits, chunk, layout)
+    if path == "mma":
+        default = mma_plan(m, n, k, chunk).m_tiles
+        choices = (default, *(mt for mt in MMA_M_TILES if mt != default))
+        cands = [KernelConfig(chunk=chunk, m_tiles=mt) for mt in choices]
+    else:
+        default = launch_config(m).block_m
+        choices = (default, *(bm for bm in BLOCK_M_CHOICES if bm != default))
+        cands = [KernelConfig(chunk=chunk, simt_block_m=bm) for bm in choices]
+    for cfg in cands:
+        if is_config_supported(cfg, m, n, k, num_bits, group_size, dtype, layout):
+            yield cfg
+
+
+def fit_config(
+    config: KernelConfig,
+    m: int,
+    n: int,
+    k: int,
+    num_bits: int,
+    group_size: int,
+) -> KernelConfig:
+    """``config`` for an actual (possibly sharded) problem shape: the chunk
+    must divide K (it is part of the packed layout, so it cannot be
+    changed); a tuned launch whose grid would not fit M falls back to the
+    planner's."""
+    if k % config.chunk or k % group_size:
+        raise ValueError(
+            f"K={k} incompatible with chunk={config.chunk} group={group_size} bits={num_bits}"
+        )
+    m = max(m, 1)
+    fitted = config
+    if config.m_tiles and -(-m // (16 * config.m_tiles)) > GRID_LIMIT:
+        fitted = dataclasses.replace(fitted, m_tiles=0)
+    if config.simt_block_m and -(-m // config.simt_block_m) > GRID_LIMIT:
+        fitted = dataclasses.replace(fitted, simt_block_m=0)
+    return fitted
+
+
+def get_kernel_config(
+    m: int,
+    n: int,
+    k: int,
+    num_bits: int,
+    group_size: int,
+    dtype=None,
+    layout: str = "auto",
+) -> KernelConfig:
+    """The config of a call: the tuner's registry entry for the shape on
+    this card where there is one the kernel takes, else the planner's
+    launch (``KernelConfig()``). No registry ships with the port, so
+    JAX's ``FLUTE_TPU_NO_TUNED_REGISTRY`` has no counterpart."""
+    from flute_tpu_torch import tune
+
+    hit = tune.lookup_packaged(m, n, k, num_bits, group_size, dtype, layout=layout)
+    if hit is not None and is_config_supported(hit, m, n, k, num_bits, group_size, dtype, layout):
+        return hit
+    return KernelConfig()

@@ -39,6 +39,7 @@ from flute_tpu_torch.ops.kernel_config import (
     KernelConfig,
     MmaPlan,
     launch_config,
+    launch_path,
     mma_fields,
     mma_plan,
     mma_takes_chunk,
@@ -183,6 +184,7 @@ def _check_operands(
     group_size: int,
     chunk: int,
     table_name: str = "table",
+    simt_block_m: int = 0,
 ) -> None:
     """Raise ``ValueError`` on operands a kernel does not take: another
     device, a non-contiguous tensor, a dtype or shape it was not built for."""
@@ -209,7 +211,7 @@ def _check_operands(
         raise ValueError(f"{table_name} must be float32 {list(table_shape)}")
     if k % chunk or group_size % 2 or k % group_size:
         raise ValueError(f"K={k} chunk={chunk} group_size={group_size} not supported")
-    if -(-m // launch_config(m).block_m) > 65535:
+    if -(-m // (simt_block_m or launch_config(m).block_m)) > 65535:
         raise ValueError(f"M={m} exceeds the kernel's grid")
 
 
@@ -225,12 +227,14 @@ def _launch(
     extra: tuple[int, ...] = (),
     plan: Optional[MmaPlan] = None,
     vec: bool = True,
+    simt_block_m: int = 0,
 ) -> torch.Tensor:
     """Launch ``kernel`` on PyTorch's current stream (operands already
     checked) and count the launch; returns ``[M, N]`` in x's dtype. With a
     ``plan`` (the tensor-core loop) it passes the split-K workspace,
     allocated here, and the plan's fields; without one, K1, K2 and K3 run
-    their SIMT kernel."""
+    their SIMT kernel, with ``simt_block_m`` rows per block where a tuner
+    chose them."""
     m, k = x2.shape
     n = scales.shape[1]
     dev = x2.device
@@ -244,7 +248,7 @@ def _launch(
     if plan is not None:
         shape = plan.workspace_shape(m, n)
         ws = None if shape is None else torch.empty(shape, dtype=torch.float32, device=dev)
-    simt = (launch_config(m).block_m,)
+    simt = (simt_block_m or launch_config(m).block_m,)
     loop = (0, 1, 0) if plan is None else (plan.m_tiles, plan.splits, int(vec))
     work = () if tail_kind == "simt" else (None if ws is None else ws.data_ptr(),)
     tail = {"simt": simt, "mma": loop, "both": simt + loop}[tail_kind]
@@ -268,9 +272,7 @@ def lut_path(dtype: torch.dtype, num_bits: int, chunk: int, layout: str = "plane
     ``"mma"``, the tensor-core loop, for bf16 and f16 at a chunk the loop
     takes (:func:`~flute_tpu_torch.ops.kernel_config.mma_takes_chunk`);
     ``"simt"``, the SIMT kernel, otherwise. (K4 always runs the loop.)"""
-    if dtype in (torch.bfloat16, torch.float16) and mma_takes_chunk(num_bits, chunk, layout):
-        return "mma"
-    return "simt"
+    return launch_path(dtype, num_bits, chunk, layout)
 
 
 def _launch_planes(
@@ -284,26 +286,30 @@ def _launch_planes(
     chunk: int,
     extra: tuple[int, ...] = (),
     loop: bool = True,
+    m_tiles: int = 0,
+    simt_block_m: int = 0,
 ) -> torch.Tensor:
     """Launch a LUT-GEMM with a loop path (K1–K4; operands checked). On the
     tensor-core loop (``loop``) x is copied to a 16-byte boundary if it is
-    not on one, the plan is :func:`mma_plan`'s and ``vec`` says whether
-    the loop may read planes and scales in 16- and 8-byte pieces; else the
-    SIMT kernel runs."""
+    not on one, the plan is :func:`mma_plan`'s (with a tuner's ``m_tiles``
+    where set) and ``vec`` says whether the loop may read planes and
+    scales in 16- and 8-byte pieces; else the SIMT kernel runs (with a
+    tuner's ``simt_block_m`` where set)."""
     # the C entry's plane pointers (x, scales, table, y and the workspace
     # aside), null for a plane the layout does not have
     n_planes = _KERNELS[kernel][2] - 5
     ptrs = [p.data_ptr() for p in planes] + [None] * (n_planes - len(planes))
     kw = dict(group_size=group_size, chunk=chunk, extra=extra)
     if not loop:
-        return _launch(kernel, x2, ptrs, scales, table, **kw)
+        return _launch(kernel, x2, ptrs, scales, table, simt_block_m=simt_block_m, **kw)
     if x2.data_ptr() % 16:  # the loop copies x in 16-byte pieces
         x2 = x2.clone()
     m, k = x2.shape
     n = scales.shape[1]
     vec = (n % 4 == 0 and scales.data_ptr() % 8 == 0
            and all(p.data_ptr() % 16 == 0 for p in planes))
-    return _launch(kernel, x2, ptrs, scales, table, plan=mma_plan(m, n, k, chunk), vec=vec, **kw)
+    return _launch(kernel, x2, ptrs, scales, table, plan=mma_plan(m, n, k, chunk, m_tiles),
+                   vec=vec, **kw)
 
 
 def lut_qgemm_w4sym_cuda(
@@ -314,6 +320,8 @@ def lut_qgemm_w4sym_cuda(
     *,
     group_size: int,
     chunk: int,
+    m_tiles: int = 0,
+    simt_block_m: int = 0,
 ) -> torch.Tensor:
     """Launch K1, the Hopper w4sym kernel (the tensor-core loop or the SIMT
     kernel, as :func:`lut_path` says), for a 2-D ``x2`` ``[M, K]``; returns
@@ -321,9 +329,11 @@ def lut_qgemm_w4sym_cuda(
     k = x2.shape[1]
     if chunk % 8:
         raise ValueError(f"chunk={chunk} not supported by the w4sym layout")
-    _check_operands(x2, [plane], [k // 8], scales, table, (16,), group_size, chunk)
+    _check_operands(x2, [plane], [k // 8], scales, table, (16,), group_size, chunk,
+                    simt_block_m=simt_block_m)
     return _launch_planes("w4sym", x2, [plane], scales, table, group_size=group_size,
-                          chunk=chunk, loop=lut_path(x2.dtype, 4, chunk, "w4sym") == "mma")
+                          chunk=chunk, loop=lut_path(x2.dtype, 4, chunk, "w4sym") == "mma",
+                          m_tiles=m_tiles, simt_block_m=simt_block_m)
 
 
 def lut_qgemm_plane_cuda(
@@ -335,6 +345,8 @@ def lut_qgemm_plane_cuda(
     num_bits: int,
     group_size: int,
     chunk: int,
+    m_tiles: int = 0,
+    simt_block_m: int = 0,
 ) -> torch.Tensor:
     """Launch K2, the Hopper general-table pair-plane kernel (the tensor-core
     loop or the SIMT kernel, as :func:`lut_path` says), for a 2-D ``x2``
@@ -345,10 +357,12 @@ def lut_qgemm_plane_cuda(
     fmt = _packing.PackFormat(num_bits=num_bits, chunk=chunk)  # validates chunk
     k = x2.shape[1]
     rows = [fmt.plane_rows(k, i) for i in range(len(fmt.plane_bits))]
-    _check_operands(x2, planes, rows, scales, table, (2**num_bits,), group_size, chunk)
+    _check_operands(x2, planes, rows, scales, table, (2**num_bits,), group_size, chunk,
+                    simt_block_m=simt_block_m)
     return _launch_planes("plane", x2, planes, scales, table, group_size=group_size,
                           chunk=chunk, extra=(num_bits,),
-                          loop=lut_path(x2.dtype, num_bits, chunk) == "mma")
+                          loop=lut_path(x2.dtype, num_bits, chunk) == "mma",
+                          m_tiles=m_tiles, simt_block_m=simt_block_m)
 
 
 def lut_qgemm_pair_cuda(
@@ -360,6 +374,7 @@ def lut_qgemm_pair_cuda(
     num_bits: int,
     group_size: int,
     chunk: int,
+    m_tiles: int = 0,
 ) -> torch.Tensor:
     """Launch K4, the Hopper joint pair-lookup kernel (the tensor-core loop
     of ``csrc/lut_gemm_mma.cuh``, split-K as :func:`mma_plan` says, with an
@@ -382,7 +397,7 @@ def lut_qgemm_pair_cuda(
                          "(its first plane needs a multiple of 4 word rows per chunk, and "
                          "a chunk's x ring must fit shared memory)")
     return _launch_planes("pair", x2, planes, scales, pair_values, group_size=group_size,
-                          chunk=chunk, extra=(num_bits,))
+                          chunk=chunk, extra=(num_bits,), m_tiles=m_tiles)
 
 
 def mma_k_order(num_bits: int, chunk: int, layout: str = "plane") -> torch.Tensor:
@@ -459,6 +474,8 @@ def lut_qgemm_w3wide_cuda(
     *,
     group_size: int,
     chunk: int,
+    m_tiles: int = 0,
+    simt_block_m: int = 0,
 ) -> torch.Tensor:
     """Launch K3, the Hopper wide 3-bit kernel (the tensor-core loop or the
     SIMT kernel, as :func:`lut_path` says), for a 2-D ``x2`` ``[M, K]``;
@@ -466,9 +483,11 @@ def lut_qgemm_w3wide_cuda(
     k = x2.shape[1]
     if chunk % 256:
         raise ValueError(f"chunk={chunk} not supported by the wide 3-bit layout")
-    _check_operands(x2, [plane], [3 * k // 32], scales, table, (8,), group_size, chunk)
+    _check_operands(x2, [plane], [3 * k // 32], scales, table, (8,), group_size, chunk,
+                    simt_block_m=simt_block_m)
     return _launch_planes("w3wide", x2, [plane], scales, table, group_size=group_size,
-                          chunk=chunk, loop=lut_path(x2.dtype, 3, chunk, "w3wide") == "mma")
+                          chunk=chunk, loop=lut_path(x2.dtype, 3, chunk, "w3wide") == "mma",
+                          m_tiles=m_tiles, simt_block_m=simt_block_m)
 
 
 # ---------------------------------------------------------------------------
@@ -498,8 +517,10 @@ def lut_qgemm(
       config: persisted kernel config; its ``chunk`` (the pack chunk of the
         layout) is used, and ``lut_mode="pair_lut"`` on the plane layout
         looks the weights up in pairs (K4 on CUDA) through the separable
-        joint table of ``table`` when no ``pair_values`` is given; its block
-        fields are TPU tiles and change nothing. Default chunk 256.
+        joint table of ``table`` when no ``pair_values`` is given; a tuned
+        ``m_tiles`` or ``simt_block_m`` sets the CUDA launch (the same bits
+        as the planner's); its block fields are TPU tiles and change
+        nothing. Default chunk 256.
       pair_values: optional float32 joint pair table ``[2^b, 2^b, 2]``
         (HIGGS vector dequantization); replaces ``table``. On CUDA it needs
         the plane layout and a 16-bit x.
@@ -568,7 +589,8 @@ def lut_qgemm(
         x2 = x2.contiguous()
         scales = scales.to(x2.dtype).contiguous()
         table = table.float().contiguous()
-        kw = dict(group_size=group_size, chunk=chunk)
+        kw = dict(group_size=group_size, chunk=chunk, m_tiles=config.m_tiles)
+        simt = dict(simt_block_m=config.simt_block_m)
         if pair_values is not None:
             if layout == "w3wide":
                 # the reference computes no pair lookup on this layout
@@ -577,11 +599,11 @@ def lut_qgemm(
             y = lut_qgemm_pair_cuda(x2, planes, scales, pair_values.float().contiguous(),
                                     num_bits=num_bits, **kw)
         elif layout == "w4sym":
-            y = lut_qgemm_w4sym_cuda(x2, planes[0], scales, table, **kw)
+            y = lut_qgemm_w4sym_cuda(x2, planes[0], scales, table, **kw, **simt)
         elif layout == "w3wide":
-            y = lut_qgemm_w3wide_cuda(x2, planes[0], scales, table, **kw)
+            y = lut_qgemm_w3wide_cuda(x2, planes[0], scales, table, **kw, **simt)
         else:
-            y = lut_qgemm_plane_cuda(x2, planes, scales, table, num_bits=num_bits, **kw)
+            y = lut_qgemm_plane_cuda(x2, planes, scales, table, num_bits=num_bits, **kw, **simt)
     else:
         raise ValueError(f"unsupported device {x.device}")
     return y.reshape(*batch, n)

@@ -98,6 +98,41 @@ def quantize_with_table(
     )
 
 
+def quantize_with_table_np(
+    w: np.ndarray,
+    values: np.ndarray,
+    group_size: int,
+    custom_scales: Optional[np.ndarray] = None,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Host-side (numpy) twin of :func:`quantize_with_table` for streaming
+    checkpoint quantization: the same codes and scales, no device round
+    trip, no dequantized tensor. Returns (codes int32, scales f32)."""
+    values = np.asarray(values, np.float32)
+    pivots = (values[1:] + values[:-1]) / 2.0
+    orig_shape = w.shape
+    qx = np.asarray(w, np.float32).reshape(-1, group_size)
+    if custom_scales is not None:
+        absmax = np.asarray(custom_scales, np.float32).reshape(-1, 1)
+    else:
+        absmax = np.max(np.abs(qx), axis=1, keepdims=True)
+    absmax = np.where(absmax == 0, 1.0, absmax)
+    codes = np.searchsorted(pivots, qx / absmax, side="left").astype(np.int32)
+    scales_shape = orig_shape[:-1] + (orig_shape[-1] // group_size,)
+    return codes.reshape(orig_shape), absmax.reshape(scales_shape).astype(np.float32)
+
+
+def nf_quantize_np(
+    w: np.ndarray,
+    num_bits: int,
+    group_size: int,
+    custom_scales: Optional[np.ndarray] = None,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Host-side NF quantization: returns (codes, scales, table)."""
+    values = nf_values(num_bits, symmetric=False)
+    codes, scales = quantize_with_table_np(w, values, group_size, custom_scales)
+    return codes, scales, values
+
+
 def nf_quantize(
     w: torch.Tensor,
     num_bits: int,
@@ -140,6 +175,20 @@ def nf_quantize_symmetric(
     perm_t = torch.from_numpy(perm).to(device=w.device, dtype=torch.int32)
     codes = perm_t[codes_asc.long()]
     return deq, codes, scales, torch.from_numpy(table_sym).to(w.device)
+
+
+def nf_quantize_symmetric_np(
+    w: np.ndarray,
+    num_bits: int,
+    group_size: int,
+    custom_scales: Optional[np.ndarray] = None,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Host-side twin of :func:`nf_quantize_symmetric` for streaming
+    checkpoint quantization. Returns (codes, scales, table)."""
+    v = nf_values_symmetric_exact(num_bits)
+    table_sym, perm = sym_code_order(v)
+    codes_asc, scales = quantize_with_table_np(w, v, group_size, custom_scales)
+    return perm[codes_asc].astype(np.int32), scales, table_sym
 
 
 def nf_quantize_fake(

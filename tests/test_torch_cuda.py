@@ -1631,3 +1631,73 @@ def test_perplexity_on_the_card(dev):
     card = teval.perplexity(move_params(q, dev), config, toks, seq_len=32, batch_size=2,
                             device=dev)
     assert abs(card - cpu) / cpu < 1e-3
+
+
+# -- the launch tuner and NFL (queue 1 items 15 and 13) ----------------------
+
+
+@pytest.mark.parametrize("m", [8, 40])
+@pytest.mark.parametrize("layout,bits,dtype", [("w4sym", 4, torch.bfloat16),
+                                               ("auto", 3, torch.float16),
+                                               ("plane", 2, torch.bfloat16),
+                                               ("pair", 4, torch.bfloat16),
+                                               ("w4sym", 4, torch.float32)])
+def test_tuned_launches_have_the_planners_bits(dev, layout, bits, dtype, m):
+    """Every candidate launch the tuner may take launches and passes its
+    checks, among them the planner's bits; the winner is one of them; a
+    layer tuned with ``tune_linear`` keeps its key and its output bits at
+    M = 8 and 40."""
+    from flute_tpu_torch import nn as tnn
+    from flute_tpu_torch import tune
+    from flute_tpu_torch.ops.kernel_config import get_candidate_configs, kernel_layout
+
+    report = []
+    best = tune.tune_config(m, 1024, 2048, bits, G, dtype, layout=layout, device=dev,
+                            use_memo=False, report=report)
+    candidates = get_candidate_configs(m, 1024, 2048, bits, G, dtype, kernel_layout(bits, layout))
+    assert [r["launch"] for r in report] == [tune.launch_name(c) for c in candidates]
+    assert all(r["passed"] and r["same_bits_as_planner"] for r in report)
+    assert sum(r["chosen"] for r in report) == 1 and report[0]["planner"]
+    assert (best.m_tiles or best.simt_block_m) in [r["m_tiles"] or r["simt_block_m"]
+                                                   for r in report]
+    if layout == "pair":
+        return
+    w = torch.randn((1024, 2048), device=dev)
+    layer = tnn.quantize_linear(w, bits, G, dtype=dtype,
+                                symmetric=None if layout == "w4sym" else False)
+    tuned = tune.tune_linear(layer, m, use_memo=False)
+    assert tuned.config_key == layer.config_key
+    for rows in (1, m, 129):
+        x = torch.randn((rows, 2048), device=dev).to(dtype)
+        assert torch.equal(tuned(x), layer(x))
+
+
+def test_nfl_gradient_on_the_card(dev):
+    """``clm_loss`` backpropagates on the card (the dense head's product
+    takes the f32 upcast while autograd needs it): in f32 its scale
+    gradients are the CPU's, in bf16 they are finite and its loss is the
+    inference forward's within the bf16 threshold."""
+    import dataclasses
+
+    from flute_tpu_torch.quantize import learnable
+
+    base = llama.LlamaConfig.tiny()
+    tokens = torch.randint(0, base.vocab_size, (2, 17), generator=torch.Generator().manual_seed(0))
+    grads = {}
+    for name, where, dtype in (("cpu", "cpu", torch.float32), ("card", dev, torch.float32),
+                               ("bf16", dev, torch.bfloat16)):
+        config = dataclasses.replace(base, dtype=dtype)
+        params = llama.init_params(config, seed=0, device="cpu")
+        params = move_params(params, where)
+        lp = learnable.make_model_learnable(params, 4, 64)
+        loss = learnable.clm_loss(lp, config, tokens.to(where), llama.forward)
+        loss.backward()
+        scales, _ = learnable.split_scales(lp)
+        grads[name] = ({k: s.grad.cpu() for k, s in scales.items()}, loss.item())
+        if name == "bf16":
+            with torch.no_grad():
+                ref = learnable.clm_loss(lp, config, tokens.to(where), llama.forward).item()
+            assert abs(loss.item() - ref) <= TOL[torch.bfloat16] * abs(ref)
+    for key, g in grads["cpu"][0].items():
+        assert rel_err(grads["card"][0][key], g) < 1e-5, key
+        assert torch.isfinite(grads["bf16"][0][key]).all() and grads["bf16"][0][key].abs().max() > 0

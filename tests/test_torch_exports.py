@@ -3,7 +3,7 @@
 ``.models``, ``.quantize`` and ``.integrations`` is in the port's
 counterpart's ``__all__`` and resolves there, but for the gaps listed
 below by their ROADMAP item (queue 1), the modules the port does not have
-yet."""
+yet (none now)."""
 
 import importlib
 
@@ -11,13 +11,7 @@ import pytest
 
 # JAX names the port does not export yet -> the ROADMAP queue 1 item that
 # brings them
-GAPS = {
-    "fit_config": 15,
-    "get_kernel_config": 15,
-    "get_candidate_configs": 15,
-    "is_config_supported": 15,
-    "huggingface": 14,
-}
+GAPS: dict = {}
 PACKAGES = ["", ".ops", ".serving", ".utils", ".models", ".quantize", ".integrations"]
 
 

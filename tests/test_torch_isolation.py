@@ -17,6 +17,9 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "optax", "flute_tpu")
+# packages the card's machine lacks: only the paths that the JAX package
+# also gates (tokenizer, hub, corpus) import them, inside a function
+GATED = ("safetensors", "transformers", "huggingface_hub", "ml_dtypes", "datasets")
 
 
 def forbidden(module: str) -> bool:
@@ -55,7 +58,8 @@ def test_no_jax_import(path):
 
 def test_importing_the_port_loads_no_jax():
     """In a fresh interpreter, importing every module of the port adds no
-    JAX module and nothing of the JAX package to ``sys.modules``."""
+    JAX module and nothing of the JAX package to ``sys.modules``, and none
+    of the packages the card's machine lacks (``GATED``)."""
     mods = sorted(
         ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
         for p in (ROOT / "flute_tpu_torch").rglob("*.py")
@@ -75,6 +79,7 @@ def test_importing_the_port_loads_no_jax():
     loaded = proc.stdout.split()
     assert "flute_tpu_torch.serving.engine" in loaded
     assert not [m for m in loaded if forbidden(m)]
+    assert not [m for m in loaded if m.split(".")[0] in GATED]
 
 
 @pytest.fixture
@@ -83,10 +88,11 @@ def no_gpu(monkeypatch):
 
 
 def test_entry_points_raise_without_a_gpu(no_gpu):
-    from flute_tpu_torch import interop, packing
+    from flute_tpu_torch import interop, packing, tune
     from flute_tpu_torch.lab import kernel_lab, kernel_lab2
     from flute_tpu_torch.models import llama
     from flute_tpu_torch.nn import from_codes, quantize_linear
+    from flute_tpu_torch.quantize import bitsandbytes as bnb
     from flute_tpu_torch.serving import (
         ContinuousBatchingEngine,
         Engine,
@@ -109,6 +115,11 @@ def test_entry_points_raise_without_a_gpu(no_gpu):
         "pack": lambda: packing.pack(codes, 4),
         "from_codes": lambda: from_codes(codes, np.ones((4, 128), np.float32), None, 4, 64),
         "params_from_numpy": lambda: interop.params_from_numpy({"embed": codes}),
+        "tune_config": lambda: tune.tune_config(8, 512, 512, 4, 64),
+        "convert_bnb_linear4bit": lambda: bnb.convert_bnb_linear4bit(
+            np.zeros(128 * 64, np.uint8), bnb.BNBQuantState(
+                code=np.linspace(-1, 1, 16, dtype=np.float32),
+                absmax=np.ones(128 * 128 // 64, np.float32), blocksize=64, shape=(128, 128))),
         "lab main": lambda: kernel_lab.main(["--n", "256", "--k", "512", "--bn", "128",
                                              "--bk", "256", "--variants", "floor"]),
         "lab make_inputs": lambda: kernel_lab.make_inputs(16, 256, 512, 4, 64),

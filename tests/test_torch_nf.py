@@ -82,3 +82,27 @@ def test_nf_quantize_fake_matches(symmetric):
     want = jnf.nf_quantize_fake(jnp.asarray(w), 4, GROUP, jnp.bfloat16, symmetric=symmetric)
     got = nf.nf_quantize_fake(torch.from_numpy(w), 4, GROUP, torch.bfloat16, symmetric=symmetric)
     np.testing.assert_array_equal(got.float().numpy(), np.asarray(want, np.float32))
+
+
+@pytest.mark.parametrize("custom", [False, True])
+@pytest.mark.parametrize("bits", [2, 3, 4])
+def test_numpy_helpers_match(bits, custom):
+    """The host-side twins of the streaming quantizer: codes, scales and
+    tables bit-equal to JAX's, with an all-zero group and custom scales."""
+    rng = np.random.default_rng(20 + bits)
+    w = rng.standard_normal((64, 512)).astype(np.float32)
+    w[5, :GROUP] = 0.0
+    cs = np.abs(rng.standard_normal((64, 512 // GROUP))).astype(np.float32) if custom else None
+    values = nf.nf_values(bits)
+    got = nf.quantize_with_table_np(w, values, GROUP, cs)
+    want = jnf.quantize_with_table_np(w, np.asarray(jnf.nf_values(bits)), GROUP, cs)
+    for g, x in zip(got, want):
+        assert g.dtype == x.dtype
+        np.testing.assert_array_equal(g, x)
+    for g, x in zip(nf.nf_quantize_np(w, bits, GROUP, cs), jnf.nf_quantize_np(w, bits, GROUP, cs)):
+        np.testing.assert_array_equal(g, np.asarray(x))
+    if bits == 4:
+        got = nf.nf_quantize_symmetric_np(w, bits, GROUP, cs)
+        want = jnf.nf_quantize_symmetric_np(w, bits, GROUP, cs)
+        for g, x in zip(got, want):
+            np.testing.assert_array_equal(g, x)
