@@ -191,6 +191,20 @@ Phases (any failure exits non-zero):
      speculative with the 3-bit checkpoint as draft) behind the HTTP
      server, one streamed request each: tokens and launches those of the
      engine driven directly, time to first token.
+  9. tensor and pipeline parallelism and the host packer: K1 at one
+     rank's shard of a Llama-3.1-8B layer at tp = 2 and 4 (M = 8), K5 and
+     K6 at the local heads at phase 2's shapes and at the shapes the TP
+     engines give them (the served decode, the pool-prefill chunks, the
+     verify), each against its plain version and timed; phase 4's model
+     through a checkpoint into gloo worlds of 2 and 4 ranks on the one
+     card (Engine, PagedEngine with pool prefill, ContinuousBatchingEngine
+     and PagedSpeculativeEngine at tp = 2; Engine at tp = 4; each also
+     Engine at 2 layers) against the same engines at tp = 1: the ranks
+     bit-identical, launches and all-reduces exact, each forward's logits
+     within the bf16 threshold or twice another summation order's (o and
+     down summed in K slices by torch.matmul at tp = 1), the larger, at
+     most 0.1; PipelinedModel in 2 stages against llama.forward; the
+     native packer against the numpy packers.
 
 Prints a {"kernels": [...]} line, then as its last line
 {"ok": true, "device": {...}}. Writes the full results to
@@ -200,6 +214,7 @@ chiprun_out/chip_smoke.json. Needs a CUDA device; exits non-zero without one.
 import contextlib
 import dataclasses
 import filecmp
+import functools
 import gc
 import io
 import json
@@ -669,16 +684,119 @@ def paged_inputs(rng, gen, dev, dtype, lengths, t=0, extra_blocks=0, attn=ATTN):
     return q, kp, vp, torch.from_numpy(tables).to(dev), lens, sum(need)
 
 
+def time_attention(dev, rng, gen, model, attn, kid, lengths, t, kw, spans=False) -> dict:
+    """K5 (``t`` = 0) or K6 at ``attn``'s heads on sequences of ``lengths``
+    cached positions (and ``t`` queries each): held to its plain version,
+    then it, its plain version and the yardstick (SDPA on K/V gathered
+    beforehand, masked to each sequence's length where they differ) timed
+    L2-cold, with the bound of the bytes and operations this call needs;
+    K5 with ``spans`` also at spans of 128, 256 and 512."""
+    import torch.nn.functional as F
+
+    from flute_tpu_torch.ops import paged_attention as pa
+    from flute_tpu_torch.utils.benchmark import bench_op, cold_copies
+
+    dtype = torch.bfloat16
+    esz = 2
+    h, hkv, d, bs = attn["h"], attn["hkv"], attn["d"], attn["bs"]
+    q, kp, vp, tables, lens, live = paged_inputs(rng, gen, dev, dtype, lengths, t=t,
+                                                 attn=attn)
+    kv_bytes = 2 * kp.numel() * esz
+    pools = [(kp.clone(), vp.clone()) for _ in range(cold_copies(kv_bytes))]
+    b = len(lengths)
+    s_len = max(lengths) + t
+    ragged = len(set(lengths)) > 1
+    # the yardstick: K/V gathered into [B, Hkv, S, D] beforehand
+    kg = kp[tables.long()].permute(0, 2, 1, 3, 4).reshape(b, hkv, -1, d)[:, :, :s_len]
+    vg = vp[tables.long()].permute(0, 2, 1, 3, 4).reshape(b, hkv, -1, d)[:, :, :s_len]
+    dense = [(kg.contiguous(), vg.contiguous())
+             for _ in range(cold_copies(2 * kg.numel() * esz))]
+    if kid == "K5":
+        def kern(k, v):
+            return pa.paged_decode_attention(q, k, v, tables, lens, **kw)
+
+        def plain(k, v):
+            return pa.paged_gqa_reference(q, k, v, tables, lens, **kw)
+
+        q4 = q[:, :, None]
+        mask = ((torch.arange(s_len, device=dev)[None, :] < lens[:, None])[:, None, None]
+                if ragged else None)
+        att = [n for n in lengths]
+    else:
+        def kern(k, v):
+            return pa.paged_verify_attention(q, k, v, tables, lens, **kw)
+
+        def plain(k, v):
+            return pa.paged_verify_reference(q, k, v, tables, lens, **kw)
+
+        q4 = q.permute(0, 2, 1, 3)
+        if ragged:
+            mask = (torch.arange(s_len, device=dev)[None, None, :]
+                    <= lens[:, None, None] + torch.arange(t, device=dev)[None, :, None])[:, None]
+        else:
+            mask = (torch.arange(s_len, device=dev)[None, :]
+                    <= lengths[0] + torch.arange(t, device=dev)[:, None])
+        att = [n + j + 1 for n in lengths for j in range(t)]
+    scale = kw.get("scale")
+
+    def library(k, v):
+        return F.scaled_dot_product_attention(q4, k, v, attn_mask=mask, enable_gqa=True,
+                                              scale=scale)
+
+    got, want = kern(kp, vp).float(), plain(kp, vp).float()
+    err = float((got - want).abs().max() / want.abs().max())
+    if not err < THRESHOLDS[torch.bfloat16]:
+        raise AssertionError(f"{kid} {model} {attn['h']}/{attn['hkv']} B={b} T={t} cached "
+                             f"{lengths} {kw}: max rel err {err}")
+    t_k = bench_op(kern, pools)
+    span_us = {}
+    if spans:  # the span, timed at 128, 256 and 512
+        for span in (128, 256, 512):
+            def kern_span(k, v, span=span):
+                return pa._launch("paged_decode", q[:, None], k, v, tables, lens, d**-0.5,
+                                  None, None, span=span)
+
+            got = kern_span(kp, vp)[:, 0].float()
+            err = float((got - want).abs().max() / want.abs().max())
+            if not err < THRESHOLDS[torch.bfloat16]:
+                raise AssertionError(f"K5 {lengths[0]} with spans of {span}: max rel err {err}")
+            span_us[span] = bench_op(kern_span, pools) * 1e6
+    t_p = bench_op(plain, pools[:2], min_launches=2)
+    t_l = bench_op(library, dense)
+    nbytes = live * hkv * bs * d * esz * 2 + 2 * q.numel() * esz
+    flops = 4 * h * d * sum(att)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_OPS_PER_S
+    cached = f"{min(lengths)}-{max(lengths)}" if ragged else lengths[0]
+    case = dict(kernel=kid, model=model, case=f"B={b} T={max(t, 1)} cached {cached}",
+                heads=f"{h}/{hkv}", d=d, dtype="bfloat16",
+                options={k: v for k, v in kw.items() if k != "scale"},
+                bytes=nbytes, flops=flops, us=t_k * 1e6, plain_us=t_p * 1e6,
+                library_us=t_l * 1e6, bound_us=max(t_bytes, t_ops) * 1e6,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+    if kid == "K5":
+        case.update(span=pa.DECODE_SPAN,
+                    spans=pa.decode_spans(tables.shape[1], bs, pa.DECODE_SPAN),
+                    us_by_span=span_us)
+    case["share_of_bound"] = case["bound_us"] / case["us"]
+    # K6's served shapes: a pool-prefill chunk (a bucket of at most 64), the verify
+    case["role"] = "verify" if t == SPEC_K + 1 else "chunk" if 0 < t <= 64 else ""
+    log(f"    {kid} {model:10s} {case['heads']:5s} D={d:3d} {case['case']:26s} kernel "
+        f"{case['us']:9.1f} us  bound {case['bound_us']:7.1f} us ({case['bound_by']}, "
+        f"{100 * case['share_of_bound']:5.1f}%)  plain {case['plain_us']:9.1f} us  "
+        f"sdpa {case['library_us']:7.1f} us"
+        + (f"  options {case['options']}" if kw else "")
+        + (f"  by span {', '.join(f'{k}: {v:.1f}' for k, v in span_us.items())} us"
+           if span_us else ""))
+    return case
+
+
 def phase_attention(dev, results):
     """K5 and K6 against their plain versions with every option, at
     Llama-3.1-8B's heads and at Gemma-2-9B's; timed at the decode batch
     (every length 1024, every length 4096) and at a pool prefill chunk
     (T = 256 over 1024 cached positions), Gemma-2's with its softcap and
     window (SDPA, the yardstick, takes no softcap: it runs without)."""
-    import torch.nn.functional as F
-
     from flute_tpu_torch.ops import paged_attention as pa
-    from flute_tpu_torch.utils.benchmark import bench_op, cold_copies
 
     rng = np.random.default_rng(4)
     gen = torch.Generator(device=dev)
@@ -738,8 +856,6 @@ def phase_attention(dev, results):
             "bit-identical; each K5 sequence alone bit-identical to it in the batch")
 
     timed = []
-    dtype = torch.bfloat16
-    esz = 2
     # K6 at T=256 over 1024 (its kernels-line entry) and at the served
     # pool-prefill chunk of phase 4 (one request, 32 tokens over a cached
     # 32-token prefix); Gemma-2's K5 with its softcap and window, K6 with
@@ -754,88 +870,8 @@ def phase_attention(dev, results):
             ("gemma2_9b", ATTN_GEMMA2, "K5", [1024] * 8, 0, gemma_kw),
             ("gemma2_9b", ATTN_GEMMA2, "K5", [4096] * 8, 0, gemma_kw),
             ("gemma2_9b", ATTN_GEMMA2, "K6", [1024], 256, gemma_kw)):
-        h, hkv, d, bs = attn["h"], attn["hkv"], attn["d"], attn["bs"]
-        q, kp, vp, tables, lens, live = paged_inputs(rng, gen, dev, dtype, lengths, t=t,
-                                                     attn=attn)
-        kv_bytes = 2 * kp.numel() * esz
-        pools = [(kp.clone(), vp.clone()) for _ in range(cold_copies(kv_bytes))]
-        b = len(lengths)
-        s_len = lengths[0] + t
-        # the yardstick: K/V gathered into [B, Hkv, S, D] beforehand
-        kg = kp[tables.long()].permute(0, 2, 1, 3, 4).reshape(b, hkv, -1, d)[:, :, :s_len]
-        vg = vp[tables.long()].permute(0, 2, 1, 3, 4).reshape(b, hkv, -1, d)[:, :, :s_len]
-        dense = [(kg.contiguous(), vg.contiguous())
-                 for _ in range(cold_copies(2 * kg.numel() * esz))]
-        if kid == "K5":
-            def kern(k, v):
-                return pa.paged_decode_attention(q, k, v, tables, lens, **kw)
-
-            def plain(k, v):
-                return pa.paged_gqa_reference(q, k, v, tables, lens, **kw)
-
-            q4, mask = q[:, :, None], None
-            att = [n for n in lengths]
-        else:
-            def kern(k, v):
-                return pa.paged_verify_attention(q, k, v, tables, lens, **kw)
-
-            def plain(k, v):
-                return pa.paged_verify_reference(q, k, v, tables, lens, **kw)
-
-            q4 = q.permute(0, 2, 1, 3)
-            mask = (torch.arange(s_len, device=dev)[None, :]
-                    <= lengths[0] + torch.arange(t, device=dev)[:, None])
-            att = [lengths[0] + j + 1 for j in range(t)]
-        scale = kw.get("scale")
-
-        def library(k, v):
-            return F.scaled_dot_product_attention(q4, k, v, attn_mask=mask, enable_gqa=True,
-                                                  scale=scale)
-
-        got, want = kern(kp, vp).float(), plain(kp, vp).float()
-        err = float((got - want).abs().max() / want.abs().max())
-        if not err < THRESHOLDS[torch.bfloat16]:
-            raise AssertionError(f"{kid} {model} {lengths[0]} {kw}: max rel err {err}")
-        t_k = bench_op(kern, pools)
-        span_us = {}
-        if kid == "K5" and model == "llama31_8b":  # the span, timed at 128, 256 and 512
-            for span in (128, 256, 512):
-                def kern_span(k, v, span=span):
-                    return pa._launch("paged_decode", q[:, None], k, v, tables, lens, d**-0.5,
-                                      None, None, span=span)
-
-                got = kern_span(kp, vp)[:, 0].float()
-                err = float((got - want).abs().max() / want.abs().max())
-                if not err < THRESHOLDS[torch.bfloat16]:
-                    raise AssertionError(f"K5 {lengths[0]} with spans of {span}: max rel err {err}")
-                span_us[span] = bench_op(kern_span, pools) * 1e6
-        t_p = bench_op(plain, pools[:2], min_launches=2)
-        t_l = bench_op(library, dense)
-        nbytes = live * hkv * bs * d * esz * 2 + 2 * q.numel() * esz
-        flops = 4 * h * d * sum(att)
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_OPS_PER_S
-        case = dict(kernel=kid, model=model, case=f"B={b} T={max(t, 1)} cached {lengths[0]}",
-                    heads=f"{h}/{hkv}", d=d, dtype="bfloat16",
-                    options={k: v for k, v in kw.items() if k != "scale"},
-                    bytes=nbytes, flops=flops, us=t_k * 1e6, plain_us=t_p * 1e6,
-                    library_us=t_l * 1e6, bound_us=max(t_bytes, t_ops) * 1e6,
-                    bound_by="bytes" if t_bytes >= t_ops else "operations")
-        if kid == "K5":
-            case.update(span=pa.DECODE_SPAN,
-                        spans=pa.decode_spans(tables.shape[1], bs, pa.DECODE_SPAN),
-                        us_by_span=span_us)
-        case["share_of_bound"] = case["bound_us"] / case["us"]
-        # K6's served shapes: phase 4's pool-prefill chunk, phase 6's verify
-        case["role"] = {32: "chunk", SPEC_K + 1: "verify"}.get(t, "")
-        timed.append(case)
-        log(f"    {kid} {model:10s} {case['heads']:5s} D={d:3d} {case['case']:26s} kernel "
-            f"{case['us']:9.1f} us  bound {case['bound_us']:7.1f} us ({case['bound_by']}, "
-            f"{100 * case['share_of_bound']:5.1f}%)  plain {case['plain_us']:9.1f} us  "
-            f"sdpa {case['library_us']:7.1f} us"
-            + (f"  options {case['options']}" if kw else "")
-            + (f"  by span {', '.join(f'{k}: {v:.1f}' for k, v in span_us.items())} us"
-               if span_us else ""))
-        del pools, dense, kg, vg, q, kp, vp
+        timed.append(time_attention(dev, rng, gen, model, attn, kid, lengths, t, kw,
+                                    spans=kid == "K5" and model == "llama31_8b"))
     torch.cuda.empty_cache()
     results["attention_cases"] = cases
     results["attention_timed"] = timed
@@ -2867,7 +2903,8 @@ def k1_case(dev, gen, name, n, k, m, dense_n=None, dense_t=False):
     ``dense_n`` columns (the head the step multiplies today: ``[K, N]``, or
     ``[N, K]`` read through its transpose with ``dense_t``, as Gemma-2's
     tied head is), else a bf16 ``torch.matmul`` on the dequantized weight.
-    Random planes: any bits are valid w4sym codes."""
+    Random planes: any bits are valid w4sym codes. Against the dequantized
+    weight the kernel is held to the threshold too."""
     from flute_tpu_torch.models.llama import matmul_f32
     from flute_tpu_torch.ops import lut_gemm
     from flute_tpu_torch.ops.kernel_config import KernelConfig
@@ -2913,6 +2950,11 @@ def k1_case(dev, gen, name, n, k, m, dense_n=None, dense_t=False):
         deq = lut_gemm.dequantize_codes(
             lut_gemm._packing.unpack(planes, 4, chunk=256, layout="w4sym"), scales, table,
             torch.bfloat16)
+        library_err = rel_err(lut_gemm.lut_qgemm(x, planes, scales, table, **kw),
+                              torch.matmul(x, deq))
+        if not library_err < THRESHOLDS[torch.bfloat16]:
+            raise AssertionError(f"K1 {label}: rel err {library_err} against torch.matmul on "
+                                 "the dequantized weight")
         deq_c = [deq.clone() for _ in range(cold_copies(deq.numel() * 2))]
         del deq
         t_l = bench_op(lambda w: torch.matmul(x, w), [(w,) for w in deq_c])
@@ -4015,6 +4057,539 @@ def report_served_idle(name, serving):
         f"{profile['replay_device_ms_per_step']:.2f} ms per replay; idle share {share:.2f}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: tensor and pipeline parallelism, the host packer
+# ---------------------------------------------------------------------------
+
+TP_SIZES = (2, 4)
+# phase 9's model: a LlamaConfig preset and fields replaced in it (a CPU
+# rehearsal takes "tiny" with heads and widths that split 4 ways)
+P9_CONFIG = ("llama31_8b", {})
+P9_DEVICE = "cuda"  # where the ranks run (a CPU rehearsal sets "cpu")
+# every world also serves Engine at this depth. A TP run adds o's and
+# down's K shards in bf16, another summation order, which random layers
+# amplify with depth (as phase 4's paged attention against dense): a run
+# is held to the bf16 threshold or to twice what that order alone moves
+# tp = 1's logits by (p9_floor), the larger, as phase 3 holds HIGGS, but
+# never to more than P9_LIMIT_CAP
+P9_SHORT = 2
+# the limit's cap, whatever the floor: a tenth of the largest logit
+P9_LIMIT_CAP = 0.1
+P9_DIR = os.path.join(HERE, "build", "phase9")
+SHARED_CARD = "ranks share one H100; gloo all-reduce staged through the host"
+# the engines phase 9 serves at tp = 1 and tp = 2, with their settings
+P9_RUNS = {
+    "Engine": dict(batch_size=8, max_len=256),
+    "PagedEngine": dict(num_slots=8, block_size=16, num_blocks=64, max_len=256,
+                        pool_prefill=True),
+    "ContinuousBatchingEngine": dict(num_slots=8, max_len=256),
+    "PagedSpeculativeEngine": dict(k=SPEC_K, num_slots=8, block_size=16, num_blocks=96,
+                                   max_len=256),
+}
+
+
+def p9_config(layers=None, preset=None):
+    """Phase 9's LlamaConfig (``preset``, default ``P9_CONFIG``), cut to
+    ``layers``."""
+    from flute_tpu_torch.models import llama
+
+    name, fields = preset or P9_CONFIG
+    config = dataclasses.replace(getattr(llama.LlamaConfig, name)(), **fields)
+    return config if layers is None else dataclasses.replace(config, num_layers=layers)
+
+
+def shard_shapes(tp: int) -> list:
+    """One Llama-3.1-8B layer's projections as one of ``tp`` ranks holds
+    them: qkv and gate_up split over N, o and down over K."""
+    return [(name, n // tp if name in ("qkv", "gate_up") else n,
+             k // tp if name in ("o", "down") else k) for name, n, k in LAYER_SHAPES]
+
+
+def p9_attention_cases() -> list:
+    """K5's and K6's calls at the local heads: first the decode batch at
+    1024 and a chunk of 256 over 1024 (phase 2's shapes), then the shapes
+    the TP engines give them: the decode of the 8 served prompts at its
+    last step, the pool prefill's chunks (one prompt, a bucket of 16, 32
+    or 64 over an empty cache) and the speculative verify (8 slots, k + 1
+    queries over the prompts and some accepted tokens). Each is (kernel,
+    lengths, queries, block size)."""
+    lengths = [len(p) for p in serving_prompts(p9_config(layers=1))]
+    bs = P9_RUNS["PagedEngine"]["block_size"]
+    return ([("K5", [1024] * 8, 0, ATTN["bs"]), ("K6", [1024], 256, ATTN["bs"]),
+             ("K5", [n + NEW_TOKENS - 1 for n in lengths], 0, bs)]
+            + [("K6", [0], t, bs) for t in (16, 32, 64)]
+            + [("K6", [n + 8 for n in lengths], SPEC_K + 1,
+                P9_RUNS["PagedSpeculativeEngine"]["block_size"])])
+
+
+def p9_kernels(dev) -> dict:
+    """K1 at the shard shapes of tp = 2 and 4 (M = 8, bf16), K5 and K6 at
+    the local heads (16/4 and 8/2) at the calls of p9_attention_cases: each
+    against its plain version (K1 also against torch.matmul on the
+    dequantized shard, and its rows against the one-row call), timed beside
+    its bound and its yardstick."""
+    rng = np.random.default_rng(9)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    out = {}
+    for tp in TP_SIZES:
+        log(f"  K1 at the tp = {tp} shard shapes, M = 8")
+        k1 = [k1_case(dev, gen, f"tp{tp} {name}", n, k, 8) for name, n, k in shard_shapes(tp)]
+        attn = dict(ATTN, h=ATTN["h"] // tp, hkv=ATTN["hkv"] // tp)
+        log(f"  K5 and K6 at the tp = {tp} local heads {attn['h']}/{attn['hkv']}")
+        out[tp] = dict(K1=k1, K5=[], K6=[])
+        for kid, lengths, t, bs in p9_attention_cases():
+            out[tp][kid].append(time_attention(dev, rng, gen, "llama31_8b", dict(attn, bs=bs),
+                                               kid, lengths, t, {}))
+    release()
+    return out
+
+
+def p9_drive(kind, params, config, dev, mesh=None) -> dict:
+    """Serve phase 9's 8 prompts (16 new tokens each) through ``kind`` at tp
+    = 1 or on ``mesh``: the tokens, each forward's f32 logits rows of the
+    live slots in call order (``steps``: [(key, rows)]), the launches and
+    all-reduces of the run, and its forwards by kind."""
+    from flute_tpu_torch import serving
+    from flute_tpu_torch.parallel import comm
+
+    prompts = serving_prompts(config)
+    kw = dict(P9_RUNS[kind], **({"device": dev} if mesh is None else {"mesh": mesh}))
+    if kind == "PagedSpeculativeEngine":
+        kw.update(draft_params=params, draft_config=config)
+    eng = getattr(serving, kind)(params=params, config=config, **kw)
+    steps, calls = [], {}
+
+    def record(attr, key_of=None):
+        """Count ``attr``'s calls; with ``key_of`` (returning the call's tag
+        and the slots of its rows) keep its logits rows too."""
+        fn = getattr(eng, attr)
+
+        def wrapped(*a, **k):
+            out = fn(*a, **k)
+            calls[attr] = calls.get(attr, 0) + 1
+            if key_of is not None:
+                rows = out[0] if isinstance(out, tuple) else out
+                tag, slots = key_of()
+                rows = rows[None] if rows.dim() == 1 else rows[:len(prompts)][slots]
+                steps.append(((tag, slots), rows.float().cpu()))
+            return out
+
+        setattr(eng, attr, wrapped)
+
+    every = list(range(len(prompts)))
+    if kind == "Engine":
+        record("prefill", lambda: ("prefill", every))
+        record("decode_step", lambda: ("step", every))
+    elif kind == "ContinuousBatchingEngine":
+        # the 8 requests enter the 8 free slots in order: the n-th prefill
+        # is slot n's
+        record("_prefill", lambda: ("prefill", [calls["_prefill"] - 1]))
+        record("_step_logits", lambda: ("step", [s for s, r in enumerate(eng._slots)
+                                                 if r is not None]))
+        record("forward")
+    else:
+        live = lambda: [s for s, r in enumerate(eng._slot_req) if r is not None]  # noqa: E731
+        if kind == "PagedEngine":
+            record("_pool_fwd")
+            record("_step_logits", lambda: ("step", live()))
+        else:
+            record("forward")
+            record("_dfwd")
+            record("_verify_fwd")
+            record("_draft_step", lambda: ("draft", live()))
+            record("_verify_step", lambda: ("verify", live()))
+        fn = eng._start
+
+        def start(slot, prompt, sampling, last_row):
+            steps.append((("first", [slot]), last_row[None].float().cpu()))
+            return fn(slot, prompt, sampling, last_row)
+
+        eng._start = start
+    launches0, reduces0 = launches_now(), comm.COUNTS["all_reduce"]
+    sync(dev)
+    t0 = time.perf_counter()
+    if kind == "Engine":
+        tokens = eng.generate(prompts, max_new_tokens=NEW_TOKENS)
+    else:
+        rids = [eng.submit(p, max_new_tokens=NEW_TOKENS) for p in prompts]
+        done = eng.run()
+        tokens = [done[r] for r in rids]
+    sync(dev)
+    seconds = time.perf_counter() - t0
+    launches = {k: v - launches0[k] for k, v in launches_now().items()}
+    if kind == "Engine":
+        calls["forward"] = calls["prefill"] + calls["decode_step"]
+        ms_step = float(np.median(eng.last_timings["decode_s"])) * 1e3
+    else:
+        n_steps = calls.get("_step_logits", calls.get("_verify_step", 0))
+        ms_step = seconds * 1e3 / max(n_steps, 1)
+    out = dict(tokens=tokens, steps=steps, calls=calls, launches=launches,
+               all_reduces=comm.COUNTS["all_reduce"] - reduces0, graphed=eng.graphed,
+               blocks_in_use=getattr(eng, "blocks_in_use", None), seconds=seconds,
+               ms_per_step=ms_step)
+    del eng
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def p9_expected(kind, calls, layers) -> dict:
+    """The exact launches and all-reduces of a TP run: 4 K1 per layer per
+    forward (a paged decode step is a forward), one K5 per layer per paged
+    decode step, one K6 per layer per pool-prefill chunk or verify, and 2
+    all-reduces per layer per forward."""
+    if kind == "PagedEngine":
+        forwards, k5, k6 = calls["_pool_fwd"] + calls["_step_logits"], calls["_step_logits"], \
+            calls["_pool_fwd"]
+    elif kind == "PagedSpeculativeEngine":
+        forwards = calls["forward"] + calls["_dfwd"] + calls["_verify_fwd"]
+        k5, k6 = 0, calls["_verify_fwd"]
+    else:
+        forwards, k5, k6 = calls["forward"], 0, 0
+    return dict(w4sym=4 * layers * forwards, paged_decode=layers * k5, paged_verify=layers * k6,
+                all_reduce=2 * layers * forwards)
+
+
+def p9_cut(params, config, layers):
+    """``params`` and ``config`` cut to their first ``layers`` (None: all)."""
+    if layers is None:
+        return params, config
+    return dict(params, layers=params["layers"][:layers]), dataclasses.replace(
+        config, num_layers=layers)
+
+
+def p9_name(kind, layers) -> str:
+    return kind if layers is None else f"{kind}, {layers} layers"
+
+
+def p9_rank(rank, world, ckpt, runs, device, preset):
+    """One rank of a phase-9 world: load the checkpoint on the host,
+    permute its fused layers rank-major, and serve each of ``runs`` (kind,
+    depth) on the tp mesh of the world. Every rank returns a digest of its
+    tokens and logits; rank 0 the logits too."""
+    import hashlib
+
+    from flute_tpu_torch.integrations import checkpoint
+    from flute_tpu_torch.parallel import make_mesh, permute_fused_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(tp=world, device=device)
+    config = p9_config(preset=preset)
+    params, _ = checkpoint.load_quantized(ckpt, device="cpu")
+    params = permute_fused_params(params, config, world)
+    out = {}
+    for kind, layers in runs:
+        run = p9_drive(kind, *p9_cut(params, config, layers), mesh.device, mesh)
+        h = hashlib.sha256(json.dumps(run["tokens"]).encode())
+        for _, rows in run["steps"]:
+            h.update(rows.numpy().tobytes())
+        run["digest"] = h.hexdigest()
+        if rank:
+            del run["steps"]
+        out[p9_name(kind, layers)] = run
+    return out
+
+
+def p9_compare(label, got, ref, limit, decided_flips_fail=True):
+    """Each forward's logits rows of ``got`` against ``ref``'s, slot by
+    slot, within ``limit`` (relative to the largest logit): a slot is
+    compared until its argmax differs, which must be at a near tie of
+    ``ref``'s (its later rows follow other tokens); once the runs' forwards
+    differ in kind or slots, none is compared. The greedy tokens of every
+    slot that never diverged are equal. Returns the worst error, the rows
+    compared, the diverged slots and the forwards compared by kind
+    (prefill, step, ...; with ``decided_flips_fail`` False a flip at a
+    decided margin only ends that slot's comparison)."""
+    worst, compared, diverged, forwards = 0.0, 0, set(), {}
+    for i, ((kg, lg), (kr, lr)) in enumerate(zip(got["steps"], ref["steps"])):
+        if kg != kr:
+            if not diverged:
+                raise AssertionError(f"[{label}] forward {i} runs {kg}, tp = 1 {kr}")
+            break
+        keep = [j for j, slot in enumerate(kg[1]) if slot not in diverged]
+        if not keep:
+            continue
+        a, b = lg[keep], lr[keep]
+        err = float((a - b).abs().max() / b.abs().max())
+        if not err < limit:
+            raise AssertionError(f"[{label}] forward {i} ({kg[0]}): logits rel err {err:.3e} "
+                                 f"(limit {limit:.3g})")
+        worst, compared = max(worst, err), compared + len(keep)
+        forwards[kg[0]] = forwards.get(kg[0], 0) + 1
+        differ = a.argmax(-1) != b.argmax(-1)
+        if differ.any():
+            if decided_flips_fail and decided_steps(b)[differ].any():
+                raise AssertionError(f"[{label}] forward {i}: a token differs where tp = 1's "
+                                     "margin is decided")
+            rows = differ.reshape(len(keep), -1).any(-1)
+            diverged |= {kg[1][keep[j]] for j in rows.nonzero().flatten().tolist()}
+    for slot, (a, b) in enumerate(zip(got["tokens"], ref["tokens"])):
+        if slot not in diverged and a != b:
+            raise AssertionError(f"[{label}] slot {slot}'s tokens differ with no near tie")
+    return worst, compared, diverged, forwards
+
+
+class KSplitSum(torch.nn.Module):
+    """A row-parallel layer summed as ``tp`` ranks sum it, in one process
+    and without the sharding code: ``torch.matmul`` on K slices of the
+    dequantized weight, each product in x's dtype, added in that dtype."""
+
+    def __init__(self, layer, tp):
+        super().__init__()
+        w = layer.dequantize(torch.bfloat16)
+        k = w.shape[0] // tp
+        self.slices = [w[i * k:(i + 1) * k].clone() for i in range(tp)]
+
+    def forward(self, x):
+        k = x.shape[-1] // len(self.slices)
+        parts = [x[..., i * k:(i + 1) * k] @ w.to(x.dtype) for i, w in enumerate(self.slices)]
+        return functools.reduce(torch.add, parts)
+
+
+def p9_floor(dev, params, config, ref, tp) -> float:
+    """How far another summation order alone moves ``ref``'s logits: the
+    same tp = 1 Engine run with o and down summed as ``tp`` ranks sum them
+    (KSplitSum), compared as a TP run is."""
+    split = dict(params, layers=[dict(layer, o=KSplitSum(layer["o"], tp),
+                                      down=KSplitSum(layer["down"], tp))
+                                 for layer in params["layers"]])
+    run = p9_drive("Engine", split, config, dev)
+    return p9_compare(f"tp = 1, o and down summed {tp} ways", run, ref, float("inf"),
+                      decided_flips_fail=False)[0]
+
+
+def p9_hold(label, world, ref, name, kind, layers, limit) -> dict:
+    """A TP run (``world``: every rank's results) against the tp = 1 run:
+    the ranks' tokens and logits bit-identical; their launches and
+    all-reduces exact; no block in use; not graphed; each forward's logits
+    rows within the bf16 threshold of tp = 1's, and the same greedy tokens,
+    up to the first row whose argmax differs, which must be a near tie of
+    tp = 1's. ``limit`` bounds the logits' relative error; ``layers`` is
+    the depth served."""
+    runs = [w[name] for w in world]
+    if len({r["digest"] for r in runs}) != 1:
+        raise AssertionError(f"[{label}] the ranks' tokens or logits differ")
+    got = runs[0]
+    want = p9_expected(kind, got["calls"], layers)
+    for r in runs:
+        counts = dict(w4sym=r["launches"]["w4sym"], paged_decode=r["launches"]["paged_decode"],
+                      paged_verify=r["launches"]["paged_verify"], all_reduce=r["all_reduces"])
+        others = {k: v for k, v in r["launches"].items()
+                  if k not in ("w4sym", "paged_decode", "paged_verify") and v}
+        if counts != want or others:
+            raise AssertionError(f"[{label}] launches {r['launches']}, all-reduces "
+                                 f"{r['all_reduces']}; expected {want}")
+        if r["graphed"] or r["blocks_in_use"] not in (None, 0):
+            raise AssertionError(f"[{label}] graphed {r['graphed']}, blocks in use "
+                                 f"{r['blocks_in_use']}")
+    worst, compared, diverged, forwards = p9_compare(label, got, ref, limit)
+    log(f"  [{label}] {len(world)} ranks bit-identical; {got['launches']['w4sym']} K1, "
+        f"{got['launches']['paged_decode']} K5, {got['launches']['paged_verify']} K6 launches "
+        f"and {got['all_reduces']} all-reduces a rank, as expected; logits of {compared} "
+        f"rows in forwards {forwards} within {worst:.2e} of tp = 1's (limit {limit:.3g}); "
+        "greedy tokens equal, "
+        f"slots {sorted(diverged)} up to a near tie; not graphed (eager TP step); "
+        f"{got['ms_per_step']:.1f} ms/step a rank "
+        f"({len(world)} {SHARED_CARD}: not a TP speed), tp = 1 {ref['ms_per_step']:.1f} "
+        f"ms/step, graphed {ref['graphed']}")
+    return dict(ranks=len(world), layers=layers, limit=limit, launches_per_rank=got["launches"],
+                all_reduces_per_rank=got["all_reduces"], calls=got["calls"],
+                rows_compared=compared, forwards_compared=forwards, max_rel_err=worst,
+                near_tie_slots=sorted(diverged),
+                tokens_equal=got["tokens"] == ref["tokens"], graphed=got["graphed"],
+                ms_per_step_per_rank=[r["ms_per_step"] for r in runs],
+                seconds_per_rank=[r["seconds"] for r in runs], tp1_ms_per_step=ref["ms_per_step"],
+                tp1_graphed=ref["graphed"], note=f"{len(world)} {SHARED_CARD}")
+
+
+def p9_pipeline(dev, params, config) -> dict:
+    """PipelinedModel with 2 stages on one device at full depth: forward
+    against llama.forward (prefill of 8 x 32 tokens, then 2 decode steps),
+    forward_microbatched (2 microbatches, resident caches) against
+    forward."""
+    from flute_tpu_torch.models import llama
+    from flute_tpu_torch.parallel.pp import PipelinedModel, split_cache_microbatches
+
+    pm = PipelinedModel.build(params, config, num_stages=2, devices=[dev])
+    toks = torch.from_numpy(np.random.default_rng(9).integers(1, config.vocab_size, (8, 32))).to(
+        dev)
+    s = 64
+
+    def run(step):
+        out = [step(toks, 0)]
+        for i in range(2):
+            out.append(step(out[-1][:, -1].argmax(-1)[:, None], 32 + i))
+        return [o.float() for o in out]
+
+    mono_cache = llama.init_cache(config, 8, s, device=dev)
+    with torch.inference_mode():
+        mono = run(lambda t, p: llama.forward(params, config, t, mono_cache, p)[0].clone())
+    caches = pm.init_cache(8, s)
+    reset_counters()
+    seq = run(lambda t, p: pm.forward(t, caches, p)[0])
+    seq_launches = launches_now()["w4sym"]
+    caches_mb = split_cache_microbatches(pm.init_cache(8, s), 2)
+    reset_counters()
+    mb = run(lambda t, p: pm.forward_microbatched(t, caches_mb, p, num_microbatches=2)[0])
+    mb_launches = launches_now()["w4sym"]
+    out = {}
+    for name, got, want in (("forward vs llama.forward", seq, mono),
+                            ("forward_microbatched vs forward", mb, seq)):
+        errs = [float((g - w).abs().max() / w.abs().max()) for g, w in zip(got, want)]
+        bits = all(torch.equal(g, w) for g, w in zip(got, want))
+        decided = [decided_steps(w[:, -1]) for w in want]
+        tokens = all(torch.equal(g[:, -1].argmax(-1)[d], w[:, -1].argmax(-1)[d])
+                     for g, w, d in zip(got, want, decided))
+        if max(errs) >= THRESHOLDS[torch.bfloat16] or not tokens:
+            raise AssertionError(f"[pp] {name}: rel errs {errs}, tokens equal {tokens}")
+        out[name] = dict(max_rel_err=max(errs), bit_equal=bits, tokens_equal=tokens)
+        log(f"  [pp] {name}: max rel err {max(errs):.2e}, bit-equal {bits}, tokens equal "
+            "where decided")
+    layers = config.num_layers
+    if seq_launches != 3 * 4 * layers or mb_launches != 2 * 3 * 4 * layers:
+        raise AssertionError(f"[pp] K1 launches {seq_launches} and {mb_launches}")
+    out["launches"] = dict(forward=seq_launches, microbatched=mb_launches)
+    return out
+
+
+def p9_native() -> dict:
+    """The native packer, built with g++ here, on one Llama-3.1-8B layer's
+    four projections at 4 bits (planes), 3 bits (wide) and w4sym: bit-equal
+    to the numpy packers, unpacked back to the codes, timed against them."""
+    from flute_tpu_torch import native, packing
+
+    t0 = time.perf_counter()
+    if not native.available():
+        raise AssertionError("the native packer did not build")
+    build_s = time.perf_counter() - t0
+    fmts = {
+        "4-bit planes": (16, lambda c, n: packing.pack_np(c, 4, use_native=n),
+                         lambda p: packing.unpack_np(p, 4)),
+        "3-bit wide": (8, lambda c, n: packing.pack_w3_wide_np(c, use_native=n),
+                       lambda p: packing.unpack_np(p, 3)),
+        "w4sym": (16, lambda c, n: packing.pack_w4_sym_np(c, use_native=n),
+                  lambda p: packing.unpack_w4_sym_np(p[0])),
+    }
+    rng = np.random.default_rng(9)
+    out = dict(build_s=build_s, library=os.path.relpath(native.library_path(native.MARCHES[0]),
+                                                        HERE))
+    for fmt, (e, pack, unpack) in fmts.items():
+        t_native = t_numpy = 0.0
+        for name, n, k in LAYER_SHAPES:
+            codes = rng.integers(0, e, (k, n), dtype=np.int32)
+            t = time.perf_counter()
+            got = pack(codes, True)
+            t_native += time.perf_counter() - t
+            t = time.perf_counter()
+            want = pack(codes, False)
+            t_numpy += time.perf_counter() - t
+            if not all(np.array_equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f"[native] {fmt} {name}: differs from numpy")
+            if not np.array_equal(unpack(got), codes):
+                raise AssertionError(f"[native] {fmt} {name}: unpack round trip")
+        out[fmt] = dict(native_s=t_native, numpy_s=t_numpy)
+        log(f"  [native] {fmt}: one layer's 4 projections packed in {t_native:.3f} s, numpy "
+            f"{t_numpy:.2f} s; bit-equal, unpacked back to the codes")
+    log(f"  [native] {out['library']} loaded and checked in {build_s:.1f} s (built at its "
+        "first use in this run)")
+    return out
+
+
+def phase_parallel(dev, results) -> dict:
+    """Phase 9: the kernels at shard shapes; the seed-0 w4sym model of
+    phase 4 through a checkpoint to gloo worlds on the card (Engine,
+    PagedEngine with pool prefill, ContinuousBatchingEngine and
+    PagedSpeculativeEngine at tp = 2; Engine at tp = 4) against the same
+    engines at tp = 1; the pipeline; the native packer."""
+    from flute_tpu_torch.integrations import checkpoint
+    from flute_tpu_torch.models import llama
+    from flute_tpu_torch.parallel import launch, validate_tp
+
+    t_start = time.perf_counter()
+    out = dict(kernels=p9_kernels(dev) if dev.type == "cuda" else None)
+    config = p9_config()
+    params = llama.init_params(config, seed=0, device=dev)
+    qparams = llama.quantize_model(params, group_size=GROUP, fuse=True, device=dev)
+    del params
+    gc.collect()
+    for tp in TP_SIZES:
+        validate_tp(qparams, config, tp)
+    ckpt = os.path.join(P9_DIR, "w4sym")
+    shutil.rmtree(P9_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    checkpoint.save_quantized(ckpt, qparams)
+    log(f"  wrote the {config.num_layers}-layer w4sym checkpoint in "
+        f"{time.perf_counter() - t0:.1f} s")
+    worlds = {2: [(kind, None) for kind in P9_RUNS] + [("Engine", P9_SHORT)],
+              4: [("Engine", None), ("Engine", P9_SHORT)]}
+    failures = []
+    try:
+        refs = {run: p9_drive(run[0], *p9_cut(qparams, config, run[1]), dev)
+                for run in dict.fromkeys(worlds[2] + worlds[4])}
+        floors = {(tp, layers): p9_floor(dev, *p9_cut(qparams, config, layers),
+                                         refs["Engine", layers], tp)
+                  for tp, runs in worlds.items() for _, layers in runs}
+        for (tp, layers), floor in floors.items():
+            log(f"  another summation order alone (o and down summed {tp} ways, tp = 1, "
+                f"{layers or config.num_layers} layers): logits within {floor:.2e}")
+        out["sum_order_floors"] = {f"tp{tp} {layers or config.num_layers} layers": f
+                                   for (tp, layers), f in floors.items()}
+        for tp, runs in worlds.items():
+            t0 = time.perf_counter()
+            world = launch.run(p9_rank, tp, ckpt, runs, P9_DEVICE, P9_CONFIG, threads=2,
+                               timeout=600)
+            log(f"  the world of {tp} ran in {time.perf_counter() - t0:.1f} s")
+            out[f"tp{tp}"] = {}
+            for kind, layers in runs:
+                name = p9_name(kind, layers)
+                limit = min(max(THRESHOLDS[torch.bfloat16], 2 * floors[tp, layers]),
+                            P9_LIMIT_CAP)
+                try:
+                    out[f"tp{tp}"][name] = p9_hold(f"tp={tp} {name}", world, refs[kind, layers],
+                                                   name, kind, layers or config.num_layers,
+                                                   limit)
+                except AssertionError as e:  # held after every run is read
+                    log(f"  FAILED: {e}")
+                    failures.append(str(e))
+            del world
+        del refs
+    finally:
+        shutil.rmtree(P9_DIR, ignore_errors=True)
+    if failures:
+        raise AssertionError("phase 9: " + "; ".join(failures))
+    out["pp"] = p9_pipeline(dev, qparams, config)
+    del qparams
+    gc.collect()
+    out["native"] = p9_native()
+    out["seconds"] = time.perf_counter() - t_start
+    log(f"  phase 9 took {out['seconds']:.0f} s")
+    results["parallel"] = out
+    return out
+
+
+def p9_kernel_numbers(p9, kid) -> dict:
+    """The ``tp`` entry of a kernel's line: its time at the shard shapes or
+    local heads beside its bound and yardstick, and its launches a rank in
+    each TP run."""
+    entry = {}
+    for tp in TP_SIZES:
+        cases = p9["kernels"][tp][kid]
+        if kid == "K1":
+            entry[f"tp{tp}"] = _stack_numbers(cases)
+            continue
+        first, *served = cases
+        entry[f"tp{tp}"] = dict(_stack_numbers([first]), heads=first["heads"], case=first["case"],
+                                served=[dict(_stack_numbers([c]), case=c["case"])
+                                        for c in served])
+    key = KERNELS[kid][2]
+    entry["launches_per_rank"] = {f"{tp} {kind}": run["launches_per_rank"][key]
+                                  for tp in ("tp2", "tp4") for kind, run in p9[tp].items()
+                                  if run["launches_per_rank"][key]}
+    return entry
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4128,6 +4703,9 @@ def main() -> int:
     if any(lab_served.values()) or any(lab2_served.values()):
         raise AssertionError(f"phases 3-8 launched lab kernels: {lab_served}, {lab2_served}")
     log(f"  lab kernels launched in phases 3-8: {lab_served}, {lab2_served}")
+    release()
+    log("== 9. tensor and pipeline parallelism at Llama-3.1-8B widths; the host packer")
+    p9 = phase_parallel(dev, results)
 
     kernels = [kernel_line(kid, cases, launches[kid], results["identity_paths"],
                            gemma_launches.get(kid), spec) for kid in LUT_KERNELS]
@@ -4143,6 +4721,8 @@ def main() -> int:
         if not phase8.get(KERNELS[kid][2]):
             raise AssertionError(f"phase 8 launched no {kid}")
         line["phase8"] = dict(launches=phase8[KERNELS[kid][2]])
+        if kid in ("K1", "K5", "K6"):
+            line["tp"] = p9_kernel_numbers(p9, kid)
     results["kernels"] = kernels
     results["total_s"] = time.perf_counter() - t_start
     log(f"  chip_smoke took {results['total_s']:.0f} s")

@@ -11,8 +11,10 @@
 Every subcommand that runs a model takes ``--device`` (default ``cuda``);
 ``--device cpu`` runs the plain PyTorch path on the CPU. Without a tokenizer in the
 checkpoint (or without ``transformers``), prompts are whitespace-separated
-token ids and outputs are printed as id lists. ``serve --tp`` above 1 and
-``bench-kernel`` are not ported and say so.
+token ids and outputs are printed as id lists. ``serve --tp`` above 1 (a
+multi-process server: rank 0 runs HTTP and broadcasts admissions to the
+other ranks, ROADMAP.md queue 1 item 19 part 2; the engines themselves take
+a ``parallel.tp.Mesh``) and ``bench-kernel`` are not ported and say so.
 """
 
 from __future__ import annotations
@@ -197,7 +199,9 @@ def build_serve_engine(args):
 
     if args.tp > 1:
         raise NotImplementedError(
-            "--tp > 1 (tensor-parallel serving) is not ported yet (ROADMAP.md, queue 1 item 19)"
+            "--tp > 1 needs a multi-process server (rank 0 runs HTTP and broadcasts "
+            "admissions to the other ranks), not ported yet (ROADMAP.md, queue 1 item 19 "
+            "part 2); the engines take a parallel.tp.Mesh"
         )
     if args.draft_checkpoint and not args.paged:
         raise SystemExit("--draft-checkpoint on serve requires --paged")
@@ -328,7 +332,7 @@ def build_parser():
     s.add_argument("--prefix-block", type=int, default=64,
                    help="prefix-cache block size in tokens")
     s.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel ways (only 1: tensor parallelism is not ported)")
+                   help="tensor-parallel ways (only 1: a multi-process server is not ported)")
     s.add_argument("--paged", action="store_true",
                    help="paged KV engine: block-pool memory")
     s.add_argument("--block-size", type=int, default=16, help="paged KV block size in tokens")

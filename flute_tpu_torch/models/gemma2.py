@@ -40,6 +40,7 @@ from flute_tpu_torch.models.llama import (
     split_fused_qkv,
 )
 from flute_tpu_torch.nn import QuantizedLinear, quantize_linear
+from flute_tpu_torch.parallel.comm import all_reduce_
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,6 +144,7 @@ def _block(
     v_cache: torch.Tensor,
     pos,
     mask: torch.Tensor,  # [B, T, S], the sliding window already in it
+    group=None,  # the tp process group: all-reduces after o and down
 ) -> torch.Tensor:
     b, t, _ = x.shape
     d = config.head_dim
@@ -161,7 +163,7 @@ def _block(
     llama._cache_update(v_cache, v, pos)
     attn = gqa_attention(q, k_cache, v_cache, mask, scale=config.query_pre_attn_scalar**-0.5,
                          logit_softcap=config.attn_logit_softcap)
-    o = apply_linear(params["o"], attn.reshape(b, t, -1))
+    o = all_reduce_(apply_linear(params["o"], attn.reshape(b, t, -1)), group)
     x = x + rms_norm_gemma(o, params["post_attn_norm"], eps)
 
     h = rms_norm_gemma(x, params["mlp_norm"], eps)
@@ -172,7 +174,7 @@ def _block(
     else:
         gate = apply_linear(params["gate"], h)
         up = apply_linear(params["up"], h)
-    down = apply_linear(params["down"], gelu_tanh(gate) * up)
+    down = all_reduce_(apply_linear(params["down"], gelu_tanh(gate) * up), group)
     return x + rms_norm_gemma(down, params["post_mlp_norm"], eps)
 
 
@@ -188,6 +190,7 @@ def forward(
     cache: dict,
     pos,  # int or 0-dim/[B] tensor: cache slot of tokens[:, 0]
     position_offsets: Optional[torch.Tensor] = None,  # [B] left-pad widths
+    group=None,  # the tp process group (parallel.tp_model_forward)
 ) -> tuple[torch.Tensor, dict]:
     """The contract of :func:`flute_tpu_torch.models.llama.forward`:
     capped f32 logits ``[B, T, vocab]`` and the cache, written in place."""
@@ -199,7 +202,8 @@ def forward(
     window = causal & (js > slots[:, :, None] - config.sliding_window)
     for li, layer in enumerate(params["layers"]):
         mask = window if li % 2 == 0 else causal
-        x = _block(layer, config, x, cos, sin, cache["k"][li], cache["v"][li], pos, mask)
+        x = _block(layer, config, x, cos, sin, cache["k"][li], cache["v"][li], pos, mask,
+                   group)
 
     x = rms_norm_gemma(x, params["final_norm"], config.rms_norm_eps)
     head = params.get("lm_head")

@@ -24,6 +24,7 @@ import torch
 
 from flute_tpu_torch.device import resolve_device
 from flute_tpu_torch.nn import QuantizedLinear, quantize_linear
+from flute_tpu_torch.parallel.comm import all_reduce_
 
 
 @dataclasses.dataclass(frozen=True)
@@ -296,7 +297,13 @@ def _block(
     v_cache: torch.Tensor,
     pos,  # int, 0-dim tensor, or [B] tensor of per-sequence slots
     mask: torch.Tensor,  # [B, T, S]
+    group=None,  # the tp process group under tensor parallelism
 ) -> torch.Tensor:
+    """One transformer block. Under tensor parallelism (``group`` set) the
+    params are this rank's slices: q/k/v/gate/up column-parallel, o/down
+    row-parallel, each followed by one all-reduce, two per block. Head
+    counts come from the local tensors, so the same code runs sharded and
+    whole."""
     b, t, _ = x.shape
     d = config.head_dim
     h = rms_norm(x, params["attn_norm"], config.rms_norm_eps)
@@ -312,7 +319,7 @@ def _block(
     _cache_update(k_cache, k, pos)
     _cache_update(v_cache, v, pos)
     attn = gqa_attention(q, k_cache, v_cache, mask)
-    x = x + apply_linear(params["o"], attn.reshape(b, t, -1))
+    x = x + all_reduce_(apply_linear(params["o"], attn.reshape(b, t, -1)), group)
 
     h = rms_norm(x, params["mlp_norm"], config.rms_norm_eps)
     if "gate_up" in params:
@@ -323,7 +330,7 @@ def _block(
         gate = apply_linear(params["gate"], h)
         up = apply_linear(params["up"], h)
     down = apply_linear(params["down"], torch.nn.functional.silu(gate) * up)
-    return x + down
+    return x + all_reduce_(down, group)
 
 
 def step_positions(config, tokens: torch.Tensor, cache: dict, pos, position_offsets):
@@ -361,9 +368,12 @@ def forward(
     cache: dict,
     pos,  # int or 0-dim/[B] tensor: cache slot of tokens[:, 0]
     position_offsets: Optional[torch.Tensor] = None,  # [B] left-pad widths
+    group=None,  # the tp process group (parallel.tp_model_forward)
 ) -> tuple[torch.Tensor, dict]:
     """Run the model over a token chunk, returning f32 logits [B, T, vocab]
     and the cache (updated in place). Prefill (T = chunk) and decode (T = 1).
+    With a tp ``group`` the params and cache are this rank's slices and
+    the logits come out whole.
 
     Ragged batches are left-padded: sequence i's real tokens start at slot
     ``position_offsets[i]``; its RoPE position at slot j is
@@ -377,8 +387,14 @@ def forward(
     x = params["embed"][tokens.long()].to(config.dtype)
     pos, _, mask, cos, sin = step_positions(config, tokens, cache, pos, position_offsets)
     for li, layer in enumerate(params["layers"]):
-        x = _block(layer, config, x, cos, sin, cache["k"][li], cache["v"][li], pos, mask)
+        x = _block(layer, config, x, cos, sin, cache["k"][li], cache["v"][li], pos, mask,
+                   group)
+    return head_logits(params, config, x), cache
 
+
+def head_logits(params: dict, config: LlamaConfig, x: torch.Tensor) -> torch.Tensor:
+    """f32 logits of the last block's output ``x``: the final norm, then the
+    lm_head (the embedding's transpose when tied)."""
     x = rms_norm(x, params["final_norm"], config.rms_norm_eps)
     head = params["lm_head"] if params.get("lm_head") is not None else params["embed"].T
     if isinstance(head, QuantizedLinear):
@@ -388,7 +404,7 @@ def forward(
         # f32 logits from an f32-accumulated product, never rounded to bf16;
         # the head (a transposed view when tied) is never copied
         logits = matmul_f32(x, head)
-    return logits.float(), cache
+    return logits.float()
 
 
 # ---------------------------------------------------------------------------

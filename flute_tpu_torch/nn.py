@@ -107,10 +107,22 @@ class QuantizedLinear(nn.Module):
     def with_config(self, config: Optional[KernelConfig]) -> "QuantizedLinear":
         """The same layer (sharing its tensors) with another config (its
         tuned launch kept on the module)."""
+        return self.replace(config=config)
+
+    def replace(self, **changes) -> "QuantizedLinear":
+        """A new layer with some of ``planes``, ``scales``, ``table``,
+        ``bias``, ``pair_values`` and ``config`` replaced; it shares every
+        other tensor with this one."""
+        fields = dict(planes=self.planes, scales=self.scales, table=self.table,
+                      bias=self.bias, pair_values=self.pair_values, config=self.config)
+        unknown = set(changes) - set(fields)
+        if unknown:
+            raise TypeError(f"cannot replace {sorted(unknown)}")
+        fields.update(changes)
         return QuantizedLinear(
-            self.planes, self.scales, self.table, self.bias,
-            pair_values=self.pair_values, num_bits=self.num_bits,
-            group_size=self.group_size, config=config,
+            fields["planes"], fields["scales"], fields["table"], fields["bias"],
+            pair_values=fields["pair_values"], num_bits=self.num_bits,
+            group_size=self.group_size, config=fields["config"],
             layout=self.layout, hadamard_size=self.hadamard_size,
         )
 

@@ -36,7 +36,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from flute_tpu_torch import bitutils
+from flute_tpu_torch import bitutils, native
 from flute_tpu_torch.device import resolve_device
 from flute_tpu_torch.ops.kernel_config import KernelConfig
 
@@ -120,12 +120,19 @@ def _unpack_pair_plane_np(
 
 
 def pack_np(
-    codes: np.ndarray, num_bits: int, *, chunk: int = DEFAULT_CHUNK
+    codes: np.ndarray, num_bits: int, *, chunk: int = DEFAULT_CHUNK, use_native: bool = True
 ) -> list[np.ndarray]:
-    """Pack ``[K, N]`` b-bit codes into int32 pair-plane arrays."""
+    """Pack ``[K, N]`` b-bit codes into int32 pair-plane arrays, with the
+    threaded C++ packer (:mod:`flute_tpu_torch.native`) where it is
+    available; the numpy path is the reference it is held to."""
     fmt = PackFormat(num_bits=num_bits, chunk=chunk)
     k, n = codes.shape
     fmt.validate_k(k)
+    if use_native and native.available():
+        codes_i32 = np.ascontiguousarray(codes, dtype=np.int32)
+        shifts = np.cumsum((0,) + fmt.plane_bits[:-1])
+        return [native.pack_plane(codes_i32, int(sh), pb, chunk)
+                for sh, pb in zip(shifts, fmt.plane_bits)]
     codes = np.asarray(codes).astype(np.int64)
     out = []
     shift = 0
@@ -138,36 +145,47 @@ def pack_np(
 
 
 def unpack_np(
-    planes: Sequence[np.ndarray], num_bits: int, *, chunk: int = DEFAULT_CHUNK
+    planes: Sequence[np.ndarray],
+    num_bits: int,
+    *,
+    chunk: int = DEFAULT_CHUNK,
+    use_native: bool = True,
 ) -> np.ndarray:
-    """Recover ``[K, N]`` int32 codes from packed plane arrays."""
+    """Recover ``[K, N]`` int32 codes from packed plane arrays (natively
+    where the C++ packer is available)."""
     if num_bits == 3 and len(planes) == 1:
         # wide single-plane 3-bit layout (classic 3-bit always has 2 planes)
-        return unpack_w3_wide_np(np.asarray(planes[0]), chunk=chunk)
+        return unpack_w3_wide_np(np.asarray(planes[0]), chunk=chunk, use_native=use_native)
     fmt = PackFormat(num_bits=num_bits, chunk=chunk)
+    native_ok = use_native and native.available()
     acc = None
     shift = 0
     for plane, pb in zip(planes, fmt.plane_bits):
-        pairs = _unpack_pair_plane_np(np.asarray(plane), 2 * pb, chunk // 2)
-        p, n = pairs.shape
-        sub = np.zeros((2 * p, n), np.int64)
-        sub[0::2] = pairs & ((1 << pb) - 1)
-        sub[1::2] = pairs >> pb
+        if native_ok:
+            sub = native.unpack_plane(np.asarray(plane), pb, chunk).astype(np.int64)
+        else:
+            pairs = _unpack_pair_plane_np(np.asarray(plane), 2 * pb, chunk // 2)
+            p, n = pairs.shape
+            sub = np.zeros((2 * p, n), np.int64)
+            sub[0::2] = pairs & ((1 << pb) - 1)
+            sub[1::2] = pairs >> pb
         acc = sub << shift if acc is None else acc | (sub << shift)
         shift += pb
     return acc.astype(np.int32)
 
 
 def pack_w3_wide_np(
-    codes: np.ndarray, *, chunk: int = DEFAULT_CHUNK
+    codes: np.ndarray, *, chunk: int = DEFAULT_CHUNK, use_native: bool = True
 ) -> list[np.ndarray]:
     """Pack ``[K, N]`` 3-bit codes into the wide single-plane layout
-    (int32 ``[3K/32, N]``)."""
+    (int32 ``[3K/32, N]``), natively where the C++ packer is available."""
     k, n = codes.shape
     if k % chunk != 0:
         raise ValueError(f"K={k} must be a multiple of pack chunk {chunk}")
     if chunk % 256 != 0:
         raise ValueError(f"chunk={chunk} incompatible with wide 3-bit layout")
+    if use_native and native.available():
+        return [native.pack_w3_wide(codes, chunk)]
     cp = chunk // 2
     codes = np.asarray(codes)
     pairs = (codes[0::2] | (codes[1::2] << 3)).astype(np.uint64)  # [K/2, N]
@@ -185,8 +203,12 @@ def pack_w3_wide_np(
     return [out.view(np.int32)]
 
 
-def unpack_w3_wide_np(plane: np.ndarray, *, chunk: int = DEFAULT_CHUNK) -> np.ndarray:
+def unpack_w3_wide_np(
+    plane: np.ndarray, *, chunk: int = DEFAULT_CHUNK, use_native: bool = True
+) -> np.ndarray:
     """Inverse of :func:`pack_w3_wide_np` -> ``[K, N]`` int32 codes."""
+    if use_native and native.available():
+        return native.unpack_w3_wide(np.asarray(plane), chunk)
     plane = np.ascontiguousarray(plane)
     rows, n = plane.shape
     k = rows * 32 // 3
@@ -208,20 +230,29 @@ def unpack_w3_wide_np(plane: np.ndarray, *, chunk: int = DEFAULT_CHUNK) -> np.nd
     return codes.astype(np.int32)
 
 
-def pack_w4_sym_np(codes: np.ndarray, *, chunk: int = DEFAULT_CHUNK) -> list[np.ndarray]:
+def pack_w4_sym_np(
+    codes: np.ndarray, *, chunk: int = DEFAULT_CHUNK, use_native: bool = True
+) -> list[np.ndarray]:
     """Pack ``[K, N]`` 4-bit sign-magnitude codes (c = s*8 + m) into the
-    w4sym byte-field layout (single int32 plane ``[K/8, N]``)."""
+    w4sym byte-field layout (single int32 plane ``[K/8, N]``), natively
+    where the C++ packer is available."""
     k, n = codes.shape
     if k % chunk != 0:
         raise ValueError(f"K={k} must be a multiple of pack chunk {chunk}")
+    if use_native and native.available():
+        return [native.pack_w4_sym(codes, chunk)]
     c = np.asarray(codes).astype(np.uint32)
     ce, co = c[0::2], c[1::2]
     f = (ce & 7) | ((co & 7) << 3) | ((ce >> 3) << 6) | ((co >> 3) << 7)
     return [_pack_pair_plane_np(f, 8, chunk // 2)]
 
 
-def unpack_w4_sym_np(plane: np.ndarray, *, chunk: int = DEFAULT_CHUNK) -> np.ndarray:
+def unpack_w4_sym_np(
+    plane: np.ndarray, *, chunk: int = DEFAULT_CHUNK, use_native: bool = True
+) -> np.ndarray:
     """Inverse of :func:`pack_w4_sym_np` -> ``[K, N]`` int32 codes."""
+    if use_native and native.available():
+        return native.unpack_w4_sym(np.asarray(plane), chunk)
     f = _unpack_pair_plane_np(np.asarray(plane), 8, chunk // 2)
     p, n = f.shape
     codes = np.empty((2 * p, n), np.int64)

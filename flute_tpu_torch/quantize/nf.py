@@ -13,7 +13,6 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
-from scipy.stats import norm as _scipy_norm
 
 from flute_tpu_torch.packing import sym_code_order
 
@@ -43,6 +42,8 @@ QLORA_NF4 = np.array(
 
 def nf_values(num_bits: int = 4, symmetric: bool = False) -> np.ndarray:
     """NormalFloat code values, float32, ascending, normalized to [-1, 1]."""
+    from scipy.stats import norm as _scipy_norm  # here: scipy.stats takes seconds to import
+
     offset = 0.5 * (1 / 32 + 1 / 30)
     if symmetric:
         probs = np.linspace(offset, 1 - offset, 2**num_bits)

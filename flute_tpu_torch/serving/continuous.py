@@ -30,6 +30,7 @@ import torch
 
 from flute_tpu_torch.device import resolve_device
 from flute_tpu_torch.models import gemma2, llama
+from flute_tpu_torch.parallel.tp import tp_engine_setup
 from flute_tpu_torch.serving.graph import StepGraph
 from flute_tpu_torch.serving.paged_fwd import check_family
 
@@ -278,20 +279,21 @@ class ContinuousBatchingEngine:
     prefix_block: int = 64
     # token_callback(rid, token) after every generated token
     token_callback: Optional[Callable[[int, int], None]] = None
-    # tensor parallelism: not ported (must be None)
+    # tensor parallelism (see serving.engine.Engine): every rank runs the
+    # same calls on its slices; the slot cache holds this rank's KV heads
     mesh: Any = None
     params_specs: Any = None
     device: Any = None
 
     def __post_init__(self):
-        if self.mesh is not None or self.params_specs is not None:
-            raise NotImplementedError(
-                "tensor-parallel continuous batching (mesh, params_specs) is not ported yet "
-                "(ROADMAP.md, queue 1 item 19)"
-            )
         family = family_of(self.config)
         self.forward = self.forward or family.forward
         self.init_cache = self.init_cache or family.init_cache
+        self._cache_config = self.config
+        if self.mesh is not None:
+            self.params, self.params_specs, self.forward, self._cache_config = tp_engine_setup(
+                self.params, self.config, self.mesh, self.params_specs, self.forward)
+            self.device = self.mesh.device
         self.device = resolve_device(self.device)
         n, dev = self.num_slots, self.device
         self._queue: deque[_Request] = deque()
@@ -310,7 +312,7 @@ class ContinuousBatchingEngine:
         self._pres = torch.zeros((n,), dtype=torch.float32, device=dev)
         self._freq = torch.zeros((n,), dtype=torch.float32, device=dev)
         self._rep = torch.ones((n,), dtype=torch.float32, device=dev)
-        self._cache = self.init_cache(self.config, n, self.max_len, device=dev)
+        self._cache = self.init_cache(self._cache_config, n, self.max_len, device=dev)
         self._next_rid = 0
         self._finished: dict[int, list] = {}
         self.finished_logprobs: dict[int, list] = {}
@@ -322,8 +324,14 @@ class ContinuousBatchingEngine:
         # the decode step's inputs, at fixed addresses for its graph
         self._step_tokens = torch.zeros((n, 1), dtype=torch.int64, device=dev)
         self._step_pos = torch.zeros((n,), dtype=torch.int64, device=dev)
-        self._graph = None if dev.type != "cuda" else StepGraph(
+        self._graph = None if not self.graphed else StepGraph(
             lambda: self._decode_logits(self._step_tokens, self._step_pos), dev)
+
+    @property
+    def graphed(self) -> bool:
+        """Whether the decode step is captured in a CUDA graph: on CUDA,
+        without a mesh (a TP step runs eagerly)."""
+        return self.device.type == "cuda" and self.mesh is None
 
     # -- steps ---------------------------------------------------------------
 
@@ -425,7 +433,7 @@ class ContinuousBatchingEngine:
         p0 = len(hit) * bs
         rem = plen - p0
         rb = _bucket(rem)
-        small_cache = self.init_cache(self.config, 1, _bucket(max(plen, p0 + rb)),
+        small_cache = self.init_cache(self._cache_config, 1, _bucket(max(plen, p0 + rb)),
                                       device=self.device)
         for bi, entry in enumerate(hit):
             self._prefix_store.move_to_end(tuple(req.prompt[: (bi + 1) * bs]))
@@ -453,7 +461,7 @@ class ContinuousBatchingEngine:
             toks = np.full((1, bucket), self.pad_id, np.int64)
             toks[0, bucket - plen:] = req.prompt  # left-padded into the bucket
             start = bucket - plen
-            small_cache = self.init_cache(self.config, 1, bucket, device=self.device)
+            small_cache = self.init_cache(self._cache_config, 1, bucket, device=self.device)
             logits, _ = self.forward(self.params, self.config,
                                      torch.from_numpy(toks).to(self.device), small_cache, 0,
                                      torch.tensor([start], device=self.device))
@@ -464,7 +472,7 @@ class ContinuousBatchingEngine:
         full = (plen // chunk) * chunk
         rem = plen - full
         rb = _bucket(rem) if rem else 0
-        small_cache = self.init_cache(self.config, 1, _bucket(max(plen, full + rb)),
+        small_cache = self.init_cache(self._cache_config, 1, _bucket(max(plen, full + rb)),
                                       device=self.device)
         for c0 in range(0, full, chunk):
             logits = self._run_chunk(req.prompt[c0:c0 + chunk], chunk, small_cache, c0)

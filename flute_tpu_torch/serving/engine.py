@@ -9,6 +9,14 @@ host), so shapes never change. On CUDA the decode step of ``generate`` is
 captured once in a CUDA graph (``serving.graph.StepGraph``) and replayed,
 as the reference compiles it with ``jax.jit``; prefill, whose length
 varies, runs eagerly.
+
+Tensor parallelism (``mesh``, a ``parallel.tp.Mesh``): every rank of the
+mesh builds the same engine and makes the same calls; the engine serves
+this rank's slices of the params (``parallel.tp.tp_engine_setup``) and
+holds its KV heads, and the blocks' all-reduces give every rank the same
+logits, so the same tokens. A TP step runs eagerly whatever the backend
+(``graphed`` is False): a gloo all-reduce cannot be captured in a CUDA
+graph.
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ import torch
 
 from flute_tpu_torch.device import resolve_device
 from flute_tpu_torch.models import llama
+from flute_tpu_torch.parallel.tp import tp_engine_setup
 from flute_tpu_torch.serving.graph import StepGraph
 
 
@@ -61,6 +70,11 @@ class Engine:
     on ``device`` (``cuda`` unless named); params must already live there.
     The KV cache is the engine's: each :meth:`prefill` zeroes and refills
     it, so the decode graph captured against it stays valid.
+
+    ``mesh``: tensor-parallel serving on the mesh's device (fused params
+    permuted rank-major first, ``parallel.permute_fused_params``);
+    ``params_specs``: the specs to shard them with (default
+    ``parallel.llama_partition_specs``).
     """
 
     params: Any
@@ -71,8 +85,15 @@ class Engine:
     batch_size: int = 8
     pad_id: int = 0
     device: Any = None
+    mesh: Any = None
+    params_specs: Any = None
 
     def __post_init__(self):
+        self._cache_config = self.config
+        if self.mesh is not None:
+            self.params, self.params_specs, self.forward, self._cache_config = tp_engine_setup(
+                self.params, self.config, self.mesh, self.params_specs, self.forward)
+            self.device = self.mesh.device
         self.device = resolve_device(self.device)
         # host-clock seconds of the last generate(): the prefill (up to the
         # first token on the host) and each decode step after it
@@ -85,7 +106,7 @@ class Engine:
         place at every later one."""
         if self._cache is None:
             self._cache = self.init_cache(
-                self.config, self.batch_size, self.max_len, device=self.device
+                self._cache_config, self.batch_size, self.max_len, device=self.device
             )
         else:
             for layer in self._cache["k"] + self._cache["v"]:
@@ -106,13 +127,19 @@ class Engine:
         logits, cache = self.forward(self.params, self.config, tokens, cache, pos, offsets)
         return logits[:, -1], cache
 
+    @property
+    def graphed(self) -> bool:
+        """Whether the decode step is captured in a CUDA graph: on CUDA,
+        without a mesh."""
+        return self.device.type == "cuda" and self.mesh is None
+
     def decode_step(self, tokens: torch.Tensor, pos: int, offsets: torch.Tensor) -> torch.Tensor:
         """The decode step of :meth:`generate` on the engine's cache: logits
-        [B, V] of a T=1 step at slot ``pos``. On CUDA the step captured in a
-        CUDA graph at its first call (which runs eagerly) and replayed: the
-        returned logits are overwritten by the next step. Elsewhere
-        :meth:`decode`."""
-        if self.device.type != "cuda":
+        [B, V] of a T=1 step at slot ``pos``. When :attr:`graphed`, the
+        step captured in a CUDA graph at its first call (which runs eagerly)
+        and replayed: the returned logits are overwritten by the next step.
+        Otherwise :meth:`decode`."""
+        if not self.graphed:
             return self.decode(tokens, self._cache, pos, offsets)[0]
         if self._graph is None:
             b, dev = self.batch_size, self.device

@@ -35,8 +35,12 @@ draw is keyed on (``continuous.ENGINE_KEY``, request seed, generation
 index) through an explicit ``torch.Generator``, so a request's tokens do
 not depend on the batch around it. Llama and Gemma-2 are served, told
 apart by the config as the JAX engine tells them
-(``serving.paged_fwd.check_family``), with ``mesh=None``; tensor
-parallelism is not ported yet.
+(``serving.paged_fwd.check_family``).
+
+Tensor parallelism (``mesh``, as ``serving.engine.Engine`` takes it): the
+pools hold this rank's KV heads, the decode step, both prefill routes and
+the paged kernels run on the rank's slices with two all-reduces per block,
+and the step runs eagerly (``graphed`` is False).
 """
 
 from __future__ import annotations
@@ -51,6 +55,7 @@ import torch
 from flute_tpu_torch.device import resolve_device
 from flute_tpu_torch.models.llama import rope_tables
 from flute_tpu_torch.ops.paged_attention import paged_decode_attention
+from flute_tpu_torch.parallel.tp import tp_engine_setup
 from flute_tpu_torch.serving.continuous import (
     SamplingParams,
     _bucket,
@@ -91,7 +96,7 @@ class PagedEngine:
     token_callback: Any = None
     # pool-level prefix caching: cached blocks kept at most (0 = off)
     prefix_cache_blocks: int = 0
-    # tensor parallelism: not ported (must be None)
+    # tensor parallelism: a parallel.tp.Mesh (every rank makes the same calls)
     mesh: Any = None
     params_specs: Any = None
     # prompts longer than this prefill in chunks of it (None = one call on
@@ -105,23 +110,25 @@ class PagedEngine:
     supports_penalties = True
 
     def __post_init__(self):
-        if self.mesh is not None or self.params_specs is not None:
-            raise NotImplementedError(
-                "tensor-parallel paged serving (mesh, params_specs) is not ported yet "
-                "(ROADMAP.md, queue 1 item 19)"
-            )
         cfg = self.config
         family = family_of(cfg)
-        self.device = resolve_device(self.device)
         # positions past a request's budget that decode may write: 1
         self._tail = 1
         self.forward = self.forward or family.forward
         self.init_cache = self.init_cache or family.init_cache
+        self._cache_config = cfg
+        self._group = None
+        if self.mesh is not None:
+            self.params, self.params_specs, self.forward, self._cache_config = tp_engine_setup(
+                self.params, cfg, self.mesh, self.params_specs, self.forward)
+            self.device = self.mesh.device
+            self._group = self.mesh.reduce_group
+        self.device = resolve_device(self.device)
         bs = self.block_size
         if self.max_len % bs:
             raise ValueError(f"max_len {self.max_len} % block {bs} != 0")
         self.max_blocks = self.max_len // bs
-        shape = (self.num_blocks, cfg.num_kv_heads, bs, cfg.head_dim)
+        shape = (self.num_blocks, self._cache_config.num_kv_heads, bs, cfg.head_dim)
         dev = self.device
         self._kp = [torch.zeros(shape, dtype=cfg.dtype, device=dev) for _ in range(cfg.num_layers)]
         self._vp = [torch.zeros(shape, dtype=cfg.dtype, device=dev) for _ in range(cfg.num_layers)]
@@ -164,8 +171,14 @@ class PagedEngine:
                                         device=dev)
         self._step_lengths = torch.zeros((self.num_slots,), dtype=torch.int32, device=dev)
         self._step_tokens = torch.zeros((self.num_slots, 1), dtype=torch.int64, device=dev)
-        self._graph = None if dev.type != "cuda" else StepGraph(lambda: self._decode_logits(
+        self._graph = None if not self.graphed else StepGraph(lambda: self._decode_logits(
             self._step_tables, self._step_lengths, self._step_tokens), dev)
+
+    @property
+    def graphed(self) -> bool:
+        """Whether the steps are captured in CUDA graphs: on CUDA, without a
+        mesh (a TP step runs eagerly)."""
+        return self.device.type == "cuda" and self.mesh is None
 
     # -- steps ---------------------------------------------------------------
 
@@ -193,7 +206,7 @@ class PagedEngine:
             return paged_decode_attention(q[:, 0], self._kp[li], self._vp[li], tables,
                                           att_len, **attention_options(cfg, li))[:, None]
 
-        x = decoder_layers(self.params, cfg, x, cos, sin, attend)
+        x = decoder_layers(self.params, cfg, x, cos, sin, attend, self._group)
         return _head_logits(self.params, cfg, x, None)[:, -1]
 
     def _step_logits(self) -> torch.Tensor:
@@ -362,7 +375,7 @@ class PagedEngine:
             logits, _, _ = self._pool_fwd(
                 self.params, self._kp, self._vp, table_row,
                 torch.tensor([p0 + c0], device=dev), torch.from_numpy(toks).to(dev),
-                real_end=real_end, last_idx=m - 1,
+                real_end=real_end, last_idx=m - 1, group=self._group,
             )
             c0 += m
         return logits[0, 0].float()
@@ -393,7 +406,7 @@ class PagedEngine:
                 calls.append((p0 + full, prompt[p0 + full:], _bucket(rem - full, bs)))
         # the scratch holds every written slot (at least the prompt's bucket)
         csize = _bucket(max(plen, max(s + w for s, _, w in calls)), bs)
-        scratch = self.init_cache(self.config, 1, csize, device=dev)
+        scratch = self.init_cache(self._cache_config, 1, csize, device=dev)
         if shared:
             rows = torch.tensor(shared, device=dev)
             for li in range(self.config.num_layers):

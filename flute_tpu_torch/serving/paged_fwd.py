@@ -36,6 +36,7 @@ from flute_tpu_torch.models.llama import (
 )
 from flute_tpu_torch.nn import QuantizedLinear
 from flute_tpu_torch.ops.paged_attention import paged_verify_attention
+from flute_tpu_torch.parallel.comm import all_reduce_
 
 # what the Gemma-2 stack reads beyond Llama's fields
 GEMMA2_FIELDS = ("attn_logit_softcap", "final_logit_softcap", "query_pre_attn_scalar",
@@ -60,10 +61,11 @@ def check_family(config) -> str:
 
 def make_paged_multitoken_forward(config, block_size: int) -> Callable:
     """``fwd(params, kp, vp, tables, lengths, toks, real_end=None,
-    last_idx=None) -> (logits, kp, vp)``. ``toks`` is ``[B, T]``; token
-    ``(b, j)`` sits at position ``lengths[b] + j``. Returns f32 logits
-    ``[B, T, V]`` (``[B, 1, V]`` with ``last_idx``) and the pools, written in
-    place."""
+    last_idx=None, group=None) -> (logits, kp, vp)``. ``toks`` is
+    ``[B, T]``; token ``(b, j)`` sits at position ``lengths[b] + j``.
+    Returns f32 logits ``[B, T, V]`` (``[B, 1, V]`` with ``last_idx``) and
+    the pools, written in place. With a tp ``group`` the params and pools
+    are this rank's slices (pools over KV heads)."""
     check_family(config)
     return _make_pool_forward(config, block_size)
 
@@ -107,11 +109,12 @@ def _head_logits(params, cfg, x, last_idx: Optional[int]):
     return logits.float()
 
 
-def decoder_layers(params, cfg, x, cos, sin, attend) -> torch.Tensor:
+def decoder_layers(params, cfg, x, cos, sin, attend, group=None) -> torch.Tensor:
     """The decoder stack of ``cfg``'s family over ``x`` ``[B, T, hidden]``,
     through the final norm; ``attend(li, q, k, v)`` writes layer ``li``'s
     K/V and returns its attention output ``[B, T, H, D]``. Gemma-2 adds the
-    sandwich norms, its ``(1 + w)`` RMSNorm and GeGLU."""
+    sandwich norms, its ``(1 + w)`` RMSNorm and GeGLU. With a tp ``group``
+    the o and down outputs are all-reduced, as in ``llama._block``."""
     b, t, _ = x.shape
     d = cfg.head_dim
     eps = cfg.rms_norm_eps
@@ -130,7 +133,7 @@ def decoder_layers(params, cfg, x, cos, sin, attend) -> torch.Tensor:
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         attn = attend(li, q, k, v)
-        o = apply_linear(layer["o"], attn.reshape(b, t, -1))
+        o = all_reduce_(apply_linear(layer["o"], attn.reshape(b, t, -1)), group)
         x = x + (norm(o, layer["post_attn_norm"], eps) if gemma else o)
         h2 = norm(x, layer["mlp_norm"], eps)
         if "gate_up" in layer:
@@ -140,13 +143,13 @@ def decoder_layers(params, cfg, x, cos, sin, attend) -> torch.Tensor:
         else:
             gate = apply_linear(layer["gate"], h2)
             up = apply_linear(layer["up"], h2)
-        down = apply_linear(layer["down"], act(gate) * up)
+        down = all_reduce_(apply_linear(layer["down"], act(gate) * up), group)
         x = x + (norm(down, layer["post_mlp_norm"], eps) if gemma else down)
     return norm(x, params["final_norm"], eps)
 
 
 def _make_pool_forward(cfg, bs: int):
-    def fwd(params, kp, vp, tables, lengths, toks, real_end=None, last_idx=None):
+    def fwd(params, kp, vp, tables, lengths, toks, real_end=None, last_idx=None, group=None):
         b, t = toks.shape
         mb = tables.shape[1]
         x = embed(params, cfg, toks)
@@ -162,7 +165,7 @@ def _make_pool_forward(cfg, bs: int):
             return paged_verify_attention(q, kp[li], vp[li], tables, lengths,
                                           **attention_options(cfg, li))
 
-        x = decoder_layers(params, cfg, x, cos, sin, attend)
+        x = decoder_layers(params, cfg, x, cos, sin, attend, group)
         return _head_logits(params, cfg, x, last_idx), kp, vp
 
     return fwd

@@ -31,7 +31,12 @@ after the verify. Admission (prefill) runs eagerly.
 
 Llama and Gemma-2, for target and draft independently (the vocabulary
 must match). Penalties are refused at submit (``supports_penalties``): the
-rounds keep no output counts. Tensor parallelism is not ported.
+rounds keep no output counts.
+
+Under a ``mesh`` (as ``PagedEngine`` takes it) the draft runs
+tensor-parallel too: its params are sharded like the target's (fused
+draft params permuted rank-major the same way), its dense cache holds this
+rank's KV heads, and the draft steps and the verify run eagerly.
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from flute_tpu_torch.parallel.tp import tp_engine_setup
 from flute_tpu_torch.serving.continuous import family_of
 from flute_tpu_torch.serving.graph import StepGraph
 from flute_tpu_torch.serving.paged import PagedEngine
@@ -81,7 +87,11 @@ class PagedSpeculativeEngine(SpeculativeRounds, PagedEngine):
             cols *= 2
         n, dev = self.num_slots, self.device
         self._dfwd, self._dinit = dfam.forward, dfam.init_cache
-        self._d_cache = self._dinit(self.draft_config, n, cols, device=dev)
+        self._d_cache_config = self.draft_config
+        if self.mesh is not None:
+            self.draft_params, _, self._dfwd, self._d_cache_config = tp_engine_setup(
+                self.draft_params, self.draft_config, self.mesh, forward=dfam.forward)
+        self._d_cache = self._dinit(self._d_cache_config, n, cols, device=dev)
         self._d_pos = np.zeros((n,), np.int64)
         self._d_ready = np.zeros((n,), bool)
         self._pending = np.full((n,), -1, np.int64)
@@ -93,11 +103,10 @@ class PagedSpeculativeEngine(SpeculativeRounds, PagedEngine):
         self._d_tok = torch.zeros((n, 1), dtype=torch.int64, device=dev)
         self._d_pos_buf = torch.zeros((n,), dtype=torch.int64, device=dev)
         self._v_toks = torch.zeros((n, self.k + 1), dtype=torch.int64, device=dev)
-        cuda = dev.type == "cuda"
         self._draft_graph = StepGraph(lambda: self._draft_logits(
-            self._d_tok, self._d_pos_buf), dev) if cuda else None
+            self._d_tok, self._d_pos_buf), dev) if self.graphed else None
         self._verify_graph = StepGraph(lambda: self._verify_logits(
-            self._step_tables, self._step_lengths, self._v_toks), dev) if cuda else None
+            self._step_tables, self._step_lengths, self._v_toks), dev) if self.graphed else None
 
     # -- steps ---------------------------------------------------------------
 
@@ -113,7 +122,8 @@ class PagedSpeculativeEngine(SpeculativeRounds, PagedEngine):
                        toks: torch.Tensor) -> torch.Tensor:
         """The target's eager paged T = k+1 step (K6) for every slot: f32
         logits ``[B, k+1, V]``."""
-        return self._verify_fwd(self.params, self._kp, self._vp, tables, lengths, toks)[0]
+        return self._verify_fwd(self.params, self._kp, self._vp, tables, lengths, toks,
+                                group=self._group)[0]
 
     def _draft_step(self) -> torch.Tensor:
         if self._draft_graph is None:
@@ -143,7 +153,7 @@ class PagedSpeculativeEngine(SpeculativeRounds, PagedEngine):
                 tb *= 2
             toks = np.full((1, tb), self.pad_id, np.int64)
             toks[0, :plen] = prompt
-            scratch = self._dinit(self.draft_config, 1, tb, device=self.device)
+            scratch = self._dinit(self._d_cache_config, 1, tb, device=self.device)
             self._dfwd(self.draft_params, self.draft_config,
                        torch.from_numpy(toks).to(self.device), scratch, 0)
             for kv in ("k", "v"):

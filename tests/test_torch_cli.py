@@ -139,7 +139,7 @@ def test_serve_engine_plumbing(dirs, capsys):
 
 
 def test_unported_paths_raise_naming_their_items(dirs):
-    with pytest.raises(NotImplementedError, match="item 19"):
+    with pytest.raises(NotImplementedError, match="item 19 part 2"):
         cli.build_serve_engine(serve_args(dirs, "--tp", "2"))
     with pytest.raises(NotImplementedError, match="item 9"):
         cli.main(["bench-kernel"])

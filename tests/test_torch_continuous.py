@@ -244,7 +244,7 @@ def test_gemma2_continuous_engine():
 
 def test_guards(models):
     _, _, config, tq, _ = models
-    with pytest.raises(NotImplementedError, match="item 19"):
+    with pytest.raises(TypeError, match="make_mesh"):
         engine(config, tq, mesh=object())
     eng = engine(config, tq)
     assert eng.forward is llama.forward

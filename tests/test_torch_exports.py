@@ -1,6 +1,6 @@
 """The port's packages export the JAX package's public names: each
 ``__all__`` name of ``flute_tpu``, ``.ops``, ``.serving``, ``.utils``,
-``.models``, ``.quantize`` and ``.integrations`` is in the port's
+``.models``, ``.quantize``, ``.integrations`` and ``.parallel`` is in the port's
 counterpart's ``__all__`` and resolves there, but for the gaps listed
 below by their ROADMAP item (queue 1), the modules the port does not have
 yet (none now)."""
@@ -12,7 +12,8 @@ import pytest
 # JAX names the port does not export yet -> the ROADMAP queue 1 item that
 # brings them
 GAPS: dict = {}
-PACKAGES = ["", ".ops", ".serving", ".utils", ".models", ".quantize", ".integrations"]
+PACKAGES = ["", ".ops", ".serving", ".utils", ".models", ".quantize", ".integrations",
+            ".parallel"]
 
 
 @pytest.mark.parametrize("sub", PACKAGES, ids=lambda s: s or "top")

@@ -351,7 +351,7 @@ def test_paged_engine_options_and_guards(models):
         base.submit(list(range(30)), max_new_tokens=8)
     with pytest.raises(ValueError, match="either"):
         base.submit([1, 2], max_new_tokens=4, sampling=SamplingParams(), temperature=1.0)
-    with pytest.raises(NotImplementedError, match="item 19"):
+    with pytest.raises(TypeError, match="make_mesh"):
         PagedEngine(params=tq, config=config, mesh=object(), **kw)
     # Gemma-2 is served; a softcapped config without Gemma-2's other fields
     # is no family the paged path serves

@@ -205,7 +205,7 @@ def test_guards(models):
         PagedSpeculativeEngine(params=tq, config=config, device="cpu")
     with pytest.raises(ValueError, match="k must be"):
         paged_spec(config, tq, tq, k=0)
-    with pytest.raises(NotImplementedError, match="item 19"):
+    with pytest.raises(TypeError, match="make_mesh"):
         paged_spec(config, tq, tq, mesh=object())
     eng = paged_spec(config, tq, tq, k=4, slots=1, num_blocks=8, max_len=32)
     with pytest.raises(ValueError, match="exceeds"):
