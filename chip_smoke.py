@@ -907,9 +907,11 @@ def lab_check(fn, flags, x, planes, scales, table, bn, bk, name, label):
 
 
 def phase_lab(dev, results):
-    """The Hopper lab: its entry point over every variant (counted), then
-    each case against its plain version, an identity x bit for bit, and the
-    plain versions and a bf16 matmul timed beside the kernels."""
+    """The Hopper lab: its entry point over every variant (counted, each
+    function's path recorded), then each case against its plain version, an
+    identity x bit for bit, a repeated call of the tensor-core loop bit for
+    bit, and the plain versions and a bf16 matmul timed beside the
+    kernels."""
     from flute_tpu_torch.lab import kernel_lab
     from flute_tpu_torch.lab import ops as lab
     from flute_tpu_torch.ops import lut_gemm
@@ -920,12 +922,18 @@ def phase_lab(dev, results):
     for d in (lab.LAUNCHES, lut_gemm.LAUNCHES):
         for kk in d:
             d[kk] = 0
+    lab.LAST_PATH.clear()
     t0 = time.perf_counter()
     rows = kernel_lab.main(["--m", str(m), "--n", str(n), "--k", str(k), "--bk", str(bk),
                             "--iters", str(LAB_ITERS), "--variants", ",".join(kernel_lab.ORDER)])
     launches = dict(lab.LAUNCHES)
     gemm = dict(lut_gemm.LAUNCHES)
+    paths = dict(lab.LAST_PATH)
     main_s = time.perf_counter() - t0
+    want_paths = {fn: lab.lab_path(g) if fn in lab.MMA_FUNCTIONS else "simt"
+                  for fn in lab.LAUNCHES}
+    if paths != want_paths:
+        raise AssertionError(f"the lab's run took the paths {paths}, expected {want_paths}")
     # calls per variant: one check call, then bench_op's first call on each
     # input copy and its whole passes over the copies in the graph
     copies = cold_copies(n * k // 2 + (k // g) * n * 2)
@@ -937,7 +945,7 @@ def phase_lab(dev, results):
         raise AssertionError(f"the lab's run launched {launches} and {gemm}, "
                              f"expected {want} and {want_gemm}")
     log(f"  the lab's entry point ran {len(rows)} variants in {main_s:.1f} s; launches {launches}, "
-        f"package kernels {gemm}")
+        f"package kernels {gemm}; paths {paths}")
     by_name = {r["name"]: r for r in rows}
 
     codes, planes, scales, table, x = kernel_lab.make_inputs(m, n, k, 4, g, device=dev)
@@ -962,9 +970,15 @@ def phase_lab(dev, results):
         if fn == "unpack_only" and not torch.equal(
                 got.view(torch.int16), lab.unpack_weight(small[0]).view(torch.int16)):
             raise AssertionError("lab unpack: identity x does not give its operand")
+        if fn in lab.MMA_FUNCTIONS:  # split-K reduced in a fixed order: the same bits
+            once = lab.run(fn, x, p, scales, table, m, n, bk, g, **flags)
+            again = lab.run(fn, x, p, scales, table, m, n, bk, g, **flags)
+            if not torch.equal(once.view(torch.int16), again.view(torch.int16)):
+                raise AssertionError(f"lab {name}: a repeated call changed bits")
     log(f"  L1-L6: 12 cases agree with their plain versions at M{m} N{n} K{k} bk {bk} and at "
         f"N{LAB_NARROW_N} bk 256 (largest error {max(c['rel_err'] for c in checks):.2e}), "
-        "identity x bit-exact (unpack_only: its subnormal operand)")
+        "identity x bit-exact (unpack_only: its subnormal operand), the tensor-core loop's "
+        "repeated calls bit-identical")
 
     # plain versions and the yardstick, timed beside the kernels
     args = [([q.clone() for q in planes], scales.clone()) for _ in range(2)]
@@ -988,15 +1002,16 @@ def phase_lab(dev, results):
             nbytes += scales.numel() * 2 + table.numel() * 4
         t_bytes = nbytes / HBM_BYTES_PER_S
         row = by_name[name]
-        case = dict(variant=name, function=fn, us=row["us"], gbps=row["gbps"],
+        case = dict(variant=name, function=fn, path=paths[fn], us=row["us"], gbps=row["gbps"],
                     lab_share_of_hbm=row["share_of_hbm"], plain_us=t_p * 1e6,
                     library_us=t_lib * 1e6, bytes=nbytes, bound_us=max(t_bytes, t_ops) * 1e6,
                     bound_by="bytes" if t_bytes >= t_ops else "operations")
         case["share_of_bound"] = case["bound_us"] / case["us"]
         cases.append(case)
-        log(f"    {name:12s} kernel {case['us']:8.1f} us {case['gbps']:7.1f} GB/s  bound "
-            f"{case['bound_us']:6.1f} us ({case['bound_by']}, {100 * case['share_of_bound']:5.1f}%)"
-            f"  plain {case['plain_us']:8.1f} us  matmul {case['library_us']:6.1f} us")
+        log(f"    {name:12s} {case['path']:4s} kernel {case['us']:8.1f} us {case['gbps']:7.1f} "
+            f"GB/s  bound {case['bound_us']:6.1f} us ({case['bound_by']}, "
+            f"{100 * case['share_of_bound']:5.1f}%)  plain {case['plain_us']:8.1f} us  matmul "
+            f"{case['library_us']:6.1f} us")
     # floor as the lab times it reads real planes (65% of its outputs are
     # not finite); the same kernel on planes masked to finite halves
     fin = [([lab.finite_halves(q[0])], s) for q, s in args]
@@ -1012,14 +1027,15 @@ def phase_lab(dev, results):
     del args, planes, finite, x
     torch.cuda.empty_cache()
     results["lab"] = dict(shape=sh, main_s=main_s, rows=rows, launches=launches,
-                          package_launches=gemm, checks=checks, cases=cases)
+                          package_launches=gemm, paths=paths, checks=checks, cases=cases)
     return cases, checks, launches
 
 
 def lab_line(kid, lab, cases, checks, launches, served):
     """The {"kernels": [...]} entry of lab kernel ``kid`` (of ``LAB`` or
-    ``LAB2``, given as ``lab``): its reporting variant's numbers, the other
-    variants' times beside them. ``launches`` counts the lab's run,
+    ``LAB2``, given as ``lab``): its reporting variant's numbers (its path,
+    ``"mma"`` or ``"simt"``, and its share of the bound among them), the
+    other variants' times beside them. ``launches`` counts the lab's run,
     ``served`` the launches in phases 3 and 4 (none: no served path runs a
     lab kernel)."""
     wrapper, source, fn, replaces = KERNELS[kid]
@@ -1036,6 +1052,8 @@ def lab_line(kid, lab, cases, checks, launches, served):
         bound_ms=row["bound_us"] / 1e3,
         bound_by=row["bound_by"],
         library_ms=None if row["library_us"] is None else row["library_us"] / 1e3,
+        path=row["path"],
+        share_of_bound=row["share_of_bound"],
         checked=True,
         served_launches=served[fn],
         variants={c["variant"]: c["us"] / 1e3 for c in cases if c["function"] == fn},
@@ -1083,10 +1101,11 @@ def lab2_check(name, inp, weights, bn, bk, label):
 
 def phase_lab2(dev, results, library_us_w4):
     """The lab's second half (L7-L12): its entry point over every variant
-    (counted), then each case against its plain version, an identity x bit
-    for bit, L7 bit for bit, and the plain versions and a bf16 matmul timed
-    beside the kernels. ``library_us_w4`` is phase 2b's yardstick, a bf16
-    matmul at this shape."""
+    (counted, each function's path recorded), then each case against its
+    plain version, an identity x bit for bit, a repeated call of the
+    tensor-core loop bit for bit, L7 bit for bit, and the plain versions and
+    a bf16 matmul timed beside the kernels. ``library_us_w4`` is phase 2b's
+    yardstick, a bf16 matmul at this shape."""
     from types import SimpleNamespace
 
     from flute_tpu_torch.lab import kernel_lab2, ops2
@@ -1099,10 +1118,16 @@ def phase_lab2(dev, results, library_us_w4):
     for d in (ops2.LAUNCHES, lab.LAUNCHES, lut_gemm.LAUNCHES):
         for kk in d:
             d[kk] = 0
+    ops2.LAST_PATH.clear()
     t0 = time.perf_counter()
     rows = kernel_lab2.main(["--iters", str(LAB_ITERS), "--variants", ",".join(kernel_lab2.ORDER)])
     launches, gemm, lab1 = dict(ops2.LAUNCHES), dict(lut_gemm.LAUNCHES), dict(lab.LAUNCHES)
+    paths = dict(ops2.LAST_PATH)
     main_s = time.perf_counter() - t0
+    want_paths = {fn: lab.lab_path(g) if fn in ops2.MMA_FUNCTIONS else "simt"
+                  for fn in ops2.LAUNCHES}
+    if paths != want_paths:
+        raise AssertionError(f"the lab2 run took the paths {paths}, expected {want_paths}")
 
     # calls per GEMM variant: one check call, then bench_op's first call on
     # each input copy and its whole passes over the copies in the graph
@@ -1123,7 +1148,7 @@ def phase_lab2(dev, results, library_us_w4):
         raise AssertionError(f"the lab2 run launched {launches}, {gemm} and {lab1}, "
                              f"expected {want}, {want_gemm} and no L1-L6")
     log(f"  the lab2 entry point ran {len(rows)} variants in {main_s:.1f} s; launches {launches}, "
-        f"package kernels {gemm}")
+        f"package kernels {gemm}; paths {paths}")
     by_name = {r["name"]: r for r in rows}
 
     inp = kernel_lab2.make_inputs(m, n, k, g, device=dev)
@@ -1138,6 +1163,11 @@ def phase_lab2(dev, results, library_us_w4):
         fn, args = kernel_lab2.lab_call(name, eye, _cut(weights, k, 512, 256), 16, 256, 256)
         if not _same_bits(ops2.FUNCTIONS[fn](*args), ops2.plain(fn, *args)):
             raise AssertionError(f"lab2 {name}: identity x not bit-exact")
+        if fn in ops2.MMA_FUNCTIONS:  # split-K reduced in a fixed order: the same bits
+            fn, args = kernel_lab2.lab_call(name, inp, weights, m, bn, bk)
+            once, again = ops2.FUNCTIONS[fn](*args), ops2.FUNCTIONS[fn](*args)
+            if not torch.equal(once.view(torch.int16), again.view(torch.int16)):
+                raise AssertionError(f"lab2 {name}: a repeated call changed bits")
     block = kernel_lab2.vmembw_block(dev)
     for nops in kernel_lab2.VMEMBW_NOPS:
         got = ops2.vmembw(block, nops)
@@ -1148,7 +1178,8 @@ def phase_lab2(dev, results, library_us_w4):
     log(f"  L7-L12: 6 GEMM cases and sep1 agree with their plain versions at M{m} N{n} K{k} "
         f"bk {bk} and at N{LAB_NARROW_N} bk 256 (largest error "
         f"{max(c['rel_err'] for c in checks):.2e}), identity x bit-exact (the sign of a zero "
-        "aside); vmembw bit-exact at nops 2 and 8")
+        "aside), the tensor-core loop's repeated calls bit-identical; vmembw bit-exact at "
+        "nops 2 and 8")
 
     # plain versions and the yardsticks, timed beside the kernels: phase 2b's
     # bf16 matmul for the 4-bit cases, its own for L12's 3-bit weight
@@ -1175,7 +1206,8 @@ def phase_lab2(dev, results, library_us_w4):
         nbytes = kernel_lab2.weight_bytes(weights) + table_bytes[name] + xy_bytes
         t_bytes = nbytes / HBM_BYTES_PER_S
         row = by_name[name]
-        case = dict(variant=name, function="sep" if name == "sep1" else name, us=row["us"],
+        fn = "sep" if name == "sep1" else name
+        case = dict(variant=name, function=fn, path=paths[fn], us=row["us"],
                     gbps=row["gbps"], lab_share_of_hbm=row["share_of_hbm"], rel=row["rel"],
                     plain_us=t_p * 1e6,
                     library_us=library_us_w3 if name == "w3wide" else library_us_w4,
@@ -1183,10 +1215,10 @@ def phase_lab2(dev, results, library_us_w4):
                     bound_by="bytes" if t_bytes >= t_ops else "operations")
         case["share_of_bound"] = case["bound_us"] / case["us"]
         cases.append(case)
-        log(f"    {name:12s} kernel {case['us']:8.1f} us {case['gbps']:7.1f} GB/s  bound "
-            f"{case['bound_us']:6.1f} us ({case['bound_by']}, {100 * case['share_of_bound']:5.1f}%)"
-            f"  plain {case['plain_us']:8.1f} us  matmul {case['library_us']:6.1f} us  "
-            f"rel {case['rel']:.2e}")
+        log(f"    {name:12s} {case['path']:4s} kernel {case['us']:8.1f} us {case['gbps']:7.1f} "
+            f"GB/s  bound {case['bound_us']:6.1f} us ({case['bound_by']}, "
+            f"{100 * case['share_of_bound']:5.1f}%)  plain {case['plain_us']:8.1f} us  matmul "
+            f"{case['library_us']:6.1f} us  rel {case['rel']:.2e}")
     # L7 at its longer chain: the block read once and written once, two
     # int32 operations per element and step
     row = by_name["vmembw"]
@@ -1196,7 +1228,8 @@ def phase_lab2(dev, results, library_us_w4):
     t_alu = 2 * nops * block.numel() / ALU_OPS_PER_S
     cases += [dict(variant=f"vmembw nops {kk}", function="vmembw", us=v)
               for kk, v in row["t_us"].items() if kk != nops]
-    case = dict(variant="vmembw", function="vmembw", us=row["t_us"][nops], nops=nops,
+    case = dict(variant="vmembw", function="vmembw", path=paths["vmembw"], us=row["t_us"][nops],
+                nops=nops,
                 ns_per_op_per_1024=row["ns_per_op_per_1024"], plain_us=t_p * 1e6,
                 library_us=None, bytes=2 * block.numel() * 4,
                 bound_us=max(t_bytes, t_alu) * 1e6,
@@ -1214,7 +1247,7 @@ def phase_lab2(dev, results, library_us_w4):
     del inp, eye, block
     torch.cuda.empty_cache()
     results["lab2"] = dict(shape=sh, main_s=main_s, rows=rows, launches=launches,
-                           package_launches=gemm, checks=checks, cases=cases)
+                           package_launches=gemm, paths=paths, checks=checks, cases=cases)
     return cases, checks, launches
 
 

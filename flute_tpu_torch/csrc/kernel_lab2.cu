@@ -30,8 +30,7 @@
 //     rounded to bf16 as the TPU's bf16 add rounds it.
 //   int4: no table, W = float(c), exact. Per group (x_g @ c_g) * (s * delta)
 //     + (sum of x_g) * (s * zero), each product rounded on its own (no
-//     contraction into an FMA): the x sums are formed once per block, chunk
-//     and group in shared memory, not once per column.
+//     contraction into an FMA).
 //   w3wide: W = round(T3[c]) from the wide 3-bit layout (K3's field decode,
 //     csrc/lut_gemm_w3wide.cu: straddling fields read from one 64-bit value)
 //     and 8 entries.
@@ -39,22 +38,37 @@
 // L7, vmembw: v <- v ^ (v >> 1) (arithmetic shift) nops times on int32, one
 // thread per element; nops is a run-time argument, so the chain cannot fold.
 //
-// Numerics: IEEE f32 FMAs, no flush to zero (never --use_fast_math). Per pair
-// acc += (x_2p * W_2p + x_2p+1 * W_2p+1) * s: the TPU's (x_g @ W_g) * s_g in
-// another f32 order. With x the identity every output is one product, so the
-// kernels give the plain versions bit for bit (the sign of a zero aside).
+// Numerics: the SIMT kernels take IEEE f32 FMAs, no flush to zero (never
+// --use_fast_math). Per pair acc += (x_2p * W_2p + x_2p+1 * W_2p+1) * s: the
+// TPU's (x_g @ W_g) * s_g in another f32 order. int4 on the tensor-core loop
+// sums each k16 step in the tensor core's f32 and scales a group's partial
+// once (lab_mma.cuh). With x the identity every output is one product, so
+// the kernels give the plain versions bit for bit (the sign of a zero
+// aside).
 //
 // What bounds them: bytes. At the lab's shape (M 16, N 28672, K 8192) the
 // planes are 117 MB (88 MB for w3wide) and the rest 8.5 MB, about 37.6 us
 // (28.8 us) at 3.35 TB/s; 2*M*N*K at the bf16 tensor rate is 7.6 us. L7's
 // 4.2 MB stay in the 50 MB L2, so it measures the launch and the ALU chain.
-// Design: K1's skeleton (csrc/lut_gemm_common.cuh), as L1-L6: one lane per
-// output column (32 columns per block), eight warps splitting each pack
-// chunk's words, the block's 16 rows of x for one chunk staged in shared
-// memory as f32, fixed-order warp sums, no atomics. No result depends on the
-// TPU's block_k, so x is staged per 256-row chunk (16 KB) and each warp
-// loads all of its words of a chunk (3 or 4) before it decodes any.
+//
+// Two designs. int4, at a group size that is a multiple of 16, runs the
+// lab's tensor-core loop (lab_mma.cuh, with Int4Decoder below): plane words
+// and x staged per chunk in a cp.async ring, each field turned into two
+// exact bf16 codes straight in an mma.sync B register (the magic exponent:
+// 0x4300 | c is 128 + c, minus 128 exact in bf16), the group's product and
+// its x sums (one more mma against a B of ones) in f32 partials scaled on
+// the C fragment when the group ends; split-K at multiples of lcm(256, g),
+// reduced in split order. The others, and int4 at any other (even) group
+// size, run the SIMT kernel below on K1's first skeleton
+// (csrc/lut_gemm_common.cuh), as L1-L6 do: one lane per output column (32
+// columns per block), eight warps splitting each pack chunk's words, the
+// block's 16 rows of x for one chunk staged in shared memory as f32,
+// fixed-order warp sums, no atomics. No result depends on the TPU's block_k,
+// so x is staged per 256-row chunk (16 KB) and each warp loads all of its
+// words of a chunk (3 or 4) before it decodes any; int4's x sums are formed
+// once per block, chunk and group in shared memory, not once per column.
 
+#include "lab_mma.cuh"
 #include "lut_gemm_common.cuh"
 
 namespace {
@@ -70,6 +84,28 @@ constexpr int kMaxGroups = kChunk / 2 + 1;  // groups a chunk can touch (g >= 2)
 enum Mode { kPfdirect, kSlabstream, kSep, kSep1, kInt4, kW3wide };
 
 __device__ __forceinline__ float rnd(float v) { return Cvt<bf16>::round(v); }
+
+// L10 on the tensor-core loop: a field ce | co << 4 as (bf16(ce), bf16(co)),
+// exact, with no table: 0x4300 | c is the bf16 128 + c, and 128 + c - 128
+// rounds to c exactly.
+struct Int4Decoder {
+  __device__ explicit Int4Decoder(const float*) {}
+
+  static __device__ __forceinline__ uint32_t pair(uint32_t w, int i) {
+    const uint32_t f = w >> (8 * i);
+    const uint32_t v = (f & 0xFu) | ((f << 12) & 0xF0000u) | 0x43004300u;
+    const __nv_bfloat162 c = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&v),
+                                     __floats2bfloat162_rn(128.f, 128.f));
+    return *reinterpret_cast<const uint32_t*>(&c);
+  }
+
+  // byte i of wa and of wb (ce | co << 4 each) as (bf16(ce), bf16(co))
+  __device__ __forceinline__ void pairs(uint32_t wa, uint32_t wb, int i, uint32_t& b0,
+                                        uint32_t& b1) const {
+    b0 = pair(wa, i);
+    b1 = pair(wb, i);
+  }
+};
 
 __device__ __forceinline__ float scale_at(const bf16* __restrict__ s, long long row, int N, int n) {
   return __bfloat162float(s[row * N + n]);
@@ -380,11 +416,23 @@ extern "C" int flute_lab2_sep(const void* x, const void* plane_a, const void* pl
                                0.f, 0.f, stream);
 }
 
+// A g that is a multiple of 16 runs the tensor-core loop (`splits` splits
+// of K at multiples of lcm(256, g), `work` an f32 [splits, M, N] workspace,
+// or null with one split); any other g the SIMT kernel (one split, no
+// workspace).
 extern "C" int flute_lab2_int4(const void* x, const void* plane, const void* scales, void* y,
-                               int M, int N, int K, int g, float zero, float delta,
-                               void* stream) {
-  return launch<kInt4>(x, plane, nullptr, scales, nullptr, nullptr, y, M, N, K, g, zero, delta,
-                       stream);
+                               void* work, int M, int N, int K, int g, float zero, float delta,
+                               int splits, void* stream) {
+  if (!labmma::takes(g)) {
+    if (splits != 1) return cudaErrorInvalidValue;
+    return launch<kInt4>(x, plane, nullptr, scales, nullptr, nullptr, y, M, N, K, g, zero, delta,
+                         stream);
+  }
+  labmma::Args a;
+  if (!labmma::make_args(a, x, plane, scales, nullptr, y, work, M, N, K, g, 0, splits, zero,
+                         delta))
+    return cudaErrorInvalidValue;
+  return labmma::run<Int4Decoder, labmma::kAffine>(a, splits, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int flute_lab2_w3wide(const void* x, const void* plane, const void* scales,

@@ -1,0 +1,400 @@
+// The Hopper lab's tensor-core loop (sm_90a): a group-accumulating
+// mma.sync LUT-GEMM over the lab's one 4-bit pair plane, shared by L6
+// (kernel_lab.cu, flute_lab_g8_hoist: scripts/kernel_lab.py:590
+// run_g8_hoist) and L10 (kernel_lab2.cu, flute_lab2_int4:
+// scripts/kernel_lab2.py:290 run_int4), each with its own decoder. The
+// served loop (lut_gemm_mma.cuh::lut_mma_kernel) is not touched; its
+// helpers are reused.
+//
+//   y[M, N] = bf16(sum over groups of (x_g @ W_g) * s_g)      (group_acc)
+//   y[M, N] = bf16(sum over groups of (x_g @ c_g) * (s_g * delta)
+//                                   + (sum_k x_g) * (s_g * zero))   (int4)
+//   y[M, N] = bf16(x @ bf16(W * s_tiled))                       (repeat)
+//
+// What bounds it: bytes. At the lab's shape (M 16, N 28672, K 8192, g 64)
+// the plane is 117 MB and the rest 8.5 MB, 37.6 us at 3.35 TB/s; the
+// products at the bf16 tensor rate take 7.6 us. The SIMT skeleton of
+// lut_gemm_common.cuh reached 3-5% of that bound: one 4-byte load in flight
+// per lane, x re-staged as f32, f32 FMAs on 16 rows. Here:
+//
+// * The block (4 warps, 128 columns, 16 rows of x) stages each 256-row pack
+//   chunk in a two-slot cp.async ring: x (16-byte copies, rows past M zero)
+//   and the chunk's 32 plane word rows of its columns (16 KB, 16 bytes a
+//   copy, piece p of word row j stored at p ^ 2(j & 3) so that the warps'
+//   16-byte reads below meet no bank conflict). The next chunk's copies are
+//   issued before the current chunk's products, so 4 blocks an SM keep
+//   about 100 KB in flight with no registers spent on it.
+// * One k16 step lies inside one group. Field i of word row j of a chunk is
+//   pair row 32 i + j (K rows 64 i + 2 j, +1), so a lane (g = lane / 4,
+//   t = lane % 4) that reads word rows 8 q + t and 8 q + 4 + t holds, in
+//   field i, exactly the B fragment of mma.m16n8k16 for K rows
+//   64 i + 16 q .. +15: k-slots 2t, 2t+1 from the first, 2t+8, 2t+9 from the
+//   second. Taken field by field, q inner, the 16 steps of a chunk run in K
+//   order, so one f32 partial is open at a time, at any group size that is
+//   a multiple of 16. A lane's 4 columns of a word row (4 g .. 4 g + 3 of
+//   the warp's 32) feed the 4 n8 tiles (tile e's n-slot g is column 4 g + e).
+// * A decoder turns one field straight into a B register (two bf16, the
+//   even K row in the low half), both registers of a step and column at once.
+// * The partial of a group: its steps' products in an f32 fragment; when the
+//   group ends, acc = acc + part * s (each rounded: __fmul_rn, __fadd_rn),
+//   and for int4 part * (s * delta) + xsum * (s * zero), the x sums taken by
+//   one more mma against a B of ones (exact products, f32 sums). The C
+//   fragment's columns are n-slots 2t, 2t+1 of each tile, i.e. columns
+//   8t + e and 8t + 4 + e of the warp: a lane's 8 scales of a group are 8
+//   consecutive columns, loaded (load_scales) when the group opens and
+//   prefetched into L2 a chunk early.
+// * "repeat" scales the B register before the mma instead: K row r of K
+//   block kb takes scale row kb * P + (r mod P), P = bk / g, so the two
+//   halves of a register take different rows. The K block's P rows of the
+//   block's columns are staged in shared memory (4 KB at bk 1024, g 64)
+//   when the K block starts, prefetched into L2 a chunk early.
+// * Split-K only at multiples of lcm(chunk, g) K rows, so a group never
+//   straddles two splits; the splits' f32 sums go to a workspace
+//   [splits, M, N] that split_reduce_kernel adds in split order (no
+//   atomics: a repeat call gives the same bits). The split is planned from
+//   N, K and g (flute_tpu_torch/lab/ops.py::lab_splits).
+//
+// A Decoder provides
+//   Decoder(const float* table)      its table, from the f32 table (or none)
+//   void pairs(wa, wb, i, b0, b1)    field i (byte i) of plane words wa and wb
+//                                    (word rows 8q + t and 8q + 4 + t of one
+//                                    column) as the step's two B registers,
+//                                    before any scale.
+
+#pragma once
+
+#include "lut_gemm_mma.cuh"
+
+namespace flute {
+namespace labmma {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kThreads = 128;                          // 4 warps
+constexpr int kBlockN = 128;                           // columns per block, 32 per warp
+constexpr int kRows = 16;                              // rows of x per block
+constexpr int kChunk = 256;                            // the lab's pack chunk
+constexpr int kWordRows = kChunk / 8;                  // plane word rows per chunk
+constexpr int kSteps = kChunk / 16;                    // k16 steps per chunk
+constexpr int kXStride = kChunk + 8;                   // halves per staged x row
+constexpr int kXBytes = kRows * kXStride * 2;          // 8448
+constexpr int kWBytes = kWordRows * kBlockN * 4;       // 16384
+constexpr int kSlotBytes = kXBytes + kWBytes;          // one chunk of the ring
+constexpr uint32_t kOnes = 0x3F803F80u;                // bf16 (1, 1)
+
+enum Scaling { kGroupAcc, kAffine, kRepeat };
+
+struct Args {
+  const bf16* x;           // [M, K], 16-byte aligned
+  const uint32_t* plane;   // [K / 8, N]
+  const bf16* scales;      // [K / g, N]
+  const float* table;      // the decoder's table, or null
+  bf16* y;                 // [M, N]
+  float* work;             // [splits, M, N], or null with one split
+  int M, N, K, g, bk, chunks_per_split;
+  float zero, delta;       // int4's affine table
+  int vec_w;               // 16-byte plane copies (N % 4 == 0, aligned plane)
+  int vec_s;               // 8-byte scale loads (N % 4 == 0, aligned scales)
+  int vec_s16;             // 16-byte scale-row copies (N % 8 == 0, aligned scales)
+};
+
+// 4 bytes global -> shared, or 4 zero bytes when !pred
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(mma::smem_u32(dst)),
+               "l"(src), "r"(pred ? 4 : 0));
+}
+
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
+}
+
+__device__ __forceinline__ float bf16_bits(uint32_t h) { return __uint_as_float(h << 16); }
+
+// 16-bit value e (0..3) of 4 packed in a uint2
+__device__ __forceinline__ uint32_t half_of(const uint2& v, int e) {
+  const uint32_t w = e < 2 ? v.x : v.y;
+  return (e & 1) ? (w >> 16) : (w & 0xFFFFu);
+}
+
+// (lo[e], hi[e]) as one register: value e of two packed rows
+__device__ __forceinline__ uint32_t pair_of(const uint2& lo, const uint2& hi, int e) {
+  return __byte_perm(e < 2 ? lo.x : lo.y, e < 2 ? hi.x : hi.y, (e & 1) ? 0x7632u : 0x5410u);
+}
+
+// Dynamic shared memory: the ring, then ("repeat") a K block's P scale rows.
+inline size_t smem_bytes(int scale_rows) {
+  return static_cast<size_t>(2) * kSlotBytes + static_cast<size_t>(scale_rows) * kBlockN * 2;
+}
+
+template <typename Decoder, int SCALING>
+__global__ void __launch_bounds__(kThreads, 4) lab_mma_kernel(const Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int t = lane & 3;
+  const int g = lane >> 2;
+  const int nb = blockIdx.x * kBlockN;  // the block's first column
+  const int nw = nb + warp * 32;        // the warp's first column
+  const int m0 = blockIdx.z * kRows;
+  const int c0 = blockIdx.y * a.chunks_per_split;
+  const int c_end = c0 + a.chunks_per_split;
+  const int P = SCALING == kRepeat ? a.bk / a.g : 1;  // scale rows per K block
+  const uint16_t* su = reinterpret_cast<const uint16_t*>(a.scales);
+  bf16* srows = reinterpret_cast<bf16*>(smem + 2 * kSlotBytes);  // "repeat": [P][kBlockN]
+  const Decoder dec(a.table);
+
+  // chunk c into ring slot s: x rows m0.., then the plane words
+  auto stage = [&](int c, int s) {
+    bf16* xd = reinterpret_cast<bf16*>(smem + s * kSlotBytes);
+    for (int idx = tid; idx < kRows * (kChunk / 8); idx += kThreads) {
+      const int r = idx / (kChunk / 8);
+      const int v = idx - r * (kChunk / 8);
+      const bool ok = m0 + r < a.M;
+      const bf16* src =
+          ok ? a.x + static_cast<size_t>(m0 + r) * a.K + static_cast<size_t>(c) * kChunk + 8 * v
+             : a.x;
+      mma::cp_async16(xd + r * kXStride + 8 * v, src, ok);
+    }
+    uint32_t* wd = reinterpret_cast<uint32_t*>(smem + s * kSlotBytes + kXBytes);
+    for (int idx = tid; idx < kWordRows * (kBlockN / 4); idx += kThreads) {
+      const int j = idx / (kBlockN / 4);
+      const int p = idx - j * (kBlockN / 4);
+      const int n = nb + 4 * p;
+      const uint32_t* src = a.plane + (static_cast<size_t>(c) * kWordRows + j) * a.N + n;
+      uint32_t* dst = wd + j * kBlockN + 4 * (p ^ (2 * (j & 3)));
+      if (a.vec_w) {
+        mma::cp_async16(dst, n < a.N ? src : a.plane, n < a.N);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) cp_async4(dst + e, n + e < a.N ? src + e : a.plane, n + e < a.N);
+      }
+    }
+    mma::cp_async_commit();
+  };
+
+  // "repeat": scale rows kb * P .. kb * P + P - 1 of the block's columns
+  auto stage_rows = [&](int kb) {
+    for (int idx = tid; idx < P * (kBlockN / 8); idx += kThreads) {
+      const int r = idx / (kBlockN / 8);
+      const int p = idx - r * (kBlockN / 8);
+      const int n = nb + 8 * p;
+      const bf16* src = a.scales + static_cast<size_t>(kb * P + r) * a.N + n;
+      bf16* dst = srows + r * kBlockN + 8 * p;
+      if (a.vec_s16) {
+        mma::cp_async16(dst, n < a.N ? src : a.scales, n < a.N);
+      } else {
+        for (int e = 0; e < 8; ++e) dst[e] = n + e < a.N ? src[e] : __float2bfloat16_rn(0.f);
+      }
+    }
+    mma::cp_async_commit();
+  };
+
+  // rows [r0, r1] of the scales into L2, the block's 128 columns (2 lines a row)
+  auto prefetch_rows = [&](int r0, int r1) {
+    for (int idx = tid; idx < 2 * (r1 - r0 + 1); idx += kThreads) {
+      const int n = nb + 64 * (idx & 1);
+      if (n < a.N) prefetch_l2(a.scales + static_cast<size_t>(r0 + (idx >> 1)) * a.N + n);
+    }
+  };
+
+  float acc[4][4], part[4][4], xsum[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[e][i] = part[e][i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) xsum[i] = 0.f;
+
+  // the open group: its index, its steps left, and this lane's 8 scales of
+  // it (columns nw + 8t + 0..3 and + 4..7)
+  const int steps_per_group = a.g / 16;
+  const int gi_end = c_end * (kChunk / 16) / steps_per_group;
+  int gi = c0 * (kChunk / 16) / steps_per_group;
+  int left = steps_per_group;
+  uint2 sg[2];
+  if constexpr (SCALING != kRepeat) {
+    sg[0] = mma::load_scales(su, gi, nw + 8 * t, a.N, a.vec_s);
+    sg[1] = mma::load_scales(su, gi, nw + 8 * t + 4, a.N, a.vec_s);
+  }
+
+  stage(c0, 0);
+  for (int c = c0; c < c_end; ++c) {
+    const int s = (c - c0) & 1;
+    mma::cp_async_wait<0>();
+    __syncthreads();  // chunk c staged; every warp is done with chunk c - 1
+    const bool new_block = SCALING == kRepeat && (c == c0 || (c * kChunk) % a.bk == 0);
+    if (new_block) stage_rows(c * kChunk / a.bk);
+    if (c + 1 < c_end) {
+      stage(c + 1, s ^ 1);
+      const int k1 = (c + 1) * kChunk;  // the next chunk's first K row
+      if constexpr (SCALING == kRepeat) {
+        if (k1 % a.bk == 0) prefetch_rows(k1 / a.bk * P, k1 / a.bk * P + P - 1);
+      } else {
+        prefetch_rows(k1 / a.g, (k1 + kChunk - 1) / a.g);
+      }
+    }
+    if (new_block) {  // the rows are in place before the first product
+      if (c + 1 < c_end)
+        mma::cp_async_wait<1>();
+      else
+        mma::cp_async_wait<0>();
+      __syncthreads();
+    }
+
+    // this lane's words of the chunk: word rows 4v + t, v = 2q + h
+    const uint32_t* ws = reinterpret_cast<const uint32_t*>(smem + s * kSlotBytes + kXBytes);
+    uint4 wv[8];
+#pragma unroll
+    for (int v = 0; v < 8; ++v)
+      wv[v] = *reinterpret_cast<const uint4*>(ws + (4 * v + t) * kBlockN +
+                                              4 * ((warp * 8 + g) ^ (2 * t)));
+    const bf16* xb = reinterpret_cast<const bf16*>(smem + s * kSlotBytes);
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int step = c * kSteps + 4 * i + q;  // K rows 16 step .. 16 step + 15
+        uint32_t b[4][2];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dec.pairs(mma::word_of(wv[2 * q], e), mma::word_of(wv[2 * q + 1], e), i, b[e][0],
+                    b[e][1]);
+        if constexpr (SCALING == kRepeat) {
+          // K rows 2t, 2t + 1 (b0) and 2t + 8, 2t + 9 (b1) of the step
+          const int r0 = (16 * step + 2 * t) % P;
+          const int r8 = (16 * step + 2 * t + 8) % P;
+          const int r1 = r0 + 1 == P ? 0 : r0 + 1;
+          const int r9 = r8 + 1 == P ? 0 : r8 + 1;
+          const bf16* sc = srows + warp * 32 + 4 * g;
+          const uint2 s0 = *reinterpret_cast<const uint2*>(sc + r0 * kBlockN);
+          const uint2 s1 = *reinterpret_cast<const uint2*>(sc + r1 * kBlockN);
+          const uint2 s8 = *reinterpret_cast<const uint2*>(sc + r8 * kBlockN);
+          const uint2 s9 = *reinterpret_cast<const uint2*>(sc + r9 * kBlockN);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            b[e][0] = mma::Pack2<bf16>::mul(b[e][0], pair_of(s0, s1, e));
+            b[e][1] = mma::Pack2<bf16>::mul(b[e][1], pair_of(s8, s9, e));
+          }
+        }
+        uint32_t af[4];
+        mma::ldmatrix_x4(af, xb + (lane & 15) * kXStride + 16 * (4 * i + q) + 8 * (lane >> 4));
+        if constexpr (SCALING == kRepeat) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) mma::mma16816<bf16>(acc[e], af, b[e][0], b[e][1]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) mma::mma16816<bf16>(part[e], af, b[e][0], b[e][1]);
+          if constexpr (SCALING == kAffine) mma::mma16816<bf16>(xsum, af, kOnes, kOnes);
+          if (--left == 0) {  // the group ends: its partial into the sum
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+#pragma unroll
+              for (int i2 = 0; i2 < 4; ++i2) {
+                const float sv = bf16_bits(half_of(sg[i2 & 1], e));  // column 8t + 4(i2&1) + e
+                float term;
+                if constexpr (SCALING == kAffine) {
+                  term = __fadd_rn(__fmul_rn(part[e][i2], __fmul_rn(sv, a.delta)),
+                                   __fmul_rn(xsum[i2 & 2], __fmul_rn(sv, a.zero)));
+                } else {
+                  term = __fmul_rn(part[e][i2], sv);
+                }
+                acc[e][i2] = __fadd_rn(acc[e][i2], term);
+                part[e][i2] = 0.f;
+              }
+            }
+#pragma unroll
+            for (int i2 = 0; i2 < 4; ++i2) xsum[i2] = 0.f;
+            left = steps_per_group;
+            if (++gi < gi_end) {  // the next group's scales, used when it ends
+              sg[0] = mma::load_scales(su, gi, nw + 8 * t, a.N, a.vec_s);
+              sg[1] = mma::load_scales(su, gi, nw + 8 * t + 4, a.N, a.vec_s);
+            }
+          }
+        }
+      }
+    }
+  }
+
+  // c0, c1: row g, n-slots 2t, 2t+1; c2, c3: row g + 8. Tile e's n-slot k
+  // is column 4k + e of the warp's 32.
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int m = m0 + g + 8 * (i >> 1);
+      const int n = nw + 4 * (2 * t + (i & 1)) + e;
+      if (m < a.M && n < a.N) {
+        const size_t o = static_cast<size_t>(m) * a.N + n;
+        if (a.work != nullptr)
+          a.work[static_cast<size_t>(blockIdx.y) * a.M * a.N + o] = acc[e][i];
+        else
+          a.y[o] = __float2bfloat16_rn(acc[e][i]);
+      }
+    }
+  }
+}
+
+// Whether the loop takes group size g: a k16 step lies inside one group
+// only where 16 divides g. The C entries run their SIMT kernel otherwise.
+inline bool takes(int g) { return g > 0 && g % 16 == 0; }
+
+inline int gcd(int a, int b) { return b == 0 ? a : gcd(b, a % b); }
+
+// K rows between two possible split points: lcm(chunk, g)
+inline int split_unit(int g) { return kChunk / gcd(kChunk, g) * g; }
+
+// A C entry's operands as Args. False where the loop cannot take them: g
+// not a multiple of 16, K not a multiple of lcm(chunk, g), splits not
+// dividing K's units, more than one split without a workspace, x not
+// 16-byte aligned; with a bk ("repeat"), bk not a multiple of the chunk and
+// of g or not dividing K.
+inline bool make_args(Args& a, const void* x, const void* plane, const void* scales,
+                      const void* table, void* y, void* work, int M, int N, int K, int g, int bk,
+                      int splits, float zero, float delta) {
+  if (M <= 0 || N <= 0 || K <= 0 || !takes(g) || K % split_unit(g) || splits < 1 ||
+      (K / split_unit(g)) % splits || (splits > 1 && work == nullptr) ||
+      reinterpret_cast<uintptr_t>(x) % 16)
+    return false;
+  if (bk != 0 && (bk < 0 || bk % kChunk || bk % g || K % bk)) return false;
+  const uintptr_t pp = reinterpret_cast<uintptr_t>(plane);
+  const uintptr_t sp = reinterpret_cast<uintptr_t>(scales);
+  a = Args{static_cast<const bf16*>(x),
+           static_cast<const uint32_t*>(plane),
+           static_cast<const bf16*>(scales),
+           static_cast<const float*>(table),
+           static_cast<bf16*>(y),
+           splits > 1 ? static_cast<float*>(work) : nullptr,
+           M, N, K, g, bk, K / kChunk / splits,
+           zero, delta,
+           N % 4 == 0 && pp % 16 == 0,
+           N % 4 == 0 && sp % 8 == 0,
+           N % 8 == 0 && sp % 16 == 0};
+  return true;
+}
+
+// Launches the loop on a grid (N / 128, splits, M / 16) and, with more than
+// one split, the reduction. Returns the first launch error.
+template <typename Decoder, int SCALING>
+cudaError_t run(const Args& a, int splits, cudaStream_t stream) {
+  auto kernel = lab_mma_kernel<Decoder, SCALING>;
+  const size_t smem = smem_bytes(SCALING == kRepeat ? a.bk / a.g : 0);
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                           cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((a.N + kBlockN - 1) / kBlockN, splits, (a.M + kRows - 1) / kRows);
+  kernel<<<grid, kThreads, smem, stream>>>(a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || splits == 1) return e;
+  const size_t mn = static_cast<size_t>(a.M) * a.N;
+  mma::split_reduce_kernel<bf16><<<static_cast<unsigned>((mn + 255) / 256), 256, 0, stream>>>(
+      a.work, a.y, mn, splits);
+  return cudaGetLastError();
+}
+
+}  // namespace labmma
+}  // namespace flute

@@ -17,7 +17,9 @@ Variants (the names of the JAX lab's ``main``):
   g8_repeat, g8_groupacc
                L5: scales tiled per K block, or per-group sums times s.
   g8_hoist, g8_hoist_ga
-               L6: L5 with both table halves read for every code.
+               L6: L5 with both table halves read for every code, on the
+               lab's tensor-core loop (``csrc/lab_mma.cuh``; the others
+               run SIMT kernels).
   gather8      K2, the package's plane kernel (``lut_qgemm``).
   pairlut      K4, ``lut_qgemm`` with ``lut_mode="pair_lut"``.
 

@@ -35,24 +35,40 @@ change nothing. ``bk`` is checked (``K % bk``, ``bk % 256``) and matters
 where said. Dispatch is by ``x``'s device: on the CPU the plain PyTorch
 version, on CUDA the Hopper kernel of ``csrc/kernel_lab.cu`` (one C entry per
 function), which raises if it cannot be built or launched.
+
+Two kernel designs: ``g8_hoist`` at a group size that is a multiple of 16
+runs the lab's tensor-core loop (``csrc/lab_mma.cuh``, path ``"mma"``, with a
+split-K that :func:`lab_splits` chooses from N, K and g); every other call the
+SIMT kernel (path ``"simt"``). The path is chosen from g before the launch
+(:func:`lab_path`), never after a failure, and :data:`LAST_PATH` records the
+path of each function's last launch. Neither path falls back to the plain
+version. (``lab/ops2.py``'s ``int4`` shares the loop and the split.)
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Callable, Sequence
 
 import torch
 
 from flute_tpu_torch import packing as _packing
+from flute_tpu_torch.ops.kernel_config import MMA_TARGET_BLOCKS
 
 # Launches of each kernel; a wrapper adds one where it launches its kernel
 # and nowhere else.
 LAUNCHES = {"floor": 0, "unpack_only": 0, "gather16": 0, "g8_ablate": 0, "g8_rs": 0,
             "g8_hoist": 0}
 
+# The path of each function's last launch: "mma" (the tensor-core loop) or
+# "simt".
+LAST_PATH: dict[str, str] = {}
+
 CHUNK = 256  # the lab's pack chunk
+MMA_STEP = 16  # K rows of one mma k-step: the loop takes a g that is a multiple
+MMA_BLOCK_N = 128  # columns per block of the loop
 SOURCE = "kernel_lab.cu"
 SCALE_MODES = ("repeat", "group_acc")
 # the kernel keeps 16 rows of x for one K block in shared memory as f32:
@@ -205,19 +221,62 @@ PLAIN: dict[str, Callable] = {
 }
 
 # ---------------------------------------------------------------------------
+# The tensor-core loop's path and split (L6 here, L10 in ops2)
+# ---------------------------------------------------------------------------
+
+
+def lab_path(g: int) -> str:
+    """The kernel a redesigned lab function (L6 ``g8_hoist``, L10 ``int4``)
+    runs, from the group size alone: ``"mma"``, the tensor-core loop, where
+    ``g`` is a multiple of 16 (a k16 step then lies inside one group);
+    ``"simt"``, the SIMT kernel, otherwise (``g = 2``)."""
+    return "mma" if g > 0 and g % MMA_STEP == 0 else "simt"
+
+
+def lab_splits(n: int, k: int, g: int) -> int:
+    """The splits of K among the blocks (blockIdx.y) of L6 or L10 for ``N``,
+    ``K`` and ``g``, never M: one on the SIMT path; on the loop, splits at
+    multiples of ``lcm(256, g)`` only (a group never straddles two splits),
+    the fewest that give
+    :data:`~flute_tpu_torch.ops.kernel_config.MMA_TARGET_BLOCKS` blocks at
+    one m16 row, or every unit its own split if none does. The wrappers'
+    checks make K a multiple of ``lcm(256, g)``."""
+    if lab_path(g) == "simt":
+        return 1
+    units = max(k // math.lcm(CHUNK, g), 1)
+    cols = -(-n // MMA_BLOCK_N)
+    return next(s for s in range(1, units + 1)
+                if units % s == 0 and (cols * s >= MMA_TARGET_BLOCKS or s == units))
+
+
+def loop_operands(x: torch.Tensor, g: int, splits: int, n: int):
+    """``x`` on a 16-byte boundary where the loop runs (it copies x in 16-byte
+    pieces), and the loop's f32 workspace ``[splits, M, N]`` that a second
+    kernel adds in split order (None for one split)."""
+    if lab_path(g) == "mma" and x.data_ptr() % 16:
+        x = x.clone()
+    if splits == 1:
+        return x, None
+    return x, torch.empty((splits, x.shape[0], n), dtype=torch.float32, device=x.device)
+
+
+# ---------------------------------------------------------------------------
 # Kernels
 # ---------------------------------------------------------------------------
 
 # function -> (C entry, pointer arguments, int arguments) before the stream:
-# x, plane[, scales, table], y, then M, N, K, bk[, g[, flags]]
+# x, plane[, scales, table], y[, work], then M, N, K, bk[, g[, flags]][,
+# splits] (g8_hoist: the loop's workspace and splits)
 _ENTRIES = {
     "floor": ("flute_lab_floor", 3, 4),
     "unpack_only": ("flute_lab_unpack_only", 3, 4),
     "gather16": ("flute_lab_gather16", 5, 5),
     "g8_ablate": ("flute_lab_g8_ablate", 5, 7),
     "g8_rs": ("flute_lab_g8_rs", 5, 6),
-    "g8_hoist": ("flute_lab_g8_hoist", 5, 6),
+    "g8_hoist": ("flute_lab_g8_hoist", 6, 7),
 }
+# the functions with a tensor-core path
+MMA_FUNCTIONS = ("g8_hoist",)
 
 
 @functools.lru_cache(maxsize=None)
@@ -244,8 +303,9 @@ def build_kernels() -> None:
 
 def _launch(name: str, x, plane, scales, table, bk: int, g: int, flags: tuple[int, ...]
             ) -> torch.Tensor:
-    """Launch lab kernel ``name`` on PyTorch's current stream and count the
-    launch."""
+    """Launch lab kernel ``name`` on PyTorch's current stream, count the
+    launch and record its path. A function with a tensor-core path takes
+    :func:`lab_splits`'s split."""
     m, k = x.shape
     n = plane.shape[1]
     dev = x.device
@@ -256,17 +316,23 @@ def _launch(name: str, x, plane, scales, table, bk: int, g: int, flags: tuple[in
     if m == 0:
         return y
     fn, error_string = _kernel_fn(name)
+    path, work, tail = "simt", [], []
+    if name in MMA_FUNCTIONS:
+        path, splits = lab_path(g), lab_splits(n, k, g)
+        x, ws = loop_operands(x, g, splits, n)
+        work, tail = [None if ws is None else ws.data_ptr()], [splits]
     ptrs = [x.data_ptr(), plane.data_ptr()]
     ints = [m, n, k, bk]
-    if _ENTRIES[name][1] == 5:
+    if _ENTRIES[name][1] >= 5:
         ptrs += [scales.data_ptr(), table.data_ptr()]
         ints += [g, *flags]
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = fn(*ptrs, y.data_ptr(), *ints, stream)
+        err = fn(*ptrs, y.data_ptr(), *work, *ints, *tail, stream)
     if err != 0:
         raise RuntimeError(f"lab kernel {name} launch failed: {error_string(err).decode()} ({err})")
     LAUNCHES[name] += 1
+    LAST_PATH[name] = path
     return y
 
 
@@ -357,7 +423,8 @@ def g8_rs(x, planes, scales, table, bm, bn, bk, g, scale_mode: str) -> torch.Ten
 
 def g8_hoist(x, planes, scales, table, bm, bn, bk, g, scale_mode: str) -> torch.Tensor:
     """L6, ``run_g8_hoist``: L5's function; the kernel reads both 8-entry
-    halves of the table for every code and selects after."""
+    halves of the table for every code and selects after (on the
+    tensor-core loop where 16 divides g: :func:`lab_path`)."""
     return _run("g8_hoist", x, planes, scales, table, bm, bn, bk, g,
                 flags=(_scale_mode(scale_mode),), scale_mode=scale_mode)
 

@@ -37,7 +37,11 @@ sizes: they are checked as the TPU grid needs them (``M % bm``, ``N % bn``,
 here scales per group. Dispatch is by the first tensor's device: on the CPU
 the plain PyTorch version, on CUDA the Hopper kernel of
 ``csrc/kernel_lab2.cu`` (one C entry per TPU function), which raises if it
-cannot be built or launched.
+cannot be built or launched. ``int4`` at a group size that is a multiple of
+16 runs the lab's tensor-core loop (``csrc/lab_mma.cuh``, path ``"mma"``,
+split as ``ops.lab_splits`` says), every other call the SIMT kernel
+(``"simt"``), chosen from g before the launch (``ops.lab_path``);
+:data:`LAST_PATH` records the path of each function's last launch.
 """
 
 from __future__ import annotations
@@ -50,11 +54,16 @@ import torch
 
 from flute_tpu_torch import packing as _packing
 from flute_tpu_torch.lab.ops import CHUNK, bitcast_rows, group_acc_product, group_parts, \
-    pair_fields
+    lab_path, lab_splits, loop_operands, pair_fields
 
 # Launches of each kernel; a wrapper adds one where it launches its kernel
 # and nowhere else. ``sep`` counts both of its modes.
 LAUNCHES = {"vmembw": 0, "pfdirect": 0, "sep": 0, "int4": 0, "slabstream": 0, "w3wide": 0}
+# The path of each function's last launch: "mma" (the tensor-core loop) or
+# "simt".
+LAST_PATH: dict[str, str] = {}
+# the functions with a tensor-core path
+MMA_FUNCTIONS = ("int4",)
 
 SOURCE = "kernel_lab2.cu"
 # plane word rows per K row, and table entries, of each GEMM's operands
@@ -142,7 +151,8 @@ _ENTRIES = {
     "vmembw": ("flute_lab2_vmembw", [_P, _P, _I, _I]),
     "pfdirect": ("flute_lab2_pfdirect", [_P] * 5 + [_I] * 4),
     "sep": ("flute_lab2_sep", [_P] * 7 + [_I] * 5),
-    "int4": ("flute_lab2_int4", [_P] * 4 + [_I] * 4 + [_F] * 2),
+    # x, plane, scales, y, the loop's workspace; M, N, K, g; zero, delta; splits
+    "int4": ("flute_lab2_int4", [_P] * 5 + [_I] * 4 + [_F] * 2 + [_I]),
     "slabstream": ("flute_lab2_slabstream", [_P] * 5 + [_I] * 4),
     "w3wide": ("flute_lab2_w3wide", [_P] * 5 + [_I] * 4),
 }
@@ -170,10 +180,11 @@ def build_kernels() -> None:
         _kernel_fn(name)
 
 
-def _launch(name: str, out: torch.Tensor, tensors: Sequence[torch.Tensor], args: Sequence
-            ) -> torch.Tensor:
+def _launch(name: str, out: torch.Tensor, tensors: Sequence[torch.Tensor], args: Sequence,
+            path: str = "simt") -> torch.Tensor:
     """Launch kernel ``name`` on ``tensors`` (then ``out``) and the scalar
-    ``args``, on PyTorch's current stream, and count the launch."""
+    ``args``, on PyTorch's current stream, count the launch and record its
+    ``path``."""
     dev = out.device
     for t in tensors:
         if t.device != dev:
@@ -188,6 +199,7 @@ def _launch(name: str, out: torch.Tensor, tensors: Sequence[torch.Tensor], args:
     if err != 0:
         raise RuntimeError(f"lab kernel {name} launch failed: {error_string(err).decode()} ({err})")
     LAUNCHES[name] += 1
+    LAST_PATH[name] = path
     return out
 
 
@@ -258,8 +270,12 @@ def _int4(x, planes, scales, bm, bn, bk, g, zero, delta, *, kernel: bool):
     if not kernel:
         return int4_plain(x, plane, scales, g, zero, delta)
     m, k = x.shape
+    n = scales.shape[1]
+    splits = lab_splits(n, k, g)
+    x, ws = loop_operands(x.contiguous(), g, splits, n)
     return _launch("int4", _gemm_out(x, scales), [x, plane, scales],
-                   [m, scales.shape[1], k, g, float(zero), float(delta)])
+                   [None if ws is None else ws.data_ptr(), m, n, k, g, float(zero), float(delta),
+                    splits], path=lab_path(g))
 
 
 def _vmembw(w, nops, *, kernel: bool):
@@ -305,7 +321,8 @@ def sep(x, planes_a, planes_b, scales, table_a, table_b, bm, bn, bk, g, one_mm: 
 
 def int4(x, planes, scales, bm, bn, bk, g, zero: float, delta: float) -> torch.Tensor:
     """L10, ``run_int4``: the affine table ``z + c·δ`` folded into the group
-    sums; no table is read."""
+    sums; no table is read (on the tensor-core loop where 16 divides g:
+    ``ops.lab_path``)."""
     return _int4(x, planes, scales, bm, bn, bk, g, zero, delta, kernel=_on_card(x))
 
 

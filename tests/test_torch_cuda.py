@@ -1,7 +1,8 @@
 """Card-only checks of the port: each LUT-GEMM kernel (K1 w4sym, K2 plane at
 2/3/4 bits, K3 w3wide, K4 joint pair lookup; K1-K3 on the tensor-core loop
 and on their SIMT kernel), each paged-attention kernel
-(K5 decode, K6 verify) and each kernel of the Hopper lab (L1-L12) against its
+(K5 decode, K6 verify) and each kernel of the Hopper lab (L1-L12; L6 and L10
+on the lab's tensor-core loop and on their SIMT kernel) against its
 plain version on the same CUDA tensors, and the models (Llama, Gemma-2),
 Engine and PagedEngine through the kernels, with their decode step replayed
 from a CUDA graph and held bit for bit against the eager step.
@@ -1062,6 +1063,128 @@ def test_lab2_main_on_the_card(capsys):
     assert all(r["us"] > 0 and r["rel"] < 1.1e-2 for r in gemm)
     assert rows[-1]["ns_per_op_per_1024"] is not None and "GB/s" in capsys.readouterr().out
     assert all(ops2.LAUNCHES[f] > before[f] for f in ops2.LAUNCHES)
+
+
+# ---------------------------------------------------------------------------
+# L6 and L10 on the lab's tensor-core loop (csrc/lab_mma.cuh)
+# ---------------------------------------------------------------------------
+
+LOOP_VARIANTS = ("g8_hoist group_acc", "g8_hoist repeat", "int4")
+
+
+def loop_call(dev, variant, m, g, k=LAB_K, eye=False, n=LAB_N):
+    """(function name, its launch counter, a call, its plain version) of L6 in
+    a scale mode or of L10 at group size ``g`` (x the identity with ``eye``:
+    M = K)."""
+    bk = max(512, g)
+    bm = 16 if eye else m
+    if variant == "int4":
+        inp = kernel_lab2.make_inputs(m, n, k, g=g, device=dev, w3=False)
+        if eye:
+            inp.x = torch.eye(k, dtype=torch.bfloat16, device=dev)
+        _, args = kernel_lab2.lab_call("int4", inp, kernel_lab2.operands("int4", inp), bm, n,
+                                       bk, g=g)
+        return "int4", ops2, (lambda: ops2.int4(*args)), (lambda: ops2.plain("int4", *args))
+    mode = variant.split()[1]
+    _, planes, scales, table, x = kernel_lab.make_inputs(m, n, k, 4, g, device=dev)
+    if eye:
+        x = torch.eye(k, dtype=torch.bfloat16, device=dev)
+    return ("g8_hoist", lab,
+            lambda: lab.g8_hoist(x, planes, scales, table, bm, n, bk, g, mode),
+            lambda: lab.plain("g8_hoist", x, planes, scales, table, bm, n, bk, g,
+                              scale_mode=mode))
+
+
+@pytest.mark.parametrize("variant", LOOP_VARIANTS)
+@pytest.mark.parametrize("g", [32, 64, 512])
+@pytest.mark.parametrize("m", [1, 16, 40])
+def test_lab_loop_vs_plain(dev, m, g, variant):
+    """The tensor-core path at every g the lab's tests use that 16 divides:
+    one launch counted per call whatever the split, the path recorded, the
+    plain version within the bf16 threshold, a repeated call bit for bit."""
+    fn, mod, call, plain = loop_call(dev, variant, m, g)
+    before = dict(mod.LAUNCHES)
+    y = call()
+    assert mod.LAUNCHES == {**before, fn: before[fn] + 1}
+    assert mod.LAST_PATH[fn] == "mma" == lab.lab_path(g)
+    again = call()
+    torch.cuda.synchronize()
+    assert y.dtype == torch.bfloat16 and tuple(y.shape) == (m, LAB_N)
+    assert torch.isfinite(y.float()).all()
+    assert rel_err(y, plain()) < TOL[torch.bfloat16]
+    assert torch.equal(y.view(torch.int16), again.view(torch.int16))
+
+
+@pytest.mark.parametrize("variant", LOOP_VARIANTS)
+def test_lab_loop_narrow_copies(dev, variant):
+    """N = 50, not a multiple of 4: the loop stages the plane in 4-byte
+    copies and loads and stages the scales 2 bytes at a time."""
+    fn, mod, call, plain = loop_call(dev, variant, 16, 64, n=50)
+    y = call()
+    assert mod.LAST_PATH[fn] == "mma"
+    assert tuple(y.shape) == (16, 50) and rel_err(y, plain()) < TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("variant", LOOP_VARIANTS)
+def test_lab_loop_simt_path_at_g2(dev, variant):
+    """g = 2 cannot put a k16 step inside one group: the SIMT kernel runs it,
+    chosen before the launch, with the same checks."""
+    fn, mod, call, plain = loop_call(dev, variant, 16, 2)
+    y = call()
+    assert mod.LAST_PATH[fn] == "simt" == lab.lab_path(2)
+    again = call()
+    assert rel_err(y, plain()) < TOL[torch.bfloat16]
+    assert torch.equal(y.view(torch.int16), again.view(torch.int16))
+
+
+@pytest.mark.parametrize("variant", LOOP_VARIANTS)
+@pytest.mark.parametrize("g", [2, 64, 512])
+def test_lab_loop_identity_bit_exact(dev, g, variant):
+    """x the identity on both paths: every output one product, the plain
+    version bit for bit (int4: the sign of a zero aside)."""
+    fn, mod, call, plain = loop_call(dev, variant, 512, g, k=512, eye=True)
+    y, want = call(), plain()
+    assert mod.LAST_PATH[fn] == lab.lab_path(g)
+    if fn == "int4":
+        assert same_bits(y, want)
+    else:
+        assert torch.equal(y.view(torch.int16), want.view(torch.int16))
+
+
+# (g, K, splits, workspace) launches the C entries refuse: a split not
+# dividing K's units, none, more than one with no workspace, the SIMT
+# kernel (g = 6) split
+BAD_LAUNCHES = {
+    "split": (64, LAB_K, 3, True),
+    "zero_splits": (64, LAB_K, 0, False),
+    "no_workspace": (64, LAB_K, 2, False),
+    "simt_split": (6, 768, 2, True),
+}
+
+
+@pytest.mark.parametrize("case", list(BAD_LAUNCHES))
+@pytest.mark.parametrize("fn", ["g8_hoist", "int4"])
+def test_lab_loop_refuses_bad_launches(dev, fn, case):
+    """The C entry refuses a launch it cannot run (cudaErrorInvalidValue)
+    and writes nothing."""
+    g, k, splits, with_work = BAD_LAUNCHES[case]
+    inp = kernel_lab2.make_inputs(16, LAB_N, k, g=g, device=dev, w3=False)
+    y = torch.full((16, LAB_N), 7.0, dtype=torch.bfloat16, device=dev)
+    work = torch.empty((max(splits, 1), 16, LAB_N), dtype=torch.float32, device=dev)
+    ptrs = [inp.x.data_ptr(), inp.planes[0].data_ptr(), inp.scales.data_ptr()]
+    wp = work.data_ptr() if with_work else None
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if fn == "int4":
+        entry, _ = ops2._kernel_fn("int4")
+        err = entry(*ptrs, y.data_ptr(), wp, 16, LAB_N, k, g, -0.4, 0.05, splits, stream)
+    else:
+        entry, _ = lab._kernel_fn("g8_hoist")
+        table = inp.table.float().contiguous()
+        err = entry(*ptrs, table.data_ptr(), y.data_ptr(), wp, 16, LAB_N, k, k, g, 1, splits,
+                    stream)
+    torch.cuda.synchronize()
+    assert err == 1  # cudaErrorInvalidValue
+    assert bool((y == 7.0).all())
 
 
 # ---------------------------------------------------------------------------

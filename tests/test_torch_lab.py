@@ -18,12 +18,16 @@ bk 512 too. Tolerance: relative Frobenius error under 1.1e-2 (bf16).
   the mask (``wrap=False``) and to a numpy oracle on ``T[c & 7]``, and a
   separate test pins the interpreter's clamp.
 
-The kernels against these plain versions on the card are in
+The host side of L6's tensor-core loop (``lab.lab_path``, ``lab.lab_splits``:
+the path from g, splits of K at ``lcm(256, g)``, the refusals) is checked
+here, and L6's plain version against the JAX lab at the loop's other group
+sizes. The kernels against these plain versions on the card are in
 ``test_torch_cuda.py``.
 """
 
 import functools
 import importlib.util
+import math
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -34,6 +38,7 @@ from jax.experimental import pallas as pl
 
 from flute_tpu.ops import lut_gemm as jlut
 from flute_tpu_torch.lab import kernel_lab, ops as lab
+from flute_tpu_torch.ops.kernel_config import MMA_TARGET_BLOCKS
 
 ROOT = Path(__file__).resolve().parent.parent
 M, N, K, G, BN = 16, 256, 512, 64, 128
@@ -216,3 +221,92 @@ def test_lab_checks_like_the_grid(port_inputs, case):
     }
     with pytest.raises(ValueError):
         calls[case]()
+
+
+# ---------------------------------------------------------------------------
+# L6's tensor-core loop: the host-side plan (the kernel is in test_torch_cuda.py)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("g,path", [(2, "simt"), (6, "simt"), (16, "mma"), (32, "mma"),
+                                    (64, "mma"), (512, "mma")])
+def test_lab_path_from_g(g, path):
+    """The loop takes a g that is a multiple of 16 (a k16 step inside one
+    group); g = 2 goes to the SIMT kernel, with one split, chosen before any
+    launch."""
+    assert lab.lab_path(g) == path
+    if path == "simt":
+        assert lab.lab_splits(256, 1536, g) == 1
+
+
+@pytest.mark.parametrize("n,k", [(200, 1024), (2048, 8192), (28672, 8192), (256, 512)])
+@pytest.mark.parametrize("g", [16, 32, 64, 512])
+def test_lab_splits_at_lcm(n, k, g):
+    """K splits only at multiples of lcm(256, g): a group never straddles two
+    splits. The split is the fewest that gives the target blocks at one m16
+    row, or every unit its own; above one split the loop gets an f32
+    workspace [splits, M, N]."""
+    splits = lab.lab_splits(n, k, g)
+    unit = math.lcm(lab.CHUNK, g)
+    assert k % (splits * unit) == 0
+    units, cols = k // unit, -(-n // lab.MMA_BLOCK_N)
+    assert cols * splits >= MMA_TARGET_BLOCKS or splits == units
+    assert all(cols * s < MMA_TARGET_BLOCKS for s in range(1, splits) if units % s == 0)
+    x = torch.zeros(40, k, dtype=torch.bfloat16)
+    got, ws = lab.loop_operands(x, g, splits, n)
+    assert got is x
+    if splits == 1:
+        assert ws is None
+    else:
+        assert ws.dtype == torch.float32 and tuple(ws.shape) == (splits, 40, n)
+
+
+def test_lab_splits_at_the_lab_shape():
+    """M16 N28672 K8192 g64: two splits, 448 blocks (one wave at four blocks
+    an SM); g = 2 runs the SIMT kernel with one split."""
+    assert lab.lab_splits(28672, 8192, 64) == 2
+    assert lab.lab_splits(28672, 8192, 2) == 1
+
+
+# (g, bk) of g8_hoist calls refused before any launch, at K 512 (the
+# checks make K a multiple of lcm(256, g), which is all the loop's split
+# needs; the C entry's own refusals are card tests)
+LOOP_REFUSALS = {"odd_g": (3, 256), "zero_g": (0, 256), "bk_not_by_g": (512, 256),
+                 "k_not_by_bk": (64, 768)}
+
+
+@pytest.mark.parametrize("case", list(LOOP_REFUSALS))
+def test_loop_refuses_before_launch(port_inputs, case):
+    _, planes, _, table, x = port_inputs
+    g, bk = LOOP_REFUSALS[case]
+    scales = torch.ones(K // max(g, 1), N, dtype=torch.bfloat16)
+    launches = dict(lab.LAUNCHES)
+    with pytest.raises(ValueError):
+        lab.g8_hoist(x, planes, scales, table, M, BN, bk, g, "group_acc")
+    assert lab.LAUNCHES == launches
+
+
+def test_cpu_calls_run_the_plain_version(port_inputs):
+    """On the CPU a wrapper runs its plain version: no launch is counted and
+    no path is recorded."""
+    _, planes, scales, table, x = port_inputs
+    launches, paths = dict(lab.LAUNCHES), dict(lab.LAST_PATH)
+    y = lab.g8_hoist(x, planes, scales, table, M, BN, 256, G, "group_acc")
+    assert torch.equal(y, lab.plain("g8_hoist", x, planes, scales, table, M, BN, 256, G,
+                                    scale_mode="group_acc"))
+    assert lab.LAUNCHES == launches and lab.LAST_PATH == paths
+
+
+@pytest.mark.parametrize("mode", lab.SCALE_MODES)
+@pytest.mark.parametrize("g,bk", [(32, 256), (512, 512)])
+def test_g8_hoist_other_group_sizes_vs_jax(jax_lab, interpret, g, bk, mode):
+    """L6's plain version against the JAX lab at the loop's other group
+    sizes: a group within a field (32) and one wider than a chunk (512)."""
+    mod = jax_lab[0]
+    _, jplanes, jscales, jtable, jx = mod.make_inputs(M, N, K, 4, g)
+    want = np.asarray(mod.run_g8_hoist(jx, jplanes, jscales, jtable, M, BN, bk, g, mode),
+                      np.float32)
+    _, planes, scales, table, x = kernel_lab.make_inputs(M, N, K, 4, g, device="cpu")
+    got = lab.g8_hoist(x, planes, scales, table, M, BN, bk, g, mode).float().numpy()
+    assert np.isfinite(want).all()
+    assert rel_err(got, want) < 1.1e-2

@@ -15,12 +15,15 @@ fixture), and ``test_interpret_mode_without_the_wrap_is_not_the_reference``
 pins how far the unpatched interpreter is from the reference. No file of
 the JAX package changes.
 
-The kernels against these plain versions on the card are in
-``test_torch_cuda.py``.
+L10 (``int4``) shares L6's tensor-core loop and its plan
+(``test_torch_lab.py``); its path per g and its plain version at the loop's
+other group sizes are checked here. The kernels against these plain
+versions on the card are in ``test_torch_cuda.py``.
 """
 
 import functools
 import importlib.util
+import math
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -37,6 +40,7 @@ from flute_tpu.ops import lut_gemm as jlut
 from flute_tpu.quantize import nf as jnf
 from flute_tpu_torch import packing
 from flute_tpu_torch.lab import kernel_lab2, ops2
+from flute_tpu_torch.lab import ops as lab
 
 ROOT = Path(__file__).resolve().parent.parent
 M, N, K, G, BN = 16, 256, 512, 64, 128
@@ -285,3 +289,56 @@ def test_lab2_checks_like_the_grid(inputs, case):
     }
     with pytest.raises(ValueError):
         calls[case]()
+
+
+@pytest.mark.parametrize("g,path", [(2, "simt"), (16, "mma"), (32, "mma"), (64, "mma"),
+                                    (512, "mma")])
+def test_int4_path_and_splits(g, path):
+    """int4 is the second lab's function on the tensor-core loop: its path
+    comes from g alone, its split from L6's (splits at lcm(256, g), one on
+    the SIMT path)."""
+    assert ops2.MMA_FUNCTIONS == ("int4",) and ops2.lab_splits is lab.lab_splits
+    assert ops2.lab_path is lab.lab_path and lab.lab_path(g) == path
+    splits = ops2.lab_splits(N, 2048, g)
+    assert 2048 % (splits * (math.lcm(lab.CHUNK, g) if path == "mma" else 1)) == 0
+    assert path == "mma" or splits == 1
+
+
+# (g, bk) of int4 calls refused before any launch, at K 512 (the C entry's
+# own refusals are card tests)
+INT4_REFUSALS = {"odd_g": (3, 256), "zero_g": (0, 256), "bk_not_by_g": (512, 256),
+                 "k_not_by_bk": (64, 768)}
+
+
+@pytest.mark.parametrize("case", list(INT4_REFUSALS))
+def test_int4_refuses_before_launch(case):
+    g, bk = INT4_REFUSALS[case]
+    x = torch.zeros(M, 512, dtype=torch.bfloat16)
+    planes = [torch.zeros(64, N, dtype=torch.int32)]
+    scales = torch.ones(512 // max(g, 1), N, dtype=torch.bfloat16)
+    launches = dict(ops2.LAUNCHES)
+    with pytest.raises(ValueError):
+        ops2.int4(x, planes, scales, M, BN, bk, g, -0.4, 0.05)
+    assert ops2.LAUNCHES == launches
+
+
+@pytest.mark.parametrize("g", [16, 32, 512])
+def test_int4_other_group_sizes_vs_jax(jax_lab, interpret, g):
+    """L10's plain version against the JAX lab at the loop's other group
+    sizes: one k16 step a group (16), two groups a field (32), a group
+    wider than a chunk (512)."""
+    rng = np.random.default_rng(g)
+    codes = rng.integers(0, 16, size=(K, N), dtype=np.int32)
+    scales = rng.uniform(0.5, 1.5, (K // g, N)).astype(np.float32)
+    x = rng.standard_normal((M, K)).astype(np.float32)
+    planes = jpacking.pack_np(codes, 4, use_native=False)
+    bk = max(256, g)
+    want = np.asarray(jax_lab.run_int4(
+        jnp.asarray(x, jnp.bfloat16), [jnp.asarray(q) for q in planes],
+        jnp.asarray(scales, jnp.bfloat16), M, BN, bk, g, kernel_lab2.INT4_ZERO,
+        kernel_lab2.INT4_DELTA), np.float32)
+    got = ops2.int4(torch.from_numpy(x).bfloat16(), [torch.from_numpy(q) for q in planes],
+                    torch.from_numpy(scales).bfloat16(), M, BN, bk, g, kernel_lab2.INT4_ZERO,
+                    kernel_lab2.INT4_DELTA).float().numpy()
+    assert np.isfinite(want).all()
+    assert rel_err(got, want) < 1.1e-2
