@@ -48,12 +48,15 @@ Phases (any failure exits non-zero):
      counts set to 0 just before and read just after (each function exactly
      its variants' calls: a check call, bench_op's first calls and its graph's
      launches; gather8 and pairlut as many of K2 and K4, no other package
-     kernel), and no lab kernel launched in phases 3-5; then each of its 12
-     cases is held against its plain version on the card at that shape and
-     at bk 256 on a narrow N (relative Frobenius error under 1.1e-2; floor on
-     planes masked to finite bf16 halves; unpack_only, whose operand is
-     subnormal, to 1.1e-2 of the largest output) and with an identity x bit
-     for bit; the plain versions and a yardstick (one bf16 torch.matmul of x
+     kernel), and no lab kernel launched in phases 3-5; L4 (g8_ablate, its
+     five variants) and L6 (g8_hoist) run the lab's tensor-core loop (path
+     "mma", each function's path recorded), the rest SIMT; then each of its
+     12 cases is held against its plain version on the card at that shape
+     and at bk 256 on a narrow N (relative Frobenius error under 1.1e-2;
+     floor on planes masked to finite bf16 halves; unpack_only, whose
+     operand is subnormal, to 1.1e-2 of the largest output) and with an
+     identity x bit for bit, the loop's cases also called twice for the same
+     bits; the plain versions and a yardstick (one bf16 torch.matmul of x
      on the pre-dequantized [8192, 28672] weight) are timed beside the
      kernels, L2-cold, in CUDA graphs;
   2c. the lab's second half (L7-L12 of csrc/kernel_lab2.cu): its entry
@@ -62,11 +65,13 @@ Phases (any failure exits non-zero):
      bf16) with the launch counts set to 0 just before and read just after
      (each function exactly its variants' calls, sep for sep and sep1, L7
      2 x 4002; prod as many of K2, no other package kernel, no L1-L6), and
-     no L7-L12 kernel launched in phases 3-5; then the six GEMM
-     functions (seven cases with sep1) are held against their plain
-     versions on the card at that shape and at bk 256 on a narrow N
-     (relative Frobenius error under 1.1e-2) and with an identity x bit for
-     bit (the sign of a zero aside), L7 bit for bit at nops 2 and 8; the
+     no L7-L12 kernel launched in phases 3-5; L9 (sep and sep1) and L10
+     (int4) run the lab's tensor-core loop (path "mma"), the rest SIMT;
+     then the six GEMM functions (seven cases with sep1) are held against
+     their plain versions on the card at that shape and at bk 256 on a
+     narrow N (relative Frobenius error under 1.1e-2) and with an identity x
+     bit for bit (the sign of a zero aside), the loop's cases also called
+     twice for the same bits, L7 bit for bit at nops 2 and 8; the
      plain versions and a yardstick (one bf16 torch.matmul on the
      pre-dequantized weight: phase 2b's for the 4-bit cases, its own for
      L12's 3-bit weight) are timed beside the kernels, L2-cold, in CUDA
@@ -878,6 +883,38 @@ def phase_attention(dev, results):
     return cases, timed
 
 
+# lab_mma.cuh's Scaling, in its order
+LOOP_SCALINGS = ("group_acc", "affine", "repeat", "expand", "none")
+
+
+def loop_ptxas(ptxas: str) -> list[dict]:
+    """Registers and spill stores of each instantiation of the lab's
+    tensor-core loop (``lab_mma_kernel<Decoder, Scaling>``) in a ptxas log,
+    read from its mangled name."""
+    kernels, name = [], None
+    for line in ptxas.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = name and "lab_mma_kernel" in name and re.search(
+            r"([A-Z][A-Za-z0-9]*Decoder)(?:ILb([01])EE)?ELi(\d)E", name)
+        if not m:
+            continue
+        decoder = m.group(1) + ("" if m.group(2) is None else f"<{m.group(2) == '1'}>".lower())
+        kernel = next((k for k in kernels if k["mangled"] == name), None)
+        if kernel is None:
+            kernel = dict(mangled=name, decoder=decoder, scaling=LOOP_SCALINGS[int(m.group(3))])
+            kernels.append(kernel)
+        r = re.search(r"Used (\d+) registers", line)
+        if r:
+            kernel["registers"] = int(r.group(1))
+        r = re.search(r"(\d+) bytes spill stores", line)
+        if r:
+            kernel["spill_bytes"] = int(r.group(1))
+    return kernels
+
+
 # the JAX lab's reference shape (scripts/kernel_lab.py:233-243)
 LAB_SHAPE = dict(m=16, n=28672, k=8192, bk=1024, g=64)
 LAB_NARROW_N = 2048  # the bk 256 checks
@@ -892,8 +929,11 @@ def lab_check(fn, flags, x, planes, scales, table, bn, bk, name, label):
     g = LAB_SHAPE["g"]
     m = x.shape[0]
     got = lab.run(fn, x, planes, scales, table, m, bn, bk, g, **flags)
+    path = lab.LAST_PATH[fn]
     want = lab.plain(fn, x, planes, scales, table, m, bn, bk, g, **flags)
     torch.cuda.synchronize()
+    if path != (lab.lab_path(g) if fn in lab.MMA_FUNCTIONS else "simt"):
+        raise AssertionError(f"lab {name} {label}: ran path {path}")
     if not torch.isfinite(got.float()).all():
         raise AssertionError(f"lab {name} {label}: non-finite output")
     max_abs = float((got.float() - want.float()).abs().max())
@@ -903,7 +943,8 @@ def lab_check(fn, flags, x, planes, scales, table, bn, bk, name, label):
         err = rel_err(got, want)
     if not err < THRESHOLDS[torch.bfloat16]:
         raise AssertionError(f"lab {name} {label}: error {err}")
-    return dict(variant=name, function=fn, case=label, rel_err=err, max_abs_err=max_abs)
+    return dict(variant=name, function=fn, case=label, path=path, rel_err=err,
+                max_abs_err=max_abs)
 
 
 def phase_lab(dev, results):
@@ -978,7 +1019,8 @@ def phase_lab(dev, results):
     log(f"  L1-L6: 12 cases agree with their plain versions at M{m} N{n} K{k} bk {bk} and at "
         f"N{LAB_NARROW_N} bk 256 (largest error {max(c['rel_err'] for c in checks):.2e}), "
         "identity x bit-exact (unpack_only: its subnormal operand), the tensor-core loop's "
-        "repeated calls bit-identical")
+        f"repeated calls bit-identical; on the loop: "
+        f"{sorted({c['variant'] for c in checks if c['path'] == 'mma'})}")
 
     # plain versions and the yardstick, timed beside the kernels
     args = [([q.clone() for q in planes], scales.clone()) for _ in range(2)]
@@ -996,10 +1038,11 @@ def phase_lab(dev, results):
             return lab.plain(fn, x, q, s, table, m, n, bk, g, **flags)
 
         t_p = bench_op(plain, args, min_launches=2)
-        # what the function reads: floor and unpack_only read no scales or table
+        # what the function reads: floor and unpack_only read no scales or
+        # table, g8_noscale and g8_bare no scales
         nbytes = sum(q.numel() * 4 for q in planes) + xy_bytes
         if fn not in ("floor", "unpack_only"):
-            nbytes += scales.numel() * 2 + table.numel() * 4
+            nbytes += table.numel() * 4 + (scales.numel() * 2 if flags.get("scale", True) else 0)
         t_bytes = nbytes / HBM_BYTES_PER_S
         row = by_name[name]
         case = dict(variant=name, function=fn, path=paths[fn], us=row["us"], gbps=row["gbps"],
@@ -1086,16 +1129,21 @@ def lab2_check(name, inp, weights, bn, bk, label):
     Frobenius error)."""
     from flute_tpu_torch.lab import kernel_lab2, ops2
 
+    from flute_tpu_torch.lab import ops as lab
+
     fn, args = kernel_lab2.lab_call(name, inp, weights, inp.x.shape[0], bn, bk)
     got = ops2.FUNCTIONS[fn](*args)
+    path = ops2.LAST_PATH[fn]
     want = ops2.plain(fn, *args)
     torch.cuda.synchronize()
+    if path != (lab.lab_path(LAB2_SHAPE["g"]) if fn in ops2.MMA_FUNCTIONS else "simt"):
+        raise AssertionError(f"lab2 {name} {label}: ran path {path}")
     if not torch.isfinite(got.float()).all():
         raise AssertionError(f"lab2 {name} {label}: non-finite output")
     err = rel_err(got, want)
     if not err < THRESHOLDS[torch.bfloat16]:
         raise AssertionError(f"lab2 {name} {label}: error {err}")
-    return dict(variant=name, function=fn, case=label, rel_err=err,
+    return dict(variant=name, function=fn, case=label, path=path, rel_err=err,
                 max_abs_err=float((got.float() - want.float()).abs().max()))
 
 
@@ -1179,7 +1227,7 @@ def phase_lab2(dev, results, library_us_w4):
         f"bk {bk} and at N{LAB_NARROW_N} bk 256 (largest error "
         f"{max(c['rel_err'] for c in checks):.2e}), identity x bit-exact (the sign of a zero "
         "aside), the tensor-core loop's repeated calls bit-identical; vmembw bit-exact at "
-        "nops 2 and 8")
+        f"nops 2 and 8; on the loop: {sorted({c['variant'] for c in checks if c.get('path') == 'mma'})}")
 
     # plain versions and the yardsticks, timed beside the kernels: phase 2b's
     # bf16 matmul for the 4-bit cases, its own for L12's 3-bit weight
@@ -4665,6 +4713,10 @@ def main() -> int:
         spill = max(int(b) for b in re.findall(r"(\d+) bytes spill stores", ptxas))
         log(f"    ptxas: {len(regs)} kernels, {min(regs)}-{max(regs)} registers, "
             f"at most {spill} bytes of spill stores")
+        for kernel in loop_ptxas(ptxas):
+            log(f"    {kernel['decoder']:18s} {kernel['scaling']:9s} {kernel['registers']} registers, "
+                f"{kernel['spill_bytes']} bytes of spill stores")
+            results.setdefault("lab_loop_ptxas", []).append(kernel)
     results["build_s"] = build_s
 
     log("== 2. kernels against plain on the card")

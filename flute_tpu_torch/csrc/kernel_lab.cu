@@ -42,29 +42,31 @@
 // Numerics: the SIMT kernel takes IEEE f32 FMAs with no flush to zero:
 // unpack_only's operand is subnormal, so the build must never add
 // --use_fast_math or -ftz=true. The tensor-core loop sums each k16 step in
-// the tensor core's f32 and scales a group's partial once (lab_mma.cuh).
-// With x the identity every output is one product, so both give W bit for
-// bit.
+// the tensor core's f32 and scales a group's partial once, or rounds
+// bf16(T[c]) * s once in the B register (lab_mma.cuh). With x the identity
+// every output is one product, so both give W bit for bit.
 //
 // What bounds them: bytes. At the lab's shape (M 16, N 28672, K 8192) the
 // planes are 117 MB and the rest 8.5 MB, about 37.6 us at 3.35 TB/s; the
 // FMAs (2*M*N*K) are 0.11 ms at the f32 rate, far above the bytes, so a
 // simple design is bound by how many loads it keeps in flight.
 //
-// Two designs. g8_hoist, at a group size that is a multiple of 16, runs the
-// lab's tensor-core loop (lab_mma.cuh, with HoistDecoder below): plane
-// words and x staged per chunk in a cp.async ring, each field decoded
-// straight into an mma.sync B register, group_acc's partials per group in
-// f32 scaled on the C fragment, "repeat"'s scales applied in the B register
-// from the K block's scale rows staged in shared memory; split-K at
-// multiples of lcm(256, g), reduced in split order. Everything else, and
-// g8_hoist at any other (even) group size, runs the SIMT kernel below, on
-// K1's first skeleton (csrc/lut_gemm_common.cuh): one lane per output
-// column (32 columns per block), eight warps splitting each K block's word
-// rows, the block's 16 rows of x for one K block staged in shared memory as
-// f32 (read as float2 broadcasts), the 16-entry table rounded to bf16 in
-// shared memory, fixed-order warp sums, no atomics. A K block (not a pack
-// chunk) is staged because floor's words reach across the whole block.
+// Two designs. g8_ablate and g8_hoist, at a group size that is a multiple
+// of 16, run the lab's tensor-core loop (lab_mma.cuh, with HoistDecoder or
+// HalfDecoder below): plane words and x staged per chunk in a cp.async ring,
+// each field decoded straight into an mma.sync B register; group_acc's
+// partials per group in f32 scaled on the C fragment; "repeat"'s scales
+// applied in the B register from the K block's scale rows staged in shared
+// memory; g8_ablate's scale applied in the B register from the open group's
+// row ("expand"), or none read; split-K at multiples of lcm(256, g), reduced
+// in split order. Everything else, and both at any other (even) group size,
+// runs the SIMT kernel below, on K1's first skeleton
+// (csrc/lut_gemm_common.cuh): one lane per output column (32 columns per
+// block), eight warps splitting each K block's word rows, the block's 16
+// rows of x for one K block staged in shared memory as f32 (read as float2
+// broadcasts), the 16-entry table rounded to bf16 in shared memory,
+// fixed-order warp sums, no atomics. A K block (not a pack chunk) is staged
+// because floor's words reach across the whole block.
 
 #include "lab_mma.cuh"
 #include "lut_gemm_common.cuh"
@@ -83,33 +85,35 @@ enum Mode { kFloor, kUnpack, kGather16, kAblate, kRs, kHoist };
 
 __device__ __forceinline__ float rnd(float v) { return Cvt<bf16>::round(v); }
 
-// L6 on the tensor-core loop: the 16 entries of bf16(T) held in registers
-// as two byte planes (low and high bytes, 4 entries a register). One prmt
-// looks up 4 codes in an 8-entry half of a plane, so the codes of both B
-// registers of a step and column (word rows 8q + t and 8q + 4 + t) go
-// together: every code reads both 8-entry halves (c & 7 in entries 0..7
-// and in 8..15), then a prmt selects each byte on c >= 8, as the TPU kernel
-// hoists the select out of its gathers; 12 instructions for two registers.
+// L6 (and L4 with chain) on the tensor-core loop: the 16 entries of bf16(T)
+// held in registers as two byte planes (low and high bytes, 4 entries a
+// register). One prmt looks up 4 codes in an 8-entry half of a plane, so
+// the codes of both B registers of a step and column (word rows 8q + t and
+// 8q + 4 + t) go together: every code reads both 8-entry halves (c & 7 in
+// entries 0..7 and in 8..15), then a prmt selects each byte on c >= 8, as
+// the TPU kernel hoists the select out of its gathers; 12 instructions for
+// two registers.
 struct HoistDecoder {
+  static constexpr int kPlanes = 1, kFieldBits = 8, kProducts = 1;
   uint32_t lo[4], hi[4];  // byte planes: register k holds entries 4k .. 4k + 3
 
-  __device__ explicit HoistDecoder(const float* table) {
+  __device__ explicit HoistDecoder(const labmma::Args& a) {
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
       lo[k] = hi[k] = 0u;
 #pragma unroll
       for (int b = 0; b < 4; ++b) {
-        const uint32_t h = __bfloat16_as_ushort(__float2bfloat16_rn(__ldg(table + 4 * k + b)));
+        const uint32_t h = __bfloat16_as_ushort(__float2bfloat16_rn(__ldg(a.table + 4 * k + b)));
         lo[k] |= (h & 0xFFu) << (8 * b);
         hi[k] |= (h >> 8) << (8 * b);
       }
     }
   }
 
-  // byte i of wa and of wb (ce | co << 4 each) as (bf16(T[ce]), bf16(T[co]))
-  __device__ __forceinline__ void pairs(uint32_t wa, uint32_t wb, int i, uint32_t& b0,
-                                        uint32_t& b1) const {
-    const uint32_t codes = __byte_perm(wa, wb, i | ((4 + i) << 4));  // nibbles ce, co of a, b
+  // byte i of w[0] and of w[1] (ce | co << 4 each) as (bf16(T[ce]), bf16(T[co]))
+  __device__ __forceinline__ void pairs(const uint32_t (&w)[2], int i,
+                                        uint32_t (&b)[1][2]) const {
+    const uint32_t codes = __byte_perm(w[0], w[1], i | ((4 + i) << 4));  // nibbles ce, co of each
     const uint32_t idx = codes & 0x7777u;  // entry c & 7 of a half (prmt's sign bit clear)
     const uint32_t lo0 = __byte_perm(lo[0], lo[1], idx);  // entries 0..7
     const uint32_t hi0 = __byte_perm(hi[0], hi[1], idx);
@@ -118,8 +122,25 @@ struct HoistDecoder {
     const uint32_t pick = 0x3210u | ((codes >> 1) & 0x4444u);  // byte k from 8..15 if c_k >= 8
     const uint32_t l = __byte_perm(lo0, lo1, pick);
     const uint32_t h = __byte_perm(hi0, hi1, pick);
-    b0 = __byte_perm(l, h, 0x5140u);
-    b1 = __byte_perm(l, h, 0x7362u);
+    b[0][0] = __byte_perm(l, h, 0x5140u);
+    b[0][1] = __byte_perm(l, h, 0x7362u);
+  }
+};
+
+// L4 without chain: bf16(T[c & 7]), the low 8-entry half only (the TPU's
+// single gather with no group select): HoistDecoder's lookup of half 0 and
+// its two interleaves, 6 instructions for two registers.
+struct HalfDecoder : HoistDecoder {
+  __device__ explicit HalfDecoder(const labmma::Args& a) : HoistDecoder(a) {}
+
+  __device__ __forceinline__ void pairs(const uint32_t (&w)[2], int i,
+                                        uint32_t (&b)[1][2]) const {
+    const uint32_t codes = __byte_perm(w[0], w[1], i | ((4 + i) << 4));
+    const uint32_t idx = codes & 0x7777u;
+    const uint32_t l = __byte_perm(lo[0], lo[1], idx);
+    const uint32_t h = __byte_perm(hi[0], hi[1], idx);
+    b[0][0] = __byte_perm(l, h, 0x5140u);
+    b[0][1] = __byte_perm(l, h, 0x7362u);
   }
 };
 
@@ -274,10 +295,30 @@ extern "C" int flute_lab_gather16(const void* x, const void* plane, const void* 
   return launch<kGather16>(x, plane, scales, table, y, M, N, K, bk, g, 0, 0, 0, stream);
 }
 
+// A g that is a multiple of 16 runs the tensor-core loop (chain: HoistDecoder,
+// else HalfDecoder; scale: each B register times s[k // g], else no scale
+// read; `splits` splits of K at multiples of lcm(256, g), `work` an f32
+// [splits, M, N] workspace, or null with one split); any other g the SIMT
+// kernel (one split, no workspace).
 extern "C" int flute_lab_g8_ablate(const void* x, const void* plane, const void* scales,
-                                   const void* table, void* y, int M, int N, int K, int bk,
-                                   int g, int chain, int scale, void* stream) {
-  return launch<kAblate>(x, plane, scales, table, y, M, N, K, bk, g, chain, scale, 0, stream);
+                                   const void* table, void* y, void* work, int M, int N, int K,
+                                   int bk, int g, int chain, int scale, int splits,
+                                   void* stream) {
+  if (!labmma::takes(g)) {
+    if (splits != 1) return cudaErrorInvalidValue;
+    return launch<kAblate>(x, plane, scales, table, y, M, N, K, bk, g, chain, scale, 0, stream);
+  }
+  labmma::Args a;
+  if (bk <= 0 || bk % kChunk || K % bk || bk % g ||
+      !labmma::make_args(a, x, plane, nullptr, scales, table, nullptr, y, work, M, N, K, g, 0,
+                         splits, 0.f, 0.f))
+    return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (chain)
+    return scale ? labmma::run<HoistDecoder, labmma::kExpand>(a, splits, s)
+                 : labmma::run<HoistDecoder, labmma::kNone>(a, splits, s);
+  return scale ? labmma::run<HalfDecoder, labmma::kExpand>(a, splits, s)
+               : labmma::run<HalfDecoder, labmma::kNone>(a, splits, s);
 }
 
 // group_acc: 0 = "repeat", 1 = "group_acc"
@@ -300,8 +341,8 @@ extern "C" int flute_lab_g8_hoist(const void* x, const void* plane, const void* 
   }
   labmma::Args a;
   if (bk <= 0 || bk % kChunk || K % bk || bk % g ||
-      !labmma::make_args(a, x, plane, scales, table, y, work, M, N, K, g, group_acc ? 0 : bk,
-                         splits, 0.f, 0.f))
+      !labmma::make_args(a, x, plane, nullptr, scales, table, nullptr, y, work, M, N, K, g,
+                         group_acc ? 0 : bk, splits, 0.f, 0.f))
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return group_acc ? labmma::run<HoistDecoder, labmma::kGroupAcc>(a, splits, s)

@@ -40,33 +40,39 @@
 //
 // Numerics: the SIMT kernels take IEEE f32 FMAs, no flush to zero (never
 // --use_fast_math). Per pair acc += (x_2p * W_2p + x_2p+1 * W_2p+1) * s: the
-// TPU's (x_g @ W_g) * s_g in another f32 order. int4 on the tensor-core loop
-// sums each k16 step in the tensor core's f32 and scales a group's partial
-// once (lab_mma.cuh). With x the identity every output is one product, so
-// the kernels give the plain versions bit for bit (the sign of a zero
-// aside).
+// TPU's (x_g @ W_g) * s_g in another f32 order. int4 and sep on the
+// tensor-core loop sum each k16 step in the tensor core's f32 and scale a
+// group's partial once (lab_mma.cuh); sep adds plane A's and plane B's
+// products into the partial by two mma, as the TPU adds its two dots, where
+// the plain version sums A + B first. With x the identity every output is
+// one product (sep: A + B, exact in f32 for the lab's tables), so the
+// kernels give the plain versions bit for bit (the sign of a zero aside).
 //
 // What bounds them: bytes. At the lab's shape (M 16, N 28672, K 8192) the
 // planes are 117 MB (88 MB for w3wide) and the rest 8.5 MB, about 37.6 us
-// (28.8 us) at 3.35 TB/s; 2*M*N*K at the bf16 tensor rate is 7.6 us. L7's
-// 4.2 MB stay in the 50 MB L2, so it measures the launch and the ALU chain.
+// (28.8 us) at 3.35 TB/s; 2*M*N*K at the bf16 tensor rate is 7.6 us (sep's
+// two products 15.2). L7's 4.2 MB stay in the 50 MB L2, so it measures the
+// launch and the ALU chain.
 //
-// Two designs. int4, at a group size that is a multiple of 16, runs the
-// lab's tensor-core loop (lab_mma.cuh, with Int4Decoder below): plane words
-// and x staged per chunk in a cp.async ring, each field turned into two
-// exact bf16 codes straight in an mma.sync B register (the magic exponent:
-// 0x4300 | c is 128 + c, minus 128 exact in bf16), the group's product and
-// its x sums (one more mma against a B of ones) in f32 partials scaled on
-// the C fragment when the group ends; split-K at multiples of lcm(256, g),
-// reduced in split order. The others, and int4 at any other (even) group
-// size, run the SIMT kernel below on K1's first skeleton
-// (csrc/lut_gemm_common.cuh), as L1-L6 do: one lane per output column (32
-// columns per block), eight warps splitting each pack chunk's words, the
-// block's 16 rows of x for one chunk staged in shared memory as f32,
-// fixed-order warp sums, no atomics. No result depends on the TPU's block_k,
-// so x is staged per 256-row chunk (16 KB) and each warp loads all of its
-// words of a chunk (3 or 4) before it decodes any; int4's x sums are formed
-// once per block, chunk and group in shared memory, not once per column.
+// Two designs. int4 and sep, at a group size that is a multiple of 16, run
+// the lab's tensor-core loop (lab_mma.cuh, with Int4Decoder or SepDecoder
+// below): plane words and x staged per chunk in a cp.async ring (sep's two
+// 2-bit planes in one slot, plane A's 16 word rows then plane B's), each
+// field turned straight into mma.sync B registers (int4: two exact bf16
+// codes by the magic exponent, 0x4300 | c is 128 + c, minus 128 exact in
+// bf16; sep: one prmt a register from its 4-entry table), the group's
+// products (and int4's x sums, one more mma against a B of ones) in f32
+// partials scaled on the C fragment when the group ends; split-K at
+// multiples of lcm(256, g), reduced in split order. The others, and int4
+// and sep at any other (even) group size, run the SIMT kernel below on K1's
+// first skeleton (csrc/lut_gemm_common.cuh), as L1-L6 do: one lane per
+// output column (32 columns per block), eight warps splitting each pack
+// chunk's words, the block's 16 rows of x for one chunk staged in shared
+// memory as f32, fixed-order warp sums, no atomics. No result depends on the
+// TPU's block_k, so x is staged per 256-row chunk (16 KB) and each warp
+// loads all of its words of a chunk (3 or 4) before it decodes any; int4's x
+// sums are formed once per block, chunk and group in shared memory, not
+// once per column.
 
 #include "lab_mma.cuh"
 #include "lut_gemm_common.cuh"
@@ -89,7 +95,9 @@ __device__ __forceinline__ float rnd(float v) { return Cvt<bf16>::round(v); }
 // exact, with no table: 0x4300 | c is the bf16 128 + c, and 128 + c - 128
 // rounds to c exactly.
 struct Int4Decoder {
-  __device__ explicit Int4Decoder(const float*) {}
+  static constexpr int kPlanes = 1, kFieldBits = 8, kProducts = 1;
+
+  __device__ explicit Int4Decoder(const labmma::Args&) {}
 
   static __device__ __forceinline__ uint32_t pair(uint32_t w, int i) {
     const uint32_t f = w >> (8 * i);
@@ -99,11 +107,75 @@ struct Int4Decoder {
     return *reinterpret_cast<const uint32_t*>(&c);
   }
 
-  // byte i of wa and of wb (ce | co << 4 each) as (bf16(ce), bf16(co))
-  __device__ __forceinline__ void pairs(uint32_t wa, uint32_t wb, int i, uint32_t& b0,
-                                        uint32_t& b1) const {
-    b0 = pair(wa, i);
-    b1 = pair(wb, i);
+  // byte i of w[0] and of w[1] (ce | co << 4 each) as (bf16(ce), bf16(co))
+  __device__ __forceinline__ void pairs(const uint32_t (&w)[2], int i,
+                                        uint32_t (&b)[1][2]) const {
+    b[0][0] = pair(w[0], i);
+    b[0][1] = pair(w[1], i);
+  }
+};
+
+// L9 on the tensor-core loop: two 2-bit planes, each field a nibble
+// ce | co << 2, and two 4-entry tables, each rounded to bf16 and held in two
+// registers (entry c in bytes 2c, 2c + 1), so one prmt looks up both values
+// of a B register. The selector of a nibble f: v = ce | co << 8 is
+// (f | f << 6) & 0x303, and v * 0x22 + 0x1010 has the nibbles 2ce, 2ce + 1,
+// 2co, 2co + 1. The nibbles of two words are taken together, one in each
+// half of a register: about 4 instructions a B register. ONE: "sep1", one
+// product on the bf16 sum A + B (__hadd2, RN, the TPU's bf16 add); else
+// "sep", plane A's and plane B's products, two mma into one partial.
+template <bool ONE>
+struct SepDecoder {
+  static constexpr int kPlanes = 2, kFieldBits = 4, kProducts = ONE ? 1 : 2;
+  uint32_t ta[2], tb[2];  // A's and B's bf16 entries (0, 1) and (2, 3)
+
+  static __device__ uint32_t entries(const float* t, int c) {
+    return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(__ldg(t + c)))) |
+           static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(__ldg(t + c + 1))))
+               << 16;
+  }
+
+  __device__ explicit SepDecoder(const labmma::Args& a) {
+    ta[0] = entries(a.table, 0);
+    ta[1] = entries(a.table, 2);
+    tb[0] = entries(a.table_b, 0);
+    tb[1] = entries(a.table_b, 2);
+  }
+
+  // nibble i of wa and of wb as (T[ce], T[co]) each, T in t
+  static __device__ __forceinline__ void lookup(uint32_t wa, uint32_t wb, int i,
+                                                const uint32_t (&t)[2], uint32_t& ra,
+                                                uint32_t& rb) {
+    // the byte holding nibble i of wa in bits 0-7, of wb in bits 16-23
+    uint32_t x = __byte_perm(wa, wb, (i >> 1) | ((4 + (i >> 1)) << 8));
+    if (i & 1) x >>= 4;
+    const uint32_t v = ((x & 0x000F000Fu) * 0x41u) & 0x03030303u;  // ce | co << 8, per half
+    const uint32_t sel = v * 0x22u + 0x10101010u;
+    ra = __byte_perm(t[0], t[1], sel);
+    rb = __byte_perm(t[0], t[1], sel >> 16);
+  }
+
+  // nibble i of plane A's words w[0], w[1] and plane B's w[2], w[3]
+  __device__ __forceinline__ void pairs(const uint32_t (&w)[4], int i,
+                                        uint32_t (&b)[kProducts][2]) const {
+    uint32_t a0, a1, b0, b1;
+    lookup(w[0], w[1], i, ta, a0, a1);
+    lookup(w[2], w[3], i, tb, b0, b1);
+    if constexpr (ONE) {
+      b[0][0] = add(a0, b0);
+      b[0][1] = add(a1, b1);
+    } else {
+      b[0][0] = a0;
+      b[0][1] = a1;
+      b[1][0] = b0;
+      b[1][1] = b1;
+    }
+  }
+
+  static __device__ __forceinline__ uint32_t add(uint32_t p, uint32_t q) {
+    const __nv_bfloat162 v = __hadd2(*reinterpret_cast<const __nv_bfloat162*>(&p),
+                                     *reinterpret_cast<const __nv_bfloat162*>(&q));
+    return *reinterpret_cast<const uint32_t*>(&v);
   }
 };
 
@@ -406,14 +478,29 @@ extern "C" int flute_lab2_slabstream(const void* x, const void* plane, const voi
                              0.f, stream);
 }
 
-// one_mm: 0 = sep (two products), 1 = sep1 (one product on the bf16 sum)
+// one_mm: 0 = sep (two products), 1 = sep1 (one product on the bf16 sum).
+// A g that is a multiple of 16 runs the tensor-core loop (SepDecoder,
+// `splits` splits of K at multiples of lcm(256, g), `work` an f32
+// [splits, M, N] workspace, or null with one split); any other g the SIMT
+// kernel (one split, no workspace).
 extern "C" int flute_lab2_sep(const void* x, const void* plane_a, const void* plane_b,
                               const void* scales, const void* table_a, const void* table_b,
-                              void* y, int M, int N, int K, int g, int one_mm, void* stream) {
-  return one_mm ? launch<kSep1>(x, plane_a, plane_b, scales, table_a, table_b, y, M, N, K, g,
-                                0.f, 0.f, stream)
-                : launch<kSep>(x, plane_a, plane_b, scales, table_a, table_b, y, M, N, K, g,
-                               0.f, 0.f, stream);
+                              void* y, void* work, int M, int N, int K, int g, int one_mm,
+                              int splits, void* stream) {
+  if (!labmma::takes(g)) {
+    if (splits != 1) return cudaErrorInvalidValue;
+    return one_mm ? launch<kSep1>(x, plane_a, plane_b, scales, table_a, table_b, y, M, N, K, g,
+                                  0.f, 0.f, stream)
+                  : launch<kSep>(x, plane_a, plane_b, scales, table_a, table_b, y, M, N, K, g,
+                                 0.f, 0.f, stream);
+  }
+  labmma::Args a;
+  if (!labmma::make_args(a, x, plane_a, plane_b, scales, table_a, table_b, y, work, M, N, K, g,
+                         0, splits, 0.f, 0.f))
+    return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return one_mm ? labmma::run<SepDecoder<true>, labmma::kGroupAcc>(a, splits, s)
+                : labmma::run<SepDecoder<false>, labmma::kGroupAcc>(a, splits, s);
 }
 
 // A g that is a multiple of 16 runs the tensor-core loop (`splits` splits
@@ -429,8 +516,8 @@ extern "C" int flute_lab2_int4(const void* x, const void* plane, const void* sca
                          stream);
   }
   labmma::Args a;
-  if (!labmma::make_args(a, x, plane, scales, nullptr, y, work, M, N, K, g, 0, splits, zero,
-                         delta))
+  if (!labmma::make_args(a, x, plane, nullptr, scales, nullptr, nullptr, y, work, M, N, K, g, 0,
+                         splits, zero, delta))
     return cudaErrorInvalidValue;
   return labmma::run<Int4Decoder, labmma::kAffine>(a, splits, static_cast<cudaStream_t>(stream));
 }

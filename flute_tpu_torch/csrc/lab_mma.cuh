@@ -1,40 +1,52 @@
 // The Hopper lab's tensor-core loop (sm_90a): a group-accumulating
-// mma.sync LUT-GEMM over the lab's one 4-bit pair plane, shared by L6
-// (kernel_lab.cu, flute_lab_g8_hoist: scripts/kernel_lab.py:590
-// run_g8_hoist) and L10 (kernel_lab2.cu, flute_lab2_int4:
-// scripts/kernel_lab2.py:290 run_int4), each with its own decoder. The
-// served loop (lut_gemm_mma.cuh::lut_mma_kernel) is not touched; its
-// helpers are reused.
+// mma.sync LUT-GEMM over the lab's pair planes, shared by L4
+// (kernel_lab.cu, flute_lab_g8_ablate: scripts/kernel_lab.py:413
+// run_g8_ablate), L6 (flute_lab_g8_hoist: scripts/kernel_lab.py:590
+// run_g8_hoist), L9 (kernel_lab2.cu, flute_lab2_sep: scripts/kernel_lab2.py:234
+// run_sep) and L10 (flute_lab2_int4: scripts/kernel_lab2.py:290 run_int4),
+// each with its own decoder. The served loop (lut_gemm_mma.cuh::lut_mma_kernel)
+// is not touched; its helpers are reused.
 //
 //   y[M, N] = bf16(sum over groups of (x_g @ W_g) * s_g)      (group_acc)
 //   y[M, N] = bf16(sum over groups of (x_g @ c_g) * (s_g * delta)
 //                                   + (sum_k x_g) * (s_g * zero))   (int4)
 //   y[M, N] = bf16(x @ bf16(W * s_tiled))                       (repeat)
+//   y[M, N] = bf16(x @ bf16(W * s_grouped))                     (expand)
+//   y[M, N] = bf16(x @ W)                                       (none)
 //
 // What bounds it: bytes. At the lab's shape (M 16, N 28672, K 8192, g 64)
-// the plane is 117 MB and the rest 8.5 MB, 37.6 us at 3.35 TB/s; the
-// products at the bf16 tensor rate take 7.6 us. The SIMT skeleton of
-// lut_gemm_common.cuh reached 3-5% of that bound: one 4-byte load in flight
-// per lane, x re-staged as f32, f32 FMAs on 16 rows. Here:
+// the plane (or L9's two 2-bit planes) is 117 MB and the rest 8.5 MB, 37.6
+// us at 3.35 TB/s; the products at the bf16 tensor rate take 7.6 us (15.2
+// for L9's two products). The SIMT skeleton of lut_gemm_common.cuh reached
+// 3-5% of that bound: one 4-byte load in flight per lane, x re-staged as
+// f32, f32 FMAs on 16 rows. Here:
 //
 // * The block (4 warps, 128 columns, 16 rows of x) stages each 256-row pack
 //   chunk in a two-slot cp.async ring: x (16-byte copies, rows past M zero)
 //   and the chunk's 32 plane word rows of its columns (16 KB, 16 bytes a
 //   copy, piece p of word row j stored at p ^ 2(j & 3) so that the warps'
-//   16-byte reads below meet no bank conflict). The next chunk's copies are
-//   issued before the current chunk's products, so 4 blocks an SM keep
-//   about 100 KB in flight with no registers spent on it.
-// * One k16 step lies inside one group. Field i of word row j of a chunk is
-//   pair row 32 i + j (K rows 64 i + 2 j, +1), so a lane (g = lane / 4,
-//   t = lane % 4) that reads word rows 8 q + t and 8 q + 4 + t holds, in
-//   field i, exactly the B fragment of mma.m16n8k16 for K rows
-//   64 i + 16 q .. +15: k-slots 2t, 2t+1 from the first, 2t+8, 2t+9 from the
-//   second. Taken field by field, q inner, the 16 steps of a chunk run in K
+//   16-byte reads below meet no bank conflict). Two 2-bit planes have 16
+//   word rows a chunk each: plane A's go to slot rows 0-15, plane B's to
+//   16-31, with the same swizzle. The next chunk's copies are issued before
+//   the current chunk's products, so 4 blocks an SM keep about 100 KB in
+//   flight with no registers spent on it.
+// * One k16 step lies inside one group. A lane (g = lane / 4, t = lane % 4)
+//   reads the slot's word rows 4v + t, v < 8: the first 8 / planes of them
+//   from each plane, so it holds word rows 8q + t and 8q + 4 + t of every
+//   plane. Field i of word row j is pair row F i + j, F = 32 (one 4-bit
+//   plane: 4 fields of 8 bits a word) or 16 (2-bit planes: 8 fields of 4
+//   bits), K rows 2F i + 2j, +1; so the two words hold, in field i, exactly
+//   the B fragment of mma.m16n8k16 for K rows 2F i + 16 q .. +15: k-slots
+//   2t, 2t+1 from the first, 2t+8, 2t+9 from the second. Taken field by
+//   field, q inner (F / 8 steps a field), the 16 steps of a chunk run in K
 //   order, so one f32 partial is open at a time, at any group size that is
 //   a multiple of 16. A lane's 4 columns of a word row (4 g .. 4 g + 3 of
 //   the warp's 32) feed the 4 n8 tiles (tile e's n-slot g is column 4 g + e).
-// * A decoder turns one field straight into a B register (two bf16, the
-//   even K row in the low half), both registers of a step and column at once.
+// * A decoder turns one field of each plane straight into B registers (two
+//   bf16, the even K row in the low half), both registers of a step and
+//   column at once, and says how many products a step takes: L9's "sep"
+//   issues one mma on plane A's registers and one on plane B's into the
+//   same accumulator, "sep1" one on their bf16 sums (__hadd2, RN).
 // * The partial of a group: its steps' products in an f32 fragment; when the
 //   group ends, acc = acc + part * s (each rounded: __fmul_rn, __fadd_rn),
 //   and for int4 part * (s * delta) + xsum * (s * zero), the x sums taken by
@@ -43,23 +55,41 @@
 //   8t + e and 8t + 4 + e of the warp: a lane's 8 scales of a group are 8
 //   consecutive columns, loaded (load_scales) when the group opens and
 //   prefetched into L2 a chunk early.
-// * "repeat" scales the B register before the mma instead: K row r of K
-//   block kb takes scale row kb * P + (r mod P), P = bk / g, so the two
-//   halves of a register take different rows. The K block's P rows of the
-//   block's columns are staged in shared memory (4 KB at bk 1024, g 64)
-//   when the K block starts, prefetched into L2 a chunk early.
+// * "expand" scales the B register before the mma instead, by s[k // g]
+//   with one __hmul2 (bf16(bf16(T[c]) * s), one rounding): a step lies in
+//   one group, so both halves take the open group's row. The B fragment's
+//   columns are n-slot g of each tile, columns 4g + e: a lane's 4 scales of
+//   a group are 4 consecutive columns, one 8-byte load, issued a group
+//   ahead. The products go straight into the running f32 sum. "none" reads
+//   no scales.
+// * "repeat" scales the B register too, but K row r of K block kb takes
+//   scale row kb * P + (r mod P), P = bk / g, so the two halves of a
+//   register take different rows. The K block's P rows of the block's
+//   columns are staged in shared memory (4 KB at bk 1024, g 64) when the K
+//   block starts, prefetched into L2 a chunk early.
 // * Split-K only at multiples of lcm(chunk, g) K rows, so a group never
 //   straddles two splits; the splits' f32 sums go to a workspace
 //   [splits, M, N] that split_reduce_kernel adds in split order (no
 //   atomics: a repeat call gives the same bits). The split is planned from
 //   N, K and g (flute_tpu_torch/lab/ops.py::lab_splits).
 //
+// Numerics contract: 16-bit operands, f32 sums in the tensor core (a k16
+// step's products) and in IEEE f32 (partials, epilogue, splits), no flush
+// to zero, no atomics. Against the plain versions, which sum in another f32
+// order, results agree within the bf16 threshold; with x the identity every
+// output is one product, so they agree bit for bit.
+//
 // A Decoder provides
-//   Decoder(const float* table)      its table, from the f32 table (or none)
-//   void pairs(wa, wb, i, b0, b1)    field i (byte i) of plane words wa and wb
-//                                    (word rows 8q + t and 8q + 4 + t of one
-//                                    column) as the step's two B registers,
-//                                    before any scale.
+//   kPlanes                    planes it reads: 1 (a 4-bit pair plane
+//                              [K/8, N]) or 2 (two 2-bit pair planes
+//                              [K/16, N], Args::plane and Args::plane_b)
+//   kFieldBits                 bits of a field, one pair row: 8 or 4
+//   kProducts                  mma products a step and column: 1 or 2
+//   Decoder(const Args& a)     its tables, from the f32 tables (or none)
+//   void pairs(w, i, b)        field i of words w[2 * kPlanes] (word rows
+//                              8q + t and 8q + 4 + t of one column, plane
+//                              by plane) as the step's B registers
+//                              b[kProducts][2], before any scale.
 
 #pragma once
 
@@ -74,7 +104,7 @@ constexpr int kThreads = 128;                          // 4 warps
 constexpr int kBlockN = 128;                           // columns per block, 32 per warp
 constexpr int kRows = 16;                              // rows of x per block
 constexpr int kChunk = 256;                            // the lab's pack chunk
-constexpr int kWordRows = kChunk / 8;                  // plane word rows per chunk
+constexpr int kWordRows = kChunk / 8;                  // slot word rows per chunk
 constexpr int kSteps = kChunk / 16;                    // k16 steps per chunk
 constexpr int kXStride = kChunk + 8;                   // halves per staged x row
 constexpr int kXBytes = kRows * kXStride * 2;          // 8448
@@ -82,18 +112,20 @@ constexpr int kWBytes = kWordRows * kBlockN * 4;       // 16384
 constexpr int kSlotBytes = kXBytes + kWBytes;          // one chunk of the ring
 constexpr uint32_t kOnes = 0x3F803F80u;                // bf16 (1, 1)
 
-enum Scaling { kGroupAcc, kAffine, kRepeat };
+enum Scaling { kGroupAcc, kAffine, kRepeat, kExpand, kNone };
 
 struct Args {
   const bf16* x;           // [M, K], 16-byte aligned
-  const uint32_t* plane;   // [K / 8, N]
+  const uint32_t* plane;   // [K / 8, N], or plane A [K / 16, N] of two
+  const uint32_t* plane_b; // plane B [K / 16, N] of two, or null
   const bf16* scales;      // [K / g, N]
   const float* table;      // the decoder's table, or null
+  const float* table_b;    // plane B's table, or null
   bf16* y;                 // [M, N]
   float* work;             // [splits, M, N], or null with one split
   int M, N, K, g, bk, chunks_per_split;
   float zero, delta;       // int4's affine table
-  int vec_w;               // 16-byte plane copies (N % 4 == 0, aligned plane)
+  int vec_w;               // 16-byte plane copies (N % 4 == 0, aligned planes)
   int vec_s;               // 8-byte scale loads (N % 4 == 0, aligned scales)
   int vec_s16;             // 16-byte scale-row copies (N % 8 == 0, aligned scales)
 };
@@ -128,6 +160,18 @@ inline size_t smem_bytes(int scale_rows) {
 
 template <typename Decoder, int SCALING>
 __global__ void __launch_bounds__(kThreads, 4) lab_mma_kernel(const Args a) {
+  constexpr int kPlanes = Decoder::kPlanes;
+  constexpr int kProducts = Decoder::kProducts;
+  constexpr int kFields = 32 / Decoder::kFieldBits;   // fields a word
+  constexpr int kQ = kSteps / kFields;                // steps a field
+  constexpr int kPlaneRows = kWordRows / kPlanes;     // a plane's word rows a chunk
+  constexpr int kPlaneV = 8 / kPlanes;                // a plane's 16-byte reads a lane
+  // scaled per group: on the C fragment (a partial open) or in the B register
+  constexpr bool kGrouped = SCALING == kGroupAcc || SCALING == kAffine || SCALING == kExpand;
+  // the products go straight into the running sum
+  constexpr bool kDirect = SCALING == kRepeat || SCALING == kExpand || SCALING == kNone;
+  static_assert(kFields * kQ == kSteps && kPlaneRows == 8 * kQ, "a step's words in one field");
+
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -142,9 +186,9 @@ __global__ void __launch_bounds__(kThreads, 4) lab_mma_kernel(const Args a) {
   const int P = SCALING == kRepeat ? a.bk / a.g : 1;  // scale rows per K block
   const uint16_t* su = reinterpret_cast<const uint16_t*>(a.scales);
   bf16* srows = reinterpret_cast<bf16*>(smem + 2 * kSlotBytes);  // "repeat": [P][kBlockN]
-  const Decoder dec(a.table);
+  const Decoder dec(a);
 
-  // chunk c into ring slot s: x rows m0.., then the plane words
+  // chunk c into ring slot s: x rows m0.., then the planes' words
   auto stage = [&](int c, int s) {
     bf16* xd = reinterpret_cast<bf16*>(smem + s * kSlotBytes);
     for (int idx = tid; idx < kRows * (kChunk / 8); idx += kThreads) {
@@ -161,13 +205,15 @@ __global__ void __launch_bounds__(kThreads, 4) lab_mma_kernel(const Args a) {
       const int j = idx / (kBlockN / 4);
       const int p = idx - j * (kBlockN / 4);
       const int n = nb + 4 * p;
-      const uint32_t* src = a.plane + (static_cast<size_t>(c) * kWordRows + j) * a.N + n;
+      const uint32_t* plane = kPlanes == 2 && j >= kPlaneRows ? a.plane_b : a.plane;
+      const int row = kPlanes == 1 ? j : j % kPlaneRows;  // the plane's word row of the chunk
+      const uint32_t* src = plane + (static_cast<size_t>(c) * kPlaneRows + row) * a.N + n;
       uint32_t* dst = wd + j * kBlockN + 4 * (p ^ (2 * (j & 3)));
       if (a.vec_w) {
-        mma::cp_async16(dst, n < a.N ? src : a.plane, n < a.N);
+        mma::cp_async16(dst, n < a.N ? src : plane, n < a.N);
       } else {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) cp_async4(dst + e, n + e < a.N ? src + e : a.plane, n + e < a.N);
+        for (int e = 0; e < 4; ++e) cp_async4(dst + e, n + e < a.N ? src + e : plane, n + e < a.N);
       }
     }
     mma::cp_async_commit();
@@ -206,16 +252,25 @@ __global__ void __launch_bounds__(kThreads, 4) lab_mma_kernel(const Args a) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) xsum[i] = 0.f;
 
-  // the open group: its index, its steps left, and this lane's 8 scales of
-  // it (columns nw + 8t + 0..3 and + 4..7)
+  // the open group: its index, its steps left, and this lane's scales of
+  // it: 8 on the C fragment (columns nw + 8t + 0..3 and + 4..7), or
+  // ("expand") 4 on the B fragment (columns nw + 4g + 0..3) with the next
+  // group's 4 loaded a group ahead
   const int steps_per_group = a.g / 16;
   const int gi_end = c_end * (kChunk / 16) / steps_per_group;
   int gi = c0 * (kChunk / 16) / steps_per_group;
   int left = steps_per_group;
-  uint2 sg[2];
-  if constexpr (SCALING != kRepeat) {
+  uint2 sg[2], sn;
+  uint32_t sb[4];
+  if constexpr (SCALING == kGroupAcc || SCALING == kAffine) {
     sg[0] = mma::load_scales(su, gi, nw + 8 * t, a.N, a.vec_s);
     sg[1] = mma::load_scales(su, gi, nw + 8 * t + 4, a.N, a.vec_s);
+  }
+  if constexpr (SCALING == kExpand) {
+    sg[0] = mma::load_scales(su, gi, nw + 4 * g, a.N, a.vec_s);
+    sn = gi + 1 < gi_end ? mma::load_scales(su, gi + 1, nw + 4 * g, a.N, a.vec_s) : sg[0];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sb[e] = mma::scale2(sg[0], e);
   }
 
   stage(c0, 0);
@@ -230,7 +285,7 @@ __global__ void __launch_bounds__(kThreads, 4) lab_mma_kernel(const Args a) {
       const int k1 = (c + 1) * kChunk;  // the next chunk's first K row
       if constexpr (SCALING == kRepeat) {
         if (k1 % a.bk == 0) prefetch_rows(k1 / a.bk * P, k1 / a.bk * P + P - 1);
-      } else {
+      } else if constexpr (SCALING != kNone) {
         prefetch_rows(k1 / a.g, (k1 + kChunk - 1) / a.g);
       }
     }
@@ -242,7 +297,7 @@ __global__ void __launch_bounds__(kThreads, 4) lab_mma_kernel(const Args a) {
       __syncthreads();
     }
 
-    // this lane's words of the chunk: word rows 4v + t, v = 2q + h
+    // this lane's words of the chunk: slot word rows 4v + t, plane v / kPlaneV
     const uint32_t* ws = reinterpret_cast<const uint32_t*>(smem + s * kSlotBytes + kXBytes);
     uint4 wv[8];
 #pragma unroll
@@ -252,15 +307,21 @@ __global__ void __launch_bounds__(kThreads, 4) lab_mma_kernel(const Args a) {
     const bf16* xb = reinterpret_cast<const bf16*>(smem + s * kSlotBytes);
 
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < kFields; ++i) {
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int step = c * kSteps + 4 * i + q;  // K rows 16 step .. 16 step + 15
-        uint32_t b[4][2];
+      for (int q = 0; q < kQ; ++q) {
+        const int step = c * kSteps + kQ * i + q;  // K rows 16 step .. 16 step + 15
+        uint32_t b[4][kProducts][2];
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          dec.pairs(mma::word_of(wv[2 * q], e), mma::word_of(wv[2 * q + 1], e), i, b[e][0],
-                    b[e][1]);
+        for (int e = 0; e < 4; ++e) {
+          uint32_t w[2 * kPlanes];
+#pragma unroll
+          for (int p = 0; p < kPlanes; ++p) {
+            w[2 * p] = mma::word_of(wv[kPlaneV * p + 2 * q], e);
+            w[2 * p + 1] = mma::word_of(wv[kPlaneV * p + 2 * q + 1], e);
+          }
+          dec.pairs(w, i, b[e]);
+        }
         if constexpr (SCALING == kRepeat) {
           // K rows 2t, 2t + 1 (b0) and 2t + 8, 2t + 9 (b1) of the step
           const int r0 = (16 * step + 2 * t) % P;
@@ -273,43 +334,69 @@ __global__ void __launch_bounds__(kThreads, 4) lab_mma_kernel(const Args a) {
           const uint2 s8 = *reinterpret_cast<const uint2*>(sc + r8 * kBlockN);
           const uint2 s9 = *reinterpret_cast<const uint2*>(sc + r9 * kBlockN);
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            b[e][0] = mma::Pack2<bf16>::mul(b[e][0], pair_of(s0, s1, e));
-            b[e][1] = mma::Pack2<bf16>::mul(b[e][1], pair_of(s8, s9, e));
-          }
+          for (int e = 0; e < 4; ++e)
+#pragma unroll
+            for (int p = 0; p < kProducts; ++p) {
+              b[e][p][0] = mma::Pack2<bf16>::mul(b[e][p][0], pair_of(s0, s1, e));
+              b[e][p][1] = mma::Pack2<bf16>::mul(b[e][p][1], pair_of(s8, s9, e));
+            }
+        }
+        if constexpr (SCALING == kExpand) {  // the open group's row, both halves
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+#pragma unroll
+            for (int p = 0; p < kProducts; ++p) {
+              b[e][p][0] = mma::Pack2<bf16>::mul(b[e][p][0], sb[e]);
+              b[e][p][1] = mma::Pack2<bf16>::mul(b[e][p][1], sb[e]);
+            }
         }
         uint32_t af[4];
-        mma::ldmatrix_x4(af, xb + (lane & 15) * kXStride + 16 * (4 * i + q) + 8 * (lane >> 4));
-        if constexpr (SCALING == kRepeat) {
+        mma::ldmatrix_x4(af, xb + (lane & 15) * kXStride + 16 * (kQ * i + q) + 8 * (lane >> 4));
+        if constexpr (kDirect) {
 #pragma unroll
-          for (int e = 0; e < 4; ++e) mma::mma16816<bf16>(acc[e], af, b[e][0], b[e][1]);
-        } else {
+          for (int p = 0; p < kProducts; ++p)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) mma::mma16816<bf16>(part[e], af, b[e][0], b[e][1]);
+            for (int e = 0; e < 4; ++e) mma::mma16816<bf16>(acc[e], af, b[e][p][0], b[e][p][1]);
+        } else {  // plane A's products, then plane B's, into the open partial
+#pragma unroll
+          for (int p = 0; p < kProducts; ++p)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) mma::mma16816<bf16>(part[e], af, b[e][p][0], b[e][p][1]);
           if constexpr (SCALING == kAffine) mma::mma16816<bf16>(xsum, af, kOnes, kOnes);
-          if (--left == 0) {  // the group ends: its partial into the sum
+        }
+        if constexpr (kGrouped) {
+          if (--left == 0) {  // the group ends
+            if constexpr (SCALING == kExpand) {  // the next group's scales, loaded a group ago
+              left = steps_per_group;
+              ++gi;
+              sg[0] = sn;
 #pragma unroll
-            for (int e = 0; e < 4; ++e) {
+              for (int e = 0; e < 4; ++e) sb[e] = mma::scale2(sg[0], e);
+              if (gi + 1 < gi_end) sn = mma::load_scales(su, gi + 1, nw + 4 * g, a.N, a.vec_s);
+            } else {  // its partial into the sum
 #pragma unroll
-              for (int i2 = 0; i2 < 4; ++i2) {
-                const float sv = bf16_bits(half_of(sg[i2 & 1], e));  // column 8t + 4(i2&1) + e
-                float term;
-                if constexpr (SCALING == kAffine) {
-                  term = __fadd_rn(__fmul_rn(part[e][i2], __fmul_rn(sv, a.delta)),
-                                   __fmul_rn(xsum[i2 & 2], __fmul_rn(sv, a.zero)));
-                } else {
-                  term = __fmul_rn(part[e][i2], sv);
+              for (int e = 0; e < 4; ++e) {
+#pragma unroll
+                for (int i2 = 0; i2 < 4; ++i2) {
+                  const float sv = bf16_bits(half_of(sg[i2 & 1], e));  // column 8t + 4(i2&1) + e
+                  float term;
+                  if constexpr (SCALING == kAffine) {
+                    term = __fadd_rn(__fmul_rn(part[e][i2], __fmul_rn(sv, a.delta)),
+                                     __fmul_rn(xsum[i2 & 2], __fmul_rn(sv, a.zero)));
+                  } else {
+                    term = __fmul_rn(part[e][i2], sv);
+                  }
+                  acc[e][i2] = __fadd_rn(acc[e][i2], term);
+                  part[e][i2] = 0.f;
                 }
-                acc[e][i2] = __fadd_rn(acc[e][i2], term);
-                part[e][i2] = 0.f;
               }
-            }
 #pragma unroll
-            for (int i2 = 0; i2 < 4; ++i2) xsum[i2] = 0.f;
-            left = steps_per_group;
-            if (++gi < gi_end) {  // the next group's scales, used when it ends
-              sg[0] = mma::load_scales(su, gi, nw + 8 * t, a.N, a.vec_s);
-              sg[1] = mma::load_scales(su, gi, nw + 8 * t + 4, a.N, a.vec_s);
+              for (int i2 = 0; i2 < 4; ++i2) xsum[i2] = 0.f;
+              left = steps_per_group;
+              if (++gi < gi_end) {  // the next group's scales, used when it ends
+                sg[0] = mma::load_scales(su, gi, nw + 8 * t, a.N, a.vec_s);
+                sg[1] = mma::load_scales(su, gi, nw + 8 * t + 4, a.N, a.vec_s);
+              }
             }
           }
         }
@@ -350,20 +437,24 @@ inline int split_unit(int g) { return kChunk / gcd(kChunk, g) * g; }
 // dividing K's units, more than one split without a workspace, x not
 // 16-byte aligned; with a bk ("repeat"), bk not a multiple of the chunk and
 // of g or not dividing K.
-inline bool make_args(Args& a, const void* x, const void* plane, const void* scales,
-                      const void* table, void* y, void* work, int M, int N, int K, int g, int bk,
-                      int splits, float zero, float delta) {
+// plane_b and table_b are plane B's and its table (two planes), or null.
+inline bool make_args(Args& a, const void* x, const void* plane, const void* plane_b,
+                      const void* scales, const void* table, const void* table_b, void* y,
+                      void* work, int M, int N, int K, int g, int bk, int splits, float zero,
+                      float delta) {
   if (M <= 0 || N <= 0 || K <= 0 || !takes(g) || K % split_unit(g) || splits < 1 ||
       (K / split_unit(g)) % splits || (splits > 1 && work == nullptr) ||
       reinterpret_cast<uintptr_t>(x) % 16)
     return false;
   if (bk != 0 && (bk < 0 || bk % kChunk || bk % g || K % bk)) return false;
-  const uintptr_t pp = reinterpret_cast<uintptr_t>(plane);
+  const uintptr_t pp = reinterpret_cast<uintptr_t>(plane) | reinterpret_cast<uintptr_t>(plane_b);
   const uintptr_t sp = reinterpret_cast<uintptr_t>(scales);
   a = Args{static_cast<const bf16*>(x),
            static_cast<const uint32_t*>(plane),
+           static_cast<const uint32_t*>(plane_b),
            static_cast<const bf16*>(scales),
            static_cast<const float*>(table),
+           static_cast<const float*>(table_b),
            static_cast<bf16*>(y),
            splits > 1 ? static_cast<float*>(work) : nullptr,
            M, N, K, g, bk, K / kChunk / splits,

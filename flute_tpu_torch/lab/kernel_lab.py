@@ -13,13 +13,13 @@ Variants (the names of the JAX lab's ``main``):
   gather16     L3: the reference dequantization, x split in even/odd K.
   g8_full, g8_nochain, g8_wrap, g8_noscale, g8_bare
                L4: the 8-entry lookup with or without the group select
-               (chain), the scale, and the v5e's index wrap.
+               (chain), the scale, and the v5e's index wrap, on the lab's
+               tensor-core loop (``csrc/lab_mma.cuh``).
   g8_repeat, g8_groupacc
                L5: scales tiled per K block, or per-group sums times s.
   g8_hoist, g8_hoist_ga
                L6: L5 with both table halves read for every code, on the
-               lab's tensor-core loop (``csrc/lab_mma.cuh``; the others
-               run SIMT kernels).
+               lab's tensor-core loop (L1-L3 and L5 run SIMT kernels).
   gather8      K2, the package's plane kernel (``lut_qgemm``).
   pairlut      K4, ``lut_qgemm`` with ``lut_mode="pair_lut"``.
 

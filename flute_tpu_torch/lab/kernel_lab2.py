@@ -13,10 +13,10 @@ by default):
               (no ce/co split); the chunk's operand goes through shared
               memory before the products.
   sep, sep1   L9: a separable table T[c] = A[c & 3] + B[c >> 2] over two
-              2-bit planes: two products, or one on the bf16 sum.
+              2-bit planes: two products, or one on the bf16 sum, on the
+              lab's tensor-core loop (``csrc/lab_mma.cuh``).
   int4        L10: the affine table T[c] = z + c·δ, no lookup, on the lab's
-              tensor-core loop (``csrc/lab_mma.cuh``; the others run SIMT
-              kernels).
+              tensor-core loop (the others run SIMT kernels).
   slabstream  L11: L8's function, each decoded pair fed to its products in
               registers.
   w3wide      L12: the wide 3-bit layout (3-bit codes drawn after x).

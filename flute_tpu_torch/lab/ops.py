@@ -36,13 +36,14 @@ where said. Dispatch is by ``x``'s device: on the CPU the plain PyTorch
 version, on CUDA the Hopper kernel of ``csrc/kernel_lab.cu`` (one C entry per
 function), which raises if it cannot be built or launched.
 
-Two kernel designs: ``g8_hoist`` at a group size that is a multiple of 16
-runs the lab's tensor-core loop (``csrc/lab_mma.cuh``, path ``"mma"``, with a
-split-K that :func:`lab_splits` chooses from N, K and g); every other call the
-SIMT kernel (path ``"simt"``). The path is chosen from g before the launch
-(:func:`lab_path`), never after a failure, and :data:`LAST_PATH` records the
-path of each function's last launch. Neither path falls back to the plain
-version. (``lab/ops2.py``'s ``int4`` shares the loop and the split.)
+Two kernel designs: ``g8_ablate`` and ``g8_hoist`` at a group size that is
+a multiple of 16 run the lab's tensor-core loop (``csrc/lab_mma.cuh``, path
+``"mma"``, with a split-K that :func:`lab_splits` chooses from N, K and g);
+every other call the SIMT kernel (path ``"simt"``). The path is chosen from g
+before the launch (:func:`lab_path`), never after a failure, and
+:data:`LAST_PATH` records the path of each function's last launch. Neither
+path falls back to the plain version. (``lab/ops2.py``'s ``sep`` and
+``int4`` share the loop and the split.)
 """
 
 from __future__ import annotations
@@ -226,15 +227,15 @@ PLAIN: dict[str, Callable] = {
 
 
 def lab_path(g: int) -> str:
-    """The kernel a redesigned lab function (L6 ``g8_hoist``, L10 ``int4``)
-    runs, from the group size alone: ``"mma"``, the tensor-core loop, where
+    """The kernel a redesigned lab function (:data:`MMA_FUNCTIONS` here and
+    in ``lab/ops2.py``) runs, from the group size alone: ``"mma"``, the tensor-core loop, where
     ``g`` is a multiple of 16 (a k16 step then lies inside one group);
     ``"simt"``, the SIMT kernel, otherwise (``g = 2``)."""
     return "mma" if g > 0 and g % MMA_STEP == 0 else "simt"
 
 
 def lab_splits(n: int, k: int, g: int) -> int:
-    """The splits of K among the blocks (blockIdx.y) of L6 or L10 for ``N``,
+    """The splits of K among the blocks (blockIdx.y) of the loop for ``N``,
     ``K`` and ``g``, never M: one on the SIMT path; on the loop, splits at
     multiples of ``lcm(256, g)`` only (a group never straddles two splits),
     the fewest that give
@@ -266,17 +267,17 @@ def loop_operands(x: torch.Tensor, g: int, splits: int, n: int):
 
 # function -> (C entry, pointer arguments, int arguments) before the stream:
 # x, plane[, scales, table], y[, work], then M, N, K, bk[, g[, flags]][,
-# splits] (g8_hoist: the loop's workspace and splits)
+# splits] (g8_ablate and g8_hoist: the loop's workspace and splits)
 _ENTRIES = {
     "floor": ("flute_lab_floor", 3, 4),
     "unpack_only": ("flute_lab_unpack_only", 3, 4),
     "gather16": ("flute_lab_gather16", 5, 5),
-    "g8_ablate": ("flute_lab_g8_ablate", 5, 7),
+    "g8_ablate": ("flute_lab_g8_ablate", 6, 8),
     "g8_rs": ("flute_lab_g8_rs", 5, 6),
     "g8_hoist": ("flute_lab_g8_hoist", 6, 7),
 }
 # the functions with a tensor-core path
-MMA_FUNCTIONS = ("g8_hoist",)
+MMA_FUNCTIONS = ("g8_ablate", "g8_hoist")
 
 
 @functools.lru_cache(maxsize=None)
@@ -403,7 +404,8 @@ def g8_ablate(x, planes, scales, table, bm, bn, bk, g, *, chain: bool, scale: bo
               wrap: bool) -> torch.Tensor:
     """L4, ``run_g8_ablate``: ``T[c]`` (``chain``) or ``T[c & 7]``, scaled
     with ``scale``; ``wrap`` selects the same entries as the mask (the v5e's
-    mod-8 index wrap)."""
+    mod-8 index wrap). On the tensor-core loop where 16 divides g
+    (:func:`lab_path`)."""
     return _run("g8_ablate", x, planes, scales, table, bm, bn, bk, g,
                 flags=(int(chain), int(scale)), chain=chain, scale=scale, wrap=wrap)
 

@@ -37,10 +37,10 @@ sizes: they are checked as the TPU grid needs them (``M % bm``, ``N % bn``,
 here scales per group. Dispatch is by the first tensor's device: on the CPU
 the plain PyTorch version, on CUDA the Hopper kernel of
 ``csrc/kernel_lab2.cu`` (one C entry per TPU function), which raises if it
-cannot be built or launched. ``int4`` at a group size that is a multiple of
-16 runs the lab's tensor-core loop (``csrc/lab_mma.cuh``, path ``"mma"``,
-split as ``ops.lab_splits`` says), every other call the SIMT kernel
-(``"simt"``), chosen from g before the launch (``ops.lab_path``);
+cannot be built or launched. ``sep`` and ``int4`` at a group size that is a
+multiple of 16 run the lab's tensor-core loop (``csrc/lab_mma.cuh``, path
+``"mma"``, split as ``ops.lab_splits`` says), every other call the SIMT
+kernel (``"simt"``), chosen from g before the launch (``ops.lab_path``);
 :data:`LAST_PATH` records the path of each function's last launch.
 """
 
@@ -63,7 +63,7 @@ LAUNCHES = {"vmembw": 0, "pfdirect": 0, "sep": 0, "int4": 0, "slabstream": 0, "w
 # "simt".
 LAST_PATH: dict[str, str] = {}
 # the functions with a tensor-core path
-MMA_FUNCTIONS = ("int4",)
+MMA_FUNCTIONS = ("sep", "int4")
 
 SOURCE = "kernel_lab2.cu"
 # plane word rows per K row, and table entries, of each GEMM's operands
@@ -150,7 +150,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ENTRIES = {
     "vmembw": ("flute_lab2_vmembw", [_P, _P, _I, _I]),
     "pfdirect": ("flute_lab2_pfdirect", [_P] * 5 + [_I] * 4),
-    "sep": ("flute_lab2_sep", [_P] * 7 + [_I] * 5),
+    # x, planes A and B, scales, tables A and B, y, the loop's workspace; M,
+    # N, K, g, one_mm, splits
+    "sep": ("flute_lab2_sep", [_P] * 8 + [_I] * 6),
     # x, plane, scales, y, the loop's workspace; M, N, K, g; zero, delta; splits
     "int4": ("flute_lab2_int4", [_P] * 5 + [_I] * 4 + [_F] * 2 + [_I]),
     "slabstream": ("flute_lab2_slabstream", [_P] * 5 + [_I] * 4),
@@ -261,8 +263,12 @@ def _sep(x, planes_a, planes_b, scales, table_a, table_b, bm, bn, bk, g, one_mm,
     if not kernel:
         return sep_plain(x, pa, pb, scales, ta, tb, g, one_mm=one_mm)
     m, k = x.shape
+    n = scales.shape[1]
+    splits = lab_splits(n, k, g)
+    x, ws = loop_operands(x.contiguous(), g, splits, n)
     return _launch("sep", _gemm_out(x, scales), [x, pa, pb, scales, ta, tb],
-                   [m, scales.shape[1], k, g, int(bool(one_mm))])
+                   [None if ws is None else ws.data_ptr(), m, n, k, g, int(bool(one_mm)), splits],
+                   path=lab_path(g))
 
 
 def _int4(x, planes, scales, bm, bn, bk, g, zero, delta, *, kernel: bool):
@@ -314,7 +320,8 @@ def w3wide(x, planes, scales, table, bm, bn, bk, g) -> torch.Tensor:
 def sep(x, planes_a, planes_b, scales, table_a, table_b, bm, bn, bk, g, one_mm: bool
         ) -> torch.Tensor:
     """L9, ``run_sep``: ``T[c] = A[c & 3] + B[c >> 2]`` over two 2-bit
-    planes; two products (``one_mm=False``) or one on the bf16 sum."""
+    planes; two products (``one_mm=False``) or one on the bf16 sum (on the
+    tensor-core loop where 16 divides g: ``ops.lab_path``)."""
     return _sep(x, planes_a, planes_b, scales, table_a, table_b, bm, bn, bk, g, one_mm,
                 kernel=_on_card(x))
 

@@ -1,8 +1,8 @@
 """Card-only checks of the port: each LUT-GEMM kernel (K1 w4sym, K2 plane at
 2/3/4 bits, K3 w3wide, K4 joint pair lookup; K1-K3 on the tensor-core loop
 and on their SIMT kernel), each paged-attention kernel
-(K5 decode, K6 verify) and each kernel of the Hopper lab (L1-L12; L6 and L10
-on the lab's tensor-core loop and on their SIMT kernel) against its
+(K5 decode, K6 verify) and each kernel of the Hopper lab (L1-L12; L4, L6,
+L9 and L10 on the lab's tensor-core loop and on their SIMT kernel) against its
 plain version on the same CUDA tensors, and the models (Llama, Gemma-2),
 Engine and PagedEngine through the kernels, with their decode step replayed
 from a CUDA graph and held bit for bit against the eager step.
@@ -1066,33 +1066,36 @@ def test_lab2_main_on_the_card(capsys):
 
 
 # ---------------------------------------------------------------------------
-# L6 and L10 on the lab's tensor-core loop (csrc/lab_mma.cuh)
+# L4, L6, L9 and L10 on the lab's tensor-core loop (csrc/lab_mma.cuh)
 # ---------------------------------------------------------------------------
 
-LOOP_VARIANTS = ("g8_hoist group_acc", "g8_hoist repeat", "int4")
+# L6 in its two scale modes, L10, L4's four distinct flag sets (g8_wrap's
+# are g8_nochain's entries) and L9's two modes
+LOOP_VARIANTS = ("g8_hoist group_acc", "g8_hoist repeat", "int4", "g8_ablate full",
+                 "g8_ablate nochain", "g8_ablate noscale", "g8_ablate bare", "sep", "sep1")
 
 
 def loop_call(dev, variant, m, g, k=LAB_K, eye=False, n=LAB_N):
-    """(function name, its launch counter, a call, its plain version) of L6 in
-    a scale mode or of L10 at group size ``g`` (x the identity with ``eye``:
-    M = K)."""
+    """(function name, its module, a call, its plain version) of a loop
+    variant at group size ``g`` (x the identity with ``eye``: M = K)."""
     bk = max(512, g)
     bm = 16 if eye else m
-    if variant == "int4":
+    if variant in ("int4", "sep", "sep1"):
         inp = kernel_lab2.make_inputs(m, n, k, g=g, device=dev, w3=False)
         if eye:
             inp.x = torch.eye(k, dtype=torch.bfloat16, device=dev)
-        _, args = kernel_lab2.lab_call("int4", inp, kernel_lab2.operands("int4", inp), bm, n,
-                                       bk, g=g)
-        return "int4", ops2, (lambda: ops2.int4(*args)), (lambda: ops2.plain("int4", *args))
-    mode = variant.split()[1]
+        fn, args = kernel_lab2.lab_call(variant, inp, kernel_lab2.operands(variant, inp), bm, n,
+                                        bk, g=g)
+        return fn, ops2, (lambda: ops2.FUNCTIONS[fn](*args)), (lambda: ops2.plain(fn, *args))
+    fn, mode = variant.split()
+    flags = (dict(scale_mode=mode) if fn == "g8_hoist"
+             else kernel_lab.VARIANTS["g8_" + mode][1])
     _, planes, scales, table, x = kernel_lab.make_inputs(m, n, k, 4, g, device=dev)
     if eye:
         x = torch.eye(k, dtype=torch.bfloat16, device=dev)
-    return ("g8_hoist", lab,
-            lambda: lab.g8_hoist(x, planes, scales, table, bm, n, bk, g, mode),
-            lambda: lab.plain("g8_hoist", x, planes, scales, table, bm, n, bk, g,
-                              scale_mode=mode))
+    return (fn, lab,
+            lambda: lab.run(fn, x, planes, scales, table, bm, n, bk, g, **flags),
+            lambda: lab.plain(fn, x, planes, scales, table, bm, n, bk, g, **flags))
 
 
 @pytest.mark.parametrize("variant", LOOP_VARIANTS)
@@ -1117,8 +1120,9 @@ def test_lab_loop_vs_plain(dev, m, g, variant):
 
 @pytest.mark.parametrize("variant", LOOP_VARIANTS)
 def test_lab_loop_narrow_copies(dev, variant):
-    """N = 50, not a multiple of 4: the loop stages the plane in 4-byte
-    copies and loads and stages the scales 2 bytes at a time."""
+    """N = 50, not a multiple of 4: the loop stages the plane (sep: both
+    planes) in 4-byte copies and loads and stages the scales 2 bytes at a
+    time."""
     fn, mod, call, plain = loop_call(dev, variant, 16, 64, n=50)
     y = call()
     assert mod.LAST_PATH[fn] == "mma"
@@ -1163,7 +1167,7 @@ BAD_LAUNCHES = {
 
 
 @pytest.mark.parametrize("case", list(BAD_LAUNCHES))
-@pytest.mark.parametrize("fn", ["g8_hoist", "int4"])
+@pytest.mark.parametrize("fn", ["g8_hoist", "int4", "g8_ablate", "sep"])
 def test_lab_loop_refuses_bad_launches(dev, fn, case):
     """The C entry refuses a launch it cannot run (cudaErrorInvalidValue)
     and writes nothing."""
@@ -1174,17 +1178,45 @@ def test_lab_loop_refuses_bad_launches(dev, fn, case):
     ptrs = [inp.x.data_ptr(), inp.planes[0].data_ptr(), inp.scales.data_ptr()]
     wp = work.data_ptr() if with_work else None
     stream = torch.cuda.current_stream(dev).cuda_stream
+    table = inp.table.float().contiguous()
     if fn == "int4":
         entry, _ = ops2._kernel_fn("int4")
         err = entry(*ptrs, y.data_ptr(), wp, 16, LAB_N, k, g, -0.4, 0.05, splits, stream)
+    elif fn == "sep":
+        entry, _ = ops2._kernel_fn("sep")
+        err = entry(inp.x.data_ptr(), inp.planes_a[0].data_ptr(), inp.planes_b[0].data_ptr(),
+                    inp.scales.data_ptr(), inp.sep_a.data_ptr(), inp.sep_b.data_ptr(),
+                    y.data_ptr(), wp, 16, LAB_N, k, g, 0, splits, stream)
+    elif fn == "g8_ablate":
+        entry, _ = lab._kernel_fn("g8_ablate")
+        err = entry(*ptrs, table.data_ptr(), y.data_ptr(), wp, 16, LAB_N, k, k, g, 1, 1, splits,
+                    stream)
     else:
         entry, _ = lab._kernel_fn("g8_hoist")
-        table = inp.table.float().contiguous()
         err = entry(*ptrs, table.data_ptr(), y.data_ptr(), wp, 16, LAB_N, k, k, g, 1, splits,
                     stream)
     torch.cuda.synchronize()
     assert err == 1  # cudaErrorInvalidValue
     assert bool((y == 7.0).all())
+
+
+@pytest.mark.parametrize("fn", ["g8_ablate", "sep"])
+def test_lab_loop_refused_launch_raises(dev, fn):
+    """A launch the C entry refuses (a bk that is not a multiple of the
+    chunk; an odd g) raises through the wrapper's launch and is not
+    counted."""
+    inp = kernel_lab2.make_inputs(16, LAB_N, LAB_K, device=dev, w3=False)
+    mod = lab if fn == "g8_ablate" else ops2
+    before, paths = dict(mod.LAUNCHES), dict(mod.LAST_PATH)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        if fn == "g8_ablate":
+            lab._launch("g8_ablate", inp.x, inp.planes[0], inp.scales, inp.table.float(), 384,
+                        G, (1, 1))
+        else:
+            out = torch.empty((16, LAB_N), dtype=torch.bfloat16, device=dev)
+            ops2._launch("sep", out, [inp.x, inp.planes_a[0], inp.planes_b[0], inp.scales,
+                                      inp.sep_a, inp.sep_b], [None, 16, LAB_N, LAB_K, 3, 0, 1])
+    assert mod.LAUNCHES == before and mod.LAST_PATH == paths
 
 
 # ---------------------------------------------------------------------------

@@ -18,11 +18,11 @@ bk 512 too. Tolerance: relative Frobenius error under 1.1e-2 (bf16).
   the mask (``wrap=False``) and to a numpy oracle on ``T[c & 7]``, and a
   separate test pins the interpreter's clamp.
 
-The host side of L6's tensor-core loop (``lab.lab_path``, ``lab.lab_splits``:
-the path from g, splits of K at ``lcm(256, g)``, the refusals) is checked
-here, and L6's plain version against the JAX lab at the loop's other group
-sizes. The kernels against these plain versions on the card are in
-``test_torch_cuda.py``.
+The host side of L4's and L6's tensor-core loop (``lab.lab_path``,
+``lab.lab_splits``: the path from g, splits of K at ``lcm(256, g)``, the
+refusals) is checked here, and their plain versions against the JAX lab at
+the loop's other group sizes. The kernels against these plain versions on
+the card are in ``test_torch_cuda.py``.
 """
 
 import functools
@@ -224,17 +224,27 @@ def test_lab_checks_like_the_grid(port_inputs, case):
 
 
 # ---------------------------------------------------------------------------
-# L6's tensor-core loop: the host-side plan (the kernel is in test_torch_cuda.py)
+# L4's and L6's tensor-core loop: the host-side plan (the kernels are in
+# test_torch_cuda.py)
 # ---------------------------------------------------------------------------
+
+# the lab variants on the loop where 16 divides g: L4's four distinct flag
+# sets (g8_wrap's flags select g8_nochain's entries) and L6's two modes
+LOOP_VARIANTS = ("g8_full", "g8_nochain", "g8_noscale", "g8_bare", "g8_hoist", "g8_hoist_ga")
 
 
 @pytest.mark.parametrize("g,path", [(2, "simt"), (6, "simt"), (16, "mma"), (32, "mma"),
                                     (64, "mma"), (512, "mma")])
-def test_lab_path_from_g(g, path):
+@pytest.mark.parametrize("fn", ["g8_ablate", "g8_hoist"])
+def test_lab_path_from_g(fn, g, path):
     """The loop takes a g that is a multiple of 16 (a k16 step inside one
     group); g = 2 goes to the SIMT kernel, with one split, chosen before any
-    launch."""
-    assert lab.lab_path(g) == path
+    launch. Each function on the loop passes the C entry its workspace and
+    split (one more pointer and one more int than its SIMT arguments)."""
+    assert fn in lab.MMA_FUNCTIONS and lab.lab_path(g) == path
+    entry, n_ptr, n_int = lab._ENTRIES[fn]
+    assert entry == f"flute_lab_{fn}" and n_ptr == 6
+    assert n_int == {"g8_ablate": 8, "g8_hoist": 7}[fn]  # M N K bk g, flags, splits
     if path == "simt":
         assert lab.lab_splits(256, 1536, g) == 1
 
@@ -268,45 +278,54 @@ def test_lab_splits_at_the_lab_shape():
     assert lab.lab_splits(28672, 8192, 2) == 1
 
 
-# (g, bk) of g8_hoist calls refused before any launch, at K 512 (the
-# checks make K a multiple of lcm(256, g), which is all the loop's split
-# needs; the C entry's own refusals are card tests)
+# (g, bk) of loop calls refused before any launch, at K 512 (the checks make
+# K a multiple of lcm(256, g), which is all the loop's split needs; the C
+# entries' own refusals are card tests)
 LOOP_REFUSALS = {"odd_g": (3, 256), "zero_g": (0, 256), "bk_not_by_g": (512, 256),
                  "k_not_by_bk": (64, 768)}
 
 
 @pytest.mark.parametrize("case", list(LOOP_REFUSALS))
-def test_loop_refuses_before_launch(port_inputs, case):
+@pytest.mark.parametrize("variant", ["g8_hoist_ga", "g8_full", "g8_bare"])
+def test_loop_refuses_before_launch(port_inputs, variant, case):
     _, planes, _, table, x = port_inputs
     g, bk = LOOP_REFUSALS[case]
     scales = torch.ones(K // max(g, 1), N, dtype=torch.bfloat16)
-    launches = dict(lab.LAUNCHES)
-    with pytest.raises(ValueError):
-        lab.g8_hoist(x, planes, scales, table, M, BN, bk, g, "group_acc")
-    assert lab.LAUNCHES == launches
-
-
-def test_cpu_calls_run_the_plain_version(port_inputs):
-    """On the CPU a wrapper runs its plain version: no launch is counted and
-    no path is recorded."""
-    _, planes, scales, table, x = port_inputs
     launches, paths = dict(lab.LAUNCHES), dict(lab.LAST_PATH)
-    y = lab.g8_hoist(x, planes, scales, table, M, BN, 256, G, "group_acc")
-    assert torch.equal(y, lab.plain("g8_hoist", x, planes, scales, table, M, BN, 256, G,
-                                    scale_mode="group_acc"))
+    with pytest.raises(ValueError):
+        kernel_lab.run_variant(variant, x, planes, scales, table, M, BN, bk, g)
     assert lab.LAUNCHES == launches and lab.LAST_PATH == paths
 
 
-@pytest.mark.parametrize("mode", lab.SCALE_MODES)
+@pytest.mark.parametrize("variant", LOOP_VARIANTS)
+def test_cpu_calls_run_the_plain_version(port_inputs, variant):
+    """On the CPU a wrapper runs its plain version: no launch is counted and
+    no path is recorded."""
+    _, planes, scales, table, x = port_inputs
+    fn, flags = kernel_lab.VARIANTS[variant]
+    launches, paths = dict(lab.LAUNCHES), dict(lab.LAST_PATH)
+    y = lab.run(fn, x, planes, scales, table, M, BN, 256, G, **flags)
+    assert torch.equal(y, lab.plain(fn, x, planes, scales, table, M, BN, 256, G, **flags))
+    assert lab.LAUNCHES == launches and lab.LAST_PATH == paths
+
+
 @pytest.mark.parametrize("g,bk", [(32, 256), (512, 512)])
-def test_g8_hoist_other_group_sizes_vs_jax(jax_lab, interpret, g, bk, mode):
-    """L6's plain version against the JAX lab at the loop's other group
-    sizes: a group within a field (32) and one wider than a chunk (512)."""
+@pytest.mark.parametrize("variant", LOOP_VARIANTS)
+def test_loop_other_group_sizes_vs_jax(jax_lab, interpret, variant, g, bk):
+    """The loop's plain versions against the JAX lab at its other group
+    sizes: a group within a field (32) and one wider than a chunk (512).
+    g8_bare wraps its index on the v5e, which the interpreter clamps: the
+    JAX run takes the mask (wrap=False), the same entries."""
     mod = jax_lab[0]
     _, jplanes, jscales, jtable, jx = mod.make_inputs(M, N, K, 4, g)
-    want = np.asarray(mod.run_g8_hoist(jx, jplanes, jscales, jtable, M, BN, bk, g, mode),
-                      np.float32)
+    fn, flags = kernel_lab.VARIANTS[variant]
+    run = {"g8_ablate": mod.run_g8_ablate, "g8_hoist": mod.run_g8_hoist}[fn]
+    if fn == "g8_hoist":
+        want = run(jx, jplanes, jscales, jtable, M, BN, bk, g, flags["scale_mode"])
+    else:
+        want = run(jx, jplanes, jscales, jtable, M, BN, bk, g, **{**flags, "wrap": False})
+    want = np.asarray(want, np.float32)
     _, planes, scales, table, x = kernel_lab.make_inputs(M, N, K, 4, g, device="cpu")
-    got = lab.g8_hoist(x, planes, scales, table, M, BN, bk, g, mode).float().numpy()
+    got = kernel_lab.run_variant(variant, x, planes, scales, table, M, BN, bk, g)
     assert np.isfinite(want).all()
-    assert rel_err(got, want) < 1.1e-2
+    assert rel_err(got.float().numpy(), want) < 1.1e-2

@@ -15,10 +15,10 @@ fixture), and ``test_interpret_mode_without_the_wrap_is_not_the_reference``
 pins how far the unpatched interpreter is from the reference. No file of
 the JAX package changes.
 
-L10 (``int4``) shares L6's tensor-core loop and its plan
-(``test_torch_lab.py``); its path per g and its plain version at the loop's
-other group sizes are checked here. The kernels against these plain
-versions on the card are in ``test_torch_cuda.py``.
+L9 (``sep``) and L10 (``int4``) share L6's tensor-core loop and its plan
+(``test_torch_lab.py``); their paths per g, refusals and plain versions at
+the loop's other group sizes are checked here. The kernels against these
+plain versions on the card are in ``test_torch_cuda.py``.
 """
 
 import functools
@@ -293,52 +293,89 @@ def test_lab2_checks_like_the_grid(inputs, case):
 
 @pytest.mark.parametrize("g,path", [(2, "simt"), (16, "mma"), (32, "mma"), (64, "mma"),
                                     (512, "mma")])
-def test_int4_path_and_splits(g, path):
-    """int4 is the second lab's function on the tensor-core loop: its path
-    comes from g alone, its split from L6's (splits at lcm(256, g), one on
-    the SIMT path)."""
-    assert ops2.MMA_FUNCTIONS == ("int4",) and ops2.lab_splits is lab.lab_splits
+@pytest.mark.parametrize("fn", ["sep", "int4"])
+def test_loop_path_and_splits(fn, g, path):
+    """sep and int4 are the second lab's functions on the tensor-core loop:
+    the path comes from g alone, the split from L6's (splits at lcm(256, g),
+    one on the SIMT path), and the C entry takes the workspace and the
+    split."""
+    assert ops2.MMA_FUNCTIONS == ("sep", "int4") and ops2.lab_splits is lab.lab_splits
     assert ops2.lab_path is lab.lab_path and lab.lab_path(g) == path
+    entry, argtypes = ops2._ENTRIES[fn]
+    assert entry == f"flute_lab2_{fn}"
+    assert argtypes.count(ops2._P) == {"sep": 8, "int4": 5}[fn] and argtypes[-1] is ops2._I
     splits = ops2.lab_splits(N, 2048, g)
     assert 2048 % (splits * (math.lcm(lab.CHUNK, g) if path == "mma" else 1)) == 0
     assert path == "mma" or splits == 1
 
 
-# (g, bk) of int4 calls refused before any launch, at K 512 (the C entry's
+# (g, bk) of loop calls refused before any launch, at K 512 (the C entries'
 # own refusals are card tests)
-INT4_REFUSALS = {"odd_g": (3, 256), "zero_g": (0, 256), "bk_not_by_g": (512, 256),
+LOOP_REFUSALS = {"odd_g": (3, 256), "zero_g": (0, 256), "bk_not_by_g": (512, 256),
                  "k_not_by_bk": (64, 768)}
 
 
-@pytest.mark.parametrize("case", list(INT4_REFUSALS))
-def test_int4_refuses_before_launch(case):
-    g, bk = INT4_REFUSALS[case]
+def loop_call(name, x, codes, scales, bk, g):
+    """``sep``/``sep1`` or ``int4`` on ``x`` with ``codes`` [K, N] packed by
+    the port, the lab's tables and ``scales``, at ``bk`` and ``g``."""
+    c = torch.from_numpy(codes)
+    if name == "int4":
+        return ops2.int4(x, packing.pack_plane(c, 4), scales, M, BN, bk, g,
+                         kernel_lab2.INT4_ZERO, kernel_lab2.INT4_DELTA)
+    return ops2.sep(x, packing.pack_plane(c & 3, 2), packing.pack_plane(c >> 2, 2), scales,
+                    torch.from_numpy(kernel_lab2.SEP_A), torch.from_numpy(kernel_lab2.SEP_B),
+                    M, BN, bk, g, name == "sep1")
+
+
+@pytest.mark.parametrize("case", list(LOOP_REFUSALS))
+@pytest.mark.parametrize("name", ["sep", "int4"])
+def test_loop_refuses_before_launch(name, case):
+    g, bk = LOOP_REFUSALS[case]
     x = torch.zeros(M, 512, dtype=torch.bfloat16)
-    planes = [torch.zeros(64, N, dtype=torch.int32)]
+    codes = np.zeros((512, N), np.int32)
     scales = torch.ones(512 // max(g, 1), N, dtype=torch.bfloat16)
-    launches = dict(ops2.LAUNCHES)
+    launches, paths = dict(ops2.LAUNCHES), dict(ops2.LAST_PATH)
     with pytest.raises(ValueError):
-        ops2.int4(x, planes, scales, M, BN, bk, g, -0.4, 0.05)
-    assert ops2.LAUNCHES == launches
+        loop_call(name, x, codes, scales, bk, g)
+    assert ops2.LAUNCHES == launches and ops2.LAST_PATH == paths
 
 
-@pytest.mark.parametrize("g", [16, 32, 512])
-def test_int4_other_group_sizes_vs_jax(jax_lab, interpret, g):
-    """L10's plain version against the JAX lab at the loop's other group
-    sizes: one k16 step a group (16), two groups a field (32), a group
-    wider than a chunk (512)."""
+@pytest.mark.parametrize("name", ["sep", "sep1", "int4"])
+def test_cpu_calls_run_the_plain_version(inputs, name):
+    """On the CPU a wrapper runs its plain version: no launch is counted and
+    no path is recorded."""
+    p = inputs[M][1]
+    launches, paths = dict(ops2.LAUNCHES), dict(ops2.LAST_PATH)
+    fn, args = kernel_lab2.lab_call(name, p, kernel_lab2.operands(name, p), M, BN, 256)
+    assert torch.equal(ops2.FUNCTIONS[fn](*args), ops2.plain(fn, *args))
+    assert ops2.LAUNCHES == launches and ops2.LAST_PATH == paths
+
+
+@pytest.mark.parametrize("name,g", [("int4", 16), ("int4", 32), ("int4", 512), ("sep", 32),
+                                    ("sep", 512), ("sep1", 32), ("sep1", 512)])
+def test_loop_other_group_sizes_vs_jax(jax_lab, interpret, wrap, name, g):
+    """The loop's plain versions against the JAX lab at its other group
+    sizes: one k16 step a group (16), two groups a field of a 4-bit plane
+    (32; one field of a 2-bit plane spans 32 K rows), a group wider than a
+    chunk (512). sep's raw fields index its gathers: the v5e's wrap is
+    modelled."""
     rng = np.random.default_rng(g)
     codes = rng.integers(0, 16, size=(K, N), dtype=np.int32)
     scales = rng.uniform(0.5, 1.5, (K // g, N)).astype(np.float32)
     x = rng.standard_normal((M, K)).astype(np.float32)
-    planes = jpacking.pack_np(codes, 4, use_native=False)
+    pack = functools.partial(jpacking.pack_np, use_native=False)
     bk = max(256, g)
-    want = np.asarray(jax_lab.run_int4(
-        jnp.asarray(x, jnp.bfloat16), [jnp.asarray(q) for q in planes],
-        jnp.asarray(scales, jnp.bfloat16), M, BN, bk, g, kernel_lab2.INT4_ZERO,
-        kernel_lab2.INT4_DELTA), np.float32)
-    got = ops2.int4(torch.from_numpy(x).bfloat16(), [torch.from_numpy(q) for q in planes],
-                    torch.from_numpy(scales).bfloat16(), M, BN, bk, g, kernel_lab2.INT4_ZERO,
-                    kernel_lab2.INT4_DELTA).float().numpy()
+    jx, js = jnp.asarray(x, jnp.bfloat16), jnp.asarray(scales, jnp.bfloat16)
+    if name == "int4":
+        want = jax_lab.run_int4(jx, [jnp.asarray(q) for q in pack(codes, 4)], js, M, BN, bk, g,
+                                kernel_lab2.INT4_ZERO, kernel_lab2.INT4_DELTA)
+    else:
+        want = jax_lab.run_sep(jx, [jnp.asarray(q) for q in pack(codes & 3, 2)],
+                               [jnp.asarray(q) for q in pack(codes >> 2, 2)], js,
+                               jnp.asarray(kernel_lab2.SEP_A), jnp.asarray(kernel_lab2.SEP_B),
+                               M, BN, bk, g, name == "sep1")
+    want = np.asarray(want, np.float32)
+    got = loop_call(name, torch.from_numpy(x).bfloat16(), codes,
+                    torch.from_numpy(scales).bfloat16(), bk, g).float().numpy()
     assert np.isfinite(want).all()
     assert rel_err(got, want) < 1.1e-2
