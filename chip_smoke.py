@@ -10,7 +10,9 @@ Phases (any failure exits non-zero):
      (joint pair lookup, lut_gemm_pair.cu), K5/K6 (paged decode and verify
      attention, paged_attention.cu), L1-L6 (the Hopper lab, kernel_lab.cu)
      and L7-L12 (its second half, kernel_lab2.cu); print ptxas registers
-     and spill;
+     and spill; for each instantiation of the lab's tensor-core loop its
+     registers, spill (none allowed), dynamic shared memory and blocks per
+     SM (the CUDA occupancy calculator);
   2. hold each kernel against its plain PyTorch version on the card:
      the LUT-GEMMs at the Llama-3.1-8B decoder-layer shapes (K1 also at
      Gemma-2-9B's), M in {1, 8, 128, 512}, bf16 and f16 (relative Frobenius
@@ -48,17 +50,19 @@ Phases (any failure exits non-zero):
      counts set to 0 just before and read just after (each function exactly
      its variants' calls: a check call, bench_op's first calls and its graph's
      launches; gather8 and pairlut as many of K2 and K4, no other package
-     kernel), and no lab kernel launched in phases 3-5; L4 (g8_ablate, its
-     five variants) and L6 (g8_hoist) run the lab's tensor-core loop (path
-     "mma", each function's path recorded), the rest SIMT; then each of its
-     12 cases is held against its plain version on the card at that shape
-     and at bk 256 on a narrow N (relative Frobenius error under 1.1e-2;
-     floor on planes masked to finite bf16 halves; unpack_only, whose
-     operand is subnormal, to 1.1e-2 of the largest output) and with an
-     identity x bit for bit, the loop's cases also called twice for the same
-     bits; the plain versions and a yardstick (one bf16 torch.matmul of x
-     on the pre-dequantized [8192, 28672] weight) are timed beside the
-     kernels, L2-cold, in CUDA graphs;
+     kernel), and no lab kernel launched in phases 3-5; L3 (gather16), L4
+     (g8_ablate, its five variants), L5 (g8_rs, both scale modes) and L6
+     (g8_hoist) run the lab's tensor-core loop (path "mma", each function's
+     path recorded), the rest SIMT; then each of its 12 cases is held
+     against its plain version on the card at that shape and at bk 256 on a
+     narrow N (relative Frobenius error under 1.1e-2; floor on planes
+     masked to finite bf16 halves; unpack_only, whose operand is subnormal,
+     to 1.1e-2 of the largest output) and with an identity x bit for bit,
+     the loop's cases also called twice for the same bits, and at g = 2 on
+     their SIMT kernel; L5 and L3 (tables in shared memory) give the bits
+     of their register twins L6 and L4 full; the plain versions and a
+     yardstick (one bf16 torch.matmul of x on the pre-dequantized [8192,
+     28672] weight) are timed beside the kernels, L2-cold, in CUDA graphs;
   2c. the lab's second half (L7-L12 of csrc/kernel_lab2.cu): its entry
      point, flute_tpu_torch.lab.kernel_lab2.main, runs every variant at the
      JAX lab2's default shape (M16 N28672 K8192, bn 2048, bk 2048, g64,
@@ -883,14 +887,13 @@ def phase_attention(dev, results):
     return cases, timed
 
 
-# lab_mma.cuh's Scaling, in its order
-LOOP_SCALINGS = ("group_acc", "affine", "repeat", "expand", "none")
-
-
 def loop_ptxas(ptxas: str) -> list[dict]:
     """Registers and spill stores of each instantiation of the lab's
     tensor-core loop (``lab_mma_kernel<Decoder, Scaling>``) in a ptxas log,
-    read from its mangled name."""
+    read from its mangled name (a decoder template's argument as
+    ``<true>`` or ``<4>``)."""
+    from flute_tpu_torch.lab.ops import LOOP_SCALINGS
+
     kernels, name = [], None
     for line in ptxas.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -898,13 +901,16 @@ def loop_ptxas(ptxas: str) -> list[dict]:
             name = m.group(1)
             continue
         m = name and "lab_mma_kernel" in name and re.search(
-            r"([A-Z][A-Za-z0-9]*Decoder)(?:ILb([01])EE)?ELi(\d)E", name)
+            r"([A-Z][A-Za-z0-9]*Decoder)(?:IL([bi])(\d+)EE)?ELi(\d)E", name)
         if not m:
             continue
-        decoder = m.group(1) + ("" if m.group(2) is None else f"<{m.group(2) == '1'}>".lower())
+        arg = m.group(3)
+        if m.group(2) == "b":
+            arg = "true" if arg == "1" else "false"
+        decoder = m.group(1) + ("" if arg is None else f"<{arg}>")
         kernel = next((k for k in kernels if k["mangled"] == name), None)
         if kernel is None:
-            kernel = dict(mangled=name, decoder=decoder, scaling=LOOP_SCALINGS[int(m.group(3))])
+            kernel = dict(mangled=name, decoder=decoder, scaling=LOOP_SCALINGS[int(m.group(4))])
             kernels.append(kernel)
         r = re.search(r"Used (\d+) registers", line)
         if r:
@@ -915,9 +921,35 @@ def loop_ptxas(ptxas: str) -> list[dict]:
     return kernels
 
 
+def loop_report(source: str, ptxas: str) -> list[dict]:
+    """Each loop instantiation of lab library ``source``: its ptxas
+    registers and spill stores beside its blocks per SM and dynamic shared
+    memory at its lab's shape (the occupancy calculator on the card). Fails
+    on an instantiation that spills or that ptxas and the library do not
+    both list."""
+    from flute_tpu_torch.lab import ops as lab
+
+    shape = LAB_SHAPE if source == "kernel_lab.cu" else LAB2_SHAPE
+    compiled = loop_ptxas(ptxas)
+    occupancy = {(o["decoder"], o["scaling"]): o
+                 for o in lab.loop_instances(source, shape["bk"], shape["g"])}
+    keys = {(k["decoder"], k["scaling"]) for k in compiled}
+    if keys != set(occupancy) or len(keys) != len(compiled):
+        raise AssertionError(f"{source}: ptxas lists the loop's instantiations {sorted(keys)}, "
+                             f"the library {sorted(occupancy)}")
+    for kernel in compiled:
+        kernel.update(occupancy[kernel["decoder"], kernel["scaling"]], source=source,
+                      bk=shape["bk"], g=shape["g"])
+        if kernel["spill_bytes"]:
+            raise AssertionError(f"{source}: {kernel['decoder']} {kernel['scaling']} spills")
+    return compiled
+
+
 # the JAX lab's reference shape (scripts/kernel_lab.py:233-243)
 LAB_SHAPE = dict(m=16, n=28672, k=8192, bk=1024, g=64)
 LAB_NARROW_N = 2048  # the bk 256 checks
+# L5's and L3's variants (tables in shared memory) and their register twins
+LAB_TWINS = {"g8_repeat": "g8_hoist", "g8_groupacc": "g8_hoist_ga", "gather16": "g8_full"}
 LAB_ITERS = 24  # the lab's --iters: launches per timed CUDA graph (at least)
 
 
@@ -1016,6 +1048,32 @@ def phase_lab(dev, results):
             again = lab.run(fn, x, p, scales, table, m, n, bk, g, **flags)
             if not torch.equal(once.view(torch.int16), again.view(torch.int16)):
                 raise AssertionError(f"lab {name}: a repeated call changed bits")
+    # L5 and L3 hold their tables in shared memory, their register twins (L6,
+    # L4 full) in registers: one function, the same entries, the same sum
+    # order on the loop, so the same bits
+    for name, twin in LAB_TWINS.items():
+        (fn, flags), (tfn, tflags) = kernel_lab.VARIANTS[name], kernel_lab.VARIANTS[twin]
+        got = lab.run(fn, x, planes, scales, table, m, n, bk, g, **flags)
+        want = lab.run(tfn, x, planes, scales, table, m, n, bk, g, **tflags)
+        if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
+            raise AssertionError(f"lab {name} differs from its register twin {twin}")
+    log(f"  the shared-memory tables give their register twins' bits: {LAB_TWINS}")
+    # g = 2 puts no k16 step inside one group: the loop's functions run their
+    # SIMT kernel, chosen from g before the launch
+    _, p2, s2, t2, x2 = kernel_lab.make_inputs(m, LAB_NARROW_N, 1024, 4, 2, device=dev)
+    simt = {}
+    for name, (fn, flags) in kernel_lab.VARIANTS.items():
+        if fn not in lab.MMA_FUNCTIONS:
+            continue
+        got = lab.run(fn, x2, p2, s2, t2, m, LAB_NARROW_N, 256, 2, **flags)
+        path = lab.LAST_PATH[fn]
+        err = rel_err(got, lab.plain(fn, x2, p2, s2, t2, m, LAB_NARROW_N, 256, 2, **flags))
+        if path != "simt" or not err < THRESHOLDS[torch.bfloat16]:
+            raise AssertionError(f"lab {name} at g = 2: path {path}, error {err}")
+        simt[name] = err
+    del p2, s2, t2, x2
+    log(f"  at g = 2 the loop's variants run SIMT, within {max(simt.values()):.2e} of their "
+        f"plain versions (M{m} N{LAB_NARROW_N} K1024 bk 256): {sorted(simt)}")
     log(f"  L1-L6: 12 cases agree with their plain versions at M{m} N{n} K{k} bk {bk} and at "
         f"N{LAB_NARROW_N} bk 256 (largest error {max(c['rel_err'] for c in checks):.2e}), "
         "identity x bit-exact (unpack_only: its subnormal operand), the tensor-core loop's "
@@ -1070,7 +1128,8 @@ def phase_lab(dev, results):
     del args, planes, finite, x
     torch.cuda.empty_cache()
     results["lab"] = dict(shape=sh, main_s=main_s, rows=rows, launches=launches,
-                          package_launches=gemm, paths=paths, checks=checks, cases=cases)
+                          package_launches=gemm, paths=paths, checks=checks, cases=cases,
+                          g2_simt_errors=simt)
     return cases, checks, launches
 
 
@@ -4713,9 +4772,13 @@ def main() -> int:
         spill = max(int(b) for b in re.findall(r"(\d+) bytes spill stores", ptxas))
         log(f"    ptxas: {len(regs)} kernels, {min(regs)}-{max(regs)} registers, "
             f"at most {spill} bytes of spill stores")
-        for kernel in loop_ptxas(ptxas):
-            log(f"    {kernel['decoder']:18s} {kernel['scaling']:9s} {kernel['registers']} registers, "
-                f"{kernel['spill_bytes']} bytes of spill stores")
+        if source not in lab_ops.LOOP_LIBRARIES:
+            continue
+        for kernel in loop_report(source, ptxas):
+            log(f"    {kernel['decoder']:20s} {kernel['scaling']:9s} {kernel['registers']} "
+                f"registers, {kernel['spill_bytes']} bytes of spill stores, "
+                f"{kernel['smem_bytes']} bytes of shared memory at bk {kernel['bk']}, "
+                f"{kernel['blocks_per_sm']} blocks per SM")
             results.setdefault("lab_loop_ptxas", []).append(kernel)
     results["build_s"] = build_s
 

@@ -37,7 +37,12 @@
 //   g8_hoist:    g8_rs's function; the TPU kernel moved its select out of
 //                the gather loop, so here every code reads both 8-entry
 //                halves of the table and selects on c >= 8, where g8_ablate
-//                and g8_rs read T[c] once.
+//                and g8_rs read T[c] once. On the tensor-core loop the
+//                designs differ in where the table lives: g8_hoist and
+//                g8_ablate hold bf16(T) in registers (HoistDecoder,
+//                HalfDecoder), g8_rs FLUTE's pair table in shared memory
+//                (PairTableDecoder), gather16 the 16 entries in shared
+//                memory (Gather16Decoder).
 //
 // Numerics: the SIMT kernel takes IEEE f32 FMAs with no flush to zero:
 // unpack_only's operand is subnormal, so the build must never add
@@ -51,22 +56,22 @@
 // FMAs (2*M*N*K) are 0.11 ms at the f32 rate, far above the bytes, so a
 // simple design is bound by how many loads it keeps in flight.
 //
-// Two designs. g8_ablate and g8_hoist, at a group size that is a multiple
-// of 16, run the lab's tensor-core loop (lab_mma.cuh, with HoistDecoder or
-// HalfDecoder below): plane words and x staged per chunk in a cp.async ring,
-// each field decoded straight into an mma.sync B register; group_acc's
-// partials per group in f32 scaled on the C fragment; "repeat"'s scales
-// applied in the B register from the K block's scale rows staged in shared
-// memory; g8_ablate's scale applied in the B register from the open group's
-// row ("expand"), or none read; split-K at multiples of lcm(256, g), reduced
-// in split order. Everything else, and both at any other (even) group size,
-// runs the SIMT kernel below, on K1's first skeleton
-// (csrc/lut_gemm_common.cuh): one lane per output column (32 columns per
-// block), eight warps splitting each K block's word rows, the block's 16
-// rows of x for one K block staged in shared memory as f32 (read as float2
-// broadcasts), the 16-entry table rounded to bf16 in shared memory,
-// fixed-order warp sums, no atomics. A K block (not a pack chunk) is staged
-// because floor's words reach across the whole block.
+// Two designs. gather16, g8_ablate, g8_rs and g8_hoist, at a group size
+// that is a multiple of 16, run the lab's tensor-core loop (lab_mma.cuh,
+// with the decoders below): plane words and x staged per chunk in a
+// cp.async ring, each field decoded straight into an mma.sync B register;
+// group_acc's partials per group in f32 scaled on the C fragment;
+// "repeat"'s scales applied in the B register from the K block's scale rows
+// staged in shared memory; gather16's and g8_ablate's scale applied in the
+// B register from the open group's row ("expand"), or none read; split-K
+// at multiples of lcm(256, g), reduced in split order. Everything else, and
+// those four at any other (even) group size, runs the SIMT kernel below, on
+// K1's first skeleton (csrc/lut_gemm_common.cuh): one lane per output
+// column (32 columns per block), eight warps splitting each K block's word
+// rows, the block's 16 rows of x for one K block staged in shared memory as
+// f32 (read as float2 broadcasts), the 16-entry table rounded to bf16 in
+// shared memory, fixed-order warp sums, no atomics. A K block (not a pack
+// chunk) is staged because floor's words reach across the whole block.
 
 #include "lab_mma.cuh"
 #include "lut_gemm_common.cuh"
@@ -83,6 +88,11 @@ constexpr int kChunkPairs = kChunk / 2;   // pair rows per chunk
 
 enum Mode { kFloor, kUnpack, kGather16, kAblate, kRs, kHoist };
 
+// copies of L5's pair table (PairTableDecoder) beside each scaling: as many
+// as leave four blocks an SM
+constexpr int kGroupAccCopies = 4;
+constexpr int kRepeatCopies = 2;
+
 __device__ __forceinline__ float rnd(float v) { return Cvt<bf16>::round(v); }
 
 // L6 (and L4 with chain) on the tensor-core loop: the 16 entries of bf16(T)
@@ -95,6 +105,7 @@ __device__ __forceinline__ float rnd(float v) { return Cvt<bf16>::round(v); }
 // two registers.
 struct HoistDecoder {
   static constexpr int kPlanes = 1, kFieldBits = 8, kProducts = 1;
+  static constexpr int kTableWords = 0;  // the table in registers
   uint32_t lo[4], hi[4];  // byte planes: register k holds entries 4k .. 4k + 3
 
   __device__ explicit HoistDecoder(const labmma::Args& a) {
@@ -141,6 +152,82 @@ struct HalfDecoder : HoistDecoder {
     const uint32_t h = __byte_perm(hi[0], hi[1], idx);
     b[0][0] = __byte_perm(l, h, 0x5140u);
     b[0][1] = __byte_perm(l, h, 0x7362u);
+  }
+};
+
+// bf16(T[k]) as a 16-bit pattern, rounded once from the f32 table
+__device__ __forceinline__ uint32_t table_bits(const float* table, int k) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(__ldg(table + k)));
+}
+
+// L5 on the tensor-core loop: FLUTE's pair table in shared memory (the
+// served loop's PairDecoder with ScalarFill<4>, csrc/lut_gemm_pair_decoder.cuh),
+// T[c] read once with no select. Entry f = ce | co << 4, the field itself,
+// holds (bf16(T[ce]), bf16(T[co])), so one ld.shared is one B register.
+// kCopies bank-interleaved copies (entry f of copy c at word f * kCopies +
+// c; lane l reads copy l % kCopies), as many as leave four blocks an SM
+// (lab_mma.cuh's ring is 48.5 KB a block): 4 copies (4 KB) with group_acc,
+// 2 (2 KB) beside "repeat"'s 4 KB of scale rows. The table sits at a fixed
+// offset of dynamic shared memory, so a lookup's address is one shift and
+// one and-or of the word plus a constant.
+template <int kCopies>
+struct PairTableDecoder {
+  static constexpr int kPlanes = 1, kFieldBits = 8, kProducts = 1;
+  static constexpr int kTableWords = 256 * kCopies;
+  static constexpr int kShift = kCopies == 4 ? 4 : kCopies == 2 ? 3 : 2;  // log2(4 kCopies)
+  static_assert(4 * kCopies == 1 << kShift, "a power-of-two number of copies, at most 4");
+  const unsigned char* tab;  // the table
+  uint32_t copy;             // this lane's copy, in bytes
+
+  __device__ PairTableDecoder(const labmma::Args& a, uint32_t* t)
+      : tab(reinterpret_cast<const unsigned char*>(t)), copy(4u * (threadIdx.x % kCopies)) {
+    for (int idx = threadIdx.x; idx < kTableWords; idx += labmma::kThreads) {
+      const int f = idx / kCopies;
+      t[idx] = table_bits(a.table, f & 15) | (table_bits(a.table, f >> 4) << 16);
+    }
+  }
+
+  // entry (byte i of w) of this lane's copy
+  __device__ __forceinline__ uint32_t lookup(uint32_t w, int i) const {
+    const uint32_t f = 8 * i >= kShift ? w >> (8 * i - kShift) : w << (kShift - 8 * i);
+    return *reinterpret_cast<const uint32_t*>(tab + ((f & (0xFFu << kShift)) | copy));
+  }
+
+  __device__ __forceinline__ void pairs(const uint32_t (&w)[2], int i,
+                                        uint32_t (&b)[1][2]) const {
+    b[0][0] = lookup(w[0], i);
+    b[0][1] = lookup(w[1], i);
+  }
+};
+
+// L3 on the tensor-core loop: the direct-value gather. The 16 entries of
+// bf16(T) sit in shared memory one to a 32-bit word, 16 words in 16 banks,
+// so lanes that read one entry share a broadcast and any 32 lookups are
+// free of conflicts. Each code is one ld.shared; one prmt joins a B
+// register's two values (the even K row low), with no OR-merge of bit
+// patterns and no select. The loop's "expand" then rounds
+// bf16(bf16(T[c]) * s[k // g]) once, L3's function.
+struct Gather16Decoder {
+  static constexpr int kPlanes = 1, kFieldBits = 8, kProducts = 1;
+  static constexpr int kTableWords = 16;
+  const unsigned char* tab;
+
+  __device__ Gather16Decoder(const labmma::Args& a, uint32_t* t)
+      : tab(reinterpret_cast<const unsigned char*>(t)) {
+    if (threadIdx.x < kTableWords) t[threadIdx.x] = table_bits(a.table, threadIdx.x);
+  }
+
+  // the entry of the 4-bit code at bits sh .. sh + 3 of w
+  __device__ __forceinline__ uint32_t value(uint32_t w, int sh) const {
+    const uint32_t off = (sh >= 2 ? w >> (sh - 2) : w << (2 - sh)) & 0x3Cu;
+    return *reinterpret_cast<const uint32_t*>(tab + off);
+  }
+
+  __device__ __forceinline__ void pairs(const uint32_t (&w)[2], int i,
+                                        uint32_t (&b)[1][2]) const {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      b[0][r] = __byte_perm(value(w[r], 8 * i), value(w[r], 8 * i + 4), 0x5410u);
   }
 };
 
@@ -289,10 +376,33 @@ extern "C" int flute_lab_unpack_only(const void* x, const void* plane, void* y, 
   return launch<kUnpack>(x, plane, nullptr, nullptr, y, M, N, K, bk, bk, 0, 0, 0, stream);
 }
 
+// The operands of a loop call that the lab's checks make (bk a multiple of
+// the chunk and of g, dividing K) as Args; false where the loop cannot
+// take them. bk_rows: the K block whose scale rows "repeat" tiles, else 0.
+static bool loop_args(labmma::Args& a, const void* x, const void* plane, const void* scales,
+                      const void* table, void* y, void* work, int M, int N, int K, int bk, int g,
+                      int bk_rows, int splits) {
+  return bk > 0 && bk % kChunk == 0 && K % bk == 0 && bk % g == 0 &&
+         labmma::make_args(a, x, plane, nullptr, scales, table, nullptr, y, work, M, N, K, g,
+                           bk_rows, splits, 0.f, 0.f);
+}
+
+// A g that is a multiple of 16 runs the tensor-core loop (Gather16Decoder,
+// each B register times s[k // g]; `splits` splits of K at multiples of
+// lcm(256, g), `work` an f32 [splits, M, N] workspace, or null with one
+// split); any other g the SIMT kernel (one split, no workspace).
 extern "C" int flute_lab_gather16(const void* x, const void* plane, const void* scales,
-                                  const void* table, void* y, int M, int N, int K, int bk,
-                                  int g, void* stream) {
-  return launch<kGather16>(x, plane, scales, table, y, M, N, K, bk, g, 0, 0, 0, stream);
+                                  const void* table, void* y, void* work, int M, int N, int K,
+                                  int bk, int g, int splits, void* stream) {
+  if (!labmma::takes(g)) {
+    if (splits != 1) return cudaErrorInvalidValue;
+    return launch<kGather16>(x, plane, scales, table, y, M, N, K, bk, g, 0, 0, 0, stream);
+  }
+  labmma::Args a;
+  if (!loop_args(a, x, plane, scales, table, y, work, M, N, K, bk, g, 0, splits))
+    return cudaErrorInvalidValue;
+  return labmma::run<Gather16Decoder, labmma::kExpand>(a, splits,
+                                                        static_cast<cudaStream_t>(stream));
 }
 
 // A g that is a multiple of 16 runs the tensor-core loop (chain: HoistDecoder,
@@ -309,9 +419,7 @@ extern "C" int flute_lab_g8_ablate(const void* x, const void* plane, const void*
     return launch<kAblate>(x, plane, scales, table, y, M, N, K, bk, g, chain, scale, 0, stream);
   }
   labmma::Args a;
-  if (bk <= 0 || bk % kChunk || K % bk || bk % g ||
-      !labmma::make_args(a, x, plane, nullptr, scales, table, nullptr, y, work, M, N, K, g, 0,
-                         splits, 0.f, 0.f))
+  if (!loop_args(a, x, plane, scales, table, y, work, M, N, K, bk, g, 0, splits))
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (chain)
@@ -321,11 +429,27 @@ extern "C" int flute_lab_g8_ablate(const void* x, const void* plane, const void*
                : labmma::run<HalfDecoder, labmma::kNone>(a, splits, s);
 }
 
-// group_acc: 0 = "repeat", 1 = "group_acc"
+// group_acc: 0 = "repeat", 1 = "group_acc". A g that is a multiple of 16
+// runs the tensor-core loop with the pair table in shared memory
+// (PairTableDecoder: 4 copies with group_acc, 2 with "repeat"; `splits`
+// and `work` as g8_ablate's); any other g the SIMT kernel (one split, no
+// workspace).
 extern "C" int flute_lab_g8_rs(const void* x, const void* plane, const void* scales,
-                               const void* table, void* y, int M, int N, int K, int bk, int g,
-                               int group_acc, void* stream) {
-  return launch<kRs>(x, plane, scales, table, y, M, N, K, bk, g, 0, 0, group_acc, stream);
+                               const void* table, void* y, void* work, int M, int N, int K,
+                               int bk, int g, int group_acc, int splits, void* stream) {
+  if (!labmma::takes(g)) {
+    if (splits != 1) return cudaErrorInvalidValue;
+    return launch<kRs>(x, plane, scales, table, y, M, N, K, bk, g, 0, 0, group_acc, stream);
+  }
+  labmma::Args a;
+  if (!loop_args(a, x, plane, scales, table, y, work, M, N, K, bk, g, group_acc ? 0 : bk,
+                 splits))
+    return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using GroupAcc = PairTableDecoder<kGroupAccCopies>;
+  using Repeat = PairTableDecoder<kRepeatCopies>;
+  return group_acc ? labmma::run<GroupAcc, labmma::kGroupAcc>(a, splits, s)
+                   : labmma::run<Repeat, labmma::kRepeat>(a, splits, s);
 }
 
 // group_acc as g8_rs. A g that is a multiple of 16 runs the tensor-core
@@ -340,11 +464,40 @@ extern "C" int flute_lab_g8_hoist(const void* x, const void* plane, const void* 
     return launch<kHoist>(x, plane, scales, table, y, M, N, K, bk, g, 0, 0, group_acc, stream);
   }
   labmma::Args a;
-  if (bk <= 0 || bk % kChunk || K % bk || bk % g ||
-      !labmma::make_args(a, x, plane, nullptr, scales, table, nullptr, y, work, M, N, K, g,
-                         group_acc ? 0 : bk, splits, 0.f, 0.f))
+  if (!loop_args(a, x, plane, scales, table, y, work, M, N, K, bk, g, group_acc ? 0 : bk,
+                 splits))
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return group_acc ? labmma::run<HoistDecoder, labmma::kGroupAcc>(a, splits, s)
                    : labmma::run<HoistDecoder, labmma::kRepeat>(a, splits, s);
+}
+
+namespace {
+
+// every instantiation of the loop in this library
+const labmma::Instance kLoops[] = {
+    labmma::instance<HoistDecoder, labmma::kExpand>("HoistDecoder"),
+    labmma::instance<HoistDecoder, labmma::kNone>("HoistDecoder"),
+    labmma::instance<HalfDecoder, labmma::kExpand>("HalfDecoder"),
+    labmma::instance<HalfDecoder, labmma::kNone>("HalfDecoder"),
+    labmma::instance<HoistDecoder, labmma::kGroupAcc>("HoistDecoder"),
+    labmma::instance<HoistDecoder, labmma::kRepeat>("HoistDecoder"),
+    labmma::instance<PairTableDecoder<kGroupAccCopies>, labmma::kGroupAcc>("PairTableDecoder<4>"),
+    labmma::instance<PairTableDecoder<kRepeatCopies>, labmma::kRepeat>("PairTableDecoder<2>"),
+    labmma::instance<Gather16Decoder, labmma::kExpand>("Gather16Decoder"),
+};
+
+}  // namespace
+
+// The loop's instantiations in this library: their number, and instance i's
+// decoder (as ptxas's mangled name reads), Scaling (lab_mma.cuh's order),
+// blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and dynamic
+// shared memory in bytes at a K block bk and group size g. Returns the
+// cudaError_t of the query.
+extern "C" int flute_lab_loop_count() { return sizeof(kLoops) / sizeof(kLoops[0]); }
+
+extern "C" int flute_lab_loop_instance(int i, int bk, int g, const char** decoder, int* scaling,
+                                       int* blocks, int* smem) {
+  return labmma::report(kLoops, flute_lab_loop_count(), i, bk, g, decoder, scaling, blocks,
+                        smem);
 }

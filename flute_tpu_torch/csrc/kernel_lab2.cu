@@ -96,6 +96,7 @@ __device__ __forceinline__ float rnd(float v) { return Cvt<bf16>::round(v); }
 // rounds to c exactly.
 struct Int4Decoder {
   static constexpr int kPlanes = 1, kFieldBits = 8, kProducts = 1;
+  static constexpr int kTableWords = 0;  // no table
 
   __device__ explicit Int4Decoder(const labmma::Args&) {}
 
@@ -127,6 +128,7 @@ struct Int4Decoder {
 template <bool ONE>
 struct SepDecoder {
   static constexpr int kPlanes = 2, kFieldBits = 4, kProducts = ONE ? 1 : 2;
+  static constexpr int kTableWords = 0;  // the tables in registers
   uint32_t ta[2], tb[2];  // A's and B's bf16 entries (0, 1) and (2, 3)
 
   static __device__ uint32_t entries(const float* t, int c) {
@@ -520,6 +522,27 @@ extern "C" int flute_lab2_int4(const void* x, const void* plane, const void* sca
                          splits, zero, delta))
     return cudaErrorInvalidValue;
   return labmma::run<Int4Decoder, labmma::kAffine>(a, splits, static_cast<cudaStream_t>(stream));
+}
+
+namespace {
+
+// every instantiation of the loop in this library
+const labmma::Instance kLoops[] = {
+    labmma::instance<SepDecoder<false>, labmma::kGroupAcc>("SepDecoder<false>"),
+    labmma::instance<SepDecoder<true>, labmma::kGroupAcc>("SepDecoder<true>"),
+    labmma::instance<Int4Decoder, labmma::kAffine>("Int4Decoder"),
+};
+
+}  // namespace
+
+// The loop's instantiations in this library, as kernel_lab.cu's
+// flute_lab_loop_count and flute_lab_loop_instance report them.
+extern "C" int flute_lab2_loop_count() { return sizeof(kLoops) / sizeof(kLoops[0]); }
+
+extern "C" int flute_lab2_loop_instance(int i, int bk, int g, const char** decoder,
+                                        int* scaling, int* blocks, int* smem) {
+  return labmma::report(kLoops, flute_lab2_loop_count(), i, bk, g, decoder, scaling, blocks,
+                        smem);
 }
 
 extern "C" int flute_lab2_w3wide(const void* x, const void* plane, const void* scales,

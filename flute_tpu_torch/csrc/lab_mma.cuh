@@ -1,11 +1,13 @@
 // The Hopper lab's tensor-core loop (sm_90a): a group-accumulating
-// mma.sync LUT-GEMM over the lab's pair planes, shared by L4
-// (kernel_lab.cu, flute_lab_g8_ablate: scripts/kernel_lab.py:413
-// run_g8_ablate), L6 (flute_lab_g8_hoist: scripts/kernel_lab.py:590
+// mma.sync LUT-GEMM over the lab's pair planes, shared by L3
+// (kernel_lab.cu, flute_lab_gather16: scripts/kernel_lab.py:212
+// run_gather16), L4 (flute_lab_g8_ablate: :413 run_g8_ablate), L5
+// (flute_lab_g8_rs: :501 run_g8_rs), L6 (flute_lab_g8_hoist: :590
 // run_g8_hoist), L9 (kernel_lab2.cu, flute_lab2_sep: scripts/kernel_lab2.py:234
 // run_sep) and L10 (flute_lab2_int4: scripts/kernel_lab2.py:290 run_int4),
-// each with its own decoder. The served loop (lut_gemm_mma.cuh::lut_mma_kernel)
-// is not touched; its helpers are reused.
+// each with its own decoder: L4, L6, L9 and L10 hold their tables in
+// registers, L3 and L5 in shared memory. The served loop
+// (lut_gemm_mma.cuh::lut_mma_kernel) is not touched; its helpers are reused.
 //
 //   y[M, N] = bf16(sum over groups of (x_g @ W_g) * s_g)      (group_acc)
 //   y[M, N] = bf16(sum over groups of (x_g @ c_g) * (s_g * delta)
@@ -46,7 +48,11 @@
 //   bf16, the even K row in the low half), both registers of a step and
 //   column at once, and says how many products a step takes: L9's "sep"
 //   issues one mma on plane A's registers and one on plane B's into the
-//   same accumulator, "sep1" one on their bf16 sums (__hadd2, RN).
+//   same accumulator, "sep1" one on their bf16 sums (__hadd2, RN). Its
+//   table lives in registers (byte planes: one prmt looks up 4 codes) or in
+//   shared memory at a fixed offset (L5's pair table, one ld.shared a B
+//   register; L3's 16 entries, one ld.shared a code), filled by the block
+//   before the first barrier.
 // * The partial of a group: its steps' products in an f32 fragment; when the
 //   group ends, acc = acc + part * s (each rounded: __fmul_rn, __fadd_rn),
 //   and for int4 part * (s * delta) + xsum * (s * zero), the x sums taken by
@@ -85,7 +91,15 @@
 //                              [K/16, N], Args::plane and Args::plane_b)
 //   kFieldBits                 bits of a field, one pair row: 8 or 4
 //   kProducts                  mma products a step and column: 1 or 2
-//   Decoder(const Args& a)     its tables, from the f32 tables (or none)
+//   kTableWords                32-bit words of its table in dynamic shared
+//                              memory (after the ring, before "repeat"'s
+//                              scale rows), or 0 for a table in registers
+//   Decoder(const Args& a)     (kTableWords 0) its tables in registers, from
+//                              the f32 tables (or none)
+//   Decoder(const Args& a, uint32_t* t)
+//                              (kTableWords > 0) fills its table at t with
+//                              the block's threads, before the loop's first
+//                              barrier
 //   void pairs(w, i, b)        field i of words w[2 * kPlanes] (word rows
 //                              8q + t and 8q + 4 + t of one column, plane
 //                              by plane) as the step's B registers
@@ -153,9 +167,24 @@ __device__ __forceinline__ uint32_t pair_of(const uint2& lo, const uint2& hi, in
   return __byte_perm(e < 2 ? lo.x : lo.y, e < 2 ? hi.x : hi.y, (e & 1) ? 0x7632u : 0x5410u);
 }
 
-// Dynamic shared memory: the ring, then ("repeat") a K block's P scale rows.
-inline size_t smem_bytes(int scale_rows) {
-  return static_cast<size_t>(2) * kSlotBytes + static_cast<size_t>(scale_rows) * kBlockN * 2;
+// Dynamic shared memory: the ring, then the decoder's table (its
+// kTableWords words), then ("repeat") a K block's P scale rows. The table
+// sits at a fixed offset, so a lookup's address is its index plus a
+// constant.
+inline size_t smem_bytes(int table_words, int scale_rows) {
+  return static_cast<size_t>(2) * kSlotBytes + static_cast<size_t>(table_words) * 4 +
+         static_cast<size_t>(scale_rows) * kBlockN * 2;
+}
+
+// The decoder of a block: one that keeps its table in shared memory
+// (kTableWords > 0) is given the table's place to fill; the others are
+// built from the Args alone.
+template <typename Decoder>
+__device__ __forceinline__ Decoder make_decoder(const Args& a, uint32_t* table) {
+  if constexpr (Decoder::kTableWords > 0)
+    return Decoder(a, table);
+  else
+    return Decoder(a);
 }
 
 template <typename Decoder, int SCALING>
@@ -185,8 +214,10 @@ __global__ void __launch_bounds__(kThreads, 4) lab_mma_kernel(const Args a) {
   const int c_end = c0 + a.chunks_per_split;
   const int P = SCALING == kRepeat ? a.bk / a.g : 1;  // scale rows per K block
   const uint16_t* su = reinterpret_cast<const uint16_t*>(a.scales);
-  bf16* srows = reinterpret_cast<bf16*>(smem + 2 * kSlotBytes);  // "repeat": [P][kBlockN]
-  const Decoder dec(a);
+  uint32_t* table = reinterpret_cast<uint32_t*>(smem + 2 * kSlotBytes);  // the decoder's
+  bf16* srows = reinterpret_cast<bf16*>(table + Decoder::kTableWords);  // "repeat": [P][kBlockN]
+  // fills its table in shared memory, if it has one, before the first barrier
+  const Decoder dec = make_decoder<Decoder>(a, table);
 
   // chunk c into ring slot s: x rows m0.., then the planes' words
   auto stage = [&](int c, int s) {
@@ -465,26 +496,69 @@ inline bool make_args(Args& a, const void* x, const void* plane, const void* pla
   return true;
 }
 
+// The loop's dynamic shared memory for these Args, with the kernel's
+// attributes set to allow it. Returns the first error.
+template <typename Decoder, int SCALING>
+cudaError_t prepare(int bk, int g, size_t* smem) {
+  auto kernel = lab_mma_kernel<Decoder, SCALING>;
+  *smem = smem_bytes(Decoder::kTableWords, SCALING == kRepeat ? bk / g : 0);
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(*smem));
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
 // Launches the loop on a grid (N / 128, splits, M / 16) and, with more than
 // one split, the reduction. Returns the first launch error.
 template <typename Decoder, int SCALING>
 cudaError_t run(const Args& a, int splits, cudaStream_t stream) {
-  auto kernel = lab_mma_kernel<Decoder, SCALING>;
-  const size_t smem = smem_bytes(SCALING == kRepeat ? a.bk / a.g : 0);
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(smem));
-  if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                           cudaSharedmemCarveoutMaxShared);
+  size_t smem;
+  cudaError_t e = prepare<Decoder, SCALING>(a.bk, a.g, &smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((a.N + kBlockN - 1) / kBlockN, splits, (a.M + kRows - 1) / kRows);
-  kernel<<<grid, kThreads, smem, stream>>>(a);
+  lab_mma_kernel<Decoder, SCALING><<<grid, kThreads, smem, stream>>>(a);
   e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return e;
   const size_t mn = static_cast<size_t>(a.M) * a.N;
   mma::split_reduce_kernel<bf16><<<static_cast<unsigned>((mn + 255) / 256), 256, 0, stream>>>(
       a.work, a.y, mn, splits);
   return cudaGetLastError();
+}
+
+// One instantiation of the loop as the C entries report it: its decoder's
+// name (as the ptxas log's mangled name reads), its Scaling, and its blocks
+// per SM and dynamic shared memory at a K block bk and group size g.
+struct Instance {
+  const char* decoder;
+  int scaling;
+  cudaError_t (*occupancy)(int bk, int g, int* blocks, int* smem);
+};
+
+template <typename Decoder, int SCALING>
+cudaError_t occupancy(int bk, int g, int* blocks, int* smem) {
+  size_t bytes;
+  cudaError_t e = prepare<Decoder, SCALING>(bk, g, &bytes);
+  if (e != cudaSuccess) return e;
+  *smem = static_cast<int>(bytes);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, lab_mma_kernel<Decoder, SCALING>,
+                                                       kThreads, bytes);
+}
+
+template <typename Decoder, int SCALING>
+constexpr Instance instance(const char* decoder) {
+  return Instance{decoder, SCALING, occupancy<Decoder, SCALING>};
+}
+
+// Instance i of a C entry's list (n of them): its decoder's name, Scaling,
+// blocks per SM and shared-memory bytes at bk and g. Returns the first
+// error, cudaErrorInvalidValue for an i out of range.
+inline int report(const Instance* list, int n, int i, int bk, int g, const char** decoder,
+                  int* scaling, int* blocks, int* smem) {
+  if (i < 0 || i >= n || bk <= 0 || g <= 0 || bk % g) return cudaErrorInvalidValue;
+  *decoder = list[i].decoder;
+  *scaling = list[i].scaling;
+  return list[i].occupancy(bk, g, blocks, smem);
 }
 
 }  // namespace labmma

@@ -36,14 +36,16 @@ where said. Dispatch is by ``x``'s device: on the CPU the plain PyTorch
 version, on CUDA the Hopper kernel of ``csrc/kernel_lab.cu`` (one C entry per
 function), which raises if it cannot be built or launched.
 
-Two kernel designs: ``g8_ablate`` and ``g8_hoist`` at a group size that is
-a multiple of 16 run the lab's tensor-core loop (``csrc/lab_mma.cuh``, path
-``"mma"``, with a split-K that :func:`lab_splits` chooses from N, K and g);
-every other call the SIMT kernel (path ``"simt"``). The path is chosen from g
-before the launch (:func:`lab_path`), never after a failure, and
-:data:`LAST_PATH` records the path of each function's last launch. Neither
-path falls back to the plain version. (``lab/ops2.py``'s ``sep`` and
-``int4`` share the loop and the split.)
+Two kernel designs: ``gather16``, ``g8_ablate``, ``g8_rs`` and ``g8_hoist``
+at a group size that is a multiple of 16 run the lab's tensor-core loop
+(``csrc/lab_mma.cuh``, path ``"mma"``, with a split-K that :func:`lab_splits`
+chooses from N, K and g; ``g8_ablate`` and ``g8_hoist`` hold the table in
+registers, ``g8_rs`` FLUTE's pair table and ``gather16`` the 16 entries in
+shared memory); every other call the SIMT kernel (path ``"simt"``). The path
+is chosen from g before the launch (:func:`lab_path`), never after a
+failure, and :data:`LAST_PATH` records the path of each function's last
+launch. Neither path falls back to the plain version. (``lab/ops2.py``'s
+``sep`` and ``int4`` share the loop and the split.)
 """
 
 from __future__ import annotations
@@ -222,7 +224,7 @@ PLAIN: dict[str, Callable] = {
 }
 
 # ---------------------------------------------------------------------------
-# The tensor-core loop's path and split (L6 here, L10 in ops2)
+# The tensor-core loop's path and split (L3-L6 here, L9 and L10 in ops2)
 # ---------------------------------------------------------------------------
 
 
@@ -267,17 +269,22 @@ def loop_operands(x: torch.Tensor, g: int, splits: int, n: int):
 
 # function -> (C entry, pointer arguments, int arguments) before the stream:
 # x, plane[, scales, table], y[, work], then M, N, K, bk[, g[, flags]][,
-# splits] (g8_ablate and g8_hoist: the loop's workspace and splits)
+# splits] (the functions with a tensor-core path: the loop's workspace and
+# splits)
 _ENTRIES = {
     "floor": ("flute_lab_floor", 3, 4),
     "unpack_only": ("flute_lab_unpack_only", 3, 4),
-    "gather16": ("flute_lab_gather16", 5, 5),
+    "gather16": ("flute_lab_gather16", 6, 6),
     "g8_ablate": ("flute_lab_g8_ablate", 6, 8),
-    "g8_rs": ("flute_lab_g8_rs", 5, 6),
+    "g8_rs": ("flute_lab_g8_rs", 6, 7),
     "g8_hoist": ("flute_lab_g8_hoist", 6, 7),
 }
 # the functions with a tensor-core path
-MMA_FUNCTIONS = ("g8_ablate", "g8_hoist")
+MMA_FUNCTIONS = ("gather16", "g8_ablate", "g8_rs", "g8_hoist")
+# lab_mma.cuh's Scaling, in its order
+LOOP_SCALINGS = ("group_acc", "affine", "repeat", "expand", "none")
+# each library of the loop's C entries: the prefix of its loop report
+LOOP_LIBRARIES = {"kernel_lab.cu": "flute_lab", "kernel_lab2.cu": "flute_lab2"}
 
 
 @functools.lru_cache(maxsize=None)
@@ -300,6 +307,38 @@ def build_kernels() -> None:
     """Build (or load the already built) lab library and bind every entry."""
     for name in _ENTRIES:
         _kernel_fn(name)
+
+
+def loop_instances(source: str, bk: int, g: int) -> list[dict]:
+    """Every instantiation of the lab's tensor-core loop in the library of
+    ``csrc/<source>`` (a key of :data:`LOOP_LIBRARIES`): its decoder (as
+    ptxas's mangled name reads), its scaling, and its blocks per SM and
+    dynamic shared memory in bytes at a K block ``bk`` and group size ``g``,
+    from the CUDA runtime's occupancy calculator on the current card."""
+    from flute_tpu_torch.ops import _build
+
+    prefix = LOOP_LIBRARIES[source]
+    lib = _build.load(source)
+    count = getattr(lib, f"{prefix}_loop_count")
+    count.restype, count.argtypes = ctypes.c_int, []
+    fn = getattr(lib, f"{prefix}_loop_instance")
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_char_p)] + [
+        ctypes.POINTER(ctypes.c_int)] * 3
+    lib.flute_cuda_error_string.restype = ctypes.c_char_p
+    lib.flute_cuda_error_string.argtypes = [ctypes.c_int]
+    out = []
+    for i in range(count()):
+        decoder = ctypes.c_char_p()
+        scaling, blocks, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+        err = fn(i, bk, g, ctypes.byref(decoder), ctypes.byref(scaling), ctypes.byref(blocks),
+                 ctypes.byref(smem))
+        if err != 0:
+            raise RuntimeError(f"{prefix}_loop_instance({i}) failed: "
+                               f"{lib.flute_cuda_error_string(err).decode()} ({err})")
+        out.append(dict(decoder=decoder.value.decode(), scaling=LOOP_SCALINGS[scaling.value],
+                        blocks_per_sm=blocks.value, smem_bytes=smem.value))
+    return out
 
 
 def _launch(name: str, x, plane, scales, table, bk: int, g: int, flags: tuple[int, ...]
@@ -396,7 +435,8 @@ def unpack_only(x, planes, scales, bm, bn, bk, g) -> torch.Tensor:
 
 def gather16(x, planes, scales, table, bm, bn, bk, g) -> torch.Tensor:
     """L3, ``run_gather16``: the reference dequantization, with x split
-    into even and odd K on the TPU."""
+    into even and odd K on the TPU (on the tensor-core loop where 16
+    divides g: :func:`lab_path`)."""
     return _run("gather16", x, planes, scales, table, bm, bn, bk, g)
 
 
@@ -418,7 +458,8 @@ def _scale_mode(scale_mode: str) -> int:
 
 def g8_rs(x, planes, scales, table, bm, bn, bk, g, scale_mode: str) -> torch.Tensor:
     """L5, ``run_g8_rs``: ``T[c]`` with tiled scales (``"repeat"``) or group
-    sums times the scale (``"group_acc"``)."""
+    sums times the scale (``"group_acc"``) (on the tensor-core loop where 16
+    divides g: :func:`lab_path`)."""
     return _run("g8_rs", x, planes, scales, table, bm, bn, bk, g,
                 flags=(_scale_mode(scale_mode),), scale_mode=scale_mode)
 

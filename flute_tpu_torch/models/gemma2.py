@@ -265,6 +265,7 @@ def quantize_model(
     num_bits: int = 4,
     group_size: int = 64,
     *,
+    example_batch_size: int = 8,
     chunk: Optional[int] = None,
     fuse: bool = False,
     quantize_lm_head: bool = False,
@@ -280,11 +281,13 @@ def quantize_model(
     a multiple of 2048, into ``lm_head`` (with the blocks' ``chunk``, as the
     JAX model quantizes it); the dense embedding keeps serving the input
     lookups, and ``forward`` slices the logits back before the softcap."""
-    out = llama.quantize_model(params, num_bits, group_size, chunk=chunk, fuse=fuse,
+    out = llama.quantize_model(params, num_bits, group_size,
+                               example_batch_size=example_batch_size, chunk=chunk, fuse=fuse,
                                symmetric=symmetric, device=device)
     if quantize_lm_head:
         dev = resolve_device(device)
         kw = {"chunk": chunk} if chunk is not None else {}
         out["lm_head"] = quantize_linear(llama.pad_rows(params["embed"].to(dev)), num_bits,
-                                         group_size, device=dev, **kw)
+                                         group_size, example_batch_size=example_batch_size,
+                                         device=dev, **kw)
     return out

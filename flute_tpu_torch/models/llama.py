@@ -471,6 +471,7 @@ def quantize_model(
     num_bits: int = 4,
     group_size: int = 64,
     *,
+    example_batch_size: int = 8,
     chunk: Optional[int] = None,
     fuse: bool = False,
     quantize_lm_head: bool = False,
@@ -478,7 +479,8 @@ def quantize_model(
     device=None,
 ) -> dict:
     """Quantize the seven projections of every block (embeddings and norms
-    stay dense) on ``device`` (``cuda`` unless named).
+    stay dense) on ``device`` (``cuda`` unless named), each keyed for
+    ``example_batch_size`` rows (:func:`~flute_tpu_torch.nn.quantize_linear`).
 
     ``fuse=True`` merges q/k/v into one ``qkv`` and gate/up into one
     ``gate_up`` projection: one kernel launch each.
@@ -489,7 +491,7 @@ def quantize_model(
     the logits back to ``vocab_size``. A tied or absent head stays as it is.
     """
     dev = resolve_device(device)
-    kw = {"device": dev}
+    kw = {"device": dev, "example_batch_size": example_batch_size}
     if chunk is not None:
         kw["chunk"] = chunk
     if symmetric is not None:

@@ -24,7 +24,7 @@ from torch import nn
 from flute_tpu_torch import packing
 from flute_tpu_torch.device import resolve_device
 from flute_tpu_torch.ops import lut_gemm
-from flute_tpu_torch.ops.kernel_config import KernelConfig
+from flute_tpu_torch.ops.kernel_config import KernelConfig, get_kernel_config
 from flute_tpu_torch.quantize import nf
 
 
@@ -192,6 +192,8 @@ def quantize_linear(
     dtype: torch.dtype = torch.bfloat16,
     custom_scales: Optional[torch.Tensor] = None,
     table=None,
+    example_batch_size: int = 8,
+    config: Optional[KernelConfig] = None,
     chunk: int = packing.DEFAULT_CHUNK,
     wide: Optional[bool] = None,
     symmetric: Optional[bool] = None,
@@ -201,6 +203,11 @@ def quantize_linear(
 
     Runs on ``device``: by default the weight's own device for a tensor,
     else ``cuda`` (with no GPU, pass ``device="cpu"``).
+
+    The layer is keyed with ``config`` (default: what
+    :func:`~flute_tpu_torch.ops.kernel_config.get_kernel_config` gives for
+    ``example_batch_size`` rows, the planner's launch unless the tuner's
+    registry holds the shape), its chunk set to ``chunk``.
 
     ``symmetric``: quantize against the sign-symmetric NF grid and pack the
     w4sym layout (4-bit only). Default: True for 4-bit when no table was
@@ -263,6 +270,11 @@ def quantize_linear(
         raise ValueError("wide layout requires num_bits=3 and chunk % 256 == 0")
     planes = _pack(codes_kn, num_bits, chunk, wide, layout)
     scales_kn = scales.T.to(dtype).contiguous()  # [K/g, N]
+    if config is None:
+        n, k = w.shape
+        kernel = layout if layout != "auto" else ("w3wide" if wide else "plane")
+        config = get_kernel_config(example_batch_size, n, k, num_bits, group_size, dtype=dtype,
+                                   layout=kernel)
     return QuantizedLinear(
         planes,
         scales_kn,
@@ -270,7 +282,7 @@ def quantize_linear(
         None if bias is None else torch.as_tensor(bias).to(dev),
         num_bits=num_bits,
         group_size=group_size,
-        config_key=KernelConfig(chunk=chunk).key(),
+        config_key=dataclasses.replace(config, chunk=chunk).key(),
         layout=layout,
     )
 
@@ -285,6 +297,7 @@ def from_codes(
     pair_values: Optional[torch.Tensor] = None,
     bias: Optional[torch.Tensor] = None,
     config: Optional[KernelConfig] = None,
+    example_batch_size: int = 8,
     chunk: int = packing.DEFAULT_CHUNK,
     device=None,
 ) -> QuantizedLinear:
@@ -293,7 +306,10 @@ def from_codes(
     layout on ``device``: the codes' device for a tensor, else ``cuda``
     unless named. ``table`` None means zeros (for a layer that looks its
     values up in ``pair_values``). ``config`` is kept as the layer's key
-    with its chunk set to ``chunk`` (default: ``KernelConfig()``)."""
+    with its chunk set to ``chunk`` (default: ``KernelConfig()``).
+    ``example_batch_size`` is kept for the JAX signature: this key does not
+    depend on it."""
+    del example_batch_size
     if isinstance(codes_kn, torch.Tensor) and device is None:
         dev = codes_kn.device
     else:
@@ -322,9 +338,11 @@ def quantize_params(
     *,
     dtype: torch.dtype = torch.bfloat16,
     predicate: Optional[Callable[[tuple, torch.Tensor], bool]] = None,
+    example_batch_size: int = 8,
 ) -> Any:
     """Walk a nested dict/list of tensors, replacing 2-D ``[out, in]``
-    weights with :class:`QuantizedLinear` modules on the weight's device.
+    weights with :class:`QuantizedLinear` modules on the weight's device,
+    each keyed for ``example_batch_size`` rows (:func:`quantize_linear`).
 
     ``predicate(path, leaf)`` selects the leaves (``path`` is the tuple of
     keys and indices); default: every 2-D tensor whose in-dim divides by
@@ -345,7 +363,8 @@ def quantize_params(
         if isinstance(node, (list, tuple)):
             return type(node)(visit(path + (i,), v) for i, v in enumerate(node))
         if isinstance(node, torch.Tensor) and pred(path, node):
-            return quantize_linear(node, num_bits, group_size, dtype=dtype)
+            return quantize_linear(node, num_bits, group_size, dtype=dtype,
+                                   example_batch_size=example_batch_size)
         return node
 
     return visit((), params)

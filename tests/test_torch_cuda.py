@@ -1066,13 +1066,17 @@ def test_lab2_main_on_the_card(capsys):
 
 
 # ---------------------------------------------------------------------------
-# L4, L6, L9 and L10 on the lab's tensor-core loop (csrc/lab_mma.cuh)
+# L3, L4, L5, L6, L9 and L10 on the lab's tensor-core loop (csrc/lab_mma.cuh)
 # ---------------------------------------------------------------------------
 
 # L6 in its two scale modes, L10, L4's four distinct flag sets (g8_wrap's
-# are g8_nochain's entries) and L9's two modes
+# are g8_nochain's entries), L9's two modes, L5's two (the pair table in
+# shared memory) and L3 (the 16 entries in shared memory)
 LOOP_VARIANTS = ("g8_hoist group_acc", "g8_hoist repeat", "int4", "g8_ablate full",
-                 "g8_ablate nochain", "g8_ablate noscale", "g8_ablate bare", "sep", "sep1")
+                 "g8_ablate nochain", "g8_ablate noscale", "g8_ablate bare", "sep", "sep1",
+                 "g8_rs group_acc", "g8_rs repeat", "gather16 expand")
+# the loop variants of lab/ops.py
+LAB1_LOOP_VARIANTS = tuple(v for v in LOOP_VARIANTS if v not in ("int4", "sep", "sep1"))
 
 
 def loop_call(dev, variant, m, g, k=LAB_K, eye=False, n=LAB_N):
@@ -1088,8 +1092,12 @@ def loop_call(dev, variant, m, g, k=LAB_K, eye=False, n=LAB_N):
                                         bk, g=g)
         return fn, ops2, (lambda: ops2.FUNCTIONS[fn](*args)), (lambda: ops2.plain(fn, *args))
     fn, mode = variant.split()
-    flags = (dict(scale_mode=mode) if fn == "g8_hoist"
-             else kernel_lab.VARIANTS["g8_" + mode][1])
+    if fn in ("g8_hoist", "g8_rs"):
+        flags = dict(scale_mode=mode)
+    elif fn == "gather16":
+        flags = {}
+    else:
+        flags = kernel_lab.VARIANTS["g8_" + mode][1]
     _, planes, scales, table, x = kernel_lab.make_inputs(m, n, k, 4, g, device=dev)
     if eye:
         x = torch.eye(k, dtype=torch.bfloat16, device=dev)
@@ -1116,6 +1124,65 @@ def test_lab_loop_vs_plain(dev, m, g, variant):
     assert torch.isfinite(y.float()).all()
     assert rel_err(y, plain()) < TOL[torch.bfloat16]
     assert torch.equal(y.view(torch.int16), again.view(torch.int16))
+
+
+@pytest.mark.parametrize("variant", LAB1_LOOP_VARIANTS)
+@pytest.mark.parametrize("g", [64, 512])
+def test_lab_loop_one_split_and_the_planned_split(dev, monkeypatch, g, variant):
+    """One split and the split lab_splits plans (N 2048, K 4096: more than
+    one) each agree with the plain version and repeat their bits; the
+    planned split launches the loop and its reduction as one call."""
+    fn, mod, call, plain = loop_call(dev, variant, 16, g, k=4096, n=2048)
+    planned = lab.lab_splits(2048, 4096, g)
+    assert planned > 1
+    want = plain()
+    for splits in (1, planned):
+        monkeypatch.setattr(lab, "lab_splits", lambda n, k, g, s=splits: s)
+        before = dict(mod.LAUNCHES)
+        y = call()
+        assert mod.LAUNCHES == {**before, fn: before[fn] + 1}
+        assert mod.LAST_PATH[fn] == "mma"
+        again = call()
+        torch.cuda.synchronize()
+        assert rel_err(y, want) < TOL[torch.bfloat16]
+        assert torch.equal(y.view(torch.int16), again.view(torch.int16))
+
+
+# L5's and L3's loop variants (tables in shared memory) and their register
+# twins (the same functions with the table in registers)
+LOOP_TWINS = {"g8_rs group_acc": "g8_hoist group_acc", "g8_rs repeat": "g8_hoist repeat",
+              "gather16 expand": "g8_ablate full"}
+
+
+@pytest.mark.parametrize("variant", list(LOOP_TWINS))
+@pytest.mark.parametrize("g", [32, 64, 512])
+def test_lab_loop_shared_table_gives_its_twins_bits(dev, g, variant):
+    """L5 and L3 compute L6's and L4 full's functions from the same bf16
+    entries in the same sum order on the loop: where the table lives
+    changes no bit."""
+    y = loop_call(dev, variant, 40, g)[2]()
+    twin = loop_call(dev, LOOP_TWINS[variant], 40, g)[2]()
+    assert torch.equal(y.view(torch.int16), twin.view(torch.int16))
+
+
+def test_lab_loop_occupancy(dev):
+    """Every instantiation of the loop in both lab libraries keeps four
+    blocks an SM at its lab's shape; its dynamic shared memory is the ring,
+    its decoder's table (L5: 4 copies of 256 words with group_acc, 2 beside
+    "repeat"'s scale rows; L3: 16 words) and "repeat"'s scale rows."""
+    ring = 2 * (16 * (256 + 8) * 2 + 32 * 128 * 4)
+    table = {"PairTableDecoder<4>": 4 * 256 * 4, "PairTableDecoder<2>": 2 * 256 * 4,
+             "Gather16Decoder": 16 * 4}
+    seen = []
+    for source, bk in (("kernel_lab.cu", 1024), ("kernel_lab2.cu", 2048)):
+        for inst in lab.loop_instances(source, bk, G):
+            rows = bk // G * 128 * 2 if inst["scaling"] == "repeat" else 0
+            assert inst["smem_bytes"] == ring + table.get(inst["decoder"], 0) + rows, inst
+            assert inst["blocks_per_sm"] == 4, inst
+            seen.append((inst["decoder"], inst["scaling"]))
+    assert len(set(seen)) == len(seen) == 12
+    assert {("PairTableDecoder<4>", "group_acc"), ("PairTableDecoder<2>", "repeat"),
+            ("Gather16Decoder", "expand")} <= set(seen)
 
 
 @pytest.mark.parametrize("variant", LOOP_VARIANTS)
@@ -1167,7 +1234,7 @@ BAD_LAUNCHES = {
 
 
 @pytest.mark.parametrize("case", list(BAD_LAUNCHES))
-@pytest.mark.parametrize("fn", ["g8_hoist", "int4", "g8_ablate", "sep"])
+@pytest.mark.parametrize("fn", ["g8_hoist", "int4", "g8_ablate", "sep", "g8_rs", "gather16"])
 def test_lab_loop_refuses_bad_launches(dev, fn, case):
     """The C entry refuses a launch it cannot run (cudaErrorInvalidValue)
     and writes nothing."""
@@ -1191,8 +1258,11 @@ def test_lab_loop_refuses_bad_launches(dev, fn, case):
         entry, _ = lab._kernel_fn("g8_ablate")
         err = entry(*ptrs, table.data_ptr(), y.data_ptr(), wp, 16, LAB_N, k, k, g, 1, 1, splits,
                     stream)
-    else:
-        entry, _ = lab._kernel_fn("g8_hoist")
+    elif fn == "gather16":
+        entry, _ = lab._kernel_fn("gather16")
+        err = entry(*ptrs, table.data_ptr(), y.data_ptr(), wp, 16, LAB_N, k, k, g, splits, stream)
+    else:  # g8_hoist, g8_rs
+        entry, _ = lab._kernel_fn(fn)
         err = entry(*ptrs, table.data_ptr(), y.data_ptr(), wp, 16, LAB_N, k, k, g, 1, splits,
                     stream)
     torch.cuda.synchronize()

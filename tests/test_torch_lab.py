@@ -224,18 +224,20 @@ def test_lab_checks_like_the_grid(port_inputs, case):
 
 
 # ---------------------------------------------------------------------------
-# L4's and L6's tensor-core loop: the host-side plan (the kernels are in
-# test_torch_cuda.py)
+# L3's, L4's, L5's and L6's tensor-core loop: the host-side plan (the
+# kernels are in test_torch_cuda.py)
 # ---------------------------------------------------------------------------
 
 # the lab variants on the loop where 16 divides g: L4's four distinct flag
-# sets (g8_wrap's flags select g8_nochain's entries) and L6's two modes
-LOOP_VARIANTS = ("g8_full", "g8_nochain", "g8_noscale", "g8_bare", "g8_hoist", "g8_hoist_ga")
+# sets (g8_wrap's flags select g8_nochain's entries), L6's and L5's two
+# modes each, and L3
+LOOP_VARIANTS = ("g8_full", "g8_nochain", "g8_noscale", "g8_bare", "g8_hoist", "g8_hoist_ga",
+                 "g8_repeat", "g8_groupacc", "gather16")
 
 
 @pytest.mark.parametrize("g,path", [(2, "simt"), (6, "simt"), (16, "mma"), (32, "mma"),
                                     (64, "mma"), (512, "mma")])
-@pytest.mark.parametrize("fn", ["g8_ablate", "g8_hoist"])
+@pytest.mark.parametrize("fn", ["gather16", "g8_ablate", "g8_rs", "g8_hoist"])
 def test_lab_path_from_g(fn, g, path):
     """The loop takes a g that is a multiple of 16 (a k16 step inside one
     group); g = 2 goes to the SIMT kernel, with one split, chosen before any
@@ -244,7 +246,8 @@ def test_lab_path_from_g(fn, g, path):
     assert fn in lab.MMA_FUNCTIONS and lab.lab_path(g) == path
     entry, n_ptr, n_int = lab._ENTRIES[fn]
     assert entry == f"flute_lab_{fn}" and n_ptr == 6
-    assert n_int == {"g8_ablate": 8, "g8_hoist": 7}[fn]  # M N K bk g, flags, splits
+    # M N K bk g, flags, splits
+    assert n_int == {"gather16": 6, "g8_ablate": 8, "g8_rs": 7, "g8_hoist": 7}[fn]
     if path == "simt":
         assert lab.lab_splits(256, 1536, g) == 1
 
@@ -286,7 +289,8 @@ LOOP_REFUSALS = {"odd_g": (3, 256), "zero_g": (0, 256), "bk_not_by_g": (512, 256
 
 
 @pytest.mark.parametrize("case", list(LOOP_REFUSALS))
-@pytest.mark.parametrize("variant", ["g8_hoist_ga", "g8_full", "g8_bare"])
+@pytest.mark.parametrize("variant", ["g8_hoist_ga", "g8_full", "g8_bare", "g8_groupacc",
+                                     "g8_repeat", "gather16"])
 def test_loop_refuses_before_launch(port_inputs, variant, case):
     _, planes, _, table, x = port_inputs
     g, bk = LOOP_REFUSALS[case]
@@ -319,9 +323,12 @@ def test_loop_other_group_sizes_vs_jax(jax_lab, interpret, variant, g, bk):
     mod = jax_lab[0]
     _, jplanes, jscales, jtable, jx = mod.make_inputs(M, N, K, 4, g)
     fn, flags = kernel_lab.VARIANTS[variant]
-    run = {"g8_ablate": mod.run_g8_ablate, "g8_hoist": mod.run_g8_hoist}[fn]
-    if fn == "g8_hoist":
+    run = {"gather16": mod.run_gather16, "g8_ablate": mod.run_g8_ablate,
+           "g8_rs": mod.run_g8_rs, "g8_hoist": mod.run_g8_hoist}[fn]
+    if fn in ("g8_rs", "g8_hoist"):
         want = run(jx, jplanes, jscales, jtable, M, BN, bk, g, flags["scale_mode"])
+    elif fn == "gather16":
+        want = run(jx, jplanes, jscales, jtable, M, BN, bk, g)
     else:
         want = run(jx, jplanes, jscales, jtable, M, BN, bk, g, **{**flags, "wrap": False})
     want = np.asarray(want, np.float32)
