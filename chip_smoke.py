@@ -12,7 +12,8 @@ Phases (any failure exits non-zero):
      and L7-L12 (its second half, kernel_lab2.cu); print ptxas registers
      and spill; for each instantiation of the lab's tensor-core loop its
      registers, spill (none allowed), dynamic shared memory and blocks per
-     SM (the CUDA occupancy calculator);
+     SM (the CUDA occupancy calculator), among them L1's WordDecoder and
+     L11's PairTableDecoder<4> (kernel_lab2.cu's copy of L5's);
   2. hold each kernel against its plain PyTorch version on the card:
      the LUT-GEMMs at the Llama-3.1-8B decoder-layer shapes (K1 also at
      Gemma-2-9B's), M in {1, 8, 128, 512}, bf16 and f16 (relative Frobenius
@@ -50,32 +51,40 @@ Phases (any failure exits non-zero):
      counts set to 0 just before and read just after (each function exactly
      its variants' calls: a check call, bench_op's first calls and its graph's
      launches; gather8 and pairlut as many of K2 and K4, no other package
-     kernel), and no lab kernel launched in phases 3-5; L3 (gather16), L4
-     (g8_ablate, its five variants), L5 (g8_rs, both scale modes) and L6
-     (g8_hoist) run the lab's tensor-core loop (path "mma", each function's
-     path recorded), the rest SIMT; then each of its 12 cases is held
+     kernel), and no lab kernel launched in phases 3-5; L1 (floor, at every
+     g: it reads no scales), L3 (gather16), L4 (g8_ablate, its five
+     variants), L5 (g8_rs, both scale modes) and L6 (g8_hoist) run the
+     lab's tensor-core loop (path "mma", each function's path recorded),
+     L2 SIMT; one mma.sync of bf16 subnormal operands keeps them and their
+     f32 products exactly (the probe); then each of its 12 cases is held
      against its plain version on the card at that shape and at bk 256 on a
      narrow N (relative Frobenius error under 1.1e-2; floor on planes
      masked to finite bf16 halves; unpack_only, whose operand is subnormal,
-     to 1.1e-2 of the largest output) and with an identity x bit for bit,
-     the loop's cases also called twice for the same bits, and at g = 2 on
-     their SIMT kernel; L5 and L3 (tables in shared memory) give the bits
-     of their register twins L6 and L4 full; the plain versions and a
-     yardstick (one bf16 torch.matmul of x on the pre-dequantized [8192,
-     28672] weight) are timed beside the kernels, L2-cold, in CUDA graphs;
+     to 1.1e-2 of the largest output) and with an identity x bit for bit
+     (floor also at bk 1024, where its x map is not the identity), the
+     loop's cases also called twice for the same bits, and at g = 2 (floor
+     on the loop, the others on their SIMT kernel); L5 and L3 (tables in
+     shared memory) give the bits of their register twins L6 and L4 full;
+     the plain versions and a yardstick (one bf16 torch.matmul of x on the
+     pre-dequantized [8192, 28672] weight) are timed beside the kernels,
+     L2-cold, in CUDA graphs, and each loop variant's time over floor's
+     (the loop's staging floor) is printed per decode instruction a B
+     register;
   2c. the lab's second half (L7-L12 of csrc/kernel_lab2.cu): its entry
      point, flute_tpu_torch.lab.kernel_lab2.main, runs every variant at the
      JAX lab2's default shape (M16 N28672 K8192, bn 2048, bk 2048, g64,
      bf16) with the launch counts set to 0 just before and read just after
      (each function exactly its variants' calls, sep for sep and sep1, L7
      2 x 4002; prod as many of K2, no other package kernel, no L1-L6), and
-     no L7-L12 kernel launched in phases 3-5; L9 (sep and sep1) and L10
-     (int4) run the lab's tensor-core loop (path "mma"), the rest SIMT;
-     then the six GEMM functions (seven cases with sep1) are held against
-     their plain versions on the card at that shape and at bk 256 on a
-     narrow N (relative Frobenius error under 1.1e-2) and with an identity x
-     bit for bit (the sign of a zero aside), the loop's cases also called
-     twice for the same bits, L7 bit for bit at nops 2 and 8; the
+     no L7-L12 kernel launched in phases 3-5; L9 (sep and sep1), L10
+     (int4) and L11 (slabstream, on L5 group_acc's decoder) run the lab's
+     tensor-core loop (path "mma"), the rest SIMT; then the six GEMM
+     functions (seven cases with sep1) are held against their plain
+     versions on the card at that shape and at bk 256 on a narrow N
+     (relative Frobenius error under 1.1e-2) and with an identity x bit for
+     bit (the sign of a zero aside), the loop's cases also called twice for
+     the same bits, L11 to L5 group_acc's bits on the same inputs, L7 bit
+     for bit at nops 2 and 8; the
      plain versions and a yardstick (one bf16 torch.matmul on the
      pre-dequantized weight: phase 2b's for the 4-bit cases, its own for
      L12's 3-bit weight) are timed beside the kernels, L2-cold, in CUDA
@@ -951,6 +960,37 @@ LAB_NARROW_N = 2048  # the bk 256 checks
 # L5's and L3's variants (tables in shared memory) and their register twins
 LAB_TWINS = {"g8_repeat": "g8_hoist", "g8_groupacc": "g8_hoist_ga", "gather16": "g8_full"}
 LAB_ITERS = 24  # the lab's --iters: launches per timed CUDA graph (at least)
+# instructions a B register that a loop variant adds to floor's none, as its
+# decoder's source reads (csrc/kernel_lab.cu): HalfDecoder's lookup 3,
+# HoistDecoder's 6, Gather16Decoder's 7, and one __hmul2 with "expand":
+# the variants whose only work over floor's is their decode
+DECODE_INSTRUCTIONS = {"g8_bare": 3, "g8_nochain": 4, "g8_wrap": 4, "g8_noscale": 6,
+                       "g8_full": 7, "gather16": 8}
+
+
+def mma_probe_check() -> dict:
+    """The tensor core on subnormals (lab.probe_operands): the f32 outputs
+    are the exact values and round to the operands' bf16 bits. Fails on a
+    flush to zero."""
+    from flute_tpu_torch.lab import ops as lab
+
+    (eye, b), (tiny, small) = lab.probe_operands(torch.device("cuda"))
+    d = lab.mma_probe(eye, b).cpu()
+    d2 = lab.mma_probe(tiny, small).cpu()
+    want2 = (tiny.cpu().double() @ small.cpu().double()).float()
+    kept = torch.equal(d.view(torch.int32), b.cpu().float().view(torch.int32)) and torch.equal(
+        d.bfloat16().view(torch.int16), b.cpu().view(torch.int16))
+    products = torch.equal(d2.view(torch.int32), want2.view(torch.int32))
+    sub = b.cpu().view(torch.int16)[:4, 0].tolist()
+    out = dict(operand_bits=[f"0x{v & 0xFFFF:04X}" for v in sub],
+               outputs=[float(v) for v in d[:4, 0]], operands_kept=kept,
+               products=[float(v) for v in d2[:2, 0]], subnormal_products_kept=products)
+    log(f"  the tensor core on subnormals: bf16 {out['operand_bits']} times 1 gives "
+        f"{out['outputs']} (kept: {kept}); 2^-100 x ~2^-40 gives {out['products']} "
+        f"(kept: {products})")
+    if not (kept and products):
+        raise AssertionError(f"mma.sync flushes subnormals: {out}")
+    return out
 
 
 def lab_check(fn, flags, x, planes, scales, table, bn, bk, name, label):
@@ -964,7 +1004,7 @@ def lab_check(fn, flags, x, planes, scales, table, bn, bk, name, label):
     path = lab.LAST_PATH[fn]
     want = lab.plain(fn, x, planes, scales, table, m, bn, bk, g, **flags)
     torch.cuda.synchronize()
-    if path != (lab.lab_path(g) if fn in lab.MMA_FUNCTIONS else "simt"):
+    if path != lab.path_of(fn, g):
         raise AssertionError(f"lab {name} {label}: ran path {path}")
     if not torch.isfinite(got.float()).all():
         raise AssertionError(f"lab {name} {label}: non-finite output")
@@ -1003,8 +1043,7 @@ def phase_lab(dev, results):
     gemm = dict(lut_gemm.LAUNCHES)
     paths = dict(lab.LAST_PATH)
     main_s = time.perf_counter() - t0
-    want_paths = {fn: lab.lab_path(g) if fn in lab.MMA_FUNCTIONS else "simt"
-                  for fn in lab.LAUNCHES}
+    want_paths = {fn: lab.path_of(fn, g) for fn in lab.LAUNCHES}
     if paths != want_paths:
         raise AssertionError(f"the lab's run took the paths {paths}, expected {want_paths}")
     # calls per variant: one check call, then bench_op's first call on each
@@ -1020,6 +1059,7 @@ def phase_lab(dev, results):
     log(f"  the lab's entry point ran {len(rows)} variants in {main_s:.1f} s; launches {launches}, "
         f"package kernels {gemm}; paths {paths}")
     by_name = {r["name"]: r for r in rows}
+    probe = mma_probe_check()
 
     codes, planes, scales, table, x = kernel_lab.make_inputs(m, n, k, 4, g, device=dev)
     finite = [lab.finite_halves(planes[0])]
@@ -1043,6 +1083,14 @@ def phase_lab(dev, results):
         if fn == "unpack_only" and not torch.equal(
                 got.view(torch.int16), lab.unpack_weight(small[0]).view(torch.int16)):
             raise AssertionError("lab unpack: identity x does not give its operand")
+        if fn == "floor":  # at the lab's bk the four stretches of a block are apart
+            eye = torch.eye(bk, dtype=torch.bfloat16, device=dev)
+            small = [q[:bk // 8, :256].contiguous() for q in p]
+            s_small = scales[:bk // g, :256].contiguous()
+            got = lab.run(fn, eye, small, s_small, table, 16, 256, bk, g)
+            want = lab.plain(fn, eye, small, s_small, table, 16, 256, bk, g)
+            if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
+                raise AssertionError(f"lab floor: identity x at bk {bk} not bit-exact")
         if fn in lab.MMA_FUNCTIONS:  # split-K reduced in a fixed order: the same bits
             once = lab.run(fn, x, p, scales, table, m, n, bk, g, **flags)
             again = lab.run(fn, x, p, scales, table, m, n, bk, g, **flags)
@@ -1058,26 +1106,30 @@ def phase_lab(dev, results):
         if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
             raise AssertionError(f"lab {name} differs from its register twin {twin}")
     log(f"  the shared-memory tables give their register twins' bits: {LAB_TWINS}")
-    # g = 2 puts no k16 step inside one group: the loop's functions run their
-    # SIMT kernel, chosen from g before the launch
+    # g = 2 puts no k16 step inside one group: the loop's functions that
+    # read scales run their SIMT kernel, chosen from g before the launch;
+    # floor reads none and stays on the loop
     _, p2, s2, t2, x2 = kernel_lab.make_inputs(m, LAB_NARROW_N, 1024, 4, 2, device=dev)
     simt = {}
     for name, (fn, flags) in kernel_lab.VARIANTS.items():
         if fn not in lab.MMA_FUNCTIONS:
             continue
-        got = lab.run(fn, x2, p2, s2, t2, m, LAB_NARROW_N, 256, 2, **flags)
+        q2 = [lab.finite_halves(p2[0])] if fn == "floor" else p2
+        got = lab.run(fn, x2, q2, s2, t2, m, LAB_NARROW_N, 256, 2, **flags)
         path = lab.LAST_PATH[fn]
-        err = rel_err(got, lab.plain(fn, x2, p2, s2, t2, m, LAB_NARROW_N, 256, 2, **flags))
-        if path != "simt" or not err < THRESHOLDS[torch.bfloat16]:
+        err = rel_err(got, lab.plain(fn, x2, q2, s2, t2, m, LAB_NARROW_N, 256, 2, **flags))
+        if path != lab.path_of(fn, 2) or not err < THRESHOLDS[torch.bfloat16]:
             raise AssertionError(f"lab {name} at g = 2: path {path}, error {err}")
-        simt[name] = err
+        simt[name] = dict(path=path, rel_err=err)
     del p2, s2, t2, x2
-    log(f"  at g = 2 the loop's variants run SIMT, within {max(simt.values()):.2e} of their "
-        f"plain versions (M{m} N{LAB_NARROW_N} K1024 bk 256): {sorted(simt)}")
+    log(f"  at g = 2 the loop's variants run SIMT, floor the loop, within "
+        f"{max(v['rel_err'] for v in simt.values()):.2e} of their plain versions "
+        f"(M{m} N{LAB_NARROW_N} K1024 bk 256): "
+        f"{ {name: v['path'] for name, v in simt.items()} }")
     log(f"  L1-L6: 12 cases agree with their plain versions at M{m} N{n} K{k} bk {bk} and at "
         f"N{LAB_NARROW_N} bk 256 (largest error {max(c['rel_err'] for c in checks):.2e}), "
-        "identity x bit-exact (unpack_only: its subnormal operand), the tensor-core loop's "
-        f"repeated calls bit-identical; on the loop: "
+        f"identity x bit-exact (floor also at bk {bk}; unpack_only: its subnormal operand), "
+        f"the tensor-core loop's repeated calls bit-identical; on the loop: "
         f"{sorted({c['variant'] for c in checks if c['path'] == 'mma'})}")
 
     # plain versions and the yardstick, timed beside the kernels
@@ -1117,9 +1169,26 @@ def phase_lab(dev, results):
     # not finite); the same kernel on planes masked to finite halves
     fin = [([lab.finite_halves(q[0])], s) for q, s in args]
     t_fin = bench_op(lambda q, s: lab.floor(x, q, s, m, n, bk, g), fin, min_launches=24)
-    next(c for c in cases if c["variant"] == "floor")["finite_planes_us"] = t_fin * 1e6
+    floor = next(c for c in cases if c["variant"] == "floor")
+    floor["finite_planes_us"] = t_fin * 1e6
     log(f"    floor on finite planes: kernel {t_fin * 1e6:8.1f} us")
     del fin
+    # the loop's staging floor: each loop variant's time over floor's, and
+    # per decode instruction a B register where the decode is all it adds
+    staging = {}
+    for c in cases:
+        if c["path"] != "mma" or c["variant"] == "floor":
+            continue
+        over = c["us"] - floor["us"]
+        n_ins = DECODE_INSTRUCTIONS.get(c["variant"])
+        staging[c["variant"]] = dict(over_floor_us=over, instructions_per_b_register=n_ins,
+                                     us_per_instruction=None if n_ins is None else over / n_ins)
+    log(f"    over floor's {floor['us']:.1f} us (the loop's staging floor, "
+        f"{100 * floor['share_of_bound']:.1f}% of its bound): " + ", ".join(
+            f"{v} +{d['over_floor_us']:.1f}"
+            + ("" if d["us_per_instruction"] is None else
+               f" ({d['instructions_per_b_register']} ins, {d['us_per_instruction']:.1f} us each)")
+            for v, d in staging.items()))
     for name in kernel_lab.PACKAGE_VARIANTS:
         row = by_name[name]
         log(f"    {name:12s} kernel {row['us']:8.1f} us {row['gbps']:7.1f} GB/s "
@@ -1129,7 +1198,7 @@ def phase_lab(dev, results):
     torch.cuda.empty_cache()
     results["lab"] = dict(shape=sh, main_s=main_s, rows=rows, launches=launches,
                           package_launches=gemm, paths=paths, checks=checks, cases=cases,
-                          g2_simt_errors=simt)
+                          g2=simt, mma_probe=probe, over_floor=staging)
     return cases, checks, launches
 
 
@@ -1195,7 +1264,7 @@ def lab2_check(name, inp, weights, bn, bk, label):
     path = ops2.LAST_PATH[fn]
     want = ops2.plain(fn, *args)
     torch.cuda.synchronize()
-    if path != (lab.lab_path(LAB2_SHAPE["g"]) if fn in ops2.MMA_FUNCTIONS else "simt"):
+    if path != ops2.path_of(fn, LAB2_SHAPE["g"]):
         raise AssertionError(f"lab2 {name} {label}: ran path {path}")
     if not torch.isfinite(got.float()).all():
         raise AssertionError(f"lab2 {name} {label}: non-finite output")
@@ -1206,13 +1275,14 @@ def lab2_check(name, inp, weights, bn, bk, label):
                 max_abs_err=float((got.float() - want.float()).abs().max()))
 
 
-def phase_lab2(dev, results, library_us_w4):
+def phase_lab2(dev, results, library_us_w4, floor_us):
     """The lab's second half (L7-L12): its entry point over every variant
     (counted, each function's path recorded), then each case against its
     plain version, an identity x bit for bit, a repeated call of the
-    tensor-core loop bit for bit, L7 bit for bit, and the plain versions and
-    a bf16 matmul timed beside the kernels. ``library_us_w4`` is phase 2b's
-    yardstick, a bf16 matmul at this shape."""
+    tensor-core loop bit for bit, L11 against L5 group_acc's bits, L7 bit
+    for bit, and the plain versions and a bf16 matmul timed beside the
+    kernels. ``library_us_w4`` is phase 2b's yardstick, a bf16 matmul at
+    this shape, and ``floor_us`` its floor (the loop's staging floor)."""
     from types import SimpleNamespace
 
     from flute_tpu_torch.lab import kernel_lab2, ops2
@@ -1231,8 +1301,7 @@ def phase_lab2(dev, results, library_us_w4):
     launches, gemm, lab1 = dict(ops2.LAUNCHES), dict(lut_gemm.LAUNCHES), dict(lab.LAUNCHES)
     paths = dict(ops2.LAST_PATH)
     main_s = time.perf_counter() - t0
-    want_paths = {fn: lab.lab_path(g) if fn in ops2.MMA_FUNCTIONS else "simt"
-                  for fn in ops2.LAUNCHES}
+    want_paths = {fn: ops2.path_of(fn, g) for fn in ops2.LAUNCHES}
     if paths != want_paths:
         raise AssertionError(f"the lab2 run took the paths {paths}, expected {want_paths}")
 
@@ -1275,6 +1344,14 @@ def phase_lab2(dev, results, library_us_w4):
             once, again = ops2.FUNCTIONS[fn](*args), ops2.FUNCTIONS[fn](*args)
             if not torch.equal(once.view(torch.int16), again.view(torch.int16)):
                 raise AssertionError(f"lab2 {name}: a repeated call changed bits")
+    # L11 and L5 group_acc: one decoder, scaling and split in two libraries
+    twin = ops2.slabstream(inp.x, inp.planes, inp.scales, inp.table, m, bn, bk, g)
+    l5 = lab.g8_rs(inp.x, inp.planes, inp.scales, inp.table, m, bn, bk, g, "group_acc")
+    if not torch.equal(twin.view(torch.int16), l5.view(torch.int16)):
+        raise AssertionError("lab2 slabstream differs from L5 g8_rs group_acc")
+    log(f"  L11 slabstream gives L5 g8_rs group_acc's bits on the same inputs (path "
+        f"{ops2.LAST_PATH['slabstream']}, {lab.lab_splits(n, k, g)} splits of K)")
+    del twin, l5
     block = kernel_lab2.vmembw_block(dev)
     for nops in kernel_lab2.VMEMBW_NOPS:
         got = ops2.vmembw(block, nops)
@@ -1321,11 +1398,14 @@ def phase_lab2(dev, results, library_us_w4):
                     bytes=nbytes, bound_us=max(t_bytes, t_ops) * 1e6,
                     bound_by="bytes" if t_bytes >= t_ops else "operations")
         case["share_of_bound"] = case["bound_us"] / case["us"]
+        if case["path"] == "mma":
+            case["over_floor_us"] = case["us"] - floor_us
         cases.append(case)
         log(f"    {name:12s} {case['path']:4s} kernel {case['us']:8.1f} us {case['gbps']:7.1f} "
             f"GB/s  bound {case['bound_us']:6.1f} us ({case['bound_by']}, "
             f"{100 * case['share_of_bound']:5.1f}%)  plain {case['plain_us']:8.1f} us  matmul "
-            f"{case['library_us']:6.1f} us  rel {case['rel']:.2e}")
+            f"{case['library_us']:6.1f} us  rel {case['rel']:.2e}"
+            + (f"  over floor +{case['over_floor_us']:.1f} us" if "over_floor_us" in case else ""))
     # L7 at its longer chain: the block read once and written once, two
     # int32 operations per element and step
     row = by_name["vmembw"]
@@ -4788,8 +4868,10 @@ def main() -> int:
     log("== 2b. the Hopper lab (L1-L6)")
     lab_cases, lab_checks, lab_launches = phase_lab(dev, results)
     log("== 2c. the Hopper lab, second half (L7-L12)")
+    lab_floor = next(c for c in lab_cases if c["variant"] == "floor")
     lab2_cases, lab2_checks, lab2_launches = phase_lab2(dev, results,
-                                                        lab_cases[0]["library_us"])
+                                                        lab_cases[0]["library_us"],
+                                                        lab_floor["us"])
     lab_before = dict(lab_ops.LAUNCHES)
     lab2_before = dict(lab2_ops.LAUNCHES)
     log("== 3. model logits against the CPU plain path; checkpoint round trip")

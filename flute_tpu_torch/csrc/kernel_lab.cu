@@ -21,7 +21,8 @@
 //                and pltpu.bitcast makes int32 row i bf16 rows 2i (low half)
 //                and 2i+1 (high half): K row r of the block is half r % 2 of
 //                word row (r/2) mod (bk/8), as a bf16 bit pattern. So each
-//                word feeds K rows 2(wr + t*bk/8) + {0, 1}, t = 0..3.
+//                word feeds K rows 2(wr + t*bk/8) + {0, 1}, t = 0..3: the
+//                word is an mma B register as it stands.
 //   unpack_only: the codes as bf16 bit patterns, W = bits(ce), bits(co): the
 //                subnormals c * 2^-133.
 //   gather16:    round(round(T[c]) * s[k/g]), the reference dequantization.
@@ -41,38 +42,45 @@
 //                designs differ in where the table lives: g8_hoist and
 //                g8_ablate hold bf16(T) in registers (HoistDecoder,
 //                HalfDecoder), g8_rs FLUTE's pair table in shared memory
-//                (PairTableDecoder), gather16 the 16 entries in shared
-//                memory (Gather16Decoder).
+//                (PairTableDecoder, lab_decoders.cuh, which L11 slabstream
+//                runs too), gather16 the 16 entries in shared memory
+//                (Gather16Decoder).
 //
 // Numerics: the SIMT kernel takes IEEE f32 FMAs with no flush to zero:
-// unpack_only's operand is subnormal, so the build must never add
-// --use_fast_math or -ftz=true. The tensor-core loop sums each k16 step in
-// the tensor core's f32 and scales a group's partial once, or rounds
-// bf16(T[c]) * s once in the B register (lab_mma.cuh). With x the identity
-// every output is one product, so both give W bit for bit.
+// unpack_only's operand is subnormal, and about one in 128 of floor's
+// finite halves is, so the build must never add --use_fast_math or
+// -ftz=true. The tensor-core loop sums each k16 step in the tensor core's
+// f32, which keeps subnormal bf16 operands and f32 products (the card test
+// test_lab_mma_keeps_subnormals, with flute_lab_mma_probe below), and
+// scales a group's partial once, or rounds bf16(T[c]) * s once in the B
+// register (lab_mma.cuh). With x the identity every output is one product,
+// so both give W bit for bit.
 //
 // What bounds them: bytes. At the lab's shape (M 16, N 28672, K 8192) the
 // planes are 117 MB and the rest 8.5 MB, about 37.6 us at 3.35 TB/s; the
 // FMAs (2*M*N*K) are 0.11 ms at the f32 rate, far above the bytes, so a
 // simple design is bound by how many loads it keeps in flight.
 //
-// Two designs. gather16, g8_ablate, g8_rs and g8_hoist, at a group size
-// that is a multiple of 16, run the lab's tensor-core loop (lab_mma.cuh,
-// with the decoders below): plane words and x staged per chunk in a
-// cp.async ring, each field decoded straight into an mma.sync B register;
-// group_acc's partials per group in f32 scaled on the C fragment;
-// "repeat"'s scales applied in the B register from the K block's scale rows
-// staged in shared memory; gather16's and g8_ablate's scale applied in the
-// B register from the open group's row ("expand"), or none read; split-K
-// at multiples of lcm(256, g), reduced in split order. Everything else, and
-// those four at any other (even) group size, runs the SIMT kernel below, on
-// K1's first skeleton (csrc/lut_gemm_common.cuh): one lane per output
-// column (32 columns per block), eight warps splitting each K block's word
-// rows, the block's 16 rows of x for one K block staged in shared memory as
-// f32 (read as float2 broadcasts), the 16-entry table rounded to bf16 in
-// shared memory, fixed-order warp sums, no atomics. A K block (not a pack
-// chunk) is staged because floor's words reach across the whole block.
+// Two designs. floor, at every group size (it reads no scales), and
+// gather16, g8_ablate, g8_rs and g8_hoist, at a group size that is a
+// multiple of 16, run the lab's tensor-core loop (lab_mma.cuh, with the
+// decoders below): plane words and x staged per chunk in a cp.async ring,
+// each field decoded straight into an mma.sync B register (floor: the word
+// itself, with the chunk's x taken from the four stretches of the K block
+// that its words feed); group_acc's partials per group in f32 scaled on the
+// C fragment; "repeat"'s scales applied in the B register from the K
+// block's scale rows staged in shared memory; gather16's and g8_ablate's
+// scale applied in the B register from the open group's row ("expand"), or
+// none read; split-K at multiples of lcm(256, g) (floor: of the chunk),
+// reduced in split order. unpack_only, and the four at any other (even)
+// group size, run the SIMT kernel below, on K1's first skeleton
+// (csrc/lut_gemm_common.cuh): one lane per output column (32 columns per
+// block), eight warps splitting each K block's word rows, the block's 16
+// rows of x for one K block staged in shared memory as f32 (read as float2
+// broadcasts), the 16-entry table rounded to bf16 in shared memory,
+// fixed-order warp sums, no atomics.
 
+#include "lab_decoders.cuh"
 #include "lab_mma.cuh"
 #include "lut_gemm_common.cuh"
 
@@ -80,13 +88,15 @@ namespace {
 
 using namespace flute;
 using bf16 = __nv_bfloat16;
+using labmma::PairTableDecoder;
+using labmma::table_bits;
 
 constexpr int kBM = 16;                   // rows of M per block
 constexpr int kChunk = 256;               // the lab's pack chunk
 constexpr int kChunkWords = kChunk / 8;   // word rows per chunk
 constexpr int kChunkPairs = kChunk / 2;   // pair rows per chunk
 
-enum Mode { kFloor, kUnpack, kGather16, kAblate, kRs, kHoist };
+enum Mode { kUnpack, kGather16, kAblate, kRs, kHoist };
 
 // copies of L5's pair table (PairTableDecoder) beside each scaling: as many
 // as leave four blocks an SM
@@ -94,6 +104,34 @@ constexpr int kGroupAccCopies = 4;
 constexpr int kRepeatCopies = 2;
 
 __device__ __forceinline__ float rnd(float v) { return Cvt<bf16>::round(v); }
+
+// L1 on the tensor-core loop: floor dequantizes nothing. A plane word is
+// two bf16 bit patterns, the even K row in the low half, so it is a B
+// register as it stands, and every field of it is the whole word: no
+// instruction a B register. Word row j of chunk cc of a K block feeds K rows
+// 64 cc + 2j + {0, 1} + t bk/4 of the block, t = 0..3 (pltpu.repeat tiles
+// the block's bk/8 word rows 4 times), so field i takes the stretch t = i:
+// slot x columns 64 i .. 64 i + 63 of the chunk hold K rows
+// kb bk + 64 cc + i bk/4 + 0..63 (kXMap). At bk 256 that is the identity.
+struct WordDecoder {
+  static constexpr int kPlanes = 1, kFieldBits = 8, kProducts = 1;
+  static constexpr int kTableWords = 0;  // no table
+  static constexpr bool kXMap = true;
+
+  __device__ explicit WordDecoder(const labmma::Args&) {}
+
+  static __device__ __forceinline__ int x_row(int c, int bk, int u) {
+    const int chunks = bk / kChunk;  // chunks per K block
+    const int kb = c / chunks;
+    return kb * bk + kChunk / 4 * (c - kb * chunks) + bk / 4 * (u / 64) + u % 64;
+  }
+
+  __device__ __forceinline__ void pairs(const uint32_t (&w)[2], int,
+                                        uint32_t (&b)[1][2]) const {
+    b[0][0] = w[0];
+    b[0][1] = w[1];
+  }
+};
 
 // L6 (and L4 with chain) on the tensor-core loop: the 16 entries of bf16(T)
 // held in registers as two byte planes (low and high bytes, 4 entries a
@@ -152,51 +190,6 @@ struct HalfDecoder : HoistDecoder {
     const uint32_t h = __byte_perm(hi[0], hi[1], idx);
     b[0][0] = __byte_perm(l, h, 0x5140u);
     b[0][1] = __byte_perm(l, h, 0x7362u);
-  }
-};
-
-// bf16(T[k]) as a 16-bit pattern, rounded once from the f32 table
-__device__ __forceinline__ uint32_t table_bits(const float* table, int k) {
-  return __bfloat16_as_ushort(__float2bfloat16_rn(__ldg(table + k)));
-}
-
-// L5 on the tensor-core loop: FLUTE's pair table in shared memory (the
-// served loop's PairDecoder with ScalarFill<4>, csrc/lut_gemm_pair_decoder.cuh),
-// T[c] read once with no select. Entry f = ce | co << 4, the field itself,
-// holds (bf16(T[ce]), bf16(T[co])), so one ld.shared is one B register.
-// kCopies bank-interleaved copies (entry f of copy c at word f * kCopies +
-// c; lane l reads copy l % kCopies), as many as leave four blocks an SM
-// (lab_mma.cuh's ring is 48.5 KB a block): 4 copies (4 KB) with group_acc,
-// 2 (2 KB) beside "repeat"'s 4 KB of scale rows. The table sits at a fixed
-// offset of dynamic shared memory, so a lookup's address is one shift and
-// one and-or of the word plus a constant.
-template <int kCopies>
-struct PairTableDecoder {
-  static constexpr int kPlanes = 1, kFieldBits = 8, kProducts = 1;
-  static constexpr int kTableWords = 256 * kCopies;
-  static constexpr int kShift = kCopies == 4 ? 4 : kCopies == 2 ? 3 : 2;  // log2(4 kCopies)
-  static_assert(4 * kCopies == 1 << kShift, "a power-of-two number of copies, at most 4");
-  const unsigned char* tab;  // the table
-  uint32_t copy;             // this lane's copy, in bytes
-
-  __device__ PairTableDecoder(const labmma::Args& a, uint32_t* t)
-      : tab(reinterpret_cast<const unsigned char*>(t)), copy(4u * (threadIdx.x % kCopies)) {
-    for (int idx = threadIdx.x; idx < kTableWords; idx += labmma::kThreads) {
-      const int f = idx / kCopies;
-      t[idx] = table_bits(a.table, f & 15) | (table_bits(a.table, f >> 4) << 16);
-    }
-  }
-
-  // entry (byte i of w) of this lane's copy
-  __device__ __forceinline__ uint32_t lookup(uint32_t w, int i) const {
-    const uint32_t f = 8 * i >= kShift ? w >> (8 * i - kShift) : w << (kShift - 8 * i);
-    return *reinterpret_cast<const uint32_t*>(tab + ((f & (0xFFu << kShift)) | copy));
-  }
-
-  __device__ __forceinline__ void pairs(const uint32_t (&w)[2], int i,
-                                        uint32_t (&b)[1][2]) const {
-    b[0][0] = lookup(w[0], i);
-    b[0][1] = lookup(w[1], i);
   }
 };
 
@@ -287,13 +280,6 @@ lab_kernel(const bf16* __restrict__ x, const uint32_t* __restrict__ plane,
     if (!col_ok) continue;
     for (int wr = warp; wr < nwr; wr += kWarps) {
       const uint32_t w = __ldg(plane + (static_cast<size_t>(kb) * nwr + wr) * N + n);
-      if (MODE == kFloor) {
-        const float lo = __uint_as_float(w << 16);
-        const float hi = __uint_as_float(w & 0xFFFF0000u);
-#pragma unroll
-        for (int t = 0; t < 4; ++t) fma_pair(acc, smem, bk, 2 * (wr + t * nwr), lo, hi);
-        continue;
-      }
       const int c = wr / kChunkWords;
       const int j = wr - c * kChunkWords;
 #pragma unroll
@@ -366,11 +352,6 @@ int launch(const void* x, const void* plane, const void* scales, const void* tab
 // bf16, plane [K/8, N] int32, table [16] float32. Each kernel runs on
 // `stream` and is not synchronised. Returns the cudaError_t of the launch.
 // floor and unpack_only read neither scales nor table.
-extern "C" int flute_lab_floor(const void* x, const void* plane, void* y, int M, int N, int K,
-                               int bk, void* stream) {
-  return launch<kFloor>(x, plane, nullptr, nullptr, y, M, N, K, bk, bk, 0, 0, 0, stream);
-}
-
 extern "C" int flute_lab_unpack_only(const void* x, const void* plane, void* y, int M, int N,
                                      int K, int bk, void* stream) {
   return launch<kUnpack>(x, plane, nullptr, nullptr, y, M, N, K, bk, bk, 0, 0, 0, stream);
@@ -378,13 +359,26 @@ extern "C" int flute_lab_unpack_only(const void* x, const void* plane, void* y, 
 
 // The operands of a loop call that the lab's checks make (bk a multiple of
 // the chunk and of g, dividing K) as Args; false where the loop cannot
-// take them. bk_rows: the K block whose scale rows "repeat" tiles, else 0.
+// take them. bk_rows: the K block whose scale rows "repeat" tiles, or
+// whose words floor's x map follows, else 0.
 static bool loop_args(labmma::Args& a, const void* x, const void* plane, const void* scales,
                       const void* table, void* y, void* work, int M, int N, int K, int bk, int g,
                       int bk_rows, int splits) {
   return bk > 0 && bk % kChunk == 0 && K % bk == 0 && bk % g == 0 &&
          labmma::make_args(a, x, plane, nullptr, scales, table, nullptr, y, work, M, N, K, g,
                            bk_rows, splits, 0.f, 0.f);
+}
+
+// floor runs the tensor-core loop at every call (WordDecoder, no scales;
+// `splits` splits of K at chunk boundaries, `work` an f32 [splits, M, N]
+// workspace, or null with one split): it takes no g.
+extern "C" int flute_lab_floor(const void* x, const void* plane, void* y, void* work, int M,
+                               int N, int K, int bk, int splits, void* stream) {
+  labmma::Args a;
+  // its split unit is the chunk (make_args' g) and its x map follows bk
+  if (!loop_args(a, x, plane, nullptr, nullptr, y, work, M, N, K, bk, kChunk, bk, splits))
+    return cudaErrorInvalidValue;
+  return labmma::run<WordDecoder, labmma::kNone>(a, splits, static_cast<cudaStream_t>(stream));
 }
 
 // A g that is a multiple of 16 runs the tensor-core loop (Gather16Decoder,
@@ -476,6 +470,7 @@ namespace {
 
 // every instantiation of the loop in this library
 const labmma::Instance kLoops[] = {
+    labmma::instance<WordDecoder, labmma::kNone>("WordDecoder"),
     labmma::instance<HoistDecoder, labmma::kExpand>("HoistDecoder"),
     labmma::instance<HoistDecoder, labmma::kNone>("HoistDecoder"),
     labmma::instance<HalfDecoder, labmma::kExpand>("HalfDecoder"),
@@ -487,7 +482,36 @@ const labmma::Instance kLoops[] = {
     labmma::instance<Gather16Decoder, labmma::kExpand>("Gather16Decoder"),
 };
 
+// One mma.sync.m16n8k16 (bf16 in, f32 sums from +0) of one warp: d[16][8] =
+// a[16][16] (row-major) times b (given as bt[8][16], column n's 16 K rows
+// in a row), fragments loaded as the PTX ISA lays them out.
+__global__ void mma_probe_kernel(const uint16_t* __restrict__ a, const uint16_t* __restrict__ bt,
+                                 float* __restrict__ d) {
+  const int lane = threadIdx.x, g = lane >> 2, t = lane & 3;
+  auto pair = [](const uint16_t* p) {
+    return static_cast<uint32_t>(p[0]) | static_cast<uint32_t>(p[1]) << 16;
+  };
+  const uint32_t af[4] = {pair(a + g * 16 + 2 * t), pair(a + (g + 8) * 16 + 2 * t),
+                          pair(a + g * 16 + 2 * t + 8), pair(a + (g + 8) * 16 + 2 * t + 8)};
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  mma::mma16816<bf16>(acc, af, pair(bt + g * 16 + 2 * t), pair(bt + g * 16 + 2 * t + 8));
+  d[g * 8 + 2 * t] = acc[0];
+  d[g * 8 + 2 * t + 1] = acc[1];
+  d[(g + 8) * 8 + 2 * t] = acc[2];
+  d[(g + 8) * 8 + 2 * t + 1] = acc[3];
+}
+
 }  // namespace
+
+// What the tensor core does with subnormal bf16 operands and f32 products,
+// which floor's operand holds: one mma of a [16, 16] (bf16, row-major) and
+// bt [8, 16] (bf16, B transposed) into d [16, 8] f32, one warp on `stream`.
+// It replaces no TPU kernel. Returns the cudaError_t of the launch.
+extern "C" int flute_lab_mma_probe(const void* a, const void* bt, void* d, void* stream) {
+  mma_probe_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint16_t*>(a), static_cast<const uint16_t*>(bt), static_cast<float*>(d));
+  return cudaGetLastError();
+}
 
 // The loop's instantiations in this library: their number, and instance i's
 // decoder (as ptxas's mangled name reads), Scaling (lab_mma.cuh's order),

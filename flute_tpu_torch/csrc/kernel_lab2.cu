@@ -22,7 +22,15 @@
 //     (f >> 4) & 7 of the half that bit 7 selects. pfdirect writes a chunk's
 //     dequantized operand (the payload ge | go) to shared memory before its
 //     products, as the TPU builds the whole tile; slabstream feeds each
-//     decoded pair straight into its products, in registers.
+//     decoded pair straight into its products, in registers. On the
+//     tensor-core loop that second design is the loop itself: each field
+//     becomes an mma B register with no tile between, so slabstream runs
+//     it with the fastest decoder measured for this function, FLUTE's pair
+//     table in shared memory, whose entry f is (T[f & 15], T[f >> 4]): one
+//     256-entry lookup from the raw field where the TPU needs two 8-entry
+//     gathers and selects. That decoder and its scaling are L5 g8_rs
+//     group_acc's (kernel_lab.cu): one instantiation, one source
+//     (lab_decoders.cuh), the same bits.
 //   sep: T[c] = A[c & 3] + B[c >> 2] over two 2-bit planes [K/16, N] (fields
 //     ce | co << 2, 8 per word, word row c*16 + j, field i: pair row
 //     c*128 + i*16 + j) and two 4-entry tables held in registers. sep: the
@@ -40,9 +48,9 @@
 //
 // Numerics: the SIMT kernels take IEEE f32 FMAs, no flush to zero (never
 // --use_fast_math). Per pair acc += (x_2p * W_2p + x_2p+1 * W_2p+1) * s: the
-// TPU's (x_g @ W_g) * s_g in another f32 order. int4 and sep on the
-// tensor-core loop sum each k16 step in the tensor core's f32 and scale a
-// group's partial once (lab_mma.cuh); sep adds plane A's and plane B's
+// TPU's (x_g @ W_g) * s_g in another f32 order. int4, sep and slabstream on
+// the tensor-core loop sum each k16 step in the tensor core's f32 and scale
+// a group's partial once (lab_mma.cuh); sep adds plane A's and plane B's
 // products into the partial by two mma, as the TPU adds its two dots, where
 // the plain version sums A + B first. With x the identity every output is
 // one product (sep: A + B, exact in f32 for the lab's tables), so the
@@ -54,18 +62,19 @@
 // two products 15.2). L7's 4.2 MB stay in the 50 MB L2, so it measures the
 // launch and the ALU chain.
 //
-// Two designs. int4 and sep, at a group size that is a multiple of 16, run
-// the lab's tensor-core loop (lab_mma.cuh, with Int4Decoder or SepDecoder
-// below): plane words and x staged per chunk in a cp.async ring (sep's two
-// 2-bit planes in one slot, plane A's 16 word rows then plane B's), each
-// field turned straight into mma.sync B registers (int4: two exact bf16
-// codes by the magic exponent, 0x4300 | c is 128 + c, minus 128 exact in
-// bf16; sep: one prmt a register from its 4-entry table), the group's
-// products (and int4's x sums, one more mma against a B of ones) in f32
-// partials scaled on the C fragment when the group ends; split-K at
-// multiples of lcm(256, g), reduced in split order. The others, and int4
-// and sep at any other (even) group size, run the SIMT kernel below on K1's
-// first skeleton (csrc/lut_gemm_common.cuh), as L1-L6 do: one lane per
+// Two designs. int4, sep and slabstream, at a group size that is a multiple
+// of 16, run the lab's tensor-core loop (lab_mma.cuh, with Int4Decoder or
+// SepDecoder below, or PairTableDecoder<4> of lab_decoders.cuh): plane words
+// and x staged per chunk in a cp.async ring (sep's two 2-bit planes in one
+// slot, plane A's 16 word rows then plane B's), each field turned straight
+// into mma.sync B registers (int4: two exact bf16 codes by the magic
+// exponent, 0x4300 | c is 128 + c, minus 128 exact in bf16; sep: one prmt a
+// register from its 4-entry table; slabstream: one ld.shared a register from
+// the pair table), the group's products (and int4's x sums, one more mma
+// against a B of ones) in f32 partials scaled on the C fragment when the
+// group ends; split-K at multiples of lcm(256, g), reduced in split order.
+// The others, and those three at any other (even) group size, run the SIMT
+// kernel below on K1's first skeleton (csrc/lut_gemm_common.cuh), as L1-L6 do: one lane per
 // output column (32 columns per block), eight warps splitting each pack
 // chunk's words, the block's 16 rows of x for one chunk staged in shared
 // memory as f32, fixed-order warp sums, no atomics. No result depends on the
@@ -74,6 +83,7 @@
 // sums are formed once per block, chunk and group in shared memory, not
 // once per column.
 
+#include "lab_decoders.cuh"
 #include "lab_mma.cuh"
 #include "lut_gemm_common.cuh"
 
@@ -88,6 +98,9 @@ constexpr int kChunkPairs = kChunk / 2;  // pair rows per chunk
 constexpr int kMaxGroups = kChunk / 2 + 1;  // groups a chunk can touch (g >= 2)
 
 enum Mode { kPfdirect, kSlabstream, kSep, kSep1, kInt4, kW3wide };
+
+// L11's pair table: 4 copies beside group_acc, as L5 g8_rs group_acc takes
+using SlabstreamDecoder = labmma::PairTableDecoder<4>;
 
 __device__ __forceinline__ float rnd(float v) { return Cvt<bf16>::round(v); }
 
@@ -473,11 +486,24 @@ extern "C" int flute_lab2_pfdirect(const void* x, const void* plane, const void*
                            stream);
 }
 
+// A g that is a multiple of 16 runs the tensor-core loop (the pair table of
+// L5 g8_rs group_acc, `splits` splits of K at multiples of lcm(256, g),
+// `work` an f32 [splits, M, N] workspace, or null with one split); any
+// other g the SIMT kernel (one split, no workspace).
 extern "C" int flute_lab2_slabstream(const void* x, const void* plane, const void* scales,
-                                     const void* table, void* y, int M, int N, int K, int g,
-                                     void* stream) {
-  return launch<kSlabstream>(x, plane, nullptr, scales, table, nullptr, y, M, N, K, g, 0.f,
-                             0.f, stream);
+                                     const void* table, void* y, void* work, int M, int N, int K,
+                                     int g, int splits, void* stream) {
+  if (!labmma::takes(g)) {
+    if (splits != 1) return cudaErrorInvalidValue;
+    return launch<kSlabstream>(x, plane, nullptr, scales, table, nullptr, y, M, N, K, g, 0.f,
+                               0.f, stream);
+  }
+  labmma::Args a;
+  if (!labmma::make_args(a, x, plane, nullptr, scales, table, nullptr, y, work, M, N, K, g, 0,
+                         splits, 0.f, 0.f))
+    return cudaErrorInvalidValue;
+  return labmma::run<SlabstreamDecoder, labmma::kGroupAcc>(a, splits,
+                                                           static_cast<cudaStream_t>(stream));
 }
 
 // one_mm: 0 = sep (two products), 1 = sep1 (one product on the bf16 sum).
@@ -531,6 +557,7 @@ const labmma::Instance kLoops[] = {
     labmma::instance<SepDecoder<false>, labmma::kGroupAcc>("SepDecoder<false>"),
     labmma::instance<SepDecoder<true>, labmma::kGroupAcc>("SepDecoder<true>"),
     labmma::instance<Int4Decoder, labmma::kAffine>("Int4Decoder"),
+    labmma::instance<SlabstreamDecoder, labmma::kGroupAcc>("PairTableDecoder<4>"),
 };
 
 }  // namespace

@@ -1,12 +1,15 @@
 // The Hopper lab's tensor-core loop (sm_90a): a group-accumulating
-// mma.sync LUT-GEMM over the lab's pair planes, shared by L3
-// (kernel_lab.cu, flute_lab_gather16: scripts/kernel_lab.py:212
-// run_gather16), L4 (flute_lab_g8_ablate: :413 run_g8_ablate), L5
-// (flute_lab_g8_rs: :501 run_g8_rs), L6 (flute_lab_g8_hoist: :590
-// run_g8_hoist), L9 (kernel_lab2.cu, flute_lab2_sep: scripts/kernel_lab2.py:234
-// run_sep) and L10 (flute_lab2_int4: scripts/kernel_lab2.py:290 run_int4),
-// each with its own decoder: L4, L6, L9 and L10 hold their tables in
-// registers, L3 and L5 in shared memory. The served loop
+// mma.sync LUT-GEMM over the lab's pair planes, shared by L1
+// (kernel_lab.cu, flute_lab_floor: scripts/kernel_lab.py:79 run_floor), L3
+// (flute_lab_gather16: :212 run_gather16), L4 (flute_lab_g8_ablate: :413
+// run_g8_ablate), L5 (flute_lab_g8_rs: :501 run_g8_rs), L6
+// (flute_lab_g8_hoist: :590 run_g8_hoist), L9 (kernel_lab2.cu,
+// flute_lab2_sep: scripts/kernel_lab2.py:234 run_sep), L10 (flute_lab2_int4:
+// :290 run_int4) and L11 (flute_lab2_slabstream: :483 run_slabstream), each
+// with its own decoder: L4, L6, L9 and L10 hold their tables in registers,
+// L3, L5 and L11 in shared memory (L5 and L11 one decoder,
+// lab_decoders.cuh), and L1 decodes nothing: its words are the B registers,
+// so it measures what the staging alone costs. The served loop
 // (lut_gemm_mma.cuh::lut_mma_kernel) is not touched; its helpers are reused.
 //
 //   y[M, N] = bf16(sum over groups of (x_g @ W_g) * s_g)      (group_acc)
@@ -18,10 +21,10 @@
 //
 // What bounds it: bytes. At the lab's shape (M 16, N 28672, K 8192, g 64)
 // the plane (or L9's two 2-bit planes) is 117 MB and the rest 8.5 MB, 37.6
-// us at 3.35 TB/s; the products at the bf16 tensor rate take 7.6 us (15.2
-// for L9's two products). The SIMT skeleton of lut_gemm_common.cuh reached
-// 3-5% of that bound: one 4-byte load in flight per lane, x re-staged as
-// f32, f32 FMAs on 16 rows. Here:
+// us at 3.35 TB/s (35.4 us for L1, which reads no scales); the products at
+// the bf16 tensor rate take 7.6 us (15.2 for L9's two products). The SIMT
+// skeleton of lut_gemm_common.cuh reached 3-5% of that bound: one 4-byte
+// load in flight per lane, x re-staged as f32, f32 FMAs on 16 rows. Here:
 //
 // * The block (4 warps, 128 columns, 16 rows of x) stages each 256-row pack
 //   chunk in a two-slot cp.async ring: x (16-byte copies, rows past M zero)
@@ -31,7 +34,12 @@
 //   word rows a chunk each: plane A's go to slot rows 0-15, plane B's to
 //   16-31, with the same swizzle. The next chunk's copies are issued before
 //   the current chunk's products, so 4 blocks an SM keep about 100 KB in
-//   flight with no registers spent on it.
+//   flight with no registers spent on it. Slot x column u holds K row
+//   256 c + u of chunk c, unless the decoder maps it (kXMap): L1's word row
+//   j of chunk cc of K block kb feeds K rows kb bk + 64 cc + 2j + {0, 1} +
+//   t bk/4, t = 0..3 (pltpu.repeat tiles the block's words 4 times), so its
+//   slot columns 64 i .. 64 i + 63 take the stretch t = i of the block. A
+//   stretch is 128 bytes: no 16-byte copy straddles two.
 // * One k16 step lies inside one group. A lane (g = lane / 4, t = lane % 4)
 //   reads the slot's word rows 4v + t, v < 8: the first 8 / planes of them
 //   from each plane, so it holds word rows 8q + t and 8q + 4 + t of every
@@ -50,9 +58,10 @@
 //   issues one mma on plane A's registers and one on plane B's into the
 //   same accumulator, "sep1" one on their bf16 sums (__hadd2, RN). Its
 //   table lives in registers (byte planes: one prmt looks up 4 codes) or in
-//   shared memory at a fixed offset (L5's pair table, one ld.shared a B
-//   register; L3's 16 entries, one ld.shared a code), filled by the block
-//   before the first barrier.
+//   shared memory at a fixed offset (L5's and L11's pair table, one
+//   ld.shared a B register; L3's 16 entries, one ld.shared a code), filled
+//   by the block before the first barrier. L1's decoder hands the words
+//   over as they are, in every field.
 // * The partial of a group: its steps' products in an f32 fragment; when the
 //   group ends, acc = acc + part * s (each rounded: __fmul_rn, __fadd_rn),
 //   and for int4 part * (s * delta) + xsum * (s * zero), the x sums taken by
@@ -74,16 +83,20 @@
 //   columns are staged in shared memory (4 KB at bk 1024, g 64) when the K
 //   block starts, prefetched into L2 a chunk early.
 // * Split-K only at multiples of lcm(chunk, g) K rows, so a group never
-//   straddles two splits; the splits' f32 sums go to a workspace
-//   [splits, M, N] that split_reduce_kernel adds in split order (no
-//   atomics: a repeat call gives the same bits). The split is planned from
-//   N, K and g (flute_tpu_torch/lab/ops.py::lab_splits).
+//   straddles two splits (L1 reads no scales: its unit is the chunk, any
+//   chunk boundary, since its x map follows from a chunk's index and bk
+//   alone); the splits' f32 sums go to a workspace [splits, M, N] that
+//   split_reduce_kernel adds in split order (no atomics: a repeat call gives
+//   the same bits). The split is planned from N, K and g
+//   (flute_tpu_torch/lab/ops.py::lab_splits).
 //
 // Numerics contract: 16-bit operands, f32 sums in the tensor core (a k16
 // step's products) and in IEEE f32 (partials, epilogue, splits), no flush
 // to zero, no atomics. Against the plain versions, which sum in another f32
 // order, results agree within the bf16 threshold; with x the identity every
-// output is one product, so they agree bit for bit.
+// output is one product, so they agree bit for bit. (L1's operand holds
+// subnormal bf16 halves, which the tensor core keeps: the card test
+// test_lab_mma_keeps_subnormals.)
 //
 // A Decoder provides
 //   kPlanes                    planes it reads: 1 (a 4-bit pair plane
@@ -104,8 +117,15 @@
 //                              8q + t and 8q + 4 + t of one column, plane
 //                              by plane) as the step's B registers
 //                              b[kProducts][2], before any scale.
+// and, only where slot x column u of chunk c is not K row 256 c + u,
+//   kXMap                      true
+//   static int x_row(c, bk, u) the K row of x that slot column u (a multiple
+//                              of 8; 8 columns from it run on in K) of
+//                              chunk c holds, at the K block bk (Args::bk)
 
 #pragma once
+
+#include <type_traits>
 
 #include "lut_gemm_mma.cuh"
 
@@ -165,6 +185,22 @@ __device__ __forceinline__ uint32_t half_of(const uint2& v, int e) {
 // (lo[e], hi[e]) as one register: value e of two packed rows
 __device__ __forceinline__ uint32_t pair_of(const uint2& lo, const uint2& hi, int e) {
   return __byte_perm(e < 2 ? lo.x : lo.y, e < 2 ? hi.x : hi.y, (e & 1) ? 0x7632u : 0x5410u);
+}
+
+// Whether a decoder maps slot x columns to K rows of its own (kXMap)
+template <typename D, typename = void>
+struct MapsX : std::false_type {};
+template <typename D>
+struct MapsX<D, std::void_t<decltype(D::kXMap)>> : std::bool_constant<D::kXMap> {};
+
+// The K row of x that slot column u of chunk c holds: the chunk's own rows
+// in order, unless the decoder maps them
+template <typename Decoder>
+__device__ __forceinline__ size_t x_row(int c, int bk, int u) {
+  if constexpr (MapsX<Decoder>::value)
+    return static_cast<size_t>(Decoder::x_row(c, bk, u));
+  else
+    return static_cast<size_t>(c) * kChunk + u;
 }
 
 // Dynamic shared memory: the ring, then the decoder's table (its
@@ -227,8 +263,7 @@ __global__ void __launch_bounds__(kThreads, 4) lab_mma_kernel(const Args a) {
       const int v = idx - r * (kChunk / 8);
       const bool ok = m0 + r < a.M;
       const bf16* src =
-          ok ? a.x + static_cast<size_t>(m0 + r) * a.K + static_cast<size_t>(c) * kChunk + 8 * v
-             : a.x;
+          ok ? a.x + static_cast<size_t>(m0 + r) * a.K + x_row<Decoder>(c, a.bk, 8 * v) : a.x;
       mma::cp_async16(xd + r * kXStride + 8 * v, src, ok);
     }
     uint32_t* wd = reinterpret_cast<uint32_t*>(smem + s * kSlotBytes + kXBytes);

@@ -8,7 +8,9 @@ Variants (the names of the JAX lab's ``main``):
 
   floor        L1: the packed words read as bf16 bit patterns (tiled, then
                bitcast): the pipeline and memory floor a real dequant can
-               approach. Real planes give non-finite outputs; only timed.
+               approach. On the lab's tensor-core loop at every g, where the
+               words are the B registers as they stand: the loop's staging
+               alone. Real planes give non-finite outputs; only timed.
   unpack       L2: shifts and masks only, the codes used as bit patterns.
   gather16     L3: the reference dequantization, x split in even/odd K.
   g8_full, g8_nochain, g8_wrap, g8_noscale, g8_bare
@@ -19,7 +21,8 @@ Variants (the names of the JAX lab's ``main``):
                L5: scales tiled per K block, or per-group sums times s.
   g8_hoist, g8_hoist_ga
                L6: L5 with both table halves read for every code, on the
-               lab's tensor-core loop (L1-L3 and L5 run SIMT kernels).
+               lab's tensor-core loop (as L1 and L3-L5; L2 runs a SIMT
+               kernel).
   gather8      K2, the package's plane kernel (``lut_qgemm``).
   pairlut      K4, ``lut_qgemm`` with ``lut_mode="pair_lut"``.
 

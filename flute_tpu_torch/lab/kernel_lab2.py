@@ -16,9 +16,10 @@ by default):
               2-bit planes: two products, or one on the bf16 sum, on the
               lab's tensor-core loop (``csrc/lab_mma.cuh``).
   int4        L10: the affine table T[c] = z + c·δ, no lookup, on the lab's
-              tensor-core loop (the others run SIMT kernels).
+              tensor-core loop.
   slabstream  L11: L8's function, each decoded pair fed to its products in
-              registers.
+              registers: on the lab's tensor-core loop with L5 g8_rs
+              group_acc's pair table (pfdirect and w3wide run SIMT kernels).
   w3wide      L12: the wide 3-bit layout (3-bit codes drawn after x).
   vmembw      L7: v ← v ^ (v >> 1), 2 and 8 times, on a [256, 2048] int32
               block that stays in L2; prints the slope per operation.

@@ -36,16 +36,19 @@ where said. Dispatch is by ``x``'s device: on the CPU the plain PyTorch
 version, on CUDA the Hopper kernel of ``csrc/kernel_lab.cu`` (one C entry per
 function), which raises if it cannot be built or launched.
 
-Two kernel designs: ``gather16``, ``g8_ablate``, ``g8_rs`` and ``g8_hoist``
-at a group size that is a multiple of 16 run the lab's tensor-core loop
-(``csrc/lab_mma.cuh``, path ``"mma"``, with a split-K that :func:`lab_splits`
-chooses from N, K and g; ``g8_ablate`` and ``g8_hoist`` hold the table in
-registers, ``g8_rs`` FLUTE's pair table and ``gather16`` the 16 entries in
-shared memory); every other call the SIMT kernel (path ``"simt"``). The path
-is chosen from g before the launch (:func:`lab_path`), never after a
-failure, and :data:`LAST_PATH` records the path of each function's last
-launch. Neither path falls back to the plain version. (``lab/ops2.py``'s
-``sep`` and ``int4`` share the loop and the split.)
+Two kernel designs: ``floor`` at every group size (it reads no scales, and
+its words are the loop's B registers as they stand), and ``gather16``,
+``g8_ablate``, ``g8_rs`` and ``g8_hoist`` at a group size that is a multiple
+of 16, run the lab's tensor-core loop (``csrc/lab_mma.cuh``, path ``"mma"``,
+with a split-K that :func:`lab_splits` chooses from N, K and g, floor's
+from the chunk: :func:`loop_group`; ``g8_ablate`` and ``g8_hoist`` hold the
+table in registers, ``g8_rs`` FLUTE's pair table and ``gather16`` the 16
+entries in shared memory); every other call the SIMT kernel (path
+``"simt"``). The path is chosen from the function and g before the launch
+(:func:`path_of`), never after a failure, and :data:`LAST_PATH` records the
+path of each function's last launch. Neither path falls back to the plain
+version. (``lab/ops2.py``'s ``sep``, ``int4`` and ``slabstream`` share the
+loop and the split.)
 """
 
 from __future__ import annotations
@@ -224,16 +227,34 @@ PLAIN: dict[str, Callable] = {
 }
 
 # ---------------------------------------------------------------------------
-# The tensor-core loop's path and split (L3-L6 here, L9 and L10 in ops2)
+# The tensor-core loop's path and split (L1, L3-L6 here, L9-L11 in ops2)
 # ---------------------------------------------------------------------------
 
 
 def lab_path(g: int) -> str:
-    """The kernel a redesigned lab function (:data:`MMA_FUNCTIONS` here and
-    in ``lab/ops2.py``) runs, from the group size alone: ``"mma"``, the tensor-core loop, where
-    ``g`` is a multiple of 16 (a k16 step then lies inside one group);
-    ``"simt"``, the SIMT kernel, otherwise (``g = 2``)."""
+    """The kernel a redesigned lab function that reads scales
+    (:data:`MMA_FUNCTIONS` but floor, and those of ``lab/ops2.py``) runs,
+    from the group size alone: ``"mma"``, the tensor-core loop, where ``g``
+    is a multiple of 16 (a k16 step then lies inside one group); ``"simt"``,
+    the SIMT kernel, otherwise (``g = 2``)."""
     return "mma" if g > 0 and g % MMA_STEP == 0 else "simt"
+
+
+def path_of(fn: str, g: int) -> str:
+    """The kernel lab function ``fn`` runs at group size ``g``: floor reads
+    no scales, so the loop takes it at every g; the other
+    :data:`MMA_FUNCTIONS` follow :func:`lab_path`; the rest run SIMT."""
+    if fn in SCALE_FREE:
+        return "mma"
+    return lab_path(g) if fn in MMA_FUNCTIONS else "simt"
+
+
+def loop_group(fn: str, g: int) -> int:
+    """The group size that plans ``fn``'s split (:func:`lab_splits`): ``g``,
+    or for floor, which reads no scales and whose x map follows a chunk's
+    index and bk alone, the chunk, so that any chunk boundary may split
+    it."""
+    return CHUNK if fn in SCALE_FREE else g
 
 
 def lab_splits(n: int, k: int, g: int) -> int:
@@ -252,11 +273,11 @@ def lab_splits(n: int, k: int, g: int) -> int:
                 if units % s == 0 and (cols * s >= MMA_TARGET_BLOCKS or s == units))
 
 
-def loop_operands(x: torch.Tensor, g: int, splits: int, n: int):
-    """``x`` on a 16-byte boundary where the loop runs (it copies x in 16-byte
-    pieces), and the loop's f32 workspace ``[splits, M, N]`` that a second
-    kernel adds in split order (None for one split)."""
-    if lab_path(g) == "mma" and x.data_ptr() % 16:
+def loop_operands(x: torch.Tensor, path: str, splits: int, n: int):
+    """``x`` on a 16-byte boundary where the loop runs (``path`` ``"mma"``: it
+    copies x in 16-byte pieces), and the loop's f32 workspace ``[splits, M,
+    N]`` that a second kernel adds in split order (None for one split)."""
+    if path == "mma" and x.data_ptr() % 16:
         x = x.clone()
     if splits == 1:
         return x, None
@@ -270,9 +291,9 @@ def loop_operands(x: torch.Tensor, g: int, splits: int, n: int):
 # function -> (C entry, pointer arguments, int arguments) before the stream:
 # x, plane[, scales, table], y[, work], then M, N, K, bk[, g[, flags]][,
 # splits] (the functions with a tensor-core path: the loop's workspace and
-# splits)
+# splits; floor takes no g)
 _ENTRIES = {
-    "floor": ("flute_lab_floor", 3, 4),
+    "floor": ("flute_lab_floor", 4, 5),
     "unpack_only": ("flute_lab_unpack_only", 3, 4),
     "gather16": ("flute_lab_gather16", 6, 6),
     "g8_ablate": ("flute_lab_g8_ablate", 6, 8),
@@ -280,7 +301,9 @@ _ENTRIES = {
     "g8_hoist": ("flute_lab_g8_hoist", 6, 7),
 }
 # the functions with a tensor-core path
-MMA_FUNCTIONS = ("gather16", "g8_ablate", "g8_rs", "g8_hoist")
+MMA_FUNCTIONS = ("floor", "gather16", "g8_ablate", "g8_rs", "g8_hoist")
+# those of them that read no scales: on the loop at every g, split at chunks
+SCALE_FREE = ("floor",)
 # lab_mma.cuh's Scaling, in its order
 LOOP_SCALINGS = ("group_acc", "affine", "repeat", "expand", "none")
 # each library of the loop's C entries: the prefix of its loop report
@@ -356,10 +379,10 @@ def _launch(name: str, x, plane, scales, table, bk: int, g: int, flags: tuple[in
     if m == 0:
         return y
     fn, error_string = _kernel_fn(name)
-    path, work, tail = "simt", [], []
+    path, work, tail = path_of(name, g), [], []
     if name in MMA_FUNCTIONS:
-        path, splits = lab_path(g), lab_splits(n, k, g)
-        x, ws = loop_operands(x, g, splits, n)
+        splits = lab_splits(n, k, loop_group(name, g))
+        x, ws = loop_operands(x, path, splits, n)
         work, tail = [None if ws is None else ws.data_ptr()], [splits]
     ptrs = [x.data_ptr(), plane.data_ptr()]
     ints = [m, n, k, bk]
@@ -417,6 +440,55 @@ def _check(x, planes: Sequence[torch.Tensor], scales, table, bm, bn, bk, g):
     return plane, scales, table
 
 
+# bf16 subnormal bit patterns the tensor-core probe puts in B: the smallest,
+# the largest, a negative one and a power of two
+PROBE_SUBNORMALS = (0x0001, 0x007F, 0x8001, 0x0040)
+
+
+def probe_operands(device=None) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """The probe's two products, ``(a [16, 16], b [16, 8])`` bf16: the
+    identity times a B holding :data:`PROBE_SUBNORMALS` (columns 0, 3 and
+    7) beside normal values, so each output is a subnormal operand times 1;
+    and ``2^-100`` times the identity against normal values near ``2^-40``,
+    whose f32 products are subnormal. Every output is exact in f32."""
+    gen = torch.Generator().manual_seed(0)
+    b = torch.randn(16, 8, generator=gen).to(torch.bfloat16)
+    bits = b.view(torch.int16)
+    for col, row in ((0, 0), (3, 4), (7, 12)):
+        for i, pattern in enumerate(PROBE_SUBNORMALS):
+            bits[row + i, col] = pattern - (1 << 16 if pattern >= 1 << 15 else 0)
+    eye = torch.eye(16, dtype=torch.bfloat16)
+    small = (torch.rand(16, 8, generator=gen) + 1.0).mul(2.0**-40).to(torch.bfloat16)
+    return [(eye.to(device), b.to(device)), ((eye * 2.0**-100).to(device), small.to(device))]
+
+
+def mma_probe(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` for bf16 ``a [16, 16]`` and ``b [16, 8]`` as one
+    ``mma.sync.m16n8k16`` with f32 sums from +0 (``flute_lab_mma_probe``):
+    what the tensor core does with subnormal bf16 operands and f32 products,
+    which floor's operand holds. On the CPU its plain version, the product in
+    f64 rounded to f32 (exact for :func:`probe_operands`). Replaces no TPU
+    kernel; no launch is counted."""
+    if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16 or tuple(a.shape) != (16, 16) \
+            or tuple(b.shape) != (16, 8) or a.device != b.device:
+        raise ValueError("the probe takes bf16 a [16, 16] and b [16, 8] on one device")
+    if a.device.type == "cpu":
+        return (a.double() @ b.double()).float()
+    from flute_tpu_torch.ops import _build
+
+    lib = _build.load(SOURCE)
+    fn = lib.flute_lab_mma_probe
+    fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_void_p] * 4
+    a, bt = a.contiguous(), b.t().contiguous()
+    d = torch.empty((16, 8), dtype=torch.float32, device=a.device)
+    with torch.cuda.device(a.device):
+        err = fn(a.data_ptr(), bt.data_ptr(), d.data_ptr(),
+                 torch.cuda.current_stream(a.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flute_lab_mma_probe launch failed ({err})")
+    return d
+
+
 # ---------------------------------------------------------------------------
 # The lab's functions, with the JAX signatures
 # ---------------------------------------------------------------------------
@@ -424,7 +496,8 @@ def _check(x, planes: Sequence[torch.Tensor], scales, table, bm, bn, bk, g):
 
 def floor(x, planes, scales, bm, bn, bk, g) -> torch.Tensor:
     """L1, ``run_floor``: the planes read as bf16 bit patterns (tiled and
-    bitcast); scales are not read."""
+    bitcast); scales are not read. On the tensor-core loop at every g
+    (:func:`path_of`): the loop's staging alone, with no decode."""
     return _run("floor", x, planes, scales, None, bm, bn, bk, g)
 
 

@@ -17,7 +17,9 @@ modelled is a reference. They compute:
   from index ``f`` (read as ``f & 7``) in the half chosen by bit 3, the odd
   from ``f >> 4`` in the half chosen by bit 7, which is ``T[f & 15]`` and
   ``T[f >> 4]``. L11 builds the same operand slab by slab: the same
-  function.
+  function, which is ``lab/ops.py``'s ``g8_rs`` ``"group_acc"`` too. On the
+  tensor-core loop L11 runs L5's decoder (FLUTE's pair table, indexed by the
+  raw field) and scaling, so it gives L5's bits.
 * ``sep`` (L9, ``run_sep``): a separable table ``T[c] = A[c & 3] + B[c >> 2]``
   over two 2-bit planes (of ``codes & 3`` and ``codes >> 2``) and two
   4-entry tables. ``one_mm=False`` sums two products in f32, which is
@@ -37,11 +39,12 @@ sizes: they are checked as the TPU grid needs them (``M % bm``, ``N % bn``,
 here scales per group. Dispatch is by the first tensor's device: on the CPU
 the plain PyTorch version, on CUDA the Hopper kernel of
 ``csrc/kernel_lab2.cu`` (one C entry per TPU function), which raises if it
-cannot be built or launched. ``sep`` and ``int4`` at a group size that is a
-multiple of 16 run the lab's tensor-core loop (``csrc/lab_mma.cuh``, path
-``"mma"``, split as ``ops.lab_splits`` says), every other call the SIMT
-kernel (``"simt"``), chosen from g before the launch (``ops.lab_path``);
-:data:`LAST_PATH` records the path of each function's last launch.
+cannot be built or launched. ``sep``, ``int4`` and ``slabstream`` at a
+group size that is a multiple of 16 run the lab's tensor-core loop
+(``csrc/lab_mma.cuh``, path ``"mma"``, split as ``ops.lab_splits`` says),
+every other call the SIMT kernel (``"simt"``), chosen from g before the
+launch (:func:`path_of`); :data:`LAST_PATH` records the path of each
+function's last launch.
 """
 
 from __future__ import annotations
@@ -63,7 +66,7 @@ LAUNCHES = {"vmembw": 0, "pfdirect": 0, "sep": 0, "int4": 0, "slabstream": 0, "w
 # "simt".
 LAST_PATH: dict[str, str] = {}
 # the functions with a tensor-core path
-MMA_FUNCTIONS = ("sep", "int4")
+MMA_FUNCTIONS = ("sep", "int4", "slabstream")
 
 SOURCE = "kernel_lab2.cu"
 # plane word rows per K row, and table entries, of each GEMM's operands
@@ -155,7 +158,8 @@ _ENTRIES = {
     "sep": ("flute_lab2_sep", [_P] * 8 + [_I] * 6),
     # x, plane, scales, y, the loop's workspace; M, N, K, g; zero, delta; splits
     "int4": ("flute_lab2_int4", [_P] * 5 + [_I] * 4 + [_F] * 2 + [_I]),
-    "slabstream": ("flute_lab2_slabstream", [_P] * 5 + [_I] * 4),
+    # x, plane, scales, table, y, the loop's workspace; M, N, K, g, splits
+    "slabstream": ("flute_lab2_slabstream", [_P] * 6 + [_I] * 5),
     "w3wide": ("flute_lab2_w3wide", [_P] * 5 + [_I] * 4),
 }
 
@@ -205,6 +209,20 @@ def _launch(name: str, out: torch.Tensor, tensors: Sequence[torch.Tensor], args:
     return out
 
 
+def path_of(fn: str, g: int) -> str:
+    """The kernel lab function ``fn`` runs at group size ``g``: the
+    :data:`MMA_FUNCTIONS` follow ``ops.lab_path``, the rest run SIMT."""
+    return lab_path(g) if fn in MMA_FUNCTIONS else "simt"
+
+
+def _loop(fn: str, x: torch.Tensor, n: int, g: int):
+    """``fn``'s path, ``x`` on a 16-byte boundary where the loop runs, the
+    loop's workspace pointer (None for one split) and its split."""
+    path, splits = path_of(fn, g), lab_splits(n, x.shape[1], g)
+    x, ws = loop_operands(x.contiguous(), path, splits, n)
+    return path, x, None if ws is None else ws.data_ptr(), splits
+
+
 def _on_card(t: torch.Tensor) -> bool:
     """True for a CUDA tensor (launch the kernel), False for a CPU tensor
     (the plain version); any other device raises."""
@@ -252,8 +270,12 @@ def _table_gemm(name, x, planes, scales, table, bm, bn, bk, g, *, kernel: bool):
     if not kernel:
         return PLAIN[name](x, plane, scales, t, g)
     m, k = x.shape
-    return _launch(name, _gemm_out(x, scales), [x, plane, scales, t],
-                   [m, scales.shape[1], k, g])
+    n = scales.shape[1]
+    if name not in MMA_FUNCTIONS:
+        return _launch(name, _gemm_out(x, scales), [x, plane, scales, t], [m, n, k, g])
+    path, x, ws, splits = _loop(name, x, n, g)
+    return _launch(name, _gemm_out(x, scales), [x, plane, scales, t], [ws, m, n, k, g, splits],
+                   path=path)
 
 
 def _sep(x, planes_a, planes_b, scales, table_a, table_b, bm, bn, bk, g, one_mm, *,
@@ -264,11 +286,9 @@ def _sep(x, planes_a, planes_b, scales, table_a, table_b, bm, bn, bk, g, one_mm,
         return sep_plain(x, pa, pb, scales, ta, tb, g, one_mm=one_mm)
     m, k = x.shape
     n = scales.shape[1]
-    splits = lab_splits(n, k, g)
-    x, ws = loop_operands(x.contiguous(), g, splits, n)
+    path, x, ws, splits = _loop("sep", x, n, g)
     return _launch("sep", _gemm_out(x, scales), [x, pa, pb, scales, ta, tb],
-                   [None if ws is None else ws.data_ptr(), m, n, k, g, int(bool(one_mm)), splits],
-                   path=lab_path(g))
+                   [ws, m, n, k, g, int(bool(one_mm)), splits], path=path)
 
 
 def _int4(x, planes, scales, bm, bn, bk, g, zero, delta, *, kernel: bool):
@@ -277,11 +297,9 @@ def _int4(x, planes, scales, bm, bn, bk, g, zero, delta, *, kernel: bool):
         return int4_plain(x, plane, scales, g, zero, delta)
     m, k = x.shape
     n = scales.shape[1]
-    splits = lab_splits(n, k, g)
-    x, ws = loop_operands(x.contiguous(), g, splits, n)
+    path, x, ws, splits = _loop("int4", x, n, g)
     return _launch("int4", _gemm_out(x, scales), [x, plane, scales],
-                   [None if ws is None else ws.data_ptr(), m, n, k, g, float(zero), float(delta),
-                    splits], path=lab_path(g))
+                   [ws, m, n, k, g, float(zero), float(delta), splits], path=path)
 
 
 def _vmembw(w, nops, *, kernel: bool):
@@ -307,7 +325,8 @@ def pfdirect(x, planes, scales, table, bm, bn, bk, g) -> torch.Tensor:
 
 def slabstream(x, planes, scales, table, bm, bn, bk, g) -> torch.Tensor:
     """L11, ``run_slabstream``: L8's function; the kernel feeds each decoded
-    pair straight into its products, in registers."""
+    pair straight into its products, in registers (on the tensor-core loop
+    where 16 divides g, with L5 ``group_acc``'s pair table: :func:`path_of`)."""
     return _table_gemm("slabstream", x, planes, scales, table, bm, bn, bk, g,
                        kernel=_on_card(x))
 

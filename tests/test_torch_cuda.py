@@ -1,9 +1,10 @@
 """Card-only checks of the port: each LUT-GEMM kernel (K1 w4sym, K2 plane at
 2/3/4 bits, K3 w3wide, K4 joint pair lookup; K1-K3 on the tensor-core loop
 and on their SIMT kernel), each paged-attention kernel
-(K5 decode, K6 verify) and each kernel of the Hopper lab (L1-L12; L4, L6,
-L9 and L10 on the lab's tensor-core loop and on their SIMT kernel) against its
-plain version on the same CUDA tensors, and the models (Llama, Gemma-2),
+(K5 decode, K6 verify) and each kernel of the Hopper lab (L1-L12; L3-L6, L9,
+L10 and L11 on the lab's tensor-core loop and on their SIMT kernel, L1 on the
+loop at every g) against its plain version on the same CUDA tensors, what
+the tensor core does with subnormal operands, and the models (Llama, Gemma-2),
 Engine and PagedEngine through the kernels, with their decode step replayed
 from a CUDA graph and held bit for bit against the eager step.
 
@@ -1066,17 +1067,150 @@ def test_lab2_main_on_the_card(capsys):
 
 
 # ---------------------------------------------------------------------------
-# L3, L4, L5, L6, L9 and L10 on the lab's tensor-core loop (csrc/lab_mma.cuh)
+# L1, L3, L4, L5, L6, L9, L10 and L11 on the lab's tensor-core loop
+# (csrc/lab_mma.cuh)
 # ---------------------------------------------------------------------------
+
+
+def test_lab_mma_keeps_subnormals(dev):
+    """One mma.sync.m16n8k16 (bf16 in, f32 sums) of the identity and a B
+    holding bf16 subnormals (0x0001, 0x007F, 0x8001, 0x0040) beside normal
+    values gives B's values exactly, and their bf16 rounding B's bits; and
+    2^-100 times the identity against normal values near 2^-40 gives the
+    exact f32 subnormal products. So the tensor core neither flushes a
+    subnormal operand nor a subnormal product, and floor, whose finite
+    halves are subnormal one time in 128, is bit-exact on the loop."""
+    (eye, b), (tiny, small) = lab.probe_operands(dev)
+    d = lab.mma_probe(eye, b).cpu()
+    want = b.cpu().float()
+    assert int((want.abs() < 2.0**-126).sum()) == 3 * len(lab.PROBE_SUBNORMALS)
+    assert torch.equal(d.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(d.bfloat16().view(torch.int16), b.cpu().view(torch.int16))
+    d = lab.mma_probe(tiny, small).cpu()
+    want = (tiny.cpu().double() @ small.cpu().double()).float()
+    assert bool(((want != 0) & (want.abs() < 2.0**-126)).all())
+    assert torch.equal(d.view(torch.int32), want.view(torch.int32))
+
+
+# floor on the loop: its K blocks (3584 is MAX_BLOCK_K, where bk/4 = 896 is
+# not a power of two), each at a K that holds it
+FLOOR_BKS = (256, 512, 1024, 3584)
+
+
+def floor_call(dev, m, bk, k=None, n=LAB_N, g=G, eye=False):
+    """(a call of floor, its plain version) on the lab's inputs with the
+    planes masked to finite halves, at K block ``bk`` (x the identity with
+    ``eye``: M = K)."""
+    k = k or max(LAB_K, bk)
+    _, planes, scales, _, x = kernel_lab.make_inputs(m, n, k, 4, g, device=dev)
+    planes = [lab.finite_halves(planes[0])]
+    if eye:
+        x = torch.eye(k, dtype=torch.bfloat16, device=dev)
+    bm = 16 if eye else m
+    return (lambda: lab.floor(x, planes, scales, bm, n, bk, g),
+            lambda: lab.plain("floor", x, planes, scales, None, bm, n, bk, g))
+
+
+@pytest.mark.parametrize("bk", FLOOR_BKS)
+@pytest.mark.parametrize("m", [1, 16, 40])
+def test_lab_floor_loop_vs_plain(dev, m, bk):
+    """floor on the loop at every K block: one launch counted, path "mma",
+    the plain version within the bf16 threshold (the x map picks the block's
+    four stretches right), a repeated call bit for bit."""
+    call, plain = floor_call(dev, m, bk)
+    before = dict(lab.LAUNCHES)
+    y = call()
+    assert lab.LAUNCHES == {**before, "floor": before["floor"] + 1}
+    assert lab.LAST_PATH["floor"] == "mma" == lab.path_of("floor", G)
+    again = call()
+    torch.cuda.synchronize()
+    assert y.dtype == torch.bfloat16 and tuple(y.shape) == (m, LAB_N)
+    assert torch.isfinite(y.float()).all()
+    assert rel_err(y, plain()) < TOL[torch.bfloat16]
+    assert torch.equal(y.view(torch.int16), again.view(torch.int16))
+
+
+@pytest.mark.parametrize("bk", [256, 1024])
+def test_lab_floor_identity_bit_exact(dev, bk):
+    """x the identity (K 1024): every output one word half, bit for bit; at
+    bk 1024 the four stretches of a block are 256 rows apart, so a wrong x
+    map moves outputs."""
+    call, plain = floor_call(dev, 1024, bk, k=1024, eye=True)
+    y, want = call(), plain()
+    assert lab.LAST_PATH["floor"] == "mma"
+    assert torch.equal(y.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.parametrize("bk", [512, 3584])
+def test_lab_floor_one_split_and_the_planned_split(dev, monkeypatch, bk):
+    """One split and the split lab_splits plans from the chunk (N 2048:
+    more than one) each agree with the plain version and repeat their
+    bits."""
+    k = 8 * bk if bk == 512 else 2 * bk
+    call, plain = floor_call(dev, 16, bk, k=k, n=2048)
+    planned = lab.lab_splits(2048, k, lab.loop_group("floor", G))
+    assert planned > 1
+    want = plain()
+    for splits in (1, planned):
+        monkeypatch.setattr(lab, "lab_splits", lambda n, k, g, s=splits: s)
+        y, again = call(), call()
+        torch.cuda.synchronize()
+        assert lab.LAST_PATH["floor"] == "mma"
+        assert rel_err(y, want) < TOL[torch.bfloat16]
+        assert torch.equal(y.view(torch.int16), again.view(torch.int16))
+
+
+@pytest.mark.parametrize("g,bk", [(2, 256), (6, 768), (512, 512)])
+def test_lab_floor_loop_at_every_g(dev, g, bk):
+    """floor reads no scales: the loop runs it at a g that 16 does not
+    divide too, with the same result as its plain version."""
+    call, plain = floor_call(dev, 16, bk, k=2 * bk, g=g)
+    y = call()
+    assert lab.LAST_PATH["floor"] == "mma" == lab.path_of("floor", g)
+    assert rel_err(y, plain()) < TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("n", [50, 130])
+def test_lab_floor_narrow_copies(dev, n):
+    """A ragged N: 50 (not a multiple of 4: the plane in 4-byte copies) and
+    130 (a second block of two columns)."""
+    call, plain = floor_call(dev, 16, 1024, n=n)
+    y = call()
+    assert tuple(y.shape) == (16, n) and rel_err(y, plain()) < TOL[torch.bfloat16]
+
+
+# (bk, K, splits, workspace) of floor launches the C entry refuses: a split
+# not dividing K's chunks, none, more than one with no workspace, a bk that
+# is not a multiple of the chunk
+FLOOR_BAD_LAUNCHES = {"split": (1024, 1024, 3, True), "zero_splits": (1024, 1024, 0, False),
+                      "no_workspace": (1024, 1024, 2, False), "bk": (384, 768, 1, False)}
+
+
+@pytest.mark.parametrize("case", list(FLOOR_BAD_LAUNCHES))
+def test_lab_floor_refuses_bad_launches(dev, case):
+    bk, k, splits, with_work = FLOOR_BAD_LAUNCHES[case]
+    _, planes, _, _, x = kernel_lab.make_inputs(16, LAB_N, k, 4, G, device=dev)
+    y = torch.full((16, LAB_N), 7.0, dtype=torch.bfloat16, device=dev)
+    work = torch.empty((max(splits, 1), 16, LAB_N), dtype=torch.float32, device=dev)
+    entry, _ = lab._kernel_fn("floor")
+    err = entry(x.data_ptr(), planes[0].data_ptr(), y.data_ptr(),
+                work.data_ptr() if with_work else None, 16, LAB_N, k, bk, splits,
+                torch.cuda.current_stream(dev).cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 1  # cudaErrorInvalidValue
+    assert bool((y == 7.0).all())
+
 
 # L6 in its two scale modes, L10, L4's four distinct flag sets (g8_wrap's
 # are g8_nochain's entries), L9's two modes, L5's two (the pair table in
-# shared memory) and L3 (the 16 entries in shared memory)
+# shared memory), L3 (the 16 entries in shared memory) and L11 (L5
+# group_acc's pair table)
 LOOP_VARIANTS = ("g8_hoist group_acc", "g8_hoist repeat", "int4", "g8_ablate full",
                  "g8_ablate nochain", "g8_ablate noscale", "g8_ablate bare", "sep", "sep1",
-                 "g8_rs group_acc", "g8_rs repeat", "gather16 expand")
+                 "g8_rs group_acc", "g8_rs repeat", "gather16 expand", "slabstream")
+LAB2_LOOP_VARIANTS = ("int4", "sep", "sep1", "slabstream")
 # the loop variants of lab/ops.py
-LAB1_LOOP_VARIANTS = tuple(v for v in LOOP_VARIANTS if v not in ("int4", "sep", "sep1"))
+LAB1_LOOP_VARIANTS = tuple(v for v in LOOP_VARIANTS if v not in LAB2_LOOP_VARIANTS)
 
 
 def loop_call(dev, variant, m, g, k=LAB_K, eye=False, n=LAB_N):
@@ -1084,7 +1218,7 @@ def loop_call(dev, variant, m, g, k=LAB_K, eye=False, n=LAB_N):
     variant at group size ``g`` (x the identity with ``eye``: M = K)."""
     bk = max(512, g)
     bm = 16 if eye else m
-    if variant in ("int4", "sep", "sep1"):
+    if variant in LAB2_LOOP_VARIANTS:
         inp = kernel_lab2.make_inputs(m, n, k, g=g, device=dev, w3=False)
         if eye:
             inp.x = torch.eye(k, dtype=torch.bfloat16, device=dev)
@@ -1126,7 +1260,7 @@ def test_lab_loop_vs_plain(dev, m, g, variant):
     assert torch.equal(y.view(torch.int16), again.view(torch.int16))
 
 
-@pytest.mark.parametrize("variant", LAB1_LOOP_VARIANTS)
+@pytest.mark.parametrize("variant", (*LAB1_LOOP_VARIANTS, "slabstream"))
 @pytest.mark.parametrize("g", [64, 512])
 def test_lab_loop_one_split_and_the_planned_split(dev, monkeypatch, g, variant):
     """One split and the split lab_splits plans (N 2048, K 4096: more than
@@ -1137,7 +1271,7 @@ def test_lab_loop_one_split_and_the_planned_split(dev, monkeypatch, g, variant):
     assert planned > 1
     want = plain()
     for splits in (1, planned):
-        monkeypatch.setattr(lab, "lab_splits", lambda n, k, g, s=splits: s)
+        monkeypatch.setattr(mod, "lab_splits", lambda n, k, g, s=splits: s)
         before = dict(mod.LAUNCHES)
         y = call()
         assert mod.LAUNCHES == {**before, fn: before[fn] + 1}
@@ -1165,24 +1299,41 @@ def test_lab_loop_shared_table_gives_its_twins_bits(dev, g, variant):
     assert torch.equal(y.view(torch.int16), twin.view(torch.int16))
 
 
+@pytest.mark.parametrize("g", [32, 64, 512])
+def test_lab_loop_slabstream_gives_l5s_bits(dev, g):
+    """L11 (kernel_lab2.cu) and L5 group_acc (kernel_lab.cu) run one decoder,
+    one scaling and one split on the same inputs: the two libraries give the
+    same bits."""
+    inp = kernel_lab2.make_inputs(40, LAB_N, LAB_K, g=g, device=dev, w3=False)
+    bk = max(512, g)
+    y = ops2.slabstream(inp.x, inp.planes, inp.scales, inp.table, 40, LAB_N, bk, g)
+    l5 = lab.g8_rs(inp.x, inp.planes, inp.scales, inp.table, 40, LAB_N, bk, g, "group_acc")
+    assert ops2.LAST_PATH["slabstream"] == lab.LAST_PATH["g8_rs"] == "mma"
+    assert torch.equal(y.view(torch.int16), l5.view(torch.int16))
+
+
 def test_lab_loop_occupancy(dev):
     """Every instantiation of the loop in both lab libraries keeps four
     blocks an SM at its lab's shape; its dynamic shared memory is the ring,
-    its decoder's table (L5: 4 copies of 256 words with group_acc, 2 beside
-    "repeat"'s scale rows; L3: 16 words) and "repeat"'s scale rows."""
+    its decoder's table (L5 and L11: 4 copies of 256 words with group_acc,
+    L5: 2 beside "repeat"'s scale rows; L3: 16 words; L1's WordDecoder none)
+    and "repeat"'s scale rows."""
     ring = 2 * (16 * (256 + 8) * 2 + 32 * 128 * 4)
     table = {"PairTableDecoder<4>": 4 * 256 * 4, "PairTableDecoder<2>": 2 * 256 * 4,
              "Gather16Decoder": 16 * 4}
-    seen = []
+    seen = {}
     for source, bk in (("kernel_lab.cu", 1024), ("kernel_lab2.cu", 2048)):
+        seen[source] = []
         for inst in lab.loop_instances(source, bk, G):
             rows = bk // G * 128 * 2 if inst["scaling"] == "repeat" else 0
             assert inst["smem_bytes"] == ring + table.get(inst["decoder"], 0) + rows, inst
             assert inst["blocks_per_sm"] == 4, inst
-            seen.append((inst["decoder"], inst["scaling"]))
-    assert len(set(seen)) == len(seen) == 12
+            seen[source].append((inst["decoder"], inst["scaling"]))
+    lab1, lab2 = seen["kernel_lab.cu"], seen["kernel_lab2.cu"]
+    assert len(set(lab1)) == len(lab1) == 10 and len(set(lab2)) == len(lab2) == 4
     assert {("PairTableDecoder<4>", "group_acc"), ("PairTableDecoder<2>", "repeat"),
-            ("Gather16Decoder", "expand")} <= set(seen)
+            ("Gather16Decoder", "expand"), ("WordDecoder", "none")} <= set(lab1)
+    assert ("PairTableDecoder<4>", "group_acc") in lab2
 
 
 @pytest.mark.parametrize("variant", LOOP_VARIANTS)
@@ -1234,7 +1385,8 @@ BAD_LAUNCHES = {
 
 
 @pytest.mark.parametrize("case", list(BAD_LAUNCHES))
-@pytest.mark.parametrize("fn", ["g8_hoist", "int4", "g8_ablate", "sep", "g8_rs", "gather16"])
+@pytest.mark.parametrize("fn", ["g8_hoist", "int4", "g8_ablate", "sep", "g8_rs", "gather16",
+                                "slabstream"])
 def test_lab_loop_refuses_bad_launches(dev, fn, case):
     """The C entry refuses a launch it cannot run (cudaErrorInvalidValue)
     and writes nothing."""
@@ -1261,6 +1413,9 @@ def test_lab_loop_refuses_bad_launches(dev, fn, case):
     elif fn == "gather16":
         entry, _ = lab._kernel_fn("gather16")
         err = entry(*ptrs, table.data_ptr(), y.data_ptr(), wp, 16, LAB_N, k, k, g, splits, stream)
+    elif fn == "slabstream":
+        entry, _ = ops2._kernel_fn("slabstream")
+        err = entry(*ptrs, table.data_ptr(), y.data_ptr(), wp, 16, LAB_N, k, g, splits, stream)
     else:  # g8_hoist, g8_rs
         entry, _ = lab._kernel_fn(fn)
         err = entry(*ptrs, table.data_ptr(), y.data_ptr(), wp, 16, LAB_N, k, k, g, 1, splits,

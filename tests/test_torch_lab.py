@@ -18,11 +18,12 @@ bk 512 too. Tolerance: relative Frobenius error under 1.1e-2 (bf16).
   the mask (``wrap=False``) and to a numpy oracle on ``T[c & 7]``, and a
   separate test pins the interpreter's clamp.
 
-The host side of L4's and L6's tensor-core loop (``lab.lab_path``,
-``lab.lab_splits``: the path from g, splits of K at ``lcm(256, g)``, the
-refusals) is checked here, and their plain versions against the JAX lab at
-the loop's other group sizes. The kernels against these plain versions on
-the card are in ``test_torch_cuda.py``.
+The host side of the tensor-core loop of L1 and L3-L6 (``lab.path_of``,
+``lab.lab_splits``: the path from the function and g, splits of K at
+``lcm(256, g)``, floor's at the chunk, the refusals) is checked here, and
+their plain versions against the JAX lab at the loop's other group sizes.
+The kernels against these plain versions on the card are in
+``test_torch_cuda.py``.
 """
 
 import functools
@@ -224,32 +225,35 @@ def test_lab_checks_like_the_grid(port_inputs, case):
 
 
 # ---------------------------------------------------------------------------
-# L3's, L4's, L5's and L6's tensor-core loop: the host-side plan (the
-# kernels are in test_torch_cuda.py)
+# L1's and L3-L6's tensor-core loop: the host-side plan (the kernels are in
+# test_torch_cuda.py)
 # ---------------------------------------------------------------------------
 
-# the lab variants on the loop where 16 divides g: L4's four distinct flag
-# sets (g8_wrap's flags select g8_nochain's entries), L6's and L5's two
-# modes each, and L3
+# the lab variants on the loop (floor at every g, the others where 16
+# divides g): L1, L4's four distinct flag sets (g8_wrap's flags select
+# g8_nochain's entries), L6's and L5's two modes each, and L3
 LOOP_VARIANTS = ("g8_full", "g8_nochain", "g8_noscale", "g8_bare", "g8_hoist", "g8_hoist_ga",
-                 "g8_repeat", "g8_groupacc", "gather16")
+                 "g8_repeat", "g8_groupacc", "gather16", "floor")
 
 
 @pytest.mark.parametrize("g,path", [(2, "simt"), (6, "simt"), (16, "mma"), (32, "mma"),
                                     (64, "mma"), (512, "mma")])
-@pytest.mark.parametrize("fn", ["gather16", "g8_ablate", "g8_rs", "g8_hoist"])
+@pytest.mark.parametrize("fn", ["gather16", "g8_ablate", "g8_rs", "g8_hoist", "floor"])
 def test_lab_path_from_g(fn, g, path):
     """The loop takes a g that is a multiple of 16 (a k16 step inside one
     group); g = 2 goes to the SIMT kernel, with one split, chosen before any
-    launch. Each function on the loop passes the C entry its workspace and
-    split (one more pointer and one more int than its SIMT arguments)."""
-    assert fn in lab.MMA_FUNCTIONS and lab.lab_path(g) == path
+    launch. floor reads no scales: the loop takes it at every g. Each
+    function on the loop passes the C entry its workspace and split (one
+    more pointer and one more int than its SIMT arguments; floor takes no
+    g)."""
+    want = "mma" if fn == "floor" else path
+    assert fn in lab.MMA_FUNCTIONS and lab.lab_path(g) == path and lab.path_of(fn, g) == want
     entry, n_ptr, n_int = lab._ENTRIES[fn]
-    assert entry == f"flute_lab_{fn}" and n_ptr == 6
-    # M N K bk g, flags, splits
-    assert n_int == {"gather16": 6, "g8_ablate": 8, "g8_rs": 7, "g8_hoist": 7}[fn]
-    if path == "simt":
-        assert lab.lab_splits(256, 1536, g) == 1
+    # x plane [scales table] y work; M N K bk [g, flags], splits
+    assert entry == f"flute_lab_{fn}" and n_ptr == (4 if fn == "floor" else 6)
+    assert n_int == {"gather16": 6, "g8_ablate": 8, "g8_rs": 7, "g8_hoist": 7, "floor": 5}[fn]
+    if want == "simt":
+        assert lab.lab_splits(256, 1536, lab.loop_group(fn, g)) == 1
 
 
 @pytest.mark.parametrize("n,k", [(200, 1024), (2048, 8192), (28672, 8192), (256, 512)])
@@ -266,7 +270,7 @@ def test_lab_splits_at_lcm(n, k, g):
     assert cols * splits >= MMA_TARGET_BLOCKS or splits == units
     assert all(cols * s < MMA_TARGET_BLOCKS for s in range(1, splits) if units % s == 0)
     x = torch.zeros(40, k, dtype=torch.bfloat16)
-    got, ws = lab.loop_operands(x, g, splits, n)
+    got, ws = lab.loop_operands(x, lab.lab_path(g), splits, n)
     assert got is x
     if splits == 1:
         assert ws is None
@@ -281,6 +285,22 @@ def test_lab_splits_at_the_lab_shape():
     assert lab.lab_splits(28672, 8192, 2) == 1
 
 
+@pytest.mark.parametrize("n,k", [(28672, 8192), (200, 1024), (200, 3584), (2048, 4096)])
+@pytest.mark.parametrize("g", [2, 6, 64, 512])
+def test_floor_splits_at_chunks(n, k, g):
+    """floor plans its split from the chunk, whatever g: two splits at the
+    lab's shape (as the loop's other functions at g64), every split
+    boundary a chunk boundary, so no split falls inside a chunk, and more
+    than one split where K and N allow, even where g is 2 or wider than a
+    chunk."""
+    unit = lab.loop_group("floor", g)
+    splits = lab.lab_splits(n, k, unit)
+    assert unit == lab.CHUNK and k % (splits * lab.CHUNK) == 0
+    assert splits == lab.lab_splits(n, k, lab.CHUNK) > 1
+    if (n, k) == (28672, 8192):
+        assert splits == 2
+
+
 # (g, bk) of loop calls refused before any launch, at K 512 (the checks make
 # K a multiple of lcm(256, g), which is all the loop's split needs; the C
 # entries' own refusals are card tests)
@@ -290,7 +310,7 @@ LOOP_REFUSALS = {"odd_g": (3, 256), "zero_g": (0, 256), "bk_not_by_g": (512, 256
 
 @pytest.mark.parametrize("case", list(LOOP_REFUSALS))
 @pytest.mark.parametrize("variant", ["g8_hoist_ga", "g8_full", "g8_bare", "g8_groupacc",
-                                     "g8_repeat", "gather16"])
+                                     "g8_repeat", "gather16", "floor"])
 def test_loop_refuses_before_launch(port_inputs, variant, case):
     _, planes, _, table, x = port_inputs
     g, bk = LOOP_REFUSALS[case]
@@ -304,9 +324,12 @@ def test_loop_refuses_before_launch(port_inputs, variant, case):
 @pytest.mark.parametrize("variant", LOOP_VARIANTS)
 def test_cpu_calls_run_the_plain_version(port_inputs, variant):
     """On the CPU a wrapper runs its plain version: no launch is counted and
-    no path is recorded."""
+    no path is recorded (floor on planes masked to finite halves, so that
+    its outputs compare)."""
     _, planes, scales, table, x = port_inputs
     fn, flags = kernel_lab.VARIANTS[variant]
+    if fn == "floor":
+        planes = [lab.finite_halves(planes[0])]
     launches, paths = dict(lab.LAUNCHES), dict(lab.LAST_PATH)
     y = lab.run(fn, x, planes, scales, table, M, BN, 256, G, **flags)
     assert torch.equal(y, lab.plain(fn, x, planes, scales, table, M, BN, 256, G, **flags))
@@ -319,20 +342,26 @@ def test_loop_other_group_sizes_vs_jax(jax_lab, interpret, variant, g, bk):
     """The loop's plain versions against the JAX lab at its other group
     sizes: a group within a field (32) and one wider than a chunk (512).
     g8_bare wraps its index on the v5e, which the interpreter clamps: the
-    JAX run takes the mask (wrap=False), the same entries."""
+    JAX run takes the mask (wrap=False), the same entries. floor takes no
+    g but bk, and both labs get its planes masked to finite halves."""
     mod = jax_lab[0]
     _, jplanes, jscales, jtable, jx = mod.make_inputs(M, N, K, 4, g)
+    _, planes, scales, table, x = kernel_lab.make_inputs(M, N, K, 4, g, device="cpu")
     fn, flags = kernel_lab.VARIANTS[variant]
+    if fn == "floor":
+        planes = [lab.finite_halves(planes[0])]
+        jplanes = [jnp.asarray(planes[0].numpy())]
     run = {"gather16": mod.run_gather16, "g8_ablate": mod.run_g8_ablate,
-           "g8_rs": mod.run_g8_rs, "g8_hoist": mod.run_g8_hoist}[fn]
+           "g8_rs": mod.run_g8_rs, "g8_hoist": mod.run_g8_hoist, "floor": mod.run_floor}[fn]
     if fn in ("g8_rs", "g8_hoist"):
         want = run(jx, jplanes, jscales, jtable, M, BN, bk, g, flags["scale_mode"])
     elif fn == "gather16":
         want = run(jx, jplanes, jscales, jtable, M, BN, bk, g)
+    elif fn == "floor":
+        want = run(jx, jplanes, jscales, M, BN, bk, g)
     else:
         want = run(jx, jplanes, jscales, jtable, M, BN, bk, g, **{**flags, "wrap": False})
     want = np.asarray(want, np.float32)
-    _, planes, scales, table, x = kernel_lab.make_inputs(M, N, K, 4, g, device="cpu")
     got = kernel_lab.run_variant(variant, x, planes, scales, table, M, BN, bk, g)
     assert np.isfinite(want).all()
     assert rel_err(got.float().numpy(), want) < 1.1e-2
