@@ -960,31 +960,23 @@ LAB_NARROW_N = 2048  # the bk 256 checks
 # L5's and L3's variants (tables in shared memory) and their register twins
 LAB_TWINS = {"g8_repeat": "g8_hoist", "g8_groupacc": "g8_hoist_ga", "gather16": "g8_full"}
 LAB_ITERS = 24  # the lab's --iters: launches per timed CUDA graph (at least)
-# instructions a B register that a loop variant adds to floor's none, as its
-# decoder's source reads (csrc/kernel_lab.cu): HalfDecoder's lookup 3,
-# HoistDecoder's 6, Gather16Decoder's 7, and one __hmul2 with "expand":
-# the variants whose only work over floor's is their decode
+# instructions a B register that a loop variant adds to floor's none,
+# counted in its decoder's CUDA source (csrc/kernel_lab.cu), not in the
+# SASS that ptxas makes of it: HalfDecoder's lookup 3, HoistDecoder's 6,
+# Gather16Decoder's 7, and one __hmul2 with "expand": the variants whose
+# only work over floor's is their decode
 DECODE_INSTRUCTIONS = {"g8_bare": 3, "g8_nochain": 4, "g8_wrap": 4, "g8_noscale": 6,
                        "g8_full": 7, "gather16": 8}
 
 
 def mma_probe_check() -> dict:
-    """The tensor core on subnormals (lab.probe_operands): the f32 outputs
+    """The tensor core on subnormals (lab.probe_subnormals): the f32 outputs
     are the exact values and round to the operands' bf16 bits. Fails on a
     flush to zero."""
     from flute_tpu_torch.lab import ops as lab
 
-    (eye, b), (tiny, small) = lab.probe_operands(torch.device("cuda"))
-    d = lab.mma_probe(eye, b).cpu()
-    d2 = lab.mma_probe(tiny, small).cpu()
-    want2 = (tiny.cpu().double() @ small.cpu().double()).float()
-    kept = torch.equal(d.view(torch.int32), b.cpu().float().view(torch.int32)) and torch.equal(
-        d.bfloat16().view(torch.int16), b.cpu().view(torch.int16))
-    products = torch.equal(d2.view(torch.int32), want2.view(torch.int32))
-    sub = b.cpu().view(torch.int16)[:4, 0].tolist()
-    out = dict(operand_bits=[f"0x{v & 0xFFFF:04X}" for v in sub],
-               outputs=[float(v) for v in d[:4, 0]], operands_kept=kept,
-               products=[float(v) for v in d2[:2, 0]], subnormal_products_kept=products)
+    out = lab.probe_subnormals(torch.device("cuda"))
+    kept, products = out["operands_kept"], out["subnormal_products_kept"]
     log(f"  the tensor core on subnormals: bf16 {out['operand_bits']} times 1 gives "
         f"{out['outputs']} (kept: {kept}); 2^-100 x ~2^-40 gives {out['products']} "
         f"(kept: {products})")
@@ -1181,13 +1173,15 @@ def phase_lab(dev, results):
             continue
         over = c["us"] - floor["us"]
         n_ins = DECODE_INSTRUCTIONS.get(c["variant"])
-        staging[c["variant"]] = dict(over_floor_us=over, instructions_per_b_register=n_ins,
-                                     us_per_instruction=None if n_ins is None else over / n_ins)
+        staging[c["variant"]] = dict(
+            over_floor_us=over, source_instructions_per_b_register=n_ins,
+            us_per_source_instruction=None if n_ins is None else over / n_ins)
     log(f"    over floor's {floor['us']:.1f} us (the loop's staging floor, "
         f"{100 * floor['share_of_bound']:.1f}% of its bound): " + ", ".join(
             f"{v} +{d['over_floor_us']:.1f}"
-            + ("" if d["us_per_instruction"] is None else
-               f" ({d['instructions_per_b_register']} ins, {d['us_per_instruction']:.1f} us each)")
+            + ("" if d["us_per_source_instruction"] is None else
+               f" ({d['source_instructions_per_b_register']} source ins, "
+               f"{d['us_per_source_instruction']:.1f} us each)")
             for v, d in staging.items()))
     for name in kernel_lab.PACKAGE_VARIANTS:
         row = by_name[name]
@@ -1256,7 +1250,6 @@ def lab2_check(name, inp, weights, bn, bk, label):
     """One lab2 GEMM case against its plain version on the card (relative
     Frobenius error)."""
     from flute_tpu_torch.lab import kernel_lab2, ops2
-
     from flute_tpu_torch.lab import ops as lab
 
     fn, args = kernel_lab2.lab_call(name, inp, weights, inp.x.shape[0], bn, bk)
@@ -1264,7 +1257,7 @@ def lab2_check(name, inp, weights, bn, bk, label):
     path = ops2.LAST_PATH[fn]
     want = ops2.plain(fn, *args)
     torch.cuda.synchronize()
-    if path != ops2.path_of(fn, LAB2_SHAPE["g"]):
+    if path != lab.path_of(fn, LAB2_SHAPE["g"], ops2.MMA_FUNCTIONS):
         raise AssertionError(f"lab2 {name} {label}: ran path {path}")
     if not torch.isfinite(got.float()).all():
         raise AssertionError(f"lab2 {name} {label}: non-finite output")
@@ -1282,7 +1275,9 @@ def phase_lab2(dev, results, library_us_w4, floor_us):
     tensor-core loop bit for bit, L11 against L5 group_acc's bits, L7 bit
     for bit, and the plain versions and a bf16 matmul timed beside the
     kernels. ``library_us_w4`` is phase 2b's yardstick, a bf16 matmul at
-    this shape, and ``floor_us`` its floor (the loop's staging floor)."""
+    this shape, and ``floor_us`` phase 2b's floor (the loop's staging floor,
+    timed at the first lab's bk 1024 in the first library, where this lab
+    runs bk 2048: its "over floor" times compare across the two)."""
     from types import SimpleNamespace
 
     from flute_tpu_torch.lab import kernel_lab2, ops2
@@ -1301,7 +1296,7 @@ def phase_lab2(dev, results, library_us_w4, floor_us):
     launches, gemm, lab1 = dict(ops2.LAUNCHES), dict(lut_gemm.LAUNCHES), dict(lab.LAUNCHES)
     paths = dict(ops2.LAST_PATH)
     main_s = time.perf_counter() - t0
-    want_paths = {fn: ops2.path_of(fn, g) for fn in ops2.LAUNCHES}
+    want_paths = {fn: lab.path_of(fn, g, ops2.MMA_FUNCTIONS) for fn in ops2.LAUNCHES}
     if paths != want_paths:
         raise AssertionError(f"the lab2 run took the paths {paths}, expected {want_paths}")
 
@@ -1405,7 +1400,8 @@ def phase_lab2(dev, results, library_us_w4, floor_us):
             f"GB/s  bound {case['bound_us']:6.1f} us ({case['bound_by']}, "
             f"{100 * case['share_of_bound']:5.1f}%)  plain {case['plain_us']:8.1f} us  matmul "
             f"{case['library_us']:6.1f} us  rel {case['rel']:.2e}"
-            + (f"  over floor +{case['over_floor_us']:.1f} us" if "over_floor_us" in case else ""))
+            + (f"  over floor (bk 1024) +{case['over_floor_us']:.1f} us"
+               if "over_floor_us" in case else ""))
     # L7 at its longer chain: the block read once and written once, two
     # int32 operations per element and step
     row = by_name["vmembw"]

@@ -41,7 +41,7 @@ its words are the loop's B registers as they stand), and ``gather16``,
 ``g8_ablate``, ``g8_rs`` and ``g8_hoist`` at a group size that is a multiple
 of 16, run the lab's tensor-core loop (``csrc/lab_mma.cuh``, path ``"mma"``,
 with a split-K that :func:`lab_splits` chooses from N, K and g, floor's
-from the chunk: :func:`loop_group`; ``g8_ablate`` and ``g8_hoist`` hold the
+from the chunk; ``g8_ablate`` and ``g8_hoist`` hold the
 table in registers, ``g8_rs`` FLUTE's pair table and ``gather16`` the 16
 entries in shared memory); every other call the SIMT kernel (path
 ``"simt"``). The path is chosen from the function and g before the launch
@@ -240,21 +240,15 @@ def lab_path(g: int) -> str:
     return "mma" if g > 0 and g % MMA_STEP == 0 else "simt"
 
 
-def path_of(fn: str, g: int) -> str:
-    """The kernel lab function ``fn`` runs at group size ``g``: floor reads
-    no scales, so the loop takes it at every g; the other
-    :data:`MMA_FUNCTIONS` follow :func:`lab_path`; the rest run SIMT."""
-    if fn in SCALE_FREE:
+def path_of(fn: str, g: int, mma_functions: Sequence[str] | None = None) -> str:
+    """The path kernel lab function ``fn`` runs at group size ``g``: floor
+    reads no scales, so the loop takes it at every g; the other functions
+    with a tensor-core path (``mma_functions``: this lab's
+    :data:`MMA_FUNCTIONS` unless the second lab passes its own) follow
+    :func:`lab_path`; the rest run SIMT."""
+    if fn == "floor":
         return "mma"
-    return lab_path(g) if fn in MMA_FUNCTIONS else "simt"
-
-
-def loop_group(fn: str, g: int) -> int:
-    """The group size that plans ``fn``'s split (:func:`lab_splits`): ``g``,
-    or for floor, which reads no scales and whose x map follows a chunk's
-    index and bk alone, the chunk, so that any chunk boundary may split
-    it."""
-    return CHUNK if fn in SCALE_FREE else g
+    return lab_path(g) if fn in (mma_functions or MMA_FUNCTIONS) else "simt"
 
 
 def lab_splits(n: int, k: int, g: int) -> int:
@@ -302,8 +296,6 @@ _ENTRIES = {
 }
 # the functions with a tensor-core path
 MMA_FUNCTIONS = ("floor", "gather16", "g8_ablate", "g8_rs", "g8_hoist")
-# those of them that read no scales: on the loop at every g, split at chunks
-SCALE_FREE = ("floor",)
 # lab_mma.cuh's Scaling, in its order
 LOOP_SCALINGS = ("group_acc", "affine", "repeat", "expand", "none")
 # each library of the loop's C entries: the prefix of its loop report
@@ -381,7 +373,9 @@ def _launch(name: str, x, plane, scales, table, bk: int, g: int, flags: tuple[in
     fn, error_string = _kernel_fn(name)
     path, work, tail = path_of(name, g), [], []
     if name in MMA_FUNCTIONS:
-        splits = lab_splits(n, k, loop_group(name, g))
+        # floor reads no scales and its x map follows a chunk's index and
+        # bk alone: any chunk boundary may split it
+        splits = lab_splits(n, k, CHUNK if name == "floor" else g)
         x, ws = loop_operands(x, path, splits, n)
         work, tail = [None if ws is None else ws.data_ptr()], [splits]
     ptrs = [x.data_ptr(), plane.data_ptr()]
@@ -487,6 +481,25 @@ def mma_probe(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"flute_lab_mma_probe launch failed ({err})")
     return d
+
+
+def probe_subnormals(device) -> dict:
+    """Both products of :func:`probe_operands` through :func:`mma_probe` on
+    ``device`` against its plain version on the CPU, bit for bit: whether
+    the bf16 subnormal operands come out exactly, and round back to their
+    bf16 bits (``operands_kept``), and whether the f32 subnormal products do
+    (``subnormal_products_kept``); with the first column's operand bits,
+    outputs and products for a report."""
+    (eye, b), (tiny, small) = probe_operands(device)
+    d, d2 = mma_probe(eye, b).cpu(), mma_probe(tiny, small).cpu()
+    want, want2 = mma_probe(eye.cpu(), b.cpu()), mma_probe(tiny.cpu(), small.cpu())
+    kept = torch.equal(d.view(torch.int32), want.view(torch.int32)) and torch.equal(
+        d.bfloat16().view(torch.int16), b.cpu().view(torch.int16))
+    products = torch.equal(d2.view(torch.int32), want2.view(torch.int32))
+    sub = b.cpu().view(torch.int16)[:len(PROBE_SUBNORMALS), 0].tolist()
+    return dict(operand_bits=[f"0x{v & 0xFFFF:04X}" for v in sub],
+                outputs=[float(v) for v in d[:len(PROBE_SUBNORMALS), 0]], operands_kept=kept,
+                products=[float(v) for v in d2[:2, 0]], subnormal_products_kept=products)
 
 
 # ---------------------------------------------------------------------------

@@ -57,7 +57,7 @@ import torch
 
 from flute_tpu_torch import packing as _packing
 from flute_tpu_torch.lab.ops import CHUNK, bitcast_rows, group_acc_product, group_parts, \
-    lab_path, lab_splits, loop_operands, pair_fields
+    lab_splits, loop_operands, pair_fields, path_of
 
 # Launches of each kernel; a wrapper adds one where it launches its kernel
 # and nowhere else. ``sep`` counts both of its modes.
@@ -187,10 +187,12 @@ def build_kernels() -> None:
 
 
 def _launch(name: str, out: torch.Tensor, tensors: Sequence[torch.Tensor], args: Sequence,
-            path: str = "simt") -> torch.Tensor:
-    """Launch kernel ``name`` on ``tensors`` (then ``out``) and the scalar
+            path: str = "simt", work: Sequence[torch.Tensor | None] = ()) -> torch.Tensor:
+    """Launch kernel ``name`` on ``tensors`` (then ``out``, then the loop's
+    workspace ``work``: one tensor, or None for one split) and the scalar
     ``args``, on PyTorch's current stream, count the launch and record its
-    ``path``."""
+    ``path``. The workspace is held here until the launch is queued, so the
+    allocator cannot hand its memory to ``out``."""
     dev = out.device
     for t in tensors:
         if t.device != dev:
@@ -201,7 +203,8 @@ def _launch(name: str, out: torch.Tensor, tensors: Sequence[torch.Tensor], args:
     tensors = [t.contiguous() for t in tensors]  # alive until the launch is queued
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = fn(*[t.data_ptr() for t in tensors], out.data_ptr(), *args, stream)
+        err = fn(*[t.data_ptr() for t in tensors], out.data_ptr(),
+                 *[None if w is None else w.data_ptr() for w in work], *args, stream)
     if err != 0:
         raise RuntimeError(f"lab kernel {name} launch failed: {error_string(err).decode()} ({err})")
     LAUNCHES[name] += 1
@@ -209,18 +212,13 @@ def _launch(name: str, out: torch.Tensor, tensors: Sequence[torch.Tensor], args:
     return out
 
 
-def path_of(fn: str, g: int) -> str:
-    """The kernel lab function ``fn`` runs at group size ``g``: the
-    :data:`MMA_FUNCTIONS` follow ``ops.lab_path``, the rest run SIMT."""
-    return lab_path(g) if fn in MMA_FUNCTIONS else "simt"
-
-
 def _loop(fn: str, x: torch.Tensor, n: int, g: int):
     """``fn``'s path, ``x`` on a 16-byte boundary where the loop runs, the
-    loop's workspace pointer (None for one split) and its split."""
-    path, splits = path_of(fn, g), lab_splits(n, x.shape[1], g)
+    loop's workspace (None for one split; the caller keeps it alive through
+    the launch) and its split."""
+    path, splits = path_of(fn, g, MMA_FUNCTIONS), lab_splits(n, x.shape[1], g)
     x, ws = loop_operands(x.contiguous(), path, splits, n)
-    return path, x, None if ws is None else ws.data_ptr(), splits
+    return path, x, ws, splits
 
 
 def _on_card(t: torch.Tensor) -> bool:
@@ -274,8 +272,8 @@ def _table_gemm(name, x, planes, scales, table, bm, bn, bk, g, *, kernel: bool):
     if name not in MMA_FUNCTIONS:
         return _launch(name, _gemm_out(x, scales), [x, plane, scales, t], [m, n, k, g])
     path, x, ws, splits = _loop(name, x, n, g)
-    return _launch(name, _gemm_out(x, scales), [x, plane, scales, t], [ws, m, n, k, g, splits],
-                   path=path)
+    return _launch(name, _gemm_out(x, scales), [x, plane, scales, t], [m, n, k, g, splits],
+                   path=path, work=[ws])
 
 
 def _sep(x, planes_a, planes_b, scales, table_a, table_b, bm, bn, bk, g, one_mm, *,
@@ -288,7 +286,7 @@ def _sep(x, planes_a, planes_b, scales, table_a, table_b, bm, bn, bk, g, one_mm,
     n = scales.shape[1]
     path, x, ws, splits = _loop("sep", x, n, g)
     return _launch("sep", _gemm_out(x, scales), [x, pa, pb, scales, ta, tb],
-                   [ws, m, n, k, g, int(bool(one_mm)), splits], path=path)
+                   [m, n, k, g, int(bool(one_mm)), splits], path=path, work=[ws])
 
 
 def _int4(x, planes, scales, bm, bn, bk, g, zero, delta, *, kernel: bool):
@@ -299,7 +297,7 @@ def _int4(x, planes, scales, bm, bn, bk, g, zero, delta, *, kernel: bool):
     n = scales.shape[1]
     path, x, ws, splits = _loop("int4", x, n, g)
     return _launch("int4", _gemm_out(x, scales), [x, plane, scales],
-                   [ws, m, n, k, g, float(zero), float(delta), splits], path=path)
+                   [m, n, k, g, float(zero), float(delta), splits], path=path, work=[ws])
 
 
 def _vmembw(w, nops, *, kernel: bool):

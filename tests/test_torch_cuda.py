@@ -1080,16 +1080,13 @@ def test_lab_mma_keeps_subnormals(dev):
     exact f32 subnormal products. So the tensor core neither flushes a
     subnormal operand nor a subnormal product, and floor, whose finite
     halves are subnormal one time in 128, is bit-exact on the loop."""
-    (eye, b), (tiny, small) = lab.probe_operands(dev)
-    d = lab.mma_probe(eye, b).cpu()
-    want = b.cpu().float()
-    assert int((want.abs() < 2.0**-126).sum()) == 3 * len(lab.PROBE_SUBNORMALS)
-    assert torch.equal(d.view(torch.int32), want.view(torch.int32))
-    assert torch.equal(d.bfloat16().view(torch.int16), b.cpu().view(torch.int16))
-    d = lab.mma_probe(tiny, small).cpu()
-    want = (tiny.cpu().double() @ small.cpu().double()).float()
+    (_, b), (tiny, small) = lab.probe_operands(dev)
+    assert int((b.cpu().float().abs() < 2.0**-126).sum()) == 3 * len(lab.PROBE_SUBNORMALS)
+    want = lab.mma_probe(tiny.cpu(), small.cpu())
     assert bool(((want != 0) & (want.abs() < 2.0**-126)).all())
-    assert torch.equal(d.view(torch.int32), want.view(torch.int32))
+    out = lab.probe_subnormals(dev)
+    assert out["operands_kept"] and out["subnormal_products_kept"]
+    assert out["operand_bits"] == [f"0x{v:04X}" for v in lab.PROBE_SUBNORMALS]
 
 
 # floor on the loop: its K blocks (3584 is MAX_BLOCK_K, where bk/4 = 896 is
@@ -1148,7 +1145,7 @@ def test_lab_floor_one_split_and_the_planned_split(dev, monkeypatch, bk):
     bits."""
     k = 8 * bk if bk == 512 else 2 * bk
     call, plain = floor_call(dev, 16, bk, k=k, n=2048)
-    planned = lab.lab_splits(2048, k, lab.loop_group("floor", G))
+    planned = lab.lab_splits(2048, k, lab.CHUNK)
     assert planned > 1
     want = plain()
     for splits in (1, planned):
@@ -1280,6 +1277,56 @@ def test_lab_loop_one_split_and_the_planned_split(dev, monkeypatch, g, variant):
         torch.cuda.synchronize()
         assert rel_err(y, want) < TOL[torch.bfloat16]
         assert torch.equal(y.view(torch.int16), again.view(torch.int16))
+
+
+def allocator_block(ptr: int) -> tuple[str | None, int]:
+    """(state, bytes from ``ptr`` to its end) of the caching allocator's
+    block that holds device address ``ptr``, or (None, 0)."""
+    for seg in torch.cuda.memory_snapshot():
+        addr = seg["address"]
+        for block in seg["blocks"]:
+            start = block.get("address", addr)
+            if start <= ptr < start + block["size"]:
+                return block["state"], start + block["size"] - ptr
+            addr = start + block["size"]
+    return None, 0
+
+
+@pytest.mark.parametrize("variant", LAB2_LOOP_VARIANTS)
+def test_lab2_loop_keeps_its_workspace_through_the_launch(dev, monkeypatch, variant):
+    """sep, sep1, int4 and slabstream with four splits at N 2048, K 1024 (a
+    512 KiB workspace, from the allocator's pool of small blocks, as the
+    output is), right after a free block of the workspace's size: when the
+    C entry is called, the workspace it gets is an allocated block that
+    holds all of it, apart from the output (else the allocator could hand
+    its memory to the output, and the split reduction would read partials
+    that it overwrites), and the result agrees with the plain version."""
+    m, n, k, g = 16, 2048, 1024, 64
+    fn, mod, call, plain = loop_call(dev, variant, m, g, k=k, n=n)
+    splits = lab.lab_splits(n, k, g)
+    ws_bytes = splits * m * n * 4
+    assert mod is ops2 and splits > 1
+    seen = []
+    entry, error_string = ops2._kernel_fn(fn)
+    n_ptr = ops2._ENTRIES[fn][1].count(ops2._P)
+
+    def spy(*args):
+        y_ptr, ws_ptr = args[n_ptr - 2:n_ptr]
+        seen.append((y_ptr, ws_ptr, allocator_block(ws_ptr) if ws_ptr else (None, 0)))
+        return entry(*args)
+
+    monkeypatch.setattr(ops2, "_kernel_fn", lambda name: (spy, error_string))
+    want = plain()
+    torch.cuda.synchronize()
+    block = torch.empty(ws_bytes, dtype=torch.uint8, device=dev)
+    del block
+    y = call()
+    torch.cuda.synchronize()
+    ((y_ptr, ws_ptr, (state, room)),) = seen
+    assert y_ptr == y.data_ptr() and ws_ptr is not None
+    assert state == "active_allocated" and room >= ws_bytes
+    assert ws_ptr + ws_bytes <= y_ptr or y_ptr + m * n * 2 <= ws_ptr
+    assert rel_err(y, want) < TOL[torch.bfloat16]
 
 
 # L5's and L3's loop variants (tables in shared memory) and their register

@@ -253,7 +253,7 @@ def test_lab_path_from_g(fn, g, path):
     assert entry == f"flute_lab_{fn}" and n_ptr == (4 if fn == "floor" else 6)
     assert n_int == {"gather16": 6, "g8_ablate": 8, "g8_rs": 7, "g8_hoist": 7, "floor": 5}[fn]
     if want == "simt":
-        assert lab.lab_splits(256, 1536, lab.loop_group(fn, g)) == 1
+        assert lab.lab_splits(256, 1536, g) == 1
 
 
 @pytest.mark.parametrize("n,k", [(200, 1024), (2048, 8192), (28672, 8192), (256, 512)])
@@ -288,17 +288,35 @@ def test_lab_splits_at_the_lab_shape():
 @pytest.mark.parametrize("n,k", [(28672, 8192), (200, 1024), (200, 3584), (2048, 4096)])
 @pytest.mark.parametrize("g", [2, 6, 64, 512])
 def test_floor_splits_at_chunks(n, k, g):
-    """floor plans its split from the chunk, whatever g: two splits at the
-    lab's shape (as the loop's other functions at g64), every split
-    boundary a chunk boundary, so no split falls inside a chunk, and more
-    than one split where K and N allow, even where g is 2 or wider than a
-    chunk."""
-    unit = lab.loop_group("floor", g)
-    splits = lab.lab_splits(n, k, unit)
-    assert unit == lab.CHUNK and k % (splits * lab.CHUNK) == 0
-    assert splits == lab.lab_splits(n, k, lab.CHUNK) > 1
+    """floor runs the loop at every g and plans its split from the chunk
+    (``lab_splits`` with the chunk for g): two splits at the lab's shape (as
+    the loop's other functions at g64), every split boundary a chunk
+    boundary, so no split falls inside a chunk, and more than one split
+    where K and N allow, even where g is 2 (one split for the functions that
+    read scales) or wider than a chunk."""
+    assert lab.path_of("floor", g) == "mma"
+    splits = lab.lab_splits(n, k, lab.CHUNK)
+    assert k % (splits * lab.CHUNK) == 0 and splits > 1
+    assert lab.lab_path(g) == "mma" or lab.lab_splits(n, k, g) == 1
     if (n, k) == (28672, 8192):
         assert splits == 2
+
+
+def test_mma_probe_plain_version():
+    """The probe's plain version on the CPU (the reference the card's
+    ``mma.sync`` is held to): the identity gives back B's bf16 subnormals
+    exactly, 2^-100 times values near 2^-40 gives f32 subnormals, and
+    operands of another shape, type or device are refused."""
+    (eye, b), (tiny, small) = lab.probe_operands()
+    d = lab.mma_probe(eye, b)
+    assert d.dtype == torch.float32 and torch.equal(d, b.float())
+    assert int((d.abs() < 2.0**-126).sum()) == 3 * len(lab.PROBE_SUBNORMALS)
+    d = lab.mma_probe(tiny, small)
+    assert bool(((d != 0) & (d.abs() < 2.0**-126)).all())
+    with pytest.raises(ValueError):
+        lab.mma_probe(eye.float(), b)
+    with pytest.raises(ValueError):
+        lab.mma_probe(eye[:8], b)
 
 
 # (g, bk) of loop calls refused before any launch, at K 512 (the checks make

@@ -302,7 +302,8 @@ def test_loop_path_and_splits(fn, g, path):
     workspace and the split."""
     assert ops2.MMA_FUNCTIONS == ("sep", "int4", "slabstream")
     assert ops2.lab_splits is lab.lab_splits
-    assert ops2.lab_path is lab.lab_path and lab.lab_path(g) == path == ops2.path_of(fn, g)
+    assert ops2.path_of is lab.path_of
+    assert lab.lab_path(g) == path == lab.path_of(fn, g, ops2.MMA_FUNCTIONS)
     entry, argtypes = ops2._ENTRIES[fn]
     assert entry == f"flute_lab2_{fn}"
     assert argtypes.count(ops2._P) == {"sep": 8, "int4": 5, "slabstream": 6}[fn]
