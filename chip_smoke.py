@@ -12,8 +12,9 @@ Phases (any failure exits non-zero):
      and L7-L12 (its second half, kernel_lab2.cu); print ptxas registers
      and spill; for each instantiation of the lab's tensor-core loop its
      registers, spill (none allowed), dynamic shared memory and blocks per
-     SM (the CUDA occupancy calculator), among them L1's WordDecoder and
-     L11's PairTableDecoder<4> (kernel_lab2.cu's copy of L5's);
+     SM (the CUDA occupancy calculator), among them L1's WordDecoder,
+     L11's PairTableDecoder<4> (kernel_lab2.cu's copy of L5's), L8's
+     PairTileDecoder and L12's W3PairDecoder;
   2. hold each kernel against its plain PyTorch version on the card:
      the LUT-GEMMs at the Llama-3.1-8B decoder-layer shapes (K1 also at
      Gemma-2-9B's), M in {1, 8, 128, 512}, bf16 and f16 (relative Frobenius
@@ -76,14 +77,17 @@ Phases (any failure exits non-zero):
      bf16) with the launch counts set to 0 just before and read just after
      (each function exactly its variants' calls, sep for sep and sep1, L7
      2 x 4002; prod as many of K2, no other package kernel, no L1-L6), and
-     no L7-L12 kernel launched in phases 3-5; L9 (sep and sep1), L10
-     (int4) and L11 (slabstream, on L5 group_acc's decoder) run the lab's
-     tensor-core loop (path "mma"), the rest SIMT; then the six GEMM
+     no L7-L12 kernel launched in phases 3-5; L8 (pfdirect, on L11's
+     decoder with its operand through a tile in shared memory), L9 (sep
+     and sep1), L10 (int4), L11 (slabstream, on L5 group_acc's decoder)
+     and L12 (w3wide, 24 word rows a chunk) run the lab's tensor-core loop
+     (path "mma"), L7 SIMT; then the six GEMM
      functions (seven cases with sep1) are held against their plain
      versions on the card at that shape and at bk 256 on a narrow N
      (relative Frobenius error under 1.1e-2) and with an identity x bit for
      bit (the sign of a zero aside), the loop's cases also called twice for
-     the same bits, L11 to L5 group_acc's bits on the same inputs, L7 bit
+     the same bits, L11 to L5 group_acc's bits and L8 to L11's on the same
+     inputs, L7 bit
      for bit at nops 2 and 8; the
      plain versions and a yardstick (one bf16 torch.matmul on the
      pre-dequantized weight: phase 2b's for the 4-bit cases, its own for
@@ -1272,9 +1276,9 @@ def phase_lab2(dev, results, library_us_w4, floor_us):
     """The lab's second half (L7-L12): its entry point over every variant
     (counted, each function's path recorded), then each case against its
     plain version, an identity x bit for bit, a repeated call of the
-    tensor-core loop bit for bit, L11 against L5 group_acc's bits, L7 bit
-    for bit, and the plain versions and a bf16 matmul timed beside the
-    kernels. ``library_us_w4`` is phase 2b's yardstick, a bf16 matmul at
+    tensor-core loop bit for bit, L11 against L5 group_acc's bits, L8
+    against L11's, L7 bit for bit, and the plain versions and a bf16 matmul
+    timed beside the kernels. ``library_us_w4`` is phase 2b's yardstick, a bf16 matmul at
     this shape, and ``floor_us`` phase 2b's floor (the loop's staging floor,
     timed at the first lab's bk 1024 in the first library, where this lab
     runs bk 2048: its "over floor" times compare across the two)."""
@@ -1346,7 +1350,14 @@ def phase_lab2(dev, results, library_us_w4, floor_us):
         raise AssertionError("lab2 slabstream differs from L5 g8_rs group_acc")
     log(f"  L11 slabstream gives L5 g8_rs group_acc's bits on the same inputs (path "
         f"{ops2.LAST_PATH['slabstream']}, {lab.lab_splits(n, k, g)} splits of K)")
-    del twin, l5
+    # L8 and L11: one decoder, scaling, split and step order; L8's B
+    # registers go through a tile in shared memory first
+    tiled = ops2.pfdirect(inp.x, inp.planes, inp.scales, inp.table, m, bn, bk, g)
+    if not torch.equal(tiled.view(torch.int16), twin.view(torch.int16)):
+        raise AssertionError("lab2 pfdirect differs from L11 slabstream")
+    log(f"  L8 pfdirect gives L11 slabstream's bits on the same inputs (path "
+        f"{ops2.LAST_PATH['pfdirect']})")
+    del twin, l5, tiled
     block = kernel_lab2.vmembw_block(dev)
     for nops in kernel_lab2.VMEMBW_NOPS:
         got = ops2.vmembw(block, nops)

@@ -19,8 +19,8 @@
 //     row c*32 + j, byte i: pair row c*128 + i*32 + j) and 16 entries. The
 //     index comes straight from the byte f, with no ce/co split: the even
 //     value is entry f & 7 of the half that bit 3 selects, the odd entry
-//     (f >> 4) & 7 of the half that bit 7 selects. pfdirect writes a chunk's
-//     dequantized operand (the payload ge | go) to shared memory before its
+//     (f >> 4) & 7 of the half that bit 7 selects. pfdirect builds the
+//     dequantized operand (the payload ge | go) in memory before its
 //     products, as the TPU builds the whole tile; slabstream feeds each
 //     decoded pair straight into its products, in registers. On the
 //     tensor-core loop that second design is the loop itself: each field
@@ -30,7 +30,14 @@
 //     256-entry lookup from the raw field where the TPU needs two 8-entry
 //     gathers and selects. That decoder and its scaling are L5 g8_rs
 //     group_acc's (kernel_lab.cu): one instantiation, one source
-//     (lab_decoders.cuh), the same bits.
+//     (lab_decoders.cuh), the same bits. pfdirect runs the same pair table
+//     (in 2 copies, not 4) and scaling, but a warp stores each step's B
+//     registers (16 K rows of its 32 columns) to a tile in shared memory
+//     (stmatrix) and reads them back (ldmatrix) before the products
+//     (PairTileDecoder): the round trip that a wgmma kernel taking its
+//     weight operand from shared memory makes. The products run in
+//     slabstream's order, so the bits are slabstream's; the time is its
+//     time plus the round trip, at 4 blocks an SM as slabstream.
 //   sep: T[c] = A[c & 3] + B[c >> 2] over two 2-bit planes [K/16, N] (fields
 //     ce | co << 2, 8 per word, word row c*16 + j, field i: pair row
 //     c*128 + i*16 + j) and two 4-entry tables held in registers. sep: the
@@ -41,16 +48,20 @@
 //     contraction into an FMA).
 //   w3wide: W = round(T3[c]) from the wide 3-bit layout (K3's field decode,
 //     csrc/lut_gemm_w3wide.cu: straddling fields read from one 64-bit value)
-//     and 8 entries.
+//     and 8 entries: the even value T3[f & 7] of the raw 6-bit field (the
+//     v5e wraps the gather index), the odd T3[f >> 3]. On the tensor-core
+//     loop (W3PairDecoder) a chunk stages 24 word rows where the 4-bit
+//     plane has 32, and each B register is one funnel shift, one and-or and
+//     one ld.shared of a 64-entry pair table.
 //
 // L7, vmembw: v <- v ^ (v >> 1) (arithmetic shift) nops times on int32, one
 // thread per element; nops is a run-time argument, so the chain cannot fold.
 //
 // Numerics: the SIMT kernels take IEEE f32 FMAs, no flush to zero (never
 // --use_fast_math). Per pair acc += (x_2p * W_2p + x_2p+1 * W_2p+1) * s: the
-// TPU's (x_g @ W_g) * s_g in another f32 order. int4, sep and slabstream on
-// the tensor-core loop sum each k16 step in the tensor core's f32 and scale
-// a group's partial once (lab_mma.cuh); sep adds plane A's and plane B's
+// TPU's (x_g @ W_g) * s_g in another f32 order. pfdirect, sep, int4,
+// slabstream and w3wide on the tensor-core loop sum each k16 step in the
+// tensor core's f32 and scale a group's partial once (lab_mma.cuh); sep adds plane A's and plane B's
 // products into the partial by two mma, as the TPU adds its two dots, where
 // the plain version sums A + B first. With x the identity every output is
 // one product (sep: A + B, exact in f32 for the lab's tables), so the
@@ -62,18 +73,22 @@
 // two products 15.2). L7's 4.2 MB stay in the 50 MB L2, so it measures the
 // launch and the ALU chain.
 //
-// Two designs. int4, sep and slabstream, at a group size that is a multiple
-// of 16, run the lab's tensor-core loop (lab_mma.cuh, with Int4Decoder or
-// SepDecoder below, or PairTableDecoder<4> of lab_decoders.cuh): plane words
-// and x staged per chunk in a cp.async ring (sep's two 2-bit planes in one
-// slot, plane A's 16 word rows then plane B's), each field turned straight
-// into mma.sync B registers (int4: two exact bf16 codes by the magic
-// exponent, 0x4300 | c is 128 + c, minus 128 exact in bf16; sep: one prmt a
-// register from its 4-entry table; slabstream: one ld.shared a register from
-// the pair table), the group's products (and int4's x sums, one more mma
+// Two designs. pfdirect, sep, int4, slabstream and w3wide, at a group size
+// that is a multiple of 16, run the lab's tensor-core loop (lab_mma.cuh,
+// with the decoders below or PairTableDecoder<4> of lab_decoders.cuh): plane
+// words and x staged per chunk in a cp.async ring (sep's two 2-bit planes
+// in one slot, plane A's 16 word rows then plane B's; w3wide's 24 word
+// rows), each field turned into mma.sync B registers (int4: two exact bf16
+// codes by the magic exponent, 0x4300 | c is 128 + c, minus 128 exact in
+// bf16; sep: one prmt a register from its 4-entry table; slabstream and
+// pfdirect: one ld.shared a register from the pair table, pfdirect's
+// through a tile in shared memory; w3wide: a funnel shift and one
+// ld.shared), the group's products (and int4's x sums, one more mma
 // against a B of ones) in f32 partials scaled on the C fragment when the
 // group ends; split-K at multiples of lcm(256, g), reduced in split order.
-// The others, and those three at any other (even) group size, run the SIMT
+// What bounds the loop is its staging (L1 floor, kernel_lab.cu, measures
+// it) plus its decode instructions a B register, not the bytes alone.
+// vmembw, and the five at any other (even) group size, run the SIMT
 // kernel below on K1's first skeleton (csrc/lut_gemm_common.cuh), as L1-L6 do: one lane per
 // output column (32 columns per block), eight warps splitting each pack
 // chunk's words, the block's 16 rows of x for one chunk staged in shared
@@ -101,6 +116,70 @@ enum Mode { kPfdirect, kSlabstream, kSep, kSep1, kInt4, kW3wide };
 
 // L11's pair table: 4 copies beside group_acc, as L5 g8_rs group_acc takes
 using SlabstreamDecoder = labmma::PairTableDecoder<4>;
+
+// L8 on the tensor-core loop: L11's pair table and scaling, with the
+// operand built in shared memory first, as the TPU kernel builds its tile.
+// Each step's B registers (16 K rows of the warp's 32 columns) are stored
+// to the warp's 1 KB tile by stmatrix and read back by ldmatrix before its
+// products, which run in L11's order into L11's partial: the same bits.
+// What holds it is shared memory: 4 blocks an SM need at most 57 344 B (the
+// runtime keeps 1 KB a block), and the ring takes 49 664, so the table
+// keeps 2 copies (L5 repeat's, 2 KB) and the tiles 4 KB. A field's tile
+// (16 KB a block) left 3 blocks an SM and was slower.
+struct PairTileDecoder : labmma::PairTableDecoder<2> {
+  static constexpr bool kTiled = true;
+
+  __device__ PairTileDecoder(const labmma::Args& a, uint32_t* t)
+      : labmma::PairTableDecoder<2>(a, t) {}
+};
+
+// L12 on the tensor-core loop: the wide 3-bit layout (pack_w3_wide, which the
+// served K3 decodes: csrc/lut_gemm_w3wide.cu). A chunk has 24 word rows, 8
+// triples stored planar: rows t, 8 + t and 16 + t are triple t, 16 six-bit
+// fields ce | co << 3 read as one 96-bit number, field j being pair row
+// 8 j + t, K rows 16 j + 2t and 16 j + 2t + 1. So step j of a chunk is field
+// j of triples t (k-slots 2t, 2t + 1) and t + 4 (2t + 8, 2t + 9): a lane
+// reads slot rows 4v + t, v < 6 (w[v]: triple t's words at v = 0, 2, 4,
+// triple t + 4's at 1, 3, 5), and the 6 words are a step's whole B
+// fragment, 16 steps a chunk with no x map. A field is one funnel shift of
+// two words (fields 5 and 10 cross a word boundary) and an and-or, then
+// one ld.shared of a 64-entry pair table, entry f = (bf16(T3[f & 7]),
+// bf16(T3[f >> 3])) (the v5e wraps the raw even index mod 8), in 8
+// bank-interleaved copies (2 KB: the ring is 41.5 KB, so 4 blocks an SM).
+struct W3PairDecoder {
+  static constexpr int kPlanes = 1, kFieldBits = 6, kProducts = 1;
+  static constexpr int kWordRows = 24;  // 8 triples of words a chunk
+  static constexpr int kStepWords = 6;  // triples t and t + 4
+  static constexpr int kCopies = 8;
+  static constexpr int kTableWords = 64 * kCopies;
+  static constexpr int kShift = 5;  // log2(4 kCopies): entry f at byte f << kShift
+  const unsigned char* tab;  // the table
+  uint32_t copy;             // this lane's copy, in bytes
+
+  __device__ W3PairDecoder(const labmma::Args& a, uint32_t* t)
+      : tab(reinterpret_cast<const unsigned char*>(t)), copy(4u * (threadIdx.x % kCopies)) {
+    for (int idx = threadIdx.x; idx < kTableWords; idx += labmma::kThreads) {
+      const int f = idx / kCopies;
+      t[idx] = labmma::table_bits(a.table, f & 7) | (labmma::table_bits(a.table, f >> 3) << 16);
+    }
+  }
+
+  // the entry of field i (bits 6i .. 6i + 5) of the triple (w0, w1, w2): the
+  // field shifted to bits kShift .. kShift + 5 (i is a constant once the
+  // loop is unrolled, so every shift is too)
+  __device__ __forceinline__ uint32_t lookup(uint32_t w0, uint32_t w1, uint32_t w2, int i) const {
+    const int p = 6 * i - kShift;  // the triple's bit that lands on bit 0
+    const uint32_t words[4] = {w0, w1, w2, 0u};
+    const uint32_t v = p < 0 ? w0 << -p : __funnelshift_r(words[p / 32], words[p / 32 + 1], p % 32);
+    return *reinterpret_cast<const uint32_t*>(tab + ((v & (63u << kShift)) | copy));
+  }
+
+  __device__ __forceinline__ void pairs(const uint32_t (&w)[6], int i,
+                                        uint32_t (&b)[1][2]) const {
+    b[0][0] = lookup(w[0], w[2], w[4], i);
+    b[0][1] = lookup(w[1], w[3], w[5], i);
+  }
+};
 
 __device__ __forceinline__ float rnd(float v) { return Cvt<bf16>::round(v); }
 
@@ -456,6 +535,25 @@ int launch(const void* x, const void* plane, const void* plane_b, const void* sc
   return cudaGetLastError();
 }
 
+// One plane and one table on the tensor-core loop with Decoder where 16
+// divides g (`splits` splits of K at multiples of lcm(256, g), `work` an
+// f32 [splits, M, N] workspace, or null with one split), else the SIMT
+// kernel MODE (one split, no workspace).
+template <typename Decoder, int MODE>
+int table_gemm(const void* x, const void* plane, const void* scales, const void* table, void* y,
+               void* work, int M, int N, int K, int g, int splits, void* stream) {
+  if (!labmma::takes(g)) {
+    if (splits != 1) return cudaErrorInvalidValue;
+    return launch<MODE>(x, plane, nullptr, scales, table, nullptr, y, M, N, K, g, 0.f, 0.f,
+                        stream);
+  }
+  labmma::Args a;
+  if (!labmma::make_args(a, x, plane, nullptr, scales, table, nullptr, y, work, M, N, K, g, 0,
+                         splits, 0.f, 0.f))
+    return cudaErrorInvalidValue;
+  return labmma::run<Decoder, labmma::kGroupAcc>(a, splits, static_cast<cudaStream_t>(stream));
+}
+
 __global__ void __launch_bounds__(kThreads)
 vmembw_kernel(const int* __restrict__ w, int* __restrict__ out, int n, int nops) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
@@ -479,11 +577,16 @@ extern "C" int flute_lab2_vmembw(const void* w, void* out, int n, int nops, void
   return cudaGetLastError();
 }
 
+// A g that is a multiple of 16 runs the tensor-core loop (L11's pair table,
+// the operand through shared memory a step at a time; `splits` splits of K
+// at multiples of lcm(256, g), `work` an f32 [splits, M, N] workspace, or
+// null with one split); any other g the SIMT kernel (one split, no
+// workspace).
 extern "C" int flute_lab2_pfdirect(const void* x, const void* plane, const void* scales,
-                                   const void* table, void* y, int M, int N, int K, int g,
-                                   void* stream) {
-  return launch<kPfdirect>(x, plane, nullptr, scales, table, nullptr, y, M, N, K, g, 0.f, 0.f,
-                           stream);
+                                   const void* table, void* y, void* work, int M, int N, int K,
+                                   int g, int splits, void* stream) {
+  return table_gemm<PairTileDecoder, kPfdirect>(x, plane, scales, table, y, work, M, N, K, g,
+                                                splits, stream);
 }
 
 // A g that is a multiple of 16 runs the tensor-core loop (the pair table of
@@ -493,17 +596,8 @@ extern "C" int flute_lab2_pfdirect(const void* x, const void* plane, const void*
 extern "C" int flute_lab2_slabstream(const void* x, const void* plane, const void* scales,
                                      const void* table, void* y, void* work, int M, int N, int K,
                                      int g, int splits, void* stream) {
-  if (!labmma::takes(g)) {
-    if (splits != 1) return cudaErrorInvalidValue;
-    return launch<kSlabstream>(x, plane, nullptr, scales, table, nullptr, y, M, N, K, g, 0.f,
-                               0.f, stream);
-  }
-  labmma::Args a;
-  if (!labmma::make_args(a, x, plane, nullptr, scales, table, nullptr, y, work, M, N, K, g, 0,
-                         splits, 0.f, 0.f))
-    return cudaErrorInvalidValue;
-  return labmma::run<SlabstreamDecoder, labmma::kGroupAcc>(a, splits,
-                                                           static_cast<cudaStream_t>(stream));
+  return table_gemm<SlabstreamDecoder, kSlabstream>(x, plane, scales, table, y, work, M, N, K, g,
+                                                    splits, stream);
 }
 
 // one_mm: 0 = sep (two products), 1 = sep1 (one product on the bf16 sum).
@@ -558,6 +652,8 @@ const labmma::Instance kLoops[] = {
     labmma::instance<SepDecoder<true>, labmma::kGroupAcc>("SepDecoder<true>"),
     labmma::instance<Int4Decoder, labmma::kAffine>("Int4Decoder"),
     labmma::instance<SlabstreamDecoder, labmma::kGroupAcc>("PairTableDecoder<4>"),
+    labmma::instance<PairTileDecoder, labmma::kGroupAcc>("PairTileDecoder"),
+    labmma::instance<W3PairDecoder, labmma::kGroupAcc>("W3PairDecoder"),
 };
 
 }  // namespace
@@ -572,9 +668,13 @@ extern "C" int flute_lab2_loop_instance(int i, int bk, int g, const char** decod
                         smem);
 }
 
+// A g that is a multiple of 16 runs the tensor-core loop (W3PairDecoder;
+// `splits` splits of K at multiples of lcm(256, g), `work` an f32
+// [splits, M, N] workspace, or null with one split); any other g the SIMT
+// kernel (one split, no workspace).
 extern "C" int flute_lab2_w3wide(const void* x, const void* plane, const void* scales,
-                                 const void* table, void* y, int M, int N, int K, int g,
-                                 void* stream) {
-  return launch<kW3wide>(x, plane, nullptr, scales, table, nullptr, y, M, N, K, g, 0.f, 0.f,
-                         stream);
+                                 const void* table, void* y, void* work, int M, int N, int K,
+                                 int g, int splits, void* stream) {
+  return table_gemm<W3PairDecoder, kW3wide>(x, plane, scales, table, y, work, M, N, K, g, splits,
+                                            stream);
 }

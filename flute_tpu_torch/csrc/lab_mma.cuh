@@ -3,13 +3,16 @@
 // (kernel_lab.cu, flute_lab_floor: scripts/kernel_lab.py:79 run_floor), L3
 // (flute_lab_gather16: :212 run_gather16), L4 (flute_lab_g8_ablate: :413
 // run_g8_ablate), L5 (flute_lab_g8_rs: :501 run_g8_rs), L6
-// (flute_lab_g8_hoist: :590 run_g8_hoist), L9 (kernel_lab2.cu,
-// flute_lab2_sep: scripts/kernel_lab2.py:234 run_sep), L10 (flute_lab2_int4:
-// :290 run_int4) and L11 (flute_lab2_slabstream: :483 run_slabstream), each
-// with its own decoder: L4, L6, L9 and L10 hold their tables in registers,
-// L3, L5 and L11 in shared memory (L5 and L11 one decoder,
-// lab_decoders.cuh), and L1 decodes nothing: its words are the B registers,
-// so it measures what the staging alone costs. The served loop
+// (flute_lab_g8_hoist: :590 run_g8_hoist), L8 (kernel_lab2.cu,
+// flute_lab2_pfdirect: scripts/kernel_lab2.py:135 run_pfdirect), L9
+// (flute_lab2_sep: :234 run_sep), L10 (flute_lab2_int4: :290 run_int4), L11
+// (flute_lab2_slabstream: :483 run_slabstream) and L12 (flute_lab2_w3wide:
+// :585 run_w3wide), each with its own decoder: L4, L6, L9 and L10 hold their
+// tables in registers, L3, L5, L8, L11 and L12 in shared memory (L5 and L11
+// one decoder, lab_decoders.cuh; L8 the same with its B registers passed
+// through a tile in shared memory; L12 a pair table of the wide 3-bit
+// layout, 24 word rows a chunk), and L1 decodes nothing: its words are the
+// B registers, so it measures what the staging alone costs. The served loop
 // (lut_gemm_mma.cuh::lut_mma_kernel) is not touched; its helpers are reused.
 //
 //   y[M, N] = bf16(sum over groups of (x_g @ W_g) * s_g)      (group_acc)
@@ -21,14 +24,16 @@
 //
 // What bounds it: bytes. At the lab's shape (M 16, N 28672, K 8192, g 64)
 // the plane (or L9's two 2-bit planes) is 117 MB and the rest 8.5 MB, 37.6
-// us at 3.35 TB/s (35.4 us for L1, which reads no scales); the products at
-// the bf16 tensor rate take 7.6 us (15.2 for L9's two products). The SIMT
+// us at 3.35 TB/s (35.4 us for L1, which reads no scales; L12's 3-bit plane
+// is 88 MB, 28.8 us); the products at the bf16 tensor rate take 7.6 us
+// (15.2 for L9's two products). The SIMT
 // skeleton of lut_gemm_common.cuh reached 3-5% of that bound: one 4-byte
 // load in flight per lane, x re-staged as f32, f32 FMAs on 16 rows. Here:
 //
 // * The block (4 warps, 128 columns, 16 rows of x) stages each 256-row pack
 //   chunk in a two-slot cp.async ring: x (16-byte copies, rows past M zero)
-//   and the chunk's 32 plane word rows of its columns (16 KB, 16 bytes a
+//   and the chunk's word rows of its columns (32 of a 4-bit plane, 16 KB;
+//   24 of the wide 3-bit layout, 12 KB: the decoder's kWordRows; 16 bytes a
 //   copy, piece p of word row j stored at p ^ 2(j & 3) so that the warps'
 //   16-byte reads below meet no bank conflict). Two 2-bit planes have 16
 //   word rows a chunk each: plane A's go to slot rows 0-15, plane B's to
@@ -41,9 +46,9 @@
 //   slot columns 64 i .. 64 i + 63 take the stretch t = i of the block. A
 //   stretch is 128 bytes: no 16-byte copy straddles two.
 // * One k16 step lies inside one group. A lane (g = lane / 4, t = lane % 4)
-//   reads the slot's word rows 4v + t, v < 8: the first 8 / planes of them
-//   from each plane, so it holds word rows 8q + t and 8q + 4 + t of every
-//   plane. Field i of word row j is pair row F i + j, F = 32 (one 4-bit
+//   reads the slot's word rows 4v + t, v < kWordRows / 4 (8, or 6 for the
+//   wide 3-bit layout): the first 8 / planes of them from each plane, so it
+//   holds word rows 8q + t and 8q + 4 + t of every plane. Field i of word row j is pair row F i + j, F = 32 (one 4-bit
 //   plane: 4 fields of 8 bits a word) or 16 (2-bit planes: 8 fields of 4
 //   bits), K rows 2F i + 2j, +1; so the two words hold, in field i, exactly
 //   the B fragment of mma.m16n8k16 for K rows 2F i + 16 q .. +15: k-slots
@@ -52,6 +57,10 @@
 //   order, so one f32 partial is open at a time, at any group size that is
 //   a multiple of 16. A lane's 4 columns of a word row (4 g .. 4 g + 3 of
 //   the warp's 32) feed the 4 n8 tiles (tile e's n-slot g is column 4 g + e).
+//   The wide 3-bit layout (L12) has this geometry with no x map and one
+//   step a field: word rows t, 8 + t, 16 + t are triple t, whose 16 six-bit
+//   fields are pair rows 8 j + t, so a step's 6 words a column (kStepWords:
+//   rows 4v + t, v < 6, triples t and t + 4) hold its whole B fragment.
 // * A decoder turns one field of each plane straight into B registers (two
 //   bf16, the even K row in the low half), both registers of a step and
 //   column at once, and says how many products a step takes: L9's "sep"
@@ -59,9 +68,22 @@
 //   same accumulator, "sep1" one on their bf16 sums (__hadd2, RN). Its
 //   table lives in registers (byte planes: one prmt looks up 4 codes) or in
 //   shared memory at a fixed offset (L5's and L11's pair table, one
-//   ld.shared a B register; L3's 16 entries, one ld.shared a code), filled
-//   by the block before the first barrier. L1's decoder hands the words
-//   over as they are, in every field.
+//   ld.shared a B register; L3's 16 entries, one ld.shared a code; L12's 64
+//   pairs of the 3-bit table), filled by the block before the first
+//   barrier. L1's decoder hands the words over as they are, in every field.
+// * Or a decoder passes its B registers through shared memory first
+//   (kTiled, L8: the TPU kernel builds its operand tile before its
+//   products): the warp stores a step's B registers with stmatrix to its
+//   tile ([32 columns][16 K rows] bf16, a column's 16-byte units
+//   XOR-swizzled by its group of 4, so that the 8 columns of a matrix meet
+//   8 bank groups) and reads them back with ldmatrix (the B fragment is an
+//   8 x 8 matrix whose rows are columns), __syncwarp between. The products
+//   run in the same order into the same partial, so the bits are the
+//   register route's. What this costs against the register route is the
+//   round trip (two stmatrix.x4 and two ldmatrix.x4 a step and lane) and
+//   the tiles' 4 KB a block: 4 blocks an SM need at most 57 344 B each (the
+//   runtime keeps 1 KB a block), so the tile is one step, and L8's table 2
+//   KB. A field's tile (16 KB a block) left 3 blocks an SM and was slower.
 // * The partial of a group: its steps' products in an f32 fragment; when the
 //   group ends, acc = acc + part * s (each rounded: __fmul_rn, __fadd_rn),
 //   and for int4 part * (s * delta) + xsum * (s * zero), the x sums taken by
@@ -100,23 +122,33 @@
 //
 // A Decoder provides
 //   kPlanes                    planes it reads: 1 (a 4-bit pair plane
-//                              [K/8, N]) or 2 (two 2-bit pair planes
+//                              [K/8, N], or the wide 3-bit layout
+//                              [3K/32, N]) or 2 (two 2-bit pair planes
 //                              [K/16, N], Args::plane and Args::plane_b)
-//   kFieldBits                 bits of a field, one pair row: 8 or 4
+//   kFieldBits                 bits of a field, one pair row: 8, 6 or 4
 //   kProducts                  mma products a step and column: 1 or 2
 //   kTableWords                32-bit words of its table in dynamic shared
-//                              memory (after the ring, before "repeat"'s
-//                              scale rows), or 0 for a table in registers
+//                              memory (after the ring, before the tiles and
+//                              "repeat"'s scale rows), or 0 for a table in
+//                              registers
 //   Decoder(const Args& a)     (kTableWords 0) its tables in registers, from
 //                              the f32 tables (or none)
 //   Decoder(const Args& a, uint32_t* t)
 //                              (kTableWords > 0) fills its table at t with
 //                              the block's threads, before the loop's first
 //                              barrier
-//   void pairs(w, i, b)        field i of words w[2 * kPlanes] (word rows
-//                              8q + t and 8q + 4 + t of one column, plane
-//                              by plane) as the step's B registers
-//                              b[kProducts][2], before any scale.
+//   void pairs(w, i, b)        field i of a step's words w[kStepWords] of
+//                              one column (word rows 8q + t and 8q + 4 + t,
+//                              plane by plane; L12: rows 4v + t, v < 6) as
+//                              the step's B registers b[kProducts][2],
+//                              before any scale.
+// and, where they differ from these defaults,
+//   kWordRows                  slot word rows a chunk (32; L12 24)
+//   kStepWords                 words of a column that a step reads
+//                              (2 * kPlanes; L12 6)
+//   kTiled                     true where its B registers go through the
+//                              warp's tile in shared memory (false, the
+//                              register route; L8 true)
 // and, only where slot x column u of chunk c is not K row 256 c + u,
 //   kXMap                      true
 //   static int x_row(c, bk, u) the K row of x that slot column u (a multiple
@@ -138,12 +170,9 @@ constexpr int kThreads = 128;                          // 4 warps
 constexpr int kBlockN = 128;                           // columns per block, 32 per warp
 constexpr int kRows = 16;                              // rows of x per block
 constexpr int kChunk = 256;                            // the lab's pack chunk
-constexpr int kWordRows = kChunk / 8;                  // slot word rows per chunk
 constexpr int kSteps = kChunk / 16;                    // k16 steps per chunk
 constexpr int kXStride = kChunk + 8;                   // halves per staged x row
 constexpr int kXBytes = kRows * kXStride * 2;          // 8448
-constexpr int kWBytes = kWordRows * kBlockN * 4;       // 16384
-constexpr int kSlotBytes = kXBytes + kWBytes;          // one chunk of the ring
 constexpr uint32_t kOnes = 0x3F803F80u;                // bf16 (1, 1)
 
 enum Scaling { kGroupAcc, kAffine, kRepeat, kExpand, kNone };
@@ -203,13 +232,62 @@ __device__ __forceinline__ size_t x_row(int c, int bk, int u) {
     return static_cast<size_t>(c) * kChunk + u;
 }
 
+// A decoder's optional traits, with their defaults: slot word rows a chunk
+// (32), words a column that a step reads (two a plane), and whether its B
+// registers go through the warp's tile in shared memory (no)
+template <typename D, typename = void>
+struct WordRowsOf : std::integral_constant<int, kChunk / 8> {};
+template <typename D>
+struct WordRowsOf<D, std::void_t<decltype(D::kWordRows)>>
+    : std::integral_constant<int, D::kWordRows> {};
+template <typename D, typename = void>
+struct StepWordsOf : std::integral_constant<int, 2 * D::kPlanes> {};
+template <typename D>
+struct StepWordsOf<D, std::void_t<decltype(D::kStepWords)>>
+    : std::integral_constant<int, D::kStepWords> {};
+template <typename D, typename = void>
+struct TiledOf : std::false_type {};
+template <typename D>
+struct TiledOf<D, std::void_t<decltype(D::kTiled)>> : std::bool_constant<D::kTiled> {};
+
+// What a decoder's traits make of the ring and the lane's reads
+template <typename Decoder>
+struct Geometry {
+  static constexpr int kWordRows = WordRowsOf<Decoder>::value;    // slot word rows a chunk
+  static constexpr int kStepWords = StepWordsOf<Decoder>::value;  // a column's words a step
+  static constexpr bool kTiled = TiledOf<Decoder>::value;         // B through the tile
+  static constexpr int kReads = kWordRows / 4;  // a lane's 16-byte reads a chunk: rows 4v + t
+  static constexpr int kSlotBytes = kXBytes + kWordRows * kBlockN * 4;  // one chunk of the ring
+  // the 4 warps' tiles: [32 columns][16 K rows] bf16 each
+  static constexpr int kTileBytes = kTiled ? 16 * kBlockN * 2 : 0;
+};
+
 // Dynamic shared memory: the ring, then the decoder's table (its
-// kTableWords words), then ("repeat") a K block's P scale rows. The table
-// sits at a fixed offset, so a lookup's address is its index plus a
-// constant.
-inline size_t smem_bytes(int table_words, int scale_rows) {
-  return static_cast<size_t>(2) * kSlotBytes + static_cast<size_t>(table_words) * 4 +
+// kTableWords words), then the warps' tiles, then ("repeat") a K block's P
+// scale rows. The table sits at a fixed offset, so a lookup's address is
+// its index plus a constant.
+template <typename Decoder>
+inline size_t smem_bytes(int scale_rows) {
+  using Geo = Geometry<Decoder>;
+  return static_cast<size_t>(2) * Geo::kSlotBytes +
+         static_cast<size_t>(Decoder::kTableWords) * 4 + Geo::kTileBytes +
          static_cast<size_t>(scale_rows) * kBlockN * 2;
+}
+
+// The 16-byte unit of column n's unit u (K rows 8u .. 8u + 7) in a warp's
+// tile ([32 columns][2 units]): the low 3 bits of its index XOR n's group
+// (n / 4) mod 8, so that the 8 columns 4 g + e (g = 0..7) of a matrix meet 8
+// different bank groups, whether the lanes store (stmatrix) or load
+// (ldmatrix) it
+__device__ __forceinline__ int tile_unit(int n, int u) { return (2 * n + u) ^ ((n >> 2) & 7); }
+
+// four 8 x 8 b16 matrices from registers into shared memory, as ldmatrix
+// reads them back (lane l's row address: matrix l / 8, row l % 8)
+__device__ __forceinline__ void stmatrix_x4(void* p, const uint32_t (&r)[4]) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1,%2,%3,%4};\n" ::"r"(
+                   mma::smem_u32(p)),
+               "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+               : "memory");
 }
 
 // The decoder of a block: one that keeps its table in shared memory
@@ -225,17 +303,23 @@ __device__ __forceinline__ Decoder make_decoder(const Args& a, uint32_t* table) 
 
 template <typename Decoder, int SCALING>
 __global__ void __launch_bounds__(kThreads, 4) lab_mma_kernel(const Args a) {
+  using Geo = Geometry<Decoder>;
   constexpr int kPlanes = Decoder::kPlanes;
   constexpr int kProducts = Decoder::kProducts;
-  constexpr int kFields = 32 / Decoder::kFieldBits;   // fields a word
-  constexpr int kQ = kSteps / kFields;                // steps a field
-  constexpr int kPlaneRows = kWordRows / kPlanes;     // a plane's word rows a chunk
-  constexpr int kPlaneV = 8 / kPlanes;                // a plane's 16-byte reads a lane
+  constexpr int kSlotBytes = Geo::kSlotBytes;
+  constexpr int kPlaneRows = Geo::kWordRows / kPlanes;  // a plane's word rows a chunk
+  constexpr int kPlaneV = Geo::kReads / kPlanes;        // a plane's 16-byte reads a lane
+  constexpr int kPlaneWords = Geo::kStepWords / kPlanes;  // a plane's words a column and step
+  constexpr int kQ = kPlaneV / kPlaneWords;             // steps a field
+  constexpr int kFields = kSteps / kQ;                  // fields a word
   // scaled per group: on the C fragment (a partial open) or in the B register
   constexpr bool kGrouped = SCALING == kGroupAcc || SCALING == kAffine || SCALING == kExpand;
   // the products go straight into the running sum
   constexpr bool kDirect = SCALING == kRepeat || SCALING == kExpand || SCALING == kNone;
-  static_assert(kFields * kQ == kSteps && kPlaneRows == 8 * kQ, "a step's words in one field");
+  static_assert(kFields * kQ == kSteps && kQ * kPlaneWords == kPlaneV && kPlaneWords % 2 == 0 &&
+                    kPlaneRows == 4 * kPlaneV && kFields * Decoder::kFieldBits == 16 * kPlaneWords,
+                "a step's words hold one field of each of its 16 K rows' pairs");
+  static_assert(!Geo::kTiled || kProducts == 1, "a tile holds one product's B registers");
 
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x;
@@ -251,7 +335,8 @@ __global__ void __launch_bounds__(kThreads, 4) lab_mma_kernel(const Args a) {
   const int P = SCALING == kRepeat ? a.bk / a.g : 1;  // scale rows per K block
   const uint16_t* su = reinterpret_cast<const uint16_t*>(a.scales);
   uint32_t* table = reinterpret_cast<uint32_t*>(smem + 2 * kSlotBytes);  // the decoder's
-  bf16* srows = reinterpret_cast<bf16*>(table + Decoder::kTableWords);  // "repeat": [P][kBlockN]
+  unsigned char* tiles = reinterpret_cast<unsigned char*>(table + Decoder::kTableWords);
+  bf16* srows = reinterpret_cast<bf16*>(tiles + Geo::kTileBytes);  // "repeat": [P][kBlockN]
   // fills its table in shared memory, if it has one, before the first barrier
   const Decoder dec = make_decoder<Decoder>(a, table);
 
@@ -267,7 +352,7 @@ __global__ void __launch_bounds__(kThreads, 4) lab_mma_kernel(const Args a) {
       mma::cp_async16(xd + r * kXStride + 8 * v, src, ok);
     }
     uint32_t* wd = reinterpret_cast<uint32_t*>(smem + s * kSlotBytes + kXBytes);
-    for (int idx = tid; idx < kWordRows * (kBlockN / 4); idx += kThreads) {
+    for (int idx = tid; idx < Geo::kWordRows * (kBlockN / 4); idx += kThreads) {
       const int j = idx / (kBlockN / 4);
       const int p = idx - j * (kBlockN / 4);
       const int n = nb + 4 * p;
@@ -365,9 +450,9 @@ __global__ void __launch_bounds__(kThreads, 4) lab_mma_kernel(const Args a) {
 
     // this lane's words of the chunk: slot word rows 4v + t, plane v / kPlaneV
     const uint32_t* ws = reinterpret_cast<const uint32_t*>(smem + s * kSlotBytes + kXBytes);
-    uint4 wv[8];
+    uint4 wv[Geo::kReads];
 #pragma unroll
-    for (int v = 0; v < 8; ++v)
+    for (int v = 0; v < Geo::kReads; ++v)
       wv[v] = *reinterpret_cast<const uint4*>(ws + (4 * v + t) * kBlockN +
                                               4 * ((warp * 8 + g) ^ (2 * t)));
     const bf16* xb = reinterpret_cast<const bf16*>(smem + s * kSlotBytes);
@@ -378,15 +463,42 @@ __global__ void __launch_bounds__(kThreads, 4) lab_mma_kernel(const Args a) {
       for (int q = 0; q < kQ; ++q) {
         const int step = c * kSteps + kQ * i + q;  // K rows 16 step .. 16 step + 15
         uint32_t b[4][kProducts][2];
+        // column e's words of the step, plane by plane: a plane's
+        // kPlaneWords words from its reads kPlaneWords q ..
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          uint32_t w[2 * kPlanes];
+          uint32_t w[Geo::kStepWords];
 #pragma unroll
           for (int p = 0; p < kPlanes; ++p) {
-            w[2 * p] = mma::word_of(wv[kPlaneV * p + 2 * q], e);
-            w[2 * p + 1] = mma::word_of(wv[kPlaneV * p + 2 * q + 1], e);
+#pragma unroll
+            for (int u = 0; u < kPlaneWords; u += 2) {
+              w[kPlaneWords * p + u] = mma::word_of(wv[kPlaneV * p + kPlaneWords * q + u], e);
+              w[kPlaneWords * p + u + 1] =
+                  mma::word_of(wv[kPlaneV * p + kPlaneWords * q + u + 1], e);
+            }
           }
           dec.pairs(w, i, b[e]);
+        }
+        if constexpr (Geo::kTiled) {
+          // the B registers through the warp's tile: matrix (e, h) of the
+          // step is columns 4 g + e (g = 0..7) at unit h, which lane l
+          // addresses as matrix l / 8, row l % 8
+          unsigned char* tile = tiles + warp * (Geo::kTileBytes / 4);  // this warp's
+          const int n = 4 * (lane & 7) + (lane >> 3);
+          __syncwarp();  // the warp has read the last step's tile
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const uint32_t r[4] = {b[0][0][h], b[1][0][h], b[2][0][h], b[3][0][h]};
+            stmatrix_x4(tile + 16 * tile_unit(n, h), r);
+          }
+          __syncwarp();  // the tile is written
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            uint32_t r[4];
+            mma::ldmatrix_x4(r, tile + 16 * tile_unit(n, h));
+#pragma unroll
+            for (int e = 0; e < 4; ++e) b[e][0][h] = r[e];
+          }
         }
         if constexpr (SCALING == kRepeat) {
           // K rows 2t, 2t + 1 (b0) and 2t + 8, 2t + 9 (b1) of the step
@@ -536,7 +648,7 @@ inline bool make_args(Args& a, const void* x, const void* plane, const void* pla
 template <typename Decoder, int SCALING>
 cudaError_t prepare(int bk, int g, size_t* smem) {
   auto kernel = lab_mma_kernel<Decoder, SCALING>;
-  *smem = smem_bytes(Decoder::kTableWords, SCALING == kRepeat ? bk / g : 0);
+  *smem = smem_bytes<Decoder>(SCALING == kRepeat ? bk / g : 0);
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(*smem));
   if (e != cudaSuccess) return e;

@@ -10,8 +10,9 @@ by default):
 
   prod        K2, the package's plane kernel (``lut_qgemm``, gather8).
   pfdirect    L8: the 16-entry lookup indexed from the raw 8-bit pair field
-              (no ce/co split); the chunk's operand goes through shared
-              memory before the products.
+              (no ce/co split); the operand goes through shared memory
+              before the products (on the lab's tensor-core loop, a step
+              at a time, with L11's pair table).
   sep, sep1   L9: a separable table T[c] = A[c & 3] + B[c >> 2] over two
               2-bit planes: two products, or one on the bf16 sum, on the
               lab's tensor-core loop (``csrc/lab_mma.cuh``).
@@ -19,8 +20,9 @@ by default):
               tensor-core loop.
   slabstream  L11: L8's function, each decoded pair fed to its products in
               registers: on the lab's tensor-core loop with L5 g8_rs
-              group_acc's pair table (pfdirect and w3wide run SIMT kernels).
-  w3wide      L12: the wide 3-bit layout (3-bit codes drawn after x).
+              group_acc's pair table.
+  w3wide      L12: the wide 3-bit layout (3-bit codes drawn after x), on
+              the lab's tensor-core loop with 24 word rows a chunk.
   vmembw      L7: v ← v ^ (v >> 1), 2 and 8 times, on a [256, 2048] int32
               block that stays in L2; prints the slope per operation.
 

@@ -47,8 +47,8 @@ entries in shared memory); every other call the SIMT kernel (path
 ``"simt"``). The path is chosen from the function and g before the launch
 (:func:`path_of`), never after a failure, and :data:`LAST_PATH` records the
 path of each function's last launch. Neither path falls back to the plain
-version. (``lab/ops2.py``'s ``sep``, ``int4`` and ``slabstream`` share the
-loop and the split.)
+version. (The five GEMMs of ``lab/ops2.py`` share the loop and the split
+where 16 divides g.)
 """
 
 from __future__ import annotations

@@ -19,7 +19,12 @@ modelled is a reference. They compute:
   ``T[f >> 4]``. L11 builds the same operand slab by slab: the same
   function, which is ``lab/ops.py``'s ``g8_rs`` ``"group_acc"`` too. On the
   tensor-core loop L11 runs L5's decoder (FLUTE's pair table, indexed by the
-  raw field) and scaling, so it gives L5's bits.
+  raw field) and scaling, so it gives L5's bits. L8 runs that pair table
+  too, but builds its operand in shared memory first, as the TPU kernel
+  builds its tile: a warp stores each step's B registers to a tile
+  (``stmatrix``) and reads them back (``ldmatrix``) before the products,
+  which run in L11's order, so it gives L11's bits. What it costs over L11
+  is that round trip.
 * ``sep`` (L9, ``run_sep``): a separable table ``T[c] = A[c & 3] + B[c >> 2]``
   over two 2-bit planes (of ``codes & 3`` and ``codes >> 2``) and two
   4-entry tables. ``one_mm=False`` sums two products in f32, which is
@@ -29,7 +34,10 @@ modelled is a reference. They compute:
   lookup: ``Σ_g (x_g @ c_g)·(s_g·δ) + (Σ_k x_g)·(s_g·z)``, each product
   rounded to f32 on its own (unfused), ``c`` exact in bf16.
 * ``w3wide`` (L12, ``run_w3wide``): ``W = bf16(T3[c])`` from the wide 3-bit
-  layout (``packing.pack_w3_wide``) and an 8-entry table.
+  layout (``packing.pack_w3_wide``) and an 8-entry table. On the loop a
+  chunk stages 24 word rows (the 4-bit plane's 32) and a step reads 6 words
+  a column, its whole B fragment; each B register is a field shifted out of
+  two words and one lookup in a 64-entry pair table in shared memory.
 * ``vmembw`` (L7, ``run_vmembw``): not a GEMM. ``v ← v ^ (v >> 1)``
   (arithmetic shift) ``nops`` times on an int32 block.
 
@@ -39,12 +47,13 @@ sizes: they are checked as the TPU grid needs them (``M % bm``, ``N % bn``,
 here scales per group. Dispatch is by the first tensor's device: on the CPU
 the plain PyTorch version, on CUDA the Hopper kernel of
 ``csrc/kernel_lab2.cu`` (one C entry per TPU function), which raises if it
-cannot be built or launched. ``sep``, ``int4`` and ``slabstream`` at a
+cannot be built or launched. The five GEMMs (:data:`MMA_FUNCTIONS`) at a
 group size that is a multiple of 16 run the lab's tensor-core loop
 (``csrc/lab_mma.cuh``, path ``"mma"``, split as ``ops.lab_splits`` says),
 every other call the SIMT kernel (``"simt"``), chosen from g before the
 launch (:func:`path_of`); :data:`LAST_PATH` records the path of each
-function's last launch.
+function's last launch. On the loop what bounds a kernel is its staging
+(L1's floor) and its instructions a B register, not the bytes alone.
 """
 
 from __future__ import annotations
@@ -66,7 +75,7 @@ LAUNCHES = {"vmembw": 0, "pfdirect": 0, "sep": 0, "int4": 0, "slabstream": 0, "w
 # "simt".
 LAST_PATH: dict[str, str] = {}
 # the functions with a tensor-core path
-MMA_FUNCTIONS = ("sep", "int4", "slabstream")
+MMA_FUNCTIONS = ("pfdirect", "sep", "int4", "slabstream", "w3wide")
 
 SOURCE = "kernel_lab2.cu"
 # plane word rows per K row, and table entries, of each GEMM's operands
@@ -152,15 +161,15 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # function -> (C entry, argument types before the stream)
 _ENTRIES = {
     "vmembw": ("flute_lab2_vmembw", [_P, _P, _I, _I]),
-    "pfdirect": ("flute_lab2_pfdirect", [_P] * 5 + [_I] * 4),
+    # x, plane, scales, table, y, the loop's workspace; M, N, K, g, splits
+    "pfdirect": ("flute_lab2_pfdirect", [_P] * 6 + [_I] * 5),
     # x, planes A and B, scales, tables A and B, y, the loop's workspace; M,
     # N, K, g, one_mm, splits
     "sep": ("flute_lab2_sep", [_P] * 8 + [_I] * 6),
     # x, plane, scales, y, the loop's workspace; M, N, K, g; zero, delta; splits
     "int4": ("flute_lab2_int4", [_P] * 5 + [_I] * 4 + [_F] * 2 + [_I]),
-    # x, plane, scales, table, y, the loop's workspace; M, N, K, g, splits
     "slabstream": ("flute_lab2_slabstream", [_P] * 6 + [_I] * 5),
-    "w3wide": ("flute_lab2_w3wide", [_P] * 5 + [_I] * 4),
+    "w3wide": ("flute_lab2_w3wide", [_P] * 6 + [_I] * 5),
 }
 
 
@@ -269,8 +278,6 @@ def _table_gemm(name, x, planes, scales, table, bm, bn, bk, g, *, kernel: bool):
         return PLAIN[name](x, plane, scales, t, g)
     m, k = x.shape
     n = scales.shape[1]
-    if name not in MMA_FUNCTIONS:
-        return _launch(name, _gemm_out(x, scales), [x, plane, scales, t], [m, n, k, g])
     path, x, ws, splits = _loop(name, x, n, g)
     return _launch(name, _gemm_out(x, scales), [x, plane, scales, t], [m, n, k, g, splits],
                    path=path, work=[ws])
@@ -316,8 +323,9 @@ def _vmembw(w, nops, *, kernel: bool):
 
 def pfdirect(x, planes, scales, table, bm, bn, bk, g) -> torch.Tensor:
     """L8, ``run_pfdirect``: ``bf16(T[c])`` indexed from the raw 8-bit pair
-    field; the kernel writes each chunk's operand to shared memory before
-    its products."""
+    field; the kernel builds its operand in shared memory before its
+    products (on the tensor-core loop where 16 divides g, a step at a time
+    with L11's pair table: :func:`path_of`)."""
     return _table_gemm("pfdirect", x, planes, scales, table, bm, bn, bk, g, kernel=_on_card(x))
 
 
@@ -330,7 +338,8 @@ def slabstream(x, planes, scales, table, bm, bn, bk, g) -> torch.Tensor:
 
 
 def w3wide(x, planes, scales, table, bm, bn, bk, g) -> torch.Tensor:
-    """L12, ``run_w3wide``: ``bf16(T3[c])`` from the wide 3-bit layout."""
+    """L12, ``run_w3wide``: ``bf16(T3[c])`` from the wide 3-bit layout (on
+    the tensor-core loop where 16 divides g: :func:`path_of`)."""
     return _table_gemm("w3wide", x, planes, scales, table, bm, bn, bk, g, kernel=_on_card(x))
 
 

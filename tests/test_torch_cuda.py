@@ -1049,7 +1049,7 @@ def test_lab2_launch_error_raises(dev):
     before = dict(ops2.LAUNCHES)
     with pytest.raises(RuntimeError, match="launch failed"):
         ops2._launch("pfdirect", out, [inp.x, inp.planes[0], inp.scales, inp.table],
-                     [16, LAB2_N, LAB2_K, 3])
+                     [16, LAB2_N, LAB2_K, 3, 1], work=[None])
     assert ops2.LAUNCHES == before
 
 
@@ -1200,12 +1200,14 @@ def test_lab_floor_refuses_bad_launches(dev, case):
 
 # L6 in its two scale modes, L10, L4's four distinct flag sets (g8_wrap's
 # are g8_nochain's entries), L9's two modes, L5's two (the pair table in
-# shared memory), L3 (the 16 entries in shared memory) and L11 (L5
-# group_acc's pair table)
+# shared memory), L3 (the 16 entries in shared memory), L11 (L5
+# group_acc's pair table), L8 (L11's decoder, the operand through a tile in
+# shared memory) and L12 (the wide 3-bit layout's 24 word rows a chunk)
 LOOP_VARIANTS = ("g8_hoist group_acc", "g8_hoist repeat", "int4", "g8_ablate full",
                  "g8_ablate nochain", "g8_ablate noscale", "g8_ablate bare", "sep", "sep1",
-                 "g8_rs group_acc", "g8_rs repeat", "gather16 expand", "slabstream")
-LAB2_LOOP_VARIANTS = ("int4", "sep", "sep1", "slabstream")
+                 "g8_rs group_acc", "g8_rs repeat", "gather16 expand", "slabstream", "pfdirect",
+                 "w3wide")
+LAB2_LOOP_VARIANTS = ("int4", "sep", "sep1", "slabstream", "pfdirect", "w3wide")
 # the loop variants of lab/ops.py
 LAB1_LOOP_VARIANTS = tuple(v for v in LOOP_VARIANTS if v not in LAB2_LOOP_VARIANTS)
 
@@ -1216,7 +1218,7 @@ def loop_call(dev, variant, m, g, k=LAB_K, eye=False, n=LAB_N):
     bk = max(512, g)
     bm = 16 if eye else m
     if variant in LAB2_LOOP_VARIANTS:
-        inp = kernel_lab2.make_inputs(m, n, k, g=g, device=dev, w3=False)
+        inp = kernel_lab2.make_inputs(m, n, k, g=g, device=dev, w3=variant == "w3wide")
         if eye:
             inp.x = torch.eye(k, dtype=torch.bfloat16, device=dev)
         fn, args = kernel_lab2.lab_call(variant, inp, kernel_lab2.operands(variant, inp), bm, n,
@@ -1257,7 +1259,7 @@ def test_lab_loop_vs_plain(dev, m, g, variant):
     assert torch.equal(y.view(torch.int16), again.view(torch.int16))
 
 
-@pytest.mark.parametrize("variant", (*LAB1_LOOP_VARIANTS, "slabstream"))
+@pytest.mark.parametrize("variant", (*LAB1_LOOP_VARIANTS, "slabstream", "pfdirect", "w3wide"))
 @pytest.mark.parametrize("g", [64, 512])
 def test_lab_loop_one_split_and_the_planned_split(dev, monkeypatch, g, variant):
     """One split and the split lab_splits plans (N 2048, K 4096: more than
@@ -1294,7 +1296,7 @@ def allocator_block(ptr: int) -> tuple[str | None, int]:
 
 @pytest.mark.parametrize("variant", LAB2_LOOP_VARIANTS)
 def test_lab2_loop_keeps_its_workspace_through_the_launch(dev, monkeypatch, variant):
-    """sep, sep1, int4 and slabstream with four splits at N 2048, K 1024 (a
+    """sep, sep1, int4, slabstream, pfdirect and w3wide with four splits at N 2048, K 1024 (a
     512 KiB workspace, from the allocator's pool of small blocks, as the
     output is), right after a free block of the workspace's size: when the
     C entry is called, the workspace it gets is an allocated block that
@@ -1346,6 +1348,40 @@ def test_lab_loop_shared_table_gives_its_twins_bits(dev, g, variant):
     assert torch.equal(y.view(torch.int16), twin.view(torch.int16))
 
 
+@pytest.mark.parametrize("g", [16, 32, 64, 512])
+def test_lab_loop_pfdirect_gives_l11s_bits(dev, g):
+    """L8 runs L11's pair table (in 2 copies), scaling, split and step
+    order; only its B registers go through shared memory first: the same
+    bits on the same inputs."""
+    inp = kernel_lab2.make_inputs(40, LAB_N, LAB_K, g=g, device=dev, w3=False)
+    bk = max(512, g)
+    y = ops2.pfdirect(inp.x, inp.planes, inp.scales, inp.table, 40, LAB_N, bk, g)
+    l11 = ops2.slabstream(inp.x, inp.planes, inp.scales, inp.table, 40, LAB_N, bk, g)
+    assert ops2.LAST_PATH["pfdirect"] == ops2.LAST_PATH["slabstream"] == "mma"
+    assert torch.equal(y.view(torch.int16), l11.view(torch.int16))
+
+
+@pytest.mark.parametrize("g", [2, 16, 32, 64, 128])
+@pytest.mark.parametrize("m", [1, 5, 16, 17, 33])
+@pytest.mark.parametrize("variant", ["pfdirect", "w3wide"])
+def test_lab_loop_l8_l12_rows_and_groups(dev, variant, m, g):
+    """L8 and L12 at row counts around the loop's m16 tiles and at every
+    group size the lab's shapes take: the loop where 16 divides g, the SIMT
+    kernel at g = 2; one launch counted; the plain version within the bf16
+    threshold; a repeated call bit for bit."""
+    fn, mod, call, plain = loop_call(dev, variant, m, g)
+    before = dict(mod.LAUNCHES)
+    y = call()
+    assert mod.LAUNCHES == {**before, fn: before[fn] + 1}
+    assert mod.LAST_PATH[fn] == lab.lab_path(g) == ("simt" if g == 2 else "mma")
+    again = call()
+    torch.cuda.synchronize()
+    assert y.dtype == torch.bfloat16 and tuple(y.shape) == (m, LAB_N)
+    assert torch.isfinite(y.float()).all()
+    assert rel_err(y, plain()) < TOL[torch.bfloat16]
+    assert torch.equal(y.view(torch.int16), again.view(torch.int16))
+
+
 @pytest.mark.parametrize("g", [32, 64, 512])
 def test_lab_loop_slabstream_gives_l5s_bits(dev, g):
     """L11 (kernel_lab2.cu) and L5 group_acc (kernel_lab.cu) run one decoder,
@@ -1361,26 +1397,33 @@ def test_lab_loop_slabstream_gives_l5s_bits(dev, g):
 
 def test_lab_loop_occupancy(dev):
     """Every instantiation of the loop in both lab libraries keeps four
-    blocks an SM at its lab's shape; its dynamic shared memory is the ring,
-    its decoder's table (L5 and L11: 4 copies of 256 words with group_acc,
-    L5: 2 beside "repeat"'s scale rows; L3: 16 words; L1's WordDecoder none)
-    and "repeat"'s scale rows."""
-    ring = 2 * (16 * (256 + 8) * 2 + 32 * 128 * 4)
+    blocks an SM at its lab's shape; its dynamic shared memory is the ring
+    (L12: 24 word rows a chunk, the others 32), its decoder's table (L5 and
+    L11: 4 copies of 256 words with group_acc, L5 and L8: 2 beside
+    "repeat"'s scale rows or L8's tiles; L3: 16 words; L12: 8 copies of 64;
+    L1's WordDecoder none), L8's warp tiles (4 x 1 KB) and "repeat"'s scale
+    rows."""
+    def ring(word_rows):
+        return 2 * (16 * (256 + 8) * 2 + word_rows * 128 * 4)
+
     table = {"PairTableDecoder<4>": 4 * 256 * 4, "PairTableDecoder<2>": 2 * 256 * 4,
-             "Gather16Decoder": 16 * 4}
+             "Gather16Decoder": 16 * 4, "PairTileDecoder": 2 * 256 * 4 + 4 * 1024,
+             "W3PairDecoder": 8 * 64 * 4}
     seen = {}
     for source, bk in (("kernel_lab.cu", 1024), ("kernel_lab2.cu", 2048)):
         seen[source] = []
         for inst in lab.loop_instances(source, bk, G):
             rows = bk // G * 128 * 2 if inst["scaling"] == "repeat" else 0
-            assert inst["smem_bytes"] == ring + table.get(inst["decoder"], 0) + rows, inst
+            words = 24 if inst["decoder"] == "W3PairDecoder" else 32
+            assert inst["smem_bytes"] == ring(words) + table.get(inst["decoder"], 0) + rows, inst
             assert inst["blocks_per_sm"] == 4, inst
             seen[source].append((inst["decoder"], inst["scaling"]))
     lab1, lab2 = seen["kernel_lab.cu"], seen["kernel_lab2.cu"]
-    assert len(set(lab1)) == len(lab1) == 10 and len(set(lab2)) == len(lab2) == 4
+    assert len(set(lab1)) == len(lab1) == 10 and len(set(lab2)) == len(lab2) == 6
     assert {("PairTableDecoder<4>", "group_acc"), ("PairTableDecoder<2>", "repeat"),
             ("Gather16Decoder", "expand"), ("WordDecoder", "none")} <= set(lab1)
-    assert ("PairTableDecoder<4>", "group_acc") in lab2
+    assert {("PairTableDecoder<4>", "group_acc"), ("PairTileDecoder", "group_acc"),
+            ("W3PairDecoder", "group_acc")} <= set(lab2)
 
 
 @pytest.mark.parametrize("variant", LOOP_VARIANTS)
@@ -1414,7 +1457,7 @@ def test_lab_loop_identity_bit_exact(dev, g, variant):
     fn, mod, call, plain = loop_call(dev, variant, 512, g, k=512, eye=True)
     y, want = call(), plain()
     assert mod.LAST_PATH[fn] == lab.lab_path(g)
-    if fn == "int4":
+    if fn in ("int4", "w3wide"):  # T3 holds a -0
         assert same_bits(y, want)
     else:
         assert torch.equal(y.view(torch.int16), want.view(torch.int16))
@@ -1433,12 +1476,12 @@ BAD_LAUNCHES = {
 
 @pytest.mark.parametrize("case", list(BAD_LAUNCHES))
 @pytest.mark.parametrize("fn", ["g8_hoist", "int4", "g8_ablate", "sep", "g8_rs", "gather16",
-                                "slabstream"])
+                                "slabstream", "pfdirect", "w3wide"])
 def test_lab_loop_refuses_bad_launches(dev, fn, case):
     """The C entry refuses a launch it cannot run (cudaErrorInvalidValue)
     and writes nothing."""
     g, k, splits, with_work = BAD_LAUNCHES[case]
-    inp = kernel_lab2.make_inputs(16, LAB_N, k, g=g, device=dev, w3=False)
+    inp = kernel_lab2.make_inputs(16, LAB_N, k, g=g, device=dev, w3=fn == "w3wide")
     y = torch.full((16, LAB_N), 7.0, dtype=torch.bfloat16, device=dev)
     work = torch.empty((max(splits, 1), 16, LAB_N), dtype=torch.float32, device=dev)
     ptrs = [inp.x.data_ptr(), inp.planes[0].data_ptr(), inp.scales.data_ptr()]
@@ -1460,8 +1503,10 @@ def test_lab_loop_refuses_bad_launches(dev, fn, case):
     elif fn == "gather16":
         entry, _ = lab._kernel_fn("gather16")
         err = entry(*ptrs, table.data_ptr(), y.data_ptr(), wp, 16, LAB_N, k, k, g, splits, stream)
-    elif fn == "slabstream":
-        entry, _ = ops2._kernel_fn("slabstream")
+    elif fn in ("slabstream", "pfdirect", "w3wide"):
+        entry, _ = ops2._kernel_fn(fn)
+        if fn == "w3wide":
+            ptrs[1], table = inp.planes3[0].data_ptr(), inp.table3.float().contiguous()
         err = entry(*ptrs, table.data_ptr(), y.data_ptr(), wp, 16, LAB_N, k, g, splits, stream)
     else:  # g8_hoist, g8_rs
         entry, _ = lab._kernel_fn(fn)

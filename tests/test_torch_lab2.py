@@ -15,10 +15,10 @@ fixture), and ``test_interpret_mode_without_the_wrap_is_not_the_reference``
 pins how far the unpatched interpreter is from the reference. No file of
 the JAX package changes.
 
-L9 (``sep``), L10 (``int4``) and L11 (``slabstream``) share L6's
-tensor-core loop and its plan (``test_torch_lab.py``); their paths per g,
-refusals and plain versions at the loop's other group sizes are checked
-here. The kernels against these
+L8 (``pfdirect``), L9 (``sep``), L10 (``int4``), L11 (``slabstream``) and
+L12 (``w3wide``) share L6's tensor-core loop and its plan
+(``test_torch_lab.py``); their paths per g, refusals and plain versions at
+the loop's other group sizes are checked here. The kernels against these
 plain versions on the card are in ``test_torch_cuda.py``.
 """
 
@@ -294,19 +294,19 @@ def test_lab2_checks_like_the_grid(inputs, case):
 
 @pytest.mark.parametrize("g,path", [(2, "simt"), (16, "mma"), (32, "mma"), (64, "mma"),
                                     (512, "mma")])
-@pytest.mark.parametrize("fn", ["sep", "int4", "slabstream"])
+@pytest.mark.parametrize("fn", ["pfdirect", "sep", "int4", "slabstream", "w3wide"])
 def test_loop_path_and_splits(fn, g, path):
-    """sep, int4 and slabstream are the second lab's functions on the
-    tensor-core loop: the path comes from g alone, the split from L6's
-    (splits at lcm(256, g), one on the SIMT path), and the C entry takes the
-    workspace and the split."""
-    assert ops2.MMA_FUNCTIONS == ("sep", "int4", "slabstream")
+    """pfdirect, sep, int4, slabstream and w3wide are the second lab's
+    functions on the tensor-core loop: the path comes from g alone, the
+    split from L6's (splits at lcm(256, g), one on the SIMT path), and the C
+    entry takes the workspace and the split."""
+    assert ops2.MMA_FUNCTIONS == ("pfdirect", "sep", "int4", "slabstream", "w3wide")
     assert ops2.lab_splits is lab.lab_splits
     assert ops2.path_of is lab.path_of
     assert lab.lab_path(g) == path == lab.path_of(fn, g, ops2.MMA_FUNCTIONS)
     entry, argtypes = ops2._ENTRIES[fn]
     assert entry == f"flute_lab2_{fn}"
-    assert argtypes.count(ops2._P) == {"sep": 8, "int4": 5, "slabstream": 6}[fn]
+    assert argtypes.count(ops2._P) == {"sep": 8, "int4": 5}.get(fn, 6)
     assert argtypes[-1] is ops2._I
     splits = ops2.lab_splits(N, 2048, g)
     assert 2048 % (splits * (math.lcm(lab.CHUNK, g) if path == "mma" else 1)) == 0
@@ -320,23 +320,27 @@ LOOP_REFUSALS = {"odd_g": (3, 256), "zero_g": (0, 256), "bk_not_by_g": (512, 256
 
 
 def loop_call(name, x, codes, scales, bk, g):
-    """``sep``/``sep1``, ``int4`` or ``slabstream`` on ``x`` with ``codes``
-    [K, N] packed by the port, the lab's tables and ``scales``, at ``bk``
+    """``sep``/``sep1``, ``int4``, ``slabstream``, ``pfdirect`` or ``w3wide``
+    on ``x`` with ``codes`` [K, N] packed by the port (``w3wide``: 3-bit
+    codes in the wide layout), the lab's tables and ``scales``, at ``bk``
     and ``g``."""
     c = torch.from_numpy(codes)
     if name == "int4":
         return ops2.int4(x, packing.pack_plane(c, 4), scales, M, BN, bk, g,
                          kernel_lab2.INT4_ZERO, kernel_lab2.INT4_DELTA)
-    if name == "slabstream":
-        return ops2.slabstream(x, packing.pack_plane(c, 4), scales,
-                               torch.from_numpy(np.array(jnf.nf_values(4))), M, BN, bk, g)
+    if name in ("slabstream", "pfdirect"):
+        return ops2.FUNCTIONS[name](x, packing.pack_plane(c, 4), scales,
+                                    torch.from_numpy(np.array(jnf.nf_values(4))), M, BN, bk, g)
+    if name == "w3wide":
+        return ops2.w3wide(x, [packing.pack_w3_wide(c)], scales,
+                           torch.from_numpy(np.array(jnf.nf_values(3))), M, BN, bk, g)
     return ops2.sep(x, packing.pack_plane(c & 3, 2), packing.pack_plane(c >> 2, 2), scales,
                     torch.from_numpy(kernel_lab2.SEP_A), torch.from_numpy(kernel_lab2.SEP_B),
                     M, BN, bk, g, name == "sep1")
 
 
 @pytest.mark.parametrize("case", list(LOOP_REFUSALS))
-@pytest.mark.parametrize("name", ["sep", "int4", "slabstream"])
+@pytest.mark.parametrize("name", ["sep", "int4", "slabstream", "pfdirect", "w3wide"])
 def test_loop_refuses_before_launch(name, case):
     g, bk = LOOP_REFUSALS[case]
     x = torch.zeros(M, 512, dtype=torch.bfloat16)
@@ -348,7 +352,7 @@ def test_loop_refuses_before_launch(name, case):
     assert ops2.LAUNCHES == launches and ops2.LAST_PATH == paths
 
 
-@pytest.mark.parametrize("name", ["sep", "sep1", "int4", "slabstream"])
+@pytest.mark.parametrize("name", ["sep", "sep1", "int4", "slabstream", "pfdirect", "w3wide"])
 def test_cpu_calls_run_the_plain_version(inputs, name):
     """On the CPU a wrapper runs its plain version: no launch is counted and
     no path is recorded."""
@@ -361,15 +365,18 @@ def test_cpu_calls_run_the_plain_version(inputs, name):
 
 @pytest.mark.parametrize("name,g", [("int4", 16), ("int4", 32), ("int4", 512), ("sep", 32),
                                     ("sep", 512), ("sep1", 32), ("sep1", 512),
-                                    ("slabstream", 32), ("slabstream", 512)])
+                                    ("slabstream", 32), ("slabstream", 512), ("pfdirect", 16),
+                                    ("pfdirect", 32), ("pfdirect", 512), ("w3wide", 16),
+                                    ("w3wide", 32), ("w3wide", 512)])
 def test_loop_other_group_sizes_vs_jax(jax_lab, interpret, wrap, name, g):
     """The loop's plain versions against the JAX lab at its other group
     sizes: one k16 step a group (16), two groups a field of a 4-bit plane
-    (32; one field of a 2-bit plane spans 32 K rows), a group wider than a
-    chunk (512). sep's and slabstream's raw fields index their gathers: the
-    v5e's wrap is modelled."""
+    (32; one field of a 2-bit plane spans 32 K rows, one of the wide 3-bit
+    layout 16), a group wider than a chunk (512). sep's, slabstream's,
+    pfdirect's and w3wide's raw fields index their gathers: the v5e's wrap
+    is modelled."""
     rng = np.random.default_rng(g)
-    codes = rng.integers(0, 16, size=(K, N), dtype=np.int32)
+    codes = rng.integers(0, 8 if name == "w3wide" else 16, size=(K, N), dtype=np.int32)
     scales = rng.uniform(0.5, 1.5, (K // g, N)).astype(np.float32)
     x = rng.standard_normal((M, K)).astype(np.float32)
     pack = functools.partial(jpacking.pack_np, use_native=False)
@@ -378,9 +385,13 @@ def test_loop_other_group_sizes_vs_jax(jax_lab, interpret, wrap, name, g):
     if name == "int4":
         want = jax_lab.run_int4(jx, [jnp.asarray(q) for q in pack(codes, 4)], js, M, BN, bk, g,
                                 kernel_lab2.INT4_ZERO, kernel_lab2.INT4_DELTA)
-    elif name == "slabstream":
-        want = jax_lab.run_slabstream(jx, [jnp.asarray(q) for q in pack(codes, 4)], js,
-                                      jnf.nf_values(4), M, BN, bk, g)
+    elif name in ("slabstream", "pfdirect"):
+        run = jax_lab.run_slabstream if name == "slabstream" else jax_lab.run_pfdirect
+        want = run(jx, [jnp.asarray(q) for q in pack(codes, 4)], js, jnf.nf_values(4), M, BN,
+                   bk, g)
+    elif name == "w3wide":
+        want = jax_lab.run_w3wide(jx, [jnp.asarray(q) for q in jax_lab.pack_w3wide_np(codes)],
+                                  js, jnf.nf_values(3), M, BN, bk, g)
     else:
         want = jax_lab.run_sep(jx, [jnp.asarray(q) for q in pack(codes & 3, 2)],
                                [jnp.asarray(q) for q in pack(codes >> 2, 2)], js,
