@@ -52,25 +52,28 @@ Phases (any failure exits non-zero):
      counts set to 0 just before and read just after (each function exactly
      its variants' calls: a check call, bench_op's first calls and its graph's
      launches; gather8 and pairlut as many of K2 and K4, no other package
-     kernel), and no lab kernel launched in phases 3-5; L1 (floor, at every
-     g: it reads no scales), L3 (gather16), L4 (g8_ablate, its five
-     variants), L5 (g8_rs, both scale modes) and L6 (g8_hoist) run the
-     lab's tensor-core loop (path "mma", each function's path recorded),
-     L2 SIMT; one mma.sync of bf16 subnormal operands keeps them and their
-     f32 products exactly (the probe); then each of its 12 cases is held
+     kernel), and no lab kernel launched in phases 3-5; L1 (floor) and L2
+     (unpack_only), at every g (they read no scales), L3 (gather16), L4
+     (g8_ablate, its five variants), L5 (g8_rs, both scale modes) and L6
+     (g8_hoist) run the lab's tensor-core loop (path "mma", each function's
+     path recorded); one mma.sync of bf16 subnormal operands keeps them,
+     their f32 products and sums of 16 subnormal products exactly (the
+     probe, before L2's checks, so that a flush is named as the tensor
+     core's); then each of its 12 cases is held
      against its plain version on the card at that shape and at bk 256 on a
      narrow N (relative Frobenius error under 1.1e-2; floor on planes
      masked to finite bf16 halves; unpack_only, whose operand is subnormal,
      to 1.1e-2 of the largest output) and with an identity x bit for bit
      (floor also at bk 1024, where its x map is not the identity), the
      loop's cases also called twice for the same bits, and at g = 2 (floor
-     on the loop, the others on their SIMT kernel); L5 and L3 (tables in
+     and unpack_only on the loop, the others on their SIMT kernel); L5 and L3 (tables in
      shared memory) give the bits of their register twins L6 and L4 full;
      the plain versions and a yardstick (one bf16 torch.matmul of x on the
      pre-dequantized [8192, 28672] weight) are timed beside the kernels,
      L2-cold, in CUDA graphs, and each loop variant's time over floor's
      (the loop's staging floor) is printed per decode instruction a B
-     register;
+     register, beside floor timed at bk 256 (its x map the identity) and
+     on planes masked to L2's operand statistics;
   2c. the lab's second half (L7-L12 of csrc/kernel_lab2.cu): its entry
      point, flute_tpu_torch.lab.kernel_lab2.main, runs every variant at the
      JAX lab2's default shape (M16 N28672 K8192, bn 2048, bk 2048, g64,
@@ -967,25 +970,31 @@ LAB_ITERS = 24  # the lab's --iters: launches per timed CUDA graph (at least)
 # instructions a B register that a loop variant adds to floor's none,
 # counted in its decoder's CUDA source (csrc/kernel_lab.cu), not in the
 # SASS that ptxas makes of it: HalfDecoder's lookup 3, HoistDecoder's 6,
-# Gather16Decoder's 7, and one __hmul2 with "expand": the variants whose
+# Gather16Decoder's 7, UnpackDecoder's 4 (3 of them the word's, the same in
+# each of its 4 fields), and one __hmul2 with "expand": the variants whose
 # only work over floor's is their decode
-DECODE_INSTRUCTIONS = {"g8_bare": 3, "g8_nochain": 4, "g8_wrap": 4, "g8_noscale": 6,
-                       "g8_full": 7, "gather16": 8}
+# keeps the low nibble of each bf16 half of a plane word: floor's operand
+# then has L2's statistics
+L2_HALVES = 0x000F000F
+DECODE_INSTRUCTIONS = {"unpack": 4, "g8_bare": 3, "g8_nochain": 4, "g8_wrap": 4,
+                       "g8_noscale": 6, "g8_full": 7, "gather16": 8}
 
 
 def mma_probe_check() -> dict:
     """The tensor core on subnormals (lab.probe_subnormals): the f32 outputs
-    are the exact values and round to the operands' bf16 bits. Fails on a
-    flush to zero."""
+    are the exact values and round to the operands' bf16 bits, and a k16
+    step's sum of 16 subnormal products is exact (L2's whole operand is
+    subnormal). Fails on a flush to zero or a truncated sum."""
     from flute_tpu_torch.lab import ops as lab
 
     out = lab.probe_subnormals(torch.device("cuda"))
     kept, products = out["operands_kept"], out["subnormal_products_kept"]
+    sums = out["subnormal_sums_kept"]
     log(f"  the tensor core on subnormals: bf16 {out['operand_bits']} times 1 gives "
         f"{out['outputs']} (kept: {kept}); 2^-100 x ~2^-40 gives {out['products']} "
-        f"(kept: {products})")
-    if not (kept and products):
-        raise AssertionError(f"mma.sync flushes subnormals: {out}")
+        f"(kept: {products}); sums of 16 subnormal products {out['sums']} (exact: {sums})")
+    if not (kept and products and sums):
+        raise AssertionError(f"mma.sync flushes or truncates subnormals: {out}")
     return out
 
 
@@ -1005,14 +1014,20 @@ def lab_check(fn, flags, x, planes, scales, table, bn, bk, name, label):
     if not torch.isfinite(got.float()).all():
         raise AssertionError(f"lab {name} {label}: non-finite output")
     max_abs = float((got.float() - want.float()).abs().max())
-    if fn == "unpack_only":
-        err = max_abs / float(want.float().abs().max())
-    else:
-        err = rel_err(got, want)
+    err = lab_err(fn, got, want)
     if not err < THRESHOLDS[torch.bfloat16]:
         raise AssertionError(f"lab {name} {label}: error {err}")
     return dict(variant=name, function=fn, case=label, path=path, rel_err=err,
                 max_abs_err=max_abs)
+
+
+def lab_err(fn, got, want) -> float:
+    """A lab case's error against its plain version: relative Frobenius
+    error, or for unpack_only, whose operand is subnormal, the largest error
+    over the largest output."""
+    if fn == "unpack_only":
+        return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+    return rel_err(got, want)
 
 
 def phase_lab(dev, results):
@@ -1104,7 +1119,7 @@ def phase_lab(dev, results):
     log(f"  the shared-memory tables give their register twins' bits: {LAB_TWINS}")
     # g = 2 puts no k16 step inside one group: the loop's functions that
     # read scales run their SIMT kernel, chosen from g before the launch;
-    # floor reads none and stays on the loop
+    # floor and unpack_only read none and stay on the loop
     _, p2, s2, t2, x2 = kernel_lab.make_inputs(m, LAB_NARROW_N, 1024, 4, 2, device=dev)
     simt = {}
     for name, (fn, flags) in kernel_lab.VARIANTS.items():
@@ -1113,12 +1128,12 @@ def phase_lab(dev, results):
         q2 = [lab.finite_halves(p2[0])] if fn == "floor" else p2
         got = lab.run(fn, x2, q2, s2, t2, m, LAB_NARROW_N, 256, 2, **flags)
         path = lab.LAST_PATH[fn]
-        err = rel_err(got, lab.plain(fn, x2, q2, s2, t2, m, LAB_NARROW_N, 256, 2, **flags))
+        err = lab_err(fn, got, lab.plain(fn, x2, q2, s2, t2, m, LAB_NARROW_N, 256, 2, **flags))
         if path != lab.path_of(fn, 2) or not err < THRESHOLDS[torch.bfloat16]:
             raise AssertionError(f"lab {name} at g = 2: path {path}, error {err}")
         simt[name] = dict(path=path, rel_err=err)
     del p2, s2, t2, x2
-    log(f"  at g = 2 the loop's variants run SIMT, floor the loop, within "
+    log(f"  at g = 2 the loop's variants run SIMT, floor and unpack_only the loop, within "
         f"{max(v['rel_err'] for v in simt.values()):.2e} of their plain versions "
         f"(M{m} N{LAB_NARROW_N} K1024 bk 256): "
         f"{ {name: v['path'] for name, v in simt.items()} }")
@@ -1147,7 +1162,7 @@ def phase_lab(dev, results):
         # what the function reads: floor and unpack_only read no scales or
         # table, g8_noscale and g8_bare no scales
         nbytes = sum(q.numel() * 4 for q in planes) + xy_bytes
-        if fn not in ("floor", "unpack_only"):
+        if fn not in lab.UNSCALED:
             nbytes += table.numel() * 4 + (scales.numel() * 2 if flags.get("scale", True) else 0)
         t_bytes = nbytes / HBM_BYTES_PER_S
         row = by_name[name]
@@ -1167,8 +1182,17 @@ def phase_lab(dev, results):
     t_fin = bench_op(lambda q, s: lab.floor(x, q, s, m, n, bk, g), fin, min_launches=24)
     floor = next(c for c in cases if c["variant"] == "floor")
     floor["finite_planes_us"] = t_fin * 1e6
-    log(f"    floor on finite planes: kernel {t_fin * 1e6:8.1f} us")
-    del fin
+    # at bk 256 floor's x map is the identity (L2's K order): what the map
+    # costs at the lab's bk; and floor on planes masked to L2's operand
+    # statistics (each half a 4-bit code as a bf16 subnormal, as L2's B
+    # registers' halves are): what L2's operand, not its decoder, costs
+    t_256 = bench_op(lambda q, s: lab.floor(x, q, s, m, n, 256, g), args, min_launches=24)
+    sub = [([q[0] & L2_HALVES], s) for q, s in args]
+    t_sub = bench_op(lambda q, s: lab.floor(x, q, s, m, n, bk, g), sub, min_launches=24)
+    floor.update(bk256_us=t_256 * 1e6, l2_operand_us=t_sub * 1e6)
+    log(f"    floor on finite planes: kernel {t_fin * 1e6:8.1f} us; at bk 256 "
+        f"{t_256 * 1e6:8.1f} us; on L2's operand statistics {t_sub * 1e6:8.1f} us")
+    del fin, sub
     # the loop's staging floor: each loop variant's time over floor's, and
     # per decode instruction a B register where the decode is all it adds
     staging = {}

@@ -46,11 +46,12 @@
 //                runs too), gather16 the 16 entries in shared memory
 //                (Gather16Decoder).
 //
-// Numerics: the SIMT kernel takes IEEE f32 FMAs with no flush to zero:
-// unpack_only's operand is subnormal, and about one in 128 of floor's
-// finite halves is, so the build must never add --use_fast_math or
-// -ftz=true. The tensor-core loop sums each k16 step in the tensor core's
-// f32, which keeps subnormal bf16 operands and f32 products (the card test
+// Numerics: the SIMT kernel takes IEEE f32 FMAs with no flush to zero, and
+// so does the tensor-core loop: unpack_only's operand is subnormal, and
+// about one in 128 of floor's finite halves is, so the build must never add
+// --use_fast_math or -ftz=true. The loop sums each k16 step in the tensor
+// core's f32, which keeps subnormal bf16 operands, f32 subnormal products
+// and a step's sum of 16 subnormal products (the card test
 // test_lab_mma_keeps_subnormals, with flute_lab_mma_probe below), and
 // scales a group's partial once, or rounds bf16(T[c]) * s once in the B
 // register (lab_mma.cuh). With x the identity every output is one product,
@@ -61,24 +62,25 @@
 // FMAs (2*M*N*K) are 0.11 ms at the f32 rate, far above the bytes, so a
 // simple design is bound by how many loads it keeps in flight.
 //
-// Two designs. floor, at every group size (it reads no scales), and
-// gather16, g8_ablate, g8_rs and g8_hoist, at a group size that is a
-// multiple of 16, run the lab's tensor-core loop (lab_mma.cuh, with the
-// decoders below): plane words and x staged per chunk in a cp.async ring,
-// each field decoded straight into an mma.sync B register (floor: the word
-// itself, with the chunk's x taken from the four stretches of the K block
-// that its words feed); group_acc's partials per group in f32 scaled on the
-// C fragment; "repeat"'s scales applied in the B register from the K
+// Two designs. floor and unpack_only, at every group size (they read no
+// scales), and gather16, g8_ablate, g8_rs and g8_hoist, at a group size
+// that is a multiple of 16, run the lab's tensor-core loop (lab_mma.cuh,
+// with the decoders below): plane words and x staged per chunk in a
+// cp.async ring, each field decoded straight into an mma.sync B register
+// (floor: the word itself, with the chunk's x taken from the four stretches
+// of the K block that its words feed; unpack_only: the field's two nibbles
+// spread to the two halves); group_acc's partials per group in f32 scaled
+// on the C fragment; "repeat"'s scales applied in the B register from the K
 // block's scale rows staged in shared memory; gather16's and g8_ablate's
 // scale applied in the B register from the open group's row ("expand"), or
-// none read; split-K at multiples of lcm(256, g) (floor: of the chunk),
-// reduced in split order. unpack_only, and the four at any other (even)
-// group size, run the SIMT kernel below, on K1's first skeleton
-// (csrc/lut_gemm_common.cuh): one lane per output column (32 columns per
-// block), eight warps splitting each K block's word rows, the block's 16
-// rows of x for one K block staged in shared memory as f32 (read as float2
-// broadcasts), the 16-entry table rounded to bf16 in shared memory,
-// fixed-order warp sums, no atomics.
+// none read; split-K at multiples of lcm(256, g) (floor and unpack_only: of
+// the chunk), reduced in split order. The four that read scales, at any
+// other (even) group size, run the SIMT kernel below, on K1's first
+// skeleton (csrc/lut_gemm_common.cuh): one lane per output column (32
+// columns per block), eight warps splitting each K block's word rows, the
+// block's 16 rows of x for one K block staged in shared memory as f32 (read
+// as float2 broadcasts), the 16-entry table rounded to bf16 in shared
+// memory, fixed-order warp sums, no atomics.
 
 #include "lab_decoders.cuh"
 #include "lab_mma.cuh"
@@ -96,7 +98,7 @@ constexpr int kChunk = 256;               // the lab's pack chunk
 constexpr int kChunkWords = kChunk / 8;   // word rows per chunk
 constexpr int kChunkPairs = kChunk / 2;   // pair rows per chunk
 
-enum Mode { kUnpack, kGather16, kAblate, kRs, kHoist };
+enum Mode { kGather16, kAblate, kRs, kHoist };
 
 // copies of L5's pair table (PairTableDecoder) beside each scaling: as many
 // as leave four blocks an SM
@@ -130,6 +132,37 @@ struct WordDecoder {
                                         uint32_t (&b)[1][2]) const {
     b[0][0] = w[0];
     b[0][1] = w[1];
+  }
+};
+
+// L2 on the tensor-core loop: the codes themselves as bf16 bit patterns, no
+// table and no scales. Field i of word row j is pair row 32 i + j, the
+// loop's own K order (no x map), and a field's byte f = ce | co << 4 becomes
+// the B register ce | co << 16 (the even K row in the low half, as
+// pltpu.bitcast lays it out). A word's nibbles are split once for its four
+// fields (lo: every byte's ce, hi: every byte's co); then one prmt a field
+// takes byte i of each, and fills the bytes between with the sign of a byte
+// below 0x80 (prmt's sign mode, selector bit 3): zero. 4 source instructions
+// a B register, 3 of them the word's, the same in each of its 4 fields. It
+// holds the split nibbles of a chunk's words (116 registers, no spill), and
+// on the H100 it ran 4 us faster at the lab's shape than two forms of 3
+// instructions a register that ptxas shares less of (prmt of w and w >> 4
+// then a mask; the byte zero-extended, f | f << 12, a mask).
+struct UnpackDecoder {
+  static constexpr int kPlanes = 1, kFieldBits = 8, kProducts = 1;
+  static constexpr int kTableWords = 0;  // no table
+
+  __device__ explicit UnpackDecoder(const labmma::Args&) {}
+
+  __device__ __forceinline__ void pairs(const uint32_t (&w)[2], int i,
+                                        uint32_t (&b)[1][2]) const {
+    // bytes: lo's i, the sign of lo's i (0), hi's i, the sign of hi's i (0)
+    const uint32_t sel = i | (8 + i) << 4 | (4 + i) << 8 | (12 + i) << 12;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const uint32_t lo = w[r] & 0x0F0F0F0Fu, hi = (w[r] >> 4) & 0x0F0F0F0Fu;
+      asm("prmt.b32 %0, %1, %2, %3;\n" : "=r"(b[0][r]) : "r"(lo), "r"(hi), "r"(sel));
+    }
   }
 };
 
@@ -264,7 +297,7 @@ lab_kernel(const bf16* __restrict__ x, const uint32_t* __restrict__ plane,
   const int warp = threadIdx.x >> 5;
   const int n = blockIdx.x * kBlockN + lane;
   const int m0 = blockIdx.y * kBM;
-  if (MODE >= kGather16 && threadIdx.x < 16) tab[threadIdx.x] = rnd(table[threadIdx.x]);
+  if (threadIdx.x < 16) tab[threadIdx.x] = rnd(table[threadIdx.x]);
 
   float acc[kBM];
 #pragma unroll
@@ -290,10 +323,7 @@ lab_kernel(const bf16* __restrict__ x, const uint32_t* __restrict__ plane,
         const int k0 = 2 * (c * kChunkPairs + i * kChunkWords + j);  // even K row in the block
         const int group = static_cast<int>((kbase + k0) / g);       // its scale row
         float we, wo;
-        if (MODE == kUnpack) {
-          we = __uint_as_float(ce << 16);
-          wo = __uint_as_float(co << 16);
-        } else if (MODE == kGather16) {
+        if (MODE == kGather16) {
           const float s = scale_at(scales, group, N, n);
           we = rnd(tab[ce] * s);
           wo = rnd(tab[co] * s);
@@ -349,13 +379,9 @@ int launch(const void* x, const void* plane, const void* scales, const void* tab
 }  // namespace
 
 // All pointers are device pointers: x [M, K], scales [K/g, N] and y [M, N]
-// bf16, plane [K/8, N] int32, table [16] float32. Each kernel runs on
-// `stream` and is not synchronised. Returns the cudaError_t of the launch.
-// floor and unpack_only read neither scales nor table.
-extern "C" int flute_lab_unpack_only(const void* x, const void* plane, void* y, int M, int N,
-                                     int K, int bk, void* stream) {
-  return launch<kUnpack>(x, plane, nullptr, nullptr, y, M, N, K, bk, bk, 0, 0, 0, stream);
-}
+// bf16, plane [K/8, N] int32, table [16] float32, work f32. Each kernel
+// runs on `stream` and is not synchronised. Returns the cudaError_t of the
+// launch. floor and unpack_only read neither scales nor table.
 
 // The operands of a loop call that the lab's checks make (bk a multiple of
 // the chunk and of g, dividing K) as Args; false where the loop cannot
@@ -379,6 +405,17 @@ extern "C" int flute_lab_floor(const void* x, const void* plane, void* y, void* 
   if (!loop_args(a, x, plane, nullptr, nullptr, y, work, M, N, K, bk, kChunk, bk, splits))
     return cudaErrorInvalidValue;
   return labmma::run<WordDecoder, labmma::kNone>(a, splits, static_cast<cudaStream_t>(stream));
+}
+
+// unpack_only runs the tensor-core loop at every call too (UnpackDecoder,
+// no scales, no table; `splits` and `work` as floor's): it takes no g, and
+// its K order is the loop's own, so bk only checks the tiling.
+extern "C" int flute_lab_unpack_only(const void* x, const void* plane, void* y, void* work,
+                                     int M, int N, int K, int bk, int splits, void* stream) {
+  labmma::Args a;
+  if (!loop_args(a, x, plane, nullptr, nullptr, y, work, M, N, K, bk, kChunk, 0, splits))
+    return cudaErrorInvalidValue;
+  return labmma::run<UnpackDecoder, labmma::kNone>(a, splits, static_cast<cudaStream_t>(stream));
 }
 
 // A g that is a multiple of 16 runs the tensor-core loop (Gather16Decoder,
@@ -471,6 +508,7 @@ namespace {
 // every instantiation of the loop in this library
 const labmma::Instance kLoops[] = {
     labmma::instance<WordDecoder, labmma::kNone>("WordDecoder"),
+    labmma::instance<UnpackDecoder, labmma::kNone>("UnpackDecoder"),
     labmma::instance<HoistDecoder, labmma::kExpand>("HoistDecoder"),
     labmma::instance<HoistDecoder, labmma::kNone>("HoistDecoder"),
     labmma::instance<HalfDecoder, labmma::kExpand>("HalfDecoder"),

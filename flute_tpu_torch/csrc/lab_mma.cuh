@@ -1,18 +1,21 @@
 // The Hopper lab's tensor-core loop (sm_90a): a group-accumulating
 // mma.sync LUT-GEMM over the lab's pair planes, shared by L1
-// (kernel_lab.cu, flute_lab_floor: scripts/kernel_lab.py:79 run_floor), L3
-// (flute_lab_gather16: :212 run_gather16), L4 (flute_lab_g8_ablate: :413
-// run_g8_ablate), L5 (flute_lab_g8_rs: :501 run_g8_rs), L6
-// (flute_lab_g8_hoist: :590 run_g8_hoist), L8 (kernel_lab2.cu,
-// flute_lab2_pfdirect: scripts/kernel_lab2.py:135 run_pfdirect), L9
-// (flute_lab2_sep: :234 run_sep), L10 (flute_lab2_int4: :290 run_int4), L11
+// (kernel_lab.cu, flute_lab_floor: scripts/kernel_lab.py:79 run_floor), L2
+// (flute_lab_unpack_only: :124 run_unpack), L3 (flute_lab_gather16: :212
+// run_gather16), L4 (flute_lab_g8_ablate: :413 run_g8_ablate), L5
+// (flute_lab_g8_rs: :501 run_g8_rs), L6 (flute_lab_g8_hoist: :590
+// run_g8_hoist), L8 (kernel_lab2.cu, flute_lab2_pfdirect:
+// scripts/kernel_lab2.py:135 run_pfdirect), L9 (flute_lab2_sep: :234
+// run_sep), L10 (flute_lab2_int4: :290 run_int4), L11
 // (flute_lab2_slabstream: :483 run_slabstream) and L12 (flute_lab2_w3wide:
 // :585 run_w3wide), each with its own decoder: L4, L6, L9 and L10 hold their
 // tables in registers, L3, L5, L8, L11 and L12 in shared memory (L5 and L11
 // one decoder, lab_decoders.cuh; L8 the same with its B registers passed
 // through a tile in shared memory; L12 a pair table of the wide 3-bit
-// layout, 24 word rows a chunk), and L1 decodes nothing: its words are the
-// B registers, so it measures what the staging alone costs. The served loop
+// layout, 24 word rows a chunk), and L1 and L2 decode no table: L1's words
+// are the B registers, so it measures what the staging alone costs, and L2
+// spreads a field's two nibbles to the two halves, so it measures what
+// unpacking a 4-bit pair field costs on top of that. The served loop
 // (lut_gemm_mma.cuh::lut_mma_kernel) is not touched; its helpers are reused.
 //
 //   y[M, N] = bf16(sum over groups of (x_g @ W_g) * s_g)      (group_acc)
@@ -44,7 +47,8 @@
 //   j of chunk cc of K block kb feeds K rows kb bk + 64 cc + 2j + {0, 1} +
 //   t bk/4, t = 0..3 (pltpu.repeat tiles the block's words 4 times), so its
 //   slot columns 64 i .. 64 i + 63 take the stretch t = i of the block. A
-//   stretch is 128 bytes: no 16-byte copy straddles two.
+//   stretch is 128 bytes: no 16-byte copy straddles two. (L2 reads the
+//   same words in the loop's own K order: no map.)
 // * One k16 step lies inside one group. A lane (g = lane / 4, t = lane % 4)
 //   reads the slot's word rows 4v + t, v < kWordRows / 4 (8, or 6 for the
 //   wide 3-bit layout): the first 8 / planes of them from each plane, so it
@@ -105,9 +109,9 @@
 //   columns are staged in shared memory (4 KB at bk 1024, g 64) when the K
 //   block starts, prefetched into L2 a chunk early.
 // * Split-K only at multiples of lcm(chunk, g) K rows, so a group never
-//   straddles two splits (L1 reads no scales: its unit is the chunk, any
-//   chunk boundary, since its x map follows from a chunk's index and bk
-//   alone); the splits' f32 sums go to a workspace [splits, M, N] that
+//   straddles two splits (L1 and L2 read no scales: their unit is the
+//   chunk, any chunk boundary, since L1's x map follows from a chunk's
+//   index and bk alone); the splits' f32 sums go to a workspace [splits, M, N] that
 //   split_reduce_kernel adds in split order (no atomics: a repeat call gives
 //   the same bits). The split is planned from N, K and g
 //   (flute_tpu_torch/lab/ops.py::lab_splits).
@@ -117,8 +121,9 @@
 // to zero, no atomics. Against the plain versions, which sum in another f32
 // order, results agree within the bf16 threshold; with x the identity every
 // output is one product, so they agree bit for bit. (L1's operand holds
-// subnormal bf16 halves, which the tensor core keeps: the card test
-// test_lab_mma_keeps_subnormals.)
+// subnormal bf16 halves and L2's is all subnormal; the tensor core keeps
+// subnormal operands, products and a step's sum of 16 subnormal products:
+// the card test test_lab_mma_keeps_subnormals.)
 //
 // A Decoder provides
 //   kPlanes                    planes it reads: 1 (a 4-bit pair plane

@@ -12,6 +12,8 @@ Variants (the names of the JAX lab's ``main``):
                words are the B registers as they stand: the loop's staging
                alone. Real planes give non-finite outputs; only timed.
   unpack       L2: shifts and masks only, the codes used as bit patterns.
+               On the lab's tensor-core loop at every g: floor's staging plus
+               the unpack of each 4-bit pair field, with no lookup.
   gather16     L3: the reference dequantization, x split in even/odd K.
   g8_full, g8_nochain, g8_wrap, g8_noscale, g8_bare
                L4: the 8-entry lookup with or without the group select
@@ -21,8 +23,7 @@ Variants (the names of the JAX lab's ``main``):
                L5: scales tiled per K block, or per-group sums times s.
   g8_hoist, g8_hoist_ga
                L6: L5 with both table halves read for every code, on the
-               lab's tensor-core loop (as L1 and L3-L5; L2 runs a SIMT
-               kernel).
+               lab's tensor-core loop (as L1-L5).
   gather8      K2, the package's plane kernel (``lut_qgemm``).
   pairlut      K4, ``lut_qgemm`` with ``lut_mode="pair_lut"``.
 

@@ -36,14 +36,15 @@ where said. Dispatch is by ``x``'s device: on the CPU the plain PyTorch
 version, on CUDA the Hopper kernel of ``csrc/kernel_lab.cu`` (one C entry per
 function), which raises if it cannot be built or launched.
 
-Two kernel designs: ``floor`` at every group size (it reads no scales, and
-its words are the loop's B registers as they stand), and ``gather16``,
-``g8_ablate``, ``g8_rs`` and ``g8_hoist`` at a group size that is a multiple
-of 16, run the lab's tensor-core loop (``csrc/lab_mma.cuh``, path ``"mma"``,
-with a split-K that :func:`lab_splits` chooses from N, K and g, floor's
-from the chunk; ``g8_ablate`` and ``g8_hoist`` hold the
-table in registers, ``g8_rs`` FLUTE's pair table and ``gather16`` the 16
-entries in shared memory); every other call the SIMT kernel (path
+Two kernel designs: ``floor`` and ``unpack_only`` at every group size (they
+read no scales; floor's words are the loop's B registers as they stand,
+unpack_only spreads each field's two nibbles to the two halves of one), and
+``gather16``, ``g8_ablate``, ``g8_rs`` and ``g8_hoist`` at a group size that
+is a multiple of 16, run the lab's tensor-core loop (``csrc/lab_mma.cuh``,
+path ``"mma"``, with a split-K that :func:`lab_splits` chooses from N, K and
+g, floor's and unpack_only's from the chunk; ``g8_ablate`` and ``g8_hoist``
+hold the table in registers, ``g8_rs`` FLUTE's pair table and ``gather16``
+the 16 entries in shared memory); every other call the SIMT kernel (path
 ``"simt"``). The path is chosen from the function and g before the launch
 (:func:`path_of`), never after a failure, and :data:`LAST_PATH` records the
 path of each function's last launch. Neither path falls back to the plain
@@ -242,11 +243,11 @@ def lab_path(g: int) -> str:
 
 def path_of(fn: str, g: int, mma_functions: Sequence[str] | None = None) -> str:
     """The path kernel lab function ``fn`` runs at group size ``g``: floor
-    reads no scales, so the loop takes it at every g; the other functions
-    with a tensor-core path (``mma_functions``: this lab's
-    :data:`MMA_FUNCTIONS` unless the second lab passes its own) follow
-    :func:`lab_path`; the rest run SIMT."""
-    if fn == "floor":
+    and unpack_only read no scales (:data:`UNSCALED`), so the loop takes
+    them at every g; the other functions with a tensor-core path
+    (``mma_functions``: this lab's :data:`MMA_FUNCTIONS` unless the second
+    lab passes its own) follow :func:`lab_path`; the rest run SIMT."""
+    if fn in UNSCALED:
         return "mma"
     return lab_path(g) if fn in (mma_functions or MMA_FUNCTIONS) else "simt"
 
@@ -267,6 +268,14 @@ def lab_splits(n: int, k: int, g: int) -> int:
                 if units % s == 0 and (cols * s >= MMA_TARGET_BLOCKS or s == units))
 
 
+def launch_splits(fn: str, n: int, k: int, g: int) -> int:
+    """The split a launch of this lab's function ``fn`` takes: the
+    :data:`UNSCALED` functions read no scales (and floor's x map follows a
+    chunk's index and bk alone), so any chunk boundary may split them at
+    every g; the others split at multiples of ``lcm(256, g)``."""
+    return lab_splits(n, k, CHUNK if fn in UNSCALED else g)
+
+
 def loop_operands(x: torch.Tensor, path: str, splits: int, n: int):
     """``x`` on a 16-byte boundary where the loop runs (``path`` ``"mma"``: it
     copies x in 16-byte pieces), and the loop's f32 workspace ``[splits, M,
@@ -285,17 +294,20 @@ def loop_operands(x: torch.Tensor, path: str, splits: int, n: int):
 # function -> (C entry, pointer arguments, int arguments) before the stream:
 # x, plane[, scales, table], y[, work], then M, N, K, bk[, g[, flags]][,
 # splits] (the functions with a tensor-core path: the loop's workspace and
-# splits; floor takes no g)
+# splits; floor and unpack_only take no g)
 _ENTRIES = {
     "floor": ("flute_lab_floor", 4, 5),
-    "unpack_only": ("flute_lab_unpack_only", 3, 4),
+    "unpack_only": ("flute_lab_unpack_only", 4, 5),
     "gather16": ("flute_lab_gather16", 6, 6),
     "g8_ablate": ("flute_lab_g8_ablate", 6, 8),
     "g8_rs": ("flute_lab_g8_rs", 6, 7),
     "g8_hoist": ("flute_lab_g8_hoist", 6, 7),
 }
 # the functions with a tensor-core path
-MMA_FUNCTIONS = ("floor", "gather16", "g8_ablate", "g8_rs", "g8_hoist")
+MMA_FUNCTIONS = ("floor", "unpack_only", "gather16", "g8_ablate", "g8_rs", "g8_hoist")
+# those that read no scales (nor a table): on the loop at every g, split at
+# any chunk boundary
+UNSCALED = ("floor", "unpack_only")
 # lab_mma.cuh's Scaling, in its order
 LOOP_SCALINGS = ("group_acc", "affine", "repeat", "expand", "none")
 # each library of the loop's C entries: the prefix of its loop report
@@ -373,9 +385,7 @@ def _launch(name: str, x, plane, scales, table, bk: int, g: int, flags: tuple[in
     fn, error_string = _kernel_fn(name)
     path, work, tail = path_of(name, g), [], []
     if name in MMA_FUNCTIONS:
-        # floor reads no scales and its x map follows a chunk's index and
-        # bk alone: any chunk boundary may split it
-        splits = lab_splits(n, k, CHUNK if name == "floor" else g)
+        splits = launch_splits(name, n, k, g)
         x, ws = loop_operands(x, path, splits, n)
         work, tail = [None if ws is None else ws.data_ptr()], [splits]
     ptrs = [x.data_ptr(), plane.data_ptr()]
@@ -426,7 +436,7 @@ def _check(x, planes: Sequence[torch.Tensor], scales, table, bm, bn, bk, g):
         raise ValueError(
             f"M={m}, N={n}, K={k} do not tile by bm={bm}, bn={bn}, bk={bk} "
             f"(bk a multiple of {CHUNK} and of g={g}, at most {MAX_BLOCK_K})")
-    if table is None:  # floor and unpack_only read no table
+    if table is None:  # UNSCALED: no table
         return plane, scales, None
     table = torch.as_tensor(table, dtype=torch.float32).to(x.device)
     if tuple(table.shape) != (16,):
@@ -440,11 +450,15 @@ PROBE_SUBNORMALS = (0x0001, 0x007F, 0x8001, 0x0040)
 
 
 def probe_operands(device=None) -> list[tuple[torch.Tensor, torch.Tensor]]:
-    """The probe's two products, ``(a [16, 16], b [16, 8])`` bf16: the
+    """The probe's three products, ``(a [16, 16], b [16, 8])`` bf16: the
     identity times a B holding :data:`PROBE_SUBNORMALS` (columns 0, 3 and
     7) beside normal values, so each output is a subnormal operand times 1;
-    and ``2^-100`` times the identity against normal values near ``2^-40``,
-    whose f32 products are subnormal. Every output is exact in f32."""
+    ``2^-100`` times the identity against normal values near ``2^-40``,
+    whose f32 products are subnormal; and rows of ``2^-(m % 4)`` against a B
+    of bf16 subnormals only (columns 0-3 L2's codes 0..15, columns 4-7 any
+    magnitude 1..127 with either sign), so every output sums 16 subnormal
+    products, the tensor core's own sum inside one k16 step. Every output is
+    exact in f32 (the sums are multiples of ``2^-136`` below ``2^-122``)."""
     gen = torch.Generator().manual_seed(0)
     b = torch.randn(16, 8, generator=gen).to(torch.bfloat16)
     bits = b.view(torch.int16)
@@ -453,16 +467,23 @@ def probe_operands(device=None) -> list[tuple[torch.Tensor, torch.Tensor]]:
             bits[row + i, col] = pattern - (1 << 16 if pattern >= 1 << 15 else 0)
     eye = torch.eye(16, dtype=torch.bfloat16)
     small = (torch.rand(16, 8, generator=gen) + 1.0).mul(2.0**-40).to(torch.bfloat16)
-    return [(eye.to(device), b.to(device)), ((eye * 2.0**-100).to(device), small.to(device))]
+    rows = (2.0 ** -(torch.arange(16) % 4).float())[:, None].expand(16, 16).to(torch.bfloat16)
+    codes = torch.randint(0, 16, (16, 4), generator=gen)
+    wide = torch.randint(1, 128, (16, 4), generator=gen) | (
+        torch.randint(0, 2, (16, 4), generator=gen) << 15)
+    sub = torch.cat([codes, wide], dim=1).to(torch.int32).to(torch.int16).view(torch.bfloat16)
+    return [(eye.to(device), b.to(device)), ((eye * 2.0**-100).to(device), small.to(device)),
+            (rows.to(device), sub.to(device))]
 
 
 def mma_probe(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` for bf16 ``a [16, 16]`` and ``b [16, 8]`` as one
     ``mma.sync.m16n8k16`` with f32 sums from +0 (``flute_lab_mma_probe``):
-    what the tensor core does with subnormal bf16 operands and f32 products,
-    which floor's operand holds. On the CPU its plain version, the product in
-    f64 rounded to f32 (exact for :func:`probe_operands`). Replaces no TPU
-    kernel; no launch is counted."""
+    what the tensor core does with subnormal bf16 operands, f32 products and
+    sums of subnormal products, which floor's and unpack_only's operands
+    hold. On the CPU its plain version, the product in f64 rounded to f32
+    (exact for :func:`probe_operands`). Replaces no TPU kernel; no launch is
+    counted."""
     if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16 or tuple(a.shape) != (16, 16) \
             or tuple(b.shape) != (16, 8) or a.device != b.device:
         raise ValueError("the probe takes bf16 a [16, 16] and b [16, 8] on one device")
@@ -484,22 +505,25 @@ def mma_probe(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def probe_subnormals(device) -> dict:
-    """Both products of :func:`probe_operands` through :func:`mma_probe` on
-    ``device`` against its plain version on the CPU, bit for bit: whether
+    """The three products of :func:`probe_operands` through :func:`mma_probe`
+    on ``device`` against its plain version on the CPU, bit for bit: whether
     the bf16 subnormal operands come out exactly, and round back to their
-    bf16 bits (``operands_kept``), and whether the f32 subnormal products do
-    (``subnormal_products_kept``); with the first column's operand bits,
-    outputs and products for a report."""
-    (eye, b), (tiny, small) = probe_operands(device)
-    d, d2 = mma_probe(eye, b).cpu(), mma_probe(tiny, small).cpu()
-    want, want2 = mma_probe(eye.cpu(), b.cpu()), mma_probe(tiny.cpu(), small.cpu())
+    bf16 bits (``operands_kept``), whether the f32 subnormal products do
+    (``subnormal_products_kept``), and whether the sums of 16 subnormal
+    products do (``subnormal_sums_kept``); with the first column's operand
+    bits, outputs, products and sums for a report."""
+    (eye, b), (tiny, small), (rows, sub) = probe_operands(device)
+    d, d2, d3 = mma_probe(eye, b).cpu(), mma_probe(tiny, small).cpu(), mma_probe(rows, sub).cpu()
+    want, want2, want3 = (mma_probe(p.cpu(), q.cpu()) for p, q in probe_operands())
     kept = torch.equal(d.view(torch.int32), want.view(torch.int32)) and torch.equal(
         d.bfloat16().view(torch.int16), b.cpu().view(torch.int16))
     products = torch.equal(d2.view(torch.int32), want2.view(torch.int32))
-    sub = b.cpu().view(torch.int16)[:len(PROBE_SUBNORMALS), 0].tolist()
-    return dict(operand_bits=[f"0x{v & 0xFFFF:04X}" for v in sub],
+    sums = torch.equal(d3.view(torch.int32), want3.view(torch.int32))
+    first = b.cpu().view(torch.int16)[:len(PROBE_SUBNORMALS), 0].tolist()
+    return dict(operand_bits=[f"0x{v & 0xFFFF:04X}" for v in first],
                 outputs=[float(v) for v in d[:len(PROBE_SUBNORMALS), 0]], operands_kept=kept,
-                products=[float(v) for v in d2[:2, 0]], subnormal_products_kept=products)
+                products=[float(v) for v in d2[:2, 0]], subnormal_products_kept=products,
+                sums=[float(v) for v in d3[:4, 4]], subnormal_sums_kept=sums)
 
 
 # ---------------------------------------------------------------------------
@@ -515,7 +539,9 @@ def floor(x, planes, scales, bm, bn, bk, g) -> torch.Tensor:
 
 
 def unpack_only(x, planes, scales, bm, bn, bk, g) -> torch.Tensor:
-    """L2, ``run_unpack``: the codes themselves as bf16 bit patterns."""
+    """L2, ``run_unpack``: the codes themselves as bf16 bit patterns. On the
+    tensor-core loop at every g (:func:`path_of`): floor's staging plus the
+    unpack of a 4-bit pair field, with no lookup."""
     return _run("unpack_only", x, planes, scales, None, bm, bn, bk, g)
 
 
@@ -580,7 +606,7 @@ FUNCTIONS: dict[str, Callable] = {
 def run(name: str, x, planes, scales, table, bm, bn, bk, g, **kw) -> torch.Tensor:
     """Lab function ``name`` with keyword flags ``kw``, taking a table
     whether it reads one or not."""
-    if name in ("floor", "unpack_only"):
+    if name in UNSCALED:
         return FUNCTIONS[name](x, planes, scales, bm, bn, bk, g)
     return FUNCTIONS[name](x, planes, scales, table, bm, bn, bk, g, **kw)
 

@@ -6,6 +6,8 @@ several copies of its inputs whose total size exceeds the L2 cache (so each
 launch reads its weights from device memory, as a decode step does), and
 the graph's replay is timed with CUDA events. The graph removes the host's
 launch cost from the measurement: what is timed is the device's work.
+``format_gemm_report`` prints such a time as the JAX package's one-line
+GEMM report.
 """
 
 from __future__ import annotations
@@ -60,3 +62,28 @@ def bench_op(
         best = min(best, start.elapsed_time(end) / 1e3 / n)
     del graph
     return best
+
+
+def format_gemm_report(
+    name: str,
+    dt: float,
+    m: int,
+    n: int,
+    k: int,
+    num_bits: int,
+    hbm_gbps: float,
+    extra_bytes: int = 0,
+) -> str:
+    """One line on a GEMM of ``num_bits``-bit weights ``[k, n]`` that took
+    ``dt`` seconds at ``m`` rows: its µs, the GB/s of the weight bytes and
+    ``extra_bytes``, that rate's share of ``hbm_gbps`` (the card's memory
+    rate, which the caller passes: 3350 GB/s on the H100), and its TFLOP/s."""
+    weight_bytes = k * n * num_bits / 8
+    total = weight_bytes + extra_bytes
+    bw = total / dt / 1e9
+    pct = 100.0 * bw / hbm_gbps
+    tflops = 2 * m * n * k / dt / 1e12
+    return (
+        f"{name}: {dt * 1e6:8.1f} us  {bw:7.1f} GB/s ({pct:5.1f}% roofline)"
+        f"  {tflops:6.2f} TFLOP/s"
+    )

@@ -1075,121 +1075,149 @@ def test_lab2_main_on_the_card(capsys):
 def test_lab_mma_keeps_subnormals(dev):
     """One mma.sync.m16n8k16 (bf16 in, f32 sums) of the identity and a B
     holding bf16 subnormals (0x0001, 0x007F, 0x8001, 0x0040) beside normal
-    values gives B's values exactly, and their bf16 rounding B's bits; and
+    values gives B's values exactly, and their bf16 rounding B's bits;
     2^-100 times the identity against normal values near 2^-40 gives the
-    exact f32 subnormal products. So the tensor core neither flushes a
-    subnormal operand nor a subnormal product, and floor, whose finite
-    halves are subnormal one time in 128, is bit-exact on the loop."""
-    (_, b), (tiny, small) = lab.probe_operands(dev)
+    exact f32 subnormal products; and rows of powers of two against columns
+    of bf16 subnormals give each output's sum of 16 subnormal products
+    exactly. So the tensor core neither flushes a subnormal operand nor a
+    subnormal product, nor truncates a step's sum of them: floor, whose
+    finite halves are subnormal one time in 128, and unpack_only, whose
+    operand is all subnormal, are bit-exact on the loop with x the
+    identity."""
+    (_, b), (tiny, small), (rows, sub) = lab.probe_operands(dev)
     assert int((b.cpu().float().abs() < 2.0**-126).sum()) == 3 * len(lab.PROBE_SUBNORMALS)
     want = lab.mma_probe(tiny.cpu(), small.cpu())
     assert bool(((want != 0) & (want.abs() < 2.0**-126)).all())
+    assert bool((sub.cpu().float().abs() < 2.0**-126).all())
     out = lab.probe_subnormals(dev)
     assert out["operands_kept"] and out["subnormal_products_kept"]
+    assert out["subnormal_sums_kept"]
     assert out["operand_bits"] == [f"0x{v:04X}" for v in lab.PROBE_SUBNORMALS]
 
 
-# floor on the loop: its K blocks (3584 is MAX_BLOCK_K, where bk/4 = 896 is
-# not a power of two), each at a K that holds it
+# floor and unpack_only on the loop (they read no scales): their K blocks
+# (3584 is MAX_BLOCK_K, where bk/4 = 896 is not a power of two), each at a K
+# that holds it
 FLOOR_BKS = (256, 512, 1024, 3584)
+UNSCALED = ("floor", "unpack_only")
 
 
-def floor_call(dev, m, bk, k=None, n=LAB_N, g=G, eye=False):
-    """(a call of floor, its plain version) on the lab's inputs with the
-    planes masked to finite halves, at K block ``bk`` (x the identity with
-    ``eye``: M = K)."""
+def floor_call(dev, fn, m, bk, k=None, n=LAB_N, g=G, eye=False):
+    """(a call of ``fn``, floor or unpack_only, its plain version) on the
+    lab's inputs (floor's planes masked to finite halves), at K block
+    ``bk`` (x the identity with ``eye``: M = K)."""
     k = k or max(LAB_K, bk)
     _, planes, scales, _, x = kernel_lab.make_inputs(m, n, k, 4, g, device=dev)
-    planes = [lab.finite_halves(planes[0])]
+    if fn == "floor":
+        planes = [lab.finite_halves(planes[0])]
     if eye:
         x = torch.eye(k, dtype=torch.bfloat16, device=dev)
     bm = 16 if eye else m
-    return (lambda: lab.floor(x, planes, scales, bm, n, bk, g),
-            lambda: lab.plain("floor", x, planes, scales, None, bm, n, bk, g))
+    return (lambda: lab.FUNCTIONS[fn](x, planes, scales, bm, n, bk, g),
+            lambda: lab.plain(fn, x, planes, scales, None, bm, n, bk, g))
+
+
+def unscaled_err(fn, y, want) -> float:
+    """Relative Frobenius error, or for unpack_only, whose operand is
+    subnormal, the largest error over the largest output (the threshold is
+    the same)."""
+    if fn == "unpack_only":
+        assert float(want.float().abs().max()) > 0
+        return float((y.float() - want.float()).abs().max() / want.float().abs().max())
+    return rel_err(y, want)
 
 
 @pytest.mark.parametrize("bk", FLOOR_BKS)
 @pytest.mark.parametrize("m", [1, 16, 40])
-def test_lab_floor_loop_vs_plain(dev, m, bk):
-    """floor on the loop at every K block: one launch counted, path "mma",
-    the plain version within the bf16 threshold (the x map picks the block's
-    four stretches right), a repeated call bit for bit."""
-    call, plain = floor_call(dev, m, bk)
+@pytest.mark.parametrize("fn", UNSCALED)
+def test_lab_floor_loop_vs_plain(dev, fn, m, bk):
+    """floor and unpack_only on the loop at every K block: one launch
+    counted, path "mma", the plain version within the bf16 threshold (floor:
+    the x map picks the block's four stretches right), a repeated call bit
+    for bit."""
+    call, plain = floor_call(dev, fn, m, bk)
     before = dict(lab.LAUNCHES)
     y = call()
-    assert lab.LAUNCHES == {**before, "floor": before["floor"] + 1}
-    assert lab.LAST_PATH["floor"] == "mma" == lab.path_of("floor", G)
+    assert lab.LAUNCHES == {**before, fn: before[fn] + 1}
+    assert lab.LAST_PATH[fn] == "mma" == lab.path_of(fn, G)
     again = call()
     torch.cuda.synchronize()
     assert y.dtype == torch.bfloat16 and tuple(y.shape) == (m, LAB_N)
     assert torch.isfinite(y.float()).all()
-    assert rel_err(y, plain()) < TOL[torch.bfloat16]
+    assert unscaled_err(fn, y, plain()) < TOL[torch.bfloat16]
     assert torch.equal(y.view(torch.int16), again.view(torch.int16))
 
 
 @pytest.mark.parametrize("bk", [256, 1024])
-def test_lab_floor_identity_bit_exact(dev, bk):
-    """x the identity (K 1024): every output one word half, bit for bit; at
-    bk 1024 the four stretches of a block are 256 rows apart, so a wrong x
-    map moves outputs."""
-    call, plain = floor_call(dev, 1024, bk, k=1024, eye=True)
+@pytest.mark.parametrize("fn", UNSCALED)
+def test_lab_floor_identity_bit_exact(dev, fn, bk):
+    """x the identity (K 1024): every output one word half (unpack_only:
+    one code as a bf16 subnormal), bit for bit; at bk 1024 floor's four
+    stretches of a block are 256 rows apart, so a wrong x map moves
+    outputs."""
+    call, plain = floor_call(dev, fn, 1024, bk, k=1024, eye=True)
     y, want = call(), plain()
-    assert lab.LAST_PATH["floor"] == "mma"
+    assert lab.LAST_PATH[fn] == "mma"
     assert torch.equal(y.view(torch.int16), want.view(torch.int16))
 
 
 @pytest.mark.parametrize("bk", [512, 3584])
-def test_lab_floor_one_split_and_the_planned_split(dev, monkeypatch, bk):
+@pytest.mark.parametrize("fn", UNSCALED)
+def test_lab_floor_one_split_and_the_planned_split(dev, monkeypatch, fn, bk):
     """One split and the split lab_splits plans from the chunk (N 2048:
     more than one) each agree with the plain version and repeat their
     bits."""
     k = 8 * bk if bk == 512 else 2 * bk
-    call, plain = floor_call(dev, 16, bk, k=k, n=2048)
-    planned = lab.lab_splits(2048, k, lab.CHUNK)
+    call, plain = floor_call(dev, fn, 16, bk, k=k, n=2048)
+    planned = lab.launch_splits(fn, 2048, k, G)
     assert planned > 1
     want = plain()
     for splits in (1, planned):
         monkeypatch.setattr(lab, "lab_splits", lambda n, k, g, s=splits: s)
         y, again = call(), call()
         torch.cuda.synchronize()
-        assert lab.LAST_PATH["floor"] == "mma"
-        assert rel_err(y, want) < TOL[torch.bfloat16]
+        assert lab.LAST_PATH[fn] == "mma"
+        assert unscaled_err(fn, y, want) < TOL[torch.bfloat16]
         assert torch.equal(y.view(torch.int16), again.view(torch.int16))
 
 
 @pytest.mark.parametrize("g,bk", [(2, 256), (6, 768), (512, 512)])
-def test_lab_floor_loop_at_every_g(dev, g, bk):
-    """floor reads no scales: the loop runs it at a g that 16 does not
-    divide too, with the same result as its plain version."""
-    call, plain = floor_call(dev, 16, bk, k=2 * bk, g=g)
+@pytest.mark.parametrize("fn", UNSCALED)
+def test_lab_floor_loop_at_every_g(dev, fn, g, bk):
+    """floor and unpack_only read no scales: the loop runs them at a g that
+    16 does not divide too, with the same result as their plain
+    versions."""
+    call, plain = floor_call(dev, fn, 16, bk, k=2 * bk, g=g)
     y = call()
-    assert lab.LAST_PATH["floor"] == "mma" == lab.path_of("floor", g)
-    assert rel_err(y, plain()) < TOL[torch.bfloat16]
+    assert lab.LAST_PATH[fn] == "mma" == lab.path_of(fn, g)
+    assert unscaled_err(fn, y, plain()) < TOL[torch.bfloat16]
 
 
 @pytest.mark.parametrize("n", [50, 130])
-def test_lab_floor_narrow_copies(dev, n):
+@pytest.mark.parametrize("fn", UNSCALED)
+def test_lab_floor_narrow_copies(dev, fn, n):
     """A ragged N: 50 (not a multiple of 4: the plane in 4-byte copies) and
     130 (a second block of two columns)."""
-    call, plain = floor_call(dev, 16, 1024, n=n)
+    call, plain = floor_call(dev, fn, 16, 1024, n=n)
     y = call()
-    assert tuple(y.shape) == (16, n) and rel_err(y, plain()) < TOL[torch.bfloat16]
+    assert tuple(y.shape) == (16, n) and unscaled_err(fn, y, plain()) < TOL[torch.bfloat16]
 
 
-# (bk, K, splits, workspace) of floor launches the C entry refuses: a split
-# not dividing K's chunks, none, more than one with no workspace, a bk that
-# is not a multiple of the chunk
+# (bk, K, splits, workspace) of floor and unpack_only launches the C entries
+# refuse: a split not dividing K's chunks, none, more than one with no
+# workspace, a bk that is not a multiple of the chunk
 FLOOR_BAD_LAUNCHES = {"split": (1024, 1024, 3, True), "zero_splits": (1024, 1024, 0, False),
                       "no_workspace": (1024, 1024, 2, False), "bk": (384, 768, 1, False)}
 
 
 @pytest.mark.parametrize("case", list(FLOOR_BAD_LAUNCHES))
-def test_lab_floor_refuses_bad_launches(dev, case):
+@pytest.mark.parametrize("fn", UNSCALED)
+def test_lab_floor_refuses_bad_launches(dev, fn, case):
     bk, k, splits, with_work = FLOOR_BAD_LAUNCHES[case]
     _, planes, _, _, x = kernel_lab.make_inputs(16, LAB_N, k, 4, G, device=dev)
     y = torch.full((16, LAB_N), 7.0, dtype=torch.bfloat16, device=dev)
     work = torch.empty((max(splits, 1), 16, LAB_N), dtype=torch.float32, device=dev)
-    entry, _ = lab._kernel_fn("floor")
+    entry, _ = lab._kernel_fn(fn)
     err = entry(x.data_ptr(), planes[0].data_ptr(), y.data_ptr(),
                 work.data_ptr() if with_work else None, 16, LAB_N, k, bk, splits,
                 torch.cuda.current_stream(dev).cuda_stream)
@@ -1401,8 +1429,8 @@ def test_lab_loop_occupancy(dev):
     (L12: 24 word rows a chunk, the others 32), its decoder's table (L5 and
     L11: 4 copies of 256 words with group_acc, L5 and L8: 2 beside
     "repeat"'s scale rows or L8's tiles; L3: 16 words; L12: 8 copies of 64;
-    L1's WordDecoder none), L8's warp tiles (4 x 1 KB) and "repeat"'s scale
-    rows."""
+    L1's WordDecoder and L2's UnpackDecoder none), L8's warp tiles (4 x 1
+    KB) and "repeat"'s scale rows."""
     def ring(word_rows):
         return 2 * (16 * (256 + 8) * 2 + word_rows * 128 * 4)
 
@@ -1419,9 +1447,10 @@ def test_lab_loop_occupancy(dev):
             assert inst["blocks_per_sm"] == 4, inst
             seen[source].append((inst["decoder"], inst["scaling"]))
     lab1, lab2 = seen["kernel_lab.cu"], seen["kernel_lab2.cu"]
-    assert len(set(lab1)) == len(lab1) == 10 and len(set(lab2)) == len(lab2) == 6
+    assert len(set(lab1)) == len(lab1) == 11 and len(set(lab2)) == len(lab2) == 6
     assert {("PairTableDecoder<4>", "group_acc"), ("PairTableDecoder<2>", "repeat"),
-            ("Gather16Decoder", "expand"), ("WordDecoder", "none")} <= set(lab1)
+            ("Gather16Decoder", "expand"), ("WordDecoder", "none"),
+            ("UnpackDecoder", "none")} <= set(lab1)
     assert {("PairTableDecoder<4>", "group_acc"), ("PairTileDecoder", "group_acc"),
             ("W3PairDecoder", "group_acc")} <= set(lab2)
 

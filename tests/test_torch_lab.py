@@ -229,29 +229,35 @@ def test_lab_checks_like_the_grid(port_inputs, case):
 # test_torch_cuda.py)
 # ---------------------------------------------------------------------------
 
-# the lab variants on the loop (floor at every g, the others where 16
-# divides g): L1, L4's four distinct flag sets (g8_wrap's flags select
-# g8_nochain's entries), L6's and L5's two modes each, and L3
+# the lab variants on the loop (floor and unpack at every g, the others
+# where 16 divides g): L1, L2, L4's four distinct flag sets (g8_wrap's flags
+# select g8_nochain's entries), L6's and L5's two modes each, and L3
 LOOP_VARIANTS = ("g8_full", "g8_nochain", "g8_noscale", "g8_bare", "g8_hoist", "g8_hoist_ga",
-                 "g8_repeat", "g8_groupacc", "gather16", "floor")
+                 "g8_repeat", "g8_groupacc", "gather16", "floor", "unpack")
+# those whose plain versions compare with the JAX lab's at other group
+# sizes: XLA on the CPU flushes unpack's subnormal products (check_unpack
+# holds it to JAX's operand instead), and its function takes no g
+JAX_LOOP_VARIANTS = tuple(v for v in LOOP_VARIANTS if v != "unpack")
 
 
 @pytest.mark.parametrize("g,path", [(2, "simt"), (6, "simt"), (16, "mma"), (32, "mma"),
                                     (64, "mma"), (512, "mma")])
-@pytest.mark.parametrize("fn", ["gather16", "g8_ablate", "g8_rs", "g8_hoist", "floor"])
+@pytest.mark.parametrize("fn", ["gather16", "g8_ablate", "g8_rs", "g8_hoist", "floor",
+                                "unpack_only"])
 def test_lab_path_from_g(fn, g, path):
     """The loop takes a g that is a multiple of 16 (a k16 step inside one
     group); g = 2 goes to the SIMT kernel, with one split, chosen before any
-    launch. floor reads no scales: the loop takes it at every g. Each
-    function on the loop passes the C entry its workspace and split (one
-    more pointer and one more int than its SIMT arguments; floor takes no
-    g)."""
-    want = "mma" if fn == "floor" else path
+    launch. floor and unpack_only read no scales: the loop takes them at
+    every g. Each function on the loop passes the C entry its workspace and
+    split (one more pointer and one more int than its SIMT arguments; floor
+    and unpack_only take no g)."""
+    want = "mma" if fn in lab.UNSCALED else path
     assert fn in lab.MMA_FUNCTIONS and lab.lab_path(g) == path and lab.path_of(fn, g) == want
     entry, n_ptr, n_int = lab._ENTRIES[fn]
     # x plane [scales table] y work; M N K bk [g, flags], splits
-    assert entry == f"flute_lab_{fn}" and n_ptr == (4 if fn == "floor" else 6)
-    assert n_int == {"gather16": 6, "g8_ablate": 8, "g8_rs": 7, "g8_hoist": 7, "floor": 5}[fn]
+    assert entry == f"flute_lab_{fn}" and n_ptr == (4 if fn in lab.UNSCALED else 6)
+    assert n_int == {"gather16": 6, "g8_ablate": 8, "g8_rs": 7, "g8_hoist": 7, "floor": 5,
+                     "unpack_only": 5}[fn]
     if want == "simt":
         assert lab.lab_splits(256, 1536, g) == 1
 
@@ -287,15 +293,17 @@ def test_lab_splits_at_the_lab_shape():
 
 @pytest.mark.parametrize("n,k", [(28672, 8192), (200, 1024), (200, 3584), (2048, 4096)])
 @pytest.mark.parametrize("g", [2, 6, 64, 512])
-def test_floor_splits_at_chunks(n, k, g):
-    """floor runs the loop at every g and plans its split from the chunk
-    (``lab_splits`` with the chunk for g): two splits at the lab's shape (as
-    the loop's other functions at g64), every split boundary a chunk
-    boundary, so no split falls inside a chunk, and more than one split
-    where K and N allow, even where g is 2 (one split for the functions that
-    read scales) or wider than a chunk."""
-    assert lab.path_of("floor", g) == "mma"
-    splits = lab.lab_splits(n, k, lab.CHUNK)
+@pytest.mark.parametrize("fn", ["floor", "unpack_only"])
+def test_floor_splits_at_chunks(fn, n, k, g):
+    """floor and unpack_only run the loop at every g and plan their split
+    from the chunk (``lab_splits`` with the chunk for g): two splits at the
+    lab's shape (as the loop's other functions at g64), every split boundary
+    a chunk boundary, so no split falls inside a chunk, and more than one
+    split where K and N allow, even where g is 2 (one split for the
+    functions that read scales) or wider than a chunk."""
+    assert lab.path_of(fn, g) == "mma"
+    splits = lab.launch_splits(fn, n, k, g)
+    assert splits == lab.lab_splits(n, k, lab.CHUNK)
     assert k % (splits * lab.CHUNK) == 0 and splits > 1
     assert lab.lab_path(g) == "mma" or lab.lab_splits(n, k, g) == 1
     if (n, k) == (28672, 8192):
@@ -305,14 +313,24 @@ def test_floor_splits_at_chunks(n, k, g):
 def test_mma_probe_plain_version():
     """The probe's plain version on the CPU (the reference the card's
     ``mma.sync`` is held to): the identity gives back B's bf16 subnormals
-    exactly, 2^-100 times values near 2^-40 gives f32 subnormals, and
-    operands of another shape, type or device are refused."""
-    (eye, b), (tiny, small) = lab.probe_operands()
+    exactly, 2^-100 times values near 2^-40 gives f32 subnormals, rows of
+    powers of two against subnormal columns give exact sums of 16 subnormal
+    products, and operands of another shape, type or device are refused."""
+    (eye, b), (tiny, small), _ = lab.probe_operands()
     d = lab.mma_probe(eye, b)
     assert d.dtype == torch.float32 and torch.equal(d, b.float())
     assert int((d.abs() < 2.0**-126).sum()) == 3 * len(lab.PROBE_SUBNORMALS)
     d = lab.mma_probe(tiny, small)
     assert bool(((d != 0) & (d.abs() < 2.0**-126)).all())
+    # every output a sum of 16 subnormal products, exact in f32; most of the
+    # sums subnormal too, some normal, some negative
+    rows, sub = lab.probe_operands()[2]
+    assert bool((sub.float().abs() < 2.0**-126).all())
+    assert set(sub[:, :4].view(torch.int16).unique().tolist()) <= set(range(16))
+    d = lab.mma_probe(rows, sub)
+    assert torch.equal(d.double(), rows.double() @ sub.double())
+    tiny_sums = (d != 0) & (d.abs() < 2.0**-126)
+    assert 0.5 < float(tiny_sums.float().mean()) < 1 and bool((d < 0).any())
     with pytest.raises(ValueError):
         lab.mma_probe(eye.float(), b)
     with pytest.raises(ValueError):
@@ -328,7 +346,7 @@ LOOP_REFUSALS = {"odd_g": (3, 256), "zero_g": (0, 256), "bk_not_by_g": (512, 256
 
 @pytest.mark.parametrize("case", list(LOOP_REFUSALS))
 @pytest.mark.parametrize("variant", ["g8_hoist_ga", "g8_full", "g8_bare", "g8_groupacc",
-                                     "g8_repeat", "gather16", "floor"])
+                                     "g8_repeat", "gather16", "floor", "unpack"])
 def test_loop_refuses_before_launch(port_inputs, variant, case):
     _, planes, _, table, x = port_inputs
     g, bk = LOOP_REFUSALS[case]
@@ -355,7 +373,7 @@ def test_cpu_calls_run_the_plain_version(port_inputs, variant):
 
 
 @pytest.mark.parametrize("g,bk", [(32, 256), (512, 512)])
-@pytest.mark.parametrize("variant", LOOP_VARIANTS)
+@pytest.mark.parametrize("variant", JAX_LOOP_VARIANTS)
 def test_loop_other_group_sizes_vs_jax(jax_lab, interpret, variant, g, bk):
     """The loop's plain versions against the JAX lab at its other group
     sizes: a group within a field (32) and one wider than a chunk (512).
@@ -383,3 +401,4 @@ def test_loop_other_group_sizes_vs_jax(jax_lab, interpret, variant, g, bk):
     got = kernel_lab.run_variant(variant, x, planes, scales, table, M, BN, bk, g)
     assert np.isfinite(want).all()
     assert rel_err(got.float().numpy(), want) < 1.1e-2
+
