@@ -246,6 +246,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -3280,7 +3281,8 @@ class Client:
     requests the engine was given and the tokens that came back."""
 
     def __init__(self, srv):
-        self.base = f"http://127.0.0.1:{srv.server_address[1]}"
+        # a server object, or the base URL of a server in another process
+        self.base = srv if isinstance(srv, str) else f"http://127.0.0.1:{srv.server_address[1]}"
         self.requests = 0
         self.tokens = 0
         self._lock = threading.Lock()  # concurrent() posts from several threads
@@ -4328,6 +4330,17 @@ P9_SHORT = 2
 P9_LIMIT_CAP = 0.1
 P9_DIR = os.path.join(HERE, "build", "phase9")
 SHARED_CARD = "ranks share one H100; gloo all-reduce staged through the host"
+# the engines the world of 2 also serves through serve --tp's loop over
+# HTTP (a run's kind: P9_HTTP, then the engine's)
+P9_HTTP = "HTTP "
+P9_HTTP_RUNS = ("PagedEngine", "ContinuousBatchingEngine")
+# the entry point's depth and its engines' flags (serve --tp 2 as a process)
+P9_ENTRY_MODES = {"paged pool-prefill": ["--paged", "--pool-prefill"],
+                  "paged speculative": ["--paged", "--speculative-k", str(SPEC_K)]}
+# the entry point's pool (15 usable blocks of 16: 240 positions) and a
+# prompt it cannot hold (with 16 new tokens) though max_len (512) could
+P9_ENTRY_BLOCKS = 16
+P9_ENTRY_REFUSED = 300
 # the engines phase 9 serves at tp = 1 and tp = 2, with their settings
 P9_RUNS = {
     "Engine": dict(batch_size=8, max_len=256),
@@ -4396,15 +4409,12 @@ def p9_kernels(dev) -> dict:
     return out
 
 
-def p9_drive(kind, params, config, dev, mesh=None) -> dict:
-    """Serve phase 9's 8 prompts (16 new tokens each) through ``kind`` at tp
-    = 1 or on ``mesh``: the tokens, each forward's f32 logits rows of the
-    live slots in call order (``steps``: [(key, rows)]), the launches and
-    all-reduces of the run, and its forwards by kind."""
+def p9_engine(kind, params, config, dev, mesh=None):
+    """Phase 9's ``kind`` engine at tp = 1 or on ``mesh``, recording: the
+    engine, each forward's f32 logits rows of the live slots in call order
+    (``steps``: [((key, request ids), rows)]), and its calls by method."""
     from flute_tpu_torch import serving
-    from flute_tpu_torch.parallel import comm
 
-    prompts = serving_prompts(config)
     kw = dict(P9_RUNS[kind], **({"device": dev} if mesh is None else {"mesh": mesh}))
     if kind == "PagedSpeculativeEngine":
         kw.update(draft_params=params, draft_config=config)
@@ -4412,8 +4422,9 @@ def p9_drive(kind, params, config, dev, mesh=None) -> dict:
     steps, calls = [], {}
 
     def record(attr, key_of=None):
-        """Count ``attr``'s calls; with ``key_of`` (returning the call's tag
-        and the slots of its rows) keep its logits rows too."""
+        """Count ``attr``'s calls; with ``key_of`` (of the call's arguments:
+        its tag, the slots of its rows and their requests) keep its logits
+        rows too."""
         fn = getattr(eng, attr)
 
         def wrapped(*a, **k):
@@ -4421,51 +4432,73 @@ def p9_drive(kind, params, config, dev, mesh=None) -> dict:
             calls[attr] = calls.get(attr, 0) + 1
             if key_of is not None:
                 rows = out[0] if isinstance(out, tuple) else out
-                tag, slots = key_of()
-                rows = rows[None] if rows.dim() == 1 else rows[:len(prompts)][slots]
-                steps.append(((tag, slots), rows.float().cpu()))
+                tag, slots, ids = key_of(*a)
+                rows = rows[None] if rows.dim() == 1 else rows[slots]
+                steps.append(((tag, ids), rows.float().cpu()))
             return out
 
         setattr(eng, attr, wrapped)
 
-    every = list(range(len(prompts)))
     if kind == "Engine":
-        record("prefill", lambda: ("prefill", every))
-        record("decode_step", lambda: ("step", every))
+        every = list(range(P9_RUNS[kind]["batch_size"]))
+        record("prefill", lambda *a: ("prefill", every, every))
+        record("decode_step", lambda *a: ("step", every, every))
     elif kind == "ContinuousBatchingEngine":
-        # the 8 requests enter the 8 free slots in order: the n-th prefill
-        # is slot n's
-        record("_prefill", lambda: ("prefill", [calls["_prefill"] - 1]))
-        record("_step_logits", lambda: ("step", [s for s, r in enumerate(eng._slots)
-                                                 if r is not None]))
+        def live():
+            slots = [s for s, r in enumerate(eng._slots) if r is not None]
+            return slots, [eng._slots[s].rid for s in slots]
+
+        record("_prefill", lambda req: ("prefill", [0], [req.rid]))
+        record("_step_logits", lambda *a: ("step", *live()))
         record("forward")
     else:
-        live = lambda: [s for s, r in enumerate(eng._slot_req) if r is not None]  # noqa: E731
+        def live():
+            slots = [s for s, r in enumerate(eng._slot_req) if r is not None]
+            return slots, [eng._slot_req[s] for s in slots]
+
         if kind == "PagedEngine":
             record("_pool_fwd")
-            record("_step_logits", lambda: ("step", live()))
+            record("_step_logits", lambda *a: ("step", *live()))
         else:
             record("forward")
             record("_dfwd")
             record("_verify_fwd")
-            record("_draft_step", lambda: ("draft", live()))
-            record("_verify_step", lambda: ("verify", live()))
+            record("_draft_step", lambda *a: ("draft", *live()))
+            record("_verify_step", lambda *a: ("verify", *live()))
         fn = eng._start
 
         def start(slot, prompt, sampling, last_row):
-            steps.append((("first", [slot]), last_row[None].float().cpu()))
+            steps.append((("first", [eng._slot_req[slot]]), last_row[None].float().cpu()))
             return fn(slot, prompt, sampling, last_row)
 
         eng._start = start
+    return eng, steps, calls
+
+
+def p9_replay(eng, schedule) -> list:
+    """Make an engine's calls of a served run again: ``schedule`` is its
+    submissions and steps in order (p9_http); the tokens by request id."""
+    done = {}
+    for op in schedule:
+        if op[0] == "submit":
+            eng.submit(op[1], max_new_tokens=op[2])
+        else:
+            eng.step()
+            done.update(eng._finished)
+            eng._finished = {}
+    return [done[r] for r in range(len(done))]
+
+
+def p9_run(eng, steps, calls, kind, dev, drive) -> dict:
+    """``drive()`` (the tokens) on a recording engine of p9_engine: the
+    tokens, the recorded steps and calls, the launches and all-reduces of
+    the run, its seconds and ms per step."""
+    from flute_tpu_torch.parallel import comm
+
     launches0, reduces0 = launches_now(), comm.COUNTS["all_reduce"]
     sync(dev)
     t0 = time.perf_counter()
-    if kind == "Engine":
-        tokens = eng.generate(prompts, max_new_tokens=NEW_TOKENS)
-    else:
-        rids = [eng.submit(p, max_new_tokens=NEW_TOKENS) for p in prompts]
-        done = eng.run()
-        tokens = [done[r] for r in rids]
+    tokens = drive()
     sync(dev)
     seconds = time.perf_counter() - t0
     launches = {k: v - launches0[k] for k, v in launches_now().items()}
@@ -4479,11 +4512,102 @@ def p9_drive(kind, params, config, dev, mesh=None) -> dict:
                all_reduces=comm.COUNTS["all_reduce"] - reduces0, graphed=eng.graphed,
                blocks_in_use=getattr(eng, "blocks_in_use", None), seconds=seconds,
                ms_per_step=ms_step)
-    del eng
+    return out
+
+
+def p9_free(dev) -> None:
+    """Free an engine of p9_engine once its last reference is gone (its
+    recording wrappers hold it in a cycle)."""
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
+
+
+def p9_drive(kind, params, config, dev, mesh=None, schedule=None) -> dict:
+    """Serve phase 9's 8 prompts (16 new tokens each) through ``kind`` at tp
+    = 1 or on ``mesh`` (p9_run's record), all submitted at once, or make the
+    calls of a served run again (``schedule``)."""
+    prompts = serving_prompts(config)
+    eng, steps, calls = p9_engine(kind, params, config, dev, mesh)
+
+    def drive():
+        if kind == "Engine":
+            return eng.generate(prompts, max_new_tokens=NEW_TOKENS)
+        if schedule is not None:
+            return p9_replay(eng, schedule)
+        rids = [eng.submit(p, max_new_tokens=NEW_TOKENS) for p in prompts]
+        done = eng.run()
+        return [done[r] for r in rids]
+
+    out = p9_run(eng, steps, calls, kind, dev, drive)
+    del eng, drive
+    p9_free(dev)
     return out
+
+
+def p9_clients(srv, prompts) -> tuple:
+    """Phase 9's HTTP traffic: the first 6 prompts posted at once, then the
+    last 2 streamed one after the other (16 new tokens each). The tokens by
+    request id (the server's ids: the streams come last) and each stream's
+    seconds to its first token and ms per later token, from the client."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    client = Client(srv)
+    with ThreadPoolExecutor(6) as pool:
+        answers = list(pool.map(lambda p: client.post({"prompt": p, "max_tokens": NEW_TOKENS}),
+                                prompts[:6]))
+    if any(status != 200 for status, _ in answers):
+        raise AssertionError(f"[served] answers {answers}")
+    tokens = {body["id"]: body["tokens"] for _, body in answers}
+    streams = []
+    for p in prompts[6:]:
+        toks, ttft, rest = client.stream({"prompt": p, "max_tokens": NEW_TOKENS, "stream": True})
+        tokens[len(tokens)] = toks
+        streams.append(dict(ttft_ms=ttft * 1e3, ms_per_token=rest * 1e3 / (len(toks) - 1)))
+    return [tokens[r] for r in range(len(tokens))], streams
+
+
+def p9_http(kind, params, config, mesh, rank) -> dict:
+    """One rank's part of ``serve --tp``'s loop in a world: rank 0 serves
+    the engine over HTTP to phase 9's clients (p9_clients), every other
+    rank follows its steps (serving.server.follow). p9_run's record, with
+    the engine's submissions and steps in order (``schedule``) and rank 0's
+    streams."""
+    from flute_tpu_torch.serving import server
+
+    eng, steps, calls = p9_engine(kind, params, config, mesh.device, mesh)
+    schedule, streams = [], []
+    submit, step = eng.submit, eng.step
+
+    def logged_submit(prompt, max_new_tokens, sampling=None):
+        rid = submit(prompt, max_new_tokens=max_new_tokens, sampling=sampling)
+        schedule.append(("submit", list(prompt), max_new_tokens))
+        return rid
+
+    def logged_step():
+        schedule.append(("step",))
+        return step()
+
+    eng.submit, eng.step = logged_submit, logged_step
+
+    def drive():
+        if rank:
+            done = {}
+            server.follow(eng, on_finish=lambda rid, toks: done.__setitem__(rid, list(toks)))
+            return [done[r] for r in range(len(done))]
+        srv = server.serve(eng, port=0)
+        try:
+            tokens, timed = p9_clients(srv, serving_prompts(config))
+        finally:
+            srv.shutdown()
+            srv.loop.shutdown()
+        streams.extend(timed)
+        return tokens
+
+    out = p9_run(eng, steps, calls, kind, mesh.device, drive)
+    del eng, drive, submit, step, logged_submit, logged_step
+    p9_free(mesh.device)
+    return dict(out, schedule=schedule, streams=streams)
 
 
 def p9_expected(kind, calls, layers) -> dict:
@@ -4518,8 +4642,9 @@ def p9_name(kind, layers) -> str:
 def p9_rank(rank, world, ckpt, runs, device, preset):
     """One rank of a phase-9 world: load the checkpoint on the host,
     permute its fused layers rank-major, and serve each of ``runs`` (kind,
-    depth) on the tp mesh of the world. Every rank returns a digest of its
-    tokens and logits; rank 0 the logits too."""
+    depth; a kind after ``P9_HTTP`` through serve --tp's loop, p9_http) on
+    the tp mesh of the world. Every rank returns a digest of its tokens and
+    logits; rank 0 the logits too."""
     import hashlib
 
     from flute_tpu_torch.integrations import checkpoint
@@ -4532,7 +4657,10 @@ def p9_rank(rank, world, ckpt, runs, device, preset):
     params = permute_fused_params(params, config, world)
     out = {}
     for kind, layers in runs:
-        run = p9_drive(kind, *p9_cut(params, config, layers), mesh.device, mesh)
+        if kind.startswith(P9_HTTP):
+            run = p9_http(kind[len(P9_HTTP):], *p9_cut(params, config, layers), mesh, rank)
+        else:
+            run = p9_drive(kind, *p9_cut(params, config, layers), mesh.device, mesh)
         h = hashlib.sha256(json.dumps(run["tokens"]).encode())
         for _, rows in run["steps"]:
             h.update(rows.numpy().tobytes())
@@ -4655,6 +4783,194 @@ def p9_hold(label, world, ref, name, kind, layers, limit) -> dict:
                 tp1_graphed=ref["graphed"], note=f"{len(world)} {SHARED_CARD}")
 
 
+def p9_hold_http(label, world, name, kind, params, config, dev, limit) -> dict:
+    """A run of serve --tp's loop (p9_http) held as p9_hold holds a TP run,
+    against the same engine at tp = 1 making the same calls (rank 0's
+    schedule); beside it the streams' times at tp = 2 and those of the
+    same traffic to the tp = 1 engine behind serve() in this process."""
+    from flute_tpu_torch.serving import server
+
+    ref = p9_drive(kind, params, config, dev, schedule=world[0][name]["schedule"])
+    held = p9_hold(label, world, ref, name, kind, config.num_layers, limit)
+    eng, _, _ = p9_engine(kind, params, config, dev)
+    srv = server.serve(eng, port=0)
+    try:
+        _, tp1 = p9_clients(srv, serving_prompts(config))
+    finally:
+        srv.shutdown()
+        srv.loop.shutdown()
+    del eng, srv
+    p9_free(dev)
+    tp2 = world[0][name]["streams"]
+    held.update(streams=tp2, tp1_streams=tp1, schedule_ops=len(world[0][name]["schedule"]))
+    log(f"  [{label}] served over HTTP by rank 0, {len(world) - 1} follower(s) in lock step: "
+        "TTFT " + ", ".join(f"{a['ttft_ms']:.1f}" for a in tp2) + " ms, then "
+        + ", ".join(f"{a['ms_per_token']:.1f}" for a in tp2) + " ms per token (two streams "
+        "after 6 concurrent requests); the same traffic at tp = 1: TTFT "
+        + ", ".join(f"{a['ttft_ms']:.1f}" for a in tp1) + " ms, "
+        + ", ".join(f"{a['ms_per_token']:.1f}" for a in tp1) + f" ms per token ({SHARED_CARD}: "
+        "not a TP speed)")
+    return held
+
+
+def p9_margins(params, config, dev, prompt, toks):
+    """Which of the greedy ``toks`` after ``prompt`` the tp = 1 model
+    decides: its logits along them (one forward), the margin above twice the
+    bf16 threshold."""
+    from flute_tpu_torch.models import llama
+
+    seq = torch.tensor([list(prompt) + list(toks)], device=dev)
+    cache = llama.init_cache(config, 1, seq.shape[1], device=dev)
+    with torch.inference_mode():
+        logits, _ = llama.forward(params, config, seq, cache, 0)
+    return decided_steps(logits[0, len(prompt) - 1:len(prompt) - 1 + len(toks)]).cpu()
+
+
+def p9_entry_traffic(client, prompts) -> dict:
+    """The entry point's requests: the second prompt plain (the server's
+    first request, which warms it), then the first streamed, then a prompt
+    the pool cannot hold, plain and streamed."""
+    t0 = time.perf_counter()
+    status, body = client.post({"prompt": prompts[1], "max_tokens": NEW_TOKENS})
+    first_s = time.perf_counter() - t0
+    if status != 200:
+        raise AssertionError(f"[entry] plain request: {status} {body}")
+    toks, ttft, rest = client.stream({"prompt": prompts[0], "max_tokens": NEW_TOKENS,
+                                      "stream": True})
+    big = {"prompt": [1] * P9_ENTRY_REFUSED, "max_tokens": NEW_TOKENS}
+    refused = [client.post(dict(big, stream=s)) for s in (False, True)]
+    if any(code != 400 or "pool has" not in b["error"] for code, b in refused):
+        raise AssertionError(f"[entry] the unfittable request: {refused}")
+    return dict(tokens=[toks, body["tokens"]], first_request_s=first_s, ttft_ms=ttft * 1e3,
+                ms_per_token=rest * 1e3 / (len(toks) - 1), refused=[b["error"] for _, b in refused])
+
+
+def p9_entry_server(argv, log_path) -> tuple:
+    """``python -m flute_tpu_torch.integrations.cli`` with ``argv`` in a
+    process group of its own (stderr to ``log_path``): the process, its
+    URL and rank processes, and the seconds to the URL."""
+    import select
+
+    t0 = time.perf_counter()
+    err = open(log_path, "w")
+    proc = subprocess.Popen([sys.executable, "-m", "flute_tpu_torch.integrations.cli", *argv],
+                            stdout=subprocess.PIPE, stderr=err, text=True, cwd=HERE,
+                            start_new_session=True)
+    err.close()
+    ready, _, _ = select.select([proc.stdout], [], [], 300)
+    line = proc.stdout.readline() if ready else ""
+    if not line.startswith("serving on "):
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+        raise AssertionError(f"[entry] no URL: {line!r}; {open(log_path).read()[-3000:]}")
+    return proc, line.split()[-1], p9_spawned(proc.pid), time.perf_counter() - t0
+
+
+def p9_spawned(pid) -> list[int]:
+    """The processes ``pid`` spawned with multiprocessing (a world's ranks),
+    in start order: its children whose command line is spawn_main's, each
+    the leader of its thread group (a kernel may list a child's threads)."""
+    with open(f"/proc/{pid}/task/{pid}/children") as f:
+        children = [int(c) for c in f.read().split()]
+    out = []
+    for child in children:
+        try:
+            with open(f"/proc/{child}/status") as f:
+                tgid = int(re.search(r"^Tgid:\s+(\d+)", f.read(), re.M).group(1))
+            with open(f"/proc/{child}/cmdline", "rb") as f:
+                if tgid == child and b"spawn_main" in f.read():
+                    out.append(child)
+        except FileNotFoundError:  # a thread that has ended
+            continue
+    return out
+
+
+def p9_gone(pid) -> bool:
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().split(")")[-1].split()[0] == "Z"
+    except FileNotFoundError:
+        return True
+
+
+def p9_entry(dev, qparams, config) -> dict:
+    """serve --tp 2 through the entry point at P9_SHORT layers of phase 9's
+    weights (a checkpoint with config.json beside it), for each of
+    P9_ENTRY_MODES (the speculative one drafts with the same checkpoint):
+    the server as a process, its requests (p9_entry_traffic), then SIGINT
+    to its process group; its greedy tokens against the same server at tp
+    = 1 in this process, up to the first near tie of the tp = 1 model."""
+    from flute_tpu_torch.integrations import checkpoint, cli
+    from flute_tpu_torch.serving import server
+
+    short = p9_config(layers=P9_SHORT)
+    params, _ = p9_cut(qparams, config, P9_SHORT)
+    ckpt = os.path.join(P9_DIR, "entry")
+    checkpoint.save_quantized(ckpt, params)
+    with open(os.path.join(ckpt, "config.json"), "w") as f:
+        json.dump(hf_config_json(short), f)
+    prompts = serving_prompts(short)[:2]
+    common = ["serve", "--checkpoint", ckpt, "--num-slots", "8", "--max-len", "512",
+              "--block-size", "16", "--num-blocks", str(P9_ENTRY_BLOCKS), "--port", "0",
+              "--device", P9_DEVICE]
+    out = {}
+    for mode, extra in P9_ENTRY_MODES.items():
+        if "--speculative-k" in extra:
+            extra = extra + ["--draft-checkpoint", ckpt]
+        eng, _ = cli.build_serve_engine(cli.build_parser().parse_args(common + extra))
+        srv = server.serve(eng, port=0)
+        try:
+            ref = p9_entry_traffic(Client(srv), prompts)
+        finally:
+            srv.shutdown()
+            srv.loop.shutdown()
+        del eng, srv
+        release()
+        proc, url, ranks, start_s = p9_entry_server(common + extra + ["--tp", "2"],
+                                                    os.path.join(P9_DIR, "entry.log"))
+        try:
+            got = p9_entry_traffic(Client(url.rsplit("/v1/", 1)[0]), prompts)
+            t0 = time.perf_counter()
+            os.killpg(proc.pid, signal.SIGINT)
+            rc = proc.wait(timeout=30)
+            while not all(p9_gone(r) for r in ranks) and time.perf_counter() - t0 < 30:
+                time.sleep(0.1)
+            stop_s = time.perf_counter() - t0
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+        if rc != 0 or len(ranks) != 2 or not all(p9_gone(r) for r in ranks):
+            raise AssertionError(f"[entry {mode}] exit code {rc}, ranks {ranks} gone "
+                                 f"{[p9_gone(r) for r in ranks]}; "
+                                 f"{open(os.path.join(P9_DIR, 'entry.log')).read()[-3000:]}")
+        ties = []
+        for prompt, a, b in zip(prompts, got["tokens"], ref["tokens"]):
+            if len(a) != NEW_TOKENS or len(b) != NEW_TOKENS:
+                raise AssertionError(f"[entry {mode}] {len(a)} and {len(b)} tokens")
+            differ = [i for i, (x, y) in enumerate(zip(a, b)) if x != y]
+            if differ and p9_margins(params, short, dev, prompt, b)[differ[0]]:
+                raise AssertionError(f"[entry {mode}] token {differ[0]} differs from tp = 1's "
+                                     "where tp = 1 decides it")
+            ties.append(differ[0] if differ else None)
+        out[mode] = dict(start_s=start_s, stop_s=stop_s, exit_code=rc, first_difference=ties,
+                         first_request_s=got["first_request_s"],
+                         tp1_first_request_s=ref["first_request_s"],
+                         ttft_ms=got["ttft_ms"], ms_per_token=got["ms_per_token"],
+                         tp1_ttft_ms=ref["ttft_ms"], tp1_ms_per_token=ref["ms_per_token"],
+                         refused=got["refused"])
+        log(f"  [entry {mode}] serve --tp 2 --port 0 as a process, {P9_SHORT} layers: URL in "
+            f"{start_s:.1f} s; streamed and plain greedy tokens = tp = 1's"
+            + ("" if ties == [None, None] else f" (first difference {ties}, a near tie)")
+            + f"; the unfittable request 400 plain and streamed; SIGINT: exit code {rc}, both "
+            f"ranks gone in {stop_s:.1f} s; the first request {got['first_request_s']:.2f} s "
+            f"(tp = 1 {ref['first_request_s']:.2f}); then the stream's TTFT "
+            f"{got['ttft_ms']:.1f} ms, then "
+            f"{got['ms_per_token']:.1f} ms per token; tp = 1 {ref['ttft_ms']:.1f} ms, "
+            f"{ref['ms_per_token']:.1f} ms ({SHARED_CARD}: not a TP speed)")
+    return out
+
+
 def p9_pipeline(dev, params, config) -> dict:
     """PipelinedModel with 2 stages on one device at full depth: forward
     against llama.forward (prefill of 8 x 32 tokens, then 2 decode steps),
@@ -4752,8 +5068,10 @@ def phase_parallel(dev, results) -> dict:
     """Phase 9: the kernels at shard shapes; the seed-0 w4sym model of
     phase 4 through a checkpoint to gloo worlds on the card (Engine,
     PagedEngine with pool prefill, ContinuousBatchingEngine and
-    PagedSpeculativeEngine at tp = 2; Engine at tp = 4) against the same
-    engines at tp = 1; the pipeline; the native packer."""
+    PagedSpeculativeEngine at tp = 2, the first two also through serve
+    --tp's loop over HTTP; Engine at tp = 4) against the same engines at
+    tp = 1; serve --tp 2 through the entry point at P9_SHORT layers; the
+    pipeline; the native packer."""
     from flute_tpu_torch.integrations import checkpoint
     from flute_tpu_torch.models import llama
     from flute_tpu_torch.parallel import launch, validate_tp
@@ -4773,12 +5091,14 @@ def phase_parallel(dev, results) -> dict:
     checkpoint.save_quantized(ckpt, qparams)
     log(f"  wrote the {config.num_layers}-layer w4sym checkpoint in "
         f"{time.perf_counter() - t0:.1f} s")
-    worlds = {2: [(kind, None) for kind in P9_RUNS] + [("Engine", P9_SHORT)],
+    worlds = {2: [(kind, None) for kind in P9_RUNS] + [("Engine", P9_SHORT)]
+                 + [(P9_HTTP + kind, None) for kind in P9_HTTP_RUNS],
               4: [("Engine", None), ("Engine", P9_SHORT)]}
     failures = []
     try:
         refs = {run: p9_drive(run[0], *p9_cut(qparams, config, run[1]), dev)
-                for run in dict.fromkeys(worlds[2] + worlds[4])}
+                for run in dict.fromkeys(worlds[2] + worlds[4])
+                if not run[0].startswith(P9_HTTP)}
         floors = {(tp, layers): p9_floor(dev, *p9_cut(qparams, config, layers),
                                          refs["Engine", layers], tp)
                   for tp, runs in worlds.items() for _, layers in runs}
@@ -4798,14 +5118,22 @@ def phase_parallel(dev, results) -> dict:
                 limit = min(max(THRESHOLDS[torch.bfloat16], 2 * floors[tp, layers]),
                             P9_LIMIT_CAP)
                 try:
-                    out[f"tp{tp}"][name] = p9_hold(f"tp={tp} {name}", world, refs[kind, layers],
-                                                   name, kind, layers or config.num_layers,
-                                                   limit)
+                    if kind.startswith(P9_HTTP):
+                        out[f"tp{tp}"][name] = p9_hold_http(
+                            f"tp={tp} {name}", world, name, kind[len(P9_HTTP):], qparams,
+                            config, dev, limit)
+                    else:
+                        out[f"tp{tp}"][name] = p9_hold(f"tp={tp} {name}", world,
+                                                       refs[kind, layers], name, kind,
+                                                       layers or config.num_layers, limit)
                 except AssertionError as e:  # held after every run is read
                     log(f"  FAILED: {e}")
                     failures.append(str(e))
             del world
         del refs
+        t0 = time.perf_counter()
+        out["entry"] = p9_entry(dev, qparams, config)
+        log(f"  the entry point's runs took {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(P9_DIR, ignore_errors=True)
     if failures:

@@ -8,13 +8,18 @@
     python -m flute_tpu_torch.integrations.cli generate \\
         --checkpoint /path/to/out --prompt "..." --max-new-tokens 64
 
+    python -m flute_tpu_torch.integrations.cli serve \
+        --checkpoint /path/to/out --tp 2 --paged --pool-prefill --port 8000
+
 Every subcommand that runs a model takes ``--device`` (default ``cuda``);
 ``--device cpu`` runs the plain PyTorch path on the CPU. Without a tokenizer in the
 checkpoint (or without ``transformers``), prompts are whitespace-separated
-token ids and outputs are printed as id lists. ``serve --tp`` above 1 (a
-multi-process server: rank 0 runs HTTP and broadcasts admissions to the
-other ranks, ROADMAP.md queue 1 item 19 part 2; the engines themselves take
-a ``parallel.tp.Mesh``) and ``bench-kernel`` are not ported and say so.
+token ids and outputs are printed as id lists. ``serve --tp N`` runs a
+world of N processes (``parallel.launch``, gloo), one shard of the engine
+each, on the cards ``rank % device_count`` (several ranks may share one):
+rank 0 answers HTTP and every other rank follows its steps
+(``serving.server.follow``). SIGINT or SIGTERM stops it. ``bench-kernel``
+is not ported and says so.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+import time
 
 _TOKENIZER_FILES = ("tokenizer.json", "tokenizer_config.json", "tokenizer.model")
 
@@ -181,48 +187,71 @@ def _cmd_calibrate(args):
     print(f"NFL-calibrated checkpoint written to {args.output_dir}")
 
 
+def _load_checked(path, args, what, device):
+    """A checkpoint of ``serve`` (``what`` names it): params, config and
+    sidecar on ``device``; with ``--tp`` above 1, checked with
+    ``validate_tp``."""
+    from flute_tpu_torch.integrations.huggingface import load_quantized_model
+    from flute_tpu_torch.parallel import validate_tp
+
+    params, config, sidecar = load_quantized_model(
+        path, batch_size=args.num_slots, retune=args.retune, device=device
+    )
+    if config is None:
+        raise SystemExit(f"{what} lacks config.json; cannot build model")
+    if args.tp > 1:
+        try:
+            validate_tp(params, config, tp=args.tp)
+        except ValueError as e:
+            raise SystemExit(f"serve --tp {args.tp}: {e}") from None
+    return params, config, sidecar
+
+
+def _check_serve(args):
+    """Refuse ``serve`` arguments that cannot be served."""
+    if args.draft_checkpoint and not args.paged:
+        raise SystemExit("--draft-checkpoint on serve requires --paged")
+    if args.tp > 1 and args.retune:
+        raise SystemExit("--retune tunes launches at the whole model's shapes, not at a "
+                         "rank's shard; serve --tp without it")
+
+
 def build_serve_engine(args):
     """The serving engine and tokenizer of ``serve``'s arguments: a
     ``ContinuousBatchingEngine``, a ``PagedEngine`` with ``--paged`` (pool
     prefill with ``--pool-prefill``), or a ``PagedSpeculativeEngine`` with
-    ``--paged --draft-checkpoint``."""
-    from flute_tpu_torch.integrations.huggingface import (
-        load_quantized_model,
-        model_fns,
-        resolve_model_path,
-    )
+    ``--paged --draft-checkpoint``. With ``--tp`` above 1 it is this rank's
+    shard, built on every rank of a world of ``--tp`` processes after
+    ``torch.distributed.init_process_group``: as the JAX package builds it,
+    the checkpoints checked with ``validate_tp``, their fused layers
+    permuted rank-major, and the engine given a mesh."""
+    from flute_tpu_torch.integrations.huggingface import model_fns, resolve_model_path
+    from flute_tpu_torch.parallel import make_mesh, permute_fused_params
     from flute_tpu_torch.serving import (
         ContinuousBatchingEngine,
         PagedEngine,
         PagedSpeculativeEngine,
     )
 
+    _check_serve(args)
+    # at tp > 1 a rank loads on the host and its engine shards onto its card
+    where = "cpu" if args.tp > 1 else args.device
+    params, config, sidecar = _load_checked(args.checkpoint, args, "checkpoint", where)
+    mesh = None
     if args.tp > 1:
-        raise NotImplementedError(
-            "--tp > 1 needs a multi-process server (rank 0 runs HTTP and broadcasts "
-            "admissions to the other ranks), not ported yet (ROADMAP.md, queue 1 item 19 "
-            "part 2); the engines take a parallel.tp.Mesh"
-        )
-    if args.draft_checkpoint and not args.paged:
-        raise SystemExit("--draft-checkpoint on serve requires --paged")
-    params, config, sidecar = load_quantized_model(
-        args.checkpoint, batch_size=args.num_slots, retune=args.retune, device=args.device
-    )
-    if config is None:
-        raise SystemExit("checkpoint lacks config.json; cannot build model")
+        params = permute_fused_params(params, config, tp=args.tp)
+        mesh = make_mesh(tp=args.tp, dp=1, device=args.device)
     fwd, init_cache = model_fns(_model_type(sidecar))
     tok = load_tokenizer(resolve_model_path(args.checkpoint))
     eos = getattr(tok, "eos_token_id", None)
+    place = dict(mesh=mesh) if mesh is not None else dict(device=args.device)
     paged = dict(num_slots=args.num_slots, max_len=args.max_len, block_size=args.block_size,
                  num_blocks=args.num_blocks, eos_id=eos, prefill_chunk=args.prefill_chunk,
-                 pool_prefill=args.pool_prefill, device=args.device)
+                 pool_prefill=args.pool_prefill, **place)
     if args.draft_checkpoint:
-        dparams, dconfig, _ = load_quantized_model(
-            args.draft_checkpoint, batch_size=args.num_slots, retune=args.retune,
-            device=args.device,
-        )
-        if dconfig is None:
-            raise SystemExit("draft checkpoint lacks config.json")
+        dparams, dconfig, _ = _load_checked(args.draft_checkpoint, args, "draft checkpoint",
+                                            where)
+        dparams = permute_fused_params(dparams, dconfig, tp=args.tp)
         eng = PagedSpeculativeEngine(params=params, config=config, draft_params=dparams,
                                      draft_config=dconfig, k=args.speculative_k, **paged)
     elif args.paged:
@@ -233,19 +262,87 @@ def build_serve_engine(args):
             params=params, config=config, forward=fwd, init_cache=init_cache,
             num_slots=args.num_slots, max_len=args.max_len, eos_id=eos,
             prefill_chunk=args.prefill_chunk, prefix_cache_entries=args.prefix_cache,
-            prefix_block=args.prefix_block, device=args.device,
+            prefix_block=args.prefix_block, **place,
         )
     return eng, tok
 
 
-def _cmd_serve(args):
-    import time
+def _serve_url(args, srv) -> str:
+    return f"http://{args.host}:{srv.server_address[1]}/v1/completions"
 
+
+def _serve_rank(rank, world, args, stop):
+    """One rank of ``serve --tp``: rank 0 serves HTTP until ``stop`` is set,
+    then stops its followers; every other rank follows rank 0's steps."""
+    from flute_tpu_torch.serving.server import follow, serve
+
+    eng, tok = build_serve_engine(args)
+    if rank:
+        follow(eng)
+        return None
+    srv = serve(eng, host=args.host, port=args.port, tokenizer=tok, model_id=args.checkpoint)
+    print(f"serving on {_serve_url(args, srv)}", flush=True)
+    while not stop.wait(0.5) and srv.loop.error is None:
+        pass
+    srv.shutdown()
+    srv.loop.shutdown()
+    if srv.loop.error is not None:
+        raise RuntimeError("the serving loop failed") from srv.loop.error
+    return None
+
+
+# how long the ranks of a stopped ``serve --tp`` may take to leave
+STOP_GRACE_S = 60.0
+
+
+def _serve_tp(args):
+    """``serve --tp N``: refuse what cannot be served, then run a world of
+    N ranks (``parallel.launch.start`` builds the kernels once, here) until
+    SIGINT or SIGTERM; exits nonzero if a rank failed."""
+    import signal
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from flute_tpu_torch.parallel import launch
+
+    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("serve --tp: no CUDA device is available; pass --device cpu to "
+                         "serve on the CPU")
+    _check_serve(args)
+    # refuse what does not split before a port is bound or a rank started
+    _load_checked(args.checkpoint, args, "checkpoint", "cpu")
+    if args.draft_checkpoint:
+        _load_checked(args.draft_checkpoint, args, "draft checkpoint", "cpu")
+    stop = mp.get_context("spawn").Event()
+    # the ranks inherit an ignored SIGINT (a Ctrl-C reaches the terminal's
+    # whole process group): only this process's handler stops the world
+    signal.signal(signal.SIGINT, signal.SIG_IGN)
+    world = launch.start(_serve_rank, args.tp, args, stop,
+                         threads=max(1, torch.get_num_threads() // args.tp))
+    try:
+        for sig in (signal.SIGINT, signal.SIGTERM):
+            signal.signal(sig, lambda *_: stop.set())
+        deadline = None
+        while not world.join(timeout=0.5):  # raises when a rank fails
+            if deadline is None and stop.is_set():
+                deadline = time.monotonic() + STOP_GRACE_S
+            if deadline is not None and time.monotonic() > deadline:
+                world.terminate()
+                raise SystemExit(f"serve --tp: the ranks did not stop within {STOP_GRACE_S} s")
+    finally:
+        world.close()
+
+
+def _cmd_serve(args):
+    if args.tp > 1:
+        _serve_tp(args)
+        return
     from flute_tpu_torch.serving.server import serve
 
     eng, tok = build_serve_engine(args)
     srv = serve(eng, host=args.host, port=args.port, tokenizer=tok, model_id=args.checkpoint)
-    print(f"serving on http://{args.host}:{srv.server_address[1]}/v1/completions", flush=True)
+    print(f"serving on {_serve_url(args, srv)}", flush=True)
     try:
         while True:
             time.sleep(3600)
@@ -332,7 +429,8 @@ def build_parser():
     s.add_argument("--prefix-block", type=int, default=64,
                    help="prefix-cache block size in tokens")
     s.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel ways (only 1: a multi-process server is not ported)")
+                   help="tensor-parallel ways: a world of this many processes, one shard each "
+                        "(rank 0 serves HTTP)")
     s.add_argument("--paged", action="store_true",
                    help="paged KV engine: block-pool memory")
     s.add_argument("--block-size", type=int, default=16, help="paged KV block size in tokens")

@@ -38,6 +38,17 @@ deltas. ``"n": N`` fans out N engine requests with seeds ``seed + i``.
 A request the engine refuses at submission (``PagedEngine`` refuses one
 that cannot fit its ``max_len`` or its pool) is answered 400, streamed or
 not.
+
+An engine built on a tensor-parallel mesh (``mesh.tp > 1``) is one rank's
+shard of the model: every rank of its tp group runs its own engine and
+steps it in lock step, since each step all-reduces across them. The rank
+that serves HTTP (the group's first) runs :func:`serve`; every other rank
+runs :func:`follow`. Before each step the device thread broadcasts the
+requests accepted since the last one, each with the id its engine gave it,
+and the followers submit them in that order and step too; a request the
+engine refused was never sent. An idle server sends nothing but a
+heartbeat every ``HEARTBEAT_S`` seconds, so that a follower waiting for
+the next step never reaches the process group's timeout.
 """
 
 from __future__ import annotations
@@ -52,9 +63,32 @@ from typing import Any, Optional
 
 from flute_tpu_torch.serving.continuous import SamplingParams
 
+# an idle tensor-parallel server's heartbeat to its followers, in seconds:
+# far inside the process group's collective timeout (parallel.launch.start)
+HEARTBEAT_S = 10.0
+
+
+def _tp_source(mesh) -> Optional[tuple]:
+    """The tp group of ``mesh`` and the global rank that serves it (its
+    first), or None at tp = 1."""
+    if mesh is None or mesh.tp == 1:
+        return None
+    return mesh.tp_group, mesh.ranks[mesh.dp_rank][0]
+
+
+def _broadcast(source, msg=None):
+    """Rank 0's message of the device thread, on every rank of the tp group."""
+    import torch.distributed as dist
+
+    group, src = source
+    box = [msg]
+    dist.broadcast_object_list(box, src=src, group=group)
+    return box[0]
+
 
 class ServingLoop:
-    """Background thread that steps the engine whenever work is queued."""
+    """Background thread that steps the engine whenever work is queued
+    (and, on a TP engine, has the followers step with it)."""
 
     def __init__(self, engine, tokenizer=None, model_id: str = "flute-tpu"):
         self.engine = engine
@@ -70,6 +104,12 @@ class ServingLoop:
         self._events: dict[int, threading.Event] = {}
         self._streams: dict[int, queue.Queue] = {}
         engine.token_callback = self._on_token
+        self._source = _tp_source(getattr(engine, "mesh", None))
+        # (rid, prompt, max_new_tokens, sampling) accepted since the last
+        # step, for the followers of a TP engine
+        self._pending: list = []
+        self._work = threading.Event()  # set by each submission
+        self.error: Optional[BaseException] = None  # what ended the device thread
         self._stop = False
         self._thread = threading.Thread(target=self._run, daemon=True)
         self._thread.start()
@@ -87,14 +127,16 @@ class ServingLoop:
         sampling: Optional[SamplingParams] = None,
         stream: bool = False,
     ) -> int:
+        sampling = sampling or SamplingParams()
         with self._lock:
             self.requests_total += 1
-            rid = self.engine.submit(
-                prompt_ids, max_new_tokens=max_tokens, sampling=sampling or SamplingParams()
-            )
+            rid = self.engine.submit(prompt_ids, max_new_tokens=max_tokens, sampling=sampling)
+            if self._source is not None:
+                self._pending.append((rid, list(prompt_ids), max_tokens, sampling))
             self._events[rid] = threading.Event()
             if stream:
                 self._streams[rid] = queue.Queue()
+            self._work.set()
         return rid
 
     def wait(self, rid: int, timeout: float = 300.0):
@@ -134,26 +176,46 @@ class ServingLoop:
             self._results.pop(rid, None)
 
     def _run(self):
-        while not self._stop:
-            with self._lock:
-                busy = self.engine.step()
-                done = self.engine._finished
-                if done:
-                    lps = getattr(self.engine, "finished_logprobs", {})
-                    for rid, toks in list(done.items()):
-                        self.completed_total += 1
-                        self.tokens_total += len(toks)
-                        self._results[rid] = toks
-                        self._logprobs[rid] = lps.pop(rid, [])
-                        q = self._streams.get(rid)
-                        if q is not None:
-                            q.put(None)  # end-of-stream sentinel
-                        ev = self._events.get(rid)
-                        if ev is not None:
-                            ev.set()
-                    self.engine._finished = {}
-            if not busy:
-                time.sleep(0.005)
+        try:
+            busy = False
+            while not self._stop:
+                # idle: wait for a submission; a TP server beats meanwhile
+                if not busy and not self._work.wait(HEARTBEAT_S):
+                    if self._source is not None:
+                        with self._lock:
+                            _broadcast(self._source, ("beat",))
+                    continue
+                with self._lock:
+                    self._work.clear()
+                    if self._source is not None:
+                        _broadcast(self._source, ("step", self._pending))
+                        self._pending = []
+                    busy = self.engine.step()
+                    self._drain()
+            if self._source is not None:
+                _broadcast(self._source, ("stop",))
+        except BaseException as e:  # noqa: BLE001 — the serving process reads it
+            self.error = e
+            raise
+
+    def _drain(self):
+        # called from the device thread while it holds self._lock
+        done = self.engine._finished
+        if not done:
+            return
+        lps = getattr(self.engine, "finished_logprobs", {})
+        for rid, toks in list(done.items()):
+            self.completed_total += 1
+            self.tokens_total += len(toks)
+            self._results[rid] = toks
+            self._logprobs[rid] = lps.pop(rid, [])
+            q = self._streams.get(rid)
+            if q is not None:
+                q.put(None)  # end-of-stream sentinel
+            ev = self._events.get(rid)
+            if ev is not None:
+                ev.set()
+        self.engine._finished = {}
 
     def metrics_text(self) -> str:
         """Prometheus text exposition of the serving counters and the
@@ -193,8 +255,40 @@ class ServingLoop:
         return "\n".join(lines) + "\n"
 
     def shutdown(self):
+        """Stop the device thread (after its step in flight; a TP loop then
+        sends its followers the stop)."""
         self._stop = True
-        self._thread.join(timeout=2)
+        self._work.set()
+        self._thread.join(timeout=60)
+
+
+def follow(engine, on_finish=None) -> None:
+    """A follower rank of a TP server: mirror the serving rank's device
+    thread on this rank's ``engine`` (the same engine, built on this rank's
+    mesh) until it stops. Each step message's requests are submitted in
+    order, each must get the id the serving rank's engine gave it, then the
+    engine steps. ``on_finish(rid, tokens)`` sees each finished request;
+    the engine keeps none of them."""
+    source = _tp_source(engine.mesh)
+    if source is None:
+        raise ValueError("follow needs an engine on a mesh with tp > 1")
+    engine.token_callback = None
+    while True:
+        msg = _broadcast(source)
+        if msg[0] == "stop":
+            return
+        if msg[0] == "beat":
+            continue
+        for rid, prompt, max_new, sampling in msg[1]:
+            got = engine.submit(prompt, max_new_tokens=max_new, sampling=sampling)
+            if got != rid:
+                raise RuntimeError(f"the follower's request {got} is the server's {rid}")
+        engine.step()
+        if on_finish is not None:
+            for rid, toks in engine._finished.items():
+                on_finish(rid, toks)
+        engine._finished = {}
+        getattr(engine, "finished_logprobs", {}).clear()
 
 
 def _parse_sampling(req: dict) -> SamplingParams:

@@ -5,8 +5,9 @@ up to JAX's first near tie (a top-1/top-2 margin within twice the bf16
 threshold); ``generate --retune`` and ``generate --draft-checkpoint`` give
 the plain tokens; ``calibrate`` writes an NFL checkpoint (``nfl: true``) that
 ``generate`` serves; ``serve``'s engine plumbing builds and drives the
-continuous, paged (pool prefill) and paged speculative engines; ``serve
---tp 2`` and ``bench-kernel`` raise, naming their ROADMAP items."""
+continuous, paged (pool prefill) and paged speculative engines;
+``bench-kernel`` raises, naming its ROADMAP item, and ``--device`` defaults
+to ``cuda``. ``serve --tp 2`` is served (``test_torch_tp_server.py``)."""
 
 import json
 import os
@@ -138,9 +139,7 @@ def test_serve_engine_plumbing(dirs, capsys):
         cli.build_serve_engine(serve_args(dirs, "--draft-checkpoint", dirs["w2"]))
 
 
-def test_unported_paths_raise_naming_their_items(dirs):
-    with pytest.raises(NotImplementedError, match="item 19 part 2"):
-        cli.build_serve_engine(serve_args(dirs, "--tp", "2"))
+def test_unported_paths_raise_naming_their_items():
     with pytest.raises(NotImplementedError, match="item 9"):
         cli.main(["bench-kernel"])
     args = cli.build_parser().parse_args(["generate", "--checkpoint", "x", "--prompt", "1"])

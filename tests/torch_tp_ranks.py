@@ -9,11 +9,16 @@ package and the port at tp = 1.
 """
 
 import contextlib
+import json
+import time
+import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 import torch.distributed as dist
 
 from flute_tpu_torch import interop
+from flute_tpu_torch.integrations import cli
 from flute_tpu_torch.models import gemma2, llama
 from flute_tpu_torch.ops import lut_gemm
 from flute_tpu_torch.parallel import (
@@ -33,6 +38,7 @@ from flute_tpu_torch.serving import (
     Engine,
     PagedEngine,
     PagedSpeculativeEngine,
+    server,
 )
 
 FAMILIES = {"llama": (llama, llama.LlamaConfig.tiny), "gemma2": (gemma2, gemma2.Gemma2Config.tiny)}
@@ -145,6 +151,44 @@ def engines_rank(rank, world, trees, runs):
                          blocks_in_use=getattr(eng, "blocks_in_use", None),
                          prefix_hits=getattr(eng, "prefix_hits", None))
     return out
+
+
+def post(url, payload) -> tuple:
+    """A completion request: the request id and tokens of its answer, plain
+    or the final record of a stream."""
+    req = urllib.request.Request(url, data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=60) as r:
+        last = r.read().decode().strip().splitlines()[-1]
+    body = json.loads(last)
+    return body["id"], body["tokens"]
+
+
+def http_serve_rank(rank, world, argv, requests, idle_s, heartbeat_s):
+    """``serve --tp``'s loop in a world: every rank builds the engine of the
+    CLI arguments ``argv`` (``cli.build_serve_engine``); rank 0 serves it on
+    a free port and posts ``requests`` (payloads) to itself all at once,
+    then, after ``idle_s`` seconds idle (the loop beats every
+    ``heartbeat_s``), the first once more, and returns the answers' ``(rid,
+    tokens)`` in request order; every other rank follows and returns
+    ``{rid: tokens}`` of the requests it completed."""
+    server.HEARTBEAT_S = heartbeat_s
+    eng, _ = cli.build_serve_engine(cli.build_parser().parse_args(argv))
+    done = {}
+    if rank:
+        server.follow(eng, on_finish=lambda rid, toks: done.__setitem__(rid, list(toks)))
+        return done
+    srv = server.serve(eng, port=0)
+    url = f"http://127.0.0.1:{srv.server_address[1]}/v1/completions"
+    try:
+        with ThreadPoolExecutor(len(requests)) as pool:
+            answers = list(pool.map(lambda p: post(url, p), requests))
+        time.sleep(idle_s)
+        answers.append(post(url, requests[0]))
+    finally:
+        srv.shutdown()
+        srv.loop.shutdown()
+    return answers
 
 
 def pp_tp_rank(rank, world, tree, tokens, s):
