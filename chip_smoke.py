@@ -45,12 +45,16 @@ Phases (any failure exits non-zero):
      kernel, its plain version and a yardstick that the port never calls
      (LUT-GEMMs: a torch.matmul on the pre-dequantized weight; K5/K6: one
      scaled_dot_product_attention on K/V gathered beforehand, without a
-     softcap, which it does not take), L2-cold, in CUDA graphs;
+     softcap, which it does not take), L2-cold, in CUDA graphs
+     (bench_cycled). K1 at Llama-3.1-8B's qkv (M=8, bf16) is also timed with
+     bench_op, the JAX package's form (the same inputs every call, so
+     L2-warm), beside bench_cycled, and bench_op's K1 launches are counted
+     (1 warm-up + 200);
   2b. the Hopper lab (L1-L6 of csrc/kernel_lab.cu): its entry point,
      flute_tpu_torch.lab.kernel_lab.main, runs every variant at the JAX lab's
      reference shape (M16 N28672 K8192, bk 1024, g64, bf16) with the launch
      counts set to 0 just before and read just after (each function exactly
-     its variants' calls: a check call, bench_op's first calls and its graph's
+     its variants' calls: a check call, bench_cycled's first calls and its graph's
      launches; gather8 and pairlut as many of K2 and K4, no other package
      kernel), and no lab kernel launched in phases 3-5; L1 (floor) and L2
      (unpack_only), at every g (they read no scales), L3 (gather16), L4
@@ -243,6 +247,7 @@ import functools
 import gc
 import io
 import json
+import math
 import os
 import re
 import shutil
@@ -426,7 +431,7 @@ def phase_kernel(dev, results):
     from flute_tpu_torch import packing
     from flute_tpu_torch.ops import lut_gemm
     from flute_tpu_torch.ops.kernel_config import KernelConfig
-    from flute_tpu_torch.utils.benchmark import bench_op, cold_copies
+    from flute_tpu_torch.utils.benchmark import bench_cycled, cold_copies
 
     rng = np.random.default_rng(0)
     gen = torch.Generator(device=dev)
@@ -485,9 +490,9 @@ def phase_kernel(dev, results):
                     def library(w, x=x):
                         return torch.matmul(x, w)
 
-                    t_k = bench_op(kern, args)
-                    t_p = bench_op(plain, args[:2], min_launches=2)
-                    t_l = bench_op(library, [(w,) for w in deq_c])
+                    t_k = bench_cycled(kern, args)
+                    t_p = bench_cycled(plain, args[:2], min_launches=2)
+                    t_l = bench_cycled(library, [(w,) for w in deq_c])
                     esz = torch.tensor([], dtype=dtype).element_size()
                     lut = table if pv is None else pv
                     nbytes = wbytes + lut.numel() * 4 + m * k * esz + m * n * esz
@@ -515,7 +520,46 @@ def phase_kernel(dev, results):
     check_identity(dev, rng, gen, results)
     check_pair_lut_routing(dev, rng, gen, results)
     check_qgemm_hadamard(dev, rng, gen, results)
+    time_warm_and_cold(dev, results)
     return cases
+
+
+def time_warm_and_cold(dev, results, m=8, iters=200):
+    """K1 at Llama-3.1-8B's qkv (M=8, bf16) timed by both timers:
+    ``bench_op`` (the JAX package's form, the same inputs every call, so the
+    12.6 MB of planes and scales stay in the 50 MB L2) and ``bench_cycled``
+    (copies past the L2, the timer of every kernel time in the kernels
+    line). Warm and cold differ by design: no bound joins them. Checks that
+    ``bench_op`` launched K1 once to warm up and ``iters`` times in its
+    graph, and that its time is finite and positive."""
+    from flute_tpu_torch.ops import lut_gemm
+    from flute_tpu_torch.ops.kernel_config import KernelConfig
+    from flute_tpu_torch.utils.benchmark import bench_cycled, bench_op, cold_copies
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(21)
+    _, n, k = LAYER_SHAPES[0]
+    _, planes, scales, table = make_weight(np.random.default_rng(21), gen, "w4sym", 4, n, k,
+                                           torch.bfloat16, dev)
+    x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    kw = dict(num_bits=4, layout="w4sym", config=KernelConfig(chunk=256))
+    before = lut_gemm.LAUNCHES["w4sym"]
+    warm = bench_op(lambda x_: lut_gemm.lut_qgemm(x_, planes, scales, table, **kw), x,
+                    iters=iters)
+    launched = lut_gemm.LAUNCHES["w4sym"] - before
+    if launched != 1 + iters:
+        raise AssertionError(f"bench_op launched K1 {launched} times, not 1 + {iters}")
+    if not (math.isfinite(warm) and warm > 0):
+        raise AssertionError(f"bench_op timed K1 at {warm} s")
+    wbytes = sum(p.numel() * 4 for p in planes) + scales.numel() * scales.element_size()
+    args = [([p.clone() for p in planes], scales.clone()) for _ in range(cold_copies(wbytes))]
+    cold = bench_cycled(lambda p, s: lut_gemm.lut_qgemm(x, p, s, table, **kw), args)
+    results["k1_qkv_warm_cold"] = dict(warm_us=warm * 1e6, cold_us=cold * 1e6,
+                                       cold_over_warm=cold / warm, weight_bytes=wbytes,
+                                       bench_op_launches=launched, iters=iters)
+    log(f"  K1 qkv M={m} bf16 ({wbytes / 1e6:.1f} MB of planes and scales): bench_op "
+        f"(JAX's form, L2-warm) {warm * 1e6:.2f} us, bench_cycled (L2-cold) {cold * 1e6:.2f} "
+        f"us, cold/warm {cold / warm:.3f}; bench_op launched K1 1 + {iters} times")
 
 
 def time_split_cost(dev, rng, gen, results, m=512, chunk=256):
@@ -525,7 +569,7 @@ def time_split_cost(dev, rng, gen, results, m=512, chunk=256):
     the card counting M's row blocks too: one pass where they fill it), in
     turns, both held to the plain version."""
     from flute_tpu_torch.ops import kernel_config, lut_gemm
-    from flute_tpu_torch.utils.benchmark import bench_op, cold_copies
+    from flute_tpu_torch.utils.benchmark import bench_cycled, cold_copies
 
     rows_out = []
     for name, n, k in LAYER_SHAPES:
@@ -554,7 +598,7 @@ def time_split_cost(dev, rng, gen, results, m=512, chunk=256):
         times = {"fixed": [], "follow": []}
         for which in ("follow", "fixed", "fixed", "follow"):
             plan = fixed if which == "fixed" else follow
-            times[which].append(bench_op(lambda p, s, plan=plan: call(p, s, plan), args) * 1e6)
+            times[which].append(bench_cycled(lambda p, s, plan=plan: call(p, s, plan), args) * 1e6)
         def workspace(s):  # f32 partial sums written once and read once
             return 2 * 4 * m * n * s if s > 1 else 0
 
@@ -720,7 +764,7 @@ def time_attention(dev, rng, gen, model, attn, kid, lengths, t, kw, spans=False)
     import torch.nn.functional as F
 
     from flute_tpu_torch.ops import paged_attention as pa
-    from flute_tpu_torch.utils.benchmark import bench_op, cold_copies
+    from flute_tpu_torch.utils.benchmark import bench_cycled, cold_copies
 
     dtype = torch.bfloat16
     esz = 2
@@ -774,7 +818,7 @@ def time_attention(dev, rng, gen, model, attn, kid, lengths, t, kw, spans=False)
     if not err < THRESHOLDS[torch.bfloat16]:
         raise AssertionError(f"{kid} {model} {attn['h']}/{attn['hkv']} B={b} T={t} cached "
                              f"{lengths} {kw}: max rel err {err}")
-    t_k = bench_op(kern, pools)
+    t_k = bench_cycled(kern, pools)
     span_us = {}
     if spans:  # the span, timed at 128, 256 and 512
         for span in (128, 256, 512):
@@ -786,9 +830,9 @@ def time_attention(dev, rng, gen, model, attn, kid, lengths, t, kw, spans=False)
             err = float((got - want).abs().max() / want.abs().max())
             if not err < THRESHOLDS[torch.bfloat16]:
                 raise AssertionError(f"K5 {lengths[0]} with spans of {span}: max rel err {err}")
-            span_us[span] = bench_op(kern_span, pools) * 1e6
-    t_p = bench_op(plain, pools[:2], min_launches=2)
-    t_l = bench_op(library, dense)
+            span_us[span] = bench_cycled(kern_span, pools) * 1e6
+    t_p = bench_cycled(plain, pools[:2], min_launches=2)
+    t_l = bench_cycled(library, dense)
     nbytes = live * hkv * bs * d * esz * 2 + 2 * q.numel() * esz
     flops = 4 * h * d * sum(att)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_OPS_PER_S
@@ -1040,7 +1084,7 @@ def phase_lab(dev, results):
     from flute_tpu_torch.lab import kernel_lab
     from flute_tpu_torch.lab import ops as lab
     from flute_tpu_torch.ops import lut_gemm
-    from flute_tpu_torch.utils.benchmark import bench_op, cold_copies
+    from flute_tpu_torch.utils.benchmark import bench_cycled, cold_copies
 
     sh = LAB_SHAPE
     m, n, k, bk, g = sh["m"], sh["n"], sh["k"], sh["bk"], sh["g"]
@@ -1058,7 +1102,7 @@ def phase_lab(dev, results):
     want_paths = {fn: lab.path_of(fn, g) for fn in lab.LAUNCHES}
     if paths != want_paths:
         raise AssertionError(f"the lab's run took the paths {paths}, expected {want_paths}")
-    # calls per variant: one check call, then bench_op's first call on each
+    # calls per variant: one check call, then bench_cycled's first call on each
     # input copy and its whole passes over the copies in the graph
     copies = cold_copies(n * k // 2 + (k // g) * n * 2)
     per_variant = 1 + copies + -(-LAB_ITERS // copies) * copies
@@ -1150,7 +1194,7 @@ def phase_lab(dev, results):
                                       torch.bfloat16)
     del codes
     dense = [(w_ref.clone(),) for _ in range(cold_copies(w_ref.numel() * 2))]
-    t_lib = bench_op(lambda w: torch.matmul(x, w), dense)
+    t_lib = bench_cycled(lambda w: torch.matmul(x, w), dense)
     del dense, w_ref
     cases = []
     xy_bytes = x.numel() * 2 + m * n * 2
@@ -1159,7 +1203,7 @@ def phase_lab(dev, results):
         def plain(q, s, fn=fn, flags=flags):
             return lab.plain(fn, x, q, s, table, m, n, bk, g, **flags)
 
-        t_p = bench_op(plain, args, min_launches=2)
+        t_p = bench_cycled(plain, args, min_launches=2)
         # what the function reads: floor and unpack_only read no scales or
         # table, g8_noscale and g8_bare no scales
         nbytes = sum(q.numel() * 4 for q in planes) + xy_bytes
@@ -1180,16 +1224,16 @@ def phase_lab(dev, results):
     # floor as the lab times it reads real planes (65% of its outputs are
     # not finite); the same kernel on planes masked to finite halves
     fin = [([lab.finite_halves(q[0])], s) for q, s in args]
-    t_fin = bench_op(lambda q, s: lab.floor(x, q, s, m, n, bk, g), fin, min_launches=24)
+    t_fin = bench_cycled(lambda q, s: lab.floor(x, q, s, m, n, bk, g), fin, min_launches=24)
     floor = next(c for c in cases if c["variant"] == "floor")
     floor["finite_planes_us"] = t_fin * 1e6
     # at bk 256 floor's x map is the identity (L2's K order): what the map
     # costs at the lab's bk; and floor on planes masked to L2's operand
     # statistics (each half a 4-bit code as a bf16 subnormal, as L2's B
     # registers' halves are): what L2's operand, not its decoder, costs
-    t_256 = bench_op(lambda q, s: lab.floor(x, q, s, m, n, 256, g), args, min_launches=24)
+    t_256 = bench_cycled(lambda q, s: lab.floor(x, q, s, m, n, 256, g), args, min_launches=24)
     sub = [([q[0] & L2_HALVES], s) for q, s in args]
-    t_sub = bench_op(lambda q, s: lab.floor(x, q, s, m, n, bk, g), sub, min_launches=24)
+    t_sub = bench_cycled(lambda q, s: lab.floor(x, q, s, m, n, bk, g), sub, min_launches=24)
     floor.update(bk256_us=t_256 * 1e6, l2_operand_us=t_sub * 1e6)
     log(f"    floor on finite planes: kernel {t_fin * 1e6:8.1f} us; at bk 256 "
         f"{t_256 * 1e6:8.1f} us; on L2's operand statistics {t_sub * 1e6:8.1f} us")
@@ -1312,7 +1356,7 @@ def phase_lab2(dev, results, library_us_w4, floor_us):
     from flute_tpu_torch.lab import kernel_lab2, ops2
     from flute_tpu_torch.lab import ops as lab
     from flute_tpu_torch.ops import lut_gemm
-    from flute_tpu_torch.utils.benchmark import bench_op, cold_copies
+    from flute_tpu_torch.utils.benchmark import bench_cycled, cold_copies
 
     sh = LAB2_SHAPE
     m, n, k, bn, bk, g = sh["m"], sh["n"], sh["k"], sh["bn"], sh["bk"], sh["g"]
@@ -1329,7 +1373,7 @@ def phase_lab2(dev, results, library_us_w4, floor_us):
     if paths != want_paths:
         raise AssertionError(f"the lab2 run took the paths {paths}, expected {want_paths}")
 
-    # calls per GEMM variant: one check call, then bench_op's first call on
+    # calls per GEMM variant: one check call, then bench_cycled's first call on
     # each input copy and its whole passes over the copies in the graph
     def calls(weight_bytes):
         copies = cold_copies(weight_bytes)
@@ -1341,7 +1385,7 @@ def phase_lab2(dev, results, library_us_w4, floor_us):
     for v in kernel_lab2.LAB_GEMMS:
         fn = "sep" if v == "sep1" else v
         want[fn] += calls(n * k * 3 // 8 + scale_bytes if v == "w3wide" else w4_bytes)
-    # vmembw: per chain length a check call, bench_op's first call, the graph
+    # vmembw: per chain length a check call, bench_cycled's first call, the graph
     want["vmembw"] = len(kernel_lab2.VMEMBW_NOPS) * (2 + kernel_lab2.VMEMBW_ITERS)
     want_gemm = {kk: calls(w4_bytes) if kk == "plane" else 0 for kk in lut_gemm.LAUNCHES}
     if launches != want or gemm != want_gemm or any(lab1.values()):
@@ -1401,7 +1445,7 @@ def phase_lab2(dev, results, library_us_w4, floor_us):
     w3 = lut_gemm.dequantize_codes(torch.from_numpy(inp.codes3).to(dev), inp.scales, inp.table3,
                                    torch.bfloat16)
     dense = [(w3.clone(),) for _ in range(cold_copies(w3.numel() * 2))]
-    library_us_w3 = bench_op(lambda w: torch.matmul(inp.x, w), dense) * 1e6
+    library_us_w3 = bench_cycled(lambda w: torch.matmul(inp.x, w), dense) * 1e6
     del dense, w3
     cases = []
     xy_bytes = m * k * 2 + m * n * 2
@@ -1416,7 +1460,7 @@ def phase_lab2(dev, results, library_us_w4, floor_us):
             fn, args = kernel_lab2.lab_call(name, inp, ws, m, bn, bk)
             return ops2.plain(fn, *args)
 
-        t_p = bench_op(plain, sets, min_launches=2)
+        t_p = bench_cycled(plain, sets, min_launches=2)
         del sets
         nbytes = kernel_lab2.weight_bytes(weights) + table_bytes[name] + xy_bytes
         t_bytes = nbytes / HBM_BYTES_PER_S
@@ -1442,7 +1486,7 @@ def phase_lab2(dev, results, library_us_w4, floor_us):
     # int32 operations per element and step
     row = by_name["vmembw"]
     nops = max(kernel_lab2.VMEMBW_NOPS)
-    t_p = bench_op(lambda w: ops2.plain("vmembw", w, nops), [(block,)], min_launches=LAB_ITERS)
+    t_p = bench_cycled(lambda w: ops2.plain("vmembw", w, nops), [(block,)], min_launches=LAB_ITERS)
     t_bytes = 2 * block.numel() * 4 / HBM_BYTES_PER_S
     t_alu = 2 * nops * block.numel() / ALU_OPS_PER_S
     cases += [dict(variant=f"vmembw nops {kk}", function="vmembw", us=v)
@@ -2475,7 +2519,7 @@ def serve_continuous(dev, config, params, trajectory):
     for bit against the eager step, exact K1 launches."""
     from flute_tpu_torch.models import llama
     from flute_tpu_torch.serving import ContinuousBatchingEngine, Engine
-    from flute_tpu_torch.utils.benchmark import bench_op, cold_copies
+    from flute_tpu_torch.utils.benchmark import bench_cycled, cold_copies
 
     prompts = serving_prompts(config)
     v = config.vocab_size
@@ -2549,7 +2593,7 @@ def serve_continuous(dev, config, params, trajectory):
         mask = torch.ones((8, 1, SPEC_MAX_LEN), dtype=torch.bool, device=dev)
         sets = [(q, cache["k"][i % layers], cache["v"][i % layers])
                 for i in range(cold_copies(2 * cache["k"][0].numel() * 2))]
-        attn_s = bench_op(lambda q_, k_, v_: llama.gqa_attention(q_, k_, v_, mask), sets)
+        attn_s = bench_cycled(lambda q_, k_, v_: llama.gqa_attention(q_, k_, v_, mask), sets)
         serving["attention_ms_per_step"] = attn_s * layers * 1e3
         serving["attention_share"] = serving["attention_ms_per_step"] / serving[
             "replay_device_ms"]
@@ -3049,7 +3093,7 @@ def check_verify_rows(dev, config, models):
     on those rows (the loop's split does not follow M); and one layer's
     four projections timed at M = 8 and M = 40, L2-cold over the 32
     layers."""
-    from flute_tpu_torch.utils.benchmark import bench_op
+    from flute_tpu_torch.utils.benchmark import bench_cycled
 
     m = 8 * (SPEC_K + 1)
     gen = torch.Generator(device=dev)
@@ -3079,7 +3123,7 @@ def check_verify_rows(dev, config, models):
                         layer[proj](x)
 
                 with torch.inference_mode():
-                    numbers[f"us_per_layer_m{rows}"] = bench_op(
+                    numbers[f"us_per_layer_m{rows}"] = bench_cycled(
                         layer_call, [(layer,) for layer in layers]) * 1e6
         out[kid] = numbers
         log(f"  [verify rows] {kid}: every row of each layer-0 projection at M={m} has the bits "
@@ -3160,7 +3204,7 @@ def k1_case(dev, gen, name, n, k, m, dense_n=None, dense_t=False):
     from flute_tpu_torch.models.llama import matmul_f32
     from flute_tpu_torch.ops import lut_gemm
     from flute_tpu_torch.ops.kernel_config import KernelConfig
-    from flute_tpu_torch.utils.benchmark import bench_op, cold_copies
+    from flute_tpu_torch.utils.benchmark import bench_cycled, cold_copies
 
     planes = [torch.randint(-2**31, 2**31 - 1, (k // 8, n), generator=gen, device=dev,
                             dtype=torch.int32)]
@@ -3186,8 +3230,8 @@ def k1_case(dev, gen, name, n, k, m, dense_n=None, dense_t=False):
     del y, y_plain, again
     wbytes = planes[0].numel() * 4 + scales.numel() * 2
     args = [([p.clone() for p in planes], scales.clone()) for _ in range(cold_copies(wbytes))]
-    t_k = bench_op(lambda p, s: lut_gemm.lut_qgemm(x, p, s, table, **kw), args)
-    t_p = bench_op(lambda p, s: lut_gemm.lut_qgemm_plain(x, p, s, table, num_bits=4, chunk=256,
+    t_k = bench_cycled(lambda p, s: lut_gemm.lut_qgemm(x, p, s, table, **kw), args)
+    t_p = bench_cycled(lambda p, s: lut_gemm.lut_qgemm_plain(x, p, s, table, num_bits=4, chunk=256,
                                                          layout="w4sym"),
                    args[:2], min_launches=2)
     del args
@@ -3195,7 +3239,7 @@ def k1_case(dev, gen, name, n, k, m, dense_n=None, dense_t=False):
         shape = (dense_n, k) if dense_t else (k, dense_n)
         dense = [torch.randn(shape, generator=gen, device=dev).bfloat16()
                  for _ in range(cold_copies(k * dense_n * 2))]
-        t_l = bench_op(lambda w: matmul_f32(x, w.T if dense_t else w), [(w,) for w in dense])
+        t_l = bench_cycled(lambda w: matmul_f32(x, w.T if dense_t else w), [(w,) for w in dense])
         library_bytes = k * dense_n * 2 + m * k * 2 + m * dense_n * 4
         yardstick = "matmul_f32 on the dense bf16 head"
     else:
@@ -3209,7 +3253,7 @@ def k1_case(dev, gen, name, n, k, m, dense_n=None, dense_t=False):
                                  "the dequantized weight")
         deq_c = [deq.clone() for _ in range(cold_copies(deq.numel() * 2))]
         del deq
-        t_l = bench_op(lambda w: torch.matmul(x, w), [(w,) for w in deq_c])
+        t_l = bench_cycled(lambda w: torch.matmul(x, w), [(w,) for w in deq_c])
         del deq_c
         library_bytes = k * n * 2 + m * k * 2 + m * n * 2
         yardstick = "torch.matmul on the dequantized bf16 weight"
@@ -5299,6 +5343,7 @@ def main() -> int:
     kernels = [kernel_line(kid, cases, launches[kid], results["identity_paths"],
                            gemma_launches.get(kid), spec) for kid in LUT_KERNELS]
     kernels[0].update(phase7_numbers(phase7))
+    kernels[0]["qkv_m8_warm_cold"] = results["k1_qkv_warm_cold"]
     kernels += [attention_line(kid, attn_checks, attn_timed, launches[kid], gemma_launches[kid],
                                spec)
                 for kid in ("K5", "K6")]

@@ -216,7 +216,7 @@ def load_quantized(path: str, device=None) -> tuple[Any, dict]:
                 planes,
                 load("scales"),
                 load("table"),
-                load("bias"),
+                bias=load("bias"),
                 pair_values=load("pair_values"),
                 num_bits=e["num_bits"],
                 group_size=e["group_size"],

@@ -41,7 +41,7 @@ def _quantized_from_numpy(d: dict, device) -> QuantizedLinear:
         [tensor_from_numpy(p, device) for p in d["planes"]],
         tensor_from_numpy(d["scales"], device),
         tensor_from_numpy(d["table"], device).float(),
-        optional("bias"),
+        bias=optional("bias"),
         pair_values=optional("pair_values"),
         num_bits=int(d["num_bits"]),
         group_size=int(d["group_size"]),
@@ -82,7 +82,7 @@ def move_params(tree: Any, device) -> Any:
             [p.to(device) for p in tree.planes],
             tree.scales.to(device),
             tree.table.to(device),
-            None if tree.bias is None else tree.bias.to(device),
+            bias=None if tree.bias is None else tree.bias.to(device),
             pair_values=None if tree.pair_values is None else tree.pair_values.to(device),
             num_bits=tree.num_bits,
             group_size=tree.group_size,

@@ -27,8 +27,8 @@ Variants (the names of the JAX lab's ``main``):
   gather8      K2, the package's plane kernel (``lut_qgemm``).
   pairlut      K4, ``lut_qgemm`` with ``lut_mode="pair_lut"``.
 
-Each variant's time comes from ``utils/benchmark.py::bench_op`` (CUDA events
-over a CUDA graph of at least ``--iters`` launches, cycling copies of the
+Each variant's time comes from ``utils/benchmark.py::bench_cycled`` (CUDA
+events over a CUDA graph of at least ``--iters`` launches, cycling copies of the
 planes and scales past the L2 cache). ``report`` counts the bytes as the JAX
 lab does (planes, scales, x and y) and takes the share of the H100's
 3.35 TB/s. ``rel`` (largest error over the largest output, against
@@ -156,7 +156,7 @@ def main(argv=None) -> list[dict]:
     timed = dev.type == "cuda"
     card = ""
     if timed:
-        from flute_tpu_torch.utils.benchmark import bench_op, cold_copies
+        from flute_tpu_torch.utils.benchmark import bench_cycled, cold_copies
 
         torch.backends.cuda.matmul.allow_tf32 = False
         card = card_label()
@@ -183,7 +183,7 @@ def main(argv=None) -> list[dict]:
             return run_variant(name, x, pl, s, table, bm, args.bn, args.bk, g, pair_values)
 
         got = f(planes, scales).float()
-        t = bench_op(f, copies, min_launches=args.iters) if timed else None
+        t = bench_cycled(f, copies, min_launches=args.iters) if timed else None
         row = report(name, t, planes, scales, x, m, n, card)
         if want is not None and name in REL_PRINTED:
             row["rel"] = float((got - want).abs().max() / want.abs().max())

@@ -26,7 +26,7 @@ by default):
   vmembw      L7: v ← v ^ (v >> 1), 2 and 8 times, on a [256, 2048] int32
               block that stays in L2; prints the slope per operation.
 
-Each GEMM's time comes from ``utils/benchmark.py::bench_op`` (CUDA events
+Each GEMM's time comes from ``utils/benchmark.py::bench_cycled`` (CUDA events
 over a CUDA graph of at least ``--iters`` launches, cycling copies of the
 planes and scales past the L2 cache); ``vmembw`` takes 4000 launches on one
 block, as the JAX lab does. ``report`` counts the bytes as the JAX lab's
@@ -197,14 +197,15 @@ def vmembw_block(device) -> torch.Tensor:
 def run_vmembw(device, timed, card="") -> dict:
     """L7 at 2 and 8 chained steps; the slope in ns per 1024 int32 elements
     per operation (two operations a step)."""
-    from flute_tpu_torch.utils.benchmark import bench_op
+    from flute_tpu_torch.utils.benchmark import bench_cycled
 
     w = vmembw_block(device)
     row = dict(name="vmembw", t_us={})
     for nops in VMEMBW_NOPS:
         ops2.vmembw(w, nops)
         if timed:
-            t = bench_op(lambda w_, n=nops: ops2.vmembw(w_, n), [(w,)], min_launches=VMEMBW_ITERS)
+            t = bench_cycled(lambda w_, n=nops: ops2.vmembw(w_, n), [(w,)],
+                             min_launches=VMEMBW_ITERS)
             row["t_us"][nops] = t * 1e6
     if not timed:
         print("vmembw      : not measured (CPU)", flush=True)
@@ -240,7 +241,7 @@ def main(argv=None) -> list[dict]:
     timed = dev.type == "cuda"
     card = ""
     if timed:
-        from flute_tpu_torch.utils.benchmark import bench_op, cold_copies
+        from flute_tpu_torch.utils.benchmark import bench_cycled, cold_copies
 
         torch.backends.cuda.matmul.allow_tf32 = False
         card = card_label()
@@ -263,8 +264,9 @@ def main(argv=None) -> list[dict]:
         if timed:
             copies = [clone_weights(weights)
                       for _ in range(cold_copies(weight_bytes(weights)))]
-            t = bench_op(lambda *ws, name=name: run_variant(name, inp, ws, bm, args.bn, args.bk, g),
-                         copies, min_launches=args.iters)
+            t = bench_cycled(
+                lambda *ws, name=name: run_variant(name, inp, ws, bm, args.bn, args.bk, g),
+                copies, min_launches=args.iters)
             del copies
         row = report(name, t, gemm_bytes(m, n, k, 3 if name == "w3wide" else BITS, g), card)
         row["rel"] = rel

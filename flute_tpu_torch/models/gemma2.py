@@ -217,21 +217,25 @@ def forward(
 
 
 def init_params(
-    config: Gemma2Config, seed: int = 0, scale: float = 0.02, device=None
+    config: Gemma2Config,
+    rng=llama._DEFAULT_RNG,
+    scale: float = 0.02,
+    *,
+    seed: Optional[int] = None,
+    device=None,
 ) -> dict:
     """Dense random params (linear leaves ``[in, out]``, norms zero, as
-    ``(1 + w)`` wants them, no ``lm_head``: it is tied), drawn from a
-    ``torch.Generator`` seeded with ``seed`` on the target device."""
-    dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    ``(1 + w)`` wants them, no ``lm_head``: it is tied) on ``device``.
+
+    The parameters before ``*`` are JAX's ``init_params(config, rng=0,
+    scale=0.02)``; ``seed`` and ``device`` are keyword-only. ``rng`` draws
+    JAX's values with numpy on the host; ``seed``, or neither (as
+    ``seed=0``, the default), draws with a ``torch.Generator`` on the
+    device (:func:`flute_tpu_torch.models.llama.init_params`)."""
+    randn, dev = llama._normal_draws(config, rng, seed, scale, device)
     c = config
     qdim = c.num_heads * c.head_dim
     kvdim = c.num_kv_heads * c.head_dim
-
-    def randn(*shape):
-        w = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
-        return (w * scale).to(c.dtype)
 
     def zeros(n):
         return torch.zeros((n,), dtype=c.dtype, device=dev)

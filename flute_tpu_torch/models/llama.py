@@ -412,21 +412,76 @@ def head_logits(params: dict, config: LlamaConfig, x: torch.Tensor) -> torch.Ten
 # ---------------------------------------------------------------------------
 
 
-def init_params(
-    config: LlamaConfig, seed: int = 0, scale: float = 0.02, device=None
-) -> dict:
-    """Dense random params (linear leaves ``[in, out]``), drawn from a
-    ``torch.Generator`` seeded with ``seed`` on the target device."""
+class _DefaultRng(int):
+    """The default of ``init_params``'s ``rng``: 0, as in JAX's signature,
+    but an object of its own, so that a call that passes neither ``rng`` nor
+    ``seed`` is told apart from ``rng=0``."""
+
+    def __repr__(self) -> str:
+        return "0"
+
+
+_DEFAULT_RNG = _DefaultRng(0)
+# numpy's casts from float64 (JAX casts numpy inputs as numpy does)
+_NUMPY_DTYPES = {torch.float16: np.float16, torch.float32: np.float32,
+                 torch.float64: np.float64}
+
+
+def _normal_draws(config, rng, seed: Optional[int], scale: float, device):
+    """``randn(*shape)`` for ``init_params``: normal draws times ``scale``,
+    in ``config.dtype``, on ``device`` (resolved and returned beside it).
+
+    With ``rng`` (an int or a ``np.random.Generator``) the draws are JAX's:
+    numpy's ``standard_normal`` in float64, times ``scale``, cast on the
+    host as JAX casts them. Otherwise a ``torch.Generator`` seeded with
+    ``seed`` (0 when None) draws on the device, which is quicker at full
+    width."""
     dev = resolve_device(device)
+    if rng is not _DEFAULT_RNG:
+        if seed is not None:
+            raise ValueError("init_params takes rng (the JAX package's numpy draws) or seed "
+                             "(a torch.Generator's), not both")
+        if not isinstance(rng, np.random.Generator):
+            rng = np.random.default_rng(rng)
+
+        def randn(*shape):
+            w = rng.standard_normal(shape) * scale
+            np_dtype = _NUMPY_DTYPES.get(config.dtype)
+            w = torch.from_numpy(w.astype(np_dtype) if np_dtype else w)
+            return w.to(device=dev, dtype=config.dtype)
+
+        return randn, dev
     gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
-    c = config
-    qdim = c.num_heads * c.head_dim
-    kvdim = c.num_kv_heads * c.head_dim
+    gen.manual_seed(0 if seed is None else seed)
 
     def randn(*shape):
         w = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
-        return (w * scale).to(c.dtype)
+        return (w * scale).to(config.dtype)
+
+    return randn, dev
+
+
+def init_params(
+    config: LlamaConfig,
+    rng=_DEFAULT_RNG,
+    scale: float = 0.02,
+    *,
+    seed: Optional[int] = None,
+    device=None,
+) -> dict:
+    """Dense random params (linear leaves ``[in, out]``) on ``device``.
+
+    The parameters before ``*`` are JAX's ``init_params(config, rng=0,
+    scale=0.02)``; ``seed`` and ``device`` are keyword-only. An ``rng``
+    (an int or a ``np.random.Generator``) draws JAX's values: numpy on the
+    host, in JAX's order. ``seed`` draws with a ``torch.Generator`` on the
+    device instead, and so does a call that passes neither, as with
+    ``seed=0``: that is the default, quick at full width. Passing both
+    raises."""
+    randn, dev = _normal_draws(config, rng, seed, scale, device)
+    c = config
+    qdim = c.num_heads * c.head_dim
+    kvdim = c.num_kv_heads * c.head_dim
 
     def ones(n):
         return torch.ones((n,), dtype=c.dtype, device=dev)

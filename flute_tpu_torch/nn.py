@@ -42,6 +42,11 @@ class QuantizedLinear(nn.Module):
     transform of that size before the GEMM (HIGGS layers); None = none.
     ``config``: the config itself, with a tuner's launch, given in place
     of ``config_key``.
+
+    The parameters before ``config`` are the JAX layer's fields in its
+    order, ``(planes, scales, table, pair_values, bias, num_bits,
+    group_size, config_key, hadamard_size, layout)``, so that its
+    positional form builds the same layer; ``config`` is keyword-only.
     """
 
     def __init__(
@@ -49,14 +54,14 @@ class QuantizedLinear(nn.Module):
         planes,
         scales: torch.Tensor,
         table: torch.Tensor,
-        bias: Optional[torch.Tensor] = None,
-        *,
         pair_values: Optional[torch.Tensor] = None,
+        bias: Optional[torch.Tensor] = None,
         num_bits: int = 4,
         group_size: int = 64,
         config_key: Optional[str] = None,
-        layout: str = "auto",
         hadamard_size: Optional[int] = None,
+        layout: str = "auto",
+        *,
         config: Optional[KernelConfig] = None,
     ):
         super().__init__()
@@ -120,7 +125,7 @@ class QuantizedLinear(nn.Module):
             raise TypeError(f"cannot replace {sorted(unknown)}")
         fields.update(changes)
         return QuantizedLinear(
-            fields["planes"], fields["scales"], fields["table"], fields["bias"],
+            fields["planes"], fields["scales"], fields["table"], bias=fields["bias"],
             pair_values=fields["pair_values"], num_bits=self.num_bits,
             group_size=self.group_size, config=fields["config"],
             layout=self.layout, hadamard_size=self.hadamard_size,
@@ -279,7 +284,7 @@ def quantize_linear(
         planes,
         scales_kn,
         table.to(device=dev, dtype=torch.float32),
-        None if bias is None else torch.as_tensor(bias).to(dev),
+        bias=None if bias is None else torch.as_tensor(bias).to(dev),
         num_bits=num_bits,
         group_size=group_size,
         config_key=dataclasses.replace(config, chunk=chunk).key(),
@@ -321,7 +326,7 @@ def from_codes(
         packing.pack_plane(codes_kn, num_bits, chunk=chunk),
         torch.as_tensor(scales_kn).to(dev),
         torch.as_tensor(table, dtype=torch.float32).to(dev),
-        None if bias is None else torch.as_tensor(bias).to(dev),
+        bias=None if bias is None else torch.as_tensor(bias).to(dev),
         pair_values=None if pair_values is None else torch.as_tensor(
             pair_values, dtype=torch.float32
         ).to(dev),

@@ -5,6 +5,7 @@ Each ``csrc/*.cu`` file has a plain C interface (shared device code is in
 at first use, under ``build/flute_tpu_torch/`` at the repository root, keyed
 by a hash of the source, the headers and the command, and loaded with
 ``ctypes``. A missing ``nvcc`` or a failed build raises: nothing falls back.
+Nothing is built or loaded inside a CUDA graph capture.
 """
 
 from __future__ import annotations
@@ -87,5 +88,12 @@ def build(source: str) -> Path:
 
 
 def load(source: str) -> ctypes.CDLL:
-    """The library of ``csrc/<source>``, built if it is not yet."""
+    """The library of ``csrc/<source>``, built if it is not yet. Raises
+    inside a CUDA graph capture: a kernel is built and loaded by an eager
+    call before any capture of it."""
+    import torch
+
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"csrc/{source} is not loaded yet and cannot be built inside a "
+                           "CUDA graph capture: call the op once before capturing it")
     return ctypes.CDLL(str(build(source)))

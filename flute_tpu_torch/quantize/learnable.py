@@ -27,7 +27,9 @@ class LearnableQuantizedLinear(nn.Module):
 
     ``weight``: frozen dense ``[K, N]`` (in, out), f32. ``scales``:
     trainable ``[K // group_size, N]``, initialized to the group absmax.
-    ``table``: ``[2^b]`` ascending float32.
+    ``table``: ``[2^b]`` ascending float32. The parameters are the JAX
+    layer's fields in its order, ``(weight, scales, table, bias, num_bits,
+    group_size)``, so that its positional form builds the same layer.
     """
 
     def __init__(
@@ -36,7 +38,6 @@ class LearnableQuantizedLinear(nn.Module):
         scales: torch.Tensor,
         table: torch.Tensor,
         bias: Optional[torch.Tensor] = None,
-        *,
         num_bits: int = 4,
         group_size: int = 64,
     ):

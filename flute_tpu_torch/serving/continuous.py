@@ -259,7 +259,8 @@ class ContinuousBatchingEngine:
     """Continuous-batching decode (greedy or per-request sampled) over a
     fixed grid of ``num_slots`` slots, on ``device`` (``cuda`` unless named;
     params must live there). ``forward`` and ``init_cache`` default to the
-    config's family (Llama or Gemma-2)."""
+    config's family (Llama or Gemma-2). The fields are the JAX engine's in
+    its order; ``device`` is keyword-only."""
 
     params: Any
     config: Any
@@ -283,7 +284,7 @@ class ContinuousBatchingEngine:
     # same calls on its slices; the slot cache holds this rank's KV heads
     mesh: Any = None
     params_specs: Any = None
-    device: Any = None
+    device: Any = dataclasses.field(default=None, kw_only=True)
 
     def __post_init__(self):
         family = family_of(self.config)

@@ -75,6 +75,11 @@ class Engine:
     permuted rank-major first, ``parallel.permute_fused_params``);
     ``params_specs``: the specs to shard them with (default
     ``parallel.llama_partition_specs``).
+
+    The fields are the JAX engine's in its order, ``(params, config,
+    forward, init_cache, max_len, batch_size, pad_id, mesh,
+    params_specs)``, so that its positional form binds the same names;
+    ``device`` is keyword-only.
     """
 
     params: Any
@@ -84,7 +89,7 @@ class Engine:
     max_len: int = 1024
     batch_size: int = 8
     pad_id: int = 0
-    device: Any = None
+    device: Any = dataclasses.field(default=None, kw_only=True)
     mesh: Any = None
     params_specs: Any = None
 

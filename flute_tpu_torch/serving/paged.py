@@ -79,7 +79,12 @@ class PagedEngine:
     """Slot-based engine over a paged KV pool (greedy or per-request
     sampled decode), on ``device`` (``cuda`` unless named; params must live
     there). ``num_blocks`` bounds the cached tokens (num_blocks * block_size),
-    apart from ``num_slots * max_len``."""
+    apart from ``num_slots * max_len``. The fields are the JAX engine's in
+    its order, ``(params, config, num_slots, block_size, num_blocks,
+    max_len, pad_id, eos_id, forward, init_cache, token_callback,
+    prefix_cache_blocks, mesh, params_specs, prefill_chunk, pool_prefill)``;
+    ``device`` is keyword-only, so that a subclass's fields follow them as
+    in JAX."""
 
     params: Any
     config: Any
@@ -104,7 +109,7 @@ class PagedEngine:
     prefill_chunk: Optional[int] = None
     # prefill through the pool and K6 instead of a dense scratch cache
     pool_prefill: bool = False
-    device: Any = None
+    device: Any = dataclasses.field(default=None, kw_only=True)
     # whether submit takes repetition/presence/frequency penalties (a
     # subclass whose steps keep no output counts says no)
     supports_penalties = True

@@ -66,7 +66,9 @@ class PagedSpeculativeEngine(SpeculativeRounds, PagedEngine):
 
     The block pool, prefix-block sharing, per-request sampling, both
     prefill routes and the streaming callback carry over; the decode step
-    is replaced by draft-propose / paged-verify rounds.
+    is replaced by draft-propose / paged-verify rounds. ``draft_params``,
+    ``draft_config`` and ``k`` follow :class:`PagedEngine`'s fields, as in
+    JAX; ``device`` is keyword-only.
     """
 
     draft_params: Any = None

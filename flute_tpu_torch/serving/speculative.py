@@ -243,7 +243,8 @@ class SpeculativeEngine(SpeculativeRounds):
     for W4), or the target itself. ``forward``/``init_cache`` serve both
     models when given; otherwise each side's family's (Llama or Gemma-2).
     The caches are allocated at the first ``generate`` and zeroed at each
-    later one, so the step graphs captured against them stay valid.
+    later one, so the step graphs captured against them stay valid. The
+    fields are the JAX engine's in its order; ``device`` is keyword-only.
     """
 
     target_params: Any
@@ -256,7 +257,7 @@ class SpeculativeEngine(SpeculativeRounds):
     max_len: int = 1024
     batch_size: int = 8
     pad_id: int = 0
-    device: Any = None
+    device: Any = dataclasses.field(default=None, kw_only=True)
 
     def __post_init__(self):
         if self.k < 1:

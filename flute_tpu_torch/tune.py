@@ -6,7 +6,7 @@ For a GEMM shape the tuner times every candidate launch
 tensor-core loop's m16 tiles per warp, or the SIMT kernel's rows per
 block) on the card, keeps the fastest that passes verification, and
 memoizes it by shape, dtype, layout and card (``torch.cuda.get_device_name``).
-Timing is :func:`flute_tpu_torch.utils.benchmark.bench_op`: CUDA events
+Timing is :func:`flute_tpu_torch.utils.benchmark.bench_cycled`: CUDA events
 around a CUDA graph of many launches, the weights cycled through copies past
 the L2 cache. Verification keeps the JAX package's two oracles (an identity
 x reproduces the dequantized weight bit for bit; a random x is within
@@ -227,7 +227,7 @@ def tune_config(
         _MEMO[key] = cfg
         return cfg
 
-    from flute_tpu_torch.utils.benchmark import bench_op, cold_copies
+    from flute_tpu_torch.utils.benchmark import bench_cycled, cold_copies
 
     klayout = kernel_layout(num_bits, layout)
     tdtype = _TORCH_DTYPES[dtype_name(dtype)]
@@ -256,7 +256,7 @@ def tune_config(
         rows[cfg] = {"launch": launch_name(cfg), "m_tiles": cfg.m_tiles,
                      "simt_block_m": cfg.simt_block_m, "planner": ci == 0}
         try:
-            t = bench_op(lambda p, s, c=cfg: call(c, p, s), sets, min_launches=iters)
+            t = bench_cycled(lambda p, s, c=cfg: call(c, p, s), sets, min_launches=iters)
         except Exception as e:
             error = (str(e).splitlines() or [type(e).__name__])[0][:120]
             rows[cfg].update(us=None, error=error, passed=False)

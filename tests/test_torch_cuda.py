@@ -2202,3 +2202,48 @@ def test_nfl_gradient_on_the_card(dev):
     for key, g in grads["cpu"][0].items():
         assert rel_err(grads["card"][0][key], g) < 1e-5, key
         assert torch.isfinite(grads["bf16"][0][key]).all() and grads["bf16"][0][key].abs().max() > 0
+
+
+def test_bench_op_jax_form_times_k1(dev):
+    """The JAX-form ``bench_op`` times K1 on the same inputs every call: one
+    warm-up launch and ``iters`` captured ones, none at the replays; with
+    ``warmup=False`` only the captured ones. ``bench_cycled`` makes its
+    first call on each set, then its graph's."""
+    import math
+
+    from flute_tpu_torch.utils.benchmark import bench_cycled, bench_op
+
+    _, x, plane, scales, table = w4sym_case(dev, 8, torch.bfloat16, seed=3)
+    kw = dict(num_bits=4, layout="w4sym", config=KernelConfig(chunk=256))
+
+    def k1(x_):
+        return lut_gemm.lut_qgemm(x_, [plane], scales, table, **kw)
+
+    for call, launches in ((dict(iters=20), 21), (dict(iters=16, warmup=False), 16),
+                           (dict(iters=8, min_window=0.0), 9)):
+        before = lut_gemm.LAUNCHES["w4sym"]
+        t = bench_op(k1, x, **call)
+        assert lut_gemm.LAUNCHES["w4sym"] - before == launches, call
+        assert math.isfinite(t) and t > 0
+    sets = [(plane, scales), (plane.clone(), scales.clone())]
+    before = lut_gemm.LAUNCHES["w4sym"]
+    t = bench_cycled(lambda p, s: lut_gemm.lut_qgemm(x, [p], s, table, **kw), sets,
+                     min_launches=8)
+    assert lut_gemm.LAUNCHES["w4sym"] - before == 2 + 8
+    assert math.isfinite(t) and t > 0
+    assert bench_op(lambda a: a, torch.ones(4, device=dev), iters=10) > 0
+
+
+def test_bench_op_refuses_to_build_in_its_capture(dev):
+    """With ``warmup=False`` an op that would load a kernel library inside
+    the capture raises, naming the cause; nothing is built there."""
+    from flute_tpu_torch.ops import _build
+    from flute_tpu_torch.utils.benchmark import bench_op
+
+    def loads(a):
+        _build.load("lut_gemm_w4sym.cu")
+        return a + 1
+
+    with pytest.raises(RuntimeError, match="must be built before") as info:
+        bench_op(loads, torch.ones(4, device=dev), iters=2, warmup=False)
+    assert "CUDA graph capture" in str(info.value.__cause__)
