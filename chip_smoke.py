@@ -407,14 +407,19 @@ def make_weight(rng, gen, layout, bits, n, k, dtype, dev, chunk=256, mixed_signs
     return codes, planes, scales, table
 
 
-def kernel_path(kid, dtype, bits, chunk=256):
-    """The kernel a LUT-GEMM case runs: "mma" (the tensor-core loop) or
-    "simt" (the skeleton of lut_gemm_common.cuh), as the wrapper picks it."""
-    from flute_tpu_torch.ops import lut_gemm
+def kernel_path(kid, dtype, bits, chunk=256, m=1):
+    """The kernel a LUT-GEMM case runs: "mma" (the tensor-core loop),
+    "wide" (the wide-M kernel on warpgroup MMA, K1 and K2 from
+    kernel_config.WIDE_MIN_M rows) or "simt" (the skeleton of
+    lut_gemm_common.cuh), as the wrapper picks it."""
+    from flute_tpu_torch.ops import kernel_config, lut_gemm
 
     if kid == "K4":
         return "mma"
-    return lut_gemm.lut_path(dtype, bits, chunk, LAYOUT[kid])
+    path = lut_gemm.lut_path(dtype, bits, chunk, LAYOUT[kid])
+    if path == "mma" and kernel_config.mma_route(m, bits, chunk, LAYOUT[kid], GROUP) == "wide":
+        return "wide"
+    return path
 
 
 def check_rows(kid, label, x, y, call):
@@ -475,7 +480,7 @@ def phase_kernel(dev, results):
                         raise AssertionError(f"{kid} {bits}-bit {name} M={m} {dtype}: rel err {err}")
                     case = dict(kernel=kid, model=model, bits=bits, name=name, n=n, k=k, m=m,
                                 dtype=str(dtype).split(".")[-1], rel_err=err,
-                                max_abs_err=max_abs, path=kernel_path(kid, dtype, bits))
+                                max_abs_err=max_abs, path=kernel_path(kid, dtype, bits, m=m))
                     cases.append(case)
                     if m not in timed or case["dtype"] not in timed_dtypes:
                         continue
@@ -521,6 +526,7 @@ def phase_kernel(dev, results):
     check_pair_lut_routing(dev, rng, gen, results)
     check_qgemm_hadamard(dev, rng, gen, results)
     time_warm_and_cold(dev, results)
+    wide_sweep(dev, results)
     return cases
 
 
@@ -724,6 +730,181 @@ def check_qgemm_hadamard(dev, rng, gen, results):
 # K5/K6: one decode batch at Llama-3.1-8B's attention widths, and at
 # Gemma-2-9B's (D=256, 16/8 heads) with the options its layers pass: the
 # softcap 50 everywhere and the window of 4096 on even layers
+# phase 2's sweep of K1's and K2's two routes on the tensor cores, the decode
+# loop and the wide-M kernel: (kernel id, bits) at one Llama-3.1-8B layer in
+# bf16 at these M (K2 at 2 bits is phase 6's draft)
+SWEEP = (("K1", 4), ("K2", 4), ("K2", 2))
+SWEEP_M = (8, 40, 64, 128, 256, 512, 2047)
+WIDE_SOURCE = "lut_gemm_wide_m.cuh"
+WIDE_REPLACES = ("flute_tpu/ops/lut_gemm.py:454 (_lut_qgemm_kernel[{}], its weight-side branch "
+                 ":611-615, taken above group_acc_max_bm at :812; pallas_call :828)")
+
+
+def route_call(kid, bits, planes, scales, table, route):
+    """K1's or K2's wrapper on ``route``, for a 2-D x: "wide" or "loop" at
+    any M, the plan's crossover (kernel_config.WIDE_MIN_M) moved to one row
+    or past M for the call."""
+    from flute_tpu_torch.ops import kernel_config, lut_gemm
+
+    kw = dict(group_size=GROUP, chunk=256)
+
+    def call(x, p=planes, s=scales):
+        saved = kernel_config.WIDE_MIN_M
+        kernel_config.WIDE_MIN_M = 1 if route == "wide" else 1 << 30
+        try:
+            if kid == "K1":
+                return lut_gemm.lut_qgemm_w4sym_cuda(x, p[0], s, table, **kw)
+            return lut_gemm.lut_qgemm_plane_cuda(x, p, s, table, num_bits=bits, **kw)
+        finally:
+            kernel_config.WIDE_MIN_M = saved
+
+    return call
+
+
+def same_bits(a, b) -> bool:
+    return torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+def wide_sweep(dev, results):
+    """Phase 2's sweep: K1 (w4sym), K2 at 4 bits and K2 at 2 bits at one
+    Llama-3.1-8B layer's four fused shapes, bf16, M in SWEEP_M. At each
+    point both routes are timed (bench_cycled, L2-cold) beside the bf16
+    matmul and the bound (bytes at 3.35 TB/s or operations at 989 TFLOP/s,
+    the larger), and checked: the two routes give the same bits, the call
+    the plan routes has them and is within the bf16 threshold of the plain
+    version, a repeat call gives the same bits, identity rows are bit-exact
+    on both routes, and rows 0 and M-1 have the one-row call's bits. The
+    layer's sums per M show where the wide kernel is faster: the plan's
+    crossover (kernel_config.WIDE_MIN_M) is held to them."""
+    from flute_tpu_torch.ops import kernel_config, lut_gemm
+    from flute_tpu_torch.utils.benchmark import bench_cycled, cold_copies
+
+    rng = np.random.default_rng(5)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    points, matmul_us, plain_us = [], {}, {}
+    t_sweep = time.perf_counter()
+    for kid, bits in SWEEP:
+        layout = LAYOUT[kid]
+        for name, n, k in LAYER_SHAPES:
+            codes, planes, scales, table = make_weight(rng, gen, layout, bits, n, k,
+                                                       torch.bfloat16, dev)
+            deq = lut_gemm.dequantize_codes(codes, scales, table, torch.bfloat16)
+            del codes
+            wbytes = sum(p.numel() * 4 for p in planes) + scales.numel() * 2
+            args = [([p.clone() for p in planes], scales.clone())
+                    for _ in range(cold_copies(wbytes))]
+            deq_c = ([(deq.clone(),) for _ in range(cold_copies(deq.numel() * 2))]
+                     if (name, SWEEP_M[0]) not in matmul_us else None)
+            for m in SWEEP_M:
+                label = f"{bits}-bit {name} M={m}"
+                x = torch.randn((m, k), generator=gen, device=dev).bfloat16()
+                wide = route_call(kid, bits, planes, scales, table, "wide")
+                loop = route_call(kid, bits, planes, scales, table, "loop")
+                routed = kernel_config.mma_route(m, bits, 256, layout, GROUP)
+                y_wide, y_loop = wide(x), loop(x)
+                y = lut_gemm.lut_qgemm(x, planes, scales, table, num_bits=bits, layout=layout)
+                if not same_bits(y_wide, y_loop):
+                    raise AssertionError(f"{kid} {label}: the wide kernel's bits differ from "
+                                         "the loop's")
+                if not same_bits(y, y_wide if routed == "wide" else y_loop):
+                    raise AssertionError(f"{kid} {label}: lut_qgemm did not take the {routed} "
+                                         "route")
+                if not same_bits(lut_gemm.lut_qgemm(x, planes, scales, table, num_bits=bits,
+                                                    layout=layout), y):
+                    raise AssertionError(f"{kid} {label}: a repeat call gave other bits")
+                if m > 1:
+                    check_rows(kid, label, x, y, lambda xr: lut_gemm.lut_qgemm(
+                        xr, planes, scales, table, num_bits=bits, layout=layout))
+                eye = torch.eye(m, k, dtype=torch.bfloat16, device=dev)
+                for route_fn in (wide, loop):
+                    if not same_bits(route_fn(eye), deq[:m]):
+                        raise AssertionError(f"{kid} {label}: identity rows not bit-exact")
+                y_plain = lut_gemm.lut_qgemm_plain(x, planes, scales, table, num_bits=bits,
+                                                   chunk=256, layout=layout)
+                err = rel_err(y, y_plain)
+                if not err < THRESHOLDS[torch.bfloat16]:
+                    raise AssertionError(f"{kid} {label}: rel err {err}")
+                max_abs = float((y.float() - y_plain.float()).abs().max())
+                t_w = bench_cycled(lambda p, s: route_call(kid, bits, p, s, table, "wide")(x),
+                                   args)
+                t_l = bench_cycled(lambda p, s: route_call(kid, bits, p, s, table, "loop")(x),
+                                   args)
+                if (name, m) not in matmul_us:
+                    matmul_us[name, m] = bench_cycled(lambda w: torch.matmul(x, w), deq_c) * 1e6
+                if m == SWEEP_M[-1] and (kid, bits, name) not in plain_us:
+                    plain_us[kid, bits, name] = bench_cycled(
+                        lambda p, s: lut_gemm.lut_qgemm_plain(x, p, s, table, num_bits=bits,
+                                                              chunk=256, layout=layout),
+                        args[:2], min_launches=2) * 1e6
+                nbytes = wbytes + table.numel() * 4 + 2 * m * k + 2 * m * n
+                t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2 * m * n * k / BF16_OPS_PER_S
+                points.append(dict(
+                    kernel=kid, bits=bits, name=name, n=n, k=k, m=m, route=routed,
+                    wide_us=t_w * 1e6, loop_us=t_l * 1e6, library_us=matmul_us[name, m],
+                    plain_us=plain_us.get((kid, bits, name)), rel_err=err, max_abs_err=max_abs,
+                    bound_us=max(t_bytes, t_ops) * 1e6,
+                    bound_by="bytes" if t_bytes >= t_ops else "operations", bytes=nbytes))
+            del args, deq_c, deq, planes
+    layers = []
+    for kid, bits in SWEEP:
+        for m in SWEEP_M:
+            stack = [p for p in points if p["kernel"] == kid and p["bits"] == bits and p["m"] == m]
+            row = dict(kernel=kid, bits=bits, m=m, route=stack[0]["route"],
+                       **{key: sum(p[key] for p in stack)
+                          for key in ("wide_us", "loop_us", "library_us", "bound_us")},
+                       bound_by="bytes" if all(p["bound_by"] == "bytes" for p in stack)
+                       else "operations")
+            row["faster"] = "wide" if row["wide_us"] < row["loop_us"] else "loop"
+            layers.append(row)
+            log(f"    sweep {kid} {bits}-bit layer M={m:<5d} route {row['route']:4s}: wide "
+                f"{row['wide_us']:9.1f} us  loop {row['loop_us']:9.1f} us  matmul "
+                f"{row['library_us']:8.1f} us  bound {row['bound_us']:8.1f} us "
+                f"({row['bound_by']})")
+    # the plan routes M to the wide kernel where the sweep shows it faster
+    agree = all((r["route"] == "wide") == (r["faster"] == "wide") for r in layers)
+    log(f"  sweep: every point's two routes bit-identical, identity exact, rows 0 and M-1 the "
+        f"one-row call's bits; the plan's crossover (M >= {kernel_config.WIDE_MIN_M}) "
+        f"{'agrees with' if agree else 'DIFFERS from'} the faster route at every M of the "
+        f"sweep ({time.perf_counter() - t_sweep:.0f} s)")
+    results["wide_sweep"] = dict(points=points, layers=layers, crossover_agrees=agree,
+                                 wide_min_m=kernel_config.WIDE_MIN_M)
+    return results["wide_sweep"]
+
+
+def wide_line(kid, sweep, launches, gemma2_launches=None, ppl_launches=None):
+    """The {"kernels": [...]} entry of the wide-M route of K1 or K2: one
+    Llama-3.1-8B layer at M=2047 in bf16 (4 bits), its per-M layer sums from
+    the sweep beside it; ``launches`` its launches in phase 4's Engine
+    prefill."""
+    bits = 4
+    mine = [p for p in sweep["points"] if p["kernel"] == kid and p["bits"] == bits]
+    top = [p for p in mine if p["m"] == SWEEP_M[-1]]
+    layout = LAYOUT[kid]
+    line = dict(
+        name=f"{KERNELS[kid][0]} (wide-M route)", route="cuda", path="wide",
+        source=f"flute_tpu_torch/csrc/{WIDE_SOURCE}",
+        replaces=WIDE_REPLACES.format(layout if kid == "K1" else "plane, gather8/select"),
+        launches=launches,
+        max_abs_err=max(p["max_abs_err"] for p in mine if p["route"] == "wide"),
+        m=SWEEP_M[-1], ms=sum(p["wide_us"] for p in top) / 1e3,
+        plain_ms=sum(p["plain_us"] for p in top) / 1e3,
+        bound_ms=sum(p["bound_us"] for p in top) / 1e3,
+        bound_by="bytes" if all(p["bound_by"] == "bytes" for p in top) else "operations",
+        library_ms=sum(p["library_us"] for p in top) / 1e3,
+        loop_ms=sum(p["loop_us"] for p in top) / 1e3,
+        sweep=[dict(m=r["m"], route=r["route"], wide_ms=r["wide_us"] / 1e3,
+                    loop_ms=r["loop_us"] / 1e3, library_ms=r["library_us"] / 1e3,
+                    bound_ms=r["bound_us"] / 1e3)
+               for r in sweep["layers"] if r["kernel"] == kid and r["bits"] == bits],
+        checked=True)
+    if gemma2_launches is not None:
+        line["gemma2"] = dict(launches=gemma2_launches)
+    if ppl_launches is not None:
+        line["perplexity"] = dict(launches=ppl_launches)
+    return line
+
+
 ATTN = dict(h=32, hkv=8, d=128, bs=16)
 ATTN_GEMMA2 = dict(h=16, hkv=8, d=256, bs=16)
 ATTN_OPTIONS = [(None, None), (50.0, None), (None, 1000), (30.0, 333)]
@@ -1729,7 +1910,30 @@ def counters():
     from flute_tpu_torch.ops import lut_gemm
     from flute_tpu_torch.ops import paged_attention as pa
 
-    return (lut_gemm.LAUNCHES, pa.LAUNCHES)
+    return (lut_gemm.LAUNCHES, pa.LAUNCHES, lut_gemm.WIDE_LAUNCHES)
+
+
+def wide_expected(layout, bits, rows, calls) -> int:
+    """Launches of the wide-M kernel among ``calls`` LUT-GEMM launches of
+    ``layout`` at ``rows`` rows each: all of them where the plan routes
+    that M to it, else none."""
+    from flute_tpu_torch.ops import kernel_config
+
+    routed = kernel_config.mma_route(rows, bits, 256, layout, GROUP) == "wide"
+    return calls if routed else 0
+
+
+def check_wide(name, expected):
+    """The wide-M kernel's launches since the counters were set to 0 equal
+    ``expected`` (by layout, the others 0)."""
+    from flute_tpu_torch.ops import lut_gemm
+
+    want = {key: 0 for key in lut_gemm.WIDE_LAUNCHES}
+    want.update({f"{layout}_wide": n for layout, n in expected.items() if n})
+    got = dict(lut_gemm.WIDE_LAUNCHES)
+    if got != want:
+        raise AssertionError(f"[{name}] wide-M launches {got}, expected {want}")
+    return got
 
 
 def launches_now() -> dict:
@@ -1787,7 +1991,10 @@ def serve_engine(name, eng, prompts, kernel_layout, new_tokens=None, head=0):
     logits_seen, step_logits, last = [], [], {}
     prefill, decode_step = eng.prefill, eng.decode_step
 
+    prefill_rows = []
+
     def counted_prefill(tokens, offsets):
+        prefill_rows.append(tokens.numel())
         logits, cache = prefill(tokens, offsets)
         logits_seen.append(bool(torch.isfinite(logits).all()))
         step_logits.append(logits.float().clone())
@@ -1812,6 +2019,12 @@ def serve_engine(name, eng, prompts, kernel_layout, new_tokens=None, head=0):
     if steps != new_tokens or launches != expected:
         raise AssertionError(f"[{name}] launches {launches} over {steps} steps, "
                              f"expected {expected}")
+    # the prefill's projections (and a quantized head, which runs on every
+    # row) on the wide-M kernel where the plan routes its rows there (the
+    # decode steps' 8 rows stay on the loop)
+    bits = 3 if kernel_layout == "w3wide" else 4
+    wide = check_wide(name, {kernel_layout: sum(
+        wide_expected(kernel_layout, bits, r, layers * 4 + head) for r in prefill_rows)})
     if not all(logits_seen):
         raise AssertionError(f"[{name}] non-finite logits while serving")
     if any(len(o) != new_tokens for o in out):
@@ -1828,7 +2041,8 @@ def serve_engine(name, eng, prompts, kernel_layout, new_tokens=None, head=0):
     total = tm["prefill_s"] + sum(decode_s)
     serving = dict(
         prompts=len(prompts), prompt_lengths=[len(p) for p in prompts], new_tokens=new_tokens,
-        steps=steps, launches=launches, prefill_ms=tm["prefill_s"] * 1e3,
+        steps=steps, launches=launches, wide_launches=wide, prefill_rows=prefill_rows,
+        prefill_ms=tm["prefill_s"] * 1e3,
         decode_ms_per_step=dec * 1e3, decode_ms_quickest=min(decode_s) * 1e3,
         decode_ms_steps=[d * 1e3 for d in decode_s],
         decode_tok_s=len(prompts) / dec, end_to_end_tok_s=len(prompts) * new_tokens / total,
@@ -1839,7 +2053,8 @@ def serve_engine(name, eng, prompts, kernel_layout, new_tokens=None, head=0):
         f"ms/step (median; quickest {min(decode_s) * 1e3:.2f}, slowest "
         f"{max(decode_s) * 1e3:.2f}), {serving['decode_tok_s']:.1f} decode tok/s, "
         f"{serving['end_to_end_tok_s']:.1f} tok/s end to end, "
-        f"{launches[kernel_layout]} {kernel_layout} kernel launches")
+        f"{launches[kernel_layout]} {kernel_layout} kernel launches, "
+        f"{sum(wide.values())} of them on the wide-M kernel (prefill of {prefill_rows} rows)")
     return serving, (out, torch.stack(step_logits).cpu())
 
 
@@ -1991,6 +2206,7 @@ PROFILE_GROUPS = {
     "K3": ("W3WideDecoder", "lut_qgemm_w3wide_kernel"),
     "K4": ("JointFill",),
     "split-K reduction": ("split_reduce_kernel",),
+    "wide-M (K1, K2)": ("wide_m_kernel",),
     "K5": ("decode_span_kernel",),
     "K5 merge": ("decode_merge_kernel",),
     "K6": ("verify_mma_kernel",),
@@ -2104,6 +2320,45 @@ def profile_graphed(name, eager_step, served_step, replay_step):
     log(f"  [{name}] graphed step: {profile['replay_device_ms_per_step']:.2f} ms of device time "
         f"per replay (CUDA events); split by kernel from {profile['split_from']}")
     return profile
+
+
+def profile_prefill(dev, name, eng):
+    """K1's share of Engine's prefill (8 prompts of 64 tokens: 512 rows) on
+    each route: the plan's (the wide-M kernel) and the decode loop's (the
+    parent tree's route: kernel_config.WIDE_MIN_M set past 512 for the
+    run), one profiled prefill each after a warm one. The two prefills'
+    logits have the same bits."""
+    from flute_tpu_torch.ops import kernel_config
+
+    rng = np.random.default_rng(4)
+    toks = torch.from_numpy(rng.integers(1, eng.config.vocab_size, (8, 64))).to(dev)
+    offs = torch.zeros(8, dtype=torch.int64, device=dev)
+    out, logits = {}, {}
+    saved = kernel_config.WIDE_MIN_M
+    with uncounted():
+        for route in ("wide", "loop"):
+            kernel_config.WIDE_MIN_M = saved if route == "wide" else 1 << 30
+            try:
+                with torch.inference_mode():
+                    logits[route] = eng.prefill(toks, offs)[0].float().clone()
+                    profile = profile_steps(f"{name} prefill, {route} route",
+                                            lambda i: eng.prefill(toks, offs), steps=1)
+            finally:
+                kernel_config.WIDE_MIN_M = saved
+            groups = profile["groups_ms_per_step"] or {}
+            k1 = groups.get("K1", 0.0) + groups.get("split-K reduction", 0.0)
+            profile["k1_ms"] = k1
+            profile["k1_share"] = (k1 / profile["device_ms_per_step"]
+                                   if profile["device_ms_per_step"] else None)
+            out[route] = profile
+    if not torch.equal(logits["wide"], logits["loop"]):
+        raise AssertionError(f"[{name}] prefill logits differ between the two routes")
+    log(f"  [{name}] prefill of 512 rows: K1 {out['wide']['k1_ms']:.2f} ms of "
+        f"{out['wide']['device_ms_per_step']:.2f} ms busy on the wide-M route, "
+        f"{out['loop']['k1_ms']:.2f} ms (with its split-K reduction) of "
+        f"{out['loop']['device_ms_per_step']:.2f} ms on the loop's; the logits of the two "
+        "have the same bits")
+    return out
 
 
 def profile_decode(dev, name, eng):
@@ -3608,10 +3863,11 @@ def perplexity_runs(dev, config, params, qhead) -> dict:
     ppl = {}
     for name, p, batch, head in (("quantized", qdense, 1, 0), ("quantized", qdense, 2, 0),
                                  ("quantized head", qhead, 1, 1), ("dense", params, 1, None)):
-        forwards = [0]
+        forwards, rows = [0], []
 
         def forward(*a, **kw):
             forwards[0] += 1
+            rows.append(a[2].numel())  # forward(params, config, tokens, ...)
             return llama.forward(*a, **kw)
 
         reset_counters()
@@ -3623,11 +3879,14 @@ def perplexity_runs(dev, config, params, qhead) -> dict:
         seconds = time.perf_counter() - t0
         k1 = 0 if head is None else forwards[0] * (config.num_layers * 4 + head)
         launches = check_launches(f"perplexity {name} batch {batch}", {"w4sym": k1})
+        wide = check_wide(f"perplexity {name} batch {batch}", {"w4sym": 0 if head is None else sum(
+            wide_expected("w4sym", 4, r, config.num_layers * 4 + head) for r in rows)})
         ppl[f"{name} batch {batch}"] = dict(ppl=value, forwards=forwards[0], launches=launches,
+                                            wide_launches=wide, rows=sorted(set(rows)),
                                             s_per_window=seconds / PPL_WINDOWS)
         log(f"  [perplexity] {name}, batch {batch}: {value:.2f} over {PPL_WINDOWS} windows of "
             f"{PPL_SEQ}, {seconds / PPL_WINDOWS:.3f} s per window, {forwards[0]} forwards, "
-            f"{launches['w4sym']} K1 launches")
+            f"{launches['w4sym']} K1 launches, {wide['w4sym_wide']} on the wide-M kernel")
     q1, q2 = ppl["quantized batch 1"]["ppl"], ppl["quantized batch 2"]["ppl"]
     if not abs(q2 - q1) / q1 < 1e-3:
         raise AssertionError(f"[perplexity] batch 2 {q2} against batch 1 {q1}")
@@ -5264,6 +5523,12 @@ def main() -> int:
                 f"{kernel['blocks_per_sm']} blocks per SM")
             results.setdefault("lab_loop_ptxas", []).append(kernel)
     results["build_s"] = build_s
+    for kernel in ("w4sym", "plane"):
+        for inst in lut_gemm.kernel_instances(kernel):
+            log(f"    {kernel} {inst['bits']}-bit {inst['instance']:20s} {inst['registers']} "
+                f"registers, {inst['smem_bytes']} bytes of shared memory at chunk 256, "
+                f"{inst['blocks_per_sm']} blocks per SM")
+            results.setdefault("tc_instances", []).append(inst)
 
     log("== 2. kernels against plain on the card")
     cases = phase_kernel(dev, results)
@@ -5296,6 +5561,8 @@ def main() -> int:
     for name, eng in engines.items():
         results["serving"][name]["profile"] = profile_decode(dev, name, eng)
         check_copies(name, results["serving"][name]["profile"])
+    results["serving"]["w4sym"]["prefill_profile"] = profile_prefill(dev, "w4sym",
+                                                                     engines["w4sym"])
     higgs_profile = profile_paged("paged HIGGS-W4", paged_eng, prompts)
     results["serving"]["paged_higgs_w4"]["profile"] = higgs_profile
     check_copies("paged HIGGS-W4", higgs_profile)
@@ -5343,6 +5610,20 @@ def main() -> int:
     kernels = [kernel_line(kid, cases, launches[kid], results["identity_paths"],
                            gemma_launches.get(kid), spec) for kid in LUT_KERNELS]
     kernels[0].update(phase7_numbers(phase7))
+    # the wide-M route of K1 and K2: launched by phase 4's Engine prefills,
+    # K1's also by Gemma-2's (phase 5) and by perplexity (phase 7)
+    wide = {kid: results["serving"][name]["wide_launches"][f"{LAYOUT[kid]}_wide"]
+            for kid, name in (("K1", "w4sym"), ("K2", "w4_general"))}
+    gemma_wide = {run: gemma[run]["wide_launches"]["w4sym_wide"]
+                  for run in ("engine", "engine_long")}
+    ppl_wide = {name: run["wide_launches"]["w4sym_wide"]
+                for name, run in phase7["perplexity"].items()}
+    if not (all(wide.values()) and all(gemma_wide.values())
+            and ppl_wide["quantized batch 1"]):
+        raise AssertionError(f"the wide-M route was not launched: phase 4 {wide}, phase 5 "
+                             f"{gemma_wide}, phase 7 {ppl_wide}")
+    wide_lines = [wide_line("K1", results["wide_sweep"], wide["K1"], gemma_wide, ppl_wide),
+                  wide_line("K2", results["wide_sweep"], wide["K2"])]
     kernels[0]["qkv_m8_warm_cold"] = results["k1_qkv_warm_cold"]
     kernels += [attention_line(kid, attn_checks, attn_timed, launches[kid], gemma_launches[kid],
                                spec)
@@ -5351,6 +5632,7 @@ def main() -> int:
                 for kid in LAB]
     kernels += [lab_line(kid, LAB2, lab2_cases, lab2_checks, lab2_launches, lab2_served)
                 for kid in LAB2]
+    kernels += wide_lines
     for line, kid in zip(kernels, (*LUT_KERNELS, "K5", "K6")):
         if not phase8.get(KERNELS[kid][2]):
             raise AssertionError(f"phase 8 launched no {kid}")

@@ -20,7 +20,7 @@
 // 2 bits). Pair-row p = i * kc0 + j of the 2-bit plane lies in the 1-bit
 // plane at word p % kc1 = j % kc1, field p / kc1 = 2 i + j / kc1.
 //
-// Two paths, chosen by the caller (ops/lut_gemm.py) before the launch, as
+// Three paths, chosen by the caller (ops/lut_gemm.py) before the launch, as
 // in lut_gemm_w4sym.cu:
 //
 // * bf16 and f16 at a chunk the loop takes (a multiple of 32 at 4 bits, of
@@ -33,6 +33,10 @@
 //   entries. Numerics are K1's: value times scale in one packed 16-bit
 //   multiply (the oracle lut_gemm.dequantize_codes), f32 sums on mma.sync,
 //   splits added in order, the split independent of M.
+// * bf16 and f16 from ops/kernel_config.py::WIDE_MIN_M rows at a chunk
+//   the wide-M kernel takes (ops/kernel_config.py::mma_route): that kernel
+//   (lut_gemm_wide_m.cuh, wgmma, the same pair table), with the loop's
+//   bits; C entry flute_lut_qgemm_plane_wide.
 // * f32, or a chunk the loop cannot take: the SIMT kernel below, on the
 //   skeleton of lut_gemm_common.cuh (IEEE FMAs, no TF32; the 2^b-entry
 //   table in shared memory; at 3 bits a lane also loads the 1-bit plane's
@@ -47,6 +51,7 @@
 
 #include "lut_gemm_common.cuh"
 #include "lut_gemm_pair_decoder.cuh"
+#include "lut_gemm_wide_m.cuh"
 
 namespace {
 
@@ -203,3 +208,37 @@ extern "C" int flute_lut_qgemm_plane(const void* x, const void* plane0, const vo
     default: return cudaErrorInvalidValue;
   }
 }
+
+// The wide-M kernel (lut_gemm_wide_m.cuh) for bf16/f16: the operands as
+// above, no workspace, `splits` splits of K / chunk run in order inside each
+// block. Returns the cudaError_t of the launch.
+extern "C" int flute_lut_qgemm_plane_wide(const void* x, const void* plane0, const void* plane1,
+                                          const void* scales, const void* table, void* y, int M,
+                                          int N, int K, int group_size, int chunk, int num_bits,
+                                          int dtype, int splits, int vec, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  mma::Args a;
+  if (!wide::wide_args(a, x, plane0, num_bits == 3 ? plane1 : nullptr, scales, table, y, M, N, K,
+                       group_size, chunk, num_bits == 4 ? 4 : 2, splits, vec))
+    return cudaErrorInvalidValue;
+  switch (num_bits) {
+    case 2: return wide::run_pair<2, ScalarFill<2>>(a, dtype, splits, s);
+    case 3: return wide::run_pair<3, ScalarFill<3>>(a, dtype, splits, s);
+    case 4: return wide::run_pair<4, ScalarFill<4>>(a, dtype, splits, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// Instantiation i of K2's tensor-core kernels, 8 a bit width (2, 3, 4 in
+// that order; lut_gemm_wide_m.cuh::describe_pair): its name, registers,
+// shared memory (static and dynamic at `chunk`) and blocks per SM.
+extern "C" int flute_lut_qgemm_plane_instance(int i, int chunk, const char** name, int* regs,
+                                              int* smem, int* blocks) {
+  switch (i / 8) {
+    case 0: return wide::describe_pair<2, ScalarFill<2>>(i % 8, chunk, name, regs, smem, blocks);
+    case 1: return wide::describe_pair<3, ScalarFill<3>>(i % 8, chunk, name, regs, smem, blocks);
+    case 2: return wide::describe_pair<4, ScalarFill<4>>(i % 8, chunk, name, regs, smem, blocks);
+    default: return cudaErrorInvalidValue;
+  }
+}
+

@@ -15,7 +15,7 @@
 // the value is table[m] rounded to the compute type with its sign bit XOR-ed
 // by s (table[c + 8] == -table[c], magnitudes of either sign).
 //
-// Two paths, chosen by the caller (ops/lut_gemm.py) before the launch:
+// Three paths, chosen by the caller (ops/lut_gemm.py) before the launch:
 //
 // * bf16 and f16 at a chunk the loop takes (a multiple of 32 whose x ring
 //   fits shared memory: ops/kernel_config.py::mma_takes_chunk): the
@@ -30,6 +30,10 @@
 //   are added in split order. The split is a function of N, K and chunk
 //   alone (ops/kernel_config.py::mma_plan), so a row's result does not
 //   depend on M: the same bits in a batch of 1 or 512.
+// * bf16 and f16 from ops/kernel_config.py::WIDE_MIN_M rows at a chunk
+//   the wide-M kernel takes (ops/kernel_config.py::mma_route): that kernel
+//   (lut_gemm_wide_m.cuh, wgmma, the same pair table), with the loop's
+//   bits; C entry flute_lut_qgemm_w4sym_wide.
 // * f32, or a chunk the loop cannot take: the SIMT kernel below, on the
 //   skeleton of lut_gemm_common.cuh (IEEE FMAs, no TF32).
 //
@@ -45,6 +49,7 @@
 
 #include "lut_gemm_common.cuh"
 #include "lut_gemm_pair_decoder.cuh"
+#include "lut_gemm_wide_m.cuh"
 
 namespace {
 
@@ -169,3 +174,35 @@ extern "C" int flute_lut_qgemm_w4sym(const void* x, const void* plane, const voi
     return cudaErrorInvalidValue;
   return mma::run_pair<4, W4SymFill>(a, dtype, m_tiles, splits, s);
 }
+
+// The wide-M kernel (lut_gemm_wide_m.cuh) for bf16/f16: the operands as
+// above, no workspace, `splits` splits of K / chunk run in order inside each
+// block. Returns the cudaError_t of the launch.
+extern "C" int flute_lut_qgemm_w4sym_wide(const void* x, const void* plane, const void* scales,
+                                          const void* table, void* y, int M, int N, int K,
+                                          int group_size, int chunk, int dtype, int splits,
+                                          int vec, void* stream) {
+  mma::Args a;
+  if (!wide::wide_args(a, x, plane, nullptr, scales, table, y, M, N, K, group_size, chunk, 4,
+                       splits, vec))
+    return cudaErrorInvalidValue;
+  return wide::run_pair<4, W4SymFill>(a, dtype, splits, static_cast<cudaStream_t>(stream));
+}
+
+// Instantiation i (0..7) of K1's tensor-core kernels: its name, registers,
+// shared memory (static and dynamic at `chunk`) and blocks per SM.
+extern "C" int flute_lut_qgemm_w4sym_instance(int i, int chunk, const char** name, int* regs,
+                                              int* smem, int* blocks) {
+  return wide::describe_pair<4, W4SymFill>(i, chunk, name, regs, smem, blocks);
+}
+
+// The tensor core's bits on one k16 step by mma.sync and by wgmma in both
+// operand orientations (lut_gemm_wide_m.cuh::wgmma_probe_kernel): x and w
+// [trials, 128, 16] in the dtype (1 = float16, 2 = bfloat16), c [trials,
+// 128, 128] f32, out [trials, 3, 128, 128] f32.
+extern "C" int flute_wgmma_probe(const void* x, const void* w, const void* c, void* out,
+                                 int trials, int dtype, void* stream) {
+  return wide::run_probe(x, w, static_cast<const float*>(c), static_cast<float*>(out), trials,
+                         dtype, static_cast<cudaStream_t>(stream));
+}
+

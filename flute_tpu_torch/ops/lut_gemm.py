@@ -19,6 +19,12 @@ Dispatch is by the tensors' device:
   A config with ``lut_mode="pair_lut"`` and no ``pair_values`` takes the
   same route on the plane layout, with the separable joint table that JAX
   builds from the scalar one. A build or launch failure raises.
+  K1 and K2 on the tensor cores take one of two routes by M alone
+  (:func:`~flute_tpu_torch.ops.kernel_config.mma_route`): the decode loop
+  of ``csrc/lut_gemm_mma.cuh``, or from
+  :data:`~flute_tpu_torch.ops.kernel_config.WIDE_MIN_M` rows the wide-M
+  kernel of ``csrc/lut_gemm_wide_m.cuh`` (warpgroup MMA, no split-K
+  workspace), which gives each row the loop's bits.
 
 :func:`dequantize_codes`, :func:`dequantize_codes_pair` and
 :func:`lut_qgemm_reference` are the oracle and define the semantics.
@@ -42,14 +48,19 @@ from flute_tpu_torch.ops.kernel_config import (
     launch_path,
     mma_fields,
     mma_plan,
+    mma_route,
     mma_takes_chunk,
     mma_word_rows,
+    wide_plan,
 )
 
 # Launches of each kernel, by layout; a wrapper adds one where it launches
 # its kernel and nowhere else, so a run can show which kernels its path
 # went through.
 LAUNCHES = {"w4sym": 0, "plane": 0, "w3wide": 0, "pair": 0}
+# Of those, the launches that took the wide-M kernel (K1's and K2's route at
+# prefill M), by layout.
+WIDE_LAUNCHES = {"w4sym_wide": 0, "plane_wide": 0}
 
 _DTYPE_TAG = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
@@ -149,12 +160,21 @@ _KERNELS = {
 }
 
 
+# the wide-M kernel's C entries, by layout: (source, C entry, pointer and
+# int arguments before the stream): x, planes, scales, table, y, then M, N,
+# K, group_size, chunk [, num_bits], dtype, splits and vec
+_WIDE = {
+    "w4sym": ("lut_gemm_w4sym.cu", "flute_lut_qgemm_w4sym_wide", 5, 8),
+    "plane": ("lut_gemm_plane.cu", "flute_lut_qgemm_plane_wide", 6, 9),
+}
+
+
 @functools.lru_cache(maxsize=None)
-def _kernel_fn(kernel: str):
-    """The C entry of ``kernel``'s library (built at first use)."""
+def _entry(source: str, entry: str, n_ptr: int, n_int: int):
+    """C entry ``entry`` of the library of ``csrc/<source>`` (built at
+    first use) and the library's error-string function."""
     from flute_tpu_torch.ops import _build
 
-    source, entry, n_ptr, n_int, _ = _KERNELS[kernel]
     lib = _build.load(source)
     fn = getattr(lib, entry)
     fn.restype = ctypes.c_int
@@ -162,6 +182,11 @@ def _kernel_fn(kernel: str):
     lib.flute_cuda_error_string.restype = ctypes.c_char_p
     lib.flute_cuda_error_string.argtypes = [ctypes.c_int]
     return fn, lib.flute_cuda_error_string
+
+
+def _kernel_fn(kernel: str):
+    """The C entry of ``kernel``'s library (built at first use)."""
+    return _entry(*_KERNELS[kernel][:4])
 
 
 def build_kernels() -> None:
@@ -172,6 +197,8 @@ def build_kernels() -> None:
     _build.build_all([source for source, *_ in _KERNELS.values()])
     for kernel in _KERNELS:
         _kernel_fn(kernel)
+    for wide in _WIDE.values():
+        _entry(*wide)
 
 
 def _check_operands(
@@ -265,6 +292,126 @@ def _launch(
     return y
 
 
+def _launch_wide(
+    kernel: str,
+    x2: torch.Tensor,
+    plane_ptrs: Sequence[Optional[int]],
+    scales: torch.Tensor,
+    table: torch.Tensor,
+    *,
+    group_size: int,
+    chunk: int,
+    extra: tuple[int, ...] = (),
+    vec: bool = True,
+) -> torch.Tensor:
+    """Launch the wide-M kernel for K1 (``kernel="w4sym"``) or K2
+    (``"plane"``) on PyTorch's current stream (operands checked, x on a
+    16-byte boundary) with :func:`wide_plan`'s split, and count the launch;
+    returns ``[M, N]`` in x's dtype. Raises on a refused launch."""
+    m, k = x2.shape
+    n = scales.shape[1]
+    dev = x2.device
+    y = torch.empty((m, n), dtype=x2.dtype, device=dev)
+    if m == 0:
+        return y
+    fn, error_string = _entry(*_WIDE[kernel])
+    plan = wide_plan(m, n, k, chunk)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = fn(
+            x2.data_ptr(), *plane_ptrs, scales.data_ptr(), table.data_ptr(), y.data_ptr(),
+            m, n, k, group_size, chunk, *extra, _DTYPE_TAG[x2.dtype], plan.splits, int(vec),
+            stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"{kernel} wide-M kernel launch failed: {error_string(err).decode()} ({err})"
+        )
+    LAUNCHES[kernel] += 1
+    WIDE_LAUNCHES[f"{kernel}_wide"] += 1
+    return y
+
+
+def kernel_instances(kernel: str, chunk: int = 256) -> list[dict]:
+    """Each tensor-core instantiation of K1 (``kernel="w4sym"``) or K2
+    (``"plane"``, at 2, 3 and 4 bits): the decode loop at 1, 2 and 4 m16
+    tiles a warp and the wide-M kernel, in bf16 and f16, with its registers,
+    shared memory (static and dynamic at ``chunk``) and blocks per SM from
+    the CUDA runtime on the current card."""
+    source = _WIDE[kernel][0]
+    entry = f"flute_lut_qgemm_{kernel}_instance"
+    fn, error_string = _entry(source, entry, 0, 2)
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_char_p)] + [
+        ctypes.POINTER(ctypes.c_int)] * 3
+    out = []
+    for i in range(8 if kernel == "w4sym" else 24):
+        name = ctypes.c_char_p()
+        regs, smem, blocks = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+        err = fn(i, chunk, ctypes.byref(name), ctypes.byref(regs), ctypes.byref(smem),
+                 ctypes.byref(blocks))
+        if err != 0:
+            raise RuntimeError(f"{entry}({i}) failed: {error_string(err).decode()} ({err})")
+        bits = 4 if kernel == "w4sym" else (2, 3, 4)[i // 8]
+        out.append(dict(kernel=kernel, bits=bits, instance=name.value.decode(),
+                        registers=regs.value, smem_bytes=smem.value,
+                        blocks_per_sm=blocks.value, chunk=chunk))
+    return out
+
+
+def probe_operands(trials: int, dtype: torch.dtype, seed: int = 0):
+    """Inputs of :func:`wgmma_probe`, made with numpy: x and w ``[trials,
+    128, 16]`` with 8 significant bits (exact in bf16 and f16), signs and
+    exponents in [-12, 12) drawn per value, so a step's 16 products spread
+    over 2^48 and the tensor core's alignment of them shows; c ``[trials,
+    128, 128]`` f32 of spread magnitudes, zero in every fourth trial."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+
+    def values(shape):
+        mant = rng.integers(128, 256, size=shape) / 128.0
+        sign = rng.choice([-1.0, 1.0], size=shape)
+        return (sign * mant * np.exp2(rng.integers(-12, 12, size=shape))).astype(np.float32)
+
+    x = values((trials, 128, 16))
+    w = values((trials, 128, 16))
+    c = (rng.standard_normal((trials, 128, 128))
+         * np.exp2(rng.integers(-16, 16, size=(trials, 128, 128)))).astype(np.float32)
+    c[::4] = 0.0
+    return (torch.from_numpy(x).to(dtype), torch.from_numpy(w).to(dtype), torch.from_numpy(c))
+
+
+def wgmma_probe(device, dtype: torch.dtype = torch.bfloat16, trials: int = 512,
+                seed: int = 0) -> dict:
+    """The tensor core's bits on one k16 step, ``d = c + x w^T`` per row of x
+    and column of w, on the card: by ``mma.sync.m16n8k16`` (the decode
+    loop's instruction and operand roles), by wgmma with x as A and w as B
+    from shared memory (orientation "a"), and by wgmma with w as A from
+    registers and x as B (orientation "b", the wide-M kernel's). Returns
+    each orientation's count of outputs whose bits differ from mma.sync's,
+    and the largest error of each against the exact sum over its own
+    rounding (a wrong operand layout would show there)."""
+    x, w, c = (t.to(device) for t in probe_operands(trials, dtype, seed))
+    out = torch.empty((trials, 3, 128, 128), dtype=torch.float32, device=device)
+    fn, error_string = _entry("lut_gemm_w4sym.cu", "flute_wgmma_probe", 4, 2)
+    with torch.cuda.device(device):
+        err = fn(x.data_ptr(), w.data_ptr(), c.data_ptr(), out.data_ptr(), trials,
+                 _DTYPE_TAG[dtype], torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flute_wgmma_probe failed: {error_string(err).decode()} ({err})")
+    torch.cuda.synchronize(device)
+    exact = c.double() + torch.matmul(x.double(), w.double().transpose(1, 2))
+    bits = out.view(torch.int32)
+    scale = exact.abs() + torch.matmul(x.double().abs(), w.double().abs().transpose(1, 2)) + \
+        c.double().abs()
+    res = {"trials": trials, "dtype": str(dtype).split(".")[-1], "outputs": trials * 128 * 128}
+    for i, name in enumerate(("mma_sync", "a", "b")):
+        if i:
+            res[f"{name}_differs"] = int((bits[:, i] != bits[:, 0]).sum())
+        res[f"{name}_max_rel_err"] = float(((out[:, i].double() - exact).abs() / scale).max())
+    return res
+
+
 def lut_path(dtype: torch.dtype, num_bits: int, chunk: int, layout: str = "plane") -> str:
     """The kernel that K1 (``layout="w4sym"``), K2 (``"plane"``) or K3
     (``"w3wide"``) runs for a call, chosen before the launch from the
@@ -290,11 +437,12 @@ def _launch_planes(
     simt_block_m: int = 0,
 ) -> torch.Tensor:
     """Launch a LUT-GEMM with a loop path (K1–K4; operands checked). On the
-    tensor-core loop (``loop``) x is copied to a 16-byte boundary if it is
-    not on one, the plan is :func:`mma_plan`'s (with a tuner's ``m_tiles``
-    where set) and ``vec`` says whether the loop may read planes and
-    scales in 16- and 8-byte pieces; else the SIMT kernel runs (with a
-    tuner's ``simt_block_m`` where set)."""
+    tensor cores (``loop``) x is copied to a 16-byte boundary if it is not
+    on one and ``vec`` says whether the kernel may read planes and scales
+    in 16- and 8-byte pieces; the call takes the route :func:`mma_route`
+    gives its M: the wide-M kernel (K1 and K2), or the decode loop with
+    :func:`mma_plan`'s plan (and a tuner's ``m_tiles`` where set). Else the
+    SIMT kernel runs (with a tuner's ``simt_block_m`` where set)."""
     # the C entry's plane pointers (x, scales, table, y and the workspace
     # aside), null for a plane the layout does not have
     n_planes = _KERNELS[kernel][2] - 5
@@ -308,6 +456,9 @@ def _launch_planes(
     n = scales.shape[1]
     vec = (n % 4 == 0 and scales.data_ptr() % 8 == 0
            and all(p.data_ptr() % 16 == 0 for p in planes))
+    bits = extra[0] if extra else (3 if kernel == "w3wide" else 4)
+    if mma_route(m, bits, chunk, kernel, group_size) == "wide":
+        return _launch_wide(kernel, x2, ptrs, scales, table, vec=vec, **kw)
     return _launch(kernel, x2, ptrs, scales, table, plan=mma_plan(m, n, k, chunk, m_tiles),
                    vec=vec, **kw)
 
@@ -323,9 +474,10 @@ def lut_qgemm_w4sym_cuda(
     m_tiles: int = 0,
     simt_block_m: int = 0,
 ) -> torch.Tensor:
-    """Launch K1, the Hopper w4sym kernel (the tensor-core loop or the SIMT
-    kernel, as :func:`lut_path` says), for a 2-D ``x2`` ``[M, K]``; returns
-    ``[M, N]`` in x's dtype. Counts one launch per call."""
+    """Launch K1, the Hopper w4sym kernel (on the tensor cores, by the route
+    :func:`mma_route` gives M, or the SIMT kernel, as :func:`lut_path`
+    says), for a 2-D ``x2`` ``[M, K]``; returns ``[M, N]`` in x's dtype.
+    Counts one launch per call."""
     k = x2.shape[1]
     if chunk % 8:
         raise ValueError(f"chunk={chunk} not supported by the w4sym layout")
@@ -348,10 +500,11 @@ def lut_qgemm_plane_cuda(
     m_tiles: int = 0,
     simt_block_m: int = 0,
 ) -> torch.Tensor:
-    """Launch K2, the Hopper general-table pair-plane kernel (the tensor-core
-    loop or the SIMT kernel, as :func:`lut_path` says), for a 2-D ``x2``
-    ``[M, K]`` and 2-, 3- (2+1 planes) or 4-bit codes; returns ``[M, N]`` in
-    x's dtype. Counts one launch per call."""
+    """Launch K2, the Hopper general-table pair-plane kernel (on the tensor
+    cores, by the route :func:`mma_route` gives M, or the SIMT kernel, as
+    :func:`lut_path` says), for a 2-D ``x2`` ``[M, K]`` and 2-, 3- (2+1
+    planes) or 4-bit codes; returns ``[M, N]`` in x's dtype. Counts one
+    launch per call."""
     if num_bits not in (2, 3, 4):
         raise ValueError(f"the plane kernel takes 2, 3 or 4 bits, not {num_bits}")
     fmt = _packing.PackFormat(num_bits=num_bits, chunk=chunk)  # validates chunk
@@ -419,6 +572,40 @@ def mma_k_order(num_bits: int, chunk: int, layout: str = "plane") -> torch.Tenso
     field = 2 * s + slot // 8
     word_row = 4 * q + (slot % 8) // 2
     return 2 * (field * kc + word_row) + slot % 2
+
+
+def wide_k_order(num_bits: int, chunk: int) -> torch.Tensor:
+    """The wide-M kernel's order of one pack chunk's K rows (K1 and K2),
+    mirrored from the x side of ``csrc/lut_gemm_wide_m.cuh``: x is staged
+    in 8-row stretches, and step ``(q, s)`` reads stretch ``s kc / 2 + q``
+    as k-slots 0..7 and the stretch ``kc / 4`` after it (the descriptor's
+    leading-byte offset) as 8..15. Entry ``[q, s, slot]`` is the K row
+    (within the chunk); it equals :func:`mma_k_order`'s."""
+    kc = mma_word_rows(num_bits, chunk)
+    q = torch.arange(kc // 4)[:, None, None]
+    s = torch.arange(mma_fields(num_bits) // 2)[None, :, None]
+    slot = torch.arange(16)[None, None, :]
+    stretch = s * (kc // 2) + q + (slot // 8) * (kc // 4)
+    return 8 * stretch + slot % 8
+
+
+def wide_a_rows(num_bits: int, chunk: int) -> torch.Tensor:
+    """The K rows of the wide-M kernel's A registers, mirrored from its
+    weight side: entry ``[q, s, t, r, h]`` is the K row (within the chunk)
+    of half ``h`` of A register ``r`` of a lane with ``t = lane % 4`` at
+    step ``(q, s)``, which holds field ``2s + r // 2`` of word row
+    ``4q + t`` (registers 0 and 2 of column ``lane / 4``, 1 and 3 of the
+    column 8 after it). wgmma's A layout puts that register at k-slots
+    ``2t + 8 (r // 2) + h``, so the entry must equal
+    ``wide_k_order(...)[q, s, 2t + 8 (r // 2) + h]``."""
+    kc = mma_word_rows(num_bits, chunk)
+    q = torch.arange(kc // 4)[:, None, None, None, None]
+    s = torch.arange(mma_fields(num_bits) // 2)[None, :, None, None, None]
+    t = torch.arange(4)[None, None, :, None, None]
+    r = torch.arange(4)[None, None, None, :, None]
+    h = torch.arange(2)[None, None, None, None, :]
+    field = 2 * s + r // 2
+    return 2 * (field * kc + 4 * q + t) + h
 
 
 def pair_table(layout: str, table: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

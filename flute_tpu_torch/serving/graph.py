@@ -33,7 +33,7 @@ from flute_tpu_torch.ops import lut_gemm
 from flute_tpu_torch.ops import paged_attention
 
 # the launch counters of the kernels a served step runs
-COUNTERS = (lut_gemm.LAUNCHES, paged_attention.LAUNCHES)
+COUNTERS = (lut_gemm.LAUNCHES, paged_attention.LAUNCHES, lut_gemm.WIDE_LAUNCHES)
 
 
 class StepGraph:

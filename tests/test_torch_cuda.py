@@ -29,6 +29,7 @@ from flute_tpu_torch.lab import ops as lab
 from flute_tpu_torch.models import gemma2, llama
 from flute_tpu_torch.ops import lut_gemm
 from flute_tpu_torch.ops import paged_attention as pa
+from flute_tpu_torch.ops import kernel_config
 from flute_tpu_torch.ops.kernel_config import KernelConfig
 from flute_tpu_torch.quantize import higgs
 from flute_tpu_torch.serving import (
@@ -400,9 +401,10 @@ SIMT_CHUNK = {("w4sym", 4): 16, ("plane", 2): 32, ("plane", 3): 32, ("plane", 4)
 @pytest.mark.parametrize("m", [1, 8, 17, 64, 512])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_k1_k2_loop_vs_plain(dev, dtype, m, layout, bits, chunk, g):
-    """K1 and K2 on the tensor-core loop at one, two and four m16 tiles per
-    warp, split-K (K = 1024) and groups within a chunk, across its fields
-    and across chunks, against the plain version."""
+    """K1 and K2 on the tensor cores (the loop at one, two and four m16
+    tiles per warp; M = 512 takes the wide-M kernel), split-K (K = 1024) and
+    groups within a chunk, across its fields and across chunks, against the
+    plain version."""
     _, x, planes, s, t = loop_case(dev, layout, bits, m, 256, 1024, dtype, seed=m + bits + g,
                                    chunk=chunk, g=g)
     assert lut_gemm.lut_path(dtype, bits, chunk) == "mma"
@@ -2247,3 +2249,133 @@ def test_bench_op_refuses_to_build_in_its_capture(dev):
     with pytest.raises(RuntimeError, match="must be built before") as info:
         bench_op(loads, torch.ones(4, device=dev), iters=2, warmup=False)
     assert "CUDA graph capture" in str(info.value.__cause__)
+
+
+# ---------------------------------------------------------------------------
+# The wide-M kernel (csrc/lut_gemm_wide_m.cuh): K1 and K2 at prefill M
+# ---------------------------------------------------------------------------
+
+
+def route_fn(layout, bits, planes, s, t, chunk=256, g=G, route=None):
+    """K1's or K2's wrapper on ``route`` ("loop" or "wide": the crossover
+    moved past M or to one row for the call; None: the plan's)."""
+    kw = dict(group_size=g, chunk=chunk)
+
+    def call(x):
+        saved = kernel_config.WIDE_MIN_M
+        if route is not None:
+            kernel_config.WIDE_MIN_M = 1 if route == "wide" else 1 << 30
+        try:
+            if layout == "w4sym":
+                return lut_gemm.lut_qgemm_w4sym_cuda(x, planes[0], s, t, **kw)
+            return lut_gemm.lut_qgemm_plane_cuda(x, planes, s, t, num_bits=bits, **kw)
+        finally:
+            kernel_config.WIDE_MIN_M = saved
+
+    return call
+
+
+def same_bits(a, b):
+    return torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_wgmma_gives_mma_sync_bits(dev, dtype):
+    """One k16 step on 512 x 128 x 128 outputs of spread exponents: wgmma
+    with x as A and w as B from shared memory, and with w as A from
+    registers and x as B (the wide-M kernel's orientation), give
+    mma.sync.m16n8k16's bits (the decode loop's), each within f32 rounding
+    of the exact sum."""
+    out = lut_gemm.wgmma_probe(dev, dtype, trials=512)
+    assert out["a_differs"] == 0 and out["b_differs"] == 0
+    assert max(out[f"{k}_max_rel_err"] for k in ("mma_sync", "a", "b")) < 1e-6
+
+
+@pytest.mark.parametrize("g", [32, 64, 128])
+@pytest.mark.parametrize("chunk", [128, 256])
+@pytest.mark.parametrize("m", [128, 130, 300])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("layout,bits", LOOP_LAYOUTS)
+def test_wide_has_the_loops_bits(dev, layout, bits, dtype, m, chunk, g):
+    """The wide-M kernel (the plan's route from 128 rows) gives the decode
+    loop's bits at full and ragged row tiles, groups within and across
+    fields and split-K (K = 2048), within the threshold of the plain
+    version; a launch counts in LAUNCHES and WIDE_LAUNCHES."""
+    _, x, planes, s, t = loop_case(dev, layout, bits, m, 264, 2048, dtype, seed=m + bits + g,
+                                   chunk=chunk, g=g)
+    assert lut_gemm.mma_route(m, bits, chunk, layout, g) == "wide"
+    before, wide_before = lut_gemm.LAUNCHES[layout], lut_gemm.WIDE_LAUNCHES[f"{layout}_wide"]
+    y = lut_gemm.lut_qgemm(x, planes, s, t, num_bits=bits, layout=layout,
+                           config=KernelConfig(chunk=chunk))
+    assert lut_gemm.LAUNCHES[layout] == before + 1
+    assert lut_gemm.WIDE_LAUNCHES[f"{layout}_wide"] == wide_before + 1
+    loop = route_fn(layout, bits, planes, s, t, chunk, g, route="loop")(x)
+    assert same_bits(y, loop)
+    y_plain = lut_gemm.lut_qgemm_plain(x, planes, s, t, num_bits=bits, chunk=chunk,
+                                       layout=layout)
+    torch.cuda.synchronize()
+    assert rel_err(y, y_plain) < TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("layout,bits", LOOP_LAYOUTS)
+def test_wide_rows_at_m2047_have_the_one_row_bits(dev, layout, bits, dtype):
+    """Rows 0 and M - 1 of a call at M = 2047 (the wide-M kernel) have the
+    bits of the one-row call (the loop), and a repeat call the same bits."""
+    _, x, planes, s, t = loop_case(dev, layout, bits, 2047, 384, 2048, dtype, seed=50 + bits,
+                                   chunk=256)
+    call = route_fn(layout, bits, planes, s, t)
+    y = call(x)
+    assert same_bits(call(x), y)
+    for i in (0, 2046):
+        assert same_bits(call(x[i:i + 1]), y[i:i + 1])
+    assert rel_err(y, lut_gemm.lut_qgemm_plain(x, planes, s, t, num_bits=bits, chunk=256,
+                                               layout=layout)) < TOL[dtype]
+
+
+@pytest.mark.parametrize("m", [128, 300, 512])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("layout,bits", LOOP_LAYOUTS)
+def test_wide_identity_bit_exact(dev, layout, bits, dtype, m):
+    """Identity rows through the wide-M kernel give the oracle's bits (K1
+    with a mixed-sign table)."""
+    codes, _, planes, s, t = loop_case(dev, layout, bits, 1, 256, 512, dtype, seed=51, chunk=256,
+                                       mixed_signs=True)
+    eye = torch.eye(m, 512, dtype=dtype, device=dev)
+    got = route_fn(layout, bits, planes, s, t, route="wide")(eye)
+    want = lut_gemm.dequantize_codes(codes, s, t, dtype)[:m]
+    assert same_bits(got, want)
+
+
+@pytest.mark.parametrize("layout,bits", LOOP_LAYOUTS)
+def test_wide_refuses_f32_and_does_not_fall_back(dev, layout, bits):
+    """The wide-M C entry given f32 (no 16-bit tensor path) raises and
+    counts no launch: nothing falls back to the loop or the plain version.
+    Through the wrapper f32 takes the SIMT kernel at every M."""
+    _, x, planes, s, t = loop_case(dev, layout, bits, 256, 256, 512, torch.float32, seed=52,
+                                   chunk=256)
+    launches, wide = dict(lut_gemm.LAUNCHES), dict(lut_gemm.WIDE_LAUNCHES)
+    extra = () if layout == "w4sym" else (bits,)
+    ptrs = [p.data_ptr() for p in planes] + [None] * (2 - len(planes) - (layout == "w4sym"))
+    with pytest.raises(RuntimeError, match="wide-M kernel launch failed"):
+        lut_gemm._launch_wide(layout, x, ptrs, s, t, group_size=G, chunk=256, extra=extra)
+    assert lut_gemm.LAUNCHES == launches and lut_gemm.WIDE_LAUNCHES == wide
+    assert lut_gemm.lut_path(torch.float32, bits, 256, layout) == "simt"
+    y = route_fn(layout, bits, planes, s, t, route="wide")(x)
+    assert lut_gemm.WIDE_LAUNCHES == wide
+    assert rel_err(y, lut_gemm.lut_qgemm_plain(x, planes, s, t, num_bits=bits, chunk=256,
+                                               layout=layout)) < TOL[torch.float32]
+
+
+@pytest.mark.parametrize("n", [196, 198])
+@pytest.mark.parametrize("layout,bits", LOOP_LAYOUTS)
+def test_wide_stages_by_cp_async_where_tma_does_not_take_n(dev, layout, bits, n):
+    """N not a multiple of 8 (196: 16-byte plane copies; 198: 4-byte ones)
+    stages the plane words and scales by cp.async, with the loop's bits."""
+    _, x, planes, s, t = loop_case(dev, layout, bits, 130, n, 1024, torch.bfloat16, seed=53,
+                                   chunk=256)
+    y = route_fn(layout, bits, planes, s, t, route="wide")(x)
+    assert same_bits(y, route_fn(layout, bits, planes, s, t, route="loop")(x))
+    assert rel_err(y, lut_gemm.lut_qgemm_plain(x, planes, s, t, num_bits=bits, chunk=256,
+                                               layout=layout)) < TOL[torch.bfloat16]
+

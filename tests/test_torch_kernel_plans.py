@@ -664,3 +664,206 @@ def test_k5_sequence_alone_equals_it_in_a_batch(length, softcap, window):
     alone = k5_emulation(tq[:1], tk, tv, torch.from_numpy(tables[:1, :mb]),
                          torch.from_numpy(lens[:1]), 0.125, softcap, window)
     assert torch.equal(alone.view(torch.int16), batch[:1].view(torch.int16))
+
+
+# ---------------------------------------------------------------------------
+# The wide-M kernel (csrc/lut_gemm_wide_m.cuh): K1 and K2 at prefill M
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("bits", [2, 3, 4])
+@pytest.mark.parametrize("chunk", [128, 256])
+def test_wide_operand_map_is_the_loops_step_order(bits, chunk):
+    """The K rows of each k16 step, taken as the wide-M kernel takes them on
+    its x side (8-row stretches, the second a constant kc / 4 stretches
+    after the first), cover the chunk once and equal the loop's step order;
+    its A registers (the decoded pairs) name the same K rows at the k-slots
+    where wgmma's A layout puts them."""
+    order = lut_gemm.wide_k_order(bits, chunk)
+    assert sorted(order.flatten().tolist()) == list(range(chunk))
+    assert torch.equal(order, lut_gemm.mma_k_order(bits, chunk))
+    a = lut_gemm.wide_a_rows(bits, chunk)
+    q = torch.arange(order.shape[0])[:, None, None, None, None]
+    s = torch.arange(order.shape[1])[None, :, None, None, None]
+    t = torch.arange(4)[None, None, :, None, None]
+    r = torch.arange(4)[None, None, None, :, None]
+    h = torch.arange(2)[None, None, None, None, :]
+    assert torch.equal(a, order[q, s, 2 * t + 8 * (r // 2) + h])
+
+
+@pytest.mark.parametrize("splits", [1, 2])
+@pytest.mark.parametrize("layout,bits", [("w4sym", 4), ("plane", 2), ("plane", 3), ("plane", 4)])
+def test_wide_product_through_the_operand_map_matches_jax(layout, bits, splits):
+    """``x @ W`` summed as the wide-M kernel sums it (its steps in
+    ``wide_k_order``'s order, each step's A tile decoded from the packed
+    words and the pair table as the kernel decodes it and held to the
+    oracle bit for bit, an f32 accumulator a split added in split order)
+    against JAX's weight-side branch (interpret mode, 128-row blocks) at a
+    ragged M."""
+    chunk, m = 128, 130
+    rng = np.random.default_rng(80 + bits + splits + (layout == "w4sym"))
+    e = 2**bits
+    codes = rng.integers(0, e, (K, N), dtype=np.int32)
+    if layout == "w4sym":
+        planes_np = packing.pack_w4_sym_np(codes, chunk=chunk)
+        table_np = w4sym_table(rng, mixed_signs=True)
+    else:
+        planes_np = packing.pack_np(codes, bits, chunk=chunk)
+        table_np = rng.standard_normal(e).astype(np.float32)
+    scales_np = rng.uniform(0.5, 1.5, (K // G, N)).astype(np.float32)
+    x_np = rng.standard_normal((m, K)).astype(np.float32)
+    dtype = torch.bfloat16
+    planes = [torch.from_numpy(p) for p in planes_np]
+    table = torch.from_numpy(table_np)
+    scales = torch.from_numpy(scales_np).to(dtype)
+    x = torch.from_numpy(x_np).to(dtype).float()
+    deq = lut_gemm.dequantize_codes(torch.from_numpy(codes), scales, table, dtype)
+    ptab = lut_gemm.pair_table(layout, table, dtype)
+    order = lut_gemm.wide_k_order(bits, chunk)
+    nchunks = K // chunk
+    total = torch.zeros((m, N), dtype=torch.float32)
+    for sp in range(splits):
+        acc = torch.zeros_like(total)
+        for c in range(sp * nchunks // splits, (sp + 1) * nchunks // splits):
+            for q in range(order.shape[0]):
+                for s in range(order.shape[1]):
+                    rows = c * chunk + order[q, s]
+                    a = decode_step_b(planes, ptab, scales, bits, chunk, c, q, s, dtype, layout)
+                    assert torch.equal(a.view(torch.int16), deq[rows].view(torch.int16))
+                    acc += x[:, rows] @ a.float()
+        total += acc
+
+    want = jlut.lut_qgemm(
+        jnp.asarray(x_np, jnp.bfloat16), [jnp.asarray(p) for p in planes_np],
+        jnp.asarray(scales_np, jnp.bfloat16), jnp.asarray(table_np), num_bits=bits,
+        config=JKernelConfig(block_m=128, block_n=256, block_k=256, chunk=chunk),
+        layout=layout, interpret=True)
+    assert rel_err(total.to(dtype).float(), np.asarray(want, np.float32)) < BF16_TOL
+
+
+@pytest.mark.parametrize("layout,bits", [("w4sym", 4), ("plane", 2), ("plane", 3), ("plane", 4),
+                                         ("w3wide", 3), ("pair", 2), ("pair", 4)])
+def test_wide_route_depends_on_m_alone(layout, bits):
+    """K1 and K2 take the wide-M kernel from WIDE_MIN_M rows at a chunk it
+    takes, the loop below; K3 and K4 the loop at every M. For a layer the
+    route is a function of M alone."""
+    wide = layout in kernel_config.WIDE_LAYOUTS
+    for m in (1, 8, 40, 64, kernel_config.WIDE_MIN_M - 1, kernel_config.WIDE_MIN_M, 512, 2047,
+              4094):
+        want = "wide" if wide and m >= kernel_config.WIDE_MIN_M else "loop"
+        assert kernel_config.mma_route(m, bits, 256, layout) == want
+    assert kernel_config.wide_takes_chunk(bits, 256)
+    # a layer whose ring would not fit shared memory (a long chunk in groups
+    # of 2: hundreds of scale rows a stage) stays on the loop
+    chunk = 768
+    assert kernel_config.mma_takes_chunk(bits, chunk)
+    assert kernel_config.wide_takes_chunk(bits, chunk, 64)
+    assert not kernel_config.wide_takes_chunk(bits, chunk, 2)
+    assert kernel_config.mma_route(2047, bits, chunk, layout, 2) == "loop"
+
+
+@pytest.mark.parametrize("m", [128, 130, 512, 2047, 4094])
+@pytest.mark.parametrize("name,n,k", LLAMA_8B)
+def test_wide_plan_keeps_the_split_and_needs_no_workspace(name, n, k, m):
+    """The wide-M kernel's plan: the decode loop's split of K (the same at
+    every M, so both routes sum a row in one order), one block a 128 x 128
+    tile, no workspace; its ring at chunk 256 fits beside the pair table at
+    every bit width."""
+    chunk = 256
+    plan = kernel_config.wide_plan(m, n, k, chunk)
+    for other in (1, 8, 64, m):
+        assert plan.splits == kernel_config.mma_plan(other, n, k, chunk).splits
+    assert (k // chunk) % plan.splits == 0
+    assert plan.grid == (-(-m // 128), -(-n // 128))
+    assert plan.workspace_shape(m, n) is None
+    # the ring (csrc/lut_gemm_wide_m.cuh::Geometry) at group size 64: four
+    # stages of 4 items at 4 bits, three at 2, and at 3 bits (the 1-bit
+    # plane's rows in every stage) four of 2 items
+    want = {4: (4, 42752, 4), 2: (4, 75520, 3), 3: (2, 42752, 4)}
+    for bits in (2, 3, 4):
+        q, stage, stages = kernel_config.wide_ring(bits, chunk, G)
+        assert (q, stage, stages) == want[bits]
+        table = (2**bits) ** 2 * 8 * 4
+        assert stages * stage + table + 64 <= kernel_config.MAX_SMEM_BYTES
+        assert (kernel_config.mma_word_rows(bits, chunk) // 4) % q == 0
+
+
+def _fake_launch(monkeypatch):
+    """Record the C entries' arguments instead of calling them, and every
+    float32 allocation (a split-K workspace)."""
+    calls, allocated = [], []
+
+    def fake_entry(*args):
+        calls.append(args)
+        return 0
+
+    empty = torch.empty
+
+    def recording_empty(*shape, **kw):
+        t = empty(*shape, **kw)
+        if kw.get("dtype") == torch.float32:
+            allocated.append(tuple(t.shape))
+        return t
+
+    monkeypatch.setattr(lut_gemm, "_kernel_fn", lambda kernel: (fake_entry, None))
+    monkeypatch.setattr(lut_gemm, "_entry", lambda *a: (lambda *args: calls.append(
+        (a[1],) + args) or 0, None))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch, "empty", recording_empty)
+    return calls, allocated
+
+
+@pytest.mark.parametrize("m", [8, 130, 2047])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("layout,bits", [("w4sym", 4), ("plane", 2), ("plane", 3), ("plane", 4)])
+def test_k1_k2_wrappers_take_the_route_of_m(monkeypatch, layout, bits, dtype, m):
+    """bf16 and f16 from WIDE_MIN_M rows launch the wide-M C entry with the
+    plan's split and no workspace, counted in LAUNCHES and WIDE_LAUNCHES;
+    below it the loop; f32 the SIMT kernel at every M, wherever the
+    crossover lies."""
+    n, k, chunk = 256, 512, 256
+    rng = np.random.default_rng(110 + bits)
+    codes = rng.integers(0, 2**bits, (k, n), dtype=np.int32)
+    if layout == "w4sym":
+        planes = packing.pack_w4_sym_np(codes, chunk=chunk)
+    else:
+        planes = packing.pack_np(codes, bits, chunk=chunk)
+    planes = [torch.from_numpy(p) for p in planes]
+    table = torch.zeros(16 if layout == "w4sym" else 2**bits)
+    x = torch.zeros((m, k), dtype=dtype)
+    scales = torch.zeros((k // G, n), dtype=dtype)
+    calls, allocated = _fake_launch(monkeypatch)
+    kw = dict(group_size=G, chunk=chunk)
+
+    def launch():
+        if layout == "w4sym":
+            return lut_gemm.lut_qgemm_w4sym_cuda(x, planes[0], scales, table, **kw)
+        return lut_gemm.lut_qgemm_plane_cuda(x, planes, scales, table, num_bits=bits, **kw)
+
+    for wide_min_m in (kernel_config.WIDE_MIN_M, 1, 1 << 30):
+        monkeypatch.setattr(kernel_config, "WIDE_MIN_M", wide_min_m)
+        calls.clear()
+        allocated.clear()
+        before, wide_before = dict(lut_gemm.LAUNCHES), dict(lut_gemm.WIDE_LAUNCHES)
+        launch()
+        route = ("simt" if dtype == torch.float32
+                 else kernel_config.mma_route(m, bits, chunk, layout))
+        assert route != "wide" or m >= wide_min_m
+        assert lut_gemm.LAUNCHES[layout] == before[layout] + 1
+        assert lut_gemm.WIDE_LAUNCHES[f"{layout}_wide"] == (
+            wide_before[f"{layout}_wide"] + (route == "wide"))
+        (args,) = calls
+        if route == "wide":
+            assert args[0] == f"flute_lut_qgemm_{layout}_wide"
+            plan = kernel_config.wide_plan(m, n, k, chunk)
+            extra = () if layout == "w4sym" else (bits,)
+            want = (m, n, k, G, chunk, *extra, lut_gemm._DTYPE_TAG[dtype], plan.splits, 1)
+            assert args[-len(want) - 1:-1] == want
+            assert allocated == []
+        else:
+            assert args[0] != f"flute_lut_qgemm_{layout}_wide"
+            assert args[-4] == (0 if route == "simt" else kernel_config.mma_plan(m, n, k,
+                                                                                  chunk).m_tiles)
+

@@ -262,3 +262,45 @@ def test_kernel_config_keys_roundtrip():
     with pytest.raises(ValueError):
         KernelConfig.from_key("nonsense")
     assert [launch_config(m).block_m for m in (1, 2, 3, 8, 9, 512)] == [1, 2, 4, 8, 8, 8]
+
+
+# JAX's kernel takes its weight-side branch (each weight scaled before one
+# dot per (bm, bk) block, flute_tpu/ops/lut_gemm.py:611-615) above
+# group_acc_max_bm rows per block: a block of 128 rows
+WEIGHT_SIDE = dict(block_m=128, block_n=256, block_k=256, chunk=256)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("m", [130, 256])
+@pytest.mark.parametrize("layout", ["w4sym", "plane2", "plane3", "plane4"])
+def test_weight_side_branch_vs_port(layout, m, dtype):
+    """The TPU kernel's prefill regime (the branch the port's wide-M kernel
+    replaces) against the port's ``lut_qgemm`` on the same numpy inputs, at
+    a ragged and a whole number of 128-row blocks."""
+    from flute_tpu.ops.kernel_config import KernelConfig as JKernelConfig
+
+    assert WEIGHT_SIDE["block_m"] > jlut._group_acc_max_bm()
+    jd, td, tol = DTYPES[dtype]
+    bits = 4 if layout == "w4sym" else int(layout[-1])
+    rng = np.random.default_rng(90 + bits + m)
+    codes = rng.integers(0, 2**bits, size=(K, N), dtype=np.int32)
+    if layout == "w4sym":
+        planes = packing.pack_w4_sym_np(codes)
+        table = sym_table(rng, mixed_signs=True)
+    else:
+        planes = packing.pack_np(codes, bits)
+        table = rng.standard_normal(2**bits).astype(np.float32)
+    scales = rng.uniform(0.5, 1.5, (K // G, N)).astype(np.float32)
+    x = rng.standard_normal((m, K)).astype(np.float32)
+    kind = "w4sym" if layout == "w4sym" else "plane"
+    want = jlut.lut_qgemm(
+        jnp.asarray(x, jd), [jnp.asarray(p) for p in planes], jnp.asarray(scales, jd),
+        jnp.asarray(table), num_bits=bits, config=JKernelConfig(**WEIGHT_SIDE), layout=kind,
+        interpret=True,
+    )
+    got = lut_gemm.lut_qgemm(
+        torch.from_numpy(x).to(td), [torch.from_numpy(p) for p in planes],
+        torch.from_numpy(scales).to(td), torch.from_numpy(table), num_bits=bits, layout=kind,
+    )
+    assert got.dtype == td and tuple(got.shape) == (m, N)
+    assert rel_err(f32(got), f32(want)) < tol
