@@ -14,7 +14,13 @@ Phases (any failure exits non-zero):
      registers, spill (none allowed), dynamic shared memory and blocks per
      SM (the CUDA occupancy calculator), among them L1's WordDecoder,
      L11's PairTableDecoder<4> (kernel_lab2.cu's copy of L5's), L8's
-     PairTileDecoder and L12's W3PairDecoder;
+     PairTileDecoder and L12's W3PairDecoder; for each tensor-core
+     instantiation of K1-K4 (the loop at 1, 2 and 4 m16 tiles a warp and
+     the wide-M kernel, bf16 and f16; K3 with a chunk's scales once per
+     field and with the per-field cache, at chunk 256 and 512) its
+     registers, shared memory and blocks per SM, each wide_m_kernel's
+     registers and spill from ptxas (no wgmma serialized), and K4's wide
+     ring the size of K2's;
   2. hold each kernel against its plain PyTorch version on the card:
      the LUT-GEMMs at the Llama-3.1-8B decoder-layer shapes (K1 also at
      Gemma-2-9B's), M in {1, 8, 128, 512}, bf16 and f16 (relative Frobenius
@@ -49,7 +55,15 @@ Phases (any failure exits non-zero):
      (bench_cycled). K1 at Llama-3.1-8B's qkv (M=8, bf16) is also timed with
      bench_op, the JAX package's form (the same inputs every call, so
      L2-warm), beside bench_cycled, and bench_op's K1 launches are counted
-     (1 warm-up + 200);
+     (1 warm-up + 200). The sweep of the two tensor-core routes (the decode
+     loop and the wide-M kernel) at one Llama-3.1-8B layer in bf16: K1, K2
+     at 4 and 2 bits, K4 at 4 bits and K3 at M in {8, 40, 64, 128, 256,
+     512, 2047}, K4 at 3 and 2 bits at 128, 512 and 2047; at every point
+     both routes timed beside the bf16 matmul and the bound, the same bits
+     on both, identity exact, rows 0 and M-1 the one-row call's, a repeat
+     call's bits, the plain version's threshold, the crossover held; then
+     the card tests of K3 and K4 on the wide route (tests/test_torch_cuda.py
+     -k k3_k4_wide, in a child process; the count passed is reported);
   2b. the Hopper lab (L1-L6 of csrc/kernel_lab.cu): its entry point,
      flute_tpu_torch.lab.kernel_lab.main, runs every variant at the JAX lab's
      reference shape (M16 N28672 K8192, bk 1024, g64, bf16) with the launch
@@ -134,7 +148,15 @@ Phases (any failure exits non-zero):
      idle share (1 - device ms per replay / median step), and fail if a
      decode step converts the dtype of a tensor of 2^20 elements or more
      (the lm_head and the KV cache are multiplied in 16 bits with f32
-     results, never copied to f32);
+     results, never copied to f32). Each Engine's 512-row prefill runs its
+     LUT-GEMM on the wide-M kernel (exact wide launches: 128 of K1's, K2's
+     and K3's; the HIGGS PagedEngine's per-request admissions, at most 64
+     rows, none); the HIGGS-W4 model is also served once through Engine
+     (128 of K4's launches on the wide-M kernel, the rest on the loop; its
+     greedy tokens held to the paged engine's before near ties, its
+     first-token logits within 0.25); the prefills of w4sym (K1), W3 (K3)
+     and HIGGS-W4 (K4) are profiled on both routes (the kernel's device ms
+     and share of the prefill's busy time; the same logits bits);
   5. Gemma-2-9B at full width and depth (42 layers, w4sym, g64, fused, random
      weights from a seed, quantized on the card): the 8 prompts through
      Engine (batch 8, max_len 256), a 4160-token prompt through a batch-1
@@ -409,15 +431,14 @@ def make_weight(rng, gen, layout, bits, n, k, dtype, dev, chunk=256, mixed_signs
 
 def kernel_path(kid, dtype, bits, chunk=256, m=1):
     """The kernel a LUT-GEMM case runs: "mma" (the tensor-core loop),
-    "wide" (the wide-M kernel on warpgroup MMA, K1 and K2 from
+    "wide" (the wide-M kernel on warpgroup MMA, K1-K4 from
     kernel_config.WIDE_MIN_M rows) or "simt" (the skeleton of
     lut_gemm_common.cuh), as the wrapper picks it."""
     from flute_tpu_torch.ops import kernel_config, lut_gemm
 
-    if kid == "K4":
-        return "mma"
-    path = lut_gemm.lut_path(dtype, bits, chunk, LAYOUT[kid])
-    if path == "mma" and kernel_config.mma_route(m, bits, chunk, LAYOUT[kid], GROUP) == "wide":
+    path = "mma" if kid == "K4" else lut_gemm.lut_path(dtype, bits, chunk, LAYOUT[kid])
+    if path == "mma" and kernel_config.mma_route(m, bits, chunk, ROUTE_LAYOUT[kid],
+                                                 GROUP) == "wide":
         return "wide"
     return path
 
@@ -527,6 +548,8 @@ def phase_kernel(dev, results):
     check_qgemm_hadamard(dev, rng, gen, results)
     time_warm_and_cold(dev, results)
     wide_sweep(dev, results)
+    time_k3_scale_modes(dev, results)
+    results["wide_card_tests"] = wide_card_tests()
     return cases
 
 
@@ -730,23 +753,32 @@ def check_qgemm_hadamard(dev, rng, gen, results):
 # K5/K6: one decode batch at Llama-3.1-8B's attention widths, and at
 # Gemma-2-9B's (D=256, 16/8 heads) with the options its layers pass: the
 # softcap 50 everywhere and the window of 4096 on even layers
-# phase 2's sweep of K1's and K2's two routes on the tensor cores, the decode
-# loop and the wide-M kernel: (kernel id, bits) at one Llama-3.1-8B layer in
-# bf16 at these M (K2 at 2 bits is phase 6's draft)
-SWEEP = (("K1", 4), ("K2", 4), ("K2", 2))
+# phase 2's sweep of the LUT-GEMMs' two routes on the tensor cores, the
+# decode loop and the wide-M kernel: (kernel id, bits, M) at one
+# Llama-3.1-8B layer in bf16 (K2 at 2 bits is phase 6's draft; K4 at 3 and
+# 2 bits at three M only, to save time)
 SWEEP_M = (8, 40, 64, 128, 256, 512, 2047)
+SWEEP = (("K1", 4, SWEEP_M), ("K2", 4, SWEEP_M), ("K2", 2, SWEEP_M), ("K4", 4, SWEEP_M),
+         ("K3", 3, SWEEP_M), ("K4", 3, (128, 512, 2047)), ("K4", 2, (128, 512, 2047)))
 WIDE_SOURCE = "lut_gemm_wide_m.cuh"
 WIDE_REPLACES = ("flute_tpu/ops/lut_gemm.py:454 (_lut_qgemm_kernel[{}], its weight-side branch "
                  ":611-615, taken above group_acc_max_bm at :812; pallas_call :828)")
+WIDE_PAYLOAD = {"K1": "w4sym", "K2": "plane, gather8/select",
+                "K3": "w3wide: _unpack_wide3_payload :342, :494-506",
+                "K4": "plane, pair_lut: _lookup_payload_lane :279, :533-538, "
+                      "_table_tile_pair :680"}
+# the layout the route plan (kernel_config.mma_route) names for each kernel:
+# K4 reads the plane layout with its own (joint) table
+ROUTE_LAYOUT = {**LAYOUT, "K4": "pair"}
 
 
-def route_call(kid, bits, planes, scales, table, route):
-    """K1's or K2's wrapper on ``route``, for a 2-D x: "wide" or "loop" at
-    any M, the plan's crossover (kernel_config.WIDE_MIN_M) moved to one row
-    or past M for the call."""
+def route_call(kid, bits, planes, scales, table, route, group_size=GROUP, chunk=256):
+    """The wrapper of K1, K2, K3 or K4 (``table`` its pair table) on
+    ``route``, for a 2-D x: "wide" or "loop" at any M, the plan's crossover
+    (kernel_config.WIDE_MIN_M) moved to one row or past M for the call."""
     from flute_tpu_torch.ops import kernel_config, lut_gemm
 
-    kw = dict(group_size=GROUP, chunk=256)
+    kw = dict(group_size=group_size, chunk=chunk)
 
     def call(x, p=planes, s=scales):
         saved = kernel_config.WIDE_MIN_M
@@ -754,6 +786,10 @@ def route_call(kid, bits, planes, scales, table, route):
         try:
             if kid == "K1":
                 return lut_gemm.lut_qgemm_w4sym_cuda(x, p[0], s, table, **kw)
+            if kid == "K3":
+                return lut_gemm.lut_qgemm_w3wide_cuda(x, p[0], s, table, **kw)
+            if kid == "K4":
+                return lut_gemm.lut_qgemm_pair_cuda(x, p, s, table, num_bits=bits, **kw)
             return lut_gemm.lut_qgemm_plane_cuda(x, p, s, table, num_bits=bits, **kw)
         finally:
             kernel_config.WIDE_MIN_M = saved
@@ -766,16 +802,17 @@ def same_bits(a, b) -> bool:
 
 
 def wide_sweep(dev, results):
-    """Phase 2's sweep: K1 (w4sym), K2 at 4 bits and K2 at 2 bits at one
-    Llama-3.1-8B layer's four fused shapes, bf16, M in SWEEP_M. At each
-    point both routes are timed (bench_cycled, L2-cold) beside the bf16
-    matmul and the bound (bytes at 3.35 TB/s or operations at 989 TFLOP/s,
-    the larger), and checked: the two routes give the same bits, the call
-    the plan routes has them and is within the bf16 threshold of the plain
-    version, a repeat call gives the same bits, identity rows are bit-exact
-    on both routes, and rows 0 and M-1 have the one-row call's bits. The
-    layer's sums per M show where the wide kernel is faster: the plan's
-    crossover (kernel_config.WIDE_MIN_M) is held to them."""
+    """Phase 2's sweep: K1 (w4sym), K2 at 4 and 2 bits, K4 at 4, 3 and 2
+    bits (a random joint pair table) and K3 (w3wide) at one Llama-3.1-8B
+    layer's four fused shapes, bf16, at SWEEP's M. At each point both
+    routes are timed (bench_cycled, L2-cold) beside the bf16 matmul and the
+    bound (bytes at 3.35 TB/s or operations at 989 TFLOP/s, the larger),
+    and checked: the two routes give the same bits, the call the plan
+    routes has them and is within the bf16 threshold of the plain version,
+    a repeat call gives the same bits, identity rows are bit-exact on both
+    routes, and rows 0 and M-1 have the one-row call's bits. The layer's
+    sums per M show where the wide kernel is faster: the plan's crossover
+    (kernel_config.WIDE_MIN_M) is held to them, for each kernel."""
     from flute_tpu_torch.ops import kernel_config, lut_gemm
     from flute_tpu_torch.utils.benchmark import bench_cycled, cold_copies
 
@@ -784,60 +821,64 @@ def wide_sweep(dev, results):
     gen.manual_seed(5)
     points, matmul_us, plain_us = [], {}, {}
     t_sweep = time.perf_counter()
-    for kid, bits in SWEEP:
+    for kid, bits, sweep_m in SWEEP:
         layout = LAYOUT[kid]
         for name, n, k in LAYER_SHAPES:
             codes, planes, scales, table = make_weight(rng, gen, layout, bits, n, k,
                                                        torch.bfloat16, dev)
-            deq = lut_gemm.dequantize_codes(codes, scales, table, torch.bfloat16)
+            pv = make_pair_table(rng, bits, dev) if kid == "K4" else None
+            lut = table if pv is None else pv  # what the kernel looks up
+            deq = (lut_gemm.dequantize_codes(codes, scales, table, torch.bfloat16) if pv is None
+                   else lut_gemm.dequantize_codes_pair(codes, scales, pv, torch.bfloat16))
             del codes
+            kw = dict(num_bits=bits, layout=layout, pair_values=pv)
             wbytes = sum(p.numel() * 4 for p in planes) + scales.numel() * 2
             args = [([p.clone() for p in planes], scales.clone())
                     for _ in range(cold_copies(wbytes))]
             deq_c = ([(deq.clone(),) for _ in range(cold_copies(deq.numel() * 2))]
-                     if (name, SWEEP_M[0]) not in matmul_us else None)
-            for m in SWEEP_M:
+                     if any((name, m) not in matmul_us for m in sweep_m) else None)
+            for m in sweep_m:
                 label = f"{bits}-bit {name} M={m}"
                 x = torch.randn((m, k), generator=gen, device=dev).bfloat16()
-                wide = route_call(kid, bits, planes, scales, table, "wide")
-                loop = route_call(kid, bits, planes, scales, table, "loop")
-                routed = kernel_config.mma_route(m, bits, 256, layout, GROUP)
+                wide = route_call(kid, bits, planes, scales, lut, "wide")
+                loop = route_call(kid, bits, planes, scales, lut, "loop")
+                routed = kernel_config.mma_route(m, bits, 256, ROUTE_LAYOUT[kid], GROUP)
                 y_wide, y_loop = wide(x), loop(x)
-                y = lut_gemm.lut_qgemm(x, planes, scales, table, num_bits=bits, layout=layout)
+                y = lut_gemm.lut_qgemm(x, planes, scales, table, **kw)
                 if not same_bits(y_wide, y_loop):
                     raise AssertionError(f"{kid} {label}: the wide kernel's bits differ from "
                                          "the loop's")
                 if not same_bits(y, y_wide if routed == "wide" else y_loop):
                     raise AssertionError(f"{kid} {label}: lut_qgemm did not take the {routed} "
                                          "route")
-                if not same_bits(lut_gemm.lut_qgemm(x, planes, scales, table, num_bits=bits,
-                                                    layout=layout), y):
+                if not same_bits(lut_gemm.lut_qgemm(x, planes, scales, table, **kw), y):
                     raise AssertionError(f"{kid} {label}: a repeat call gave other bits")
                 if m > 1:
                     check_rows(kid, label, x, y, lambda xr: lut_gemm.lut_qgemm(
-                        xr, planes, scales, table, num_bits=bits, layout=layout))
+                        xr, planes, scales, table, **kw))
                 eye = torch.eye(m, k, dtype=torch.bfloat16, device=dev)
                 for route_fn in (wide, loop):
                     if not same_bits(route_fn(eye), deq[:m]):
                         raise AssertionError(f"{kid} {label}: identity rows not bit-exact")
                 y_plain = lut_gemm.lut_qgemm_plain(x, planes, scales, table, num_bits=bits,
-                                                   chunk=256, layout=layout)
+                                                   chunk=256, layout=layout, pair_values=pv)
                 err = rel_err(y, y_plain)
                 if not err < THRESHOLDS[torch.bfloat16]:
                     raise AssertionError(f"{kid} {label}: rel err {err}")
                 max_abs = float((y.float() - y_plain.float()).abs().max())
-                t_w = bench_cycled(lambda p, s: route_call(kid, bits, p, s, table, "wide")(x),
+                t_w = bench_cycled(lambda p, s: route_call(kid, bits, p, s, lut, "wide")(x),
                                    args)
-                t_l = bench_cycled(lambda p, s: route_call(kid, bits, p, s, table, "loop")(x),
+                t_l = bench_cycled(lambda p, s: route_call(kid, bits, p, s, lut, "loop")(x),
                                    args)
                 if (name, m) not in matmul_us:
                     matmul_us[name, m] = bench_cycled(lambda w: torch.matmul(x, w), deq_c) * 1e6
-                if m == SWEEP_M[-1] and (kid, bits, name) not in plain_us:
+                if m == sweep_m[-1] and (kid, bits, name) not in plain_us:
                     plain_us[kid, bits, name] = bench_cycled(
                         lambda p, s: lut_gemm.lut_qgemm_plain(x, p, s, table, num_bits=bits,
-                                                              chunk=256, layout=layout),
+                                                              chunk=256, layout=layout,
+                                                              pair_values=pv),
                         args[:2], min_launches=2) * 1e6
-                nbytes = wbytes + table.numel() * 4 + 2 * m * k + 2 * m * n
+                nbytes = wbytes + lut.numel() * 4 + 2 * m * k + 2 * m * n
                 t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2 * m * n * k / BF16_OPS_PER_S
                 points.append(dict(
                     kernel=kid, bits=bits, name=name, n=n, k=k, m=m, route=routed,
@@ -847,8 +888,8 @@ def wide_sweep(dev, results):
                     bound_by="bytes" if t_bytes >= t_ops else "operations", bytes=nbytes))
             del args, deq_c, deq, planes
     layers = []
-    for kid, bits in SWEEP:
-        for m in SWEEP_M:
+    for kid, bits, sweep_m in SWEEP:
+        for m in sweep_m:
             stack = [p for p in points if p["kernel"] == kid and p["bits"] == bits and p["m"] == m]
             row = dict(kernel=kid, bits=bits, m=m, route=stack[0]["route"],
                        **{key: sum(p[key] for p in stack)
@@ -862,29 +903,107 @@ def wide_sweep(dev, results):
                 f"{row['library_us']:8.1f} us  bound {row['bound_us']:8.1f} us "
                 f"({row['bound_by']})")
     # the plan routes M to the wide kernel where the sweep shows it faster
-    agree = all((r["route"] == "wide") == (r["faster"] == "wide") for r in layers)
+    agrees = {f"{kid} {bits}-bit": all((r["route"] == "wide") == (r["faster"] == "wide")
+                                       for r in layers if r["kernel"] == kid
+                                       and r["bits"] == bits)
+              for kid, bits, _ in SWEEP}
+    agree = all(agrees.values())
     log(f"  sweep: every point's two routes bit-identical, identity exact, rows 0 and M-1 the "
         f"one-row call's bits; the plan's crossover (M >= {kernel_config.WIDE_MIN_M}) "
         f"{'agrees with' if agree else 'DIFFERS from'} the faster route at every M of the "
-        f"sweep ({time.perf_counter() - t_sweep:.0f} s)")
+        f"sweep ({', '.join(f'{key}: {v}' for key, v in agrees.items())}; "
+        f"{time.perf_counter() - t_sweep:.0f} s)")
     results["wide_sweep"] = dict(points=points, layers=layers, crossover_agrees=agree,
+                                 crossover_agrees_by_kernel=agrees,
                                  wide_min_m=kernel_config.WIDE_MIN_M)
     return results["wide_sweep"]
 
 
+def time_k3_scale_modes(dev, results, m=2047, chunk=512):
+    """K3's two wide-M instantiations at one Llama-3.1-8B layer, bf16, M =
+    2047, chunk 512: group size 32 (a multiple of 2 kc = 32: a chunk's
+    scales once per field) against 16 (the per-field cache, whose build
+    spills), each held to the loop's bits and timed L2-cold. At this M the
+    layer is bound by operations, so the extra scale bytes of g 16 cost
+    little beside the decode's instructions and the spill."""
+    from flute_tpu_torch import packing
+    from flute_tpu_torch.utils.benchmark import bench_cycled, cold_copies
+
+    rng = np.random.default_rng(7)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    out = {}
+    for g, mode in ((32, "chunk"), (16, "field")):
+        total = 0.0
+        for name, n, k in LAYER_SHAPES:
+            codes = torch.randint(0, 8, (k, n), generator=gen, device=dev, dtype=torch.int32)
+            planes = [packing.pack_w3_wide(codes, chunk=chunk)]
+            del codes
+            scales = (torch.rand((k // g, n), generator=gen, device=dev) + 0.5).bfloat16()
+            table = torch.from_numpy(rng.standard_normal(8).astype(np.float32)).to(dev)
+            x = torch.randn((m, k), generator=gen, device=dev).bfloat16()
+            wide = route_call("K3", 3, planes, scales, table, "wide", g, chunk)
+            y = wide(x)
+            if not same_bits(y, route_call("K3", 3, planes, scales, table, "loop", g, chunk)(x)):
+                raise AssertionError(f"K3 g{g} chunk {chunk} {name}: the wide kernel's bits "
+                                     "differ from the loop's")
+            args = [([p.clone() for p in planes], scales.clone())
+                    for _ in range(cold_copies(planes[0].numel() * 4 + scales.numel() * 2))]
+            total += bench_cycled(lambda p, s: route_call("K3", 3, p, s, table, "wide", g,
+                                                          chunk)(x), args) * 1e6
+        out[mode] = dict(group_size=g, us=total)
+    out["field_over_chunk"] = out["field"]["us"] / out["chunk"]["us"]
+    log(f"  K3 on the wide-M kernel, one Llama layer at M={m}, chunk {chunk}: g32 (a chunk's "
+        f"scales once per field) {out['chunk']['us']:.1f} us, g16 (the per-field cache, its "
+        f"spill) {out['field']['us']:.1f} us: {out['field_over_chunk']:.3f}x")
+    results["k3_scale_modes"] = out
+    return out
+
+
+WIDE_TESTS = "k3_k4_wide"  # tests/test_torch_cuda.py's cases of K3 and K4 on the wide route
+
+
+def wide_card_tests() -> dict:
+    """The card tests of K3 and K4 on the wide-M kernel
+    (tests/test_torch_cuda.py -k WIDE_TESTS: the loop's bits at full and
+    ragged tiles, identity, cp.async staging, K3 at chunk 512, f32 refused
+    or on SIMT, refused launches raise), run in a child process that loads
+    the libraries already built; every one must pass."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytest", os.path.join("tests", "test_torch_cuda.py"), "-m",
+         "cuda", "-q", "--noconftest", "-p", "no:cacheprovider", "-k", WIDE_TESTS],
+        cwd=HERE, capture_output=True, text=True, timeout=600)
+    tail = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else ""
+    counts = {key: int(v) for v, key in re.findall(r"(\d+) (passed|failed|skipped|error)", tail)}
+    if proc.returncode != 0 or counts.get("passed", 0) == 0 or set(counts) != {"passed"}:
+        raise AssertionError(f"card tests -k {WIDE_TESTS}: rc {proc.returncode}, {tail}\n"
+                             f"{proc.stdout[-4000:]}{proc.stderr[-2000:]}")
+    out = dict(selection=WIDE_TESTS, passed=counts["passed"], s=time.perf_counter() - t0)
+    log(f"  card tests -k {WIDE_TESTS}: {out['passed']} passed in {out['s']:.0f} s")
+    return out
+
+
 def wide_line(kid, sweep, launches, gemma2_launches=None, ppl_launches=None):
-    """The {"kernels": [...]} entry of the wide-M route of K1 or K2: one
-    Llama-3.1-8B layer at M=2047 in bf16 (4 bits), its per-M layer sums from
-    the sweep beside it; ``launches`` its launches in phase 4's Engine
+    """The {"kernels": [...]} entry of the wide-M route of K1, K2, K3 or K4:
+    one Llama-3.1-8B layer at M=2047 in bf16 (4 bits; K3 3), its per-M layer
+    sums from the sweep beside it (K4's 3- and 2-bit rows under
+    ``sweep_other_bits``); ``launches`` its launches in phase 4's Engine
     prefill."""
-    bits = 4
+    bits = 3 if kid == "K3" else 4
     mine = [p for p in sweep["points"] if p["kernel"] == kid and p["bits"] == bits]
     top = [p for p in mine if p["m"] == SWEEP_M[-1]]
-    layout = LAYOUT[kid]
+
+    def rows(b):
+        return [dict(m=r["m"], route=r["route"], wide_ms=r["wide_us"] / 1e3,
+                     loop_ms=r["loop_us"] / 1e3, library_ms=r["library_us"] / 1e3,
+                     bound_ms=r["bound_us"] / 1e3)
+                for r in sweep["layers"] if r["kernel"] == kid and r["bits"] == b]
+
     line = dict(
         name=f"{KERNELS[kid][0]} (wide-M route)", route="cuda", path="wide",
         source=f"flute_tpu_torch/csrc/{WIDE_SOURCE}",
-        replaces=WIDE_REPLACES.format(layout if kid == "K1" else "plane, gather8/select"),
+        replaces=WIDE_REPLACES.format(WIDE_PAYLOAD[kid]),
         launches=launches,
         max_abs_err=max(p["max_abs_err"] for p in mine if p["route"] == "wide"),
         m=SWEEP_M[-1], ms=sum(p["wide_us"] for p in top) / 1e3,
@@ -893,11 +1012,9 @@ def wide_line(kid, sweep, launches, gemma2_launches=None, ppl_launches=None):
         bound_by="bytes" if all(p["bound_by"] == "bytes" for p in top) else "operations",
         library_ms=sum(p["library_us"] for p in top) / 1e3,
         loop_ms=sum(p["loop_us"] for p in top) / 1e3,
-        sweep=[dict(m=r["m"], route=r["route"], wide_ms=r["wide_us"] / 1e3,
-                    loop_ms=r["loop_us"] / 1e3, library_ms=r["library_us"] / 1e3,
-                    bound_ms=r["bound_us"] / 1e3)
-               for r in sweep["layers"] if r["kernel"] == kid and r["bits"] == bits],
-        checked=True)
+        sweep=rows(bits), checked=True)
+    if kid == "K4":
+        line["sweep_other_bits"] = {b: rows(b) for b in (3, 2)}
     if gemma2_launches is not None:
         line["gemma2"] = dict(launches=gemma2_launches)
     if ppl_launches is not None:
@@ -2196,17 +2313,19 @@ def record_first(eng, first_rows):
 
 
 # device kernels by name: the LUT-GEMMs (K1, K2 and K4 on the tensor-core
-# loop, told apart by their table fill, K3 by its decoder; off it by their
-# SIMT kernels), the loop's split-K reduction (of whichever of K1-K4 a model
-# runs), K5's span kernel and its merge, K6, and PyTorch's dtype copies (an
-# f32 copy of the lm_head or of a KV cache would show there)
+# loop and the wide-M kernel, told apart by their table fill, K3 by its
+# decoder; off them by their SIMT kernels; the wide-M kernel of any of
+# them also in its own group), the loop's split-K reduction (of whichever
+# of K1-K4 a model runs), K5's span kernel and its merge, K6, and PyTorch's
+# dtype copies (an f32 copy of the lm_head or of a KV cache would show
+# there)
 PROFILE_GROUPS = {
     "K1": ("W4SymFill", "lut_qgemm_w4sym_kernel"),
     "K2": ("ScalarFill", "lut_qgemm_plane_kernel"),
     "K3": ("W3WideDecoder", "lut_qgemm_w3wide_kernel"),
     "K4": ("JointFill",),
     "split-K reduction": ("split_reduce_kernel",),
-    "wide-M (K1, K2)": ("wide_m_kernel",),
+    "wide-M (K1-K4)": ("wide_m_kernel",),
     "K5": ("decode_span_kernel",),
     "K5 merge": ("decode_merge_kernel",),
     "K6": ("verify_mma_kernel",),
@@ -2322,12 +2441,12 @@ def profile_graphed(name, eager_step, served_step, replay_step):
     return profile
 
 
-def profile_prefill(dev, name, eng):
-    """K1's share of Engine's prefill (8 prompts of 64 tokens: 512 rows) on
-    each route: the plan's (the wide-M kernel) and the decode loop's (the
-    parent tree's route: kernel_config.WIDE_MIN_M set past 512 for the
-    run), one profiled prefill each after a warm one. The two prefills'
-    logits have the same bits."""
+def profile_prefill(dev, name, eng, kid="K1"):
+    """``kid``'s share of Engine's prefill (8 prompts of 64 tokens: 512
+    rows) on each route: the plan's (the wide-M kernel) and the decode
+    loop's (kernel_config.WIDE_MIN_M set past 512 for the run), one
+    profiled prefill each after a warm one. The two prefills' logits have
+    the same bits."""
     from flute_tpu_torch.ops import kernel_config
 
     rng = np.random.default_rng(4)
@@ -2346,16 +2465,15 @@ def profile_prefill(dev, name, eng):
             finally:
                 kernel_config.WIDE_MIN_M = saved
             groups = profile["groups_ms_per_step"] or {}
-            k1 = groups.get("K1", 0.0) + groups.get("split-K reduction", 0.0)
-            profile["k1_ms"] = k1
-            profile["k1_share"] = (k1 / profile["device_ms_per_step"]
-                                   if profile["device_ms_per_step"] else None)
+            ms = groups.get(kid, 0.0) + groups.get("split-K reduction", 0.0)
+            profile.update(kernel=kid, kernel_ms=ms, kernel_share=(
+                ms / profile["device_ms_per_step"] if profile["device_ms_per_step"] else None))
             out[route] = profile
     if not torch.equal(logits["wide"], logits["loop"]):
         raise AssertionError(f"[{name}] prefill logits differ between the two routes")
-    log(f"  [{name}] prefill of 512 rows: K1 {out['wide']['k1_ms']:.2f} ms of "
+    log(f"  [{name}] prefill of 512 rows: {kid} {out['wide']['kernel_ms']:.2f} ms of "
         f"{out['wide']['device_ms_per_step']:.2f} ms busy on the wide-M route, "
-        f"{out['loop']['k1_ms']:.2f} ms (with its split-K reduction) of "
+        f"{out['loop']['kernel_ms']:.2f} ms (with its split-K reduction) of "
         f"{out['loop']['device_ms_per_step']:.2f} ms on the loop's; the logits of the two "
         "have the same bits")
     return out
@@ -2581,13 +2699,54 @@ def phase_paged(dev, results, w4sym_engine, w4sym_trajectory):
     # the first 8 requests need 22 blocks: 19 usable make admission wait
     engine_kw = dict(num_slots=8, block_size=16, num_blocks=20, max_len=256,
                      prefix_cache_blocks=16, pool_prefill=True)
-    serving, eng, _, _, _ = serve_paged(dev, "paged HIGGS-W4", params, config,
-                                        list(zip(all_prompts, kws)), engine_kw, "pair")
+    serving, eng, tokens, first, _ = serve_paged(dev, "paged HIGGS-W4", params, config,
+                                                 list(zip(all_prompts, kws)), engine_kw, "pair")
     if serving["prefix_hits"] < 1 or serving["calls"]["waits"] < 1:
         raise AssertionError(f"paged HIGGS-W4: prefix hits {serving['prefix_hits']}, "
                              f"admission waits {serving['calls']['waits']}")
+    # one request's pool prefill at a time, at most 64 rows: K4 on the loop
+    serving["wide_launches"] = check_wide("paged HIGGS-W4", {})
     results["serving"]["paged_higgs_w4"] = serving
+    greedy = [i for i in range(len(prompts)) if "seed" not in kws[i]]
+    results["serving"]["higgs_w4"] = serve_higgs_engine(
+        dev, params, config, prompts, {i: tokens[i] for i in greedy},
+        {i: first[i] for i in greedy})
     return eng, prompts
+
+
+def serve_higgs_engine(dev, params, config, prompts, paged_tokens, paged_first):
+    """Phase 4's HIGGS-W4 model (the PagedEngine's params) through Engine on
+    the 8 prompts: its 512-row prefill runs K4 on the wide-M kernel (32 x 4
+    launches), its decode steps the loop. The greedy requests' tokens
+    (``paged_tokens`` by request) are held to the paged engine's (pool
+    prefill through K6, one request's rows at a time on the loop) before
+    every near tie, and their first-token logits (``paged_first``) within
+    the paged-against-dense limit of phase 4 (0.25); the prefill is
+    profiled on both routes."""
+    from flute_tpu_torch.serving import Engine
+
+    eng = Engine(params=params, config=config, batch_size=8, max_len=256, device=dev)
+    serving, (out, logits) = serve_engine("HIGGS-W4", eng, prompts, "pair")
+    idx = sorted(paged_tokens)
+    ties, decided = hold_tokens("HIGGS-W4 Engine", [paged_tokens[i] for i in idx],
+                                [out[i] for i in idx], logits[:, idx])
+    first = torch.stack([paged_first[i].float() for i in idx])
+    want = logits[0, idx]
+    first_err = float(((first - want).abs().amax(dim=-1) / want.abs().amax(dim=-1)).max())
+    if not first_err < 0.25:
+        raise AssertionError(f"HIGGS-W4 Engine: first-token logits differ from the paged "
+                             f"engine's: {first_err}")
+    same = sum(paged_tokens[i] == out[i] for i in idx)
+    log(f"  [HIGGS-W4] Engine's greedy tokens equal PagedEngine's before every low-margin step "
+        f"(requests {idx}; first ties {ties}; decided share {decided:.2f}; {same}/{len(idx)} "
+        f"identical in full); first-token logits within {first_err:.2e} of the paged "
+        "engine's (pool prefill through K6)")
+    serving.update(first_token_rel_err=first_err, decided_share=decided, first_ties=ties,
+                   identical_sequences=same, held_requests=idx)
+    serving["prefill_profile"] = profile_prefill(dev, "HIGGS-W4", eng, "K4")
+    del eng
+    release()
+    return serving
 
 
 GEMMA2_LONG = 4160  # past the window of 4096: sliding layers mask its first positions
@@ -5472,6 +5631,59 @@ def p9_kernel_numbers(p9, kid) -> dict:
     return entry
 
 
+# the wide-M kernel's decoders, by a part of their mangled names
+WIDE_DECODERS = (("W4SymFill", "K1"), ("ScalarFill", "K2"), ("JointFill", "K4"),
+                 ("W3WideDecoder", "K3"))
+
+
+def wide_ptxas(sources) -> list:
+    """Registers and spill of every wide_m_kernel instantiation, from the
+    libraries' ptxas logs; fails where ptxas serialized the kernel's wgmma
+    (a C7510-C7520 line naming it: every product would wait)."""
+    from flute_tpu_torch.ops import _build
+
+    out = []
+    for source in sources:
+        ptxas = _build.library_path(source).with_suffix(".log").read_text()
+        for block in re.split(r"(?=ptxas info\s*: Compiling entry function)", ptxas):
+            head = re.match(r"ptxas info\s*: Compiling entry function '(\S+)'", block)
+            if not head or "wide_m_kernel" not in head.group(1):
+                continue
+            mangled = head.group(1)
+            if re.search(r"C75\d\d", block) and "wgmma" in block:
+                raise AssertionError(f"{source}: ptxas serialized wgmma in {mangled}: {block}")
+            regs = re.search(r"Used (\d+) registers", block)
+            spill = re.search(r"(\d+) bytes spill stores", block)
+            decoder = next((d for key, d in WIDE_DECODERS if key in mangled), "?")
+            decoder += " f16" if "wide_m_kernelI6__half" in mangled else " bf16"
+            if decoder.startswith("K3"):
+                decoder += " chunk scales" if "Lb1E" in mangled else " field scales"
+            else:
+                bits = re.search(r"Li(\d)E", mangled)
+                decoder += f" {bits.group(1)}-bit" if bits else ""
+            row = dict(source=source, decoder=decoder, registers=int(regs.group(1)) if regs else
+                       None, spill_store_bytes=int(spill.group(1)) if spill else 0)
+            out.append(row)
+            log(f"    ptxas wide_m_kernel {decoder:24s} {row['registers']} registers, "
+                f"{row['spill_store_bytes']} bytes of spill stores ({source})")
+    if not out:
+        raise AssertionError("no wide_m_kernel in the ptxas logs")
+    return out
+
+
+def check_k4_ring(instances):
+    """K4's joint table is K2's size ((2^b)^2 pairs in 8 copies): its wide
+    kernel's shared memory equals K2's at every bit width, as
+    kernel_config.wide_ring assumes."""
+    wide = {(i["kernel"], i["bits"], i["instance"]): i["smem_bytes"] for i in instances
+            if i["instance"].startswith("wide") and i["chunk"] == 256}
+    for bits in (2, 3, 4):
+        for dt in ("bfloat16", "float16"):
+            k4, k2 = wide[("pair", bits, f"wide {dt}")], wide[("plane", bits, f"wide {dt}")]
+            if k4 != k2:
+                raise AssertionError(f"K4's wide ring at {bits} bits {dt}: {k4} bytes, K2's {k2}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5523,12 +5735,16 @@ def main() -> int:
                 f"{kernel['blocks_per_sm']} blocks per SM")
             results.setdefault("lab_loop_ptxas", []).append(kernel)
     results["build_s"] = build_s
-    for kernel in ("w4sym", "plane"):
-        for inst in lut_gemm.kernel_instances(kernel):
-            log(f"    {kernel} {inst['bits']}-bit {inst['instance']:20s} {inst['registers']} "
-                f"registers, {inst['smem_bytes']} bytes of shared memory at chunk 256, "
-                f"{inst['blocks_per_sm']} blocks per SM")
+    for kernel, chunk in (("w4sym", 256), ("plane", 256), ("pair", 256), ("w3wide", 256),
+                          ("w3wide", 512)):
+        for inst in lut_gemm.kernel_instances(kernel, chunk):
+            scales = f" ({inst['scales']} scales)" if "scales" in inst else ""
+            log(f"    {kernel} {inst['bits']}-bit {inst['instance']:20s}{scales} "
+                f"{inst['registers']} registers, {inst['smem_bytes']} bytes of shared memory at "
+                f"chunk {chunk}, {inst['blocks_per_sm']} blocks per SM")
             results.setdefault("tc_instances", []).append(inst)
+    results["wide_ptxas"] = wide_ptxas(sources)
+    check_k4_ring(results["tc_instances"])
 
     log("== 2. kernels against plain on the card")
     cases = phase_kernel(dev, results)
@@ -5554,15 +5770,22 @@ def main() -> int:
         results["serving"][name], engines[name], trajectories[name] = serve(dev, name, kw,
                                                                             layout)
         launches[kid] = results["serving"][name]["launches"][layout]
+    log("  prefill of 8 prompts (512 rows, host clock): " + ", ".join(
+        f"{name} {results['serving'][name]['prefill_ms']:.1f} ms" for name in SERVED))
     paged_eng, prompts = phase_paged(dev, results, engines["w4sym"], trajectories["w4sym"])
+    log(f"  prefill of 512 rows (host clock): HIGGS-W4 Engine "
+        f"{results['serving']['higgs_w4']['prefill_ms']:.1f} ms, w4sym "
+        f"{results['serving']['w4sym']['prefill_ms']:.1f} ms, W3 "
+        f"{results['serving']['w3wide']['prefill_ms']:.1f} ms")
     higgs_launches = results["serving"]["paged_higgs_w4"]["launches"]
     for kid in ("K4", "K5", "K6"):
         launches[kid] = higgs_launches[KERNELS[kid][2]]
     for name, eng in engines.items():
         results["serving"][name]["profile"] = profile_decode(dev, name, eng)
         check_copies(name, results["serving"][name]["profile"])
-    results["serving"]["w4sym"]["prefill_profile"] = profile_prefill(dev, "w4sym",
-                                                                     engines["w4sym"])
+    for name, kid in (("w4sym", "K1"), ("w3wide", "K3")):
+        results["serving"][name]["prefill_profile"] = profile_prefill(dev, name, engines[name],
+                                                                      kid)
     higgs_profile = profile_paged("paged HIGGS-W4", paged_eng, prompts)
     results["serving"]["paged_higgs_w4"]["profile"] = higgs_profile
     check_copies("paged HIGGS-W4", higgs_profile)
@@ -5610,10 +5833,12 @@ def main() -> int:
     kernels = [kernel_line(kid, cases, launches[kid], results["identity_paths"],
                            gemma_launches.get(kid), spec) for kid in LUT_KERNELS]
     kernels[0].update(phase7_numbers(phase7))
-    # the wide-M route of K1 and K2: launched by phase 4's Engine prefills,
-    # K1's also by Gemma-2's (phase 5) and by perplexity (phase 7)
-    wide = {kid: results["serving"][name]["wide_launches"][f"{LAYOUT[kid]}_wide"]
-            for kid, name in (("K1", "w4sym"), ("K2", "w4_general"))}
+    # the wide-M route of K1-K4: launched by phase 4's Engine prefills (K4's
+    # by the HIGGS-W4 Engine), K1's also by Gemma-2's (phase 5) and by
+    # perplexity (phase 7)
+    wide = {kid: results["serving"][name]["wide_launches"][f"{ROUTE_LAYOUT[kid]}_wide"]
+            for kid, name in (("K1", "w4sym"), ("K2", "w4_general"), ("K3", "w3wide"),
+                              ("K4", "higgs_w4"))}
     gemma_wide = {run: gemma[run]["wide_launches"]["w4sym_wide"]
                   for run in ("engine", "engine_long")}
     ppl_wide = {name: run["wide_launches"]["w4sym_wide"]
@@ -5622,8 +5847,8 @@ def main() -> int:
             and ppl_wide["quantized batch 1"]):
         raise AssertionError(f"the wide-M route was not launched: phase 4 {wide}, phase 5 "
                              f"{gemma_wide}, phase 7 {ppl_wide}")
-    wide_lines = [wide_line("K1", results["wide_sweep"], wide["K1"], gemma_wide, ppl_wide),
-                  wide_line("K2", results["wide_sweep"], wide["K2"])]
+    wide_lines = [wide_line("K1", results["wide_sweep"], wide["K1"], gemma_wide, ppl_wide)] + [
+        wide_line(kid, results["wide_sweep"], wide[kid]) for kid in ("K2", "K3", "K4")]
     kernels[0]["qkv_m8_warm_cold"] = results["k1_qkv_warm_cold"]
     kernels += [attention_line(kid, attn_checks, attn_timed, launches[kid], gemma_launches[kid],
                                spec)

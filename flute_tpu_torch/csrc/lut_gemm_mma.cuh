@@ -6,8 +6,8 @@
 // lut_gemm_pair_decoder.cuh, each with its own table fill; K3
 // (lut_gemm_w3wide.cu) in bf16 and f16 with its own decoder of the wide
 // 3-bit triples. A kernel adopts it by writing a Decoder (below) for its
-// layout. K1 and K2 at prefill M run lut_gemm_wide_m.cuh instead, with the
-// same decoder and this loop's sums.
+// layout. K1-K4 at prefill M run lut_gemm_wide_m.cuh instead, with the
+// same decoders and this loop's sums.
 //
 //   y[M, N] = x[M, K] @ W,  W decoded per K-row pair and column
 //

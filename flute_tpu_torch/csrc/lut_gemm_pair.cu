@@ -32,16 +32,28 @@
 //
 // What bounds it: bytes at decode (b / 8 byte of plane and 2 / g byte of
 // scale per weight), operations at prefill. Design: the pair decoder of
-// lut_gemm_pair_decoder.cuh (with the joint table's fill below) on the
-// tensor-core loop of lut_gemm_mma.cuh (16-byte plane loads, a register
-// ring of prefetched words, scales once per group, K permuted on the x
-// side, split-K with a second pass that adds the splits in order; the
-// split a function of N, K and chunk alone, so that a row's result does
-// not depend on M: ops/kernel_config.py::mma_plan). With more than one
-// split this entry launches two kernels: the loop and lut_gemm_mma.cuh's
-// split_reduce_kernel.
+// lut_gemm_pair_decoder.cuh (with the joint table's fill below) on two
+// routes, chosen by M alone (ops/kernel_config.py::mma_route), with the
+// same bits:
+//
+// * below WIDE_MIN_M rows (decode, the paged engine's admissions): the
+//   tensor-core loop of lut_gemm_mma.cuh (16-byte plane loads, a register
+//   ring of prefetched words, scales once per group, K permuted on the x
+//   side, split-K with a second pass that adds the splits in order; the
+//   split a function of N, K and chunk alone, so that a row's result does
+//   not depend on M: ops/kernel_config.py::mma_plan). With more than one
+//   split this entry launches two kernels: the loop and lut_gemm_mma.cuh's
+//   split_reduce_kernel.
+// * from WIDE_MIN_M rows (prefill), where the wide-M kernel's ring takes
+//   the chunk: that kernel (lut_gemm_wide_m.cuh: the TPU kernel's
+//   weight-side branch, lut_gemm.py:611-615, taken at :812; wgmma with the
+//   decoded pairs as A, 128 x 128 tiles, the loop's split run in order in
+//   each block, no workspace); C entry flute_lut_qgemm_pair_wide. The
+//   joint table has K2's size, (2^b)^2 x 8 copies of a 32-bit pair, so the
+//   ring is K2's. It is bound by operations there.
 
 #include "lut_gemm_pair_decoder.cuh"
+#include "lut_gemm_wide_m.cuh"
 
 namespace {
 
@@ -83,6 +95,43 @@ extern "C" int flute_lut_qgemm_pair(const void* x, const void* plane0, const voi
     case 2: return run_pair<2, JointFill<2>>(a, dtype, m_tiles, splits, s);
     case 3: return run_pair<3, JointFill<3>>(a, dtype, m_tiles, splits, s);
     case 4: return run_pair<4, JointFill<4>>(a, dtype, m_tiles, splits, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The wide-M kernel (lut_gemm_wide_m.cuh) for bf16/f16: the operands as
+// above, no workspace, `splits` splits of K / chunk run in order inside each
+// block; f32 (dtype 0) is refused. Returns the cudaError_t of the launch.
+extern "C" int flute_lut_qgemm_pair_wide(const void* x, const void* plane0, const void* plane1,
+                                         const void* scales, const void* pv, void* y, int M,
+                                         int N, int K, int group_size, int chunk, int num_bits,
+                                         int dtype, int splits, int vec, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  Args a;
+  if (!flute::wide::wide_args(a, x, plane0, num_bits == 3 ? plane1 : nullptr, scales, pv, y, M,
+                              N, K, group_size, chunk, chunk * (num_bits == 4 ? 4 : 2) / 32,
+                              splits, vec))
+    return cudaErrorInvalidValue;
+  switch (num_bits) {
+    case 2: return flute::wide::run_pair<2, JointFill<2>>(a, dtype, splits, s);
+    case 3: return flute::wide::run_pair<3, JointFill<3>>(a, dtype, splits, s);
+    case 4: return flute::wide::run_pair<4, JointFill<4>>(a, dtype, splits, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// Instantiation i of K4's tensor-core kernels, 8 a bit width (2, 3, 4 in
+// that order; lut_gemm_wide_m.cuh::describe_pair): its name, registers,
+// shared memory (static and dynamic at `chunk`) and blocks per SM.
+extern "C" int flute_lut_qgemm_pair_instance(int i, int chunk, const char** name, int* regs,
+                                             int* smem, int* blocks) {
+  switch (i / 8) {
+    case 0: return flute::wide::describe_pair<2, JointFill<2>>(i % 8, chunk, name, regs, smem,
+                                                                blocks);
+    case 1: return flute::wide::describe_pair<3, JointFill<3>>(i % 8, chunk, name, regs, smem,
+                                                                blocks);
+    case 2: return flute::wide::describe_pair<4, JointFill<4>>(i % 8, chunk, name, regs, smem,
+                                                                blocks);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -1,6 +1,6 @@
 // The pair decoder of the pair-plane layouts on the tensor-core loop
-// (lut_gemm_mma.cuh), shared by K1 (lut_gemm_w4sym.cu), K2
-// (lut_gemm_plane.cu) and K4 (lut_gemm_pair.cu).
+// (lut_gemm_mma.cuh) and the wide-M kernel (lut_gemm_wide_m.cuh), shared by
+// K1 (lut_gemm_w4sym.cu), K2 (lut_gemm_plane.cu) and K4 (lut_gemm_pair.cu).
 //
 // The three layouts have one geometry: a first plane of 4-bit (K1, K2 and
 // K4 at 4 bits) or 2-bit sub-codes (2 and 3 bits), pair fields of twice
@@ -35,6 +35,8 @@ struct PairDecoder {
   static constexpr int kPlaneBits0 = NB == 4 ? 4 : 2;  // bits of the first plane's sub-codes
   static constexpr int kFields = 32 / (2 * kPlaneBits0);
   static constexpr bool kChunkScales = false;
+  static constexpr int kRowWords = 1;        // the wide-M kernel's planar words a word row
+  static constexpr bool kPlane1 = NB == 3;   // the 1-bit plane (Words w1) at 3 bits
   // Items of words prefetched per lane: four (a deeper ring ran slower on
   // the H100, and sixteen spilled); four blocks of 128 threads per SM then
   // keep 32 KB of plane words in flight.

@@ -219,7 +219,7 @@ extern "C" int flute_lut_qgemm_plane_wide(const void* x, const void* plane0, con
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   mma::Args a;
   if (!wide::wide_args(a, x, plane0, num_bits == 3 ? plane1 : nullptr, scales, table, y, M, N, K,
-                       group_size, chunk, num_bits == 4 ? 4 : 2, splits, vec))
+                       group_size, chunk, chunk * (num_bits == 4 ? 4 : 2) / 32, splits, vec))
     return cudaErrorInvalidValue;
   switch (num_bits) {
     case 2: return wide::run_pair<2, ScalarFill<2>>(a, dtype, splits, s);

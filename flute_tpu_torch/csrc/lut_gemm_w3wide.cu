@@ -16,8 +16,9 @@
 // pair-row p = c * chunk / 2 + j * ntrip + t (K rows 2p and 2p + 1). Fields 5
 // (bits 30-35) and 10 (bits 60-65) straddle a word boundary.
 //
-// Two paths, chosen by the caller (ops/lut_gemm.py::lut_path) before the
-// launch from the dtype and the chunk, as in lut_gemm_w4sym.cu:
+// Three kernels, chosen by the caller (ops/lut_gemm.py::lut_path, then
+// ops/kernel_config.py::mma_route by M alone) before the launch, as in
+// lut_gemm_w4sym.cu:
 //
 // * bf16 and f16 at a chunk the loop takes (a multiple of 256 whose x ring
 //   fits shared memory: ops/kernel_config.py::mma_takes_chunk): the
@@ -38,6 +39,21 @@
 //   16-bit multiply (lut_gemm.dequantize_codes), f32 sums on mma.sync,
 //   splits added in order, the split from N, K and chunk alone, so a row's
 //   result does not depend on M.
+// * bf16 and f16 from WIDE_MIN_M rows (prefill): the wide-M kernel of
+//   lut_gemm_wide_m.cuh with the same decoder, the loop's bits; C entry
+//   flute_lut_qgemm_w3wide_wide. It replaces the TPU kernel's weight-side
+//   branch (flute_tpu/ops/lut_gemm.py:454, :611-615, taken above
+//   group_acc_max_bm at :812, with _unpack_wide3_payload :342, :494-506)
+//   and is bound by operations. Its shape follows from 16 fields a triple
+//   row: a stage holds one item (4 triple rows: 32 KB of x, 16 fields of
+//   2 KB, and the three planar words' 4 rows, one TMA box each), so four
+//   stages fit; the item's 8 k16 steps are decoded in two halves of 4,
+//   one half's A registers (16) filled while the other's products run,
+//   because two item-wide sets (64) would not fit beside the 128
+//   accumulator and split-total registers; and where g is a multiple of
+//   2 kc a lane reads its 16 fields' scales from the staged scale rows
+//   once per chunk, both columns' in one register (16 registers, not the
+//   48 of a per-field cache).
 // * f32, or a chunk the loop cannot take: the SIMT kernel below, on the
 //   skeleton of lut_gemm_common.cuh: one lane per output column, eight warps
 //   splitting each chunk's triples, a lane joining its triple's words into
@@ -55,6 +71,7 @@
 
 #include "lut_gemm_common.cuh"
 #include "lut_gemm_mma.cuh"
+#include "lut_gemm_wide_m.cuh"
 
 namespace {
 
@@ -155,6 +172,8 @@ struct W3WideDecoder {
   // four.
   static constexpr int kDepth = 2;
   static constexpr int kCopies = 8;  // bank-interleaved copies, as PairDecoder's
+  static constexpr int kRowWords = 3;  // the wide-M kernel stages each planar word's rows
+  static constexpr bool kPlane1 = false;
   static __host__ __device__ int word_rows(int chunk) { return chunk / 32; }
 
   struct Table {
@@ -213,6 +232,13 @@ cudaError_t run_loop(const mma::Args& a, int m_tiles, int splits, cudaStream_t s
   return mma::run_tiles<T, W3WideDecoder<T, false>>(a, m_tiles, splits, s);
 }
 
+template <typename T>
+cudaError_t run_wide(const mma::Args& a, int splits, cudaStream_t s) {
+  if (a.group_size % (2 * W3WideDecoder<T, true>::word_rows(a.chunk)) == 0)
+    return wide::launch_wide<T, W3WideDecoder<T, true>>(a, splits, s);
+  return wide::launch_wide<T, W3WideDecoder<T, false>>(a, splits, s);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = float16, 2 = bfloat16 (x, scales and y share it;
@@ -241,6 +267,45 @@ extern "C" int flute_lut_qgemm_w3wide(const void* x, const void* plane, const vo
   switch (dtype) {
     case 1: return run_loop<__half>(a, m_tiles, splits, s);
     case 2: return run_loop<__nv_bfloat16>(a, m_tiles, splits, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The wide-M kernel (lut_gemm_wide_m.cuh) for bf16/f16: the operands as
+// above, no workspace, `splits` splits of K / chunk run in order inside each
+// block; f32 (dtype 0) is refused (its callers run the SIMT kernel). Returns
+// the cudaError_t of the launch.
+extern "C" int flute_lut_qgemm_w3wide_wide(const void* x, const void* plane, const void* scales,
+                                           const void* table, void* y, int M, int N, int K,
+                                           int group_size, int chunk, int dtype, int splits,
+                                           int vec, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  mma::Args a;
+  if (chunk % 256 || !wide::wide_args(a, x, plane, nullptr, scales, table, y, M, N, K,
+                                      group_size, chunk, chunk / 32, splits, vec))
+    return cudaErrorInvalidValue;
+  switch (dtype) {
+    case 1: return run_wide<__half>(a, splits, s);
+    case 2: return run_wide<__nv_bfloat16>(a, splits, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// Instantiation i of K3's tensor-core kernels (lut_gemm_wide_m.cuh::
+// describe_decoders): 0..7 with a chunk's scales once per field (g a
+// multiple of 2 kc), 8..15 with the per-field cache; its name, registers,
+// shared memory (static and dynamic at `chunk`) and blocks per SM.
+extern "C" int flute_lut_qgemm_w3wide_instance(int i, int chunk, const char** name, int* regs,
+                                               int* smem, int* blocks) {
+  switch (i / 8) {
+    case 0:
+      return wide::describe_decoders<W3WideDecoder<__nv_bfloat16, true>,
+                                     W3WideDecoder<__half, true>>(i % 8, chunk, name, regs, smem,
+                                                                  blocks);
+    case 1:
+      return wide::describe_decoders<W3WideDecoder<__nv_bfloat16, false>,
+                                     W3WideDecoder<__half, false>>(i % 8, chunk, name, regs,
+                                                                   smem, blocks);
     default: return cudaErrorInvalidValue;
   }
 }

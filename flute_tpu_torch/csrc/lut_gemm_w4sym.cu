@@ -183,8 +183,8 @@ extern "C" int flute_lut_qgemm_w4sym_wide(const void* x, const void* plane, cons
                                           int group_size, int chunk, int dtype, int splits,
                                           int vec, void* stream) {
   mma::Args a;
-  if (!wide::wide_args(a, x, plane, nullptr, scales, table, y, M, N, K, group_size, chunk, 4,
-                       splits, vec))
+  if (!wide::wide_args(a, x, plane, nullptr, scales, table, y, M, N, K, group_size, chunk,
+                       chunk / 8, splits, vec))
     return cudaErrorInvalidValue;
   return wide::run_pair<4, W4SymFill>(a, dtype, splits, static_cast<cudaStream_t>(stream));
 }

@@ -1,16 +1,22 @@
 // The LUT-GEMM at prefill M on warpgroup MMA (wgmma), for Hopper (sm_90a):
-// K1 (lut_gemm_w4sym.cu) and K2 (lut_gemm_plane.cu) in bf16 and f16 where
-// ops/kernel_config.py::mma_route sends a call's M (from WIDE_MIN_M rows);
-// below it they run the decode loop of lut_gemm_mma.cuh.
+// every LUT-GEMM layout in bf16 and f16 where
+// ops/kernel_config.py::mma_route sends a call's M (from WIDE_MIN_M rows):
+// K1 (lut_gemm_w4sym.cu), K2 (lut_gemm_plane.cu) and K4 (lut_gemm_pair.cu)
+// with the pair decoder of lut_gemm_pair_decoder.cuh, K3
+// (lut_gemm_w3wide.cu) with its decoder of the wide 3-bit triples; below
+// WIDE_MIN_M rows they run the decode loop of lut_gemm_mma.cuh.
 //
 //   y[M, N] = x[M, K] @ W,  W decoded per K-row pair and column
 //
 // Replaces: flute_tpu/ops/lut_gemm.py:454 _lut_qgemm_kernel in its
 // weight-side branch (:611-615, w = deq * s_exp, then one MXU dot per
 // (bm, bk) block), which the TPU kernel takes above group_acc_max_bm
-// (:812). It computes what that branch computes, each weight scaled before
-// its product, and sums every output in the decode loop's order, so a row
-// has the loop's bits at every M.
+// (:812), with its payload helpers: the w4sym and plane lookups, the joint
+// pair table (_lookup_payload_lane :279, :533-538, _table_tile_pair :680)
+// and the wide 3-bit unpack (_unpack_wide3_payload :342, :494-506). It
+// computes what that branch computes, each weight scaled before its
+// product, and sums every output in the decode loop's order, so a row has
+// the loop's bits at every M.
 //
 // What bounds it: operations. One Llama-3.1-8B layer at M = 2047 does
 // 2 M N K = 893 GFLOP over ~0.13 GB of planes, scales and x, far above the
@@ -26,15 +32,18 @@
 //   wgmma's M (64 a warpgroup) and the 128 rows of x its N. A decoded pair
 //   for (column n, K rows 2p, 2p+1) has the per-lane place of an A register
 //   of row n (lane l: rows l/4 and l/4 + 8, k-slots 2(l%4)+{0,1} and +8),
-//   so the pair decoder's output, times its scale in one packed multiply
+//   so the decoder's output, times its scale in one packed multiply
 //   (Pack2<T>::mul, the loop's rounding), feeds the tensor core with no
 //   shared-memory round trip. x is B, from shared memory. Both operand
 //   orientations give mma.sync's bits on the card (wgmma_probe_kernel
 //   below); this one measured faster than a warp-specialized kernel with
 //   the weights decoded into shared memory as B.
-// * Each item (4 word rows: kF / 2 k16 steps) is decoded into one of two
-//   sets of A registers while the item before it multiplies; a set is
-//   rewritten only after the wait that retires its products.
+// * A unit (at most 4 k16 steps: a whole item of 4 word rows at 4 and 8
+//   fields, half an item at K3's 16) is decoded into one of two sets of A
+//   registers while the unit before it multiplies; a set is rewritten only
+//   after the wait that retires its products. Two item-wide sets at 16
+//   fields would take 64 registers beside the 128 of the accumulator and
+//   the split total: half items keep K3 at 32.
 // * The loop's k16 steps in its order. Step (q, s) of a chunk takes field
 //   2s of word rows 4q..4q+3 as k-slots 0..7 and field 2s+1 as 8..15
 //   (lut_gemm_mma.cuh); those are two 8-row stretches of x, 2 kc K rows
@@ -42,6 +51,11 @@
 //   ([field][item][row][8 halves], a core matrix = 8 rows x 16 bytes), so
 //   a step's second stretch lies a constant distance after its first: the
 //   descriptor's leading-byte offset absorbs the permutation.
+// * Scales: where a decoder's kChunkScales says a field's K rows lie in one
+//   group for the whole chunk (K3 with g a multiple of 2 kc), a lane takes
+//   its 16 fields' scales from the staged scale rows once per chunk, both
+//   columns' in one register; else it keeps each field's group and scales
+//   and reloads them when the group changes.
 // * No workspace. The split of K stays mma_plan's. A block runs its splits
 //   one after another: one f32 accumulator for the split it is in, started
 //   at 0, added at the split's end to a running total started at 0, in
@@ -49,15 +63,22 @@
 //   is the result. Rounded once to T. With M/128 x N/128 blocks (768 for
 //   Llama's qkv at M = 2047) the card is full without split-K blocks.
 // * Staging by TMA into a ring of up to 4 stages (Geometry): x (a box a
-//   field's stretches of a stage), the stage's plane word rows and the
-//   chunk's scale rows (128 columns each), all counted on the stage's
-//   mbarrier; shapes TMA cannot take (N not a multiple of 8, unaligned
-//   operands) stage words and scales by cp.async.
+//   field's stretches of a stage), the stage's plane word rows (K3: three
+//   boxes, one a planar word of its triples) and the chunk's scale rows
+//   (128 columns each), all counted on the stage's mbarrier; shapes TMA
+//   cannot take (N not a multiple of 8, unaligned operands) stage words and
+//   scales by cp.async.
 //
 // A block: 256 threads, 128 columns x 128 rows; grid (M / 128, N / 128),
 // the row tiles of one column tile adjacent, so its plane words are read
 // from device memory about once. Ragged M and N are masked (TMA reads past
 // an edge as zeros). f32 accumulators, no atomics, no TF32, no fast math.
+//
+// A Decoder for this kernel provides, beside the loop's (lut_gemm_mma.cuh)
+// kFields, kChunkScales, word_rows, Table, Words and pair():
+//   kRowWords   planar words a word row (1; K3's triples 3): Words w0.. of
+//               columns col and col + 8 in .x and .y
+//   kPlane1     whether the layout has a 1-bit plane (Words w1)
 
 #pragma once
 
@@ -230,19 +251,23 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, i
 // items (word-row quads) of one chunk: the x stretches of those items for
 // every field ([field][Q][128 rows][16 bytes]: step (q, s) reads field 2s
 // at (2s Q + q) stretches and field 2s+1 Q stretches later, the
-// descriptor's leading-byte offset), their 4Q first-plane word rows, the
-// chunk's 1-bit plane rows (3 bits) and the chunk's scale rows, 128 columns
-// each.
+// descriptor's leading-byte offset), their 4Q word rows of each planar
+// word (K3: [word][4Q rows]), the chunk's 1-bit plane rows (3 bits) and the
+// chunk's scale rows, 128 columns each.
 struct Geometry {
-  int kc0, kc1, fields, q, per_chunk, srows;
+  int kc0, kc1, fields, row_words, units, q, per_chunk, srows;
   size_t x_bytes, p0_bytes, p1_bytes, s_off, stage_bytes;
 
-  // Q: the most items (4, 2 or 1, dividing the chunk's kc0 / 4) that leave
+  // kc: word rows a chunk; nfields: fields a word row; rwords: planar words
+  // a word row. Q: the most items (4, 2 or 1, dividing kc / 4) that leave
   // room for three stages in `budget` bytes, else 1
-  __host__ __device__ Geometry(int chunk, int pb0, bool plane1, int group_size, size_t budget) {
-    kc0 = chunk * pb0 / 32;
+  __host__ __device__ Geometry(int chunk, int kc, int nfields, int rwords, bool plane1,
+                               int group_size, size_t budget) {
+    kc0 = kc;
     kc1 = plane1 ? chunk / 32 : 0;
-    fields = 32 / (2 * pb0);
+    fields = nfields;
+    row_words = rwords;
+    units = fields > 8 ? fields / 8 : 1;  // A-register units an item (of at most 4 steps)
     srows = (chunk + group_size - 1) / group_size + 1;  // groups a chunk can meet
     for (q = 4; q > 1; q /= 2) {
       set(q);
@@ -254,16 +279,16 @@ struct Geometry {
     q = items;
     per_chunk = kc0 / (4 * q);
     x_bytes = static_cast<size_t>(fields) * q * kStretchBytes;
-    p0_bytes = static_cast<size_t>(4 * q) * kPlaneStride * 4;
+    p0_bytes = static_cast<size_t>(row_words * 4 * q) * kPlaneStride * 4;
     p1_bytes = static_cast<size_t>(kc1) * kPlaneStride * 4;
     s_off = (x_bytes + p0_bytes + p1_bytes + 127) / 128 * 128;  // TMA wants 128-byte boxes
     stage_bytes = (s_off + static_cast<size_t>(srows) * kBlockN * 2 + 127) / 128 * 128;
   }
   // stages in `budget` bytes of shared memory, at most 4 (0: the ring needs
-  // two and they do not fit, or the items of a stage do not pair up)
+  // two and they do not fit, or a stage's units do not pair up)
   __host__ __device__ int stages(size_t budget) const {
     const size_t n = budget / stage_bytes;
-    return n < 2 || q < 2 ? 0 : n > 4 ? 4 : static_cast<int>(n);
+    return n < 2 || (q * units) % 2 ? 0 : n > 4 ? 4 : static_cast<int>(n);
   }
 };
 
@@ -282,10 +307,56 @@ struct Maps {
   int words;
 };
 
+// The words of staged word row jr (of a stage of Q items, pstride words a
+// staged row) for columns col and col + 8, in .x and .y: the first plane's
+// row (K3: its triple row's three planar words, 4Q rows apart) and at 3
+// bits the 1-bit plane's row j % kc1.
+template <typename Decoder>
+__device__ __forceinline__ typename Decoder::Words staged_words(const uint32_t* p0,
+                                                                const uint32_t* p1, int jr, int j,
+                                                                int kc1, int Q, int pstride,
+                                                                int col) {
+  typename Decoder::Words w;
+  w.w0 = make_uint4(p0[jr * pstride + col], p0[jr * pstride + col + 8], 0u, 0u);
+  if constexpr (Decoder::kRowWords == 3) {
+    const int r1 = (4 * Q + jr) * pstride + col, r2 = (8 * Q + jr) * pstride + col;
+    w.w1 = make_uint4(p0[r1], p0[r1 + 8], 0u, 0u);
+    w.w2 = make_uint4(p0[r2], p0[r2 + 8], 0u, 0u);
+  } else if constexpr (Decoder::kPlane1) {
+    const int r1 = (j % kc1) * pstride + col;
+    w.w1 = make_uint4(p1[r1], p1[r1 + 8], 0u, 0u);
+  } else {
+    w.w1 = make_uint4(0u, 0u, 0u, 0u);
+  }
+  return w;
+}
+
+// A field's scale of column col (e 0) or col + 8 (e 1), in both halves:
+// from the chunk's scales `cs` (kChunk: col's in the low half, col + 8's in
+// the high) or from the per-field cache `sv`.
+template <bool kChunk>
+__device__ __forceinline__ uint32_t field_scale(uint32_t cs, const uint32_t (&sv)[2], int e) {
+  if constexpr (kChunk)
+    return __byte_perm(cs, 0u, e ? 0x3232u : 0x1010u);
+  else
+    return sv[e];
+}
+
+// The ring's geometry of Decoder's layout at a launch's chunk and group size.
+template <typename Decoder>
+__host__ __device__ Geometry geometry_of(int chunk, int group_size) {
+  return Geometry(chunk, Decoder::word_rows(chunk), Decoder::kFields, Decoder::kRowWords,
+                  Decoder::kPlane1, group_size, smem_budget<Decoder>());
+}
+
 template <typename T, typename Decoder>
 __global__ void __launch_bounds__(kThreads, 1)
     wide_m_kernel(const Args a, const int stages, const __grid_constant__ Maps maps) {
   constexpr int kF = Decoder::kFields;
+  constexpr int kRW = Decoder::kRowWords;
+  constexpr int kSteps = kF / 2;                 // k16 steps an item
+  constexpr int kU = kSteps < 4 ? kSteps : 4;    // steps a unit: one set of A registers
+  constexpr int kUnits = kSteps / kU;            // units an item (1, or 2 at 16 fields)
   extern __shared__ __align__(128) unsigned char smem_raw[];
   __shared__ typename Decoder::Table table;
   const Decoder dec(table, a.table);
@@ -298,8 +369,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int m0 = blockIdx.x * kRows;
   const int nb = blockIdx.y * kBlockN;
   const int col = wg * kGroupCols + warp * 16 + g;  // this lane's columns: col and col + 8
-  const Geometry geo(a.chunk, Decoder::kPlaneBits0, a.plane1 != nullptr, a.group_size,
-                     smem_budget<Decoder>());
+  const Geometry geo = geometry_of<Decoder>(a.chunk, a.group_size);
   const int Q = geo.q;
   const int nchunks = a.K / a.chunk;
   const int nstages = nchunks * geo.per_chunk;
@@ -323,10 +393,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int pstride = maps.words ? kBlockN : kPlaneStride;  // words a staged plane row
   // stage st (chunk c, quad group gq) into its buffer, by warp 0: x rows
   // m0.. by TMA, a box {8 columns, 128 rows, Q stretches} a field (rows past
-  // M zero-filled); the planes' word rows and the chunk's scale rows of
-  // columns nb.. (columns past N zero-filled) by TMA, or where maps.words is
-  // 0 by cp.async from every thread. Always one cp.async group, empty past
-  // the last stage.
+  // M zero-filled); the planes' word rows (each planar word's 4Q rows) and
+  // the chunk's scale rows of columns nb.. (columns past N zero-filled) by
+  // TMA, or where maps.words is 0 by cp.async from every thread. Always one
+  // cp.async group, empty past the last stage.
   auto fill = [&](int st) {
     if (st < nstages) {
       const int c = st / geo.per_chunk;
@@ -334,15 +404,20 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int b = st % stages;
       unsigned char* base = smem_raw + static_cast<size_t>(b) * geo.stage_bytes;
       uint32_t* p0 = reinterpret_cast<uint32_t*>(base + geo.x_bytes);
-      uint32_t* p1 = p0 + 4 * Q * pstride;
+      uint32_t* p1 = p0 + kRW * 4 * Q * pstride;
       uint16_t* sc = reinterpret_cast<uint16_t*>(base + geo.s_off);
       const int gi0 = c * a.chunk / a.group_size;
+      // planar word r's first word row of the stage
+      auto row0 = [&](int r) { return (c * kRW + r) * geo.kc0 + gq * 4 * Q; };
       if (threadIdx.x < 32) {
         if (threadIdx.x == 0) {
-          const uint32_t words = (4 * Q + geo.kc1) * kBlockN * 4 + geo.srows * kBlockN * 2;
+          const uint32_t words =
+              (kRW * 4 * Q + geo.kc1) * kBlockN * 4 + geo.srows * kBlockN * 2;
           mbar_expect_tx(&full[b], static_cast<uint32_t>(geo.x_bytes) + (maps.words ? words : 0));
           if (maps.words) {
-            tma_load_2d(p0, &maps.plane0, nb, c * geo.kc0 + gq * 4 * Q, &full[b]);
+#pragma unroll
+            for (int r = 0; r < kRW; ++r)
+              tma_load_2d(p0 + r * 4 * Q * kBlockN, &maps.plane0, nb, row0(r), &full[b]);
             if (geo.kc1) tma_load_2d(p1, &maps.plane1, nb, c * geo.kc1, &full[b]);
             tma_load_2d(sc, &maps.scales, nb, gi0, &full[b]);
           }
@@ -353,14 +428,14 @@ __global__ void __launch_bounds__(kThreads, 1)
                       c * a.chunk / 8 + threadIdx.x * (geo.kc0 / 4) + gq * Q, &full[b]);
       }
       if (!maps.words) {
-        auto plane = [&](const uint32_t* src, size_t row0, int rows, uint32_t* dst) {
+        auto plane = [&](const uint32_t* src, size_t from, int rows, uint32_t* dst) {
           if (a.vec) {
             for (int idx = threadIdx.x; idx < rows * (kBlockN / 4); idx += kThreads) {
               const int row = idx / (kBlockN / 4);
               const int n = nb + 4 * (idx % (kBlockN / 4));
               const bool ok = n < a.N;
               mma::cp_async16(dst + row * kPlaneStride + (n - nb),
-                              ok ? src + (row0 + row) * a.N + n : src, ok);
+                              ok ? src + (from + row) * a.N + n : src, ok);
             }
           } else {
             for (int idx = threadIdx.x; idx < rows * kBlockN; idx += kThreads) {
@@ -368,11 +443,12 @@ __global__ void __launch_bounds__(kThreads, 1)
               const int n = nb + idx % kBlockN;
               const bool ok = n < a.N;
               cp_async4(dst + row * kPlaneStride + (n - nb),
-                        ok ? src + (row0 + row) * a.N + n : src, ok);
+                        ok ? src + (from + row) * a.N + n : src, ok);
             }
           }
         };
-        plane(a.plane0, static_cast<size_t>(c) * geo.kc0 + gq * 4 * Q, 4 * Q, p0);
+#pragma unroll
+        for (int r = 0; r < kRW; ++r) plane(a.plane0, row0(r), 4 * Q, p0 + r * 4 * Q * kPlaneStride);
         if (geo.kc1) plane(a.plane1, static_cast<size_t>(c) * geo.kc1, geo.kc1, p1);
         // the chunk's scale rows from group (c chunk) / g
         for (int idx = threadIdx.x; idx < geo.srows * kBlockN; idx += kThreads) {
@@ -393,14 +469,19 @@ __global__ void __launch_bounds__(kThreads, 1)
     acc[i] = 0.f;
     total[i] = 0.f;
   }
-  // per field, the first K row of the group of its cached scales and those
-  // scales of the lane's 2 columns, each in both halves
+  // !kChunkScales: per field, the first K row of the group of its cached
+  // scales and those scales of the lane's 2 columns, each in both halves
+  // (kChunkScales: never read, so never kept)
   int sk[kF];
   uint32_t sv[kF][2];
 #pragma unroll
   for (int i = 0; i < kF; ++i) sk[i] = -2 * a.group_size;
+  // kChunkScales: per field, the chunk's scales of column col (low half)
+  // and col + 8 (high half); fpg fields share a group (else never kept)
+  uint32_t cs[kF];
+  const int fpg = Decoder::kChunkScales ? a.group_size / (2 * geo.kc0) : 1;
 
-  uint32_t af0[kF / 2][4], af1[kF / 2][4];
+  uint32_t af0[kU][4], af1[kU][4];
   for (int st = 0; st < ahead; ++st) fill(st);
   const int splits = nchunks / cps;
   const int per_split = cps * geo.per_chunk;
@@ -415,67 +496,90 @@ __global__ void __launch_bounds__(kThreads, 1)
     const unsigned char* base = smem_raw + static_cast<size_t>(st % stages) * geo.stage_bytes;
     const uint32_t xs = smem_u32(base);
     const uint32_t* p0 = reinterpret_cast<const uint32_t*>(base + geo.x_bytes);
-    const uint32_t* p1 = p0 + 4 * Q * pstride;
+    const uint32_t* p1 = p0 + kRW * 4 * Q * pstride;
     const uint16_t* sc = reinterpret_cast<const uint16_t*>(base + geo.s_off);
     const int k0 = c * a.chunk - (c * a.chunk / a.group_size) * a.group_size;  // chunk in group
-    // item ql's A registers: its kF / 2 steps' pairs times their scales
-    auto decode = [&](int ql, uint32_t (&af)[kF / 2][4]) {
-      const int j = 4 * (gq * Q + ql) + t;  // word row of the chunk
-      typename Decoder::Words w;
-      const int jr = 4 * ql + t;
-      w.w0 = make_uint4(p0[jr * pstride + col], p0[jr * pstride + col + 8], 0u, 0u);
-      if (geo.kc1) {
-        const int j1 = j % geo.kc1;
-        w.w1 = make_uint4(p1[j1 * pstride + col], p1[j1 * pstride + col + 8], 0u, 0u);
-      } else {
-        w.w1 = make_uint4(0u, 0u, 0u, 0u);
-      }
+    if (Decoder::kChunkScales && gq == 0) {
+      // a new chunk: field i's group is row (k0 / 2 kc + i) / fpg of its scales
+      int r = k0 / (2 * geo.kc0), row = 0;
 #pragma unroll
       for (int i = 0; i < kF; ++i) {
-        // K row in the chunk's first group's frame: rows of the staged scales
-        const int krow = c * a.chunk + 2 * (i * geo.kc0 + j);
-        if (static_cast<unsigned>(krow - sk[i]) >= static_cast<unsigned>(a.group_size)) {
-          const int gr = (k0 + 2 * (i * geo.kc0 + j)) / a.group_size;
-          sk[i] = krow - (k0 + 2 * (i * geo.kc0 + j)) + gr * a.group_size;
-          const uint32_t h0 = sc[gr * kBlockN + col], h1 = sc[gr * kBlockN + col + 8];
-          sv[i][0] = h0 | (h0 << 16);
-          sv[i][1] = h1 | (h1 << 16);
+        if (i == 0 || r == 0)
+          cs[i] = static_cast<uint32_t>(sc[row * kBlockN + col]) |
+                  (static_cast<uint32_t>(sc[row * kBlockN + col + 8]) << 16);
+        else
+          cs[i] = cs[i - 1];
+        if (++r == fpg) {
+          r = 0;
+          ++row;
+        }
+      }
+    }
+    // unit h (0, or 1 for an item's second half at 16 fields) of item ql
+    // into A registers: its kU steps' pairs times their scales. h is a
+    // constant at every call, and 0 wherever an item is one unit.
+    auto decode = [&](int h, int ql, uint32_t (&af)[kU][4]) {
+      const int s0 = kUnits == 1 ? 0 : h * kU;  // the unit's first step in the item
+      const int j = 4 * (gq * Q + ql) + t;      // word row of the chunk
+      const typename Decoder::Words w =
+          staged_words<Decoder>(p0, p1, 4 * ql + t, j, geo.kc1, Q, pstride, col);
+      if (!Decoder::kChunkScales) {
+#pragma unroll
+        for (int ii = 0; ii < 2 * kU; ++ii) {
+          const int i = 2 * s0 + ii;
+          // K row in the chunk's first group's frame: rows of the staged scales
+          const int krow = c * a.chunk + 2 * (i * geo.kc0 + j);
+          if (static_cast<unsigned>(krow - sk[i]) >= static_cast<unsigned>(a.group_size)) {
+            const int gr = (k0 + 2 * (i * geo.kc0 + j)) / a.group_size;
+            sk[i] = krow - (k0 + 2 * (i * geo.kc0 + j)) + gr * a.group_size;
+            const uint32_t h0 = sc[gr * kBlockN + col], h1 = sc[gr * kBlockN + col + 8];
+            sv[i][0] = h0 | (h0 << 16);
+            sv[i][1] = h1 | (h1 << 16);
+          }
         }
       }
 #pragma unroll
-      for (int s = 0; s < kF / 2; ++s) {
-        af[s][0] = Pack2<T>::mul(dec.pair(w, 0, 2 * s, j, geo.kc1), sv[2 * s][0]);
-        af[s][1] = Pack2<T>::mul(dec.pair(w, 1, 2 * s, j, geo.kc1), sv[2 * s][1]);
-        af[s][2] = Pack2<T>::mul(dec.pair(w, 0, 2 * s + 1, j, geo.kc1), sv[2 * s + 1][0]);
-        af[s][3] = Pack2<T>::mul(dec.pair(w, 1, 2 * s + 1, j, geo.kc1), sv[2 * s + 1][1]);
+      for (int s = 0; s < kU; ++s) {
+        const int f = 2 * (s0 + s);
+        constexpr bool kChunk = Decoder::kChunkScales;
+        af[s][0] = Pack2<T>::mul(dec.pair(w, 0, f, j, geo.kc1),
+                                 field_scale<kChunk>(cs[f], sv[f], 0));
+        af[s][1] = Pack2<T>::mul(dec.pair(w, 1, f, j, geo.kc1),
+                                 field_scale<kChunk>(cs[f], sv[f], 1));
+        af[s][2] = Pack2<T>::mul(dec.pair(w, 0, f + 1, j, geo.kc1),
+                                 field_scale<kChunk>(cs[f + 1], sv[f + 1], 0));
+        af[s][3] = Pack2<T>::mul(dec.pair(w, 1, f + 1, j, geo.kc1),
+                                 field_scale<kChunk>(cs[f + 1], sv[f + 1], 1));
       }
     };
-    // item ql's kF / 2 products, a commit group each; acc is not touched
-    // between here and a wait<0>: a read of it while a product is in flight
-    // would make ptxas wait on each one
-    auto issue = [&](int ql, const uint32_t (&af)[kF / 2][4]) {
+    // unit h of item ql: its kU products, a commit group each; acc is not
+    // touched between here and a wait<0>: a read of it while a product is
+    // in flight would make ptxas wait on each one
+    auto issue = [&](int h, int ql, const uint32_t (&af)[kU][4]) {
+      const int s0 = kUnits == 1 ? 0 : h * kU;
       wg_fence();
 #pragma unroll
-      for (int s = 0; s < kF / 2; ++s) {
+      for (int s = 0; s < kU; ++s) {
         // k-slots 0..7: field 2s of the item, 8..15: field 2s + 1
         wgmma_rs<T>(acc, af[s],
-                    smem_desc(xs + static_cast<uint32_t>(2 * s * Q + ql) * kStretchBytes, lbo,
-                              128),
+                    smem_desc(xs + static_cast<uint32_t>(2 * (s0 + s) * Q + ql) * kStretchBytes,
+                              lbo, 128),
                     1);
         wg_commit();
       }
     };
-    // two sets of A registers, items in pairs: an item is decoded while the
-    // item before it multiplies, into the set whose products the wait has
-    // retired (Q is even)
-    decode(0, af0);
-    for (int ql = 0; ql < Q; ql += 2) {
-      issue(ql, af0);
-      wg_wait<kF / 2>();
-      decode(ql + 1, af1);
-      issue(ql + 1, af1);
-      wg_wait<kF / 2>();
-      if (ql + 2 < Q) decode(ql + 2, af0);
+    // two sets of A registers, units in pairs (an item's two halves, or two
+    // items): a unit is decoded while the unit before it multiplies, into
+    // the set whose products the wait has retired
+    const int units = Q * kUnits;
+    decode(0, 0, af0);
+    for (int u = 0; u < units; u += 2) {
+      issue(0, u / kUnits, af0);
+      wg_wait<kU>();
+      decode(kUnits - 1, (u + 1) / kUnits, af1);
+      issue(kUnits - 1, (u + 1) / kUnits, af1);
+      wg_wait<kU>();
+      if (u + 2 < units) decode(0, (u + 2) / kUnits, af0);
     }
     if (stages == 2) wg_wait<0>();  // this stage's products done before its buffer refills
   }
@@ -505,11 +609,6 @@ __global__ void __launch_bounds__(kThreads, 1)
         y[static_cast<size_t>(m) * a.N + n] = Cvt<T>::from_f(total[4 * jj + r]);
     }
   }
-}
-
-template <typename Decoder>
-Geometry geometry_of(int chunk, bool plane1, int group_size) {
-  return Geometry(chunk, Decoder::kPlaneBits0, plane1, group_size, smem_budget<Decoder>());
 }
 
 // The driver's cuTensorMapEncodeTiled, through the runtime (no link to
@@ -579,7 +678,7 @@ cudaError_t make_maps(Maps* m, const Args& a, const Geometry& geo) {
              (a.plane1 == nullptr || aligned(a.plane1)) && aligned(a.scales) && geo.srows <= 256;
   if (e != cudaSuccess || !m->words) return e;
   e = map_2d(&m->plane0, CU_TENSOR_MAP_DATA_TYPE_INT32, 4, a.plane0, a.N,
-             a.K / a.chunk * geo.kc0, kBlockN, 4 * geo.q);
+             a.K / a.chunk * geo.kc0 * geo.row_words, kBlockN, 4 * geo.q);
   if (e == cudaSuccess && a.plane1 != nullptr)
     e = map_2d(&m->plane1, CU_TENSOR_MAP_DATA_TYPE_INT32, 4, a.plane1, a.N, a.K / 32, kBlockN,
                geo.kc1);
@@ -592,10 +691,10 @@ cudaError_t make_maps(Maps* m, const Args& a, const Geometry& geo) {
 // Launches the kernel on a grid (M / 128, N / 128) for `splits` splits of
 // the K chunks (mma_plan's; no workspace). Returns the launch error.
 template <typename T, typename Decoder>
-cudaError_t launch_wide(Args a, int splits, bool plane1, cudaStream_t stream) {
+cudaError_t launch_wide(Args a, int splits, cudaStream_t stream) {
   auto kernel = wide_m_kernel<T, Decoder>;
-  if (!plane1) a.plane1 = nullptr;
-  const Geometry geo = geometry_of<Decoder>(a.chunk, plane1, a.group_size);
+  if (!Decoder::kPlane1) a.plane1 = nullptr;
+  const Geometry geo = geometry_of<Decoder>(a.chunk, a.group_size);
   const int stages = geo.stages(smem_budget<Decoder>());
   if (stages == 0) return cudaErrorInvalidValue;
   const size_t smem = stages * geo.stage_bytes;
@@ -616,24 +715,23 @@ cudaError_t launch_wide(Args a, int splits, bool plane1, cudaStream_t stream) {
 template <int NB, typename Fill>
 cudaError_t run_pair(const Args& a, int dtype, int splits, cudaStream_t s) {
   switch (dtype) {
-    case 1:
-      return launch_wide<__half, mma::PairDecoder<__half, NB, Fill>>(a, splits, NB == 3, s);
+    case 1: return launch_wide<__half, mma::PairDecoder<__half, NB, Fill>>(a, splits, s);
     case 2:
-      return launch_wide<__nv_bfloat16, mma::PairDecoder<__nv_bfloat16, NB, Fill>>(a, splits,
-                                                                                   NB == 3, s);
+      return launch_wide<__nv_bfloat16, mma::PairDecoder<__nv_bfloat16, NB, Fill>>(a, splits, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// A C entry's operands as the kernel's Args: false where it cannot take
-// them (K not a multiple of chunk, the first plane's word rows a chunk not
-// a multiple of 4, splits not dividing the chunks, a group size that does
-// not divide K). A ring that does not fit is refused at the launch.
+// A C entry's operands as the kernel's Args, `word_rows` the decoder's
+// word rows a chunk: false where it cannot take them (K not a multiple of
+// chunk, word_rows not a multiple of 4, splits not dividing the chunks, a
+// group size that does not divide K). A ring that does not fit is refused
+// at the launch.
 inline bool wide_args(Args& a, const void* x, const void* plane0, const void* plane1,
                       const void* scales, const void* table, void* y, int M, int N, int K,
-                      int group_size, int chunk, int pb0, int splits, int vec) {
+                      int group_size, int chunk, int word_rows, int splits, int vec) {
   if (!mma::loop_args(a, x, plane0, plane1, scales, table, y, nullptr, M, N, K, group_size,
-                      chunk, chunk * pb0 / 32, 1, vec))
+                      chunk, word_rows, 1, vec))
     return false;
   return splits >= 1 && (K / chunk) % splits == 0 && group_size > 0 && K % group_size == 0;
 }
@@ -655,13 +753,11 @@ cudaError_t describe(K kernel, int threads, size_t dyn, int* regs, int* smem, in
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, threads, dyn);
 }
 
-// The instantiations that K1 and K2 run with one pair decoder, for the
-// report of phase 1: i = 0..3 the loop at 1, 2 and 4 m16 tiles a warp and
-// this kernel in bf16, 4..7 the same in f16; dynamic shared memory at
-// `chunk`.
-template <typename T, int NB, typename Fill>
+// The instantiations that a kernel runs with decoder D in 16-bit type T,
+// for the report of phase 1: i = 0..2 the loop at 1, 2 and 4 m16 tiles a
+// warp, 3 this kernel; dynamic shared memory at `chunk` (and group size 64).
+template <typename T, typename D>
 cudaError_t describe_dtype(int i, int chunk, int* regs, int* smem, int* blocks) {
-  using D = mma::PairDecoder<T, NB, Fill>;
   switch (i) {
     case 0: return describe(mma::lut_mma_kernel<T, 1, D>, mma::kMmaThreads,
                             mma::mma_smem_bytes(1, chunk), regs, smem, blocks);
@@ -670,23 +766,34 @@ cudaError_t describe_dtype(int i, int chunk, int* regs, int* smem, int* blocks) 
     case 2: return describe(mma::lut_mma_kernel<T, 4, D>, mma::kMmaThreads,
                             mma::mma_smem_bytes(4, chunk), regs, smem, blocks);
     default: {
-      const Geometry geo = geometry_of<D>(chunk, NB == 3, 64);
+      const Geometry geo = geometry_of<D>(chunk, 64);
       return describe(wide_m_kernel<T, D>, kThreads,
                       geo.stages(smem_budget<D>()) * geo.stage_bytes, regs, smem, blocks);
     }
   }
 }
 
-template <int NB, typename Fill>
-cudaError_t describe_pair(int i, int chunk, const char** name, int* regs, int* smem,
-                          int* blocks) {
+// Instantiation i of a kernel's decoder in bf16 (DB: i = 0..3) and f16
+// (DH: 4..7), as describe_dtype counts them: its name, registers, shared
+// memory and blocks per SM.
+template <typename DB, typename DH>
+cudaError_t describe_decoders(int i, int chunk, const char** name, int* regs, int* smem,
+                              int* blocks) {
   static const char* const kNames[8] = {
       "loop MT=1 bfloat16", "loop MT=2 bfloat16", "loop MT=4 bfloat16", "wide bfloat16",
       "loop MT=1 float16",  "loop MT=2 float16",  "loop MT=4 float16",  "wide float16"};
   if (i < 0 || i >= 8) return cudaErrorInvalidValue;
   *name = kNames[i];
-  if (i < 4) return describe_dtype<__nv_bfloat16, NB, Fill>(i, chunk, regs, smem, blocks);
-  return describe_dtype<__half, NB, Fill>(i - 4, chunk, regs, smem, blocks);
+  if (i < 4) return describe_dtype<__nv_bfloat16, DB>(i, chunk, regs, smem, blocks);
+  return describe_dtype<__half, DH>(i - 4, chunk, regs, smem, blocks);
+}
+
+// The same for the pair decoder of NB bits and table fill Fill (K1, K2, K4).
+template <int NB, typename Fill>
+cudaError_t describe_pair(int i, int chunk, const char** name, int* regs, int* smem,
+                          int* blocks) {
+  return describe_decoders<mma::PairDecoder<__nv_bfloat16, NB, Fill>,
+                           mma::PairDecoder<__half, NB, Fill>>(i, chunk, name, regs, smem, blocks);
 }
 
 // ---------------------------------------------------------------------------

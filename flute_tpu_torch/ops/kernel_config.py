@@ -27,7 +27,7 @@ Two launch shapes serve the Hopper LUT-GEMM kernels:
   (``csrc/lut_gemm_pair.cu``) always, or with K3's decoder of the wide
   3-bit triples (``csrc/lut_gemm_w3wide.cu``, bf16 and f16): m16 tiles per
   warp and the split of K, the split a function of N, K and chunk alone.
-* ``mma_route`` and ``wide_plan`` send K1 and K2 at prefill M (from
+* ``mma_route`` and ``wide_plan`` send K1-K4 at prefill M (from
   :data:`WIDE_MIN_M` rows) to the wide-M kernel on warpgroup MMA
   (``csrc/lut_gemm_wide_m.cuh``), which sums in the loop's order within
   ``mma_plan``'s split, so a row has the same bits on either route.
@@ -215,62 +215,75 @@ def mma_plan(m: int, n: int, k: int, chunk: int, m_tiles: int = 0) -> MmaPlan:
     return MmaPlan(m_tiles=m_tiles, splits=splits, grid=(cols, splits, rows))
 
 
-# The wide-M kernel (csrc/lut_gemm_wide_m.cuh; K1 and K2 in bf16/f16): a
-# block of 128 rows of x by 128 columns, two warpgroups of 64 columns.
+# The wide-M kernel (csrc/lut_gemm_wide_m.cuh; K1-K4 in bf16/f16): a block
+# of 128 rows of x by 128 columns, two warpgroups of 64 columns.
 WIDE_ROWS = 128
 WIDE_BLOCK_N = 128
-# the layouts it decodes (K1 and K2's pair planes; K3 and K4 stay on the loop)
-WIDE_LAYOUTS = ("w4sym", "plane")
+# the layouts it decodes: K1's, K2's and K4's pair planes and K3's triples
+WIDE_LAYOUTS = ("w4sym", "plane", "pair", "w3wide")
 # The least M that takes it: the crossover of phase 2's sweep in
-# chip_smoke.py (K1 and K2 at one Llama-3.1-8B layer, M in 8..2047).
+# chip_smoke.py (K1-K4 at one Llama-3.1-8B layer, M in 8..2047).
 WIDE_MIN_M = 128
 
 
-def wide_ring(num_bits: int, chunk: int, group_size: int) -> tuple[int, int, int]:
+def wide_ring(num_bits: int, chunk: int, group_size: int,
+              layout: str = "plane") -> tuple[int, int, int]:
     """The wide-M kernel's ring (``csrc/lut_gemm_wide_m.cuh::Geometry``):
     ``(q, stage_bytes, stages)``. A stage is ``q`` items of a chunk (4, 2 or
     1 dividing kc / 4: the most that leave room for three stages): their x
-    stretches for every field (16 bytes a row, 128 rows), their 4q
-    first-plane word rows and at 3 bits the chunk's 1-bit plane rows (136
-    words a row), then, from a 128-byte boundary, the chunk's scale rows
-    (128 16-bit values each), rounded up to 128 bytes. ``stages`` fit beside
-    the pair table and the mbarriers in a block's shared memory, at most 4;
-    0 where two do not, or where a stage holds one item (the kernel decodes
-    an item while the one before multiplies, in pairs)."""
-    kc0 = mma_word_rows(num_bits, chunk)
+    stretches for every field (16 bytes a row, 128 rows), their 4q word
+    rows of each planar word (three for K3's triples) and at 3 bits the
+    chunk's 1-bit plane rows (136 words a row), then, from a 128-byte
+    boundary, the chunk's scale rows (128 16-bit values each), rounded up
+    to 128 bytes. ``stages`` fit beside the decoder's table (the pair
+    tables ``(2^b)^2 x 8`` words, K4's joint one as K2's; K3's 64 x 8) and
+    the mbarriers in a block's shared memory, at most 4; 0 where two do
+    not, or where a stage's units do not pair up (the kernel decodes a unit
+    of at most 4 k16 steps while the one before multiplies, in pairs: an
+    item at 4 and 8 fields, half an item at K3's 16)."""
+    kc0 = mma_word_rows(num_bits, chunk, layout)
+    fields = mma_fields(num_bits, layout)
+    w3 = layout == "w3wide"
+    row_words = 3 if w3 else 1
+    kc1 = chunk // 32 if num_bits == 3 and not w3 else 0
+    units = fields // 8 if fields > 8 else 1
     srows = -(-chunk // group_size) + 1
-    budget = MAX_SMEM_BYTES - (2**num_bits) ** 2 * 8 * 4 - 64
+    table = 64 * 8 * 4 if w3 else (2**num_bits) ** 2 * 8 * 4
+    budget = MAX_SMEM_BYTES - table - 64
 
     def stage_bytes(q):
-        words = (4 * q + (chunk // 32 if num_bits == 3 else 0)) * (WIDE_BLOCK_N + 8) * 4
-        s_off = -(-(mma_fields(num_bits) * q * WIDE_ROWS * 16 + words) // 128) * 128
+        words = (row_words * 4 * q + kc1) * (WIDE_BLOCK_N + 8) * 4
+        s_off = -(-(fields * q * WIDE_ROWS * 16 + words) // 128) * 128
         return -(-(s_off + srows * WIDE_BLOCK_N * 2) // 128) * 128
 
     q = 4
     while q > 1 and not ((kc0 // 4) % q == 0 and budget // stage_bytes(q) >= 3):
         q //= 2
     n = budget // stage_bytes(q)
-    return q, stage_bytes(q), 0 if n < 2 or q < 2 else min(n, 4)
+    return q, stage_bytes(q), 0 if n < 2 or (q * units) % 2 else min(n, 4)
 
 
-def wide_takes_chunk(num_bits: int, chunk: int, group_size: int = 64) -> bool:
+def wide_takes_chunk(num_bits: int, chunk: int, group_size: int = 64,
+                     layout: str = "plane") -> bool:
     """Whether the wide-M kernel takes a layer's pack chunk and group size:
     the loop takes the chunk (:func:`mma_takes_chunk`), two stages of the
-    kernel's ring fit shared memory and a stage holds at least two items
-    (all but a very small group size at a long chunk, or a chunk under 64 K
-    rows at 4 bits, 128 at 2 and 3). Depends on neither M nor the dtype."""
-    return mma_takes_chunk(num_bits, chunk) and wide_ring(num_bits, chunk, group_size)[2] >= 2
+    kernel's ring fit shared memory and a stage's units pair up (all but a
+    very small group size at a long chunk, or for the pair planes a chunk
+    under 64 K rows at 4 bits, 128 at 2 and 3). Depends on neither M nor
+    the dtype."""
+    return (mma_takes_chunk(num_bits, chunk, layout)
+            and wide_ring(num_bits, chunk, group_size, layout)[2] >= 2)
 
 
 def mma_route(m: int, num_bits: int, chunk: int, layout: str = "plane",
               group_size: int = 64) -> str:
     """Where a call on the tensor cores (:func:`launch_path` ``"mma"``)
-    runs: ``"wide"``, the wide-M kernel, for K1 and K2 from
+    runs: ``"wide"``, the wide-M kernel, for every layout (K1-K4) from
     :data:`WIDE_MIN_M` rows at a chunk and group size it takes; ``"loop"``,
-    the decode loop, otherwise (K3 and K4 always). For a layer, a function
-    of M alone; both routes give a row the same bits."""
+    the decode loop, otherwise. For a layer, a function of M alone; both
+    routes give a row the same bits."""
     if (layout in WIDE_LAYOUTS and m >= WIDE_MIN_M
-            and wide_takes_chunk(num_bits, chunk, group_size)):
+            and wide_takes_chunk(num_bits, chunk, group_size, layout)):
         return "wide"
     return "loop"
 
@@ -325,9 +338,10 @@ def dtype_name(dtype) -> str:
 
 
 def launch_path(dtype, num_bits: int, chunk: int, layout: str = "auto") -> str:
-    """``"mma"`` where the call runs the tensor-core loop (K4 always; K1, K2
-    and K3 in bf16 and f16 at a chunk the loop takes), ``"simt"`` where it
-    runs the SIMT kernel."""
+    """``"mma"`` where the call runs on the tensor cores (K4 always; K1, K2
+    and K3 in bf16 and f16 at a chunk the loop takes), on the route that
+    :func:`mma_route` gives its M; ``"simt"`` where it runs the SIMT
+    kernel."""
     layout = kernel_layout(num_bits, layout)
     if layout == "pair":
         return "mma"

@@ -19,7 +19,7 @@ Dispatch is by the tensors' device:
   A config with ``lut_mode="pair_lut"`` and no ``pair_values`` takes the
   same route on the plane layout, with the separable joint table that JAX
   builds from the scalar one. A build or launch failure raises.
-  K1 and K2 on the tensor cores take one of two routes by M alone
+  K1-K4 on the tensor cores take one of two routes by M alone
   (:func:`~flute_tpu_torch.ops.kernel_config.mma_route`): the decode loop
   of ``csrc/lut_gemm_mma.cuh``, or from
   :data:`~flute_tpu_torch.ops.kernel_config.WIDE_MIN_M` rows the wide-M
@@ -58,9 +58,9 @@ from flute_tpu_torch.ops.kernel_config import (
 # its kernel and nowhere else, so a run can show which kernels its path
 # went through.
 LAUNCHES = {"w4sym": 0, "plane": 0, "w3wide": 0, "pair": 0}
-# Of those, the launches that took the wide-M kernel (K1's and K2's route at
+# Of those, the launches that took the wide-M kernel (the route of K1-K4 at
 # prefill M), by layout.
-WIDE_LAUNCHES = {"w4sym_wide": 0, "plane_wide": 0}
+WIDE_LAUNCHES = {"w4sym_wide": 0, "plane_wide": 0, "w3wide_wide": 0, "pair_wide": 0}
 
 _DTYPE_TAG = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
@@ -166,6 +166,8 @@ _KERNELS = {
 _WIDE = {
     "w4sym": ("lut_gemm_w4sym.cu", "flute_lut_qgemm_w4sym_wide", 5, 8),
     "plane": ("lut_gemm_plane.cu", "flute_lut_qgemm_plane_wide", 6, 9),
+    "w3wide": ("lut_gemm_w3wide.cu", "flute_lut_qgemm_w3wide_wide", 5, 8),
+    "pair": ("lut_gemm_pair.cu", "flute_lut_qgemm_pair_wide", 6, 9),
 }
 
 
@@ -304,10 +306,11 @@ def _launch_wide(
     extra: tuple[int, ...] = (),
     vec: bool = True,
 ) -> torch.Tensor:
-    """Launch the wide-M kernel for K1 (``kernel="w4sym"``) or K2
-    (``"plane"``) on PyTorch's current stream (operands checked, x on a
-    16-byte boundary) with :func:`wide_plan`'s split, and count the launch;
-    returns ``[M, N]`` in x's dtype. Raises on a refused launch."""
+    """Launch the wide-M kernel for K1 (``kernel="w4sym"``), K2
+    (``"plane"``), K3 (``"w3wide"``) or K4 (``"pair"``) on PyTorch's
+    current stream (operands checked, x on a 16-byte boundary) with
+    :func:`wide_plan`'s split, and count the launch; returns ``[M, N]`` in
+    x's dtype. Raises on a refused launch."""
     m, k = x2.shape
     n = scales.shape[1]
     dev = x2.device
@@ -333,28 +336,34 @@ def _launch_wide(
 
 
 def kernel_instances(kernel: str, chunk: int = 256) -> list[dict]:
-    """Each tensor-core instantiation of K1 (``kernel="w4sym"``) or K2
-    (``"plane"``, at 2, 3 and 4 bits): the decode loop at 1, 2 and 4 m16
-    tiles a warp and the wide-M kernel, in bf16 and f16, with its registers,
-    shared memory (static and dynamic at ``chunk``) and blocks per SM from
-    the CUDA runtime on the current card."""
+    """Each tensor-core instantiation of K1 (``kernel="w4sym"``), K2
+    (``"plane"``) or K4 (``"pair"``) at 2, 3 and 4 bits, or K3
+    (``"w3wide"``, with a chunk's scales once per field and with the
+    per-field cache: ``scales`` "chunk" or "field"): the decode loop at 1, 2
+    and 4 m16 tiles a warp and the wide-M kernel, in bf16 and f16, with its
+    registers, shared memory (static and dynamic at ``chunk``) and blocks
+    per SM from the CUDA runtime on the current card."""
     source = _WIDE[kernel][0]
     entry = f"flute_lut_qgemm_{kernel}_instance"
     fn, error_string = _entry(source, entry, 0, 2)
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_char_p)] + [
         ctypes.POINTER(ctypes.c_int)] * 3
     out = []
-    for i in range(8 if kernel == "w4sym" else 24):
+    count = {"w4sym": 8, "w3wide": 16}.get(kernel, 24)
+    for i in range(count):
         name = ctypes.c_char_p()
         regs, smem, blocks = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
         err = fn(i, chunk, ctypes.byref(name), ctypes.byref(regs), ctypes.byref(smem),
                  ctypes.byref(blocks))
         if err != 0:
             raise RuntimeError(f"{entry}({i}) failed: {error_string(err).decode()} ({err})")
-        bits = 4 if kernel == "w4sym" else (2, 3, 4)[i // 8]
-        out.append(dict(kernel=kernel, bits=bits, instance=name.value.decode(),
-                        registers=regs.value, smem_bytes=smem.value,
-                        blocks_per_sm=blocks.value, chunk=chunk))
+        bits = {"w4sym": 4, "w3wide": 3}.get(kernel) or (2, 3, 4)[i // 8]
+        row = dict(kernel=kernel, bits=bits, instance=name.value.decode(),
+                   registers=regs.value, smem_bytes=smem.value,
+                   blocks_per_sm=blocks.value, chunk=chunk)
+        if kernel == "w3wide":
+            row["scales"] = ("chunk", "field")[i // 8]
+        out.append(row)
     return out
 
 
@@ -418,7 +427,9 @@ def lut_path(dtype: torch.dtype, num_bits: int, chunk: int, layout: str = "plane
     compute dtype, the layout and the pack chunk alone, never from M:
     ``"mma"``, the tensor-core loop, for bf16 and f16 at a chunk the loop
     takes (:func:`~flute_tpu_torch.ops.kernel_config.mma_takes_chunk`);
-    ``"simt"``, the SIMT kernel, otherwise. (K4 always runs the loop.)"""
+    ``"simt"``, the SIMT kernel, otherwise. (K4 always runs on the tensor
+    cores.) On the tensor cores :func:`mma_route` then picks the loop or the
+    wide-M kernel by M."""
     return launch_path(dtype, num_bits, chunk, layout)
 
 
@@ -440,7 +451,7 @@ def _launch_planes(
     tensor cores (``loop``) x is copied to a 16-byte boundary if it is not
     on one and ``vec`` says whether the kernel may read planes and scales
     in 16- and 8-byte pieces; the call takes the route :func:`mma_route`
-    gives its M: the wide-M kernel (K1 and K2), or the decode loop with
+    gives its M: the wide-M kernel, or the decode loop with
     :func:`mma_plan`'s plan (and a tuner's ``m_tiles`` where set). Else the
     SIMT kernel runs (with a tuner's ``simt_block_m`` where set)."""
     # the C entry's plane pointers (x, scales, table, y and the workspace
@@ -529,10 +540,12 @@ def lut_qgemm_pair_cuda(
     chunk: int,
     m_tiles: int = 0,
 ) -> torch.Tensor:
-    """Launch K4, the Hopper joint pair-lookup kernel (the tensor-core loop
-    of ``csrc/lut_gemm_mma.cuh``, split-K as :func:`mma_plan` says, with an
-    f32 workspace and a second kernel that adds the splits in order), for a
-    2-D ``x2`` ``[M, K]`` in bf16 or f16, 2-, 3- (2+1 planes) or 4-bit pair
+    """Launch K4, the Hopper joint pair-lookup kernel (by the route
+    :func:`mma_route` gives M: the tensor-core loop of
+    ``csrc/lut_gemm_mma.cuh``, split-K as :func:`mma_plan` says, with an f32
+    workspace and a second kernel that adds the splits in order, or from
+    ``WIDE_MIN_M`` rows the wide-M kernel with the loop's bits), for a 2-D
+    ``x2`` ``[M, K]`` in bf16 or f16, 2-, 3- (2+1 planes) or 4-bit pair
     planes and a float32 pair table ``[2^b, 2^b, 2]``; returns ``[M, N]`` in
     x's dtype. Counts one launch per call."""
     if num_bits not in (2, 3, 4):
@@ -574,33 +587,35 @@ def mma_k_order(num_bits: int, chunk: int, layout: str = "plane") -> torch.Tenso
     return 2 * (field * kc + word_row) + slot % 2
 
 
-def wide_k_order(num_bits: int, chunk: int) -> torch.Tensor:
-    """The wide-M kernel's order of one pack chunk's K rows (K1 and K2),
-    mirrored from the x side of ``csrc/lut_gemm_wide_m.cuh``: x is staged
-    in 8-row stretches, and step ``(q, s)`` reads stretch ``s kc / 2 + q``
-    as k-slots 0..7 and the stretch ``kc / 4`` after it (the descriptor's
-    leading-byte offset) as 8..15. Entry ``[q, s, slot]`` is the K row
-    (within the chunk); it equals :func:`mma_k_order`'s."""
-    kc = mma_word_rows(num_bits, chunk)
+def wide_k_order(num_bits: int, chunk: int, layout: str = "plane") -> torch.Tensor:
+    """The wide-M kernel's order of one pack chunk's K rows (K1, K2 and K4's
+    pair planes; K3's triples with ``layout="w3wide"``), mirrored from the x
+    side of ``csrc/lut_gemm_wide_m.cuh``: x is staged in 8-row stretches,
+    and step ``(q, s)`` reads stretch ``s kc / 2 + q`` as k-slots 0..7 and
+    the stretch ``kc / 4`` after it (the descriptor's leading-byte offset)
+    as 8..15. Entry ``[q, s, slot]`` is the K row (within the chunk); it
+    equals :func:`mma_k_order`'s."""
+    kc = mma_word_rows(num_bits, chunk, layout)
     q = torch.arange(kc // 4)[:, None, None]
-    s = torch.arange(mma_fields(num_bits) // 2)[None, :, None]
+    s = torch.arange(mma_fields(num_bits, layout) // 2)[None, :, None]
     slot = torch.arange(16)[None, None, :]
     stretch = s * (kc // 2) + q + (slot // 8) * (kc // 4)
     return 8 * stretch + slot % 8
 
 
-def wide_a_rows(num_bits: int, chunk: int) -> torch.Tensor:
+def wide_a_rows(num_bits: int, chunk: int, layout: str = "plane") -> torch.Tensor:
     """The K rows of the wide-M kernel's A registers, mirrored from its
     weight side: entry ``[q, s, t, r, h]`` is the K row (within the chunk)
     of half ``h`` of A register ``r`` of a lane with ``t = lane % 4`` at
     step ``(q, s)``, which holds field ``2s + r // 2`` of word row
     ``4q + t`` (registers 0 and 2 of column ``lane / 4``, 1 and 3 of the
-    column 8 after it). wgmma's A layout puts that register at k-slots
-    ``2t + 8 (r // 2) + h``, so the entry must equal
+    column 8 after it; at K3's 16 fields steps 0..3 and 4..7 of an item
+    are two units of A registers, the same map). wgmma's A layout puts that
+    register at k-slots ``2t + 8 (r // 2) + h``, so the entry must equal
     ``wide_k_order(...)[q, s, 2t + 8 (r // 2) + h]``."""
-    kc = mma_word_rows(num_bits, chunk)
+    kc = mma_word_rows(num_bits, chunk, layout)
     q = torch.arange(kc // 4)[:, None, None, None, None]
-    s = torch.arange(mma_fields(num_bits) // 2)[None, :, None, None, None]
+    s = torch.arange(mma_fields(num_bits, layout) // 2)[None, :, None, None, None]
     t = torch.arange(4)[None, None, :, None, None]
     r = torch.arange(4)[None, None, None, :, None]
     h = torch.arange(2)[None, None, None, None, :]
@@ -664,9 +679,10 @@ def lut_qgemm_w3wide_cuda(
     m_tiles: int = 0,
     simt_block_m: int = 0,
 ) -> torch.Tensor:
-    """Launch K3, the Hopper wide 3-bit kernel (the tensor-core loop or the
-    SIMT kernel, as :func:`lut_path` says), for a 2-D ``x2`` ``[M, K]``;
-    returns ``[M, N]`` in x's dtype. Counts one launch per call."""
+    """Launch K3, the Hopper wide 3-bit kernel (on the tensor cores, by the
+    route :func:`mma_route` gives M, or the SIMT kernel, as :func:`lut_path`
+    says), for a 2-D ``x2`` ``[M, K]``; returns ``[M, N]`` in x's dtype.
+    Counts one launch per call."""
     k = x2.shape[1]
     if chunk % 256:
         raise ValueError(f"chunk={chunk} not supported by the wide 3-bit layout")

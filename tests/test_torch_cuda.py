@@ -2257,8 +2257,10 @@ def test_bench_op_refuses_to_build_in_its_capture(dev):
 
 
 def route_fn(layout, bits, planes, s, t, chunk=256, g=G, route=None):
-    """K1's or K2's wrapper on ``route`` ("loop" or "wide": the crossover
-    moved past M or to one row for the call; None: the plan's)."""
+    """The wrapper of K1 (``layout="w4sym"``), K2 (``"plane"``), K3
+    (``"w3wide"``) or K4 (``"pair"``, ``t`` the pair table) on ``route``
+    ("loop" or "wide": the crossover moved past M or to one row for the
+    call; None: the plan's)."""
     kw = dict(group_size=g, chunk=chunk)
 
     def call(x):
@@ -2268,6 +2270,10 @@ def route_fn(layout, bits, planes, s, t, chunk=256, g=G, route=None):
         try:
             if layout == "w4sym":
                 return lut_gemm.lut_qgemm_w4sym_cuda(x, planes[0], s, t, **kw)
+            if layout == "w3wide":
+                return lut_gemm.lut_qgemm_w3wide_cuda(x, planes[0], s, t, **kw)
+            if layout == "pair":
+                return lut_gemm.lut_qgemm_pair_cuda(x, planes, s, t, num_bits=bits, **kw)
             return lut_gemm.lut_qgemm_plane_cuda(x, planes, s, t, num_bits=bits, **kw)
         finally:
             kernel_config.WIDE_MIN_M = saved
@@ -2379,3 +2385,127 @@ def test_wide_stages_by_cp_async_where_tma_does_not_take_n(dev, layout, bits, n)
     assert rel_err(y, lut_gemm.lut_qgemm_plain(x, planes, s, t, num_bits=bits, chunk=256,
                                                layout=layout)) < TOL[torch.bfloat16]
 
+
+
+# ---------------------------------------------------------------------------
+# K3 (w3wide) and K4 (pair) on the wide-M kernel
+# ---------------------------------------------------------------------------
+
+# (layout, bits, chunk): K3 at both of its chunks, K4 at every bit width
+K3_K4_WIDE = [("w3wide", 3, 256), ("w3wide", 3, 512), ("pair", 2, 256), ("pair", 3, 256),
+              ("pair", 4, 256), ("pair", 4, 128)]
+
+
+def wide_case(dev, layout, bits, m, n, k, dtype, seed, chunk, g=G):
+    """codes, x, planes, scales, the table (K4: the pair table) and the
+    oracle's dequantized weight for K3 or K4."""
+    if layout == "pair":
+        codes, x, planes, s, pv = mma_pair_case(dev, bits, m, n, k, dtype, seed, chunk, g)
+        return codes, x, planes, s, pv, lut_gemm.dequantize_codes_pair(codes, s, pv, dtype)
+    codes, x, planes, s, t = loop_case(dev, layout, bits, m, n, k, dtype, seed, chunk, g)
+    return codes, x, planes, s, t, lut_gemm.dequantize_codes(codes, s, t, dtype)
+
+
+def plain_of(layout, bits, x, planes, s, t, chunk):
+    if layout == "pair":
+        return lut_gemm.lut_qgemm_plain(x, planes, s, torch.zeros(2**bits, device=x.device),
+                                        num_bits=bits, chunk=chunk, layout="plane",
+                                        pair_values=t)
+    return lut_gemm.lut_qgemm_plain(x, planes, s, t, num_bits=bits, chunk=chunk, layout=layout)
+
+
+@pytest.mark.parametrize("g", [8, 64, 128])
+@pytest.mark.parametrize("m", [128, 130, 512, 2047])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("layout,bits,chunk", K3_K4_WIDE)
+def test_k3_k4_wide_has_the_loops_bits(dev, layout, bits, chunk, dtype, m, g):
+    """K3 and K4 from 128 rows take the wide-M kernel and give the decode
+    loop's bits at full and ragged row tiles (N = 264: a ragged column
+    tile), split-K (K = 2048), groups within and across fields (K3: a
+    chunk's scales once per field where g is a multiple of 2 kc, the
+    per-field cache at g = 8 and at chunk 512 below that), within the
+    threshold of the plain version; a repeat call has the same bits, and at
+    M = 2047 rows 0 and M - 1 the one-row call's."""
+    _, x, planes, s, t, _ = wide_case(dev, layout, bits, m, 264, 2048, dtype,
+                                      seed=m + bits + g + chunk, chunk=chunk, g=g)
+    assert kernel_config.mma_route(m, bits, chunk, layout, g) == "wide"
+    before, wide_before = lut_gemm.LAUNCHES[layout], lut_gemm.WIDE_LAUNCHES[f"{layout}_wide"]
+    call = route_fn(layout, bits, planes, s, t, chunk, g)
+    y = call(x)
+    assert lut_gemm.LAUNCHES[layout] == before + 1
+    assert lut_gemm.WIDE_LAUNCHES[f"{layout}_wide"] == wide_before + 1
+    assert same_bits(y, route_fn(layout, bits, planes, s, t, chunk, g, route="loop")(x))
+    assert same_bits(call(x), y)
+    if m == 2047:
+        for i in (0, m - 1):
+            assert same_bits(call(x[i:i + 1]), y[i:i + 1])
+    y_plain = plain_of(layout, bits, x, planes, s, t, chunk)
+    torch.cuda.synchronize()
+    assert rel_err(y, y_plain) < TOL[dtype]
+
+
+@pytest.mark.parametrize("m", [128, 300])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("layout,bits,chunk", K3_K4_WIDE)
+def test_k3_k4_wide_identity_bit_exact(dev, layout, bits, chunk, dtype, m):
+    """Identity rows through the wide-M kernel give the oracle's bits."""
+    _, _, planes, s, t, deq = wide_case(dev, layout, bits, 1, 256, 512, dtype, seed=61,
+                                        chunk=chunk)
+    eye = torch.eye(m, 512, dtype=dtype, device=dev)
+    got = route_fn(layout, bits, planes, s, t, chunk, route="wide")(eye)
+    assert same_bits(got, deq[:m])
+
+
+@pytest.mark.parametrize("n", [196, 198])
+@pytest.mark.parametrize("layout,bits,chunk", K3_K4_WIDE)
+def test_k3_k4_wide_stages_by_cp_async_where_tma_does_not_take_n(dev, layout, bits, chunk, n):
+    """N not a multiple of 8 (196: 16-byte plane copies; 198: 4-byte ones)
+    stages the plane words and scales by cp.async, with the loop's bits."""
+    _, x, planes, s, t, _ = wide_case(dev, layout, bits, 130, n, 1024, torch.bfloat16, seed=62,
+                                      chunk=chunk)
+    y = route_fn(layout, bits, planes, s, t, chunk, route="wide")(x)
+    assert same_bits(y, route_fn(layout, bits, planes, s, t, chunk, route="loop")(x))
+    assert rel_err(y, plain_of(layout, bits, x, planes, s, t, chunk)) < TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("layout,bits,chunk", K3_K4_WIDE)
+def test_k3_k4_wide_refuses_f32_and_does_not_fall_back(dev, layout, bits, chunk):
+    """The wide-M C entry given f32 raises and counts no launch: nothing
+    falls back to the loop or the plain version. Through the wrapper K4
+    refuses f32 (as JAX's pair_lut mode does) and K3 takes its SIMT kernel
+    at every M."""
+    _, x, planes, s, t, _ = wide_case(dev, layout, bits, 256, 256, 512, torch.float32, seed=63,
+                                      chunk=chunk)
+    launches, wide = dict(lut_gemm.LAUNCHES), dict(lut_gemm.WIDE_LAUNCHES)
+    extra = (bits,) if layout == "pair" else ()
+    ptrs = [p.data_ptr() for p in planes] + [None] * (2 - len(planes) - (layout == "w3wide"))
+    with pytest.raises(RuntimeError, match="wide-M kernel launch failed"):
+        lut_gemm._launch_wide(layout, x, ptrs, s, t, group_size=G, chunk=chunk, extra=extra)
+    assert lut_gemm.LAUNCHES == launches and lut_gemm.WIDE_LAUNCHES == wide
+    if layout == "pair":
+        with pytest.raises(NotImplementedError, match="16-bit"):
+            route_fn(layout, bits, planes, s, t, chunk, route="wide")(x)
+        assert lut_gemm.LAUNCHES == launches
+        return
+    assert lut_gemm.lut_path(torch.float32, bits, chunk, layout) == "simt"
+    y = route_fn(layout, bits, planes, s, t, chunk, route="wide")(x)
+    assert lut_gemm.WIDE_LAUNCHES == wide
+    assert rel_err(y, plain_of(layout, bits, x, planes, s, t, chunk)) < TOL[torch.float32]
+
+
+@pytest.mark.parametrize("layout,bits,chunk", [("w3wide", 3, 128), ("pair", 2, 64),
+                                               ("pair", 4, 32)])
+def test_k3_k4_wide_refused_launch_raises(dev, layout, bits, chunk):
+    """A launch the wide-M kernel does not take (K3 at a chunk that is not a
+    multiple of 256; K4 at a chunk whose stage holds one item of 4 or 8
+    fields, so its units do not pair up) raises, counts nothing and runs
+    nothing else; the plan never routes such a layer there."""
+    _, x, planes, s, t, _ = wide_case(dev, layout, bits, 256, 256, 512, torch.bfloat16, seed=64,
+                                      chunk=256 if layout == "w3wide" else chunk)
+    assert kernel_config.mma_route(256, bits, chunk, layout, G) == "loop"
+    launches, wide = dict(lut_gemm.LAUNCHES), dict(lut_gemm.WIDE_LAUNCHES)
+    extra = (bits,) if layout == "pair" else ()
+    ptrs = [p.data_ptr() for p in planes] + [None] * (2 - len(planes) - (layout == "w3wide"))
+    with pytest.raises(RuntimeError, match="wide-M kernel launch failed"):
+        lut_gemm._launch_wide(layout, x, ptrs, s, t, group_size=G, chunk=chunk, extra=extra)
+    assert lut_gemm.LAUNCHES == launches and lut_gemm.WIDE_LAUNCHES == wide

@@ -401,10 +401,11 @@ def test_k1_k2_wrappers_pick_the_path_before_the_launch(monkeypatch, layout, bit
 @pytest.mark.parametrize("chunk", [256, 512, 1024])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
 def test_k3_wrapper_picks_the_path_before_the_launch(monkeypatch, dtype, chunk):
-    """K3 takes the loop in bf16 and f16 at chunk 256 and 512 (mma_plan's
-    split, the same at every M, and its workspace) and the SIMT kernel in
-    f32 and at chunk 1024, whose x ring would not fit shared memory. One
-    launch is counted either way."""
+    """K3 takes the tensor cores in bf16 and f16 at chunk 256 and 512
+    (mma_plan's split, the same at every M: the loop with its workspace
+    below WIDE_MIN_M rows, the wide-M kernel with none from it) and the SIMT
+    kernel in f32 and at chunk 1024, whose x ring would not fit shared
+    memory. One launch is counted either way."""
     n, k = 256, 2048
     loop = dtype != torch.float32 and chunk != 1024
     assert kernel_config.mma_takes_chunk(3, chunk, "w3wide") == (chunk != 1024)
@@ -419,6 +420,8 @@ def test_k3_wrapper_picks_the_path_before_the_launch(monkeypatch, dtype, chunk):
         return 0
 
     monkeypatch.setattr(lut_gemm, "_kernel_fn", lambda kernel: (fake_entry, None))
+    monkeypatch.setattr(lut_gemm, "_entry", lambda *a: (lambda *args: fake_entry(a[1], *args),
+                                                        None))
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda dev: types.SimpleNamespace(cuda_stream=0))
     monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
@@ -429,6 +432,14 @@ def test_k3_wrapper_picks_the_path_before_the_launch(monkeypatch, dtype, chunk):
                                        torch.zeros((k // G, n), dtype=dtype), torch.zeros(8),
                                        group_size=G, chunk=chunk)
         assert lut_gemm.LAUNCHES["w3wide"] == before + 1
+        if loop and kernel_config.mma_route(m, 3, chunk, "w3wide", G) == "wide":
+            assert m >= kernel_config.WIDE_MIN_M
+            entry, *args = calls[-1]
+            assert entry == "flute_lut_qgemm_w3wide_wide"
+            plan = kernel_config.wide_plan(m, n, k, chunk)
+            assert args[-4:] == [lut_gemm._DTYPE_TAG[dtype], plan.splits, 1, 0]
+            splits.add(plan.splits)
+            continue
         block_m, m_tiles, n_splits, vec = calls[-1][-5:-1]
         work = calls[-1][5]
         assert block_m == kernel_config.launch_config(m).block_m
@@ -692,24 +703,33 @@ def test_wide_operand_map_is_the_loops_step_order(bits, chunk):
 
 
 @pytest.mark.parametrize("splits", [1, 2])
-@pytest.mark.parametrize("layout,bits", [("w4sym", 4), ("plane", 2), ("plane", 3), ("plane", 4)])
+@pytest.mark.parametrize("layout,bits", [("w4sym", 4), ("plane", 2), ("plane", 3), ("plane", 4),
+                                         ("w3wide", 3), ("pair", 2), ("pair", 3), ("pair", 4)])
 def test_wide_product_through_the_operand_map_matches_jax(layout, bits, splits):
     """``x @ W`` summed as the wide-M kernel sums it (its steps in
     ``wide_k_order``'s order, each step's A tile decoded from the packed
     words and the pair table as the kernel decodes it and held to the
     oracle bit for bit, an f32 accumulator a split added in split order)
     against JAX's weight-side branch (interpret mode, 128-row blocks) at a
-    ragged M."""
-    chunk, m = 128, 130
-    rng = np.random.default_rng(80 + bits + splits + (layout == "w4sym"))
+    ragged M: K1, K2, K3 (its word triples at chunk 256) and K4 (the joint
+    pair table, JAX's ``pair_lut`` mode)."""
+    chunk, m = (256 if layout == "w3wide" else 128), 130
+    rng = np.random.default_rng(80 + bits + splits + (layout == "w4sym")
+                                + 20 * (layout in ("w3wide", "pair")))
     e = 2**bits
     codes = rng.integers(0, e, (K, N), dtype=np.int32)
+    pv_np = None
     if layout == "w4sym":
         planes_np = packing.pack_w4_sym_np(codes, chunk=chunk)
         table_np = w4sym_table(rng, mixed_signs=True)
+    elif layout == "w3wide":
+        planes_np = packing.pack_w3_wide_np(codes, chunk=chunk)
+        table_np = rng.standard_normal(e).astype(np.float32)
     else:
         planes_np = packing.pack_np(codes, bits, chunk=chunk)
         table_np = rng.standard_normal(e).astype(np.float32)
+        if layout == "pair":
+            pv_np = rng.standard_normal((e, e, 2)).astype(np.float32)
     scales_np = rng.uniform(0.5, 1.5, (K // G, N)).astype(np.float32)
     x_np = rng.standard_normal((m, K)).astype(np.float32)
     dtype = torch.bfloat16
@@ -717,9 +737,14 @@ def test_wide_product_through_the_operand_map_matches_jax(layout, bits, splits):
     table = torch.from_numpy(table_np)
     scales = torch.from_numpy(scales_np).to(dtype)
     x = torch.from_numpy(x_np).to(dtype).float()
-    deq = lut_gemm.dequantize_codes(torch.from_numpy(codes), scales, table, dtype)
-    ptab = lut_gemm.pair_table(layout, table, dtype)
-    order = lut_gemm.wide_k_order(bits, chunk)
+    if pv_np is None:
+        deq = lut_gemm.dequantize_codes(torch.from_numpy(codes), scales, table, dtype)
+        ptab = lut_gemm.pair_table(layout, table, dtype)
+    else:
+        pv = torch.from_numpy(pv_np)
+        deq = lut_gemm.dequantize_codes_pair(torch.from_numpy(codes), scales, pv, dtype)
+        ptab = lut_gemm.pair_table("pair", pv, dtype)
+    order = lut_gemm.wide_k_order(bits, chunk, layout)
     nchunks = K // chunk
     total = torch.zeros((m, N), dtype=torch.float32)
     for sp in range(splits):
@@ -733,33 +758,93 @@ def test_wide_product_through_the_operand_map_matches_jax(layout, bits, splits):
                     acc += x[:, rows] @ a.float()
         total += acc
 
+    mode = dict(lut_mode="pair_lut") if pv_np is not None else {}
     want = jlut.lut_qgemm(
         jnp.asarray(x_np, jnp.bfloat16), [jnp.asarray(p) for p in planes_np],
         jnp.asarray(scales_np, jnp.bfloat16), jnp.asarray(table_np), num_bits=bits,
-        config=JKernelConfig(block_m=128, block_n=256, block_k=256, chunk=chunk),
-        layout=layout, interpret=True)
+        config=JKernelConfig(block_m=128, block_n=256, block_k=256, chunk=chunk, **mode),
+        layout="plane" if layout == "pair" else layout, interpret=True,
+        pair_values=None if pv_np is None else jnp.asarray(pv_np))
     assert rel_err(total.to(dtype).float(), np.asarray(want, np.float32)) < BF16_TOL
 
 
 @pytest.mark.parametrize("layout,bits", [("w4sym", 4), ("plane", 2), ("plane", 3), ("plane", 4),
-                                         ("w3wide", 3), ("pair", 2), ("pair", 4)])
+                                         ("w3wide", 3), ("pair", 2), ("pair", 3), ("pair", 4)])
 def test_wide_route_depends_on_m_alone(layout, bits):
-    """K1 and K2 take the wide-M kernel from WIDE_MIN_M rows at a chunk it
-    takes, the loop below; K3 and K4 the loop at every M. For a layer the
-    route is a function of M alone."""
-    wide = layout in kernel_config.WIDE_LAYOUTS
-    for m in (1, 8, 40, 64, kernel_config.WIDE_MIN_M - 1, kernel_config.WIDE_MIN_M, 512, 2047,
-              4094):
-        want = "wide" if wide and m >= kernel_config.WIDE_MIN_M else "loop"
-        assert kernel_config.mma_route(m, bits, 256, layout) == want
-    assert kernel_config.wide_takes_chunk(bits, 256)
+    """Every layout (K1-K4) takes the wide-M kernel from WIDE_MIN_M rows at
+    a chunk it takes (K3 at 256, 512 and 768), the loop below. For a layer
+    the route is a function of M alone."""
+    assert layout in kernel_config.WIDE_LAYOUTS
+    for chunk in (256, 512):
+        assert kernel_config.wide_takes_chunk(bits, chunk, G, layout)
+        for m in (1, 8, 40, 64, kernel_config.WIDE_MIN_M - 1, kernel_config.WIDE_MIN_M, 512,
+                  2047, 4094):
+            want = "wide" if m >= kernel_config.WIDE_MIN_M else "loop"
+            assert kernel_config.mma_route(m, bits, chunk, layout) == want
     # a layer whose ring would not fit shared memory (a long chunk in groups
     # of 2: hundreds of scale rows a stage) stays on the loop
     chunk = 768
-    assert kernel_config.mma_takes_chunk(bits, chunk)
-    assert kernel_config.wide_takes_chunk(bits, chunk, 64)
-    assert not kernel_config.wide_takes_chunk(bits, chunk, 2)
+    assert kernel_config.mma_takes_chunk(bits, chunk, layout)
+    assert kernel_config.wide_takes_chunk(bits, chunk, 64, layout)
+    assert not kernel_config.wide_takes_chunk(bits, chunk, 2, layout)
     assert kernel_config.mma_route(2047, bits, chunk, layout, 2) == "loop"
+    # a chunk the loop does not take (K3: not a multiple of 256), or whose
+    # stage holds one item of 4 or 8 fields (units that do not pair up)
+    small = {"w3wide": 128, "pair": 32 if bits == 4 else 64}.get(layout)
+    if small:
+        assert kernel_config.mma_route(2047, bits, small, layout) == "loop"
+
+
+@pytest.mark.parametrize("bits", [2, 3, 4])
+@pytest.mark.parametrize("chunk", [128, 256, 512])
+def test_k4_ring_is_k2s(bits, chunk):
+    """K4's joint table has K2's size ((2^b)^2 pairs in 8 copies, 32 bits
+    each: the pair decoder's Table), so its ring and its route are K2's at
+    every chunk and group size."""
+    for g in (2, 8, 32, 64, 128):
+        if chunk % g == 0:
+            assert (kernel_config.wide_ring(bits, chunk, g, "pair")
+                    == kernel_config.wide_ring(bits, chunk, g, "plane"))
+            assert (kernel_config.wide_takes_chunk(bits, chunk, g, "pair")
+                    == kernel_config.wide_takes_chunk(bits, chunk, g, "plane"))
+
+
+@pytest.mark.parametrize("g,chunk,want", [
+    (64, 256, (1, 40576, 4)), (32, 256, (1, 41600, 4)), (128, 256, (1, 40064, 4)),
+    (64, 512, (1, 41600, 4)), (128, 512, (1, 40576, 4)), (8, 512, (1, 55936, 4))])
+def test_k3_wide_ring(g, chunk, want):
+    """K3's ring (``csrc/lut_gemm_wide_m.cuh::Geometry`` for 16 fields and
+    three planar words a triple row): a stage is one item (two would leave
+    room for two stages only), 16 fields of 2 KB of x, each planar word's 4
+    rows of 136 words, the chunk's scale rows; four stages beside its 64 x
+    8-word table; an item's two halves pair up as the kernel's two sets of
+    A registers."""
+    q, stage, stages = kernel_config.wide_ring(3, chunk, g, "w3wide")
+    assert (q, stage, stages) == want
+    srows = -(-chunk // g) + 1
+    x_bytes, words = 16 * q * 128 * 16, 3 * 4 * q * 136 * 4
+    assert stage == -(-(-(-(x_bytes + words) // 128) * 128 + srows * 256) // 128) * 128
+    assert stages * stage + 64 * 8 * 4 + 64 <= kernel_config.MAX_SMEM_BYTES
+    assert (kernel_config.mma_word_rows(3, chunk, "w3wide") // 4) % q == 0
+
+
+@pytest.mark.parametrize("chunk", [256, 512, 768])
+def test_k3_wide_operand_map_is_the_loops_step_order(chunk):
+    """K3's triples on the wide-M kernel: its x side (8-row stretches, the
+    second kc / 4 stretches after the first) and its A registers (16 fields
+    a triple row, an item's 8 steps in two halves) name the K rows of the
+    loop's step order, which covers the chunk once."""
+    order = lut_gemm.wide_k_order(3, chunk, "w3wide")
+    assert tuple(order.shape) == (chunk // 128, 8, 16)
+    assert sorted(order.flatten().tolist()) == list(range(chunk))
+    assert torch.equal(order, lut_gemm.mma_k_order(3, chunk, "w3wide"))
+    a = lut_gemm.wide_a_rows(3, chunk, "w3wide")
+    q = torch.arange(order.shape[0])[:, None, None, None, None]
+    s = torch.arange(order.shape[1])[None, :, None, None, None]
+    t = torch.arange(4)[None, None, :, None, None]
+    r = torch.arange(4)[None, None, None, :, None]
+    h = torch.arange(2)[None, None, None, None, :]
+    assert torch.equal(a, order[q, s, 2 * t + 8 * (r // 2) + h])
 
 
 @pytest.mark.parametrize("m", [128, 130, 512, 2047, 4094])
