@@ -17,10 +17,12 @@ Phases (any failure exits non-zero):
      PairTileDecoder and L12's W3PairDecoder; for each tensor-core
      instantiation of K1-K4 (the loop at 1, 2 and 4 m16 tiles a warp and
      the wide-M kernel, bf16 and f16; K3 with a chunk's scales once per
-     field and with the per-field cache, at chunk 256 and 512) its
-     registers, shared memory and blocks per SM, each wide_m_kernel's
-     registers and spill from ptxas (no wgmma serialized), and K4's wide
-     ring the size of K2's;
+     field and with the per-field cache, at chunk 256 and 512; K1 and K2
+     on the wide-M kernel's mid route at row tiles of 16, 32, 48 and 64)
+     its registers, shared memory and blocks per SM (the mid route's at
+     least the 2 it is sized for), each wide_m_kernel's registers and
+     spill from ptxas (no wgmma serialized), and K4's wide ring the size
+     of K2's;
   2. hold each kernel against its plain PyTorch version on the card:
      the LUT-GEMMs at the Llama-3.1-8B decoder-layer shapes (K1 also at
      Gemma-2-9B's), M in {1, 8, 128, 512}, bf16 and f16 (relative Frobenius
@@ -55,15 +57,20 @@ Phases (any failure exits non-zero):
      (bench_cycled). K1 at Llama-3.1-8B's qkv (M=8, bf16) is also timed with
      bench_op, the JAX package's form (the same inputs every call, so
      L2-warm), beside bench_cycled, and bench_op's K1 launches are counted
-     (1 warm-up + 200). The sweep of the two tensor-core routes (the decode
-     loop and the wide-M kernel) at one Llama-3.1-8B layer in bf16: K1, K2
-     at 4 and 2 bits, K4 at 4 bits and K3 at M in {8, 40, 64, 128, 256,
-     512, 2047}, K4 at 3 and 2 bits at 128, 512 and 2047; at every point
-     both routes timed beside the bf16 matmul and the bound, the same bits
-     on both, identity exact, rows 0 and M-1 the one-row call's, a repeat
-     call's bits, the plain version's threshold, the crossover held; then
-     the card tests of K3 and K4 on the wide route (tests/test_torch_cuda.py
-     -k k3_k4_wide, in a child process; the count passed is reported);
+     (1 warm-up + 200). The sweep of the tensor-core routes (the decode
+     loop, the wide-M kernel and its mid route) at one Llama-3.1-8B layer
+     in bf16: K1 and K2 W4 at M in {8, 16, 32, 40, 48, 64, 96, 128} on the
+     loop and the mid route and from 64 on the wide-M kernel, and at 512
+     and 2047 on the wide-M kernel; K2 W2 at 8, 16, 32, 40 and 64; K4 W4
+     and K3 at 64, 128, 512 and 2047; K4 W3 and W2 at 128, 512 and 2047;
+     at every point its routes timed beside the bf16 matmul and the bound,
+     the same bits on all, identity exact on each, rows 0 and M-1 the
+     one-row call's, a repeat call's bits, the plain version's threshold;
+     MID_MIN_M held to the sweep (no route faster than the plan's by more
+     than 5% below 128 rows), WIDE_MIN_M's agreement reported; then the
+     card tests of K3 and K4 on the wide route and of K1 and K2 on the mid
+     route (tests/test_torch_cuda.py -k "k3_k4_wide or k1_k2_mid", in a
+     child process; the count passed is reported);
   2b. the Hopper lab (L1-L6 of csrc/kernel_lab.cu): its entry point,
      flute_tpu_torch.lab.kernel_lab.main, runs every variant at the JAX lab's
      reference shape (M16 N28672 K8192, bk 1024, g64, bf16) with the launch
@@ -173,8 +180,10 @@ Phases (any failure exits non-zero):
      width and depth (phase 4's random weights, seed 0): the w4sym target
      (K1) and a W2 draft of the same weights (general 2-bit table, K2),
      quantized on the card. A verify's M = 40 rows of every layer-0
-     projection have the bits of the M = 8 call (K1 and K2; both timed per
-     layer at M = 8 and 40). ContinuousBatchingEngine: 12 requests into 8
+     projection (the mid route) have the bits of the M = 8 call (the loop;
+     K1 and K2; both timed per layer at M = 8 and 40). Every continuous and
+     speculative run checks its mid-route launches exactly (each forward's
+     rows through the plan). ContinuousBatchingEngine: 12 requests into 8
      slots, max_len 512, chunked prefill (64; one prompt of 100 tokens), a
      prefix store of blocks of 16 that three requests hit on the first 32
      tokens of a fourth, 2 sampled; greedy tokens held to Engine's (phase
@@ -383,6 +392,9 @@ SERVED = {
     "w4_general": (dict(num_bits=4, symmetric=False), "K2"),
 }
 
+# the bits of phase 6's models by kernel layout: the w4sym target (K1) and
+# the W2 draft (K2)
+LAYOUT_BITS = {"w4sym": 4, "plane": 2}
 # phase 6, as scripts/bench_serving.py:97-200 runs it: k proposals per
 # round, blocks of 32, max_len 512
 SPEC_K = 4
@@ -432,15 +444,14 @@ def make_weight(rng, gen, layout, bits, n, k, dtype, dev, chunk=256, mixed_signs
 def kernel_path(kid, dtype, bits, chunk=256, m=1):
     """The kernel a LUT-GEMM case runs: "mma" (the tensor-core loop),
     "wide" (the wide-M kernel on warpgroup MMA, K1-K4 from
-    kernel_config.WIDE_MIN_M rows) or "simt" (the skeleton of
+    kernel_config.WIDE_MIN_M rows), "mid" (its mid route, K1 and K2 from
+    kernel_config.MID_MIN_M rows below that) or "simt" (the skeleton of
     lut_gemm_common.cuh), as the wrapper picks it."""
     from flute_tpu_torch.ops import kernel_config, lut_gemm
 
     path = "mma" if kid == "K4" else lut_gemm.lut_path(dtype, bits, chunk, LAYOUT[kid])
-    if path == "mma" and kernel_config.mma_route(m, bits, chunk, ROUTE_LAYOUT[kid],
-                                                 GROUP) == "wide":
-        return "wide"
-    return path
+    route = kernel_config.mma_route(m, bits, chunk, ROUTE_LAYOUT[kid], GROUP)
+    return route if path == "mma" and route != "loop" else path
 
 
 def check_rows(kid, label, x, y, call):
@@ -753,16 +764,35 @@ def check_qgemm_hadamard(dev, rng, gen, results):
 # K5/K6: one decode batch at Llama-3.1-8B's attention widths, and at
 # Gemma-2-9B's (D=256, 16/8 heads) with the options its layers pass: the
 # softcap 50 everywhere and the window of 4096 on even layers
-# phase 2's sweep of the LUT-GEMMs' two routes on the tensor cores, the
-# decode loop and the wide-M kernel: (kernel id, bits, M) at one
-# Llama-3.1-8B layer in bf16 (K2 at 2 bits is phase 6's draft; K4 at 3 and
-# 2 bits at three M only, to save time)
-SWEEP_M = (8, 40, 64, 128, 256, 512, 2047)
-SWEEP = (("K1", 4, SWEEP_M), ("K2", 4, SWEEP_M), ("K2", 2, SWEEP_M), ("K4", 4, SWEEP_M),
-         ("K3", 3, SWEEP_M), ("K4", 3, (128, 512, 2047)), ("K4", 2, (128, 512, 2047)))
+# phase 2's sweep of the LUT-GEMMs' routes on the tensor cores at one
+# Llama-3.1-8B layer in bf16: (kernel id, bits, M). K1 and K2 W4 from 8 to
+# 128 rows on the decode loop, the wide-M kernel's mid route and (from 64)
+# the wide-M kernel (MID_MIN_M's crossover, the mid route against both),
+# and at 512 and 2047 on the wide-M kernel (the prefill regime); K2 W2
+# (phase 6's draft) at the verify's 40 rows and the crossover; K3 and K4
+# around WIDE_MIN_M and at prefill M. Points another point decides are not
+# run: the wide-M kernel under 64 rows (3-4x slower than the loop there at
+# every layout, PERF.md), the loop and the mid route above 128.
+MID_SWEEP_M = (8, 16, 32, 40, 48, 64, 96, 128)
+TOP_M = 2047
+VERIFY_M = 8 * (SPEC_K + 1)  # the speculative verify's rows (phase 6)
+SWEEP = (("K1", 4, MID_SWEEP_M + (512, TOP_M)), ("K2", 4, MID_SWEEP_M + (512, TOP_M)),
+         ("K2", 2, (8, 16, 32, VERIFY_M, 64)), ("K4", 4, (64, 128, 512, TOP_M)),
+         ("K3", 3, (64, 128, 512, TOP_M)), ("K4", 3, (128, 512, TOP_M)),
+         ("K4", 2, (128, 512, TOP_M)))
+ROUTES = ("loop", "mid", "wide")
+# the plan's crossovers that force each route at any M: (MID_MIN_M,
+# WIDE_MIN_M)
+ROUTE_BOUNDS = {"loop": (1 << 30, 1 << 30), "mid": (1, 1 << 30), "wide": (1 << 30, 1)}
+# a route the plan does not take may be faster than the one it takes by at
+# most this share at a sweep point (the spread of repeated timings)
+CROSSOVER_SLACK = 0.05
 WIDE_SOURCE = "lut_gemm_wide_m.cuh"
 WIDE_REPLACES = ("flute_tpu/ops/lut_gemm.py:454 (_lut_qgemm_kernel[{}], its weight-side branch "
                  ":611-615, taken above group_acc_max_bm at :812; pallas_call :828)")
+MID_REPLACES = ("flute_tpu/ops/lut_gemm.py:454 (_lut_qgemm_kernel[{}], its group-accumulating "
+                "decode branch :590-602, taken for bm <= group_acc_max_bm at :812, "
+                "flute_tpu/ops/kernel_config.py:32; pallas_call :828)")
 WIDE_PAYLOAD = {"K1": "w4sym", "K2": "plane, gather8/select",
                 "K3": "w3wide: _unpack_wide3_payload :342, :494-506",
                 "K4": "plane, pair_lut: _lookup_payload_lane :279, :533-538, "
@@ -774,15 +804,16 @@ ROUTE_LAYOUT = {**LAYOUT, "K4": "pair"}
 
 def route_call(kid, bits, planes, scales, table, route, group_size=GROUP, chunk=256):
     """The wrapper of K1, K2, K3 or K4 (``table`` its pair table) on
-    ``route``, for a 2-D x: "wide" or "loop" at any M, the plan's crossover
-    (kernel_config.WIDE_MIN_M) moved to one row or past M for the call."""
+    ``route``, for a 2-D x: "loop", "mid" (K1, K2) or "wide" at any M, the
+    plan's crossovers (kernel_config.MID_MIN_M, WIDE_MIN_M) moved to one
+    row or past M for the call."""
     from flute_tpu_torch.ops import kernel_config, lut_gemm
 
     kw = dict(group_size=group_size, chunk=chunk)
 
     def call(x, p=planes, s=scales):
-        saved = kernel_config.WIDE_MIN_M
-        kernel_config.WIDE_MIN_M = 1 if route == "wide" else 1 << 30
+        saved = kernel_config.MID_MIN_M, kernel_config.WIDE_MIN_M
+        kernel_config.MID_MIN_M, kernel_config.WIDE_MIN_M = ROUTE_BOUNDS[route]
         try:
             if kid == "K1":
                 return lut_gemm.lut_qgemm_w4sym_cuda(x, p[0], s, table, **kw)
@@ -792,7 +823,7 @@ def route_call(kid, bits, planes, scales, table, route, group_size=GROUP, chunk=
                 return lut_gemm.lut_qgemm_pair_cuda(x, p, s, table, num_bits=bits, **kw)
             return lut_gemm.lut_qgemm_plane_cuda(x, p, s, table, num_bits=bits, **kw)
         finally:
-            kernel_config.WIDE_MIN_M = saved
+            kernel_config.MID_MIN_M, kernel_config.WIDE_MIN_M = saved
 
     return call
 
@@ -801,18 +832,29 @@ def same_bits(a, b) -> bool:
     return torch.equal(a.view(torch.int16), b.view(torch.int16))
 
 
+def sweep_routes(kid, m) -> list:
+    """The routes phase 2's sweep runs for a kernel at M (SWEEP's note)."""
+    from flute_tpu_torch.ops import kernel_config
+
+    mid = ROUTE_LAYOUT[kid] in kernel_config.MID_LAYOUTS
+    return [r for r in ROUTES if (r == "wide" and m >= 64)
+            or (r != "wide" and m <= kernel_config.WIDE_ROWS and (r == "loop" or mid))]
+
+
 def wide_sweep(dev, results):
     """Phase 2's sweep: K1 (w4sym), K2 at 4 and 2 bits, K4 at 4, 3 and 2
     bits (a random joint pair table) and K3 (w3wide) at one Llama-3.1-8B
-    layer's four fused shapes, bf16, at SWEEP's M. At each point both
-    routes are timed (bench_cycled, L2-cold) beside the bf16 matmul and the
-    bound (bytes at 3.35 TB/s or operations at 989 TFLOP/s, the larger),
-    and checked: the two routes give the same bits, the call the plan
-    routes has them and is within the bf16 threshold of the plain version,
-    a repeat call gives the same bits, identity rows are bit-exact on both
-    routes, and rows 0 and M-1 have the one-row call's bits. The layer's
-    sums per M show where the wide kernel is faster: the plan's crossover
-    (kernel_config.WIDE_MIN_M) is held to them, for each kernel."""
+    layer's four fused shapes, bf16, at SWEEP's M. At each point every
+    route of ``sweep_routes`` is timed (bench_cycled, L2-cold) beside the
+    bf16 matmul and the bound (bytes at 3.35 TB/s or operations at 989
+    TFLOP/s, the larger), and checked: the routes give the same bits, the
+    call the plan routes has them and is within the bf16 threshold of the
+    plain version, a repeat call gives the same bits, identity rows are
+    bit-exact on every route, and rows 0 and M-1 have the one-row call's
+    bits. The layer's sums per M show which route is faster: the plan's
+    MID_MIN_M is held to them (no route the plan does not take below
+    WIDE_MIN_M faster by more than CROSSOVER_SLACK), and WIDE_MIN_M's
+    agreement is reported, for each kernel."""
     from flute_tpu_torch.ops import kernel_config, lut_gemm
     from flute_tpu_torch.utils.benchmark import bench_cycled, cold_copies
 
@@ -840,15 +882,18 @@ def wide_sweep(dev, results):
             for m in sweep_m:
                 label = f"{bits}-bit {name} M={m}"
                 x = torch.randn((m, k), generator=gen, device=dev).bfloat16()
-                wide = route_call(kid, bits, planes, scales, lut, "wide")
-                loop = route_call(kid, bits, planes, scales, lut, "loop")
+                routes = sweep_routes(kid, m)
+                calls = {r: route_call(kid, bits, planes, scales, lut, r) for r in routes}
                 routed = kernel_config.mma_route(m, bits, 256, ROUTE_LAYOUT[kid], GROUP)
-                y_wide, y_loop = wide(x), loop(x)
+                if routed not in routes:
+                    raise AssertionError(f"{kid} {label}: the plan's route {routed} is not swept")
+                ys = {r: call(x) for r, call in calls.items()}
                 y = lut_gemm.lut_qgemm(x, planes, scales, table, **kw)
-                if not same_bits(y_wide, y_loop):
-                    raise AssertionError(f"{kid} {label}: the wide kernel's bits differ from "
-                                         "the loop's")
-                if not same_bits(y, y_wide if routed == "wide" else y_loop):
+                for r in routes:
+                    if not same_bits(ys[r], ys[routes[0]]):
+                        raise AssertionError(f"{kid} {label}: the {r} route's bits differ from "
+                                             f"the {routes[0]} route's")
+                if not same_bits(y, ys[routed]):
                     raise AssertionError(f"{kid} {label}: lut_qgemm did not take the {routed} "
                                          "route")
                 if not same_bits(lut_gemm.lut_qgemm(x, planes, scales, table, **kw), y):
@@ -857,35 +902,38 @@ def wide_sweep(dev, results):
                     check_rows(kid, label, x, y, lambda xr: lut_gemm.lut_qgemm(
                         xr, planes, scales, table, **kw))
                 eye = torch.eye(m, k, dtype=torch.bfloat16, device=dev)
-                for route_fn in (wide, loop):
-                    if not same_bits(route_fn(eye), deq[:m]):
-                        raise AssertionError(f"{kid} {label}: identity rows not bit-exact")
+                for r, call in calls.items():
+                    if not same_bits(call(eye), deq[:m]):
+                        raise AssertionError(f"{kid} {label}: identity rows not bit-exact on "
+                                             f"the {r} route")
                 y_plain = lut_gemm.lut_qgemm_plain(x, planes, scales, table, num_bits=bits,
                                                    chunk=256, layout=layout, pair_values=pv)
                 err = rel_err(y, y_plain)
                 if not err < THRESHOLDS[torch.bfloat16]:
                     raise AssertionError(f"{kid} {label}: rel err {err}")
                 max_abs = float((y.float() - y_plain.float()).abs().max())
-                t_w = bench_cycled(lambda p, s: route_call(kid, bits, p, s, lut, "wide")(x),
-                                   args)
-                t_l = bench_cycled(lambda p, s: route_call(kid, bits, p, s, lut, "loop")(x),
-                                   args)
+                timed = {f"{r}_us": bench_cycled(
+                    lambda p, s, r=r: route_call(kid, bits, p, s, lut, r)(x), args) * 1e6
+                    for r in routes}
                 if (name, m) not in matmul_us:
                     matmul_us[name, m] = bench_cycled(lambda w: torch.matmul(x, w), deq_c) * 1e6
-                if m == sweep_m[-1] and (kid, bits, name) not in plain_us:
-                    plain_us[kid, bits, name] = bench_cycled(
+                if m in (sweep_m[-1], VERIFY_M) and (kid, bits, name, m) not in plain_us:
+                    plain_us[kid, bits, name, m] = bench_cycled(
                         lambda p, s: lut_gemm.lut_qgemm_plain(x, p, s, table, num_bits=bits,
                                                               chunk=256, layout=layout,
                                                               pair_values=pv),
                         args[:2], min_launches=2) * 1e6
                 nbytes = wbytes + lut.numel() * 4 + 2 * m * k + 2 * m * n
                 t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2 * m * n * k / BF16_OPS_PER_S
+                plan = kernel_config.mid_plan(m, n, k, 256)
                 points.append(dict(
                     kernel=kid, bits=bits, name=name, n=n, k=k, m=m, route=routed,
-                    wide_us=t_w * 1e6, loop_us=t_l * 1e6, library_us=matmul_us[name, m],
-                    plain_us=plain_us.get((kid, bits, name)), rel_err=err, max_abs_err=max_abs,
-                    bound_us=max(t_bytes, t_ops) * 1e6,
-                    bound_by="bytes" if t_bytes >= t_ops else "operations", bytes=nbytes))
+                    **{f"{r}_us": timed.get(f"{r}_us") for r in ROUTES},
+                    library_us=matmul_us[name, m],
+                    plain_us=plain_us.get((kid, bits, name, m)), rel_err=err,
+                    max_abs_err=max_abs, bound_us=max(t_bytes, t_ops) * 1e6,
+                    bound_by="bytes" if t_bytes >= t_ops else "operations", bytes=nbytes,
+                    mid_workspace_bytes=(plan.splits * m * n * 4 if plan.splits > 1 else 0)))
             del args, deq_c, deq, planes
     layers = []
     for kid, bits, sweep_m in SWEEP:
@@ -893,28 +941,44 @@ def wide_sweep(dev, results):
             stack = [p for p in points if p["kernel"] == kid and p["bits"] == bits and p["m"] == m]
             row = dict(kernel=kid, bits=bits, m=m, route=stack[0]["route"],
                        **{key: sum(p[key] for p in stack)
-                          for key in ("wide_us", "loop_us", "library_us", "bound_us")},
+                          for key in ("library_us", "bound_us", "mid_workspace_bytes")},
+                       **{f"{r}_us": (sum(p[f"{r}_us"] for p in stack)
+                                      if stack[0][f"{r}_us"] is not None else None)
+                          for r in ROUTES},
                        bound_by="bytes" if all(p["bound_by"] == "bytes" for p in stack)
                        else "operations")
-            row["faster"] = "wide" if row["wide_us"] < row["loop_us"] else "loop"
+            times = {r: row[f"{r}_us"] for r in ROUTES if row[f"{r}_us"] is not None}
+            row["faster"] = min(times, key=times.get)
+            row["routed_over_fastest"] = times[row["route"]] / times[row["faster"]]
             layers.append(row)
-            log(f"    sweep {kid} {bits}-bit layer M={m:<5d} route {row['route']:4s}: wide "
-                f"{row['wide_us']:9.1f} us  loop {row['loop_us']:9.1f} us  matmul "
-                f"{row['library_us']:8.1f} us  bound {row['bound_us']:8.1f} us "
-                f"({row['bound_by']})")
-    # the plan routes M to the wide kernel where the sweep shows it faster
+            log(f"    sweep {kid} {bits}-bit layer M={m:<5d} route {row['route']:4s}: " + "  ".join(
+                f"{r} {times[r]:9.1f} us" if r in times else f"{r} {'-':>9s}   "
+                for r in ROUTES) + f"  matmul {row['library_us']:8.1f} us  bound "
+                f"{row['bound_us']:8.1f} us ({row['bound_by']})")
+    # MID_MIN_M: below WIDE_MIN_M no route beats the routed one by more than
+    # the slack; WIDE_MIN_M: the routed route is the fastest one timed
+    mid_rows = [r for r in layers if r["m"] < kernel_config.WIDE_MIN_M
+                and ROUTE_LAYOUT[r["kernel"]] in kernel_config.MID_LAYOUTS]
+    late = [r for r in mid_rows if r["routed_over_fastest"] > 1 + CROSSOVER_SLACK]
+    if late:
+        raise AssertionError("the plan's MID_MIN_M disagrees with the sweep: " + ", ".join(
+            f"{r['kernel']} {r['bits']}-bit M={r['m']}: {r['route']} "
+            f"{r['routed_over_fastest']:.3f}x {r['faster']}" for r in late))
     agrees = {f"{kid} {bits}-bit": all((r["route"] == "wide") == (r["faster"] == "wide")
                                        for r in layers if r["kernel"] == kid
                                        and r["bits"] == bits)
               for kid, bits, _ in SWEEP}
     agree = all(agrees.values())
-    log(f"  sweep: every point's two routes bit-identical, identity exact, rows 0 and M-1 the "
-        f"one-row call's bits; the plan's crossover (M >= {kernel_config.WIDE_MIN_M}) "
-        f"{'agrees with' if agree else 'DIFFERS from'} the faster route at every M of the "
-        f"sweep ({', '.join(f'{key}: {v}' for key, v in agrees.items())}; "
+    log(f"  sweep: every point's routes bit-identical, identity exact, rows 0 and M-1 the "
+        f"one-row call's bits; the plan's MID_MIN_M ({kernel_config.MID_MIN_M}) agrees with "
+        f"the sweep below WIDE_MIN_M (within {CROSSOVER_SLACK:.0%}); WIDE_MIN_M "
+        f"({kernel_config.WIDE_MIN_M}) {'agrees with' if agree else 'DIFFERS from'} the "
+        f"fastest route at every M of the sweep "
+        f"({', '.join(f'{key}: {v}' for key, v in agrees.items())}; "
         f"{time.perf_counter() - t_sweep:.0f} s)")
     results["wide_sweep"] = dict(points=points, layers=layers, crossover_agrees=agree,
                                  crossover_agrees_by_kernel=agrees,
+                                 mid_min_m=kernel_config.MID_MIN_M,
                                  wide_min_m=kernel_config.WIDE_MIN_M)
     return results["wide_sweep"]
 
@@ -960,15 +1024,18 @@ def time_k3_scale_modes(dev, results, m=2047, chunk=512):
     return out
 
 
-WIDE_TESTS = "k3_k4_wide"  # tests/test_torch_cuda.py's cases of K3 and K4 on the wide route
+# tests/test_torch_cuda.py's cases of K3 and K4 on the wide route and of K1
+# and K2 on the mid route
+WIDE_TESTS = "k3_k4_wide or k1_k2_mid"
 
 
 def wide_card_tests() -> dict:
-    """The card tests of K3 and K4 on the wide-M kernel
-    (tests/test_torch_cuda.py -k WIDE_TESTS: the loop's bits at full and
-    ragged tiles, identity, cp.async staging, K3 at chunk 512, f32 refused
-    or on SIMT, refused launches raise), run in a child process that loads
-    the libraries already built; every one must pass."""
+    """The card tests of K3 and K4 on the wide-M kernel and of K1 and K2 on
+    its mid route (tests/test_torch_cuda.py -k WIDE_TESTS: the loop's bits
+    at full and ragged tiles, identity, cp.async staging, K3 at chunk 512,
+    rows 0 and M-1, one split, f32 refused or on SIMT, refused launches
+    raise), run in a child process that loads the libraries already built;
+    every one must pass."""
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "pytest", os.path.join("tests", "test_torch_cuda.py"), "-m",
@@ -992,13 +1059,10 @@ def wide_line(kid, sweep, launches, gemma2_launches=None, ppl_launches=None):
     prefill."""
     bits = 3 if kid == "K3" else 4
     mine = [p for p in sweep["points"] if p["kernel"] == kid and p["bits"] == bits]
-    top = [p for p in mine if p["m"] == SWEEP_M[-1]]
+    top = [p for p in mine if p["m"] == TOP_M]
 
     def rows(b):
-        return [dict(m=r["m"], route=r["route"], wide_ms=r["wide_us"] / 1e3,
-                     loop_ms=r["loop_us"] / 1e3, library_ms=r["library_us"] / 1e3,
-                     bound_ms=r["bound_us"] / 1e3)
-                for r in sweep["layers"] if r["kernel"] == kid and r["bits"] == b]
+        return sweep_rows(sweep, kid, b)
 
     line = dict(
         name=f"{KERNELS[kid][0]} (wide-M route)", route="cuda", path="wide",
@@ -1006,12 +1070,11 @@ def wide_line(kid, sweep, launches, gemma2_launches=None, ppl_launches=None):
         replaces=WIDE_REPLACES.format(WIDE_PAYLOAD[kid]),
         launches=launches,
         max_abs_err=max(p["max_abs_err"] for p in mine if p["route"] == "wide"),
-        m=SWEEP_M[-1], ms=sum(p["wide_us"] for p in top) / 1e3,
+        m=TOP_M, ms=sum(p["wide_us"] for p in top) / 1e3,
         plain_ms=sum(p["plain_us"] for p in top) / 1e3,
         bound_ms=sum(p["bound_us"] for p in top) / 1e3,
         bound_by="bytes" if all(p["bound_by"] == "bytes" for p in top) else "operations",
         library_ms=sum(p["library_us"] for p in top) / 1e3,
-        loop_ms=sum(p["loop_us"] for p in top) / 1e3,
         sweep=rows(bits), checked=True)
     if kid == "K4":
         line["sweep_other_bits"] = {b: rows(b) for b in (3, 2)}
@@ -1019,6 +1082,42 @@ def wide_line(kid, sweep, launches, gemma2_launches=None, ppl_launches=None):
         line["gemma2"] = dict(launches=gemma2_launches)
     if ppl_launches is not None:
         line["perplexity"] = dict(launches=ppl_launches)
+    return line
+
+
+def sweep_rows(sweep, kid, bits) -> list:
+    """The sweep's layer sums of one kernel at each M: each route's ms (None
+    where not run), the matmul's and the bound."""
+    return [dict(m=r["m"], route=r["route"],
+                 **{f"{route}_ms": None if r[f"{route}_us"] is None else r[f"{route}_us"] / 1e3
+                    for route in ROUTES},
+                 library_ms=r["library_us"] / 1e3, bound_ms=r["bound_us"] / 1e3)
+            for r in sweep["layers"] if r["kernel"] == kid and r["bits"] == bits]
+
+
+def mid_line(kid, sweep, launches):
+    """The {"kernels": [...]} entry of the mid route of K1 or K2: one
+    Llama-3.1-8B layer at the verify's M = 40 in bf16, 4 bits, beside the
+    loop's time there, the split-K workspace it writes and reads, and the
+    sweep's per-M layer sums (K2's 2-bit rows under ``sweep_other_bits``);
+    ``launches`` its launches in phase 6."""
+    mine = [p for p in sweep["points"] if p["kernel"] == kid and p["bits"] == 4]
+    at = [p for p in mine if p["m"] == VERIFY_M]
+    line = dict(
+        name=f"{KERNELS[kid][0]} (mid-M route)", route="cuda", path="mid",
+        source=f"flute_tpu_torch/csrc/{WIDE_SOURCE}",
+        replaces=MID_REPLACES.format(WIDE_PAYLOAD[kid]), launches=launches,
+        max_abs_err=max(p["max_abs_err"] for p in mine if p["route"] == "mid"),
+        m=VERIFY_M, ms=sum(p["mid_us"] for p in at) / 1e3,
+        plain_ms=sum(p["plain_us"] for p in at) / 1e3,
+        bound_ms=sum(p["bound_us"] for p in at) / 1e3,
+        bound_by="bytes" if all(p["bound_by"] == "bytes" for p in at) else "operations",
+        library_ms=sum(p["library_us"] for p in at) / 1e3,
+        loop_ms=sum(p["loop_us"] for p in at) / 1e3,
+        workspace_mb=sum(p["mid_workspace_bytes"] for p in at) / 1e6,
+        sweep=sweep_rows(sweep, kid, 4), checked=True)
+    if kid == "K2":
+        line["sweep_other_bits"] = {2: sweep_rows(sweep, kid, 2)}
     return line
 
 
@@ -2027,30 +2126,41 @@ def counters():
     from flute_tpu_torch.ops import lut_gemm
     from flute_tpu_torch.ops import paged_attention as pa
 
-    return (lut_gemm.LAUNCHES, pa.LAUNCHES, lut_gemm.WIDE_LAUNCHES)
+    return (lut_gemm.LAUNCHES, pa.LAUNCHES, lut_gemm.WIDE_LAUNCHES, lut_gemm.MID_LAUNCHES)
 
 
-def wide_expected(layout, bits, rows, calls) -> int:
-    """Launches of the wide-M kernel among ``calls`` LUT-GEMM launches of
-    ``layout`` at ``rows`` rows each: all of them where the plan routes
-    that M to it, else none."""
+def route_expected(route, layout, bits, rows, calls) -> int:
+    """Launches on ``route`` ("wide": the wide-M kernel; "mid": its mid
+    route) among ``calls`` LUT-GEMM launches of ``layout`` at ``rows`` rows
+    each: all of them where the plan routes that M there, else none."""
     from flute_tpu_torch.ops import kernel_config
 
-    routed = kernel_config.mma_route(rows, bits, 256, layout, GROUP) == "wide"
+    routed = kernel_config.mma_route(rows, bits, 256, layout, GROUP) == route
     return calls if routed else 0
 
 
-def check_wide(name, expected):
-    """The wide-M kernel's launches since the counters were set to 0 equal
-    ``expected`` (by layout, the others 0)."""
+def check_route(name, expected, route="wide"):
+    """The launches on ``route`` ("wide" or "mid") since the counters were
+    set to 0 equal ``expected`` (by layout, the others 0)."""
     from flute_tpu_torch.ops import lut_gemm
 
-    want = {key: 0 for key in lut_gemm.WIDE_LAUNCHES}
-    want.update({f"{layout}_wide": n for layout, n in expected.items() if n})
-    got = dict(lut_gemm.WIDE_LAUNCHES)
+    counter = lut_gemm.WIDE_LAUNCHES if route == "wide" else lut_gemm.MID_LAUNCHES
+    want = {key: 0 for key in counter}
+    want.update({f"{layout}_{route}": n for layout, n in expected.items() if n})
+    got = dict(counter)
     if got != want:
-        raise AssertionError(f"[{name}] wide-M launches {got}, expected {want}")
+        raise AssertionError(f"[{name}] {route}-M launches {got}, expected {want}")
     return got
+
+
+def mid_of(layers, runs) -> dict:
+    """The mid route's launches expected of ``runs`` [(layout, bits, rows
+    of each forward)], each forward four LUT-GEMM launches a layer."""
+    out = {}
+    for layout, bits, rows in runs:
+        out[layout] = out.get(layout, 0) + sum(
+            route_expected("mid", layout, bits, r, layers * 4) for r in rows)
+    return out
 
 
 def launches_now() -> dict:
@@ -2108,7 +2218,7 @@ def serve_engine(name, eng, prompts, kernel_layout, new_tokens=None, head=0):
     logits_seen, step_logits, last = [], [], {}
     prefill, decode_step = eng.prefill, eng.decode_step
 
-    prefill_rows = []
+    prefill_rows, decode_rows = [], []
 
     def counted_prefill(tokens, offsets):
         prefill_rows.append(tokens.numel())
@@ -2118,6 +2228,7 @@ def serve_engine(name, eng, prompts, kernel_layout, new_tokens=None, head=0):
         return logits, cache
 
     def counted_step(tokens, pos, offsets):
+        decode_rows.append(tokens.numel())
         logits = decode_step(tokens, pos, offsets)  # overwritten by the next replay
         logits_seen.append(bool(torch.isfinite(logits).all()))
         step_logits.append(logits.clone())
@@ -2140,8 +2251,13 @@ def serve_engine(name, eng, prompts, kernel_layout, new_tokens=None, head=0):
     # row) on the wide-M kernel where the plan routes its rows there (the
     # decode steps' 8 rows stay on the loop)
     bits = 3 if kernel_layout == "w3wide" else 4
-    wide = check_wide(name, {kernel_layout: sum(
-        wide_expected(kernel_layout, bits, r, layers * 4 + head) for r in prefill_rows)})
+    wide = check_route(name, {kernel_layout: sum(
+        route_expected("wide", kernel_layout, bits, r, layers * 4 + head) for r in prefill_rows)})
+    # and none on the mid route where neither the prefill's nor a decode
+    # step's rows take it
+    check_route(name, {kernel_layout: sum(route_expected("mid", kernel_layout, bits, r,
+                                                         layers * 4 + head)
+                                          for r in prefill_rows + decode_rows)}, "mid")
     if not all(logits_seen):
         raise AssertionError(f"[{name}] non-finite logits while serving")
     if any(len(o) != new_tokens for o in out):
@@ -2315,7 +2431,9 @@ def record_first(eng, first_rows):
 # device kernels by name: the LUT-GEMMs (K1, K2 and K4 on the tensor-core
 # loop and the wide-M kernel, told apart by their table fill, K3 by its
 # decoder; off them by their SIMT kernels; the wide-M kernel of any of
-# them also in its own group), the loop's split-K reduction (of whichever
+# them also in its own group, both routes, and its mid route, K1's and
+# K2's row tiles under 128, in one more), the loop's split-K reduction (of
+# whichever
 # of K1-K4 a model runs), K5's span kernel and its merge, K6, and PyTorch's
 # dtype copies (an f32 copy of the lm_head or of a KV cache would show
 # there)
@@ -2326,6 +2444,7 @@ PROFILE_GROUPS = {
     "K4": ("JointFill",),
     "split-K reduction": ("split_reduce_kernel",),
     "wide-M (K1-K4)": ("wide_m_kernel",),
+    "mid-M (K1, K2)": (", true>(",),
     "K5": ("decode_span_kernel",),
     "K5 merge": ("decode_merge_kernel",),
     "K6": ("verify_mma_kernel",),
@@ -2705,7 +2824,7 @@ def phase_paged(dev, results, w4sym_engine, w4sym_trajectory):
         raise AssertionError(f"paged HIGGS-W4: prefix hits {serving['prefix_hits']}, "
                              f"admission waits {serving['calls']['waits']}")
     # one request's pool prefill at a time, at most 64 rows: K4 on the loop
-    serving["wide_launches"] = check_wide("paged HIGGS-W4", {})
+    serving["wide_launches"] = check_route("paged HIGGS-W4", {})
     results["serving"]["paged_higgs_w4"] = serving
     greedy = [i for i in range(len(prompts)) if "seed" not in kws[i]]
     results["serving"]["higgs_w4"] = serve_higgs_engine(
@@ -2863,15 +2982,20 @@ class Calls:
 
     def __init__(self):
         self.n = {}
+        self.rows = {}  # key -> the rows of each counted call, where asked
         self.depth = 0
         self.held = {}  # step -> its replay held against the eager step
 
-    def count(self, obj, attr, key=None, step=False, after=None):
+    def count(self, obj, attr, key=None, step=False, after=None, tokens=None):
+        """Count calls of ``obj.attr``; with ``tokens``, the index of the
+        call's token tensor, also keep its rows (B x T)."""
         key = key or attr
 
         def enter(*a):
             if not self.depth:
                 self.n[key] = self.n.get(key, 0) + 1
+                if tokens is not None:
+                    self.rows.setdefault(key, []).append(a[tokens].numel())
             self.depth += step
 
         def leave(r, t0, *a):
@@ -2959,7 +3083,7 @@ def serve_continuous(dev, config, params, trajectory):
     calls.count(eng, "_step_logits", key="decode", step=True, after=lambda r: hold_replay(
         "continuous", calls, "decode", 3, r,
         lambda: eng._decode_logits(eng._step_tokens, eng._step_pos)))
-    calls.count(eng, "forward", key="prefill_forward")
+    calls.count(eng, "forward", key="prefill_forward", tokens=2)
     timed(eng, "_decode", decode_s)
     timed(eng, "_prefill", prefill_s, dev)
     reset_counters()
@@ -2970,6 +3094,10 @@ def serve_continuous(dev, config, params, trajectory):
     layers = config.num_layers
     launches = check_launches("continuous", {
         "w4sym": (calls["decode"] + calls["prefill_forward"]) * layers * 4})
+    # the decode steps' 8 rows and each prefill chunk's (at most 64)
+    mid = check_route("continuous", mid_of(layers, [(
+        "w4sym", 4, [eng.num_slots] * calls["decode"] + calls.rows.get("prefill_forward", []))]),
+        "mid")
     if eng.prefix_hits < 3:
         raise AssertionError(f"[continuous] prefix hits {eng.prefix_hits}, expected 3")
     tokens = [out[r] for r in rids]
@@ -2988,7 +3116,8 @@ def serve_continuous(dev, config, params, trajectory):
     serving = dict(
         requests=len(requests), prompt_lengths=[len(p) for p, _ in requests],
         new_tokens=NEW_TOKENS, decode_steps=steps, prefill_forward_calls=calls["prefill_forward"],
-        launches=launches, prefix_hits=eng.prefix_hits, prefix_block_hits=eng.prefix_block_hits,
+        launches=launches, mid_launches=mid, prefix_hits=eng.prefix_hits,
+        prefix_block_hits=eng.prefix_block_hits,
         prefill_ms_per_admission=float(np.median(prefill_s)) * 1e3,
         decode_ms_per_step=float(np.median(decode_s)) * 1e3,
         decode_ms_quickest=min(decode_s) * 1e3, decode_ms_steps=[x * 1e3 for x in decode_s],
@@ -3025,7 +3154,8 @@ def serve_continuous(dev, config, params, trajectory):
         f"{serving['decode_ms_quickest']:.2f}), {serving['end_to_end_tok_s']:.1f} tok/s end to end "
         f"(admissions and the capture included), prefix hits "
         f"{eng.prefix_hits} ({eng.prefix_block_hits} blocks); greedy tokens equal Engine's "
-        f"before every near tie ({same}/10 identical in full); launches {launches}")
+        f"before every near tie ({same}/10 identical in full); launches {launches}, "
+        f"{mid['w4sym_mid']} of them on the mid route")
     del eng
     release()
     return serving
@@ -3141,12 +3271,21 @@ def serve_dense_spec(dev, config, target, drafts, trajectory):
         hold_steps(label, eng, calls,
                    lambda: eng.draft_logits(eng._d_tok, eng._d_pos_buf, eng._offsets),
                    lambda: eng.verify_logits(eng._v_toks, eng._t_pos, eng._offsets))
+        calls.count(eng, "_t_fwd", key="target_prefill", tokens=2)
+        calls.count(eng, "_d_fwd", key="draft_prefill", tokens=2)
         reset_counters()
         tokens = eng.generate(prompts, max_new_tokens=NEW_TOKENS)
         # one target and one draft prefill; each draft step and verify
         expected = {"w4sym": (calls["verify"] + 1) * layers * 4}
         expected[layout] = expected.get(layout, 0) + (calls["draft"] + 1) * layers * 4
+        if calls["target_prefill"] != 1 or calls["draft_prefill"] != 1:
+            raise AssertionError(f"[{label}] prefills {calls.n}, expected one of each")
         launches = check_launches(label, expected)
+        # the verify's 8 (k + 1) rows, the draft steps' 8, the prefills'
+        mid = check_route(label, mid_of(layers, [
+            ("w4sym", 4, [VERIFY_M] * calls["verify"] + calls.rows["target_prefill"]),
+            (layout, LAYOUT_BITS[layout], [8] * calls["draft"] + calls.rows["draft_prefill"])]),
+            "mid")
         ties, same = hold_to_oracle(label, tokens, want, decided_steps(logits[:, :8]))
         if any(len(t) != NEW_TOKENS for t in tokens):
             raise AssertionError(f"[{label}] tokens {[len(t) for t in tokens]}")
@@ -3154,7 +3293,7 @@ def serve_dense_spec(dev, config, target, drafts, trajectory):
                        verify_calls=calls["verify"], first_ties=ties, identical_sequences=same,
                        graph_steps=dict(calls.held), stats=dataclasses.asdict(eng.stats))
         log(f"  [{label}] tokens equal Engine's before every near tie ({same}/8 identical in "
-            f"full); launches {launches}")
+            f"full); launches {launches}, on the mid route {mid}")
         eng.stats = SpecStats()
         timer = RoundTimer(label, eng, at=10 if cuda else None)
         n_tokens = SPEC_BUDGETS[name]
@@ -3165,7 +3304,10 @@ def serve_dense_spec(dev, config, target, drafts, trajectory):
         replay = spec_replays(eng) if cuda else {}
         numbers = spec_numbers(f"{label}, 8 x {n_tokens} tokens", eng.stats, timer.s,
                                sum(len(t) - 1 for t in timed_out), replay, timer.profile)
-        numbers.update(launches=launches, checked_run=checked, tokens_per_request=n_tokens)
+        numbers.update(launches=launches, mid_launches=mid, checked_run=checked,
+                       tokens_per_request=n_tokens)
+        if cuda and name == "self-draft":
+            numbers["verify_route_ab"] = verify_route_ab(dev, config, target, dparams, timed_out)
         # once more, untimed and uncounted: every verify row with Engine's
         # history against Engine's logits (prompts left-padded to 64)
         rows = VerifyRows(eng, lambda: eng._t_pos, lambda b: 64, want, logits)
@@ -3175,6 +3317,53 @@ def serve_dense_spec(dev, config, target, drafts, trajectory):
         out[name] = numbers
         del eng
         release()
+    return out
+
+
+def verify_route_ab(dev, config, target, draft, want):
+    """The self-draft SpeculativeEngine's timed run once more on each route
+    of the verify's 40 rows, in turns (mid, loop, loop, mid: the mid route
+    at the plan's MID_MIN_M, the loop with MID_MIN_M past 40), each on a
+    new engine that captures its graphs anew: ms per round (median),
+    tok/s and the graphs' device ms per replay, within one call. Every run
+    must give the timed run's tokens: the routes give a row the same
+    bits. Uncounted."""
+    from flute_tpu_torch.ops import kernel_config
+    from flute_tpu_torch.serving import SpeculativeEngine
+
+    saved = kernel_config.MID_MIN_M
+    runs = {"mid": [], "loop": []}
+    try:
+        for route in ("mid", "loop", "loop", "mid"):
+            kernel_config.MID_MIN_M = saved if route == "mid" else 1 << 30
+            if kernel_config.mma_route(VERIFY_M, 4, 256, "w4sym", GROUP) != route:
+                raise AssertionError(f"[verify route A/B] the verify does not take the {route} "
+                                     "route")
+            eng = SpeculativeEngine(target, config, draft, config, k=SPEC_K,
+                                    max_len=SPEC_MAX_LEN, batch_size=8, device=dev)
+            timer = RoundTimer(f"verify on the {route} route", eng)
+            with uncounted():
+                out = eng.generate(spec_prompts(config), max_new_tokens=len(want[0]))
+            if out != want:
+                raise AssertionError(f"[verify route A/B] the {route} route gave other tokens")
+            replay = spec_replays(eng)
+            runs[route].append(dict(
+                ms_per_round=float(np.median(timer.s)) * 1e3, rounds=eng.stats.rounds,
+                tok_s=sum(len(t) - 1 for t in out) / eng.stats.rounds / float(
+                    np.median(timer.s)), **replay))
+            del eng
+            release()
+    finally:
+        kernel_config.MID_MIN_M = saved
+    out = {route: {key: float(np.mean([r[key] for r in rs])) for key in rs[0]}
+           for route, rs in runs.items()}
+    out["runs"] = runs
+    log(f"  [verify route A/B] dense self-draft, mid / loop (mean of two turns each): "
+        f"{out['mid']['ms_per_round']:.2f} / {out['loop']['ms_per_round']:.2f} ms per round, "
+        f"{out['mid']['tok_s']:.1f} / {out['loop']['tok_s']:.1f} tok/s, verify replay "
+        f"{out['mid']['verify_replay_ms']:.2f} / {out['loop']['verify_replay_ms']:.2f} ms, "
+        f"draft replay {out['mid']['draft_replay_ms']:.2f} / "
+        f"{out['loop']['draft_replay_ms']:.2f} ms; the same tokens")
     return out
 
 
@@ -3339,22 +3528,31 @@ def count_paged_spec(label, eng, calls):
     """Count a paged speculative engine's calls and hold its replays."""
     hold_steps(label, eng, calls, lambda: eng._draft_logits(eng._d_tok, eng._d_pos_buf),
                lambda: eng._verify_logits(eng._step_tables, eng._step_lengths, eng._v_toks))
-    calls.count(eng, "forward", key="target_prefill")
-    calls.count(eng, "_dfwd", key="draft_prefill")
+    calls.count(eng, "forward", key="target_prefill", tokens=2)
+    calls.count(eng, "_dfwd", key="draft_prefill", tokens=2)
     if eng._pool_fwd is not None:
-        calls.count(eng, "_pool_fwd", key="pool_chunks")
+        calls.count(eng, "_pool_fwd", key="pool_chunks", tokens=5)
 
 
 def check_paged_spec_launches(label, calls, layers, layout):
     """K1 four times a layer per target forward (verify, dense prefill or
     pool chunk) and the draft's kernel per draft forward (step or
-    prefill); K6 once a layer per verify and pool chunk; nothing else."""
+    prefill); K6 once a layer per verify and pool chunk; nothing else; and
+    of those, on the mid route, each forward whose rows the plan sends
+    there (the verify's 8 (k + 1), a 32-row draft prefill). Returns the
+    launches and the mid route's."""
     target_calls = calls["verify"] + calls["target_prefill"] + calls["pool_chunks"]
     draft_calls = calls["draft"] + calls["draft_prefill"]
     expected = {"w4sym": target_calls * layers * 4,
                 "paged_verify": (calls["verify"] + calls["pool_chunks"]) * layers}
     expected[layout] = expected.get(layout, 0) + draft_calls * layers * 4
-    return check_launches(label, expected)
+    launches = check_launches(label, expected)
+    mid = check_route(label, mid_of(layers, [
+        ("w4sym", 4, [VERIFY_M] * calls["verify"] + calls.rows.get("target_prefill", [])
+         + calls.rows.get("pool_chunks", [])),
+        (layout, LAYOUT_BITS[layout], [8] * calls["draft"] + calls.rows.get("draft_prefill",
+                                                                              []))]), "mid")
+    return launches, mid
 
 
 def serve_paged_spec(dev, config, target, drafts):
@@ -3398,14 +3596,14 @@ def serve_paged_spec(dev, config, target, drafts):
             raise AssertionError(f"[{label}] {eng.blocks_in_use} blocks in use after the run")
         if [len(t) for t in tokens] != [n_tokens] * len(prompts):
             raise AssertionError(f"[{label}] tokens {[len(t) for t in tokens]}")
-        launches = check_paged_spec_launches(label, calls, layers, layout)
+        launches, mid = check_paged_spec_launches(label, calls, layers, layout)
         ties, same = hold_to_oracle(label, tokens, want, decided)
         checked = dict(calls=dict(calls.n), first_ties=ties,
                        identical_sequences=same, graph_steps=dict(calls.held),
                        peak_blocks_in_use=peak, stats=dataclasses.asdict(eng.stats))
         log(f"  [{label}] tokens equal PagedEngine's before every near tie ({same}/8 identical "
             f"over their length); no block in use at the end (peak {peak}); launches "
-            f"{launches}")
+            f"{launches}, on the mid route {mid}")
         eng.stats = SpecStats()
         timer = RoundTimer(label, eng, at=10 if cuda and not pool else None,
                            lengths=lambda: eng._lengths.tolist())
@@ -3417,7 +3615,8 @@ def serve_paged_spec(dev, config, target, drafts):
                                  f"tokens, or left {eng.blocks_in_use} blocks in use")
         numbers = spec_numbers(f"{label}, 8 x {n_tokens} tokens", eng.stats, timer.s,
                                sum(len(t) - 1 for t in tokens), replay, timer.profile)
-        numbers.update(launches=launches, checked_run=checked, tokens_per_request=n_tokens)
+        numbers.update(launches=launches, mid_launches=mid, checked_run=checked,
+                       tokens_per_request=n_tokens)
         if not pool:
             # the same requests once more, untimed and uncounted: every
             # verify row with the oracle's history against its logits
@@ -3483,7 +3682,7 @@ def serve_paged_sampled(dev, config, target, prompts, want, decided):
         hold_to_oracle(label, [tokens[i] for i in [2, 4, 5, 6, 7]], [want[i] for i in idx],
                        decided[:, idx])
         if not runs:
-            launches = check_paged_spec_launches(label, calls, layers, "w4sym")
+            launches, mid = check_paged_spec_launches(label, calls, layers, "w4sym")
         runs.append(dict(tokens=tokens, timer=timer))
     if runs[0]["tokens"][:2] != runs[1]["tokens"][:2]:
         raise AssertionError(f"[{label}] sampled tokens changed with their neighbours")
@@ -3491,7 +3690,7 @@ def serve_paged_sampled(dev, config, target, prompts, want, decided):
     numbers = spec_numbers(f"{label}, 8 x {n_tokens} tokens (2 sampled, 1 top-k 1)", eng.stats,
                            timer.s, sum(len(t) - 1 for t in runs[1]["tokens"]), {},
                            timer.profile)
-    numbers.update(launches=launches, tokens_per_request=n_tokens,
+    numbers.update(launches=launches, mid_launches=mid, tokens_per_request=n_tokens,
                    sampled_tokens=runs[0]["tokens"][:2])
     log(f"  [{label}] the sampled requests' tokens are the same beside other neighbours; the "
         f"top-k 1 request is its greedy twin's stream; greedy tokens equal PagedEngine's before "
@@ -3583,6 +3782,12 @@ def phase_spec(dev, results, trajectory, config=None):
                continuous=serve_continuous(dev, config, target, trajectory),
                dense_spec=serve_dense_spec(dev, config, target, drafts, trajectory),
                paged_spec=serve_paged_spec(dev, config, target, drafts))
+    # the mid route's launches over the phase's checked runs
+    runs = [out["continuous"], *out["dense_spec"].values(),
+            *(v for key, v in out["paged_spec"].items() if key != "oracle")]
+    out["mid_launches"] = {key: sum(run["mid_launches"][key] for run in runs)
+                           for key in runs[0]["mid_launches"]}
+    log(f"  [spec] mid-route launches over the phase's checked runs: {out['mid_launches']}")
     del target, draft, drafts
     release()
     results["serving"]["spec"] = out
@@ -4038,8 +4243,8 @@ def perplexity_runs(dev, config, params, qhead) -> dict:
         seconds = time.perf_counter() - t0
         k1 = 0 if head is None else forwards[0] * (config.num_layers * 4 + head)
         launches = check_launches(f"perplexity {name} batch {batch}", {"w4sym": k1})
-        wide = check_wide(f"perplexity {name} batch {batch}", {"w4sym": 0 if head is None else sum(
-            wide_expected("w4sym", 4, r, config.num_layers * 4 + head) for r in rows)})
+        wide = check_route(f"perplexity {name} batch {batch}", {"w4sym": 0 if head is None else sum(
+            route_expected("wide", "w4sym", 4, r, config.num_layers * 4 + head) for r in rows)})
         ppl[f"{name} batch {batch}"] = dict(ppl=value, forwards=forwards[0], launches=launches,
                                             wide_launches=wide, rows=sorted(set(rows)),
                                             s_per_window=seconds / PPL_WINDOWS)
@@ -5661,10 +5866,16 @@ def wide_ptxas(sources) -> list:
             else:
                 bits = re.search(r"Li(\d)E", mangled)
                 decoder += f" {bits.group(1)}-bit" if bits else ""
-            row = dict(source=source, decoder=decoder, registers=int(regs.group(1)) if regs else
-                       None, spill_store_bytes=int(spill.group(1)) if spill else 0)
+            # the row tile and the route (the kernel's last template arguments)
+            tile = re.search(r"Li(\d+)ELb([01])EE", mangled)
+            route = "mid" if tile and tile.group(2) == "1" else "wide"
+            decoder += f" {route} R={tile.group(1) if tile else '?'}"
+            row = dict(source=source, decoder=decoder, route=route,
+                       rows=int(tile.group(1)) if tile else None,
+                       registers=int(regs.group(1)) if regs else None,
+                       spill_store_bytes=int(spill.group(1)) if spill else 0)
             out.append(row)
-            log(f"    ptxas wide_m_kernel {decoder:24s} {row['registers']} registers, "
+            log(f"    ptxas wide_m_kernel {decoder:34s} {row['registers']} registers, "
                 f"{row['spill_store_bytes']} bytes of spill stores ({source})")
     if not out:
         raise AssertionError("no wide_m_kernel in the ptxas logs")
@@ -5682,6 +5893,29 @@ def check_k4_ring(instances):
             k4, k2 = wide[("pair", bits, f"wide {dt}")], wide[("plane", bits, f"wide {dt}")]
             if k4 != k2:
                 raise AssertionError(f"K4's wide ring at {bits} bits {dt}: {k4} bytes, K2's {k2}")
+
+
+def check_mid_occupancy(instances, ptxas):
+    """The mid route's instantiations (K1, K2 at each row tile, bf16 and
+    f16) fit the blocks an SM their registers and ring are sized for
+    (kernel_config.MID_BLOCKS), and ptxas printed each of them."""
+    from flute_tpu_torch.ops import kernel_config
+
+    mid = [i for i in instances if i["instance"].startswith("mid")]
+    short = [i for i in mid if i["blocks_per_sm"] < kernel_config.MID_BLOCKS]
+    if not mid or short:
+        raise AssertionError(f"mid route instantiations {len(mid)}, fewer than "
+                             f"{kernel_config.MID_BLOCKS} blocks an SM: {short}")
+    # K1's 4-bit row tiles and K2's at 2, 3 and 4 bits, in two dtypes
+    want = 2 * len(kernel_config.MID_ROWS) * 4
+    if sum(r["route"] == "mid" for r in ptxas) != want:
+        raise AssertionError(f"ptxas printed {sum(r['route'] == 'mid' for r in ptxas)} mid "
+                             f"instantiations, expected {want}")
+    log(f"  mid route: {len(mid)} instantiations, {min(i['blocks_per_sm'] for i in mid)}-"
+        f"{max(i['blocks_per_sm'] for i in mid)} blocks an SM, "
+        f"{min(i['registers'] for i in mid)}-{max(i['registers'] for i in mid)} registers, "
+        f"at most {max(r['spill_store_bytes'] for r in ptxas if r['route'] == 'mid')} bytes of "
+        "spill stores")
 
 
 def main() -> int:
@@ -5745,6 +5979,7 @@ def main() -> int:
             results.setdefault("tc_instances", []).append(inst)
     results["wide_ptxas"] = wide_ptxas(sources)
     check_k4_ring(results["tc_instances"])
+    check_mid_occupancy(results["tc_instances"], results["wide_ptxas"])
 
     log("== 2. kernels against plain on the card")
     cases = phase_kernel(dev, results)
@@ -5849,6 +6084,13 @@ def main() -> int:
                              f"{gemma_wide}, phase 7 {ppl_wide}")
     wide_lines = [wide_line("K1", results["wide_sweep"], wide["K1"], gemma_wide, ppl_wide)] + [
         wide_line(kid, results["wide_sweep"], wide[kid]) for kid in ("K2", "K3", "K4")]
+    # the mid route of K1 and K2: launched by phase 6's verifies (K1) and
+    # its paged W2 draft's 32-row prefills (K2)
+    mid = spec["mid_launches"]
+    if not (mid["w4sym_mid"] and mid["plane_mid"]):
+        raise AssertionError(f"the mid route was not launched in phase 6: {mid}")
+    wide_lines += [mid_line("K1", results["wide_sweep"], mid["w4sym_mid"]),
+                   mid_line("K2", results["wide_sweep"], mid["plane_mid"])]
     kernels[0]["qkv_m8_warm_cold"] = results["k1_qkv_warm_cold"]
     kernels += [attention_line(kid, attn_checks, attn_timed, launches[kid], gemma_launches[kid],
                                spec)

@@ -36,7 +36,9 @@
 // * bf16 and f16 from ops/kernel_config.py::WIDE_MIN_M rows at a chunk
 //   the wide-M kernel takes (ops/kernel_config.py::mma_route): that kernel
 //   (lut_gemm_wide_m.cuh, wgmma, the same pair table), with the loop's
-//   bits; C entry flute_lut_qgemm_plane_wide.
+//   bits; C entry flute_lut_qgemm_plane_wide. From MID_MIN_M to WIDE_MIN_M
+//   rows its mid route (row tiles of 16-64 rows, one split of K a block,
+//   the loop's workspace and reduction): flute_lut_qgemm_plane_mid.
 // * f32, or a chunk the loop cannot take: the SIMT kernel below, on the
 //   skeleton of lut_gemm_common.cuh (IEEE FMAs, no TF32; the 2^b-entry
 //   table in shared memory; at 3 bits a lane also loads the 1-bit plane's
@@ -229,6 +231,30 @@ extern "C" int flute_lut_qgemm_plane_wide(const void* x, const void* plane0, con
   }
 }
 
+// The mid route of the wide-M kernel (lut_gemm_wide_m.cuh, 16-127 rows) for
+// bf16/f16: the operands as above, `rows` rows a block (16, 32, 48 or 64),
+// one of `splits` splits of K / chunk a block; with more than one split
+// `work` is a float32 [splits, M, N] workspace (else null), and the entry
+// launches the kernel and the loop's split reduction. Returns the
+// cudaError_t of the launches.
+extern "C" int flute_lut_qgemm_plane_mid(const void* x, const void* plane0, const void* plane1,
+                                         const void* scales, const void* table, void* y,
+                                         void* work, int M, int N, int K, int group_size,
+                                         int chunk, int num_bits, int dtype, int rows, int splits,
+                                         int vec, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  mma::Args a;
+  if (!wide::wide_args(a, x, plane0, num_bits == 3 ? plane1 : nullptr, scales, table, y, M, N, K,
+                       group_size, chunk, chunk * (num_bits == 4 ? 4 : 2) / 32, splits, vec, work))
+    return cudaErrorInvalidValue;
+  switch (num_bits) {
+    case 2: return wide::run_pair_mid<2, ScalarFill<2>>(a, dtype, rows, splits, s);
+    case 3: return wide::run_pair_mid<3, ScalarFill<3>>(a, dtype, rows, splits, s);
+    case 4: return wide::run_pair_mid<4, ScalarFill<4>>(a, dtype, rows, splits, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 // Instantiation i of K2's tensor-core kernels, 8 a bit width (2, 3, 4 in
 // that order; lut_gemm_wide_m.cuh::describe_pair): its name, registers,
 // shared memory (static and dynamic at `chunk`) and blocks per SM.
@@ -242,3 +268,17 @@ extern "C" int flute_lut_qgemm_plane_instance(int i, int chunk, const char** nam
   }
 }
 
+// Instantiation i of K2's mid route, 8 a bit width (2, 3, 4 in that order;
+// lut_gemm_wide_m.cuh::describe_pair_mid), as above.
+extern "C" int flute_lut_qgemm_plane_mid_instance(int i, int chunk, const char** name, int* regs,
+                                                  int* smem, int* blocks) {
+  switch (i / 8) {
+    case 0: return wide::describe_pair_mid<2, ScalarFill<2>>(i % 8, chunk, name, regs, smem,
+                                                             blocks);
+    case 1: return wide::describe_pair_mid<3, ScalarFill<3>>(i % 8, chunk, name, regs, smem,
+                                                             blocks);
+    case 2: return wide::describe_pair_mid<4, ScalarFill<4>>(i % 8, chunk, name, regs, smem,
+                                                             blocks);
+    default: return cudaErrorInvalidValue;
+  }
+}

@@ -33,7 +33,9 @@
 // * bf16 and f16 from ops/kernel_config.py::WIDE_MIN_M rows at a chunk
 //   the wide-M kernel takes (ops/kernel_config.py::mma_route): that kernel
 //   (lut_gemm_wide_m.cuh, wgmma, the same pair table), with the loop's
-//   bits; C entry flute_lut_qgemm_w4sym_wide.
+//   bits; C entry flute_lut_qgemm_w4sym_wide. From MID_MIN_M to WIDE_MIN_M
+//   rows its mid route (row tiles of 16-64 rows, one split of K a block,
+//   the loop's workspace and reduction): flute_lut_qgemm_w4sym_mid.
 // * f32, or a chunk the loop cannot take: the SIMT kernel below, on the
 //   skeleton of lut_gemm_common.cuh (IEEE FMAs, no TF32).
 //
@@ -189,11 +191,36 @@ extern "C" int flute_lut_qgemm_w4sym_wide(const void* x, const void* plane, cons
   return wide::run_pair<4, W4SymFill>(a, dtype, splits, static_cast<cudaStream_t>(stream));
 }
 
+// The mid route of the wide-M kernel (lut_gemm_wide_m.cuh, 16-127 rows) for
+// bf16/f16: the operands as above, `rows` rows a block (16, 32, 48 or 64),
+// one of `splits` splits of K / chunk a block; with more than one split
+// `work` is a float32 [splits, M, N] workspace (else null), and the entry
+// launches the kernel and the loop's split reduction. Returns the
+// cudaError_t of the launches.
+extern "C" int flute_lut_qgemm_w4sym_mid(const void* x, const void* plane, const void* scales,
+                                         const void* table, void* y, void* work, int M, int N,
+                                         int K, int group_size, int chunk, int dtype, int rows,
+                                         int splits, int vec, void* stream) {
+  mma::Args a;
+  if (!wide::wide_args(a, x, plane, nullptr, scales, table, y, M, N, K, group_size, chunk,
+                       chunk / 8, splits, vec, work))
+    return cudaErrorInvalidValue;
+  return wide::run_pair_mid<4, W4SymFill>(a, dtype, rows, splits,
+                                          static_cast<cudaStream_t>(stream));
+}
+
 // Instantiation i (0..7) of K1's tensor-core kernels: its name, registers,
 // shared memory (static and dynamic at `chunk`) and blocks per SM.
 extern "C" int flute_lut_qgemm_w4sym_instance(int i, int chunk, const char** name, int* regs,
                                               int* smem, int* blocks) {
   return wide::describe_pair<4, W4SymFill>(i, chunk, name, regs, smem, blocks);
+}
+
+// Instantiation i (0..7) of K1's mid route (lut_gemm_wide_m.cuh::
+// describe_pair_mid), as above.
+extern "C" int flute_lut_qgemm_w4sym_mid_instance(int i, int chunk, const char** name, int* regs,
+                                                  int* smem, int* blocks) {
+  return wide::describe_pair_mid<4, W4SymFill>(i, chunk, name, regs, smem, blocks);
 }
 
 // The tensor core's bits on one k16 step by mma.sync and by wgmma in both

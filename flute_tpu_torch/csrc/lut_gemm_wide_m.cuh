@@ -4,7 +4,8 @@
 // K1 (lut_gemm_w4sym.cu), K2 (lut_gemm_plane.cu) and K4 (lut_gemm_pair.cu)
 // with the pair decoder of lut_gemm_pair_decoder.cuh, K3
 // (lut_gemm_w3wide.cu) with its decoder of the wide 3-bit triples; below
-// WIDE_MIN_M rows they run the decode loop of lut_gemm_mma.cuh.
+// WIDE_MIN_M rows they run the decode loop of lut_gemm_mma.cuh, but K1 and
+// K2 from MID_MIN_M rows, which take this kernel's mid route (below).
 //
 //   y[M, N] = x[M, K] @ W,  W decoded per K-row pair and column
 //
@@ -74,6 +75,29 @@
 // from device memory about once. Ragged M and N are masked (TMA reads past
 // an edge as zeros). f32 accumulators, no atomics, no TF32, no fast math.
 //
+// The mid route (template arguments R < 128 and kOneSplit; K1 and K2 from
+// MID_MIN_M to WIDE_MIN_M rows, the speculative verify's 40 among them).
+// Replaces the same TPU kernel in its group-accumulating decode branch
+// (:590-602, taken at :812 for bm <= group_acc_max_bm = 64,
+// flute_tpu/ops/kernel_config.py:32), whose function the loop computes;
+// it gives each row the loop's bits. At 16-127 rows a layer moves about
+// the bytes of a decode step (one Llama-3.1-8B layer at W4 g64: 109 MB of
+// planes and 6.8 MB of scales, ~36 us at 3.35 TB/s, against ~18 us of
+// operations at M = 40), so it is bound by bytes, and the card must be
+// filled the way the loop fills it at decode. The loop itself ran 17-64
+// rows at 4 m16 tiles a warp, 4x its mma.sync and ldmatrix per decoded B
+// register, 2 blocks an SM and rows padded to 64; the wide route's grid
+// of M/128 x N/128 blocks leaves most of the 132 SMs idle there. Here:
+//
+// * A row tile of R (16, 32, 48 or 64) rows: wgmma m64nRk16, R / 2 f32
+//   accumulators a thread and no split total, a ring sized for kMidBlocks
+//   (2) blocks an SM; 40 rows take R = 48, not 64 or 128.
+// * The loop's split-K grid: blockIdx.z runs one split of mma_plan's
+//   chunks and writes its f32 sums to the workspace [splits, M, N], which
+//   split_reduce_kernel adds in split order (with one split, the block
+//   writes y). Partials of one split are summed in the loop's k16 order,
+//   so every row has the loop's bits at every M.
+//
 // A Decoder for this kernel provides, beside the loop's (lut_gemm_mma.cuh)
 // kFields, kChunkScales, word_rows, Table, Words and pair():
 //   kRowWords   planar words a word row (1; K3's triples 3): Words w0.. of
@@ -96,9 +120,10 @@ using mma::smem_u32;
 constexpr int kThreads = 256;    // two warpgroups
 constexpr int kGroupCols = 64;   // W columns a warpgroup: wgmma's M
 constexpr int kBlockN = 128;     // W columns a block
-constexpr int kRows = 128;       // rows of x a block: wgmma's N
+constexpr int kRows = 128;       // rows of x a block: wgmma's N (the mid route: R)
 constexpr int kPlaneStride = kBlockN + 8;  // words a staged plane row: rows 8 banks apart
-constexpr int kStretchBytes = kRows * 16;  // one 8-row K stretch of the block's x
+// The mid route's blocks an SM (its registers and ring are sized for them)
+constexpr int kMidBlocks = 2;
 
 // A shared-memory matrix descriptor, no swizzle: start, leading-byte offset
 // (between the two core matrices along K), stride-byte offset (between core
@@ -129,34 +154,55 @@ __device__ __forceinline__ void fence_async_smem() {
 __device__ __forceinline__ void pin(float& r) { asm volatile("" : "+f"(r)::"memory"); }
 
 #define FLUTE_D4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
-#define FLUTE_D16(i) FLUTE_D4(i), FLUTE_D4(i + 4), FLUTE_D4(i + 8), FLUTE_D4(i + 12)
-#define FLUTE_D64 FLUTE_D16(0), FLUTE_D16(16), FLUTE_D16(32), FLUTE_D16(48)
-#define FLUTE_R64                                                                            \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "   \
-  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "    \
-  "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "    \
-  "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+#define FLUTE_D8(i) FLUTE_D4(i), FLUTE_D4(i + 4)
+#define FLUTE_D16(i) FLUTE_D8(i), FLUTE_D8(i + 8)
+#define FLUTE_D32(i) FLUTE_D16(i), FLUTE_D16(i + 16)
+#define FLUTE_D64 FLUTE_D32(0), FLUTE_D32(32)
+#define FLUTE_L8 "%0, %1, %2, %3, %4, %5, %6, %7"
+#define FLUTE_L16 FLUTE_L8 ", %8, %9, %10, %11, %12, %13, %14, %15"
+#define FLUTE_L24 FLUTE_L16 ", %16, %17, %18, %19, %20, %21, %22, %23"
+#define FLUTE_L32 FLUTE_L24 ", %24, %25, %26, %27, %28, %29, %30, %31"
+#define FLUTE_L64                                                                           \
+  FLUTE_L32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, "  \
+            "%47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+#define FLUTE_R64 "{" FLUTE_L64 "}, "
+// one wgmma of shape m64n<N>k16, A from registers: LIST the accumulators'
+// operands, TAIL A's four registers and B's descriptor, PRED scale-d's
+// operand, then the accumulators' constraints
+#define FLUTE_WGMMA_RS(N, LIST, TAIL, PRED, ...)                                              \
+  do {                                                                                       \
+    if constexpr (std::is_same_v<T, __half>)                                                 \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " PRED ", 0;\n"                         \
+                   "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.f16.f16 {" LIST "}, " TAIL  \
+                   ", p, 1, 1, 0;\n}\n"                                                       \
+                   : __VA_ARGS__                                                             \
+                   : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d)); \
+    else                                                                                     \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " PRED ", 0;\n"                         \
+                   "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 {" LIST "}, "     \
+                   TAIL ", p, 1, 1, 0;\n}\n"                                                  \
+                   : __VA_ARGS__                                                             \
+                   : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d)); \
+  } while (0)
 
-// d[64 x 128] (+)= a (64 x 16, registers) * b (16 x 128, K-major in shared
-// memory); d[4j + r] is row 16 warp + l/4 + 8 (r >> 1), column 8j + 2(l%4) + (r & 1)
-template <typename T>
-__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b,
-                                         int scale_d) {
-  if constexpr (std::is_same_v<T, __half>) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 " FLUTE_R64
-        "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
-        : FLUTE_D64
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
-  } else {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " FLUTE_R64
-        "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
-        : FLUTE_D64
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
-  }
+// d[64 x N] (+)= a (64 x 16, registers) * b (16 x N, K-major in shared
+// memory), N the row tile (16, 32, 48, 64 or 128); d[4j + r] is row
+// 16 warp + l/4 + 8 (r >> 1), column 8j + 2(l%4) + (r & 1)
+template <typename T, int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                         uint64_t desc_b, int scale_d) {
+  static_assert(N == 16 || N == 32 || N == 48 || N == 64 || N == 128, "no such row tile");
+  if constexpr (N == 16)
+    FLUTE_WGMMA_RS(16, FLUTE_L8, "{%8, %9, %10, %11}, %12", "%13", FLUTE_D8(0));
+  else if constexpr (N == 32)
+    FLUTE_WGMMA_RS(32, FLUTE_L16, "{%16, %17, %18, %19}, %20", "%21", FLUTE_D16(0));
+  else if constexpr (N == 48)
+    FLUTE_WGMMA_RS(48, FLUTE_L24, "{%24, %25, %26, %27}, %28", "%29", FLUTE_D16(0),
+                   FLUTE_D8(16));
+  else if constexpr (N == 64)
+    FLUTE_WGMMA_RS(64, FLUTE_L32, "{%32, %33, %34, %35}, %36", "%37", FLUTE_D32(0));
+  else
+    FLUTE_WGMMA_RS(128, FLUTE_L64, "{%64, %65, %66, %67}, %68", "%69", FLUTE_D64);
 }
 
 // d (+)= a (64 x 16) * b (16 x 128), both K-major in shared memory
@@ -181,9 +227,17 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t desc_a, uint64
 }
 
 #undef FLUTE_D4
+#undef FLUTE_D8
 #undef FLUTE_D16
+#undef FLUTE_D32
 #undef FLUTE_D64
+#undef FLUTE_L8
+#undef FLUTE_L16
+#undef FLUTE_L24
+#undef FLUTE_L32
+#undef FLUTE_L64
 #undef FLUTE_R64
+#undef FLUTE_WGMMA_RS
 
 // 4 bytes global -> shared, or 4 zero bytes when !pred
 __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool pred) {
@@ -249,21 +303,23 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, i
 
 // The ring's geometry, the same on the host and the card. A stage is Q
 // items (word-row quads) of one chunk: the x stretches of those items for
-// every field ([field][Q][128 rows][16 bytes]: step (q, s) reads field 2s
+// every field ([field][Q][rows][16 bytes]: step (q, s) reads field 2s
 // at (2s Q + q) stretches and field 2s+1 Q stretches later, the
 // descriptor's leading-byte offset), their 4Q word rows of each planar
 // word (K3: [word][4Q rows]), the chunk's 1-bit plane rows (3 bits) and the
 // chunk's scale rows, 128 columns each.
 struct Geometry {
-  int kc0, kc1, fields, row_words, units, q, per_chunk, srows;
+  int kc0, kc1, fields, row_words, units, rows, q, per_chunk, srows;
   size_t x_bytes, p0_bytes, p1_bytes, s_off, stage_bytes;
 
   // kc: word rows a chunk; nfields: fields a word row; rwords: planar words
-  // a word row. Q: the most items (4, 2 or 1, dividing kc / 4) that leave
-  // room for three stages in `budget` bytes, else 1
+  // a word row; nrows: rows of x a block. Q: the most items (4, 2 or 1,
+  // dividing kc / 4) that leave room for three stages in `budget` bytes,
+  // else 1
   __host__ __device__ Geometry(int chunk, int kc, int nfields, int rwords, bool plane1,
-                               int group_size, size_t budget) {
+                               int group_size, int nrows, size_t budget) {
     kc0 = kc;
+    rows = nrows;
     kc1 = plane1 ? chunk / 32 : 0;
     fields = nfields;
     row_words = rwords;
@@ -278,12 +334,14 @@ struct Geometry {
   __host__ __device__ void set(int items) {
     q = items;
     per_chunk = kc0 / (4 * q);
-    x_bytes = static_cast<size_t>(fields) * q * kStretchBytes;
+    x_bytes = static_cast<size_t>(fields) * q * stretch();
     p0_bytes = static_cast<size_t>(row_words * 4 * q) * kPlaneStride * 4;
     p1_bytes = static_cast<size_t>(kc1) * kPlaneStride * 4;
     s_off = (x_bytes + p0_bytes + p1_bytes + 127) / 128 * 128;  // TMA wants 128-byte boxes
     stage_bytes = (s_off + static_cast<size_t>(srows) * kBlockN * 2 + 127) / 128 * 128;
   }
+  // one 8-row K stretch of the block's x
+  __host__ __device__ int stretch() const { return rows * 16; }
   // stages in `budget` bytes of shared memory, at most 4 (0: the ring needs
   // two and they do not fit, or a stage's units do not pair up)
   __host__ __device__ int stages(size_t budget) const {
@@ -292,11 +350,12 @@ struct Geometry {
   }
 };
 
-// The kernel's dynamic shared memory budget beside Decoder's table (227 KB
-// a block on the H100).
+// The kernel's dynamic shared memory budget beside Decoder's table when
+// `blocks` blocks share an SM (the H100's 228 KB, of which the runtime keeps
+// 1 KB a block: 227 KB for one).
 template <typename Decoder>
-__host__ __device__ constexpr size_t smem_budget() {
-  return 232448 - sizeof(typename Decoder::Table) - 64;  // and the mbarriers
+__host__ __device__ constexpr size_t smem_budget(int blocks = 1) {
+  return 233472 / blocks - 1024 - sizeof(typename Decoder::Table) - 64;  // and the mbarriers
 }
 
 // The tensor maps of a launch: x always; the planes and the scales where
@@ -342,16 +401,23 @@ __device__ __forceinline__ uint32_t field_scale(uint32_t cs, const uint32_t (&sv
     return sv[e];
 }
 
-// The ring's geometry of Decoder's layout at a launch's chunk and group size.
+// The ring's geometry of Decoder's layout at a launch's chunk and group size,
+// for R rows a block with `blocks` blocks an SM.
 template <typename Decoder>
-__host__ __device__ Geometry geometry_of(int chunk, int group_size) {
+__host__ __device__ Geometry geometry_of(int chunk, int group_size, int R = kRows,
+                                         int blocks = 1) {
   return Geometry(chunk, Decoder::word_rows(chunk), Decoder::kFields, Decoder::kRowWords,
-                  Decoder::kPlane1, group_size, smem_budget<Decoder>());
+                  Decoder::kPlane1, group_size, R, smem_budget<Decoder>(blocks));
 }
 
-template <typename T, typename Decoder>
-__global__ void __launch_bounds__(kThreads, 1)
+// R: rows of x a block (wgmma's N: 128 for the wide route, 16-64 for the
+// mid route); kOneSplit: the mid route's grid, one split of K a block
+// (blockIdx.z) written to the workspace [splits, M, N] (or with one split
+// to y), kMidBlocks blocks an SM; else the block runs every split in order.
+template <typename T, typename Decoder, int R = kRows, bool kOneSplit = false>
+__global__ void __launch_bounds__(kThreads, kOneSplit ? kMidBlocks : 1)
     wide_m_kernel(const Args a, const int stages, const __grid_constant__ Maps maps) {
+  constexpr int kAcc = R / 2;                    // accumulators a thread
   constexpr int kF = Decoder::kFields;
   constexpr int kRW = Decoder::kRowWords;
   constexpr int kSteps = kF / 2;                 // k16 steps an item
@@ -366,19 +432,26 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int wg = threadIdx.x >> 7;
   const int t = lane & 3;
   const int g = lane >> 2;
-  const int m0 = blockIdx.x * kRows;
+  const int m0 = blockIdx.x * R;
   const int nb = blockIdx.y * kBlockN;
   const int col = wg * kGroupCols + warp * 16 + g;  // this lane's columns: col and col + 8
-  const Geometry geo = geometry_of<Decoder>(a.chunk, a.group_size);
+  const Geometry geo = geometry_of<Decoder>(a.chunk, a.group_size, R, kOneSplit ? kMidBlocks : 1);
   const int Q = geo.q;
   const int nchunks = a.K / a.chunk;
-  const int nstages = nchunks * geo.per_chunk;
   const int cps = a.chunks_per_split;
+  const int splits = nchunks / cps;
+  const int per_split = cps * geo.per_chunk;
+  // the block's splits and its stages: stage si of the block is stage
+  // st0 + si of the layer's K
+  const int nsplits = kOneSplit ? 1 : splits;
+  const int st0 = kOneSplit ? static_cast<int>(blockIdx.z) * per_split : 0;
+  const int nstages = nsplits * per_split;
   // stages in flight ahead of the one computed: with three or four buffers
   // the buffer refilled was read two stages ago, whose products are done;
   // with two it was read by the stage before, drained before the barrier
   const int ahead = stages > 2 ? stages - 2 : 1;
-  const uint32_t lbo = static_cast<uint32_t>(Q) * kStretchBytes;
+  const uint32_t stretch = static_cast<uint32_t>(geo.stretch());
+  const uint32_t lbo = static_cast<uint32_t>(Q) * stretch;
   const uint16_t* scales = static_cast<const uint16_t*>(a.scales);
   const int grows = a.K / a.group_size;
 
@@ -391,17 +464,17 @@ __global__ void __launch_bounds__(kThreads, 1)
   __syncthreads();
 
   const int pstride = maps.words ? kBlockN : kPlaneStride;  // words a staged plane row
-  // stage st (chunk c, quad group gq) into its buffer, by warp 0: x rows
-  // m0.. by TMA, a box {8 columns, 128 rows, Q stretches} a field (rows past
-  // M zero-filled); the planes' word rows (each planar word's 4Q rows) and
-  // the chunk's scale rows of columns nb.. (columns past N zero-filled) by
-  // TMA, or where maps.words is 0 by cp.async from every thread. Always one
-  // cp.async group, empty past the last stage.
-  auto fill = [&](int st) {
-    if (st < nstages) {
-      const int c = st / geo.per_chunk;
-      const int gq = st - c * geo.per_chunk;
-      const int b = st % stages;
+  // the block's stage si (chunk c, quad group gq) into its buffer, by warp
+  // 0: x rows m0.. by TMA, a box {8 columns, R rows, Q stretches} a field
+  // (rows past M zero-filled); the planes' word rows (each planar word's 4Q
+  // rows) and the chunk's scale rows of columns nb.. (columns past N
+  // zero-filled) by TMA, or where maps.words is 0 by cp.async from every
+  // thread. Always one cp.async group, empty past the block's last stage.
+  auto fill = [&](int si) {
+    if (si < nstages) {
+      const int c = (st0 + si) / geo.per_chunk;
+      const int gq = st0 + si - c * geo.per_chunk;
+      const int b = si % stages;
       unsigned char* base = smem_raw + static_cast<size_t>(b) * geo.stage_bytes;
       uint32_t* p0 = reinterpret_cast<uint32_t*>(base + geo.x_bytes);
       uint32_t* p1 = p0 + kRW * 4 * Q * pstride;
@@ -424,7 +497,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
         __syncwarp();
         if (threadIdx.x < kF)  // field i's Q stretches: one box
-          tma_load_3d(base + static_cast<size_t>(threadIdx.x) * Q * kStretchBytes, &maps.x, m0,
+          tma_load_3d(base + static_cast<size_t>(threadIdx.x) * Q * stretch, &maps.x, m0,
                       c * a.chunk / 8 + threadIdx.x * (geo.kc0 / 4) + gq * Q, &full[b]);
       }
       if (!maps.words) {
@@ -463,9 +536,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     mma::cp_async_commit();
   };
 
-  float acc[64], total[64];
+  // acc: the split in progress; total: the sum of the block's splits before
+  // it (kOneSplit: never kept, acc is the block's result)
+  float acc[kAcc], total[kAcc];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) {
+  for (int i = 0; i < kAcc; ++i) {
     acc[i] = 0.f;
     total[i] = 0.f;
   }
@@ -482,18 +557,16 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int fpg = Decoder::kChunkScales ? a.group_size / (2 * geo.kc0) : 1;
 
   uint32_t af0[kU][4], af1[kU][4];
-  for (int st = 0; st < ahead; ++st) fill(st);
-  const int splits = nchunks / cps;
-  const int per_split = cps * geo.per_chunk;
-  for (int sp = 0, st = 0; sp < splits; ++sp) {
-  for (int end = st + per_split; st < end; ++st) {
+  for (int si = 0; si < ahead; ++si) fill(si);
+  for (int sp = 0, si = 0; sp < nsplits; ++sp) {
+  for (int end = si + per_split; si < end; ++si) {
     cp_async_wait_n<2>(ahead - 1);
-    __syncthreads();  // stage st's words and scales staged; its buffer's last reader is done
-    fill(st + ahead);
-    mbar_wait(&full[st % stages], (st / stages) & 1);  // its TMA loads landed
-    const int c = st / geo.per_chunk;
-    const int gq = st - c * geo.per_chunk;
-    const unsigned char* base = smem_raw + static_cast<size_t>(st % stages) * geo.stage_bytes;
+    __syncthreads();  // stage si's words and scales staged; its buffer's last reader is done
+    fill(si + ahead);
+    mbar_wait(&full[si % stages], (si / stages) & 1);  // its TMA loads landed
+    const int c = (st0 + si) / geo.per_chunk;
+    const int gq = st0 + si - c * geo.per_chunk;
+    const unsigned char* base = smem_raw + static_cast<size_t>(si % stages) * geo.stage_bytes;
     const uint32_t xs = smem_u32(base);
     const uint32_t* p0 = reinterpret_cast<const uint32_t*>(base + geo.x_bytes);
     const uint32_t* p1 = p0 + kRW * 4 * Q * pstride;
@@ -561,10 +634,10 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int s = 0; s < kU; ++s) {
         // k-slots 0..7: field 2s of the item, 8..15: field 2s + 1
-        wgmma_rs<T>(acc, af[s],
-                    smem_desc(xs + static_cast<uint32_t>(2 * (s0 + s) * Q + ql) * kStretchBytes,
-                              lbo, 128),
-                    1);
+        wgmma_rs<T, R>(acc, af[s],
+                       smem_desc(xs + static_cast<uint32_t>(2 * (s0 + s) * Q + ql) * stretch,
+                                 lbo, 128),
+                       1);
         wg_commit();
       }
     };
@@ -586,27 +659,39 @@ __global__ void __launch_bounds__(kThreads, 1)
   // the split's end: its products done (an unconditional wait, so that
   // ptxas keeps the products in flight within the split), its sum added to
   // the total in split order (split_reduce_kernel's sum from 0), or with one
-  // split the result itself
+  // split (or one a block) the result itself
   wg_wait<0>();
 #pragma unroll
-  for (int i = 0; i < 64; ++i) {
+  for (int i = 0; i < kAcc; ++i) {
     pin(acc[i]);
-    total[i] = splits > 1 ? total[i] + acc[i] : acc[i];
-    acc[i] = 0.f;
+    if (!kOneSplit) {
+      total[i] = splits > 1 ? total[i] + acc[i] : acc[i];
+      acc[i] = 0.f;
+    }
   }
   }
 
-  // total[4jj + r]: column col + 8 (r >> 1), row 8 jj + 2t + (r & 1)
+  // out[4jj + r]: column col + 8 (r >> 1), row 8 jj + 2t + (r & 1); the mid
+  // route's split partials go to the workspace in f32, as the loop's do
   T* y = static_cast<T*>(a.y);
+  float* work = kOneSplit && splits > 1
+                    ? a.work + static_cast<size_t>(blockIdx.z) * a.M * a.N
+                    : nullptr;
   const int n_a = nb + col, n_b = n_a + 8;
 #pragma unroll
-  for (int jj = 0; jj < 16; ++jj) {
+  for (int jj = 0; jj < R / 8; ++jj) {
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const int m = m0 + 8 * jj + 2 * t + (r & 1);
       const int n = (r >> 1) ? n_b : n_a;
-      if (m < a.M && n < a.N)
-        y[static_cast<size_t>(m) * a.N + n] = Cvt<T>::from_f(total[4 * jj + r]);
+      const float v = kOneSplit ? acc[4 * jj + r] : total[4 * jj + r];
+      if (m < a.M && n < a.N) {
+        const size_t o = static_cast<size_t>(m) * a.N + n;
+        if (work != nullptr)
+          work[o] = v;
+        else
+          y[o] = Cvt<T>::from_f(v);
+      }
     }
   }
 }
@@ -660,12 +745,14 @@ cudaError_t make_maps(Maps* m, const Args& a, const Geometry& geo) {
   const CUtensorMapDataType xt = std::is_same_v<T, __half> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
                                                            : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   // x as {8 columns, rows, stretches} (strides K * 2 and 16 bytes): one box
-  // a field's Q stretches, [stretch][row][8] in shared memory
+  // a field's Q stretches of the block's rows, [stretch][row][8] in shared
+  // memory
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[3] = {8, static_cast<cuuint64_t>(a.M), static_cast<cuuint64_t>(a.K / 8)};
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(a.K) * 2, 16};
-  const cuuint32_t box[3] = {8, kRows, static_cast<cuuint32_t>(geo.q)};
+  const cuuint32_t box[3] = {8, static_cast<cuuint32_t>(geo.rows),
+                             static_cast<cuuint32_t>(geo.q)};
   const cuuint32_t elem[3] = {1, 1, 1};
   cudaError_t e = encode(&m->x, xt, 3, const_cast<void*>(a.x), dims, strides, box, elem,
                          CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
@@ -688,14 +775,19 @@ cudaError_t make_maps(Maps* m, const Args& a, const Geometry& geo) {
   return e;
 }
 
-// Launches the kernel on a grid (M / 128, N / 128) for `splits` splits of
-// the K chunks (mma_plan's; no workspace). Returns the launch error.
-template <typename T, typename Decoder>
+// Launches the kernel for `splits` splits of the K chunks (mma_plan's): the
+// wide route (R = 128) on a grid (M / 128, N / 128), no workspace; the mid
+// route (kOneSplit) on a grid (M / R, N / 128, splits) and, with more than
+// one split, split_reduce_kernel over the workspace a.work. Returns the
+// first launch error.
+template <typename T, typename Decoder, int R = kRows, bool kOneSplit = false>
 cudaError_t launch_wide(Args a, int splits, cudaStream_t stream) {
-  auto kernel = wide_m_kernel<T, Decoder>;
+  auto kernel = wide_m_kernel<T, Decoder, R, kOneSplit>;
   if (!Decoder::kPlane1) a.plane1 = nullptr;
-  const Geometry geo = geometry_of<Decoder>(a.chunk, a.group_size);
-  const int stages = geo.stages(smem_budget<Decoder>());
+  if (kOneSplit && splits > 1 && a.work == nullptr) return cudaErrorInvalidValue;
+  const int blocks = kOneSplit ? kMidBlocks : 1;
+  const Geometry geo = geometry_of<Decoder>(a.chunk, a.group_size, R, blocks);
+  const int stages = geo.stages(smem_budget<Decoder>(blocks));
   if (stages == 0) return cudaErrorInvalidValue;
   const size_t smem = stages * geo.stage_bytes;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -705,9 +797,27 @@ cudaError_t launch_wide(Args a, int splits, cudaStream_t stream) {
   e = make_maps<T>(&maps, a, geo);
   if (e != cudaSuccess) return e;
   a.chunks_per_split = a.K / a.chunk / splits;
-  const dim3 grid((a.M + kRows - 1) / kRows, (a.N + kBlockN - 1) / kBlockN);
+  const dim3 grid((a.M + R - 1) / R, (a.N + kBlockN - 1) / kBlockN, kOneSplit ? splits : 1);
   kernel<<<grid, kThreads, smem, stream>>>(a, stages, maps);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || !kOneSplit || splits == 1) return e;
+  const size_t mn = static_cast<size_t>(a.M) * a.N;
+  mma::split_reduce_kernel<T><<<static_cast<unsigned>((mn + 255) / 256), 256, 0, stream>>>(
+      a.work, static_cast<T*>(a.y), mn, splits);
   return cudaGetLastError();
+}
+
+// The mid route with `rows` rows a block: 16, 32, 48 or 64, the row tiles
+// it is built for (ops/kernel_config.py::MID_ROWS).
+template <typename T, typename Decoder>
+cudaError_t launch_mid(const Args& a, int rows, int splits, cudaStream_t s) {
+  switch (rows) {
+    case 16: return launch_wide<T, Decoder, 16, true>(a, splits, s);
+    case 32: return launch_wide<T, Decoder, 32, true>(a, splits, s);
+    case 48: return launch_wide<T, Decoder, 48, true>(a, splits, s);
+    case 64: return launch_wide<T, Decoder, 64, true>(a, splits, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // The kernel for a C entry's dtype code (1 = float16, 2 = bfloat16; float32
@@ -722,17 +832,34 @@ cudaError_t run_pair(const Args& a, int dtype, int splits, cudaStream_t s) {
   }
 }
 
+// The mid route for a C entry's dtype code (1 = float16, 2 = bfloat16;
+// float32 is refused) with the pair decoder of NB bits and table fill Fill.
+template <int NB, typename Fill>
+cudaError_t run_pair_mid(const Args& a, int dtype, int rows, int splits, cudaStream_t s) {
+  switch (dtype) {
+    case 1: return launch_mid<__half, mma::PairDecoder<__half, NB, Fill>>(a, rows, splits, s);
+    case 2:
+      return launch_mid<__nv_bfloat16, mma::PairDecoder<__nv_bfloat16, NB, Fill>>(a, rows,
+                                                                                  splits, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 // A C entry's operands as the kernel's Args, `word_rows` the decoder's
-// word rows a chunk: false where it cannot take them (K not a multiple of
-// chunk, word_rows not a multiple of 4, splits not dividing the chunks, a
-// group size that does not divide K). A ring that does not fit is refused
-// at the launch.
+// word rows a chunk, `work` the mid route's split-K workspace (null for the
+// wide route, and with one split): false where it cannot take them (K not a
+// multiple of chunk, word_rows not a multiple of 4, splits not dividing the
+// chunks, a group size that does not divide K). A ring that does not fit,
+// or a mid launch of several splits without a workspace, is refused at the
+// launch.
 inline bool wide_args(Args& a, const void* x, const void* plane0, const void* plane1,
                       const void* scales, const void* table, void* y, int M, int N, int K,
-                      int group_size, int chunk, int word_rows, int splits, int vec) {
+                      int group_size, int chunk, int word_rows, int splits, int vec,
+                      void* work = nullptr) {
   if (!mma::loop_args(a, x, plane0, plane1, scales, table, y, nullptr, M, N, K, group_size,
                       chunk, word_rows, 1, vec))
     return false;
+  a.work = static_cast<float*>(work);
   return splits >= 1 && (K / chunk) % splits == 0 && group_size > 0 && K % group_size == 0;
 }
 
@@ -755,7 +882,8 @@ cudaError_t describe(K kernel, int threads, size_t dyn, int* regs, int* smem, in
 
 // The instantiations that a kernel runs with decoder D in 16-bit type T,
 // for the report of phase 1: i = 0..2 the loop at 1, 2 and 4 m16 tiles a
-// warp, 3 this kernel; dynamic shared memory at `chunk` (and group size 64).
+// warp, 3 this kernel's wide route; dynamic shared memory at `chunk` (and
+// group size 64).
 template <typename T, typename D>
 cudaError_t describe_dtype(int i, int chunk, int* regs, int* smem, int* blocks) {
   switch (i) {
@@ -794,6 +922,40 @@ cudaError_t describe_pair(int i, int chunk, const char** name, int* regs, int* s
                           int* blocks) {
   return describe_decoders<mma::PairDecoder<__nv_bfloat16, NB, Fill>,
                            mma::PairDecoder<__half, NB, Fill>>(i, chunk, name, regs, smem, blocks);
+}
+
+// The mid route's instantiation of row tile R with decoder D in type T:
+// registers, shared memory at `chunk` (group size 64) and blocks per SM.
+template <typename T, typename D, int R>
+cudaError_t describe_mid_rows(int chunk, int* regs, int* smem, int* blocks) {
+  const Geometry geo = geometry_of<D>(chunk, 64, R, kMidBlocks);
+  return describe(wide_m_kernel<T, D, R, true>, kThreads,
+                  geo.stages(smem_budget<D>(kMidBlocks)) * geo.stage_bytes, regs, smem, blocks);
+}
+
+// Instantiation i of the mid route with the pair decoder of NB bits and
+// table fill Fill (K1, K2): i = 0..3 its row tiles in bf16, 4..7 in f16.
+template <int NB, typename Fill>
+cudaError_t describe_pair_mid(int i, int chunk, const char** name, int* regs, int* smem,
+                              int* blocks) {
+  static const char* const kNames[8] = {"mid R=16 bfloat16", "mid R=32 bfloat16",
+                                        "mid R=48 bfloat16", "mid R=64 bfloat16",
+                                        "mid R=16 float16",  "mid R=32 float16",
+                                        "mid R=48 float16",  "mid R=64 float16"};
+  if (i < 0 || i >= 8) return cudaErrorInvalidValue;
+  *name = kNames[i];
+  using DB = mma::PairDecoder<__nv_bfloat16, NB, Fill>;
+  using DH = mma::PairDecoder<__half, NB, Fill>;
+  switch (i) {
+    case 0: return describe_mid_rows<__nv_bfloat16, DB, 16>(chunk, regs, smem, blocks);
+    case 1: return describe_mid_rows<__nv_bfloat16, DB, 32>(chunk, regs, smem, blocks);
+    case 2: return describe_mid_rows<__nv_bfloat16, DB, 48>(chunk, regs, smem, blocks);
+    case 3: return describe_mid_rows<__nv_bfloat16, DB, 64>(chunk, regs, smem, blocks);
+    case 4: return describe_mid_rows<__half, DH, 16>(chunk, regs, smem, blocks);
+    case 5: return describe_mid_rows<__half, DH, 32>(chunk, regs, smem, blocks);
+    case 6: return describe_mid_rows<__half, DH, 48>(chunk, regs, smem, blocks);
+    default: return describe_mid_rows<__half, DH, 64>(chunk, regs, smem, blocks);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -879,7 +1041,7 @@ __global__ void __launch_bounds__(128) wgmma_probe_kernel(const T* __restrict__ 
 #pragma unroll
     for (int i = 0; i < 64; ++i) pin(d[i]);
     wg_fence();
-    wgmma_rs<T>(d, af, smem_desc(xa, 128 * 16, 128), 1);
+    wgmma_rs<T, 128>(d, af, smem_desc(xa, 128 * 16, 128), 1);
     wg_commit();
     wg_wait<0>();
 #pragma unroll

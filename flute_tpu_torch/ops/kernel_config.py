@@ -30,7 +30,11 @@ Two launch shapes serve the Hopper LUT-GEMM kernels:
 * ``mma_route`` and ``wide_plan`` send K1-K4 at prefill M (from
   :data:`WIDE_MIN_M` rows) to the wide-M kernel on warpgroup MMA
   (``csrc/lut_gemm_wide_m.cuh``), which sums in the loop's order within
-  ``mma_plan``'s split, so a row has the same bits on either route.
+  ``mma_plan``'s split, so a row has the same bits on either route;
+  ``mma_route`` and ``mid_plan`` send K1 and K2 from :data:`MID_MIN_M`
+  rows below that to the same kernel's mid route (row tiles of
+  :data:`MID_ROWS`, one of ``mma_plan``'s splits a block, its workspace),
+  with the same bits again.
 * ``LaunchConfig`` is the SIMT skeleton's (``csrc/lut_gemm_common.cuh``):
   K1, K2 and K3 in f32 or at a chunk the loop does not take.
 """
@@ -126,9 +130,11 @@ MMA_M_TILES = (1, 2, 4)
 # the H100's 132. At decode four blocks fit an SM, so up to 528 run in one
 # wave.
 MMA_TARGET_BLOCKS = 2 * 132
-# Shared memory a block may use on the H100 (227 KB), and the largest pair
-# table a block keeps beside its x ring (256 entries x 8 copies x 4 bytes)
+# Shared memory a block may use on the H100 (227 KB) and an SM's (228 KB,
+# of which the runtime keeps 1 KB a block), and the largest pair table a
+# block keeps beside its x ring (256 entries x 8 copies x 4 bytes)
 MAX_SMEM_BYTES = 232448
+SM_SMEM_BYTES = 233472
 MMA_TABLE_BYTES = 8192
 
 
@@ -226,21 +232,23 @@ WIDE_LAYOUTS = ("w4sym", "plane", "pair", "w3wide")
 WIDE_MIN_M = 128
 
 
-def wide_ring(num_bits: int, chunk: int, group_size: int,
-              layout: str = "plane") -> tuple[int, int, int]:
+def wide_ring(num_bits: int, chunk: int, group_size: int, layout: str = "plane",
+              rows: int = WIDE_ROWS, blocks: int = 1) -> tuple[int, int, int]:
     """The wide-M kernel's ring (``csrc/lut_gemm_wide_m.cuh::Geometry``):
     ``(q, stage_bytes, stages)``. A stage is ``q`` items of a chunk (4, 2 or
     1 dividing kc / 4: the most that leave room for three stages): their x
-    stretches for every field (16 bytes a row, 128 rows), their 4q word
-    rows of each planar word (three for K3's triples) and at 3 bits the
-    chunk's 1-bit plane rows (136 words a row), then, from a 128-byte
-    boundary, the chunk's scale rows (128 16-bit values each), rounded up
-    to 128 bytes. ``stages`` fit beside the decoder's table (the pair
-    tables ``(2^b)^2 x 8`` words, K4's joint one as K2's; K3's 64 x 8) and
-    the mbarriers in a block's shared memory, at most 4; 0 where two do
-    not, or where a stage's units do not pair up (the kernel decodes a unit
-    of at most 4 k16 steps while the one before multiplies, in pairs: an
-    item at 4 and 8 fields, half an item at K3's 16)."""
+    stretches for every field (16 bytes a row, ``rows`` rows: 128, or the
+    mid route's row tile), their 4q word rows of each planar word (three
+    for K3's triples) and at 3 bits the chunk's 1-bit plane rows (136 words
+    a row), then, from a 128-byte boundary, the chunk's scale rows (128
+    16-bit values each), rounded up to 128 bytes. ``stages`` fit beside the
+    decoder's table (the pair tables ``(2^b)^2 x 8`` words, K4's joint one
+    as K2's; K3's 64 x 8) and the mbarriers in an SM's shared memory shared
+    by ``blocks`` blocks (1 for the wide route, :data:`MID_BLOCKS` for the
+    mid route), at most 4; 0 where two do not, or where a stage's units do
+    not pair up (the kernel decodes a unit of at most 4 k16 steps while the
+    one before multiplies, in pairs: an item at 4 and 8 fields, half an
+    item at K3's 16)."""
     kc0 = mma_word_rows(num_bits, chunk, layout)
     fields = mma_fields(num_bits, layout)
     w3 = layout == "w3wide"
@@ -249,11 +257,11 @@ def wide_ring(num_bits: int, chunk: int, group_size: int,
     units = fields // 8 if fields > 8 else 1
     srows = -(-chunk // group_size) + 1
     table = 64 * 8 * 4 if w3 else (2**num_bits) ** 2 * 8 * 4
-    budget = MAX_SMEM_BYTES - table - 64
+    budget = SM_SMEM_BYTES // blocks - 1024 - table - 64
 
     def stage_bytes(q):
         words = (row_words * 4 * q + kc1) * (WIDE_BLOCK_N + 8) * 4
-        s_off = -(-(fields * q * WIDE_ROWS * 16 + words) // 128) * 128
+        s_off = -(-(fields * q * rows * 16 + words) // 128) * 128
         return -(-(s_off + srows * WIDE_BLOCK_N * 2) // 128) * 128
 
     q = 4
@@ -275,16 +283,53 @@ def wide_takes_chunk(num_bits: int, chunk: int, group_size: int = 64,
             and wide_ring(num_bits, chunk, group_size, layout)[2] >= 2)
 
 
+# The wide-M kernel's mid route (csrc/lut_gemm_wide_m.cuh with a row tile
+# under 128 and one split of K a block): the row tiles it is built for
+# (wgmma's N), the blocks an SM its registers and ring are sized for, and
+# the layouts it decodes (K1's and K2's; K3 and K4 stay on the loop there).
+MID_ROWS = (16, 32, 48, 64)
+MID_BLOCKS = 2
+MID_LAYOUTS = ("w4sym", "plane")
+# The least M that takes it, up to WIDE_MIN_M: the crossover of phase 2's
+# sweep in chip_smoke.py (K1, K2 at one Llama-3.1-8B layer, M in 8..128):
+# the loop wins at one m16 tile a warp (M <= 16), the mid route from 32.
+MID_MIN_M = 17
+
+
+def mid_rows(m: int) -> int:
+    """The mid route's row tile for M rows: the fewest tiles of at most 64
+    rows (the decode is paid once a tile), each the smallest of
+    :data:`MID_ROWS` that covers M in that many (40 rows: 48; 96: two of
+    48; 100: two of 64)."""
+    tiles = -(-max(m, 1) // MID_ROWS[-1])
+    return next(r for r in MID_ROWS if tiles * r >= m)
+
+
+def mid_takes_chunk(num_bits: int, chunk: int, group_size: int = 64,
+                    layout: str = "plane") -> bool:
+    """Whether the mid route takes a layer's pack chunk and group size: a
+    layout it decodes (K1, K2), a chunk the loop takes, and two stages of
+    the ring at its largest row tile fitting :data:`MID_BLOCKS` blocks an
+    SM, a stage's units pairing up. Depends on neither M nor the dtype."""
+    return (layout in MID_LAYOUTS and mma_takes_chunk(num_bits, chunk, layout)
+            and wide_ring(num_bits, chunk, group_size, layout, MID_ROWS[-1],
+                          MID_BLOCKS)[2] >= 2)
+
+
 def mma_route(m: int, num_bits: int, chunk: int, layout: str = "plane",
               group_size: int = 64) -> str:
     """Where a call on the tensor cores (:func:`launch_path` ``"mma"``)
     runs: ``"wide"``, the wide-M kernel, for every layout (K1-K4) from
-    :data:`WIDE_MIN_M` rows at a chunk and group size it takes; ``"loop"``,
-    the decode loop, otherwise. For a layer, a function of M alone; both
-    routes give a row the same bits."""
+    :data:`WIDE_MIN_M` rows at a chunk and group size it takes; ``"mid"``,
+    its mid route, for K1 and K2 from :data:`MID_MIN_M` rows below
+    ``WIDE_MIN_M`` at a chunk and group size that takes
+    (:func:`mid_takes_chunk`); ``"loop"``, the decode loop, otherwise. For a
+    layer, a function of M alone; every route gives a row the same bits."""
     if (layout in WIDE_LAYOUTS and m >= WIDE_MIN_M
             and wide_takes_chunk(num_bits, chunk, group_size, layout)):
         return "wide"
+    if MID_MIN_M <= m < WIDE_MIN_M and mid_takes_chunk(num_bits, chunk, group_size, layout):
+        return "mid"
     return "loop"
 
 
@@ -307,6 +352,36 @@ def wide_plan(m: int, n: int, k: int, chunk: int) -> WidePlan:
     block a 128 x 128 tile of the output."""
     return WidePlan(splits=mma_plan(1, n, k, chunk).splits,
                     grid=(-(-m // WIDE_ROWS), -(-n // WIDE_BLOCK_N)))
+
+
+@dataclasses.dataclass(frozen=True)
+class MidPlan:
+    """Launch of the wide-M kernel's mid route for one (M, N, K, chunk):
+    ``rows`` rows a block (:func:`mid_rows`), ``splits`` :func:`mma_plan`'s
+    split of the K chunks, one a block (blockIdx.z); above one split an f32
+    workspace ``[splits, M, N]`` that the loop's reduction adds in split
+    order. The grid is ``(M / rows, N / 128, splits)``."""
+
+    rows: int
+    splits: int
+    grid: tuple[int, int, int]
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1] * self.grid[2]
+
+    def workspace_shape(self, m: int, n: int) -> tuple[int, int, int] | None:
+        return (self.splits, m, n) if self.splits > 1 else None
+
+
+def mid_plan(m: int, n: int, k: int, chunk: int) -> MidPlan:
+    """The mid route's launch: the decode loop's split (so every route sums
+    a row in one order), a block a ``mid_rows(M)`` x 128 tile of one
+    split's partial sums."""
+    rows = mid_rows(m)
+    splits = mma_plan(1, n, k, chunk).splits
+    return MidPlan(rows=rows, splits=splits,
+                   grid=(-(-m // rows), -(-n // WIDE_BLOCK_N), splits))
 
 
 # ---------------------------------------------------------------------------

@@ -19,12 +19,16 @@ Dispatch is by the tensors' device:
   A config with ``lut_mode="pair_lut"`` and no ``pair_values`` takes the
   same route on the plane layout, with the separable joint table that JAX
   builds from the scalar one. A build or launch failure raises.
-  K1-K4 on the tensor cores take one of two routes by M alone
+  K1-K4 on the tensor cores take their route by M alone
   (:func:`~flute_tpu_torch.ops.kernel_config.mma_route`): the decode loop
   of ``csrc/lut_gemm_mma.cuh``, or from
   :data:`~flute_tpu_torch.ops.kernel_config.WIDE_MIN_M` rows the wide-M
   kernel of ``csrc/lut_gemm_wide_m.cuh`` (warpgroup MMA, no split-K
-  workspace), which gives each row the loop's bits.
+  workspace), or for K1 and K2 from
+  :data:`~flute_tpu_torch.ops.kernel_config.MID_MIN_M` rows below that the
+  same kernel's mid route (row tiles of 16-64 rows, one split of K a
+  block, the loop's workspace and reduction); each gives a row the loop's
+  bits.
 
 :func:`dequantize_codes`, :func:`dequantize_codes_pair` and
 :func:`lut_qgemm_reference` are the oracle and define the semantics.
@@ -51,6 +55,7 @@ from flute_tpu_torch.ops.kernel_config import (
     mma_route,
     mma_takes_chunk,
     mma_word_rows,
+    mid_plan,
     wide_plan,
 )
 
@@ -61,6 +66,9 @@ LAUNCHES = {"w4sym": 0, "plane": 0, "w3wide": 0, "pair": 0}
 # Of those, the launches that took the wide-M kernel (the route of K1-K4 at
 # prefill M), by layout.
 WIDE_LAUNCHES = {"w4sym_wide": 0, "plane_wide": 0, "w3wide_wide": 0, "pair_wide": 0}
+# Of those, the launches that took the wide-M kernel's mid route (K1 and K2
+# from MID_MIN_M to WIDE_MIN_M rows), by layout.
+MID_LAUNCHES = {"w4sym_mid": 0, "plane_mid": 0}
 
 _DTYPE_TAG = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
@@ -169,6 +177,14 @@ _WIDE = {
     "w3wide": ("lut_gemm_w3wide.cu", "flute_lut_qgemm_w3wide_wide", 5, 8),
     "pair": ("lut_gemm_pair.cu", "flute_lut_qgemm_pair_wide", 6, 9),
 }
+# the mid route's C entries, by layout: (source, C entry, pointer and int
+# arguments before the stream): x, planes, scales, table, y, the split-K
+# workspace, then M, N, K, group_size, chunk [, num_bits], dtype, rows,
+# splits and vec
+_MID = {
+    "w4sym": ("lut_gemm_w4sym.cu", "flute_lut_qgemm_w4sym_mid", 6, 9),
+    "plane": ("lut_gemm_plane.cu", "flute_lut_qgemm_plane_mid", 7, 10),
+}
 
 
 @functools.lru_cache(maxsize=None)
@@ -199,7 +215,7 @@ def build_kernels() -> None:
     _build.build_all([source for source, *_ in _KERNELS.values()])
     for kernel in _KERNELS:
         _kernel_fn(kernel)
-    for wide in _WIDE.values():
+    for wide in (*_WIDE.values(), *_MID.values()):
         _entry(*wide)
 
 
@@ -335,21 +351,74 @@ def _launch_wide(
     return y
 
 
+def _launch_mid(
+    kernel: str,
+    x2: torch.Tensor,
+    plane_ptrs: Sequence[Optional[int]],
+    scales: torch.Tensor,
+    table: torch.Tensor,
+    *,
+    group_size: int,
+    chunk: int,
+    extra: tuple[int, ...] = (),
+    vec: bool = True,
+) -> torch.Tensor:
+    """Launch the wide-M kernel's mid route for K1 (``kernel="w4sym"``) or
+    K2 (``"plane"``) on PyTorch's current stream (operands checked, x on a
+    16-byte boundary) with :func:`mid_plan`'s row tile and split, and the
+    split-K workspace allocated here; count the launch (the kernel and,
+    with several splits, the reduction: one call). Returns ``[M, N]`` in
+    x's dtype. Raises on a refused launch."""
+    m, k = x2.shape
+    n = scales.shape[1]
+    dev = x2.device
+    y = torch.empty((m, n), dtype=x2.dtype, device=dev)
+    if m == 0:
+        return y
+    fn, error_string = _entry(*_MID[kernel])
+    plan = mid_plan(m, n, k, chunk)
+    shape = plan.workspace_shape(m, n)
+    ws = None if shape is None else torch.empty(shape, dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = fn(
+            x2.data_ptr(), *plane_ptrs, scales.data_ptr(), table.data_ptr(), y.data_ptr(),
+            None if ws is None else ws.data_ptr(), m, n, k, group_size, chunk, *extra,
+            _DTYPE_TAG[x2.dtype], plan.rows, plan.splits, int(vec), stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"{kernel} mid-M kernel launch failed: {error_string(err).decode()} ({err})"
+        )
+    LAUNCHES[kernel] += 1
+    MID_LAUNCHES[f"{kernel}_mid"] += 1
+    return y
+
+
 def kernel_instances(kernel: str, chunk: int = 256) -> list[dict]:
     """Each tensor-core instantiation of K1 (``kernel="w4sym"``), K2
     (``"plane"``) or K4 (``"pair"``) at 2, 3 and 4 bits, or K3
     (``"w3wide"``, with a chunk's scales once per field and with the
     per-field cache: ``scales`` "chunk" or "field"): the decode loop at 1, 2
-    and 4 m16 tiles a warp and the wide-M kernel, in bf16 and f16, with its
+    and 4 m16 tiles a warp and the wide-M kernel, in bf16 and f16, and for
+    K1 and K2 the wide-M kernel's mid route at each row tile, with its
     registers, shared memory (static and dynamic at ``chunk``) and blocks
     per SM from the CUDA runtime on the current card."""
-    source = _WIDE[kernel][0]
-    entry = f"flute_lut_qgemm_{kernel}_instance"
-    fn, error_string = _entry(source, entry, 0, 2)
+    out = _instances(kernel, f"flute_lut_qgemm_{kernel}_instance", chunk,
+                     {"w4sym": 8, "w3wide": 16}.get(kernel, 24))
+    if kernel in _MID:
+        out += _instances(kernel, f"flute_lut_qgemm_{kernel}_mid_instance", chunk,
+                          8 if kernel == "w4sym" else 24)
+    return out
+
+
+def _instances(kernel: str, entry: str, chunk: int, count: int) -> list[dict]:
+    """Instantiations 0..count-1 of ``entry`` (8 a bit width), as
+    :func:`kernel_instances` reports them."""
+    fn, error_string = _entry(_WIDE[kernel][0], entry, 0, 2)
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_char_p)] + [
         ctypes.POINTER(ctypes.c_int)] * 3
     out = []
-    count = {"w4sym": 8, "w3wide": 16}.get(kernel, 24)
     for i in range(count):
         name = ctypes.c_char_p()
         regs, smem, blocks = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
@@ -428,8 +497,8 @@ def lut_path(dtype: torch.dtype, num_bits: int, chunk: int, layout: str = "plane
     ``"mma"``, the tensor-core loop, for bf16 and f16 at a chunk the loop
     takes (:func:`~flute_tpu_torch.ops.kernel_config.mma_takes_chunk`);
     ``"simt"``, the SIMT kernel, otherwise. (K4 always runs on the tensor
-    cores.) On the tensor cores :func:`mma_route` then picks the loop or the
-    wide-M kernel by M."""
+    cores.) On the tensor cores :func:`mma_route` then picks the loop, the
+    wide-M kernel or its mid route by M."""
     return launch_path(dtype, num_bits, chunk, layout)
 
 
@@ -451,7 +520,7 @@ def _launch_planes(
     tensor cores (``loop``) x is copied to a 16-byte boundary if it is not
     on one and ``vec`` says whether the kernel may read planes and scales
     in 16- and 8-byte pieces; the call takes the route :func:`mma_route`
-    gives its M: the wide-M kernel, or the decode loop with
+    gives its M: the wide-M kernel, its mid route, or the decode loop with
     :func:`mma_plan`'s plan (and a tuner's ``m_tiles`` where set). Else the
     SIMT kernel runs (with a tuner's ``simt_block_m`` where set)."""
     # the C entry's plane pointers (x, scales, table, y and the workspace
@@ -468,8 +537,11 @@ def _launch_planes(
     vec = (n % 4 == 0 and scales.data_ptr() % 8 == 0
            and all(p.data_ptr() % 16 == 0 for p in planes))
     bits = extra[0] if extra else (3 if kernel == "w3wide" else 4)
-    if mma_route(m, bits, chunk, kernel, group_size) == "wide":
+    route = mma_route(m, bits, chunk, kernel, group_size)
+    if route == "wide":
         return _launch_wide(kernel, x2, ptrs, scales, table, vec=vec, **kw)
+    if route == "mid":
+        return _launch_mid(kernel, x2, ptrs, scales, table, vec=vec, **kw)
     return _launch(kernel, x2, ptrs, scales, table, plan=mma_plan(m, n, k, chunk, m_tiles),
                    vec=vec, **kw)
 

@@ -401,10 +401,10 @@ SIMT_CHUNK = {("w4sym", 4): 16, ("plane", 2): 32, ("plane", 3): 32, ("plane", 4)
 @pytest.mark.parametrize("m", [1, 8, 17, 64, 512])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_k1_k2_loop_vs_plain(dev, dtype, m, layout, bits, chunk, g):
-    """K1 and K2 on the tensor cores (the loop at one, two and four m16
-    tiles per warp; M = 512 takes the wide-M kernel), split-K (K = 1024) and
-    groups within a chunk, across its fields and across chunks, against the
-    plain version."""
+    """K1 and K2 on the tensor cores (the loop at one m16 tile per warp;
+    M = 17 and 64 take the wide-M kernel's mid route, M = 512 the wide-M
+    kernel), split-K (K = 1024) and groups within a chunk, across its
+    fields and across chunks, against the plain version."""
     _, x, planes, s, t = loop_case(dev, layout, bits, m, 256, 1024, dtype, seed=m + bits + g,
                                    chunk=chunk, g=g)
     assert lut_gemm.lut_path(dtype, bits, chunk) == "mma"
@@ -2256,17 +2256,22 @@ def test_bench_op_refuses_to_build_in_its_capture(dev):
 # ---------------------------------------------------------------------------
 
 
+# the plan's crossovers that force each route for any M: (MID_MIN_M,
+# WIDE_MIN_M)
+ROUTE_BOUNDS = {"loop": (1 << 30, 1 << 30), "mid": (1, 1 << 30), "wide": (1 << 30, 1)}
+
+
 def route_fn(layout, bits, planes, s, t, chunk=256, g=G, route=None):
     """The wrapper of K1 (``layout="w4sym"``), K2 (``"plane"``), K3
     (``"w3wide"``) or K4 (``"pair"``, ``t`` the pair table) on ``route``
-    ("loop" or "wide": the crossover moved past M or to one row for the
-    call; None: the plan's)."""
+    ("loop", "mid" or "wide": the plan's crossovers moved past M or to one
+    row for the call; None: the plan's)."""
     kw = dict(group_size=g, chunk=chunk)
 
     def call(x):
-        saved = kernel_config.WIDE_MIN_M
+        saved = kernel_config.MID_MIN_M, kernel_config.WIDE_MIN_M
         if route is not None:
-            kernel_config.WIDE_MIN_M = 1 if route == "wide" else 1 << 30
+            kernel_config.MID_MIN_M, kernel_config.WIDE_MIN_M = ROUTE_BOUNDS[route]
         try:
             if layout == "w4sym":
                 return lut_gemm.lut_qgemm_w4sym_cuda(x, planes[0], s, t, **kw)
@@ -2276,7 +2281,7 @@ def route_fn(layout, bits, planes, s, t, chunk=256, g=G, route=None):
                 return lut_gemm.lut_qgemm_pair_cuda(x, planes, s, t, num_bits=bits, **kw)
             return lut_gemm.lut_qgemm_plane_cuda(x, planes, s, t, num_bits=bits, **kw)
         finally:
-            kernel_config.WIDE_MIN_M = saved
+            kernel_config.MID_MIN_M, kernel_config.WIDE_MIN_M = saved
 
     return call
 
@@ -2509,3 +2514,132 @@ def test_k3_k4_wide_refused_launch_raises(dev, layout, bits, chunk):
     with pytest.raises(RuntimeError, match="wide-M kernel launch failed"):
         lut_gemm._launch_wide(layout, x, ptrs, s, t, group_size=G, chunk=chunk, extra=extra)
     assert lut_gemm.LAUNCHES == launches and lut_gemm.WIDE_LAUNCHES == wide
+
+
+# ---------------------------------------------------------------------------
+# The wide-M kernel's mid route: K1 and K2 at 16-127 rows
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("g", [32, 128])
+@pytest.mark.parametrize("chunk", [128, 256])
+@pytest.mark.parametrize("m", [16, 40, 48, 64, 100])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("layout,bits", LOOP_LAYOUTS)
+def test_k1_k2_mid_has_the_loops_bits(dev, layout, bits, dtype, m, chunk, g):
+    """The mid route (row tiles of 16-64 rows, one split of K a block, the
+    workspace and the loop's reduction) gives the decode loop's bits at
+    full and ragged row and column tiles (N = 264), groups within and
+    across fields and split-K (K = 2048), within the threshold of the plain
+    version; a launch counts in LAUNCHES and MID_LAUNCHES."""
+    _, x, planes, s, t = loop_case(dev, layout, bits, m, 264, 2048, dtype, seed=m + bits + g,
+                                   chunk=chunk, g=g)
+    assert kernel_config.mid_takes_chunk(bits, chunk, g, layout)
+    assert lut_gemm.mid_plan(m, 264, 2048, chunk).splits > 1
+    before, mid_before = lut_gemm.LAUNCHES[layout], lut_gemm.MID_LAUNCHES[f"{layout}_mid"]
+    y = route_fn(layout, bits, planes, s, t, chunk, g, route="mid")(x)
+    assert lut_gemm.LAUNCHES[layout] == before + 1
+    assert lut_gemm.MID_LAUNCHES[f"{layout}_mid"] == mid_before + 1
+    assert same_bits(y, route_fn(layout, bits, planes, s, t, chunk, g, route="loop")(x))
+    y_plain = lut_gemm.lut_qgemm_plain(x, planes, s, t, num_bits=bits, chunk=chunk,
+                                       layout=layout)
+    torch.cuda.synchronize()
+    assert rel_err(y, y_plain) < TOL[dtype]
+
+
+@pytest.mark.parametrize("m", [17, 40, 100])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("layout,bits", LOOP_LAYOUTS)
+def test_k1_k2_mid_rows_and_one_split(dev, layout, bits, dtype, m):
+    """The plan's route at M (the mid route from MID_MIN_M rows): rows 0
+    and M - 1 have the one-row call's bits and a repeat call the same
+    bits; with one split (K one chunk) the blocks write y themselves, with
+    the loop's bits."""
+    _, x, planes, s, t = loop_case(dev, layout, bits, m, 384, 4096, dtype, seed=70 + bits,
+                                   chunk=256)
+    assert kernel_config.mma_route(m, bits, 256, layout) == "mid"
+    call = route_fn(layout, bits, planes, s, t)
+    y = call(x)
+    assert same_bits(call(x), y)
+    for i in (0, m - 1):
+        assert same_bits(call(x[i:i + 1]), y[i:i + 1])
+    _, x1, planes1, s1, t1 = loop_case(dev, layout, bits, m, 384, 256, dtype, seed=71 + bits,
+                                       chunk=256)
+    assert lut_gemm.mid_plan(m, 384, 256, 256).splits == 1
+    y1 = route_fn(layout, bits, planes1, s1, t1, route="mid")(x1)
+    assert same_bits(y1, route_fn(layout, bits, planes1, s1, t1, route="loop")(x1))
+
+
+@pytest.mark.parametrize("m", [16, 40, 100])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("layout,bits", LOOP_LAYOUTS)
+def test_k1_k2_mid_identity_bit_exact(dev, layout, bits, dtype, m):
+    """Identity rows through the mid route give the oracle's bits (K1 with
+    a mixed-sign table)."""
+    codes, _, planes, s, t = loop_case(dev, layout, bits, 1, 256, 512, dtype, seed=72, chunk=256,
+                                       mixed_signs=True)
+    eye = torch.eye(m, 512, dtype=dtype, device=dev)
+    got = route_fn(layout, bits, planes, s, t, route="mid")(eye)
+    assert same_bits(got, lut_gemm.dequantize_codes(codes, s, t, dtype)[:m])
+
+
+@pytest.mark.parametrize("n", [196, 198])
+@pytest.mark.parametrize("layout,bits", LOOP_LAYOUTS)
+def test_k1_k2_mid_stages_by_cp_async_where_tma_does_not_take_n(dev, layout, bits, n):
+    """N not a multiple of 8 (196: 16-byte plane copies; 198: 4-byte ones)
+    stages the plane words and scales by cp.async, with the loop's bits."""
+    _, x, planes, s, t = loop_case(dev, layout, bits, 40, n, 1024, torch.bfloat16, seed=73,
+                                   chunk=256)
+    y = route_fn(layout, bits, planes, s, t, route="mid")(x)
+    assert same_bits(y, route_fn(layout, bits, planes, s, t, route="loop")(x))
+    assert rel_err(y, lut_gemm.lut_qgemm_plain(x, planes, s, t, num_bits=bits, chunk=256,
+                                               layout=layout)) < TOL[torch.bfloat16]
+
+
+def mid_ptrs(layout, planes):
+    """A mid C entry's plane pointers (null for a plane the layout lacks)."""
+    return [p.data_ptr() for p in planes] + [None] * (2 - len(planes) - (layout == "w4sym"))
+
+
+@pytest.mark.parametrize("layout,bits", LOOP_LAYOUTS)
+def test_k1_k2_mid_refuses_f32_and_does_not_fall_back(dev, layout, bits):
+    """The mid C entry given f32 raises and counts no launch: nothing falls
+    back to the loop or the plain version. Through the wrapper f32 takes
+    the SIMT kernel at every M."""
+    _, x, planes, s, t = loop_case(dev, layout, bits, 40, 256, 512, torch.float32, seed=74,
+                                   chunk=256)
+    launches, mid = dict(lut_gemm.LAUNCHES), dict(lut_gemm.MID_LAUNCHES)
+    extra = () if layout == "w4sym" else (bits,)
+    with pytest.raises(RuntimeError, match="mid-M kernel launch failed"):
+        lut_gemm._launch_mid(layout, x, mid_ptrs(layout, planes), s, t, group_size=G, chunk=256,
+                             extra=extra)
+    assert lut_gemm.LAUNCHES == launches and lut_gemm.MID_LAUNCHES == mid
+    y = route_fn(layout, bits, planes, s, t, route="mid")(x)
+    assert lut_gemm.MID_LAUNCHES == mid
+    assert rel_err(y, lut_gemm.lut_qgemm_plain(x, planes, s, t, num_bits=bits, chunk=256,
+                                               layout=layout)) < TOL[torch.float32]
+
+
+@pytest.mark.parametrize("layout,bits", LOOP_LAYOUTS)
+def test_k1_k2_mid_refused_launch_raises(dev, layout, bits, monkeypatch):
+    """A launch the mid route does not take raises and counts nothing: a
+    row tile it is not built for, and several splits without a
+    workspace."""
+    _, x, planes, s, t = loop_case(dev, layout, bits, 40, 256, 2048, torch.bfloat16, seed=75,
+                                   chunk=256)
+    extra = () if layout == "w4sym" else (bits,)
+    launches, mid = dict(lut_gemm.LAUNCHES), dict(lut_gemm.MID_LAUNCHES)
+    plan = kernel_config.mid_plan(40, 256, 2048, 256)
+    assert plan.splits > 1
+    monkeypatch.setattr(lut_gemm, "mid_plan", lambda *a: kernel_config.MidPlan(
+        rows=24, splits=plan.splits, grid=plan.grid))
+    with pytest.raises(RuntimeError, match="mid-M kernel launch failed"):
+        lut_gemm._launch_mid(layout, x, mid_ptrs(layout, planes), s, t, group_size=G, chunk=256,
+                             extra=extra)
+    fn, _ = lut_gemm._entry(*lut_gemm._MID[layout])
+    y = torch.empty((40, 256), dtype=torch.bfloat16, device=dev)
+    args = (x.data_ptr(), *mid_ptrs(layout, planes), s.data_ptr(), t.data_ptr(), y.data_ptr(),
+            None, 40, 256, 2048, G, 256, *extra, lut_gemm._DTYPE_TAG[torch.bfloat16],
+            plan.rows, plan.splits, 1, torch.cuda.current_stream(dev).cuda_stream)
+    assert fn(*args) != 0
+    assert lut_gemm.LAUNCHES == launches and lut_gemm.MID_LAUNCHES == mid

@@ -772,14 +772,17 @@ def test_wide_product_through_the_operand_map_matches_jax(layout, bits, splits):
                                          ("w3wide", 3), ("pair", 2), ("pair", 3), ("pair", 4)])
 def test_wide_route_depends_on_m_alone(layout, bits):
     """Every layout (K1-K4) takes the wide-M kernel from WIDE_MIN_M rows at
-    a chunk it takes (K3 at 256, 512 and 768), the loop below. For a layer
-    the route is a function of M alone."""
+    a chunk it takes (K3 at 256, 512 and 768); below, K1 and K2 the mid
+    route from MID_MIN_M rows, the rest the loop. For a layer the route is
+    a function of M alone."""
     assert layout in kernel_config.WIDE_LAYOUTS
     for chunk in (256, 512):
         assert kernel_config.wide_takes_chunk(bits, chunk, G, layout)
         for m in (1, 8, 40, 64, kernel_config.WIDE_MIN_M - 1, kernel_config.WIDE_MIN_M, 512,
                   2047, 4094):
-            want = "wide" if m >= kernel_config.WIDE_MIN_M else "loop"
+            # below WIDE_MIN_M: K1 and K2 from MID_MIN_M rows on the mid route
+            mid = layout in kernel_config.MID_LAYOUTS and m >= kernel_config.MID_MIN_M
+            want = "wide" if m >= kernel_config.WIDE_MIN_M else "mid" if mid else "loop"
             assert kernel_config.mma_route(m, bits, chunk, layout) == want
     # a layer whose ring would not fit shared memory (a long chunk in groups
     # of 2: hundreds of scale rows a stage) stays on the loop
@@ -906,8 +909,8 @@ def _fake_launch(monkeypatch):
 def test_k1_k2_wrappers_take_the_route_of_m(monkeypatch, layout, bits, dtype, m):
     """bf16 and f16 from WIDE_MIN_M rows launch the wide-M C entry with the
     plan's split and no workspace, counted in LAUNCHES and WIDE_LAUNCHES;
-    below it the loop; f32 the SIMT kernel at every M, wherever the
-    crossover lies."""
+    below it the mid route from MID_MIN_M rows and the loop under that; f32
+    the SIMT kernel at every M, wherever the crossover lies."""
     n, k, chunk = 256, 512, 256
     rng = np.random.default_rng(110 + bits)
     codes = rng.integers(0, 2**bits, (k, n), dtype=np.int32)
@@ -947,8 +950,202 @@ def test_k1_k2_wrappers_take_the_route_of_m(monkeypatch, layout, bits, dtype, m)
             want = (m, n, k, G, chunk, *extra, lut_gemm._DTYPE_TAG[dtype], plan.splits, 1)
             assert args[-len(want) - 1:-1] == want
             assert allocated == []
+        elif route == "mid":  # below WIDE_MIN_M, from MID_MIN_M rows
+            assert args[0] == f"flute_lut_qgemm_{layout}_mid"
+            plan = kernel_config.mid_plan(m, n, k, chunk)
+            assert args[-4:-1] == (plan.rows, plan.splits, 1)
+            assert allocated == ([] if plan.splits == 1 else [(plan.splits, m, n)])
         else:
             assert args[0] != f"flute_lut_qgemm_{layout}_wide"
             assert args[-4] == (0 if route == "simt" else kernel_config.mma_plan(m, n, k,
                                                                                   chunk).m_tiles)
 
+
+# ---------------------------------------------------------------------------
+# The wide-M kernel's mid route (K1 and K2 at 16-127 rows)
+# ---------------------------------------------------------------------------
+
+MID_CASES = [("w4sym", 4), ("plane", 2), ("plane", 3), ("plane", 4)]
+ALL_LAYOUTS = MID_CASES + [("w3wide", 3), ("pair", 2), ("pair", 3), ("pair", 4)]
+
+
+@pytest.mark.parametrize("m", [16, 17, 40, 48, 64, 65, 100, 127])
+@pytest.mark.parametrize("name,n,k", LLAMA_8B)
+def test_mid_plan_keeps_the_split(name, n, k, m):
+    """The mid route's plan: the decode loop's split at every M (so every
+    route sums a row in one order), the fewest row tiles of at most 64
+    rows (40 rows: one of 48), grid (M / R, N / 128, splits), at least two
+    blocks an SM, the loop's workspace [splits, M, N]; its ring at every
+    row tile and bit width fits two blocks an SM beside the pair table,
+    and 227 KB a block."""
+    chunk = 256
+    plan = kernel_config.mid_plan(m, n, k, chunk)
+    for other in (1, 8, 40, 512, m):
+        assert plan.splits == kernel_config.mma_plan(other, n, k, chunk).splits
+    tiles = -(-m // 64)
+    assert plan.rows in kernel_config.MID_ROWS and tiles * plan.rows >= m
+    assert all(tiles * r < m for r in kernel_config.MID_ROWS if r < plan.rows)
+    assert kernel_config.mid_plan(40, n, k, chunk).rows == 48
+    assert plan.grid == (tiles, -(-n // 128), plan.splits)
+    assert plan.blocks >= 2 * 132
+    assert plan.workspace_shape(m, n) == ((plan.splits, m, n) if plan.splits > 1 else None)
+    for bits in (2, 3, 4):
+        table = (2**bits) ** 2 * 8 * 4
+        for rows in kernel_config.MID_ROWS:
+            q, stage, stages = kernel_config.wide_ring(bits, chunk, G, "plane", rows,
+                                                       kernel_config.MID_BLOCKS)
+            assert stages >= 2 and (kernel_config.mma_word_rows(bits, chunk) // 4) % q == 0
+            smem = stages * stage + table + 64
+            assert smem <= kernel_config.MAX_SMEM_BYTES
+            assert kernel_config.MID_BLOCKS * (smem + 1024) <= kernel_config.SM_SMEM_BYTES
+            x_bytes = (16 // (4 if bits == 4 else 2)) * q * rows * 16
+            assert stage >= x_bytes
+
+
+@pytest.mark.parametrize("layout,bits", ALL_LAYOUTS)
+def test_mid_route_is_a_function_of_m(layout, bits):
+    """Three routes by M alone, at chunks 256 and 512: the loop below
+    MID_MIN_M, the mid route from it to WIDE_MIN_M for K1 and K2 (a chunk
+    and group size ``mid_takes_chunk`` takes), the wide-M kernel from
+    WIDE_MIN_M; K3 and K4 stay on the loop below WIDE_MIN_M. A layer whose
+    ring would not fit two blocks an SM stays on the loop."""
+    mid = (layout, bits) in MID_CASES
+    # the verify's 40 rows take the mid route
+    assert 1 <= kernel_config.MID_MIN_M <= 40 < kernel_config.WIDE_MIN_M
+    for chunk in (256, 512):
+        assert kernel_config.mid_takes_chunk(bits, chunk, G, layout) == mid
+        for m in (1, 8, 15, 16, 17, 40, 48, 64, 96, 100, 127, 128, 512):
+            if m >= kernel_config.WIDE_MIN_M:
+                want = "wide"
+            elif mid and m >= kernel_config.MID_MIN_M:
+                want = "mid"
+            else:
+                want = "loop"
+            assert kernel_config.mma_route(m, bits, chunk, layout) == want, (m, chunk)
+    if mid:
+        assert not kernel_config.mid_takes_chunk(bits, 768, 2, layout)
+        assert kernel_config.mma_route(40, bits, 768, layout, 2) == "loop"
+
+
+def mid_product(x, planes, ptab, scales, deq, bits, chunk, dtype, layout, n, k):
+    """``x @ W`` summed as the mid route sums it: row tiles of
+    ``mid_rows(M)`` rows (ragged M zero-padded), each split of ``mma_plan``
+    an f32 accumulator over its chunks' k16 steps in ``wide_k_order``'s
+    order (each step's A tile decoded from the packed words and the pair
+    table as the kernel decodes it, held to the oracle bit for bit),
+    written to a workspace [splits, M, N] that is added in split order from
+    0. numpy f32."""
+    m = x.shape[0]
+    plan = kernel_config.mid_plan(m, n, k, chunk)
+    order = lut_gemm.wide_k_order(bits, chunk, layout)
+    steps = []  # (K rows, A tile) of each k16 step, chunk by chunk
+    for c in range(k // chunk):
+        for q in range(order.shape[0]):
+            for s in range(order.shape[1]):
+                rows = c * chunk + order[q, s]
+                a = decode_step_b(planes, ptab, scales, bits, chunk, c, q, s, dtype, layout)
+                assert torch.equal(a.view(torch.int16), deq[rows].view(torch.int16))
+                steps.append((rows.numpy(), a.float().numpy()))
+    per_split = len(steps) // plan.splits
+    xs = np.zeros((plan.grid[0] * plan.rows, k), np.float32)
+    xs[:m] = x.float().numpy()
+    work = np.zeros((plan.splits, xs.shape[0], n), np.float32)
+    for tile in range(plan.grid[0]):
+        xt = xs[tile * plan.rows:(tile + 1) * plan.rows]
+        for sp in range(plan.splits):
+            acc = np.zeros((plan.rows, n), np.float32)
+            for rows, a in steps[sp * per_split:(sp + 1) * per_split]:
+                acc += xt[:, rows] @ a
+            work[sp, tile * plan.rows:(tile + 1) * plan.rows] = acc
+    y = np.zeros((xs.shape[0], n), np.float32)
+    for sp in range(plan.splits):
+        y += work[sp]
+    return y[:m], plan
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("m", [16, 40, 64])
+@pytest.mark.parametrize("layout,bits", MID_CASES)
+def test_mid_product_through_the_operand_map_matches_jax(layout, bits, m, dtype):
+    """The mid route's operand map (k16 steps in the loop's order, R-row
+    tiles, ragged M, one split a block added in split order) in numpy
+    against JAX's group-accumulating decode branch (interpret mode, which
+    the TPU kernel takes for blocks of at most ``group_acc_max_bm`` rows):
+    K1 (w4sym) and K2 at 2, 3 and 4 bits, bf16 and f16, within the
+    reference thresholds."""
+    chunk = 128
+    tol = {torch.bfloat16: BF16_TOL, torch.float16: 2e-3}[dtype]
+    rng = np.random.default_rng(120 + bits + m + (layout == "w4sym"))
+    codes = rng.integers(0, 2**bits, (K, N), dtype=np.int32)
+    if layout == "w4sym":
+        planes_np = packing.pack_w4_sym_np(codes, chunk=chunk)
+        table_np = w4sym_table(rng, mixed_signs=True)
+    else:
+        planes_np = packing.pack_np(codes, bits, chunk=chunk)
+        table_np = rng.standard_normal(2**bits).astype(np.float32)
+    scales_np = rng.uniform(0.5, 1.5, (K // G, N)).astype(np.float32)
+    x_np = rng.standard_normal((m, K)).astype(np.float32)
+    planes = [torch.from_numpy(p) for p in planes_np]
+    table = torch.from_numpy(table_np)
+    scales = torch.from_numpy(scales_np).to(dtype)
+    x = torch.from_numpy(x_np).to(dtype)
+    deq = lut_gemm.dequantize_codes(torch.from_numpy(codes), scales, table, dtype)
+    y, plan = mid_product(x, planes, lut_gemm.pair_table(layout, table, dtype), scales, deq, bits,
+                          chunk, dtype, layout, N, K)
+    assert plan.splits > 1 and plan.rows == kernel_config.mid_rows(m)
+
+    bm = 16 if m <= 16 else 64
+    assert bm <= jlut._group_acc_max_bm()
+    jd = {torch.bfloat16: jnp.bfloat16, torch.float16: jnp.float16}[dtype]
+    want = jlut.lut_qgemm(
+        jnp.asarray(x_np, jd), [jnp.asarray(p) for p in planes_np], jnp.asarray(scales_np, jd),
+        jnp.asarray(table_np), num_bits=bits,
+        config=JKernelConfig(block_m=bm, block_n=128, block_k=256, chunk=chunk), layout=layout,
+        interpret=True)
+    got = torch.from_numpy(y).to(dtype).float().numpy()
+    assert rel_err(got, np.asarray(want, np.float32)) < tol
+
+
+@pytest.mark.parametrize("m", [17, 40, 100])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("layout,bits", MID_CASES)
+def test_k1_k2_wrappers_launch_the_mid_entry(monkeypatch, layout, bits, dtype, m):
+    """K1 and K2 in bf16 and f16 from MID_MIN_M rows below WIDE_MIN_M launch
+    the mid C entry with the plan's row tile and split and the planned
+    workspace (K = 2048: several splits), counted once in LAUNCHES and
+    MID_LAUNCHES; at the plan's crossover and with the crossover moved to
+    one row."""
+    n, k, chunk = 256, 2048, 256
+    rng = np.random.default_rng(130 + bits)
+    codes = rng.integers(0, 2**bits, (k, n), dtype=np.int32)
+    if layout == "w4sym":
+        planes = packing.pack_w4_sym_np(codes, chunk=chunk)
+    else:
+        planes = packing.pack_np(codes, bits, chunk=chunk)
+    planes = [torch.from_numpy(p) for p in planes]
+    table = torch.zeros(16 if layout == "w4sym" else 2**bits)
+    x = torch.zeros((m, k), dtype=dtype)
+    scales = torch.zeros((k // G, n), dtype=dtype)
+    calls, allocated = _fake_launch(monkeypatch)
+    for mid_min_m in (kernel_config.MID_MIN_M, 1):
+        monkeypatch.setattr(kernel_config, "MID_MIN_M", mid_min_m)
+        calls.clear()
+        allocated.clear()
+        before, mid_before = dict(lut_gemm.LAUNCHES), dict(lut_gemm.MID_LAUNCHES)
+        if layout == "w4sym":
+            lut_gemm.lut_qgemm_w4sym_cuda(x, planes[0], scales, table, group_size=G, chunk=chunk)
+        else:
+            lut_gemm.lut_qgemm_plane_cuda(x, planes, scales, table, num_bits=bits, group_size=G,
+                                          chunk=chunk)
+        assert kernel_config.mma_route(m, bits, chunk, layout) == "mid"
+        assert lut_gemm.LAUNCHES[layout] == before[layout] + 1
+        assert lut_gemm.MID_LAUNCHES[f"{layout}_mid"] == mid_before[f"{layout}_mid"] + 1
+        (args,) = calls
+        plan = kernel_config.mid_plan(m, n, k, chunk)
+        assert plan.splits > 1
+        extra = () if layout == "w4sym" else (bits,)
+        want = (m, n, k, G, chunk, *extra, lut_gemm._DTYPE_TAG[dtype], plan.rows, plan.splits, 1)
+        assert args[0] == f"flute_lut_qgemm_{layout}_mid"
+        assert args[-len(want) - 1:-1] == want
+        assert args[-len(want) - 2] is not None  # the workspace
+        assert allocated == [(plan.splits, m, n)]

@@ -315,3 +315,44 @@ def test_weight_side_branch_vs_port(layout, m, dtype):
     )
     assert got.dtype == td and tuple(got.shape) == (m, N)
     assert rel_err(f32(got), f32(want)) < tol
+
+
+GROUP_ACC = dict(block_n=256, block_k=256, chunk=256)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("m", [16, 40, 64])
+@pytest.mark.parametrize("layout", ["w4sym", "plane2", "plane3", "plane4"])
+def test_group_acc_branch_vs_port(layout, m, dtype):
+    """The TPU kernel's group-accumulating decode branch (blocks of at most
+    ``group_acc_max_bm`` rows: the regime the port's mid route serves, the
+    speculative verify's 40 rows among them) against the port's
+    ``lut_qgemm`` on the same numpy inputs: K1 (w4sym) and K2 (plane)."""
+    from flute_tpu.ops.kernel_config import KernelConfig as JKernelConfig
+
+    block_m = 16 if m <= 16 else 64
+    assert block_m <= jlut._group_acc_max_bm()
+    jd, td, tol = DTYPES[dtype]
+    bits = 4 if layout == "w4sym" else int(layout[-1])
+    rng = np.random.default_rng(140 + bits + m)
+    codes = rng.integers(0, 2**bits, size=(K, N), dtype=np.int32)
+    if layout == "w4sym":
+        planes = packing.pack_w4_sym_np(codes)
+        table = sym_table(rng, mixed_signs=True)
+    else:
+        planes = packing.pack_np(codes, bits)
+        table = rng.standard_normal(2**bits).astype(np.float32)
+    scales = rng.uniform(0.5, 1.5, (K // G, N)).astype(np.float32)
+    x = rng.standard_normal((m, K)).astype(np.float32)
+    kind = "w4sym" if layout == "w4sym" else "plane"
+    want = jlut.lut_qgemm(
+        jnp.asarray(x, jd), [jnp.asarray(p) for p in planes], jnp.asarray(scales, jd),
+        jnp.asarray(table), num_bits=bits, config=JKernelConfig(block_m=block_m, **GROUP_ACC),
+        layout=kind, interpret=True,
+    )
+    got = lut_gemm.lut_qgemm(
+        torch.from_numpy(x).to(td), [torch.from_numpy(p) for p in planes],
+        torch.from_numpy(scales).to(td), torch.from_numpy(table), num_bits=bits, layout=kind,
+    )
+    assert got.dtype == td and tuple(got.shape) == (m, N)
+    assert rel_err(f32(got), f32(want)) < tol
