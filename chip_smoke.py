@@ -17,12 +17,14 @@ Phases (any failure exits non-zero):
      PairTileDecoder and L12's W3PairDecoder; for each tensor-core
      instantiation of K1-K4 (the loop at 1, 2 and 4 m16 tiles a warp and
      the wide-M kernel, bf16 and f16; K3 with a chunk's scales once per
-     field and with the per-field cache, at chunk 256 and 512; K1 and K2
-     on the wide-M kernel's mid route at row tiles of 16, 32, 48 and 64)
-     its registers, shared memory and blocks per SM (the mid route's at
-     least the 2 it is sized for), each wide_m_kernel's registers and
-     spill from ptxas (no wgmma serialized), and K4's wide ring the size
-     of K2's;
+     field and with the per-field cache, at chunk 256 and 512; K1-K4 on
+     the wide-M kernel's mid route at row tiles of 16, 32, 48 and 64, K3
+     in both scale modes, K4 at 2, 3 and 4 bits) its registers, shared
+     memory and blocks per SM (the mid route's at least the 2 it is sized
+     for, K3's with the per-field cache 1), each wide_m_kernel's registers
+     and spill from ptxas (no wgmma serialized; none spilled by K3's mid
+     route with a chunk's scales, its served mode), and K4's wide ring the
+     size of K2's;
   2. hold each kernel against its plain PyTorch version on the card:
      the LUT-GEMMs at the Llama-3.1-8B decoder-layer shapes (K1 also at
      Gemma-2-9B's), M in {1, 8, 128, 512}, bf16 and f16 (relative Frobenius
@@ -59,18 +61,20 @@ Phases (any failure exits non-zero):
      L2-warm), beside bench_cycled, and bench_op's K1 launches are counted
      (1 warm-up + 200). The sweep of the tensor-core routes (the decode
      loop, the wide-M kernel and its mid route) at one Llama-3.1-8B layer
-     in bf16: K1 and K2 W4 at M in {8, 16, 32, 40, 48, 64, 96, 128} on the
-     loop and the mid route and from 64 on the wide-M kernel, and at 512
-     and 2047 on the wide-M kernel; K2 W2 at 8, 16, 32, 40 and 64; K4 W4
-     and K3 at 64, 128, 512 and 2047; K4 W3 and W2 at 128, 512 and 2047;
-     at every point its routes timed beside the bf16 matmul and the bound,
-     the same bits on all, identity exact on each, rows 0 and M-1 the
-     one-row call's, a repeat call's bits, the plain version's threshold;
-     MID_MIN_M held to the sweep (no route faster than the plan's by more
-     than 5% below 128 rows), WIDE_MIN_M's agreement reported; then the
-     card tests of K3 and K4 on the wide route and of K1 and K2 on the mid
-     route (tests/test_torch_cuda.py -k "k3_k4_wide or k1_k2_mid", in a
-     child process; the count passed is reported);
+     in bf16: K1 and K2 W4 at M in {8, 16, 32, 40, 48, 64, 96, 128}, K4 W4
+     and K3 at {16, 32, 40, 64, 96, 128}, on the loop and the mid route and
+     from 64 on the wide-M kernel, at 192 and 256 on the mid route and the
+     wide-M kernel, and at 2047 on the wide-M kernel; K2 W2 at 8, 16, 32,
+     40 and 64; K4 W3 and W2 at 40, 64, 128 and 2047; at every point its
+     routes timed beside the bf16 matmul and the bound, the same bits on
+     all, identity exact on each, rows 0 and M-1 the one-row call's, a
+     repeat call's bits, the plain version's threshold; the plan's two
+     bounds (kernel_config.MID_MIN_M, WIDE_MIN_M) held to the sweep for
+     every kernel and bit width (at no point a route faster than the
+     plan's by more than 5%); then the card tests
+     of K3 and K4 on the wide route and of K1-K4 on the mid route
+     (tests/test_torch_cuda.py -k "k3_k4_wide or k1_k2_mid or k3_k4_mid",
+     in a child process; the count passed is reported);
   2b. the Hopper lab (L1-L6 of csrc/kernel_lab.cu): its entry point,
      flute_tpu_torch.lab.kernel_lab.main, runs every variant at the JAX lab's
      reference shape (M16 N28672 K8192, bk 1024, g64, bf16) with the launch
@@ -133,13 +137,18 @@ Phases (any failure exits non-zero):
      the full 32-layer Llama-3.1-8B-width model (random weights from a seed,
      quantized on the card) at w4sym, W3 and general W4, each run through
      exactly its kernel: steps x 32 layers x 4 launches, none of the others;
-     then through PagedEngine: the w4sym model with dense prefill, held to
-     Engine's tokens and first-token logits, and the HIGGS-W4 model with
-     pool prefill, 12 requests (4 sharing a 32-token prefix, 2 sampled) on a
-     pool small enough that admission waits, with exact launch counts: K4
-     forward calls x 32 x 4, K5 decode steps x 32, K6 prefill chunks x 32,
-     K1-K3 none. Every engine runs its decode step as a CUDA graph captured
-     at its first decode step and replayed after it; the wrappers' launch
+     then through PagedEngine: the w4sym and the W3 models with dense
+     prefill, each held to its Engine's tokens and first-token logits, and
+     the HIGGS-W4 model with pool prefill, 12 requests (4 sharing a
+     32-token prefix, 2 sampled) on a pool small enough that admission
+     waits, with exact launch counts: K4 forward calls x 32 x 4, K5 decode
+     steps x 32, K6 prefill chunks x 32, K1-K3 none; in every paged run the
+     LUT-GEMM launches on the mid route and on the wide-M kernel are
+     exactly those the plan gives each forward's rows (the admissions of
+     17-64 rows on the mid route: K1, K3 and K4; a decode step's 8 rows
+     and the short suffixes after a prefix hit on the loop). Every engine
+     runs its decode step as a CUDA graph captured at its first decode
+     step and replayed after it; the wrappers' launch
      counts add each replay's launches (serving/graph.py), so the counts
      above count launches that ran. One replayed step of each engine is
      held bit for bit against the eager step on the same state (launches
@@ -155,10 +164,11 @@ Phases (any failure exits non-zero):
      idle share (1 - device ms per replay / median step), and fail if a
      decode step converts the dtype of a tensor of 2^20 elements or more
      (the lm_head and the KV cache are multiplied in 16 bits with f32
-     results, never copied to f32). Each Engine's 512-row prefill runs its
+     results, never copied to f32); the HIGGS PagedEngine's step that
+     admits 8 requests reports K4's ms (the mid route's among them) and
+     the prefill ms per admission. Each Engine's 512-row prefill runs its
      LUT-GEMM on the wide-M kernel (exact wide launches: 128 of K1's, K2's
-     and K3's; the HIGGS PagedEngine's per-request admissions, at most 64
-     rows, none); the HIGGS-W4 model is also served once through Engine
+     and K3's); the HIGGS-W4 model is also served once through Engine
      (128 of K4's launches on the wide-M kernel, the rest on the loop; its
      greedy tokens held to the paged engine's before near ties, its
      first-token logits within 0.25); the prefills of w4sym (K1), W3 (K3)
@@ -410,6 +420,11 @@ def log(*a):
     print(*a, flush=True)
 
 
+def header(title, t_start):
+    """A phase's heading, with the seconds since the run began."""
+    log(f"== {title} ({time.perf_counter() - t_start:.0f} s in)")
+
+
 def rel_err(y, ref) -> float:
     y, ref = y.double(), ref.double()
     return float(torch.linalg.norm(y - ref) / torch.linalg.norm(ref))
@@ -444,7 +459,7 @@ def make_weight(rng, gen, layout, bits, n, k, dtype, dev, chunk=256, mixed_signs
 def kernel_path(kid, dtype, bits, chunk=256, m=1):
     """The kernel a LUT-GEMM case runs: "mma" (the tensor-core loop),
     "wide" (the wide-M kernel on warpgroup MMA, K1-K4 from
-    kernel_config.WIDE_MIN_M rows), "mid" (its mid route, K1 and K2 from
+    kernel_config.WIDE_MIN_M rows), "mid" (its mid route, from
     kernel_config.MID_MIN_M rows below that) or "simt" (the skeleton of
     lut_gemm_common.cuh), as the wrapper picks it."""
     from flute_tpu_torch.ops import kernel_config, lut_gemm
@@ -765,22 +780,30 @@ def check_qgemm_hadamard(dev, rng, gen, results):
 # Gemma-2-9B's (D=256, 16/8 heads) with the options its layers pass: the
 # softcap 50 everywhere and the window of 4096 on even layers
 # phase 2's sweep of the LUT-GEMMs' routes on the tensor cores at one
-# Llama-3.1-8B layer in bf16: (kernel id, bits, M). K1 and K2 W4 from 8 to
-# 128 rows on the decode loop, the wide-M kernel's mid route and (from 64)
-# the wide-M kernel (MID_MIN_M's crossover, the mid route against both),
-# and at 512 and 2047 on the wide-M kernel (the prefill regime); K2 W2
-# (phase 6's draft) at the verify's 40 rows and the crossover; K3 and K4
-# around WIDE_MIN_M and at prefill M. Points another point decides are not
-# run: the wide-M kernel under 64 rows (3-4x slower than the loop there at
-# every layout, PERF.md), the loop and the mid route above 128.
-MID_SWEEP_M = (8, 16, 32, 40, 48, 64, 96, 128)
+# Llama-3.1-8B layer in bf16: (kernel id, bits, M). K1, K2, K3 and K4 at
+# their widest tables (W4; K3 W3) from 8 or 16 to 128 rows on the decode
+# loop, the wide-M kernel's mid route and (from 64) the wide-M kernel (the
+# mid bound's crossover, the mid route against both), at 192 and 256 on
+# the mid route and the wide-M kernel (the wide bound's crossover), and at
+# 2047 on the wide-M kernel (the prefill regime); K2 W2 (phase 6's draft)
+# at the verify's 40 rows and the mid crossover; K4 W3 and W2 at 40, 64,
+# 128 and 2047. Points another point decides are not run: the wide-M
+# kernel under 64 rows (3-4x slower than the loop there at every layout,
+# PERF.md), the loop above 128, the mid route above 256, 512 rows (between
+# 256 and 2047 the wide-M kernel won every earlier sweep).
+MID_SWEEP_M = (16, 32, 40, 64, 96, 128)
+ABOVE_M = (192, 256)
 TOP_M = 2047
 VERIFY_M = 8 * (SPEC_K + 1)  # the speculative verify's rows (phase 6)
-SWEEP = (("K1", 4, MID_SWEEP_M + (512, TOP_M)), ("K2", 4, MID_SWEEP_M + (512, TOP_M)),
-         ("K2", 2, (8, 16, 32, VERIFY_M, 64)), ("K4", 4, (64, 128, 512, TOP_M)),
-         ("K3", 3, (64, 128, 512, TOP_M)), ("K4", 3, (128, 512, TOP_M)),
-         ("K4", 2, (128, 512, TOP_M)))
+SWEEP = (("K1", 4, (8, 16, 32, 40, 48, 64, 96, 128) + ABOVE_M + (TOP_M,)),
+         ("K2", 4, (8, 16, 32, 40, 48, 64, 96, 128) + ABOVE_M + (TOP_M,)),
+         ("K2", 2, (8, 16, 32, VERIFY_M, 64)),
+         ("K4", 4, MID_SWEEP_M + ABOVE_M + (TOP_M,)), ("K3", 3, MID_SWEEP_M + ABOVE_M + (TOP_M,)),
+         ("K4", 3, (VERIFY_M, 64, 128, TOP_M)), ("K4", 2, (VERIFY_M, 64, 128, TOP_M)))
 ROUTES = ("loop", "mid", "wide")
+# the routes' reach in the sweep: the loop up to 128 rows, the mid route up
+# to 256, the wide-M kernel from 64
+SWEEP_LOOP_MAX_M, SWEEP_MID_MAX_M, SWEEP_WIDE_MIN_M = 128, 256, 64
 # the plan's crossovers that force each route at any M: (MID_MIN_M,
 # WIDE_MIN_M)
 ROUTE_BOUNDS = {"loop": (1 << 30, 1 << 30), "mid": (1, 1 << 30), "wide": (1 << 30, 1)}
@@ -802,19 +825,32 @@ WIDE_PAYLOAD = {"K1": "w4sym", "K2": "plane, gather8/select",
 ROUTE_LAYOUT = {**LAYOUT, "K4": "pair"}
 
 
+@contextlib.contextmanager
+def route_bounds(mid=None, wide=None):
+    """The plan's crossovers (kernel_config.MID_MIN_M, WIDE_MIN_M: the
+    least M of the mid route and of the wide-M kernel) set to ``mid`` and
+    ``wide`` where given, for the block; the plan's after it."""
+    from flute_tpu_torch.ops import kernel_config
+
+    saved = kernel_config.MID_MIN_M, kernel_config.WIDE_MIN_M
+    kernel_config.MID_MIN_M = saved[0] if mid is None else mid
+    kernel_config.WIDE_MIN_M = saved[1] if wide is None else wide
+    try:
+        yield
+    finally:
+        kernel_config.MID_MIN_M, kernel_config.WIDE_MIN_M = saved
+
+
 def route_call(kid, bits, planes, scales, table, route, group_size=GROUP, chunk=256):
     """The wrapper of K1, K2, K3 or K4 (``table`` its pair table) on
-    ``route``, for a 2-D x: "loop", "mid" (K1, K2) or "wide" at any M, the
-    plan's crossovers (kernel_config.MID_MIN_M, WIDE_MIN_M) moved to one
-    row or past M for the call."""
-    from flute_tpu_torch.ops import kernel_config, lut_gemm
+    ``route``, for a 2-D x: "loop", "mid" or "wide" at any M, the plan's
+    bounds moved to one row or past M for the call."""
+    from flute_tpu_torch.ops import lut_gemm
 
     kw = dict(group_size=group_size, chunk=chunk)
 
     def call(x, p=planes, s=scales):
-        saved = kernel_config.MID_MIN_M, kernel_config.WIDE_MIN_M
-        kernel_config.MID_MIN_M, kernel_config.WIDE_MIN_M = ROUTE_BOUNDS[route]
-        try:
+        with route_bounds(*ROUTE_BOUNDS[route]):
             if kid == "K1":
                 return lut_gemm.lut_qgemm_w4sym_cuda(x, p[0], s, table, **kw)
             if kid == "K3":
@@ -822,8 +858,6 @@ def route_call(kid, bits, planes, scales, table, route, group_size=GROUP, chunk=
             if kid == "K4":
                 return lut_gemm.lut_qgemm_pair_cuda(x, p, s, table, num_bits=bits, **kw)
             return lut_gemm.lut_qgemm_plane_cuda(x, p, s, table, num_bits=bits, **kw)
-        finally:
-            kernel_config.MID_MIN_M, kernel_config.WIDE_MIN_M = saved
 
     return call
 
@@ -836,9 +870,10 @@ def sweep_routes(kid, m) -> list:
     """The routes phase 2's sweep runs for a kernel at M (SWEEP's note)."""
     from flute_tpu_torch.ops import kernel_config
 
-    mid = ROUTE_LAYOUT[kid] in kernel_config.MID_LAYOUTS
-    return [r for r in ROUTES if (r == "wide" and m >= 64)
-            or (r != "wide" and m <= kernel_config.WIDE_ROWS and (r == "loop" or mid))]
+    reach = {"loop": m <= SWEEP_LOOP_MAX_M,
+             "mid": m <= SWEEP_MID_MAX_M and ROUTE_LAYOUT[kid] in kernel_config.MID_LAYOUTS,
+             "wide": m >= SWEEP_WIDE_MIN_M}
+    return [r for r in ROUTES if reach[r]]
 
 
 def wide_sweep(dev, results):
@@ -852,9 +887,9 @@ def wide_sweep(dev, results):
     plain version, a repeat call gives the same bits, identity rows are
     bit-exact on every route, and rows 0 and M-1 have the one-row call's
     bits. The layer's sums per M show which route is faster: the plan's
-    MID_MIN_M is held to them (no route the plan does not take below
-    WIDE_MIN_M faster by more than CROSSOVER_SLACK), and WIDE_MIN_M's
-    agreement is reported, for each kernel."""
+    crossovers (kernel_config.MID_MIN_M, WIDE_MIN_M) are held to them (at
+    no point a route the plan does not take faster than the one it takes
+    by more than CROSSOVER_SLACK), for each kernel and bit width."""
     from flute_tpu_torch.ops import kernel_config, lut_gemm
     from flute_tpu_torch.utils.benchmark import bench_cycled, cold_copies
 
@@ -955,31 +990,27 @@ def wide_sweep(dev, results):
                 f"{r} {times[r]:9.1f} us" if r in times else f"{r} {'-':>9s}   "
                 for r in ROUTES) + f"  matmul {row['library_us']:8.1f} us  bound "
                 f"{row['bound_us']:8.1f} us ({row['bound_by']})")
-    # MID_MIN_M: below WIDE_MIN_M no route beats the routed one by more than
-    # the slack; WIDE_MIN_M: the routed route is the fastest one timed
-    mid_rows = [r for r in layers if r["m"] < kernel_config.WIDE_MIN_M
-                and ROUTE_LAYOUT[r["kernel"]] in kernel_config.MID_LAYOUTS]
-    late = [r for r in mid_rows if r["routed_over_fastest"] > 1 + CROSSOVER_SLACK]
-    if late:
-        raise AssertionError("the plan's MID_MIN_M disagrees with the sweep: " + ", ".join(
-            f"{r['kernel']} {r['bits']}-bit M={r['m']}: {r['route']} "
-            f"{r['routed_over_fastest']:.3f}x {r['faster']}" for r in late))
-    agrees = {f"{kid} {bits}-bit": all((r["route"] == "wide") == (r["faster"] == "wide")
-                                       for r in layers if r["kernel"] == kid
-                                       and r["bits"] == bits)
+    # both crossovers: at no point does a route the plan does not take beat
+    # the routed one by more than the slack (below WIDE_MIN_M that holds
+    # MID_MIN_M, from it WIDE_MIN_M)
+    bounds = kernel_config.MID_MIN_M, kernel_config.WIDE_MIN_M
+    late = [r for r in layers if r["routed_over_fastest"] > 1 + CROSSOVER_SLACK]
+    agrees = {f"{kid} {bits}-bit": not any(r["kernel"] == kid and r["bits"] == bits
+                                           for r in late)
               for kid, bits, _ in SWEEP}
-    agree = all(agrees.values())
+    if late:
+        raise AssertionError("the plan's crossovers disagree with the sweep: " + ", ".join(
+            f"{r['kernel']} {r['bits']}-bit M={r['m']}: {r['route']} "
+            f"{r['routed_over_fastest']:.3f}x {r['faster']} "
+            f"({'WIDE' if r['m'] >= bounds[1] else 'MID'}_MIN_M)" for r in late))
     log(f"  sweep: every point's routes bit-identical, identity exact, rows 0 and M-1 the "
-        f"one-row call's bits; the plan's MID_MIN_M ({kernel_config.MID_MIN_M}) agrees with "
-        f"the sweep below WIDE_MIN_M (within {CROSSOVER_SLACK:.0%}); WIDE_MIN_M "
-        f"({kernel_config.WIDE_MIN_M}) {'agrees with' if agree else 'DIFFERS from'} the "
-        f"fastest route at every M of the sweep "
+        f"one-row call's bits; the plan's MID_MIN_M ({bounds[0]}) and WIDE_MIN_M "
+        f"({bounds[1]}) agree with the sweep within {CROSSOVER_SLACK:.0%} at every point "
         f"({', '.join(f'{key}: {v}' for key, v in agrees.items())}; "
         f"{time.perf_counter() - t_sweep:.0f} s)")
-    results["wide_sweep"] = dict(points=points, layers=layers, crossover_agrees=agree,
-                                 crossover_agrees_by_kernel=agrees,
-                                 mid_min_m=kernel_config.MID_MIN_M,
-                                 wide_min_m=kernel_config.WIDE_MIN_M)
+    results["wide_sweep"] = dict(points=points, layers=layers, crossover_agrees=all(
+        agrees.values()), crossover_agrees_by_kernel=agrees, mid_min_m=bounds[0],
+        wide_min_m=bounds[1])
     return results["wide_sweep"]
 
 
@@ -1024,18 +1055,18 @@ def time_k3_scale_modes(dev, results, m=2047, chunk=512):
     return out
 
 
-# tests/test_torch_cuda.py's cases of K3 and K4 on the wide route and of K1
-# and K2 on the mid route
-WIDE_TESTS = "k3_k4_wide or k1_k2_mid"
+# tests/test_torch_cuda.py's cases of K3 and K4 on the wide route and of
+# K1-K4 on the mid route
+WIDE_TESTS = "k3_k4_wide or k1_k2_mid or k3_k4_mid"
 
 
 def wide_card_tests() -> dict:
-    """The card tests of K3 and K4 on the wide-M kernel and of K1 and K2 on
-    its mid route (tests/test_torch_cuda.py -k WIDE_TESTS: the loop's bits
-    at full and ragged tiles, identity, cp.async staging, K3 at chunk 512,
-    rows 0 and M-1, one split, f32 refused or on SIMT, refused launches
-    raise), run in a child process that loads the libraries already built;
-    every one must pass."""
+    """The card tests of K3 and K4 on the wide-M kernel and of K1-K4 on its
+    mid route (tests/test_torch_cuda.py -k WIDE_TESTS: the loop's bits at
+    full and ragged tiles, identity, cp.async staging, K3 at chunk 512 and
+    in both scale modes, rows 0 and M-1, one split, f32 refused or on SIMT,
+    refused launches raise), run in a child process that loads the
+    libraries already built; every one must pass."""
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "pytest", os.path.join("tests", "test_torch_cuda.py"), "-m",
@@ -1096,28 +1127,37 @@ def sweep_rows(sweep, kid, bits) -> list:
 
 
 def mid_line(kid, sweep, launches):
-    """The {"kernels": [...]} entry of the mid route of K1 or K2: one
-    Llama-3.1-8B layer at the verify's M = 40 in bf16, 4 bits, beside the
-    loop's time there, the split-K workspace it writes and reads, and the
-    sweep's per-M layer sums (K2's 2-bit rows under ``sweep_other_bits``);
-    ``launches`` its launches in phase 6."""
-    mine = [p for p in sweep["points"] if p["kernel"] == kid and p["bits"] == 4]
+    """The {"kernels": [...]} entry of the mid route of K1, K2, K3 or K4: one
+    Llama-3.1-8B layer at the verify's M = 40 in bf16 (4 bits; K3 3),
+    beside the loop's time there, the split-K workspace it writes and reads,
+    the same at M = 64, and the sweep's per-M layer sums (K2's 2-bit rows
+    and K4's 3- and 2-bit rows under ``sweep_other_bits``); ``launches`` its
+    launches in phase 6 (K1, K2) or phase 4 (K3, K4: the paged engines'
+    admissions)."""
+    bits = 3 if kid == "K3" else 4
+    mine = [p for p in sweep["points"] if p["kernel"] == kid and p["bits"] == bits]
+
+    def layer(m, key):
+        return sum(p[key] for p in mine if p["m"] == m) / 1e3
+
     at = [p for p in mine if p["m"] == VERIFY_M]
     line = dict(
         name=f"{KERNELS[kid][0]} (mid-M route)", route="cuda", path="mid",
         source=f"flute_tpu_torch/csrc/{WIDE_SOURCE}",
         replaces=MID_REPLACES.format(WIDE_PAYLOAD[kid]), launches=launches,
         max_abs_err=max(p["max_abs_err"] for p in mine if p["route"] == "mid"),
-        m=VERIFY_M, ms=sum(p["mid_us"] for p in at) / 1e3,
+        m=VERIFY_M, ms=layer(VERIFY_M, "mid_us"),
         plain_ms=sum(p["plain_us"] for p in at) / 1e3,
-        bound_ms=sum(p["bound_us"] for p in at) / 1e3,
+        bound_ms=layer(VERIFY_M, "bound_us"),
         bound_by="bytes" if all(p["bound_by"] == "bytes" for p in at) else "operations",
-        library_ms=sum(p["library_us"] for p in at) / 1e3,
-        loop_ms=sum(p["loop_us"] for p in at) / 1e3,
+        library_ms=layer(VERIFY_M, "library_us"),
+        loop_ms=layer(VERIFY_M, "loop_us"),
         workspace_mb=sum(p["mid_workspace_bytes"] for p in at) / 1e6,
-        sweep=sweep_rows(sweep, kid, 4), checked=True)
-    if kid == "K2":
-        line["sweep_other_bits"] = {2: sweep_rows(sweep, kid, 2)}
+        at_64={key: layer(64, f"{key}_us") for key in ("mid", "loop", "library", "bound")},
+        sweep=sweep_rows(sweep, kid, bits), checked=True)
+    other = {"K2": (2,), "K4": (3, 2)}.get(kid, ())
+    if other:
+        line["sweep_other_bits"] = {b: sweep_rows(sweep, kid, b) for b in other}
     return line
 
 
@@ -2153,13 +2193,14 @@ def check_route(name, expected, route="wide"):
     return got
 
 
-def mid_of(layers, runs) -> dict:
-    """The mid route's launches expected of ``runs`` [(layout, bits, rows
-    of each forward)], each forward four LUT-GEMM launches a layer."""
+def mid_of(layers, runs, route="mid") -> dict:
+    """The launches on ``route`` (the mid route, or "wide") expected of
+    ``runs`` [(layout, bits, rows of each forward)], each forward four
+    LUT-GEMM launches a layer."""
     out = {}
     for layout, bits, rows in runs:
         out[layout] = out.get(layout, 0) + sum(
-            route_expected("mid", layout, bits, r, layers * 4) for r in rows)
+            route_expected(route, layout, bits, r, layers * 4) for r in rows)
     return out
 
 
@@ -2305,11 +2346,14 @@ def serve_paged(dev, name, params, config, requests, engine_kw, gemm, keep_logit
     (its decode step graphed on the card); require the exact launches of
     its path: the LUT-GEMM ``gemm`` 4 x layers per forward call, K5 one per
     layer and decode step, K6 one per layer and pool-prefill chunk, no other
-    LUT-GEMM; hold the third decode step (a replay) bit for bit against the
-    eager step on the same state (that step's time is left out of the
-    decode times). Returns the run's numbers, the engine, the tokens by
-    request, the first-token logits rows by request and, with
-    ``keep_logits``, each decode step's logits [slots, V] on the host."""
+    LUT-GEMM, and of the LUT-GEMM's launches exactly those on the mid route
+    and on the wide-M kernel that the plan gives each forward's rows (an
+    admission's bucketed prompt or pool chunk; a decode step's slots); hold
+    the third decode step (a replay) bit for bit against the eager step on
+    the same state (that step's time is left out of the decode times).
+    Returns the run's numbers, the engine, the tokens by request, the
+    first-token logits rows by request and, with ``keep_logits``, each
+    decode step's logits [slots, V] on the host."""
     from flute_tpu_torch.serving import PagedEngine
 
     held = torch.cuda.memory_allocated(dev)
@@ -2318,9 +2362,11 @@ def serve_paged(dev, name, params, config, requests, engine_kw, gemm, keep_logit
     calls = dict(decode=0, pool_chunks=0, dense_prefill=0, waits=0)
     decode_s, prefill_s, finite, peak_blocks, decode_rows = [], [], [], [0], []
     first_rows, graph = {}, {}
+    forward_rows = []  # the rows of each forward's LUT-GEMM calls
 
     def on_step_logits(r, t0, *a):
         calls["decode"] += 1
+        forward_rows.append(eng._step_tokens.shape[0])
         finite.append(bool(torch.isfinite(r).all()))
         if keep_logits:
             decode_rows.append(r.cpu())
@@ -2332,12 +2378,14 @@ def serve_paged(dev, name, params, config, requests, engine_kw, gemm, keep_logit
         if calls["decode"] != 3:
             decode_s.append(time.perf_counter() - t0)
 
-    def on_pool(r, t0, *a):
+    def on_pool(r, t0, *a):  # (params, K pool, V pool, table row, position, tokens)
         calls["pool_chunks"] += 1
+        forward_rows.append(a[5].numel())
         finite.append(bool(torch.isfinite(r[0]).all()))
 
-    def on_dense(r, t0, *a):
+    def on_dense(r, t0, *a):  # (params, config, tokens, cache, start)
         calls["dense_prefill"] += 1
+        forward_rows.append(a[2].numel())
 
     def on_prefill(r, t0, *a):
         torch.cuda.synchronize()
@@ -2375,6 +2423,9 @@ def serve_paged(dev, name, params, config, requests, engine_kw, gemm, keep_logit
     expected["paged_verify"] = calls["pool_chunks"] * layers
     if launches != expected:
         raise AssertionError(f"[{name}] launches {launches}, expected {expected} ({calls})")
+    bits = 3 if gemm == "w3wide" else 4
+    routes = {route: check_route(name, mid_of(layers, [(gemm, bits, forward_rows)], route), route)
+              for route in ("mid", "wide")}
     if not all(finite):
         raise AssertionError(f"[{name}] non-finite logits while serving")
     budgets = [kw["max_new_tokens"] for _, kw in requests]
@@ -2385,7 +2436,8 @@ def serve_paged(dev, name, params, config, requests, engine_kw, gemm, keep_logit
         requests=len(requests), prompt_lengths=[len(p) for p, _ in requests],
         new_tokens=budgets, calls=dict(calls), launches=launches,
         prefix_hits=eng.prefix_hits, prefix_block_hits=eng.prefix_block_hits,
-        prefill_ms_per_admission=float(np.median(prefill_s)) * 1e3,
+        mid_launches=routes["mid"], wide_launches=routes["wide"],
+        forward_rows=list(forward_rows), prefill_ms_per_admission=float(np.median(prefill_s)) * 1e3,
         prefill_ms=[x * 1e3 for x in prefill_s],
         decode_ms_per_step=float(np.median(decode_s)) * 1e3,
         decode_ms_quickest=min(decode_s) * 1e3,
@@ -2399,7 +2451,9 @@ def serve_paged(dev, name, params, config, requests, engine_kw, gemm, keep_logit
         f"{serving['decode_ms_quickest']:.2f}) over {calls['decode']} steps, "
         f"{serving['tok_s']:.1f} tok/s, {calls['waits']} admission waits for blocks, "
         f"prefix hits {eng.prefix_hits}, peak {peak_blocks[0]} blocks in use, "
-        f"peak {serving['peak_gib']:.1f} GiB; launches {launches}")
+        f"peak {serving['peak_gib']:.1f} GiB; launches {launches}, of them "
+        f"{sum(routes['mid'].values())} on the mid route and {sum(routes['wide'].values())} "
+        f"on the wide-M kernel (the plan's, exactly)")
     return serving, eng, [out[r] for r in rids], [first_rows[r] for r in rids], decode_rows
 
 
@@ -2431,10 +2485,9 @@ def record_first(eng, first_rows):
 # device kernels by name: the LUT-GEMMs (K1, K2 and K4 on the tensor-core
 # loop and the wide-M kernel, told apart by their table fill, K3 by its
 # decoder; off them by their SIMT kernels; the wide-M kernel of any of
-# them also in its own group, both routes, and its mid route, K1's and
-# K2's row tiles under 128, in one more), the loop's split-K reduction (of
-# whichever
-# of K1-K4 a model runs), K5's span kernel and its merge, K6, and PyTorch's
+# them also in its own group, both routes, and its mid route, the row
+# tiles under 128, in one more), the loop's split-K reduction (of
+# whichever of K1-K4 a model runs), K5's span kernel and its merge, K6, and PyTorch's
 # dtype copies (an f32 copy of the lm_head or of a KV cache would show
 # there)
 PROFILE_GROUPS = {
@@ -2444,7 +2497,7 @@ PROFILE_GROUPS = {
     "K4": ("JointFill",),
     "split-K reduction": ("split_reduce_kernel",),
     "wide-M (K1-K4)": ("wide_m_kernel",),
-    "mid-M (K1, K2)": (", true>(",),
+    "mid-M (K1-K4)": (", true>(",),
     "K5": ("decode_span_kernel",),
     "K5 merge": ("decode_merge_kernel",),
     "K6": ("verify_mma_kernel",),
@@ -2563,26 +2616,20 @@ def profile_graphed(name, eager_step, served_step, replay_step):
 def profile_prefill(dev, name, eng, kid="K1"):
     """``kid``'s share of Engine's prefill (8 prompts of 64 tokens: 512
     rows) on each route: the plan's (the wide-M kernel) and the decode
-    loop's (kernel_config.WIDE_MIN_M set past 512 for the run), one
-    profiled prefill each after a warm one. The two prefills' logits have
-    the same bits."""
-    from flute_tpu_torch.ops import kernel_config
-
+    loop's (both crossovers set past 512 for the run),
+    one profiled prefill each after a warm one. The two prefills' logits
+    have the same bits."""
     rng = np.random.default_rng(4)
     toks = torch.from_numpy(rng.integers(1, eng.config.vocab_size, (8, 64))).to(dev)
     offs = torch.zeros(8, dtype=torch.int64, device=dev)
     out, logits = {}, {}
-    saved = kernel_config.WIDE_MIN_M
     with uncounted():
         for route in ("wide", "loop"):
-            kernel_config.WIDE_MIN_M = saved if route == "wide" else 1 << 30
-            try:
+            with route_bounds(*(ROUTE_BOUNDS["loop"] if route == "loop" else (None, None))):
                 with torch.inference_mode():
                     logits[route] = eng.prefill(toks, offs)[0].float().clone()
                     profile = profile_steps(f"{name} prefill, {route} route",
                                             lambda i: eng.prefill(toks, offs), steps=1)
-            finally:
-                kernel_config.WIDE_MIN_M = saved
             groups = profile["groups_ms_per_step"] or {}
             ms = groups.get(kid, 0.0) + groups.get("split-K reduction", 0.0)
             profile.update(kernel=kid, kernel_ms=ms, kernel_share=(
@@ -2616,8 +2663,13 @@ def profile_decode(dev, name, eng):
 
 
 def profile_paged(name, eng, prompts):
-    """A PagedEngine step that admits 8 requests (pool prefill: K6) and
-    decodes once, then three graphed decode steps with 8 live requests."""
+    """A PagedEngine step that admits 8 requests (pool prefill: K6; the
+    prompts served before, so each admission prefills what its prefix hit
+    leaves, at most 16 rows: the loop) and decodes once, then three graphed
+    decode steps with 8 live requests; then steps that admit 8 new prompts
+    of the same lengths (no prefix hit: those of 17-64 rows on the mid
+    route), on the plan's routes and with MID_MIN_M past 64 (the loop), in
+    turns (mid, loop, loop, mid), uncounted: the LUT-GEMM's ms in each."""
     for p in prompts:
         eng.submit(p, max_new_tokens=8)
     torch.cuda.synchronize()
@@ -2629,6 +2681,24 @@ def profile_paged(name, eng, prompts):
         lambda i: eng.step(), lambda i: eng._graph())
     eng.run()
     profile["admission_step"] = admission
+    rng = np.random.default_rng(6)
+    turns = {"mid": [], "loop": []}
+    for route in ("mid", "loop", "loop", "mid"):
+        for p in prompts:
+            eng.submit(rng.integers(1, eng.config.vocab_size, len(p)).tolist(), max_new_tokens=1)
+        torch.cuda.synchronize()
+        with uncounted(), route_bounds(mid=None if route == "mid" else 1 << 30):
+            step = profile_steps(f"{name} admission of new prompts, {route} route",
+                                 lambda i: eng.step(), steps=1)
+            eng.run()
+        groups = step["groups_ms_per_step"] or {}
+        turns[route].append(dict(lut_ms=groups.get("K4"), mid_ms=groups.get("mid-M (K1-K4)"),
+                                 split_ms=groups.get("split-K reduction"),
+                                 busy_ms=step["device_ms_per_step"]))
+    profile["admission_new_prompts"] = {
+        route: {key: (float(np.mean([t[key] for t in ts])) if ts[0][key] is not None else None)
+                for key in ts[0]} | {"turns": ts}
+        for route, ts in turns.items()}
     return profile
 
 
@@ -2752,22 +2822,24 @@ def decided_steps(logits, tol=THRESHOLDS[torch.bfloat16]):
     return (top2[..., 0] - top2[..., 1]) > 2 * tol * scale
 
 
-def phase_paged(dev, results, w4sym_engine, w4sym_trajectory):
-    """PagedEngine at w4sym (dense prefill) against Engine, then the HIGGS-W4
-    model with pool prefill, prefix sharing, pool pressure and sampling."""
+def paged_dense(dev, results, name, engine, trajectory, layout):
+    """PagedEngine with dense prefill on ``engine``'s model (an Engine of
+    phase 4: w4sym on K1, W3 on K3) and the 8 prompts, every request
+    admitted at once (each prompt's bucketed rows on the route the plan
+    gives them: the mid route from 17 rows), held to the Engine's tokens
+    before every near tie, first-token logits within the bf16 threshold,
+    decode logits within 0.25 while the histories agree."""
     from flute_tpu_torch.models import llama
 
     config = llama.LlamaConfig.llama31_8b()
     prompts = serving_prompts(config)
     budget = dict(max_new_tokens=NEW_TOKENS)
-
-    # w4sym: the Engine's model and prompts
-    out, logits = w4sym_trajectory
+    out, logits = trajectory
     serving, eng, tokens, first, rows = serve_paged(
-        dev, "paged w4sym", w4sym_engine.params, config, [(p, budget) for p in prompts],
-        dict(num_slots=8, block_size=16, num_blocks=8 * 4 + 1, max_len=256), "w4sym",
+        dev, name, engine.params, config, [(p, budget) for p in prompts],
+        dict(num_slots=8, block_size=16, num_blocks=8 * 4 + 1, max_len=256), layout,
         keep_logits=True)
-    _, decided = hold_tokens("paged w4sym", tokens, out, logits[:, : len(prompts)])
+    _, decided = hold_tokens(name, tokens, out, logits[:, : len(prompts)])
     # every request was admitted at once, request i into slot i: while its
     # tokens equal Engine's, decode step k's row i is Engine's step k + 1.
     # Engine and K5 both round attention probabilities to bf16, but sum
@@ -2775,7 +2847,9 @@ def phase_paged(dev, results, w4sym_engine, w4sym_trajectory):
     # 32-layer logits by a few percent (PERF.md §6); a wrong position or
     # block would move them by their whole size.
     if serving["calls"]["waits"]:
-        raise AssertionError("paged w4sym: a request waited for blocks")
+        raise AssertionError(f"{name}: a request waited for blocks")
+    if not serving["mid_launches"][f"{layout}_mid"]:
+        raise AssertionError(f"{name}: no admission took the mid route: {serving['forward_rows']}")
     step_err, compared = 0.0, 0
     for k, row in enumerate(rows[: NEW_TOKENS - 1]):
         for i in range(len(prompts)):
@@ -2784,23 +2858,40 @@ def phase_paged(dev, results, w4sym_engine, w4sym_trajectory):
                 step_err = max(step_err, float((row[i] - want_k).abs().max() / want_k.abs().max()))
                 compared += 1
     if not step_err < 0.25:
-        raise AssertionError(f"paged w4sym: decode logits differ from Engine's: {step_err}")
+        raise AssertionError(f"{name}: decode logits differ from Engine's: {step_err}")
     first = torch.stack(first)
     want = logits[0, : len(prompts)]
     first_err = float(((first - want).abs().amax(dim=-1) / want.abs().amax(dim=-1)).max())
     if not first_err < THRESHOLDS[torch.bfloat16]:
-        raise AssertionError(f"paged w4sym: first-token logits differ from Engine: {first_err}")
+        raise AssertionError(f"{name}: first-token logits differ from Engine: {first_err}")
     same = sum(a == b for a, b in zip(tokens, out))
-    log(f"  [paged w4sym] tokens equal Engine's before every low-margin step (decided share "
+    log(f"  [{name}] tokens equal Engine's before every low-margin step (decided share "
         f"{decided:.2f}; {same}/{len(out)} sequences identical in full); first-token logits "
         f"within {first_err:.2e}; decode logits within {step_err:.2e} of Engine's over "
-        f"{compared} (step, request) pairs with the same history")
+        f"{compared} (step, request) pairs with the same history; "
+        f"{serving['mid_launches'][f'{layout}_mid']} launches on the mid route (admissions of "
+        f"{sorted(r for r in serving['forward_rows'] if r != 8)} rows)")
     serving.update(first_token_rel_err=first_err, decided_share=decided,
                    identical_sequences=same, decode_logits_rel_err=step_err,
                    decode_rows_compared=compared)
-    results["serving"]["paged_w4sym"] = serving
     del eng
     release()
+    return serving
+
+
+def phase_paged(dev, results, engines, trajectories):
+    """PagedEngine with dense prefill at w4sym (K1) and at W3 (K3) against
+    Engine, then the HIGGS-W4 model with pool prefill, prefix sharing, pool
+    pressure and sampling."""
+    from flute_tpu_torch.models import llama
+
+    config = llama.LlamaConfig.llama31_8b()
+    prompts = serving_prompts(config)
+    budget = dict(max_new_tokens=NEW_TOKENS)
+    for layout in ("w4sym", "w3wide"):
+        results["serving"][f"paged_{layout}"] = paged_dense(
+            dev, results, f"paged {'w4sym' if layout == 'w4sym' else 'W3'}", engines[layout],
+            trajectories[layout], layout)
 
     # HIGGS-W4 with pool prefill: 12 requests, the last 4 sharing the first
     # 32 tokens (2 blocks) of prompt 1, two sampled
@@ -2823,8 +2914,11 @@ def phase_paged(dev, results, w4sym_engine, w4sym_trajectory):
     if serving["prefix_hits"] < 1 or serving["calls"]["waits"] < 1:
         raise AssertionError(f"paged HIGGS-W4: prefix hits {serving['prefix_hits']}, "
                              f"admission waits {serving['calls']['waits']}")
-    # one request's pool prefill at a time, at most 64 rows: K4 on the loop
-    serving["wide_launches"] = check_route("paged HIGGS-W4", {})
+    # one request's pool prefill at a time, at most 64 rows: K4 on the mid
+    # route from its mid bound (serve_paged held the exact counts)
+    if not serving["mid_launches"]["pair_mid"]:
+        raise AssertionError(f"paged HIGGS-W4: no admission took the mid route: "
+                             f"{serving['forward_rows']}")
     results["serving"]["paged_higgs_w4"] = serving
     greedy = [i for i in range(len(prompts)) if "seed" not in kws[i]]
     results["serving"]["higgs_w4"] = serve_higgs_engine(
@@ -3331,11 +3425,9 @@ def verify_route_ab(dev, config, target, draft, want):
     from flute_tpu_torch.ops import kernel_config
     from flute_tpu_torch.serving import SpeculativeEngine
 
-    saved = kernel_config.MID_MIN_M
     runs = {"mid": [], "loop": []}
-    try:
-        for route in ("mid", "loop", "loop", "mid"):
-            kernel_config.MID_MIN_M = saved if route == "mid" else 1 << 30
+    for route in ("mid", "loop", "loop", "mid"):
+        with route_bounds(mid=None if route == "mid" else 1 << 30):
             if kernel_config.mma_route(VERIFY_M, 4, 256, "w4sym", GROUP) != route:
                 raise AssertionError(f"[verify route A/B] the verify does not take the {route} "
                                      "route")
@@ -3347,14 +3439,12 @@ def verify_route_ab(dev, config, target, draft, want):
             if out != want:
                 raise AssertionError(f"[verify route A/B] the {route} route gave other tokens")
             replay = spec_replays(eng)
-            runs[route].append(dict(
-                ms_per_round=float(np.median(timer.s)) * 1e3, rounds=eng.stats.rounds,
-                tok_s=sum(len(t) - 1 for t in out) / eng.stats.rounds / float(
-                    np.median(timer.s)), **replay))
-            del eng
-            release()
-    finally:
-        kernel_config.MID_MIN_M = saved
+        runs[route].append(dict(
+            ms_per_round=float(np.median(timer.s)) * 1e3, rounds=eng.stats.rounds,
+            tok_s=sum(len(t) - 1 for t in out) / eng.stats.rounds / float(
+                np.median(timer.s)), **replay))
+        del eng
+        release()
     out = {route: {key: float(np.mean([r[key] for r in rs])) for key in rs[0]}
            for route, rs in runs.items()}
     out["runs"] = runs
@@ -5862,7 +5952,9 @@ def wide_ptxas(sources) -> list:
             decoder = next((d for key, d in WIDE_DECODERS if key in mangled), "?")
             decoder += " f16" if "wide_m_kernelI6__half" in mangled else " bf16"
             if decoder.startswith("K3"):
-                decoder += " chunk scales" if "Lb1E" in mangled else " field scales"
+                chunk_scales = re.search(r"W3WideDecoderI\w+?Lb([01])E", mangled)
+                decoder += (" chunk scales" if chunk_scales and chunk_scales.group(1) == "1"
+                            else " field scales")
             else:
                 bits = re.search(r"Li(\d)E", mangled)
                 decoder += f" {bits.group(1)}-bit" if bits else ""
@@ -5896,26 +5988,34 @@ def check_k4_ring(instances):
 
 
 def check_mid_occupancy(instances, ptxas):
-    """The mid route's instantiations (K1, K2 at each row tile, bf16 and
-    f16) fit the blocks an SM their registers and ring are sized for
-    (kernel_config.MID_BLOCKS), and ptxas printed each of them."""
+    """The mid route's instantiations (K1, K2 and K4 at each row tile, K3
+    in both scale modes, bf16 and f16) fit the blocks an SM their registers
+    and ring are sized for (kernel_config.MID_BLOCKS; K3 with the per-field
+    scale cache one, kernel_config.mid_blocks), ptxas printed each of them,
+    and K3's served mode (a chunk's scales once per field) spills nothing."""
     from flute_tpu_torch.ops import kernel_config
 
     mid = [i for i in instances if i["instance"].startswith("mid")]
-    short = [i for i in mid if i["blocks_per_sm"] < kernel_config.MID_BLOCKS]
+    want_blocks = {(i["kernel"], i.get("scales")): 1 if i.get("scales") == "field"
+                   else kernel_config.MID_BLOCKS for i in mid}
+    short = [i for i in mid if i["blocks_per_sm"] < want_blocks[i["kernel"], i.get("scales")]]
     if not mid or short:
-        raise AssertionError(f"mid route instantiations {len(mid)}, fewer than "
-                             f"{kernel_config.MID_BLOCKS} blocks an SM: {short}")
-    # K1's 4-bit row tiles and K2's at 2, 3 and 4 bits, in two dtypes
-    want = 2 * len(kernel_config.MID_ROWS) * 4
-    if sum(r["route"] == "mid" for r in ptxas) != want:
-        raise AssertionError(f"ptxas printed {sum(r['route'] == 'mid' for r in ptxas)} mid "
-                             f"instantiations, expected {want}")
+        raise AssertionError(f"mid route instantiations {len(mid)}, fewer blocks an SM than "
+                             f"they are sized for: {short}")
+    # K1's 4-bit row tiles, K2's and K4's at 2, 3 and 4 bits, K3's in two
+    # scale modes, each in two dtypes
+    want = 2 * len(kernel_config.MID_ROWS) * (1 + 3 + 3 + 2)
+    rows = [r for r in ptxas if r["route"] == "mid"]
+    if len(rows) != want:
+        raise AssertionError(f"ptxas printed {len(rows)} mid instantiations, expected {want}")
+    k3 = [r for r in rows if r["decoder"].startswith("K3") and "chunk scales" in r["decoder"]]
+    if len(k3) != 2 * len(kernel_config.MID_ROWS) or any(r["spill_store_bytes"] for r in k3):
+        raise AssertionError(f"K3's served mid instantiations spill: {k3}")
     log(f"  mid route: {len(mid)} instantiations, {min(i['blocks_per_sm'] for i in mid)}-"
         f"{max(i['blocks_per_sm'] for i in mid)} blocks an SM, "
         f"{min(i['registers'] for i in mid)}-{max(i['registers'] for i in mid)} registers, "
-        f"at most {max(r['spill_store_bytes'] for r in ptxas if r['route'] == 'mid')} bytes of "
-        "spill stores")
+        f"at most {max(r['spill_store_bytes'] for r in rows)} bytes of spill stores; K3's "
+        f"with a chunk's scales {max(r['registers'] for r in k3)} registers, no spill")
 
 
 def main() -> int:
@@ -5935,7 +6035,7 @@ def main() -> int:
     results = {"torch": torch.__version__, "cuda": torch.version.cuda}
     t_start = time.perf_counter()
 
-    log("== 1. card and build")
+    header("1. card and build", t_start)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -5981,21 +6081,21 @@ def main() -> int:
     check_k4_ring(results["tc_instances"])
     check_mid_occupancy(results["tc_instances"], results["wide_ptxas"])
 
-    log("== 2. kernels against plain on the card")
+    header("2. kernels against plain on the card", t_start)
     cases = phase_kernel(dev, results)
     attn_checks, attn_timed = phase_attention(dev, results)
-    log("== 2b. the Hopper lab (L1-L6)")
+    header("2b. the Hopper lab (L1-L6)", t_start)
     lab_cases, lab_checks, lab_launches = phase_lab(dev, results)
-    log("== 2c. the Hopper lab, second half (L7-L12)")
+    header("2c. the Hopper lab, second half (L7-L12)", t_start)
     lab_floor = next(c for c in lab_cases if c["variant"] == "floor")
     lab2_cases, lab2_checks, lab2_launches = phase_lab2(dev, results,
                                                         lab_cases[0]["library_us"],
                                                         lab_floor["us"])
     lab_before = dict(lab_ops.LAUNCHES)
     lab2_before = dict(lab2_ops.LAUNCHES)
-    log("== 3. model logits against the CPU plain path; checkpoint round trip")
+    header("3. model logits against the CPU plain path; checkpoint round trip", t_start)
     phase_logits(dev, results)
-    log("== 4. serving Llama-3.1-8B widths, 32 layers")
+    header("4. serving Llama-3.1-8B widths, 32 layers", t_start)
     results["serving"] = {}
     launches = {}
     engines = {}
@@ -6007,7 +6107,7 @@ def main() -> int:
         launches[kid] = results["serving"][name]["launches"][layout]
     log("  prefill of 8 prompts (512 rows, host clock): " + ", ".join(
         f"{name} {results['serving'][name]['prefill_ms']:.1f} ms" for name in SERVED))
-    paged_eng, prompts = phase_paged(dev, results, engines["w4sym"], trajectories["w4sym"])
+    paged_eng, prompts = phase_paged(dev, results, engines, trajectories)
     log(f"  prefill of 512 rows (host clock): HIGGS-W4 Engine "
         f"{results['serving']['higgs_w4']['prefill_ms']:.1f} ms, w4sym "
         f"{results['serving']['w4sym']['prefill_ms']:.1f} ms, W3 "
@@ -6039,22 +6139,36 @@ def main() -> int:
             f"{k5_call_us:.2f} us per call; K6 {admission['K6']:.3f} ms in the step that admits "
             f"8 requests; no decode step converts a tensor of {LARGE_COPY_ELEMENTS} elements "
             "or more")
+        higgs = results["serving"]["paged_higgs_w4"]
+        new = higgs_profile["admission_new_prompts"]
+        log(f"  [paged HIGGS-W4] the step that admits the 8 prompts again (prefix hits: at most "
+            f"16 rows an admission): K4 {admission['K4']:.2f} ms (on the mid route "
+            f"{admission['mid-M (K1-K4)']:.2f} ms) + split-K reduction "
+            f"{admission['split-K reduction']:.2f} ms of "
+            f"{higgs_profile['admission_step']['device_ms_per_step']:.2f} ms busy; a step that "
+            f"admits 8 new prompts: K4 {new['mid']['lut_ms']:.2f} ms (on the mid route "
+            f"{new['mid']['mid_ms']:.2f}) of {new['mid']['busy_ms']:.2f} ms busy, with the mid "
+            f"route off (the loop) K4 {new['loop']['lut_ms']:.2f} ms of "
+            f"{new['loop']['busy_ms']:.2f} ms busy (mean of two turns each); prefill "
+            f"{higgs['prefill_ms_per_admission']:.1f} ms per admission (median, host clock)")
     del engines, paged_eng
     release()
-    log("== 5. serving Gemma-2-9B widths, 42 layers")
+    header("5. serving Gemma-2-9B widths, 42 layers", t_start)
     gemma = phase_gemma2(dev, results)
     report_served_idle("gemma2 w4sym", gemma["engine"])
     gemma_launches = {"K1": {run: gemma[run]["launches"]["w4sym"]
                              for run in ("engine", "engine_long", "paged")},
                       "K5": gemma["paged"]["launches"]["paged_decode"],
                       "K6": gemma["paged"]["launches"]["paged_verify"]}
-    log("== 6. continuous batching and speculative decoding, Llama-3.1-8B widths, 32 layers")
+    header("6. continuous batching and speculative decoding, Llama-3.1-8B widths, 32 layers",
+           t_start)
     spec = phase_spec(dev, results, trajectories["w4sym"])
-    log("== 7. the quantized lm_head, the HTTP server and perplexity, Llama-3.1-8B widths, "
-        "32 layers")
+    header("7. the quantized lm_head, the HTTP server and perplexity, Llama-3.1-8B widths, "
+           "32 layers", t_start)
     phase7 = phase_head_server_ppl(dev, results, trajectories["w4sym"])
     release()
-    log(f"== 8. the CLI from an HF directory at Llama-3.1-8B widths, {CLI_LAYERS} layers")
+    header(f"8. the CLI from an HF directory at Llama-3.1-8B widths, {CLI_LAYERS} layers",
+           t_start)
     phase8 = phase8_launches(phase_cli(dev, results))
     lab_served = {fn: lab_ops.LAUNCHES[fn] - lab_before[fn] for fn in lab_before}
     lab2_served = {fn: lab2_ops.LAUNCHES[fn] - lab2_before[fn] for fn in lab2_before}
@@ -6062,7 +6176,7 @@ def main() -> int:
         raise AssertionError(f"phases 3-8 launched lab kernels: {lab_served}, {lab2_served}")
     log(f"  lab kernels launched in phases 3-8: {lab_served}, {lab2_served}")
     release()
-    log("== 9. tensor and pipeline parallelism at Llama-3.1-8B widths; the host packer")
+    header("9. tensor and pipeline parallelism at Llama-3.1-8B widths; the host packer", t_start)
     p9 = phase_parallel(dev, results)
 
     kernels = [kernel_line(kid, cases, launches[kid], results["identity_paths"],
@@ -6085,12 +6199,15 @@ def main() -> int:
     wide_lines = [wide_line("K1", results["wide_sweep"], wide["K1"], gemma_wide, ppl_wide)] + [
         wide_line(kid, results["wide_sweep"], wide[kid]) for kid in ("K2", "K3", "K4")]
     # the mid route of K1 and K2: launched by phase 6's verifies (K1) and
-    # its paged W2 draft's 32-row prefills (K2)
-    mid = spec["mid_launches"]
-    if not (mid["w4sym_mid"] and mid["plane_mid"]):
-        raise AssertionError(f"the mid route was not launched in phase 6: {mid}")
-    wide_lines += [mid_line("K1", results["wide_sweep"], mid["w4sym_mid"]),
-                   mid_line("K2", results["wide_sweep"], mid["plane_mid"])]
+    # its paged W2 draft's 32-row prefills (K2); of K3 and K4 by phase 4's
+    # paged admissions (W3 with dense prefill, HIGGS-W4 with pool prefill)
+    mid = dict(spec["mid_launches"],
+               w3wide_mid=results["serving"]["paged_w3wide"]["mid_launches"]["w3wide_mid"],
+               pair_mid=results["serving"]["paged_higgs_w4"]["mid_launches"]["pair_mid"])
+    if not all(mid[f"{ROUTE_LAYOUT[kid]}_mid"] for kid in LUT_KERNELS):
+        raise AssertionError(f"the mid route was not launched in phases 4 and 6: {mid}")
+    wide_lines += [mid_line(kid, results["wide_sweep"], mid[f"{ROUTE_LAYOUT[kid]}_mid"])
+                   for kid in LUT_KERNELS]
     kernels[0]["qkv_m8_warm_cold"] = results["k1_qkv_warm_cold"]
     kernels += [attention_line(kid, attn_checks, attn_timed, launches[kid], gemma_launches[kid],
                                spec)

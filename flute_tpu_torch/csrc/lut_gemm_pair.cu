@@ -4,8 +4,9 @@
 //   y[M, N] = x[M, K] @ W,  (W[2j, n], W[2j+1, n]) = pv[c[2j, n], c[2j+1, n]] * scale
 //
 // Replaces: flute_tpu/ops/lut_gemm.py::_lut_qgemm_kernel with
-// lut_mode="pair_lut" (reached through _lut_qgemm_2d's pl.pallas_call), with
-// its helpers _lookup_payload_lane and _table_tile_pair. The pair table pv is
+// lut_mode="pair_lut" (both of its branches; reached through _lut_qgemm_2d's
+// pl.pallas_call), with its helpers _lookup_payload_lane and
+// _table_tile_pair. The pair table pv is
 // float32 [2^b, 2^b, 2] indexed [ce, co]: any values, one 2-vector per pair
 // of sub-codes (a HIGGS grid, quantize/higgs.py).
 //
@@ -32,25 +33,33 @@
 //
 // What bounds it: bytes at decode (b / 8 byte of plane and 2 / g byte of
 // scale per weight), operations at prefill. Design: the pair decoder of
-// lut_gemm_pair_decoder.cuh (with the joint table's fill below) on two
+// lut_gemm_pair_decoder.cuh (with the joint table's fill below) on three
 // routes, chosen by M alone (ops/kernel_config.py::mma_route), with the
 // same bits:
 //
-// * below WIDE_MIN_M rows (decode, the paged engine's admissions): the
-//   tensor-core loop of lut_gemm_mma.cuh (16-byte plane loads, a register
-//   ring of prefetched words, scales once per group, K permuted on the x
-//   side, split-K with a second pass that adds the splits in order; the
-//   split a function of N, K and chunk alone, so that a row's result does
-//   not depend on M: ops/kernel_config.py::mma_plan). With more than one
-//   split this entry launches two kernels: the loop and lut_gemm_mma.cuh's
+// * below MID_MIN_M rows (decode): the tensor-core loop of
+//   lut_gemm_mma.cuh (16-byte plane loads, a register ring of prefetched
+//   words, scales once per group, K permuted on the x side, split-K with a
+//   second pass that adds the splits in order; the split a function of N,
+//   K and chunk alone, so that a row's result does not depend on M:
+//   ops/kernel_config.py::mma_plan). With more than one split this entry
+//   launches two kernels: the loop and lut_gemm_mma.cuh's
 //   split_reduce_kernel.
-// * from WIDE_MIN_M rows (prefill), where the wide-M kernel's ring takes
-//   the chunk: that kernel (lut_gemm_wide_m.cuh: the TPU kernel's
+// * from WIDE_MIN_M rows (prefill), where the wide-M kernel's ring
+//   takes the chunk: that kernel (lut_gemm_wide_m.cuh: the TPU kernel's
 //   weight-side branch, lut_gemm.py:611-615, taken at :812; wgmma with the
 //   decoded pairs as A, 128 x 128 tiles, the loop's split run in order in
 //   each block, no workspace); C entry flute_lut_qgemm_pair_wide. The
 //   joint table has K2's size, (2^b)^2 x 8 copies of a 32-bit pair, so the
 //   ring is K2's. It is bound by operations there.
+// * from MID_MIN_M rows below that (the paged engines' admissions of a
+//   short prompt): the same kernel's mid route (the TPU kernel's
+//   group-accumulating branch, lut_gemm.py:590-602, taken at :812 for
+//   bm <= group_acc_max_bm; row tiles of 16-64 rows, one of the loop's
+//   splits a block, the loop's workspace and reduction, 2 blocks an SM, K2's
+//   ring again); C entry flute_lut_qgemm_pair_mid. It is bound by bytes
+//   there, as at decode.
+// The routes' bounds are ops/kernel_config.py's MID_MIN_M and WIDE_MIN_M.
 
 #include "lut_gemm_pair_decoder.cuh"
 #include "lut_gemm_wide_m.cuh"
@@ -120,6 +129,32 @@ extern "C" int flute_lut_qgemm_pair_wide(const void* x, const void* plane0, cons
   }
 }
 
+// The mid route of the wide-M kernel (lut_gemm_wide_m.cuh, from MID_MIN_M to
+// WIDE_MIN_M rows) for bf16/f16: the operands as above, `rows`
+// rows a block (16, 32, 48 or 64), one of `splits` splits of K / chunk a
+// block; with more than one split `work` is a float32 [splits, M, N]
+// workspace (else null), and the entry launches the kernel and the loop's
+// split reduction; f32 (dtype 0) is refused. Returns the cudaError_t of the
+// launches.
+extern "C" int flute_lut_qgemm_pair_mid(const void* x, const void* plane0, const void* plane1,
+                                        const void* scales, const void* pv, void* y, void* work,
+                                        int M, int N, int K, int group_size, int chunk,
+                                        int num_bits, int dtype, int rows, int splits, int vec,
+                                        void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  Args a;
+  if (!flute::wide::wide_args(a, x, plane0, num_bits == 3 ? plane1 : nullptr, scales, pv, y, M,
+                              N, K, group_size, chunk, chunk * (num_bits == 4 ? 4 : 2) / 32,
+                              splits, vec, work))
+    return cudaErrorInvalidValue;
+  switch (num_bits) {
+    case 2: return flute::wide::run_pair_mid<2, JointFill<2>>(a, dtype, rows, splits, s);
+    case 3: return flute::wide::run_pair_mid<3, JointFill<3>>(a, dtype, rows, splits, s);
+    case 4: return flute::wide::run_pair_mid<4, JointFill<4>>(a, dtype, rows, splits, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 // Instantiation i of K4's tensor-core kernels, 8 a bit width (2, 3, 4 in
 // that order; lut_gemm_wide_m.cuh::describe_pair): its name, registers,
 // shared memory (static and dynamic at `chunk`) and blocks per SM.
@@ -132,6 +167,21 @@ extern "C" int flute_lut_qgemm_pair_instance(int i, int chunk, const char** name
                                                                 blocks);
     case 2: return flute::wide::describe_pair<4, JointFill<4>>(i % 8, chunk, name, regs, smem,
                                                                 blocks);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// Instantiation i of K4's mid route, 8 a bit width (2, 3, 4 in that order;
+// lut_gemm_wide_m.cuh::describe_pair_mid), as above.
+extern "C" int flute_lut_qgemm_pair_mid_instance(int i, int chunk, const char** name, int* regs,
+                                                 int* smem, int* blocks) {
+  switch (i / 8) {
+    case 0: return flute::wide::describe_pair_mid<2, JointFill<2>>(i % 8, chunk, name, regs,
+                                                                    smem, blocks);
+    case 1: return flute::wide::describe_pair_mid<3, JointFill<3>>(i % 8, chunk, name, regs,
+                                                                    smem, blocks);
+    case 2: return flute::wide::describe_pair_mid<4, JointFill<4>>(i % 8, chunk, name, regs,
+                                                                    smem, blocks);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -37,6 +37,7 @@ struct PairDecoder {
   static constexpr bool kChunkScales = false;
   static constexpr int kRowWords = 1;        // the wide-M kernel's planar words a word row
   static constexpr bool kPlane1 = NB == 3;   // the 1-bit plane (Words w1) at 3 bits
+  static constexpr int kMidBlocks = 2;       // the wide-M kernel's mid route: blocks an SM
   // Items of words prefetched per lane: four (a deeper ring ran slower on
   // the H100, and sixteen spilled); four blocks of 128 threads per SM then
   // keep 32 KB of plane words in flight.

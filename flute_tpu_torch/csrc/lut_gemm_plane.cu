@@ -231,8 +231,8 @@ extern "C" int flute_lut_qgemm_plane_wide(const void* x, const void* plane0, con
   }
 }
 
-// The mid route of the wide-M kernel (lut_gemm_wide_m.cuh, 16-127 rows) for
-// bf16/f16: the operands as above, `rows` rows a block (16, 32, 48 or 64),
+// The mid route of the wide-M kernel (lut_gemm_wide_m.cuh, from MID_MIN_M to
+// WIDE_MIN_M rows) for bf16/f16: the operands as above, `rows` rows a block (16, 32, 48 or 64),
 // one of `splits` splits of K / chunk a block; with more than one split
 // `work` is a float32 [splits, M, N] workspace (else null), and the entry
 // launches the kernel and the loop's split reduction. Returns the

@@ -16,8 +16,8 @@
 // pair-row p = c * chunk / 2 + j * ntrip + t (K rows 2p and 2p + 1). Fields 5
 // (bits 30-35) and 10 (bits 60-65) straddle a word boundary.
 //
-// Three kernels, chosen by the caller (ops/lut_gemm.py::lut_path, then
-// ops/kernel_config.py::mma_route by M alone) before the launch, as in
+// Four kernels and routes, chosen by the caller (ops/lut_gemm.py::lut_path,
+// then ops/kernel_config.py::mma_route by M alone) before the launch, as in
 // lut_gemm_w4sym.cu:
 //
 // * bf16 and f16 at a chunk the loop takes (a multiple of 256 whose x ring
@@ -54,6 +54,19 @@
 //   2 kc a lane reads its 16 fields' scales from the staged scale rows
 //   once per chunk, both columns' in one register (16 registers, not the
 //   48 of a per-field cache).
+// * bf16 and f16 from MID_MIN_M to WIDE_MIN_M rows (the paged engines'
+//   admissions of a short prompt): the wide-M kernel's mid route, the
+//   loop's bits again; C entry flute_lut_qgemm_w3wide_mid. It replaces the
+//   TPU kernel's group-accumulating branch (lut_gemm.py:590-602, taken at
+//   :812 for bm <= group_acc_max_bm) and, like a decode step, is bound by
+//   bytes: a row tile of 16-64 rows, one of the loop's splits a block
+//   written to the loop's workspace, the wide route's stage of one item
+//   (two at 16 rows) and its two half-item A-register sets. Two blocks an
+//   SM (a cap of 128 registers) with a chunk's scales (g a multiple of
+//   2 kc, 16 registers: 103-126 in all, no spill). The per-field cache
+//   takes 48 (its scales and each field's group; 140-168 in all): that
+//   instantiation runs one block an SM with a ring sized for the whole SM
+//   (W3WideDecoder::kMidBlocks).
 // * f32, or a chunk the loop cannot take: the SIMT kernel below, on the
 //   skeleton of lut_gemm_common.cuh: one lane per output column, eight warps
 //   splitting each chunk's triples, a lane joining its triple's words into
@@ -61,8 +74,9 @@
 //   shared memory as f32, the 8-entry table in shared memory; IEEE FMAs, no
 //   TF32.
 //
-// Both are bit-exact with an identity x and give the same bits on a repeat
-// call; the plain PyTorch version differs only in the order of the f32 sums.
+// The routes' bounds are ops/kernel_config.py's MID_MIN_M and WIDE_MIN_M.
+// All are bit-exact with an identity x and give the same bits on a repeat call; the
+// plain PyTorch version differs only in the order of the f32 sums.
 //
 // What bounds it: bytes at decode (3/8 byte of plane plus 2 / g byte of
 // scale per weight; 3.35 TB/s on an H100 SXM), operations at prefill; on
@@ -174,6 +188,9 @@ struct W3WideDecoder {
   static constexpr int kCopies = 8;  // bank-interleaved copies, as PairDecoder's
   static constexpr int kRowWords = 3;  // the wide-M kernel stages each planar word's rows
   static constexpr bool kPlane1 = false;
+  // The mid route's blocks an SM: 2 with a chunk's scales (16 registers);
+  // with the per-field cache's 48 a thread needs more than 2 blocks' 128
+  static constexpr int kMidBlocks = CHUNK_GROUPS ? 2 : 1;
   static __host__ __device__ int word_rows(int chunk) { return chunk / 32; }
 
   struct Table {
@@ -239,6 +256,13 @@ cudaError_t run_wide(const mma::Args& a, int splits, cudaStream_t s) {
   return wide::launch_wide<T, W3WideDecoder<T, false>>(a, splits, s);
 }
 
+template <typename T>
+cudaError_t run_mid(const mma::Args& a, int rows, int splits, cudaStream_t s) {
+  if (a.group_size % (2 * W3WideDecoder<T, true>::word_rows(a.chunk)) == 0)
+    return wide::launch_mid<T, W3WideDecoder<T, true>>(a, rows, splits, s);
+  return wide::launch_mid<T, W3WideDecoder<T, false>>(a, rows, splits, s);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = float16, 2 = bfloat16 (x, scales and y share it;
@@ -291,6 +315,29 @@ extern "C" int flute_lut_qgemm_w3wide_wide(const void* x, const void* plane, con
   }
 }
 
+// The mid route of the wide-M kernel (lut_gemm_wide_m.cuh, from MID_MIN_M to
+// WIDE_MIN_M rows) for bf16/f16: the operands as above, `rows`
+// rows a block (16, 32, 48 or 64), one of `splits` splits of K / chunk a
+// block; with more than one split `work` is a float32 [splits, M, N]
+// workspace (else null), and the entry launches the kernel and the loop's
+// split reduction; f32 (dtype 0) is refused. Returns the cudaError_t of the
+// launches.
+extern "C" int flute_lut_qgemm_w3wide_mid(const void* x, const void* plane, const void* scales,
+                                          const void* table, void* y, void* work, int M, int N,
+                                          int K, int group_size, int chunk, int dtype, int rows,
+                                          int splits, int vec, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  mma::Args a;
+  if (chunk % 256 || !wide::wide_args(a, x, plane, nullptr, scales, table, y, M, N, K,
+                                      group_size, chunk, chunk / 32, splits, vec, work))
+    return cudaErrorInvalidValue;
+  switch (dtype) {
+    case 1: return run_mid<__half>(a, rows, splits, s);
+    case 2: return run_mid<__nv_bfloat16>(a, rows, splits, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 // Instantiation i of K3's tensor-core kernels (lut_gemm_wide_m.cuh::
 // describe_decoders): 0..7 with a chunk's scales once per field (g a
 // multiple of 2 kc), 8..15 with the per-field cache; its name, registers,
@@ -306,6 +353,23 @@ extern "C" int flute_lut_qgemm_w3wide_instance(int i, int chunk, const char** na
       return wide::describe_decoders<W3WideDecoder<__nv_bfloat16, false>,
                                      W3WideDecoder<__half, false>>(i % 8, chunk, name, regs,
                                                                    smem, blocks);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// Instantiation i of K3's mid route (lut_gemm_wide_m.cuh::describe_mid): 0..7
+// with a chunk's scales once per field, 8..15 with the per-field cache; its
+// name, registers, shared memory and blocks per SM, as above.
+extern "C" int flute_lut_qgemm_w3wide_mid_instance(int i, int chunk, const char** name, int* regs,
+                                                   int* smem, int* blocks) {
+  switch (i / 8) {
+    case 0:
+      return wide::describe_mid<W3WideDecoder<__nv_bfloat16, true>, W3WideDecoder<__half, true>>(
+          i % 8, chunk, name, regs, smem, blocks);
+    case 1:
+      return wide::describe_mid<W3WideDecoder<__nv_bfloat16, false>,
+                                W3WideDecoder<__half, false>>(i % 8, chunk, name, regs, smem,
+                                                              blocks);
     default: return cudaErrorInvalidValue;
   }
 }

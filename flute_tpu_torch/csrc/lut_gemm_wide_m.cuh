@@ -3,9 +3,9 @@
 // ops/kernel_config.py::mma_route sends a call's M (from WIDE_MIN_M rows):
 // K1 (lut_gemm_w4sym.cu), K2 (lut_gemm_plane.cu) and K4 (lut_gemm_pair.cu)
 // with the pair decoder of lut_gemm_pair_decoder.cuh, K3
-// (lut_gemm_w3wide.cu) with its decoder of the wide 3-bit triples; below
-// WIDE_MIN_M rows they run the decode loop of lut_gemm_mma.cuh, but K1 and
-// K2 from MID_MIN_M rows, which take this kernel's mid route (below).
+// (lut_gemm_w3wide.cu) with its decoder of the wide 3-bit triples; from
+// MID_MIN_M rows below that they take this kernel's mid route (below), and
+// under MID_MIN_M the decode loop of lut_gemm_mma.cuh.
 //
 //   y[M, N] = x[M, K] @ W,  W decoded per K-row pair and column
 //
@@ -75,23 +75,29 @@
 // from device memory about once. Ragged M and N are masked (TMA reads past
 // an edge as zeros). f32 accumulators, no atomics, no TF32, no fast math.
 //
-// The mid route (template arguments R < 128 and kOneSplit; K1 and K2 from
-// MID_MIN_M to WIDE_MIN_M rows, the speculative verify's 40 among them).
+// The mid route (template arguments R < 128 and kOneSplit; K1-K4 from
+// MID_MIN_M to WIDE_MIN_M rows, the speculative verify's 40 rows and the
+// paged engines' admissions of 17-64 rows among them).
 // Replaces the same TPU kernel in its group-accumulating decode branch
 // (:590-602, taken at :812 for bm <= group_acc_max_bm = 64,
 // flute_tpu/ops/kernel_config.py:32), whose function the loop computes;
-// it gives each row the loop's bits. At 16-127 rows a layer moves about
+// it gives each row the loop's bits. At 16-64 rows a layer moves about
 // the bytes of a decode step (one Llama-3.1-8B layer at W4 g64: 109 MB of
 // planes and 6.8 MB of scales, ~36 us at 3.35 TB/s, against ~18 us of
 // operations at M = 40), so it is bound by bytes, and the card must be
 // filled the way the loop fills it at decode. The loop itself ran 17-64
 // rows at 4 m16 tiles a warp, 4x its mma.sync and ldmatrix per decoded B
 // register, 2 blocks an SM and rows padded to 64; the wide route's grid
-// of M/128 x N/128 blocks leaves most of the 132 SMs idle there. Here:
+// of M/128 x N/128 blocks leaves most of the 132 SMs idle there, and up to
+// 192 rows (three tiles of 64) this route stays faster than its two tiles
+// of 128 (phase 2's sweep in chip_smoke.py). Here:
 //
 // * A row tile of R (16, 32, 48 or 64) rows: wgmma m64nRk16, R / 2 f32
-//   accumulators a thread and no split total, a ring sized for kMidBlocks
-//   (2) blocks an SM; 40 rows take R = 48, not 64 or 128.
+//   accumulators a thread and no split total, registers and a ring sized
+//   for the decoder's kMidBlocks blocks an SM (2, a cap of 128 registers;
+//   K3 with its per-field scale cache 1, whose 48 scale registers do not
+//   fit that cap beside the accumulators and two A-register sets); 40 rows
+//   take R = 48, not 64 or 128.
 // * The loop's split-K grid: blockIdx.z runs one split of mma_plan's
 //   chunks and writes its f32 sums to the workspace [splits, M, N], which
 //   split_reduce_kernel adds in split order (with one split, the block
@@ -103,6 +109,7 @@
 //   kRowWords   planar words a word row (1; K3's triples 3): Words w0.. of
 //               columns col and col + 8 in .x and .y
 //   kPlane1     whether the layout has a 1-bit plane (Words w1)
+//   kMidBlocks  blocks an SM the mid route's registers and ring are sized for
 
 #pragma once
 
@@ -122,8 +129,6 @@ constexpr int kGroupCols = 64;   // W columns a warpgroup: wgmma's M
 constexpr int kBlockN = 128;     // W columns a block
 constexpr int kRows = 128;       // rows of x a block: wgmma's N (the mid route: R)
 constexpr int kPlaneStride = kBlockN + 8;  // words a staged plane row: rows 8 banks apart
-// The mid route's blocks an SM (its registers and ring are sized for them)
-constexpr int kMidBlocks = 2;
 
 // A shared-memory matrix descriptor, no swizzle: start, leading-byte offset
 // (between the two core matrices along K), stride-byte offset (between core
@@ -152,6 +157,13 @@ __device__ __forceinline__ void fence_async_smem() {
 // keeps the compiler from moving accesses of an accumulator across a
 // wgmma's issue and its wait
 __device__ __forceinline__ void pin(float& r) { asm volatile("" : "+f"(r)::"memory"); }
+// threadIdx.x, read where it is used: what is computed from it is not
+// hoisted out of a loop and held across it
+__device__ __forceinline__ int thread_index() {
+  int t;
+  asm volatile("mov.u32 %0, %%tid.x;\n" : "=r"(t));
+  return t;
+}
 
 #define FLUTE_D4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
 #define FLUTE_D8(i) FLUTE_D4(i), FLUTE_D4(i + 4)
@@ -413,9 +425,10 @@ __host__ __device__ Geometry geometry_of(int chunk, int group_size, int R = kRow
 // R: rows of x a block (wgmma's N: 128 for the wide route, 16-64 for the
 // mid route); kOneSplit: the mid route's grid, one split of K a block
 // (blockIdx.z) written to the workspace [splits, M, N] (or with one split
-// to y), kMidBlocks blocks an SM; else the block runs every split in order.
+// to y), Decoder::kMidBlocks blocks an SM; else the block runs every split
+// in order.
 template <typename T, typename Decoder, int R = kRows, bool kOneSplit = false>
-__global__ void __launch_bounds__(kThreads, kOneSplit ? kMidBlocks : 1)
+__global__ void __launch_bounds__(kThreads, kOneSplit ? Decoder::kMidBlocks : 1)
     wide_m_kernel(const Args a, const int stages, const __grid_constant__ Maps maps) {
   constexpr int kAcc = R / 2;                    // accumulators a thread
   constexpr int kF = Decoder::kFields;
@@ -435,7 +448,8 @@ __global__ void __launch_bounds__(kThreads, kOneSplit ? kMidBlocks : 1)
   const int m0 = blockIdx.x * R;
   const int nb = blockIdx.y * kBlockN;
   const int col = wg * kGroupCols + warp * 16 + g;  // this lane's columns: col and col + 8
-  const Geometry geo = geometry_of<Decoder>(a.chunk, a.group_size, R, kOneSplit ? kMidBlocks : 1);
+  const Geometry geo =
+      geometry_of<Decoder>(a.chunk, a.group_size, R, kOneSplit ? Decoder::kMidBlocks : 1);
   const int Q = geo.q;
   const int nchunks = a.K / a.chunk;
   const int cps = a.chunks_per_split;
@@ -470,8 +484,13 @@ __global__ void __launch_bounds__(kThreads, kOneSplit ? kMidBlocks : 1)
   // rows) and the chunk's scale rows of columns nb.. (columns past N
   // zero-filled) by TMA, or where maps.words is 0 by cp.async from every
   // thread. Always one cp.async group, empty past the block's last stage.
+  // Its per-thread offsets are computed anew at each call (thread_index):
+  // hoisted out of the loop, they were held across it, up to 26 registers
+  // (K3's wide route 255 registers with a spill, 229 without them; its mid
+  // route spilled under its cap of 128).
   auto fill = [&](int si) {
     if (si < nstages) {
+      const int tx = thread_index();
       const int c = (st0 + si) / geo.per_chunk;
       const int gq = st0 + si - c * geo.per_chunk;
       const int b = si % stages;
@@ -482,8 +501,8 @@ __global__ void __launch_bounds__(kThreads, kOneSplit ? kMidBlocks : 1)
       const int gi0 = c * a.chunk / a.group_size;
       // planar word r's first word row of the stage
       auto row0 = [&](int r) { return (c * kRW + r) * geo.kc0 + gq * 4 * Q; };
-      if (threadIdx.x < 32) {
-        if (threadIdx.x == 0) {
+      if (tx < 32) {
+        if (tx == 0) {
           const uint32_t words =
               (kRW * 4 * Q + geo.kc1) * kBlockN * 4 + geo.srows * kBlockN * 2;
           mbar_expect_tx(&full[b], static_cast<uint32_t>(geo.x_bytes) + (maps.words ? words : 0));
@@ -496,14 +515,14 @@ __global__ void __launch_bounds__(kThreads, kOneSplit ? kMidBlocks : 1)
           }
         }
         __syncwarp();
-        if (threadIdx.x < kF)  // field i's Q stretches: one box
-          tma_load_3d(base + static_cast<size_t>(threadIdx.x) * Q * stretch, &maps.x, m0,
-                      c * a.chunk / 8 + threadIdx.x * (geo.kc0 / 4) + gq * Q, &full[b]);
+        if (tx < kF)  // field i's Q stretches: one box
+          tma_load_3d(base + static_cast<size_t>(tx) * Q * stretch, &maps.x, m0,
+                      c * a.chunk / 8 + tx * (geo.kc0 / 4) + gq * Q, &full[b]);
       }
       if (!maps.words) {
         auto plane = [&](const uint32_t* src, size_t from, int rows, uint32_t* dst) {
           if (a.vec) {
-            for (int idx = threadIdx.x; idx < rows * (kBlockN / 4); idx += kThreads) {
+            for (int idx = tx; idx < rows * (kBlockN / 4); idx += kThreads) {
               const int row = idx / (kBlockN / 4);
               const int n = nb + 4 * (idx % (kBlockN / 4));
               const bool ok = n < a.N;
@@ -511,7 +530,7 @@ __global__ void __launch_bounds__(kThreads, kOneSplit ? kMidBlocks : 1)
                               ok ? src + (from + row) * a.N + n : src, ok);
             }
           } else {
-            for (int idx = threadIdx.x; idx < rows * kBlockN; idx += kThreads) {
+            for (int idx = tx; idx < rows * kBlockN; idx += kThreads) {
               const int row = idx / kBlockN;
               const int n = nb + idx % kBlockN;
               const bool ok = n < a.N;
@@ -524,7 +543,7 @@ __global__ void __launch_bounds__(kThreads, kOneSplit ? kMidBlocks : 1)
         for (int r = 0; r < kRW; ++r) plane(a.plane0, row0(r), 4 * Q, p0 + r * 4 * Q * kPlaneStride);
         if (geo.kc1) plane(a.plane1, static_cast<size_t>(c) * geo.kc1, geo.kc1, p1);
         // the chunk's scale rows from group (c chunk) / g
-        for (int idx = threadIdx.x; idx < geo.srows * kBlockN; idx += kThreads) {
+        for (int idx = tx; idx < geo.srows * kBlockN; idx += kThreads) {
           const int row = idx / kBlockN;
           const int n = nb + idx % kBlockN;
           const bool ok = n < a.N && gi0 + row < grows;
@@ -554,7 +573,6 @@ __global__ void __launch_bounds__(kThreads, kOneSplit ? kMidBlocks : 1)
   // kChunkScales: per field, the chunk's scales of column col (low half)
   // and col + 8 (high half); fpg fields share a group (else never kept)
   uint32_t cs[kF];
-  const int fpg = Decoder::kChunkScales ? a.group_size / (2 * geo.kc0) : 1;
 
   uint32_t af0[kU][4], af1[kU][4];
   for (int si = 0; si < ahead; ++si) fill(si);
@@ -573,7 +591,10 @@ __global__ void __launch_bounds__(kThreads, kOneSplit ? kMidBlocks : 1)
     const uint16_t* sc = reinterpret_cast<const uint16_t*>(base + geo.s_off);
     const int k0 = c * a.chunk - (c * a.chunk / a.group_size) * a.group_size;  // chunk in group
     if (Decoder::kChunkScales && gq == 0) {
-      // a new chunk: field i's group is row (k0 / 2 kc + i) / fpg of its scales
+      // a new chunk: field i's group is row (k0 / 2 kc + i) / fpg of its
+      // scales (fpg computed where it is read, so that no register holds
+      // it across the loop)
+      const int fpg = a.group_size / (2 * geo.kc0);
       int r = k0 / (2 * geo.kc0), row = 0;
 #pragma unroll
       for (int i = 0; i < kF; ++i) {
@@ -588,11 +609,11 @@ __global__ void __launch_bounds__(kThreads, kOneSplit ? kMidBlocks : 1)
         }
       }
     }
-    // unit h (0, or 1 for an item's second half at 16 fields) of item ql
-    // into A registers: its kU steps' pairs times their scales. h is a
-    // constant at every call, and 0 wherever an item is one unit.
+    // unit h (of kUnits) of item ql into A registers: its kU steps' pairs
+    // times their scales. h is a constant at every call, and 0 wherever an
+    // item is one unit.
     auto decode = [&](int h, int ql, uint32_t (&af)[kU][4]) {
-      const int s0 = kUnits == 1 ? 0 : h * kU;  // the unit's first step in the item
+      const int s0 = h * kU;  // the unit's first step in the item
       const int j = 4 * (gq * Q + ql) + t;      // word row of the chunk
       const typename Decoder::Words w =
           staged_words<Decoder>(p0, p1, 4 * ql + t, j, geo.kc1, Q, pstride, col);
@@ -629,7 +650,7 @@ __global__ void __launch_bounds__(kThreads, kOneSplit ? kMidBlocks : 1)
     // touched between here and a wait<0>: a read of it while a product is
     // in flight would make ptxas wait on each one
     auto issue = [&](int h, int ql, const uint32_t (&af)[kU][4]) {
-      const int s0 = kUnits == 1 ? 0 : h * kU;
+      const int s0 = h * kU;
       wg_fence();
 #pragma unroll
       for (int s = 0; s < kU; ++s) {
@@ -641,18 +662,23 @@ __global__ void __launch_bounds__(kThreads, kOneSplit ? kMidBlocks : 1)
         wg_commit();
       }
     };
-    // two sets of A registers, units in pairs (an item's two halves, or two
-    // items): a unit is decoded while the unit before it multiplies, into
-    // the set whose products the wait has retired
-    const int units = Q * kUnits;
+    // two sets of A registers: a unit is decoded while the unit before it
+    // multiplies, into the set whose products the wait has retired. A turn
+    // is an item's units, or two items of one unit, an even count, so that
+    // every unit's set and place in its item are constants.
+    constexpr int kTurnItems = kUnits == 1 ? 2 : 1;
+    constexpr int kTurnUnits = kUnits * kTurnItems;
     decode(0, 0, af0);
-    for (int u = 0; u < units; u += 2) {
-      issue(0, u / kUnits, af0);
-      wg_wait<kU>();
-      decode(kUnits - 1, (u + 1) / kUnits, af1);
-      issue(kUnits - 1, (u + 1) / kUnits, af1);
-      wg_wait<kU>();
-      if (u + 2 < units) decode(0, (u + 2) / kUnits, af0);
+    for (int q0 = 0; q0 < Q; q0 += kTurnItems) {
+#pragma unroll
+      for (int v = 0; v < kTurnUnits; ++v) {
+        issue(v % kUnits, q0 + v / kUnits, (v & 1) ? af1 : af0);
+        wg_wait<kU>();
+        if (v + 1 < kTurnUnits)
+          decode((v + 1) % kUnits, q0 + (v + 1) / kUnits, (v & 1) ? af0 : af1);
+        else if (q0 + kTurnItems < Q)
+          decode(0, q0 + kTurnItems, af0);
+      }
     }
     if (stages == 2) wg_wait<0>();  // this stage's products done before its buffer refills
   }
@@ -673,8 +699,10 @@ __global__ void __launch_bounds__(kThreads, kOneSplit ? kMidBlocks : 1)
 
   // out[4jj + r]: column col + 8 (r >> 1), row 8 jj + 2t + (r & 1); the mid
   // route's split partials go to the workspace in f32, as the loop's do
+  // (its grid's z is the split count, so that no register holds that
+  // count across the loop)
   T* y = static_cast<T*>(a.y);
-  float* work = kOneSplit && splits > 1
+  float* work = kOneSplit && gridDim.z > 1
                     ? a.work + static_cast<size_t>(blockIdx.z) * a.M * a.N
                     : nullptr;
   const int n_a = nb + col, n_b = n_a + 8;
@@ -785,7 +813,7 @@ cudaError_t launch_wide(Args a, int splits, cudaStream_t stream) {
   auto kernel = wide_m_kernel<T, Decoder, R, kOneSplit>;
   if (!Decoder::kPlane1) a.plane1 = nullptr;
   if (kOneSplit && splits > 1 && a.work == nullptr) return cudaErrorInvalidValue;
-  const int blocks = kOneSplit ? kMidBlocks : 1;
+  const int blocks = kOneSplit ? Decoder::kMidBlocks : 1;
   const Geometry geo = geometry_of<Decoder>(a.chunk, a.group_size, R, blocks);
   const int stages = geo.stages(smem_budget<Decoder>(blocks));
   if (stages == 0) return cudaErrorInvalidValue;
@@ -928,24 +956,24 @@ cudaError_t describe_pair(int i, int chunk, const char** name, int* regs, int* s
 // registers, shared memory at `chunk` (group size 64) and blocks per SM.
 template <typename T, typename D, int R>
 cudaError_t describe_mid_rows(int chunk, int* regs, int* smem, int* blocks) {
-  const Geometry geo = geometry_of<D>(chunk, 64, R, kMidBlocks);
+  const Geometry geo = geometry_of<D>(chunk, 64, R, D::kMidBlocks);
   return describe(wide_m_kernel<T, D, R, true>, kThreads,
-                  geo.stages(smem_budget<D>(kMidBlocks)) * geo.stage_bytes, regs, smem, blocks);
+                  geo.stages(smem_budget<D>(D::kMidBlocks)) * geo.stage_bytes, regs, smem,
+                  blocks);
 }
 
-// Instantiation i of the mid route with the pair decoder of NB bits and
-// table fill Fill (K1, K2): i = 0..3 its row tiles in bf16, 4..7 in f16.
-template <int NB, typename Fill>
-cudaError_t describe_pair_mid(int i, int chunk, const char** name, int* regs, int* smem,
-                              int* blocks) {
+// Instantiation i of the mid route with decoder DB in bf16 (i = 0..3, its
+// row tiles) and DH in f16 (4..7): its name, registers, shared memory and
+// blocks per SM.
+template <typename DB, typename DH>
+cudaError_t describe_mid(int i, int chunk, const char** name, int* regs, int* smem,
+                         int* blocks) {
   static const char* const kNames[8] = {"mid R=16 bfloat16", "mid R=32 bfloat16",
                                         "mid R=48 bfloat16", "mid R=64 bfloat16",
                                         "mid R=16 float16",  "mid R=32 float16",
                                         "mid R=48 float16",  "mid R=64 float16"};
   if (i < 0 || i >= 8) return cudaErrorInvalidValue;
   *name = kNames[i];
-  using DB = mma::PairDecoder<__nv_bfloat16, NB, Fill>;
-  using DH = mma::PairDecoder<__half, NB, Fill>;
   switch (i) {
     case 0: return describe_mid_rows<__nv_bfloat16, DB, 16>(chunk, regs, smem, blocks);
     case 1: return describe_mid_rows<__nv_bfloat16, DB, 32>(chunk, regs, smem, blocks);
@@ -956,6 +984,14 @@ cudaError_t describe_pair_mid(int i, int chunk, const char** name, int* regs, in
     case 6: return describe_mid_rows<__half, DH, 48>(chunk, regs, smem, blocks);
     default: return describe_mid_rows<__half, DH, 64>(chunk, regs, smem, blocks);
   }
+}
+
+// The same with the pair decoder of NB bits and table fill Fill (K1, K2, K4).
+template <int NB, typename Fill>
+cudaError_t describe_pair_mid(int i, int chunk, const char** name, int* regs, int* smem,
+                              int* blocks) {
+  return describe_mid<mma::PairDecoder<__nv_bfloat16, NB, Fill>,
+                      mma::PairDecoder<__half, NB, Fill>>(i, chunk, name, regs, smem, blocks);
 }
 
 // ---------------------------------------------------------------------------

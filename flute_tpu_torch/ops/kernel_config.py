@@ -31,8 +31,8 @@ Two launch shapes serve the Hopper LUT-GEMM kernels:
   :data:`WIDE_MIN_M` rows) to the wide-M kernel on warpgroup MMA
   (``csrc/lut_gemm_wide_m.cuh``), which sums in the loop's order within
   ``mma_plan``'s split, so a row has the same bits on either route;
-  ``mma_route`` and ``mid_plan`` send K1 and K2 from :data:`MID_MIN_M`
-  rows below that to the same kernel's mid route (row tiles of
+  ``mma_route`` and ``mid_plan`` send K1-K4 from :data:`MID_MIN_M` rows
+  below that to the same kernel's mid route (row tiles of
   :data:`MID_ROWS`, one of ``mma_plan``'s splits a block, its workspace),
   with the same bits again.
 * ``LaunchConfig`` is the SIMT skeleton's (``csrc/lut_gemm_common.cuh``):
@@ -227,9 +227,6 @@ WIDE_ROWS = 128
 WIDE_BLOCK_N = 128
 # the layouts it decodes: K1's, K2's and K4's pair planes and K3's triples
 WIDE_LAYOUTS = ("w4sym", "plane", "pair", "w3wide")
-# The least M that takes it: the crossover of phase 2's sweep in
-# chip_smoke.py (K1-K4 at one Llama-3.1-8B layer, M in 8..2047).
-WIDE_MIN_M = 128
 
 
 def wide_ring(num_bits: int, chunk: int, group_size: int, layout: str = "plane",
@@ -244,7 +241,7 @@ def wide_ring(num_bits: int, chunk: int, group_size: int, layout: str = "plane",
     16-bit values each), rounded up to 128 bytes. ``stages`` fit beside the
     decoder's table (the pair tables ``(2^b)^2 x 8`` words, K4's joint one
     as K2's; K3's 64 x 8) and the mbarriers in an SM's shared memory shared
-    by ``blocks`` blocks (1 for the wide route, :data:`MID_BLOCKS` for the
+    by ``blocks`` blocks (1 for the wide route, :func:`mid_blocks` for the
     mid route), at most 4; 0 where two do not, or where a stage's units do
     not pair up (the kernel decodes a unit of at most 4 k16 steps while the
     one before multiplies, in pairs: an item at 4 and 8 fields, half an
@@ -285,15 +282,33 @@ def wide_takes_chunk(num_bits: int, chunk: int, group_size: int = 64,
 
 # The wide-M kernel's mid route (csrc/lut_gemm_wide_m.cuh with a row tile
 # under 128 and one split of K a block): the row tiles it is built for
-# (wgmma's N), the blocks an SM its registers and ring are sized for, and
-# the layouts it decodes (K1's and K2's; K3 and K4 stay on the loop there).
+# (wgmma's N), the blocks an SM its registers and ring are sized for (but
+# K3's with the per-field scale cache: :func:`mid_blocks`), and the layouts
+# it decodes (all four).
 MID_ROWS = (16, 32, 48, 64)
 MID_BLOCKS = 2
-MID_LAYOUTS = ("w4sym", "plane")
-# The least M that takes it, up to WIDE_MIN_M: the crossover of phase 2's
-# sweep in chip_smoke.py (K1, K2 at one Llama-3.1-8B layer, M in 8..128):
-# the loop wins at one m16 tile a warp (M <= 16), the mid route from 32.
+MID_LAYOUTS = ("w4sym", "plane", "pair", "w3wide")
+# The least M of the mid route and of the wide-M kernel, the loop below
+# both: the crossovers of phase 2's sweep in chip_smoke.py (one
+# Llama-3.1-8B layer in bf16, M in 8..2047), the same for every layout (K1
+# and K2 W4 from 8 rows, K3 and K4 W4 from 16, to 256; K2 W2, K4 W3 and W2
+# to 64 or 128).
+# The loop wins at one m16 tile a warp (M <= 16), the mid route from 32 to
+# 192 rows, the wide-M kernel at 256: from 193 rows the mid route needs
+# four tiles of 64 rows, as at 256, and the wide-M kernel two of 128.
 MID_MIN_M = 17
+WIDE_MIN_M = 193
+
+
+def mid_blocks(num_bits: int, chunk: int, group_size: int = 64, layout: str = "plane") -> int:
+    """Blocks an SM the mid route's instantiation for a layer is built for
+    (its decoder's ``kMidBlocks``): :data:`MID_BLOCKS`, a cap of 128
+    registers a thread, but 1 for K3 with the per-field scale cache (a
+    group size that is not a multiple of 2 kc), whose 48 scale registers
+    take a thread past that cap (140-168 registers on the card)."""
+    if layout == "w3wide" and group_size % (2 * mma_word_rows(num_bits, chunk, layout)):
+        return 1
+    return MID_BLOCKS
 
 
 def mid_rows(m: int) -> int:
@@ -308,12 +323,12 @@ def mid_rows(m: int) -> int:
 def mid_takes_chunk(num_bits: int, chunk: int, group_size: int = 64,
                     layout: str = "plane") -> bool:
     """Whether the mid route takes a layer's pack chunk and group size: a
-    layout it decodes (K1, K2), a chunk the loop takes, and two stages of
-    the ring at its largest row tile fitting :data:`MID_BLOCKS` blocks an
+    layout it decodes (K1-K4), a chunk the loop takes, and two stages of
+    the ring at its largest row tile fitting :func:`mid_blocks` blocks an
     SM, a stage's units pairing up. Depends on neither M nor the dtype."""
     return (layout in MID_LAYOUTS and mma_takes_chunk(num_bits, chunk, layout)
             and wide_ring(num_bits, chunk, group_size, layout, MID_ROWS[-1],
-                          MID_BLOCKS)[2] >= 2)
+                          mid_blocks(num_bits, chunk, group_size, layout))[2] >= 2)
 
 
 def mma_route(m: int, num_bits: int, chunk: int, layout: str = "plane",
@@ -321,10 +336,10 @@ def mma_route(m: int, num_bits: int, chunk: int, layout: str = "plane",
     """Where a call on the tensor cores (:func:`launch_path` ``"mma"``)
     runs: ``"wide"``, the wide-M kernel, for every layout (K1-K4) from
     :data:`WIDE_MIN_M` rows at a chunk and group size it takes; ``"mid"``,
-    its mid route, for K1 and K2 from :data:`MID_MIN_M` rows below
-    ``WIDE_MIN_M`` at a chunk and group size that takes
-    (:func:`mid_takes_chunk`); ``"loop"``, the decode loop, otherwise. For a
-    layer, a function of M alone; every route gives a row the same bits."""
+    its mid route, from :data:`MID_MIN_M` rows below ``WIDE_MIN_M`` at a
+    chunk and group size that takes (:func:`mid_takes_chunk`); ``"loop"``,
+    the decode loop, otherwise. For a layer, a function of M alone; every
+    route gives a row the same bits."""
     if (layout in WIDE_LAYOUTS and m >= WIDE_MIN_M
             and wide_takes_chunk(num_bits, chunk, group_size, layout)):
         return "wide"

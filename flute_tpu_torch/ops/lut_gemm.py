@@ -21,14 +21,13 @@ Dispatch is by the tensors' device:
   builds from the scalar one. A build or launch failure raises.
   K1-K4 on the tensor cores take their route by M alone
   (:func:`~flute_tpu_torch.ops.kernel_config.mma_route`): the decode loop
-  of ``csrc/lut_gemm_mma.cuh``, or from
-  :data:`~flute_tpu_torch.ops.kernel_config.WIDE_MIN_M` rows the wide-M
-  kernel of ``csrc/lut_gemm_wide_m.cuh`` (warpgroup MMA, no split-K
-  workspace), or for K1 and K2 from
-  :data:`~flute_tpu_torch.ops.kernel_config.MID_MIN_M` rows below that the
-  same kernel's mid route (row tiles of 16-64 rows, one split of K a
-  block, the loop's workspace and reduction); each gives a row the loop's
-  bits.
+  of ``csrc/lut_gemm_mma.cuh`` below
+  :data:`~flute_tpu_torch.ops.kernel_config.MID_MIN_M` rows, the mid route
+  of the wide-M kernel of ``csrc/lut_gemm_wide_m.cuh`` from it (row tiles
+  of 16-64 rows, one split of K a block, the loop's workspace and
+  reduction), and that kernel's wide route (warpgroup MMA, no split-K
+  workspace) from :data:`~flute_tpu_torch.ops.kernel_config.WIDE_MIN_M`
+  rows; each gives a row the loop's bits.
 
 :func:`dequantize_codes`, :func:`dequantize_codes_pair` and
 :func:`lut_qgemm_reference` are the oracle and define the semantics.
@@ -66,9 +65,9 @@ LAUNCHES = {"w4sym": 0, "plane": 0, "w3wide": 0, "pair": 0}
 # Of those, the launches that took the wide-M kernel (the route of K1-K4 at
 # prefill M), by layout.
 WIDE_LAUNCHES = {"w4sym_wide": 0, "plane_wide": 0, "w3wide_wide": 0, "pair_wide": 0}
-# Of those, the launches that took the wide-M kernel's mid route (K1 and K2
+# Of those, the launches that took the wide-M kernel's mid route (K1-K4
 # from MID_MIN_M to WIDE_MIN_M rows), by layout.
-MID_LAUNCHES = {"w4sym_mid": 0, "plane_mid": 0}
+MID_LAUNCHES = {"w4sym_mid": 0, "plane_mid": 0, "w3wide_mid": 0, "pair_mid": 0}
 
 _DTYPE_TAG = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
@@ -184,6 +183,8 @@ _WIDE = {
 _MID = {
     "w4sym": ("lut_gemm_w4sym.cu", "flute_lut_qgemm_w4sym_mid", 6, 9),
     "plane": ("lut_gemm_plane.cu", "flute_lut_qgemm_plane_mid", 7, 10),
+    "w3wide": ("lut_gemm_w3wide.cu", "flute_lut_qgemm_w3wide_mid", 6, 9),
+    "pair": ("lut_gemm_pair.cu", "flute_lut_qgemm_pair_mid", 7, 10),
 }
 
 
@@ -363,11 +364,12 @@ def _launch_mid(
     extra: tuple[int, ...] = (),
     vec: bool = True,
 ) -> torch.Tensor:
-    """Launch the wide-M kernel's mid route for K1 (``kernel="w4sym"``) or
-    K2 (``"plane"``) on PyTorch's current stream (operands checked, x on a
-    16-byte boundary) with :func:`mid_plan`'s row tile and split, and the
-    split-K workspace allocated here; count the launch (the kernel and,
-    with several splits, the reduction: one call). Returns ``[M, N]`` in
+    """Launch the wide-M kernel's mid route for K1 (``kernel="w4sym"``), K2
+    (``"plane"``), K3 (``"w3wide"``) or K4 (``"pair"``) on PyTorch's
+    current stream (operands checked, x on a 16-byte boundary) with
+    :func:`mid_plan`'s row tile and split, and the split-K workspace
+    allocated here; count the launch (the kernel and, with several splits,
+    the reduction: one call). Returns ``[M, N]`` in
     x's dtype. Raises on a refused launch."""
     m, k = x2.shape
     n = scales.shape[1]
@@ -400,16 +402,13 @@ def kernel_instances(kernel: str, chunk: int = 256) -> list[dict]:
     (``"plane"``) or K4 (``"pair"``) at 2, 3 and 4 bits, or K3
     (``"w3wide"``, with a chunk's scales once per field and with the
     per-field cache: ``scales`` "chunk" or "field"): the decode loop at 1, 2
-    and 4 m16 tiles a warp and the wide-M kernel, in bf16 and f16, and for
-    K1 and K2 the wide-M kernel's mid route at each row tile, with its
-    registers, shared memory (static and dynamic at ``chunk``) and blocks
-    per SM from the CUDA runtime on the current card."""
-    out = _instances(kernel, f"flute_lut_qgemm_{kernel}_instance", chunk,
-                     {"w4sym": 8, "w3wide": 16}.get(kernel, 24))
-    if kernel in _MID:
-        out += _instances(kernel, f"flute_lut_qgemm_{kernel}_mid_instance", chunk,
-                          8 if kernel == "w4sym" else 24)
-    return out
+    and 4 m16 tiles a warp and the wide-M kernel, in bf16 and f16, and the
+    wide-M kernel's mid route at each row tile, with its registers, shared
+    memory (static and dynamic at ``chunk``) and blocks per SM from the
+    CUDA runtime on the current card."""
+    count = {"w4sym": 8, "w3wide": 16}.get(kernel, 24)
+    return (_instances(kernel, f"flute_lut_qgemm_{kernel}_instance", chunk, count)
+            + _instances(kernel, f"flute_lut_qgemm_{kernel}_mid_instance", chunk, count))
 
 
 def _instances(kernel: str, entry: str, chunk: int, count: int) -> list[dict]:
@@ -616,8 +615,9 @@ def lut_qgemm_pair_cuda(
     :func:`mma_route` gives M: the tensor-core loop of
     ``csrc/lut_gemm_mma.cuh``, split-K as :func:`mma_plan` says, with an f32
     workspace and a second kernel that adds the splits in order, or from
-    ``WIDE_MIN_M`` rows the wide-M kernel with the loop's bits), for a 2-D
-    ``x2`` ``[M, K]`` in bf16 or f16, 2-, 3- (2+1 planes) or 4-bit pair
+    ``MID_MIN_M`` rows the wide-M kernel's mid route, or from
+    ``WIDE_MIN_M`` rows the wide-M kernel, each with the loop's bits), for
+    a 2-D ``x2`` ``[M, K]`` in bf16 or f16, 2-, 3- (2+1 planes) or 4-bit pair
     planes and a float32 pair table ``[2^b, 2^b, 2]``; returns ``[M, N]`` in
     x's dtype. Counts one launch per call."""
     if num_bits not in (2, 3, 4):

@@ -33,7 +33,7 @@ from flute_tpu_torch.ops import lut_gemm
 from flute_tpu_torch.ops import paged_attention
 
 # the launch counters of the kernels a served step runs (WIDE_LAUNCHES: the
-# wide-M kernel's, by layout, K1-K4; MID_LAUNCHES: its mid route's, K1, K2)
+# wide-M kernel's, by layout, K1-K4; MID_LAUNCHES: its mid route's, K1-K4)
 COUNTERS = (lut_gemm.LAUNCHES, paged_attention.LAUNCHES, lut_gemm.WIDE_LAUNCHES,
             lut_gemm.MID_LAUNCHES)
 

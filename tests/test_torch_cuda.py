@@ -2308,16 +2308,21 @@ def test_wgmma_gives_mma_sync_bits(dev, dtype):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("layout,bits", LOOP_LAYOUTS)
 def test_wide_has_the_loops_bits(dev, layout, bits, dtype, m, chunk, g):
-    """The wide-M kernel (the plan's route from 128 rows) gives the decode
-    loop's bits at full and ragged row tiles, groups within and across
-    fields and split-K (K = 2048), within the threshold of the plain
+    """The wide-M kernel (the plan's route from WIDE_MIN_M rows; the mid
+    route's below it, so at 128 and 130 rows the wide route is forced) gives
+    the decode loop's bits at full and ragged row tiles, groups within and
+    across fields and split-K (K = 2048), within the threshold of the plain
     version; a launch counts in LAUNCHES and WIDE_LAUNCHES."""
     _, x, planes, s, t = loop_case(dev, layout, bits, m, 264, 2048, dtype, seed=m + bits + g,
                                    chunk=chunk, g=g)
-    assert lut_gemm.mma_route(m, bits, chunk, layout, g) == "wide"
+    plan = "wide" if m >= kernel_config.WIDE_MIN_M else "mid"
+    assert lut_gemm.mma_route(m, bits, chunk, layout, g) == plan
     before, wide_before = lut_gemm.LAUNCHES[layout], lut_gemm.WIDE_LAUNCHES[f"{layout}_wide"]
-    y = lut_gemm.lut_qgemm(x, planes, s, t, num_bits=bits, layout=layout,
-                           config=KernelConfig(chunk=chunk))
+    if plan == "wide":
+        y = lut_gemm.lut_qgemm(x, planes, s, t, num_bits=bits, layout=layout,
+                               config=KernelConfig(chunk=chunk))
+    else:
+        y = route_fn(layout, bits, planes, s, t, chunk, g, route="wide")(x)
     assert lut_gemm.LAUNCHES[layout] == before + 1
     assert lut_gemm.WIDE_LAUNCHES[f"{layout}_wide"] == wide_before + 1
     loop = route_fn(layout, bits, planes, s, t, chunk, g, route="loop")(x)
@@ -2424,18 +2429,20 @@ def plain_of(layout, bits, x, planes, s, t, chunk):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("layout,bits,chunk", K3_K4_WIDE)
 def test_k3_k4_wide_has_the_loops_bits(dev, layout, bits, chunk, dtype, m, g):
-    """K3 and K4 from 128 rows take the wide-M kernel and give the decode
-    loop's bits at full and ragged row tiles (N = 264: a ragged column
-    tile), split-K (K = 2048), groups within and across fields (K3: a
-    chunk's scales once per field where g is a multiple of 2 kc, the
-    per-field cache at g = 8 and at chunk 512 below that), within the
-    threshold of the plain version; a repeat call has the same bits, and at
-    M = 2047 rows 0 and M - 1 the one-row call's."""
+    """K3 and K4 from WIDE_MIN_M rows take the wide-M kernel (forced at 128
+    and 130 rows, the mid route's in the plan) and give the decode loop's
+    bits at full and ragged row tiles (N = 264: a ragged column tile),
+    split-K (K = 2048), groups within and across fields (K3: a chunk's
+    scales once per field where g is a multiple of 2 kc, the per-field
+    cache at g = 8 and at chunk 512 below that), within the threshold of
+    the plain version; a repeat call has the same bits, and at M = 2047
+    rows 0 and M - 1 the one-row call's."""
     _, x, planes, s, t, _ = wide_case(dev, layout, bits, m, 264, 2048, dtype,
                                       seed=m + bits + g + chunk, chunk=chunk, g=g)
-    assert kernel_config.mma_route(m, bits, chunk, layout, g) == "wide"
+    plan = "wide" if m >= kernel_config.WIDE_MIN_M else "mid"
+    assert kernel_config.mma_route(m, bits, chunk, layout, g) == plan
     before, wide_before = lut_gemm.LAUNCHES[layout], lut_gemm.WIDE_LAUNCHES[f"{layout}_wide"]
-    call = route_fn(layout, bits, planes, s, t, chunk, g)
+    call = route_fn(layout, bits, planes, s, t, chunk, g, route=None if plan == "wide" else "wide")
     y = call(x)
     assert lut_gemm.LAUNCHES[layout] == before + 1
     assert lut_gemm.WIDE_LAUNCHES[f"{layout}_wide"] == wide_before + 1
@@ -2598,7 +2605,8 @@ def test_k1_k2_mid_stages_by_cp_async_where_tma_does_not_take_n(dev, layout, bit
 
 def mid_ptrs(layout, planes):
     """A mid C entry's plane pointers (null for a plane the layout lacks)."""
-    return [p.data_ptr() for p in planes] + [None] * (2 - len(planes) - (layout == "w4sym"))
+    return [p.data_ptr() for p in planes] + [None] * (2 - len(planes)
+                                                      - (layout in ("w4sym", "w3wide")))
 
 
 @pytest.mark.parametrize("layout,bits", LOOP_LAYOUTS)
@@ -2642,4 +2650,150 @@ def test_k1_k2_mid_refused_launch_raises(dev, layout, bits, monkeypatch):
             None, 40, 256, 2048, G, 256, *extra, lut_gemm._DTYPE_TAG[torch.bfloat16],
             plan.rows, plan.splits, 1, torch.cuda.current_stream(dev).cuda_stream)
     assert fn(*args) != 0
+    assert lut_gemm.LAUNCHES == launches and lut_gemm.MID_LAUNCHES == mid
+
+
+# ---------------------------------------------------------------------------
+# The wide-M kernel's mid route: K3 (w3wide) and K4 (pair) at 17-127 rows
+# ---------------------------------------------------------------------------
+
+# (layout, bits, chunk): K3 at both of its chunks, K4 at every bit width
+K3_K4_MID = K3_K4_WIDE
+
+
+@pytest.mark.parametrize("g", [8, 16, 64, 128])
+@pytest.mark.parametrize("m", [16, 40, 48, 64, 100])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("layout,bits,chunk", K3_K4_MID)
+def test_k3_k4_mid_has_the_loops_bits(dev, layout, bits, chunk, dtype, m, g):
+    """K3 and K4 on the mid route (row tiles of 16-64 rows, one split of K a
+    block, the workspace and the loop's reduction) give the decode loop's
+    bits at full and ragged row and column tiles (N = 264), split-K (K =
+    2048), groups within and across fields (K3: a chunk's scales once per
+    field, two blocks an SM, where g is a multiple of 2 kc; the per-field
+    cache, one block an SM, at g = 8 and at chunk 512 at g = 16), within
+    the threshold of the plain version; a repeat call has the same bits; a
+    launch counts in LAUNCHES and MID_LAUNCHES."""
+    _, x, planes, s, t, _ = wide_case(dev, layout, bits, m, 264, 2048, dtype,
+                                      seed=m + bits + g + chunk + 5, chunk=chunk, g=g)
+    assert kernel_config.mid_takes_chunk(bits, chunk, g, layout)
+    assert kernel_config.mid_plan(m, 264, 2048, chunk).splits > 1
+    before, mid_before = lut_gemm.LAUNCHES[layout], lut_gemm.MID_LAUNCHES[f"{layout}_mid"]
+    call = route_fn(layout, bits, planes, s, t, chunk, g, route="mid")
+    y = call(x)
+    assert lut_gemm.LAUNCHES[layout] == before + 1
+    assert lut_gemm.MID_LAUNCHES[f"{layout}_mid"] == mid_before + 1
+    assert same_bits(y, route_fn(layout, bits, planes, s, t, chunk, g, route="loop")(x))
+    assert same_bits(call(x), y)
+    y_plain = plain_of(layout, bits, x, planes, s, t, chunk)
+    torch.cuda.synchronize()
+    assert rel_err(y, y_plain) < TOL[dtype]
+
+
+@pytest.mark.parametrize("m", [17, 40, 100])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("layout,bits,chunk", K3_K4_MID)
+def test_k3_k4_mid_rows_and_one_split(dev, layout, bits, chunk, dtype, m):
+    """The plan's route at M (the mid route from MID_MIN_M rows):
+    rows 0 and M - 1 have the one-row call's bits and a repeat call the
+    same bits; with one split (K one chunk) the blocks write y themselves,
+    with the loop's bits."""
+    _, x, planes, s, t, _ = wide_case(dev, layout, bits, m, 384, 4096, dtype, seed=80 + bits,
+                                      chunk=chunk)
+    assert kernel_config.mma_route(m, bits, chunk, layout) == "mid"
+    call = route_fn(layout, bits, planes, s, t, chunk)
+    y = call(x)
+    assert same_bits(call(x), y)
+    for i in (0, m - 1):
+        assert same_bits(call(x[i:i + 1]), y[i:i + 1])
+    _, x1, planes1, s1, t1, _ = wide_case(dev, layout, bits, m, 384, chunk, dtype,
+                                          seed=81 + bits, chunk=chunk)
+    assert lut_gemm.mid_plan(m, 384, chunk, chunk).splits == 1
+    y1 = route_fn(layout, bits, planes1, s1, t1, chunk, route="mid")(x1)
+    assert same_bits(y1, route_fn(layout, bits, planes1, s1, t1, chunk, route="loop")(x1))
+
+
+@pytest.mark.parametrize("m", [16, 40, 100])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("layout,bits,chunk", K3_K4_MID)
+def test_k3_k4_mid_identity_bit_exact(dev, layout, bits, chunk, dtype, m):
+    """Identity rows through the mid route give the oracle's bits, with a
+    chunk's scales and (K3, g = 8) with the per-field cache."""
+    for g in (G, 8):
+        _, _, planes, s, t, deq = wide_case(dev, layout, bits, 1, 256, 512, dtype, seed=82 + g,
+                                            chunk=chunk, g=g)
+        eye = torch.eye(m, 512, dtype=dtype, device=dev)
+        got = route_fn(layout, bits, planes, s, t, chunk, g, route="mid")(eye)
+        assert same_bits(got, deq[:m])
+
+
+@pytest.mark.parametrize("n", [196, 198])
+@pytest.mark.parametrize("layout,bits,chunk", K3_K4_MID)
+def test_k3_k4_mid_stages_by_cp_async_where_tma_does_not_take_n(dev, layout, bits, chunk, n):
+    """N not a multiple of 8 (196: 16-byte plane copies; 198: 4-byte ones)
+    stages the plane words and scales by cp.async, with the loop's bits."""
+    _, x, planes, s, t, _ = wide_case(dev, layout, bits, 40, n, 1024, torch.bfloat16, seed=83,
+                                      chunk=chunk)
+    y = route_fn(layout, bits, planes, s, t, chunk, route="mid")(x)
+    assert same_bits(y, route_fn(layout, bits, planes, s, t, chunk, route="loop")(x))
+    assert rel_err(y, plain_of(layout, bits, x, planes, s, t, chunk)) < TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("layout,bits,chunk", K3_K4_MID)
+def test_k3_k4_mid_refuses_f32_and_does_not_fall_back(dev, layout, bits, chunk):
+    """The mid C entry given f32 raises and counts no launch: nothing falls
+    back to the loop or the plain version. Through the wrapper K4 refuses
+    f32 (as JAX's pair_lut mode does) and K3 takes its SIMT kernel at every
+    M."""
+    _, x, planes, s, t, _ = wide_case(dev, layout, bits, 40, 256, 512, torch.float32, seed=84,
+                                      chunk=chunk)
+    launches, mid = dict(lut_gemm.LAUNCHES), dict(lut_gemm.MID_LAUNCHES)
+    extra = (bits,) if layout == "pair" else ()
+    with pytest.raises(RuntimeError, match="mid-M kernel launch failed"):
+        lut_gemm._launch_mid(layout, x, mid_ptrs(layout, planes), s, t, group_size=G,
+                             chunk=chunk, extra=extra)
+    assert lut_gemm.LAUNCHES == launches and lut_gemm.MID_LAUNCHES == mid
+    if layout == "pair":
+        with pytest.raises(NotImplementedError, match="16-bit"):
+            route_fn(layout, bits, planes, s, t, chunk, route="mid")(x)
+        assert lut_gemm.LAUNCHES == launches
+        return
+    assert lut_gemm.lut_path(torch.float32, bits, chunk, layout) == "simt"
+    y = route_fn(layout, bits, planes, s, t, chunk, route="mid")(x)
+    assert lut_gemm.MID_LAUNCHES == mid
+    assert rel_err(y, plain_of(layout, bits, x, planes, s, t, chunk)) < TOL[torch.float32]
+
+
+@pytest.mark.parametrize("layout,bits,chunk", K3_K4_MID)
+def test_k3_k4_mid_refused_launch_raises(dev, layout, bits, chunk, monkeypatch):
+    """A launch the mid route does not take raises and counts nothing: a
+    row tile it is not built for, several splits without a workspace, and
+    K3 at a chunk that is not a multiple of 256 (the plan never routes such
+    a layer there)."""
+    _, x, planes, s, t, _ = wide_case(dev, layout, bits, 40, 256, 2048, torch.bfloat16, seed=85,
+                                      chunk=chunk)
+    extra = (bits,) if layout == "pair" else ()
+    launches, mid = dict(lut_gemm.LAUNCHES), dict(lut_gemm.MID_LAUNCHES)
+    plan = kernel_config.mid_plan(40, 256, 2048, chunk)
+    assert plan.splits > 1
+    with monkeypatch.context() as patch:
+        patch.setattr(lut_gemm, "mid_plan", lambda *a: kernel_config.MidPlan(
+            rows=24, splits=plan.splits, grid=plan.grid))
+        with pytest.raises(RuntimeError, match="mid-M kernel launch failed"):
+            lut_gemm._launch_mid(layout, x, mid_ptrs(layout, planes), s, t, group_size=G,
+                                 chunk=chunk, extra=extra)
+    fn, _ = lut_gemm._entry(*lut_gemm._MID[layout])
+    y = torch.empty((40, 256), dtype=torch.bfloat16, device=dev)
+
+    def entry(work, chunk_arg):
+        return fn(x.data_ptr(), *mid_ptrs(layout, planes), s.data_ptr(), t.data_ptr(),
+                  y.data_ptr(), work, 40, 256, 2048, G, chunk_arg, *extra,
+                  lut_gemm._DTYPE_TAG[torch.bfloat16], plan.rows, plan.splits, 1,
+                  torch.cuda.current_stream(dev).cuda_stream)
+
+    assert entry(None, chunk) != 0
+    if layout == "w3wide":
+        work = torch.empty((plan.splits, 40, 256), dtype=torch.float32, device=dev)
+        assert kernel_config.mma_route(40, bits, 128, layout, G) == "loop"
+        assert entry(work.data_ptr(), 128) != 0
     assert lut_gemm.LAUNCHES == launches and lut_gemm.MID_LAUNCHES == mid

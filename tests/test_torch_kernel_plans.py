@@ -403,7 +403,8 @@ def test_k1_k2_wrappers_pick_the_path_before_the_launch(monkeypatch, layout, bit
 def test_k3_wrapper_picks_the_path_before_the_launch(monkeypatch, dtype, chunk):
     """K3 takes the tensor cores in bf16 and f16 at chunk 256 and 512
     (mma_plan's split, the same at every M: the loop with its workspace
-    below WIDE_MIN_M rows, the wide-M kernel with none from it) and the SIMT
+    below MID_MIN_M rows, the wide-M kernel with none from WIDE_MIN_M) and
+    the SIMT
     kernel in f32 and at chunk 1024, whose x ring would not fit shared
     memory. One launch is counted either way."""
     n, k = 256, 2048
@@ -772,15 +773,15 @@ def test_wide_product_through_the_operand_map_matches_jax(layout, bits, splits):
                                          ("w3wide", 3), ("pair", 2), ("pair", 3), ("pair", 4)])
 def test_wide_route_depends_on_m_alone(layout, bits):
     """Every layout (K1-K4) takes the wide-M kernel from WIDE_MIN_M rows at
-    a chunk it takes (K3 at 256, 512 and 768); below, K1 and K2 the mid
-    route from MID_MIN_M rows, the rest the loop. For a layer the route is
-    a function of M alone."""
+    a chunk it takes (K3 at 256, 512 and 768); below, the mid route from
+    MID_MIN_M rows, the loop under that. For a layer the route is a
+    function of M alone."""
     assert layout in kernel_config.WIDE_LAYOUTS
     for chunk in (256, 512):
         assert kernel_config.wide_takes_chunk(bits, chunk, G, layout)
         for m in (1, 8, 40, 64, kernel_config.WIDE_MIN_M - 1, kernel_config.WIDE_MIN_M, 512,
                   2047, 4094):
-            # below WIDE_MIN_M: K1 and K2 from MID_MIN_M rows on the mid route
+            # below WIDE_MIN_M: from MID_MIN_M rows on the mid route
             mid = layout in kernel_config.MID_LAYOUTS and m >= kernel_config.MID_MIN_M
             want = "wide" if m >= kernel_config.WIDE_MIN_M else "mid" if mid else "loop"
             assert kernel_config.mma_route(m, bits, chunk, layout) == want
@@ -962,7 +963,7 @@ def test_k1_k2_wrappers_take_the_route_of_m(monkeypatch, layout, bits, dtype, m)
 
 
 # ---------------------------------------------------------------------------
-# The wide-M kernel's mid route (K1 and K2 at 16-127 rows)
+# The wide-M kernel's mid route (K1-K4 at 17-127 rows)
 # ---------------------------------------------------------------------------
 
 MID_CASES = [("w4sym", 4), ("plane", 2), ("plane", 3), ("plane", 4)]
@@ -1004,27 +1005,34 @@ def test_mid_plan_keeps_the_split(name, n, k, m):
 
 @pytest.mark.parametrize("layout,bits", ALL_LAYOUTS)
 def test_mid_route_is_a_function_of_m(layout, bits):
-    """Three routes by M alone, at chunks 256 and 512: the loop below
-    MID_MIN_M, the mid route from it to WIDE_MIN_M for K1 and K2 (a chunk
-    and group size ``mid_takes_chunk`` takes), the wide-M kernel from
-    WIDE_MIN_M; K3 and K4 stay on the loop below WIDE_MIN_M. A layer whose
-    ring would not fit two blocks an SM stays on the loop."""
-    mid = (layout, bits) in MID_CASES
-    # the verify's 40 rows take the mid route
-    assert 1 <= kernel_config.MID_MIN_M <= 40 < kernel_config.WIDE_MIN_M
+    """Three routes by M alone, at chunks 256 and 512, for every layout
+    (K1-K4): the loop below MID_MIN_M, the mid route from it to WIDE_MIN_M
+    (a chunk and group size ``mid_takes_chunk`` takes), the wide-M kernel
+    from WIDE_MIN_M. A
+    layer whose ring would not fit the blocks an SM its instantiation is
+    built for stays on the loop; K3 with the per-field scale cache (g = 8,
+    not a multiple of 2 kc) takes the mid route at one block an SM."""
+    assert layout in kernel_config.MID_LAYOUTS
+    mid_min_m, wide_min_m = kernel_config.MID_MIN_M, kernel_config.WIDE_MIN_M
+    # the verify's 40 rows and the paged admissions of 17-64 rows take the
+    # mid route
+    assert 1 <= mid_min_m <= 17 and 64 < wide_min_m
     for chunk in (256, 512):
-        assert kernel_config.mid_takes_chunk(bits, chunk, G, layout) == mid
-        for m in (1, 8, 15, 16, 17, 40, 48, 64, 96, 100, 127, 128, 512):
-            if m >= kernel_config.WIDE_MIN_M:
+        assert kernel_config.mid_takes_chunk(bits, chunk, G, layout)
+        assert kernel_config.mid_blocks(bits, chunk, G, layout) == kernel_config.MID_BLOCKS
+        if layout == "w3wide":
+            assert kernel_config.mid_takes_chunk(bits, chunk, 8, layout)
+            assert kernel_config.mid_blocks(bits, chunk, 8, layout) == 1
+        for m in (1, 8, 15, 16, 17, 40, 48, 64, 96, 100, 127, 128, 192, 256, 512):
+            if m >= wide_min_m:
                 want = "wide"
-            elif mid and m >= kernel_config.MID_MIN_M:
+            elif m >= mid_min_m:
                 want = "mid"
             else:
                 want = "loop"
             assert kernel_config.mma_route(m, bits, chunk, layout) == want, (m, chunk)
-    if mid:
-        assert not kernel_config.mid_takes_chunk(bits, 768, 2, layout)
-        assert kernel_config.mma_route(40, bits, 768, layout, 2) == "loop"
+    assert not kernel_config.mid_takes_chunk(bits, 768, 2, layout)
+    assert kernel_config.mma_route(40, bits, 768, layout, 2) == "loop"
 
 
 def mid_product(x, planes, ptab, scales, deq, bits, chunk, dtype, layout, n, k):
@@ -1065,33 +1073,48 @@ def mid_product(x, planes, ptab, scales, deq, bits, chunk, dtype, layout, n, k):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("m", [16, 40, 64])
-@pytest.mark.parametrize("layout,bits", MID_CASES)
+@pytest.mark.parametrize("layout,bits", ALL_LAYOUTS)
 def test_mid_product_through_the_operand_map_matches_jax(layout, bits, m, dtype):
     """The mid route's operand map (k16 steps in the loop's order, R-row
     tiles, ragged M, one split a block added in split order) in numpy
     against JAX's group-accumulating decode branch (interpret mode, which
     the TPU kernel takes for blocks of at most ``group_acc_max_bm`` rows):
-    K1 (w4sym) and K2 at 2, 3 and 4 bits, bf16 and f16, within the
-    reference thresholds."""
-    chunk = 128
+    K1 (w4sym), K2 at 2, 3 and 4 bits, K3's word triples (16 six-bit
+    fields a triple row, chunk 256) and K4's joint pair index map
+    (``ce | co << b`` into the pair table, JAX's ``pair_lut`` mode), bf16
+    and f16, within the reference thresholds."""
+    chunk = 256 if layout == "w3wide" else 128
     tol = {torch.bfloat16: BF16_TOL, torch.float16: 2e-3}[dtype]
-    rng = np.random.default_rng(120 + bits + m + (layout == "w4sym"))
+    rng = np.random.default_rng(120 + bits + m + (layout == "w4sym") + 7 * (layout == "pair")
+                                + 11 * (layout == "w3wide"))
     codes = rng.integers(0, 2**bits, (K, N), dtype=np.int32)
+    pv_np = None
     if layout == "w4sym":
         planes_np = packing.pack_w4_sym_np(codes, chunk=chunk)
         table_np = w4sym_table(rng, mixed_signs=True)
+    elif layout == "w3wide":
+        planes_np = packing.pack_w3_wide_np(codes, chunk=chunk)
+        table_np = rng.standard_normal(8).astype(np.float32)
     else:
         planes_np = packing.pack_np(codes, bits, chunk=chunk)
         table_np = rng.standard_normal(2**bits).astype(np.float32)
+        if layout == "pair":
+            pv_np = rng.standard_normal((2**bits, 2**bits, 2)).astype(np.float32)
     scales_np = rng.uniform(0.5, 1.5, (K // G, N)).astype(np.float32)
     x_np = rng.standard_normal((m, K)).astype(np.float32)
     planes = [torch.from_numpy(p) for p in planes_np]
     table = torch.from_numpy(table_np)
     scales = torch.from_numpy(scales_np).to(dtype)
     x = torch.from_numpy(x_np).to(dtype)
-    deq = lut_gemm.dequantize_codes(torch.from_numpy(codes), scales, table, dtype)
-    y, plan = mid_product(x, planes, lut_gemm.pair_table(layout, table, dtype), scales, deq, bits,
-                          chunk, dtype, layout, N, K)
+    codes_t = torch.from_numpy(codes)
+    if pv_np is None:
+        deq = lut_gemm.dequantize_codes(codes_t, scales, table, dtype)
+        ptab = lut_gemm.pair_table(layout, table, dtype)
+    else:
+        pv = torch.from_numpy(pv_np)
+        deq = lut_gemm.dequantize_codes_pair(codes_t, scales, pv, dtype)
+        ptab = lut_gemm.pair_table("pair", pv, dtype)
+    y, plan = mid_product(x, planes, ptab, scales, deq, bits, chunk, dtype, layout, N, K)
     assert plan.splits > 1 and plan.rows == kernel_config.mid_rows(m)
 
     bm = 16 if m <= 16 else 64
@@ -1100,30 +1123,36 @@ def test_mid_product_through_the_operand_map_matches_jax(layout, bits, m, dtype)
     want = jlut.lut_qgemm(
         jnp.asarray(x_np, jd), [jnp.asarray(p) for p in planes_np], jnp.asarray(scales_np, jd),
         jnp.asarray(table_np), num_bits=bits,
-        config=JKernelConfig(block_m=bm, block_n=128, block_k=256, chunk=chunk), layout=layout,
-        interpret=True)
+        config=JKernelConfig(block_m=bm, block_n=128, block_k=256, chunk=chunk,
+                             **({} if pv_np is None else dict(lut_mode="pair_lut"))),
+        layout="plane" if layout == "pair" else layout, interpret=True,
+        pair_values=None if pv_np is None else jnp.asarray(pv_np))
     got = torch.from_numpy(y).to(dtype).float().numpy()
     assert rel_err(got, np.asarray(want, np.float32)) < tol
 
 
 @pytest.mark.parametrize("m", [17, 40, 100])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("layout,bits", MID_CASES)
+@pytest.mark.parametrize("layout,bits", ALL_LAYOUTS)
 def test_k1_k2_wrappers_launch_the_mid_entry(monkeypatch, layout, bits, dtype, m):
-    """K1 and K2 in bf16 and f16 from MID_MIN_M rows below WIDE_MIN_M launch
-    the mid C entry with the plan's row tile and split and the planned
-    workspace (K = 2048: several splits), counted once in LAUNCHES and
-    MID_LAUNCHES; at the plan's crossover and with the crossover moved to
-    one row."""
+    """K1-K4 (K3's triples, K4's joint pair table) in bf16 and f16 from
+    MID_MIN_M rows below WIDE_MIN_M launch the mid C entry with the
+    plan's row tile and split and the planned workspace (K = 2048: several
+    splits), counted once in LAUNCHES and MID_LAUNCHES; at the plan's
+    crossover and with the crossover moved to one row."""
     n, k, chunk = 256, 2048, 256
-    rng = np.random.default_rng(130 + bits)
+    rng = np.random.default_rng(130 + bits + 7 * (layout == "pair") + 11 * (layout == "w3wide"))
     codes = rng.integers(0, 2**bits, (k, n), dtype=np.int32)
     if layout == "w4sym":
         planes = packing.pack_w4_sym_np(codes, chunk=chunk)
+    elif layout == "w3wide":
+        planes = packing.pack_w3_wide_np(codes, chunk=chunk)
     else:
         planes = packing.pack_np(codes, bits, chunk=chunk)
     planes = [torch.from_numpy(p) for p in planes]
-    table = torch.zeros(16 if layout == "w4sym" else 2**bits)
+    e = 2**bits
+    table = {"w4sym": torch.zeros(16), "w3wide": torch.zeros(8),
+             "pair": torch.zeros((e, e, 2))}.get(layout, torch.zeros(e))
     x = torch.zeros((m, k), dtype=dtype)
     scales = torch.zeros((k // G, n), dtype=dtype)
     calls, allocated = _fake_launch(monkeypatch)
@@ -1132,20 +1161,64 @@ def test_k1_k2_wrappers_launch_the_mid_entry(monkeypatch, layout, bits, dtype, m
         calls.clear()
         allocated.clear()
         before, mid_before = dict(lut_gemm.LAUNCHES), dict(lut_gemm.MID_LAUNCHES)
+        kw = dict(group_size=G, chunk=chunk)
         if layout == "w4sym":
-            lut_gemm.lut_qgemm_w4sym_cuda(x, planes[0], scales, table, group_size=G, chunk=chunk)
+            lut_gemm.lut_qgemm_w4sym_cuda(x, planes[0], scales, table, **kw)
+        elif layout == "w3wide":
+            lut_gemm.lut_qgemm_w3wide_cuda(x, planes[0], scales, table, **kw)
+        elif layout == "pair":
+            lut_gemm.lut_qgemm_pair_cuda(x, planes, scales, table, num_bits=bits, **kw)
         else:
-            lut_gemm.lut_qgemm_plane_cuda(x, planes, scales, table, num_bits=bits, group_size=G,
-                                          chunk=chunk)
+            lut_gemm.lut_qgemm_plane_cuda(x, planes, scales, table, num_bits=bits, **kw)
         assert kernel_config.mma_route(m, bits, chunk, layout) == "mid"
         assert lut_gemm.LAUNCHES[layout] == before[layout] + 1
         assert lut_gemm.MID_LAUNCHES[f"{layout}_mid"] == mid_before[f"{layout}_mid"] + 1
         (args,) = calls
         plan = kernel_config.mid_plan(m, n, k, chunk)
         assert plan.splits > 1
-        extra = () if layout == "w4sym" else (bits,)
+        extra = () if layout in ("w4sym", "w3wide") else (bits,)
         want = (m, n, k, G, chunk, *extra, lut_gemm._DTYPE_TAG[dtype], plan.rows, plan.splits, 1)
         assert args[0] == f"flute_lut_qgemm_{layout}_mid"
         assert args[-len(want) - 1:-1] == want
         assert args[-len(want) - 2] is not None  # the workspace
         assert allocated == [(plan.splits, m, n)]
+        # x, the planes (null where the layout has fewer than the entry
+        # takes), scales, table, y and the workspace: the entry's pointers
+        assert len(args) - 1 - len(want) - 1 == lut_gemm._MID[layout][2]
+
+
+@pytest.mark.parametrize("layout,bits", [("w3wide", 3), ("pair", 2), ("pair", 3), ("pair", 4)])
+@pytest.mark.parametrize("chunk", [256, 512])
+def test_k3_k4_mid_ring(layout, bits, chunk):
+    """K3's and K4's mid ring (``csrc/lut_gemm_wide_m.cuh::Geometry`` at the
+    row tiles of MID_ROWS): K4's is K2's at every row tile and group size
+    (its joint table has K2's size); K3's is one item a stage at 48 and 64
+    rows (two at 16 and 32) with three TMA boxes of plane rows, 4 stages of
+    24 192 B at 64 rows and g 64, chunk 256, sized for two blocks an SM
+    with a chunk's scales (g a multiple of 2 kc) and for one with the
+    per-field cache (g 8 at chunk 256, 8 and 16 at 512); at every row
+    tile a stage's half-item units
+    pair up and the ring fits its blocks' share of the SM."""
+    for g in (8, 16, 32, 64, 128):
+        if chunk % g:
+            continue
+        blocks = kernel_config.mid_blocks(bits, chunk, g, layout)
+        for rows in kernel_config.MID_ROWS:
+            ring = kernel_config.wide_ring(bits, chunk, g, layout, rows, blocks)
+            if layout == "pair":
+                assert blocks == kernel_config.MID_BLOCKS
+                assert ring == kernel_config.wide_ring(bits, chunk, g, "plane", rows, blocks)
+                continue
+            q, stage, stages = ring
+            per_field = g % (2 * chunk // 32) != 0
+            assert blocks == (1 if per_field else 2)
+            assert stages >= 2 and (chunk // 32 // 4) % q == 0
+            table = 64 * 8 * 4
+            assert blocks * (stages * stage + table + 64 + 1024) <= kernel_config.SM_SMEM_BYTES
+            srows = -(-chunk // g) + 1
+            x_bytes, words = 16 * q * rows * 16, 3 * 4 * q * 136 * 4
+            assert stage == -(-(-(-(x_bytes + words) // 128) * 128 + srows * 256) // 128) * 128
+    if layout == "w3wide" and chunk == 256:
+        assert kernel_config.wide_ring(3, 256, 64, "w3wide", 64, 2) == (1, 24192, 4)
+        assert [kernel_config.wide_ring(3, 256, 64, "w3wide", r, 2)[0]
+                for r in kernel_config.MID_ROWS] == [2, 2, 1, 1]

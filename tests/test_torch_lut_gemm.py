@@ -322,37 +322,51 @@ GROUP_ACC = dict(block_n=256, block_k=256, chunk=256)
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
 @pytest.mark.parametrize("m", [16, 40, 64])
-@pytest.mark.parametrize("layout", ["w4sym", "plane2", "plane3", "plane4"])
+@pytest.mark.parametrize("layout", ["w4sym", "plane2", "plane3", "plane4", "w3wide", "pair2",
+                                    "pair3", "pair4"])
 def test_group_acc_branch_vs_port(layout, m, dtype):
     """The TPU kernel's group-accumulating decode branch (blocks of at most
     ``group_acc_max_bm`` rows: the regime the port's mid route serves, the
-    speculative verify's 40 rows among them) against the port's
-    ``lut_qgemm`` on the same numpy inputs: K1 (w4sym) and K2 (plane)."""
+    speculative verify's 40 rows and the paged engines' admissions among
+    them) against the port's ``lut_qgemm`` on the same numpy inputs: K1
+    (w4sym), K2 (plane), K3 (w3wide) and K4 (the joint pair table:
+    ``pair_values``, JAX's ``pair_lut`` mode)."""
     from flute_tpu.ops.kernel_config import KernelConfig as JKernelConfig
 
     block_m = 16 if m <= 16 else 64
     assert block_m <= jlut._group_acc_max_bm()
     jd, td, tol = DTYPES[dtype]
-    bits = 4 if layout == "w4sym" else int(layout[-1])
-    rng = np.random.default_rng(140 + bits + m)
+    bits = {"w4sym": 4, "w3wide": 3}.get(layout) or int(layout[-1])
+    rng = np.random.default_rng(140 + bits + m + 7 * layout.startswith("pair")
+                                + 11 * (layout == "w3wide"))
     codes = rng.integers(0, 2**bits, size=(K, N), dtype=np.int32)
+    pv = None
     if layout == "w4sym":
         planes = packing.pack_w4_sym_np(codes)
         table = sym_table(rng, mixed_signs=True)
+    elif layout == "w3wide":
+        planes = packing.pack_w3_wide_np(codes)
+        table = rng.standard_normal(8).astype(np.float32)
     else:
         planes = packing.pack_np(codes, bits)
         table = rng.standard_normal(2**bits).astype(np.float32)
+        if layout.startswith("pair"):
+            pv = rng.standard_normal((2**bits, 2**bits, 2)).astype(np.float32)
     scales = rng.uniform(0.5, 1.5, (K // G, N)).astype(np.float32)
     x = rng.standard_normal((m, K)).astype(np.float32)
-    kind = "w4sym" if layout == "w4sym" else "plane"
+    kind = layout if layout in ("w4sym", "w3wide") else "plane"
+    config = dict(block_m=block_m, **GROUP_ACC)
+    if pv is not None:
+        config["lut_mode"] = "pair_lut"
     want = jlut.lut_qgemm(
         jnp.asarray(x, jd), [jnp.asarray(p) for p in planes], jnp.asarray(scales, jd),
-        jnp.asarray(table), num_bits=bits, config=JKernelConfig(block_m=block_m, **GROUP_ACC),
-        layout=kind, interpret=True,
+        jnp.asarray(table), num_bits=bits, config=JKernelConfig(**config), layout=kind,
+        pair_values=None if pv is None else jnp.asarray(pv), interpret=True,
     )
     got = lut_gemm.lut_qgemm(
         torch.from_numpy(x).to(td), [torch.from_numpy(p) for p in planes],
         torch.from_numpy(scales).to(td), torch.from_numpy(table), num_bits=bits, layout=kind,
+        pair_values=None if pv is None else torch.from_numpy(pv),
     )
     assert got.dtype == td and tuple(got.shape) == (m, N)
     assert rel_err(f32(got), f32(want)) < tol
