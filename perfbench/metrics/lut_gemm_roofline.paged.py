@@ -1,0 +1,10 @@
+"""Kernels: the least time of the traced decode steps' LUT-GEMM calls at
+their real rows (``harness/counts.py``) over the device time of the
+kernels named by ``readers.LUT_GEMM_KERNELS`` inside those steps, percent,
+in the paged engine's cell."""
+
+from harness.readers import decode_steps, lut_roofline
+
+
+def read(run):
+    return lut_roofline(run, decode_steps(run.traced))

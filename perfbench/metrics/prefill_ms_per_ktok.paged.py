@@ -1,0 +1,9 @@
+"""Engine layer: the host time of the window's admitting steps per
+thousand prompt tokens they admitted, ms (the paged engine's chat cell,
+where every admission stalls the batch's decode)."""
+
+from harness.readers import prefill_ms_per_ktok
+
+
+def read(run):
+    return prefill_ms_per_ktok(run.window_steps())
